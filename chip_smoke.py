@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``dllama_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each failing loudly (non-zero exit, no result line):
+
+1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build the CUDA kernels from ``dllama_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the build time and ptxas register use;
+3. kernels K1 (Q40 tile matmul), K2 (Q40 decode GEMV) and K3 (flash
+   attention) on the card against their plain PyTorch versions at the
+   Llama 3.1 8B shapes of the main path, exact (f32) and fast (bf16): one
+   JSON line per case with the error, the median of >= 20 CUDA-event timed
+   runs (L2 flushed before each), the plain version's and a library call's
+   time, and the bound (the larger of bytes / 3.35 TB/s and operations /
+   peak rate); the fast logits head also times the dense bf16 ``F.linear``
+   that fast configs load it as;
+4. end to end at full Llama 3.1 8B width: write a synthetic Q40 model (random
+   blocks from a seed) and a 128256-piece tokenizer with the port's own
+   writers, run ``inference`` and ``perplexity`` through the port's CLI
+   ``main`` in process under ``--compute-dtype f32`` and ``bf16``, and check
+   the tokens, a finite perplexity and each path's launch counts (set to 0
+   before each run): K1, K2 and K3 for ``inference``, K1 and K3 for
+   ``perplexity``;
+5. model parity on the card: 2 layers at 8B widths, the kernel path
+   (``attn_impl=auto``, ``quant_impl=auto``) against the plain path (``xla``)
+   on the same weights and tokens: a 128-token prefill plus 8 teacher-forced
+   decode steps;
+6. the ``kernels`` JSON line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+``--layers N`` cuts the end-to-end depth (default 32, the full model).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+PEAK_OPS = {"f32": 67e12,     # FP32 outside the tensor cores
+            "bf16": 989e12}   # dense bf16 tensor cores
+SEED = 1234
+DEV = "cuda"
+
+# Llama 3.1 8B (meta-llama/Llama-3.1-8B config.json; the repo's 8b preset)
+DIM, HIDDEN, HEADS, KV_HEADS, HEAD_DIM, VOCAB = 4096, 14336, 32, 8, 128, 128256
+MATMULS_8B = [  # (name, K, N): one layer's seven matmuls and the head
+    ("wq", DIM, HEADS * HEAD_DIM), ("wk", DIM, KV_HEADS * HEAD_DIM),
+    ("wv", DIM, KV_HEADS * HEAD_DIM), ("wo", HEADS * HEAD_DIM, DIM),
+    ("w1", DIM, HIDDEN), ("w3", DIM, HIDDEN), ("w2", HIDDEN, DIM),
+    ("head", DIM, VOCAB)]
+MAX_SEQ = 2048
+
+# kernel-vs-plain tolerances, relative to max|plain output|:
+#   exact: f32 sums in another order over K up to 14336 terms;
+#   fast: both sides cast the f32 result to bf16 (one bf16 ulp ~ 2^-8)
+TOL = {"exact": 1e-4, "fast": 1e-2}
+# model parity (2 layers + head, logits relative to max|logits|, Q80 sync
+# off: a Q80 requantization turns a last-ulp difference into a whole int8
+# step): exact carries f32 sums taken in another order through 15 matmuls
+# and 2 attentions; fast adds the bf16 rounding of every activation, where
+# one flipped ulp propagates to the next layer
+PARITY_TOL = {"exact": 1e-4, "fast": 5e-2}
+
+
+def fail(msg: str) -> None:
+    print(f"❌ {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+class Timer:
+    """Median CUDA-event time of one call, with the 50 MB L2 flushed before
+    every timed run (the decode path streams each weight once per token).
+    The flush writes 1 GiB, about 0.3 ms of device work, so the host has
+    enqueued the timed call before the device reaches it: the events time
+    the device work, not the wrapper's Python."""
+
+    def __init__(self, n: int = 21):
+        self.n = n
+        self.flush = torch.empty(1024 * 1024 * 1024 // 4, dtype=torch.float32,
+                                 device=DEV)
+
+    def __call__(self, fn) -> float:
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(self.n):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            times.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def random_planes(K: int, N: int, fast: bool, g: torch.Generator):
+    from dllama_tpu_torch.ops.linear import QuantizedWeight
+
+    codes = torch.randint(-8, 8, (K, N), generator=g, device=DEV, dtype=torch.int8)
+    scales = torch.rand((K // 32, N), generator=g, device=DEV) * 0.01 + 0.002
+    return QuantizedWeight(scales=scales.to(torch.bfloat16 if fast else torch.float32),
+                           codes=codes)
+
+
+def matmul_cases(timer: Timer, results: list) -> None:
+    from dllama_tpu_torch.ops import quant_matmul as qm
+    from dllama_tpu_torch.ops.linear import dequantize_weight, linear
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    for mode in ("exact", "fast"):
+        fast = mode == "fast"
+        act = torch.bfloat16 if fast else torch.float32
+        for name, K, N in MATMULS_8B:
+            w = random_planes(K, N, fast, g)
+            wd = dequantize_weight(w, act)  # the library yardstick's operand
+            # fast configs load the logits head as a dense bf16 [vocab, dim]
+            # matrix (the loader's rule) and run it through ``linear``'s
+            # F.linear: time that beside K1/K2 on the same weights
+            head_dense = wd.t().contiguous() if fast and name == "head" else None
+            # every shape at decode (M = 1) and a 128-token chunk; one shape
+            # also at the other widths the main path gives the kernels: K2's
+            # multi-row variants (a context-tail chunk) and the 32- and
+            # 256-token prefill chunks
+            widths = [("K2", 1), ("K1", 128)]
+            if name == "wq":
+                widths += [("K2", 4), ("K2", 16), ("K1", 32), ("K1", 256)]
+            for kname, M in widths:
+                fn = qm.q40_gemv if kname == "K2" else qm.q40_matmul
+                x = torch.randn((M, K), generator=g, device=DEV).to(act)
+                got = fn(x, w, fast=fast).float()
+                want = qm.quant_matmul_plain(x, w, fast=fast).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                ms = timer(lambda: fn(x, w, fast=fast))
+                plain_ms = timer(lambda: qm.quant_matmul_plain(x, w, fast=fast))
+                lib_ms = timer(lambda: torch.matmul(x, wd))
+                elt = 2 if fast else 4
+                n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
+                b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16" if fast else "f32")
+                rec = dict(case="matmul", kernel=kname, mode=mode, weight=name, M=M,
+                           K=K, N=N, max_abs_err=err, max_abs_ref=scale, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+                if head_dense is not None:
+                    rec["dense_head_ms"] = timer(lambda: linear(x, head_dense))
+                print(json.dumps(rec), flush=True)
+                results.append(rec)
+                if not (err <= TOL[mode] * scale) or not math.isfinite(err):
+                    fail(f"{kname} {mode} {name} M={M}: max|err| {err:.3g} > "
+                         f"{TOL[mode]} x max|y| {scale:.3g}")
+            del w, wd, head_dense
+    torch.cuda.empty_cache()
+
+
+def attention_cases(timer: Timer, results: list) -> None:
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops.attention import attention
+    from dllama_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    S = MAX_SEQ
+    # decode over depths up to S, the 128- and 256-token prefill chunks, and
+    # the kernel's other head size (64, e.g. Llama 3.2 1B) at depth
+    cases = [("decode", 1, p, HEAD_DIM) for p in (0, 127, 128, 1023, S - 1)] + [
+        ("prefill", 128, 0, HEAD_DIM), ("prefill", 128, 1024, HEAD_DIM),
+        ("prefill", 256, 0, HEAD_DIM), ("decode", 1, S - 1, 64)]
+    for mode in ("exact", "fast"):
+        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
+        caches = {D: [torch.randn((1, KV_HEADS, S, D), generator=g, device=DEV).to(kv_dt)
+                      for _ in range(2)] for D in (HEAD_DIM, 64)}
+        for phase, T, pos, D in cases:
+            k, v = caches[D]
+            q = torch.randn((1, T, HEADS, D), generator=g, device=DEV)
+            positions = (pos + torch.arange(T, device=DEV))[None, :]
+            got = flash_attention(q, k, v, pos, D)
+            want = attention(q, k, v, positions, D)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            qs = q.transpose(1, 2).to(kv_dt)
+            mask = torch.arange(S, device=DEV)[None, :] <= positions[0][:, None]
+            ms = timer(lambda: flash_attention(q, k, v, pos, D))
+            plain_ms = timer(lambda: attention(q, k, v, positions, D))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask, enable_gqa=True))
+            visible = sum(pos + t + 1 for t in range(T))  # keys per q head
+            elt = k.element_size()
+            n_bytes = 2 * T * HEADS * D * 4 + 2 * (pos + T) * KV_HEADS * D * elt
+            b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible, "f32")
+            rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, T=T,
+                       start_pos=pos, S=S, head_dim=D, max_abs_err=err,
+                       max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+            # f32 online softmax vs the one-shot oracle: reordered sums/exps
+            if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
+                fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err:.3g}")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: end to end at 8B width
+# ---------------------------------------------------------------------------
+
+
+def write_tokenizer(path: str) -> None:
+    """128256 pieces (Llama 3's vocab size): the 256 bytes, printable filler
+    pieces that never occur in the prompts (so every prompt byte is one
+    token), bos/eos at 128000/128001 and reserved specials after."""
+    from dllama_tpu_torch.formats.tfile import TokenizerData, write_tfile
+
+    n_regular = 128000
+    vocab = [bytes([b]) for b in range(256)]
+    vocab += [b" tok%06d" % i for i in range(n_regular - 256)]
+    vocab += [b"<|begin_of_text|>", b"<|end_of_text|>"]
+    vocab += [b"<|reserved_%d|>" % i for i in range(VOCAB - len(vocab))]
+    write_tfile(path, TokenizerData(
+        vocab=vocab, scores=[0.0] * len(vocab), bos_id=n_regular, add_bos=True,
+        eos_token_ids=[n_regular + 1], max_token_length=max(map(len, vocab))))
+
+
+def write_model(path: str, n_layers: int) -> None:
+    """Synthetic Llama 3.1 8B-shaped Q40 model: random Q40 blocks (random
+    nibbles, f16 scales ~0.004 so weights have std ~0.02) and f32 norms and
+    embedding, all drawn on the card from a seeded generator."""
+    from dllama_tpu_torch.formats.mfile import ArchType, HiddenAct, RopeType, write_header
+    from dllama_tpu_torch.formats.quants import Q40, q40_blocks
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+
+    def f32(n_rows: int, n_cols: int, base: float, scale: float, f) -> None:
+        for lo in range(0, n_rows, 8192):
+            rows = min(8192, n_rows - lo)
+            x = torch.randn((rows, n_cols), generator=g, device=DEV) * scale + base
+            f.write(x.cpu().numpy().tobytes())
+
+    def q40(out_dim: int, in_dim: int, f) -> None:
+        nb = out_dim * in_dim // 32
+        scales = (torch.rand(nb, generator=g, device=DEV) * 0.004 + 0.002).half()
+        # nibbles 1..15 (codes -7..7, mean 0, like quantized zero-mean
+        # weights): a full 0..15 draw has mean code -0.5, a bias that every
+        # matmul multiplies by ~0.5 * scale * K and the layers compound
+        lo, hi = (torch.randint(1, 16, (nb, 16), generator=g, device=DEV,
+                                dtype=torch.uint8) for _ in range(2))
+        f.write(q40_blocks(scales.cpu().numpy(), (lo | (hi << 4)).cpu().numpy()))
+
+    header = dict(version=1, arch_type=int(ArchType.LLAMA), dim=DIM, hidden_dim=HIDDEN,
+                  n_layers=n_layers, n_heads=HEADS, n_kv_heads=KV_HEADS,
+                  vocab_size=VOCAB, seq_len=131072, hidden_act=int(HiddenAct.SILU),
+                  rope_theta=500000, weight_float_type=Q40,
+                  rope_type=int(RopeType.LLAMA3_1), head_dim=HEAD_DIM, norm_epsilon=5,
+                  rope_scaling_factor=8, rope_scaling_low_freq_factor=1,
+                  rope_scaling_high_freq_factory=4, rope_scaling_orig_max_seq_len=8192)
+    q_dim, kv_dim = HEADS * HEAD_DIM, KV_HEADS * HEAD_DIM
+    with open(path, "wb") as f:
+        write_header(f, header)
+        f32(VOCAB, DIM, 0.0, 1.0, f)  # embedding
+        for _ in range(n_layers):
+            for out_dim, in_dim in ((q_dim, DIM), (kv_dim, DIM), (kv_dim, DIM),
+                                    (DIM, q_dim), (HIDDEN, DIM), (DIM, HIDDEN),
+                                    (HIDDEN, DIM)):
+                q40(out_dim, in_dim, f)
+            f32(1, DIM, 1.0, 0.02, f)  # block_norm_0
+            f32(1, DIM, 1.0, 0.02, f)  # block_norm_1
+        f32(1, DIM, 1.0, 0.02, f)      # final_norm
+        q40(VOCAB, DIM, f)             # final_matmul_logits
+
+
+PROMPT = ("The quick brown fox jumps over the lazy dog while the synthetic "
+          "model answers with whatever its random weights prefer; this prompt "
+          "is long enough that its prefill fills a 128-token chunk, a 64-token "
+          "chunk and a padded 32-token tail before decoding starts.")
+
+
+def run_cli(argv: list[str]) -> str:
+    from dllama_tpu_torch.serve import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"cli {argv[0]} exited {rc}:\n{out}")
+    return out
+
+
+def stat(lines: list[str], section: str, key: str) -> float:
+    """A number of the CLI's stats block: ``key`` under ``section``."""
+    i = lines.index(section)
+    return float(next(ln.split()[1] for ln in lines[i + 1:] if ln.strip().startswith(key)))
+
+
+def decode_profile(model: str, tok: str, dtype: str) -> dict:
+    """Where a decode step's time goes: 16 greedy steps after the prompt's
+    prefill, under ``torch.profiler``. Device busy share = the kernels' summed
+    device time over the host wall time of the steps; the rest is the
+    device idling while the host enqueues the eager ops."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                          temperature=0.0)
+    try:
+        ids = eng.tokenizer.encode(PROMPT)
+        eng.prefill(ids[:-1])
+        token = ids[-1]
+        for _ in range(4):
+            token = eng.next_token(token)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        n = 16
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                token = eng.next_token(token)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng.close()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(case="decode_profile", compute_dtype=dtype, steps=n,
+                wall_ms_per_step=wall_ms / n,
+                device_ms_per_step=busy_ms / n if busy_ms else "not measured",
+                device_busy_share=busy_ms / wall_ms if busy_ms else "not measured",
+                kernels_per_step=sum(e.count for e in kernels) / n,
+                top_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / n
+                                 for e in top})
+
+
+def main_path(tmp: str, n_layers: int, summary: dict) -> None:
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops import quant_matmul as qm
+
+    model, tok, text = (os.path.join(tmp, n) for n in ("llama31_8b.m", "tok.t", "ppl.txt"))
+    t0 = time.perf_counter()
+    write_tokenizer(tok)
+    write_model(model, n_layers)
+    with open(text, "w", encoding="utf-8") as f:
+        f.write(PROMPT * 2)
+    print(f"📝 synthetic 8B model: {os.path.getsize(model) / 1e9:.2f} GB, "
+          f"{n_layers} layers, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    for dtype in ("f32", "bf16"):
+        common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                  "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        launches = {}
+
+        def counted(path: str, argv: list[str]) -> str:
+            # each path's counts: set to 0 just before its run, read just after
+            qm.q40_matmul.launches = qm.q40_gemv.launches = fa.flash_attention.launches = 0
+            out = run_cli(argv)
+            launches[path] = {"K1": qm.q40_matmul.launches, "K2": qm.q40_gemv.launches,
+                              "K3": fa.flash_attention.launches}
+            return out
+
+        out = counted("inference", ["inference", *common, "--prompt", PROMPT, "--steps",
+                                    str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
+        ppl_out = counted("perplexity", ["perplexity", *common, "--file", text])
+        wall_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lines = out.splitlines()
+        n_prompt = int(stat(lines, "Evaluation", "nTokens:")) + 1
+        n_pred = int(stat(lines, "Prediction", "nTokens:"))
+        ppl_lines = ppl_out.splitlines()
+        ppl = float(next(ln for ln in ppl_lines if "Perplexity" in ln).split()[-1])
+        ppl_tokens = int(next(ln for ln in ppl_lines if "nTokens" in ln).split()[-1])
+        rec = dict(case="e2e", compute_dtype=dtype, layers=n_layers,
+                   prompt_tokens=n_prompt, generated=n_pred,
+                   prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                   decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                   perplexity=ppl, perplexity_tokens=ppl_tokens,
+                   peak_gb=peak_gb, cli_wall_s=wall_s, launches=launches)
+        print(json.dumps(rec), flush=True)
+        summary[dtype] = rec
+        if n_prompt < 200:
+            fail(f"{dtype}: the prompt has {n_prompt} tokens, need >= 200")
+        if n_pred != 64:
+            fail(f"{dtype}: generated {n_pred} tokens, want 64")
+        if not math.isfinite(ppl) or ppl <= 1.0:
+            fail(f"{dtype}: perplexity {ppl} is not a finite value above 1")
+        # inference prefills (K1, K3) and decodes (K2, K3); perplexity runs
+        # only prefill chunks wider than K2's 16 rows
+        for path, kernels in (("inference", ("K1", "K2", "K3")),
+                              ("perplexity", ("K1", "K3"))):
+            if min(launches[path][k] for k in kernels) <= 0:
+                fail(f"{dtype} {path}: a kernel of the path never launched: "
+                     f"{launches[path]}")
+        torch.cuda.empty_cache()
+        print(json.dumps(decode_profile(model, tok, dtype)), flush=True)
+        torch.cuda.empty_cache()
+    # fast numerics round weights and activations to bf16 but must score the
+    # same text about as the exact path does
+    rel = abs(summary["bf16"]["perplexity"] / summary["f32"]["perplexity"] - 1.0)
+    if not rel <= 0.05:
+        fail(f"bf16 perplexity differs from f32 by {rel:.3g} (> 5%)")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel path vs plain path through the model
+# ---------------------------------------------------------------------------
+
+
+def model_parity(results: dict) -> None:
+    from dataclasses import replace
+
+    from dllama_tpu_torch.formats.mfile import ArchType, RopeType
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.models.llama import forward, init_random_params
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops import quant_matmul as qm
+    from dllama_tpu_torch.runtime.kvcache import KVCache
+
+    for mode, dtype in (("exact", "float32"), ("fast", "bfloat16")):
+        cfg = ModelConfig(
+            arch=ArchType.LLAMA, dim=DIM, hidden_dim=HIDDEN, n_layers=2, n_heads=HEADS,
+            n_kv_heads=KV_HEADS, head_dim=HEAD_DIM, vocab_size=VOCAB, seq_len=MAX_SEQ,
+            norm_epsilon=1e-5, rope_theta=500000.0, rope_type=RopeType.LLAMA3_1,
+            rope_scaling_factor=8.0, rope_scaling_low_freq_factor=1.0,
+            rope_scaling_high_freq_factor=4.0, rope_scaling_orig_max_seq_len=8192,
+            compute_dtype=dtype)
+        params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 2)
+        tokens = torch.randint(0, VOCAB, (1, 136), generator=g, device=DEV)
+        outs = {}
+        for path, impl in (("kernel", "auto"), ("plain", "xla")):
+            c = replace(cfg, attn_impl=impl, quant_impl=impl)
+            kv = KVCache.create(c, dtype=getattr(torch, dtype), device=DEV)
+            qm.q40_matmul.launches = qm.q40_gemv.launches = fa.flash_attention.launches = 0
+            logits = [forward(params, c, tokens[:, :128], 0, kv)[0][0]]
+            prefill_counts = (qm.q40_matmul.launches, qm.q40_gemv.launches,
+                              fa.flash_attention.launches)
+            for t in range(128, 136):  # teacher-forced decode steps
+                logits.append(forward(params, c, tokens[:, t:t + 1], t, kv)[0][0])
+            outs[path] = torch.cat(logits).float()
+            if path == "kernel":
+                decode = (qm.q40_matmul.launches - prefill_counts[0],
+                          qm.q40_gemv.launches - prefill_counts[1],
+                          fa.flash_attention.launches - prefill_counts[2])
+                per = {"prefill_128": dict(zip(("K1", "K2", "K3"), prefill_counts)),
+                       "decode_8": dict(zip(("K1", "K2", "K3"), decode))}
+        torch.cuda.synchronize()
+        err = (outs["kernel"] - outs["plain"]).abs().max().item()
+        scale = outs["plain"].abs().max().item()
+        rec = dict(case="parity", mode=mode, layers=2, max_abs_err=err,
+                   max_abs_logit=scale, tol=PARITY_TOL[mode], launches_2_layers=per)
+        print(json.dumps(rec), flush=True)
+        results[mode] = rec
+        if not (err <= PARITY_TOL[mode] * scale) or not math.isfinite(scale):
+            fail(f"model parity {mode}: max|err| {err:.3g} > {PARITY_TOL[mode]} "
+                 f"x max|logit| {scale:.3g}")
+        del params, outs
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernels_line(cases: list, e2e: dict) -> dict:
+    """One entry per kernel and numerics mode: times summed over one
+    layer's seven matmuls and the head (K1 at M=128, K2 at M=1), or the
+    deepest decode / the cold 128-token prefill (K3)."""
+    src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
+                  "dllama_tpu/ops/quant_matmul.py:51", "q40_matmul (tile, M=128)"),
+           "K2": ("dllama_tpu_torch/csrc/quant_matmul.cu",
+                  "dllama_tpu/ops/quant_matmul.py:100", "q40_gemv (decode, M=1)"),
+           "K3": ("dllama_tpu_torch/csrc/flash_attention.cu",
+                  "dllama_tpu/ops/flash_attention.py:44", "flash_attention")}
+    out = []
+    for kname in ("K1", "K2", "K3"):
+        for mode in ("exact", "fast"):
+            e2e_dtype = "f32" if mode == "exact" else "bf16"
+            ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
+            groups = ([("", [c for c in ours if c["M"] == (1 if kname == "K2" else 128)])]
+                      if kname != "K3" else
+                      [(" decode T=1 @2047", [c for c in ours if c["phase"] == "decode"
+                                              and c["start_pos"] == MAX_SEQ - 1
+                                              and c["head_dim"] == HEAD_DIM]),
+                       (" prefill T=128 @0", [c for c in ours if c["phase"] == "prefill"
+                                              and c["start_pos"] == 0 and c["T"] == 128])])
+            by_path = {p: n[kname] for p, n in e2e[e2e_dtype]["launches"].items()}
+            for suffix, sel in groups:
+                b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
+                b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
+                out.append(dict(
+                    name=f"{kname} {src[kname][2]}{suffix} [{mode}]", route="cuda",
+                    source=src[kname][0], replaces=src[kname][1],
+                    launches=sum(by_path.values()), launches_by_path=by_path,
+                    max_abs_err=max(c["max_abs_err"] for c in sel),
+                    ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
+                    bound_ms=b_bytes + b_ops,
+                    bound_by="bytes" if b_bytes >= b_ops else "operations",
+                    library_ms=sum(c["library_ms"] for c in sel)))
+    return {"kernels": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32,
+                    help="end-to-end depth (width is never cut)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    try:
+        from dllama_tpu_torch.ops import cuda_build
+    except ImportError as e:
+        fail(f"cannot import the port ({e}): run from the root of a checkout")
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    secs = cuda_build.build()
+    print(f"🔨 kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})", flush=True)
+    for name, log in cuda_build.BUILD_LOG.items():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                print(f"   ptxas [{name}] {ln.split(chr(39))[1][:90]}")
+            elif "registers" in ln or "spill" in ln:
+                print(f"   ptxas [{name}]   {ln.split(':', 1)[-1].strip()}")
+
+    cases: list = []
+    timer = Timer()
+    matmul_cases(timer, cases)
+    attention_cases(timer, cases)
+    del timer
+    torch.cuda.empty_cache()
+    e2e: dict = {}
+    with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
+        main_path(tmp, args.layers, e2e)
+    model_parity({})
+
+    print(f"⏱️ smoke run took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps(kernels_line(cases, e2e)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

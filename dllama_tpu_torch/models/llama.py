@@ -1,0 +1,319 @@
+"""Dense Llama 2/3/3.1 and Qwen3 forward (the port of the JAX package's
+``models/llama.py``, dense single-device path).
+
+The per-layer graph is the reference's (buildLlmNet, src/llm.cpp:226-443):
+[rms_norm, q/k/v matmuls, (qwen3 per-head q/k norms), rope, KV append,
+causal GQA attention, wo matmul + residual] + [rms_norm, w1/w3, silu·up, w2
+matmul + residual], with the Q80 fake-quant casts at the reference's sync
+points when ``cfg.sync_q80`` is on. The JAX package scans a stacked layer
+axis inside one jitted program; here a Python loop walks a list of layers
+and each op launches eagerly. Sharding, activation taps, weight offload and
+MoE are not ported.
+
+Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
+(``cfg.quant_impl``) and K3 through
+:func:`~dllama_tpu_torch.ops.flash_attention.flash_attention`
+(``cfg.attn_impl``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..formats.mfile import ArchType, HiddenAct
+from ..ops.attention import attention
+from ..ops.flash_attention import flash_attention
+from ..ops.linear import QuantizedWeight, Weight, fake_quant_q80, linear
+from ..ops.norms import rms_norm, rms_norm_per_head
+from ..runtime.kvcache import KVCache, update_layer
+from .config import ModelConfig
+from .rope import apply_rope, build_rope_cache
+
+
+@dataclass
+class LayerParams:
+    """One transformer block's weights (dense ``[out, in]`` or Q40 planes)."""
+
+    wq: Weight  # [q_dim, dim]
+    wk: Weight  # [kv_dim, dim]
+    wv: Weight  # [kv_dim, dim]
+    wo: Weight  # [dim, q_dim]
+    w1: Weight  # [hidden_dim, dim] (gate)
+    w2: Weight  # [dim, hidden_dim] (down)
+    w3: Weight  # [hidden_dim, dim] (up)
+    norm_att: torch.Tensor  # [dim]
+    norm_ffn: torch.Tensor  # [dim]
+    norm_q: torch.Tensor | None = None  # [head_dim] (qwen3)
+    norm_k: torch.Tensor | None = None
+
+
+@dataclass
+class Params:
+    embedding: torch.Tensor  # [vocab, dim], stored at the compute dtype
+    layers: list[LayerParams]
+    final_norm: torch.Tensor  # [dim]
+    logits: Weight  # [vocab, dim]
+    # cos/sin rope tables [seq_len, head_dim/2] f32 on the params' device
+    rope: tuple[torch.Tensor, torch.Tensor]
+
+
+def _use_flash(cfg: ModelConfig, q: torch.Tensor) -> bool:
+    """The attention choice of the JAX package's ``_use_flash``: ``xla`` =
+    the oracle; ``flash`` = the kernel wrapper; ``auto`` = the kernel wrapper
+    on a CUDA tensor (which launches K3 or raises on shapes it cannot take,
+    never the oracle) and the oracle on a CPU tensor."""
+    if cfg.attn_impl not in ("auto", "xla", "flash"):
+        raise ValueError(f"attn_impl must be auto|xla|flash, got {cfg.attn_impl!r}")
+    if cfg.attn_impl == "xla":
+        return False
+    return cfg.attn_impl == "flash" or q.device.type == "cuda"
+
+
+def _hidden_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.hidden_act == HiddenAct.SILU:
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")  # reference gelu_F32, nn-cpu-ops.cpp:1133
+
+
+def _fq(cfg: ModelConfig):
+    return fake_quant_q80 if cfg.sync_q80 else (lambda a: a)
+
+
+def _attn_qkv(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
+              cos: torch.Tensor, sin: torch.Tensor, positions, fq):
+    """Attention prologue: pre-norm, QKV projections, optional qk-norm,
+    rope. Returns post-rope ``q [B, T, n_heads, hd]``, ``k/v [B, T, n_kv, hd]``."""
+    B, T, _ = x.shape
+    impl = cfg.quant_impl
+    h = fq(rms_norm(x, lp.norm_att, cfg.norm_epsilon))
+    q = linear(h, lp.wq, impl=impl).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = linear(h, lp.wk, impl=impl).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(h, lp.wv, impl=impl).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.uses_qk_norm:
+        q = rms_norm_per_head(q, lp.norm_q, cfg.norm_epsilon)
+        k = rms_norm_per_head(k, lp.norm_k, cfg.norm_epsilon)
+    q = apply_rope(q, cos, sin, positions, cfg.rope_type)
+    k = apply_rope(k, cos, sin, positions, cfg.rope_type)
+    return q, k, v
+
+
+def _attn_out_and_ffn(cfg: ModelConfig, x: torch.Tensor, att: torch.Tensor,
+                      lp: LayerParams, fq) -> torch.Tensor:
+    """Layer epilogue: output projection + residual, then the ffn half."""
+    B, T, _ = x.shape
+    impl = cfg.quant_impl
+    x = x + fq(linear(fq(att.reshape(B, T, cfg.q_dim)), lp.wo, impl=impl))
+    h = fq(rms_norm(x, lp.norm_ffn, cfg.norm_epsilon))
+    gate = _hidden_act(cfg, linear(h, lp.w1, impl=impl))
+    up = linear(h, lp.w3, impl=impl)
+    return x + fq(linear(fq(gate * up), lp.w2, impl=impl))
+
+
+def _layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, start_pos, positions):
+    """One transformer block. ``x: [B, T, dim]``; this layer's caches are
+    head-major ``[B, n_kv, S, hd]`` and are written in place."""
+    fq = _fq(cfg)
+    q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
+    update_layer(k_cache, v_cache, k, v, start_pos)
+    if _use_flash(cfg, q):
+        att = flash_attention(q, k_cache, v_cache, start_pos, cfg.head_dim)
+    else:
+        att = attention(q, k_cache, v_cache, _position_tensor(positions, q),
+                        cfg.head_dim)
+    return _attn_out_and_ffn(cfg, x, att, lp, fq)
+
+
+def _position_tensor(positions, q: torch.Tensor) -> torch.Tensor:
+    """``[B, T]`` positions from a table slice (uniform rows) or tensor."""
+    if isinstance(positions, slice):
+        B, T = q.shape[:2]
+        return torch.arange(positions.start, positions.stop,
+                            device=q.device).expand(B, T)
+    return positions
+
+
+def rope_tables(cfg: ModelConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
+    cos, sin = build_rope_cache(cfg)
+    return (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            start_pos: int | torch.Tensor, kv: KVCache
+            ) -> tuple[torch.Tensor, KVCache]:
+    """Full forward: ``tokens [B, T]`` at absolute ``start_pos`` → float32
+    logits ``[B, T, vocab]``; ``kv`` is updated in place and returned.
+
+    ``start_pos`` is an int (all rows at one position) or an int tensor
+    ``[B]`` of per-row positions.
+    """
+    B, T = tokens.shape
+    x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
+    cos, sin = params.rope
+    if torch.is_tensor(start_pos):
+        positions = start_pos.to(x.device).long()[:, None] + torch.arange(
+            T, device=x.device)[None, :]
+    else:
+        positions = slice(int(start_pos), int(start_pos) + T)
+    for l, lp in enumerate(params.layers):
+        x = _layer_step(cfg, x, lp, kv.k[l], kv.v[l], cos, sin, start_pos, positions)
+    x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
+    if cfg.sync_q80:  # final cast before the logits matmul (llm.cpp:445-486)
+        x = fake_quant_q80(x)
+    logits = linear(x, params.logits, impl=cfg.quant_impl).float()
+    return logits, kv
+
+
+def greedy_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                start_pos, kv: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """Forward + argmax of the last position: next token ids ``[B]``."""
+    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    return torch.argmax(logits[:, -1, :], dim=-1), kv
+
+
+def sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 start_pos, kv: KVCache, temperature, topp, coin
+                 ) -> tuple[torch.Tensor, KVCache]:
+    """Forward + temperature/top-p sample of the last position; the host
+    steps its xorshift* RNG and passes the coin in."""
+    from ..ops.sampling import sampled_token
+
+    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    return sampled_token(logits[:, -1, :], temperature, topp, coin), kv
+
+
+def nll_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood ``logsumexp(logits) - logits[target]``
+    for ``logits [B, T, vocab]`` float32 and ``targets [B, T]``."""
+    m = torch.amax(logits, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - picked
+
+
+def prefill_nll(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                targets: torch.Tensor, start_pos, kv: KVCache
+                ) -> tuple[torch.Tensor, KVCache]:
+    """Teacher-forced prefill: per-position NLL ``[B, T]`` plus the cache."""
+    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    return nll_from_logits(logits, targets), kv
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+
+def _dense(a, device) -> torch.Tensor:
+    """A dense numpy leaf as a tensor of the same dtype (a bfloat16 numpy
+    array goes through float32, which holds it exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                         dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a copy: leaves may be read-only
+
+
+def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
+    """The port's :class:`Params` from the JAX package's ``Params`` tree with
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``).
+
+    Stacked ``[L, ...]`` leaves split per layer. A weight leaf carrying
+    ``scales``/``codes`` planes stays quantized in its K-major layout, with
+    the scales stored bf16 under bf16 compute (as the loader stores them —
+    the same values a fast-mode dequant rounds to); dense leaves keep their
+    dtype; the embedding is stored at the compute dtype. Duck-typed: nothing
+    of the JAX package is imported."""
+    from ..ops.linear import fast_numerics_resolved
+
+    scale_dtype = (torch.bfloat16 if fast_numerics_resolved(cfg.compute_dtype)
+                   else torch.float32)
+
+    def weight(w, l=None) -> Weight:
+        pick = (lambda a: np.asarray(a)) if l is None else (lambda a: np.asarray(a)[l])
+        if hasattr(w, "codes"):
+            return QuantizedWeight(
+                scales=_dense(pick(w.scales), device).to(scale_dtype),
+                codes=_dense(pick(w.codes), device))
+        return _dense(pick(w), device)
+
+    def vec(a, l=None) -> torch.Tensor:
+        a = np.asarray(a) if l is None else np.asarray(a)[l]
+        return _dense(a, device).float()
+
+    lay = tree.layers
+    qwen3 = cfg.arch == ArchType.QWEN3
+    layers = [
+        LayerParams(
+            wq=weight(lay.wq, l), wk=weight(lay.wk, l), wv=weight(lay.wv, l),
+            wo=weight(lay.wo, l), w1=weight(lay.w1, l), w2=weight(lay.w2, l),
+            w3=weight(lay.w3, l),
+            norm_att=vec(lay.norm_att, l), norm_ffn=vec(lay.norm_ffn, l),
+            norm_q=vec(lay.norm_q, l) if qwen3 else None,
+            norm_k=vec(lay.norm_k, l) if qwen3 else None)
+        for l in range(cfg.n_layers)
+    ]
+    return Params(
+        embedding=vec(tree.embedding).to(getattr(torch, cfg.compute_dtype)),
+        layers=layers,
+        final_norm=vec(tree.final_norm),
+        logits=weight(tree.logits),
+        rope=rope_tables(cfg, device),
+    )
+
+
+def init_random_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
+                       quantized: bool = False, device="cpu") -> Params:
+    """Random params for tests and the on-card parity check (shape-identical
+    to a loaded model). Q40 planes are drawn directly as random codes and
+    scales on ``device`` from a seeded generator (no host quantization, so
+    full-width models build in seconds); dense weights are normal draws."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    fast = cfg.compute_dtype == "bfloat16"
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    def mk(out, in_) -> Weight:
+        if not quantized:
+            return rand(out, in_)
+        # codes in [-7, 7], mean 0 like quantized zero-mean weights (a
+        # uniform draw over [-8, 7] has mean -0.5, a common-mode bias that
+        # each matmul multiplies by ~0.5 * scale * K and the layers compound)
+        codes = torch.randint(-7, 8, (in_, out), generator=g, device=device,
+                              dtype=torch.int8)
+        # code std is sqrt(56/3) ~ 4.32: scale the blocks so weights keep std ~scale
+        scales = (torch.rand((in_ // 32, out), generator=g, device=device)
+                  * 0.5 + 0.75) * (scale / 4.32)
+        return QuantizedWeight(
+            scales=scales.to(torch.bfloat16 if fast else torch.float32), codes=codes)
+
+    qwen3 = cfg.arch == ArchType.QWEN3
+    layers = [
+        LayerParams(
+            wq=mk(cfg.q_dim, cfg.dim), wk=mk(cfg.kv_dim, cfg.dim),
+            wv=mk(cfg.kv_dim, cfg.dim), wo=mk(cfg.dim, cfg.q_dim),
+            w1=mk(cfg.hidden_dim, cfg.dim), w2=mk(cfg.dim, cfg.hidden_dim),
+            w3=mk(cfg.hidden_dim, cfg.dim),
+            norm_att=1.0 + rand(cfg.dim), norm_ffn=1.0 + rand(cfg.dim),
+            norm_q=1.0 + rand(cfg.head_dim) if qwen3 else None,
+            norm_k=1.0 + rand(cfg.head_dim) if qwen3 else None)
+        for _ in range(cfg.n_layers)
+    ]
+    logits = mk(cfg.vocab_size, cfg.dim)
+    if quantized and fast:  # fast configs keep a dense bf16 head (loader rule)
+        from ..ops.linear import dequantize_weight
+
+        logits = dequantize_weight(logits, torch.bfloat16).t().contiguous()
+    return Params(
+        embedding=rand(cfg.vocab_size, cfg.dim).to(getattr(torch, cfg.compute_dtype)),
+        layers=layers,
+        final_norm=1.0 + rand(cfg.dim),
+        logits=logits,
+        rope=rope_tables(cfg, device),
+    )

@@ -1,0 +1,127 @@
+"""Linear/matmul ops over dense or Q40-quantized weights, and the Q80
+activation fake-quantization (the port of the JAX package's ``ops/linear.py``).
+
+Q40 weights stay in the block domain as two device planes in the JAX
+package's K-major layout (:class:`QuantizedWeight`), and the matmul
+dequantizes on the fly: on a CUDA tensor through the hand-written kernels of
+:mod:`dllama_tpu_torch.ops.quant_matmul` (K1 for prefill widths, K2 for
+decode widths), on a CPU tensor through their plain PyTorch version.
+
+Numerics follow the JAX package's exact/fast split: a float32 activation
+graph runs *exact* (f32 dequant, f32 products and sums — parity with the
+reference goldens); a bfloat16 graph (``--compute-dtype bf16``) runs *fast*
+(bf16 dequant and operands, f32 accumulation). Scales stored in bf16 were
+written by a fast-mode load and force fast numerics whatever the activation
+dtype (an "exact" f32 dequant over bf16 scales would be fake exactness).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..formats.quants import Q40_BLOCK_SIZE, Q80_BLOCK_SIZE
+
+
+class QuantizedWeight(NamedTuple):
+    """Q40 weight as K-major planes (the JAX package's layout).
+
+    ``scales``: ``[in // 32, out]`` block scales, float32 in exact configs,
+    bfloat16 in fast configs. ``codes``: int8 ``[in, out]`` centered 4-bit
+    codes in [-8, 7]. Logical value: ``w[o, i] = codes[i, o] * scales[i // 32, o]``.
+    """
+
+    scales: torch.Tensor
+    codes: torch.Tensor
+
+    @property
+    def out_features(self) -> int:
+        return self.codes.shape[-1]
+
+    @property
+    def in_features(self) -> int:
+        return self.codes.shape[-2]
+
+
+Weight = Union[torch.Tensor, QuantizedWeight]
+
+
+def dequantize_weight(w: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
+    """Expand Q40 planes to a dense K-major ``[in, out]`` tensor. The product
+    is taken in ``dtype`` (a bf16 dequant rounds ``code * scale`` to bf16)."""
+    scales = torch.repeat_interleave(w.scales.to(dtype), Q40_BLOCK_SIZE, dim=-2)
+    return w.codes.to(dtype) * scales
+
+
+def fast_numerics_resolved(compute_dtype: str) -> bool:
+    """Load-time exact/fast resolution keyed on the config's compute dtype:
+    decides the stored scale dtype and the dense-vs-quantized logits head."""
+    return str(compute_dtype) == "bfloat16"
+
+
+def _fast_mode(x: torch.Tensor) -> bool:
+    """Per-call resolution from the live activation (the same rule)."""
+    return x.dtype == torch.bfloat16
+
+
+def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto") -> torch.Tensor:
+    """``y[..., out] = x[..., in] @ w.T`` with a dense or Q40 weight.
+
+    Dense weights use the reference's on-disk ``[out, in]`` orientation; Q40
+    planes are K-major ``[in, out]``. ``impl`` is the model config's
+    ``quant_impl``: ``"auto"`` routes Q40 weights to the kernel wrapper
+    (:func:`~dllama_tpu_torch.ops.quant_matmul.quant_matmul`, which runs the
+    kernel on a CUDA tensor and the plain version on a CPU tensor), ``"xla"``
+    calls the plain version by name on any device.
+    """
+    if isinstance(w, QuantizedWeight):
+        from .quant_matmul import quant_matmul, quant_matmul_plain
+
+        fast = _fast_mode(x) or w.scales.dtype == torch.bfloat16
+        if impl == "xla":
+            return quant_matmul_plain(x, w, fast=fast)
+        if impl != "auto":
+            raise ValueError(f"quant_impl must be auto|xla, got {impl!r}")
+        return quant_matmul(x, w, fast=fast)
+    # dense weight: a plain matrix product (cuBLAS on the card, no TF32)
+    return F.linear(x, w.to(x.dtype))
+
+
+def _q80_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q80 block quantization of the trailing axis, the codes kept as f32
+    values: ``(codes [..., n/32, 32], d [..., n/32, 1])``. ``d = absmax/127``
+    (unrounded f32) divides; codes round half-to-even; an all-zero block
+    has ``d = 0`` and codes 0."""
+    *lead, n = x.shape
+    if n % Q80_BLOCK_SIZE:
+        raise ValueError(f"trailing dim {n} is not a multiple of {Q80_BLOCK_SIZE}")
+    g = x.float().reshape(*lead, n // Q80_BLOCK_SIZE, Q80_BLOCK_SIZE)
+    d = torch.amax(torch.abs(g), dim=-1, keepdim=True) / 127.0
+    inv = torch.nan_to_num(torch.reciprocal(d), posinf=0.0)  # 1/0 -> 0
+    return torch.round(g * inv), d
+
+
+def q80_quantize_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q80 block quantization of the trailing axis: int8 codes
+    ``[..., n/32, 32]`` (in [-127, 127]) + f16 scales ``[..., n/32, 1]``."""
+    codes, d = _q80_blocks(x)
+    return codes.to(torch.int8), d.to(torch.float16)
+
+
+def q80_dequant(codes: torch.Tensor, scales: torch.Tensor, shape) -> torch.Tensor:
+    """The dequant pairing :func:`q80_quantize_planes`: f32 multiply of the
+    int8 codes by the f16-rounded scales."""
+    return (codes.float() * scales.float()).reshape(shape)
+
+
+def fake_quant_q80(x: torch.Tensor) -> torch.Tensor:
+    """Q80 quantize→dequantize of the trailing axis — the reference runtime's
+    quantizeF32toQ80 + dequantizeQ80toF32 at its sync points (code from the
+    unrounded f32 scale, dequant with the f16-rounded one; half-to-even like
+    the x86 build the goldens came from). The codes stay f32 (they are whole
+    numbers, so the int8 round trip of :func:`q80_quantize_planes` would not
+    change them): fewer ops at each of a layer's six sync points."""
+    codes, d = _q80_blocks(x)
+    return (codes * d.to(torch.float16).float()).reshape(x.shape).to(x.dtype)

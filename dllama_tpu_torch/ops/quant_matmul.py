@@ -1,0 +1,181 @@
+"""Q40 dequantizing matmul: kernels K1 (prefill tile) and K2 (decode GEMV).
+
+``y[..., N] = x[..., K] @ (codes[K, N] * repeat(scales[K/32, N], 32 along K))``
+
+* **K1** :func:`q40_matmul` — replaces the JAX package's
+  ``ops/quant_matmul.py::_kernel`` (the (N/bn, K/bk)-tiled Pallas kernel,
+  ``pallas_call`` at :293). Bound on the H100 at prefill widths: operations
+  (exact: FP32 SIMT; fast: bf16 tensor cores). Design: one block per 64x64
+  output tile walking all of K in 32-row steps (one Q40 block, one scale
+  row), codes dequantized into shared memory as they land.
+* **K2** :func:`q40_gemv` — replaces ``_decode_kernel`` (the single-pass
+  decode GEMV, ``pallas_call`` at :208) for ``M <= FUSED_MAX_M``. Bound:
+  bytes (one pass over the planes). Design: neighbouring threads on
+  neighbouring N columns for coalesced code loads, K split across the warps
+  of a block (reduced in shared memory) and, for narrow N, across blocks.
+
+Both live in ``csrc/quant_matmul.cu`` (see its header for the full note).
+Each wrapper runs :func:`quant_matmul_plain` — the plain PyTorch version of
+the same function — on a CPU tensor, and on a CUDA tensor launches its
+kernel or raises. ``launches`` on each wrapper counts kernel launches.
+
+Unlike the JAX package, where ``auto`` reached the decode kernel only under
+``DLLAMA_TPU_QUANT_KERNEL=fused``, ``M <= 16`` on CUDA always takes K2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..formats.quants import Q40_BLOCK_SIZE
+from .cuda_build import check, load
+from .linear import QuantizedWeight, dequantize_weight
+
+# widest dispatch that counts as the decode regime (the JAX package's
+# FUSED_MAX_M): single steps and short verifies take K2, wider ones K1
+FUSED_MAX_M = 16
+_GEMV_BN = 128         # N columns per K2 block (csrc: GEMV_BN)
+_GEMV_WARPS = 8        # warps per K2 block, each taking one Q40 block per step
+# K2 blocks resident at once on the H100: 132 SMs x 2 blocks of 256 threads
+# at the M = 1 kernel's ~128 registers. A grid just above it runs a second,
+# mostly idle wave, so the K split rounds the block count down to it.
+_RESIDENT_BLOCKS = 264
+
+
+def supports(x_shape: tuple[int, ...], w: QuantizedWeight) -> bool:
+    """Whether K1 covers these shapes (any M; K a whole number of blocks)."""
+    K = x_shape[-1]
+    return (w.codes.dim() == 2 and w.in_features == K
+            and K % Q40_BLOCK_SIZE == 0)
+
+
+def supports_decode(x_shape: tuple[int, ...], w: QuantizedWeight) -> bool:
+    """Whether K2 covers these shapes: M <= 16 and 4-column groups of N."""
+    M = 1
+    for d in x_shape[:-1]:
+        M *= d
+    return (supports(x_shape, w) and 0 < M <= FUSED_MAX_M
+            and w.out_features % 4 == 0)
+
+
+def quant_matmul_plain(x: torch.Tensor, w: QuantizedWeight, *,
+                       fast: bool) -> torch.Tensor:
+    """The plain PyTorch version of K1 and K2 (the JAX package's XLA
+    dequant+dot): exact = f32 dequant and f32 matmul; fast = bf16 dequant
+    and bf16 activations, whose products are exact in f32, summed in f32.
+    Returns ``x.dtype``."""
+    *lead, K = x.shape
+    if fast:
+        wd = dequantize_weight(w, torch.bfloat16).float()
+        xf = x.to(torch.bfloat16).float()
+    else:
+        wd = dequantize_weight(w, torch.float32)
+        xf = x.float()
+    y = torch.matmul(xf.reshape(-1, K), wd)
+    return y.reshape(*lead, w.out_features).to(x.dtype)
+
+
+def _lib():
+    lib = getattr(_lib, "cached", None)
+    if lib is None:
+        lib = load("quant_matmul")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dlt_q40_gemv.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.dlt_q40_gemv.restype = i
+        lib.dlt_q40_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dlt_q40_matmul.restype = i
+        _lib.cached = lib
+    return lib
+
+
+def _cuda_operands(x: torch.Tensor, w: QuantizedWeight, fast: bool, what: str):
+    """Cast/flatten the operands the way the kernel takes them and check
+    what it cannot take: ``(x2d, scales, M, K, N)``."""
+    *lead, K = x.shape
+    N = w.out_features
+    act = torch.bfloat16 if fast else torch.float32
+    x2d = x.reshape(-1, K).to(act).contiguous()
+    scales = w.scales.to(act).contiguous()
+    codes = w.codes
+    if not supports(tuple(x.shape), w):
+        raise ValueError(f"{what}: shapes x={tuple(x.shape)} codes="
+                         f"{tuple(codes.shape)} are not supported")
+    for name, t in (("x", x2d), ("codes", codes), ("scales", scales)):
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if codes.dtype != torch.int8:
+        raise ValueError(f"{what}: codes must be int8, got {codes.dtype}")
+    return x2d, scales, x2d.shape[0], K, N
+
+
+def _gemv_splits(K: int, N: int) -> int:
+    """K splits across blocks so that narrow N still fills the card in one
+    wave; each split gives every warp of a block at least one Q40 block."""
+    nkb = K // Q40_BLOCK_SIZE
+    col_blocks = -(-N // _GEMV_BN)
+    want = _RESIDENT_BLOCKS // col_blocks
+    if want <= 1 or nkb <= _GEMV_WARPS:
+        return 1
+    per = max(_GEMV_WARPS, -(-nkb // want))
+    per = -(-per // _GEMV_WARPS) * _GEMV_WARPS
+    return -(-nkb // per)
+
+
+def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
+    """K2: decode-width (M <= 16) Q40 matmul; returns ``x.dtype``."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w, fast=fast)
+    if x.device.type != "cuda":
+        raise ValueError(f"q40_gemv: unsupported device {x.device}")
+    if not supports_decode(tuple(x.shape), w):
+        raise ValueError(f"q40_gemv: shapes x={tuple(x.shape)} codes="
+                         f"{tuple(w.codes.shape)} need M <= {FUSED_MAX_M}, "
+                         f"K % 32 == 0 and N % 4 == 0")
+    x2d, scales, M, K, N = _cuda_operands(x, w, fast, "q40_gemv")
+    splits = _gemv_splits(K, N)
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else y)
+    lib = _lib()
+    rc = lib.dlt_q40_gemv(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
+                          y.data_ptr(), part.data_ptr(), M, K, N, splits,
+                          int(fast), torch.cuda.current_stream(x.device).cuda_stream)
+    q40_gemv.launches += 1
+    check(lib, rc, "q40_gemv")
+    return y.reshape(*x.shape[:-1], N).to(x.dtype)
+
+
+q40_gemv.launches = 0
+
+
+def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
+    """K1: tiled Q40 matmul for any M (the prefill widths); returns ``x.dtype``."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w, fast=fast)
+    if x.device.type != "cuda":
+        raise ValueError(f"q40_matmul: unsupported device {x.device}")
+    x2d, scales, M, K, N = _cuda_operands(x, w, fast, "q40_matmul")
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    rc = lib.dlt_q40_matmul(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
+                            y.data_ptr(), M, K, N, int(fast),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    q40_matmul.launches += 1
+    check(lib, rc, "q40_matmul")
+    return y.reshape(*x.shape[:-1], N).to(x.dtype)
+
+
+q40_matmul.launches = 0
+
+
+def quant_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
+    """``y[..., N] = x[..., K] @ dequant(w)``: K2 for ``M <= FUSED_MAX_M``,
+    K1 otherwise (each its plain version on a CPU tensor)."""
+    M = x.numel() // x.shape[-1]
+    if M <= FUSED_MAX_M:
+        return q40_gemv(x, w, fast=fast)
+    return q40_matmul(x, w, fast=fast)

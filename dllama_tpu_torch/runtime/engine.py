@@ -1,0 +1,290 @@
+"""InferenceEngine on one device (the port of the JAX package's
+``runtime/engine.py``, single-sequence path).
+
+Holds the config, the device parameters and the dense KV cache, and drives
+the model functions of :mod:`dllama_tpu_torch.models.llama`: bucketed
+chunked prefill (:data:`PREFILL_BUCKETS`), one forward + on-device argmax or
+sample per decode token, perplexity and teacher-forced NLL. The method names
+and signatures are the JAX engine's, so the same callers (the golden replay
+protocol in the tests) run both.
+
+Padded prefill tails are safe without masking: pad-position garbage lands in
+KV slots strictly beyond the current position, is invisible to the causal
+mask (``s <= pos``), and every slot is rewritten by its real token before it
+ever becomes visible.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from ..formats.mfile import ModelFile
+from ..formats.quants import F32
+from ..models.config import ModelConfig
+from ..models.llama import Params, forward, greedy_step, prefill_nll, sampled_step
+from ..tokenizer.bpe import Tokenizer
+from ..tokenizer.sampler import Sampler, xorshift_random_f32
+from .kvcache import KVCache
+from .weights import load_params
+
+DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
+
+# prefill chunk sizes, largest first: the prompt is evaluated in the largest
+# bucket it fills, and the tail pads into the smallest (the JAX engine's
+# buckets; an explicit n_batches pins one fixed chunk size)
+PREFILL_BUCKETS = (256, 128, 64, 32)
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on. Asking for CUDA on a machine
+    without a usable GPU raises: nothing silently carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() is "
+            f"False (no usable NVIDIA GPU or a CPU-only PyTorch build); pass "
+            f"--device cpu (device='cpu') to run on the CPU")
+    return dev
+
+
+@dataclass
+class StepMetrics:
+    """Per-dispatch timing (reference console metrics, dllama.cpp:59-67):
+    ``ms`` is host wall time of a dispatch that ends in a device sync."""
+
+    kind: str  # "eval" (prefill chunk) or "pred" (decode)
+    ms: float
+    n_tokens: int
+
+
+@dataclass
+class GenerationResult:
+    tokens: list[int]
+    text: str
+    prompt_tokens: int
+    steps: list[StepMetrics] = field(default_factory=list)
+
+    def _rate(self, kind: str) -> float:
+        n = sum(s.n_tokens for s in self.steps if s.kind == kind)
+        ms = sum(s.ms for s in self.steps if s.kind == kind)
+        return n / (ms / 1000.0) if n > 0 and ms > 0.0 else 0.0
+
+    @property
+    def eval_ms(self) -> float:
+        return sum(s.ms for s in self.steps if s.kind == "eval")
+
+    @property
+    def pred_ms(self) -> float:
+        return sum(s.ms for s in self.steps if s.kind == "pred")
+
+    @property
+    def pred_tok_per_s(self) -> float:
+        return self._rate("pred")
+
+    @property
+    def eval_tok_per_s(self) -> float:
+        return self._rate("eval")
+
+
+class InferenceEngine:
+    """Owns config, parameters and KV cache on one device."""
+
+    def __init__(self, model_path: str, tokenizer_path: str | None = None, *,
+                 device="cuda", max_seq_len: int = 0, sync_type: int = F32,
+                 compute_dtype: str = "float32", n_batches: int | None = None,
+                 temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
+                 attn_impl: str = "auto", quant_impl: str = "auto"):
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
+        self.device = resolve_device(device)
+        self.model_file = ModelFile.open(model_path, max_seq_len=max_seq_len,
+                                         sync_type=sync_type)
+        self.cfg = replace(ModelConfig.from_header(self.model_file.header,
+                                                   compute_dtype=compute_dtype),
+                           attn_impl=attn_impl, quant_impl=quant_impl)
+        self.n_batches = min(n_batches or DEFAULT_N_BATCHES, self.cfg.seq_len)
+        if n_batches is None:
+            self.prefill_buckets = tuple(
+                b for b in PREFILL_BUCKETS if b <= self.cfg.seq_len) or (self.n_batches,)
+        else:
+            self.prefill_buckets = (self.n_batches,)
+        self.tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
+        self.sampler = Sampler(self.cfg.vocab_size, temperature, topp, seed)
+        try:
+            self.params: Params = load_params(self.model_file, self.cfg, self.device)
+            self.kv = KVCache.create(self.cfg, dtype=getattr(torch, compute_dtype),
+                                     device=self.device)
+        except BaseException:
+            self.model_file.close()
+            raise
+        self.pos = 0
+
+    def reset(self) -> None:
+        self.kv.k.zero_()
+        self.kv.v.zero_()
+        self.pos = 0
+        if self.tokenizer is not None:
+            self.tokenizer.reset_decoder()
+
+    def close(self) -> None:
+        """Release the device buffers and the model file."""
+        self.params = None  # type: ignore[assignment]
+        self.kv = None  # type: ignore[assignment]
+        self.model_file.close()
+
+    # -- low-level steps ----------------------------------------------------
+
+    def _tokens(self, ids: list[int]) -> torch.Tensor:
+        return torch.tensor([ids], dtype=torch.long, device=self.device)
+
+    def _forward(self, ids: list[int], start_pos: int) -> torch.Tensor:
+        """One forward over ``ids`` at ``start_pos``: logits ``[1, T, vocab]``."""
+        logits, self.kv = forward(self.params, self.cfg, self._tokens(ids),
+                                  start_pos, self.kv)
+        return logits
+
+    def _prefill_chunk_size(self, remaining: int) -> int:
+        """Largest prefill bucket that ``remaining`` fills, else the smallest."""
+        for b in self.prefill_buckets:  # descending
+            if remaining >= b:
+                return b
+        return self.prefill_buckets[-1]
+
+    def _chunks(self, n: int):
+        """``(i, valid, pad_to)`` prefill chunks over ``n`` tokens starting
+        at ``self.pos`` (the caller advances ``self.pos``). Padding never
+        spills past seq_len: at the context tail it stops at the room left."""
+        i, pos = 0, self.pos
+        while i < n:
+            size = self._prefill_chunk_size(n - i)
+            valid = min(size, n - i)
+            yield i, valid, min(size, self.cfg.seq_len - pos)
+            i += valid
+            pos += valid
+
+    def prefill(self, token_ids: list[int]) -> tuple[np.ndarray, list[StepMetrics]]:
+        """Evaluate the prompt in bucketed chunks; returns the logits of the
+        final prompt token and per-chunk metrics. Advances ``self.pos``."""
+        if self.pos + len(token_ids) > self.cfg.seq_len:
+            raise ValueError(f"prompt of {len(token_ids)} tokens at position "
+                             f"{self.pos} exceeds seq_len {self.cfg.seq_len}")
+        metrics: list[StepMetrics] = []
+        last = None
+        for i, valid, pad_to in self._chunks(len(token_ids)):
+            chunk = token_ids[i:i + valid]
+            t0 = time.perf_counter()
+            logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+            last = logits[0, valid - 1].cpu().numpy()  # syncs the device
+            metrics.append(StepMetrics("eval", (time.perf_counter() - t0) * 1000.0, valid))
+            self.pos += valid
+        return last, metrics
+
+    def decode_step(self, token: int) -> np.ndarray:
+        """One-token decode at the current position; returns logits [vocab]."""
+        if self.pos >= self.cfg.seq_len:
+            raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
+        logits = self._forward([token], self.pos)
+        self.pos += 1
+        return logits[0, 0].cpu().numpy()
+
+    def next_token(self, token: int) -> int:
+        """Forward + argmax (temperature 0) or forward + temperature/top-p
+        sample on the device, with the host stepping the xorshift* coin:
+        one 8-byte device→host transfer per token."""
+        if self.pos >= self.cfg.seq_len:
+            raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
+        tokens = self._tokens([token])
+        if self.sampler.temperature == 0.0:
+            nxt, self.kv = greedy_step(self.params, self.cfg, tokens, self.pos, self.kv)
+        else:
+            coin, self.sampler.rng_state = xorshift_random_f32(self.sampler.rng_state)
+            nxt, self.kv = sampled_step(self.params, self.cfg, tokens, self.pos, self.kv,
+                                        self.sampler.temperature, self.sampler.topp, coin)
+        self.pos += 1
+        return int(nxt[0])
+
+    # -- generation ---------------------------------------------------------
+
+    def generate(self, prompt: str | list[int], max_tokens: int,
+                 on_token=None, stop_on_eos: bool = True) -> GenerationResult:
+        """Prefill + decode loop (reference flow: dllama.cpp:13-116).
+
+        ``on_token(token_id, piece)`` streams decoded text; ``max_tokens``
+        caps generated tokens (the cache cap also applies)."""
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("a tokenizer is required for str prompts")
+            ids = self.tokenizer.encode(prompt, is_start=self.pos == 0)
+        else:
+            ids = list(prompt)
+        if not ids:
+            raise ValueError("empty prompt")
+        steps: list[StepMetrics] = []
+        # evaluate all but the last prompt token; the last one seeds decode
+        if len(ids) > 1:
+            steps.extend(self.prefill(ids[:-1])[1])
+        out_tokens: list[int] = []
+        pieces: list[str] = []
+        token = ids[-1]
+        limit = min(self.cfg.seq_len - self.pos, max_tokens)
+        while len(out_tokens) < limit:
+            t0 = time.perf_counter()
+            token = self.next_token(token)
+            steps.append(StepMetrics("pred", (time.perf_counter() - t0) * 1000.0, 1))
+            out_tokens.append(token)
+            piece = self.tokenizer.decode(token) if self.tokenizer else None
+            if piece is not None:
+                pieces.append(piece)
+            if on_token is not None:
+                on_token(token, piece)
+            if stop_on_eos and self.tokenizer is not None and self.tokenizer.is_eos(token):
+                break
+        return GenerationResult(tokens=out_tokens, text="".join(pieces),
+                                prompt_tokens=len(ids), steps=steps)
+
+    def perplexity(self, token_ids: list[int]) -> float:
+        """Perplexity of a token sequence (reference mode: dllama.cpp:132-172):
+        mean negative log-likelihood of each next token given its prefix.
+        The log-softmax runs on the device in float64; only the per-chunk
+        sum comes back."""
+        if len(token_ids) < 2:
+            raise ValueError("perplexity needs at least 2 tokens")
+        if len(token_ids) > self.cfg.seq_len:
+            raise ValueError("sequence longer than seq_len")
+        self.reset()
+        nll, count = 0.0, 0
+        for i, valid, pad_to in self._chunks(len(token_ids) - 1):
+            chunk = token_ids[i:i + valid]
+            logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+            rows = logits[0, :valid].double()
+            targets = torch.tensor(token_ids[i + 1:i + 1 + valid], device=rows.device)
+            logp = rows.gather(-1, targets[:, None])[:, 0] - torch.logsumexp(rows, dim=-1)
+            nll -= float(logp.sum())
+            count += valid
+            self.pos += valid
+        return float(np.exp(nll / count))
+
+    def score_nll(self, token_ids: list[int]) -> np.ndarray:
+        """Teacher-forced per-token NLL of ``token_ids`` (float32, the
+        ``len(token_ids) - 1`` values in position order) through
+        :func:`~dllama_tpu_torch.models.llama.prefill_nll`. Resets the cache."""
+        if len(token_ids) < 2:
+            raise ValueError("scoring needs at least 2 tokens")
+        if len(token_ids) > self.cfg.seq_len:
+            raise ValueError("sequence longer than seq_len")
+        self.reset()
+        rest = token_ids[:-1]
+        out: list[np.ndarray] = []
+        for i, valid, pad_to in self._chunks(len(rest)):
+            pad = [0] * (pad_to - valid)
+            targets = token_ids[i + 1:i + 1 + valid]
+            nll, self.kv = prefill_nll(self.params, self.cfg,
+                                       self._tokens(rest[i:i + valid] + pad),
+                                       self._tokens(targets + pad), self.pos, self.kv)
+            out.append(nll[0, :valid].float().cpu().numpy())
+            self.pos += valid
+        return np.concatenate(out)

@@ -1,0 +1,141 @@
+"""``python -m dllama_tpu_torch inference|perplexity`` (the port of the JAX
+package's ``serve/cli.py`` ``make_engine``/``main``, these two modes only).
+
+Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
+usable GPU fails with a clear error. Modes and flags of the JAX CLI that are
+not ported yet fail loudly instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from ..formats.quants import F32, Q80
+from ..runtime.engine import InferenceEngine, resolve_device
+
+PORTED_MODES = ("inference", "perplexity")
+# modes of the JAX CLI that later slices of the port bring over
+PENDING_MODES = ("chat", "api", "eval", "worker", "verify", "audit", "timeline",
+                 "fleettrace", "router")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dllama-tpu-torch",
+        description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
+    p.add_argument("mode", help="inference | perplexity")
+    p.add_argument("--model", required=True, help=".m model file")
+    p.add_argument("--tokenizer", required=True, help=".t tokenizer file")
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--file", default=None, help="text file (perplexity mode)")
+    p.add_argument("--steps", type=int, default=0, help="max total positions")
+    p.add_argument("--max-seq-len", type=int, default=0)
+    p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--topp", type=float, default=0.9)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--buffer-float-type", choices=["f32", "q80"], default="q80",
+                   help="sync buffer type: q80 fake-quantizes activations at "
+                        "the reference's sync points")
+    p.add_argument("--compute-dtype", choices=["f32", "bf16"], default="f32",
+                   help="f32 = exact Q40 numerics (golden parity); bf16 = fast")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain versions)")
+    return p
+
+
+def make_engine(args) -> InferenceEngine:
+    seed = args.seed if args.seed is not None else int(time.time())
+    engine = InferenceEngine(
+        args.model, args.tokenizer, device=args.device,
+        max_seq_len=args.max_seq_len,
+        compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
+        sync_type=Q80 if args.buffer_float_type == "q80" else F32,
+        temperature=args.temperature, topp=args.topp, seed=seed)
+    h = engine.model_file.header
+    print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
+          f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
+    print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}")
+    return engine
+
+
+def run_inference(args) -> int:
+    if args.prompt is None:
+        raise SystemExit("Prompt is required")
+    if args.steps == 0:
+        raise SystemExit("Number of steps is required")
+    engine = make_engine(args)
+    try:
+        print(args.prompt)
+        ids = engine.tokenizer.encode(args.prompt)
+        max_new = max(0, min(args.steps, engine.cfg.seq_len) - len(ids))
+
+        def on_token(_tid, piece):
+            sys.stdout.write(piece if piece is not None else "")
+            sys.stdout.flush()
+
+        result = engine.generate(ids, max_new, on_token=on_token, stop_on_eos=False)
+        print()
+        n_eval = sum(s.n_tokens for s in result.steps if s.kind == "eval")
+        n_pred = sum(s.n_tokens for s in result.steps if s.kind == "pred")
+        buckets = engine.prefill_buckets
+        print("\nEvaluation")
+        print(f"   nBatches: {buckets[0] if len(buckets) == 1 else list(buckets)}")
+        print(f"    nTokens: {n_eval}")
+        print(f"   tokens/s: {result.eval_tok_per_s:.2f} "
+              f"({result.eval_ms / max(1, n_eval):.2f} ms/tok)")
+        print("Prediction")
+        print(f"    nTokens: {n_pred}")
+        print(f"   tokens/s: {result.pred_tok_per_s:.2f} "
+              f"({result.pred_ms / max(1, n_pred):.2f} ms/tok)")
+    finally:
+        engine.close()
+    return 0
+
+
+def run_perplexity(args) -> int:
+    if args.file:
+        with open(args.file, encoding="utf-8") as f:
+            text = f.read()
+    elif args.prompt is not None:
+        text = args.prompt
+    else:
+        raise SystemExit("--file or --prompt required for perplexity")
+    engine = make_engine(args)
+    try:
+        ids = engine.tokenizer.encode(text)
+        if args.max_seq_len:
+            ids = ids[: args.max_seq_len]
+        ids = ids[: engine.cfg.seq_len]
+        t0 = time.perf_counter()
+        ppl = engine.perplexity(ids)
+        dt = time.perf_counter() - t0
+        print(f"📊 nTokens: {len(ids)}")
+        print(f"📊 Perplexity: {ppl:.4f}")
+        print(f"📊 Time: {dt:.2f}s ({len(ids) / dt:.1f} tok/s)")
+    finally:
+        engine.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    args, unknown = build_parser().parse_known_args(argv)
+    if args.mode in PENDING_MODES:
+        raise SystemExit(f"mode {args.mode!r} is not ported to the PyTorch/CUDA "
+                         f"package yet (ported: {', '.join(PORTED_MODES)}); use "
+                         f"python -m dllama_tpu {args.mode}")
+    if args.mode not in PORTED_MODES:
+        raise SystemExit(f"unknown mode {args.mode!r} (ported: {', '.join(PORTED_MODES)})")
+    if unknown:
+        raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
+                         f"(this package takes: --model --tokenizer --prompt --file "
+                         f"--steps --temperature --topp --seed --max-seq-len "
+                         f"--buffer-float-type --compute-dtype --device)")
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
+    if args.mode == "inference":
+        return run_inference(args)
+    return run_perplexity(args)

@@ -10,26 +10,38 @@ Phases, each failing loudly (non-zero exit, no result line):
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``dllama_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time and ptxas register use;
-3. kernels K1 (Q40 tile matmul), K2 (Q40 decode GEMV) and K3 (flash
-   attention) on the card against their plain PyTorch versions at the
-   Llama 3.1 8B shapes of the main path, exact (f32) and fast (bf16): one
-   JSON line per case with the error, the median of >= 20 CUDA-event timed
-   runs (L2 flushed before each), the plain version's and a library call's
-   time, and the bound (the larger of bytes / 3.35 TB/s and operations /
-   peak rate); the fast logits head also times the dense bf16 ``F.linear``
-   that fast configs load it as;
+3. kernels K1 (Q40 tile matmul), K2 (Q40 decode GEMV, at M = 1 and at the
+   serving batch M = 8), K3 (flash attention) and K4 (paged attention) on
+   the card against their plain PyTorch versions at the Llama 3.1 8B shapes
+   of the main paths, exact (f32) and fast (bf16): one JSON line per case
+   with the error, the median of >= 20 CUDA-event timed runs (L2 flushed
+   before each), the plain version's and a library call's time (for K4 the
+   gather + SDPA pair, a yardstick of two library calls), and the bound
+   (the larger of bytes / 3.35 TB/s and operations / peak rate); the fast
+   logits head also times the dense bf16 ``F.linear`` that fast configs
+   load it as;
 4. end to end at full Llama 3.1 8B width: write a synthetic Q40 model (random
-   blocks from a seed) and a 128256-piece tokenizer with the port's own
-   writers, run ``inference`` and ``perplexity`` through the port's CLI
-   ``main`` in process under ``--compute-dtype f32`` and ``bf16``, and check
-   the tokens, a finite perplexity and each path's launch counts (set to 0
-   before each run): K1, K2 and K3 for ``inference``, K1 and K3 for
-   ``perplexity``;
-5. model parity on the card: 2 layers at 8B widths, the kernel path
+   blocks from a seed) and a 128256-piece tokenizer with a llama3 chat
+   template with the port's own writers, run ``inference`` and
+   ``perplexity`` through the port's CLI ``main`` in process under
+   ``--compute-dtype f32`` and ``bf16``, and check the tokens, a finite
+   perplexity and each path's launch counts (set to 0 before each run): K1,
+   K2 and K3 for ``inference``, K1 and K3 for ``perplexity``;
+5. serving at the same width: the port's ``api --batch-slots 8
+   --kv-block-size 16`` in process on a free local port, under f32 and
+   bf16; 16 concurrent clients (9 share a system message, 2 SSE streams, an
+   identical greedy pair whose second request admits while the first
+   decodes, half sampled); every request must return 200 with tokens, the
+   pair identical text, prefix reuse must happen and K1-K4 must each launch
+   (counts set to 0 before each run); tok/s, latencies, step time, the
+   column take/put cost and the pool are printed;
+6. model parity on the card: 2 layers at 8B widths, the kernel path
    (``attn_impl=auto``, ``quant_impl=auto``) against the plain path (``xla``)
    on the same weights and tokens: a 128-token prefill plus 8 teacher-forced
-   decode steps;
-6. the ``kernels`` JSON line, then the result line
+   decode steps; then ``paged_forward`` over 8 ragged rows through scrambled
+   tables (kernel against plain), and ``paged_forward``'s kernel path (K4)
+   against the dense ``forward`` (K3) for one row;
+7. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -158,11 +170,12 @@ def matmul_cases(timer: Timer, results: list) -> None:
             # matrix (the loader's rule) and run it through ``linear``'s
             # F.linear: time that beside K1/K2 on the same weights
             head_dense = wd.t().contiguous() if fast and name == "head" else None
-            # every shape at decode (M = 1) and a 128-token chunk; one shape
+            # every shape at decode (M = 1), at the serving decode step of 8
+            # slots (M = 8) and a 128-token chunk; one shape
             # also at the other widths the main path gives the kernels: K2's
             # multi-row variants (a context-tail chunk) and the 32- and
             # 256-token prefill chunks
-            widths = [("K2", 1), ("K1", 128)]
+            widths = [("K2", 1), ("K2", 8), ("K1", 128)]
             if name == "wq":
                 widths += [("K2", 4), ("K2", 16), ("K1", 32), ("K1", 256)]
             for kname, M in widths:
@@ -242,6 +255,91 @@ def attention_cases(timer: Timer, results: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ragged decode depths of a full 8-slot batch (deepest at the context cap)
+RAGGED = [MAX_SEQ - 1, 1500, 1023, 700, 300, 129, 17, 0]
+# (B, T, block size, first query position of each row)
+PAGED_CASES = [(1, 1, 16, [MAX_SEQ - 1]), (8, 1, 16, RAGGED),
+               (1, 1, 32, [MAX_SEQ - 1]), (8, 1, 32, RAGGED),
+               (2, 16, 16, [1000, MAX_SEQ - 16])]
+
+
+def scrambled_tables(depths: list[int], T: int, bs: int, g: torch.Generator):
+    """Block tables ``[B, MAX_SEQ / bs]`` over a pool of just enough blocks:
+    each row's blocks at scrambled physical ids, rows 0 and 1 sharing their
+    first 4 blocks (a shared prompt prefix), null (0) entries past each
+    row's last position. Returns ``(tables, n_blocks)``."""
+    M = MAX_SEQ // bs
+    need = [(d + T - 1) // bs + 1 for d in depths]
+    n_blocks = sum(need) + 1
+    perm = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((len(depths), M), dtype=torch.long)
+    for b, n in enumerate(need):
+        tables[b, :n] = torch.tensor([perm.pop() for _ in range(n)])
+    if len(depths) > 1:
+        k = min(4, need[0], need[1])
+        tables[1, :k] = tables[0, :k]
+    return tables.to(DEV), n_blocks
+
+
+def paged_cases(timer: Timer, results: list) -> None:
+    """K4 against its plain version (gather + oracle) at 8B widths: n_kv 8,
+    head_dim 128, kv_mul 4, block sizes 16 and 32; decode at B = 1 and 8
+    ragged rows, and a 16-token query chunk; f32 and bf16 pools."""
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    g_cpu = torch.Generator().manual_seed(SEED + 3)
+    for mode in ("exact", "fast"):
+        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
+        for B, T, bs, depths in PAGED_CASES:
+            tables, n_blocks = scrambled_tables(depths, T, bs, g_cpu)
+            kp, vp = (torch.randn((n_blocks, KV_HEADS, bs, HEAD_DIM), generator=g,
+                                  device=DEV).to(kv_dt) for _ in range(2))
+            q = torch.randn((B, T, HEADS, HEAD_DIM), generator=g, device=DEV)
+            positions = (torch.tensor(depths, device=DEV)[:, None]
+                         + torch.arange(T, device=DEV)[None, :])
+            got = pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM)
+            want = pa.paged_attention_plain(q, kp, vp, tables, positions, HEAD_DIM)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            S = tables.shape[1] * bs
+            mask = (torch.arange(S, device=DEV)[None, None, :]
+                    <= positions[:, :, None])[:, None]            # [B, 1, T, S]
+            qs = q.transpose(1, 2).to(kv_dt)
+
+            def gather_sdpa():
+                return F.scaled_dot_product_attention(
+                    qs, pa.paged_view(kp, tables), pa.paged_view(vp, tables),
+                    attn_mask=mask, enable_gqa=True)
+
+            ms = timer(lambda: pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM))
+            plain_ms = timer(lambda: pa.paged_attention_plain(q, kp, vp, tables,
+                                                              positions, HEAD_DIM))
+            yard_ms = timer(gather_sdpa)
+            keys = sum(d + T for d in depths)           # K/V rows the rows can see
+            scored = sum(d + t + 1 for d in depths for t in range(T))
+            n_bytes = (2 * keys * KV_HEADS * HEAD_DIM * kp.element_size()
+                       + 2 * B * T * HEADS * HEAD_DIM * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * scored, "f32")
+            rec = dict(case="paged_attention", kernel="K4", mode=mode, B=B, T=T,
+                       block_size=bs, positions=depths, max_abs_err=err,
+                       max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
+                       gather_sdpa_ms=yard_ms,
+                       gather_sdpa_note="yardstick only: two library calls "
+                                        "(pool[tables] gather + SDPA)",
+                       bound_ms=b_ms, bound_by=b_by)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+            # f32 online softmax vs the one-shot oracle: reordered sums/exps
+            if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
+                fail(f"K4 {mode} B={B} T={T} bs={bs}: max|err| {err:.3g}")
+            del kp, vp
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: end to end at 8B width
 # ---------------------------------------------------------------------------
@@ -250,7 +348,8 @@ def attention_cases(timer: Timer, results: list) -> None:
 def write_tokenizer(path: str) -> None:
     """128256 pieces (Llama 3's vocab size): the 256 bytes, printable filler
     pieces that never occur in the prompts (so every prompt byte is one
-    token), bos/eos at 128000/128001 and reserved specials after."""
+    token), bos/eos at 128000/128001 and reserved specials after, and a
+    chat template string that the api detects as llama3."""
     from dllama_tpu_torch.formats.tfile import TokenizerData, write_tfile
 
     n_regular = 128000
@@ -260,7 +359,8 @@ def write_tokenizer(path: str) -> None:
     vocab += [b"<|reserved_%d|>" % i for i in range(VOCAB - len(vocab))]
     write_tfile(path, TokenizerData(
         vocab=vocab, scores=[0.0] * len(vocab), bos_id=n_regular, add_bos=True,
-        eos_token_ids=[n_regular + 1], max_token_length=max(map(len, vocab))))
+        eos_token_ids=[n_regular + 1], max_token_length=max(map(len, vocab)),
+        chat_template="<|start_header_id|>"))
 
 
 def write_model(path: str, n_layers: int) -> None:
@@ -375,10 +475,25 @@ def decode_profile(model: str, tok: str, dtype: str) -> dict:
                                  for e in top})
 
 
-def main_path(tmp: str, n_layers: int, summary: dict) -> None:
+def _wrappers() -> dict:
     from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops import paged_attention as pa
     from dllama_tpu_torch.ops import quant_matmul as qm
 
+    return {"K1": qm.q40_matmul, "K2": qm.q40_gemv, "K3": fa.flash_attention,
+            "K4": pa.paged_attention}
+
+
+def zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def write_assets(tmp: str, n_layers: int) -> tuple[str, str, str]:
     model, tok, text = (os.path.join(tmp, n) for n in ("llama31_8b.m", "tok.t", "ppl.txt"))
     t0 = time.perf_counter()
     write_tokenizer(tok)
@@ -387,6 +502,10 @@ def main_path(tmp: str, n_layers: int, summary: dict) -> None:
         f.write(PROMPT * 2)
     print(f"📝 synthetic 8B model: {os.path.getsize(model) / 1e9:.2f} GB, "
           f"{n_layers} layers, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return model, tok, text
+
+
+def main_path(model: str, tok: str, text: str, n_layers: int, summary: dict) -> None:
     for dtype in ("f32", "bf16"):
         common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
                   "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED)]
@@ -396,10 +515,9 @@ def main_path(tmp: str, n_layers: int, summary: dict) -> None:
 
         def counted(path: str, argv: list[str]) -> str:
             # each path's counts: set to 0 just before its run, read just after
-            qm.q40_matmul.launches = qm.q40_gemv.launches = fa.flash_attention.launches = 0
+            zero_counts()
             out = run_cli(argv)
-            launches[path] = {"K1": qm.q40_matmul.launches, "K2": qm.q40_gemv.launches,
-                              "K3": fa.flash_attention.launches}
+            launches[path] = read_counts()
             return out
 
         out = counted("inference", ["inference", *common, "--prompt", PROMPT, "--steps",
@@ -445,28 +563,229 @@ def main_path(tmp: str, n_layers: int, summary: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel path vs plain path through the model
+# phase 5: serving through the port's api at 8B width
 # ---------------------------------------------------------------------------
+
+N_REQUESTS = 16
+SLOTS, BLOCK = 8, 16
+SYSTEM = ("You are a careful assistant of the synthetic serving check. Answer "
+          "in short sentences, keep to the facts given, and say when you do "
+          "not know the answer to a question.")  # 166 tokens, one per byte
+
+
+def serving_bodies() -> list[dict]:
+    """16 chat bodies: the even ones and 15 share the system message (the
+    slots fill with about half of them first, so later ones share their
+    blocks); user parts of 20 to 400 bytes; max_tokens 32 to 61; 8 greedy
+    and 8 sampled at temperature 0.8 / top-p 0.9 with seeds; 13 and 14
+    stream (SSE); 15 is 14's identical greedy twin."""
+    import random
+
+    bodies = []
+    for i in range(N_REQUESTS - 1):
+        rnd = random.Random(SEED + i)
+        n = 20 + (380 * i) // (N_REQUESTS - 2)
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append(rnd.choice(["alpha", "beta", "gamma", "delta", "river",
+                                     "stone", "cloud", "seven", "orbit", "lemon"]))
+        msgs = [{"role": "system", "content": SYSTEM}] if i % 2 == 0 else []
+        msgs.append({"role": "user", "content": " ".join(words)[:n]})
+        body = {"messages": msgs, "max_tokens": 32 + (32 * i) // (N_REQUESTS - 1)}
+        if i in (0, 2, 4, 6, 8, 10, 14):
+            body["temperature"] = 0.0
+        else:
+            body.update(temperature=0.8, top_p=0.9, seed=100 + i)
+        body["stream"] = i in (13, 14)
+        bodies.append(body)
+    bodies.append(dict(bodies[14], stream=False))
+    return bodies
+
+
+def post_chat(url: str, body: dict, first_chunk=None) -> dict:
+    """One client request: status, text and wall latency; SSE bodies are
+    read chunk by chunk (``first_chunk`` is set at the first content)."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        status = r.status
+        if body.get("stream"):
+            parts = []
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                piece = json.loads(line[6:])["choices"][0]["delta"].get("content")
+                if piece:
+                    parts.append(piece)
+                    if first_chunk is not None:
+                        first_chunk.set()
+            text = "".join(parts)
+        else:
+            text = json.loads(r.read())["choices"][0]["message"]["content"]
+    return dict(status=status, text=text, latency_ms=(time.perf_counter() - t0) * 1e3)
+
+
+def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """The port's api in process (``cli.main(["api", ...])`` on a thread,
+    port 0) under f32 and bf16: 16 concurrent clients, then the checks
+    and the numbers of the run."""
+    import threading
+
+    from dllama_tpu_torch.serve import cli
+
+    for dtype in ("f32", "bf16"):
+        box: dict = {}
+        listening = threading.Event()
+        step_ms: list[float] = []
+        move_ms: dict[str, list[float]] = {"take": [], "put": []}
+        reqs: list = []
+
+        def timed_sync(fn, store):
+            def wrapped(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                store.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapped
+
+        def on_listening(server, state):
+            gen, sched = state.sched.gen, state.sched
+            box.update(server=server, gen=gen)
+            submit, step = sched.submit, gen.step
+
+            def submit_recorded(*a, **kw):
+                r = submit(*a, **kw)
+                reqs.append(r)
+                return r
+
+            def step_timed():
+                t0 = time.perf_counter()
+                n = step()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return n
+
+            sched.submit, gen.step = submit_recorded, step_timed
+            gen._exec_take = timed_sync(gen._exec_take, move_ms["take"])
+            gen._exec_put = timed_sync(gen._exec_put, move_ms["put"])
+            listening.set()
+
+        argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
+                "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+                "--host", "127.0.0.1", "--port", "0"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()  # this run's counts: set to 0 just before it, read just after
+        th = threading.Thread(target=lambda: box.setdefault(
+            "rc", cli.main(argv, on_listening=on_listening)), daemon=True)
+        th.start()
+        while not listening.wait(timeout=1.0):
+            if not th.is_alive():
+                fail(f"serving {dtype}: the api server exited before listening")
+        url = f"http://127.0.0.1:{box['server'].server_address[1]}"
+        bodies = serving_bodies()
+        results: list = [None] * len(bodies)
+        a_started = threading.Event()
+
+        def client(i: int) -> None:
+            try:
+                if i == len(bodies) - 1:  # the twin admits while 14 decodes
+                    a_started.wait(timeout=600)
+                results[i] = post_chat(url, bodies[i], a_started if i == 14 else None)
+            except Exception as e:  # noqa: BLE001 — reported as a failed request below
+                results[i] = dict(status=getattr(e, "code", None), error=repr(e))
+            finally:
+                if i == 14:
+                    a_started.set()  # a failed 14 must not hold its twin back
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        wall_s = time.perf_counter() - t0
+        gen = box["gen"]
+        box["server"].shutdown()
+        th.join(timeout=120)
+        launches = read_counts()
+        if th.is_alive() or box.get("rc") != 0:
+            fail(f"serving {dtype}: the api server did not stop cleanly")
+        bad = [(i, r) for i, r in enumerate(results)
+               if r is None or r.get("status") != 200 or not r.get("text")]
+        n_tokens = [len(r.tokens) for r in reqs]
+        ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in reqs if r.t_first_token]
+        lat = sorted(r["latency_ms"] for r in results if r and "latency_ms" in r)
+        pool = gen.pool
+        rec = dict(case="serving", compute_dtype=dtype, layers=n_layers, slots=SLOTS,
+                   block_size=BLOCK, requests=len(bodies), ok=len(bodies) - len(bad),
+                   generated_tokens=sum(n_tokens), wall_s=wall_s,
+                   gen_tok_per_s=sum(n_tokens) / wall_s,
+                   latency_ms_p50=statistics.median(lat) if lat else None,
+                   latency_ms_p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))] if lat else None,
+                   ttft_ms_p50=statistics.median(ttft) if ttft else None,
+                   step_ms_median=statistics.median(step_ms) if step_ms else None,
+                   steps=len(step_ms), reused_tokens=gen.reused_tokens,
+                   pool_blocks=pool.n_blocks, pool_gb=gen.pool_bytes / 1e9,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
+                   put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
+                   takes=len(move_ms["take"]),
+                   column_gb=gen.pool_bytes / pool.n_blocks * gen.table_width / 1e9,
+                   launches={"api": launches})
+        print(json.dumps(rec), flush=True)
+        summary.setdefault(dtype, {}).setdefault("launches", {})["api"] = launches
+        summary[dtype]["serving"] = rec
+        if bad:
+            fail(f"serving {dtype}: {len(bad)} request(s) failed: {bad[:3]}")
+        if results[14]["text"] != results[15]["text"]:
+            fail(f"serving {dtype}: the identical greedy pair differs:\n"
+                 f"{results[14]['text']!r}\n{results[15]['text']!r}")
+        if gen.reused_tokens <= 0:
+            fail(f"serving {dtype}: no prefix reuse happened")
+        if min(launches.values()) <= 0:
+            fail(f"serving {dtype}: a kernel of the path never launched: {launches}")
+        del gen
+        box.clear()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel path vs plain path through the model
+# ---------------------------------------------------------------------------
+
+
+def parity_config(dtype: str):
+    """Llama 3.1 8B widths at 2 layers."""
+    from dllama_tpu_torch.formats.mfile import ArchType, RopeType
+    from dllama_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(
+        arch=ArchType.LLAMA, dim=DIM, hidden_dim=HIDDEN, n_layers=2, n_heads=HEADS,
+        n_kv_heads=KV_HEADS, head_dim=HEAD_DIM, vocab_size=VOCAB, seq_len=MAX_SEQ,
+        norm_epsilon=1e-5, rope_theta=500000.0, rope_type=RopeType.LLAMA3_1,
+        rope_scaling_factor=8.0, rope_scaling_low_freq_factor=1.0,
+        rope_scaling_high_freq_factor=4.0, rope_scaling_orig_max_seq_len=8192,
+        compute_dtype=dtype)
 
 
 def model_parity(results: dict) -> None:
     from dataclasses import replace
 
-    from dllama_tpu_torch.formats.mfile import ArchType, RopeType
-    from dllama_tpu_torch.models.config import ModelConfig
     from dllama_tpu_torch.models.llama import forward, init_random_params
     from dllama_tpu_torch.ops import flash_attention as fa
     from dllama_tpu_torch.ops import quant_matmul as qm
     from dllama_tpu_torch.runtime.kvcache import KVCache
 
     for mode, dtype in (("exact", "float32"), ("fast", "bfloat16")):
-        cfg = ModelConfig(
-            arch=ArchType.LLAMA, dim=DIM, hidden_dim=HIDDEN, n_layers=2, n_heads=HEADS,
-            n_kv_heads=KV_HEADS, head_dim=HEAD_DIM, vocab_size=VOCAB, seq_len=MAX_SEQ,
-            norm_epsilon=1e-5, rope_theta=500000.0, rope_type=RopeType.LLAMA3_1,
-            rope_scaling_factor=8.0, rope_scaling_low_freq_factor=1.0,
-            rope_scaling_high_freq_factor=4.0, rope_scaling_orig_max_seq_len=8192,
-            compute_dtype=dtype)
+        cfg = parity_config(dtype)
         params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
         g = torch.Generator(device=DEV).manual_seed(SEED + 2)
         tokens = torch.randint(0, VOCAB, (1, 136), generator=g, device=DEV)
@@ -501,36 +820,112 @@ def model_parity(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def paged_parity(results: dict) -> None:
+    """``paged_forward`` at 8B widths (2 layers): one decode step of 8 rows
+    at ragged depths through scrambled tables, the kernel path (K2 at M = 8,
+    K4) against the plain path on the same weights and pool contents; and
+    one row's 128-token prefill + 8 decode steps through a descending table,
+    the kernel path (K1, K2, K4) against the dense ``forward`` (K1, K2,
+    K3)."""
+    from dataclasses import replace
+
+    from dllama_tpu_torch.models.llama import forward, init_random_params, paged_forward
+    from dllama_tpu_torch.runtime.kvblocks import PagedKVCache
+    from dllama_tpu_torch.runtime.kvcache import KVCache
+
+    for mode, dtype in (("exact", "float32"), ("fast", "bfloat16")):
+        cfg = parity_config(dtype)
+        dt = getattr(torch, dtype)
+        params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+        tables, n_blocks = scrambled_tables(RAGGED, 1, BLOCK, torch.Generator().manual_seed(SEED))
+        shape = (cfg.n_layers, n_blocks, KV_HEADS, BLOCK, HEAD_DIM)
+        hist = PagedKVCache(k=torch.randn(shape, generator=g, device=DEV).to(dt),
+                            v=torch.randn(shape, generator=g, device=DEV).to(dt))
+        tokens = torch.randint(0, VOCAB, (len(RAGGED), 1), generator=g, device=DEV)
+        pos = torch.tensor(RAGGED, device=DEV)
+        outs, counts = {}, {}
+        for path, impl in (("kernel", "auto"), ("plain", "xla")):
+            c = replace(cfg, attn_impl=impl, quant_impl=impl)
+            zero_counts()
+            logits, _ = paged_forward(params, c, tokens, pos,
+                                      PagedKVCache(hist.k.clone(), hist.v.clone()), tables)
+            outs[path] = logits.float()
+            counts[path] = read_counts()
+        # one row: paged (K4) against dense (K3), both on the kernels
+        row = torch.randint(0, VOCAB, (1, 136), generator=g, device=DEV)
+        M = MAX_SEQ // BLOCK
+        table = torch.arange(M, 0, -1, device=DEV)[None]
+        pkv = PagedKVCache.create(cfg, M + 1, BLOCK, dtype=dt, device=DEV)
+        kv = KVCache.create(cfg, dtype=dt, device=DEV)
+        dense, paged = [], []
+        for t0, t1 in [(0, 128)] + [(t, t + 1) for t in range(128, 136)]:
+            dense.append(forward(params, cfg, row[:, t0:t1], t0, kv)[0][0])
+            paged.append(paged_forward(params, cfg, row[:, t0:t1],
+                                       torch.tensor([t0], device=DEV), pkv, table)[0][0])
+        outs["dense_row"], outs["paged_row"] = torch.cat(dense).float(), torch.cat(paged).float()
+        torch.cuda.synchronize()
+        rec = dict(case="paged_parity", mode=mode, layers=2, tol=PARITY_TOL[mode],
+                   launches_kernel_path=counts["kernel"], launches_plain_path=counts["plain"])
+        for name, a, b in (("ragged_kernel_vs_plain", "kernel", "plain"),
+                           ("row_paged_vs_dense", "paged_row", "dense_row")):
+            err = (outs[a] - outs[b]).abs().max().item()
+            scale = outs[b].abs().max().item()
+            rec[name] = dict(max_abs_err=err, max_abs_logit=scale)
+            if not (err <= PARITY_TOL[mode] * scale) or not math.isfinite(scale):
+                print(json.dumps(rec), flush=True)
+                fail(f"paged parity {mode} {name}: max|err| {err:.3g} > "
+                     f"{PARITY_TOL[mode]} x max|logit| {scale:.3g}")
+        print(json.dumps(rec), flush=True)
+        results[mode] = rec
+        if counts["kernel"]["K4"] <= 0 or counts["kernel"]["K2"] <= 0 or counts["plain"]["K4"]:
+            fail(f"paged parity {mode}: kernel path counts {counts}")
+        del params, outs, hist, pkv, kv
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 
 
 def kernels_line(cases: list, e2e: dict) -> dict:
-    """One entry per kernel and numerics mode: times summed over one
-    layer's seven matmuls and the head (K1 at M=128, K2 at M=1), or the
-    deepest decode / the cold 128-token prefill (K3)."""
+    """One entry per kernel, case group and numerics mode: times summed
+    over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
+    at the serving M=8), or the deepest single-row decode / the cold
+    128-token prefill (K3), or the single-row and 8-row ragged decode at
+    block size 16 (K4, whose yardstick ``gather_sdpa_ms`` is two library
+    calls, so ``library_ms`` is null). Launches are the main paths' counts,
+    per path (``inference``, ``perplexity``, ``api``)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
-                  "dllama_tpu/ops/quant_matmul.py:51", "q40_matmul (tile, M=128)"),
+                  "dllama_tpu/ops/quant_matmul.py:51", "q40_matmul (tile)"),
            "K2": ("dllama_tpu_torch/csrc/quant_matmul.cu",
-                  "dllama_tpu/ops/quant_matmul.py:100", "q40_gemv (decode, M=1)"),
+                  "dllama_tpu/ops/quant_matmul.py:100", "q40_gemv (decode)"),
            "K3": ("dllama_tpu_torch/csrc/flash_attention.cu",
-                  "dllama_tpu/ops/flash_attention.py:44", "flash_attention")}
+                  "dllama_tpu/ops/flash_attention.py:44", "flash_attention"),
+           "K4": ("dllama_tpu_torch/csrc/paged_attention.cu",
+                  "dllama_tpu/ops/paged_attention.py:49", "paged_attention")}
+    groups = {
+        "K1": [(" M=128", lambda c: c["M"] == 128)],
+        "K2": [(" M=1", lambda c: c["M"] == 1), (" M=8 (serving)", lambda c: c["M"] == 8)],
+        "K3": [(" decode T=1 @2047", lambda c: c["phase"] == "decode"
+                and c["start_pos"] == MAX_SEQ - 1 and c["head_dim"] == HEAD_DIM),
+               (" prefill T=128 @0", lambda c: c["phase"] == "prefill"
+                and c["start_pos"] == 0 and c["T"] == 128)],
+        "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
+                and c["block_size"] == BLOCK),
+               (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
+                and c["block_size"] == BLOCK)],
+    }
     out = []
-    for kname in ("K1", "K2", "K3"):
+    for kname in ("K1", "K2", "K3", "K4"):
         for mode in ("exact", "fast"):
             e2e_dtype = "f32" if mode == "exact" else "bf16"
             ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
-            groups = ([("", [c for c in ours if c["M"] == (1 if kname == "K2" else 128)])]
-                      if kname != "K3" else
-                      [(" decode T=1 @2047", [c for c in ours if c["phase"] == "decode"
-                                              and c["start_pos"] == MAX_SEQ - 1
-                                              and c["head_dim"] == HEAD_DIM]),
-                       (" prefill T=128 @0", [c for c in ours if c["phase"] == "prefill"
-                                              and c["start_pos"] == 0 and c["T"] == 128])])
             by_path = {p: n[kname] for p, n in e2e[e2e_dtype]["launches"].items()}
-            for suffix, sel in groups:
+            for suffix, pick in groups[kname]:
+                sel = [c for c in ours if pick(c)]
                 b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
                 b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
-                out.append(dict(
+                rec = dict(
                     name=f"{kname} {src[kname][2]}{suffix} [{mode}]", route="cuda",
                     source=src[kname][0], replaces=src[kname][1],
                     launches=sum(by_path.values()), launches_by_path=by_path,
@@ -538,7 +933,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                     ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
                     bound_ms=b_bytes + b_ops,
                     bound_by="bytes" if b_bytes >= b_ops else "operations",
-                    library_ms=sum(c["library_ms"] for c in sel)))
+                    library_ms=(None if kname == "K4"
+                                else sum(c["library_ms"] for c in sel)))
+                if kname == "K4":
+                    rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
+                out.append(rec)
     return {"kernels": out}
 
 
@@ -576,12 +975,20 @@ def main() -> int:
     timer = Timer()
     matmul_cases(timer, cases)
     attention_cases(timer, cases)
+    paged_cases(timer, cases)
     del timer
     torch.cuda.empty_cache()
     e2e: dict = {}
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
-        main_path(tmp, args.layers, e2e)
+        model, tok, text = write_assets(tmp, args.layers)
+        t0 = time.perf_counter()
+        main_path(model, tok, text, args.layers, e2e)
+        print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        serving(model, tok, args.layers, e2e)
+        print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)
     model_parity({})
+    paged_parity({})
 
     print(f"⏱️ smoke run took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

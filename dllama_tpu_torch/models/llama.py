@@ -13,7 +13,11 @@ MoE are not ported.
 Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
 (``cfg.quant_impl``) and K3 through
 :func:`~dllama_tpu_torch.ops.flash_attention.flash_attention`
-(``cfg.attn_impl``).
+(``cfg.attn_impl``). The paged family (:func:`paged_forward`,
+:func:`paged_sampled_step`) serves continuous batching over the block pool
+and attends through K4
+(:func:`~dllama_tpu_torch.ops.paged_attention.paged_attention`, the same
+``cfg.attn_impl`` gate).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
 from ..ops.linear import QuantizedWeight, Weight, fake_quant_q80, linear
 from ..ops.norms import rms_norm, rms_norm_per_head
+from ..ops.paged_attention import paged_attention, paged_attention_plain
 from ..runtime.kvcache import KVCache, update_layer
 from .config import ModelConfig
 from .rope import apply_rope, build_rope_cache
@@ -202,6 +207,87 @@ def prefill_nll(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Teacher-forced prefill: per-position NLL ``[B, T]`` plus the cache."""
     logits, kv = forward(params, cfg, tokens, start_pos, kv)
     return nll_from_logits(logits, targets), kv
+
+
+# ---------------------------------------------------------------------------
+# Paged program family (runtime/kvblocks.py): the continuous-batching decode
+# step reaches each row's context through a block table over the pool
+# ---------------------------------------------------------------------------
+
+
+def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      positions: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """One transformer block over the paged cache. ``k_pool/v_pool
+    [n_blocks, n_kv, bs, hd]`` is this layer's slice of the pool, written in
+    place; ``tables [B, M]`` (int64) maps each row's logical block to a
+    physical block (0 = the null block). The new K/V rows scatter into
+    their (block, offset) cells — inactive rows carry all-null tables, so
+    their ride-along writes land in block 0; the only duplicate targets are
+    there, whose contents are never read unmasked, so ``index_put_``
+    without ``accumulate`` is safe — then K4 (or its plain gather + oracle)
+    attends through the table."""
+    fq = _fq(cfg)
+    q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
+    bs = k_pool.shape[2]
+    blk = torch.gather(tables, 1, positions // bs)  # [B, T]
+    off = positions % bs
+    k_pool[blk, :, off] = k.to(k_pool.dtype)       # index_put_, [B, T, n_kv, hd]
+    v_pool[blk, :, off] = v.to(v_pool.dtype)
+    if _use_flash(cfg, q):
+        att = paged_attention(q, k_pool, v_pool, tables, positions, cfg.head_dim)
+    else:
+        att = paged_attention_plain(q, k_pool, v_pool, tables, positions, cfg.head_dim)
+    return _attn_out_and_ffn(cfg, x, att, lp, fq)
+
+
+def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  pos_vec: torch.Tensor, pkv, tables: torch.Tensor
+                  ) -> tuple[torch.Tensor, object]:
+    """Full forward over the paged pool: ``tokens [B, T]`` at per-row
+    ``pos_vec [B]`` through block ``tables [B, max_blocks]``. Returns
+    float32 logits ``[B, T, vocab]`` and the pool
+    (:class:`~dllama_tpu_torch.runtime.kvblocks.PagedKVCache`), updated in
+    place. An inactive row may carry its previous occupant's stale
+    position, up to ``seq_len``; its positions clamp into the rope table
+    and the block table (XLA clamps out-of-range gathers, torch raises),
+    which only moves that row's write inside the null block."""
+    B, T = tokens.shape
+    x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
+    cos, sin = params.rope
+    positions = (pos_vec.to(x.device).long()[:, None]
+                 + torch.arange(T, device=x.device)[None, :]).clamp_(max=cfg.seq_len - 1)
+    tables = tables.to(x.device).long()
+    for l, lp in enumerate(params.layers):
+        x = _paged_layer_step(cfg, x, lp, pkv.k[l], pkv.v[l], cos, sin, positions, tables)
+    x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
+    if cfg.sync_q80:
+        x = fake_quant_q80(x)
+    logits = linear(x, params.logits, impl=cfg.quant_impl).float()
+    return logits, pkv
+
+
+def _nonfinite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Per-row count of non-finite lanes: ``[B, ...] -> [B]`` int32."""
+    bad = ~torch.isfinite(logits)
+    return bad.reshape(bad.shape[0], -1).sum(dim=1).to(torch.int32)
+
+
+def paged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                       pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
+                       temps, topps, coins) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paged ragged decode step of continuous batching: one
+    :func:`paged_forward` for every slot, then per-row on-device sampling
+    (rows with ``temps <= 0`` take the argmax). Returns ``(token [B],
+    nonfinite [B])``: the non-finite lane count of each row's logits, so a
+    poisoned request can be failed without touching the rest of the batch.
+    The pool is updated in place."""
+    from ..ops.sampling import sampled_token
+
+    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables)
+    last = logits[:, -1, :]
+    return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
 
 
 # ---------------------------------------------------------------------------

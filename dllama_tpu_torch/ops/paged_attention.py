@@ -1,0 +1,123 @@
+"""Kernel K4: causal GQA attention over the paged block pool.
+
+Replaces the JAX package's ``ops/paged_attention.py::_kernel`` (kernel
+:49, ``pallas_call`` :182 through ``paged_ragged_attention`` :132). The
+Pallas kernel assembles each (batch row, KV head)'s whole logical cache in
+VMEM and runs one softmax, so that it is bit-identical to the gather plus
+oracle on the TPU. The CUDA kernel (``csrc/paged_attention.cu``) instead
+walks the row's block table with an online softmax: each 32-key tile reads
+``tables[b, s // bs]`` for its keys and loads their K/V rows with 16-byte
+loads (a block's ``[bs, hd]`` tile is contiguous in the pool), and the walk
+stops at the newest position any query row of the tile can see, so
+unallocated tail entries — and the many null entries behind an inactive
+row's stale position — are never loaded.
+
+What bounds it on the H100: the visible KV bytes (decode reads each
+visible K/V row once for ``kv_mul`` query rows). At decode with B = 1 the
+grid is only ``n_kv`` = 8 blocks on 132 SMs; splitting the key walk across
+blocks (flash-decoding) is later work, as for K3.
+
+:func:`paged_attention` runs :func:`paged_attention_plain` (the gather +
+oracle, its plain version) on a CPU tensor, and on a CUDA tensor launches
+the kernel or raises. ``paged_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .attention import attention
+from .cuda_build import check, load
+from .flash_attention import fold_queries, unfold_output
+
+MAX_TQ = 512    # folded query rows (T * kv_mul) per (batch row, KV head)
+MAX_HEAD_DIM = 128
+
+
+def supports(q_shape: tuple[int, ...], n_kv: int, block_size: int) -> bool:
+    """The CUDA kernel's own limits: head dims that are a multiple of 8 up
+    to 128 (16-byte loads of bf16 rows, shared-memory tiles), block sizes
+    that are a multiple of 8, at most :data:`MAX_TQ` folded query rows."""
+    B, T, n_heads, D = q_shape
+    return (n_heads % n_kv == 0 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
+            and block_size % 8 == 0 and 0 < T * (n_heads // n_kv) <= MAX_TQ)
+
+
+def paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """The dense head-major logical cache of every row: ``pool [n_blocks,
+    n_kv, bs, hd]`` gathered through ``tables [B, M]`` →
+    ``[B, n_kv, M * bs, hd]``."""
+    B, M = tables.shape
+    _, n_kv, bs, hd = pool.shape
+    g = pool[tables.long()]                    # [B, M, n_kv, bs, hd]
+    return g.transpose(1, 2).reshape(B, n_kv, M * bs, hd)
+
+
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          positions: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The plain PyTorch version of K4: the gather (``pool[tables]``) and
+    the position-masked oracle over it — what the JAX package's
+    ``_paged_layer_step`` runs when its kernel gate is off."""
+    return attention(q, paged_view(k_pool, tables), paged_view(v_pool, tables),
+                     positions, head_dim)
+
+
+def _lib():
+    lib = getattr(_lib, "cached", None)
+    if lib is None:
+        lib = load("paged_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dlt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                            ctypes.c_float, i, p]
+        lib.dlt_paged_attention.restype = i
+        _lib.cached = lib
+    return lib
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    tables: torch.Tensor, positions: torch.Tensor,
+                    head_dim: int) -> torch.Tensor:
+    """Causal GQA attention of ``q [B, T, n_heads, hd]`` over this layer's
+    pool ``k/v_pool [n_blocks, n_kv, bs, hd]`` through block ``tables
+    [B, M]`` (0 = the null block) at absolute ``positions [B, T]`` (affine
+    per row: query row ``r`` of the GQA fold sees logical columns
+    ``s <= positions[b, 0] + r // kv_mul``)."""
+    B, T, n_heads, D = q.shape
+    n_blocks, n_kv, bs, _ = k_pool.shape
+    M = tables.shape[1]
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, tables, positions, head_dim)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if not supports(tuple(q.shape), n_kv, bs):
+        raise ValueError(
+            f"paged_attention: q={tuple(q.shape)}, n_kv={n_kv}, block size {bs} "
+            f"not supported (head_dim % 8 == 0 and <= {MAX_HEAD_DIM}, block size "
+            f"% 8 == 0, T*kv_mul <= {MAX_TQ})")
+    if k_pool.dtype not in (torch.float32, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"paged_attention: pool dtype {k_pool.dtype} not supported")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} must be contiguous and "
+                             f"16-byte aligned on {q.device}")
+    kv_mul = n_heads // n_kv
+    q_g = fold_queries(q, n_kv)
+    out = torch.empty_like(q_g)
+    tbl = tables.to(device=q.device, dtype=torch.int32).contiguous()
+    pos0 = positions[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    lib = _lib()
+    rc = lib.dlt_paged_attention(
+        q_g.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        tbl.data_ptr(), pos0.data_ptr(), B, n_kv, T * kv_mul, D, n_blocks, bs, M,
+        kv_mul, 1.0 / math.sqrt(head_dim), int(k_pool.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    paged_attention.launches += 1
+    check(lib, rc, "paged_attention")
+    return unfold_output(out, T, n_heads).to(q.dtype)
+
+
+paged_attention.launches = 0

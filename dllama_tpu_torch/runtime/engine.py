@@ -6,7 +6,10 @@ the model functions of :mod:`dllama_tpu_torch.models.llama`: bucketed
 chunked prefill (:data:`PREFILL_BUCKETS`), one forward + on-device argmax or
 sample per decode token, perplexity and teacher-forced NLL. The method names
 and signatures are the JAX engine's, so the same callers (the golden replay
-protocol in the tests) run both.
+protocol in the tests) run both. With ``kv_block_size`` the engine also
+serves paged continuous batching (:mod:`dllama_tpu_torch.runtime.serving`
+builds the block pool and reuses ``prefill_buckets`` and
+``_prefill_chunk_size``).
 
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
@@ -28,6 +31,7 @@ from ..models.config import ModelConfig
 from ..models.llama import Params, forward, greedy_step, prefill_nll, sampled_step
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
+from .kvblocks import validate_block_size
 from .kvcache import KVCache
 from .weights import load_params
 
@@ -97,7 +101,8 @@ class InferenceEngine:
                  device="cuda", max_seq_len: int = 0, sync_type: int = F32,
                  compute_dtype: str = "float32", n_batches: int | None = None,
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
-                 attn_impl: str = "auto", quant_impl: str = "auto"):
+                 attn_impl: str = "auto", quant_impl: str = "auto",
+                 kv_block_size: int = 0):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
         self.device = resolve_device(device)
@@ -106,6 +111,20 @@ class InferenceEngine:
         self.cfg = replace(ModelConfig.from_header(self.model_file.header,
                                                    compute_dtype=compute_dtype),
                            attn_impl=attn_impl, quant_impl=quant_impl)
+        # paged KV serving (--kv-block-size, runtime/kvblocks.py): the block
+        # geometry and the combinations the JAX engine refuses are checked
+        # before the load. The pool (built by serving.PagedGenerator) holds
+        # K/V at the compute dtype, as the dense cache does.
+        self.kv_block_size = max(0, int(kv_block_size or 0))
+        self.kv_dtype = getattr(torch, compute_dtype)
+        if self.kv_block_size:
+            validate_block_size(self.cfg.seq_len, self.kv_block_size)
+            if attn_impl == "flash":
+                self.model_file.close()
+                raise ValueError(
+                    "--kv-block-size (paged KV serving) does not support "
+                    "attn_impl='flash' (forced) yet — drop it or drop "
+                    "--kv-block-size")
         self.n_batches = min(n_batches or DEFAULT_N_BATCHES, self.cfg.seq_len)
         if n_batches is None:
             self.prefill_buckets = tuple(

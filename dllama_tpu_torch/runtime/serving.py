@@ -1,0 +1,776 @@
+"""Continuous batched serving over the paged KV pool (the port of the JAX
+package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
+``_GeneratorCore``, ``PagedGenerator`` and ``BatchScheduler``).
+
+* :class:`PagedGenerator` — ``n_slots`` sequence slots over one block pool
+  (:mod:`~dllama_tpu_torch.runtime.kvblocks`) and ONE ragged decode step
+  per tick for all of them (``models.llama.paged_sampled_step``: K2 at
+  ``M = n_slots``, K4 over the pool, per-row on-device sampling). Admission
+  is priced in blocks; a prompt's full blocks are shared with earlier
+  prompts and the partial tail is copied on write; prefill runs the
+  engine's own dense ``forward`` (K1 + K3) over the sequence's gathered
+  column, whose own blocks are scattered back at commit.
+* :class:`BatchScheduler` — thread-safe front end: a FIFO queue beyond the
+  slots (``max_queue`` shedding), deadlines, interleaved chunked prefill
+  under a per-tick token budget, cancellation, and supervision (a crash
+  fails every waiter, resets the pool and restarts, up to
+  ``max_restarts``). One loop thread owns the generator and every device
+  dispatch.
+
+Determinism: each request carries its own xorshift seed and consumes its
+own coin stream, so a request's output does not depend on what shares the
+batch with it — the transcripts equal the single-sequence engine's
+(``tests/test_torch_serving.py``).
+
+Left out (later slices): the dense slot-pool ``BatchedGenerator``,
+telemetry and the flight recorder, tenancy and fair queueing, speculative
+and fused multi-step decode, the host KV tier and KV migration, eval
+scoring, the HBM degrade, the step watchdog and failpoints.
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Callable
+
+import numpy as np
+import torch
+
+from ..models.llama import forward, paged_sampled_step
+from ..tokenizer.sampler import xorshift_random_f32
+from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
+                       block_pool_bytes, blocks_per_seq)
+from .kvcache import KVCache
+
+if TYPE_CHECKING:
+    from .engine import InferenceEngine
+
+_MASK64 = (1 << 64) - 1
+
+
+class SchedulerError(RuntimeError):
+    """Base for admission-time scheduler failures (serve/api.py maps each
+    subclass to an HTTP status)."""
+
+
+class QueueFullError(SchedulerError):
+    """Bounded admission: the wait queue is at --max-queue (HTTP 429)."""
+
+
+class SchedulerUnavailableError(SchedulerError):
+    """The scheduler is draining, closed, or crashed past its restart
+    budget (HTTP 503)."""
+
+
+class RequestTimeoutError(SchedulerError):
+    """A request's deadline expired before it produced any output
+    (HTTP 408). Expiry mid-generation instead finishes the request with
+    ``finish_reason="timeout"`` and partial output."""
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt_ids: list[int]
+    max_tokens: int
+    temperature: float = 0.0
+    topp: float = 0.9
+    seed: int = 0xB1A5
+    stop_on_eos: bool = True
+    on_token: Callable[[int, str | None], None] | None = None
+    # filled by the generator:
+    tokens: list[int] = field(default_factory=list)
+    done: threading.Event = field(default_factory=threading.Event)
+    # True when `error` was set by a SERVER-side failure (scheduler crash,
+    # shutdown, a non-finite step) rather than a per-request reject — the
+    # HTTP layer maps these to 503, not 400
+    server_error: bool = False
+    # set by the CLIENT to stop decoding early (a stop string matched in the
+    # emitted text); the slot retires at the next step boundary
+    cancel: threading.Event = field(default_factory=threading.Event)
+    rng_state: int = 0
+    error: str | None = None
+    decoder: object = None  # per-request streaming UTF-8 decoder
+    # deadline (monotonic ns; 0 = none): past it the scheduler fails the
+    # request if still queued, or cancels its slot at the next step boundary
+    deadline_ns: int = 0
+    timed_out: bool = False
+    # monotonic ns stamps: submit and first emitted token (time to first
+    # token = their difference)
+    t_submit: int = 0
+    t_first_token: int = 0
+
+    def __post_init__(self):
+        self.rng_state = self.seed & _MASK64
+
+
+@dataclass
+class _Admission:
+    """In-flight incremental prefill of one request into one slot.
+
+    ``pos`` doubles as the prompt cursor: exactly ``pos`` prompt tokens have
+    been prefilled, at positions ``[0, pos)``."""
+
+    req: Request
+    slot: int
+    col: KVCache | None  # the sequence's gathered dense column, being filled
+    pos: int = 0
+
+
+class PagedGenerator:
+    """Block-granular paged KV + the paged ragged decode step. Not
+    thread-safe by itself (the scheduler's loop thread owns it).
+
+    KV lives in a block pool ``[L, n_blocks, n_kv, block_size, hd]`` of
+    ``n_slots * table_width + 1`` blocks (the null block included). A
+    sequence holds exactly the blocks its context needs (lazy growth at
+    decode), and admission reserves each request's worst case, so organic
+    mid-decode exhaustion cannot happen."""
+
+    def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
+        block_size = int(engine.kv_block_size or 0)
+        if block_size <= 0:
+            raise ValueError("PagedGenerator needs an engine built with "
+                             "kv_block_size (--kv-block-size N)")
+        self.eng = engine
+        self.cfg = engine.cfg
+        self.n_slots = n_slots
+        self.pos = np.zeros(n_slots, dtype=np.int64)
+        self.next_token = np.zeros(n_slots, dtype=np.int64)
+        self.slots: list[Request | None] = [None] * n_slots
+        self.block_size = block_size
+        self.table_width = blocks_per_seq(self.cfg.seq_len, block_size)
+        n_blocks = n_slots * self.table_width + 1
+        self.pool_bytes = block_pool_bytes(self.cfg, n_blocks, block_size,
+                                           engine.kv_dtype.itemsize)
+        if engine.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(engine.device)
+            if self.pool_bytes > free:
+                raise RuntimeError(
+                    f"the paged KV pool needs {self.pool_bytes / 1e9:.2f} GB "
+                    f"({n_blocks} blocks of {block_size} rows for {n_slots} slots "
+                    f"at {self.cfg.seq_len} positions) but {free / 1e9:.2f} GB of "
+                    f"device memory is free; lower --batch-slots or --max-seq-len")
+        self.pool = BlockPool(n_blocks, block_size)
+        self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
+                                       dtype=engine.kv_dtype, device=engine.device)
+        # per-slot block tables (host truth; shipped with pos and the next
+        # token in one host→device copy per step)
+        self.tables = np.zeros((n_slots, self.table_width), dtype=np.int64)
+        self._seq_bids: list[list[int]] = [[] for _ in range(n_slots)]
+        # shared-prefix length (in blocks) per slot: the commit scatter skips
+        # those entries, so a shared block is never written
+        self._n_shared = [0] * n_slots
+        # per-slot RESERVATION: worst-case blocks the slot's request may
+        # still allocate at decode boundaries; can_admit subtracts the
+        # outstanding total so concurrent sequences can't double-spend
+        self._reserve = [0] * n_slots
+        # prompt tokens reused through block sharing + copy-on-write (the
+        # JAX package's dllama_prefix_reuse_tokens_total)
+        self.reused_tokens = 0
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def _worst_case_blocks(self, prompt_len: int, max_tokens: int) -> int:
+        """Admission price in blocks: every position the request could ever
+        write (prompt prefill + decode growth, capped at seq_len)."""
+        rows = min(prompt_len - 1 + max_tokens, self.cfg.seq_len)
+        return max(1, -(-rows // self.block_size))
+
+    def can_admit(self, req: Request) -> bool:
+        """Free (+ evictable) blocks minus every live sequence's outstanding
+        worst-case growth must cover this request's own worst case."""
+        return (self.pool.free_blocks() - sum(self._reserve)
+                >= self._worst_case_blocks(len(req.prompt_ids), req.max_tokens))
+
+    def _retire(self, slot: int) -> None:
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self._release_blocks(slot)
+        req.done.set()
+
+    def _release_blocks(self, slot: int) -> None:
+        """Drop every block reference ``slot`` holds and forget its
+        bookkeeping (the all-null table row sends ride-along writes to the
+        null block)."""
+        for b in self._seq_bids[slot]:
+            self.pool.release(b)
+        self._seq_bids[slot] = []
+        self._n_shared[slot] = 0
+        self._reserve[slot] = 0
+        self.tables[slot, :] = self.pool.NULL
+
+    def _arm_decode(self, adm: _Admission) -> None:
+        """Commit tail: arm the slot for decode (position, seed token, a
+        per-request streaming decoder)."""
+        req = adm.req
+        self.pos[adm.slot] = adm.pos
+        self.next_token[adm.slot] = req.prompt_ids[-1]
+        if self.eng.tokenizer is not None:
+            # a shallow copy shares the vocab tables but owns its UTF-8
+            # carry-over, so interleaved slots can't corrupt each other
+            req.decoder = copy.copy(self.eng.tokenizer)
+            req.decoder._pending = bytearray()
+        self.slots[adm.slot] = req
+
+    def _handle_nonfinite(self, active: list[int], nf: np.ndarray) -> set[int]:
+        """Non-finite tripwire: a row whose decode logits hold NaN/Inf fails
+        THAT request (503-shaped) and retires its slot; the rest of the
+        batch is untouched. Returns the retired rows."""
+        failed: set[int] = set()
+        for i in active:
+            n = int(nf[i])
+            if n > 0:
+                req = self.slots[i]
+                req.error = (f"non-finite decode logits ({n} lanes) for request "
+                             f"{req.rid}")
+                req.server_error = True
+                self._retire(i)
+                failed.add(i)
+        return failed
+
+    def _sweep_cancelled(self) -> list[int]:
+        """Retire client-cancelled slots; return the active row list."""
+        for i, s in enumerate(self.slots):
+            if s is not None and s.cancel.is_set():
+                self._retire(i)
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    def _sampling_rows(self, active: list[int]) -> np.ndarray:
+        """Per-row sampling knobs ``[3, n_slots]`` (temperature, top-p,
+        coin) for one dispatch: one xorshift coin drawn and committed per
+        temperature > 0 row."""
+        knobs = np.zeros((3, self.n_slots), dtype=np.float32)
+        for i in active:
+            req = self.slots[i]
+            knobs[0, i] = req.temperature
+            knobs[1, i] = req.topp
+            if req.temperature > 0.0:
+                knobs[2, i], req.rng_state = xorshift_random_f32(req.rng_state)
+        return knobs
+
+    def _emit_run(self, i: int, run: list[int]) -> int:
+        """Deliver a run of tokens to slot ``i``'s request: append, stream,
+        advance the position, retire on EOS / max_tokens / full context.
+        Returns tokens emitted."""
+        req = self.slots[i]
+        tok = self.eng.tokenizer
+        n_keep = min(len(run), req.max_tokens - len(req.tokens))
+        if n_keep <= 0:
+            self._retire(i)
+            return 0
+        retire = n_keep < len(run)
+        for j in range(n_keep):
+            if req.stop_on_eos and tok is not None and tok.is_eos(run[j]):
+                n_keep, retire = j + 1, True
+                break
+        run = run[:n_keep]
+        self.pos[i] += len(run)
+        self.next_token[i] = run[-1]
+        if req.t_first_token == 0:
+            req.t_first_token = time.monotonic_ns()
+        req.tokens.extend(run)
+        for t in run:
+            piece = req.decoder.decode(t) if req.decoder is not None else None
+            if req.on_token is not None:
+                req.on_token(t, piece)
+        if (retire or len(req.tokens) >= req.max_tokens
+                or self.pos[i] >= self.cfg.seq_len):
+            self._retire(i)
+        return len(run)
+
+    # -- device block movement (plain torch indexing, not kernels) ----------
+
+    def _exec_take(self, bids: list[int]) -> KVCache:
+        """The sequence's dense column ``[L, 1, n_kv, M * bs, hd]``: its
+        blocks gathered in table order, zeros behind them (finite, and
+        position-masked)."""
+        L, _, n_kv, bs, hd = self.pkv.k.shape
+        idx = torch.tensor(bids, dtype=torch.long, device=self.eng.device)
+
+        def view(pool: torch.Tensor) -> torch.Tensor:
+            col = torch.zeros((L, n_kv, self.table_width, bs, hd), dtype=pool.dtype,
+                              device=pool.device)
+            col[:, :, :len(bids)] = pool[:, idx].transpose(1, 2)
+            return col.reshape(L, 1, n_kv, self.table_width * bs, hd)
+
+        return KVCache(k=view(self.pkv.k), v=view(self.pkv.v))
+
+    def _exec_put(self, col: KVCache, bids: list[int], n_shared: int) -> None:
+        """Scatter the slot's OWN blocks of ``col`` back into the pool; the
+        shared prefix blocks are skipped, so a shared block is never a write
+        target."""
+        own = bids[n_shared:]
+        if not own:
+            return
+        L, _, n_kv, bs, hd = self.pkv.k.shape
+        idx = torch.tensor(own, dtype=torch.long, device=self.eng.device)
+        for pool, c in ((self.pkv.k, col.k), (self.pkv.v, col.v)):
+            blocks = c.reshape(L, n_kv, self.table_width, bs, hd)[:, :, n_shared:len(bids)]
+            pool[:, idx] = blocks.transpose(1, 2)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        self.pkv.k[:, dst] = self.pkv.k[:, src]
+        self.pkv.v[:, dst] = self.pkv.v[:, src]
+
+    # -- admission ----------------------------------------------------------
+
+    def begin_admit(self, req: Request, slot: int) -> _Admission:
+        """Start admitting into ``slot``: match the prompt against the block
+        prefix index (share full blocks, copy-on-write the partial tail),
+        allocate the remaining prompt blocks and gather the sequence's
+        column for chunked prefill. Atomic: any failure (exhaustion, a
+        device error) releases every reference taken and re-raises; on
+        :class:`BlockPoolExhausted` the scheduler keeps the request queued."""
+        ids = req.prompt_ids
+        if not ids:
+            raise ValueError("empty prompt")
+        if len(ids) >= self.cfg.seq_len:
+            raise ValueError(
+                f"prompt of {len(ids)} tokens exceeds the usable context "
+                f"(seq_len {self.cfg.seq_len})")
+        rest = ids[:-1]
+        shared, n_tok, cow_src, cow_r = self.pool.match_prefix(rest)
+        cow_wanted = cow_src is not None and cow_r > 0
+        bids: list[int] = []
+        pinned: list[int] = []  # shares taken on matched blocks
+        try:
+            for b in shared:
+                self.pool.share(b)
+                pinned.append(b)
+            if cow_wanted:
+                self.pool.share(cow_src)  # pin across the alloc below
+                pinned.append(cow_src)
+            bids.extend(shared)
+            reused = n_tok
+            if cow_wanted:
+                # copy-on-write: the partially matching block cannot be
+                # shared (this sequence overwrites rows >= cow_r), so copy
+                # it and reuse its first cow_r rows
+                try:
+                    dst = self.pool.alloc()
+                finally:
+                    self.pool.release(cow_src)
+                    pinned.remove(cow_src)
+                bids.append(dst)
+                self._copy_block(cow_src, dst)
+                reused += cow_r
+            while len(bids) < -(-len(rest) // self.block_size):
+                bids.append(self.pool.alloc())
+            # a fully reused prompt has no rows to build: no column at all
+            col = self._exec_take(bids) if reused < len(rest) else None
+        except Exception:
+            for b in bids:
+                if b not in pinned:
+                    self.pool.release(b)
+            for b in pinned:
+                self.pool.release(b)
+            raise
+        self._seq_bids[slot] = bids
+        self._n_shared[slot] = len(shared)
+        self._reserve[slot] = max(
+            0, self._worst_case_blocks(len(ids), req.max_tokens) - len(bids))
+        # the slot's table goes live only at commit: until then the slot
+        # rides along decode dispatches as an inactive row (with whatever
+        # stale pos the previous occupant left), and its writes must keep
+        # landing in the null block, never in a shared block
+        self.tables[slot, :] = self.pool.NULL
+        self.reused_tokens += reused
+        return _Admission(req=req, slot=slot, col=col, pos=reused)
+
+    def _prefill_chunk(self, adm: _Admission, padded: list[int]) -> None:
+        tokens = torch.tensor([padded], dtype=torch.long, device=self.eng.device)
+        _, adm.col = forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
+
+    def continue_admit(self, adm: _Admission) -> bool:
+        """One admission step: one bucketed prefill chunk over the gathered
+        column; the last step commits — scatters the slot's own blocks back,
+        registers the prompt's blocks for sharing, publishes the table and
+        arms decode. Returns True once committed."""
+        rest = adm.req.prompt_ids[:-1]
+        if adm.pos < len(rest):
+            n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
+            chunk = rest[adm.pos:adm.pos + n_b]
+            pad_to = min(n_b, self.cfg.seq_len - adm.pos)
+            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)))
+            adm.pos += len(chunk)
+            if adm.pos < len(rest):
+                return False
+        slot = adm.slot
+        bids = self._seq_bids[slot]
+        if adm.col is not None:
+            self._exec_put(adm.col, bids, self._n_shared[slot])
+            adm.col = None
+        self.pool.register_prompt(bids, rest)
+        self.tables[slot, :len(bids)] = bids
+        adm.pos = len(rest)
+        self._arm_decode(adm)
+        return True
+
+    def admit(self, req: Request, slot: int) -> None:
+        """Admit in one go (tests / non-interleaved callers)."""
+        adm = self.begin_admit(req, slot)
+        while not self.continue_admit(adm):
+            pass
+
+    def abort_admit(self, adm: _Admission) -> None:
+        """Release everything ``begin_admit`` took for an admission that will
+        never commit (client cancel mid-prefill, or a prefill that raised)."""
+        adm.col = None
+        self._release_blocks(adm.slot)
+
+    def reset_state(self) -> None:
+        """Crash recovery: every slot forgotten, the whole pool (refcounts
+        AND the prefix index) reset — nothing can match blocks a
+        half-finished dispatch may have corrupted."""
+        self.slots = [None] * self.n_slots
+        self._seq_bids = [[] for _ in range(self.n_slots)]
+        self._n_shared = [0] * self.n_slots
+        self._reserve = [0] * self.n_slots
+        self.pool.reset()
+        self.tables[:, :] = self.pool.NULL
+        self.pos[:] = 0
+        self.next_token[:] = 0
+
+    # -- decode -------------------------------------------------------------
+
+    def _ensure_blocks(self, i: int) -> None:
+        """Lazy growth: slot ``i`` gets a physical block for its write
+        position before the dispatch."""
+        idx = int(self.pos[i]) // self.block_size
+        if self.tables[i, idx] == self.pool.NULL:
+            bid = self.pool.alloc()
+            self._seq_bids[i].append(bid)
+            self._reserve[i] = max(0, self._reserve[i] - 1)
+            self.tables[i, idx] = bid
+
+    def _grow_or_fail(self, active: list[int]) -> None:
+        """Lazy growth for one dispatch; a slot whose growth finds no block
+        (admission reservations make the organic case impossible) fails
+        THAT request (503-shaped) and the rest of the batch keeps going."""
+        for i in list(active):
+            try:
+                self._ensure_blocks(i)
+            except BlockPoolExhausted as e:
+                req = self.slots[i]
+                req.error = str(e)
+                req.server_error = True
+                self._retire(i)
+                active.remove(i)
+
+    def _assert_writable(self, active: list[int]) -> None:
+        if __debug__:
+            # copy-on-write safety: a write target is never a shared block
+            for i in active:
+                bid = int(self.tables[i, int(self.pos[i]) // self.block_size])
+                assert self.pool.refcount(bid) == 1, (i, int(self.pos[i]), bid)
+
+    def step(self) -> int:
+        """One paged ragged decode step for every active slot. Inactive
+        slots ride along with all-null tables (their writes land in the
+        null block). One host→device copy carries the next tokens,
+        positions and tables, one the sampling knobs, and one device→host
+        copy brings the tokens back. Returns the tokens emitted."""
+        active = self._sweep_cancelled()
+        if not active:
+            return 0
+        self._grow_or_fail(active)
+        if not active:
+            return 0
+        self._assert_writable(active)
+        knobs = self._sampling_rows(active)
+        host = np.concatenate([self.next_token[:, None], self.pos[:, None],
+                               self.tables], axis=1)
+        dev = torch.from_numpy(host).to(self.eng.device)
+        kn = torch.from_numpy(knobs).to(self.eng.device)
+        nxt, nf = paged_sampled_step(self.eng.params, self.cfg, dev[:, :1], dev[:, 1],
+                                     self.pkv, dev[:, 2:], kn[0], kn[1], kn[2])
+        out = torch.stack([nxt.long(), nf.long()]).cpu().numpy()
+        poisoned = self._handle_nonfinite(active, out[1])
+        emitted = 0
+        for i in active:
+            if i not in poisoned:
+                emitted += self._emit_run(i, [int(out[0, i])])
+        return emitted
+
+
+class BatchScheduler:
+    """Thread-safe front end: a queue beyond the slots + a step loop.
+
+    HTTP handler threads call :meth:`submit` (+ wait on the request's
+    ``done``) or :meth:`generate`; one background thread owns the
+    generator and runs admissions and steps.
+
+    Fault tolerance (nothing may leave a waiter hanging on ``done``):
+
+    * **deadlines** — ``submit(..., timeout_s=...)``: past it a queued
+      request fails at once and an in-flight one is cancelled at the next
+      step boundary, both marked ``timed_out``;
+    * **bounded admission** — ``max_queue > 0`` sheds submits beyond the
+      bound with :class:`QueueFullError`;
+    * **supervision** — an exception in the loop fails every queued and
+      in-flight request, resets the generator's pool and restarts; past
+      ``max_restarts`` the scheduler goes permanently unready and submits
+      raise :class:`SchedulerUnavailableError`;
+    * **graceful drain** — :meth:`close` (optionally after
+      :meth:`begin_drain`) stops admitting, lets active slots finish up to
+      ``drain_s``, then fails the remainder explicitly.
+    """
+
+    def __init__(self, engine: "InferenceEngine", n_slots: int = 4, *,
+                 max_queue: int = 0, max_restarts: int = 3,
+                 _start_thread: bool = True):
+        self.gen = PagedGenerator(engine, n_slots)
+        self.n_slots = n_slots
+        # interleaved chunked prefill: per tick the first admission always
+        # advances one chunk, further ones only while this budget lasts, so
+        # decode latency of active slots stays bounded
+        self.prefill_budget = max(engine.prefill_buckets)
+        self.max_queue = max_queue
+        self.max_restarts = max_restarts
+        # shared state: written by handler threads (submit), the loop
+        # thread and the closer — every write outside __init__ holds _lock
+        self._lock = threading.Lock()
+        self._queue: list[Request] = []
+        self._admissions: list[_Admission] = []
+        self._wake = threading.Event()
+        self._next_rid = 0
+        self._stop = False
+        self._draining = False
+        self._healthy = True
+        self._crashes = 0
+        # the loop thread dispatches on the engine's device: resolved here,
+        # on the creating thread, when the engine names no index ("cuda")
+        dev = engine.device
+        self._cuda_index = (None if dev.type != "cuda" else
+                            dev.index if dev.index is not None else torch.cuda.current_device())
+        self._thread: threading.Thread | None = None
+        if _start_thread:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="dllama-batch-scheduler")
+            self._thread.start()
+
+    # -- admission-side API (handler threads) -------------------------------
+
+    def submit(self, prompt_ids: list[int], max_tokens: int, *,
+               temperature: float = 0.0, topp: float = 0.9,
+               seed: int = 0xB1A5, stop_on_eos: bool = True,
+               timeout_s: float | None = None, on_token=None) -> Request:
+        with self._lock:
+            if self._stop or self._draining or not self._healthy or (
+                    self._thread is not None and not self._thread.is_alive()):
+                raise SchedulerUnavailableError(
+                    "scheduler is draining" if self._draining
+                    else "scheduler is not running")
+            if self.max_queue and len(self._queue) >= self.max_queue:
+                raise QueueFullError(
+                    f"queue full ({len(self._queue)} waiting, "
+                    f"--max-queue {self.max_queue}); retry later")
+            rid = self._next_rid
+            self._next_rid += 1
+            req = Request(rid=rid, prompt_ids=list(prompt_ids),
+                          max_tokens=max_tokens, temperature=temperature,
+                          topp=topp, seed=seed, stop_on_eos=stop_on_eos,
+                          on_token=on_token)
+            req.t_submit = time.monotonic_ns()
+            if timeout_s is not None and timeout_s > 0:
+                req.deadline_ns = req.t_submit + int(timeout_s * 1e9)
+            self._queue.append(req)
+        self._wake.set()
+        return req
+
+    def generate(self, prompt_ids: list[int], max_tokens: int, **kw) -> list[int]:
+        req = self.submit(prompt_ids, max_tokens, **kw)
+        req.done.wait()
+        return req.tokens
+
+    def is_alive(self) -> bool:
+        """Loop thread running and not crash-exhausted."""
+        return (self._healthy and not self._stop
+                and (self._thread is None or self._thread.is_alive()))
+
+    def readiness(self) -> tuple[bool, str, str]:
+        """(ready, human reason, machine code) for ``GET /readyz``."""
+        if not self._healthy:
+            return False, "scheduler crashed (restart budget exhausted)", "crashed"
+        if self._thread is not None and not self._thread.is_alive():
+            return False, "scheduler thread is not running", "crashed"
+        if self._stop or self._draining:
+            return False, "draining", "draining"
+        if self.max_queue and len(self._queue) >= self.max_queue:
+            return False, "queue full (shedding)", "queue_full"
+        return True, "ok", "ok"
+
+    # -- shutdown ------------------------------------------------------------
+
+    def begin_drain(self) -> None:
+        """Stop admitting (submits raise 503-shaped errors, ``/readyz``
+        flips) while in-flight work keeps stepping."""
+        with self._lock:
+            self._draining = True
+        self._wake.set()
+
+    def _pending(self) -> int:
+        with self._lock:
+            return len(self._queue) + len(self._admissions)
+
+    def close(self, drain_s: float = 0.0) -> None:
+        """Stop admitting, drain active work up to ``drain_s`` seconds, then
+        stop the loop and fail whatever remains — every waiter's ``done`` is
+        set by the time this returns."""
+        self.begin_drain()
+        if drain_s > 0 and self._thread is not None and self._thread.is_alive():
+            deadline = time.monotonic() + drain_s
+            while time.monotonic() < deadline and (self._pending() or self.gen.n_active):
+                time.sleep(0.01)
+        with self._lock:
+            self._stop = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        self._fail_all("server shutting down")
+
+    # -- failure plumbing ----------------------------------------------------
+
+    @staticmethod
+    def _fail_request(req: Request, msg: str) -> None:
+        if not req.done.is_set():
+            if not req.timed_out:
+                req.error = msg
+                req.server_error = True
+            req.done.set()
+
+    def _fail_all(self, msg: str) -> None:
+        """Fail every queued, admitting and in-flight request with ``msg``
+        (idempotent; timed-out requests keep their flag). Admissions are not
+        rolled back here: every caller resets the pool right after (crash
+        restart) or stops serving for good (drain)."""
+        with self._lock:
+            victims = list(self._queue) + [a.req for a in self._admissions]
+            self._queue.clear()
+            self._admissions.clear()
+        victims += [s for s in list(self.gen.slots) if s is not None]
+        for req in victims:
+            self._fail_request(req, msg)
+
+    def _check_deadlines(self) -> None:
+        """Queued requests past their deadline fail now; in-flight ones are
+        cancelled (their slot retires at the next step boundary)."""
+        now = time.monotonic_ns()
+        with self._lock:
+            expired = [r for r in self._queue if r.deadline_ns and now >= r.deadline_ns]
+            for r in expired:
+                self._queue.remove(r)
+            holders = [a.req for a in self._admissions]
+        for req in expired:
+            req.timed_out = True
+            req.done.set()
+        for req in holders + [s for s in self.gen.slots if s is not None]:
+            if req.deadline_ns and now >= req.deadline_ns and not req.timed_out:
+                req.timed_out = True
+                req.cancel.set()
+
+    def _on_crash(self, exc: BaseException) -> None:
+        """Supervision: fail every pending request with the crash, then
+        restart with a fresh pool — or go permanently unready once the
+        restart budget is spent."""
+        self._crashes += 1
+        msg = f"scheduler crashed: {type(exc).__name__}: {exc}"
+        print(f"🛑 {msg} (crash {self._crashes}/{self.max_restarts})", flush=True)
+        dead = self._crashes > self.max_restarts
+        if dead:
+            with self._lock:  # before the fail sweep: no submit slips in after it
+                self._healthy = False
+                self._stop = True
+        self._fail_all(msg)
+        if dead:
+            print("🛑 scheduler restart budget exhausted — marking unready", flush=True)
+            return
+        self.gen.reset_state()
+
+    # -- the loop ------------------------------------------------------------
+
+    def _loop(self) -> None:
+        if self._cuda_index is not None:
+            # this thread dispatches every kernel: on the engine's device
+            # (and so on that device's current stream, as the wrappers read it)
+            torch.cuda.set_device(self._cuda_index)
+        while not self._stop:
+            try:
+                self._tick()
+            except Exception as exc:  # noqa: BLE001 — supervised: fail-all + bounded restart
+                self._on_crash(exc)
+
+    def _tick(self) -> None:
+        """One loop tick: deadlines, block-priced admissions, the cancel
+        sweep, interleaved prefill chunks under the token budget, then one
+        decode step for every active slot."""
+        self._check_deadlines()
+        reserved = {a.slot for a in self._admissions}
+        with self._lock:
+            # admit into free, unreserved slots in FIFO order; each request
+            # is priced in BLOCKS first (worst-case need vs free + evictable
+            # blocks) — an unaffordable head stays queued
+            while self._queue:
+                free = [s for s in self.gen.free_slots() if s not in reserved]
+                if not free:
+                    break
+                head = self._queue[0]
+                if not self.gen.can_admit(head):
+                    break
+                self._queue.pop(0)
+                try:
+                    adm = self.gen.begin_admit(head, free[0])
+                except BlockPoolExhausted:
+                    # back-pressure: the request goes back to the head and
+                    # waits for retirements to free blocks
+                    self._queue.insert(0, head)
+                    break
+                except Exception as e:  # noqa: BLE001 — reject, don't wedge
+                    head.error = f"{type(e).__name__}: {e}"
+                    head.done.set()
+                    continue
+                self._admissions.append(adm)
+                reserved.add(adm.slot)
+        # cancel sweep over EVERY admission before the budgeted prefill loop:
+        # a cancelled client behind the budget cutoff must not keep its blocks
+        for adm in list(self._admissions):
+            if adm.req.cancel.is_set():
+                with self._lock:
+                    if adm not in self._admissions:
+                        continue  # a concurrent _fail_all already took it
+                    self._admissions.remove(adm)
+                self.gen.abort_admit(adm)
+                adm.req.done.set()
+        spent = 0
+        for adm in list(self._admissions):
+            if spent >= self.prefill_budget:
+                continue  # prefills on later ticks
+            remaining = len(adm.req.prompt_ids) - 1 - adm.pos
+            spent += self.gen.eng._prefill_chunk_size(max(1, remaining))
+            try:
+                committed = self.gen.continue_admit(adm)
+            except Exception as e:  # noqa: BLE001 — reject, don't wedge
+                committed = True
+                self.gen.abort_admit(adm)
+                adm.req.error = f"{type(e).__name__}: {e}"
+                adm.req.done.set()
+            if committed:
+                with self._lock:
+                    if adm in self._admissions:
+                        self._admissions.remove(adm)
+        if self.gen.n_active == 0 and not self._admissions:
+            self._wake.wait(timeout=0.05)
+            self._wake.clear()
+            return
+        self.gen.step()

@@ -1,0 +1,493 @@
+"""OpenAI-compatible HTTP API over continuous batching (the port of the JAX
+package's ``serve/api.py``, batched paged mode only).
+
+* ``POST /v1/chat/completions`` — messages → completion, optional SSE
+  streaming (``"stream": true``), ``temperature``/``top_p``/``seed``/
+  ``max_tokens``/``stop``/``timeout`` per request;
+* ``GET /v1/models``, ``/health`` and ``/healthz`` (liveness), ``/readyz``
+  (readiness with a machine-readable code).
+
+A ``ThreadingHTTPServer`` front end over
+:class:`~dllama_tpu_torch.runtime.serving.BatchScheduler`: handler threads
+submit and block on a per-request queue fed by the scheduler thread's
+``on_token`` callback. Status codes are the JAX server's: 400 for a
+malformed body, 404 for an unknown route, 408 for a deadline that expired
+before any output, 429 when the queue is full, 503 when the scheduler is
+draining or crashed.
+
+Left out (later slices): the single-sequence ``ApiState`` with its
+NaiveCache, the fleet router headers, stream resume, the ``timing`` block
+(the field is validated and ignored), ``/metrics`` and ``/debug/*``, KV
+export and tenancy.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import random
+import signal
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..runtime.serving import (BatchScheduler, QueueFullError, RequestTimeoutError,
+                               SchedulerUnavailableError)
+from ..tokenizer.chat import (ChatItem, ChatTemplateGenerator, ChatTemplateType,
+                              EosDetector, EosResult)
+
+# absurd-deadline guard: a request may not park a slot for more than an hour
+_MAX_TIMEOUT_S = 3600.0
+
+# one Retry-After policy for every backpressure answer (429 transient queue
+# pressure, 503 needs orchestrator time), with bounded random jitter so
+# clients backpressured in the same instant don't return in one wave
+RETRY_AFTER_S = {429: 1, 503: 5}
+RETRY_AFTER_JITTER_S = {429: 1, 503: 3}
+
+# seconds the server lets active slots finish after SIGTERM or shutdown
+DRAIN_TIMEOUT_S = 5.0
+
+
+def backpressure_headers(status: int) -> dict:
+    return {"Retry-After": str(RETRY_AFTER_S[status]
+                               + random.randint(0, RETRY_AFTER_JITTER_S[status]))}
+
+
+class ClientDisconnect(Exception):
+    """The SSE peer vanished mid-stream (BrokenPipeError / ConnectionResetError)."""
+
+
+def _validate_body(body: dict) -> None:
+    """Schema-check a /v1/chat/completions body; raises ``ValueError``
+    (→ HTTP 400) with a client-actionable message. Every malformed shape
+    dies here — a 500 from a typed field is a server bug."""
+    if not isinstance(body, dict):
+        raise ValueError("body must be a JSON object")
+    # an explicit JSON null means "absent" (OpenAI semantics)
+    for k in [k for k, v in body.items() if v is None]:
+        del body[k]
+    messages = body.get("messages")
+    if not isinstance(messages, list) or not messages:
+        raise ValueError("messages must be a non-empty list")
+    for i, m in enumerate(messages):
+        if not isinstance(m, dict):
+            raise ValueError(f"messages[{i}] must be an object")
+        if not isinstance(m.get("role", "user"), str):
+            raise ValueError(f"messages[{i}].role must be a string")
+        if not isinstance(m.get("content", ""), str):
+            raise ValueError(f"messages[{i}].content must be a string")
+
+    def _number(key, lo, hi):
+        v = body.get(key)
+        if v is None:
+            return
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            raise ValueError(f"{key} must be a number")
+        if not (lo <= float(v) <= hi):
+            raise ValueError(f"{key} must be in [{lo}, {hi}]")
+
+    _number("temperature", 0.0, 100.0)
+    _number("top_p", 0.0, 1.0)
+    mt = body.get("max_tokens")
+    if mt is not None:
+        if isinstance(mt, bool) or not isinstance(mt, int):
+            raise ValueError("max_tokens must be an integer")
+        if mt < 0:
+            raise ValueError("max_tokens must be >= 0")
+    seed = body.get("seed")
+    if seed is not None and (isinstance(seed, bool) or not isinstance(seed, int)):
+        raise ValueError("seed must be an integer")
+    timeout = body.get("timeout")
+    if timeout is not None:
+        if isinstance(timeout, bool) or not isinstance(timeout, (int, float)):
+            raise ValueError("timeout must be a number (seconds)")
+        if not (0 < float(timeout) <= _MAX_TIMEOUT_S):
+            raise ValueError(f"timeout must be in (0, {_MAX_TIMEOUT_S:.0f}] seconds")
+    timing = body.get("timing")
+    if timing is not None and not isinstance(timing, bool):
+        raise ValueError("timing must be a boolean")
+    stop = body.get("stop")
+    if stop is not None and not isinstance(stop, (str, list)):
+        raise ValueError("stop must be a string or a list of strings")
+    if isinstance(stop, list) and not all(isinstance(s, str) for s in stop):
+        raise ValueError("stop must be a string or a list of strings")
+    if "resume_from" in body or "resume_tokens" in body:
+        raise ValueError("stream resume is not supported by this server")
+
+
+def _request_stops(base: list[str], body: dict) -> list[str]:
+    """Tokenizer stop pieces + the request's OpenAI ``stop`` strings."""
+    req = body.get("stop")
+    if isinstance(req, str):
+        req = [req]
+    if not isinstance(req, list):
+        return base
+    return base + [s for s in req if isinstance(s, str) and s]
+
+
+class _EosGate:
+    """EosDetector + text accumulation + delta emission."""
+
+    def __init__(self, tok, stop_pieces, emit=None):
+        # padding is in BYTES (the detector buffers UTF-8)
+        max_stop = max((len(s.encode("utf-8")) for s in stop_pieces), default=0)
+        self.detector = EosDetector(tok.eos_token_ids, stop_pieces, max_stop, max_stop)
+        self.emit = emit
+        self.parts: list[str] = []
+
+    def _out(self, d: str | None) -> None:
+        if d:
+            self.parts.append(d)
+            if self.emit:
+                self.emit(d)
+
+    def feed(self, token: int, piece: str | None) -> bool:
+        """Process one decoded token; True when a stop sequence completed."""
+        res = self.detector.append(token, piece)
+        if res in (EosResult.NOT_EOS, EosResult.EOS):
+            self._out(self.detector.get_delta())
+            self.detector.reset()
+        return res == EosResult.EOS
+
+    def flush_tail(self) -> None:
+        """Emit text still buffered as a MAYBE_EOS prefix when generation
+        ends by length."""
+        self._out(self.detector.get_delta())
+
+
+class BatchedApiState:
+    """The engine, its chat template and the batch scheduler, shared by
+    the handler threads."""
+
+    def __init__(self, engine, n_slots: int, model_name: str = "dllama-tpu",
+                 template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
+                 max_queue: int = 0, request_timeout: float = 0.0):
+        self.engine = engine
+        self.model_name = model_name
+        self.request_timeout = request_timeout  # server default (0 = none)
+        tok = engine.tokenizer
+        eos_piece = (tok.vocab[tok.eos_token_ids[0]].decode("utf-8", "replace")
+                     if tok.eos_token_ids else "")
+        self.template = ChatTemplateGenerator(tok.chat_template, eos=eos_piece,
+                                              type=template_type)
+        self.stop_pieces = [tok.vocab[t].decode("utf-8", "replace")
+                            for t in tok.eos_token_ids]
+        self.sched = BatchScheduler(engine, n_slots, max_queue=max_queue)
+
+    def readiness(self) -> tuple[bool, str, str]:
+        return self.sched.readiness()
+
+    def begin_drain(self) -> None:
+        self.sched.begin_drain()
+
+    def close(self, drain_s: float = 0.0) -> None:
+        self.sched.close(drain_s)
+
+    def complete(self, body: dict, emit=None) -> dict:
+        """Run one chat completion; ``emit(text)`` streams deltas when set."""
+        tok = self.engine.tokenizer
+        _validate_body(body)
+        items = [ChatItem(m.get("role", "user"), m.get("content", ""))
+                 for m in body["messages"]]
+        prompt = self.template.generate(items, append_generation_prompt=True)
+        ids = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
+        max_tokens = int(body.get("max_tokens") or 0)
+        if max_tokens <= 0:
+            max_tokens = max(1, self.engine.cfg.seq_len - len(ids))
+        timeout_s = float(body.get("timeout") or self.request_timeout or 0)
+        sampler = self.engine.sampler  # CLI flags are the per-request defaults
+        q: queue.Queue = queue.Queue()
+        req = self.sched.submit(
+            ids, max_tokens,
+            temperature=float(body.get("temperature", sampler.temperature)),
+            topp=float(body.get("top_p", sampler.topp)),
+            seed=int(body.get("seed", 0xB1A5)),
+            stop_on_eos=True,
+            timeout_s=timeout_s if timeout_s > 0 else None,
+            on_token=lambda t, p: q.put((t, p)))
+        gate = _EosGate(tok, _request_stops(self.stop_pieces, body), emit)
+        n_completion = 0
+        finish_reason = "length"
+        try:
+            # inside the try: the public-prompt echo is the first socket
+            # write, so a peer that disconnected right after POSTing cancels
+            # the slot here too
+            if prompt.public_prompt:
+                gate._out(prompt.public_prompt)
+            while True:
+                try:
+                    t, piece = q.get(timeout=0.1)
+                except queue.Empty:
+                    if req.done.is_set() and q.empty():
+                        break
+                    continue
+                n_completion += 1
+                if gate.feed(t, piece):
+                    # a stop STRING matched (ordinary tokens the scheduler's
+                    # raw EOS check can't see): cancel the slot
+                    finish_reason = "stop"
+                    req.cancel.set()
+                    break
+        except (BrokenPipeError, ConnectionResetError) as e:
+            req.cancel.set()
+            raise ClientDisconnect(str(e)) from e
+        # done is set on every path (retire, timeout, crash fail-all,
+        # shutdown); the alive check guards against a loop thread that died
+        # in a way supervision missed
+        while not req.done.wait(timeout=5.0):
+            if not self.sched.is_alive():
+                raise SchedulerUnavailableError(
+                    "scheduler stopped while the request was in flight")
+        if req.timed_out and finish_reason == "length":
+            if n_completion == 0:
+                raise RequestTimeoutError(f"no output within timeout ({timeout_s:g}s)")
+            finish_reason = "timeout"
+        elif req.error:
+            if req.server_error:  # crash/shutdown: 503 + retry, not a 400
+                raise SchedulerUnavailableError(req.error)
+            raise ValueError(req.error)
+        if finish_reason in ("length", "timeout"):
+            gate.flush_tail()
+        return {"text": "".join(gate.parts), "finish_reason": finish_reason,
+                "prompt_tokens": len(ids), "completion_tokens": n_completion}
+
+
+def _completion_json(state: BatchedApiState, out: dict) -> dict:
+    return {
+        "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
+        "object": "chat.completion",
+        "created": int(time.time()),
+        "model": state.model_name,
+        "choices": [{
+            "index": 0,
+            "message": {"role": "assistant", "content": out["text"]},
+            "finish_reason": out["finish_reason"],
+        }],
+        "usage": {
+            "prompt_tokens": out["prompt_tokens"],
+            "completion_tokens": out["completion_tokens"],
+            "total_tokens": out["prompt_tokens"] + out["completion_tokens"],
+        },
+    }
+
+
+def _chunk_json(state: BatchedApiState, delta: dict, finish_reason=None) -> dict:
+    return {
+        "id": "chatcmpl-stream",
+        "object": "chat.completion.chunk",
+        "created": int(time.time()),
+        "model": state.model_name,
+        "choices": [{"index": 0, "delta": delta, "finish_reason": finish_reason}],
+    }
+
+
+_ROUTES = ("/v1/chat/completions", "/v1/models", "/health", "/healthz", "/readyz")
+
+
+def make_handler(state: BatchedApiState):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # whole-socket timeout: a client that stalls mid-body or stops
+        # reading an SSE stream is disconnected instead of pinning a thread
+        timeout = 120
+
+        def log_message(self, fmt, *args):
+            print(f"🕸️ {self.address_string()} {fmt % args}")
+
+        def _json(self, code: int, payload: dict, headers: dict | None = None) -> None:
+            body = json.dumps(payload).encode("utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _not_found(self) -> None:
+            self._json(404, {"error": "not found", "path": self.path,
+                             "routes": list(_ROUTES)})
+
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            if path == "/v1/models":
+                self._json(200, {"object": "list", "data": [{
+                    "id": state.model_name, "object": "model",
+                    "created": int(time.time()), "owned_by": "dllama_tpu",
+                }]})
+            elif path in ("/health", "/healthz"):
+                self._json(200, {"status": "ok"})  # liveness: always 200
+            elif path == "/readyz":
+                ready, reason, code = state.readiness()
+                self._json(200 if ready else 503,
+                           {"status": "ok" if ready else "unready",
+                            "reason": reason, "code": code},
+                           headers=None if ready else backpressure_headers(503))
+            else:
+                self._not_found()
+
+        def _drain_small_body(self) -> None:
+            # read a small body before answering (closing with unread bytes
+            # can reset the connection before the client reads the answer);
+            # an oversized declaration drops keep-alive instead
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                length = 0
+            if 0 < length <= (1 << 20):
+                try:
+                    self.rfile.read(length)
+                except OSError:
+                    pass
+            elif length:
+                self.close_connection = True
+
+        def do_POST(self):
+            if self.path.split("?", 1)[0] != "/v1/chat/completions":
+                self._drain_small_body()
+                self._not_found()
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                self._json(400, {"error": "invalid JSON body"})
+                return
+            if not isinstance(body, dict):
+                self._json(400, {"error": "body must be a JSON object"})
+                return
+            stream = bool(body.get("stream", False))
+            # SSE headers go out lazily at the FIRST delta, so failures before
+            # any output still return a real status code on stream requests
+            headers_sent = False
+
+            def start_stream() -> None:
+                nonlocal headers_sent
+                if headers_sent:
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                headers_sent = True
+
+            def write_event(payload) -> None:
+                data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+                self.wfile.write(b"data: " + data + b"\n\n")
+
+            def emit(text: str) -> None:
+                start_stream()
+                write_event(_chunk_json(state, {"content": text}))
+                self.wfile.flush()
+
+            def fail(code: int, payload: dict, reason: str, headers=None) -> None:
+                if not headers_sent:
+                    self._json(code, payload, headers=headers)
+                    return
+                # headers already went out as 200: end the SSE stream with an
+                # explicit finish_reason + [DONE]
+                try:
+                    write_event(_chunk_json(state, {}, reason))
+                    write_event(b"[DONE]")
+                except OSError:
+                    pass
+                self.close_connection = True
+
+            try:
+                if stream:
+                    out = state.complete(body, emit=emit)
+                    start_stream()  # zero-delta completion: headers now
+                    write_event(_chunk_json(state, {}, out["finish_reason"]))
+                    write_event(b"[DONE]")
+                else:
+                    out = state.complete(body)
+                    self._json(200, _completion_json(state, out))
+            except QueueFullError as e:
+                fail(429, {"error": str(e), "code": "queue_full"}, "error",
+                     backpressure_headers(429))
+            except SchedulerUnavailableError as e:
+                fail(503, {"error": str(e),
+                           "code": "draining" if "draining" in str(e) else "crashed"},
+                     "error", backpressure_headers(503))
+            except RequestTimeoutError as e:
+                fail(408, {"error": str(e)}, "timeout")
+            except (ClientDisconnect, BrokenPipeError, ConnectionResetError):
+                self.close_connection = True  # the peer hung up
+            except ValueError as e:
+                fail(400, {"error": str(e)}, "error")
+
+    return Handler
+
+
+def build_api_server(args) -> tuple[ThreadingHTTPServer, BatchedApiState]:
+    """The engine, the batched state and the bound (not yet serving) HTTP
+    server for ``args`` (the CLI's ``api`` flags)."""
+    from .cli import make_engine
+
+    n_slots = args.batch_slots or 0
+    if n_slots <= 1:
+        raise SystemExit("api mode needs --batch-slots N (N > 1) with --kv-block-size: "
+                         "the single-sequence API server is not ported to this "
+                         "package yet (use python -m dllama_tpu api)")
+    if not args.kv_block_size:
+        raise SystemExit("api mode needs --kv-block-size B: the dense slot pool "
+                         "(--batch-slots without --kv-block-size) is not ported to "
+                         "this package yet (use python -m dllama_tpu api)")
+    engine = make_engine(args)
+    try:
+        state = BatchedApiState(engine, n_slots, max_queue=args.max_queue,
+                                request_timeout=args.request_timeout)
+        try:
+            server = ThreadingHTTPServer((args.host, args.port), make_handler(state))
+        except BaseException:
+            state.close()
+            raise
+    except BaseException:
+        engine.close()
+        raise
+    pool = state.sched.gen.pool
+    print(f"🕸️ continuous batching: {n_slots} slots"
+          + (f", queue bound {args.max_queue} (429 beyond)" if args.max_queue else ""))
+    print(f"🕸️ paged KV: {pool.n_blocks - 1} blocks × {pool.block_size} rows, "
+          f"{state.sched.gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
+          f"block-level prefix sharing)")
+    if args.request_timeout:
+        print(f"🕸️ per-request deadline: {args.request_timeout:g}s "
+              f"(request 'timeout' field overrides)")
+    return server, state
+
+
+def run_api_server(args, on_listening=None) -> int:
+    """Serve until SIGTERM (main thread only) or ``server.shutdown()``; then
+    drain the active slots for up to :data:`DRAIN_TIMEOUT_S` and fail the
+    rest. ``on_listening(server, state)``, when given, runs once the socket
+    is bound (``server.server_address`` holds the real port under
+    ``--port 0``) — for a caller that embeds the server in its process."""
+    server, state = build_api_server(args)
+
+    def _on_sigterm(signum, frame):
+        print("🛑 SIGTERM: draining (readyz → 503, no new admissions)", flush=True)
+        state.begin_drain()
+        # shutdown() from the serving thread itself would deadlock the poll
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        pass  # not the main thread (embedded use): no signal hook
+    host, port = server.server_address[:2]
+    print(f"🕸️ listening on http://{host}:{port}", flush=True)
+    try:
+        if on_listening is not None:
+            on_listening(server, state)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        state.close(drain_s=DRAIN_TIMEOUT_S)
+        state.engine.close()
+    return 0

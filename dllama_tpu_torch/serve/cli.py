@@ -1,5 +1,6 @@
-"""``python -m dllama_tpu_torch inference|perplexity`` (the port of the JAX
-package's ``serve/cli.py`` ``make_engine``/``main``, these two modes only).
+"""``python -m dllama_tpu_torch inference|perplexity|api`` (the port of the
+JAX package's ``serve/cli.py`` ``make_engine``/``main``, these three modes;
+``api`` only as batched paged serving: ``--batch-slots N --kv-block-size B``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
 usable GPU fails with a clear error. Modes and flags of the JAX CLI that are
@@ -15,9 +16,9 @@ import time
 from ..formats.quants import F32, Q80
 from ..runtime.engine import InferenceEngine, resolve_device
 
-PORTED_MODES = ("inference", "perplexity")
+PORTED_MODES = ("inference", "perplexity", "api")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("chat", "api", "eval", "worker", "verify", "audit", "timeline",
+PENDING_MODES = ("chat", "eval", "worker", "verify", "audit", "timeline",
                  "fleettrace", "router")
 
 
@@ -25,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
-    p.add_argument("mode", help="inference | perplexity")
+    p.add_argument("mode", help="inference | perplexity | api")
     p.add_argument("--model", required=True, help=".m model file")
     p.add_argument("--tokenizer", required=True, help=".t tokenizer file")
     p.add_argument("--prompt", default=None)
@@ -42,6 +43,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="f32 = exact Q40 numerics (golden parity); bf16 = fast")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
+    # api mode (batched paged serving)
+    p.add_argument("--batch-slots", type=int, default=0,
+                   help="api: concurrent sequences of continuous batching")
+    p.add_argument("--kv-block-size", type=int, default=0,
+                   help="api: rows per paged KV block (a power of two)")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="api: waiting requests beyond the slots (429 beyond; 0 = unbounded)")
+    p.add_argument("--host", default="127.0.0.1", help="api: bind address")
+    p.add_argument("--port", type=int, default=9990, help="api: port (0 = any free)")
+    p.add_argument("--request-timeout", type=float, default=0.0,
+                   help="api: default per-request deadline in seconds (0 = none)")
     return p
 
 
@@ -52,7 +64,8 @@ def make_engine(args) -> InferenceEngine:
         max_seq_len=args.max_seq_len,
         compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
         sync_type=Q80 if args.buffer_float_type == "q80" else F32,
-        temperature=args.temperature, topp=args.topp, seed=seed)
+        temperature=args.temperature, topp=args.topp, seed=seed,
+        kv_block_size=args.kv_block_size)
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
@@ -119,7 +132,10 @@ def run_perplexity(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, on_listening=None) -> int:
+    """The CLI. ``on_listening(server, state)`` is handed to the ``api``
+    server (:func:`~dllama_tpu_torch.serve.api.run_api_server`) for a
+    caller that embeds it in its own process."""
     args, unknown = build_parser().parse_known_args(argv)
     if args.mode in PENDING_MODES:
         raise SystemExit(f"mode {args.mode!r} is not ported to the PyTorch/CUDA "
@@ -131,11 +147,17 @@ def main(argv=None) -> int:
         raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
-                         f"--buffer-float-type --compute-dtype --device)")
+                         f"--buffer-float-type --compute-dtype --device; api: "
+                         f"--batch-slots --kv-block-size --max-queue --host --port "
+                         f"--request-timeout)")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
     if args.mode == "inference":
         return run_inference(args)
+    if args.mode == "api":
+        from .api import run_api_server
+
+        return run_api_server(args, on_listening=on_listening)
     return run_perplexity(args)

@@ -41,7 +41,24 @@ Phases, each failing loudly (non-zero exit, no result line):
    decode steps; then ``paged_forward`` over 8 ragged rows through scrambled
    tables (kernel against plain), and ``paged_forward``'s kernel path (K4)
    against the dense ``forward`` (K3) for one row;
-7. the ``kernels`` JSON line, then the result line
+7. sequence parallelism (``--sp``): K3s (the block-statistics mode of K3)
+   against its plain version at 8B shapes over one 2048-row shard
+   (``ring_cases``: decode over a whole, a partly visible and a fully masked
+   block, a 64-token prefill chunk past the block and on its diagonal);
+   ``guard_cost``: the host time of a wrapper call with no device guard,
+   the shipped ``on_card`` guard and ``torch.cuda.device`` on every launch;
+   ``sp_parity``: 2 layers at 8B width with a 256-row cache, sp = 2 (K3s)
+   against sp = 1 (K3) and against sp = 2 on the plain block version, over
+   a 160-token prefill and 8 decode steps; ``sp_path``: the 32-layer model
+   at sp = 2 and sp = 1 in three cells: ``--max-seq-len 4096``, a
+   2551-token prompt (prefill crosses the shard boundary at 2048) and 64
+   greedy steps in f32 and bf16, then ``perplexity`` over the prompt in f32;
+   the same ``perplexity`` with the Q80 sync casts on; ``--max-seq-len
+   32768`` (two 16384-row shards), a prompt of more than 20000 tokens, 64
+   greedy steps and ``perplexity`` in f32. With two or more cards it drives
+   the CLI's ``--sp 2``; with one card ``InferenceEngine(sp=2,
+   sp_devices=[cuda:0, cuda:0])``;
+8. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -481,7 +498,7 @@ def _wrappers() -> dict:
     from dllama_tpu_torch.ops import quant_matmul as qm
 
     return {"K1": qm.q40_matmul, "K2": qm.q40_gemv, "K3": fa.flash_attention,
-            "K4": pa.paged_attention}
+            "K4": pa.paged_attention, "K3s": fa.flash_block_stats}
 
 
 def zero_counts() -> None:
@@ -750,7 +767,7 @@ def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
                  f"{results[14]['text']!r}\n{results[15]['text']!r}")
         if gen.reused_tokens <= 0:
             fail(f"serving {dtype}: no prefix reuse happened")
-        if min(launches.values()) <= 0:
+        if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
             fail(f"serving {dtype}: a kernel of the path never launched: {launches}")
         del gen
         box.clear()
@@ -885,6 +902,359 @@ def paged_parity(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: sequence parallelism (K3s, the sp model path)
+# ---------------------------------------------------------------------------
+
+SHARD = 2048      # rows of one sp shard in the kernel cases
+SP_SEQ = 4096     # --max-seq-len of the sp path's short cell: 2 shards of 2048 rows
+SP_LONG_SEQ = 32768         # the long cell: 2 shards of 16384 rows
+SP_LONG_PROMPT = 20000      # its prompt's least length in tokens
+# Q80 buffers, sp = 2 against sp = 1 perplexity: a last-bit difference of
+# the two attention orders flips a Q80 rounding, which the next 31 layers
+# carry on (6.71e-4 on this cell, measured on an H100 80GB HBM3 at 700 W);
+# a split that lost or doubled a block would move it by far more
+Q80_SP_TOL = 1e-2
+# (name, T, q_pos0, kv_pos0) over the shard [kv_pos0, kv_pos0 + SHARD)
+RING_CASES = [("decode whole block", 1, 2 * SHARD - 1, SHARD),
+              ("decode partly visible", 1, 2100, SHARD),
+              ("decode fully masked", 1, 1000, SHARD),
+              ("prefill T=64 past the block", 64, SHARD, 0),
+              ("prefill T=64 diagonal", 64, SHARD, SHARD)]
+
+
+def ring_cases(timer: Timer, results: list) -> None:
+    """K3s against its plain version (``_block_attn`` around the folded
+    layout) at 8B shapes: n_kv 8, kv_mul 4, head_dim 128, one 2048-row
+    shard; f32 and bf16 K/V. The library yardstick is SDPA over the same
+    block with the same boolean mask; it returns the normalised output, not
+    the m and l K3s returns."""
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    kv_mul = HEADS // KV_HEADS
+    for mode in ("exact", "fast"):
+        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
+        k, v = (torch.randn((1, KV_HEADS, SHARD, HEAD_DIM), generator=g, device=DEV).to(kv_dt)
+                for _ in range(2))
+        for name, T, q0, kv0 in RING_CASES:
+            q_g = torch.randn((1, KV_HEADS, T * kv_mul, HEAD_DIM), generator=g, device=DEV)
+            got = fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T)
+            want = fa.flash_block_stats_plain(q_g, k, v, q0, kv0, HEAD_DIM, T)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, a, b in zip(("acc", "m", "l"), got, want):
+                inf_a, inf_b = torch.isneginf(a), torch.isneginf(b)
+                if not torch.equal(inf_a, inf_b):
+                    fail(f"K3s {mode} {name}: {what} is -inf at other rows than the plain "
+                         f"version's")
+                fin = ~inf_b
+                err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+                errs[what] = (err, b[fin].abs().max().item() if fin.any() else 0.0)
+            # the kernel's folded rows back to the q-head layout for SDPA
+            qs = q_g.reshape(1, KV_HEADS, T, kv_mul, HEAD_DIM).permute(0, 1, 3, 2, 4) \
+                    .reshape(1, HEADS, T, HEAD_DIM).to(kv_dt)
+            mask = (kv0 + torch.arange(SHARD, device=DEV))[None, :] \
+                <= (q0 + torch.arange(T, device=DEV))[:, None]           # [T, SHARD]
+            ms = timer(lambda: fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T))
+            plain_ms = timer(lambda: fa.flash_block_stats_plain(q_g, k, v, q0, kv0,
+                                                                HEAD_DIM, T))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask, enable_gqa=True))
+            # the work this data needs: keys up to the newest visible one
+            seen = [max(0, min(SHARD, q0 + t - kv0 + 1)) for t in range(T)]
+            n_bytes = (2 * max(seen) * KV_HEADS * HEAD_DIM * k.element_size()
+                       + T * HEADS * HEAD_DIM * 4 * 2 + 2 * T * HEADS * 4)
+            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen), "f32")
+            rec = dict(case="ring_block", kernel="K3s", mode=mode, phase=name, T=T,
+                       q_pos0=q0, kv_pos0=kv0, shard_rows=SHARD,
+                       max_abs_err=max(e for e, _ in errs.values()),
+                       errors={w: dict(max_abs_err=e, max_abs_ref=r)
+                               for w, (e, r) in errs.items()},
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_note="SDPA with the same mask: normalised output, no m/l",
+                       bound_ms=b_ms, bound_by=b_by)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+            # f32 online softmax against the one-shot einsum: reordered sums/exps
+            for what in ("acc", "l", "m"):
+                err, ref = errs[what]
+                if not (err <= 1e-4 * max(ref, 1.0 if what == "m" else 0.0)):
+                    fail(f"K3s {mode} {name}: {what} max|err| {err:.3g} (max|ref| {ref:.3g})")
+        del k, v
+    torch.cuda.empty_cache()
+
+
+def guard_cost(results: list) -> None:
+    """Host cost of the wrappers' device guard, which the sp path brought
+    in: K2 at M = 1 on a 4096 x 1024 weight (a launch the host bounds),
+    2000 calls per round under three guards, interleaved over 5 rounds:
+    none (the wrappers before the guard), ``cuda_build.on_card`` (shipped:
+    a context only for a tensor off the current card) and
+    ``torch.cuda.device`` entered on every launch. Host clock, median
+    round."""
+    from dllama_tpu_torch.ops import quant_matmul as qm
+    from dllama_tpu_torch.ops.cuda_build import on_card
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    w = random_planes(DIM, 1024, False, g)
+    x = torch.randn((1, DIM), generator=g, device=DEV)
+    guards = {"none": lambda device: contextlib.nullcontext(), "on_card": on_card,
+              "always": torch.cuda.device}
+    n, rounds = 2000, 5
+    times: dict = {k: [] for k in guards}
+    try:
+        for _ in range(rounds):
+            for name, guard in guards.items():
+                qm.on_card = guard
+                qm.q40_gemv(x, w, fast=False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    qm.q40_gemv(x, w, fast=False)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / n * 1e6)
+    finally:
+        qm.on_card = on_card
+    us = {k: statistics.median(v) for k, v in times.items()}
+    rec = dict(case="launch_guard", kernel="K2", M=1, K=DIM, N=1024, calls=n, rounds=rounds,
+               us_per_call=us, us_per_call_rounds=times)
+    print(json.dumps(rec), flush=True)
+    results.append(rec)
+
+
+def sp_parity(results: dict) -> None:
+    """Two layers at 8B width with a 256-row cache (two shards of 128): the
+    sp = 2 kernel path (K3s, on one card ``[cuda:0, cuda:0]``) against the
+    sp = 1 kernel path (K3) and against sp = 2 with the plain block
+    version, over a 160-token prefill (chunks of 128 and 32, the second
+    crossing the shard boundary) and 8 decode steps."""
+    from dataclasses import replace
+
+    from dllama_tpu_torch.models.llama import forward, init_random_params
+    from dllama_tpu_torch.parallel.api import make_mesh
+    from dllama_tpu_torch.runtime.kvcache import KVCache, ShardedKVCache
+
+    chunks = [(0, 128), (128, 160)] + [(t, t + 1) for t in range(160, 168)]
+    for mode, dtype in (("exact", "float32"), ("fast", "bfloat16")):
+        cfg = replace(parity_config(dtype), seq_len=256)
+        dt = getattr(torch, dtype)
+        params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+        tokens = torch.randint(0, VOCAB, (1, chunks[-1][1]), generator=g, device=DEV)
+        outs, counts = {}, {}
+        for path, sp, impl in (("sp2_kernel", 2, "auto"), ("sp1_kernel", 1, "auto"),
+                               ("sp2_plain", 2, "xla")):
+            c = replace(cfg, attn_impl=impl)
+            plan = make_mesh({"sp": 2}, [f"{DEV}:0"] * 2) if sp > 1 else None
+            kv = (ShardedKVCache.create(c, plan.devices, dtype=dt) if plan
+                  else KVCache.create(c, dtype=dt, device=DEV))
+            zero_counts()
+            outs[path] = torch.cat([forward(params, c, tokens[:, a:b], a, kv, plan)[0][0]
+                                    for a, b in chunks]).float()
+            torch.cuda.synchronize()
+            counts[path] = read_counts()
+        rec = dict(case="sp_parity", mode=mode, layers=2, cache_rows=256, shards=2,
+                   tol=PARITY_TOL[mode], launches=counts)
+        for name, a, b in (("sp2_vs_sp1", "sp2_kernel", "sp1_kernel"),
+                           ("sp2_kernel_vs_plain", "sp2_kernel", "sp2_plain")):
+            err = (outs[a] - outs[b]).abs().max().item()
+            scale = outs[b].abs().max().item()
+            rec[name] = dict(max_abs_err=err, max_abs_logit=scale)
+            if not (err <= PARITY_TOL[mode] * scale) or not math.isfinite(scale):
+                print(json.dumps(rec), flush=True)
+                fail(f"sp parity {mode} {name}: max|err| {err:.3g} > {PARITY_TOL[mode]} "
+                     f"x max|logit| {scale:.3g}")
+        print(json.dumps(rec), flush=True)
+        results[mode] = rec
+        k = counts["sp2_kernel"]
+        # 2 layers x (2 ring chunks x 4 block pairs + 8 decode steps x 2 shards)
+        if k["K3s"] != 2 * (2 * 4 + 8 * 2) or k["K3"] or counts["sp1_kernel"]["K3s"] \
+                or counts["sp2_plain"]["K3s"]:
+            fail(f"sp parity {mode}: launch counts {counts}")
+        del params, outs
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def phase_counts(store: dict):
+    """K3s launches split by phase: the engine's ``prefill`` (per chunk) and
+    ``next_token`` (per decode step), counted where each returns."""
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    prefill, next_token = InferenceEngine.prefill, InferenceEngine.next_token
+    store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0)
+
+    def counted_prefill(self, ids):
+        n0 = fa.flash_block_stats.launches
+        last, metrics = prefill(self, ids)
+        store["prefill_chunks"] += len(metrics)
+        store["prefill_k3s"] += fa.flash_block_stats.launches - n0
+        return last, metrics
+
+    def counted_next(self, token):
+        n0 = fa.flash_block_stats.launches
+        out = next_token(self, token)
+        store["decode_steps"] += 1
+        store["decode_k3s"] += fa.flash_block_stats.launches - n0
+        return out
+
+    InferenceEngine.prefill, InferenceEngine.next_token = counted_prefill, counted_next
+    try:
+        yield store
+    finally:
+        InferenceEngine.prefill, InferenceEngine.next_token = prefill, next_token
+
+
+def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
+           text: str, sync: str, steps: int, ppl: bool) -> dict:
+    """One run of the sp path: ``steps`` greedy tokens after ``text`` (none
+    when 0), then ``perplexity`` over it when ``ppl``; through the CLI's
+    ``--sp`` (``via="cli"``) or ``InferenceEngine(sp_devices=[cuda:0] * sp)``.
+    Counts are set to 0 just before each and read just after it."""
+    from dllama_tpu_torch.formats.quants import F32, Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    rec = dict(case="sp_path", via=via, compute_dtype=dtype, sp=sp, max_seq_len=seq_len,
+               buffer_float_type=sync)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    phases: dict = {}
+    t0 = time.perf_counter()
+    with phase_counts(phases):
+        if via == "cli":
+            common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                      "--max-seq-len", str(seq_len), "--seed", str(SEED), "--sp", str(sp),
+                      "--buffer-float-type", sync]
+            if steps:
+                zero_counts()
+                out = run_cli(["inference", *common, "--prompt", text, "--steps",
+                               str(len(text.encode()) + 1 + steps), "--temperature", "0"])
+                rec["launches_inference"] = read_counts()
+                lines = out.splitlines()
+                rec.update(prompt_tokens=int(stat(lines, "Evaluation", "nTokens:")) + 1,
+                           generated=int(stat(lines, "Prediction", "nTokens:")),
+                           prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                           decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"))
+            if ppl:
+                zero_counts()
+                ppl_out = run_cli(["perplexity", *common, "--prompt", text])
+                rec["launches_perplexity"] = read_counts()
+                ppl_lines = ppl_out.splitlines()
+                rec["perplexity"] = float(next(ln for ln in ppl_lines
+                                               if "Perplexity" in ln).split()[-1])
+                rec["perplexity_tokens"] = int(next(ln for ln in ppl_lines
+                                                    if "nTokens" in ln).split()[-1])
+        else:
+            eng = InferenceEngine(model, tok, device=DEV, max_seq_len=seq_len,
+                                  sync_type=Q80 if sync == "q80" else F32, temperature=0.0,
+                                  compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                                  sp=sp, sp_devices=[f"{DEV}:0"] * sp)
+            try:
+                ids = eng.tokenizer.encode(text)
+                if steps:
+                    zero_counts()
+                    res = eng.generate(ids, steps, stop_on_eos=False)
+                    rec["launches_inference"] = read_counts()
+                    rec.update(prompt_tokens=len(ids), generated=len(res.tokens),
+                               prefill_tok_per_s=res.eval_tok_per_s,
+                               decode_tok_per_s=res.pred_tok_per_s, tokens=res.tokens)
+                if ppl:
+                    zero_counts()
+                    t1 = time.perf_counter()
+                    rec["perplexity"] = eng.perplexity(ids)
+                    torch.cuda.synchronize()
+                    rec["launches_perplexity"] = read_counts()
+                    rec["perplexity_tokens"] = len(ids)
+                    rec["perplexity_tok_per_s"] = (len(ids) - 1) / (time.perf_counter() - t1)
+            finally:
+                eng.close()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["peak_gb_per_device"] = [torch.cuda.max_memory_allocated(i) / 1e9
+                                 for i in range(torch.cuda.device_count())]
+    rec["k3s_per_decode_step"] = phases["decode_k3s"] / max(1, phases["decode_steps"])
+    rec["k3s_per_prefill_chunk"] = phases["prefill_k3s"] / max(1, phases["prefill_chunks"])
+    rec["prefill_chunks"] = phases["prefill_chunks"]
+    print(json.dumps({k: v for k, v in rec.items() if k != "tokens"}), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
+    """The 32-layer model split in two sequence shards, at sp = 2 and, for
+    comparison, sp = 1, in three cells:
+
+    * short: ``--max-seq-len 4096`` (two 2048-row shards), a 2551-token
+      prompt (the prefill crosses the boundary), 64 greedy steps in f32 and
+      bf16, ``perplexity`` over the prompt in f32;
+    * q80: ``perplexity`` over the same prompt with the Q80 sync casts on
+      (the CLI's default buffers), sp = 2 against sp = 1 within
+      :data:`Q80_SP_TOL`;
+    * long: ``--max-seq-len 32768`` (two 16384-row shards), a prompt of
+      more than 20000 tokens, 64 greedy steps and ``perplexity`` in f32.
+
+    The short and long cells keep the activations f32 between layers
+    (``--buffer-float-type f32``): under the Q80 sync casts the last-bit
+    differences of the two attention orders flip Q80 roundings and compound
+    over 32 layers, so sp = 2 and sp = 1 would differ by far more than the
+    split itself makes them, which the q80 cell records."""
+    n_cards = torch.cuda.device_count()
+    via = "cli" if n_cards >= 2 else "engine"
+    print(f"🕸️ sp path: {'the CLI --sp 2 over ' + str(n_cards) + ' cards' if via == 'cli' else 'InferenceEngine(sp=2, sp_devices=[cuda:0, cuda:0]) on one card'}",
+          flush=True)
+    short = PROMPT * 10
+    long_text = PROMPT * (SP_LONG_PROMPT // len(PROMPT.encode()) + 1)
+    # (cell, dtype, sp, seq_len, text, buffers, steps, perplexity, least prompt)
+    plan = [("short", d, sp, SP_SEQ, short, "f32", 64, d == "f32", 2300)
+            for d in ("f32", "bf16") for sp in (2, 1)]
+    plan += [("q80", "f32", sp, SP_SEQ, short, "q80", 0, True, 2300) for sp in (2, 1)]
+    plan += [("long", "f32", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT)
+             for sp in (2, 1)]
+    runs = {}
+    for cell, dtype, sp, seq_len, text, sync, steps, ppl, least in plan:
+        t0 = time.perf_counter()
+        rec = sp_run(model, tok, via, dtype=dtype, sp=sp, seq_len=seq_len, text=text,
+                     sync=sync, steps=steps, ppl=ppl)
+        print(f"⏱️ sp {cell} {dtype} sp={sp} took {time.perf_counter() - t0:.1f} s", flush=True)
+        runs[(cell, dtype, sp)] = rec
+        n_prompt = rec.get("prompt_tokens", rec.get("perplexity_tokens"))
+        if n_prompt < least or n_prompt <= seq_len // 2 or rec.get("generated", steps) != steps:
+            fail(f"sp {cell} {dtype} sp={sp}: {n_prompt} prompt tokens, "
+                 f"{rec.get('generated')} generated (want >= {least}, past the shard "
+                 f"boundary at {seq_len // 2}, and {steps})")
+        for path in ("inference", "perplexity"):
+            n = rec.get(f"launches_{path}")
+            if n is None:
+                continue
+            key = f"sp{sp}_{path}" if cell == "short" else f"sp{sp}_{cell}_{path}"
+            e2e[dtype]["launches"][key] = n
+            if n["K1"] <= 0 or (path == "inference" and n["K2"] <= 0):
+                fail(f"sp {cell} {dtype} sp={sp} {path}: K1/K2 never launched: {n}")
+            if sp > 1 and (n["K3s"] <= 0 or n["K3"] != 0):
+                fail(f"sp {cell} {dtype} sp={sp} {path}: want K3s > 0 and K3 = 0: {n}")
+            if sp == 1 and n["K3s"] != 0:
+                fail(f"sp {cell} {dtype} sp=1 {path}: K3s launched: {n}")
+        if sp > 1 and steps and rec["k3s_per_decode_step"] != n_layers * sp:
+            fail(f"sp {cell} {dtype}: {rec['k3s_per_decode_step']} K3s launches per "
+                 f"decode step, want {n_layers * sp}")
+    for cell, tol in (("short", 1e-4), ("q80", Q80_SP_TOL), ("long", 1e-4)):
+        p2, p1 = runs[(cell, "f32", 2)]["perplexity"], runs[(cell, "f32", 1)]["perplexity"]
+        rel = abs(p2 / p1 - 1.0)
+        summary = dict(case="sp_summary", cell=cell, perplexity_sp2=p2, perplexity_sp1=p1,
+                       rel_diff=rel, tol=tol, tokens_equal_sp1={
+                           d: runs[(cell, d, 2)].get("tokens") == runs[(cell, d, 1)].get("tokens")
+                           for d in ("f32", "bf16") if (cell, d, 2) in runs
+                           and "tokens" in runs[(cell, d, 2)]})
+        print(json.dumps(summary), flush=True)
+        if not math.isfinite(p2) or not rel <= tol:
+            fail(f"sp {cell}: perplexity at sp=2 {p2} differs from sp=1 {p1} by {rel:.3g} "
+                 f"(> {tol})")
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(cases: list, e2e: dict) -> dict:
@@ -893,8 +1263,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     at the serving M=8), or the deepest single-row decode / the cold
     128-token prefill (K3), or the single-row and 8-row ragged decode at
     block size 16 (K4, whose yardstick ``gather_sdpa_ms`` is two library
-    calls, so ``library_ms`` is null). Launches are the main paths' counts,
-    per path (``inference``, ``perplexity``, ``api``)."""
+    calls, so ``library_ms`` is null), or one decode over a whole 2048-row
+    shard / a 64-token chunk on its diagonal (K3s, whose SDPA yardstick
+    returns no m/l). Launches are the main paths' counts, per path
+    (``inference``, ``perplexity``, ``api``, and the sp path's
+    ``sp2_*``/``sp1_*`` runs)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
                   "dllama_tpu/ops/quant_matmul.py:51", "q40_matmul (tile)"),
            "K2": ("dllama_tpu_torch/csrc/quant_matmul.cu",
@@ -902,7 +1275,9 @@ def kernels_line(cases: list, e2e: dict) -> dict:
            "K3": ("dllama_tpu_torch/csrc/flash_attention.cu",
                   "dllama_tpu/ops/flash_attention.py:44", "flash_attention"),
            "K4": ("dllama_tpu_torch/csrc/paged_attention.cu",
-                  "dllama_tpu/ops/paged_attention.py:49", "paged_attention")}
+                  "dllama_tpu/ops/paged_attention.py:49", "paged_attention"),
+           "K3s": ("dllama_tpu_torch/csrc/flash_attention.cu",
+                   "dllama_tpu/ops/flash_attention.py:206", "flash_block_stats")}
     groups = {
         "K1": [(" M=128", lambda c: c["M"] == 128)],
         "K2": [(" M=1", lambda c: c["M"] == 1), (" M=8 (serving)", lambda c: c["M"] == 8)],
@@ -914,9 +1289,13 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 and c["block_size"] == BLOCK),
                (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
                 and c["block_size"] == BLOCK)],
+        "K3s": [(" decode T=1 over a whole 2048-row shard",
+                 lambda c: c["phase"] == "decode whole block"),
+                (" prefill T=64 on the shard's diagonal",
+                 lambda c: c["phase"] == "prefill T=64 diagonal")],
     }
     out = []
-    for kname in ("K1", "K2", "K3", "K4"):
+    for kname in ("K1", "K2", "K3", "K4", "K3s"):
         for mode in ("exact", "fast"):
             e2e_dtype = "f32" if mode == "exact" else "bf16"
             ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
@@ -937,6 +1316,8 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                                 else sum(c["library_ms"] for c in sel)))
                 if kname == "K4":
                     rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
+                if kname == "K3s":
+                    rec["library_note"] = "SDPA, same block and mask: no m/l returned"
                 out.append(rec)
     return {"kernels": out}
 
@@ -976,6 +1357,8 @@ def main() -> int:
     matmul_cases(timer, cases)
     attention_cases(timer, cases)
     paged_cases(timer, cases)
+    ring_cases(timer, cases)
+    guard_cost([])
     del timer
     torch.cuda.empty_cache()
     e2e: dict = {}
@@ -987,8 +1370,12 @@ def main() -> int:
         t0 = time.perf_counter()
         serving(model, tok, args.layers, e2e)
         print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        sp_path(model, tok, args.layers, e2e)
+        print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
     model_parity({})
     paged_parity({})
+    sp_parity({})
 
     print(f"⏱️ smoke run took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -30,6 +30,16 @@
 //
 // Decode at B = 1 occupies only n_kv blocks; splitting S across blocks
 // (flash-decoding) is left for later work.
+//
+// Kernel K3s is the same kernel in its stats mode (STATS = true, entry
+// dlt_flash_block_stats). It replaces the stats=True path of the same Pallas
+// kernel (flash_attention.py::flash_block_stats), the block step of
+// sequence-parallel attention (parallel/ring.py): the cache argument is one
+// sequence shard covering absolute positions [kv_pos0, kv_pos0 + S), and the
+// kernel returns the unnormalised accumulator with the running max m and sum
+// l of every query row, all f32, for the caller's cross-block combine. A
+// block that no row of a tile can see (q_pos0 + r / kv_mul < kv_pos0) loads
+// nothing and leaves acc = 0, l = 0, m = -inf. Bound and design are K3's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,12 +78,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (ceil(TQ / BQ), n_kv, B); block WARPS * 32 threads.
-template <typename KV, int D>
+// grid (ceil(TQ / BQ), n_kv, B); block WARPS * 32 threads. Cache slot c
+// holds absolute position kv_pos0 + c (0 for the whole cache, K3). With
+// STATS, out receives the unnormalised accumulator and m_out / l_out
+// [B, n_kv, TQ] the running max and sum of each row; without, out = acc / l.
+template <typename KV, int D, bool STATS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                        const KV* __restrict__ v, float* __restrict__ out,
-                       const int* __restrict__ pos, int pos_scalar,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       const int* __restrict__ pos, int pos_scalar, int kv_pos0,
                        int n_kv, int TQ, int S, int kv_mul, float scale) {
   constexpr int DC = D / 32;  // output columns per lane
   constexpr int KV_PER_LOAD = 16 / sizeof(KV);
@@ -99,18 +113,23 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     const int r = i / D, d = i % D;
     qs[r][d] = r < rows_here ? qh[(size_t)(r0 + r) * D + d] : 0.f;
   }
-  // newest position any row of this tile can see: the walk ends there
-  const int last_key = min(S - 1, q_pos0 + (r0 + rows_here - 1) / kv_mul);
-  const int n_tiles = last_key / BS + 1;
+  // newest local slot any row of this tile can see: the walk ends there. It
+  // is negative when the whole block lies past every row (a mid-sequence
+  // shard, K3s): then no tile is loaded (C division would round -1 / BS up
+  // to 0 and walk one tile)
+  const int last_key = min(S - 1, q_pos0 - kv_pos0 + (r0 + rows_here - 1) / kv_mul);
+  const int n_tiles = last_key < 0 ? 0 : last_key / BS + 1;
 
   float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc[ROWS_PER_WARP][DC];
-  int limit[ROWS_PER_WARP];  // newest visible slot per row (-1: row absent)
+  // newest visible local slot per row, at most S - 1 (negative: the row sees
+  // nothing of this block, or is absent)
+  int limit[ROWS_PER_WARP];
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int r = i * WARPS + warp;
     m[i] = -INFINITY;
     l[i] = 0.f;
-    limit[i] = r < rows_here ? q_pos0 + (r0 + r) / kv_mul : -1;
+    limit[i] = r < rows_here ? min(S - 1, q_pos0 - kv_pos0 + (r0 + r) / kv_mul) : -1;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
@@ -159,7 +178,9 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     const int key = s0 + lane;
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      if (limit[i] < s0) continue;  // warp-uniform: nothing visible yet (or absent row)
+      // warp-uniform: nothing visible yet (or absent row). This guard keeps
+      // m_new finite below: expf(-inf - -inf) would be NaN
+      if (limit[i] < s0) continue;
       const float s = key <= limit[i] ? sc[i] * scale : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(s));  // finite: key s0 <= limit
       const float p = expf(s - m_new);               // masked keys -> 0
@@ -182,25 +203,31 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int r = i * WARPS + warp;
     if (r >= rows_here) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 1.f;
+    // stats: the unnormalised sum (a row that saw nothing keeps acc = 0,
+    // l = 0, m = -inf); otherwise normalised here
+    const float inv = STATS ? 1.f : (l[i] > 0.f ? 1.f / l[i] : 1.f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) oh[(size_t)(r0 + r) * D + lane + 32 * c] = acc[i][c] * inv;
+    if (STATS && lane == 0) {
+      m_out[head * TQ + r0 + r] = m[i];
+      l_out[head * TQ + r0 + r] = l[i];
+    }
   }
 }
 
-template <typename KV>
-void launch(const float* q, const void* k, const void* v, float* out, const int* pos,
-            int pos_scalar, int B, int n_kv, int TQ, int S, int D, int kv_mul,
-            float scale, cudaStream_t stream) {
+template <typename KV, bool STATS>
+void launch(const float* q, const void* k, const void* v, float* out, float* m_out,
+            float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
+            int TQ, int S, int D, int kv_mul, float scale, cudaStream_t stream) {
   dim3 grid((TQ + BQ - 1) / BQ, n_kv, B);
   const KV* kp = static_cast<const KV*>(k);
   const KV* vp = static_cast<const KV*>(v);
   if (D == 64)
-    flash_attention_kernel<KV, 64><<<grid, WARPS * 32, 0, stream>>>(
-        q, kp, vp, out, pos, pos_scalar, n_kv, TQ, S, kv_mul, scale);
+    flash_attention_kernel<KV, 64, STATS><<<grid, WARPS * 32, 0, stream>>>(
+        q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale);
   else
-    flash_attention_kernel<KV, 128><<<grid, WARPS * 32, 0, stream>>>(
-        q, kp, vp, out, pos, pos_scalar, n_kv, TQ, S, kv_mul, scale);
+    flash_attention_kernel<KV, 128, STATS><<<grid, WARPS * 32, 0, stream>>>(
+        q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale);
 }
 
 }  // namespace
@@ -220,9 +247,34 @@ int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
   const int* pp = static_cast<const int*>(pos);
   float* op = static_cast<float*>(out);
   if (kv_bf16)
-    launch<__nv_bfloat16>(qp, k, v, op, pp, pos_scalar, B, n_kv, TQ, S, D, kv_mul, scale, s);
+    launch<__nv_bfloat16, false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B,
+                                 n_kv, TQ, S, D, kv_mul, scale, s);
   else
-    launch<float>(qp, k, v, op, pp, pos_scalar, B, n_kv, TQ, S, D, kv_mul, scale, s);
+    launch<float, false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B, n_kv, TQ,
+                         S, D, kv_mul, scale, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3s: the same arguments for one KV block k/v [B, n_kv, S, D] holding
+// absolute positions [kv_pos0, kv_pos0 + S); acc f32 [B, n_kv, TQ, D] and
+// m, l f32 [B, n_kv, TQ] receive the unnormalised block statistics.
+int dlt_flash_block_stats(const void* q, const void* k, const void* v, void* acc,
+                          void* m, void* l, const void* pos, int pos_scalar,
+                          int kv_pos0, int B, int n_kv, int TQ, int S, int D,
+                          int kv_mul, float scale, int kv_bf16, void* stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qp = static_cast<const float*>(q);
+  const int* pp = static_cast<const int*>(pos);
+  float* ap = static_cast<float*>(acc);
+  float* mp = static_cast<float*>(m);
+  float* lp = static_cast<float*>(l);
+  if (kv_bf16)
+    launch<__nv_bfloat16, true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv,
+                                TQ, S, D, kv_mul, scale, s);
+  else
+    launch<float, true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv, TQ, S, D,
+                        kv_mul, scale, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,10 @@ Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
 :func:`paged_sampled_step`) serves continuous batching over the block pool
 and attends through K4
 (:func:`~dllama_tpu_torch.ops.paged_attention.paged_attention`, the same
-``cfg.attn_impl`` gate).
+``cfg.attn_impl`` gate). Under a mesh plan with ``sp > 1`` the dense path
+attends through :func:`~dllama_tpu_torch.parallel.ring.sp_attention` over a
+:class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache` (kernel K3s on
+the card) instead of K3.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from ..ops.flash_attention import flash_attention
 from ..ops.linear import QuantizedWeight, Weight, fake_quant_q80, linear
 from ..ops.norms import rms_norm, rms_norm_per_head
 from ..ops.paged_attention import paged_attention, paged_attention_plain
-from ..runtime.kvcache import KVCache, update_layer
+from ..parallel.ring import sp_attention
+from ..runtime.kvcache import update_layer
 from .config import ModelConfig
 from .rope import apply_rope, build_rope_cache
 
@@ -118,13 +122,23 @@ def _attn_out_and_ffn(cfg: ModelConfig, x: torch.Tensor, att: torch.Tensor,
     return x + fq(linear(fq(gate * up), lp.w2, impl=impl))
 
 
+def _sp(plan) -> bool:
+    return plan is not None and plan.axis_size("sp") > 1
+
+
 def _layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
-                k_cache: torch.Tensor, v_cache: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor, start_pos, positions):
+                k_cache, v_cache, cos: torch.Tensor, sin: torch.Tensor,
+                start_pos, positions, plan=None):
     """One transformer block. ``x: [B, T, dim]``; this layer's caches are
-    head-major ``[B, n_kv, S, hd]`` and are written in place."""
+    head-major ``[B, n_kv, S, hd]`` and are written in place. Under a plan
+    with ``sp > 1`` they are the per-shard lists ``[B, n_kv, S_l, hd]`` and
+    the sequence-parallel attention both appends and attends."""
     fq = _fq(cfg)
     q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
+    if _sp(plan):
+        att = sp_attention(plan, q, k_cache, v_cache, k, v, _position_tensor(positions, q),
+                           start_pos, cfg.head_dim, attn_impl=cfg.attn_impl)
+        return _attn_out_and_ffn(cfg, x, att, lp, fq)
     update_layer(k_cache, v_cache, k, v, start_pos)
     if _use_flash(cfg, q):
         att = flash_attention(q, k_cache, v_cache, start_pos, cfg.head_dim)
@@ -149,13 +163,16 @@ def rope_tables(cfg: ModelConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            start_pos: int | torch.Tensor, kv: KVCache
-            ) -> tuple[torch.Tensor, KVCache]:
+            start_pos: int | torch.Tensor, kv, plan=None) -> tuple[torch.Tensor, object]:
     """Full forward: ``tokens [B, T]`` at absolute ``start_pos`` → float32
     logits ``[B, T, vocab]``; ``kv`` is updated in place and returned.
 
     ``start_pos`` is an int (all rows at one position) or an int tensor
-    ``[B]`` of per-row positions.
+    ``[B]`` of per-row positions. With a ``plan`` of ``sp > 1`` (the JAX
+    package's ``use_plan``), ``kv`` is a
+    :class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache` and
+    everything but attention runs on the plan's lead device, where
+    ``params`` and ``tokens`` live.
     """
     B, T = tokens.shape
     x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
@@ -166,7 +183,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         positions = slice(int(start_pos), int(start_pos) + T)
     for l, lp in enumerate(params.layers):
-        x = _layer_step(cfg, x, lp, kv.k[l], kv.v[l], cos, sin, start_pos, positions)
+        k_l, v_l = kv.layer(l)
+        x = _layer_step(cfg, x, lp, k_l, v_l, cos, sin, start_pos, positions, plan)
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if cfg.sync_q80:  # final cast before the logits matmul (llm.cpp:445-486)
         x = fake_quant_q80(x)
@@ -175,20 +193,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def greedy_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                start_pos, kv: KVCache) -> tuple[torch.Tensor, KVCache]:
+                start_pos, kv, plan=None) -> tuple[torch.Tensor, object]:
     """Forward + argmax of the last position: next token ids ``[B]``."""
-    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
     return torch.argmax(logits[:, -1, :], dim=-1), kv
 
 
 def sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 start_pos, kv: KVCache, temperature, topp, coin
-                 ) -> tuple[torch.Tensor, KVCache]:
+                 start_pos, kv, temperature, topp, coin, plan=None
+                 ) -> tuple[torch.Tensor, object]:
     """Forward + temperature/top-p sample of the last position; the host
     steps its xorshift* RNG and passes the coin in."""
     from ..ops.sampling import sampled_token
 
-    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
     return sampled_token(logits[:, -1, :], temperature, topp, coin), kv
 
 
@@ -202,10 +220,10 @@ def nll_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 
 
 def prefill_nll(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                targets: torch.Tensor, start_pos, kv: KVCache
-                ) -> tuple[torch.Tensor, KVCache]:
+                targets: torch.Tensor, start_pos, kv, plan=None
+                ) -> tuple[torch.Tensor, object]:
     """Teacher-forced prefill: per-position NLL ``[B, T]`` plus the cache."""
-    logits, kv = forward(params, cfg, tokens, start_pos, kv)
+    logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
     return nll_from_logits(logits, targets), kv
 
 

@@ -12,6 +12,7 @@ CPU has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -95,6 +98,18 @@ def load(name: str) -> ctypes.CDLL:
             lib.dlt_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def on_card(device: torch.device) -> contextlib.AbstractContextManager:
+    """The context for a launch on ``device``'s card. A ctypes call launches
+    on the caller's current CUDA device, so a tensor on another card is
+    launched under ``torch.cuda.device`` of its own; on the current card,
+    which is every launch of a one-card run, no context is entered. The
+    other-card branch is written for sp shards on several cards and has not
+    been run on more than one card yet."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1,4 +1,5 @@
-"""Kernel K3: causal GQA flash attention over the dense head-major cache.
+"""Kernels K3 and K3s: causal GQA flash attention over the dense head-major
+cache, and its block-statistics mode for sequence-parallel attention.
 
 Replaces the JAX package's ``ops/flash_attention.py::_kernel`` (stats=False;
 ``pallas_call`` at :154 through ``_call`` :128 and ``flash_attention`` :181).
@@ -12,6 +13,15 @@ that stops at the newest visible position.
 (:func:`dllama_tpu_torch.ops.attention.attention`, its plain version) on a
 CPU tensor, and on a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts kernel launches.
+
+K3s (:func:`flash_block_stats`) replaces the JAX package's
+``flash_block_stats`` (``ops/flash_attention.py:206``, the same ``_kernel``
+with ``stats=True``): one mid-sequence KV block, the unnormalised
+``(acc, m, l)`` of every folded query row, for the ring and merge combines
+of :mod:`dllama_tpu_torch.parallel.ring`. It is the same CUDA kernel in its
+stats mode; its plain version is :func:`_block_attn`, which the ring's
+plain path calls directly (:func:`flash_block_stats_plain` folds around it).
+``flash_block_stats.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import math
 import torch
 
 from .attention import attention
-from .cuda_build import check, load
+from .cuda_build import check, load, on_card
 
 MAX_TQ = 2048                # folded query rows per (batch, kv head)
 HEAD_DIMS = (64, 128)        # head dims the kernel is instantiated for
@@ -61,6 +71,9 @@ def _lib():
         lib.dlt_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                             ctypes.c_float, i, p]
         lib.dlt_flash_attention.restype = i
+        lib.dlt_flash_block_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                              i, ctypes.c_float, i, p]
+        lib.dlt_flash_block_stats.restype = i
         _lib.cached = lib
     return lib
 
@@ -82,29 +95,125 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     if not supports(tuple(q.shape), n_kv, S):
         raise ValueError(f"flash_attention: q={tuple(q.shape)}, S={S} not supported "
                          f"(head_dim in {HEAD_DIMS}, T*kv_mul <= {MAX_TQ})")
-    if k_cache.dtype not in (torch.float32, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"flash_attention: cache dtype {k_cache.dtype} not supported")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous and "
-                             f"16-byte aligned on {q.device}")
+    _check_cache("flash_attention", q.device, k_cache, v_cache)
     kv_mul = n_heads // n_kv
     q_g = fold_queries(q, n_kv)
     out = torch.empty_like(q_g)
-    if torch.is_tensor(start_pos):
-        pos = start_pos.to(device=q.device, dtype=torch.int32).contiguous()
-        pos_ptr, pos_scalar = pos.data_ptr(), 0
-    else:
-        pos_ptr, pos_scalar = None, int(start_pos)
+    pos_ptr, pos_scalar, _pos = _positions(start_pos, q.device)
     lib = _lib()
-    rc = lib.dlt_flash_attention(
-        q_g.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        pos_ptr, pos_scalar, B, n_kv, T * kv_mul, S, D, kv_mul,
-        1.0 / math.sqrt(head_dim), int(k_cache.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):
+        rc = lib.dlt_flash_attention(
+            q_g.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            pos_ptr, pos_scalar, B, n_kv, T * kv_mul, S, D, kv_mul,
+            1.0 / math.sqrt(head_dim), int(k_cache.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     check(lib, rc, "flash_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)
 
 
 flash_attention.launches = 0
+
+
+def _check_cache(what: str, device: torch.device, k: torch.Tensor, v: torch.Tensor) -> None:
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise ValueError(f"{what}: cache dtype {k.dtype} not supported")
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_contiguous() or t.device != device or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} cache must be contiguous and "
+                             f"16-byte aligned on {device}")
+
+
+def _positions(start_pos, device: torch.device):
+    """``(pointer, scalar, keep-alive tensor)`` of a start position: an int
+    rides as the scalar, a ``[B]`` tensor as an int32 table on the device."""
+    if torch.is_tensor(start_pos):
+        pos = start_pos.to(device=device, dtype=torch.int32).contiguous()
+        return pos.data_ptr(), 0, pos
+    return None, int(start_pos), None
+
+
+def _block_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor, head_dim: int):
+    """Unnormalized block attention; the plain version of K3s (the JAX
+    package's ``parallel/ring.py::_block_attn``).
+
+    ``qg: [B, T, n_kv, kv_mul, hd]`` grouped f32 queries, ``k/v: [B, n_kv,
+    S, hd]`` (head-major cache block), ``mask: [B, T, S]`` True where
+    visible. Returns ``(acc [B,T,n_kv,kv_mul,hd], m [B,T,n_kv,kv_mul],
+    l [same])``; a fully masked row gives ``acc = 0``, ``l = 0``,
+    ``m = -inf`` with no NaN (the ``m_safe`` clamp)."""
+    scores = torch.einsum("btkmh,bksh->btkms", qg, k.float())
+    scores = scores / math.sqrt(head_dim)
+    mask_b = mask[:, :, None, None, :]
+    scores = torch.where(mask_b, scores, float("-inf"))
+    m = torch.amax(scores, dim=-1)                     # [B,T,k,mul]; may be -inf
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask_b, torch.exp(scores - m_safe[..., None]), 0.0)
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("btkms,bksh->btkmh", p, v.float())
+    return acc, m, l
+
+
+def flash_block_stats_plain(q_g: torch.Tensor, k_block: torch.Tensor,
+                            v_block: torch.Tensor, q_pos0: int | torch.Tensor,
+                            kv_pos0: int, head_dim: int, t: int):
+    """K3s's plain version: :func:`_block_attn` (the f32 einsum with the
+    ``-inf`` mask and the ``m_safe`` clamp) around the kernel's GQA-folded
+    layout. Same arguments and results as :func:`flash_block_stats`."""
+    B, n_kv, TQ, D = q_g.shape
+    kv_mul = TQ // t
+    S = k_block.shape[2]
+    dev = q_g.device
+    base = (q_pos0.to(dev).long()[:, None] if torch.is_tensor(q_pos0)
+            else torch.full((B, 1), int(q_pos0), device=dev))
+    q_positions = base + torch.arange(t, device=dev)[None, :]           # [B, t]
+    kv_pos = kv_pos0 + torch.arange(S, device=dev)
+    mask = kv_pos[None, None, :] <= q_positions[:, :, None]             # [B, t, S]
+    qg = q_g.float().reshape(B, n_kv, t, kv_mul, D).permute(0, 2, 1, 3, 4)
+    acc, m, l = _block_attn(qg, k_block, v_block, mask, head_dim)
+    return (acc.permute(0, 2, 1, 3, 4).reshape(B, n_kv, TQ, D),
+            m.permute(0, 2, 1, 3).reshape(B, n_kv, TQ),
+            l.permute(0, 2, 1, 3).reshape(B, n_kv, TQ))
+
+
+def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.Tensor,
+                      q_pos0: int | torch.Tensor, kv_pos0: int, head_dim: int, t: int):
+    """Unnormalised attention of GQA-folded queries over one KV block (K3s).
+
+    ``q_g [B, n_kv, TQ = t * kv_mul, D]`` f32, row ``r`` at absolute
+    position ``q_pos0 + r // kv_mul`` (``q_pos0`` an int or a ``[B]``
+    tensor); ``k/v_block [B, n_kv, S_l, D]`` f32 or bf16 holding positions
+    ``[kv_pos0, kv_pos0 + S_l)``. Returns ``(acc [B, n_kv, TQ, D],
+    m [B, n_kv, TQ], l [B, n_kv, TQ])``, all f32; a row that sees nothing of
+    the block gets exactly ``acc = 0``, ``l = 0``, ``m = -inf``."""
+    B, n_kv, TQ, D = q_g.shape
+    S = k_block.shape[2]
+    if q_g.device.type == "cpu":
+        return flash_block_stats_plain(q_g, k_block, v_block, q_pos0, kv_pos0, head_dim, t)
+    if q_g.device.type != "cuda":
+        raise ValueError(f"flash_block_stats: unsupported device {q_g.device}")
+    if D not in HEAD_DIMS or TQ % t or TQ > MAX_TQ or S <= 0 or k_block.shape[1] != n_kv:
+        raise ValueError(f"flash_block_stats: q_g={tuple(q_g.shape)}, t={t}, "
+                         f"block={tuple(k_block.shape)} not supported "
+                         f"(head_dim in {HEAD_DIMS}, TQ <= {MAX_TQ})")
+    _check_cache("flash_block_stats", q_g.device, k_block, v_block)
+    q_g = q_g.float().contiguous()
+    acc = torch.empty_like(q_g)
+    m = torch.empty((B, n_kv, TQ), dtype=torch.float32, device=q_g.device)
+    l = torch.empty_like(m)
+    pos_ptr, pos_scalar, _pos = _positions(q_pos0, q_g.device)
+    lib = _lib()
+    with on_card(q_g.device):
+        rc = lib.dlt_flash_block_stats(
+            q_g.data_ptr(), k_block.data_ptr(), v_block.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), pos_ptr, pos_scalar, int(kv_pos0), B, n_kv, TQ,
+            S, D, TQ // t, 1.0 / math.sqrt(head_dim),
+            int(k_block.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q_g.device).cuda_stream)
+    flash_block_stats.launches += 1
+    check(lib, rc, "flash_block_stats")
+    return acc, m, l
+
+
+flash_block_stats.launches = 0

@@ -30,7 +30,7 @@ import math
 import torch
 
 from .attention import attention
-from .cuda_build import check, load
+from .cuda_build import check, load, on_card
 from .flash_attention import fold_queries, unfold_output
 
 MAX_TQ = 512    # folded query rows (T * kv_mul) per (batch row, KV head)
@@ -110,11 +110,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     tbl = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos0 = positions[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
     lib = _lib()
-    rc = lib.dlt_paged_attention(
-        q_g.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        tbl.data_ptr(), pos0.data_ptr(), B, n_kv, T * kv_mul, D, n_blocks, bs, M,
-        kv_mul, 1.0 / math.sqrt(head_dim), int(k_pool.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):  # the launch goes to q's card
+        rc = lib.dlt_paged_attention(
+            q_g.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+            tbl.data_ptr(), pos0.data_ptr(), B, n_kv, T * kv_mul, D, n_blocks, bs, M,
+            kv_mul, 1.0 / math.sqrt(head_dim), int(k_pool.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
     check(lib, rc, "paged_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)

@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
-from .cuda_build import check, load
+from .cuda_build import check, load, on_card
 from .linear import QuantizedWeight, dequantize_weight
 
 # widest dispatch that counts as the decode regime (the JAX package's
@@ -141,9 +141,10 @@ def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
             if splits > 1 else y)
     lib = _lib()
-    rc = lib.dlt_q40_gemv(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
-                          y.data_ptr(), part.data_ptr(), M, K, N, splits,
-                          int(fast), torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x.device):  # the launch goes to x's card
+        rc = lib.dlt_q40_gemv(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
+                              y.data_ptr(), part.data_ptr(), M, K, N, splits,
+                              int(fast), torch.cuda.current_stream(x.device).cuda_stream)
     q40_gemv.launches += 1
     check(lib, rc, "q40_gemv")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
@@ -161,9 +162,10 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
     x2d, scales, M, K, N = _cuda_operands(x, w, fast, "q40_matmul")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     lib = _lib()
-    rc = lib.dlt_q40_matmul(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
-                            y.data_ptr(), M, K, N, int(fast),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x.device):
+        rc = lib.dlt_q40_matmul(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
+                                y.data_ptr(), M, K, N, int(fast),
+                                torch.cuda.current_stream(x.device).cuda_stream)
     q40_matmul.launches += 1
     check(lib, rc, "q40_matmul")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)

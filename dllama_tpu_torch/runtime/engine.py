@@ -9,7 +9,10 @@ and signatures are the JAX engine's, so the same callers (the golden replay
 protocol in the tests) run both. With ``kv_block_size`` the engine also
 serves paged continuous batching (:mod:`dllama_tpu_torch.runtime.serving`
 builds the block pool and reuses ``prefill_buckets`` and
-``_prefill_chunk_size``).
+``_prefill_chunk_size``). With ``sp > 1`` the KV cache is split along the
+sequence over ``sp`` devices (:class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache`)
+and attention runs sequence-parallel (:mod:`dllama_tpu_torch.parallel.ring`);
+the weights and everything else stay on the lead device.
 
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
@@ -29,10 +32,11 @@ from ..formats.mfile import ModelFile
 from ..formats.quants import F32
 from ..models.config import ModelConfig
 from ..models.llama import Params, forward, greedy_step, prefill_nll, sampled_step
+from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
 from .kvblocks import validate_block_size
-from .kvcache import KVCache
+from .kvcache import KVCache, ShardedKVCache, padded_cache_len
 from .weights import load_params
 
 DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
@@ -94,37 +98,75 @@ class GenerationResult:
         return self._rate("eval")
 
 
+def mesh_plan(device, sp: int, sp_devices=None) -> MeshPlan | None:
+    """The ``sp`` mesh of an engine (None for ``sp == 1``): ``sp_devices``,
+    or :func:`~dllama_tpu_torch.parallel.api.default_devices` —
+    ``cuda:0 .. cuda:sp-1`` on the card (fewer visible cards fail with the
+    JAX engine's "mesh … needs N devices, found M"), ``[cpu] * sp`` on the
+    CPU. An explicit list may repeat a device (several shards on one card)
+    and must be of ``device``'s type."""
+    if sp < 1:
+        raise ValueError(f"sp must be >= 1, got {sp}")
+    if sp == 1:
+        return None
+    kind = torch.device(device).type
+    devices = (default_devices(device, sp) if sp_devices is None
+               else [torch.device(d) for d in sp_devices])
+    if len(devices) != sp or any(d.type != kind for d in devices):
+        raise ValueError(f"sp={sp} needs {sp} {kind} devices, got "
+                         f"{[str(d) for d in devices]}")
+    for d in devices:
+        resolve_device(d)
+    return make_mesh({"sp": sp}, devices)
+
+
 class InferenceEngine:
-    """Owns config, parameters and KV cache on one device."""
+    """Owns config, parameters and KV cache: on one device, or with ``sp > 1``
+    the weights on the lead device and the cache split over ``sp``."""
 
     def __init__(self, model_path: str, tokenizer_path: str | None = None, *,
                  device="cuda", max_seq_len: int = 0, sync_type: int = F32,
                  compute_dtype: str = "float32", n_batches: int | None = None,
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
                  attn_impl: str = "auto", quant_impl: str = "auto",
-                 kv_block_size: int = 0):
+                 kv_block_size: int = 0, sp: int = 1, sp_devices=None):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
-        self.device = resolve_device(device)
+        # paged KV serving (--kv-block-size, runtime/kvblocks.py): the
+        # combinations the JAX engine refuses are refused before the load
+        self.kv_block_size = max(0, int(kv_block_size or 0))
+        unsupported = [("--sp > 1", sp > 1),
+                       ("attn_impl='flash' (forced)", attn_impl == "flash")]
+        bad = [name for name, hit in unsupported if hit]
+        if self.kv_block_size and bad:
+            raise ValueError(
+                f"--kv-block-size (paged KV serving) does not support "
+                f"{', '.join(bad)} yet — drop those flags or drop "
+                f"--kv-block-size to use the dense slot pool")
+        # sequence parallelism (--sp, parallel/ring.py): the lead device
+        # holds the weights, the cache is split over the plan's devices
+        self.sp = int(sp)
+        self.plan = mesh_plan(device, self.sp, sp_devices)
+        self.device = self.plan.lead if self.plan else resolve_device(device)
         self.model_file = ModelFile.open(model_path, max_seq_len=max_seq_len,
                                          sync_type=sync_type)
         self.cfg = replace(ModelConfig.from_header(self.model_file.header,
                                                    compute_dtype=compute_dtype),
                            attn_impl=attn_impl, quant_impl=quant_impl)
-        # paged KV serving (--kv-block-size, runtime/kvblocks.py): the block
-        # geometry and the combinations the JAX engine refuses are checked
-        # before the load. The pool (built by serving.PagedGenerator) holds
-        # K/V at the compute dtype, as the dense cache does.
-        self.kv_block_size = max(0, int(kv_block_size or 0))
+        # the block geometry is checked before the load; the pool (built by
+        # serving.PagedGenerator) holds K/V at the compute dtype, as the
+        # dense cache does
         self.kv_dtype = getattr(torch, compute_dtype)
-        if self.kv_block_size:
-            validate_block_size(self.cfg.seq_len, self.kv_block_size)
-            if attn_impl == "flash":
-                self.model_file.close()
+        try:
+            if self.kv_block_size:
+                validate_block_size(self.cfg.seq_len, self.kv_block_size)
+            if padded_cache_len(self.cfg.seq_len) % self.sp != 0:
                 raise ValueError(
-                    "--kv-block-size (paged KV serving) does not support "
-                    "attn_impl='flash' (forced) yet — drop it or drop "
-                    "--kv-block-size")
+                    f"cache rows {padded_cache_len(self.cfg.seq_len)} not "
+                    f"divisible by sp={self.sp} (adjust --max-seq-len)")
+        except ValueError:
+            self.model_file.close()
+            raise
         self.n_batches = min(n_batches or DEFAULT_N_BATCHES, self.cfg.seq_len)
         if n_batches is None:
             self.prefill_buckets = tuple(
@@ -135,16 +177,16 @@ class InferenceEngine:
         self.sampler = Sampler(self.cfg.vocab_size, temperature, topp, seed)
         try:
             self.params: Params = load_params(self.model_file, self.cfg, self.device)
-            self.kv = KVCache.create(self.cfg, dtype=getattr(torch, compute_dtype),
-                                     device=self.device)
+            self.kv = (ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
+                       if self.plan else
+                       KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device))
         except BaseException:
             self.model_file.close()
             raise
         self.pos = 0
 
     def reset(self) -> None:
-        self.kv.k.zero_()
-        self.kv.v.zero_()
+        self.kv.zero_()
         self.pos = 0
         if self.tokenizer is not None:
             self.tokenizer.reset_decoder()
@@ -163,7 +205,7 @@ class InferenceEngine:
     def _forward(self, ids: list[int], start_pos: int) -> torch.Tensor:
         """One forward over ``ids`` at ``start_pos``: logits ``[1, T, vocab]``."""
         logits, self.kv = forward(self.params, self.cfg, self._tokens(ids),
-                                  start_pos, self.kv)
+                                  start_pos, self.kv, self.plan)
         return logits
 
     def _prefill_chunk_size(self, remaining: int) -> int:
@@ -218,11 +260,13 @@ class InferenceEngine:
             raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
         tokens = self._tokens([token])
         if self.sampler.temperature == 0.0:
-            nxt, self.kv = greedy_step(self.params, self.cfg, tokens, self.pos, self.kv)
+            nxt, self.kv = greedy_step(self.params, self.cfg, tokens, self.pos, self.kv,
+                                       self.plan)
         else:
             coin, self.sampler.rng_state = xorshift_random_f32(self.sampler.rng_state)
             nxt, self.kv = sampled_step(self.params, self.cfg, tokens, self.pos, self.kv,
-                                        self.sampler.temperature, self.sampler.topp, coin)
+                                        self.sampler.temperature, self.sampler.topp, coin,
+                                        self.plan)
         self.pos += 1
         return int(nxt[0])
 
@@ -303,7 +347,8 @@ class InferenceEngine:
             targets = token_ids[i + 1:i + 1 + valid]
             nll, self.kv = prefill_nll(self.params, self.cfg,
                                        self._tokens(rest[i:i + valid] + pad),
-                                       self._tokens(targets + pad), self.pos, self.kv)
+                                       self._tokens(targets + pad), self.pos, self.kv,
+                                       self.plan)
             out.append(nll[0, :valid].float().cpu().numpy())
             self.pos += valid
         return np.concatenate(out)

@@ -6,6 +6,11 @@ head-major, so the trailing ``(S, head_dim)`` slab of each (batch, head) is
 what attention reads without a transpose. The JAX cache is updated
 functionally and donated; here :func:`update_layer` writes the new rows in
 place, which saves the copy.
+
+:class:`ShardedKVCache` is the same cache split along ``S`` over the ``sp``
+devices of a mesh (the JAX package's ``kv_cache_sharding`` with the ``seq``
+axis, ``parallel/sharding.py:126``): one such pair per shard, each holding
+``S / sp`` rows on its own device; ``parallel/ring.py`` writes and reads it.
 """
 
 from __future__ import annotations
@@ -47,6 +52,52 @@ class KVCache(NamedTuple):
     @property
     def batch_size(self) -> int:
         return self.k.shape[1]
+
+    def layer(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``l``'s ``[B, n_kv, S, hd]`` caches."""
+        return self.k[l], self.v[l]
+
+    def zero_(self) -> None:
+        self.k.zero_()
+        self.v.zero_()
+
+
+class ShardedKVCache(NamedTuple):
+    """The cache split along ``S`` in ``sp`` shards: ``k[j]``/``v[j]`` of shape
+    ``[L, B, n_kv_heads, S_l, head_dim]`` on ``devices[j]`` hold rows
+    ``[j * S_l, (j + 1) * S_l)``; each is contiguous, so a layer slice goes
+    straight to the kernel."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+
+    @classmethod
+    def create(cls, cfg: "ModelConfig", devices, batch_size: int = 1,
+               dtype=torch.float32) -> "ShardedKVCache":
+        rows, sp = padded_cache_len(cfg.seq_len), len(devices)
+        if rows % sp != 0:
+            raise ValueError(f"cache rows {rows} not divisible by sp={sp} "
+                             f"(adjust --max-seq-len)")
+        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, rows // sp, cfg.head_dim)
+        return cls(k=[torch.zeros(shape, dtype=dtype, device=d) for d in devices],
+                   v=[torch.zeros(shape, dtype=dtype, device=d) for d in devices])
+
+    @property
+    def seq_len(self) -> int:
+        """PHYSICAL cache rows over all shards."""
+        return sum(t.shape[3] for t in self.k)
+
+    @property
+    def batch_size(self) -> int:
+        return self.k[0].shape[1]
+
+    def layer(self, l: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """Layer ``l``'s per-shard ``[B, n_kv, S_l, hd]`` caches."""
+        return [t[l] for t in self.k], [t[l] for t in self.v]
+
+    def zero_(self) -> None:
+        for t in (*self.k, *self.v):
+            t.zero_()
 
 
 def update_layer(k_layer: torch.Tensor, v_layer: torch.Tensor, new_k: torch.Tensor,

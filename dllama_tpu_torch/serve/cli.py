@@ -3,8 +3,11 @@ JAX package's ``serve/cli.py`` ``make_engine``/``main``, these three modes;
 ``api`` only as batched paged serving: ``--batch-slots N --kv-block-size B``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
-usable GPU fails with a clear error. Modes and flags of the JAX CLI that are
-not ported yet fail loudly instead of being ignored.
+usable GPU fails with a clear error. ``--sp N`` splits the KV cache along the
+sequence over ``N`` visible CUDA devices (ring attention for prefill, a
+flash-decoding merge for decode; ``[cpu] * N`` under ``--device cpu``).
+Modes and flags of the JAX CLI that are not ported yet fail loudly instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import sys
 import time
 
 from ..formats.quants import F32, Q80
-from ..runtime.engine import InferenceEngine, resolve_device
+from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
 
 PORTED_MODES = ("inference", "perplexity", "api")
 # modes of the JAX CLI that later slices of the port bring over
@@ -43,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="f32 = exact Q40 numerics (golden parity); bf16 = fast")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel device count (ring attention; "
+                        "long-context — no reference equivalent)")
     # api mode (batched paged serving)
     p.add_argument("--batch-slots", type=int, default=0,
                    help="api: concurrent sequences of continuous batching")
@@ -65,10 +71,11 @@ def make_engine(args) -> InferenceEngine:
         compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
         sync_type=Q80 if args.buffer_float_type == "q80" else F32,
         temperature=args.temperature, topp=args.topp, seed=seed,
-        kv_block_size=args.kv_block_size)
+        kv_block_size=args.kv_block_size, sp=args.sp)
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
+    print(f"🕸️ TP devices: 1  SP devices: {engine.sp}  PP stages: 1")
     print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}")
     return engine
 
@@ -147,12 +154,14 @@ def main(argv=None, on_listening=None) -> int:
         raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
-                         f"--buffer-float-type --compute-dtype --device; api: "
+                         f"--buffer-float-type --compute-dtype --device --sp; api: "
                          f"--batch-slots --kv-block-size --max-queue --host --port "
                          f"--request-timeout)")
     try:
+        # the mesh's device count first: --sp N needs N visible cards
+        mesh_plan(args.device, args.sp)
         resolve_device(args.device)
-    except RuntimeError as e:
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: {e}") from None
     if args.mode == "inference":
         return run_inference(args)

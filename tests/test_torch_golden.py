@@ -6,7 +6,9 @@ same bounds as the JAX package's ``tests/test_golden_reference.py``.
 
 Transcripts must be token-identical. Perplexity is held to 1e-3 relative,
 the JAX twin's bound: the reference sums its per-token log-probabilities in
-another order and precision."""
+another order and precision. Every transcript is also replayed with the KV
+cache split over two sequence shards (``sp=2``, ring prefill and merge
+decode over ``[cpu] * 2``), which must not change a token."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import golden_assets
 BUFFER_TYPES = {"f32": F32, "q80": Q80}
 
 
-def _engine_for(variant: str, tmp_path) -> tuple[InferenceEngine, dict]:
+def _engine_for(variant: str, tmp_path, sp: int = 1) -> tuple[InferenceEngine, dict]:
     golden = golden_assets.load_golden(variant)
     if golden is None:
         pytest.skip(f"no golden for {variant} (run tools/golden_reference.py)")
@@ -33,22 +35,28 @@ def _engine_for(variant: str, tmp_path) -> tuple[InferenceEngine, dict]:
         sync_type=BUFFER_TYPES[golden["buffer_float_type"]],
         compute_dtype="float32",
         temperature=golden["temperature"], topp=golden.get("topp", 0.9),
-        seed=golden["sampler_seed"])
+        seed=golden["sampler_seed"], sp=sp)
     return eng, golden
 
 
-@pytest.mark.parametrize("variant", [
-    "llama_q40",
-    "llama_f32",
-    "qwen3_q40",
-    "llama31_q40",
-    "llama_sampled_f32",   # temperature 0.7 top-p over the xorshift* coins
-    "llama_deep_f32",      # 8 layers x 292 pieces
-    "qwen3_deep_f32",      # per-head norms + neox rope over 8 layers
-    pytest.param("llama_macbeth_f32", marks=pytest.mark.slow),  # 2049 steps
-])
-def test_transcript_matches_reference(variant, tmp_path):
-    eng, golden = _engine_for(variant, tmp_path)
+TRANSCRIPTS = [
+    ("llama_q40", ()),
+    ("llama_f32", ()),
+    ("qwen3_q40", ()),
+    ("llama31_q40", ()),
+    ("llama_sampled_f32", ()),   # temperature 0.7 top-p over the xorshift* coins
+    ("llama_deep_f32", ()),      # 8 layers x 292 pieces
+    ("qwen3_deep_f32", ()),      # per-head norms + neox rope over 8 layers
+    ("llama_macbeth_f32", (pytest.mark.slow,)),  # 2049 steps
+]
+
+
+# sp = 1 keeps the plain variant ids; sp = 2 adds "<variant>-sp2"
+@pytest.mark.parametrize("variant,sp", [
+    pytest.param(v, sp, id=v if sp == 1 else f"{v}-sp2", marks=marks)
+    for sp in (1, 2) for v, marks in TRANSCRIPTS])
+def test_transcript_matches_reference(variant, sp, tmp_path):
+    eng, golden = _engine_for(variant, tmp_path, sp)
     try:
         ids = eng.tokenizer.encode(golden["prompt"], is_start=True)
         data = golden_assets.word_vocab_tokenizer()

@@ -11,22 +11,28 @@ Phases, each failing loudly (non-zero exit, no result line):
 2. build the CUDA kernels from ``dllama_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time and ptxas register use;
 3. kernels K1 (Q40 tile matmul), K2 (Q40 decode GEMV, at M = 1 and at the
-   serving batch M = 8), K3 (flash attention) and K4 (paged attention) on
-   the card against their plain PyTorch versions at the Llama 3.1 8B shapes
-   of the main paths, exact (f32) and fast (bf16): one JSON line per case
-   with the error, the median of >= 20 CUDA-event timed runs (L2 flushed
-   before each), the plain version's and a library call's time (for K4 the
-   gather + SDPA pair, a yardstick of two library calls), and the bound
-   (the larger of bytes / 3.35 TB/s and operations / peak rate); the fast
-   logits head also times the dense bf16 ``F.linear`` that fast configs
-   load it as;
+   serving batch M = 8), K3 (flash attention, with decode at depth 2047 in
+   a 2048-row cache, and decode at depth 20145 and a 256-token prefill
+   chunk at depth 19000 in a 32768-row cache, the long sp cell at sp = 1)
+   and K4 (paged attention) on the card against their plain
+   PyTorch versions at the Llama 3.1 8B shapes of the main paths, exact
+   (f32) and fast (bf16): one JSON line per case with the error, the median
+   of >= 20 CUDA-event timed runs (L2 flushed before each), the plain
+   version's and a library call's time (for K4 the gather + SDPA pair, a
+   yardstick of two library calls), the bound (the larger of bytes / 3.35
+   TB/s and operations / peak rate), and the K split (K1, K2) or split-S
+   count (K3) that the launch took (read from the wrapper; K3 decode must
+   split, its prefill must not); the fast logits head also times the dense
+   bf16 ``F.linear`` that fast configs load it as;
 4. end to end at full Llama 3.1 8B width: write a synthetic Q40 model (random
    blocks from a seed) and a 128256-piece tokenizer with a llama3 chat
    template with the port's own writers, run ``inference`` and
    ``perplexity`` through the port's CLI ``main`` in process under
    ``--compute-dtype f32`` and ``bf16``, and check the tokens, a finite
    perplexity and each path's launch counts (set to 0 before each run): K1,
-   K2 and K3 for ``inference``, K1 and K3 for ``perplexity``;
+   K2 and K3 for ``inference``, K1 and K3 for ``perplexity``; then, under
+   ``torch.profiler``, device time per 128-token prefill chunk and per
+   decode step;
 5. serving at the same width: the port's ``api --batch-slots 8
    --kv-block-size 16`` in process on a free local port, under f32 and
    bf16; 16 concurrent clients (9 share a system message, 2 SSE streams, an
@@ -44,7 +50,9 @@ Phases, each failing loudly (non-zero exit, no result line):
 7. sequence parallelism (``--sp``): K3s (the block-statistics mode of K3)
    against its plain version at 8B shapes over one 2048-row shard
    (``ring_cases``: decode over a whole, a partly visible and a fully masked
-   block, a 64-token prefill chunk past the block and on its diagonal);
+   block, a 64-token prefill chunk past the block and on its diagonal) and
+   decode over a whole 16384-row shard (the long sp cell's), the same split
+   checks as K3's;
    ``guard_cost``: the host time of a wrapper call with no device guard,
    the shipped ``on_card`` guard and ``torch.cuda.device`` on every launch;
    ``sp_parity``: 2 layers at 8B width with a 256-row cache, sp = 2 (K3s)
@@ -62,6 +70,9 @@ Phases, each failing loudly (non-zero exit, no result line):
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
+``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
+instead (see :func:`ab_side`): phase 4 and the long sp cell at sp = 1 on the
+package of the current directory, then an ``AB`` line.
 """
 
 from __future__ import annotations
@@ -94,6 +105,9 @@ MATMULS_8B = [  # (name, K, N): one layer's seven matmuls and the head
     ("w1", DIM, HIDDEN), ("w3", DIM, HIDDEN), ("w2", HIDDEN, DIM),
     ("head", DIM, VOCAB)]
 MAX_SEQ = 2048
+SP_LONG_SEQ = 32768   # the long sp cell's --max-seq-len: 2 shards of 16384 rows
+LONG_DEPTH = 20145    # its decode depth: the newest position after its prompt
+LONG_PREFILL_AT = 19000  # first position of one of its 256-token prefill chunks
 
 # kernel-vs-plain tolerances, relative to max|plain output|:
 #   exact: f32 sums in another order over K up to 14336 terms;
@@ -199,6 +213,7 @@ def matmul_cases(timer: Timer, results: list) -> None:
                 fn = qm.q40_gemv if kname == "K2" else qm.q40_matmul
                 x = torch.randn((M, K), generator=g, device=DEV).to(act)
                 got = fn(x, w, fast=fast).float()
+                splits = fn.last_splits  # the K split this launch took (K1 exact: 1)
                 want = qm.quant_matmul_plain(x, w, fast=fast).float()
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
@@ -210,8 +225,8 @@ def matmul_cases(timer: Timer, results: list) -> None:
                 n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
                 b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16" if fast else "f32")
                 rec = dict(case="matmul", kernel=kname, mode=mode, weight=name, M=M,
-                           K=K, N=N, max_abs_err=err, max_abs_ref=scale, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                           K=K, N=N, splits=splits, max_abs_err=err, max_abs_ref=scale,
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                            bound_by=b_by)
                 if head_dense is not None:
                     rec["dense_head_ms"] = timer(lambda: linear(x, head_dense))
@@ -227,32 +242,39 @@ def matmul_cases(timer: Timer, results: list) -> None:
 def attention_cases(timer: Timer, results: list) -> None:
     import torch.nn.functional as F
 
+    from dllama_tpu_torch.ops import flash_attention as fa
     from dllama_tpu_torch.ops.attention import attention
-    from dllama_tpu_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     S = MAX_SEQ
-    # decode over depths up to S, the 128- and 256-token prefill chunks, and
-    # the kernel's other head size (64, e.g. Llama 3.2 1B) at depth
-    cases = [("decode", 1, p, HEAD_DIM) for p in (0, 127, 128, 1023, S - 1)] + [
-        ("prefill", 128, 0, HEAD_DIM), ("prefill", 128, 1024, HEAD_DIM),
-        ("prefill", 256, 0, HEAD_DIM), ("decode", 1, S - 1, 64)]
+    # (phase, T, start_pos, head_dim, cache rows): decode over depths up to
+    # S, the 128- and 256-token prefill chunks, the kernel's other head size
+    # (64, e.g. Llama 3.2 1B) at depth, and the long sp cell at sp = 1 in its
+    # 32768-row cache: decode at its depth and a 256-token chunk of its
+    # prefill deep in the cache (the single pass's walk over ~19000 keys)
+    cases = [("decode", 1, p, HEAD_DIM, S) for p in (0, 127, 128, 1023, S - 1)] + [
+        ("prefill", 128, 0, HEAD_DIM, S), ("prefill", 128, 1024, HEAD_DIM, S),
+        ("prefill", 256, 0, HEAD_DIM, S), ("decode", 1, S - 1, 64, S),
+        ("decode", 1, LONG_DEPTH, HEAD_DIM, SP_LONG_SEQ),
+        ("prefill", 256, LONG_PREFILL_AT, HEAD_DIM, SP_LONG_SEQ)]
     for mode in ("exact", "fast"):
         kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        caches = {D: [torch.randn((1, KV_HEADS, S, D), generator=g, device=DEV).to(kv_dt)
-                      for _ in range(2)] for D in (HEAD_DIM, 64)}
-        for phase, T, pos, D in cases:
-            k, v = caches[D]
+        caches = {(D, rows): [torch.randn((1, KV_HEADS, rows, D), generator=g,
+                                          device=DEV).to(kv_dt) for _ in range(2)]
+                  for D, rows in ((HEAD_DIM, S), (64, S), (HEAD_DIM, SP_LONG_SEQ))}
+        for phase, T, pos, D, rows in cases:
+            k, v = caches[(D, rows)]
             q = torch.randn((1, T, HEADS, D), generator=g, device=DEV)
             positions = (pos + torch.arange(T, device=DEV))[None, :]
-            got = flash_attention(q, k, v, pos, D)
+            got = fa.flash_attention(q, k, v, pos, D)
+            n_splits = fa.flash_attention.last_splits  # what this launch took
             want = attention(q, k, v, positions, D)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             qs = q.transpose(1, 2).to(kv_dt)
-            mask = torch.arange(S, device=DEV)[None, :] <= positions[0][:, None]
-            ms = timer(lambda: flash_attention(q, k, v, pos, D))
+            mask = torch.arange(rows, device=DEV)[None, :] <= positions[0][:, None]
+            ms = timer(lambda: fa.flash_attention(q, k, v, pos, D))
             plain_ms = timer(lambda: attention(q, k, v, positions, D))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=mask, enable_gqa=True))
@@ -261,14 +283,18 @@ def attention_cases(timer: Timer, results: list) -> None:
             n_bytes = 2 * T * HEADS * D * 4 + 2 * (pos + T) * KV_HEADS * D * elt
             b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible, "f32")
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, T=T,
-                       start_pos=pos, S=S, head_dim=D, max_abs_err=err,
-                       max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+                       start_pos=pos, S=rows, head_dim=D, n_splits=n_splits,
+                       max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             print(json.dumps(rec), flush=True)
             results.append(rec)
             # f32 online softmax vs the one-shot oracle: reordered sums/exps
             if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
                 fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err:.3g}")
+            if (n_splits > 1) != (phase == "decode"):
+                fail(f"K3 {mode} {phase} T={T} pos={pos}: the launch took n_splits "
+                     f"{n_splits}; decode must split, prefill must not")
+        del caches
     torch.cuda.empty_cache()
 
 
@@ -451,11 +477,40 @@ def stat(lines: list[str], section: str, key: str) -> float:
     return float(next(ln.split()[1] for ln in lines[i + 1:] if ln.strip().startswith(key)))
 
 
-def decode_profile(model: str, tok: str, dtype: str) -> dict:
-    """Where a decode step's time goes: 16 greedy steps after the prompt's
-    prefill, under ``torch.profiler``. Device busy share = the kernels' summed
-    device time over the host wall time of the steps; the rest is the
-    device idling while the host enqueues the eager ops."""
+def _profiled(fn, n: int) -> tuple[float, list]:
+    """Run ``fn`` under ``torch.profiler``: ``(host wall ms, device kernel
+    events)``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
+                 kernels: list) -> dict:
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"case": case, "compute_dtype": dtype, f"{unit}s": n,
+            f"wall_ms_per_{unit}": wall_ms / n,
+            f"device_ms_per_{unit}": busy_ms / n if busy_ms else "not measured",
+            "device_busy_share": busy_ms / wall_ms if busy_ms else "not measured",
+            f"kernels_per_{unit}": sum(e.count for e in kernels) / n,
+            f"top_ms_per_{unit}": {e.key[:60]: e.self_device_time_total / 1e3 / n
+                                   for e in top}}
+
+
+def engine_profile(model: str, tok: str, dtype: str) -> list[dict]:
+    """Where the engine's time goes, under ``torch.profiler`` on one engine:
+    two 128-token prefill chunks (at depths 128 and 256, after a warm-up
+    chunk at 0), then 16 greedy decode steps (after 4 warm-up steps).
+    Device busy share = the kernels' summed device time over the host wall
+    time; the rest is the device idling while the host enqueues the eager
+    ops."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
@@ -463,33 +518,25 @@ def decode_profile(model: str, tok: str, dtype: str) -> dict:
                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
                           temperature=0.0)
     try:
-        ids = eng.tokenizer.encode(PROMPT)
-        eng.prefill(ids[:-1])
-        token = ids[-1]
+        ids = eng.tokenizer.encode(PROMPT * 2)
+        eng.prefill(ids[:128])
+        wall, kernels = _profiled(lambda: [eng.prefill(ids[a:a + 128]) for a in (128, 256)], 2)
+        recs = [_profile_rec("prefill_profile", dtype, "chunk", 2, wall, kernels)]
+        token = ids[384]
         for _ in range(4):
             token = eng.next_token(token)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         n = 16
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
+
+        def steps():
+            t = token
             for _ in range(n):
-                token = eng.next_token(token)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+                t = eng.next_token(t)
+
+        wall, kernels = _profiled(steps, n)
+        recs.append(_profile_rec("decode_profile", dtype, "step", n, wall, kernels))
     finally:
         eng.close()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return dict(case="decode_profile", compute_dtype=dtype, steps=n,
-                wall_ms_per_step=wall_ms / n,
-                device_ms_per_step=busy_ms / n if busy_ms else "not measured",
-                device_busy_share=busy_ms / wall_ms if busy_ms else "not measured",
-                kernels_per_step=sum(e.count for e in kernels) / n,
-                top_ms_per_step={e.key[:60]: e.self_device_time_total / 1e3 / n
-                                 for e in top})
+    return recs
 
 
 def _wrappers() -> dict:
@@ -510,8 +557,11 @@ def read_counts() -> dict:
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
+ASSETS = ("llama31_8b.m", "tok.t", "ppl.txt")  # model, tokenizer, perplexity text
+
+
 def write_assets(tmp: str, n_layers: int) -> tuple[str, str, str]:
-    model, tok, text = (os.path.join(tmp, n) for n in ("llama31_8b.m", "tok.t", "ppl.txt"))
+    model, tok, text = (os.path.join(tmp, n) for n in ASSETS)
     t0 = time.perf_counter()
     write_tokenizer(tok)
     write_model(model, n_layers)
@@ -570,7 +620,9 @@ def main_path(model: str, tok: str, text: str, n_layers: int, summary: dict) -> 
                 fail(f"{dtype} {path}: a kernel of the path never launched: "
                      f"{launches[path]}")
         torch.cuda.empty_cache()
-        print(json.dumps(decode_profile(model, tok, dtype)), flush=True)
+        for prof in engine_profile(model, tok, dtype):
+            print(json.dumps(prof), flush=True)
+            rec[prof["case"]] = prof
         torch.cuda.empty_cache()
     # fast numerics round weights and activations to bf16 but must score the
     # same text about as the exact path does
@@ -907,25 +959,28 @@ def paged_parity(results: dict) -> None:
 
 SHARD = 2048      # rows of one sp shard in the kernel cases
 SP_SEQ = 4096     # --max-seq-len of the sp path's short cell: 2 shards of 2048 rows
-SP_LONG_SEQ = 32768         # the long cell: 2 shards of 16384 rows
 SP_LONG_PROMPT = 20000      # its prompt's least length in tokens
 # Q80 buffers, sp = 2 against sp = 1 perplexity: a last-bit difference of
 # the two attention orders flips a Q80 rounding, which the next 31 layers
 # carry on (6.71e-4 on this cell, measured on an H100 80GB HBM3 at 700 W);
 # a split that lost or doubled a block would move it by far more
 Q80_SP_TOL = 1e-2
-# (name, T, q_pos0, kv_pos0) over the shard [kv_pos0, kv_pos0 + SHARD)
-RING_CASES = [("decode whole block", 1, 2 * SHARD - 1, SHARD),
-              ("decode partly visible", 1, 2100, SHARD),
-              ("decode fully masked", 1, 1000, SHARD),
-              ("prefill T=64 past the block", 64, SHARD, 0),
-              ("prefill T=64 diagonal", 64, SHARD, SHARD)]
+# (name, T, q_pos0, kv_pos0, shard rows) over the shard [kv_pos0, kv_pos0 +
+# rows): a 2048-row shard, and the long sp cell's first 16384-row shard,
+# seen whole from its decode depth
+LONG_SHARD = SP_LONG_SEQ // 2
+RING_CASES = [("decode whole block", 1, 2 * SHARD - 1, SHARD, SHARD),
+              ("decode partly visible", 1, 2100, SHARD, SHARD),
+              ("decode fully masked", 1, 1000, SHARD, SHARD),
+              ("prefill T=64 past the block", 64, SHARD, 0, SHARD),
+              ("prefill T=64 diagonal", 64, SHARD, SHARD, SHARD),
+              ("decode whole 16384-row shard", 1, LONG_DEPTH, 0, LONG_SHARD)]
 
 
 def ring_cases(timer: Timer, results: list) -> None:
     """K3s against its plain version (``_block_attn`` around the folded
-    layout) at 8B shapes: n_kv 8, kv_mul 4, head_dim 128, one 2048-row
-    shard; f32 and bf16 K/V. The library yardstick is SDPA over the same
+    layout) at 8B shapes: n_kv 8, kv_mul 4, head_dim 128, a 2048-row and a
+    16384-row shard; f32 and bf16 K/V. The library yardstick is SDPA over the same
     block with the same boolean mask; it returns the normalised output, not
     the m and l K3s returns."""
     import torch.nn.functional as F
@@ -936,11 +991,14 @@ def ring_cases(timer: Timer, results: list) -> None:
     kv_mul = HEADS // KV_HEADS
     for mode in ("exact", "fast"):
         kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        k, v = (torch.randn((1, KV_HEADS, SHARD, HEAD_DIM), generator=g, device=DEV).to(kv_dt)
-                for _ in range(2))
-        for name, T, q0, kv0 in RING_CASES:
+        blocks = {rows: [torch.randn((1, KV_HEADS, rows, HEAD_DIM), generator=g,
+                                     device=DEV).to(kv_dt) for _ in range(2)]
+                  for rows in (SHARD, LONG_SHARD)}
+        for name, T, q0, kv0, rows in RING_CASES:
+            k, v = blocks[rows]
             q_g = torch.randn((1, KV_HEADS, T * kv_mul, HEAD_DIM), generator=g, device=DEV)
             got = fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T)
+            n_splits = fa.flash_block_stats.last_splits  # what this launch took
             want = fa.flash_block_stats_plain(q_g, k, v, q0, kv0, HEAD_DIM, T)
             torch.cuda.synchronize()
             errs = {}
@@ -955,20 +1013,21 @@ def ring_cases(timer: Timer, results: list) -> None:
             # the kernel's folded rows back to the q-head layout for SDPA
             qs = q_g.reshape(1, KV_HEADS, T, kv_mul, HEAD_DIM).permute(0, 1, 3, 2, 4) \
                     .reshape(1, HEADS, T, HEAD_DIM).to(kv_dt)
-            mask = (kv0 + torch.arange(SHARD, device=DEV))[None, :] \
-                <= (q0 + torch.arange(T, device=DEV))[:, None]           # [T, SHARD]
+            mask = (kv0 + torch.arange(rows, device=DEV))[None, :] \
+                <= (q0 + torch.arange(T, device=DEV))[:, None]           # [T, rows]
             ms = timer(lambda: fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T))
             plain_ms = timer(lambda: fa.flash_block_stats_plain(q_g, k, v, q0, kv0,
                                                                 HEAD_DIM, T))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=mask, enable_gqa=True))
             # the work this data needs: keys up to the newest visible one
-            seen = [max(0, min(SHARD, q0 + t - kv0 + 1)) for t in range(T)]
+            seen = [max(0, min(rows, q0 + t - kv0 + 1)) for t in range(T)]
             n_bytes = (2 * max(seen) * KV_HEADS * HEAD_DIM * k.element_size()
                        + T * HEADS * HEAD_DIM * 4 * 2 + 2 * T * HEADS * 4)
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen), "f32")
             rec = dict(case="ring_block", kernel="K3s", mode=mode, phase=name, T=T,
-                       q_pos0=q0, kv_pos0=kv0, shard_rows=SHARD,
+                       q_pos0=q0, kv_pos0=kv0, shard_rows=rows,
+                       n_splits=n_splits,
                        max_abs_err=max(e for e, _ in errs.values()),
                        errors={w: dict(max_abs_err=e, max_abs_ref=r)
                                for w, (e, r) in errs.items()},
@@ -982,7 +1041,10 @@ def ring_cases(timer: Timer, results: list) -> None:
                 err, ref = errs[what]
                 if not (err <= 1e-4 * max(ref, 1.0 if what == "m" else 0.0)):
                     fail(f"K3s {mode} {name}: {what} max|err| {err:.3g} (max|ref| {ref:.3g})")
-        del k, v
+            if (n_splits > 1) != name.startswith("decode"):
+                fail(f"K3s {mode} {name}: the launch took n_splits {n_splits}; decode "
+                     f"must split, prefill must not")
+        del blocks, k, v
     torch.cuda.empty_cache()
 
 
@@ -1260,12 +1322,15 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
 def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
-    at the serving M=8), or the deepest single-row decode / the cold
-    128-token prefill (K3), or the single-row and 8-row ragged decode at
-    block size 16 (K4, whose yardstick ``gather_sdpa_ms`` is two library
-    calls, so ``library_ms`` is null), or one decode over a whole 2048-row
-    shard / a 64-token chunk on its diagonal (K3s, whose SDPA yardstick
-    returns no m/l). Launches are the main paths' counts, per path
+    at the serving M=8), or the single-row decode at depth 2047 and at the
+    long sp cell's depth / the cold 128-token prefill / a 256-token chunk at
+    depth 19000 of the long cell's 32768-row cache (K3), or the
+    single-row and 8-row ragged decode at block size 16 (K4, whose
+    yardstick ``gather_sdpa_ms`` is two library calls, so ``library_ms`` is
+    null), or one decode over a whole 2048-row and a whole 16384-row shard /
+    a 64-token chunk on its diagonal (K3s, whose SDPA yardstick returns no
+    m/l). K1/K2 entries carry the K split per weight, K3/K3s the split-S
+    count, as the launches of the kernel phase took them. Launches are the main paths' counts, per path
     (``inference``, ``perplexity``, ``api``, and the sp path's
     ``sp2_*``/``sp1_*`` runs)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
@@ -1283,6 +1348,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
         "K2": [(" M=1", lambda c: c["M"] == 1), (" M=8 (serving)", lambda c: c["M"] == 8)],
         "K3": [(" decode T=1 @2047", lambda c: c["phase"] == "decode"
                 and c["start_pos"] == MAX_SEQ - 1 and c["head_dim"] == HEAD_DIM),
+               (f" decode T=1 @{LONG_DEPTH} in a {SP_LONG_SEQ}-row cache",
+                lambda c: c["start_pos"] == LONG_DEPTH),
+               (f" prefill T=256 @{LONG_PREFILL_AT} in a {SP_LONG_SEQ}-row cache",
+                lambda c: c["start_pos"] == LONG_PREFILL_AT),
                (" prefill T=128 @0", lambda c: c["phase"] == "prefill"
                 and c["start_pos"] == 0 and c["T"] == 128)],
         "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
@@ -1291,6 +1360,8 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 and c["block_size"] == BLOCK)],
         "K3s": [(" decode T=1 over a whole 2048-row shard",
                  lambda c: c["phase"] == "decode whole block"),
+                (f" decode T=1 over a whole {LONG_SHARD}-row shard",
+                 lambda c: c["phase"] == "decode whole 16384-row shard"),
                 (" prefill T=64 on the shard's diagonal",
                  lambda c: c["phase"] == "prefill T=64 diagonal")],
     }
@@ -1314,6 +1385,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                     bound_by="bytes" if b_bytes >= b_ops else "operations",
                     library_ms=(None if kname == "K4"
                                 else sum(c["library_ms"] for c in sel)))
+                # K splits (K1, K2: per weight) and split-S counts (K3, K3s)
+                if kname in ("K1", "K2"):
+                    rec["splits"] = {c["weight"]: c["splits"] for c in sel}
+                elif kname in ("K3", "K3s"):
+                    rec["n_splits"] = max(c["n_splits"] for c in sel)
                 if kname == "K4":
                     rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
                 if kname == "K3s":
@@ -1322,13 +1398,68 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     return {"kernels": out}
 
 
+def kernel_label(mangled: str) -> str:
+    """``name<template arguments>`` out of a mangled kernel name: the
+    length-prefixed identifier that ends in ``kernel``, then ``I ... E``."""
+    end = mangled.find("kernel") + len("kernel")
+    for n in range(len("kernel"), end):
+        if mangled[:end - n].endswith(str(n)):
+            rest = mangled[end:]
+            args = rest[1:rest.find("Ev")] if rest.startswith("I") else ""
+            return f"{mangled[end - n:end]}<{args}>"
+    return mangled[:90]
+
+
+def ab_side(tag: str, assets: str, n_layers: int) -> int:
+    """One side of an end-to-end A/B of two checkouts on one card: phase 4
+    (``inference`` + ``perplexity`` in f32 and bf16 with the prefill and
+    decode profiles) and the long sp cell at sp = 1 (64 greedy steps after
+    a 20146-token prompt), on the model in ``assets`` (written on the first
+    side). Host-clock rates spread between calls, so compare two checkouts
+    inside one call, in turns, from the root of each::
+
+        for side in parent change change parent; do
+          (cd $side && python3 $CHANGE/chip_smoke.py --ab $side --assets $DIR)
+        done
+    """
+    os.makedirs(assets, exist_ok=True)
+    paths = [os.path.join(assets, n) for n in ASSETS]
+    model, tok, text = (paths if all(map(os.path.exists, paths))
+                        else write_assets(assets, n_layers))
+    e2e: dict = {}
+    t0 = time.perf_counter()
+    main_path(model, tok, text, n_layers, e2e)
+    long_text = PROMPT * (SP_LONG_PROMPT // len(PROMPT.encode()) + 1)
+    long = sp_run(model, tok, "engine", dtype="f32", sp=1, seq_len=SP_LONG_SEQ,
+                  text=long_text, sync="f32", steps=64, ppl=False)
+    out = {"tag": tag, "wall_s": time.perf_counter() - t0,
+           "long_sp1_decode": long["decode_tok_per_s"],
+           "long_sp1_prefill": long["prefill_tok_per_s"]}
+    for d in ("f32", "bf16"):
+        r = e2e[d]
+        out[d] = dict(decode=r["decode_tok_per_s"], prefill=r["prefill_tok_per_s"],
+                      device_ms_per_prefill_chunk=r["prefill_profile"]["device_ms_per_chunk"],
+                      device_ms_per_decode_step=r["decode_profile"]["device_ms_per_step"])
+    print("AB " + json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="end-to-end depth (width is never cut)")
+    ap.add_argument("--ab", metavar="TAG",
+                    help="one side of an A/B: only the timed end-to-end phases, on the "
+                         "package of the current directory; prints an 'AB' line")
+    ap.add_argument("--assets", metavar="DIR",
+                    help="with --ab: where the synthetic model is written once and reused")
     args = ap.parse_args()
+    if args.ab and not args.assets:
+        ap.error("--ab needs --assets DIR")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    if args.ab:
+        sys.path.insert(0, os.getcwd())
     try:
         from dllama_tpu_torch.ops import cuda_build
     except ImportError as e:
@@ -1345,10 +1476,12 @@ def main() -> int:
     secs = cuda_build.build()
     print(f"🔨 kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})", flush=True)
+    if args.ab:
+        return ab_side(args.ab, args.assets, args.layers)
     for name, log in cuda_build.BUILD_LOG.items():
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
-                print(f"   ptxas [{name}] {ln.split(chr(39))[1][:90]}")
+                print(f"   ptxas [{name}] {kernel_label(ln.split(chr(39))[1])}")
             elif "registers" in ln or "spill" in ln:
                 print(f"   ptxas [{name}]   {ln.split(':', 1)[-1].strip()}")
 

@@ -1,11 +1,11 @@
 // Causal GQA flash attention over the dense head-major KV cache for Hopper
-// (sm_90a): kernel K3.
+// (sm_90a): kernel K3, and its block-statistics mode K3s.
 //
 // Replaces dllama_tpu/ops/flash_attention.py::_kernel (stats=False), the
 // Pallas kernel that streamed (S/bs) KV blocks through VMEM on a sequential
 // grid axis, keeping the running max / sum / accumulator in scratch between
-// grid steps. Here the KV loop lives inside the block, so the online-softmax
-// state stays in registers for the whole walk.
+// grid steps. Here the KV walk lives inside the block, so the online-softmax
+// state stays in registers.
 //
 // Layout (the JAX package's): queries fold the GQA group into rows,
 // q_g [B, n_kv, TQ = T * kv_mul, D] f32; caches k/v [B, n_kv, S, D] in f32
@@ -14,32 +14,53 @@
 // s <= pos[b] + r / kv_mul; no mask tensor is built.
 //
 // Bound on the H100: bytes for decode (T = 1: each visible K/V row is read
-// once and used for kv_mul query rows) and for short prefills; operations
-// (FP32 SIMT, 67 TFLOP/s) for long prefills. Design against it: one block
-// per (b, kv head, 16-row query tile), 4 warps of 4 query rows each, rows
-// dealt round-robin (row r on warp r % 4) so that a decode tile of kv_mul
-// = 4 rows keeps all four warps busy; K/V tiles of 32 rows are staged once
-// in shared memory (converted to f32) with 16-byte loads, all issued before
-// the first store, and used by all 16 rows of the tile; the walk stops at
-// the newest position any row of the tile can see, so fully masked tiles
-// are never loaded (the TPU kernel skipped their compute at
-// flash_attention.py:71 but still streamed them). Within a warp, lane j
-// scores key j of the tile (a padded shared-memory row, so the 32 lanes hit
-// 32 banks), the softmax max and sum are warp shuffles, and lane l
-// accumulates output columns l, l + 32, ....
+// once and used for kv_mul query rows) and short prefills; operations (FP32
+// SIMT, 67 TFLOP/s) for long prefills. What the design does about it:
 //
-// Decode at B = 1 occupies only n_kv blocks; splitting S across blocks
-// (flash-decoding) is left for later work.
+// * One block per (b, kv head, 16-row query tile, split): 4 warps of 4 query
+//   rows, rows dealt round-robin (row r on warp r % 4) so a decode tile of
+//   kv_mul = 4 rows keeps all four warps busy. K/V tiles of 32 keys are
+//   staged once in shared memory (as f32) and used by all 16 rows. Lane j
+//   scores key j with 16-byte reads of its (padded) row and of the query
+//   rows, the softmax max and sum are warp shuffles, and lane l accumulates
+//   the adjacent output columns D/32 * l, ... from one 16-byte read of each
+//   V row. A warp reads shared memory only for the rows it holds: at
+//   decode (kv_mul = 4 rows per tile) one of its four, which the walk over
+//   a deep cache is bound by once split-S has filled the card.
+// * Split-S (flash-decoding). Decode at B = 1 gives only n_kv = 8 (b, head,
+//   tile) blocks for 132 SMs, and one block alone cannot pull a KV head's
+//   rows at the HBM rate. When the unsplit grid is that small, the wrapper
+//   (ops/flash_attention.py::_attn_splits, from the shapes alone) launches
+//   n_splits blocks per tile. Each block cuts the tile's visible 32-key
+//   tiles [0, newest] into n_splits ranges of whole tiles and takes its own
+//   (split * n / n_splits up to (split + 1) * n / n_splits): the range
+//   follows the depth read on the device, so the grid does not depend on
+//   host position values. Pass 1 writes each range's unnormalised (acc, m,
+//   l) to an f32 scratch; pass 2 (combine_splits_kernel) merges them in
+//   split order (M = max m_s, L = sum l_s e^(m_s - M), acc = sum acc_s
+//   e^(m_s - M)), so results do not change from run to run. A range that
+//   sees nothing keeps m = -inf, l = 0, acc = 0 and weighs exactly 0.
+// * In a split block, the next tile's 16-byte loads go into registers
+//   before the current tile is scored, so they stay in flight behind the
+//   arithmetic. A single pass (prefill) loads each tile just before staging
+//   it instead: holding f32 K/V for the next tile takes the f32 head-dim-128
+//   kernel from 96 to 168 registers a thread, 3 resident blocks an SM
+//   instead of 5, and a 256-token chunk's 512 blocks would then need two
+//   waves (chip_smoke.py times that chunk at depth 19000 in a 32768-row
+//   cache). The walk stops at the newest position any row of the tile can
+//   see, so fully masked tiles are never loaded (the TPU kernel skipped
+//   their compute at flash_attention.py:71 but still streamed them).
 //
-// Kernel K3s is the same kernel in its stats mode (STATS = true, entry
+// K3s is the same kernel in its stats mode (STATS = true, entry
 // dlt_flash_block_stats). It replaces the stats=True path of the same Pallas
 // kernel (flash_attention.py::flash_block_stats), the block step of
 // sequence-parallel attention (parallel/ring.py): the cache argument is one
 // sequence shard covering absolute positions [kv_pos0, kv_pos0 + S), and the
-// kernel returns the unnormalised accumulator with the running max m and sum
-// l of every query row, all f32, for the caller's cross-block combine. A
-// block that no row of a tile can see (q_pos0 + r / kv_mul < kv_pos0) loads
-// nothing and leaves acc = 0, l = 0, m = -inf. Bound and design are K3's.
+// result is the unnormalised accumulator with the running max m and sum l of
+// every query row, all f32, for the caller's cross-block combine; with
+// splits, pass 2 writes the merged (acc, M, L) in that same form. A row that
+// sees nothing of the block (q_pos0 + r / kv_mul < kv_pos0) gets exactly
+// acc = 0, l = 0, m = -inf, split or not.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,6 +88,19 @@ __device__ __forceinline__ void unpack16(const uint4& raw, const __nv_bfloat16*,
   }
 }
 
+// DC adjacent f32 columns of a shared row as one 8- or 16-byte load
+template <int DC>
+__device__ __forceinline__ void load_cols(const float* p, float* out) {
+  if constexpr (DC == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    static_assert(DC == 2, "head dims 64 and 128");
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -78,30 +112,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (ceil(TQ / BQ), n_kv, B); block WARPS * 32 threads. Cache slot c
-// holds absolute position kv_pos0 + c (0 for the whole cache, K3). With
-// STATS, out receives the unnormalised accumulator and m_out / l_out
-// [B, n_kv, TQ] the running max and sum of each row; without, out = acc / l.
-template <typename KV, int D, bool STATS>
+// grid (ceil(TQ / BQ) * n_splits, n_kv, B); block WARPS * 32 threads.
+// blockIdx.x = query tile * n_splits + split. Cache slot c holds absolute
+// position kv_pos0 + c (0 for the whole cache, K3). With STATS, out
+// receives the unnormalised accumulator and m_out / l_out [B, n_kv, TQ] the
+// running max and sum of each row, split s at offset s * (B * n_kv * TQ)
+// rows; without (n_splits = 1 only), out = acc / l.
+template <typename KV, int D, bool STATS, bool PREFETCH>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                        const KV* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ m_out, float* __restrict__ l_out,
                        const int* __restrict__ pos, int pos_scalar, int kv_pos0,
-                       int n_kv, int TQ, int S, int kv_mul, float scale) {
+                       int n_kv, int TQ, int S, int kv_mul, float scale, int n_splits) {
   constexpr int DC = D / 32;  // output columns per lane
   constexpr int KV_PER_LOAD = 16 / sizeof(KV);
   constexpr int N_LOADS = BS * D / KV_PER_LOAD / (WARPS * 32);  // per thread per tile
   static_assert(N_LOADS * KV_PER_LOAD * WARPS * 32 == BS * D, "tile load split");
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BS][D + 1];  // +1: lane j reads row j, conflict-free
-  __shared__ float vs[BS][D];
+  // rows of 16-byte vectors; K's pitch of D + 4 puts the 8 lanes of each
+  // quarter-warp (lane j reads key j's row) on distinct banks
+  __shared__ __align__(16) float qs[BQ][D];
+  __shared__ __align__(16) float ks[BS][D + 4];
+  __shared__ __align__(16) float vs[BS][D];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int r0 = blockIdx.x * BQ;
+  const int split = blockIdx.x % n_splits;
+  const int r0 = blockIdx.x / n_splits * BQ;
   const int q_pos0 = pos != nullptr ? pos[b] : pos_scalar;
   const size_t head = (size_t)b * n_kv + h;
   const float* qh = q + head * TQ * D;
@@ -109,16 +148,21 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const KV* vh = v + head * S * D;
 
   const int rows_here = min(BQ, TQ - r0);
+  // this warp's rows in the tile (warp-uniform): 1 at decode (kv_mul = 4)
+  const int n_rows = max(0, (rows_here - warp + WARPS - 1) / WARPS);
   for (int i = tid; i < BQ * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     qs[r][d] = r < rows_here ? qh[(size_t)(r0 + r) * D + d] : 0.f;
   }
-  // newest local slot any row of this tile can see: the walk ends there. It
-  // is negative when the whole block lies past every row (a mid-sequence
-  // shard, K3s): then no tile is loaded (C division would round -1 / BS up
-  // to 0 and walk one tile)
+  // newest local slot any row of this tile can see. It is negative when the
+  // whole block lies past every row (a mid-sequence shard, K3s): then no
+  // tile is loaded (C division would round -1 / BS up to 0 and walk one)
   const int last_key = min(S - 1, q_pos0 - kv_pos0 + (r0 + rows_here - 1) / kv_mul);
   const int n_tiles = last_key < 0 ? 0 : last_key / BS + 1;
+  // this split's whole tiles: the n_splits ranges cover [0, n_tiles) once
+  // (ops/flash_attention.py::_split_ranges is the same rule)
+  const int t_lo = split * n_tiles / n_splits;
+  const int t_hi = (split + 1) * n_tiles / n_splits;
 
   float m[ROWS_PER_WARP], l[ROWS_PER_WARP], acc[ROWS_PER_WARP][DC];
   // newest visible local slot per row, at most S - 1 (negative: the row sees
@@ -134,46 +178,72 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  // tile t's K/V rows in registers: 16-byte loads, N_LOADS per thread each
+  uint4 kr[N_LOADS], vr[N_LOADS];
+  auto load_tile = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < N_LOADS; ++u) {
+      const int e = (u * WARPS * 32 + tid) * KV_PER_LOAD;  // element in the tile
+      const bool ok = s0 + e / D < S;
+      const size_t off = (size_t)s0 * D + e;
+      kr[u] = ok ? __ldg(reinterpret_cast<const uint4*>(kh + off)) : make_uint4(0, 0, 0, 0);
+      vr[u] = ok ? __ldg(reinterpret_cast<const uint4*>(vh + off)) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  if (PREFETCH && t_lo < t_hi) load_tile(t_lo * BS);
+
+  for (int t = t_lo; t < t_hi; ++t) {
     const int s0 = t * BS;
     __syncthreads();  // previous tile fully consumed (and qs written)
-    {
-      uint4 kr[N_LOADS], vr[N_LOADS];
+    if (!PREFETCH) load_tile(s0);
 #pragma unroll
-      for (int u = 0; u < N_LOADS; ++u) {
-        const int e = (u * WARPS * 32 + tid) * KV_PER_LOAD;  // element in the tile
-        const int j = e / D;
-        const bool ok = s0 + j < S;
-        const size_t off = (size_t)s0 * D + e;
-        kr[u] = ok ? __ldg(reinterpret_cast<const uint4*>(kh + off)) : make_uint4(0, 0, 0, 0);
-        vr[u] = ok ? __ldg(reinterpret_cast<const uint4*>(vh + off)) : make_uint4(0, 0, 0, 0);
-      }
+    for (int u = 0; u < N_LOADS; ++u) {
+      const int e = (u * WARPS * 32 + tid) * KV_PER_LOAD;
+      const int j = e / D, d = e % D;
+      float kf[KV_PER_LOAD], vf[KV_PER_LOAD];
+      unpack16(kr[u], kh, kf);
+      unpack16(vr[u], vh, vf);
 #pragma unroll
-      for (int u = 0; u < N_LOADS; ++u) {
-        const int e = (u * WARPS * 32 + tid) * KV_PER_LOAD;
-        const int j = e / D, d = e % D;
-        float kf[KV_PER_LOAD], vf[KV_PER_LOAD];
-        unpack16(kr[u], kh, kf);
-        unpack16(vr[u], vh, vf);
-#pragma unroll
-        for (int c = 0; c < KV_PER_LOAD; ++c) {
-          ks[j][d + c] = kf[c];
-          vs[j][d + c] = vf[c];
-        }
+      for (int c = 0; c < KV_PER_LOAD; c += 4) {
+        *reinterpret_cast<float4*>(&ks[j][d + c]) = make_float4(kf[c], kf[c + 1], kf[c + 2], kf[c + 3]);
+        *reinterpret_cast<float4*>(&vs[j][d + c]) = make_float4(vf[c], vf[c + 1], vf[c + 2], vf[c + 3]);
       }
     }
     __syncthreads();
+    // split: the next tile's loads go in flight behind this arithmetic
+    if (PREFETCH && t + 1 < t_hi) load_tile(s0 + BS);
 
-    // scores of key (s0 + lane) against this warp's rows
+    // scores of key (s0 + lane) against this warp's rows: one row (decode)
+    // reads only its own q row, with four independent sums in flight; a
+    // fuller tile scores all its rows, the rows' sums interleaved
     float sc[ROWS_PER_WARP];
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) sc[i] = 0.f;
+    if (n_rows == 1) {
+      float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[lane][d];
+      for (int d = 0; d < D; d += 4) {
+        const float4 kd = *reinterpret_cast<const float4*>(&ks[lane][d]);
+        const float4 qd = *reinterpret_cast<const float4*>(&qs[warp][d]);
+        part.x = fmaf(qd.x, kd.x, part.x);
+        part.y = fmaf(qd.y, kd.y, part.y);
+        part.z = fmaf(qd.z, kd.z, part.z);
+        part.w = fmaf(qd.w, kd.w, part.w);
+      }
+      sc[0] = (part.x + part.y) + (part.z + part.w);
+    } else {
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 kd = *reinterpret_cast<const float4*>(&ks[lane][d]);
 #pragma unroll
-      for (int i = 0; i < ROWS_PER_WARP; ++i)
-        sc[i] = fmaf(qs[i * WARPS + warp][d], kd, sc[i]);
+        for (int i = 0; i < ROWS_PER_WARP; ++i) {
+          const float4 qd = *reinterpret_cast<const float4*>(&qs[i * WARPS + warp][d]);
+          sc[i] = fmaf(qd.x, kd.x, sc[i]);
+          sc[i] = fmaf(qd.y, kd.y, sc[i]);
+          sc[i] = fmaf(qd.z, kd.z, sc[i]);
+          sc[i] = fmaf(qd.w, kd.w, sc[i]);
+        }
+      }
     }
     const int key = s0 + lane;
 #pragma unroll
@@ -191,14 +261,17 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll 8
       for (int j = 0; j < BS; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
+        float vj[DC];
+        load_cols<DC>(&vs[j][DC * lane], vj);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pj, vs[j][lane + 32 * c], acc[i][c]);
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pj, vj[c], acc[i][c]);
       }
       m[i] = m_new;
     }
   }
 
-  float* oh = out + head * TQ * D;
+  const size_t rows_all = (size_t)gridDim.z * n_kv * TQ;  // rows of one split
+  float* oh = out + split * rows_all * D + head * TQ * D;
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int r = i * WARPS + warp;
@@ -207,27 +280,87 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     // l = 0, m = -inf); otherwise normalised here
     const float inv = STATS ? 1.f : (l[i] > 0.f ? 1.f / l[i] : 1.f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) oh[(size_t)(r0 + r) * D + lane + 32 * c] = acc[i][c] * inv;
+    for (int c = 0; c < DC; ++c) oh[(size_t)(r0 + r) * D + DC * lane + c] = acc[i][c] * inv;
     if (STATS && lane == 0) {
-      m_out[head * TQ + r0 + r] = m[i];
-      l_out[head * TQ + r0 + r] = l[i];
+      m_out[split * rows_all + head * TQ + r0 + r] = m[i];
+      l_out[split * rows_all + head * TQ + r0 + r] = l[i];
     }
   }
 }
 
+// Pass 2 of split-S: one warp per query row merges the n_splits partials
+// (acc [n_splits, rows, D], m and l [n_splits, rows]) in split order. STATS
+// writes the merged unnormalised (acc, M, L) for K3s; otherwise out = acc / L.
+// A row with no visible key in any split: M = -inf, every weight e^(m_s - 0)
+// = 0, so acc = 0 and L = 0 exactly, and K3's out is 0.
+template <int D, bool STATS>
+__global__ void __launch_bounds__(WARPS * 32)
+combine_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_m,
+                      const float* __restrict__ part_l, float* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ l_out, int rows,
+                      int n_splits) {
+  constexpr int DC = D / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, part_m[(size_t)s * rows + row]);
+  const float m_safe = mx == -INFINITY ? 0.f : mx;
+  float L = 0.f, acc[DC];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const size_t sr = (size_t)s * rows + row;
+    const float w = expf(part_m[sr] - m_safe);  // -inf partial -> 0
+    L = fmaf(part_l[sr], w, L);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[c] = fmaf(part_acc[sr * D + lane + 32 * c], w, acc[c]);
+  }
+  const float inv = STATS ? 1.f : (L > 0.f ? 1.f / L : 1.f);
+#pragma unroll
+  for (int c = 0; c < DC; ++c) out[(size_t)row * D + lane + 32 * c] = acc[c] * inv;
+  if (STATS && lane == 0) {
+    m_out[row] = mx;
+    l_out[row] = L;
+  }
+}
+
+// One launch of K3 (STATS = false) or K3s (true). n_splits > 1 runs pass 1
+// into the scratch `part` (n_splits * rows * (D + 2) floats, rows = B * n_kv
+// * TQ: the acc partials, then m, then l) and pass 2 into out / m_out / l_out.
 template <typename KV, bool STATS>
 void launch(const float* q, const void* k, const void* v, float* out, float* m_out,
-            float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
-            int TQ, int S, int D, int kv_mul, float scale, cudaStream_t stream) {
-  dim3 grid((TQ + BQ - 1) / BQ, n_kv, B);
+            float* l_out, float* part, int n_splits, const int* pos, int pos_scalar,
+            int kv_pos0, int B, int n_kv, int TQ, int S, int D, int kv_mul, float scale,
+            cudaStream_t stream) {
   const KV* kp = static_cast<const KV*>(k);
   const KV* vp = static_cast<const KV*>(v);
-  if (D == 64)
-    flash_attention_kernel<KV, 64, STATS><<<grid, WARPS * 32, 0, stream>>>(
-        q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale);
-  else
-    flash_attention_kernel<KV, 128, STATS><<<grid, WARPS * 32, 0, stream>>>(
-        q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale);
+  dim3 grid((TQ + BQ - 1) / BQ * n_splits, n_kv, B);
+  const int rows = B * n_kv * TQ;
+  if (n_splits == 1) {  // the grid fills the card: one pass
+    if (D == 64)
+      flash_attention_kernel<KV, 64, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
+          q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, 1);
+    else
+      flash_attention_kernel<KV, 128, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
+          q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, 1);
+    return;
+  }
+  float* pa = part;
+  float* pm = part + (size_t)n_splits * rows * D;
+  float* pl = pm + (size_t)n_splits * rows;
+  const int cblocks = (rows + WARPS - 1) / WARPS;
+  if (D == 64) {
+    flash_attention_kernel<KV, 64, true, true><<<grid, WARPS * 32, 0, stream>>>(
+        q, kp, vp, pa, pm, pl, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, n_splits);
+    combine_splits_kernel<64, STATS><<<cblocks, WARPS * 32, 0, stream>>>(
+        pa, pm, pl, out, m_out, l_out, rows, n_splits);
+  } else {
+    flash_attention_kernel<KV, 128, true, true><<<grid, WARPS * 32, 0, stream>>>(
+        q, kp, vp, pa, pm, pl, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, n_splits);
+    combine_splits_kernel<128, STATS><<<cblocks, WARPS * 32, 0, stream>>>(
+        pa, pm, pl, out, m_out, l_out, rows, n_splits);
+  }
 }
 
 }  // namespace
@@ -236,22 +369,25 @@ extern "C" {
 
 // q_g f32 [B, n_kv, TQ, D]; k/v [B, n_kv, S, D] f32 (kv_bf16 = 0) or bf16;
 // out f32 [B, n_kv, TQ, D]; pos int32 [B] on the device, or null to use
-// pos_scalar for every row. D in {64, 128}.
+// pos_scalar for every row. D in {64, 128}. n_splits >= 1 (split-S when
+// > 1, with part the f32 scratch of launch() above; unused otherwise).
 int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
                         const void* pos, int pos_scalar, int B, int n_kv, int TQ,
                         int S, int D, int kv_mul, float scale, int kv_bf16,
-                        void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+                        void* part, int n_splits, void* stream) {
+  if ((D != 64 && D != 128) || n_splits < 1 || (n_splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const int* pp = static_cast<const int*>(pos);
   float* op = static_cast<float*>(out);
+  float* sp = static_cast<float*>(part);
   if (kv_bf16)
-    launch<__nv_bfloat16, false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B,
-                                 n_kv, TQ, S, D, kv_mul, scale, s);
+    launch<__nv_bfloat16, false>(qp, k, v, op, nullptr, nullptr, sp, n_splits, pp,
+                                 pos_scalar, 0, B, n_kv, TQ, S, D, kv_mul, scale, s);
   else
-    launch<float, false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B, n_kv, TQ,
-                         S, D, kv_mul, scale, s);
+    launch<float, false>(qp, k, v, op, nullptr, nullptr, sp, n_splits, pp, pos_scalar, 0,
+                         B, n_kv, TQ, S, D, kv_mul, scale, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,20 +397,23 @@ int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
 int dlt_flash_block_stats(const void* q, const void* k, const void* v, void* acc,
                           void* m, void* l, const void* pos, int pos_scalar,
                           int kv_pos0, int B, int n_kv, int TQ, int S, int D,
-                          int kv_mul, float scale, int kv_bf16, void* stream) {
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+                          int kv_mul, float scale, int kv_bf16, void* part, int n_splits,
+                          void* stream) {
+  if ((D != 64 && D != 128) || n_splits < 1 || (n_splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const int* pp = static_cast<const int*>(pos);
   float* ap = static_cast<float*>(acc);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
+  float* sp = static_cast<float*>(part);
   if (kv_bf16)
-    launch<__nv_bfloat16, true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv,
-                                TQ, S, D, kv_mul, scale, s);
+    launch<__nv_bfloat16, true>(qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar, kv_pos0,
+                                B, n_kv, TQ, S, D, kv_mul, scale, s);
   else
-    launch<float, true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv, TQ, S, D,
-                        kv_mul, scale, s);
+    launch<float, true>(qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar, kv_pos0, B, n_kv,
+                        TQ, S, D, kv_mul, scale, s);
   return static_cast<int>(cudaGetLastError());
 }
 

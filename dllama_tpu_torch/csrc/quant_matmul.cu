@@ -10,18 +10,33 @@
 // K1 (q40_matmul_*) replaces dllama_tpu/ops/quant_matmul.py::_kernel, the
 //   (N/bn, K/bk) Pallas grid whose revisited f32 output tile carried the K
 //   sum from one grid step to the next. Blocks here run in parallel and in
-//   no order, so each block owns one [BM, BN] output tile and walks the
-//   whole K axis itself; there is no cross-block accumulation. BK = 32 is
-//   exactly one Q40 block, so a K step needs a single scale row.
+//   no order, so each block walks its K range itself; partial sums of a K
+//   split are added in split order by a second small kernel.
 //   Bound on the H100: at prefill widths (M = 32..256) the work is
-//   2*M*K*N operations on 1.125*K*N weight bytes, so exact mode (FP32 SIMT,
-//   67 TFLOP/s peak) is bound by operations, and fast mode (bf16 tensor
-//   cores via mma.sync/WMMA, 989 TFLOP/s) by operations at M >= ~256 and
-//   by bytes below. Design against it: a 64x64 tile reuses each dequantized
-//   weight 64 times from shared memory; exact mode computes a 4x4
-//   micro-tile per thread, fast mode a 32x32 warp tile of 16x16x16 bf16
-//   fragments with f32 accumulators. wgmma/TMA and nibble-packed planes are
-//   left for later work.
+//   2*M*K*N operations on 1.06 (bf16 scales) to 1.125 (f32) bytes per
+//   weight. Exact mode
+//   (FP32 SIMT, 67 TFLOP/s) is bound by operations: a 64x64 tile per block,
+//   each dequantized weight reused 64 times from shared memory, a 4x4
+//   micro-tile per thread. Fast mode (bf16 tensor cores, 989 TFLOP/s) is
+//   bound by the weight bytes up to M ~ 128, where the two bounds meet, so
+//   its design streams every weight byte once and keeps the tensor cores
+//   fed at the same time (q40_matmul_bf16_kernel):
+//   * one weight pass: a block owns 256 columns of N for all rows of the
+//     call (slabs of 128 rows; a wider call's slabs are neighbouring blocks
+//     and share the weight through L2);
+//   * TMA loads: a 5-deep ring of 64-row stages (two Q40 blocks), each
+//     filled by one thread with four tensor-map copies onto an mbarrier
+//     (16-byte cp.async copies from every thread held an earlier version of
+//     this tile far under the HBM rate on the load path alone);
+//   * wgmma with the operands swapped, y^T = W^T x^T: the weight is the A
+//     operand of m64 tiles, dequantized straight into the A fragment's
+//     bf16x2 registers with K2's nibble and byte-permute trick (no int ->
+//     float conversions, no round trip of the dense weight through shared
+//     memory), the activations the B operand read by the tensor cores from
+//     shared memory, K-major and 128-byte swizzled as TMA wrote them;
+//   * split-K across blocks when the (N, M) tiles alone leave SMs idle
+//     (wq/wk/wv/wo/w2 at 8B widths), the plan in the Python wrapper.
+//   Nibble-packed planes (half the bytes) are left for later work.
 //
 // K2 (q40_gemv_*) replaces dllama_tpu/ops/quant_matmul.py::_decode_kernel,
 //   the decode-shaped single pass over the weight planes for M <= 16.
@@ -52,9 +67,9 @@
 // Python wrapper raises on a non-zero value. Nothing here allocates or
 // synchronises: outputs and scratch come from the wrapper (torch.empty).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -331,110 +346,372 @@ q40_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ co
 }
 
 // --------------------------------------------------------------------------
-// K1 fast: bf16 tensor-core tile (WMMA 16x16x16 -> mma.sync), 64x64 per
-// block, 4 warps of 32x32
+// K1 fast: pipelined tensor-core tile. A block owns FT_BN = 256 weight
+// columns and a slab of up to MP activation rows, walking its K range in
+// FT_BK = 64-row stages (two Q40 blocks) through a FT_STAGES-deep ring in
+// shared memory that TMA fills: one thread starts a stage as four tensor
+// copies (the activation tile, two 128-column halves of the code tile, the
+// scale rows) completing on the stage's mbarrier. Two consumer warpgroups
+// each own 128 columns as two m64 tiles of a swapped product,
+// y^T[n, m] = W^T[n, k] x^T[k, m]: the dequantized weight is wgmma's A
+// operand, built in registers, and the activations its B operand, K-major in
+// shared memory (x's own layout) in the 128-byte swizzle.
 // --------------------------------------------------------------------------
 
-constexpr int WT_LDA = MT_BK + 8;   // bf16 elements; rows stay 32-byte aligned
-constexpr int WT_LDB = MT_BN + 8;
-constexpr int WT_LDC = MT_BN + 4;   // f32 epilogue staging
+constexpr int FT_BN = 256;        // weight columns per block
+constexpr int FT_BK = 64;         // K rows per stage: two Q40 blocks
+constexpr int FT_STAGES = 5;      // ring depth; FT_STAGES - 2 stages in flight
+constexpr int FT_THREADS = 256;   // two warpgroups
 
-constexpr int WT_A_ELEMS = MT_BM * WT_LDA;
-constexpr int WT_B_ELEMS = MT_BK * WT_LDB;
-constexpr int WT_IN_BYTES = (WT_A_ELEMS + WT_B_ELEMS) * 2;
-constexpr int WT_C_BYTES = MT_BM * WT_LDC * 4;
-constexpr int WT_SMEM_BYTES = WT_IN_BYTES > WT_C_BYTES ? WT_IN_BYTES : WT_C_BYTES;
+template <int MP>
+struct FtSmem {
+  static constexpr int X = MP * FT_BK * 2;          // MP rows of 128 bytes, swizzled
+  static constexpr int CODES = FT_BK * FT_BN;       // two halves of 64 rows x 128 bytes
+  static constexpr int SCALES = (FT_BK / QB) * FT_BN * 2;
+  static constexpr int STAGE = X + CODES + SCALES;  // what TMA writes per stage
+  // + the mbarriers, + slack to align the ring to 1024 bytes
+  static constexpr int TOTAL = STAGE * FT_STAGES + FT_STAGES * 8 + 1024;
+  static_assert(STAGE % 1024 == 0, "stage buffers must keep 1024-byte swizzle atoms");
+};
 
-__global__ void __launch_bounds__(128)
-q40_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-                       const __nv_bfloat16* __restrict__ scales, float* __restrict__ out,
-                       int M, int K, int N) {
-  using namespace nvcuda;
-  // raw storage: the bf16 input tiles during the K loop, the f32 output
-  // tile in the epilogue (WMMA wants 32-byte aligned tile pointers)
-  __shared__ __align__(128) unsigned char smem[WT_SMEM_BYTES];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + WT_A_ELEMS;
-  float* Cs = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// a 2-D box of a tensor map (coordinates innermost first) -> shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory operand descriptor for the K-major 128-byte-swizzle
+// layout TMA writes: rows of 128 bytes (64 k), 8-row atoms 1024 bytes apart
+// (stride byte offset); a k16 step starts 32 bytes further into the rows.
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>(1) << 16)
+       | (static_cast<uint64_t>(1024 >> 4) << 32)
+       | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving accumulator accesses across the async ops
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared memory, K-major
+// descriptor); f32 accumulators, scale-d = 1 (accumulate)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared memory, K-major
+// descriptor); f32 accumulators, scale-d = 1 (accumulate)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int MP>
+__device__ __forceinline__ void wgmma_tile(float (&d)[MP / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (MP == 64) wgmma_m64n64k16(d, a, desc);
+  else wgmma_m64n128k16(d, a, desc);
+}
+
+// (128 + nibble) as bf16 pairs -> code * scale rounded to bf16 (RNE), the
+// plain version's bf16 dequant: 128 + t - 136 is the code exactly, and the
+// product of two bf16 values is rounded once
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t biased128, uint32_t scale2) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased128), bias);
+  const __nv_bfloat162 w = __hmul2(c, *reinterpret_cast<const __nv_bfloat162*>(&scale2));
+  return *reinterpret_cast<const uint32_t*>(&w);
+}
+
+// grid (ceil(M / MP), ceil(N / FT_BN), splits); block FT_THREADS threads;
+// dynamic shared memory FtSmem<MP>::TOTAL. Tensor maps: tm_x over x [M, K]
+// (box 64 x MP, 128-byte swizzle), tm_c over codes [K, N] (box 128 x 64,
+// 128-byte swizzle), tm_s over scales [K/32, N] (box 256 x 2); TMA fills
+// zeros past M, N and K. Split z takes stages [z * st_per_split,
+// min(n_stages, (z + 1) * st_per_split)) of K and writes its partial y to
+// out + z * M * N (the final y when there is one split).
+//
+// Thread roles in the product: warpgroup wg, warp w (of 4), lane = 4 g + t.
+// In both m64 tiles j of its warpgroup the thread holds A rows 16 w + g and
+// 16 w + g + 8, which stand for the 4 adjacent weight columns n_t + 2 j + h
+// (n_t = n0 + 128 wg + 32 w + 4 g, h = 0 for row g, 1 for row g + 8): one
+// 32-bit load of a code row gives all four, and the epilogue writes them as
+// one float4. Its k values in a 16-deep step are 2t, 2t + 1, 2t + 8, 2t + 9.
+template <int MP>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_c,
+                       const __grid_constant__ CUtensorMap tm_s, float* __restrict__ out,
+                       int M, int K, int N, int st_per_split) {
+  using S = FtSmem<MP>;
+  extern __shared__ unsigned char ft_smem[];
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 2x2 warps, 32x32 each
-  const int m0 = blockIdx.y * MT_BM, n0 = blockIdx.x * MT_BN;
-  const bool vec_n = (N % 16) == 0;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, wg = warp >> 2, w = warp & 3;
+  const int m0 = blockIdx.x * MP, n0 = blockIdx.y * FT_BN;
+  const int n_stages = (K + FT_BK - 1) / FT_BK;
+  const int st_lo = blockIdx.z * st_per_split;
+  const int st_hi = min(n_stages, st_lo + st_per_split);
+  // the ring, 1024-byte aligned for the swizzle atoms; its mbarriers after it
+  const uint32_t raw0 = smem_addr(ft_smem);
+  const uint32_t ring0 = (raw0 + 1023) & ~1023u;
+  unsigned char* ring = ft_smem + (ring0 - raw0);
+  const uint32_t bar0 = ring0 + S::STAGE * FT_STAGES;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // A: 64 rows x 32 k bf16 = 16 per thread; B: 32 k x 64 cols = 16 codes
-  const int a_row = tid / 2, a_k = (tid % 2) * 16;
-  const int b_k = tid / 4, b_col = (tid % 4) * 16;
-
-  for (int k0 = 0; k0 < K; k0 += MT_BK) {
-    {
-      const int m = m0 + a_row;
-      uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
-      if (m < M) {
-        const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K + k0 + a_k);
-        lo = src[0];
-        hi = src[1];
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&As[a_row * WT_LDA + a_k]);
-      dst[0] = lo;
-      dst[1] = hi;
-    }
-    {
-      const int n = n0 + b_col;
-      const int8_t* crow = codes + (size_t)(k0 + b_k) * N;
-      const __nv_bfloat16* srow = scales + (size_t)(k0 / QB) * N;
-      __nv_bfloat16* dst = &Bs[b_k * WT_LDB + b_col];
-      if (vec_n && n + 16 <= N) {
-        uint4 raw = __ldg(reinterpret_cast<const uint4*>(crow + n));
-        const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          dst[i] = __float2bfloat16(static_cast<float>(c[i]) * __bfloat162float(srow[n + i]));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          dst[i] = (n + i < N)
-              ? __float2bfloat16(static_cast<float>(crow[n + i]) * __bfloat162float(srow[n + i]))
-              : __float2bfloat16(0.f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MT_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(wm * 32 + i * 16) * WT_LDA + kk], WT_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * WT_LDB + wn * 32 + j * 16], WT_LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < FT_STAGES; ++i) mbar_init(bar0 + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // epilogue: fragments -> shared (reusing the input tiles) -> masked store
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * WT_LDC + wn * 32 + j * 16],
-                              acc[i][j], WT_LDC, wmma::mem_row_major);
   __syncthreads();
-  for (int i = tid; i < MT_BM * MT_BN; i += blockDim.x) {
-    const int r = i / MT_BN, c = i % MT_BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N) out[(size_t)m * N + n] = Cs[r * WT_LDC + c];
+
+  // thread 0 starts a stage's four tensor copies onto its slot's mbarrier
+  auto load_stage = [&](int st) {
+    if (tid != 0 || st >= st_hi) return;
+    const int slot = (st - st_lo) % FT_STAGES;
+    const uint32_t base = ring0 + slot * S::STAGE, bar = bar0 + 8 * slot;
+    const int k0 = st * FT_BK;
+    mbar_expect_tx(bar, S::STAGE);
+    tma_load_2d(base, &tm_x, bar, k0, m0);
+    tma_load_2d(base + S::X, &tm_c, bar, n0, k0);
+    tma_load_2d(base + S::X + S::CODES / 2, &tm_c, bar, n0 + FT_BN / 2, k0);
+    tma_load_2d(base + S::X + S::CODES, &tm_s, bar, n0, k0 / QB);
+  };
+
+  float acc[2][MP / 2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < MP / 2; ++i) acc[j][i] = 0.f;
+  uint32_t afrag[2][2][4];  // [buffer][tile][register]: a k16 step's A fragments
+
+  // this thread's 4 columns: in code half wg, 32 w + 4 g bytes into a row,
+  // which the swizzle puts in 16-byte chunk (2 w + g / 4) ^ (row % 8)
+  const int chunk = 2 * w + (g >> 2), in_chunk = 4 * (g & 3);
+  const int col = 128 * wg + 32 * w + 4 * g;
+#pragma unroll
+  for (int i = 0; i < FT_STAGES - 2; ++i) load_stage(st_lo + i);
+
+  for (int st = st_lo; st < st_hi; ++st) {
+    // every warp is done with stage st - 1, and every wgmma of stage st - 2
+    // retired (each warpgroup waited for it during stage st - 1): its slot
+    // takes stage st + FT_STAGES - 2
+    __syncthreads();
+    load_stage(st + FT_STAGES - 2);
+    const int slot = (st - st_lo) % FT_STAGES;
+    mbar_wait(bar0 + 8 * slot, ((st - st_lo) / FT_STAGES) & 1);
+
+    const uint32_t xs = ring0 + slot * S::STAGE;
+    const unsigned char* cs = ring + slot * S::STAGE + S::X + wg * (S::CODES / 2) + in_chunk;
+    const unsigned char* ss = ring + slot * S::STAGE + S::X + S::CODES + col * 2;
+#pragma unroll
+    for (int q = 0; q < FT_BK / QB; ++q) {
+      // the 4 columns' scales of this Q40 block, each doubled to a bf16 pair
+      const uint2 sw = *reinterpret_cast<const uint2*>(ss + q * FT_BN * 2);
+      const uint32_t s2[4] = {__byte_perm(sw.x, 0, 0x1010), __byte_perm(sw.x, 0, 0x3232),
+                              __byte_perm(sw.y, 0, 0x1010), __byte_perm(sw.y, 0, 0x3232)};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kk = q * 2 + half;  // k16 step in the stage
+        const int buf = kk & 1;
+        // rows kr, kr + 1, kr + 8, kr + 9 (kr + 8 has kr's swizzle)
+        const int kr = kk * 16 + 2 * t;
+        const int c0 = (chunk ^ (kr & 7)) * 16, c1 = (chunk ^ ((kr + 1) & 7)) * 16;
+        const uint32_t rA = *reinterpret_cast<const uint32_t*>(cs + kr * 128 + c0);
+        const uint32_t rB = *reinterpret_cast<const uint32_t*>(cs + (kr + 1) * 128 + c1);
+        const uint32_t rC = *reinterpret_cast<const uint32_t*>(cs + (kr + 8) * 128 + c0);
+        const uint32_t rD = *reinterpret_cast<const uint32_t*>(cs + (kr + 9) * 128 + c1);
+        // (column, k-pair) bytes, then code + 8 in [0, 15] per byte
+        const uint32_t p01 = biased_nibbles(__byte_perm(rA, rB, 0x5140));  // cols 0, 1; k 2t..
+        const uint32_t p23 = biased_nibbles(__byte_perm(rA, rB, 0x7362));  // cols 2, 3
+        const uint32_t q01 = biased_nibbles(__byte_perm(rC, rD, 0x5140));  // cols 0, 1; k 2t+8..
+        const uint32_t q23 = biased_nibbles(__byte_perm(rC, rD, 0x7362));
+        wgmma_wait<1>();  // the wgmmas that read afrag[buf] retired
+        afrag[buf][0][0] = dequant_pair(__byte_perm(p01, 0x43434343u, 0x5140u), s2[0]);
+        afrag[buf][0][1] = dequant_pair(__byte_perm(p01, 0x43434343u, 0x5342u), s2[1]);
+        afrag[buf][0][2] = dequant_pair(__byte_perm(q01, 0x43434343u, 0x5140u), s2[0]);
+        afrag[buf][0][3] = dequant_pair(__byte_perm(q01, 0x43434343u, 0x5342u), s2[1]);
+        afrag[buf][1][0] = dequant_pair(__byte_perm(p23, 0x43434343u, 0x5140u), s2[2]);
+        afrag[buf][1][1] = dequant_pair(__byte_perm(p23, 0x43434343u, 0x5342u), s2[3]);
+        afrag[buf][1][2] = dequant_pair(__byte_perm(q23, 0x43434343u, 0x5140u), s2[2]);
+        afrag[buf][1][3] = dequant_pair(__byte_perm(q23, 0x43434343u, 0x5342u), s2[3]);
+        const uint64_t desc = x_desc(xs + kk * 32);
+        fence_regs(acc[0]);
+        fence_regs(acc[1]);
+        wgmma_fence();
+        wgmma_tile<MP>(acc[0], afrag[buf][0], desc);
+        wgmma_tile<MP>(acc[1], afrag[buf][1], desc);
+        wgmma_commit();
+        fence_regs(acc[0]);
+        fence_regs(acc[1]);
+      }
+    }
   }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+
+  // epilogue: acc[j][4 i + e] is (column n_t + 2 j + e / 2, row m0 + 8 i + 2 t
+  // + e % 2), so each row gets its 4 columns as one float4
+  const int n = n0 + col;
+  if (n >= N) return;  // N % 16 == 0: the 4 columns are all in or all out
+  float* dst = out + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < MP / 8; ++i) {
+    const int m = m0 + 8 * i + 2 * t;
+    if (m < M)
+      *reinterpret_cast<float4*>(dst + (size_t)m * N + n) =
+          make_float4(acc[0][4 * i], acc[0][4 * i + 2], acc[1][4 * i], acc[1][4 * i + 2]);
+    if (m + 1 < M)
+      *reinterpret_cast<float4*>(dst + (size_t)(m + 1) * N + n) =
+          make_float4(acc[0][4 * i + 1], acc[0][4 * i + 3], acc[1][4 * i + 1],
+                      acc[1][4 * i + 3]);
+  }
+}
+
+// cuTensorMapEncodeTiled, a libcuda function, looked up through the CUDA
+// runtime (no -lcuda at build time)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// a row-major [outer, inner] tensor of row pitch row_bytes, read in boxes of
+// box_inner x box_outer elements; zeros past its edges
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+                uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MP>
+int launch_matmul_bf16(const __nv_bfloat16* x, const int8_t* codes, const __nv_bfloat16* scales,
+                       float* y, float* part, int M, int K, int N, int splits,
+                       cudaStream_t stream) {
+  CUtensorMap tm_x, tm_c, tm_s;
+  if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, FT_BK,
+                  MP, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tm_c, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, K, N, FT_BN / 2, FT_BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tm_s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scales, N, K / QB, (uint64_t)N * 2,
+                  FT_BN, FT_BK / QB, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorNotSupported);
+  auto kernel = q40_matmul_bf16_kernel<MP>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       FtSmem<MP>::TOTAL);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_stages = (K + FT_BK - 1) / FT_BK;
+  const int per = (n_stages + splits - 1) / splits;
+  dim3 grid((M + MP - 1) / MP, (N + FT_BN - 1) / FT_BN, splits);
+  kernel<<<grid, FT_THREADS, FtSmem<MP>::TOTAL, stream>>>(tm_x, tm_c, tm_s,
+                                                          splits == 1 ? y : part, M, K, N, per);
+  if (splits > 1) {
+    const int MN = M * N;
+    sum_splits_kernel<<<(MN + 255) / 256, 256, 0, stream>>>(part, y, splits, MN);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -455,19 +732,26 @@ int dlt_q40_gemv(const void* x, const void* codes, const void* scales, void* y,
       x, c, scales, static_cast<float*>(y), static_cast<float*>(part), M, K, N, splits, s);
 }
 
-// K1 entry: same operands, any M; K % 32 == 0.
-int dlt_q40_matmul(const void* x, const void* codes, const void* scales, void* y,
-                   int M, int K, int N, int fast, void* stream) {
+// K1 entry: same operands, any M; K % 32 == 0. Fast mode also needs N % 16
+// == 0 and takes the split-K scratch part f32 [splits, M, N] (unused when
+// splits == 1); slab rows MP = 64 for M <= 64, else 128.
+int dlt_q40_matmul(const void* x, const void* codes, const void* scales, void* y, void* part,
+                   int M, int K, int N, int splits, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* c = static_cast<const int8_t*>(codes);
+  if (fast) {
+    if (N % 16 != 0 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* sp = static_cast<const __nv_bfloat16*>(scales);
+    float* yp = static_cast<float*>(y);
+    float* pp = static_cast<float*>(part);
+    return M <= 64 ? launch_matmul_bf16<64>(xp, c, sp, yp, pp, M, K, N, splits, s)
+                   : launch_matmul_bf16<128>(xp, c, sp, yp, pp, M, K, N, splits, s);
+  }
   dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM);
-  if (fast)
-    q40_matmul_bf16_kernel<<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(codes),
-        static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(y), M, K, N);
-  else
-    q40_matmul_f32_kernel<<<grid, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(codes),
-        static_cast<const float*>(scales), static_cast<float*>(y), M, K, N);
+  q40_matmul_f32_kernel<<<grid, 256, 0, s>>>(
+      static_cast<const float*>(x), c, static_cast<const float*>(scales),
+      static_cast<float*>(y), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 

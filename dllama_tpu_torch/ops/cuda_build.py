@@ -30,6 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMS = 132  # streaming multiprocessors of the H100 SXM the launch plans size grids for
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

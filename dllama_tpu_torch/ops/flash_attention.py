@@ -3,25 +3,35 @@ cache, and its block-statistics mode for sequence-parallel attention.
 
 Replaces the JAX package's ``ops/flash_attention.py::_kernel`` (stats=False;
 ``pallas_call`` at :154 through ``_call`` :128 and ``flash_attention`` :181).
-The CUDA kernel is ``csrc/flash_attention.cu``; its header has the note on
-what bounds it on the H100 (bytes at decode, FP32 operations on long
-prefills) and how the design meets that: online softmax with the running
-max/sum in registers, K/V tiles staged once per 16 query rows, and a KV walk
-that stops at the newest visible position.
+The CUDA kernel is ``csrc/flash_attention.cu``; its header has the note.
+Decode reads each visible K/V row once, so it is bound by bytes; long
+prefills by FP32 operations. Online softmax keeps the running max/sum in
+registers, K/V tiles are staged once per 16 query rows with the next tile's
+loads in flight, and the walk stops at the newest visible position. When the
+unsplit grid would leave most of the card idle (decode and short verifies:
+8 blocks at B = 1), the keys are split across blocks (split-S, or
+flash-decoding): :func:`_attn_splits` picks the count from the shapes alone,
+each block takes its range of whole 32-key tiles from the depth it reads on
+the device (:func:`_split_ranges` is the same rule), and a second small
+kernel merges the partial ``(acc, m, l)`` in split order.
 
 :func:`flash_attention` runs the position-masked oracle
 (:func:`dllama_tpu_torch.ops.attention.attention`, its plain version) on a
 CPU tensor, and on a CUDA tensor launches the kernel or raises.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches (one per call, split or
+not) and ``flash_attention.last_splits`` holds the ``n_splits`` of the last
+launch (1: single pass).
 
 K3s (:func:`flash_block_stats`) replaces the JAX package's
 ``flash_block_stats`` (``ops/flash_attention.py:206``, the same ``_kernel``
 with ``stats=True``): one mid-sequence KV block, the unnormalised
 ``(acc, m, l)`` of every folded query row, for the ring and merge combines
 of :mod:`dllama_tpu_torch.parallel.ring`. It is the same CUDA kernel in its
-stats mode; its plain version is :func:`_block_attn`, which the ring's
-plain path calls directly (:func:`flash_block_stats_plain` folds around it).
-``flash_block_stats.launches`` counts its launches.
+stats mode, with the same split rule; its plain version is
+:func:`_block_attn`, which the ring's plain path calls directly
+(:func:`flash_block_stats_plain` folds around it).
+``flash_block_stats.launches`` counts its launches, and
+``flash_block_stats.last_splits`` holds the last launch's ``n_splits``.
 """
 
 from __future__ import annotations
@@ -32,10 +42,18 @@ import math
 import torch
 
 from .attention import attention
-from .cuda_build import check, load, on_card
+from .cuda_build import SMS, check, load, on_card
 
 MAX_TQ = 2048                # folded query rows per (batch, kv head)
 HEAD_DIMS = (64, 128)        # head dims the kernel is instantiated for
+BQ, BS = 16, 32              # query rows per block, keys per tile (csrc)
+# split-S rule: split only a grid of at most a quarter of the SMs' worth of
+# (b, head, query tile) blocks (decode and short verifies; prefill chunks of
+# 64 tokens and more keep the single pass), into about two blocks per SM,
+# each walking at least two 32-key tiles of the cache
+_SPLIT_MAX_BLOCKS = SMS // 4
+_SPLIT_TARGET_BLOCKS = 2 * SMS
+_SPLIT_MIN_TILES = 2
 
 
 def supports(q_shape: tuple[int, ...], n_kv: int, s: int) -> bool:
@@ -63,16 +81,45 @@ def unfold_output(out: torch.Tensor, T: int, n_heads: int) -> torch.Tensor:
                .reshape(B, T, n_heads, D))
 
 
+def _attn_splits(B: int, n_kv: int, TQ: int, S: int) -> int:
+    """Blocks per (b, kv head, query tile) for a K3/K3s launch: 1 (single
+    pass) or the split-S count. Depends on the shapes only, so positions
+    that advance on the device never change the grid."""
+    blocks = -(-TQ // BQ) * n_kv * B
+    if blocks > _SPLIT_MAX_BLOCKS:
+        return 1
+    return max(1, min(-(-_SPLIT_TARGET_BLOCKS // blocks), -(-S // BS) // _SPLIT_MIN_TILES))
+
+
+def _split_ranges(newest: int, n_splits: int) -> list[tuple[int, int]]:
+    """The kernel's key ranges: split ``s`` walks keys ``[lo, hi)`` of a
+    query tile whose newest visible local slot is ``newest`` (negative:
+    nothing visible). Whole 32-key tiles, covering ``[0, newest]`` once;
+    some ranges are empty when there are fewer tiles than splits."""
+    n_tiles = 0 if newest < 0 else newest // BS + 1
+    return [(s * n_tiles // n_splits * BS, (s + 1) * n_tiles // n_splits * BS)
+            for s in range(n_splits)]
+
+
+def _split_scratch(n_splits: int, rows: int, D: int, device: torch.device):
+    """Pass 1's f32 partials (acc, then m, then l of every split), or None
+    for a single pass: ``(pointer, keep-alive tensor)``."""
+    if n_splits == 1:
+        return None, None
+    part = torch.empty(n_splits * rows * (D + 2), dtype=torch.float32, device=device)
+    return part.data_ptr(), part
+
+
 def _lib():
     lib = getattr(_lib, "cached", None)
     if lib is None:
         lib = load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dlt_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                            ctypes.c_float, i, p]
+                                            ctypes.c_float, i, p, i, p]
         lib.dlt_flash_attention.restype = i
         lib.dlt_flash_block_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                              i, ctypes.c_float, i, p]
+                                              i, ctypes.c_float, i, p, i, p]
         lib.dlt_flash_block_stats.restype = i
         _lib.cached = lib
     return lib
@@ -100,19 +147,24 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     q_g = fold_queries(q, n_kv)
     out = torch.empty_like(q_g)
     pos_ptr, pos_scalar, _pos = _positions(start_pos, q.device)
+    TQ = T * kv_mul
+    n_splits = _attn_splits(B, n_kv, TQ, S)
+    part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q.device)
     lib = _lib()
     with on_card(q.device):
         rc = lib.dlt_flash_attention(
             q_g.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            pos_ptr, pos_scalar, B, n_kv, T * kv_mul, S, D, kv_mul,
+            pos_ptr, pos_scalar, B, n_kv, TQ, S, D, kv_mul,
             1.0 / math.sqrt(head_dim), int(k_cache.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    flash_attention.last_splits = n_splits
     check(lib, rc, "flash_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)
 
 
 flash_attention.launches = 0
+flash_attention.last_splits = 0
 
 
 def _check_cache(what: str, device: torch.device, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -203,17 +255,21 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
     m = torch.empty((B, n_kv, TQ), dtype=torch.float32, device=q_g.device)
     l = torch.empty_like(m)
     pos_ptr, pos_scalar, _pos = _positions(q_pos0, q_g.device)
+    n_splits = _attn_splits(B, n_kv, TQ, S)
+    part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q_g.device)
     lib = _lib()
     with on_card(q_g.device):
         rc = lib.dlt_flash_block_stats(
             q_g.data_ptr(), k_block.data_ptr(), v_block.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), pos_ptr, pos_scalar, int(kv_pos0), B, n_kv, TQ,
             S, D, TQ // t, 1.0 / math.sqrt(head_dim),
-            int(k_block.dtype == torch.bfloat16),
+            int(k_block.dtype == torch.bfloat16), part_ptr, n_splits,
             torch.cuda.current_stream(q_g.device).cuda_stream)
     flash_block_stats.launches += 1
+    flash_block_stats.last_splits = n_splits
     check(lib, rc, "flash_block_stats")
     return acc, m, l
 
 
 flash_block_stats.launches = 0
+flash_block_stats.last_splits = 0

@@ -4,10 +4,14 @@
 
 * **K1** :func:`q40_matmul` — replaces the JAX package's
   ``ops/quant_matmul.py::_kernel`` (the (N/bn, K/bk)-tiled Pallas kernel,
-  ``pallas_call`` at :293). Bound on the H100 at prefill widths: operations
-  (exact: FP32 SIMT; fast: bf16 tensor cores). Design: one block per 64x64
-  output tile walking all of K in 32-row steps (one Q40 block, one scale
-  row), codes dequantized into shared memory as they land.
+  ``pallas_call`` at :293). Exact mode is bound by FP32 operations: one
+  block per 64x64 output tile walking all of K in 32-row steps. Fast mode is
+  bound by the weight bytes at the prefill widths, the bf16 operation bound
+  close behind at M = 128: a block owns 256 weight columns for up to 128
+  rows and streams each weight byte once through a TMA-fed ring of 64-row
+  stages; the codes are dequantized straight into the A registers of a
+  swapped ``wgmma`` product (``y^T = W^T x^T``), and narrow N takes a K
+  split across blocks (:func:`_matmul_splits`), summed in split order.
 * **K2** :func:`q40_gemv` — replaces ``_decode_kernel`` (the single-pass
   decode GEMV, ``pallas_call`` at :208) for ``M <= FUSED_MAX_M``. Bound:
   bytes (one pass over the planes). Design: neighbouring threads on
@@ -17,7 +21,8 @@
 Both live in ``csrc/quant_matmul.cu`` (see its header for the full note).
 Each wrapper runs :func:`quant_matmul_plain` — the plain PyTorch version of
 the same function — on a CPU tensor, and on a CUDA tensor launches its
-kernel or raises. ``launches`` on each wrapper counts kernel launches.
+kernel or raises. ``launches`` on each wrapper counts kernel launches, and
+``last_splits`` holds the K split of its last launch (1: none).
 
 Unlike the JAX package, where ``auto`` reached the decode kernel only under
 ``DLLAMA_TPU_QUANT_KERNEL=fused``, ``M <= 16`` on CUDA always takes K2.
@@ -30,7 +35,7 @@ import ctypes
 import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
-from .cuda_build import check, load, on_card
+from .cuda_build import SMS, check, load, on_card
 from .linear import QuantizedWeight, dequantize_weight
 
 # widest dispatch that counts as the decode regime (the JAX package's
@@ -42,13 +47,26 @@ _GEMV_WARPS = 8        # warps per K2 block, each taking one Q40 block per step
 # at the M = 1 kernel's ~128 registers. A grid just above it runs a second,
 # mostly idle wave, so the K split rounds the block count down to it.
 _RESIDENT_BLOCKS = 264
+# K1 fast tile (csrc: FT_*): 256 weight columns and a slab of up to 128
+# activation rows per block, K in 64-row stages; one block per SM (its
+# shared-memory ring), so a split grid aims at the SMs in one wave
+_TILE_N = 256
+_TILE_M = 128
+_STAGE_K = 64
+# each K split walks at least 8 stages (512 rows of K): fewer give the
+# pipeline no time to fill, and the f32 partials ([splits, M, N]) outgrow the
+# weight bytes the split saves (at M = 128, 4 * M bytes a column per split
+# against 1.06 * K_split)
+_MIN_SPLIT_STAGES = 8
 
 
-def supports(x_shape: tuple[int, ...], w: QuantizedWeight) -> bool:
-    """Whether K1 covers these shapes (any M; K a whole number of blocks)."""
+def supports(x_shape: tuple[int, ...], w: QuantizedWeight, *, fast: bool = False) -> bool:
+    """Whether K1 covers these shapes: any M, K a whole number of blocks;
+    the fast tile also needs ``N % 16 == 0`` (its TMA copies rows of codes
+    whose pitch must be a multiple of 16 bytes)."""
     K = x_shape[-1]
     return (w.codes.dim() == 2 and w.in_features == K
-            and K % Q40_BLOCK_SIZE == 0)
+            and K % Q40_BLOCK_SIZE == 0 and not (fast and w.out_features % 16))
 
 
 def supports_decode(x_shape: tuple[int, ...], w: QuantizedWeight) -> bool:
@@ -84,7 +102,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dlt_q40_gemv.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.dlt_q40_gemv.restype = i
-        lib.dlt_q40_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.dlt_q40_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.dlt_q40_matmul.restype = i
         _lib.cached = lib
     return lib
@@ -125,6 +143,19 @@ def _gemv_splits(K: int, N: int) -> int:
     return -(-nkb // per)
 
 
+def _matmul_splits(M: int, K: int, N: int) -> int:
+    """K splits across blocks for K1's fast tile: a grid of fewer (N, M)
+    tiles than SMs takes more blocks along K, each split a whole number of
+    64-row stages and at least :data:`_MIN_SPLIT_STAGES` of them; the
+    partial rows are summed in split order."""
+    tiles = -(-N // _TILE_N) * -(-M // _TILE_M)
+    n_stages = -(-K // _STAGE_K)
+    if tiles >= SMS:
+        return 1
+    per = max(_MIN_SPLIT_STAGES, -(-n_stages // (SMS // tiles)))
+    return -(-n_stages // per)
+
+
 def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
     """K2: decode-width (M <= 16) Q40 matmul; returns ``x.dtype``."""
     if x.device.type == "cpu":
@@ -146,32 +177,44 @@ def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor
                               y.data_ptr(), part.data_ptr(), M, K, N, splits,
                               int(fast), torch.cuda.current_stream(x.device).cuda_stream)
     q40_gemv.launches += 1
+    q40_gemv.last_splits = splits
     check(lib, rc, "q40_gemv")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 q40_gemv.launches = 0
+q40_gemv.last_splits = 0
 
 
 def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
-    """K1: tiled Q40 matmul for any M (the prefill widths); returns ``x.dtype``."""
+    """K1: tiled Q40 matmul for any M (the prefill widths); returns ``x.dtype``.
+    Raises for shapes that :func:`supports` refuses (in fast mode
+    ``N % 16 != 0`` too)."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w, fast=fast)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: unsupported device {x.device}")
+    if fast and not supports(tuple(x.shape), w, fast=True):
+        raise ValueError(f"q40_matmul: codes {tuple(w.codes.shape)}: the fast tile "
+                         f"needs N % 16 == 0")
     x2d, scales, M, K, N = _cuda_operands(x, w, fast, "q40_matmul")
+    splits = _matmul_splits(M, K, N) if fast else 1
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else y)
     lib = _lib()
     with on_card(x.device):
         rc = lib.dlt_q40_matmul(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
-                                y.data_ptr(), M, K, N, int(fast),
+                                y.data_ptr(), part.data_ptr(), M, K, N, splits, int(fast),
                                 torch.cuda.current_stream(x.device).cuda_stream)
     q40_matmul.launches += 1
+    q40_matmul.last_splits = splits
     check(lib, rc, "q40_matmul")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 q40_matmul.launches = 0
+q40_matmul.last_splits = 0
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:

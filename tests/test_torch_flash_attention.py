@@ -112,3 +112,53 @@ def test_wrapper_refuses_other_devices():
     kv = torch.zeros((1, 2, 128, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(q, kv, kv, 0, 64)
+
+
+# ---------------------------------------------------------------------------
+# split-S (flash-decoding): the split rule the CUDA kernel follows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 7, 32, 33])
+@pytest.mark.parametrize("newest", [-5, 0, 31, 32, 100, 2047, 20145])
+def test_split_ranges_are_whole_tiles_covering_each_key_once(newest, n_splits):
+    """Each split's key range is whole 32-key tiles; together the ranges
+    cover the keys [0, newest] (through newest's tile) once, in order, and
+    differ in length by at most one tile; a tile that sees nothing walks
+    nothing."""
+    ranges = fa._split_ranges(newest, n_splits)
+    assert len(ranges) == n_splits
+    keys = []
+    for lo, hi in ranges:
+        assert lo % fa.BS == 0 and hi % fa.BS == 0 and lo <= hi
+        keys.extend(range(lo, hi))
+    n_tiles = newest // fa.BS + 1 if newest >= 0 else 0
+    assert keys == list(range(n_tiles * fa.BS))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= fa.BS
+
+
+@pytest.mark.parametrize("S", [2048, 16384, 32768])
+def test_decode_split_count_puts_a_block_on_every_sm(S):
+    """Decode at B = 1 with n_kv = 8 (8 unsplit blocks) splits into at
+    least one block per SM of the H100, each split at least two tiles of a
+    full cache."""
+    n = fa._attn_splits(1, 8, 4, S)
+    assert 8 * n >= fa.SMS
+    assert S // fa.BS // n >= fa._SPLIT_MIN_TILES
+
+
+@pytest.mark.parametrize("T", [64, 128, 256])
+def test_prefill_chunks_keep_the_single_pass(T):
+    """A prefill chunk at n_kv = 8 already fills the card (the ring's
+    64-token chunks give 128 blocks): no split, no combine."""
+    assert fa._attn_splits(1, 8, 4 * T, 2048) == 1
+    assert fa._attn_splits(1, 8, 4 * T, 32768) == 1
+
+
+def test_split_count_depends_on_shapes_only():
+    """The count comes from (B, n_kv, TQ, S): one tile of cache never
+    splits, and more batch rows or query rows never split more."""
+    assert fa._attn_splits(1, 8, 4, fa.BS) == 1
+    counts = [fa._attn_splits(B, 8, 4, 4096) for B in (1, 2, 4)]
+    assert counts == sorted(counts, reverse=True)

@@ -106,6 +106,17 @@ def test_supports_gates():
     assert not qm.supports_decode((1, 512), odd)      # N % 4 != 0
 
 
+@pytest.mark.parametrize("N,fast_ok", [(1024, True), (1040, True), (1028, False), (100, False)])
+def test_fast_tile_needs_n_multiple_of_16(N, fast_ok):
+    """K1's fast tile copies rows of codes by TMA, whose pitch must be a
+    multiple of 16 bytes: ``supports(fast=True)`` refuses any other N (the
+    wrapper raises on it on the card); the exact tile and K2 take it."""
+    _, tw = _pair(N, 64, seed=0)
+    assert qm.supports((128, 64), tw)
+    assert qm.supports((128, 64), tw, fast=True) == fast_ok
+    assert qm.supports_decode((1, 64), tw)
+
+
 @pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 4096), (14336, 4096),
                                  (4096, 14336), (4096, 128256), (64, 96)])
 def test_gemv_split_plan_covers_k(K, N):
@@ -122,6 +133,27 @@ def test_gemv_split_plan_covers_k(K, N):
         assert per >= 8
         assert col_blocks * s >= min(132, col_blocks * (nkb // 8))
         assert col_blocks * s <= qm._RESIDENT_BLOCKS  # one wave, no idle tail
+
+
+@pytest.mark.parametrize("M", [32, 128, 256])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 4096), (14336, 4096),
+                                 (4096, 14336), (4096, 128256), (4128, 1040), (64, 96)])
+def test_matmul_split_plan_covers_k(M, K, N):
+    """K1's cross-block K split: every 64-row stage of K lands in exactly
+    one split, no split is empty, a split walks at least the minimum
+    number of stages, and a split grid fits the H100's 132 SMs in one
+    wave (one tile block per SM); a grid of fewer tiles than SMs with
+    room to split does split."""
+    s = qm._matmul_splits(M, K, N)
+    n_stages = -(-K // qm._STAGE_K)
+    per = -(-n_stages // s)
+    assert s >= 1 and (s - 1) * per < n_stages <= s * per
+    tiles = -(-N // qm._TILE_N) * -(-M // qm._TILE_M)
+    if s > 1:
+        assert per >= qm._MIN_SPLIT_STAGES
+        assert tiles * s <= qm.SMS
+    elif tiles * 2 <= qm.SMS:
+        assert n_stages < 2 * qm._MIN_SPLIT_STAGES
 
 
 def test_wrapper_refuses_other_devices():

@@ -8,6 +8,12 @@ against the JAX package's ``parallel/ring.py`` on the same numpy inputs.
   mid-sequence block, a fully masked block (exact zeros and ``-inf``), the
   diagonal, GQA ``kv_mul`` 4 and 1, T = 1 and T = 64, ragged ``q_pos0``.
 - ``_combine`` on ``-inf`` statistics gives no NaN.
+- The split-S (flash-decoding) algebra of the CUDA kernel, written plainly:
+  the keys of each 16-row query tile cut into the kernel's ranges
+  (``_split_ranges``), each range through ``_block_attn`` (pass 1), the
+  partials merged by a torch copy of pass 2's formula, against the JAX
+  Pallas kernels in interpret mode, for K3 (normalised) and K3s (stats),
+  with empty splits and fully masked rows.
 - ``sp_attention`` over ``[cpu] * n`` shards against JAX ``sp_attention`` on
   the virtual ``make_mesh({"sp": n})``: the ring (T % n == 0, T > 1), the
   merge at T = 1 and at T > 1, ragged depths, and a prefill followed by
@@ -25,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from dllama_tpu.ops.flash_attention import flash_attention as jax_flash
 from dllama_tpu.ops.flash_attention import flash_block_stats as jax_block_stats
 from dllama_tpu.parallel import ring as jring
 from dllama_tpu.parallel.api import make_mesh as jax_make_mesh
@@ -268,3 +275,117 @@ def test_block_stats_wrapper_refuses_other_devices_and_shapes():
     k_cuda = types.SimpleNamespace(shape=(1, 2, 128, 96))
     with pytest.raises(ValueError, match="not supported"):
         fa.flash_block_stats(q_cuda, k_cuda, k_cuda, 0, 0, 96, 1)
+
+
+# ---------------------------------------------------------------------------
+# split-S: the kernel's two passes written plainly, against the JAX kernels
+# ---------------------------------------------------------------------------
+
+
+def _combine_splits(parts):
+    """A torch copy of pass 2 (``csrc/flash_attention.cu``,
+    ``combine_splits_kernel``): in split order, ``M = max m_s``, ``L = sum
+    l_s e^(m_s - M)``, ``acc = sum acc_s e^(m_s - M)``, with ``M`` taken as
+    0 in the exponent when no split saw a key."""
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    m_safe = torch.where(mx == float("-inf"), 0.0, mx)
+    acc = l = 0.0
+    for a, m, ls in parts:
+        w = torch.exp(m - m_safe)
+        l = l + ls * w
+        acc = acc + a * w[..., None]
+    return acc, mx, l
+
+
+def _split_then_combine(q_g, k, v, q_pos0, kv_pos0, t, n_splits):
+    """The kernel's split-S path on folded queries ``[B, n_kv, TQ, D]``:
+    per 16-row query tile, the tile's visible keys cut into
+    ``fa._split_ranges``; each range's ``(acc, m, l)`` from ``_block_attn``
+    (an empty range: 0, -inf, 0, as the kernel writes it); merged by
+    :func:`_combine_splits`. Returns the unnormalised ``(acc, m, l)``."""
+    B, n_kv, TQ, hd = q_g.shape
+    kv_mul, S = TQ // t, k.shape[2]
+    q0 = np.broadcast_to(np.asarray(q_pos0), (B,))
+    acc = torch.zeros_like(q_g)
+    m = torch.full((B, n_kv, TQ), float("-inf"))
+    l = torch.zeros((B, n_kv, TQ))
+    for b in range(B):
+        for r0 in range(0, TQ, fa.BQ):
+            rows = torch.arange(r0, min(TQ, r0 + fa.BQ))
+            newest = min(S - 1, int(q0[b]) - kv_pos0 + int(rows[-1]) // kv_mul)
+            qg = q_g[b:b + 1, :, rows].permute(0, 2, 1, 3)[:, :, :, None]  # [1, R, n_kv, 1, hd]
+            parts = []
+            for lo, hi in fa._split_ranges(newest, n_splits):
+                hi = min(hi, S)
+                if hi <= lo:
+                    parts.append((torch.zeros((len(rows), n_kv, hd)),
+                                  torch.full((len(rows), n_kv), float("-inf")),
+                                  torch.zeros((len(rows), n_kv))))
+                    continue
+                kv_pos = kv_pos0 + torch.arange(lo, hi)
+                mask = kv_pos[None, :] <= (int(q0[b]) + rows // kv_mul)[:, None]
+                pa, pm, pl = fa._block_attn(qg, k[b:b + 1, :, lo:hi], v[b:b + 1, :, lo:hi],
+                                            mask[None], hd)
+                parts.append((pa[0, :, :, 0], pm[0, :, :, 0], pl[0, :, :, 0]))
+            ca, cm, cl = _combine_splits(parts)
+            acc[b, :, rows], m[b, :, rows], l[b, :, rows] = (ca.transpose(0, 1), cm.T, cl.T)
+    return acc, m, l
+
+
+@pytest.mark.parametrize("n_splits", [2, 4, 7])
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_split_then_combine_matches_pallas_block_stats(case, n_splits):
+    """K3s under split-S: 4 tiles in the 128-row block, so 7 splits leave
+    some ranges empty; fully masked rows keep exactly 0 / -inf / 0."""
+    B, T, kv_mul, q_pos0, kv_pos0 = BLOCK_CASES[case]
+    qg, k, v, q0, _ = _block_inputs(B, T, kv_mul, q_pos0, kv_pos0, seed=len(case))
+    q_g = _fold(qg)
+    want = jax_block_stats(jnp.asarray(q_g), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(q0), jnp.int32(kv_pos0), D, T, interpret=True)
+    got = _split_then_combine(torch.from_numpy(q_g), torch.from_numpy(k),
+                              torch.from_numpy(v), q0, kv_pos0, T, n_splits)
+    for g, w in zip(got, want):
+        assert not torch.isnan(g).any()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("n_splits", [2, 4, 7])
+def test_split_of_a_fully_masked_block_is_exact_zeros_and_neg_inf(n_splits):
+    B, T, kv_mul, q_pos0, kv_pos0 = BLOCK_CASES["decode_fully_masked"]
+    qg, k, v, q0, _ = _block_inputs(B, T, kv_mul, q_pos0, kv_pos0, seed=3)
+    acc, m, l = _split_then_combine(torch.from_numpy(_fold(qg)), torch.from_numpy(k),
+                                    torch.from_numpy(v), q0, kv_pos0, T, n_splits)
+    assert torch.equal(acc, torch.zeros_like(acc)) and torch.equal(l, torch.zeros_like(l))
+    assert bool((m == float("-inf")).all())
+
+
+# (T, n_heads, n_kv, S, start, n_splits): decode deep and shallow (most
+# splits empty), the split count the wrapper picks, a 16-token verify over
+# four query tiles, GQA 1, ragged rows
+K3_SPLIT_CASES = [(1, 8, 2, 256, 255, 4), (1, 8, 2, 256, 40, 8), (1, 8, 2, 256, 0, 3),
+                  (1, 8, 2, 256, 200, "auto"), (16, 8, 2, 256, 100, 5),
+                  (1, 4, 4, 128, 127, 2), (1, 8, 2, 256, [5, 200], 4)]
+
+
+@pytest.mark.parametrize("T,H,n_kv,S,start,n_splits", K3_SPLIT_CASES)
+def test_split_then_combine_matches_pallas_flash_attention(T, H, n_kv, S, start, n_splits):
+    """K3 under split-S: the merged partials divided by L against the JAX
+    flash kernel, interpreted."""
+    starts = np.broadcast_to(np.asarray(start, np.int32), (np.size(start),)).copy()
+    B, hd = len(starts), 32
+    rng = np.random.default_rng(T + S + int(starts.sum()))
+    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, n_kv, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, n_kv, S, hd)).astype(np.float32)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(starts),
+                     hd, interpret=True)
+    q_g = fa.fold_queries(torch.from_numpy(q), n_kv)
+    if n_splits == "auto":
+        n_splits = fa._attn_splits(B, n_kv, q_g.shape[2], S)
+        assert n_splits > 1
+    acc, _, l = _split_then_combine(q_g, torch.from_numpy(k), torch.from_numpy(v), starts,
+                                    0, T, n_splits)
+    got = fa.unfold_output(acc / torch.where(l > 0, l, 1.0)[..., None], T, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)

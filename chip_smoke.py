@@ -20,10 +20,15 @@ Phases, each failing loudly (non-zero exit, no result line):
    of >= 20 CUDA-event timed runs (L2 flushed before each), the plain
    version's and a library call's time (for K4 the gather + SDPA pair, a
    yardstick of two library calls), the bound (the larger of bytes / 3.35
-   TB/s and operations / peak rate), and the K split (K1, K2) or split-S
-   count (K3) that the launch took (read from the wrapper; K3 decode must
-   split, its prefill must not); the fast logits head also times the dense
-   bf16 ``F.linear`` that fast configs load it as;
+   TB/s and operations / peak rate: FP32 for the SIMT kernels, bf16 for
+   the tensor-core ones), and the K split (K1, K2) or split-S count and
+   kernel path (K3) that the launch took (read from the wrapper; K3 decode
+   must split, its prefill must not; a single pass over a bf16 cache must
+   take the tensor-core path ``tc``, held against its twin
+   ``flash_attention_tc_plain`` within 1e-3 and the f32 plain version
+   within 1e-2 of max|out|; every other case ``simt``, within 1e-4); the
+   fast logits head also times the dense bf16 ``F.linear`` that fast
+   configs load it as;
 4. end to end at full Llama 3.1 8B width: write a synthetic Q40 model (random
    blocks from a seed) and a 128256-piece tokenizer with a llama3 chat
    template with the port's own writers, run ``inference`` and
@@ -52,7 +57,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    (``ring_cases``: decode over a whole, a partly visible and a fully masked
    block, a 64-token prefill chunk past the block and on its diagonal) and
    decode over a whole 16384-row shard (the long sp cell's), the same split
-   checks as K3's;
+   and path checks as K3's;
    ``guard_cost``: the host time of a wrapper call with no device guard,
    the shipped ``on_card`` guard and ``torch.cuda.device`` on every launch;
    ``sp_parity``: 2 layers at 8B width with a 256-row cache, sp = 2 (K3s)
@@ -63,7 +68,9 @@ Phases, each failing loudly (non-zero exit, no result line):
    greedy steps in f32 and bf16, then ``perplexity`` over the prompt in f32;
    the same ``perplexity`` with the Q80 sync casts on; ``--max-seq-len
    32768`` (two 16384-row shards), a prompt of more than 20000 tokens, 64
-   greedy steps and ``perplexity`` in f32. With two or more cards it drives
+   greedy steps and ``perplexity`` in f32, 64 greedy steps in bf16; every
+   run's prefill attention must take the tensor-core path in bf16 and
+   never in f32. With two or more cards it drives
    the CLI's ``--sp 2``; with one card ``InferenceEngine(sp=2,
    sp_devices=[cuda:0, cuda:0])``;
 8. the ``kernels`` JSON line, then the result line
@@ -71,13 +78,15 @@ Phases, each failing loudly (non-zero exit, no result line):
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
-instead (see :func:`ab_side`): phase 4 and the long sp cell at sp = 1 on the
+instead (see :func:`ab_side`): phase 4 and the long sp cell at sp = 1 (f32
+and bf16) on the
 package of the current directory, then an ``AB`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
@@ -113,6 +122,13 @@ LONG_PREFILL_AT = 19000  # first position of one of its 256-token prefill chunks
 #   exact: f32 sums in another order over K up to 14336 terms;
 #   fast: both sides cast the f32 result to bf16 (one bf16 ulp ~ 2^-8)
 TOL = {"exact": 1e-4, "fast": 1e-2}
+# K3/K3s's tensor-core path (a single pass over a bf16 cache) against its
+# twin, the plain version with the kernel's roundings (q and p to bf16,
+# 64-key tiles; ops/flash_attention.py::flash_attention_tc_plain): f32 sums
+# in another order, and a rare p that rounds the other way; against the
+# f32 plain version it keeps TOL["fast"], inside the JAX package's own
+# bound for its flash kernel over a bf16 cache (rtol = atol = 2e-2)
+TC_TWIN_TOL = 1e-3
 # model parity (2 layers + head, logits relative to max|logits|, Q80 sync
 # off: a Q80 requantization turns a last-ulp difference into a whole int8
 # step): exact carries f32 sums taken in another order through 15 matmuls
@@ -204,16 +220,16 @@ def matmul_cases(timer: Timer, results: list) -> None:
             # every shape at decode (M = 1), at the serving decode step of 8
             # slots (M = 8) and a 128-token chunk; one shape
             # also at the other widths the main path gives the kernels: K2's
-            # multi-row variants (a context-tail chunk) and the 32- and
-            # 256-token prefill chunks
+            # multi-row variants (a context-tail chunk) and the 32-, 64- and
+            # 256-token prefill chunks (K1 exact's three row tiles)
             widths = [("K2", 1), ("K2", 8), ("K1", 128)]
             if name == "wq":
-                widths += [("K2", 4), ("K2", 16), ("K1", 32), ("K1", 256)]
+                widths += [("K2", 4), ("K2", 16), ("K1", 32), ("K1", 64), ("K1", 256)]
             for kname, M in widths:
                 fn = qm.q40_gemv if kname == "K2" else qm.q40_matmul
                 x = torch.randn((M, K), generator=g, device=DEV).to(act)
                 got = fn(x, w, fast=fast).float()
-                splits = fn.last_splits  # the K split this launch took (K1 exact: 1)
+                splits = fn.last_splits  # the K split this launch took
                 want = qm.quant_matmul_plain(x, w, fast=fast).float()
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
@@ -249,12 +265,14 @@ def attention_cases(timer: Timer, results: list) -> None:
     S = MAX_SEQ
     # (phase, T, start_pos, head_dim, cache rows): decode over depths up to
     # S, the 128- and 256-token prefill chunks, the kernel's other head size
-    # (64, e.g. Llama 3.2 1B) at depth, and the long sp cell at sp = 1 in its
-    # 32768-row cache: decode at its depth and a 256-token chunk of its
-    # prefill deep in the cache (the single pass's walk over ~19000 keys)
+    # (64, e.g. Llama 3.2 1B) at depth and in a prefill chunk, and the long
+    # sp cell at sp = 1 in its 32768-row cache: decode at its depth and a
+    # 256-token chunk of its prefill deep in the cache (the single pass's
+    # walk over ~19000 keys)
     cases = [("decode", 1, p, HEAD_DIM, S) for p in (0, 127, 128, 1023, S - 1)] + [
         ("prefill", 128, 0, HEAD_DIM, S), ("prefill", 128, 1024, HEAD_DIM, S),
         ("prefill", 256, 0, HEAD_DIM, S), ("decode", 1, S - 1, 64, S),
+        ("prefill", 128, 0, 64, S),
         ("decode", 1, LONG_DEPTH, HEAD_DIM, SP_LONG_SEQ),
         ("prefill", 256, LONG_PREFILL_AT, HEAD_DIM, SP_LONG_SEQ)]
     for mode in ("exact", "fast"):
@@ -268,10 +286,13 @@ def attention_cases(timer: Timer, results: list) -> None:
             positions = (pos + torch.arange(T, device=DEV))[None, :]
             got = fa.flash_attention(q, k, v, pos, D)
             n_splits = fa.flash_attention.last_splits  # what this launch took
+            path = fa.flash_attention.last_path
             want = attention(q, k, v, positions, D)
+            twin = fa.flash_attention_tc_plain(q, k, v, pos, D) if path == "tc" else None
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
+            err_twin = (got - twin).abs().max().item() if twin is not None else None
             qs = q.transpose(1, 2).to(kv_dt)
             mask = torch.arange(rows, device=DEV)[None, :] <= positions[0][:, None]
             ms = timer(lambda: fa.flash_attention(q, k, v, pos, D))
@@ -281,21 +302,37 @@ def attention_cases(timer: Timer, results: list) -> None:
             visible = sum(pos + t + 1 for t in range(T))  # keys per q head
             elt = k.element_size()
             n_bytes = 2 * T * HEADS * D * 4 + 2 * (pos + T) * KV_HEADS * D * elt
-            b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible, "f32")
+            b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible,
+                               "bf16" if path == "tc" else "f32")
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, T=T,
-                       start_pos=pos, S=rows, head_dim=D, n_splits=n_splits,
-                       max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                       start_pos=pos, S=rows, head_dim=D, n_splits=n_splits, path=path,
+                       max_abs_err=err, max_abs_ref=scale, max_abs_err_twin=err_twin,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
             print(json.dumps(rec), flush=True)
             results.append(rec)
+            check_path(f"K3 {mode} {phase} T={T} pos={pos}", mode, n_splits, path)
+            if path == "tc":
+                if not (err_twin <= TC_TWIN_TOL * scale and err <= TOL["fast"] * scale):
+                    fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err_twin:.3g} "
+                         f"against the twin, {err:.3g} against f32 (max|out| {scale:.3g})")
             # f32 online softmax vs the one-shot oracle: reordered sums/exps
-            if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
+            elif not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
                 fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err:.3g}")
             if (n_splits > 1) != (phase == "decode"):
                 fail(f"K3 {mode} {phase} T={T} pos={pos}: the launch took n_splits "
                      f"{n_splits}; decode must split, prefill must not")
         del caches
     torch.cuda.empty_cache()
+
+
+def check_path(what: str, mode: str, n_splits: int, path: str) -> None:
+    """A K3/K3s launch's kernel: a single pass over a bf16 cache runs on the
+    tensor cores, an f32 cache or a split launch on the SIMT kernel."""
+    want = "tc" if mode == "fast" and n_splits == 1 else "simt"
+    if path != want:
+        fail(f"{what}: the launch took the {path!r} kernel, want {want!r} "
+             f"(n_splits {n_splits})")
 
 
 # ragged decode depths of a full 8-slot batch (deepest at the context cap)
@@ -500,6 +537,9 @@ def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
             f"device_ms_per_{unit}": busy_ms / n if busy_ms else "not measured",
             "device_busy_share": busy_ms / wall_ms if busy_ms else "not measured",
             f"kernels_per_{unit}": sum(e.count for e in kernels) / n,
+            # K3's tensor-core single pass as the device ran it
+            f"tc_attention_per_{unit}": sum(e.count for e in kernels
+                                            if "flash_attention_tc_kernel" in e.key) / n,
             f"top_ms_per_{unit}": {e.key[:60]: e.self_device_time_total / 1e3 / n
                                    for e in top}}
 
@@ -999,17 +1039,26 @@ def ring_cases(timer: Timer, results: list) -> None:
             q_g = torch.randn((1, KV_HEADS, T * kv_mul, HEAD_DIM), generator=g, device=DEV)
             got = fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T)
             n_splits = fa.flash_block_stats.last_splits  # what this launch took
+            path = fa.flash_block_stats.last_path
             want = fa.flash_block_stats_plain(q_g, k, v, q0, kv0, HEAD_DIM, T)
+            twin = (fa.flash_block_stats_tc_plain(q_g, k, v, q0, kv0, HEAD_DIM, T)
+                    if path == "tc" else None)
             torch.cuda.synchronize()
-            errs = {}
-            for what, a, b in zip(("acc", "m", "l"), got, want):
-                inf_a, inf_b = torch.isneginf(a), torch.isneginf(b)
-                if not torch.equal(inf_a, inf_b):
-                    fail(f"K3s {mode} {name}: {what} is -inf at other rows than the plain "
-                         f"version's")
-                fin = ~inf_b
-                err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
-                errs[what] = (err, b[fin].abs().max().item() if fin.any() else 0.0)
+
+            def stat_errs(ref, against):
+                out = {}
+                for what, a, b in zip(("acc", "m", "l"), got, ref):
+                    inf_a, inf_b = torch.isneginf(a), torch.isneginf(b)
+                    if not torch.equal(inf_a, inf_b):
+                        fail(f"K3s {mode} {name}: {what} is -inf at other rows than the "
+                             f"{against}'s")
+                    fin = ~inf_b
+                    err = (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+                    out[what] = (err, b[fin].abs().max().item() if fin.any() else 0.0)
+                return out
+
+            errs = stat_errs(want, "plain version")
+            errs_twin = stat_errs(twin, "twin") if twin is not None else None
             # the kernel's folded rows back to the q-head layout for SDPA
             qs = q_g.reshape(1, KV_HEADS, T, kv_mul, HEAD_DIM).permute(0, 1, 3, 2, 4) \
                     .reshape(1, HEADS, T, HEAD_DIM).to(kv_dt)
@@ -1024,23 +1073,33 @@ def ring_cases(timer: Timer, results: list) -> None:
             seen = [max(0, min(rows, q0 + t - kv0 + 1)) for t in range(T)]
             n_bytes = (2 * max(seen) * KV_HEADS * HEAD_DIM * k.element_size()
                        + T * HEADS * HEAD_DIM * 4 * 2 + 2 * T * HEADS * 4)
-            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen), "f32")
+            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen),
+                               "bf16" if path == "tc" else "f32")
             rec = dict(case="ring_block", kernel="K3s", mode=mode, phase=name, T=T,
                        q_pos0=q0, kv_pos0=kv0, shard_rows=rows,
-                       n_splits=n_splits,
+                       n_splits=n_splits, path=path,
                        max_abs_err=max(e for e, _ in errs.values()),
                        errors={w: dict(max_abs_err=e, max_abs_ref=r)
                                for w, (e, r) in errs.items()},
+                       errors_twin=errs_twin and {w: dict(max_abs_err=e, max_abs_ref=r)
+                                                  for w, (e, r) in errs_twin.items()},
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        library_note="SDPA with the same mask: normalised output, no m/l",
                        bound_ms=b_ms, bound_by=b_by)
             print(json.dumps(rec), flush=True)
             results.append(rec)
-            # f32 online softmax against the one-shot einsum: reordered sums/exps
-            for what in ("acc", "l", "m"):
-                err, ref = errs[what]
-                if not (err <= 1e-4 * max(ref, 1.0 if what == "m" else 0.0)):
-                    fail(f"K3s {mode} {name}: {what} max|err| {err:.3g} (max|ref| {ref:.3g})")
+            check_path(f"K3s {mode} {name}", mode, n_splits, path)
+            # f32 online softmax against the one-shot einsum: reordered
+            # sums/exps; the tensor-core path against its twin and the f32
+            # plain version, as K3's
+            bounds = ([(errs_twin, TC_TWIN_TOL, "twin"), (errs, TOL["fast"], "plain")]
+                      if path == "tc" else [(errs, 1e-4, "plain")])
+            for table, tol, against in bounds:
+                for what in ("acc", "l", "m"):
+                    err, ref = table[what]
+                    if not (err <= tol * max(ref, 1.0 if what == "m" else 0.0)):
+                        fail(f"K3s {mode} {name}: {what} max|err| {err:.3g} against the "
+                             f"{against} (max|ref| {ref:.3g}, tol {tol})")
             if (n_splits > 1) != name.startswith("decode"):
                 fail(f"K3s {mode} {name}: the launch took n_splits {n_splits}; decode "
                      f"must split, prefill must not")
@@ -1142,16 +1201,32 @@ def sp_parity(results: dict) -> None:
 @contextlib.contextmanager
 def phase_counts(store: dict):
     """K3s launches split by phase: the engine's ``prefill`` (per chunk) and
-    ``next_token`` (per decode step), counted where each returns."""
+    ``next_token`` (per decode step), counted where each returns; and
+    ``(n_splits, path)`` of every K3/K3s launch of the prefill, as the
+    wrappers take the path from ``_attn_path`` (a parent tree without it
+    records none)."""
     from dllama_tpu_torch.ops import flash_attention as fa
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     prefill, next_token = InferenceEngine.prefill, InferenceEngine.next_token
-    store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0)
+    attn_path = getattr(fa, "_attn_path", None)
+    store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0,
+                 prefill_launches=[])
+    in_prefill = [False]
+
+    def observed_path(kv_dtype, n_splits):
+        path = attn_path(kv_dtype, n_splits)
+        if in_prefill[0]:
+            store["prefill_launches"].append((n_splits, path))
+        return path
 
     def counted_prefill(self, ids):
         n0 = fa.flash_block_stats.launches
-        last, metrics = prefill(self, ids)
+        in_prefill[0] = True
+        try:
+            last, metrics = prefill(self, ids)
+        finally:
+            in_prefill[0] = False
         store["prefill_chunks"] += len(metrics)
         store["prefill_k3s"] += fa.flash_block_stats.launches - n0
         return last, metrics
@@ -1164,10 +1239,14 @@ def phase_counts(store: dict):
         return out
 
     InferenceEngine.prefill, InferenceEngine.next_token = counted_prefill, counted_next
+    if attn_path is not None:
+        fa._attn_path = observed_path
     try:
         yield store
     finally:
         InferenceEngine.prefill, InferenceEngine.next_token = prefill, next_token
+        if attn_path is not None:
+            fa._attn_path = attn_path
 
 
 def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
@@ -1240,7 +1319,10 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
     rec["k3s_per_decode_step"] = phases["decode_k3s"] / max(1, phases["decode_steps"])
     rec["k3s_per_prefill_chunk"] = phases["prefill_k3s"] / max(1, phases["prefill_chunks"])
     rec["prefill_chunks"] = phases["prefill_chunks"]
-    print(json.dumps({k: v for k, v in rec.items() if k != "tokens"}), flush=True)
+    rec["prefill_launches"] = phases["prefill_launches"]
+    rec["prefill_paths"] = dict(collections.Counter(p for _, p in rec["prefill_launches"]))
+    print(json.dumps({k: v for k, v in rec.items()
+                      if k not in ("tokens", "prefill_launches")}), flush=True)
     torch.cuda.empty_cache()
     return rec
 
@@ -1256,7 +1338,16 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
       (the CLI's default buffers), sp = 2 against sp = 1 within
       :data:`Q80_SP_TOL`;
     * long: ``--max-seq-len 32768`` (two 16384-row shards), a prompt of
-      more than 20000 tokens, 64 greedy steps and ``perplexity`` in f32.
+      more than 20000 tokens, 64 greedy steps and ``perplexity`` in f32 and
+      bf16 (the bf16 prefill walks deep single passes on K3's or K3s's
+      tensor-core path); bf16 perplexity within 5% of f32's at each sp, the
+      main path's bf16 bound. bf16 greedy tokens are recorded, not
+      compared: the random model's logits are nearly flat, so the two
+      attention orders' bf16 roundings can flip an argmax.
+
+    Each run records the kernel path of every prefill attention launch:
+    each must follow :func:`check_path` (a bf16 single pass on ``tc``,
+    everything else on ``simt``), and a bf16 run must take ``tc``.
 
     The short and long cells keep the activations f32 between layers
     (``--buffer-float-type f32``): under the Q80 sync casts the last-bit
@@ -1274,6 +1365,8 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
             for d in ("f32", "bf16") for sp in (2, 1)]
     plan += [("q80", "f32", sp, SP_SEQ, short, "q80", 0, True, 2300) for sp in (2, 1)]
     plan += [("long", "f32", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT)
+             for sp in (2, 1)]
+    plan += [("long", "bf16", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT)
              for sp in (2, 1)]
     runs = {}
     for cell, dtype, sp, seq_len, text, sync, steps, ppl, least in plan:
@@ -1299,6 +1392,14 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
                 fail(f"sp {cell} {dtype} sp={sp} {path}: want K3s > 0 and K3 = 0: {n}")
             if sp == 1 and n["K3s"] != 0:
                 fail(f"sp {cell} {dtype} sp=1 {path}: K3s launched: {n}")
+        # every prefill launch: a single pass over a bf16 cache on the
+        # tensor cores, an f32 cache or a split launch (a shard's 16-row
+        # block of a 32-token chunk at sp = 2) on the SIMT kernel
+        mode = "fast" if dtype == "bf16" else "exact"
+        for n_splits, path in rec["prefill_launches"]:
+            check_path(f"sp {cell} {dtype} sp={sp} prefill", mode, n_splits, path)
+        if steps and dtype == "bf16" and not rec["prefill_paths"].get("tc"):
+            fail(f"sp {cell} bf16 sp={sp}: no prefill launch took tc: {rec['prefill_paths']}")
         if sp > 1 and steps and rec["k3s_per_decode_step"] != n_layers * sp:
             fail(f"sp {cell} {dtype}: {rec['k3s_per_decode_step']} K3s launches per "
                  f"decode step, want {n_layers * sp}")
@@ -1314,6 +1415,17 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
         if not math.isfinite(p2) or not rel <= tol:
             fail(f"sp {cell}: perplexity at sp=2 {p2} differs from sp=1 {p1} by {rel:.3g} "
                  f"(> {tol})")
+    # bf16 against f32 over the long prompt, at each sp
+    pb = {sp: runs[("long", "bf16", sp)]["perplexity"] for sp in (2, 1)}
+    rel_f32 = {sp: abs(pb[sp] / runs[("long", "f32", sp)]["perplexity"] - 1.0)
+               for sp in (2, 1)}
+    print(json.dumps(dict(case="sp_summary", cell="long bf16", perplexity_sp2=pb[2],
+                          perplexity_sp1=pb[1], rel_diff=abs(pb[2] / pb[1] - 1.0),
+                          rel_diff_f32=rel_f32, tol_f32=0.05)), flush=True)
+    for sp in (2, 1):
+        if not math.isfinite(pb[sp]) or not rel_f32[sp] <= 0.05:
+            fail(f"sp long bf16 sp={sp}: perplexity {pb[sp]} differs from f32 by "
+                 f"{rel_f32[sp]:.3g} (> 5%)")
 
 
 # ---------------------------------------------------------------------------
@@ -1324,13 +1436,15 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
     at the serving M=8), or the single-row decode at depth 2047 and at the
     long sp cell's depth / the cold 128-token prefill / a 256-token chunk at
-    depth 19000 of the long cell's 32768-row cache (K3), or the
+    depth 19000 of the long cell's 32768-row cache / a 128-token chunk at
+    depth 1024 / the cold 128-token prefill at head dim 64 (K3), or the
     single-row and 8-row ragged decode at block size 16 (K4, whose
     yardstick ``gather_sdpa_ms`` is two library calls, so ``library_ms`` is
     null), or one decode over a whole 2048-row and a whole 16384-row shard /
     a 64-token chunk on its diagonal (K3s, whose SDPA yardstick returns no
     m/l). K1/K2 entries carry the K split per weight, K3/K3s the split-S
-    count, as the launches of the kernel phase took them. Launches are the main paths' counts, per path
+    count, as the launches of the kernel phase took them, and every entry its
+    path (``tc``: tensor cores; ``simt``: FP32). Launches are the main paths' counts, per path
     (``inference``, ``perplexity``, ``api``, and the sp path's
     ``sp2_*``/``sp1_*`` runs)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
@@ -1353,7 +1467,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                (f" prefill T=256 @{LONG_PREFILL_AT} in a {SP_LONG_SEQ}-row cache",
                 lambda c: c["start_pos"] == LONG_PREFILL_AT),
                (" prefill T=128 @0", lambda c: c["phase"] == "prefill"
-                and c["start_pos"] == 0 and c["T"] == 128)],
+                and c["start_pos"] == 0 and c["T"] == 128 and c["head_dim"] == HEAD_DIM),
+               (" prefill T=128 @0 head_dim 64", lambda c: c["phase"] == "prefill"
+                and c["head_dim"] == 64),
+               (" prefill T=128 @1024", lambda c: c["phase"] == "prefill"
+                and c["start_pos"] == 1024 and c["T"] == 128)],
         "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
                 and c["block_size"] == BLOCK),
                (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
@@ -1385,11 +1503,17 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                     bound_by="bytes" if b_bytes >= b_ops else "operations",
                     library_ms=(None if kname == "K4"
                                 else sum(c["library_ms"] for c in sel)))
-                # K splits (K1, K2: per weight) and split-S counts (K3, K3s)
+                # K splits (K1, K2: per weight) and split-S counts (K3, K3s);
+                # the path: tensor cores (K1 fast's wgmma, K3/K3s's single
+                # pass over bf16) or FP32 SIMT, as each launch took it
                 if kname in ("K1", "K2"):
                     rec["splits"] = {c["weight"]: c["splits"] for c in sel}
+                    rec["path"] = "tc" if kname == "K1" and mode == "fast" else "simt"
                 elif kname in ("K3", "K3s"):
                     rec["n_splits"] = max(c["n_splits"] for c in sel)
+                    rec["path"] = "+".join(sorted({c["path"] for c in sel}))
+                else:
+                    rec["path"] = "simt"
                 if kname == "K4":
                     rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
                 if kname == "K3s":
@@ -1413,8 +1537,8 @@ def kernel_label(mangled: str) -> str:
 def ab_side(tag: str, assets: str, n_layers: int) -> int:
     """One side of an end-to-end A/B of two checkouts on one card: phase 4
     (``inference`` + ``perplexity`` in f32 and bf16 with the prefill and
-    decode profiles) and the long sp cell at sp = 1 (64 greedy steps after
-    a 20146-token prompt), on the model in ``assets`` (written on the first
+    decode profiles) and the long sp cell at sp = 1 in f32 and bf16 (64
+    greedy steps after a 20146-token prompt), on the model in ``assets`` (written on the first
     side). Host-clock rates spread between calls, so compare two checkouts
     inside one call, in turns, from the root of each::
 
@@ -1430,11 +1554,14 @@ def ab_side(tag: str, assets: str, n_layers: int) -> int:
     t0 = time.perf_counter()
     main_path(model, tok, text, n_layers, e2e)
     long_text = PROMPT * (SP_LONG_PROMPT // len(PROMPT.encode()) + 1)
-    long = sp_run(model, tok, "engine", dtype="f32", sp=1, seq_len=SP_LONG_SEQ,
-                  text=long_text, sync="f32", steps=64, ppl=False)
+    long = {d: sp_run(model, tok, "engine", dtype=d, sp=1, seq_len=SP_LONG_SEQ,
+                      text=long_text, sync="f32", steps=64, ppl=False)
+            for d in ("f32", "bf16")}
     out = {"tag": tag, "wall_s": time.perf_counter() - t0,
-           "long_sp1_decode": long["decode_tok_per_s"],
-           "long_sp1_prefill": long["prefill_tok_per_s"]}
+           "long_sp1_decode": long["f32"]["decode_tok_per_s"],
+           "long_sp1_prefill": long["f32"]["prefill_tok_per_s"],
+           "long_sp1_bf16_decode": long["bf16"]["decode_tok_per_s"],
+           "long_sp1_bf16_prefill": long["bf16"]["prefill_tok_per_s"]}
     for d in ("f32", "bf16"):
         r = e2e[d]
         out[d] = dict(decode=r["decode_tok_per_s"], prefill=r["prefill_tok_per_s"],
@@ -1500,6 +1627,16 @@ def main() -> int:
         t0 = time.perf_counter()
         main_path(model, tok, text, args.layers, e2e)
         print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
+        # on the device: each layer of a bf16 128-token chunk ran K3's
+        # tensor-core kernel once; f32 chunks and decode steps never did
+        for dtype in ("f32", "bf16"):
+            for prof, key, want in (("prefill_profile", "tc_attention_per_chunk",
+                                     args.layers if dtype == "bf16" else 0),
+                                    ("decode_profile", "tc_attention_per_step", 0)):
+                got = e2e[dtype][prof][key]
+                if got != want:
+                    fail(f"{dtype} {prof}: {got} tensor-core attention kernels per "
+                         f"{key.rsplit('_', 1)[-1]} on the device, want {want}")
         t0 = time.perf_counter()
         serving(model, tok, args.layers, e2e)
         print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)

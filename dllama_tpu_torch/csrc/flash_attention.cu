@@ -14,8 +14,9 @@
 // s <= pos[b] + r / kv_mul; no mask tensor is built.
 //
 // Bound on the H100: bytes for decode (T = 1: each visible K/V row is read
-// once and used for kv_mul query rows) and short prefills; operations (FP32
-// SIMT, 67 TFLOP/s) for long prefills. What the design does about it:
+// once and used for kv_mul query rows) and short prefills; operations for
+// long prefills (FP32 SIMT, 67 TFLOP/s, over an f32 cache; the bf16 tensor
+// cores over a bf16 cache). What the design does about it:
 //
 // * One block per (b, kv head, 16-row query tile, split): 4 warps of 4 query
 //   rows, rows dealt round-robin (row r on warp r % 4) so a decode tile of
@@ -51,6 +52,14 @@
 //   see, so fully masked tiles are never loaded (the TPU kernel skipped
 //   their compute at flash_attention.py:71 but still streamed them).
 //
+// * A single pass over a bf16 cache (prefill chunks, K3s's ring blocks) is
+//   bound by bf16 operations at 989 TFLOP/s, which only the tensor cores
+//   reach: it runs flash_attention_tc_kernel instead (below: TMA ring,
+//   mma.sync scores and P V, f32 online softmax, P rounded to bf16). f32
+//   caches (exact mode, the goldens' numerics) and split launches keep the
+//   SIMT kernel. The entries pick the path from the dtype and the split
+//   count alone (use_tc below); the wrapper records the same choice.
+//
 // K3s is the same kernel in its stats mode (STATS = true, entry
 // dlt_flash_block_stats). It replaces the stats=True path of the same Pallas
 // kernel (flash_attention.py::flash_block_stats), the block step of
@@ -66,6 +75,10 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -325,6 +338,274 @@ combine_splits_kernel(const float* __restrict__ part_acc, const float* __restric
   }
 }
 
+// --------------------------------------------------------------------------
+// Single pass over a bf16 cache on the tensor cores (K3 and K3s): one block
+// per (b, kv head, TC_BQ = 64 folded query rows), four warps of 16 rows.
+// K/V tiles of 64 keys arrive by TMA (the cache viewed as 2-D [B * n_kv *
+// S, D] bf16 rows, boxes of 64 keys x 64 columns in the 128-byte swizzle)
+// into a TC_STAGES-deep ring under mbarriers, issued by thread 0 as soon as
+// every warp has left a slot. The scores S = Q K^T and the update P V run
+// on mma.sync m16n8k16 (bf16 in, f32 accumulate): each warp holds its 16
+// query rows as A fragments rounded to bf16 once, reads K (B operand) with
+// ldmatrix and V (B operand, transposed) with ldmatrix.trans, undoing the
+// swizzle in the addresses it gives. The online softmax runs in f32 on the
+// accumulator fragments (row max and sum over the 4 lanes of a row, exp2
+// with scale * log2 e folded in), and P is rounded to bf16 in registers to
+// become the A operand of P V (the one rounding the plain single pass does
+// not make; ops/flash_attention.py::flash_attention_tc_plain makes it the
+// same way). Only tiles that cross a warp's diagonal are masked, and a warp
+// skips the tiles none of its rows sees.
+// --------------------------------------------------------------------------
+
+constexpr int TC_BQ = 64;      // folded query rows per block
+constexpr int TC_BS = 64;      // keys per tile
+constexpr int TC_WARPS = 4;    // 16 query rows each
+constexpr int TC_STAGES = 3;   // ring depth: the tiles in flight
+
+template <int D>
+struct TcSmem {
+  static constexpr int HALVES = D / 64;      // 128-byte swizzle boxes across a row
+  static constexpr int BOX = TC_BS * 128;    // 64 keys x 64 columns: 8 KB
+  static constexpr int TILE = HALVES * BOX;  // the K (or V) tile
+  static constexpr int STAGE = 2 * TILE;     // K, then V
+  // + the mbarriers, + slack to align the ring to 1024 bytes
+  static constexpr int TOTAL = TC_STAGES * STAGE + TC_STAGES * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// grid (ceil(TQ / TC_BQ), n_kv, B); block TC_WARPS * 32 threads; dynamic
+// shared memory TcSmem<D>::TOTAL. Same row rule and outputs as
+// flash_attention_kernel with one split; scale_log2 = scale * log2 e.
+template <int D, bool STATS>
+__global__ void __launch_bounds__(TC_WARPS * 32)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ q, float* __restrict__ out,
+                          float* __restrict__ m_out, float* __restrict__ l_out,
+                          const int* __restrict__ pos, int pos_scalar, int kv_pos0, int n_kv,
+                          int TQ, int S, int kv_mul, float scale_log2) {
+  using St = TcSmem<D>;
+  extern __shared__ unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * TC_BQ;
+  const int q_pos0 = pos != nullptr ? pos[b] : pos_scalar;
+  const size_t head = (size_t)b * n_kv + h;
+  const int kv_row0 = static_cast<int>(head) * S;  // the head's first row in the 2-D view
+  const uint32_t raw0 = smem_addr(tc_smem);
+  const uint32_t ring0 = (raw0 + 1023) & ~1023u;
+  const uint32_t bar0 = ring0 + TC_STAGES * St::STAGE;
+
+  // local slot of the newest key each row sees (rows past TQ get a finite
+  // limit too; they are never written); negative: the row sees nothing
+  const int base = q_pos0 - kv_pos0;
+  const int rows_here = min(TC_BQ, TQ - r0);
+  const int last_key = min(S - 1, base + (r0 + rows_here - 1) / kv_mul);
+  const int n_tiles = last_key < 0 ? 0 : last_key / TC_BS + 1;
+  const int ra = r0 + 16 * warp + g, rb = ra + 8;  // this thread's two rows
+  const int lim_a = min(S - 1, base + ra / kv_mul);
+  const int lim_b = min(S - 1, base + rb / kv_mul);
+  // the warp's least and greatest limits; a warp with no row of the call
+  // (past TQ) walks nothing
+  const int w_lo = min(S - 1, base + (r0 + 16 * warp) / kv_mul);
+  const int w_hi = 16 * warp < rows_here ? min(S - 1, base + (r0 + 16 * warp + 15) / kv_mul)
+                                         : -1;
+
+  if (tid == 0) {
+    for (int i = 0; i < TC_STAGES; ++i) mbar_init(bar0 + 8 * i);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_tile = [&](int tile) {
+    if (tid != 0 || tile >= n_tiles) return;
+    const int slot = tile % TC_STAGES;
+    const uint32_t ks = ring0 + slot * St::STAGE, bar = bar0 + 8 * slot;
+    const int row = kv_row0 + tile * TC_BS;
+    mbar_expect_tx(bar, St::STAGE);
+#pragma unroll
+    for (int hh = 0; hh < St::HALVES; ++hh) {
+      tma_load_2d(ks + hh * St::BOX, &tm_k, bar, 64 * hh, row);
+      tma_load_2d(ks + St::TILE + hh * St::BOX, &tm_v, bar, 64 * hh, row);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) load_tile(i);
+
+  // the warp's 16 query rows as A fragments, rounded to bf16 once
+  uint32_t qf[D / 16][4];
+  const float* qh = q + head * TQ * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = 16 * kk + 8 * half + 2 * t;
+      const float2 va = ra < TQ ? *reinterpret_cast<const float2*>(qh + (size_t)ra * D + d)
+                                : make_float2(0.f, 0.f);
+      const float2 vb = rb < TQ ? *reinterpret_cast<const float2*>(qh + (size_t)rb * D + d)
+                                : make_float2(0.f, 0.f);
+      qf[kk][2 * half] = pack_bf16(va.x, va.y);
+      qf[kk][2 * half + 1] = pack_bf16(vb.x, vb.y);
+    }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // l: this lane's part
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    __syncthreads();  // every warp has left tile - 1: its slot takes tile + TC_STAGES - 1
+    load_tile(tile + TC_STAGES - 1);
+    const int s0 = tile * TC_BS;
+    if (s0 > w_hi) continue;  // warp-uniform: none of its rows sees this tile
+    const int slot = tile % TC_STAGES;
+    mbar_wait(bar0 + 8 * slot, (tile / TC_STAGES) & 1);
+    const uint32_t ks = ring0 + slot * St::STAGE, vs = ks + St::TILE;
+
+    // S = Q K^T: per 16 keys, one ldmatrix.x4 gives two n8 tiles' B
+    float s[TC_BS / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_BS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < TC_BS / 16; ++p) {
+        const int key = 16 * p + ((lane >> 4) << 3) + (lane & 7);
+        const int d = 16 * kk + (((lane >> 3) & 1) << 3);
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + (d >> 6) * St::BOX + swizzle128(key, (d & 63) >> 3));
+        mma_bf16_16816(s[2 * p], qf[kk], r[0], r[1]);
+        mma_bf16_16816(s[2 * p + 1], qf[kk], r[2], r[3]);
+      }
+
+    // online softmax in log2 units; only tiles crossing the diagonal mask
+    const bool full = s0 + TC_BS - 1 <= w_lo;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TC_BS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = s0 + 8 * j + 2 * t + e;
+        float va = s[j][e] * scale_log2, vb = s[j][2 + e] * scale_log2;
+        if (!full) {
+          va = key <= lim_a ? va : -INFINITY;
+          vb = key <= lim_b ? vb : -INFINITY;
+        }
+        s[j][e] = va;
+        s[j][2 + e] = vb;
+        mx_a = fmaxf(mx_a, va);
+        mx_b = fmaxf(mx_b, vb);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    // a row that has seen nothing yet keeps m = -inf: exponents against 0
+    // give p = 0 and corr = 0, never NaN
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a, mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float corr_a = exp2f(m_a - mu_a), corr_b = exp2f(m_b - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t pf[TC_BS / 16][4];  // P as the A fragments of P V, bf16
+#pragma unroll
+    for (int j = 0; j < TC_BS / 8; ++j) {
+      const float p0 = exp2f(s[j][0] - mu_a), p1 = exp2f(s[j][1] - mu_a);
+      const float p2 = exp2f(s[j][2] - mu_b), p3 = exp2f(s[j][3] - mu_b);
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      pf[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
+      pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= corr_a; o[j][1] *= corr_a;
+      o[j][2] *= corr_b; o[j][3] *= corr_b;
+    }
+
+    // O += P V: per 16 keys x 16 columns, one ldmatrix.x4.trans
+#pragma unroll
+    for (int kk = 0; kk < TC_BS / 16; ++kk)
+#pragma unroll
+      for (int qd = 0; qd < D / 16; ++qd) {
+        const int key = 16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7);
+        const int d = 16 * qd + ((lane >> 4) << 3);
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vs + (d >> 6) * St::BOX + swizzle128(key, (d & 63) >> 3));
+        mma_bf16_16816(o[2 * qd], pf[kk], r[0], r[1]);
+        mma_bf16_16816(o[2 * qd + 1], pf[kk], r[2], r[3]);
+      }
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= TQ) continue;
+    const float m = half ? m_b : m_a, l = half ? l_b : l_a;
+    // stats: the unnormalised sum (a row that saw nothing: acc = 0, l = 0,
+    // m = -inf); otherwise normalised here
+    const float inv = STATS ? 1.f : (l > 0.f ? 1.f / l : 1.f);
+    float* orow = out + (head * TQ + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+          make_float2(o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
+    if (STATS && t == 0) {
+      m_out[head * TQ + row] = m * 0.6931471805599453f;  // back to natural units
+      l_out[head * TQ + row] = l;
+    }
+  }
+}
+
+template <int D, bool STATS>
+int launch_tc_d(const float* q, const void* k, const void* v, float* out, float* m_out,
+                float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
+                int TQ, int S, int kv_mul, float scale, cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v;
+  const uint64_t rows = (uint64_t)B * n_kv * S;
+  if (!tensor_map(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, D, rows, D * 2, 64, TC_BS,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, D, rows, D * 2, 64, TC_BS,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorNotSupported);
+  auto kernel = flash_attention_tc_kernel<D, STATS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<D>::TOTAL);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((TQ + TC_BQ - 1) / TC_BQ, n_kv, B);
+  kernel<<<grid, TC_WARPS * 32, TcSmem<D>::TOTAL, stream>>>(
+      tm_k, tm_v, q, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int launch_tc(const float* q, const void* k, const void* v, float* out, float* m_out,
+              float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
+              int TQ, int S, int D, int kv_mul, float scale, cudaStream_t stream) {
+  return D == 64 ? launch_tc_d<64, STATS>(q, k, v, out, m_out, l_out, pos, pos_scalar, kv_pos0,
+                                          B, n_kv, TQ, S, kv_mul, scale, stream)
+                 : launch_tc_d<128, STATS>(q, k, v, out, m_out, l_out, pos, pos_scalar,
+                                           kv_pos0, B, n_kv, TQ, S, kv_mul, scale, stream);
+}
+
 // One launch of K3 (STATS = false) or K3s (true). n_splits > 1 runs pass 1
 // into the scratch `part` (n_splits * rows * (D + 2) floats, rows = B * n_kv
 // * TQ: the acc partials, then m, then l) and pass 2 into out / m_out / l_out.
@@ -337,14 +618,19 @@ void launch(const float* q, const void* k, const void* v, float* out, float* m_o
   const KV* vp = static_cast<const KV*>(v);
   dim3 grid((TQ + BQ - 1) / BQ * n_splits, n_kv, B);
   const int rows = B * n_kv * TQ;
-  if (n_splits == 1) {  // the grid fills the card: one pass
-    if (D == 64)
-      flash_attention_kernel<KV, 64, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
-          q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, 1);
-    else
-      flash_attention_kernel<KV, 128, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
-          q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, 1);
-    return;
+  if constexpr (std::is_same<KV, float>::value) {
+    // the grid fills the card: one pass (over a bf16 cache: launch_tc)
+    if (n_splits == 1) {
+      if (D == 64)
+        flash_attention_kernel<KV, 64, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
+            q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale,
+            1);
+      else
+        flash_attention_kernel<KV, 128, STATS, false><<<grid, WARPS * 32, 0, stream>>>(
+            q, kp, vp, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale,
+            1);
+      return;
+    }
   }
   float* pa = part;
   float* pm = part + (size_t)n_splits * rows * D;
@@ -363,6 +649,11 @@ void launch(const float* q, const void* k, const void* v, float* out, float* m_o
   }
 }
 
+// The path of a launch: the tensor cores for a single pass over a bf16
+// cache (the SIMT kernel has no bf16 single pass), the SIMT kernel for f32
+// caches and split launches. ops/flash_attention.py::_attn_path records it.
+bool use_tc(int kv_bf16, int n_splits) { return kv_bf16 && n_splits == 1; }
+
 }  // namespace
 
 extern "C" {
@@ -371,6 +662,8 @@ extern "C" {
 // out f32 [B, n_kv, TQ, D]; pos int32 [B] on the device, or null to use
 // pos_scalar for every row. D in {64, 128}. n_splits >= 1 (split-S when
 // > 1, with part the f32 scratch of launch() above; unused otherwise).
+// A bf16 cache with n_splits = 1 takes the tensor-core single pass, every
+// other launch the SIMT kernel (use_tc).
 int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
                         const void* pos, int pos_scalar, int B, int n_kv, int TQ,
                         int S, int D, int kv_mul, float scale, int kv_bf16,
@@ -382,6 +675,9 @@ int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
   const int* pp = static_cast<const int*>(pos);
   float* op = static_cast<float*>(out);
   float* sp = static_cast<float*>(part);
+  if (use_tc(kv_bf16, n_splits))
+    return launch_tc<false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B, n_kv, TQ, S,
+                            D, kv_mul, scale, s);
   if (kv_bf16)
     launch<__nv_bfloat16, false>(qp, k, v, op, nullptr, nullptr, sp, n_splits, pp,
                                  pos_scalar, 0, B, n_kv, TQ, S, D, kv_mul, scale, s);
@@ -408,6 +704,9 @@ int dlt_flash_block_stats(const void* q, const void* k, const void* v, void* acc
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   float* sp = static_cast<float*>(part);
+  if (use_tc(kv_bf16, n_splits))
+    return launch_tc<true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv, TQ, S, D,
+                           kv_mul, scale, s);
   if (kv_bf16)
     launch<__nv_bfloat16, true>(qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar, kv_pos0,
                                 B, n_kv, TQ, S, D, kv_mul, scale, s);

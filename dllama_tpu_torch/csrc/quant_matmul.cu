@@ -14,13 +14,17 @@
 //   split are added in split order by a second small kernel.
 //   Bound on the H100: at prefill widths (M = 32..256) the work is
 //   2*M*K*N operations on 1.06 (bf16 scales) to 1.125 (f32) bytes per
-//   weight. Exact mode
-//   (FP32 SIMT, 67 TFLOP/s) is bound by operations: a 64x64 tile per block,
-//   each dequantized weight reused 64 times from shared memory, a 4x4
-//   micro-tile per thread. Fast mode (bf16 tensor cores, 989 TFLOP/s) is
-//   bound by the weight bytes up to M ~ 128, where the two bounds meet, so
-//   its design streams every weight byte once and keeps the tensor cores
-//   fed at the same time (q40_matmul_bf16_kernel):
+//   weight. Exact mode (FP32 SIMT, 67 TFLOP/s) is bound by operations, so
+//   its design keeps the FMA pipes fed (q40_matmul_f32_kernel): a 128 x 128
+//   tile per block for a 128-row chunk (32 or 64 rows for narrower calls),
+//   an 8 x 8 register micro-tile per thread read as 16-byte shared loads
+//   (16 FMAs a load), two stages in flight (x by cp.async, the next Q40
+//   block's codes in registers, dequantized without conversion
+//   instructions), split-K for narrow N. No TF32: the plain version is f32
+//   throughout. Fast mode (bf16 tensor cores, 989 TFLOP/s) is bound by the
+//   weight bytes up to M ~ 128, where the two bounds meet, so its design
+//   streams every weight byte once and keeps the tensor cores fed at the
+//   same time (q40_matmul_bf16_kernel):
 //   * one weight pass: a block owns 256 columns of N for all rows of the
 //     call (slabs of 128 rows; a wider call's slabs are neighbouring blocks
 //     and share the weight through L2);
@@ -71,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -260,89 +266,197 @@ int launch_gemv(const void* x, const int8_t* codes, const void* scales, float* y
 }
 
 // --------------------------------------------------------------------------
-// K1 exact: FP32 SIMT tile, 64x64 per block, 4x4 per thread
+// K1 exact: pipelined, register-blocked FP32 tile. A block owns XT_BN = 128
+// weight columns and BM = 32, 64 or 128 activation rows (128 for a whole
+// 128-token chunk) and walks its K range in stages of one Q40 block (32
+// rows, one scale row). 256 threads as 16 x 16; thread (tm, tn) holds a
+// (BM / 16) x 8 micro-tile: rows tm * RM + i and BM / 2 + tm * RM + i
+// (RM = BM / 32), columns 4 tn + j and 64 + 4 tn + j, so that each
+// quarter-warp reads one shared row (x) or 128 contiguous bytes (weights)
+// per 16-byte load. Two stages in shared memory: while a stage's FMAs run,
+// the next stage's x tile is in flight by 16-byte cp.async and the next
+// stage's codes (16 bytes a thread) and scales sit in registers; after the
+// FMAs they are dequantized with K2's conversion-free trick (dequant4: code
+// * scale rounded in f32, the plain version's weights exactly) into the
+// other stage's weight tile. Split z of a K split takes stages [z * per,
+// min(n_stages, (z + 1) * per)) and writes its partial y to out + z * M * N.
 // --------------------------------------------------------------------------
 
-constexpr int MT_BM = 64, MT_BN = 64, MT_BK = QB;
+constexpr int XT_BK = QB;         // K rows per stage: one Q40 block
+constexpr int XT_BN = 128;        // weight columns per block
+constexpr int XT_THREADS = 2 * XT_BN;  // 16 x (XT_BN / 8) threads
 
-__global__ void __launch_bounds__(256)
+template <int BM>
+struct XtSmem {
+  static constexpr int X = BM * XT_BK;        // floats: x tile [BM][XT_BK], rows as in x
+  static constexpr int W = XT_BK * XT_BN;     // floats: dequantized weights [XT_BK][XT_BN]
+  static constexpr int STAGE = X + W;
+  static constexpr int BYTES = 2 * STAGE * 4;
+};
+
+template <int BM>
+__global__ void __launch_bounds__(XT_THREADS)
 q40_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
                       const float* __restrict__ scales, float* __restrict__ out,
-                      int M, int K, int N) {
-  __shared__ float As[MT_BK][MT_BM + 4];  // x tile, transposed: As[k][m]
-  __shared__ float Bs[MT_BK][MT_BN + 4];  // dequantized weight tile
+                      int M, int K, int N, int st_per_split) {
+  using S = XtSmem<BM>;
+  constexpr int RM = BM / 32;  // rows per thread in each half of the tile
+  extern __shared__ __align__(16) float xt_smem[];
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * MT_BM, n0 = blockIdx.x * MT_BN;
-  const bool vec_n = (N % 8) == 0;
+  const int tn = tid % (XT_BN / 8), tm = tid / (XT_BN / 8);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * XT_BN;
+  const int n_stages = K / XT_BK;
+  const int st_lo = blockIdx.z * st_per_split;
+  const int st_hi = min(n_stages, st_lo + st_per_split);
+  const bool vec = (N & 15) == 0;  // 16-byte rows of codes
 
-  float acc[4][4];
+  // x rows m0.. of a stage: BM x 8 chunks of 16 bytes; rows past M read as 0
+  auto load_x = [&](int st, int buf) {
+    float* xs = xt_smem + buf * S::STAGE;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < BM * 8 / XT_THREADS; ++i) {
+      const int c = i * XT_THREADS + tid;
+      const int r = c >> 3, kc = (c & 7) * 4;
+      const int m = m0 + r;
+      cp_async16(smem_addr(xs + r * XT_BK + kc),
+                 x + (size_t)min(m, M - 1) * K + st * XT_BK + kc, m < M ? 16 : 0);
+    }
+    cp_async_commit();
+  };
 
-  // load coordinates: A = 64 rows x 32 k (8 floats / thread),
-  //                   B = 32 k x 64 cols (8 codes / thread)
-  const int a_row = tid / 4, a_k = (tid % 4) * 8;
-  const int b_k = tid / 8, b_col = (tid % 8) * 8;
-
-  for (int k0 = 0; k0 < K; k0 += MT_BK) {
-    {
-      const int m = m0 + a_row;
-      float v[8];
-      if (m < M) {
-        const float4* src = reinterpret_cast<const float4*>(x + (size_t)m * K + k0 + a_k);
-        float4 lo = src[0], hi = src[1];
-        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-      } else {
+  // this thread's 16 codes of one K row (row wr of the stage, columns wc..)
+  // and their 16 scales; columns past N hold code 0 and scale 0
+  const int wr = tid / (XT_BN / 16), wc = tid % (XT_BN / 16) * 16;
+  uint32_t craw[4];
+  float sc[16];
+  auto load_w = [&](int st) {
+    const int n = n0 + wc;
+    const size_t row = (size_t)(st * XT_BK + wr) * N;
+    if (vec && n < N) {
+      const uint4 c = __ldg(reinterpret_cast<const uint4*>(codes + row + n));
+      craw[0] = c.x; craw[1] = c.y; craw[2] = c.z; craw[3] = c.w;
+      const float4* s4 = reinterpret_cast<const float4*>(scales + (size_t)st * N + n);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = 0.f;
+      for (int j = 0; j < 4; ++j) {
+        const float4 s = __ldg(s4 + j);
+        sc[4 * j] = s.x; sc[4 * j + 1] = s.y; sc[4 * j + 2] = s.z; sc[4 * j + 3] = s.w;
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) As[a_k + i][a_row] = v[i];
-    }
-    {
-      const int n = n0 + b_col;
-      const int8_t* crow = codes + (size_t)(k0 + b_k) * N;
-      const float* srow = scales + (size_t)(k0 / QB) * N;
-      if (vec_n && n + 8 <= N) {
-        uint2 raw = __ldg(reinterpret_cast<const uint2*>(crow + n));
-        const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+      for (int j = 0; j < 4; ++j) craw[j] = 0u;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) Bs[b_k][b_col + i] = static_cast<float>(c[i]) * __ldg(srow + n + i);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          Bs[b_k][b_col + i] = (n + i < N) ? static_cast<float>(crow[n + i]) * srow[n + i] : 0.f;
+      for (int j = 0; j < 16; ++j) {
+        const bool ok = n + j < N;
+        craw[j / 4] |= (ok ? static_cast<uint32_t>(static_cast<uint8_t>(codes[row + n + j]))
+                           : 0u) << (8 * (j % 4));
+        sc[j] = ok ? __ldg(scales + (size_t)st * N + n + j) : 0.f;
       }
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < MT_BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  };
+  auto store_w = [&](int buf) {
+    float* ws = xt_smem + buf * S::STAGE + S::X + wr * XT_BN + wc;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[(size_t)m * N + n] = acc[i][j];
+      const ScalesF32 s = {{sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]}};
+      float w[4];
+      dequant4(biased_nibbles(static_cast<int>(craw[j])), s, w);
+      *reinterpret_cast<float4*>(ws + 4 * j) = make_float4(w[0], w[1], w[2], w[3]);
+    }
+  };
+
+  float acc[2 * RM][8];
+#pragma unroll
+  for (int i = 0; i < 2 * RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  auto compute = [&](int buf) {
+    const float* xs = xt_smem + buf * S::STAGE;
+    const float* ws = xs + S::X;
+#pragma unroll
+    for (int kq = 0; kq < XT_BK; kq += 4) {
+      float a[2 * RM][4];
+#pragma unroll
+      for (int i = 0; i < 2 * RM; ++i) {
+        const int r = i < RM ? tm * RM + i : BM / 2 + tm * RM + (i - RM);
+        const float4 v = *reinterpret_cast<const float4*>(xs + r * XT_BK + kq);
+        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* wrow = ws + (kq + kk) * XT_BN + 4 * tn;
+        const float4 b0 = *reinterpret_cast<const float4*>(wrow);
+        const float4 b1 = *reinterpret_cast<const float4*>(wrow + XT_BN / 2);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 2 * RM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  };
+
+  if (st_lo < st_hi) {
+    load_x(st_lo, 0);
+    load_w(st_lo);
+    store_w(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int st = st_lo; st < st_hi; ++st) {
+    // stage st is in buffer buf; every thread is done with the other buffer
+    // (the barrier that ended the previous iteration)
+    const int buf = (st - st_lo) & 1;
+    const bool next = st + 1 < st_hi;
+    if (next) {
+      load_x(st + 1, buf ^ 1);
+      load_w(st + 1);
+    }
+    compute(buf);
+    if (next) store_w(buf ^ 1);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  float* dst = out + (size_t)blockIdx.z * M * N;
+  const bool vec4 = (N & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 2 * RM; ++i) {
+    const int m = m0 + (i < RM ? tm * RM + i : BM / 2 + tm * RM + (i - RM));
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + XT_BN / 2 * h + 4 * tn;
+      float* p = dst + (size_t)m * N + n;
+      if (vec4 && n + 4 <= N) {
+        *reinterpret_cast<float4*>(p) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) p[j] = acc[i][4 * h + j];
+      }
     }
   }
+}
+
+template <int BM>
+int launch_matmul_f32(const float* x, const int8_t* codes, const float* scales, float* y,
+                      float* part, int M, int K, int N, int splits, cudaStream_t stream) {
+  auto kernel = q40_matmul_f32_kernel<BM>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       XtSmem<BM>::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_stages = K / XT_BK;
+  const int per = (n_stages + splits - 1) / splits;
+  dim3 grid((N + XT_BN - 1) / XT_BN, (M + BM - 1) / BM, splits);
+  kernel<<<grid, XT_THREADS, XtSmem<BM>::BYTES, stream>>>(x, codes, scales,
+                                                          splits == 1 ? y : part, M, K, N, per);
+  if (splits > 1) {
+    const int MN = M * N;
+    sum_splits_kernel<<<(MN + 255) / 256, 256, 0, stream>>>(part, y, splits, MN);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --------------------------------------------------------------------------
@@ -373,120 +487,6 @@ struct FtSmem {
   static constexpr int TOTAL = STAGE * FT_STAGES + FT_STAGES * 8 + 1024;
   static_assert(STAGE % 1024 == 0, "stage buffers must keep 1024-byte swizzle atoms");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-// a 2-D box of a tensor map (coordinates innermost first) -> shared memory
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma's shared-memory operand descriptor for the K-major 128-byte-swizzle
-// layout TMA writes: rows of 128 bytes (64 k), 8-row atoms 1024 bytes apart
-// (stride byte offset); a k16 step starts 32 bytes further into the rows.
-__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | (static_cast<uint64_t>(1) << 16)
-       | (static_cast<uint64_t>(1024 >> 4) << 32)
-       | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keep the compiler from moving accumulator accesses across the async ops
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared memory, K-major
-// descriptor); f32 accumulators, scale-d = 1 (accumulate)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared memory, K-major
-// descriptor); f32 accumulators, scale-d = 1 (accumulate)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
 
 template <int MP>
 __device__ __forceinline__ void wgmma_tile(float (&d)[MP / 2], const uint32_t (&a)[4],
@@ -542,7 +542,7 @@ q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   if (tid == 0) {
     for (int i = 0; i < FT_STAGES; ++i) mbar_init(bar0 + 8 * i);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -650,42 +650,6 @@ q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// cuTensorMapEncodeTiled, a libcuda function, looked up through the CUDA
-// runtime (no -lcuda at build time)
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// a row-major [outer, inner] tensor of row pitch row_bytes, read in boxes of
-// box_inner x box_outer elements; zeros past its edges
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-                uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
-                CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int MP>
 int launch_matmul_bf16(const __nv_bfloat16* x, const int8_t* codes, const __nv_bfloat16* scales,
                        float* y, float* part, int M, int K, int N, int splits,
@@ -732,9 +696,10 @@ int dlt_q40_gemv(const void* x, const void* codes, const void* scales, void* y,
       x, c, scales, static_cast<float*>(y), static_cast<float*>(part), M, K, N, splits, s);
 }
 
-// K1 entry: same operands, any M; K % 32 == 0. Fast mode also needs N % 16
-// == 0 and takes the split-K scratch part f32 [splits, M, N] (unused when
-// splits == 1); slab rows MP = 64 for M <= 64, else 128.
+// K1 entry: same operands, any M; K % 32 == 0. Both modes take the split-K
+// scratch part f32 [splits, M, N] (unused when splits == 1). Fast mode also
+// needs N % 16 == 0; slab rows MP = 64 for M <= 64, else 128. Exact mode's
+// tile has BM = 32, 64 or 128 rows (the least that holds M, up to 128).
 int dlt_q40_matmul(const void* x, const void* codes, const void* scales, void* y, void* part,
                    int M, int K, int N, int splits, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -748,11 +713,14 @@ int dlt_q40_matmul(const void* x, const void* codes, const void* scales, void* y
     return M <= 64 ? launch_matmul_bf16<64>(xp, c, sp, yp, pp, M, K, N, splits, s)
                    : launch_matmul_bf16<128>(xp, c, sp, yp, pp, M, K, N, splits, s);
   }
-  dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM);
-  q40_matmul_f32_kernel<<<grid, 256, 0, s>>>(
-      static_cast<const float*>(x), c, static_cast<const float*>(scales),
-      static_cast<float*>(y), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xp = static_cast<const float*>(x);
+  const float* sp = static_cast<const float*>(scales);
+  float* yp = static_cast<float*>(y);
+  float* pp = static_cast<float*>(part);
+  return M <= 32   ? launch_matmul_f32<32>(xp, c, sp, yp, pp, M, K, N, splits, s)
+         : M <= 64 ? launch_matmul_f32<64>(xp, c, sp, yp, pp, M, K, N, splits, s)
+                   : launch_matmul_f32<128>(xp, c, sp, yp, pp, M, K, N, splits, s);
 }
 
 const char* dlt_error_string(int code) {

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own (one ``nvcc`` per source, all
 started together) into ``_build/lib<name>.<hash>.so``, a shared library with
 a plain C interface loaded through ``ctypes`` — no PyTorch headers, so a
-build takes seconds. The hash covers the source and the flags, so a changed
-kernel rebuilds and an unchanged one is reused. ``_build/`` is git-ignored.
+build takes seconds. The sources share the Hopper helpers of
+``csrc/hopper.cuh``. The hash covers the source, the headers and the flags,
+so a changed kernel rebuilds and an unchanged one is reused. ``_build/`` is git-ignored.
 
 Nothing here runs at import time: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -52,6 +53,8 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's build
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 

@@ -32,6 +32,17 @@ stats mode, with the same split rule; its plain version is
 (:func:`flash_block_stats_plain` folds around it).
 ``flash_block_stats.launches`` counts its launches, and
 ``flash_block_stats.last_splits`` holds the last launch's ``n_splits``.
+
+Two paths on the card, chosen by :func:`_attn_path` from the cache dtype
+and the split count alone, and recorded as ``last_path`` on each wrapper:
+a single pass over a bf16 cache (prefill chunks, K3s's ring blocks) runs on
+the tensor cores (``"tc"``: bf16 ``mma.sync`` scores and ``P V`` from a TMA
+ring, f32 online softmax, ``P`` rounded to bf16 before ``P V``); f32 caches
+and split launches run the FP32 SIMT kernel (``"simt"``). The tensor-core
+path's rounding is written plainly in :func:`flash_block_stats_tc_plain`
+and :func:`flash_attention_tc_plain`, which the CPU tests and
+``chip_smoke.py`` hold it against; the CPU dispatch stays on the f32
+oracle.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ BQ, BS = 16, 32              # query rows per block, keys per tile (csrc)
 _SPLIT_MAX_BLOCKS = SMS // 4
 _SPLIT_TARGET_BLOCKS = 2 * SMS
 _SPLIT_MIN_TILES = 2
+TC_BQ, TC_BS = 64, 64        # the tensor-core path's query rows per block, keys per tile
 
 
 def supports(q_shape: tuple[int, ...], n_kv: int, s: int) -> bool:
@@ -89,6 +101,15 @@ def _attn_splits(B: int, n_kv: int, TQ: int, S: int) -> int:
     if blocks > _SPLIT_MAX_BLOCKS:
         return 1
     return max(1, min(-(-_SPLIT_TARGET_BLOCKS // blocks), -(-S // BS) // _SPLIT_MIN_TILES))
+
+
+def _attn_path(kv_dtype: torch.dtype, n_splits: int) -> str:
+    """The kernel a K3/K3s launch takes: ``"tc"`` (tensor cores) for a
+    single pass over a bf16 cache, ``"simt"`` (FP32) for an f32 cache or a
+    split launch. Depends on the dtype and the shapes only: the C entries
+    (``csrc/flash_attention.cu::use_tc``) choose the same way, as their
+    kernels allow no other, and the wrappers record it as ``last_path``."""
+    return "tc" if kv_dtype == torch.bfloat16 and n_splits == 1 else "simt"
 
 
 def _split_ranges(newest: int, n_splits: int) -> list[tuple[int, int]]:
@@ -149,6 +170,7 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     pos_ptr, pos_scalar, _pos = _positions(start_pos, q.device)
     TQ = T * kv_mul
     n_splits = _attn_splits(B, n_kv, TQ, S)
+    path = _attn_path(k_cache.dtype, n_splits)
     part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q.device)
     lib = _lib()
     with on_card(q.device):
@@ -159,12 +181,14 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
             part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     flash_attention.last_splits = n_splits
+    flash_attention.last_path = path
     check(lib, rc, "flash_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)
 
 
 flash_attention.launches = 0
 flash_attention.last_splits = 0
+flash_attention.last_path = ""
 
 
 def _check_cache(what: str, device: torch.device, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -256,6 +280,7 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
     l = torch.empty_like(m)
     pos_ptr, pos_scalar, _pos = _positions(q_pos0, q_g.device)
     n_splits = _attn_splits(B, n_kv, TQ, S)
+    path = _attn_path(k_block.dtype, n_splits)
     part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q_g.device)
     lib = _lib()
     with on_card(q_g.device):
@@ -267,9 +292,64 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
             torch.cuda.current_stream(q_g.device).cuda_stream)
     flash_block_stats.launches += 1
     flash_block_stats.last_splits = n_splits
+    flash_block_stats.last_path = path
     check(lib, rc, "flash_block_stats")
     return acc, m, l
 
 
 flash_block_stats.launches = 0
 flash_block_stats.last_splits = 0
+flash_block_stats.last_path = ""
+
+
+def flash_block_stats_tc_plain(q_g: torch.Tensor, k_block: torch.Tensor,
+                               v_block: torch.Tensor, q_pos0: int | torch.Tensor,
+                               kv_pos0: int, head_dim: int, t: int):
+    """The tensor-core path's rounding written plainly (K3s's arguments and
+    results, :func:`flash_block_stats`): queries rounded to bf16 once, keys
+    walked in the kernel's 64-key tiles from local slot 0 with the online
+    softmax in f32, and each tile's ``p`` (against the running max) rounded
+    to bf16 before ``p V``; ``l`` sums the unrounded ``p``. Not on the main
+    path: the tests and ``chip_smoke.py`` hold the kernel against it."""
+    B, n_kv, TQ, D = q_g.shape
+    kv_mul = TQ // t
+    S = k_block.shape[2]
+    dev = q_g.device
+    base = (q_pos0.to(dev).long()[:, None] if torch.is_tensor(q_pos0)
+            else torch.full((B, 1), int(q_pos0), device=dev))
+    limit = (base - kv_pos0 + torch.arange(TQ, device=dev)[None, :] // kv_mul).clamp(max=S - 1)
+    q = q_g.to(torch.bfloat16).float()
+    scale = 1.0 / math.sqrt(head_dim)
+    m = torch.full((B, n_kv, TQ), float("-inf"), device=dev)
+    l = torch.zeros((B, n_kv, TQ), device=dev)
+    acc = torch.zeros((B, n_kv, TQ, D), device=dev)
+    newest = int(limit.max())
+    for s0 in range(0, newest + 1 if newest >= 0 else 0, TC_BS):
+        k = k_block[:, :, s0:s0 + TC_BS].float()
+        v = v_block[:, :, s0:s0 + TC_BS].float()
+        keys = s0 + torch.arange(k.shape[2], device=dev)
+        vis = keys[None, None, :] <= limit[:, :, None]                  # [B, TQ, n]
+        s = torch.einsum("bkrd,bksd->bkrs", q, k) * scale
+        s = torch.where(vis[:, None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(torch.isfinite(m_new), m_new, 0.0)         # -inf rows: p = 0
+        p = torch.exp(s - m_use[..., None])
+        corr = torch.exp(m - m_use)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkrs,bksd->bkrd", p.to(torch.bfloat16).float(), v)
+        m = m_new
+    return acc, m, l
+
+
+def flash_attention_tc_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             start_pos: int | torch.Tensor, head_dim: int) -> torch.Tensor:
+    """:func:`flash_attention`'s arguments and result, with the tensor-core
+    path's rounding (:func:`flash_block_stats_tc_plain` over the whole
+    cache, then ``acc / l``)."""
+    B, T, n_heads, D = q.shape
+    n_kv = k_cache.shape[1]
+    acc, _, l = flash_block_stats_tc_plain(fold_queries(q, n_kv), k_cache, v_cache,
+                                           start_pos, 0, head_dim, T)
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return unfold_output(out, T, n_heads).to(q.dtype)

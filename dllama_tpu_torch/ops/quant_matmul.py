@@ -4,14 +4,19 @@
 
 * **K1** :func:`q40_matmul` — replaces the JAX package's
   ``ops/quant_matmul.py::_kernel`` (the (N/bn, K/bk)-tiled Pallas kernel,
-  ``pallas_call`` at :293). Exact mode is bound by FP32 operations: one
-  block per 64x64 output tile walking all of K in 32-row steps. Fast mode is
+  ``pallas_call`` at :293). Exact mode is bound by FP32 operations: a
+  block owns 128 weight columns and up to 128 rows (a whole 128-token
+  chunk), each thread an 8x8 register micro-tile fed by 16-byte shared
+  loads, K in 32-row stages (one Q40 block) with the next stage in flight
+  (x by ``cp.async``, codes in registers) during the current one's FMAs, and
+  the same split-K rule as fast mode for narrow N. Fast mode is
   bound by the weight bytes at the prefill widths, the bf16 operation bound
   close behind at M = 128: a block owns 256 weight columns for up to 128
   rows and streams each weight byte once through a TMA-fed ring of 64-row
   stages; the codes are dequantized straight into the A registers of a
-  swapped ``wgmma`` product (``y^T = W^T x^T``), and narrow N takes a K
-  split across blocks (:func:`_matmul_splits`), summed in split order.
+  swapped ``wgmma`` product (``y^T = W^T x^T``). In both modes narrow N
+  takes a K split across blocks (:func:`_matmul_splits`), summed in split
+  order.
 * **K2** :func:`q40_gemv` — replaces ``_decode_kernel`` (the single-pass
   decode GEMV, ``pallas_call`` at :208) for ``M <= FUSED_MAX_M``. Bound:
   bytes (one pass over the planes). Design: neighbouring threads on
@@ -58,6 +63,14 @@ _STAGE_K = 64
 # weight bytes the split saves (at M = 128, 4 * M bytes a column per split
 # against 1.06 * K_split)
 _MIN_SPLIT_STAGES = 8
+# K1 exact tile (csrc: XT_*): 128 weight columns and 32, 64 or 128
+# activation rows per block (:func:`_exact_tile_m`), K in 32-row stages (one
+# Q40 block each); each K split walks at least 8 stages (256 rows of K,
+# 2 * 128 * 256 * 128 operations a block against 2 * 4 * 128 * 128 bytes of
+# partials to write and sum)
+_EXACT_TILE_N = 128
+_EXACT_STAGE_K = Q40_BLOCK_SIZE
+_EXACT_MIN_SPLIT_STAGES = 8
 
 
 def supports(x_shape: tuple[int, ...], w: QuantizedWeight, *, fast: bool = False) -> bool:
@@ -143,16 +156,27 @@ def _gemv_splits(K: int, N: int) -> int:
     return -(-nkb // per)
 
 
-def _matmul_splits(M: int, K: int, N: int) -> int:
-    """K splits across blocks for K1's fast tile: a grid of fewer (N, M)
-    tiles than SMs takes more blocks along K, each split a whole number of
-    64-row stages and at least :data:`_MIN_SPLIT_STAGES` of them; the
-    partial rows are summed in split order."""
-    tiles = -(-N // _TILE_N) * -(-M // _TILE_M)
-    n_stages = -(-K // _STAGE_K)
+def _exact_tile_m(M: int) -> int:
+    """Rows of K1's exact tile: the least of 32, 64 and 128 that holds M
+    (128 for wider calls, in several row tiles)."""
+    return 32 if M <= 32 else 64 if M <= 64 else 128
+
+
+def _matmul_splits(M: int, K: int, N: int, *, fast: bool = True) -> int:
+    """K splits across blocks for K1's tile (fast or exact): a grid of
+    fewer (N, M) tiles than SMs takes more blocks along K, each split a
+    whole number of stages (64 rows fast, one 32-row Q40 block exact) and
+    at least 8 of them; the partial rows are summed in split order."""
+    if fast:
+        tiles = -(-N // _TILE_N) * -(-M // _TILE_M)
+        stage, least = _STAGE_K, _MIN_SPLIT_STAGES
+    else:
+        tiles = -(-N // _EXACT_TILE_N) * -(-M // _exact_tile_m(M))
+        stage, least = _EXACT_STAGE_K, _EXACT_MIN_SPLIT_STAGES
+    n_stages = -(-K // stage)
     if tiles >= SMS:
         return 1
-    per = max(_MIN_SPLIT_STAGES, -(-n_stages // (SMS // tiles)))
+    per = max(least, -(-n_stages // (SMS // tiles)))
     return -(-n_stages // per)
 
 
@@ -198,7 +222,7 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
         raise ValueError(f"q40_matmul: codes {tuple(w.codes.shape)}: the fast tile "
                          f"needs N % 16 == 0")
     x2d, scales, M, K, N = _cuda_operands(x, w, fast, "q40_matmul")
-    splits = _matmul_splits(M, K, N) if fast else 1
+    splits = _matmul_splits(M, K, N, fast=fast)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
             if splits > 1 else y)

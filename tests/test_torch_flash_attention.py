@@ -162,3 +162,102 @@ def test_split_count_depends_on_shapes_only():
     assert fa._attn_splits(1, 8, 4, fa.BS) == 1
     counts = [fa._attn_splits(B, 8, 4, 4096) for B in (1, 2, 4)]
     assert counts == sorted(counts, reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core path (a single pass over a bf16 cache): its rounding,
+# written plainly, against the JAX kernel on a bf16 cache; the path rule
+# ---------------------------------------------------------------------------
+
+# the JAX package's own bound for its flash kernel over a bf16 cache
+# (tests/test_flash_attention.py::test_bf16_cache_matches_oracle)
+BF16_RTOL = BF16_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("B,T,start", [
+    (1, 1, 200),                 # a decode row deep in the cache: 4 tiles of 64 keys
+    (1, 16, 37),                 # a chunk whose rows cross a tile edge
+    (1, 128, 64),                # a 128-token chunk: 512 folded rows, 8 blocks
+    (3, 4, [0, 100, 200]),       # ragged start positions
+])
+def test_tc_plain_matches_pallas_on_bf16_cache(B, T, start):
+    H, n_kv, D, S = 8, 2, 64, 256
+    starts = np.broadcast_to(np.asarray(start, np.int32), (B,)).copy()
+    q, k, v = _mk(B, T, H, n_kv, D, S, int(starts.max()) + T, seed=T)
+    kb, vb = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+    jpos = jnp.asarray(starts) if isinstance(start, list) else jnp.int32(start)
+    want = jax_flash(jnp.asarray(q), kb, vb, jpos, D, interpret=True)
+    pos = torch.from_numpy(starts) if isinstance(start, list) else start
+    got = fa.flash_attention_tc_plain(torch.from_numpy(q), torch.from_numpy(k).bfloat16(),
+                                      torch.from_numpy(v).bfloat16(), pos, D)
+    assert got.shape == (B, T, H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("T,q_pos0,kv_pos0", [
+    (1, 300, 128),               # decode over a whole 256-row block
+    (8, [124, 200], 128),        # ragged: one row sees nothing at first, then part
+    (16, 100, 128),              # every row lies before the block: fully masked
+    (64, 128, 128),              # the block's diagonal
+])
+def test_tc_block_stats_plain_matches_pallas(T, q_pos0, kv_pos0):
+    from dllama_tpu.ops.flash_attention import flash_block_stats as jax_block_stats
+
+    n_kv, kv_mul, D, S = 2, 4, 64, 256
+    B = len(q_pos0) if isinstance(q_pos0, list) else 1
+    rng = np.random.default_rng(T)
+    q_g = rng.standard_normal((B, n_kv, T * kv_mul, D)).astype(np.float32)
+    k = rng.standard_normal((B, n_kv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, n_kv, S, D)).astype(np.float32)
+    q0 = np.broadcast_to(np.asarray(q_pos0, np.int32), (B,)).copy()
+    want = jax_block_stats(jnp.asarray(q_g), jnp.asarray(k, jnp.bfloat16),
+                           jnp.asarray(v, jnp.bfloat16), jnp.asarray(q0),
+                           jnp.int32(kv_pos0), D, T, interpret=True)
+    pos = torch.from_numpy(q0) if isinstance(q_pos0, list) else q_pos0
+    got = fa.flash_block_stats_tc_plain(torch.from_numpy(q_g), torch.from_numpy(k).bfloat16(),
+                                        torch.from_numpy(v).bfloat16(), pos, kv_pos0, D, T)
+    acc, m, l = got
+    masked = torch.from_numpy(np.isneginf(np.asarray(want[1])))
+    assert torch.equal(torch.isneginf(m), masked)
+    # a row that sees nothing of the block: exactly 0 / -inf / 0
+    assert not acc[masked].any() and not l[masked].any()
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g.numpy()[fin], w[fin], rtol=BF16_RTOL, atol=BF16_ATOL)
+    if T == 16:
+        assert bool(masked.all())
+
+
+def test_tc_plain_is_exact_where_nothing_rounds():
+    """The twin differs from the f32 single pass only by its bf16 roundings:
+    with bf16-exact queries and a softmax whose p are all exact (one visible
+    key per row), it equals the plain version."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 8, 64)).astype(np.float32)).bfloat16().float()
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 128, 64)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    got = fa.flash_attention_tc_plain(q, k, v, 0, 64)
+    want = fa.flash_attention(q, k, v, 0, 64)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,S", [(64, 2048), (128, 2048), (256, 32768), (64, 16384)])
+def test_path_rule_single_pass_over_bf16_takes_tensor_cores(T, S):
+    """A prefill chunk (or a ring block) keeps the single pass; over a bf16
+    cache it takes the tensor cores, over an f32 cache the SIMT kernel."""
+    n = fa._attn_splits(1, 8, 4 * T, S)
+    assert n == 1
+    assert fa._attn_path(torch.bfloat16, n) == "tc"
+    assert fa._attn_path(torch.float32, n) == "simt"
+
+
+@pytest.mark.parametrize("S", [2048, 16384, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_path_rule_split_launches_stay_simt(S, dtype):
+    """Decode splits its keys (split-S) and keeps the SIMT kernel in both
+    numerics: the rule reads only the dtype and the split count."""
+    n = fa._attn_splits(1, 8, 4, S)
+    assert n > 1
+    assert fa._attn_path(dtype, n) == "simt"

@@ -156,6 +156,33 @@ def test_matmul_split_plan_covers_k(M, K, N):
         assert n_stages < 2 * qm._MIN_SPLIT_STAGES
 
 
+@pytest.mark.parametrize("M", [32, 64, 128, 256])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 4096), (14336, 4096),
+                                 (4096, 14336), (4096, 128256), (4128, 1040), (64, 96)])
+def test_exact_matmul_split_plan_covers_k(M, K, N):
+    """K1 exact's cross-block K split: whole Q40 blocks per split, every
+    K row in exactly one split, no empty split, at least the minimum number
+    of stages a split, a split grid within the H100's 132 SMs; the head's
+    width (1002 column tiles) never splits."""
+    s = qm._matmul_splits(M, K, N, fast=False)
+    nkb = K // 32
+    per = -(-nkb // s)                      # Q40 blocks per split
+    assert s >= 1 and (s - 1) * per < nkb <= s * per
+    covered = [kb for z in range(s) for kb in range(z * per, min(nkb, (z + 1) * per))]
+    assert covered == list(range(nkb))      # each 32-row block (and K row) once
+    tiles = -(-N // qm._EXACT_TILE_N) * -(-M // qm._exact_tile_m(M))
+    if s > 1:
+        assert per >= qm._EXACT_MIN_SPLIT_STAGES
+        assert tiles * s <= qm.SMS
+    if N == 128256:
+        assert s == 1
+
+
+@pytest.mark.parametrize("M,bm", [(17, 32), (32, 32), (33, 64), (64, 64), (65, 128), (512, 128)])
+def test_exact_tile_rows(M, bm):
+    assert qm._exact_tile_m(M) == bm
+
+
 def test_wrapper_refuses_other_devices():
     _, tw = _pair(64, 128, seed=0)
     with pytest.raises(ValueError, match="unsupported device"):

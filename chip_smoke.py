@@ -10,11 +10,16 @@ Phases, each failing loudly (non-zero exit, no result line):
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``dllama_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time and ptxas register use;
-3. kernels K1 (Q40 tile matmul), K2 (Q40 decode GEMV, at M = 1 and at the
-   serving batch M = 8), K3 (flash attention, with decode at depth 2047 in
+3. kernels K1 (Q40/Q80 tile matmul), K2 (Q40/Q80 decode GEMV, at M = 1 on
+   its SIMT kernel and at the serving batch M = 8 on the tensor cores, wq
+   also at M = 2, 4 and 16; each launch's kernel held to the path rule and
+   its code kind to the planes', every K1/K2 case also on Q80 planes with
+   codes over [-127, 127]), K3 (flash attention, with decode at depth 2047 in
    a 2048-row cache, and decode at depth 20145 and a 256-token prefill
    chunk at depth 19000 in a 32768-row cache, the long sp cell at sp = 1)
-   and K4 (paged attention) on the card against their plain
+   and K4 (paged attention, decode at B = 1, 8 ragged rows and 8 rows at
+   depth 2047, each launch split, its split count recorded) on the card
+   against their plain
    PyTorch versions at the Llama 3.1 8B shapes of the main paths, exact
    (f32) and fast (bf16): one JSON line per case with the error, the median
    of >= 20 CUDA-event timed runs (L2 flushed before each), the plain
@@ -45,11 +50,15 @@ Phases, each failing loudly (non-zero exit, no result line):
    decodes, half sampled); every request must return 200 with tokens, the
    pair identical text, prefix reuse must happen and K1-K4 must each launch
    (counts set to 0 before each run); tok/s, latencies, step time, the
-   column take/put cost and the pool are printed;
+   column take/put cost and the pool are printed; then one 8-row paged
+   decode step of that geometry under ``torch.profiler`` in f32 and bf16
+   (:func:`paged_step_profile`: device ms, K2's and K4's device ms,
+   kernels per step, busy share);
 6. model parity on the card: 2 layers at 8B widths, the kernel path
    (``attn_impl=auto``, ``quant_impl=auto``) against the plain path (``xla``)
-   on the same weights and tokens: a 128-token prefill plus 8 teacher-forced
-   decode steps; then ``paged_forward`` over 8 ragged rows through scrambled
+   on the same weights and tokens, on Q40 and on Q80 planes: a 128-token
+   prefill plus 8 teacher-forced decode steps; then ``paged_forward`` over
+   8 ragged rows through scrambled
    tables (kernel against plain), and ``paged_forward``'s kernel path (K4)
    against the dense ``forward`` (K3) for one row;
 7. sequence parallelism (``--sp``): K3s (the block-statistics mode of K3)
@@ -78,9 +87,9 @@ Phases, each failing loudly (non-zero exit, no result line):
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
-instead (see :func:`ab_side`): phase 4 and the long sp cell at sp = 1 (f32
-and bf16) on the
-package of the current directory, then an ``AB`` line.
+instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
+and bf16) and the paged decode step's profile on the package of the
+current directory, then an ``AB`` line.
 """
 
 from __future__ import annotations
@@ -193,13 +202,24 @@ def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def random_planes(K: int, N: int, fast: bool, g: torch.Generator):
+def random_planes(K: int, N: int, fast: bool, g: torch.Generator, kind: str = "q40"):
+    """Random planes of a Q40 (codes over [-8, 7]) or Q80 (codes over
+    [-127, 127]) weight."""
     from dllama_tpu_torch.ops.linear import QuantizedWeight
 
-    codes = torch.randint(-8, 8, (K, N), generator=g, device=DEV, dtype=torch.int8)
+    lo, hi = (-127, 128) if kind == "q80" else (-8, 8)
+    codes = torch.randint(lo, hi, (K, N), generator=g, device=DEV, dtype=torch.int8)
     scales = torch.rand((K // 32, N), generator=g, device=DEV) * 0.01 + 0.002
     return QuantizedWeight(scales=scales.to(torch.bfloat16 if fast else torch.float32),
-                           codes=codes)
+                           codes=codes, kind=kind)
+
+
+def check_gemv_path(what: str, M: int, path: str) -> None:
+    """K2's kernel: the FP32 SIMT kernel for one row, the tensor cores for
+    2..16 rows."""
+    want = "simt" if M == 1 else "tc"
+    if path != want:
+        fail(f"{what}: K2 took the {path!r} kernel at M={M}, want {want!r}")
 
 
 def matmul_cases(timer: Timer, results: list) -> None:
@@ -207,51 +227,93 @@ def matmul_cases(timer: Timer, results: list) -> None:
     from dllama_tpu_torch.ops.linear import dequantize_weight, linear
 
     g = torch.Generator(device=DEV).manual_seed(SEED)
-    for mode in ("exact", "fast"):
+    for kind, mode in (("q40", "exact"), ("q40", "fast"), ("q80", "exact"), ("q80", "fast")):
         fast = mode == "fast"
         act = torch.bfloat16 if fast else torch.float32
         for name, K, N in MATMULS_8B:
-            w = random_planes(K, N, fast, g)
+            w = random_planes(K, N, fast, g, kind)
             wd = dequantize_weight(w, act)  # the library yardstick's operand
             # fast configs load the logits head as a dense bf16 [vocab, dim]
             # matrix (the loader's rule) and run it through ``linear``'s
             # F.linear: time that beside K1/K2 on the same weights
-            head_dense = wd.t().contiguous() if fast and name == "head" else None
+            head_dense = (wd.t().contiguous() if fast and name == "head" and kind == "q40"
+                          else None)
             # every shape at decode (M = 1), at the serving decode step of 8
-            # slots (M = 8) and a 128-token chunk; one shape
+            # slots (M = 8) and a 128-token chunk; one shape (Q40 planes)
             # also at the other widths the main path gives the kernels: K2's
-            # multi-row variants (a context-tail chunk) and the 32-, 64- and
-            # 256-token prefill chunks (K1 exact's three row tiles)
+            # other tensor-core widths (short verifies, a context-tail
+            # chunk) and the 32-, 64- and 256-token prefill chunks (K1
+            # exact's three row tiles); Q80 planes at the same K1 widths
             widths = [("K2", 1), ("K2", 8), ("K1", 128)]
             if name == "wq":
-                widths += [("K2", 4), ("K2", 16), ("K1", 32), ("K1", 64), ("K1", 256)]
+                widths += [("K1", 32), ("K1", 64), ("K1", 256)]
+                if kind == "q40":
+                    widths += [("K2", 2), ("K2", 4), ("K2", 16)]
             for kname, M in widths:
                 fn = qm.q40_gemv if kname == "K2" else qm.q40_matmul
                 x = torch.randn((M, K), generator=g, device=DEV).to(act)
                 got = fn(x, w, fast=fast).float()
-                splits = fn.last_splits  # the K split this launch took
+                # what this launch took: its K split, code kind and kernel
+                splits, codes = fn.last_splits, fn.last_codes
+                path = fn.last_path if kname == "K2" else "tc" if fast else "simt"
                 want = qm.quant_matmul_plain(x, w, fast=fast).float()
+                # K2 exact on the tensor cores against its twin (the same
+                # reassociated arithmetic written plainly)
+                twin = (qm.q40_gemv_tc_exact_plain(x, w) if kname == "K2" and path == "tc"
+                        and not fast else None)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
+                err_twin = (got - twin).abs().max().item() if twin is not None else None
                 ms = timer(lambda: fn(x, w, fast=fast))
                 plain_ms = timer(lambda: qm.quant_matmul_plain(x, w, fast=fast))
                 lib_ms = timer(lambda: torch.matmul(x, wd))
                 elt = 2 if fast else 4
                 n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
-                b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16" if fast else "f32")
-                rec = dict(case="matmul", kernel=kname, mode=mode, weight=name, M=M,
-                           K=K, N=N, splits=splits, max_abs_err=err, max_abs_ref=scale,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+                # exact on the tensor cores is three bf16 products (x in
+                # three parts); K1 exact and K2 at M = 1 are FP32 SIMT
+                if fast:
+                    b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16")
+                elif path == "tc":
+                    b_ms, b_by = bound(n_bytes, 3 * 2.0 * M * K * N, "bf16")
+                else:
+                    b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "f32")
+                rec = dict(case="matmul", kernel=kname, mode=mode, codes=codes, weight=name,
+                           M=M, K=K, N=N, splits=splits, path=path, max_abs_err=err,
+                           max_abs_ref=scale, max_abs_err_twin=err_twin, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
                 if head_dense is not None:
                     rec["dense_head_ms"] = timer(lambda: linear(x, head_dense))
                 print(json.dumps(rec), flush=True)
                 results.append(rec)
+                what = f"{kname} {kind} {mode} {name} M={M}"
+                if codes != kind:
+                    fail(f"{what}: the launch read {codes!r} codes")
+                if kname == "K2":
+                    check_gemv_path(what, M, path)
                 if not (err <= TOL[mode] * scale) or not math.isfinite(err):
-                    fail(f"{kname} {mode} {name} M={M}: max|err| {err:.3g} > "
+                    fail(f"{what}: max|err| {err:.3g} > {TOL[mode]} x max|y| {scale:.3g}")
+                if twin is not None and not err_twin <= TOL[mode] * scale:
+                    fail(f"{what}: max|err| {err_twin:.3g} against the twin > "
                          f"{TOL[mode]} x max|y| {scale:.3g}")
             del w, wd, head_dense
+    # K2's 4-byte copy path: a width that is not a multiple of 16 (N % 16 =
+    # 4), both kernels, both code kinds; held to TOL, not timed
+    for kind, mode in (("q40", "exact"), ("q40", "fast"), ("q80", "exact"), ("q80", "fast")):
+        fast = mode == "fast"
+        w = random_planes(DIM, 1028, fast, g, kind)
+        for M in (1, 8, 16):
+            x = torch.randn((M, DIM), generator=g, device=DEV).to(
+                torch.bfloat16 if fast else torch.float32)
+            got = qm.q40_gemv(x, w, fast=fast).float()
+            want = qm.quant_matmul_plain(x, w, fast=fast).float()
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            print(json.dumps(dict(case="matmul_narrow_n", kernel="K2", mode=mode, codes=kind,
+                                  M=M, K=DIM, N=1028, path=qm.q40_gemv.last_path,
+                                  max_abs_err=err, max_abs_ref=scale)), flush=True)
+            if not (err <= TOL[mode] * scale):
+                fail(f"K2 {kind} {mode} N=1028 M={M}: max|err| {err:.3g} > "
+                     f"{TOL[mode]} x max|y| {scale:.3g}")
     torch.cuda.empty_cache()
 
 
@@ -337,10 +399,18 @@ def check_path(what: str, mode: str, n_splits: int, path: str) -> None:
 
 # ragged decode depths of a full 8-slot batch (deepest at the context cap)
 RAGGED = [MAX_SEQ - 1, 1500, 1023, 700, 300, 129, 17, 0]
-# (B, T, block size, first query position of each row)
+# 40 ragged rows: 320 (b, head, query tile) blocks, over two an SM, so
+# the launch keeps the single pass (K4's unsplit kernel, which `api
+# --batch-slots` of 33 or more runs at decode)
+WIDE_B = 40
+# (B, T, block size, first query position of each row); every case with
+# B <= 8 (the serving geometry) must split the key walk, the WIDE_B-row
+# decode must not
 PAGED_CASES = [(1, 1, 16, [MAX_SEQ - 1]), (8, 1, 16, RAGGED),
+               (8, 1, 16, [MAX_SEQ - 1] * 8),
                (1, 1, 32, [MAX_SEQ - 1]), (8, 1, 32, RAGGED),
-               (2, 16, 16, [1000, MAX_SEQ - 16])]
+               (2, 16, 16, [1000, MAX_SEQ - 16]),
+               (WIDE_B, 1, 16, RAGGED * (WIDE_B // len(RAGGED)))]
 
 
 def scrambled_tables(depths: list[int], T: int, bs: int, g: torch.Generator):
@@ -363,8 +433,10 @@ def scrambled_tables(depths: list[int], T: int, bs: int, g: torch.Generator):
 
 def paged_cases(timer: Timer, results: list) -> None:
     """K4 against its plain version (gather + oracle) at 8B widths: n_kv 8,
-    head_dim 128, kv_mul 4, block sizes 16 and 32; decode at B = 1 and 8
-    ragged rows, and a 16-token query chunk; f32 and bf16 pools."""
+    head_dim 128, kv_mul 4, block sizes 16 and 32; decode at B = 1, 8
+    ragged rows and 8 rows at full depth, and a 16-token query chunk; f32
+    and bf16 pools. Every case at the serving geometry must split the key
+    walk (split-S); the 40-row decode must take the single pass."""
     import torch.nn.functional as F
 
     from dllama_tpu_torch.ops import paged_attention as pa
@@ -381,6 +453,7 @@ def paged_cases(timer: Timer, results: list) -> None:
             positions = (torch.tensor(depths, device=DEV)[:, None]
                          + torch.arange(T, device=DEV)[None, :])
             got = pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM)
+            n_splits = pa.paged_attention.last_splits  # what this launch took
             want = pa.paged_attention_plain(q, kp, vp, tables, positions, HEAD_DIM)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
@@ -405,7 +478,7 @@ def paged_cases(timer: Timer, results: list) -> None:
                        + 2 * B * T * HEADS * HEAD_DIM * 4)
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * scored, "f32")
             rec = dict(case="paged_attention", kernel="K4", mode=mode, B=B, T=T,
-                       block_size=bs, positions=depths, max_abs_err=err,
+                       block_size=bs, positions=depths, n_splits=n_splits, max_abs_err=err,
                        max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
                        gather_sdpa_ms=yard_ms,
                        gather_sdpa_note="yardstick only: two library calls "
@@ -416,6 +489,9 @@ def paged_cases(timer: Timer, results: list) -> None:
             # f32 online softmax vs the one-shot oracle: reordered sums/exps
             if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
                 fail(f"K4 {mode} B={B} T={T} bs={bs}: max|err| {err:.3g}")
+            if (n_splits > 1) != (B <= 8):
+                fail(f"K4 {mode} B={B} T={T} bs={bs}: the launch took n_splits "
+                     f"{n_splits}; B <= 8 must split, B = {WIDE_B} must not")
             del kp, vp
     torch.cuda.empty_cache()
 
@@ -577,6 +653,55 @@ def engine_profile(model: str, tok: str, dtype: str) -> list[dict]:
     finally:
         eng.close()
     return recs
+
+
+def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
+    """One 8-row paged decode step of the serving geometry (8 slots at the
+    ragged depths :data:`RAGGED`, block 16, scrambled tables), as the
+    serving scheduler runs it (``paged_sampled_step``: K2 at M = 8, K4, and
+    in exact mode the quantized head on K2), on the full model, under
+    ``torch.profiler``: 8 steps after 2 warm-up steps. Device ms per step,
+    K2's and K4's device ms per step (their kernels and their split sums /
+    combines, which no other kernel of the step launches), kernels per
+    step, busy share."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.models.llama import paged_sampled_step
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.kvblocks import PagedKVCache
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                          temperature=0.0)
+    try:
+        tables, n_blocks = scrambled_tables(RAGGED, 1, BLOCK,
+                                            torch.Generator().manual_seed(SEED))
+        pkv = PagedKVCache.create(eng.cfg, n_blocks, BLOCK, dtype=eng.kv_dtype, device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+        B = len(RAGGED)
+        tokens = torch.randint(0, VOCAB, (B, 1), generator=g, device=DEV)
+        pos = torch.tensor(RAGGED, device=DEV)
+        temps, topps, coins = (torch.zeros(B, device=DEV), torch.ones(B, device=DEV),
+                               torch.zeros(B, device=DEV))
+
+        def step():
+            return paged_sampled_step(eng.params, eng.cfg, tokens, pos, pkv, tables,
+                                      temps, topps, coins)
+
+        for _ in range(2):
+            step()
+        n = 8
+        wall, kernels = _profiled(lambda: [step() for _ in range(n)], n)
+    finally:
+        eng.close()
+    rec = _profile_rec("paged_step_profile", dtype, "step", n, wall, kernels)
+    for name, keys in (("K2", ("q40_gemv", "sum_splits_kernel")),
+                       ("K4", ("paged_attention_kernel", "combine_splits_kernel"))):
+        rec[f"{name}_device_ms_per_step"] = sum(
+            e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3 / n
+        rec[f"{name}_kernels_per_step"] = sum(
+            e.count for e in kernels if any(k in e.key for k in keys)) / n
+    rec["rows"], rec["depths"], rec["block_size"] = B, RAGGED, BLOCK
+    return rec
 
 
 def _wrappers() -> dict:
@@ -886,6 +1011,9 @@ def parity_config(dtype: str):
 
 
 def model_parity(results: dict) -> None:
+    """2 layers + the head at 8B widths, the kernel path against the plain
+    path, on Q40 planes and on Q80 planes (codes over [-127, 127]), in both
+    numerics; every K1/K2 launch on Q80 planes must read them as Q80."""
     from dataclasses import replace
 
     from dllama_tpu_torch.models.llama import forward, init_random_params
@@ -893,9 +1021,11 @@ def model_parity(results: dict) -> None:
     from dllama_tpu_torch.ops import quant_matmul as qm
     from dllama_tpu_torch.runtime.kvcache import KVCache
 
-    for mode, dtype in (("exact", "float32"), ("fast", "bfloat16")):
+    for kind, mode, dtype in (("q40", "exact", "float32"), ("q40", "fast", "bfloat16"),
+                              ("q80", "exact", "float32"), ("q80", "fast", "bfloat16")):
         cfg = parity_config(dtype)
-        params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
+        params = init_random_params(cfg, seed=SEED, quantized=True, device=DEV,
+                                    codes_kind=kind)
         g = torch.Generator(device=DEV).manual_seed(SEED + 2)
         tokens = torch.randint(0, VOCAB, (1, 136), generator=g, device=DEV)
         outs = {}
@@ -915,16 +1045,20 @@ def model_parity(results: dict) -> None:
                           fa.flash_attention.launches - prefill_counts[2])
                 per = {"prefill_128": dict(zip(("K1", "K2", "K3"), prefill_counts)),
                        "decode_8": dict(zip(("K1", "K2", "K3"), decode))}
+                codes = (qm.q40_matmul.last_codes, qm.q40_gemv.last_codes)
         torch.cuda.synchronize()
         err = (outs["kernel"] - outs["plain"]).abs().max().item()
         scale = outs["plain"].abs().max().item()
-        rec = dict(case="parity", mode=mode, layers=2, max_abs_err=err,
-                   max_abs_logit=scale, tol=PARITY_TOL[mode], launches_2_layers=per)
+        rec = dict(case="parity", codes=kind, mode=mode, layers=2, max_abs_err=err,
+                   max_abs_logit=scale, tol=PARITY_TOL[mode], launches_2_layers=per,
+                   last_codes=codes)
         print(json.dumps(rec), flush=True)
-        results[mode] = rec
+        results[(kind, mode)] = rec
         if not (err <= PARITY_TOL[mode] * scale) or not math.isfinite(scale):
-            fail(f"model parity {mode}: max|err| {err:.3g} > {PARITY_TOL[mode]} "
+            fail(f"model parity {kind} {mode}: max|err| {err:.3g} > {PARITY_TOL[mode]} "
                  f"x max|logit| {scale:.3g}")
+        if codes != (kind, kind):
+            fail(f"model parity {kind} {mode}: K1/K2 read {codes} codes")
         del params, outs
         torch.cuda.empty_cache()
 
@@ -1434,17 +1568,19 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
 def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
-    at the serving M=8), or the single-row decode at depth 2047 and at the
+    at the serving M=8, each on Q40 and on Q80 planes; K2 at M=2, 4 and 16
+    on wq alone), or the single-row decode at depth 2047 and at the
     long sp cell's depth / the cold 128-token prefill / a 256-token chunk at
     depth 19000 of the long cell's 32768-row cache / a 128-token chunk at
     depth 1024 / the cold 128-token prefill at head dim 64 (K3), or the
-    single-row and 8-row ragged decode at block size 16 (K4, whose
+    single-row, 8-row ragged and 8-row full-depth decode at block size 16
+    (K4, whose
     yardstick ``gather_sdpa_ms`` is two library calls, so ``library_ms`` is
     null), or one decode over a whole 2048-row and a whole 16384-row shard /
     a 64-token chunk on its diagonal (K3s, whose SDPA yardstick returns no
-    m/l). K1/K2 entries carry the K split per weight, K3/K3s the split-S
-    count, as the launches of the kernel phase took them, and every entry its
-    path (``tc``: tensor cores; ``simt``: FP32). Launches are the main paths' counts, per path
+    m/l). K1/K2 entries carry the K split per weight and the code kind,
+    K3/K3s/K4 the split-S count, as the launches of the kernel phase took
+    them, and every entry its path (``tc``: tensor cores; ``simt``: FP32). Launches are the main paths' counts, per path
     (``inference``, ``perplexity``, ``api``, and the sp path's
     ``sp2_*``/``sp1_*`` runs)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
@@ -1457,9 +1593,17 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                   "dllama_tpu/ops/paged_attention.py:49", "paged_attention"),
            "K3s": ("dllama_tpu_torch/csrc/flash_attention.cu",
                    "dllama_tpu/ops/flash_attention.py:206", "flash_block_stats")}
+    q40 = lambda c: c["codes"] == "q40"  # noqa: E731
+    q80 = lambda c: c["codes"] == "q80"  # noqa: E731
     groups = {
-        "K1": [(" M=128", lambda c: c["M"] == 128)],
-        "K2": [(" M=1", lambda c: c["M"] == 1), (" M=8 (serving)", lambda c: c["M"] == 8)],
+        "K1": [(" M=128", lambda c: c["M"] == 128 and q40(c)),
+               (" M=128 Q80 planes", lambda c: c["M"] == 128 and q80(c))],
+        "K2": [(" M=1", lambda c: c["M"] == 1 and q40(c)),
+               (" M=8 (serving)", lambda c: c["M"] == 8 and q40(c)),
+               (" M=2 wq", lambda c: c["M"] == 2), (" M=4 wq", lambda c: c["M"] == 4),
+               (" M=16 wq", lambda c: c["M"] == 16),
+               (" M=1 Q80 planes", lambda c: c["M"] == 1 and q80(c)),
+               (" M=8 Q80 planes", lambda c: c["M"] == 8 and q80(c))],
         "K3": [(" decode T=1 @2047", lambda c: c["phase"] == "decode"
                 and c["start_pos"] == MAX_SEQ - 1 and c["head_dim"] == HEAD_DIM),
                (f" decode T=1 @{LONG_DEPTH} in a {SP_LONG_SEQ}-row cache",
@@ -1475,7 +1619,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
         "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
                 and c["block_size"] == BLOCK),
                (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
-                and c["block_size"] == BLOCK)],
+                and c["block_size"] == BLOCK and c["positions"] == RAGGED),
+               (" decode B=8 @2047 bs=16", lambda c: c["B"] == 8
+                and c["block_size"] == BLOCK and c["positions"] == [MAX_SEQ - 1] * 8),
+               (f" decode B={WIDE_B} ragged bs=16 (single pass)",
+                lambda c: c["B"] == WIDE_B)],
         "K3s": [(" decode T=1 over a whole 2048-row shard",
                  lambda c: c["phase"] == "decode whole block"),
                 (f" decode T=1 over a whole {LONG_SHARD}-row shard",
@@ -1508,12 +1656,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 # pass over bf16) or FP32 SIMT, as each launch took it
                 if kname in ("K1", "K2"):
                     rec["splits"] = {c["weight"]: c["splits"] for c in sel}
-                    rec["path"] = "tc" if kname == "K1" and mode == "fast" else "simt"
-                elif kname in ("K3", "K3s"):
-                    rec["n_splits"] = max(c["n_splits"] for c in sel)
-                    rec["path"] = "+".join(sorted({c["path"] for c in sel}))
+                    rec["codes"] = sel[0]["codes"]
                 else:
-                    rec["path"] = "simt"
+                    rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
+                rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))
                 if kname == "K4":
                     rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
                 if kname == "K3s":
@@ -1537,9 +1683,10 @@ def kernel_label(mangled: str) -> str:
 def ab_side(tag: str, assets: str, n_layers: int) -> int:
     """One side of an end-to-end A/B of two checkouts on one card: phase 4
     (``inference`` + ``perplexity`` in f32 and bf16 with the prefill and
-    decode profiles) and the long sp cell at sp = 1 in f32 and bf16 (64
-    greedy steps after a 20146-token prompt), on the model in ``assets`` (written on the first
-    side). Host-clock rates spread between calls, so compare two checkouts
+    decode profiles), the long sp cell at sp = 1 in f32 and bf16 (64
+    greedy steps after a 20146-token prompt) and the profiled 8-row paged
+    decode step (:func:`paged_step_profile`) in f32 and bf16, on the model
+    in ``assets`` (written on the first side). Host-clock rates spread between calls, so compare two checkouts
     inside one call, in turns, from the root of each::
 
         for side in parent change change parent; do
@@ -1564,9 +1711,15 @@ def ab_side(tag: str, assets: str, n_layers: int) -> int:
            "long_sp1_bf16_prefill": long["bf16"]["prefill_tok_per_s"]}
     for d in ("f32", "bf16"):
         r = e2e[d]
+        paged = paged_step_profile(model, tok, d)
+        print(json.dumps(paged), flush=True)
         out[d] = dict(decode=r["decode_tok_per_s"], prefill=r["prefill_tok_per_s"],
                       device_ms_per_prefill_chunk=r["prefill_profile"]["device_ms_per_chunk"],
-                      device_ms_per_decode_step=r["decode_profile"]["device_ms_per_step"])
+                      device_ms_per_decode_step=r["decode_profile"]["device_ms_per_step"],
+                      **{f"paged_step_{k}": paged[k] for k in (
+                          "device_ms_per_step", "K2_device_ms_per_step",
+                          "K4_device_ms_per_step", "kernels_per_step",
+                          "device_busy_share", "wall_ms_per_step")})
     print("AB " + json.dumps(out), flush=True)
     return 0
 
@@ -1640,6 +1793,13 @@ def main() -> int:
         t0 = time.perf_counter()
         serving(model, tok, args.layers, e2e)
         print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        for dtype in ("f32", "bf16"):
+            prof = paged_step_profile(model, tok, dtype)
+            print(json.dumps(prof), flush=True)
+            e2e[dtype]["paged_step_profile"] = prof
+            torch.cuda.empty_cache()
+        print(f"⏱️ paged step profiles took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         sp_path(model, tok, args.layers, e2e)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)

@@ -37,7 +37,8 @@
 //   (split * n / n_splits up to (split + 1) * n / n_splits): the range
 //   follows the depth read on the device, so the grid does not depend on
 //   host position values. Pass 1 writes each range's unnormalised (acc, m,
-//   l) to an f32 scratch; pass 2 (combine_splits_kernel) merges them in
+//   l) to an f32 scratch; pass 2 (combine_splits_kernel, attn_common.cuh,
+//   shared with K4) merges them in
 //   split order (M = max m_s, L = sum l_s e^(m_s - M), acc = sum acc_s
 //   e^(m_s - M)), so results do not change from run to run. A range that
 //   sees nothing keeps m = -inf, l = 0, acc = 0 and weighs exactly 0.
@@ -78,6 +79,7 @@
 
 #include <type_traits>
 
+#include "attn_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -87,19 +89,6 @@ constexpr int BS = 32;     // keys per tile (one per lane)
 constexpr int WARPS = 4;
 constexpr int ROWS_PER_WARP = BQ / WARPS;
 
-// the KV_PER_LOAD cache elements of one 16-byte load, as f32
-__device__ __forceinline__ void unpack16(const uint4& raw, const float*, float* out) {
-  out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& raw, const __nv_bfloat16*, float* out) {
-  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 is exact
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
-}
 
 // DC adjacent f32 columns of a shared row as one 8- or 16-byte load
 template <int DC>
@@ -112,17 +101,6 @@ __device__ __forceinline__ void load_cols(const float* p, float* out) {
     const float2 v = *reinterpret_cast<const float2*>(p);
     out[0] = v.x; out[1] = v.y;
   }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // grid (ceil(TQ / BQ) * n_splits, n_kv, B); block WARPS * 32 threads.
@@ -298,43 +276,6 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       m_out[split * rows_all + head * TQ + r0 + r] = m[i];
       l_out[split * rows_all + head * TQ + r0 + r] = l[i];
     }
-  }
-}
-
-// Pass 2 of split-S: one warp per query row merges the n_splits partials
-// (acc [n_splits, rows, D], m and l [n_splits, rows]) in split order. STATS
-// writes the merged unnormalised (acc, M, L) for K3s; otherwise out = acc / L.
-// A row with no visible key in any split: M = -inf, every weight e^(m_s - 0)
-// = 0, so acc = 0 and L = 0 exactly, and K3's out is 0.
-template <int D, bool STATS>
-__global__ void __launch_bounds__(WARPS * 32)
-combine_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_m,
-                      const float* __restrict__ part_l, float* __restrict__ out,
-                      float* __restrict__ m_out, float* __restrict__ l_out, int rows,
-                      int n_splits) {
-  constexpr int DC = D / 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, part_m[(size_t)s * rows + row]);
-  const float m_safe = mx == -INFINITY ? 0.f : mx;
-  float L = 0.f, acc[DC];
-#pragma unroll
-  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const size_t sr = (size_t)s * rows + row;
-    const float w = expf(part_m[sr] - m_safe);  // -inf partial -> 0
-    L = fmaf(part_l[sr], w, L);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[c] = fmaf(part_acc[sr * D + lane + 32 * c], w, acc[c]);
-  }
-  const float inv = STATS ? 1.f : (L > 0.f ? 1.f / L : 1.f);
-#pragma unroll
-  for (int c = 0; c < DC; ++c) out[(size_t)row * D + lane + 32 * c] = acc[c] * inv;
-  if (STATS && lane == 0) {
-    m_out[row] = mx;
-    l_out[row] = L;
   }
 }
 
@@ -635,17 +576,17 @@ void launch(const float* q, const void* k, const void* v, float* out, float* m_o
   float* pa = part;
   float* pm = part + (size_t)n_splits * rows * D;
   float* pl = pm + (size_t)n_splits * rows;
-  const int cblocks = (rows + WARPS - 1) / WARPS;
+  const int cblocks = (rows + COMBINE_WARPS - 1) / COMBINE_WARPS;
   if (D == 64) {
     flash_attention_kernel<KV, 64, true, true><<<grid, WARPS * 32, 0, stream>>>(
         q, kp, vp, pa, pm, pl, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, n_splits);
-    combine_splits_kernel<64, STATS><<<cblocks, WARPS * 32, 0, stream>>>(
-        pa, pm, pl, out, m_out, l_out, rows, n_splits);
+    combine_splits_kernel<64, STATS><<<cblocks, COMBINE_WARPS * 32, 0, stream>>>(
+        pa, pm, pl, out, m_out, l_out, rows, n_splits, 64);
   } else {
     flash_attention_kernel<KV, 128, true, true><<<grid, WARPS * 32, 0, stream>>>(
         q, kp, vp, pa, pm, pl, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul, scale, n_splits);
-    combine_splits_kernel<128, STATS><<<cblocks, WARPS * 32, 0, stream>>>(
-        pa, pm, pl, out, m_out, l_out, rows, n_splits);
+    combine_splits_kernel<128, STATS><<<cblocks, COMBINE_WARPS * 32, 0, stream>>>(
+        pa, pm, pl, out, m_out, l_out, rows, n_splits, 128);
   }
 }
 

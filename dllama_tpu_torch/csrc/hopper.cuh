@@ -95,12 +95,20 @@ __device__ __forceinline__ uint32_t swizzle128(int row, int chunk) {
 }
 
 // --------------------------------------------------------------------------
-// cp.async (16 bytes; src_bytes = 0 fills the 16 bytes with zeros)
+// cp.async (16 bytes by .cg; src_bytes = 0 fills the 16 bytes with zeros)
 // --------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+// 4 or 8 bytes through L1 (cp.async.ca; .cg takes only 16); src_bytes = 0
+// fills them with zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src, int src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca sizes used here");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(BYTES), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -1,11 +1,14 @@
-// Q40 dequantizing matmul for Hopper (sm_90a): kernels K1 and K2.
+// Q40/Q80 dequantizing matmul for Hopper (sm_90a): kernels K1 and K2.
 //
 //   y[M, N] = x[M, K] @ (codes[K, N] * repeat(scales[K/32, N], 32 along K))
 //
-// The weight planes are the JAX package's K-major layout: int8 codes in
-// [-8, 7] (one byte per weight) and one scale per 32-row block, f32 in
-// exact mode and bf16 in fast mode. The dense weight never exists in device
-// memory: codes are dequantized right after they are loaded.
+// The weight planes are the JAX package's K-major layout: int8 codes (one
+// byte per weight; in [-8, 7] for Q40 planes, [-127, 127] for Q80 planes)
+// and one scale per 32-row block, f32 in exact mode and bf16 in fast mode.
+// Every kernel is instantiated for both code kinds (the template argument
+// Q80; the C entries take it as q80), so a Q80 byte is never read as a
+// nibble. The dense weight never exists in device memory: codes are
+// dequantized right after they are loaded.
 //
 // K1 (q40_matmul_*) replaces dllama_tpu/ops/quant_matmul.py::_kernel, the
 //   (N/bn, K/bk) Pallas grid whose revisited f32 output tile carried the K
@@ -59,8 +62,12 @@
 //   run on a 16-per-clock-per-SM pipe, which at one byte per weight caps a
 //   GEMV near the HBM rate in exact mode and below it in fast mode (two
 //   conversions per weight), as the first version of this kernel measured.
-//   A nibble trick and byte permutes build the values instead (see
-//   codes_f32 / codes_bf16x2).
+//   A nibble trick and byte permutes build the values instead (biased,
+//   code_f32, dequant4). That is the M = 1 kernel (q40_gemv_kernel). At 2
+//   to 16 rows an FP32 kernel does M FMAs per weight, and the FP32 pipe
+//   rather than the HBM set the pace (19.6 TFLOP/s at M = 8 in exact mode,
+//   on an H100 80GB HBM3 at 700 W), so those rows run the same weight pass
+//   on the tensor cores (q40_gemv_tc_kernel, below).
 //
 // Exact mode: f32 activations, f32 dequant (code * scale), f32 FMA.
 // Fast mode: bf16 activations, dequant rounded to bf16 (the bf16 product
@@ -76,6 +83,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -83,7 +92,28 @@ namespace {
 constexpr int QB = 32;  // Q40 block: rows of K sharing one scale
 
 // --------------------------------------------------------------------------
-// K2: decode GEMV
+// Code bytes. Q40 planes hold codes in [-8, 7], Q80 planes codes in
+// [-127, 127]; a Q80 byte is never read as a nibble.
+// --------------------------------------------------------------------------
+
+// Per byte: the code plus a bias that makes it non-negative. Q40: (code &
+// 0xF) ^ 8 = code + 8 in [0, 15]; Q80: code ^ 0x80 = code + 128 in [1, 255].
+// One LOP3 for four codes.
+template <bool Q80>
+__device__ __forceinline__ unsigned biased(int packed) {
+  if constexpr (Q80) return static_cast<unsigned>(packed) ^ 0x80808080u;
+  else return (static_cast<unsigned>(packed) & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+// Byte j of biased codes t under an f32 exponent of 2^23 is the float 2^23 +
+// t_j; subtracting 2^23 + the bias leaves the code exactly (any byte).
+template <bool Q80>
+__device__ __forceinline__ float code_f32(unsigned t, int j) {
+  return __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + j)) -
+         (Q80 ? 8388736.0f : 8388616.0f);
+}
+
+// --------------------------------------------------------------------------
+// K2 at M = 1: SIMT decode GEMV
 // --------------------------------------------------------------------------
 
 constexpr int GEMV_WARPS = 8;
@@ -110,48 +140,52 @@ __device__ __forceinline__ void load_scales(const __nv_bfloat16* s, size_t i, Sc
   out.hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
 }
 
-// codes are int8 in [-8, 7], so per byte (code & 0xF) ^ 8 = code + 8 in
-// [0, 15] (one LOP3 for four codes)
-__device__ __forceinline__ unsigned biased_nibbles(int packed) {
-  return (static_cast<unsigned>(packed) & 0x0F0F0F0Fu) ^ 0x08080808u;
-}
-
-// exact: code_j * scale_j in f32 (the plain version's rounding). Byte j of
-// t under an f32 exponent of 2^23 is the float 2^23 + t_j; subtracting
-// 2^23 + 8 leaves the code exactly.
+// exact: code_j * scale_j in f32 (the plain version's rounding); t holds
+// biased<Q80> codes
+template <bool Q80>
 __device__ __forceinline__ void dequant4(unsigned t, const ScalesF32& s, float w[4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float code = __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7440u + j)) - 8388616.0f;
-    w[j] = code * s.v[j];
-  }
+  for (int j = 0; j < 4; ++j) w[j] = code_f32<Q80>(t, j) * s.v[j];
 }
 
 // fast: the bf16 product code * scale, rounded to nearest even like the
-// JAX package's and the plain version's bf16 dequant. Bytes under a bf16
-// exponent of 2^7 are 128 + t exactly; subtracting 136 leaves the code.
+// JAX package's and the plain version's bf16 dequant. Q40: bytes under a
+// bf16 exponent of 2^7 are 128 + t exactly, and subtracting 136 leaves the
+// code. Q80 codes need 8 bits, more than that exponent's 7: the f32 code
+// times the (exactly widened) scale is exact in f32, and one rounding to
+// bf16 gives the bf16 product.
+template <bool Q80>
 __device__ __forceinline__ void dequant4(unsigned t, const ScalesBF16& s, float w[4]) {
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  const unsigned p01 = __byte_perm(t, 0x43434343u, 0x5140u);
-  const unsigned p23 = __byte_perm(t, 0x43434343u, 0x5342u);
-  const __nv_bfloat162 c01 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p01), bias);
-  const __nv_bfloat162 c23 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p23), bias);
-  const float2 w01 = __bfloat1622float2(__hmul2(c01, s.lo));
-  const float2 w23 = __bfloat1622float2(__hmul2(c23, s.hi));
-  w[0] = w01.x; w[1] = w01.y; w[2] = w23.x; w[3] = w23.y;
+  if constexpr (Q80) {
+    const float2 s01 = __bfloat1622float2(s.lo), s23 = __bfloat1622float2(s.hi);
+    const float sv[4] = {s01.x, s01.y, s23.x, s23.y};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = __bfloat162float(__float2bfloat16_rn(code_f32<true>(t, j) * sv[j]));
+  } else {
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+    const unsigned p01 = __byte_perm(t, 0x43434343u, 0x5140u);
+    const unsigned p23 = __byte_perm(t, 0x43434343u, 0x5342u);
+    const __nv_bfloat162 c01 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p01), bias);
+    const __nv_bfloat162 c23 = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&p23), bias);
+    const float2 w01 = __bfloat1622float2(__hmul2(c01, s.lo));
+    const float2 w23 = __bfloat1622float2(__hmul2(c23, s.hi));
+    w[0] = w01.x; w[1] = w01.y; w[2] = w23.x; w[3] = w23.y;
+  }
 }
 
-// grid (ceil(N / GEMV_BN), splits); block GEMV_WARPS * 32 threads.
+// grid (ceil(N / GEMV_BN), splits); block GEMV_WARPS * 32 threads; one
+// activation row (M = 1).
 // Split s covers Q40 blocks [s * kb_per_split, min((s+1) * kb_per_split, K/32));
 // warp w of the block takes every GEMV_WARPS-th Q40 block of that range.
-// out is [splits, M, N] f32 (the final [M, N] when splits == 1).
-template <typename XT, typename ST, typename SC, int MM>
+// out is [splits, 1, N] f32 (the final [1, N] when splits == 1).
+template <typename XT, typename ST, typename SC, bool Q80>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 q40_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ codes,
                 const ST* __restrict__ scales, float* __restrict__ out,
-                int M, int K, int N, int kb_per_split) {
-  __shared__ float xs[GEMV_WARPS][MM][QB];
-  __shared__ float red[MM][GEMV_BN];
+                int K, int N, int kb_per_split) {
+  __shared__ float xs[GEMV_WARPS][QB];
+  __shared__ float red[GEMV_BN];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -161,11 +195,9 @@ q40_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ codes,
   const int kb_lo = blockIdx.y * kb_per_split;
   const int kb_hi = min(nkb, kb_lo + kb_per_split);
 
-  float acc[MM][GEMV_COLS];
+  float acc[GEMV_COLS];
 #pragma unroll
-  for (int m = 0; m < MM; ++m)
-#pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] = 0.f;
+  for (int j = 0; j < GEMV_COLS; ++j) acc[j] = 0.f;
 
   // this thread's 4 code bytes of each of the 32 rows of a Q40 block
   int packed[QB];
@@ -181,29 +213,23 @@ q40_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ codes,
   if (col_ok && kb < kb_hi) load_block(kb);
 
   for (; kb < kb_hi; kb += GEMV_WARPS) {
-    const int k0 = kb * QB;
-    // this warp's 32 activation columns of every row, staged warp-private
-#pragma unroll
-    for (int m = 0; m < MM; ++m)
-      xs[warp][m][lane] = (m < M) ? load_act(x, (size_t)m * K + k0 + lane) : 0.f;
+    // this warp's 32 activation columns, staged warp-private
+    xs[warp][lane] = load_act(x, (size_t)kb * QB + lane);
     __syncwarp();
     if (col_ok) {
       // unpack this block, then put the next block's loads in flight
       unsigned t[QB];
 #pragma unroll
-      for (int r = 0; r < QB; ++r) t[r] = biased_nibbles(packed[r]);
+      for (int r = 0; r < QB; ++r) t[r] = biased<Q80>(packed[r]);
       const SC cur = sc;
       if (kb + GEMV_WARPS < kb_hi) load_block(kb + GEMV_WARPS);
 #pragma unroll
       for (int r = 0; r < QB; ++r) {
         float w[GEMV_COLS];
-        dequant4(t[r], cur, w);
+        dequant4<Q80>(t[r], cur, w);
+        const float xv = xs[warp][r];
 #pragma unroll
-        for (int m = 0; m < MM; ++m) {
-          const float xv = xs[warp][m][r];
-#pragma unroll
-          for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-        }
+        for (int j = 0; j < GEMV_COLS; ++j) acc[j] = fmaf(xv, w[j], acc[j]);
       }
     }
     __syncwarp();
@@ -213,20 +239,324 @@ q40_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ codes,
   for (int w = 0; w < GEMV_WARPS; ++w) {
     if (warp == w) {
 #pragma unroll
-      for (int m = 0; m < MM; ++m)
-#pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) {
-          float* cell = &red[m][lane * GEMV_COLS + j];
-          *cell = (w == 0) ? acc[m][j] : *cell + acc[m][j];
-        }
+      for (int j = 0; j < GEMV_COLS; ++j) {
+        float* cell = &red[lane * GEMV_COLS + j];
+        *cell = (w == 0) ? acc[j] : *cell + acc[j];
+      }
     }
     __syncthreads();
   }
-  float* dst = out + (size_t)blockIdx.y * M * N;
-  for (int i = threadIdx.x; i < M * GEMV_BN; i += blockDim.x) {
-    const int m = i / GEMV_BN, c = i % GEMV_BN;
+  float* dst = out + (size_t)blockIdx.y * N;
+  for (int c = threadIdx.x; c < GEMV_BN; c += blockDim.x) {
     const int col = blockIdx.x * GEMV_BN + c;
-    if (col < N) dst[(size_t)m * N + col] = red[m][c];
+    if (col < N) dst[col] = red[c];
+  }
+}
+
+// --------------------------------------------------------------------------
+// K2 at M = 2..16: the same single pass over the weights on the tensor
+// cores, as mma.sync m16n8k16 with the product swapped, y^T = W^T x^T. The
+// block, grid, K split and warp-level K interleave are the SIMT kernel's
+// (GEMV_BN = 128 columns a block, warp w on every GEMV_WARPS-th Q40 block of
+// its split, the warps' sums reduced in shared memory in a fixed order).
+// In a warp, lane = 4 g + t owns the 16 adjacent columns n = n0 + 16 g ..
+// + 15 as eight m16 A tiles: for column group q (columns 4 q .. 4 q + 3)
+// and tile j of the pair, A row g stands for column 4 q + 2 j and row g + 8
+// for column 4 q + 2 j + 1. Its A values in a k16 step are K rows 2t, 2t +
+// 1, 2t + 8, 2t + 9, so one 16-byte read of each of those code rows gives
+// all eight tiles' codes (K1 fast's byte permutes build the fragments).
+// The raw code bytes stream through a per-warp cp.async ring in shared
+// memory, two Q40 blocks ahead of the one being multiplied: the bytes in
+// flight cost no registers, so two blocks of 8 warps fit an SM (an earlier
+// version that held the next block's codes in registers fit one block an
+// SM and ran the split grid in two waves, slower than the SIMT kernel;
+// PERF.md §6). The warps' sums meet in shared memory as each lane holds
+// them, behind one barrier (a per-warp turn with conflicting stores cost
+// more than the weight pass at the narrow shapes). No dequantized weight
+// is stored. The
+// activations are the B operand: one n8 tile per 8 rows (NT = 1 for M <= 8,
+// 2 for M <= 16), x row g of the tile read from L1/L2 (rows past M are 0).
+//
+// Fast: A = bf16(code * scale) (the plain version's rounding) and B = the
+// bf16 activations: products exact in f32, summed in f32.
+// Exact: A = the code alone (exact in bf16 for Q40 and Q80) and B = each
+// f32 activation split into three bf16 parts x = x0 + x1 + x2 (8 + 8 + 8
+// of its 24 significand bits: x1 and x2 are the rounding remainders, so the
+// sum is x exactly). Three products per k16 step sum x * code over a Q40
+// block in f32 (each product is exact), and the block's f32 scale is
+// applied once to that sum in the running f32 total: s * sum(x * code)
+// instead of sum(x * (code * s)), a reassociation within f32 rounding
+// (ops/quant_matmul.py::q40_gemv_tc_exact_plain writes it plainly).
+// --------------------------------------------------------------------------
+
+// two f32 activations -> their three bf16x2 parts (hi, mid, lo)
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&p)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    p[i] = *reinterpret_cast<const uint32_t*>(&h);
+    a -= __low2float(h);
+    b -= __high2float(h);
+  }
+}
+
+// A pairs for one column: two biased<Q80> code bytes (byte lo_byte and lo_byte
+// + 1 of t, k and k + 1) as a bf16x2 pair of the codes
+template <bool Q80>
+__device__ __forceinline__ uint32_t code_pair(unsigned t, int lo_byte) {
+  if constexpr (Q80) {
+    const __nv_bfloat162 c = __floats2bfloat162_rn(code_f32<true>(t, lo_byte),
+                                                   code_f32<true>(t, lo_byte + 1));
+    return *reinterpret_cast<const uint32_t*>(&c);
+  } else {
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+    const uint32_t b = __byte_perm(t, 0x43434343u, lo_byte == 0 ? 0x5140u : 0x5342u);
+    const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), bias);
+    return *reinterpret_cast<const uint32_t*>(&c);
+  }
+}
+
+// the same pair times the column's bf16 scale, rounded to bf16 (RNE): the
+// plain version's bf16 dequant. scale2 holds the scale in both halves.
+template <bool Q80>
+__device__ __forceinline__ uint32_t weight_pair(unsigned t, int lo_byte, uint32_t scale2) {
+  if constexpr (Q80) {
+    const float s = __uint_as_float(scale2 << 16);
+    const __nv_bfloat162 w = __floats2bfloat162_rn(code_f32<true>(t, lo_byte) * s,
+                                                   code_f32<true>(t, lo_byte + 1) * s);
+    return *reinterpret_cast<const uint32_t*>(&w);
+  } else {
+    const uint32_t c = code_pair<false>(t, lo_byte);
+    const __nv_bfloat162 w = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&c),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&scale2));
+    return *reinterpret_cast<const uint32_t*>(&w);
+  }
+}
+
+// Shared memory of q40_gemv_tc_kernel: a TC_STAGES-deep ring per warp, each
+// stage one Q40 block of the warp's 128 columns (32 code rows of 128 bytes,
+// then the scale row); the warps' reduction reuses it at the end.
+constexpr int TC_STAGES = 3;  // two Q40 blocks in flight behind the multiplied one
+template <bool FAST>
+struct TcGemvSmem {
+  static constexpr int CODES = QB * GEMV_BN;
+  static constexpr int SCALES = GEMV_BN * (FAST ? 2 : 4);
+  static constexpr int STAGE = CODES + SCALES;
+  static constexpr int WARP = TC_STAGES * STAGE;
+  static constexpr int TOTAL = GEMV_WARPS * WARP;
+  static_assert(TOTAL >= GEMV_WARPS * 32 * 64 * 4, "the reduction fits in the ring");
+};
+
+// grid (ceil(N / GEMV_BN), splits); block GEMV_WARPS * 32 threads; dynamic
+// shared memory TcGemvSmem<FAST>::TOTAL. x [M, K] bf16 (FAST) or f32,
+// scales bf16 (FAST) or f32; out [splits, M, N] f32. N % 4 == 0; M <= 8 * NT.
+// Each warp streams its Q40 blocks through its own ring with cp.async (16
+// bytes a copy when N % 16 == 0, else 4), so the codes in flight cost no
+// registers: two blocks of 256 threads fit an SM at M <= 8.
+template <bool FAST, bool Q80, int NT>
+__global__ void __launch_bounds__(GEMV_WARPS * 32, NT == 1 ? 2 : 1)
+q40_gemv_tc_kernel(const void* __restrict__ xv, const int8_t* __restrict__ codes,
+                   const void* __restrict__ sv, float* __restrict__ out, int M, int K, int N,
+                   int kb_per_split) {
+  using S = TcGemvSmem<FAST>;
+  extern __shared__ __align__(16) unsigned char gt_smem[];
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int c0 = 16 * g;                       // this thread's first column in the block
+  const int n0 = blockIdx.x * GEMV_BN;
+  const bool vec = (N & 15) == 0;              // 16-byte rows of codes
+  const int nkb = K / QB;
+  const int kb_lo = blockIdx.y * kb_per_split;
+  const int kb_hi = min(nkb, kb_lo + kb_per_split);
+  // this warp's Q40 blocks: kb_lo + warp + i * GEMV_WARPS, i < n_mine
+  const int n_mine = max(0, (kb_hi - kb_lo - warp + GEMV_WARPS - 1) / GEMV_WARPS);
+  const unsigned char* wring = gt_smem + warp * S::WARP;
+  const uint32_t wring_s = smem_addr(wring);
+  // K rows of a Q40 block a thread reads: k16 step h, rows 2t, 2t + 1,
+  // 2t + 8, 2t + 9 of it
+  auto row_of = [&](int r) { return 16 * (r >> 2) + 2 * t + (r & 1) + 8 * ((r >> 1) & 1); };
+  // 16-byte chunk ch of code row r sits at chunk position ch ^ (r % 8), so
+  // the rows 2t.. that a quarter-warp reads at once hit distinct banks
+  auto chunk_at = [](int r, int ch) { return r * GEMV_BN + ((ch ^ (r & 7)) << 4); };
+
+  // the warp's Q40 block i into ring slot i % TC_STAGES (columns past N
+  // read as code 0, scale 0)
+  auto fetch = [&](int i) {
+    const int kb = kb_lo + warp + i * GEMV_WARPS;
+    const uint32_t base = wring_s + (i % TC_STAGES) * S::STAGE;
+    const int8_t* src = codes + (size_t)kb * QB * N + n0;
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < QB * 8 / 32; ++u) {
+        const int c = u * 32 + lane, r = c >> 3, ch = c & 7;
+        const bool ok = n0 + 16 * ch < N;
+        cp_async16(base + chunk_at(r, ch), src + (size_t)r * N + (ok ? 16 * ch : 0), ok ? 16 : 0);
+      }
+    } else {
+      for (int u = 0; u < QB; ++u) {
+        const int r = u, w = lane;  // word w (columns 4w..4w+3) of row r
+        const bool ok = n0 + 4 * w < N;
+        cp_async_ca<4>(base + chunk_at(r, w >> 2) + 4 * (w & 3),
+                       src + (size_t)r * N + (ok ? 4 * w : 0), ok ? 4 : 0);
+      }
+    }
+    const bool ok = n0 + 4 * lane < N;  // N % 4 == 0: 4 columns all in or out
+    const size_t si = (size_t)kb * N + n0 + (ok ? 4 * lane : 0);
+    if constexpr (FAST)
+      cp_async_ca<8>(base + S::CODES + 8 * lane, static_cast<const __nv_bfloat16*>(sv) + si,
+                     ok ? 8 : 0);
+    else
+      cp_async16(base + S::CODES + 16 * lane, static_cast<const float*>(sv) + si, ok ? 16 : 0);
+  };
+
+  float acc[4][2][NT][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][j][u][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < n_mine) fetch(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_mine; ++i) {
+    // block i landed for this lane, then for the warp; every lane is done
+    // with block i - 1, whose slot takes block i + TC_STAGES - 1
+    cp_async_wait<TC_STAGES - 2>();
+    __syncwarp();
+    if (i + TC_STAGES - 1 < n_mine) fetch(i + TC_STAGES - 1);
+    cp_async_commit();
+    const int kb = kb_lo + warp + i * GEMV_WARPS;
+    const unsigned char* st = wring + (i % TC_STAGES) * S::STAGE;
+
+    // B fragments of both k16 steps: activation row 8 u + g, k 2t.. and
+    // 2t + 8..; exact mode's three bf16 parts
+    uint32_t b[2][NT][2][FAST ? 1 : 3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        const int m = 8 * u + g;
+        const size_t xi = (size_t)m * K + kb * QB + 16 * h + 2 * t;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if constexpr (FAST) {
+            b[h][u][half][0] = m < M ? __ldg(reinterpret_cast<const uint32_t*>(
+                                           static_cast<const __nv_bfloat16*>(xv) + xi + 8 * half))
+                                     : 0u;
+          } else {
+            const float2 xf = m < M ? __ldg(reinterpret_cast<const float2*>(
+                                          static_cast<const float*>(xv) + xi + 8 * half))
+                                    : make_float2(0.f, 0.f);
+            split3(xf.x, xf.y, b[h][u][half]);
+          }
+        }
+      }
+
+    // the thread's 16 columns (chunk g) of its 8 rows: 16-byte reads, which
+    // a quarter-warp (rows 2t.. of two chunks) takes from distinct banks
+    uint4 rows[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      rows[r] = *reinterpret_cast<const uint4*>(st + chunk_at(row_of(r), g));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // columns c0 + 4q .. + 3 of the 8 rows
+      uint32_t rq[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        rq[r] = q == 0 ? rows[r].x : q == 1 ? rows[r].y : q == 2 ? rows[r].z : rows[r].w;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t sel = j == 0 ? 0x5140u : 0x7362u;  // columns 2j, 2j + 1
+        const int col = c0 + 4 * q + 2 * j;
+        float blk[NT][4];
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) blk[u][e] = 0.f;
+        uint32_t s0 = 0, s1 = 0;
+        if constexpr (FAST) {
+          const uint32_t sw = *reinterpret_cast<const uint32_t*>(st + S::CODES + 2 * col);
+          s0 = __byte_perm(sw, 0, 0x1010);
+          s1 = __byte_perm(sw, 0, 0x3232);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned p = biased<Q80>(__byte_perm(rq[4 * h], rq[4 * h + 1], sel));
+          const unsigned pp = biased<Q80>(__byte_perm(rq[4 * h + 2], rq[4 * h + 3], sel));
+          uint32_t a[4];
+          if constexpr (FAST) {
+            a[0] = weight_pair<Q80>(p, 0, s0);
+            a[1] = weight_pair<Q80>(p, 2, s1);
+            a[2] = weight_pair<Q80>(pp, 0, s0);
+            a[3] = weight_pair<Q80>(pp, 2, s1);
+#pragma unroll
+            for (int u = 0; u < NT; ++u)
+              mma_bf16_16816(acc[q][j][u], a, b[h][u][0][0], b[h][u][1][0]);
+          } else {
+            a[0] = code_pair<Q80>(p, 0);
+            a[1] = code_pair<Q80>(p, 2);
+            a[2] = code_pair<Q80>(pp, 0);
+            a[3] = code_pair<Q80>(pp, 2);
+#pragma unroll
+            for (int u = 0; u < NT; ++u)
+#pragma unroll
+              for (int part = 0; part < 3; ++part)
+                mma_bf16_16816(blk[u], a, b[h][u][0][part], b[h][u][1][part]);
+          }
+        }
+        if constexpr (!FAST) {
+          // the block's scale, once: rows g (column col) and g + 8 (col + 1)
+          const float2 sc = *reinterpret_cast<const float2*>(st + S::CODES + 4 * col);
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            acc[q][j][u][0] = fmaf(sc.x, blk[u][0], acc[q][j][u][0]);
+            acc[q][j][u][1] = fmaf(sc.x, blk[u][1], acc[q][j][u][1]);
+            acc[q][j][u][2] = fmaf(sc.y, blk[u][2], acc[q][j][u][2]);
+            acc[q][j][u][3] = fmaf(sc.y, blk[u][3], acc[q][j][u][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: the reduction reuses it
+
+  // reduce the warps' partial sums in a fixed order (deterministic): each
+  // warp stores its accumulators as they lie in its lanes (element k of
+  // lane l at red[warp][32 k + l]: no bank conflicts), then every thread
+  // sums some elements over the warps in warp order. Element k = ((2q + j)
+  // NT + u) 4 + e of lane 4g + t is column 16g + 4q + 2j + e / 2 of the
+  // block, row 8u + 2t + e % 2.
+  constexpr int KE = 4 * 2 * NT * 4;  // accumulators a lane
+  float* red = reinterpret_cast<float*>(gt_smem);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[(warp * KE + ((2 * q + j) * NT + u) * 4 + e) * 32 + lane] = acc[q][j][u][e];
+  __syncthreads();
+  float* dst = out + (size_t)blockIdx.y * M * N;
+  for (int i = threadIdx.x; i < KE * 32; i += blockDim.x) {
+    const int k = i >> 5, l = i & 31;
+    const int e = k & 3, u = (k >> 2) % NT, jq = (k >> 2) / NT;  // jq = 2q + j
+    const int m = 8 * u + 2 * (l & 3) + (e & 1);
+    const int col = n0 + 16 * (l >> 2) + 2 * jq + (e >> 1);      // 4q + 2j = 2 jq
+    if (m >= M || col >= N) continue;
+    float sum = 0.f;
+    for (int w = 0; w < GEMV_WARPS; ++w) sum += red[w * KE * 32 + i];
+    dst[(size_t)m * N + col] = sum;
   }
 }
 
@@ -240,24 +570,32 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
   y[i] = acc;
 }
 
-template <typename XT, typename ST, typename SC>
+// K2's path: the SIMT kernel for one row, the tensor cores for 2..16 rows.
+// ops/quant_matmul.py::_gemv_path records the same rule.
+bool gemv_tc(int M) { return M > 1; }
+
+template <bool FAST, bool Q80>
 int launch_gemv(const void* x, const int8_t* codes, const void* scales, float* y,
                 float* part, int M, int K, int N, int splits, cudaStream_t stream) {
+  using XT = typename std::conditional<FAST, __nv_bfloat16, float>::type;
+  using SC = typename std::conditional<FAST, ScalesBF16, ScalesF32>::type;
   const int nkb = K / QB;
   const int kb_per_split = (nkb + splits - 1) / splits;
   dim3 grid((N + GEMV_BN - 1) / GEMV_BN, splits);
   dim3 block(GEMV_WARPS * 32);
   float* dst = splits == 1 ? y : part;
-  const XT* xp = static_cast<const XT*>(x);
-  const ST* sp = static_cast<const ST*>(scales);
-#define DLT_GEMV(MMV) \
-  q40_gemv_kernel<XT, ST, SC, MMV><<<grid, block, 0, stream>>>(xp, codes, sp, dst, M, K, N, kb_per_split)
-  if (M <= 1) DLT_GEMV(1);
-  else if (M <= 2) DLT_GEMV(2);
-  else if (M <= 4) DLT_GEMV(4);
-  else if (M <= 8) DLT_GEMV(8);
-  else DLT_GEMV(16);
-#undef DLT_GEMV
+  if (!gemv_tc(M)) {
+    q40_gemv_kernel<XT, XT, SC, Q80><<<grid, block, 0, stream>>>(
+        static_cast<const XT*>(x), codes, static_cast<const XT*>(scales), dst, K, N,
+        kb_per_split);
+  } else {
+    auto kernel = M <= 8 ? &q40_gemv_tc_kernel<FAST, Q80, 1> : &q40_gemv_tc_kernel<FAST, Q80, 2>;
+    constexpr int smem = TcGemvSmem<FAST>::TOTAL;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, stream>>>(x, codes, scales, dst, M, K, N, kb_per_split);
+  }
   if (splits > 1) {
     const int MN = M * N;
     sum_splits_kernel<<<(MN + 255) / 256, 256, 0, stream>>>(part, y, splits, MN);
@@ -294,7 +632,7 @@ struct XtSmem {
   static constexpr int BYTES = 2 * STAGE * 4;
 };
 
-template <int BM>
+template <int BM, bool Q80>
 __global__ void __launch_bounds__(XT_THREADS)
 q40_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
                       const float* __restrict__ scales, float* __restrict__ out,
@@ -359,7 +697,7 @@ q40_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ co
     for (int j = 0; j < 4; ++j) {
       const ScalesF32 s = {{sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]}};
       float w[4];
-      dequant4(biased_nibbles(static_cast<int>(craw[j])), s, w);
+      dequant4<Q80>(biased<Q80>(static_cast<int>(craw[j])), s, w);
       *reinterpret_cast<float4*>(ws + 4 * j) = make_float4(w[0], w[1], w[2], w[3]);
     }
   };
@@ -440,10 +778,10 @@ q40_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ co
   }
 }
 
-template <int BM>
+template <int BM, bool Q80>
 int launch_matmul_f32(const float* x, const int8_t* codes, const float* scales, float* y,
                       float* part, int M, int K, int N, int splits, cudaStream_t stream) {
-  auto kernel = q40_matmul_f32_kernel<BM>;
+  auto kernel = q40_matmul_f32_kernel<BM, Q80>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        XtSmem<BM>::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -495,16 +833,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[MP / 2], const uint32_t (&
   else wgmma_m64n128k16(d, a, desc);
 }
 
-// (128 + nibble) as bf16 pairs -> code * scale rounded to bf16 (RNE), the
-// plain version's bf16 dequant: 128 + t - 136 is the code exactly, and the
-// product of two bf16 values is rounded once
-__device__ __forceinline__ uint32_t dequant_pair(uint32_t biased128, uint32_t scale2) {
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased128), bias);
-  const __nv_bfloat162 w = __hmul2(c, *reinterpret_cast<const __nv_bfloat162*>(&scale2));
-  return *reinterpret_cast<const uint32_t*>(&w);
-}
-
 // grid (ceil(M / MP), ceil(N / FT_BN), splits); block FT_THREADS threads;
 // dynamic shared memory FtSmem<MP>::TOTAL. Tensor maps: tm_x over x [M, K]
 // (box 64 x MP, 128-byte swizzle), tm_c over codes [K, N] (box 128 x 64,
@@ -519,7 +847,7 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t biased128, uint32_t sc
 // (n_t = n0 + 128 wg + 32 w + 4 g, h = 0 for row g, 1 for row g + 8): one
 // 32-bit load of a code row gives all four, and the epilogue writes them as
 // one float4. Its k values in a 16-deep step are 2t, 2t + 1, 2t + 8, 2t + 9.
-template <int MP>
+template <int MP, bool Q80>
 __global__ void __launch_bounds__(FT_THREADS, 1)
 q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_c,
@@ -602,20 +930,20 @@ q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         const uint32_t rB = *reinterpret_cast<const uint32_t*>(cs + (kr + 1) * 128 + c1);
         const uint32_t rC = *reinterpret_cast<const uint32_t*>(cs + (kr + 8) * 128 + c0);
         const uint32_t rD = *reinterpret_cast<const uint32_t*>(cs + (kr + 9) * 128 + c1);
-        // (column, k-pair) bytes, then code + 8 in [0, 15] per byte
-        const uint32_t p01 = biased_nibbles(__byte_perm(rA, rB, 0x5140));  // cols 0, 1; k 2t..
-        const uint32_t p23 = biased_nibbles(__byte_perm(rA, rB, 0x7362));  // cols 2, 3
-        const uint32_t q01 = biased_nibbles(__byte_perm(rC, rD, 0x5140));  // cols 0, 1; k 2t+8..
-        const uint32_t q23 = biased_nibbles(__byte_perm(rC, rD, 0x7362));
+        // (column, k-pair) bytes, then the biased codes per byte
+        const uint32_t p01 = biased<Q80>(__byte_perm(rA, rB, 0x5140));  // cols 0, 1; k 2t..
+        const uint32_t p23 = biased<Q80>(__byte_perm(rA, rB, 0x7362));  // cols 2, 3
+        const uint32_t q01 = biased<Q80>(__byte_perm(rC, rD, 0x5140));  // cols 0, 1; k 2t+8..
+        const uint32_t q23 = biased<Q80>(__byte_perm(rC, rD, 0x7362));
         wgmma_wait<1>();  // the wgmmas that read afrag[buf] retired
-        afrag[buf][0][0] = dequant_pair(__byte_perm(p01, 0x43434343u, 0x5140u), s2[0]);
-        afrag[buf][0][1] = dequant_pair(__byte_perm(p01, 0x43434343u, 0x5342u), s2[1]);
-        afrag[buf][0][2] = dequant_pair(__byte_perm(q01, 0x43434343u, 0x5140u), s2[0]);
-        afrag[buf][0][3] = dequant_pair(__byte_perm(q01, 0x43434343u, 0x5342u), s2[1]);
-        afrag[buf][1][0] = dequant_pair(__byte_perm(p23, 0x43434343u, 0x5140u), s2[2]);
-        afrag[buf][1][1] = dequant_pair(__byte_perm(p23, 0x43434343u, 0x5342u), s2[3]);
-        afrag[buf][1][2] = dequant_pair(__byte_perm(q23, 0x43434343u, 0x5140u), s2[2]);
-        afrag[buf][1][3] = dequant_pair(__byte_perm(q23, 0x43434343u, 0x5342u), s2[3]);
+        afrag[buf][0][0] = weight_pair<Q80>(p01, 0, s2[0]);
+        afrag[buf][0][1] = weight_pair<Q80>(p01, 2, s2[1]);
+        afrag[buf][0][2] = weight_pair<Q80>(q01, 0, s2[0]);
+        afrag[buf][0][3] = weight_pair<Q80>(q01, 2, s2[1]);
+        afrag[buf][1][0] = weight_pair<Q80>(p23, 0, s2[2]);
+        afrag[buf][1][1] = weight_pair<Q80>(p23, 2, s2[3]);
+        afrag[buf][1][2] = weight_pair<Q80>(q23, 0, s2[2]);
+        afrag[buf][1][3] = weight_pair<Q80>(q23, 2, s2[3]);
         const uint64_t desc = x_desc(xs + kk * 32);
         fence_regs(acc[0]);
         fence_regs(acc[1]);
@@ -650,7 +978,7 @@ q40_matmul_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-template <int MP>
+template <int MP, bool Q80>
 int launch_matmul_bf16(const __nv_bfloat16* x, const int8_t* codes, const __nv_bfloat16* scales,
                        float* y, float* part, int M, int K, int N, int splits,
                        cudaStream_t stream) {
@@ -662,7 +990,7 @@ int launch_matmul_bf16(const __nv_bfloat16* x, const int8_t* codes, const __nv_b
       !tensor_map(&tm_s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scales, N, K / QB, (uint64_t)N * 2,
                   FT_BN, FT_BK / QB, CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorNotSupported);
-  auto kernel = q40_matmul_bf16_kernel<MP>;
+  auto kernel = q40_matmul_bf16_kernel<MP, Q80>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        FtSmem<MP>::TOTAL);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -680,20 +1008,29 @@ int launch_matmul_bf16(const __nv_bfloat16* x, const int8_t* codes, const __nv_b
 
 }  // namespace
 
+// one Q40 (q80 = 0) or Q80 (q80 = 1) instantiation of a launcher
+#define DLT_BY_CODES(q80, launcher, ...) \
+  ((q80) ? &launcher<__VA_ARGS__, true> : &launcher<__VA_ARGS__, false>)
+
 extern "C" {
 
 // K2 entry: x [M, K] (f32 exact / bf16 fast), codes int8 [K, N], scales
 // [K/32, N] (f32 exact / bf16 fast), y f32 [M, N]; part f32 [splits, M, N]
-// scratch (unused when splits == 1). M <= 16, K % 32 == 0, N % 4 == 0.
+// scratch (unused when splits == 1). 1 <= M <= 16, K % 32 == 0, N % 4 == 0.
+// q80 = 0: Q40 codes in [-8, 7]; q80 = 1: Q80 codes in [-127, 127]. M = 1
+// takes the SIMT kernel, M = 2..16 the tensor cores (gemv_tc).
 int dlt_q40_gemv(const void* x, const void* codes, const void* scales, void* y,
-                 void* part, int M, int K, int N, int splits, int fast, void* stream) {
+                 void* part, int M, int K, int N, int splits, int fast, int q80,
+                 void* stream) {
+  if (M < 1 || M > 16 || splits < 1 || N % 4 != 0 || K % QB != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* c = static_cast<const int8_t*>(codes);
-  if (fast)
-    return launch_gemv<__nv_bfloat16, __nv_bfloat16, ScalesBF16>(
-        x, c, scales, static_cast<float*>(y), static_cast<float*>(part), M, K, N, splits, s);
-  return launch_gemv<float, float, ScalesF32>(
-      x, c, scales, static_cast<float*>(y), static_cast<float*>(part), M, K, N, splits, s);
+  float* yp = static_cast<float*>(y);
+  float* pp = static_cast<float*>(part);
+  auto launch = fast ? DLT_BY_CODES(q80, launch_gemv, true)
+                     : DLT_BY_CODES(q80, launch_gemv, false);
+  return launch(x, c, scales, yp, pp, M, K, N, splits, s);
 }
 
 // K1 entry: same operands, any M; K % 32 == 0. Both modes take the split-K
@@ -701,26 +1038,25 @@ int dlt_q40_gemv(const void* x, const void* codes, const void* scales, void* y,
 // needs N % 16 == 0; slab rows MP = 64 for M <= 64, else 128. Exact mode's
 // tile has BM = 32, 64 or 128 rows (the least that holds M, up to 128).
 int dlt_q40_matmul(const void* x, const void* codes, const void* scales, void* y, void* part,
-                   int M, int K, int N, int splits, int fast, void* stream) {
+                   int M, int K, int N, int splits, int fast, int q80, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* c = static_cast<const int8_t*>(codes);
-  if (fast) {
-    if (N % 16 != 0 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-    const __nv_bfloat16* sp = static_cast<const __nv_bfloat16*>(scales);
-    float* yp = static_cast<float*>(y);
-    float* pp = static_cast<float*>(part);
-    return M <= 64 ? launch_matmul_bf16<64>(xp, c, sp, yp, pp, M, K, N, splits, s)
-                   : launch_matmul_bf16<128>(xp, c, sp, yp, pp, M, K, N, splits, s);
-  }
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* xp = static_cast<const float*>(x);
-  const float* sp = static_cast<const float*>(scales);
   float* yp = static_cast<float*>(y);
   float* pp = static_cast<float*>(part);
-  return M <= 32   ? launch_matmul_f32<32>(xp, c, sp, yp, pp, M, K, N, splits, s)
-         : M <= 64 ? launch_matmul_f32<64>(xp, c, sp, yp, pp, M, K, N, splits, s)
-                   : launch_matmul_f32<128>(xp, c, sp, yp, pp, M, K, N, splits, s);
+  if (splits < 1 || (fast && N % 16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (fast) {
+    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+    const __nv_bfloat16* sp = static_cast<const __nv_bfloat16*>(scales);
+    auto launch = M <= 64 ? DLT_BY_CODES(q80, launch_matmul_bf16, 64)
+                          : DLT_BY_CODES(q80, launch_matmul_bf16, 128);
+    return launch(xp, c, sp, yp, pp, M, K, N, splits, s);
+  }
+  const float* xp = static_cast<const float*>(x);
+  const float* sp = static_cast<const float*>(scales);
+  auto launch = M <= 32   ? DLT_BY_CODES(q80, launch_matmul_f32, 32)
+                : M <= 64 ? DLT_BY_CODES(q80, launch_matmul_f32, 64)
+                          : DLT_BY_CODES(q80, launch_matmul_f32, 128);
+  return launch(xp, c, sp, yp, pp, M, K, N, splits, s);
 }
 
 const char* dlt_error_string(int code) {

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from ..formats.mfile import ArchType, HiddenAct
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
-from ..ops.linear import QuantizedWeight, Weight, fake_quant_q80, linear
+from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, fake_quant_q80,
+                          linear)
 from ..ops.norms import rms_norm, rms_norm_per_head
 from ..ops.paged_attention import paged_attention, paged_attention_plain
 from ..parallel.ring import sp_attention
@@ -331,8 +332,11 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
     ``scales``/``codes`` planes stays quantized in its K-major layout, with
     the scales stored bf16 under bf16 compute (as the loader stores them —
     the same values a fast-mode dequant rounds to); dense leaves keep their
-    dtype; the embedding is stored at the compute dtype. Duck-typed: nothing
-    of the JAX package is imported."""
+    dtype; the embedding is stored at the compute dtype. The JAX planes do
+    not record their code range, so each weight's kind is read from its
+    codes: Q80 when any code lies outside Q40's [-8, 7], else Q40 (a nibble
+    decode is exact for codes in that range). Duck-typed: nothing of the
+    JAX package is imported."""
     from ..ops.linear import fast_numerics_resolved
 
     scale_dtype = (torch.bfloat16 if fast_numerics_resolved(cfg.compute_dtype)
@@ -341,9 +345,11 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
     def weight(w, l=None) -> Weight:
         pick = (lambda a: np.asarray(a)) if l is None else (lambda a: np.asarray(a)[l])
         if hasattr(w, "codes"):
+            codes = pick(w.codes)
+            q80 = codes.size and (codes.min() < -8 or codes.max() > 7)
             return QuantizedWeight(
                 scales=_dense(pick(w.scales), device).to(scale_dtype),
-                codes=_dense(pick(w.codes), device))
+                codes=_dense(codes, device), kind=Q80_CODES if q80 else Q40_CODES)
         return _dense(pick(w), device)
 
     def vec(a, l=None) -> torch.Tensor:
@@ -372,11 +378,14 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
 
 
 def init_random_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
-                       quantized: bool = False, device="cpu") -> Params:
+                       quantized: bool = False, device="cpu",
+                       codes_kind: str = "q40") -> Params:
     """Random params for tests and the on-card parity check (shape-identical
-    to a loaded model). Q40 planes are drawn directly as random codes and
-    scales on ``device`` from a seeded generator (no host quantization, so
-    full-width models build in seconds); dense weights are normal draws."""
+    to a loaded model). Quantized planes are drawn directly as random codes
+    and scales on ``device`` from a seeded generator (no host quantization,
+    so full-width models build in seconds): Q40 codes in [-7, 7], or with
+    ``codes_kind="q80"`` Q80 codes in [-127, 127]; dense weights are normal
+    draws."""
     g = torch.Generator(device=device).manual_seed(seed)
     fast = cfg.compute_dtype == "bfloat16"
 
@@ -386,16 +395,19 @@ def init_random_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
     def mk(out, in_) -> Weight:
         if not quantized:
             return rand(out, in_)
-        # codes in [-7, 7], mean 0 like quantized zero-mean weights (a
+        # codes in [-c, c], mean 0 like quantized zero-mean weights (a
         # uniform draw over [-8, 7] has mean -0.5, a common-mode bias that
         # each matmul multiplies by ~0.5 * scale * K and the layers compound)
-        codes = torch.randint(-7, 8, (in_, out), generator=g, device=device,
+        c = 127 if codes_kind == "q80" else 7
+        codes = torch.randint(-c, c + 1, (in_, out), generator=g, device=device,
                               dtype=torch.int8)
-        # code std is sqrt(56/3) ~ 4.32: scale the blocks so weights keep std ~scale
+        # code std is sqrt(c (c + 1) / 3), ~4.32 (Q40) or ~73.6 (Q80): scale
+        # the blocks so weights keep std ~scale
         scales = (torch.rand((in_ // 32, out), generator=g, device=device)
-                  * 0.5 + 0.75) * (scale / 4.32)
+                  * 0.5 + 0.75) * (scale / (73.6 if c == 127 else 4.32))
         return QuantizedWeight(
-            scales=scales.to(torch.bfloat16 if fast else torch.float32), codes=codes)
+            scales=scales.to(torch.bfloat16 if fast else torch.float32), codes=codes,
+            kind=codes_kind)
 
     qwen3 = cfg.arch == ArchType.QWEN3
     layers = [

@@ -93,14 +93,18 @@ def unfold_output(out: torch.Tensor, T: int, n_heads: int) -> torch.Tensor:
                .reshape(B, T, n_heads, D))
 
 
-def _attn_splits(B: int, n_kv: int, TQ: int, S: int) -> int:
-    """Blocks per (b, kv head, query tile) for a K3/K3s launch: 1 (single
-    pass) or the split-S count. Depends on the shapes only, so positions
-    that advance on the device never change the grid."""
+def _attn_splits(B: int, n_kv: int, TQ: int, S: int, max_blocks: int = _SPLIT_MAX_BLOCKS,
+                 target_blocks: int = _SPLIT_TARGET_BLOCKS) -> int:
+    """Blocks per (b, kv head, query tile) for a K3/K3s launch (or K4's,
+    with its own ``max_blocks``/``target_blocks``) over ``S`` keys: 1 (single
+    pass) when the grid has more than ``max_blocks`` blocks, else the
+    split-S count that brings it to about ``target_blocks``, each split
+    walking at least two 32-key tiles. Depends on the shapes only, so
+    positions that advance on the device never change the grid."""
     blocks = -(-TQ // BQ) * n_kv * B
-    if blocks > _SPLIT_MAX_BLOCKS:
+    if blocks > max_blocks:
         return 1
-    return max(1, min(-(-_SPLIT_TARGET_BLOCKS // blocks), -(-S // BS) // _SPLIT_MIN_TILES))
+    return max(1, min(-(-target_blocks // blocks), -(-S // BS) // _SPLIT_MIN_TILES))
 
 
 def _attn_path(kv_dtype: torch.dtype, n_splits: int) -> str:

@@ -1,7 +1,7 @@
-"""Linear/matmul ops over dense or Q40-quantized weights, and the Q80
+"""Linear/matmul ops over dense or Q40/Q80-quantized weights, and the Q80
 activation fake-quantization (the port of the JAX package's ``ops/linear.py``).
 
-Q40 weights stay in the block domain as two device planes in the JAX
+Q40 and Q80 weights stay in the block domain as two device planes in the JAX
 package's K-major layout (:class:`QuantizedWeight`), and the matmul
 dequantizes on the fly: on a CUDA tensor through the hand-written kernels of
 :mod:`dllama_tpu_torch.ops.quant_matmul` (K1 for prefill widths, K2 for
@@ -25,16 +25,27 @@ import torch.nn.functional as F
 from ..formats.quants import Q40_BLOCK_SIZE, Q80_BLOCK_SIZE
 
 
+# the code kinds of :class:`QuantizedWeight` planes: what range the int8
+# codes span, which the kernels must know (a Q40 kernel reads only a code's
+# low nibble)
+Q40_CODES, Q80_CODES = "q40", "q80"
+
+
 class QuantizedWeight(NamedTuple):
-    """Q40 weight as K-major planes (the JAX package's layout).
+    """Q40 or Q80 weight as K-major planes (the JAX package's layout).
 
     ``scales``: ``[in // 32, out]`` block scales, float32 in exact configs,
-    bfloat16 in fast configs. ``codes``: int8 ``[in, out]`` centered 4-bit
-    codes in [-8, 7]. Logical value: ``w[o, i] = codes[i, o] * scales[i // 32, o]``.
+    bfloat16 in fast configs. ``codes``: int8 ``[in, out]``: centered 4-bit
+    codes in [-8, 7] for Q40 planes, 8-bit codes in [-127, 127] for Q80
+    planes. Logical value: ``w[o, i] = codes[i, o] * scales[i // 32, o]``.
+    ``kind`` records which (:data:`Q40_CODES` or :data:`Q80_CODES`): the plain
+    version multiplies the codes whatever their range, the kernels decode a
+    code byte by its kind.
     """
 
     scales: torch.Tensor
     codes: torch.Tensor
+    kind: str = Q40_CODES
 
     @property
     def out_features(self) -> int:

@@ -6,20 +6,28 @@ Pallas kernel assembles each (batch row, KV head)'s whole logical cache in
 VMEM and runs one softmax, so that it is bit-identical to the gather plus
 oracle on the TPU. The CUDA kernel (``csrc/paged_attention.cu``) instead
 walks the row's block table with an online softmax: each 32-key tile reads
-``tables[b, s // bs]`` for its keys and loads their K/V rows with 16-byte
-loads (a block's ``[bs, hd]`` tile is contiguous in the pool), and the walk
-stops at the newest position any query row of the tile can see, so
-unallocated tail entries — and the many null entries behind an inactive
-row's stale position — are never loaded.
+``tables[b, s // bs]`` for its keys and copies their K/V rows with 16-byte
+``cp.async`` into a three-deep shared-memory ring (a block's ``[bs, hd]``
+tile is contiguous in the pool), two tiles in flight while one is scored,
+and the walk stops at the newest position any query row of the tile can
+see, so unallocated tail entries — and the many null entries behind an
+inactive row's stale position — are never loaded.
 
 What bounds it on the H100: the visible KV bytes (decode reads each
-visible K/V row once for ``kv_mul`` query rows). At decode with B = 1 the
-grid is only ``n_kv`` = 8 blocks on 132 SMs; splitting the key walk across
-blocks (flash-decoding) is later work, as for K3.
+visible K/V row once for ``kv_mul`` query rows). One block per (row, KV
+head, query tile) gives decode only 8 blocks at B = 1 and 64 at B = 8, so
+the key walk is split across blocks (split-S, flash-decoding):
+:func:`_paged_splits` picks the count from the shapes alone, each block
+takes its range of whole 32-key tiles from its row's own position read on
+the device (:func:`~dllama_tpu_torch.ops.flash_attention._split_ranges`,
+K3's rule), and K3's combine kernel merges the partial ``(acc, m, l)`` in
+split order.
 
 :func:`paged_attention` runs :func:`paged_attention_plain` (the gather +
 oracle, its plain version) on a CPU tensor, and on a CUDA tensor launches
-the kernel or raises. ``paged_attention.launches`` counts kernel launches.
+the kernel or raises. ``paged_attention.launches`` counts kernel launches
+(one per call, split or not) and ``paged_attention.last_splits`` holds the
+``n_splits`` of the last launch (1: single pass).
 """
 
 from __future__ import annotations
@@ -30,11 +38,21 @@ import math
 import torch
 
 from .attention import attention
-from .cuda_build import check, load, on_card
-from .flash_attention import fold_queries, unfold_output
+from .cuda_build import SMS, check, load, on_card
+from .flash_attention import _attn_splits, _split_scratch, fold_queries, unfold_output
 
 MAX_TQ = 512    # folded query rows (T * kv_mul) per (batch row, KV head)
 MAX_HEAD_DIM = 128
+# split-S rule (K3's :func:`_attn_splits` with K4's limits): a grid of
+# fewer (b, head, query tile) blocks than two per SM (which K3's limits,
+# a quarter of the SMs, would leave unsplit at B = 8) splits into about
+# four blocks per SM, each split walking at least two 32-key tiles of the
+# table's reach. Four, not two: a serving batch's rows are ragged, and its
+# deepest row sets the time, so its splits must be short; blocks of a
+# short row's empty splits load nothing and finish at once (a sweep of the
+# split count at B = 8, PERF.md §6)
+_SPLIT_MAX_BLOCKS = 2 * SMS - 1
+_SPLIT_TARGET_BLOCKS = 4 * SMS
 
 
 def supports(q_shape: tuple[int, ...], n_kv: int, block_size: int) -> bool:
@@ -44,6 +62,16 @@ def supports(q_shape: tuple[int, ...], n_kv: int, block_size: int) -> bool:
     B, T, n_heads, D = q_shape
     return (n_heads % n_kv == 0 and D % 8 == 0 and 0 < D <= MAX_HEAD_DIM
             and block_size % 8 == 0 and 0 < T * (n_heads // n_kv) <= MAX_TQ)
+
+
+def _paged_splits(B: int, n_kv: int, TQ: int, S: int) -> int:
+    """Blocks per (b, kv head, query tile) for a K4 launch over tables whose
+    reach is ``S = M * bs`` keys: 1 (single pass) or the split-S count.
+    Depends on the shapes only, so positions that advance on the device
+    never change the grid. Each block's key range is
+    :func:`~dllama_tpu_torch.ops.flash_attention._split_ranges` of its
+    row's newest visible key."""
+    return _attn_splits(B, n_kv, TQ, S, _SPLIT_MAX_BLOCKS, _SPLIT_TARGET_BLOCKS)
 
 
 def paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -72,7 +100,7 @@ def _lib():
         lib = load("paged_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dlt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                            ctypes.c_float, i, p]
+                                            ctypes.c_float, i, p, i, p]
         lib.dlt_paged_attention.restype = i
         _lib.cached = lib
     return lib
@@ -109,16 +137,21 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     out = torch.empty_like(q_g)
     tbl = tables.to(device=q.device, dtype=torch.int32).contiguous()
     pos0 = positions[:, 0].to(device=q.device, dtype=torch.int32).contiguous()
+    TQ = T * kv_mul
+    n_splits = _paged_splits(B, n_kv, TQ, M * bs)
+    part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q.device)
     lib = _lib()
     with on_card(q.device):  # the launch goes to q's card
         rc = lib.dlt_paged_attention(
             q_g.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-            tbl.data_ptr(), pos0.data_ptr(), B, n_kv, T * kv_mul, D, n_blocks, bs, M,
+            tbl.data_ptr(), pos0.data_ptr(), B, n_kv, TQ, D, n_blocks, bs, M,
             kv_mul, 1.0 / math.sqrt(head_dim), int(k_pool.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
+    paged_attention.last_splits = n_splits
     check(lib, rc, "paged_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)
 
 
 paged_attention.launches = 0
+paged_attention.last_splits = 0

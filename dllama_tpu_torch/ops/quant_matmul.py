@@ -1,4 +1,4 @@
-"""Q40 dequantizing matmul: kernels K1 (prefill tile) and K2 (decode GEMV).
+"""Q40/Q80 dequantizing matmul: kernels K1 (prefill tile) and K2 (decode GEMV).
 
 ``y[..., N] = x[..., K] @ (codes[K, N] * repeat(scales[K/32, N], 32 along K))``
 
@@ -22,12 +22,23 @@
   bytes (one pass over the planes). Design: neighbouring threads on
   neighbouring N columns for coalesced code loads, K split across the warps
   of a block (reduced in shared memory) and, for narrow N, across blocks.
+  One row (``M = 1``) runs an FP32 SIMT kernel; 2 to 16 rows (the serving
+  step, short verifies) run the same pass on the tensor cores
+  (``mma.sync``, the weight as the A operand built in registers from the
+  code bytes, the activations as B): fast mode multiplies bf16 weights,
+  exact mode the codes themselves (exact in bf16) by three bf16 parts of
+  each f32 activation and applies each Q40 block's scale once to the f32
+  sum (:func:`q40_gemv_tc_exact_plain` writes that arithmetic plainly).
+  :func:`_gemv_path` is the rule.
 
 Both live in ``csrc/quant_matmul.cu`` (see its header for the full note).
 Each wrapper runs :func:`quant_matmul_plain` — the plain PyTorch version of
 the same function — on a CPU tensor, and on a CUDA tensor launches its
-kernel or raises. ``launches`` on each wrapper counts kernel launches, and
-``last_splits`` holds the K split of its last launch (1: none).
+kernel or raises. ``launches`` on each wrapper counts kernel launches,
+``last_splits`` holds the K split of its last launch (1: none),
+``last_codes`` the code kind it read (``"q40"`` or ``"q80"``, from the
+weight's ``kind``: :func:`_codes_arg`), and K2's ``last_path`` the kernel
+(``"simt"`` or ``"tc"``).
 
 Unlike the JAX package, where ``auto`` reached the decode kernel only under
 ``DLLAMA_TPU_QUANT_KERNEL=fused``, ``M <= 16`` on CUDA always takes K2.
@@ -41,7 +52,7 @@ import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
 from .cuda_build import SMS, check, load, on_card
-from .linear import QuantizedWeight, dequantize_weight
+from .linear import Q40_CODES, Q80_CODES, QuantizedWeight, dequantize_weight
 
 # widest dispatch that counts as the decode regime (the JAX package's
 # FUSED_MAX_M): single steps and short verifies take K2, wider ones K1
@@ -49,8 +60,10 @@ FUSED_MAX_M = 16
 _GEMV_BN = 128         # N columns per K2 block (csrc: GEMV_BN)
 _GEMV_WARPS = 8        # warps per K2 block, each taking one Q40 block per step
 # K2 blocks resident at once on the H100: 132 SMs x 2 blocks of 256 threads
-# at the M = 1 kernel's ~128 registers. A grid just above it runs a second,
-# mostly idle wave, so the K split rounds the block count down to it.
+# (the M = 1 kernel at ~100 registers; the tensor-core kernel at M <= 8 is
+# bounded to 128 registers and two ~108 KB shared-memory rings an SM). A
+# grid just above it runs a second, mostly idle wave, so the K split rounds
+# the block count down to it.
 _RESIDENT_BLOCKS = 264
 # K1 fast tile (csrc: FT_*): 256 weight columns and a slab of up to 128
 # activation rows per block, K in 64-row stages; one block per SM (its
@@ -108,14 +121,58 @@ def quant_matmul_plain(x: torch.Tensor, w: QuantizedWeight, *,
     return y.reshape(*lead, w.out_features).to(x.dtype)
 
 
+def q40_gemv_tc_exact_plain(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    """The plain version of K2 exact's tensor-core arithmetic (the twin the
+    kernel's reassociation is held against): each f32 activation split into
+    three bf16 parts ``x = x0 + x1 + x2`` (the second and third are the
+    rounding remainders, so the sum is ``x`` exactly), the products of each
+    part with the raw codes summed in f32 over one Q40 block, then the
+    block's f32 scale applied once to that sum: ``y = sum_b s_b * sum_{k in
+    b} x_k * code_k`` instead of :func:`quant_matmul_plain`'s ``sum_k x_k *
+    (code_k * s_b)``. Returns f32 ``[..., N]``."""
+    *lead, K = x.shape
+    xf = x.reshape(-1, K).float()
+    parts = []
+    for _ in range(3):
+        p = xf.to(torch.bfloat16).float()
+        parts.append(p)
+        xf = xf - p
+    nb = K // Q40_BLOCK_SIZE
+    codes = w.codes.float().reshape(nb, Q40_BLOCK_SIZE, -1)              # [nb, 32, N]
+    blk = sum(torch.einsum("mbk,bkn->mbn", p.reshape(-1, nb, Q40_BLOCK_SIZE), codes)
+              for p in parts)                                              # [M, nb, N]
+    y = (blk * w.scales.float()[None]).sum(dim=1)
+    return y.reshape(*lead, w.out_features)
+
+
+def _codes_arg(w: QuantizedWeight) -> int:
+    """The C entries' code kind of a weight's planes: 0 for Q40 codes (read
+    as nibbles), 1 for Q80 codes (whole bytes). Raises for a kind the
+    kernels do not read, so that no plane is ever decoded as the wrong
+    kind."""
+    if w.kind == Q40_CODES:
+        return 0
+    if w.kind == Q80_CODES:
+        return 1
+    raise ValueError(f"no kernel reads {w.kind!r} codes (want {Q40_CODES!r} or "
+                     f"{Q80_CODES!r})")
+
+
+def _gemv_path(M: int) -> str:
+    """K2's kernel for ``M`` rows: the FP32 SIMT kernel for one row, the
+    tensor cores for 2..16 (``csrc/quant_matmul.cu::gemv_tc``, the same
+    rule)."""
+    return "simt" if M == 1 else "tc"
+
+
 def _lib():
     lib = getattr(_lib, "cached", None)
     if lib is None:
         lib = load("quant_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dlt_q40_gemv.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.dlt_q40_gemv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.dlt_q40_gemv.restype = i
-        lib.dlt_q40_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.dlt_q40_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.dlt_q40_matmul.restype = i
         _lib.cached = lib
     return lib
@@ -140,6 +197,7 @@ def _cuda_operands(x: torch.Tensor, w: QuantizedWeight, fast: bool, what: str):
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
     if codes.dtype != torch.int8:
         raise ValueError(f"{what}: codes must be int8, got {codes.dtype}")
+    _codes_arg(w)
     return x2d, scales, x2d.shape[0], K, N
 
 
@@ -181,7 +239,7 @@ def _matmul_splits(M: int, K: int, N: int, *, fast: bool = True) -> int:
 
 
 def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
-    """K2: decode-width (M <= 16) Q40 matmul; returns ``x.dtype``."""
+    """K2: decode-width (M <= 16) Q40/Q80 matmul; returns ``x.dtype``."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w, fast=fast)
     if x.device.type != "cuda":
@@ -199,19 +257,24 @@ def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor
     with on_card(x.device):  # the launch goes to x's card
         rc = lib.dlt_q40_gemv(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
                               y.data_ptr(), part.data_ptr(), M, K, N, splits,
-                              int(fast), torch.cuda.current_stream(x.device).cuda_stream)
+                              int(fast), _codes_arg(w),
+                              torch.cuda.current_stream(x.device).cuda_stream)
     q40_gemv.launches += 1
     q40_gemv.last_splits = splits
+    q40_gemv.last_codes = w.kind
+    q40_gemv.last_path = _gemv_path(M)
     check(lib, rc, "q40_gemv")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 q40_gemv.launches = 0
 q40_gemv.last_splits = 0
+q40_gemv.last_codes = ""
+q40_gemv.last_path = ""
 
 
 def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
-    """K1: tiled Q40 matmul for any M (the prefill widths); returns ``x.dtype``.
+    """K1: tiled Q40/Q80 matmul for any M (the prefill widths); returns ``x.dtype``.
     Raises for shapes that :func:`supports` refuses (in fast mode
     ``N % 16 != 0`` too)."""
     if x.device.type == "cpu":
@@ -230,15 +293,17 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
     with on_card(x.device):
         rc = lib.dlt_q40_matmul(x2d.data_ptr(), w.codes.data_ptr(), scales.data_ptr(),
                                 y.data_ptr(), part.data_ptr(), M, K, N, splits, int(fast),
-                                torch.cuda.current_stream(x.device).cuda_stream)
+                                _codes_arg(w), torch.cuda.current_stream(x.device).cuda_stream)
     q40_matmul.launches += 1
     q40_matmul.last_splits = splits
+    q40_matmul.last_codes = w.kind
     check(lib, rc, "q40_matmul")
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 q40_matmul.launches = 0
 q40_matmul.last_splits = 0
+q40_matmul.last_codes = ""
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:

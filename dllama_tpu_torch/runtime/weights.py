@@ -28,7 +28,8 @@ from ..formats.quants import (F16, F32, Q40, Q40_BLOCK_BYTES, Q80, Q80_BLOCK_BYT
                               QUANT_BLOCK_SIZE)
 from ..models.config import ModelConfig
 from ..models.llama import LayerParams, Params, rope_tables
-from ..ops.linear import QuantizedWeight, dequantize_weight, fast_numerics_resolved
+from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, dequantize_weight,
+                          fast_numerics_resolved)
 
 
 def dense_logits_wanted(fast_numerics: bool) -> bool:
@@ -47,7 +48,8 @@ def _raw(mf: ModelFile, key: str, device) -> torch.Tensor:
 def unpack_planes(raw: torch.Tensor, float_type: int, out_dim: int, in_dim: int,
                   scale_dtype) -> QuantizedWeight:
     """Q40/Q80 wire bytes (``uint8`` on any device, out-major blocks) → the
-    K-major planes, computed where ``raw`` lives."""
+    K-major planes, computed where ``raw`` lives; ``kind`` records the
+    file's type, so that Q80 codes are never read as Q40 nibbles."""
     nb = in_dim // QUANT_BLOCK_SIZE
     per = Q40_BLOCK_BYTES if float_type == Q40 else Q80_BLOCK_BYTES
     blocks = raw.view(out_dim, nb, per)
@@ -61,7 +63,8 @@ def unpack_planes(raw: torch.Tensor, float_type: int, out_dim: int, in_dim: int,
         codes = payload.contiguous().view(torch.int8)
     return QuantizedWeight(
         scales=scales.t().to(scale_dtype).contiguous(),
-        codes=codes.reshape(out_dim, in_dim).t().contiguous())
+        codes=codes.reshape(out_dim, in_dim).t().contiguous(),
+        kind=Q40_CODES if float_type == Q40 else Q80_CODES)
 
 
 class _Loader:

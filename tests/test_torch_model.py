@@ -220,3 +220,100 @@ def test_attn_impl_choice():
         k = torch.empty((1, cfg.n_kv_heads, 64, D), device="meta")
         with pytest.raises(ValueError, match="not supported"):
             flash_attention(q_cuda, k, k, 0, D)
+
+
+# --- Q80 weight files: the code kind travels with the planes ---
+
+
+def _write_q80_model(path, seed):
+    """A tiny Q80 Llama ``.m`` file written by the port's own writer
+    (``formats.mfile.write_header`` + ``formats.quants.encode_tensor``)."""
+    from dllama_tpu_torch.formats import quants
+
+    rng = np.random.default_rng(seed)
+    dim, hidden, n_heads, n_kv, hd, vocab, n_layers = 64, 96, 4, 2, 16, 96, 2
+    header = dict(version=1, arch_type=int(mfile.ArchType.LLAMA), dim=dim, hidden_dim=hidden,
+                  n_layers=n_layers, n_heads=n_heads, n_kv_heads=n_kv, vocab_size=vocab,
+                  seq_len=64, hidden_act=int(mfile.HiddenAct.SILU), rope_theta=10000,
+                  weight_float_type=quants.Q80, rope_type=int(mfile.RopeType.LLAMA),
+                  head_dim=hd, norm_epsilon=5)
+
+    def rand(*shape, base=0.0):
+        return (rng.standard_normal(shape) * 0.05 + base).astype(np.float32)
+
+    with open(path, "wb") as f:
+        mfile.write_header(f, header)
+        f.write(quants.encode_tensor(rand(vocab, dim), quants.F32))
+        for _ in range(n_layers):
+            for out, in_ in ((n_heads * hd, dim), (n_kv * hd, dim), (n_kv * hd, dim),
+                             (dim, n_heads * hd), (hidden, dim), (dim, hidden), (hidden, dim)):
+                f.write(quants.encode_tensor(rand(out, in_), quants.Q80))
+            for _ in range(2):
+                f.write(quants.encode_tensor(rand(dim, base=1.0), quants.F32))
+        f.write(quants.encode_tensor(rand(dim, base=1.0), quants.F32))
+        f.write(quants.encode_tensor(rand(vocab, dim), quants.Q80))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_q80_file_loads_with_code_kind_and_matches_jax(tmp_path, compute):
+    """A Q80 ``.m`` file loads with every matmul plane marked ``q80`` (codes
+    past the Q40 nibble range), and the forward over it matches the JAX
+    package's forward over the same file, in both numerics."""
+    from dllama_tpu.models.llama import load_params_from_mfile
+    from dllama_tpu_torch.runtime.weights import load_params
+
+    path = tmp_path / "q80.m"
+    _write_q80_model(path, seed=4)
+    mf = mfile.ModelFile.open(path)
+    cfg = ModelConfig.from_header(mf.header, compute)
+    params = load_params(mf, cfg)
+    planes = [getattr(lp, n) for lp in params.layers
+              for n in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")]
+    assert all(isinstance(w, QuantizedWeight) and w.kind == "q80" for w in planes)
+    assert max(int(w.codes.abs().max()) for w in planes) > 8
+    if compute == "float32":  # exact configs keep the quantized head
+        assert params.logits.kind == "q80"
+    jmf = jax_mfile.ModelFile.open(path)
+    jcfg = JaxConfig.from_header(jmf.header, compute)
+    jparams = load_params_from_mfile(jmf, jcfg)
+    for got, want in zip(*_run_both(cfg, jcfg, jparams, params)):
+        assert np.isfinite(got).all()
+        if compute == "float32":
+            np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+        else:
+            assert np.abs(got - want).max() <= BF16_RTOL * np.abs(want).max()
+
+
+def test_from_jax_params_keeps_code_kind_when_told():
+    """The JAX planes do not record their code range, so their codes tell
+    it: ``from_jax_params`` marks a weight Q80 when any code lies outside
+    [-8, 7] (here layer 1's ``w2``, redrawn over Q80's [-127, 127]) and Q40
+    otherwise, bit for bit the same codes either way."""
+    cfg, jcfg = _configs("llama", "float32", False)
+    jparams = jax_llama.init_random_params(jcfg, seed=5, quantized=True)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    q40 = llama.from_jax_params(tree, cfg)
+    w2 = tree.layers.w2
+    codes = np.array(w2.codes)
+    codes[1] = np.random.default_rng(5).integers(-127, 128, codes[1].shape, dtype=np.int8)
+    tree80 = tree._replace(layers=tree.layers._replace(w2=w2._replace(codes=codes)))
+    mixed = llama.from_jax_params(tree80, cfg)
+    for params in (q40, mixed):
+        for l, lp in enumerate(params.layers):
+            kinds = {w.kind for w in (lp.wq, lp.wk, lp.wv, lp.wo, lp.w1, lp.w3)}
+            assert kinds == {"q40"}
+            assert lp.w2.kind == ("q80" if params is mixed and l == 1 else "q40")
+        assert params.logits.kind == "q40"
+    assert torch.equal(mixed.layers[1].w2.codes, torch.from_numpy(codes[1]))
+    assert torch.equal(mixed.layers[0].w2.codes, q40.layers[0].w2.codes)
+
+
+@pytest.mark.parametrize("kind,reach", [("q40", 7), ("q80", 127)])
+def test_init_random_params_code_kind(kind, reach):
+    """Random planes of either kind: mean-zero codes over [-reach, reach],
+    marked with their kind."""
+    cfg, _ = _configs("llama", "float32", False)
+    params = llama.init_random_params(cfg, seed=1, quantized=True, codes_kind=kind)
+    w = params.layers[0].w1
+    assert w.kind == kind
+    assert int(w.codes.min()) == -reach and int(w.codes.max()) == reach

@@ -24,6 +24,7 @@ import torch
 
 from dllama_tpu.ops.attention import attention as jax_attention
 from dllama_tpu.ops.paged_attention import paged_ragged_attention
+from dllama_tpu_torch.ops import flash_attention as fa
 from dllama_tpu_torch.ops import paged_attention as pa
 
 ORACLE_ATOL = 2e-6
@@ -163,3 +164,111 @@ def test_gate_plain_on_cpu_and_xla_kernel_or_raise_on_cuda():
                                       for a in (q, kp, vp, tables, positions)), 16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert pa.paged_attention.launches == before
+
+
+# --- K4's split-S plan and its arithmetic, emulated plainly ---
+
+
+@pytest.mark.parametrize("B,n_kv,TQ,S,want", [
+    (1, 8, 4, 2048, 32),      # Llama 3.1 8B decode, one row: 8 blocks -> 256
+    (8, 8, 4, 2048, 9),       # the 8-slot serving step: 64 blocks -> 576
+    (2, 8, 64, 2048, 9),      # a 16-token query chunk of two rows
+    (32, 8, 4, 2048, 3),      # 256 blocks, under two an SM
+    (64, 8, 4, 2048, 1),      # 512 blocks fill the card unsplit
+    (1, 8, 4, 64, 1),         # two 32-key tiles: nothing to split
+    (1, 8, 4, 256, 4),        # at least two tiles a split
+])
+def test_paged_split_count_from_shapes(B, n_kv, TQ, S, want):
+    """The split count is a function of the shapes alone (B, n_kv, the
+    folded rows and the table's reach), never of the positions: about four
+    blocks per SM, at least two 32-key tiles a split, no split when the
+    grid already holds two blocks per SM. Unlike K3's rule it splits the
+    64-block serving step."""
+    n = pa._paged_splits(B, n_kv, TQ, S)
+    assert n == want
+    blocks = -(-TQ // fa.BQ) * n_kv * B
+    if n > 1:
+        assert blocks < 2 * pa.SMS and n <= -(-S // fa.BS) // 2
+        assert blocks * (n - 1) < 4 * pa.SMS  # one split fewer would not reach the aim
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 5, 32])
+@pytest.mark.parametrize("newest", [0, 1, 31, 32, 100, 1023, 2047])
+def test_paged_split_ranges_cover_every_visible_key_once(newest, n_splits):
+    """Each row's split ranges are whole 32-key tiles that cover its keys
+    [0, newest] exactly once, in split order; splits past a short row's
+    end are empty (they load nothing)."""
+    from dllama_tpu_torch.ops.flash_attention import _split_ranges
+
+    ranges = _split_ranges(newest, n_splits)
+    assert len(ranges) == n_splits
+    keys = [s for lo, hi in ranges for s in range(lo, hi)]
+    assert keys == list(range(0, (newest // fa.BS + 1) * fa.BS))
+    assert all(lo % fa.BS == 0 and hi % fa.BS == 0 and lo <= hi for lo, hi in ranges)
+
+
+def _split_emulation(q, kp, vp, tables, positions, hd, n_splits):
+    """K4's split-S arithmetic plainly: per (row, 16-row query tile), the
+    tile's newest visible key from the row's own position, its whole-tile
+    ranges (``_split_ranges``), each range's unnormalised ``(acc, m, l)``
+    from ``flash_block_stats_plain`` (the port's ``_block_attn``), merged in
+    split order as ``combine_splits_kernel`` does."""
+    from dllama_tpu_torch.ops.flash_attention import (_split_ranges, flash_block_stats_plain,
+                                                      fold_queries, unfold_output)
+
+    B, T, n_heads, D = q.shape
+    n_kv = kp.shape[1]
+    kv_mul = n_heads // n_kv
+    S = tables.shape[1] * kp.shape[2]
+    qg = fold_queries(q, n_kv)
+    kview, vview = pa.paged_view(kp, tables), pa.paged_view(vp, tables)
+    out = torch.zeros_like(qg)
+    for b in range(B):
+        for r0 in range(0, T * kv_mul, fa.BQ):
+            rows = min(fa.BQ, T * kv_mul - r0)
+            pos_r0 = int(positions[b, 0]) + r0 // kv_mul
+            newest = min(S - 1, int(positions[b, 0]) + (r0 + rows - 1) // kv_mul)
+            parts = []
+            for lo, hi in _split_ranges(newest, n_splits):
+                hi = min(hi, S)
+                if lo >= hi:   # past the row's end: nothing loaded
+                    parts.append((torch.zeros((1, n_kv, rows, D)),
+                                  torch.full((1, n_kv, rows), float("-inf")),
+                                  torch.zeros((1, n_kv, rows))))
+                    continue
+                parts.append(flash_block_stats_plain(
+                    qg[b:b + 1, :, r0:r0 + rows], kview[b:b + 1, :, lo:hi],
+                    vview[b:b + 1, :, lo:hi], pos_r0, lo, hd, rows // kv_mul))
+            mx = torch.stack([m for _, m, _ in parts]).amax(0)
+            m_safe = torch.where(torch.isfinite(mx), mx, 0.0)
+            acc = torch.zeros((1, n_kv, rows, D))
+            L = torch.zeros((1, n_kv, rows))
+            for a, m, l in parts:
+                w = torch.exp(m - m_safe)
+                L = L + l * w
+                acc = acc + a * w[..., None]
+            out[b:b + 1, :, r0:r0 + rows] = acc / torch.where(L > 0, L, 1.0)[..., None]
+    return unfold_output(out, T, n_heads)
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16"])
+@pytest.mark.parametrize("n_splits", [1, 2, 5])
+@pytest.mark.parametrize("name", ["scrambled", "partial_tail_ragged", "shared_and_null", "t16",
+                                  "hd72"])
+def test_split_combine_emulation_matches_jax_oracle(name, n_splits, pool):
+    """The split + combine arithmetic against the JAX package's gather +
+    oracle, f32 and bf16 pools (widened exactly on both sides): the merge
+    reorders sums and exps, 1e-5 absolute on outputs of magnitude ~1."""
+    q, kp, vp, tables, positions = _case(*GEOMETRIES[name])
+    hd = q.shape[-1]
+    kt, vt = torch.from_numpy(kp), torch.from_numpy(vp)
+    if pool == "bf16":
+        kt, vt = kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+    got = _split_emulation(torch.from_numpy(q), kt, vt, torch.from_numpy(tables),
+                           torch.from_numpy(positions), hd, n_splits).numpy()
+    jdt = jnp.bfloat16 if pool == "bf16" else jnp.float32
+    want = _jax_reference(jnp.asarray(q), jnp.asarray(kt.float().numpy(), jdt),
+                          jnp.asarray(vt.float().numpy(), jdt), jnp.asarray(tables),
+                          jnp.asarray(positions), hd)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -187,3 +187,98 @@ def test_wrapper_refuses_other_devices():
     _, tw = _pair(64, 128, seed=0)
     with pytest.raises(ValueError, match="unsupported device"):
         qm.q40_gemv(torch.zeros((1, 128), device="meta"), tw, fast=False)
+
+
+# --- Q80 planes (codes over [-127, 127]) and K2's tensor-core arithmetic ---
+
+
+def _pair_q80(out, in_, seed, scale_dtype=torch.float32):
+    """The same Q80 planes for both packages: int8 codes over [-127, 127]
+    (what a Q80 file unpacks to) and f32 block scales."""
+    from dllama_tpu.ops.linear import QuantizedWeight as JaxQuantizedWeight
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-127, 128, (in_, out)).astype(np.int8)
+    scales = (rng.random((in_ // 32, out)) * 0.001 + 0.0005).astype(np.float32)
+    jw = JaxQuantizedWeight(scales=jnp.asarray(scales), codes=jnp.asarray(codes))
+    tw = QuantizedWeight(scales=torch.from_numpy(scales).to(scale_dtype),
+                         codes=torch.from_numpy(codes), kind="q80")
+    return jw, tw
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_q80_linear_matches_jax_linear(m, compute):
+    """``linear`` on Q80 planes against the JAX ``linear`` on the same
+    planes, in both numerics (the plain version multiplies whatever codes
+    the planes hold)."""
+    fast = compute == "bfloat16"
+    jw, tw = _pair_q80(96, 256, seed=11 + m,
+                       scale_dtype=torch.bfloat16 if fast else torch.float32)
+    x = np.random.default_rng(m).standard_normal((1, m, 256)).astype(np.float32)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16 if fast else jnp.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, compute))
+    got = linear(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == (1, m, 96)
+    _close(got.float(), np.asarray(jax_linear(jx, jw), dtype=np.float32), fast)
+
+
+def test_codes_arg_never_sends_q80_as_q40():
+    """The code kind the C entries receive is a pure function of the
+    weight: Q40 planes 0 (nibbles), Q80 planes 1 (whole bytes); a kind no
+    kernel reads raises instead of launching. Planes unpacked from Q80 wire
+    bytes carry the Q80 kind."""
+    from dllama_tpu_torch.formats import quants
+    from dllama_tpu_torch.runtime.weights import unpack_planes
+
+    _, q40 = _pair(64, 128, seed=0)
+    _, q80 = _pair_q80(64, 128, seed=0)
+    assert q40.kind == "q40" and qm._codes_arg(q40) == 0
+    assert q80.kind == "q80" and qm._codes_arg(q80) == 1
+    with pytest.raises(ValueError, match="no kernel reads"):
+        qm._codes_arg(q80._replace(kind="q4k"))
+    w = np.random.default_rng(3).standard_normal((32, 64)).astype(np.float32)
+    for ft, kind in ((quants.Q40, "q40"), (quants.Q80, "q80")):
+        raw = torch.from_numpy(np.frombuffer(quants.encode_tensor(w, ft), np.uint8).copy())
+        planes = unpack_planes(raw, ft, 32, 64, torch.float32)
+        assert planes.kind == kind and qm._codes_arg(planes) == (ft == quants.Q80)
+    # the wide Q80 codes really reach past the nibble range
+    raw = torch.from_numpy(np.frombuffer(quants.encode_tensor(w, quants.Q80), np.uint8).copy())
+    assert unpack_planes(raw, quants.Q80, 32, 64, torch.float32).codes.abs().max() > 8
+
+
+@pytest.mark.parametrize("m,path", [(1, "simt"), (2, "tc"), (4, "tc"), (8, "tc"), (16, "tc")])
+def test_gemv_path_rule(m, path):
+    """K2 takes the SIMT kernel for one row and the tensor cores for 2..16."""
+    assert qm._gemv_path(m) == path
+
+
+@pytest.mark.parametrize("kind", ["q40", "q80"])
+@pytest.mark.parametrize("m", [2, 8, 16])
+def test_tc_exact_twin_matches_jax_exact(m, kind):
+    """K2 exact's tensor-core arithmetic written plainly (three bf16 parts
+    of x, per-Q40-block sums of x * code, then the block's scale) against
+    the JAX package's exact ``quant_matmul`` (its XLA dequant + f32 dot) on
+    the same planes: the reassociation stays within f32 rounding, 1e-5 of
+    max|y| like the plain version."""
+    if kind == "q40":
+        jw, tw = _pair(256, 512, seed=20 + m)
+    else:
+        jw, tw = _pair_q80(256, 512, seed=20 + m)
+    x = np.random.default_rng(30 + m).standard_normal((m, 512)).astype(np.float32)
+    want = jax_linear(jnp.asarray(x), jw)
+    got = qm.q40_gemv_tc_exact_plain(torch.from_numpy(x), tw)
+    assert got.dtype == torch.float32 and got.shape == (m, 256)
+    _close(got, want, False)
+
+
+def test_tc_exact_split_is_exact():
+    """The three bf16 parts of an f32 activation sum back to it exactly, so
+    the twin and the plain version differ only in summation order: with
+    unit scales and codes that pick one element each, they agree bitwise."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal((3, 64)) * 10.0 ** rng.integers(
+        -6, 6, (3, 64))).astype(np.float32))
+    eye = torch.eye(64, dtype=torch.int8)
+    w = QuantizedWeight(scales=torch.ones((2, 64)), codes=eye)
+    assert torch.equal(qm.q40_gemv_tc_exact_plain(x, w), x)

@@ -42,7 +42,19 @@ Phases, each failing loudly (non-zero exit, no result line):
    perplexity and each path's launch counts (set to 0 before each run): K1,
    K2 and K3 for ``inference``, K1 and K3 for ``perplexity``; then, under
    ``torch.profiler``, device time per 128-token prefill chunk and per
-   decode step;
+   decode step (a replay of the captured step); then the ``graphs`` phase
+   (:func:`graphs_phase`): first the sampler's one-row scan
+   (``ops/sampling.py::_cumsum_rows``) must give one bitwise result in 50
+   runs on a vocabulary-wide row; then, f32 and bf16: 64 greedy and 64 sampled tokens
+   from the captured single-sequence step (``next_token``) and from
+   ``decode_chunk_tokens(token, 8)`` equal the eager step's
+   (``greedy_step``/``sampled_step`` called by name) from the same prefill,
+   a chunk's replays launch under ``torch.cuda.set_sync_debug_mode("error")``,
+   the 8-row paged step's graph equals eager ``paged_sampled_step`` in
+   tokens and pool bytes after 8 steps, and the launches per replay equal
+   the eager launches per step (K2 + K3, K2 + K4); eager / graph / chunk-8
+   tok/s, eager / graph device ms and busy share, eager / graph paged
+   step wall ms, capture seconds and pool bytes per graph are printed;
 5. serving at the same width: the port's ``api --batch-slots 8
    --kv-block-size 16`` in process on a free local port, under f32 and
    bf16; 16 concurrent clients (9 share a system message, 2 SSE streams, an
@@ -51,7 +63,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    pair identical text, prefix reuse must happen and K1-K4 must each launch
    (counts set to 0 before each run); tok/s, latencies, step time, the
    column take/put cost and the pool are printed; then one 8-row paged
-   decode step of that geometry under ``torch.profiler`` in f32 and bf16
+   decode step of that geometry (a replay of ``PagedGenerator``'s captured
+   step) under ``torch.profiler`` in f32 and bf16
    (:func:`paged_step_profile`: device ms, K2's and K4's device ms,
    kernels per step, busy share);
 6. model parity on the card: 2 layers at 8B widths, the kernel path
@@ -97,6 +110,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import io
 import json
 import math
@@ -623,7 +637,8 @@ def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
 def engine_profile(model: str, tok: str, dtype: str) -> list[dict]:
     """Where the engine's time goes, under ``torch.profiler`` on one engine:
     two 128-token prefill chunks (at depths 128 and 256, after a warm-up
-    chunk at 0), then 16 greedy decode steps (after 4 warm-up steps).
+    chunk at 0), then 16 greedy decode steps, each a replay of the captured
+    step (after 4 warm-up steps, the first of which captures it).
     Device busy share = the kernels' summed device time over the host wall
     time; the rest is the device idling while the host enqueues the eager
     ops."""
@@ -655,42 +670,48 @@ def engine_profile(model: str, tok: str, dtype: str) -> list[dict]:
     return recs
 
 
+def paged_rows(gen, depths: list[int], T: int, g_cpu: torch.Generator) -> torch.Tensor:
+    """Scrambled block tables of ``depths`` (:func:`scrambled_tables`, room
+    for ``T`` rows each) over ``gen``'s pool, as ``[B, table_width]``."""
+    tables, n_blocks = scrambled_tables(depths, T, BLOCK, g_cpu)
+    if tables.shape[1] != gen.table_width or n_blocks > gen.pool.n_blocks:
+        fail(f"paged rows: tables {tuple(tables.shape)} / {n_blocks} blocks do not fit "
+             f"the generator's {gen.table_width} / {gen.pool.n_blocks}")
+    return tables
+
+
 def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
     """One 8-row paged decode step of the serving geometry (8 slots at the
     ragged depths :data:`RAGGED`, block 16, scrambled tables), as the
-    serving scheduler runs it (``paged_sampled_step``: K2 at M = 8, K4, and
-    in exact mode the quantized head on K2), on the full model, under
-    ``torch.profiler``: 8 steps after 2 warm-up steps. Device ms per step,
-    K2's and K4's device ms per step (their kernels and their split sums /
-    combines, which no other kernel of the step launches), kernels per
-    step, busy share."""
+    serving scheduler runs it: a replay of ``PagedGenerator``'s captured
+    step (``paged_sampled_step``: K2 at M = 8, K4, and in exact mode the
+    quantized head on K2), on the full model, under ``torch.profiler``: 8
+    replays after 2 warm-up replays. Device ms per step, K2's and K4's
+    device ms per step (their kernels and their split sums / combines,
+    which no other kernel of the step launches), kernels per step, busy
+    share."""
     from dllama_tpu_torch.formats.quants import Q80
-    from dllama_tpu_torch.models.llama import paged_sampled_step
     from dllama_tpu_torch.runtime.engine import InferenceEngine
-    from dllama_tpu_torch.runtime.kvblocks import PagedKVCache
+    from dllama_tpu_torch.runtime.serving import PagedGenerator
 
     eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-                          temperature=0.0)
+                          temperature=0.0, kv_block_size=BLOCK)
     try:
-        tables, n_blocks = scrambled_tables(RAGGED, 1, BLOCK,
-                                            torch.Generator().manual_seed(SEED))
-        pkv = PagedKVCache.create(eng.cfg, n_blocks, BLOCK, dtype=eng.kv_dtype, device=DEV)
+        gen = PagedGenerator(eng, SLOTS)
+        graph = gen.step_graph()
+        tables = paged_rows(gen, RAGGED, 1, torch.Generator().manual_seed(SEED))
         g = torch.Generator(device=DEV).manual_seed(SEED + 8)
         B = len(RAGGED)
         tokens = torch.randint(0, VOCAB, (B, 1), generator=g, device=DEV)
-        pos = torch.tensor(RAGGED, device=DEV)
-        temps, topps, coins = (torch.zeros(B, device=DEV), torch.ones(B, device=DEV),
-                               torch.zeros(B, device=DEV))
-
-        def step():
-            return paged_sampled_step(eng.params, eng.cfg, tokens, pos, pkv, tables,
-                                      temps, topps, coins)
-
+        gen._in.copy_(torch.cat([tokens, torch.tensor(RAGGED, device=DEV)[:, None], tables], 1))
+        gen._knobs.copy_(torch.stack([torch.zeros(B, device=DEV), torch.ones(B, device=DEV),
+                                      torch.zeros(B, device=DEV)]))
         for _ in range(2):
-            step()
+            graph.replay()
         n = 8
-        wall, kernels = _profiled(lambda: [step() for _ in range(n)], n)
+        wall, kernels = _profiled(lambda: [graph.replay() for _ in range(n)], n)
+        gen.close()
     finally:
         eng.close()
     rec = _profile_rec("paged_step_profile", dtype, "step", n, wall, kernels)
@@ -702,6 +723,297 @@ def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
             e.count for e in kernels if any(k in e.key for k in keys)) / n
     rec["rows"], rec["depths"], rec["block_size"] = B, RAGGED, BLOCK
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the decode steps as CUDA graphs against the eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 64
+# the paged graph's rows: the RAGGED depths, the deepest cut so that its 8
+# steps stay inside the 2048-position context
+PAGED_GRAPH_DEPTHS = [min(d, MAX_SEQ - 8) for d in RAGGED]
+PAGED_GRAPH_STEPS = 8
+
+
+@contextlib.contextmanager
+def sync_error():
+    """``torch.cuda.set_sync_debug_mode("error")``: any synchronising CUDA
+    call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _per_step(counts: dict, n: int) -> dict:
+    return {k: v / n for k, v in counts.items()}
+
+
+def graph_single(eng, ids: list[int], sampled: bool) -> dict:
+    """One engine at 8B width from the same prefill (``ids[:-1]``, re-run
+    before each decode run): :data:`GRAPH_STEPS` tokens from the eager
+    step called by name (``greedy_step``/``sampled_step``, int positions,
+    one readback a token), from ``next_token`` (one replay of the captured
+    step a token) and from ``decode_chunk_tokens(token, 8)`` (8 replays,
+    one readback), greedy or sampled (temperature 0.8, top-p 0.9, the
+    xorshift stream of :data:`SEED`); one chunk of 8 launched under the
+    sync debug mode "error". Tokens, host-clock tok/s and launches per step
+    of each run."""
+    from dllama_tpu_torch.models.llama import greedy_step, sampled_step
+    from dllama_tpu_torch.tokenizer.sampler import xorshift_random_f32
+
+    temp, topp = (0.8, 0.9) if sampled else (0.0, 0.9)
+    n = GRAPH_STEPS
+
+    def fresh() -> None:
+        eng.reset()
+        eng.prefill(ids[:-1])
+        eng.sampler.set_temp(temp)
+        eng.sampler.topp = topp
+        eng.sampler.set_seed(SEED)
+
+    def run(kind: str) -> tuple[list[int], float, dict]:
+        fresh()
+        if kind != "eager":
+            eng.decode_step_graph(sampled)  # captured on the first run, not timed
+        tok, pos, st, out = ids[-1], eng.pos, SEED, []
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        while len(out) < n:
+            if kind == "eager":
+                x = torch.tensor([[tok]], device=DEV)
+                p = pos + len(out)
+                if sampled:
+                    coin, st = xorshift_random_f32(st)
+                    nxt, _ = sampled_step(eng.params, eng.cfg, x, p, eng.kv, temp, topp, coin)
+                else:
+                    nxt, _ = greedy_step(eng.params, eng.cfg, x, p, eng.kv)
+                tok = int(nxt[0])
+                out.append(tok)
+            elif kind == "graph":
+                tok = eng.next_token(tok)
+                out.append(tok)
+            else:
+                chunk = eng.decode_chunk_tokens(tok, 8)
+                eng.commit_chunk(len(chunk))
+                out += chunk
+                tok = chunk[-1]
+        dt = time.perf_counter() - t0
+        return out, n / dt, _per_step(read_counts(), n)
+
+    runs = {kind: run(kind) for kind in ("eager", "graph", "chunk8")}
+    graph = eng.decode_step_graph(sampled)
+    # one chunk's launch under the sync debug mode; its readback after
+    fresh()
+    coins = eng._coins(8) if sampled else None
+    torch.cuda.synchronize()
+    with sync_error():
+        graph.launch(ids[-1], eng.pos, 8, temp, topp, coins)
+    synced = graph.tokens()
+    rec = {kind: dict(tok_per_s=r[1], launches_per_step=r[2]) for kind, r in runs.items()}
+    rec.update(tokens_equal={k: runs[k][0] == runs["eager"][0] for k in ("graph", "chunk8")},
+               sync_error_chunk_equal=synced == runs["eager"][0][:8],
+               distinct_tokens=len(set(runs["eager"][0])),
+               capture=graph.step.stats())
+    return rec
+
+
+def graph_paged(eng) -> dict:
+    """The 8-row paged step (``PagedGenerator``'s captured step, its static
+    buffers loaded as ``step`` loads them) against the eager
+    ``paged_sampled_step`` called by name on a copy of the same pool:
+    :data:`PAGED_GRAPH_STEPS` steps from rows at
+    :data:`PAGED_GRAPH_DEPTHS` through scrambled tables, each row's pick
+    fed back, rows alternating greedy and sampled (0.8 / 0.9, seeded
+    coins). Tokens, pool bytes, host wall ms per step (copies in, step,
+    readback), launches per step, and device ms / busy share of 8 more
+    steps of each under ``torch.profiler``."""
+    from dllama_tpu_torch.models.llama import paged_sampled_step
+    from dllama_tpu_torch.runtime.graphs import load
+    from dllama_tpu_torch.runtime.kvblocks import PagedKVCache
+    from dllama_tpu_torch.runtime.serving import PagedGenerator
+
+    gen = PagedGenerator(eng, SLOTS)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    for pool in (gen.pkv.k, gen.pkv.v):
+        for layer in pool:
+            layer.copy_(torch.randn(layer.shape, generator=g, device=DEV))
+    graph = gen.step_graph()  # the warm-up writes the null block alone
+    g_cpu = torch.Generator().manual_seed(SEED + 9)
+    tables = paged_rows(gen, PAGED_GRAPH_DEPTHS, PAGED_GRAPH_STEPS, g_cpu)
+    B, n = len(PAGED_GRAPH_DEPTHS), PAGED_GRAPH_STEPS
+    depths = torch.tensor(PAGED_GRAPH_DEPTHS)
+    tok0 = torch.randint(0, VOCAB, (B,), generator=g_cpu)
+    knobs = [torch.stack([torch.tensor([0.0, 0.8] * (B // 2)), torch.full((B,), 0.9),
+                          torch.rand(B, generator=g_cpu)]) for _ in range(n)]
+    snap = PagedKVCache(gen.pkv.k.clone(), gen.pkv.v.clone())
+    tables_host = tables.cpu()
+
+    def graph_step(i: int, toks: torch.Tensor) -> torch.Tensor:
+        load(gen._in, gen._in_host, torch.cat([toks[:, None], (depths + i)[:, None],
+                                               tables_host], 1).numpy())
+        load(gen._knobs, gen._knobs_host, knobs[i].numpy())
+        graph.replay()
+        return gen._out.cpu()[0]
+
+    def eager_step(i: int, toks: torch.Tensor) -> torch.Tensor:
+        # what PagedGenerator.step dispatched before the graph
+        dev = torch.cat([toks[:, None], (depths + i)[:, None], tables_host], 1).to(DEV)
+        kn = knobs[i].to(DEV)
+        nxt, nf = paged_sampled_step(eng.params, eng.cfg, dev[:, :1], dev[:, 1], snap,
+                                     dev[:, 2:], kn[0], kn[1], kn[2])
+        return torch.stack([nxt.long(), nf.long()]).cpu()[0]
+
+    rec: dict = {"rows": B, "depths": PAGED_GRAPH_DEPTHS, "steps": n}
+    for kind, step in (("graph", graph_step), ("eager", eager_step)):
+        toks, picks, ms = tok0, [], []
+        torch.cuda.synchronize()
+        zero_counts()
+        for i in range(n):
+            t0 = time.perf_counter()
+            toks = step(i, toks)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            picks.append(toks.tolist())
+        rec[kind] = dict(wall_ms_per_step_median=statistics.median(ms),
+                         launches_per_step=_per_step(read_counts(), n))
+        rec[f"{kind}_tokens"] = picks
+    rec["tokens_equal"] = rec.pop("graph_tokens") == rec.pop("eager_tokens")
+    rec["pool_bytes_equal"] = bool(torch.equal(gen.pkv.k, snap.k)
+                                   and torch.equal(gen.pkv.v, snap.v))
+    for kind, step in (("graph", graph_step), ("eager", eager_step)):
+        wall, kernels = _profiled(lambda: [step(i, tok0) for i in range(n)], n)
+        prof = _profile_rec(f"paged_{kind}_profile", "", "step", n, wall, kernels)
+        rec[kind].update({k: prof[k] for k in ("device_ms_per_step", "device_busy_share",
+                                                "kernels_per_step", "wall_ms_per_step")})
+    rec["capture"] = graph.stats()
+    gen.close()
+    del snap
+    return rec
+
+
+CUMSUM_RUNS = 50
+
+
+def cumsum_determinism() -> dict:
+    """``ops.sampling._cumsum_rows`` on one fixed softmax row of the
+    vocabulary's width, :data:`CUMSUM_RUNS` times: every run must be
+    bitwise equal. The sampled step's CDF relies on it; it holds only while
+    PyTorch scans a tensor of two rows with its fixed-order per-row scan (a
+    single row goes to a scan whose float sums depend on timing). The plain
+    ``torch.cumsum`` of the single row is run as often and reported, not
+    held: it says whether the two-row detour is still needed."""
+    from dllama_tpu_torch.ops.sampling import _cumsum_rows
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    row = torch.sort(torch.softmax(torch.randn((1, VOCAB), generator=g, device=DEV) * 4,
+                                   dim=-1), dim=-1, descending=True).values
+    rec = {"case": "cumsum_rows", "vocab": VOCAB, "runs": CUMSUM_RUNS}
+    for name, fn in (("cumsum_rows", _cumsum_rows),
+                     ("torch_cumsum_one_row", lambda x: torch.cumsum(x, dim=-1))):
+        first = fn(row)
+        rec[f"{name}_distinct"] = 1 + sum(not torch.equal(fn(row), first)
+                                          for _ in range(CUMSUM_RUNS - 1))
+    print(json.dumps(rec), flush=True)
+    if rec["cumsum_rows_distinct"] != 1:
+        fail(f"ops.sampling._cumsum_rows gave {rec['cumsum_rows_distinct']} different "
+             f"results in {CUMSUM_RUNS} runs on one row: the sampled step's CDF is not "
+             f"deterministic with this PyTorch ({torch.__version__})")
+    return rec
+
+
+def graphs_phase(model: str, tok: str, summary: dict) -> None:
+    """The decode steps as CUDA graphs at 8B width, f32 and bf16: the
+    single-sequence step greedy and sampled (:func:`graph_single`: graph
+    and chunk-8 tokens equal the eager step's, a chunk launches with no
+    synchronisation, launches per replay equal the eager launches per step:
+    K2 and K3 and nothing else), the eager and the graph step's device time
+    and busy share under ``torch.profiler``, and the 8-row paged step
+    (:func:`graph_paged`: equal tokens and pool bytes, K2 and K4 per replay
+    as per eager step). First the sampled CDF's scan is held to one result
+    over many runs (:func:`cumsum_determinism`). One JSON line per
+    numerics."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.models.llama import greedy_step
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    summary["cumsum_rows"] = cumsum_determinism()
+    for dtype in ("f32", "bf16"):
+        eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                              compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                              temperature=0.0, seed=SEED, kv_block_size=BLOCK)
+        try:
+            ids = eng.tokenizer.encode(PROMPT)
+            rec = dict(case="graphs", compute_dtype=dtype, layers=eng.cfg.n_layers,
+                       decode_steps=GRAPH_STEPS, greedy=graph_single(eng, ids, False),
+                       sampled=graph_single(eng, ids, True))
+            # 16 steps of each under the profiler, after the runs above
+            eng.reset()
+            eng.prefill(ids[:-1])
+            eng.sampler.set_temp(0.0)
+            p0 = eng.pos
+
+            def eager16():
+                for i in range(16):
+                    greedy_step(eng.params, eng.cfg, torch.tensor([[ids[-1]]], device=DEV),
+                                p0 + i, eng.kv)[0].tolist()
+
+            def graph16():
+                eng.pos = p0
+                for _ in range(16):
+                    eng.next_token(ids[-1])
+
+            for kind, fn in (("eager", eager16), ("graph", graph16)):
+                wall, kernels = _profiled(fn, 16)
+                prof = _profile_rec(f"{kind}_decode_profile", dtype, "step", 16, wall, kernels)
+                rec[f"{kind}_decode_profile"] = {k: prof[k] for k in (
+                    "device_ms_per_step", "device_busy_share", "kernels_per_step",
+                    "wall_ms_per_step")}
+            rec["paged"] = graph_paged(eng)
+        finally:
+            eng.close()
+        print(json.dumps(rec), flush=True)
+        summary.setdefault(dtype, {})["graphs"] = rec
+        torch.cuda.empty_cache()
+        check_graphs(rec)
+
+
+def check_graphs(rec: dict) -> None:
+    dtype = rec["compute_dtype"]
+    n_layers = rec["layers"]
+    for mode in ("greedy", "sampled"):
+        r = rec[mode]
+        if not all(r["tokens_equal"].values()) or not r["sync_error_chunk_equal"]:
+            fail(f"graphs {dtype} {mode}: graph / chunk-8 / sync-debug tokens differ from "
+                 f"the eager step's: {r['tokens_equal']}, {r['sync_error_chunk_equal']}")
+        if r["distinct_tokens"] < 2:
+            fail(f"graphs {dtype} {mode}: the eager step repeats one token")
+        eager = r["eager"]["launches_per_step"]
+        want_k2 = 7 * n_layers + (1 if dtype == "f32" else 0)  # the Q40 head on K2 in exact mode
+        if eager["K2"] != want_k2 or eager["K3"] != n_layers or any(
+                eager[k] for k in ("K1", "K4", "K3s")):
+            fail(f"graphs {dtype} {mode}: eager launches per step {eager}")
+        for kind in ("graph", "chunk8"):
+            if r[kind]["launches_per_step"] != eager:
+                fail(f"graphs {dtype} {mode} {kind}: launches per step "
+                     f"{r[kind]['launches_per_step']}, eager {eager}")
+        per = r["capture"]["launches_per_replay"]
+        if per != {"q40_gemv": eager["K2"], "flash_attention": eager["K3"]}:
+            fail(f"graphs {dtype} {mode}: launches recorded per replay {per}")
+    p = rec["paged"]
+    if not p["tokens_equal"] or not p["pool_bytes_equal"]:
+        fail(f"graphs {dtype} paged: graph and eager steps differ (tokens "
+             f"{p['tokens_equal']}, pool bytes {p['pool_bytes_equal']})")
+    eager = p["eager"]["launches_per_step"]
+    if eager["K2"] <= 0 or eager["K4"] != n_layers or p["graph"]["launches_per_step"] != eager:
+        fail(f"graphs {dtype} paged: launches per step graph "
+             f"{p['graph']['launches_per_step']}, eager {eager}")
+    if p["capture"]["launches_per_replay"] != {"q40_gemv": eager["K2"],
+                                               "paged_attention": eager["K4"]}:
+        fail(f"graphs {dtype} paged: launches recorded per replay "
+             f"{p['capture']['launches_per_replay']}")
 
 
 def _wrappers() -> dict:
@@ -914,6 +1226,9 @@ def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
                 "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
                 "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
                 "--host", "127.0.0.1", "--port", "0"]
+        # the wrappers installed below tie the previous run's generator (and
+        # its pool) into reference cycles: free it before the peak is reset
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()  # this run's counts: set to 0 just before it, read just after
@@ -1335,14 +1650,18 @@ def sp_parity(results: dict) -> None:
 @contextlib.contextmanager
 def phase_counts(store: dict):
     """K3s launches split by phase: the engine's ``prefill`` (per chunk) and
-    ``next_token`` (per decode step), counted where each returns; and
+    decode (per token: ``decode_chunk_tokens``, which ``generate`` calls
+    for every chunk, k = 1 included, and ``next_token``, which a parent
+    tree's ``generate`` calls instead), counted where each returns; and
     ``(n_splits, path)`` of every K3/K3s launch of the prefill, as the
     wrappers take the path from ``_attn_path`` (a parent tree without it
     records none)."""
     from dllama_tpu_torch.ops import flash_attention as fa
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
-    prefill, next_token = InferenceEngine.prefill, InferenceEngine.next_token
+    saved = {name: getattr(InferenceEngine, name)
+             for name in ("prefill", "next_token", "decode_chunk_tokens")
+             if hasattr(InferenceEngine, name)}
     attn_path = getattr(fa, "_attn_path", None)
     store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0,
                  prefill_launches=[])
@@ -1358,27 +1677,34 @@ def phase_counts(store: dict):
         n0 = fa.flash_block_stats.launches
         in_prefill[0] = True
         try:
-            last, metrics = prefill(self, ids)
+            last, metrics = saved["prefill"](self, ids)
         finally:
             in_prefill[0] = False
         store["prefill_chunks"] += len(metrics)
         store["prefill_k3s"] += fa.flash_block_stats.launches - n0
         return last, metrics
 
-    def counted_next(self, token):
-        n0 = fa.flash_block_stats.launches
-        out = next_token(self, token)
-        store["decode_steps"] += 1
-        store["decode_k3s"] += fa.flash_block_stats.launches - n0
-        return out
+    def counted_decode(name: str, n_tokens):
+        def counted(self, *args):
+            n0 = fa.flash_block_stats.launches
+            out = saved[name](self, *args)
+            store["decode_steps"] += n_tokens(out)
+            store["decode_k3s"] += fa.flash_block_stats.launches - n0
+            return out
+        return counted
 
-    InferenceEngine.prefill, InferenceEngine.next_token = counted_prefill, counted_next
+    wrapped = {"prefill": counted_prefill,
+               "next_token": counted_decode("next_token", lambda tok: 1),
+               "decode_chunk_tokens": counted_decode("decode_chunk_tokens", len)}
+    for name in saved:
+        setattr(InferenceEngine, name, wrapped[name])
     if attn_path is not None:
         fa._attn_path = observed_path
     try:
         yield store
     finally:
-        InferenceEngine.prefill, InferenceEngine.next_token = prefill, next_token
+        for name, fn in saved.items():
+            setattr(InferenceEngine, name, fn)
         if attn_path is not None:
             fa._attn_path = attn_path
 
@@ -1780,6 +2106,9 @@ def main() -> int:
         t0 = time.perf_counter()
         main_path(model, tok, text, args.layers, e2e)
         print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        graphs_phase(model, tok, e2e)
+        print(f"⏱️ graphs took {time.perf_counter() - t0:.1f} s", flush=True)
         # on the device: each layer of a bf16 128-token chunk ran K3's
         # tensor-core kernel once; f32 chunks and decode steps never did
         for dtype in ("f32", "bf16"):

@@ -8,7 +8,10 @@ matmul + residual], with the Q80 fake-quant casts at the reference's sync
 points when ``cfg.sync_q80`` is on. The JAX package scans a stacked layer
 axis inside one jitted program; here a Python loop walks a list of layers
 and each op launches eagerly. Sharding, activation taps, weight offload and
-MoE are not ported.
+MoE are not ported. On the card the engine and the paged generator replay
+a decode step captured as a CUDA graph (:mod:`dllama_tpu_torch.runtime.graphs`),
+the counterpart of the JAX package's one jitted program per step: the steps
+here take positions as device tensors and read nothing back to the host.
 
 Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
 (``cfg.quant_impl``) and K3 through
@@ -209,6 +212,45 @@ def sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
     return sampled_token(logits[:, -1, :], temperature, topp, coin), kv
+
+
+def scan_decode(step1, token: torch.Tensor, start_pos, kv, n_steps: int, coins=None):
+    """The multi-step decode loop shared by the chunked variants (the JAX
+    package's ``scan_decode``, a ``lax.scan``; here a Python loop): feeds
+    each picked token into the next forward on the device, with nothing
+    read back. ``step1(tokens_2d, pos, kv[, coin])`` is the single-step
+    function; ``start_pos`` an int or a ``[B]`` tensor; ``coins`` indexed
+    along axis 0 (``[n_steps]`` or ``[n_steps, B]``). Returns ``(tokens
+    [B, n_steps], kv)``."""
+    toks = []
+    for i in range(n_steps):
+        if coins is None:
+            token, kv = step1(token[:, None], start_pos + i, kv)
+        else:
+            token, kv = step1(token[:, None], start_pos + i, kv, coins[i])
+        toks.append(token)
+    return torch.stack(toks, dim=1), kv
+
+
+def greedy_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_pos,
+                 kv, n_steps: int, plan=None) -> tuple[torch.Tensor, object]:
+    """``n_steps`` greedy decode steps with the tokens fed back on the
+    device and one readback per chunk (by the caller); bit-identical to
+    ``n_steps`` :func:`greedy_step` calls. ``token: [B]`` seeds the chunk;
+    the caller truncates at EOS."""
+    return scan_decode(lambda t, p, kv: greedy_step(params, cfg, t, p, kv, plan),
+                       token, start_pos, kv, n_steps)
+
+
+def sampled_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_pos,
+                  kv, temperature, topp, coins, n_steps: int, plan=None
+                  ) -> tuple[torch.Tensor, object]:
+    """The temperature > 0 twin of :func:`greedy_steps`: ``coins
+    [n_steps]`` are the host xorshift draws of the whole chunk (the host
+    rewinds its RNG to the count kept after EOS truncation)."""
+    return scan_decode(
+        lambda t, p, kv, c: sampled_step(params, cfg, t, p, kv, temperature, topp, c, plan),
+        token, start_pos, kv, n_steps, coins=coins)
 
 
 def nll_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,33 @@ nucleus fits it).
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
 def _as_rows(v, B: int, device) -> torch.Tensor:
+    """``[B]`` f32 rows of a knob: a Python number is filled on the device
+    (no host→device copy, which would synchronise); a tensor — a captured
+    step's static buffer — is used where it lies."""
+    if isinstance(v, numbers.Real):
+        return torch.full((B,), float(v), dtype=torch.float32, device=device)
     t = torch.as_tensor(v, dtype=torch.float32, device=device)
     return t.reshape(-1).expand(B) if t.numel() == 1 else t.reshape(B)
+
+
+def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum along the last axis of ``x [B, V]`` in a fixed order.
+    On CUDA PyTorch scans a tensor that holds a single row with cub's
+    decoupled look-back, whose float sums depend on the timing of the
+    blocks: a coin that lands at a CDF boundary can then pick another token
+    from one run to the next (on an H100, 5 of 16 runs of 64 sampled tokens
+    replayed from a CUDA graph). Two or more rows take PyTorch's per-row
+    block scan, whose order is fixed, so a single row is scanned beside a
+    row of zeros."""
+    if x.shape[0] == 1 and x.is_cuda:
+        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), dim=-1)[:1]
+    return torch.cumsum(x, dim=-1)
 
 
 def topp_sample(probs: torch.Tensor, topp: torch.Tensor,
@@ -38,7 +59,7 @@ def topp_sample(probs: torch.Tensor, topp: torch.Tensor,
     _, order = torch.sort(-masked, dim=-1, stable=True)
     ps = torch.gather(masked, -1, order)
     n_kept = torch.count_nonzero(ps, dim=-1)
-    csum = torch.cumsum(ps, dim=-1)
+    csum = _cumsum_rows(ps)
     over = csum > topp[:, None]
     any_over = over.any(dim=-1)
     first_over = torch.argmax(over.to(torch.int8), dim=-1)
@@ -47,8 +68,8 @@ def topp_sample(probs: torch.Tensor, topp: torch.Tensor,
     cumulative = torch.gather(csum, -1, last[:, None])[:, 0]
     r = coin * cumulative
     idx = torch.arange(n, device=probs.device)[None, :]
-    inner = torch.cumsum(torch.where(idx <= last[:, None], ps,
-                                     torch.zeros_like(ps)), dim=-1) > r[:, None]
+    inner = _cumsum_rows(torch.where(idx <= last[:, None], ps,
+                                     torch.zeros_like(ps))) > r[:, None]
     pick = torch.where(inner.any(dim=-1),
                        torch.argmax(inner.to(torch.int8), dim=-1), last)
     return torch.gather(order, -1, pick[:, None])[:, 0]
@@ -56,7 +77,7 @@ def topp_sample(probs: torch.Tensor, topp: torch.Tensor,
 
 def mult_sample(probs: torch.Tensor, coin: torch.Tensor) -> torch.Tensor:
     """Multinomial CDF scan (reference: tokenizer.cpp:403-414)."""
-    hit = coin[:, None] < torch.cumsum(probs, dim=-1)
+    hit = coin[:, None] < _cumsum_rows(probs)
     n = probs.shape[-1]
     return torch.where(hit.any(dim=-1), torch.argmax(hit.to(torch.int8), dim=-1),
                        torch.full_like(hit[:, 0], n - 1, dtype=torch.int64))

@@ -14,6 +14,16 @@ sequence over ``sp`` devices (:class:`~dllama_tpu_torch.runtime.kvcache.ShardedK
 and attention runs sequence-parallel (:mod:`dllama_tpu_torch.parallel.ring`);
 the weights and everything else stay on the lead device.
 
+Decode at ``sp == 1`` replays the step captured as a CUDA graph on the card
+(:class:`~dllama_tpu_torch.runtime.graphs.DecodeGraph`, captured at the
+engine's first decode of each kind, greedy or sampled; on the CPU the same
+step runs on the same buffers). ``decode_chunk=K`` (``--decode-chunk``)
+decodes ``K`` tokens per dispatch with the tokens fed back on the device and
+one readback per chunk: ``K`` replays of the graph, or at ``sp > 1``, whose
+merge decode crosses shards and stays eager,
+:func:`~dllama_tpu_torch.models.llama.greedy_steps` /
+:func:`~dllama_tpu_torch.models.llama.sampled_steps`.
+
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
 mask (``s <= pos``), and every slot is rewritten by its real token before it
@@ -31,10 +41,11 @@ import torch
 from ..formats.mfile import ModelFile
 from ..formats.quants import F32
 from ..models.config import ModelConfig
-from ..models.llama import Params, forward, greedy_step, prefill_nll, sampled_step
+from ..models.llama import Params, forward, greedy_steps, prefill_nll, sampled_steps
 from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
+from .graphs import DecodeGraph
 from .kvblocks import validate_block_size
 from .kvcache import KVCache, ShardedKVCache, padded_cache_len
 from .weights import load_params
@@ -67,6 +78,9 @@ class StepMetrics:
     kind: str  # "eval" (prefill chunk) or "pred" (decode)
     ms: float
     n_tokens: int
+    # token WIDTH of the dispatch (a decode chunk always runs its full k,
+    # even when EOS truncation keeps fewer: n_tokens is the kept count)
+    width: int = 1
 
 
 @dataclass
@@ -129,13 +143,17 @@ class InferenceEngine:
                  compute_dtype: str = "float32", n_batches: int | None = None,
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
                  attn_impl: str = "auto", quant_impl: str = "auto",
-                 kv_block_size: int = 0, sp: int = 1, sp_devices=None):
+                 kv_block_size: int = 0, sp: int = 1, sp_devices=None,
+                 decode_chunk: int = 1):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
+        # multi-step decode: K tokens per dispatch (--decode-chunk)
+        self.decode_chunk = max(1, int(decode_chunk))
         # paged KV serving (--kv-block-size, runtime/kvblocks.py): the
         # combinations the JAX engine refuses are refused before the load
         self.kv_block_size = max(0, int(kv_block_size or 0))
-        unsupported = [("--sp > 1", sp > 1),
+        unsupported = [("--decode-chunk > 1", self.decode_chunk > 1),
+                       ("--sp > 1", sp > 1),
                        ("attn_impl='flash' (forced)", attn_impl == "flash")]
         bad = [name for name, hit in unsupported if hit]
         if self.kv_block_size and bad:
@@ -184,6 +202,8 @@ class InferenceEngine:
             self.model_file.close()
             raise
         self.pos = 0
+        # the captured decode steps, keyed by "sampled" (sp == 1 only)
+        self._graphs: dict[bool, DecodeGraph] = {}
 
     def reset(self) -> None:
         self.kv.zero_()
@@ -192,7 +212,9 @@ class InferenceEngine:
             self.tokenizer.reset_decoder()
 
     def close(self) -> None:
-        """Release the device buffers and the model file."""
+        """Release the device buffers and the model file (the graphs first:
+        they hold the parameters' and the cache's addresses)."""
+        self._graphs.clear()
         self.params = None  # type: ignore[assignment]
         self.kv = None  # type: ignore[assignment]
         self.model_file.close()
@@ -255,20 +277,78 @@ class InferenceEngine:
     def next_token(self, token: int) -> int:
         """Forward + argmax (temperature 0) or forward + temperature/top-p
         sample on the device, with the host stepping the xorshift* coin:
-        one 8-byte device→host transfer per token."""
+        one replay of the captured step (sp == 1) and one 8-byte
+        device→host transfer per token."""
         if self.pos >= self.cfg.seq_len:
             raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
-        tokens = self._tokens([token])
-        if self.sampler.temperature == 0.0:
-            nxt, self.kv = greedy_step(self.params, self.cfg, tokens, self.pos, self.kv,
-                                       self.plan)
+        greedy = self.sampler.temperature == 0.0
+        tok = self._run_chunk(token, self.pos, 1, greedy, self.sampler.temperature,
+                              self.sampler.topp, None if greedy else self._coins(1))
+        self.commit_chunk(1)
+        return tok[0]
+
+    def _coins(self, k: int) -> np.ndarray:
+        """The next ``k`` xorshift* coins, the RNG NOT advanced (see
+        :meth:`commit_chunk`)."""
+        coins = np.empty(k, dtype=np.float32)
+        st = self.sampler.rng_state
+        for i in range(k):
+            coins[i], st = xorshift_random_f32(st)
+        return coins
+
+    def decode_step_graph(self, sampled: bool) -> DecodeGraph:
+        """The captured single-sequence step (sp == 1), built at its first
+        use: on the card the capture warms up at the current position."""
+        g = self._graphs.get(sampled)
+        if g is None:
+            g = DecodeGraph(self.params, self.cfg, self.kv, self.device,
+                            sampled=sampled, pos=self.pos)
+            self._graphs[sampled] = g
+        return g
+
+    def decode_chunk_tokens(self, token: int, k: int) -> list[int]:
+        """``k`` decode steps in ONE dispatch (multi-step decode), with each
+        picked token fed back on the device and one readback.
+
+        Returns all ``k`` tokens; the caller decides how many to keep (EOS
+        truncation) and then calls :meth:`commit_chunk` with that count —
+        until committed, ``self.pos`` and the sampler RNG are NOT advanced.
+        Overshoot KV rows beyond the committed count are invisible (causal
+        mask) and rewritten by the next tokens at those positions — the same
+        safety argument as padded prefill tails (module docstring)."""
+        k = min(k, self.cfg.seq_len - self.pos)
+        if k < 1:
+            raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
+        greedy = self.sampler.temperature == 0.0
+        return self._run_chunk(token, self.pos, k, greedy, self.sampler.temperature,
+                               self.sampler.topp, None if greedy else self._coins(k))
+
+    def _run_chunk(self, token: int, start_pos: int, k: int, greedy: bool,
+                   temp: float, topp: float, coins) -> list[int]:
+        """Dispatch ``k`` decode steps from ``token`` at ``start_pos``: ``k``
+        replays of the captured step at sp == 1, the eager loop at sp > 1."""
+        if self.plan is None:
+            g = self.decode_step_graph(sampled=not greedy)
+            g.launch(token, start_pos, k, temp, topp, coins)
+            return g.tokens()
+        tok0 = torch.tensor([token], dtype=torch.long, device=self.device)
+        if greedy:
+            toks, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos, self.kv,
+                                         k, self.plan)
         else:
-            coin, self.sampler.rng_state = xorshift_random_f32(self.sampler.rng_state)
-            nxt, self.kv = sampled_step(self.params, self.cfg, tokens, self.pos, self.kv,
-                                        self.sampler.temperature, self.sampler.topp, coin,
-                                        self.plan)
-        self.pos += 1
-        return int(nxt[0])
+            toks, self.kv = sampled_steps(self.params, self.cfg, tok0, start_pos, self.kv,
+                                          temp, topp, torch.from_numpy(coins).to(self.device),
+                                          k, self.plan)
+        return toks[0].tolist()
+
+    def commit_chunk(self, n_keep: int) -> None:
+        """Advance position and sampler RNG by the kept prefix of a chunk."""
+        self.pos += n_keep
+        if self.sampler.temperature != 0.0:
+            st = self.sampler.rng_state
+            for _ in range(n_keep):
+                _, st = xorshift_random_f32(st)
+            self.sampler.rng_state = st
 
     # -- generation ---------------------------------------------------------
 
@@ -294,18 +374,39 @@ class InferenceEngine:
         pieces: list[str] = []
         token = ids[-1]
         limit = min(self.cfg.seq_len - self.pos, max_tokens)
-        while len(out_tokens) < limit:
-            t0 = time.perf_counter()
-            token = self.next_token(token)
-            steps.append(StepMetrics("pred", (time.perf_counter() - t0) * 1000.0, 1))
-            out_tokens.append(token)
-            piece = self.tokenizer.decode(token) if self.tokenizer else None
+
+        def emit(tok: int) -> bool:
+            """Record/stream one token; True when generation should stop."""
+            out_tokens.append(tok)
+            piece = self.tokenizer.decode(tok) if self.tokenizer else None
             if piece is not None:
                 pieces.append(piece)
             if on_token is not None:
-                on_token(token, piece)
-            if stop_on_eos and self.tokenizer is not None and self.tokenizer.is_eos(token):
-                break
+                on_token(tok, piece)
+            return (stop_on_eos and self.tokenizer is not None
+                    and self.tokenizer.is_eos(tok))
+
+        stop = False
+        while len(out_tokens) < limit and not stop:
+            # full-size chunks only (the JAX engine's rule: there a smaller
+            # chunk is a fresh compile); tails run chunks of one
+            k = self.decode_chunk
+            if limit - len(out_tokens) < k or self.cfg.seq_len - self.pos < k:
+                k = 1
+            t0 = time.perf_counter()
+            chunk = self.decode_chunk_tokens(token, k)
+            n_keep = len(chunk)
+            if stop_on_eos and self.tokenizer is not None:
+                for j, tok in enumerate(chunk):
+                    if self.tokenizer.is_eos(tok):
+                        n_keep = j + 1
+                        break
+            self.commit_chunk(n_keep)
+            steps.append(StepMetrics("pred", (time.perf_counter() - t0) * 1000.0, n_keep,
+                                     width=len(chunk)))
+            for tok in chunk[:n_keep]:
+                stop = emit(tok)
+            token = chunk[n_keep - 1]
         return GenerationResult(tokens=out_tokens, text="".join(pieces),
                                 prompt_tokens=len(ids), steps=steps)
 

@@ -1,0 +1,205 @@
+"""Decode steps captured as CUDA graphs: the port's counterpart of the JAX
+package's one compiled program per step (``plan_scoped_jit(greedy_step_guarded
+/ sampled_step_guarded)``, ``dllama_tpu/runtime/engine.py:667-682``, and the
+paged step, ``dllama_tpu/runtime/serving.py:1359-1361``).
+
+An eager step launches some 3500-4800 kernels from Python, and the card
+idles while the host enqueues them. A :class:`StepGraph` holds a step
+function (its *body*) that reads static input tensors and writes static
+output tensors. On a CUDA device it runs the body twice on a side stream
+(the warm-up: it loads each kernel library through ``ctypes``, makes every
+kernel's module resident and looks up the driver entry points, none of
+which may happen for the first time inside a capture), then captures one
+run into a private memory pool with ``torch.cuda.graph``; every
+:meth:`StepGraph.replay` relaunches the whole step with one call. Capture
+either succeeds or raises: nothing falls back to the eager step. Code that
+wants the eager step calls ``models.llama.greedy_step`` / ``sampled_step`` /
+``paged_sampled_step`` by name. On a CPU device a replay runs the body on
+the same buffers, through the plain versions (the wrappers' device rule).
+
+What makes a step capturable: its inputs keep their addresses (the static
+buffers, the parameters, the KV cache or pool, which ``reset`` zeroes in
+place), positions ride as device tensors, split counts come from shapes
+alone, scratch comes from the graph's pool, and nothing in the step reads
+a tensor back to the host.
+
+Launch counts: each kernel wrapper counts its launches in a Python
+attribute, which a replay does not run. The capture records each
+wrapper's launches in the captured step (and takes them off the counters:
+they were recorded, not run), and every replay adds them again, so the
+counters count what the card ran.
+
+:class:`DecodeGraph` is the single-sequence step of the engine (greedy or
+sampled): the graph writes its picked token into its own input and
+advances its device position, so a chunk of ``k`` tokens is ``k`` replays
+and one readback (``--decode-chunk K``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+WARMUP_RUNS = 2
+
+
+def _wrappers() -> tuple:
+    """Every kernel wrapper with a ``launches`` counter."""
+    from ..ops import flash_attention as fa
+    from ..ops import paged_attention as pa
+    from ..ops import quant_matmul as qm
+
+    return (qm.q40_matmul, qm.q40_gemv, fa.flash_attention, fa.flash_block_stats,
+            pa.paged_attention)
+
+
+def staging(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor to stage copies into ``t``: page-locked when ``t`` lies
+    on the card, so that ``t.copy_(stage, non_blocking=True)`` needs no
+    synchronisation. The caller rewrites it only after a readback has
+    synchronised the stream that copied it."""
+    return torch.zeros(t.shape, dtype=t.dtype, pin_memory=t.device.type == "cuda")
+
+
+def load(dst: torch.Tensor, stage: torch.Tensor, values) -> None:
+    """Copy host ``values`` into the static buffer ``dst`` through ``stage``."""
+    stage.numpy()[...] = values
+    dst.copy_(stage, non_blocking=True)
+
+
+class StepGraph:
+    """A step body captured once on a CUDA device and replayed; on the CPU,
+    the body itself on every replay.
+
+    ``prime`` (optional) puts the static inputs in a state where a run of
+    the body writes nothing that is ever read, before each warm-up run.
+    The capture runs in ``torch.cuda.graph``'s default global mode, which
+    refuses unsafe CUDA calls from every thread while it lasts, so a step
+    is captured before the threads that could make them start.
+    ``capture_s`` is the host time of the warm-up and the capture;
+    ``pool_bytes`` the device memory the private pool reserved."""
+
+    def __init__(self, body: Callable[[], None], device, *,
+                 prime: Callable[[], None] | None = None):
+        self.body = body
+        self.device = torch.device(device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches_per_replay: dict = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        if self.device.type == "cuda":
+            self._capture(prime)
+
+    def _capture(self, prime) -> None:
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    if prime is not None:
+                        prime()
+                    self.body()
+            main.wait_stream(side)
+            if prime is not None:
+                prime()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            before = {fn: fn.launches for fn in _wrappers()}
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    self.body()
+            finally:
+                # the capture recorded these launches; replays run them
+                for fn, n in before.items():
+                    if fn.launches != n:
+                        self.launches_per_replay[fn] = fn.launches - n
+                    fn.launches = n
+            torch.cuda.synchronize()
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        """One step, on the current stream; no synchronisation."""
+        if self.graph is None:
+            self.body()
+            return
+        self.graph.replay()
+        for fn, n in self.launches_per_replay.items():
+            fn.launches += n
+
+    def stats(self) -> dict:
+        """Capture seconds, pool bytes and wrapper launches per replay."""
+        return {"captured": self.graph is not None, "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes,
+                "launches_per_replay": {fn.__name__: n
+                                        for fn, n in self.launches_per_replay.items()}}
+
+
+class DecodeGraph:
+    """The engine's single-sequence decode step (``models.llama.greedy_step``
+    or ``sampled_step`` over the dense cache ``kv``) on static buffers:
+    the token ``[1, 1]``, the position ``[1]`` int32, and for a sampled step
+    temperature, top-p and one coin per position. A replay writes its pick
+    to ``out[pos]``, feeds it into ``tok`` and advances ``pos``, all on the
+    device. The warm-up writes only cache row ``pos`` (the first row a
+    decode writes, rewritten before it becomes visible)."""
+
+    def __init__(self, params, cfg, kv, device, *, sampled: bool, pos: int):
+        from ..models.llama import greedy_step, sampled_step
+
+        dev = torch.device(device)
+        self.sampled = sampled
+        # the body closes over these tensors, never over self: a cycle
+        # through the graph would keep the parameters and the cache alive
+        # after the engine drops its graphs, until a garbage collection
+        first = int(pos)
+        tok = self.tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
+        pos = self.pos = torch.full((1,), first, dtype=torch.int32, device=dev)
+        out = self.out = torch.zeros(cfg.seq_len, dtype=torch.long, device=dev)
+        self._span = (0, 0)
+        if sampled:
+            temp = self.temp = torch.zeros(1, dtype=torch.float32, device=dev)
+            topp = self.topp = torch.zeros(1, dtype=torch.float32, device=dev)
+            coins = self.coins = torch.zeros(cfg.seq_len, dtype=torch.float32, device=dev)
+            self._coins_host = staging(coins)
+
+        def body() -> None:
+            p = pos.long()
+            if sampled:
+                nxt, _ = sampled_step(params, cfg, tok, pos, kv, temp, topp,
+                                      coins.index_select(0, p))
+            else:
+                nxt, _ = greedy_step(params, cfg, tok, pos, kv)
+            out.index_copy_(0, p, nxt)
+            tok.copy_(nxt.view(1, 1))
+            pos.add_(1)
+
+        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
+
+    def launch(self, token: int, start_pos: int, k: int, temperature: float = 0.0,
+               topp: float = 0.0, coins: np.ndarray | None = None) -> None:
+        """Enqueue ``k`` steps from ``token`` at ``start_pos``: static inputs
+        filled on the device, ``k`` replays, no synchronisation."""
+        self.tok.fill_(int(token))
+        self.pos.fill_(int(start_pos))
+        if self.sampled:
+            self.temp.fill_(float(temperature))
+            self.topp.fill_(float(topp))
+            span = slice(start_pos, start_pos + k)
+            load(self.coins[span], self._coins_host[span], coins)
+        for _ in range(k):
+            self.step.replay()
+        self._span = (start_pos, start_pos + k)
+
+    def tokens(self) -> list[int]:
+        """The last launch's tokens: the one readback of a chunk."""
+        lo, hi = self._span
+        return self.out[lo:hi].tolist()

@@ -107,7 +107,10 @@ def update_layer(k_layer: torch.Tensor, v_layer: torch.Tensor, new_k: torch.Tens
     in place, into ``k_layer/v_layer: [B, n_kv, S, hd]``; returns them.
 
     ``start_pos`` is an int (every row at the same position — the
-    single-sequence engine) or an int tensor ``[B]`` (per-row positions)."""
+    single-sequence engine) or an int tensor ``[B]`` (per-row positions, or
+    the ``[1]`` device position of a captured decode step). The tensor form
+    scatters along ``S`` on the device, never reading the positions back to
+    the host, so a CUDA graph can hold it; it writes the same values."""
     T = new_k.shape[1]
     nk = new_k.transpose(1, 2).to(k_layer.dtype)  # [B, n_kv, T, hd]
     nv = new_v.transpose(1, 2).to(v_layer.dtype)
@@ -116,7 +119,10 @@ def update_layer(k_layer: torch.Tensor, v_layer: torch.Tensor, new_k: torch.Tens
         k_layer[:, :, p:p + T] = nk
         v_layer[:, :, p:p + T] = nv
         return k_layer, v_layer
-    for b, p in enumerate(start_pos.tolist()):
-        k_layer[b, :, p:p + T] = nk[b]
-        v_layer[b, :, p:p + T] = nv[b]
+    B, n_kv, _, hd = nk.shape
+    rows = (start_pos.to(device=k_layer.device, dtype=torch.long)[:, None]
+            + torch.arange(T, device=k_layer.device)[None, :])       # [B, T]
+    idx = rows[:, None, :, None].expand(B, n_kv, T, hd)
+    k_layer.scatter_(2, idx, nk)
+    v_layer.scatter_(2, idx, nv)
     return k_layer, v_layer

@@ -5,7 +5,9 @@ package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
 * :class:`PagedGenerator` — ``n_slots`` sequence slots over one block pool
   (:mod:`~dllama_tpu_torch.runtime.kvblocks`) and ONE ragged decode step
   per tick for all of them (``models.llama.paged_sampled_step``: K2 at
-  ``M = n_slots``, K4 over the pool, per-row on-device sampling). Admission
+  ``M = n_slots``, K4 over the pool, per-row on-device sampling), replayed
+  from a CUDA graph on the card (:mod:`~dllama_tpu_torch.runtime.graphs`;
+  its inputs are two copies of fixed shape into static buffers). Admission
   is priced in blocks; a prompt's full blocks are shared with earlier
   prompts and the partial tail is copied on write; prefill runs the
   engine's own dense ``forward`` (K1 + K3) over the sequence's gathered
@@ -15,7 +17,8 @@ package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
   under a per-tick token budget, cancellation, and supervision (a crash
   fails every waiter, resets the pool and restarts, up to
   ``max_restarts``). One loop thread owns the generator and every device
-  dispatch.
+  dispatch; it captures the paged step before the scheduler is handed
+  out, so before any server listens.
 
 Determinism: each request carries its own xorshift seed and consumes its
 own coin stream, so a request's output does not depend on what shares the
@@ -41,6 +44,7 @@ import torch
 
 from ..models.llama import forward, paged_sampled_step
 from ..tokenizer.sampler import xorshift_random_f32
+from .graphs import StepGraph, load, staging
 from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
                        block_pool_bytes, blocks_per_seq)
 from .kvcache import KVCache
@@ -171,6 +175,40 @@ class PagedGenerator:
         # prompt tokens reused through block sharing + copy-on-write (the
         # JAX package's dllama_prefix_reuse_tokens_total)
         self.reused_tokens = 0
+        self._graph: StepGraph | None = None  # the paged step, built at first use
+
+    def step_graph(self) -> StepGraph:
+        """The paged step on static buffers (``[n_slots, 2 + table_width]``
+        int64: next token, position, block table; ``[3, n_slots]`` f32:
+        temperature, top-p, coin; out ``[2, n_slots]``: token, non-finite
+        lanes), captured on the card at the first call, on the calling
+        thread. The warm-up runs with every input 0: all-null tables, so
+        its writes land in the null block."""
+        if self._graph is None:
+            dev = self.eng.device
+            inp = self._in = torch.zeros((self.n_slots, 2 + self.table_width),
+                                         dtype=torch.long, device=dev)
+            knobs = self._knobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
+                                              device=dev)
+            out = self._out = torch.zeros((2, self.n_slots), dtype=torch.long, device=dev)
+            self._in_host, self._knobs_host = staging(inp), staging(knobs)
+            # the body closes over tensors, never over self (no cycle that
+            # would keep the pool alive past close() until a collection)
+            params, cfg, pkv = self.eng.params, self.cfg, self.pkv
+
+            def body() -> None:
+                nxt, nf = paged_sampled_step(params, cfg, inp[:, :1], inp[:, 1], pkv,
+                                             inp[:, 2:], knobs[0], knobs[1], knobs[2])
+                out[0].copy_(nxt)
+                out[1].copy_(nf)
+
+            self._graph = StepGraph(body, dev)
+        return self._graph
+
+    def close(self) -> None:
+        """Drop the captured step (it holds the pool's and the parameters'
+        addresses) before the engine releases them."""
+        self._graph = None
 
     # -- slot lifecycle -----------------------------------------------------
 
@@ -476,11 +514,12 @@ class PagedGenerator:
                 assert self.pool.refcount(bid) == 1, (i, int(self.pos[i]), bid)
 
     def step(self) -> int:
-        """One paged ragged decode step for every active slot. Inactive
-        slots ride along with all-null tables (their writes land in the
-        null block). One host→device copy carries the next tokens,
-        positions and tables, one the sampling knobs, and one device→host
-        copy brings the tokens back. Returns the tokens emitted."""
+        """One paged ragged decode step for every active slot: one replay
+        of :meth:`step_graph`. Inactive slots ride along with all-null
+        tables (their writes land in the null block). One host→device copy
+        carries the next tokens, positions and tables, one the sampling
+        knobs, and one device→host copy brings the tokens back. Returns the
+        tokens emitted."""
         active = self._sweep_cancelled()
         if not active:
             return 0
@@ -489,13 +528,12 @@ class PagedGenerator:
             return 0
         self._assert_writable(active)
         knobs = self._sampling_rows(active)
-        host = np.concatenate([self.next_token[:, None], self.pos[:, None],
-                               self.tables], axis=1)
-        dev = torch.from_numpy(host).to(self.eng.device)
-        kn = torch.from_numpy(knobs).to(self.eng.device)
-        nxt, nf = paged_sampled_step(self.eng.params, self.cfg, dev[:, :1], dev[:, 1],
-                                     self.pkv, dev[:, 2:], kn[0], kn[1], kn[2])
-        out = torch.stack([nxt.long(), nf.long()]).cpu().numpy()
+        graph = self.step_graph()
+        load(self._in, self._in_host, np.concatenate(
+            [self.next_token[:, None], self.pos[:, None], self.tables], axis=1))
+        load(self._knobs, self._knobs_host, knobs)
+        graph.replay()
+        out = self._out.cpu().numpy()
         poisoned = self._handle_nonfinite(active, out[1])
         emitted = 0
         for i in active:
@@ -556,9 +594,17 @@ class BatchScheduler:
                             dev.index if dev.index is not None else torch.cuda.current_device())
         self._thread: threading.Thread | None = None
         if _start_thread:
-            self._thread = threading.Thread(target=self._loop, daemon=True,
-                                            name="dllama-batch-scheduler")
+            # the loop thread captures the paged step first; the scheduler
+            # is handed out (and a server listens) only after that capture
+            started = threading.Event()
+            failed: list[Exception] = []
+            self._thread = threading.Thread(target=self._loop, args=(started, failed),
+                                            daemon=True, name="dllama-batch-scheduler")
             self._thread.start()
+            started.wait()
+            if failed:
+                self._thread.join()
+                raise failed[0]
 
     # -- admission-side API (handler threads) -------------------------------
 
@@ -639,6 +685,7 @@ class BatchScheduler:
         if self._thread is not None:
             self._thread.join(timeout=30)
         self._fail_all("server shutting down")
+        self.gen.close()
 
     # -- failure plumbing ----------------------------------------------------
 
@@ -700,11 +747,20 @@ class BatchScheduler:
 
     # -- the loop ------------------------------------------------------------
 
-    def _loop(self) -> None:
+    def _loop(self, started: threading.Event, failed: list) -> None:
         if self._cuda_index is not None:
             # this thread dispatches every kernel: on the engine's device
             # (and so on that device's current stream, as the wrappers read it)
             torch.cuda.set_device(self._cuda_index)
+        try:
+            # captured here, on the thread that replays it, while no other
+            # thread of the process dispatches (the creator waits)
+            self.gen.step_graph()
+        except Exception as exc:  # noqa: BLE001 — re-raised by the creator
+            failed.append(exc)
+            return
+        finally:
+            started.set()
         while not self._stop:
             try:
                 self._tick()

@@ -3,7 +3,9 @@ JAX package's ``serve/cli.py`` ``make_engine``/``main``, these three modes;
 ``api`` only as batched paged serving: ``--batch-slots N --kv-block-size B``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
-usable GPU fails with a clear error. ``--sp N`` splits the KV cache along the
+usable GPU fails with a clear error. On the card each decode step is one
+replay of a captured CUDA graph; ``--decode-chunk K`` decodes ``K`` tokens
+per dispatch with one readback. ``--sp N`` splits the KV cache along the
 sequence over ``N`` visible CUDA devices (ring attention for prefill, a
 flash-decoding merge for decode; ``[cpu] * N`` under ``--device cpu``).
 Modes and flags of the JAX CLI that are not ported yet fail loudly instead of
@@ -49,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel device count (ring attention; "
                         "long-context — no reference equivalent)")
+    p.add_argument("--decode-chunk", type=int, default=1, metavar="K",
+                   help="fuse K decode steps into one dispatch (tokens feed "
+                        "back on device; output identical to K=1, EOS "
+                        "overshoot discarded). Cuts per-token dispatch "
+                        "overhead; streaming granularity becomes K tokens")
     # api mode (batched paged serving)
     p.add_argument("--batch-slots", type=int, default=0,
                    help="api: concurrent sequences of continuous batching")
@@ -71,7 +78,7 @@ def make_engine(args) -> InferenceEngine:
         compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
         sync_type=Q80 if args.buffer_float_type == "q80" else F32,
         temperature=args.temperature, topp=args.topp, seed=seed,
-        kv_block_size=args.kv_block_size, sp=args.sp)
+        kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk)
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
@@ -154,7 +161,8 @@ def main(argv=None, on_listening=None) -> int:
         raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
-                         f"--buffer-float-type --compute-dtype --device --sp; api: "
+                         f"--buffer-float-type --compute-dtype --device --sp "
+                         f"--decode-chunk; api: "
                          f"--batch-slots --kv-block-size --max-queue --host --port "
                          f"--request-timeout)")
     try:

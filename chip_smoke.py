@@ -95,7 +95,34 @@ Phases, each failing loudly (non-zero exit, no result line):
    never in f32. With two or more cards it drives
    the CLI's ``--sp 2``; with one card ``InferenceEngine(sp=2,
    sp_devices=[cuda:0, cuda:0])``;
-8. the ``kernels`` JSON line, then the result line
+8. prompt-lookup speculative decoding at K = 4 (``--spec-lookup 4``) at
+   full width, with f32 sync buffers on both sides of each comparison (the
+   Q80 casts would turn the verify kernels' other summation orders into
+   whole int8 steps): ``spec_single``, ``inference --spec-lookup 4
+   --temperature 0`` against the same run without spec in f32 and bf16,
+   once with the n-gram table's drafts and once with the run without
+   spec's own tokens as the drafts (:func:`oracle_drafts`: on random
+   weights the table's drafts are never accepted; these are, and every
+   verify step must accept them in f32). Transcripts are held to the
+   near-tie rule (:data:`NEAR_TIE`): in exact mode they may part only
+   where the spec side's token came within 1e-4 (greedy, of the top
+   logit) or 1e-3 of the CDF (sampled) of being picked. Spec rate, decode
+   tok/s, and the captured verify step's device ms, busy share and
+   kernels per replay under ``torch.profiler``, its replays fed drafts it
+   accepts; ``spec_serving``, ``api --batch-slots 8 --kv-block-size 16
+   --spec-lookup 4`` with the serving mix against the same api without
+   spec, with both kinds of drafts (every request's tokens, greedy and
+   sampled, under the same rule; accept rates, verify step ms, capture),
+   and the 8-row paged verify step alone, graph against eager (outputs and
+   pool bytes equal, K1's, K4's and the sort's device ms), with rows that
+   draft the step's own picks (all accepted) and its logits and tokens
+   against plain decode steps at the same positions; in the sp path, the
+   short cell with spec at sp = 2 (eager, K3s at T = 5) and sp = 1
+   (graph) against sp = 2 without spec and against each other. Phase 3
+   holds the kernels at the verify shapes: K2 at M = 5 and K1 at M = 40
+   on every shape, K3 at T = 5 over depth 2047, K4 at 8 ragged rows,
+   T = 5, draft lengths 0-4;
+9. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -140,6 +167,7 @@ MAX_SEQ = 2048
 SP_LONG_SEQ = 32768   # the long sp cell's --max-seq-len: 2 shards of 16384 rows
 LONG_DEPTH = 20145    # its decode depth: the newest position after its prompt
 LONG_PREFILL_AT = 19000  # first position of one of its 256-token prefill chunks
+SPEC_K = 4            # --spec-lookup K of the spec phases: verify steps K + 1 wide
 
 # kernel-vs-plain tolerances, relative to max|plain output|:
 #   exact: f32 sums in another order over K up to 14336 terms;
@@ -259,6 +287,8 @@ def matmul_cases(timer: Timer, results: list) -> None:
             # chunk) and the 32-, 64- and 256-token prefill chunks (K1
             # exact's three row tiles); Q80 planes at the same K1 widths
             widths = [("K2", 1), ("K2", 8), ("K1", 128)]
+            if kind == "q40":  # the verify widths at K = 4: one sequence, 8 slots
+                widths += [("K2", SPEC_K + 1), ("K1", SLOTS * (SPEC_K + 1))]
             if name == "wq":
                 widths += [("K1", 32), ("K1", 64), ("K1", 256)]
                 if kind == "q40":
@@ -348,6 +378,7 @@ def attention_cases(timer: Timer, results: list) -> None:
     cases = [("decode", 1, p, HEAD_DIM, S) for p in (0, 127, 128, 1023, S - 1)] + [
         ("prefill", 128, 0, HEAD_DIM, S), ("prefill", 128, 1024, HEAD_DIM, S),
         ("prefill", 256, 0, HEAD_DIM, S), ("decode", 1, S - 1, 64, S),
+        ("verify", SPEC_K + 1, S - 1 - SPEC_K, HEAD_DIM, S),
         ("prefill", 128, 0, 64, S),
         ("decode", 1, LONG_DEPTH, HEAD_DIM, SP_LONG_SEQ),
         ("prefill", 256, LONG_PREFILL_AT, HEAD_DIM, SP_LONG_SEQ)]
@@ -395,9 +426,9 @@ def attention_cases(timer: Timer, results: list) -> None:
             # f32 online softmax vs the one-shot oracle: reordered sums/exps
             elif not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
                 fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err:.3g}")
-            if (n_splits > 1) != (phase == "decode"):
+            if (n_splits > 1) != (phase in ("decode", "verify")):
                 fail(f"K3 {mode} {phase} T={T} pos={pos}: the launch took n_splits "
-                     f"{n_splits}; decode must split, prefill must not")
+                     f"{n_splits}; decode and verify must split, prefill must not")
         del caches
     torch.cuda.empty_cache()
 
@@ -417,23 +448,33 @@ RAGGED = [MAX_SEQ - 1, 1500, 1023, 700, 300, 129, 17, 0]
 # the launch keeps the single pass (K4's unsplit kernel, which `api
 # --batch-slots` of 33 or more runs at decode)
 WIDE_B = 40
-# (B, T, block size, first query position of each row); every case with
-# B <= 8 (the serving geometry) must split the key walk, the WIDE_B-row
-# decode must not
-PAGED_CASES = [(1, 1, 16, [MAX_SEQ - 1]), (8, 1, 16, RAGGED),
-               (8, 1, 16, [MAX_SEQ - 1] * 8),
-               (1, 1, 32, [MAX_SEQ - 1]), (8, 1, 32, RAGGED),
-               (2, 16, 16, [1000, MAX_SEQ - 16]),
-               (WIDE_B, 1, 16, RAGGED * (WIDE_B // len(RAGGED)))]
+# the paged verify step at K = 4: 8 rows at ragged depths with ragged draft
+# lengths 0-4 (the host allocates blocks up to pos + lens only, so the
+# padded lanes of a short draft walk into null table entries); the deepest
+# row's padded lanes reach past the table (pos + K > 2047)
+VERIFY_DEPTHS = [MAX_SEQ - 2, 1500, 1021, 700, 300, 129, 17, 0]
+VERIFY_LENS = [1, 4, 3, 0, 2, 4, 1, 0]
+# (B, T, block size, first query position of each row, draft lengths or
+# None); every case with B <= 8 (the serving geometry) must split the key
+# walk, the WIDE_B-row decode must not
+PAGED_CASES = [(1, 1, 16, [MAX_SEQ - 1], None), (8, 1, 16, RAGGED, None),
+               (8, 1, 16, [MAX_SEQ - 1] * 8, None),
+               (1, 1, 32, [MAX_SEQ - 1], None), (8, 1, 32, RAGGED, None),
+               (2, 16, 16, [1000, MAX_SEQ - 16], None),
+               (WIDE_B, 1, 16, RAGGED * (WIDE_B // len(RAGGED)), None),
+               (8, SPEC_K + 1, 16, VERIFY_DEPTHS, VERIFY_LENS)]
 
 
-def scrambled_tables(depths: list[int], T: int, bs: int, g: torch.Generator):
+def scrambled_tables(depths: list[int], T: int, bs: int, g: torch.Generator,
+                     lens: list[int] | None = None):
     """Block tables ``[B, MAX_SEQ / bs]`` over a pool of just enough blocks:
     each row's blocks at scrambled physical ids, rows 0 and 1 sharing their
     first 4 blocks (a shared prompt prefix), null (0) entries past each
-    row's last position. Returns ``(tables, n_blocks)``."""
+    row's last position: ``depth + T - 1``, or ``depth + lens`` for a
+    verify row. Returns ``(tables, n_blocks)``."""
     M = MAX_SEQ // bs
-    need = [(d + T - 1) // bs + 1 for d in depths]
+    last = [d + (T - 1 if lens is None else n) for d, n in zip(depths, lens or depths)]
+    need = [min(p, MAX_SEQ - 1) // bs + 1 for p in last]
     n_blocks = sum(need) + 1
     perm = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
     tables = torch.zeros((len(depths), M), dtype=torch.long)
@@ -449,8 +490,10 @@ def paged_cases(timer: Timer, results: list) -> None:
     """K4 against its plain version (gather + oracle) at 8B widths: n_kv 8,
     head_dim 128, kv_mul 4, block sizes 16 and 32; decode at B = 1, 8
     ragged rows and 8 rows at full depth, and a 16-token query chunk; f32
-    and bf16 pools. Every case at the serving geometry must split the key
-    walk (split-S); the 40-row decode must take the single pass."""
+    and bf16 pools; the paged verify step's attention (8 ragged rows, T =
+    K + 1, ragged draft lengths whose padded lanes see null entries). Every
+    case at the serving geometry must split the key walk (split-S); the
+    40-row decode must take the single pass."""
     import torch.nn.functional as F
 
     from dllama_tpu_torch.ops import paged_attention as pa
@@ -459,8 +502,8 @@ def paged_cases(timer: Timer, results: list) -> None:
     g_cpu = torch.Generator().manual_seed(SEED + 3)
     for mode in ("exact", "fast"):
         kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        for B, T, bs, depths in PAGED_CASES:
-            tables, n_blocks = scrambled_tables(depths, T, bs, g_cpu)
+        for B, T, bs, depths, lens in PAGED_CASES:
+            tables, n_blocks = scrambled_tables(depths, T, bs, g_cpu, lens)
             kp, vp = (torch.randn((n_blocks, KV_HEADS, bs, HEAD_DIM), generator=g,
                                   device=DEV).to(kv_dt) for _ in range(2))
             q = torch.randn((B, T, HEADS, HEAD_DIM), generator=g, device=DEV)
@@ -486,13 +529,15 @@ def paged_cases(timer: Timer, results: list) -> None:
             plain_ms = timer(lambda: pa.paged_attention_plain(q, kp, vp, tables,
                                                               positions, HEAD_DIM))
             yard_ms = timer(gather_sdpa)
-            keys = sum(d + T for d in depths)           # K/V rows the rows can see
-            scored = sum(d + t + 1 for d in depths for t in range(T))
+            # K/V rows the rows can see (capped at the table's reach)
+            keys = sum(min(d + T, S) for d in depths)
+            scored = sum(min(d + t + 1, S) for d in depths for t in range(T))
             n_bytes = (2 * keys * KV_HEADS * HEAD_DIM * kp.element_size()
                        + 2 * B * T * HEADS * HEAD_DIM * 4)
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * scored, "f32")
             rec = dict(case="paged_attention", kernel="K4", mode=mode, B=B, T=T,
-                       block_size=bs, positions=depths, n_splits=n_splits, max_abs_err=err,
+                       block_size=bs, positions=depths, lens=lens, n_splits=n_splits,
+                       max_abs_err=err,
                        max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
                        gather_sdpa_ms=yard_ms,
                        gather_sdpa_note="yardstick only: two library calls "
@@ -1176,133 +1221,783 @@ def post_chat(url: str, body: dict, first_chunk=None) -> dict:
     return dict(status=status, text=text, latency_ms=(time.perf_counter() - t0) * 1e3)
 
 
-def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
-    """The port's api in process (``cli.main(["api", ...])`` on a thread,
-    port 0) under f32 and bf16: 16 concurrent clients, then the checks
-    and the numbers of the run."""
+def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
+              case: str = "serving") -> dict:
+    """One run of the port's api in process (``cli.main(["api", ...,
+    *extra])`` on a thread, port 0): the 16 concurrent clients of
+    :func:`serving_bodies`; returns the numbers of the run and the
+    scheduler's requests in submit order. Launch counts are set to 0 just
+    before the run and read just after it."""
     import threading
 
     from dllama_tpu_torch.serve import cli
 
+    box: dict = {}
+    listening = threading.Event()
+    step_ms: list[float] = []
+    move_ms: dict[str, list[float]] = {"take": [], "put": []}
+    reqs: list = []
+
+    def timed_sync(fn, store):
+        def wrapped(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            store.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def on_listening(server, state):
+        gen, sched = state.sched.gen, state.sched
+        # the step the scheduler captured before the server listened
+        box.update(server=server, gen=gen,
+                   capture=(gen._verify if gen.spec else gen._graph).stats())
+        submit, step = sched.submit, gen.step
+
+        def submit_recorded(*a, **kw):
+            r = submit(*a, **kw)
+            reqs.append(r)
+            return r
+
+        def step_timed():
+            t0 = time.perf_counter()
+            n = step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return n
+
+        sched.submit, gen.step = submit_recorded, step_timed
+        gen._exec_take = timed_sync(gen._exec_take, move_ms["take"])
+        gen._exec_put = timed_sync(gen._exec_put, move_ms["put"])
+        listening.set()
+
+    argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+            "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
+            "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+            "--host", "127.0.0.1", "--port", "0", *extra]
+    # the wrappers installed below tie the previous run's generator (and
+    # its pool) into reference cycles: free it before the peak is reset
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # this run's counts: set to 0 just before it, read just after
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rc", cli.main(argv, on_listening=on_listening)), daemon=True)
+    th.start()
+    while not listening.wait(timeout=1.0):
+        if not th.is_alive():
+            fail(f"{case} {dtype}: the api server exited before listening")
+    url = f"http://127.0.0.1:{box['server'].server_address[1]}"
+    bodies = serving_bodies()
+    results: list = [None] * len(bodies)
+    a_started = threading.Event()
+
+    def client(i: int) -> None:
+        try:
+            if i == len(bodies) - 1:  # the twin admits while 14 decodes
+                a_started.wait(timeout=600)
+            results[i] = post_chat(url, bodies[i], a_started if i == 14 else None)
+        except Exception as e:  # noqa: BLE001 — reported as a failed request below
+            results[i] = dict(status=getattr(e, "code", None), error=repr(e))
+        finally:
+            if i == 14:
+                a_started.set()  # a failed 14 must not hold its twin back
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    wall_s = time.perf_counter() - t0
+    gen = box["gen"]
+    box["server"].shutdown()
+    th.join(timeout=120)
+    launches = read_counts()
+    if th.is_alive() or box.get("rc") != 0:
+        fail(f"{case} {dtype}: the api server did not stop cleanly")
+    n_tokens = [len(r.tokens) for r in reqs]
+    ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in reqs if r.t_first_token]
+    lat = sorted(r["latency_ms"] for r in results if r and "latency_ms" in r)
+    pool = gen.pool
+    bad = [(i, r) for i, r in enumerate(results)
+           if r is None or r.get("status") != 200 or not r.get("text")]
+    rec = dict(case=case, compute_dtype=dtype, layers=n_layers, slots=SLOTS,
+               block_size=BLOCK, flags=extra, requests=len(bodies), ok=len(bodies) - len(bad),
+               generated_tokens=sum(n_tokens), wall_s=wall_s,
+               gen_tok_per_s=sum(n_tokens) / wall_s,
+               latency_ms_p50=statistics.median(lat) if lat else None,
+               latency_ms_p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))] if lat else None,
+               ttft_ms_p50=statistics.median(ttft) if ttft else None,
+               step_ms_median=statistics.median(step_ms) if step_ms else None,
+               steps=len(step_ms), reused_tokens=gen.reused_tokens,
+               pool_blocks=pool.n_blocks, pool_gb=gen.pool_bytes / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
+               put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
+               takes=len(move_ms["take"]),
+               column_gb=gen.pool_bytes / pool.n_blocks * gen.table_width / 1e9,
+               capture=box["capture"], launches={"api": launches})
+    if bad:
+        print(json.dumps(rec), flush=True)
+        fail(f"{case} {dtype}: {len(bad)} request(s) failed: {bad[:3]}")
+    if results[14]["text"] != results[15]["text"]:
+        fail(f"{case} {dtype}: the identical greedy pair differs:\n"
+             f"{results[14]['text']!r}\n{results[15]['text']!r}")
+    if gen.reused_tokens <= 0:
+        fail(f"{case} {dtype}: no prefix reuse happened")
+    box.clear()
+    return rec, reqs
+
+
+def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """The port's api under f32 and bf16 (:func:`serve_run`, the CLI's
+    default Q80 sync buffers): 16 concurrent clients, then the checks and
+    the numbers of the run."""
     for dtype in ("f32", "bf16"):
-        box: dict = {}
-        listening = threading.Event()
-        step_ms: list[float] = []
-        move_ms: dict[str, list[float]] = {"take": [], "put": []}
-        reqs: list = []
-
-        def timed_sync(fn, store):
-            def wrapped(*a):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*a)
-                torch.cuda.synchronize()
-                store.append((time.perf_counter() - t0) * 1e3)
-                return out
-            return wrapped
-
-        def on_listening(server, state):
-            gen, sched = state.sched.gen, state.sched
-            box.update(server=server, gen=gen)
-            submit, step = sched.submit, gen.step
-
-            def submit_recorded(*a, **kw):
-                r = submit(*a, **kw)
-                reqs.append(r)
-                return r
-
-            def step_timed():
-                t0 = time.perf_counter()
-                n = step()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                return n
-
-            sched.submit, gen.step = submit_recorded, step_timed
-            gen._exec_take = timed_sync(gen._exec_take, move_ms["take"])
-            gen._exec_put = timed_sync(gen._exec_put, move_ms["put"])
-            listening.set()
-
-        argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
-                "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
-                "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
-                "--host", "127.0.0.1", "--port", "0"]
-        # the wrappers installed below tie the previous run's generator (and
-        # its pool) into reference cycles: free it before the peak is reset
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()  # this run's counts: set to 0 just before it, read just after
-        th = threading.Thread(target=lambda: box.setdefault(
-            "rc", cli.main(argv, on_listening=on_listening)), daemon=True)
-        th.start()
-        while not listening.wait(timeout=1.0):
-            if not th.is_alive():
-                fail(f"serving {dtype}: the api server exited before listening")
-        url = f"http://127.0.0.1:{box['server'].server_address[1]}"
-        bodies = serving_bodies()
-        results: list = [None] * len(bodies)
-        a_started = threading.Event()
-
-        def client(i: int) -> None:
-            try:
-                if i == len(bodies) - 1:  # the twin admits while 14 decodes
-                    a_started.wait(timeout=600)
-                results[i] = post_chat(url, bodies[i], a_started if i == 14 else None)
-            except Exception as e:  # noqa: BLE001 — reported as a failed request below
-                results[i] = dict(status=getattr(e, "code", None), error=repr(e))
-            finally:
-                if i == 14:
-                    a_started.set()  # a failed 14 must not hold its twin back
-
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=900)
-        wall_s = time.perf_counter() - t0
-        gen = box["gen"]
-        box["server"].shutdown()
-        th.join(timeout=120)
-        launches = read_counts()
-        if th.is_alive() or box.get("rc") != 0:
-            fail(f"serving {dtype}: the api server did not stop cleanly")
-        bad = [(i, r) for i, r in enumerate(results)
-               if r is None or r.get("status") != 200 or not r.get("text")]
-        n_tokens = [len(r.tokens) for r in reqs]
-        ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in reqs if r.t_first_token]
-        lat = sorted(r["latency_ms"] for r in results if r and "latency_ms" in r)
-        pool = gen.pool
-        rec = dict(case="serving", compute_dtype=dtype, layers=n_layers, slots=SLOTS,
-                   block_size=BLOCK, requests=len(bodies), ok=len(bodies) - len(bad),
-                   generated_tokens=sum(n_tokens), wall_s=wall_s,
-                   gen_tok_per_s=sum(n_tokens) / wall_s,
-                   latency_ms_p50=statistics.median(lat) if lat else None,
-                   latency_ms_p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))] if lat else None,
-                   ttft_ms_p50=statistics.median(ttft) if ttft else None,
-                   step_ms_median=statistics.median(step_ms) if step_ms else None,
-                   steps=len(step_ms), reused_tokens=gen.reused_tokens,
-                   pool_blocks=pool.n_blocks, pool_gb=gen.pool_bytes / 1e9,
-                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
-                   put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
-                   takes=len(move_ms["take"]),
-                   column_gb=gen.pool_bytes / pool.n_blocks * gen.table_width / 1e9,
-                   launches={"api": launches})
+        rec, _ = serve_run(model, tok, n_layers, dtype, [])
+        launches = rec["launches"]["api"]
         print(json.dumps(rec), flush=True)
         summary.setdefault(dtype, {}).setdefault("launches", {})["api"] = launches
         summary[dtype]["serving"] = rec
-        if bad:
-            fail(f"serving {dtype}: {len(bad)} request(s) failed: {bad[:3]}")
-        if results[14]["text"] != results[15]["text"]:
-            fail(f"serving {dtype}: the identical greedy pair differs:\n"
-                 f"{results[14]['text']!r}\n{results[15]['text']!r}")
-        if gen.reused_tokens <= 0:
-            fail(f"serving {dtype}: no prefix reuse happened")
         if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
             fail(f"serving {dtype}: a kernel of the path never launched: {launches}")
-        del gen
-        box.clear()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: prompt-lookup speculative decoding (--spec-lookup K)
+# ---------------------------------------------------------------------------
+
+# the near-tie rule of a spec transcript against the same run without spec:
+# on the card a verify step's rows go through other kernels than a decode
+# step's (K2's tensor cores instead of its SIMT kernel at one row, K1
+# instead of K2 at 8 slots), which sum in other orders. Where two
+# transcripts part, the logits of that position must put the spec side's
+# token within a hair of being picked (:func:`pick_margin`): greedy, its
+# logit within NEAR_TIE of the top logit, over |top logit|; sampled, the
+# coin's draw within NEAR_TIE_CDF (in probability) of the token's interval
+# of the CDF walk, or the token within NEAR_TIE_CDF of the nucleus edge. A
+# wrong token (another position's coin, a draft accepted that the model did
+# not pick, rows of accepted drafts not written) lies a random distance
+# away, a third of the CDF on average. Held in exact mode; in bf16 the
+# place and the margin are printed
+NEAR_TIE = 1e-4
+NEAR_TIE_CDF = 1e-3
+# the paged verify step's logits against the plain decode steps' at the
+# same positions (exact mode, f32 buffers, relative to max|logits|): f32
+# sums in other orders through 32 layers (K1 at M = 40 against K2 at M = 8)
+VERIFY_LOGIT_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def recorded_generations(store: list):
+    """``(prompt ids, GenerationResult)`` of every
+    ``InferenceEngine.generate`` call inside (the CLI prints only text)."""
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    orig = InferenceEngine.generate
+
+    def generate(self, prompt, *a, **kw):
+        res = orig(self, prompt, *a, **kw)
+        store.append((list(prompt), res))
+        return res
+
+    InferenceEngine.generate = generate
+    try:
+        yield store
+    finally:
+        InferenceEngine.generate = orig
+
+
+@contextlib.contextmanager
+def recorded_verifies(store: list):
+    """``(position, drafts, accepted run)`` of every
+    ``InferenceEngine.speculative_tokens`` call inside."""
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    orig = InferenceEngine.speculative_tokens
+
+    def speculative_tokens(self, token, drafts):
+        run = orig(self, token, drafts)
+        store.append((self.pos, list(drafts), list(run)))
+        return run
+
+    InferenceEngine.speculative_tokens = speculative_tokens
+    try:
+        yield store
+    finally:
+        InferenceEngine.speculative_tokens = orig
+
+
+@contextlib.contextmanager
+def oracle_drafts(transcripts: dict):
+    """Every proposer the port builds inside (the engine's and the paged
+    generator's ``NgramProposer``) drafts from ``transcripts`` ({prompt
+    ids: tokens}, a run without spec) instead of the n-gram table: the K
+    tokens that followed the history in the transcript whose prompt opens
+    it, token 0 past its end. On the synthetic weights the table's drafts
+    are never what the model says; these are, so the verify steps accept,
+    commit, and read the rows of accepted drafts back on the card."""
+    from dllama_tpu_torch.runtime import engine, serving
+
+    class Oracle:
+        def __init__(self, k: int):
+            self.k, self.history = k, []
+
+        def extend(self, tokens) -> None:
+            self.history.extend(int(t) for t in tokens)
+
+        def draft(self) -> list[int]:
+            h = self.history
+            for prompt, toks in transcripts.items():
+                full = [*prompt, *toks]
+                if len(prompt) <= len(h) <= len(full) and full[:len(h)] == h:
+                    d = full[len(h):len(h) + self.k]
+                    return d + [0] * (self.k - len(d))
+            return [0] * self.k
+
+    saved = engine.NgramProposer, serving.NgramProposer
+    engine.NgramProposer = serving.NgramProposer = Oracle
+    try:
+        yield
+    finally:
+        engine.NgramProposer, serving.NgramProposer = saved
+
+
+def pick_margin(logits, got: int, temperature: float = 0.0, topp: float = 0.9,
+                coin: float = 0.0) -> float:
+    """How far the pick from ``logits`` would have to move for token
+    ``got`` to be picked, in float64 (0: it is picked). Greedy: the top
+    logit less ``got``'s, over |top logit|. Sampled, on the port's walk
+    (cutoff, stable descending sort, nucleus to the first cumulative mass
+    over top-p, the coin's draw scaled by the nucleus mass): the distance
+    of the draw from ``got``'s interval, and for a ``got`` past the nucleus
+    also how far its mass stands from top-p; infinite below the cutoff."""
+    import numpy as np
+
+    x = np.asarray(logits, np.float64).reshape(-1)
+    if temperature <= 0.0:
+        return float((x.max() - x[got]) / max(abs(x.max()), 1e-30))
+    p = np.exp((x - x.max()) / temperature)
+    p /= p.sum()
+
+    def off(r: float, lo: float, hi: float) -> float:
+        return max(lo - r, r - hi, 0.0)
+
+    if not 0.0 < topp < 1.0:
+        cs = np.cumsum(p)
+        return off(coin, cs[got] - p[got], cs[got])
+    p = np.where(p >= (1.0 - topp) / (len(p) - 1), p, 0.0)
+    if p[got] == 0.0:
+        return math.inf
+    order = np.argsort(-p, kind="stable")
+    cs = np.cumsum(p[order])
+    j = int(np.flatnonzero(order == got)[0])
+    last = int(np.argmax(cs > topp)) if (cs > topp).any() else np.count_nonzero(p) - 1
+    if j <= last:
+        return off(coin * cs[last], cs[j] - p[got], cs[j])
+    # the nucleus would have to reach got, which then closes it
+    return max(cs[j - 1] - topp, off(coin * cs[j], cs[j] - p[got], cs[j]))
+
+
+class TieProbe:
+    """:func:`pick_margin` of the spec side's token where two transcripts
+    of one prompt part, from one single-sequence forward over the prompt
+    and the common tokens (f32 buffers, sp = 1), on an engine loaded at the
+    first difference and kept for the next ones until :meth:`close`."""
+
+    def __init__(self, model: str, tok: str, dtype: str, seq_len: int):
+        self.args = (model, tok, dtype, seq_len)
+        self.eng = None
+
+    def close(self) -> None:
+        if self.eng is not None:
+            self.eng.close()
+            self.eng = None
+
+    def __call__(self, prompt: list[int], got: list[int], want: list[int],
+                 temperature: float = 0.0, topp: float = 0.9, seed: int = 0) -> dict | None:
+        """Where ``got`` parts from ``want`` (None: it does not), and the
+        margin of ``got``'s token there."""
+        from dllama_tpu_torch.formats.quants import F32
+        from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if i is None:
+            return None if len(got) == len(want) else dict(pos=min(len(got), len(want)),
+                                                           margin=None)
+        if self.eng is None:
+            model, tok, dtype, seq_len = self.args
+            self.eng = InferenceEngine(
+                model, tok, device=DEV, max_seq_len=seq_len, sync_type=F32,
+                compute_dtype="bfloat16" if dtype == "bf16" else "float32")
+        self.eng.reset()
+        logits, _ = self.eng.prefill(prompt + want[:i])
+        coin = stream_coin(seed, i)
+        return dict(pos=i, got=got[i], want=want[i],
+                    margin=pick_margin(logits, got[i], temperature, topp, coin),
+                    want_margin=pick_margin(logits, want[i], temperature, topp, coin))
+
+
+def stream_coin(seed: int, i: int) -> float:
+    """Coin ``i`` of a request's xorshift stream (emitted token ``i``'s)."""
+    from dllama_tpu_torch.tokenizer.sampler import xorshift_random_f32
+
+    coin, st = 0.0, seed
+    for _ in range(i + 1):
+        coin, st = xorshift_random_f32(st)
+    return coin
+
+
+def near_tie(margin, temperature: float) -> bool:
+    return margin is not None and margin < (NEAR_TIE if temperature <= 0.0 else NEAR_TIE_CDF)
+
+
+def hold_transcripts(what: str, dtype: str, diff: dict | None,
+                     temperature: float = 0.0) -> None:
+    """The near-tie rule on a :class:`TieProbe` result."""
+    if diff is None:
+        return
+    print(json.dumps(dict(case="transcripts_part", what=what, compute_dtype=dtype, **diff)),
+          flush=True)
+    if dtype == "f32" and not near_tie(diff["margin"], temperature):
+        fail(f"{what}: the transcripts part at token {diff['pos']}, where token "
+             f"{diff.get('got')} stood {diff['margin']} from being picked (not a near tie)")
+
+
+def verify_profile(model: str, tok: str, dtype: str) -> dict:
+    """The single-sequence verify step at K = :data:`SPEC_K` under
+    ``torch.profiler``: 16 replays of the engine's captured step
+    (``speculative_tokens`` at one position, each ending in its one
+    readback), on the main path's engine (Q80 buffers), as
+    ``engine_profile`` profiles its decode step. The drafts are the ones
+    the step itself picks (lane j's pick given drafts 0..j-1, one call per
+    lane, the first of which captures the step), so every replay accepts
+    all K. Device ms, busy share and kernels per replay, the launches the
+    capture recorded per replay, the runs, and the engine's own K + 1
+    greedy decode steps from the same position beside them (printed: the
+    Q80 casts turn the other kernels' sum order into whole int8 steps)."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                          temperature=0.0, spec_lookup=SPEC_K)
+    try:
+        ids = eng.tokenizer.encode(PROMPT)
+        eng.prefill(ids[:-1])
+        drafts = [0] * SPEC_K
+        for j in range(SPEC_K):
+            drafts[j] = eng.speculative_tokens(ids[-1], drafts)[j]
+        n, runs = 16, []
+        wall, kernels = _profiled(
+            lambda: [runs.append(eng.speculative_tokens(ids[-1], drafts)) for _ in range(n)], n)
+        rec = _profile_rec("verify_profile", dtype, "replay", n, wall, kernels)
+        rec["capture"] = eng._verify_graph.step.stats()
+        rec["accepted_per_replay"] = sorted({len(r) - 1 for r in runs})
+        rec["runs_equal"] = all(r == runs[0] for r in runs)
+        rec["run"] = runs[0]
+        rec["decode"] = eng.decode_chunk_tokens(ids[-1], SPEC_K + 1)
+    finally:
+        eng.close()
+    return rec
+
+
+def spec_single(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``inference --spec-lookup K --temperature 0`` through the CLI at full
+    width, f32 and bf16, against the same run without spec: the main
+    path's prompt and 64 tokens, with f32 sync buffers on all sides (the
+    Q80 casts turn a last-ulp difference of the verify's other kernels into
+    whole int8 steps, ``sp_path``'s reason). Two spec runs: the n-gram
+    table's drafts (the flag as users run it), and the run without spec's
+    own tokens as the drafts (:func:`oracle_drafts`), whose verify steps
+    must each accept every such draft (f32) while the transcripts agree.
+    Transcripts held to the near-tie rule; decode tok/s, the ``spec rate``
+    line, launches; then the verify step's profile
+    (:func:`verify_profile`), whose capture must have recorded K2 and K3
+    once a matmul and a layer (K2 at M = K + 1 on the tensor cores) and
+    nothing else, and whose replays must all accept their K drafts."""
+    for dtype in ("f32", "bf16"):
+        common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                  "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
+                  "--buffer-float-type", "f32", "--prompt", PROMPT,
+                  "--steps", str(len(PROMPT.encode()) + 1 + 64)]
+        runs = {}
+        for name, extra in (("plain", []), ("spec", ["--spec-lookup", str(SPEC_K)]),
+                            ("oracle", ["--spec-lookup", str(SPEC_K)])):
+            gens: list = []
+            calls: list = []
+            drafts = (oracle_drafts({tuple(runs["plain"]["prompt"]): runs["plain"]["tokens"]})
+                      if name == "oracle" else contextlib.nullcontext())
+            zero_counts()
+            with recorded_generations(gens), recorded_verifies(calls), drafts:
+                out = run_cli(["inference", *common, *extra])
+            lines = out.splitlines()
+            rate = [ln.split() for ln in lines if ln.startswith("  spec rate: ")]
+            preds = [st for st in gens[0][1].steps if st.kind == "pred"][1:]
+            runs[name] = dict(prompt=gens[0][0], tokens=gens[0][1].tokens, verifies=calls,
+                              decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                              # without the first dispatch, which captures the step
+                              steady_tok_per_s=1e3 * sum(st.n_tokens for st in preds)
+                              / sum(st.ms for st in preds),
+                              launches=read_counts(),
+                              spec_rate=float(rate[0][2]) if rate else None,
+                              dispatches=int(rate[0][4].lstrip("(")) if rate else None)
+        plain = runs["plain"]
+        probe = TieProbe(model, tok, dtype, MAX_SEQ)
+        try:
+            diffs = {k: probe(runs[k]["prompt"], runs[k]["tokens"], plain["tokens"])
+                     for k in ("spec", "oracle")}
+        finally:
+            probe.close()
+        # the oracle's verify steps before the transcripts part: each
+        # accepts its real drafts (those inside the run without spec)
+        oracle, n0 = runs["oracle"], len(plain["prompt"]) - 1
+        upto = diffs["oracle"]["pos"] if diffs["oracle"] else len(plain["tokens"])
+        short = []
+        for pos, _, run in oracle["verifies"]:
+            real = min(SPEC_K, len(plain["tokens"]) - (pos - n0))
+            if pos - n0 + real < upto and len(run) < real + 1:
+                short.append(dict(at=pos - n0, real_drafts=real, accepted=len(run) - 1))
+        accepted = sum(len(r) - 1 for _, _, r in oracle["verifies"])
+        drafted = sum(min(SPEC_K, len(plain["tokens"]) - (p - n0))
+                      for p, _, _ in oracle["verifies"])
+        prof = verify_profile(model, tok, dtype)
+        print(json.dumps(prof), flush=True)
+        rec = dict(case="spec_single", compute_dtype=dtype, layers=n_layers, k=SPEC_K,
+                   generated={k: len(r["tokens"]) for k, r in runs.items()},
+                   tokens_equal={k: runs[k]["tokens"] == plain["tokens"]
+                                 for k in ("spec", "oracle")},
+                   first_difference=diffs,
+                   decode_tok_per_s={k: r["decode_tok_per_s"] for k, r in runs.items()},
+                   steady_tok_per_s={k: r["steady_tok_per_s"] for k, r in runs.items()},
+                   spec_rate={k: runs[k]["spec_rate"] for k in ("spec", "oracle")},
+                   dispatches={k: runs[k]["dispatches"] for k in ("spec", "oracle")},
+                   oracle_accepted=accepted, oracle_real_drafts=drafted,
+                   oracle_short_verifies=short,
+                   launches={k: r["launches"] for k, r in runs.items()},
+                   verify_profile={k: prof[k] for k in (
+                       "wall_ms_per_replay", "device_ms_per_replay", "device_busy_share",
+                       "kernels_per_replay", "capture", "accepted_per_replay", "runs_equal",
+                       "run", "decode")})
+        print(json.dumps(rec), flush=True)
+        summary.setdefault(dtype, {}).setdefault("launches", {})["inference_spec"] = \
+            runs["spec"]["launches"]
+        summary[dtype]["launches"]["inference_spec_oracle"] = oracle["launches"]
+        summary[dtype]["spec_single"] = rec
+        for k in ("spec", "oracle"):
+            hold_transcripts(f"spec single {k} {dtype}", dtype, diffs[k])
+            r = runs[k]
+            if len(r["tokens"]) != 64 or r["spec_rate"] is None or r["dispatches"] < 1:
+                fail(f"spec single {k} {dtype}: {len(r['tokens'])} tokens, spec rate line "
+                     f"{r['spec_rate']} ({r['dispatches']} dispatches)")
+            if min(r["launches"][n] for n in ("K1", "K2", "K3")) <= 0:
+                fail(f"spec single {k} {dtype}: a kernel of the path never launched: "
+                     f"{r['launches']}")
+        if dtype == "f32" and (short or accepted <= 0):
+            fail(f"spec single oracle f32: verify steps rejected drafts the run without "
+                 f"spec emitted: {short} ({accepted} accepted)")
+        per = prof["capture"]["launches_per_replay"]
+        want_k2 = 7 * n_layers + (1 if dtype == "f32" else 0)  # the Q40 head in exact mode
+        if not prof["capture"]["captured"] or per != {"q40_gemv": want_k2,
+                                                      "flash_attention": n_layers}:
+            fail(f"spec single {dtype}: the verify step's capture {prof['capture']}")
+        if prof["accepted_per_replay"] != [SPEC_K] or not prof["runs_equal"]:
+            fail(f"spec single {dtype}: the profiled replays of self-drafted verify steps "
+                 f"accepted {prof['accepted_per_replay']} (want all {SPEC_K}), "
+                 f"runs equal {prof['runs_equal']}")
+        torch.cuda.empty_cache()
+
+
+def graph_paged_verify(eng, dtype: str) -> dict:
+    """The 8-row paged verify step at K = :data:`SPEC_K`
+    (``PagedGenerator``'s captured verify step, its static buffers loaded
+    as ``_spec_step`` loads them) against the eager ``paged_verify_step``
+    called by name on a copy of the same pool: 4 steps of rows at
+    :data:`PAGED_GRAPH_DEPTHS` through scrambled tables, ragged draft
+    lengths 0-4, rows alternating greedy and sampled (0.8 / 0.9, seeded
+    coins). Rows ``b % 3 == 0`` draft what the verify step itself picks
+    (lane j's pick given drafts 0..j-1, found by eager steps): every draft
+    must be accepted; rows ``b % 3 == 1`` the same with the last live
+    draft changed: all but that one; the others draft at random.
+
+    Before each step's graph run, on the pool copy: the step's logits
+    (``paged_forward`` with its draft lengths) against K + 1 plain decode
+    steps at the same positions (``paged_forward`` one token wide, the
+    decode step's route: K2 at M = 8), over every live lane; the port's
+    sampler on the step's logits must give its outputs exactly; and its
+    emitted tokens must equal the decode steps' picks with the same coins
+    or lie in a near tie of them (:func:`pick_margin`). Then ``(n_acc,
+    out, nonfinite)`` and pool bytes outside the null block, graph against
+    eager; host wall ms per step (copies in, step, readback), launches per
+    step, and device ms / busy share of 4 more steps of each under
+    ``torch.profiler``, with K1's, K4's and the samplers' sort's device ms
+    per step."""
+    from dllama_tpu_torch.models.llama import paged_forward, paged_verify_step
+    from dllama_tpu_torch.ops.sampling import sampled_token
+    from dllama_tpu_torch.runtime.graphs import load
+    from dllama_tpu_torch.runtime.kvblocks import PagedKVCache
+    from dllama_tpu_torch.runtime.serving import PagedGenerator
+
+    gen = PagedGenerator(eng, SLOTS)
+    K, W = SPEC_K, SPEC_K + 1
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    for pool in (gen.pkv.k, gen.pkv.v):
+        for layer in pool:
+            layer.copy_(torch.randn(layer.shape, generator=g, device=DEV))
+    graph = gen.verify_graph()  # the warm-up writes the null block alone
+    n = 4
+    depths = [min(d, MAX_SEQ - 1 - n * W) for d in RAGGED]
+    B = len(depths)
+    g_cpu = torch.Generator().manual_seed(SEED + 12)
+    tables = paged_rows(gen, depths, n * W, g_cpu).cpu()
+    temps, topps = torch.tensor([0.0, 0.8] * (B // 2)), torch.full((B,), 0.9)
+    snap = PagedKVCache(gen.pkv.k.clone(), gen.pkv.v.clone())
+    steps, want_acc, lanes = [], [], dict(checked=0, equal=0, parts=[], logit_rel=0.0,
+                                          sampler_mismatch=0)
+    for i in range(n):
+        toks = torch.randint(0, VOCAB, (B, W), generator=g_cpu)
+        lens = torch.tensor([(b + i) % W for b in range(B)])
+        coins = torch.rand((W, B), generator=g_cpu)
+        pos = torch.tensor(depths) + i * W
+        on = lambda t: t.to(DEV)  # noqa: E731
+
+        def verify():
+            return paged_verify_step(eng.params, eng.cfg, on(toks), on(pos), snap, on(tables),
+                                     on(lens), on(temps), on(topps), on(coins[:K].t()),
+                                     on(coins[K]))
+
+        for j in range(K):
+            out = verify()[1].cpu()
+            for b in range(0, B):
+                if b % 3 != 2:
+                    toks[b, j + 1] = out[b, j]
+        for b in range(1, B, 3):
+            if lens[b]:
+                toks[b, lens[b]] = (toks[b, lens[b]] + 1) % VOCAB
+        want_acc.append([int(lens[b]) if b % 3 == 0 else max(int(lens[b]) - 1, 0)
+                         if b % 3 == 1 else None for b in range(B)])
+        vlog, _ = paged_forward(eng.params, eng.cfg, on(toks), on(pos), snap, on(tables),
+                                write_lens=on(lens))
+        plog = []
+        for j in range(W):  # the decode steps overwrite the rows they read
+            tab = torch.where((j <= lens)[:, None], tables, torch.zeros_like(tables))
+            plog.append(paged_forward(eng.params, eng.cfg, on(toks[:, j:j + 1]), on(pos + j),
+                                      snap, on(tab))[0][:, 0])
+        plog = torch.stack(plog, 1)
+        n_acc, out, _ = verify()  # the step itself, on the state the graph will see
+        flat = lambda lg: sampled_token(  # noqa: E731
+            lg.reshape(B * W, -1), on(temps.repeat_interleave(W)),
+            on(topps.repeat_interleave(W)), on(coins.t().reshape(-1))).reshape(B, W).cpu()
+        vpick, ppick, out, n_acc = flat(vlog), flat(plog), out.cpu(), n_acc.cpu()
+        for b in range(B):
+            live = slice(0, int(lens[b]) + 1)
+            lanes["sampler_mismatch"] += int((vpick[b, live] != out[b, live]).sum())
+            ref = plog[b, live].abs().max()
+            lanes["logit_rel"] = max(lanes["logit_rel"], float(
+                (vlog[b, live] - plog[b, live]).abs().max() / ref))
+            for j in range(int(n_acc[b]) + 1):
+                lanes["checked"] += 1
+                if out[b, j] == ppick[b, j]:
+                    lanes["equal"] += 1
+                    continue
+                m = pick_margin(plog[b, j].double().cpu().numpy(), int(out[b, j]),
+                                float(temps[b]), float(topps[b]), float(coins[j, b]))
+                lanes["parts"].append(dict(step=i, row=b, lane=j, got=int(out[b, j]),
+                                           want=int(ppick[b, j]), temperature=float(temps[b]),
+                                           margin=m))
+        knobs = torch.cat([temps[None], topps[None], coins])
+        steps.append((torch.cat([toks, pos[:, None], lens[:, None], tables], 1), knobs))
+        del vlog, plog
+    snap.k.copy_(gen.pkv.k)
+    snap.v.copy_(gen.pkv.v)
+
+    def graph_step(i: int) -> torch.Tensor:
+        load(gen._vin, gen._vin_host, steps[i][0].numpy())
+        load(gen._vknobs, gen._vknobs_host, steps[i][1].numpy())
+        graph.replay()
+        return gen._vout.to("cpu", copy=True)  # a copy on the CPU too
+
+    def eager_step(i: int) -> torch.Tensor:
+        inp, kn = (t.to(DEV) for t in steps[i])
+        n_acc, out, nf = paged_verify_step(
+            eng.params, eng.cfg, inp[:, :W], inp[:, W], snap, inp[:, W + 2:], inp[:, W + 1],
+            kn[0], kn[1], kn[2:W + 1].t(), kn[W + 1])
+        return torch.cat([n_acc[None], nf.long()[None], out.t()]).cpu()
+
+    rec: dict = {"rows": B, "k": K, "depths": depths, "steps": n, "lanes": lanes}
+    outs = {}
+    for kind, step in (("graph", graph_step), ("eager", eager_step)):
+        res, ms = [], []
+        torch.cuda.synchronize()
+        zero_counts()
+        for i in range(n):
+            t0 = time.perf_counter()
+            res.append(step(i))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rec[kind] = dict(wall_ms_per_step_median=statistics.median(ms),
+                         launches_per_step=_per_step(read_counts(), n))
+        outs[kind] = torch.stack(res)
+    rec["outputs_equal"] = bool(torch.equal(outs["graph"], outs["eager"]))
+    rec["nonfinite"] = int(outs["graph"][:, 1].sum())
+    rec["accepted"] = int(outs["graph"][:, 0].sum())
+    got_acc = outs["graph"][:, 0].tolist()
+    rec["self_drafted"] = dict(want=want_acc, got=got_acc, held=all(
+        w is None or w == a for ws, gs in zip(want_acc, got_acc) for w, a in zip(ws, gs)))
+    # outside the null block: the padded lanes of several rows write one
+    # null cell, and which write lands last is the scatter's own
+    rec["pool_bytes_equal"] = bool(torch.equal(gen.pkv.k[:, 1:], snap.k[:, 1:])
+                                   and torch.equal(gen.pkv.v[:, 1:], snap.v[:, 1:]))
+    rec["null_block_equal"] = bool(torch.equal(gen.pkv.k[:, 0], snap.k[:, 0]))
+    for kind, step in (("graph", graph_step), ("eager", eager_step)):
+        wall, kernels = _profiled(lambda: [step(i) for i in range(n)], n)
+        prof = _profile_rec(f"paged_verify_{kind}_profile", dtype, "step", n, wall, kernels)
+        rec[kind].update({k: prof[k] for k in ("device_ms_per_step", "device_busy_share",
+                                                "kernels_per_step", "wall_ms_per_step",
+                                                "top_ms_per_step")})
+        for name, keys in (("K1", ("q40_matmul", "sum_splits_kernel")),
+                           ("K4", ("paged_attention_kernel", "combine_splits_kernel")),
+                           ("sort", ("sort", "Sort"))):
+            rec[kind][f"{name}_device_ms_per_step"] = sum(
+                e.self_device_time_total for e in kernels
+                if any(k in e.key for k in keys)) / 1e3 / n
+    rec["capture"] = graph.stats()
+    gen.close()
+    del snap
+    return rec
+
+
+def spec_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``api --batch-slots 8 --kv-block-size 16 --spec-lookup K`` with the
+    serving phase's 16-request chat mix (:func:`serve_run`), f32 and bf16,
+    against the same run without spec, all on f32 sync buffers
+    (:func:`spec_single`'s reason). Two spec runs: the n-gram tables'
+    drafts, and the run without spec's own tokens as every slot's drafts
+    (:func:`oracle_drafts`). Every request's tokens held to the near-tie
+    rule, greedy and sampled; in the second run a greedy request whose
+    transcript equals the run without spec must have had every draft
+    accepted (f32). Generated tok/s, the accept rate (accepted / drafted),
+    the verify step's wall ms (the scheduler's step) and its capture; then
+    the paged verify step alone, graph against eager and against plain
+    decode steps (:func:`graph_paged_verify`, on f32 sync buffers too)."""
+    from dllama_tpu_torch.formats.quants import F32
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    f32_buf = ["--buffer-float-type", "f32"]
+    spec_flag = ["--spec-lookup", str(SPEC_K)]
+    for dtype in ("f32", "bf16"):
+        base, base_reqs = serve_run(model, tok, n_layers, dtype, f32_buf,
+                                    case="spec_serving_base")
+        want = {}
+        for r in base_reqs:
+            want.setdefault((tuple(r.prompt_ids), r.temperature, r.seed), r.tokens)
+        spec, reqs = serve_run(model, tok, n_layers, dtype, f32_buf + spec_flag,
+                               case="spec_serving")
+        with oracle_drafts({p: t for (p, _, _), t in want.items()}):
+            oracle, oreqs = serve_run(model, tok, n_layers, dtype, f32_buf + spec_flag,
+                                      case="spec_serving_oracle")
+        runs = {"spec": (spec, reqs), "oracle": (oracle, oreqs)}
+        diffs = {k: [] for k in runs}
+        short = []
+        probe = TieProbe(model, tok, dtype, MAX_SEQ)
+        try:
+            for k, (_, rs) in runs.items():
+                for r in rs:
+                    w = want[(tuple(r.prompt_ids), r.temperature, r.seed)]
+                    d = probe(r.prompt_ids, r.tokens, w, r.temperature, r.topp, r.seed)
+                    if d is not None:
+                        diffs[k].append(dict(d, rid=r.rid, temperature=r.temperature))
+                    elif (k == "oracle" and r.temperature <= 0.0
+                          and len(r.tokens) == r.max_tokens
+                          and r.spec_accepted != r.spec_drafted):
+                        short.append(dict(rid=r.rid, drafted=r.spec_drafted,
+                                          accepted=r.spec_accepted))
+        finally:
+            probe.close()
+        eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=F32,
+                              compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                              temperature=0.0, seed=SEED, kv_block_size=BLOCK,
+                              spec_lookup=SPEC_K)
+        try:
+            paged = graph_paged_verify(eng, dtype)
+        finally:
+            eng.close()
+
+        def tally(rs, greedy):
+            sel = [r for r in rs if (r.temperature <= 0.0) == greedy]
+            return dict(drafted=sum(r.spec_drafted for r in sel),
+                        accepted=sum(r.spec_accepted for r in sel))
+
+        accept = {k: {kind: tally(rs, kind == "greedy") for kind in ("greedy", "sampled")}
+                  for k, (_, rs) in runs.items()}
+        for a in accept.values():
+            for t in a.values():
+                t["accept_rate"] = t["accepted"] / t["drafted"] if t["drafted"] else None
+        rec = dict(case="spec_serving_summary", compute_dtype=dtype, k=SPEC_K,
+                   gen_tok_per_s={"plain": base["gen_tok_per_s"],
+                                  **{k: r["gen_tok_per_s"] for k, (r, _) in runs.items()}},
+                   step_ms_median={"plain": base["step_ms_median"],
+                                   **{k: r["step_ms_median"] for k, (r, _) in runs.items()}},
+                   steps={"plain": base["steps"], **{k: r["steps"] for k, (r, _) in runs.items()}},
+                   generated_tokens={"plain": base["generated_tokens"], **{
+                       k: r["generated_tokens"] for k, (r, _) in runs.items()}},
+                   accept=accept,
+                   requests_equal={k: len(rs) - len(diffs[k]) for k, (_, rs) in runs.items()},
+                   parts=diffs, oracle_short_requests=short,
+                   capture=spec["capture"], pool_gb=spec["pool_gb"],
+                   peak_gb=spec["peak_gb"],
+                   launches={k: r["launches"]["api"] for k, (r, _) in runs.items()},
+                   paged_verify=paged)
+        print(json.dumps(base), flush=True)
+        print(json.dumps(spec), flush=True)
+        print(json.dumps(oracle), flush=True)
+        print(json.dumps(rec), flush=True)
+        summary.setdefault(dtype, {}).setdefault("launches", {})["api_spec"] = \
+            spec["launches"]["api"]
+        summary[dtype]["launches"]["api_spec_oracle"] = oracle["launches"]["api"]
+        summary[dtype]["spec_serving"] = rec
+        for k, ds in diffs.items():
+            for d in ds:
+                hold_transcripts(f"spec serving {k} {dtype} request {d['rid']}", dtype, d,
+                                 d["temperature"])
+        for k, (r, _) in runs.items():
+            if not r["capture"]["captured"]:
+                fail(f"spec serving {k} {dtype}: the paged verify step was not captured: "
+                     f"{r['capture']}")
+            if accept[k]["greedy"]["drafted"] + accept[k]["sampled"]["drafted"] <= 0:
+                fail(f"spec serving {k} {dtype}: no draft was verified")
+            # every tick is a verify step: K1 (M = 8 (K + 1), the head too),
+            # K4 (T = K + 1); prefill K1 and K3
+            launches = r["launches"]["api"]
+            if min(launches[n] for n in ("K1", "K3", "K4")) <= 0:
+                fail(f"spec serving {k} {dtype}: a kernel of the path never launched: "
+                     f"{launches}")
+        if dtype == "f32" and (short or accept["oracle"]["greedy"]["accepted"] <= 0):
+            fail(f"spec serving oracle f32: greedy requests equal to the run without spec "
+                 f"had drafts rejected: {short} ({accept['oracle']['greedy']})")
+        if not paged["outputs_equal"] or not paged["pool_bytes_equal"] or paged["nonfinite"]:
+            fail(f"spec serving {dtype}: the paged verify graph and the eager step differ "
+                 f"(outputs {paged['outputs_equal']}, pool bytes "
+                 f"{paged['pool_bytes_equal']}, non-finite lanes {paged['nonfinite']})")
+        lanes = paged["lanes"]
+        if not paged["self_drafted"]["held"] or lanes["sampler_mismatch"]:
+            fail(f"spec serving {dtype}: the paged verify step's self-drafted rows accepted "
+                 f"{paged['self_drafted']}; outputs off the sampler on its own logits: "
+                 f"{lanes['sampler_mismatch']}")
+        far = [d for d in lanes["parts"] if not near_tie(d["margin"], d["temperature"])]
+        if dtype == "f32" and (far or not lanes["logit_rel"] <= VERIFY_LOGIT_TOL):
+            fail(f"spec serving f32: the paged verify step against plain decode steps: "
+                 f"logits {lanes['logit_rel']} (tol {VERIFY_LOGIT_TOL}), tokens not in a "
+                 f"near tie {far[:4]}")
+        eager = paged["eager"]["launches_per_step"]
+        if (eager["K1"] <= 0 or eager["K4"] != n_layers or eager["K2"]
+                or paged["graph"]["launches_per_step"] != eager
+                or paged["capture"]["launches_per_replay"] != {
+                    "q40_matmul": eager["K1"], "paged_attention": eager["K4"]}):
+            fail(f"spec serving {dtype}: paged verify launches per step graph "
+                 f"{paged['graph']['launches_per_step']}, eager {eager}, recorded "
+                 f"{paged['capture']['launches_per_replay']}")
         torch.cuda.empty_cache()
 
 
@@ -1649,10 +2344,11 @@ def sp_parity(results: dict) -> None:
 
 @contextlib.contextmanager
 def phase_counts(store: dict):
-    """K3s launches split by phase: the engine's ``prefill`` (per chunk) and
+    """K3s launches split by phase: the engine's ``prefill`` (per chunk),
     decode (per token: ``decode_chunk_tokens``, which ``generate`` calls
     for every chunk, k = 1 included, and ``next_token``, which a parent
-    tree's ``generate`` calls instead), counted where each returns; and
+    tree's ``generate`` calls instead) and verify (per dispatch:
+    ``speculative_tokens``), counted where each returns; and
     ``(n_splits, path)`` of every K3/K3s launch of the prefill, as the
     wrappers take the path from ``_attn_path`` (a parent tree without it
     records none)."""
@@ -1660,11 +2356,11 @@ def phase_counts(store: dict):
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     saved = {name: getattr(InferenceEngine, name)
-             for name in ("prefill", "next_token", "decode_chunk_tokens")
+             for name in ("prefill", "next_token", "decode_chunk_tokens", "speculative_tokens")
              if hasattr(InferenceEngine, name)}
     attn_path = getattr(fa, "_attn_path", None)
     store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0,
-                 prefill_launches=[])
+                 verify_steps=0, verify_k3s=0, prefill_launches=[])
     in_prefill = [False]
 
     def observed_path(kv_dtype, n_splits):
@@ -1684,18 +2380,20 @@ def phase_counts(store: dict):
         store["prefill_k3s"] += fa.flash_block_stats.launches - n0
         return last, metrics
 
-    def counted_decode(name: str, n_tokens):
+    def counted_decode(name: str, n_tokens, kind: str = "decode"):
         def counted(self, *args):
             n0 = fa.flash_block_stats.launches
             out = saved[name](self, *args)
-            store["decode_steps"] += n_tokens(out)
-            store["decode_k3s"] += fa.flash_block_stats.launches - n0
+            store[f"{kind}_steps"] += n_tokens(out)
+            store[f"{kind}_k3s"] += fa.flash_block_stats.launches - n0
             return out
         return counted
 
     wrapped = {"prefill": counted_prefill,
                "next_token": counted_decode("next_token", lambda tok: 1),
-               "decode_chunk_tokens": counted_decode("decode_chunk_tokens", len)}
+               "decode_chunk_tokens": counted_decode("decode_chunk_tokens", len),
+               "speculative_tokens": counted_decode("speculative_tokens", lambda run: 1,
+                                                    "verify")}
     for name in saved:
         setattr(InferenceEngine, name, wrapped[name])
     if attn_path is not None:
@@ -1710,16 +2408,17 @@ def phase_counts(store: dict):
 
 
 def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
-           text: str, sync: str, steps: int, ppl: bool) -> dict:
+           text: str, sync: str, steps: int, ppl: bool, spec: int = 0) -> dict:
     """One run of the sp path: ``steps`` greedy tokens after ``text`` (none
-    when 0), then ``perplexity`` over it when ``ppl``; through the CLI's
-    ``--sp`` (``via="cli"``) or ``InferenceEngine(sp_devices=[cuda:0] * sp)``.
-    Counts are set to 0 just before each and read just after it."""
+    when 0; speculative with ``spec`` = K), then ``perplexity`` over it
+    when ``ppl``; through the CLI's ``--sp`` (``via="cli"``) or
+    ``InferenceEngine(sp_devices=[cuda:0] * sp)``. Counts are set to 0 just
+    before each and read just after it."""
     from dllama_tpu_torch.formats.quants import F32, Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     rec = dict(case="sp_path", via=via, compute_dtype=dtype, sp=sp, max_seq_len=seq_len,
-               buffer_float_type=sync)
+               buffer_float_type=sync, spec_lookup=spec)
     for i in range(torch.cuda.device_count()):
         torch.cuda.reset_peak_memory_stats(i)
     phases: dict = {}
@@ -1730,10 +2429,14 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
                       "--max-seq-len", str(seq_len), "--seed", str(SEED), "--sp", str(sp),
                       "--buffer-float-type", sync]
             if steps:
+                gens: list = []
                 zero_counts()
-                out = run_cli(["inference", *common, "--prompt", text, "--steps",
-                               str(len(text.encode()) + 1 + steps), "--temperature", "0"])
+                with recorded_generations(gens):
+                    out = run_cli(["inference", *common, "--prompt", text, "--steps",
+                                   str(len(text.encode()) + 1 + steps), "--temperature", "0",
+                                   *(["--spec-lookup", str(spec)] if spec else [])])
                 rec["launches_inference"] = read_counts()
+                rec.update(prompt_ids=gens[0][0], tokens=gens[0][1].tokens)
                 lines = out.splitlines()
                 rec.update(prompt_tokens=int(stat(lines, "Evaluation", "nTokens:")) + 1,
                            generated=int(stat(lines, "Prediction", "nTokens:")),
@@ -1752,7 +2455,8 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
             eng = InferenceEngine(model, tok, device=DEV, max_seq_len=seq_len,
                                   sync_type=Q80 if sync == "q80" else F32, temperature=0.0,
                                   compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-                                  sp=sp, sp_devices=[f"{DEV}:0"] * sp)
+                                  sp=sp, sp_devices=[f"{DEV}:0"] * sp,
+                                  **({"spec_lookup": spec} if spec else {}))
             try:
                 ids = eng.tokenizer.encode(text)
                 if steps:
@@ -1761,7 +2465,8 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
                     rec["launches_inference"] = read_counts()
                     rec.update(prompt_tokens=len(ids), generated=len(res.tokens),
                                prefill_tok_per_s=res.eval_tok_per_s,
-                               decode_tok_per_s=res.pred_tok_per_s, tokens=res.tokens)
+                               decode_tok_per_s=res.pred_tok_per_s, tokens=res.tokens,
+                               prompt_ids=ids)
                 if ppl:
                     zero_counts()
                     t1 = time.perf_counter()
@@ -1777,12 +2482,14 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
     rec["peak_gb_per_device"] = [torch.cuda.max_memory_allocated(i) / 1e9
                                  for i in range(torch.cuda.device_count())]
     rec["k3s_per_decode_step"] = phases["decode_k3s"] / max(1, phases["decode_steps"])
+    rec["verify_steps"] = phases["verify_steps"]
+    rec["k3s_per_verify_step"] = phases["verify_k3s"] / max(1, phases["verify_steps"])
     rec["k3s_per_prefill_chunk"] = phases["prefill_k3s"] / max(1, phases["prefill_chunks"])
     rec["prefill_chunks"] = phases["prefill_chunks"]
     rec["prefill_launches"] = phases["prefill_launches"]
     rec["prefill_paths"] = dict(collections.Counter(p for _, p in rec["prefill_launches"]))
     print(json.dumps({k: v for k, v in rec.items()
-                      if k not in ("tokens", "prefill_launches")}), flush=True)
+                      if k not in ("tokens", "prompt_ids", "prefill_launches")}), flush=True)
     torch.cuda.empty_cache()
     return rec
 
@@ -1820,19 +2527,22 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
           flush=True)
     short = PROMPT * 10
     long_text = PROMPT * (SP_LONG_PROMPT // len(PROMPT.encode()) + 1)
-    # (cell, dtype, sp, seq_len, text, buffers, steps, perplexity, least prompt)
-    plan = [("short", d, sp, SP_SEQ, short, "f32", 64, d == "f32", 2300)
+    # (cell, dtype, sp, seq_len, text, buffers, steps, perplexity, least
+    # prompt, --spec-lookup)
+    plan = [("short", d, sp, SP_SEQ, short, "f32", 64, d == "f32", 2300, 0)
             for d in ("f32", "bf16") for sp in (2, 1)]
-    plan += [("q80", "f32", sp, SP_SEQ, short, "q80", 0, True, 2300) for sp in (2, 1)]
-    plan += [("long", "f32", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT)
+    plan += [("short-spec", d, sp, SP_SEQ, short, "f32", 64, False, 2300, SPEC_K)
+             for d in ("f32", "bf16") for sp in (2, 1)]
+    plan += [("q80", "f32", sp, SP_SEQ, short, "q80", 0, True, 2300, 0) for sp in (2, 1)]
+    plan += [("long", "f32", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT, 0)
              for sp in (2, 1)]
-    plan += [("long", "bf16", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT)
+    plan += [("long", "bf16", sp, SP_LONG_SEQ, long_text, "f32", 64, True, SP_LONG_PROMPT, 0)
              for sp in (2, 1)]
     runs = {}
-    for cell, dtype, sp, seq_len, text, sync, steps, ppl, least in plan:
+    for cell, dtype, sp, seq_len, text, sync, steps, ppl, least, spec in plan:
         t0 = time.perf_counter()
         rec = sp_run(model, tok, via, dtype=dtype, sp=sp, seq_len=seq_len, text=text,
-                     sync=sync, steps=steps, ppl=ppl)
+                     sync=sync, steps=steps, ppl=ppl, spec=spec)
         print(f"⏱️ sp {cell} {dtype} sp={sp} took {time.perf_counter() - t0:.1f} s", flush=True)
         runs[(cell, dtype, sp)] = rec
         n_prompt = rec.get("prompt_tokens", rec.get("perplexity_tokens"))
@@ -1860,9 +2570,36 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
             check_path(f"sp {cell} {dtype} sp={sp} prefill", mode, n_splits, path)
         if steps and dtype == "bf16" and not rec["prefill_paths"].get("tc"):
             fail(f"sp {cell} bf16 sp={sp}: no prefill launch took tc: {rec['prefill_paths']}")
-        if sp > 1 and steps and rec["k3s_per_decode_step"] != n_layers * sp:
-            fail(f"sp {cell} {dtype}: {rec['k3s_per_decode_step']} K3s launches per "
-                 f"decode step, want {n_layers * sp}")
+        # a decode step and a verify step (merge decode at T = 1 or K + 1)
+        # launch K3s once a layer and shard
+        phase = "verify" if spec else "decode"
+        if sp > 1 and steps and rec[f"k3s_per_{phase}_step"] != n_layers * sp:
+            fail(f"sp {cell} {dtype}: {rec[f'k3s_per_{phase}_step']} K3s launches per "
+                 f"{phase} step, want {n_layers * sp}")
+        if spec and rec["verify_steps"] < 1:
+            fail(f"sp {cell} {dtype} sp={sp}: no verify step ran")
+    # speculative decoding at sp = 2 (eager, K3s merge decode at T = K + 1)
+    # against sp = 2 without spec and against spec at sp = 1 (the graph),
+    # under the near-tie rule
+    for dtype in ("f32", "bf16"):
+        got = runs[("short-spec", dtype, 2)]
+        parts = {}
+        probe = TieProbe(model, tok, dtype, SP_SEQ)
+        try:
+            for name, want in (("sp2_plain", runs[("short", dtype, 2)]),
+                               ("sp1_spec", runs[("short-spec", dtype, 1)])):
+                parts[name] = probe(got["prompt_ids"], got["tokens"], want["tokens"])
+        finally:
+            probe.close()
+        print(json.dumps(dict(case="sp_spec_summary", compute_dtype=dtype, k=SPEC_K,
+                              verify_steps={sp: runs[("short-spec", dtype, sp)]["verify_steps"]
+                                            for sp in (2, 1)},
+                              decode_tok_per_s={f"{c} sp={sp}": runs[(c, dtype, sp)].get(
+                                  "decode_tok_per_s") for c in ("short", "short-spec")
+                                  for sp in (2, 1)},
+                              parts=parts)), flush=True)
+        for name, diff in parts.items():
+            hold_transcripts(f"sp spec {dtype} against {name}", dtype, diff)
     for cell, tol in (("short", 1e-4), ("q80", Q80_SP_TOL), ("long", 1e-4)):
         p2, p1 = runs[(cell, "f32", 2)]["perplexity"], runs[(cell, "f32", 1)]["perplexity"]
         rel = abs(p2 / p1 - 1.0)
@@ -1895,12 +2632,14 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
     at the serving M=8, each on Q40 and on Q80 planes; K2 at M=2, 4 and 16
-    on wq alone), or the single-row decode at depth 2047 and at the
+    on wq alone; K2 at M = K + 1 and K1 at M = 8 (K + 1), the verify
+    steps' widths, on every shape), or the single-row decode at depth 2047,
+    a K + 1-row verify at depth 2043..2047, and at the
     long sp cell's depth / the cold 128-token prefill / a 256-token chunk at
     depth 19000 of the long cell's 32768-row cache / a 128-token chunk at
     depth 1024 / the cold 128-token prefill at head dim 64 (K3), or the
     single-row, 8-row ragged and 8-row full-depth decode at block size 16
-    (K4, whose
+    and the 8-row verify step at T = K + 1 (K4, whose
     yardstick ``gather_sdpa_ms`` is two library calls, so ``library_ms`` is
     null), or one decode over a whole 2048-row and a whole 16384-row shard /
     a 64-token chunk on its diagonal (K3s, whose SDPA yardstick returns no
@@ -1923,11 +2662,14 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     q80 = lambda c: c["codes"] == "q80"  # noqa: E731
     groups = {
         "K1": [(" M=128", lambda c: c["M"] == 128 and q40(c)),
-               (" M=128 Q80 planes", lambda c: c["M"] == 128 and q80(c))],
+               (" M=128 Q80 planes", lambda c: c["M"] == 128 and q80(c)),
+               (f" M={SLOTS * (SPEC_K + 1)} (paged verify, K={SPEC_K})",
+                lambda c: c["M"] == SLOTS * (SPEC_K + 1))],
         "K2": [(" M=1", lambda c: c["M"] == 1 and q40(c)),
                (" M=8 (serving)", lambda c: c["M"] == 8 and q40(c)),
                (" M=2 wq", lambda c: c["M"] == 2), (" M=4 wq", lambda c: c["M"] == 4),
                (" M=16 wq", lambda c: c["M"] == 16),
+               (f" M={SPEC_K + 1} (verify, K={SPEC_K})", lambda c: c["M"] == SPEC_K + 1),
                (" M=1 Q80 planes", lambda c: c["M"] == 1 and q80(c)),
                (" M=8 Q80 planes", lambda c: c["M"] == 8 and q80(c))],
         "K3": [(" decode T=1 @2047", lambda c: c["phase"] == "decode"
@@ -1941,7 +2683,9 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                (" prefill T=128 @0 head_dim 64", lambda c: c["phase"] == "prefill"
                 and c["head_dim"] == 64),
                (" prefill T=128 @1024", lambda c: c["phase"] == "prefill"
-                and c["start_pos"] == 1024 and c["T"] == 128)],
+                and c["start_pos"] == 1024 and c["T"] == 128),
+               (f" verify T={SPEC_K + 1} @{MAX_SEQ - 1 - SPEC_K}",
+                lambda c: c["phase"] == "verify")],
         "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
                 and c["block_size"] == BLOCK),
                (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
@@ -1949,7 +2693,9 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                (" decode B=8 @2047 bs=16", lambda c: c["B"] == 8
                 and c["block_size"] == BLOCK and c["positions"] == [MAX_SEQ - 1] * 8),
                (f" decode B={WIDE_B} ragged bs=16 (single pass)",
-                lambda c: c["B"] == WIDE_B)],
+                lambda c: c["B"] == WIDE_B),
+               (f" verify B=8 T={SPEC_K + 1} ragged, lens 0-{SPEC_K} bs=16",
+                lambda c: c["T"] == SPEC_K + 1)],
         "K3s": [(" decode T=1 over a whole 2048-row shard",
                  lambda c: c["phase"] == "decode whole block"),
                 (f" decode T=1 over a whole {LONG_SHARD}-row shard",
@@ -2129,6 +2875,12 @@ def main() -> int:
             e2e[dtype]["paged_step_profile"] = prof
             torch.cuda.empty_cache()
         print(f"⏱️ paged step profiles took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        spec_single(model, tok, args.layers, e2e)
+        print(f"⏱️ spec single took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        spec_serving(model, tok, args.layers, e2e)
+        print(f"⏱️ spec serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         sp_path(model, tok, args.layers, e2e)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)

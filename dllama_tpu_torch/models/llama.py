@@ -17,7 +17,8 @@ Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
 (``cfg.quant_impl``) and K3 through
 :func:`~dllama_tpu_torch.ops.flash_attention.flash_attention`
 (``cfg.attn_impl``). The paged family (:func:`paged_forward`,
-:func:`paged_sampled_step`) serves continuous batching over the block pool
+:func:`paged_sampled_step`, :func:`paged_verify_step`) serves continuous
+batching over the block pool
 and attends through K4
 (:func:`~dllama_tpu_torch.ops.paged_attention.paged_attention`, the same
 ``cfg.attn_impl`` gate). Under a mesh plan with ``sp > 1`` the dense path
@@ -203,6 +204,25 @@ def greedy_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return torch.argmax(logits[:, -1, :], dim=-1), kv
 
 
+def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                start_pos, kv, plan=None) -> tuple[torch.Tensor, torch.Tensor, object]:
+    """Speculative greedy verify: ONE forward over ``tokens [B, K+1]`` (the
+    real next input followed by K drafted tokens) at positions
+    ``start_pos..start_pos+K``. ``preds[:, t]`` is the greedy argmax after
+    consuming ``tokens[:, :t+1]`` and ``n_acc [B]`` the longest draft
+    prefix the model agrees with (``tokens[:, i+1] == preds[:, i]``); the
+    caller emits ``preds[:, :n_acc+1]``, what ``n_acc + 1`` sequential
+    :func:`greedy_step` calls would produce, for one pass over the weights.
+
+    Rows written for rejected drafts sit at positions past the committed
+    point, invisible to the causal mask, and the next dispatch's writes
+    start where they start. Returns ``(n_acc, preds, kv)`` (int64)."""
+    logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
+    preds = torch.argmax(logits, dim=-1)                 # [B, K+1]
+    ok = (tokens[:, 1:] == preds[:, :-1]).long()
+    return torch.cumprod(ok, dim=-1).sum(dim=-1), preds, kv
+
+
 def sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  start_pos, kv, temperature, topp, coin, plan=None
                  ) -> tuple[torch.Tensor, object]:
@@ -279,7 +299,8 @@ def prefill_nll(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       cos: torch.Tensor, sin: torch.Tensor,
-                      positions: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+                      positions: torch.Tensor, tables: torch.Tensor,
+                      write_lens: torch.Tensor | None = None) -> torch.Tensor:
     """One transformer block over the paged cache. ``k_pool/v_pool
     [n_blocks, n_kv, bs, hd]`` is this layer's slice of the pool, written in
     place; ``tables [B, M]`` (int64) maps each row's logical block to a
@@ -288,11 +309,22 @@ def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
     their ride-along writes land in block 0; the only duplicate targets are
     there, whose contents are never read unmasked, so ``index_put_``
     without ``accumulate`` is safe — then K4 (or its plain gather + oracle)
-    attends through the table."""
+    attends through the table. With ``write_lens [B]`` (the ragged verify
+    step) lane ``t`` of row ``b`` is a real input only while ``t <=
+    write_lens[b]``: the lanes past it carry padding, and their writes go
+    to the null block, since the host allocated blocks only up to ``pos +
+    write_lens``. ``positions`` may pass the context (see
+    :func:`paged_forward`): the rope rows and the block-table entry are
+    read at the clamped position (XLA clamps out-of-range gathers, torch
+    raises), the attention mask takes the position itself."""
     fq = _fq(cfg)
-    q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
+    inside = positions.clamp(max=cos.shape[0] - 1)
+    q, k, v = _attn_qkv(cfg, x, lp, cos, sin, inside, fq)
     bs = k_pool.shape[2]
-    blk = torch.gather(tables, 1, positions // bs)  # [B, T]
+    blk = torch.gather(tables, 1, (positions // bs).clamp_(max=tables.shape[1] - 1))  # [B, T]
+    if write_lens is not None:
+        lane = torch.arange(positions.shape[1], device=blk.device)[None, :]
+        blk = torch.where(lane <= write_lens[:, None], blk, torch.zeros_like(blk))
     off = positions % bs
     k_pool[blk, :, off] = k.to(k_pool.dtype)       # index_put_, [B, T, n_kv, hd]
     v_pool[blk, :, off] = v.to(v_pool.dtype)
@@ -304,24 +336,30 @@ def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
 
 
 def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  pos_vec: torch.Tensor, pkv, tables: torch.Tensor
+                  pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
+                  write_lens: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, object]:
     """Full forward over the paged pool: ``tokens [B, T]`` at per-row
     ``pos_vec [B]`` through block ``tables [B, max_blocks]``. Returns
     float32 logits ``[B, T, vocab]`` and the pool
     (:class:`~dllama_tpu_torch.runtime.kvblocks.PagedKVCache`), updated in
     place. An inactive row may carry its previous occupant's stale
-    position, up to ``seq_len``; its positions clamp into the rope table
-    and the block table (XLA clamps out-of-range gathers, torch raises),
-    which only moves that row's write inside the null block."""
+    position, up to ``seq_len``, and a verify row's padded lanes may reach
+    past the context: their writes land in the null block and their outputs
+    are never read, and :func:`_paged_layer_step` clamps the gathers they
+    make as the JAX package's XLA gathers do. ``write_lens [B]``: see
+    :func:`_paged_layer_step`."""
     B, T = tokens.shape
     x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
     cos, sin = params.rope
     positions = (pos_vec.to(x.device).long()[:, None]
-                 + torch.arange(T, device=x.device)[None, :]).clamp_(max=cfg.seq_len - 1)
+                 + torch.arange(T, device=x.device)[None, :])
     tables = tables.to(x.device).long()
+    if write_lens is not None:
+        write_lens = write_lens.to(x.device).long()
     for l, lp in enumerate(params.layers):
-        x = _paged_layer_step(cfg, x, lp, pkv.k[l], pkv.v[l], cos, sin, positions, tables)
+        x = _paged_layer_step(cfg, x, lp, pkv.k[l], pkv.v[l], cos, sin, positions, tables,
+                              write_lens)
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if cfg.sync_q80:
         x = fake_quant_q80(x)
@@ -349,6 +387,34 @@ def paged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables)
     last = logits[:, -1, :]
     return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
+
+
+def paged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
+                      lens: torch.Tensor, temps, topps, acoins, fcoins
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The paged speculative verify step of continuous batching: one
+    :func:`paged_forward` over ``tokens [B, K+1]`` (each row: its committed
+    next token and its proposer's drafts, padded past the row's ``lens
+    [B]`` draft length) with writes past ``lens`` sent to the null block,
+    then :func:`~dllama_tpu_torch.runtime.speculative.spec_decide` (greedy
+    rows: the longest draft prefix the argmax agrees with; sampled rows:
+    exact-match verify with one coin per position, ``acoins [B, K]`` and
+    ``fcoins [B]``). Returns ``(n_acc [B], out [B, K+1], nonfinite [B])``,
+    the last the non-finite lanes of each row's K+1 logits rows (every one
+    can become an emitted token); the caller emits ``out[b, : n_acc[b] +
+    1]``. The pool is updated in place.
+
+    Every write lands at or past the row's committed ``pos`` in blocks the
+    slot owns alone (the generator asserts it), so rejected lanes need no
+    device rollback: the host's table and position bookkeeping rolls them
+    back, and the next dispatch's writes start where they start."""
+    from ..runtime.speculative import spec_decide
+
+    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables, write_lens=lens)
+    n_acc, out = spec_decide(logits, tokens.to(logits.device).long(), lens, temps, topps,
+                             acoins, fcoins)
+    return n_acc, out, _nonfinite_rows(logits)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,17 @@ merge decode crosses shards and stays eager,
 :func:`~dllama_tpu_torch.models.llama.greedy_steps` /
 :func:`~dllama_tpu_torch.models.llama.sampled_steps`.
 
+``spec_lookup=K`` (``--spec-lookup``) is prompt-lookup speculative decoding
+at temperature 0: each dispatch verifies K drafts from the token history
+(:class:`~dllama_tpu_torch.runtime.speculative.NgramProposer`) in one
+forward over K+1 positions (:func:`~dllama_tpu_torch.models.llama.verify_step`)
+and keeps the run the model agrees with — a replay of
+:class:`~dllama_tpu_torch.runtime.graphs.VerifyGraph` at sp == 1, the eager
+step through the ring / merge path at sp > 1. Rows written for rejected
+drafts stay where they are: past the committed position they are
+invisible to the causal mask and the next dispatch rewrites them. At
+temperature > 0 the flag is ignored, as in the JAX engine.
+
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
 mask (``s <= pos``), and every slot is rewritten by its real token before it
@@ -41,13 +52,15 @@ import torch
 from ..formats.mfile import ModelFile
 from ..formats.quants import F32
 from ..models.config import ModelConfig
-from ..models.llama import Params, forward, greedy_steps, prefill_nll, sampled_steps
+from ..models.llama import (Params, forward, greedy_steps, prefill_nll, sampled_steps,
+                            verify_step)
 from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
-from .graphs import DecodeGraph
+from .graphs import DecodeGraph, VerifyGraph
 from .kvblocks import validate_block_size
 from .kvcache import KVCache, ShardedKVCache, padded_cache_len
+from .speculative import NgramProposer
 from .weights import load_params
 
 DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
@@ -56,6 +69,10 @@ DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
 # bucket it fills, and the tail pads into the smallest (the JAX engine's
 # buckets; an explicit n_batches pins one fixed chunk size)
 PREFILL_BUCKETS = (256, 128, 64, 32)
+
+# widest dispatch of the decode regime (the JAX package's _OVERLAP_MAX_WIDTH
+# and quant_matmul's FUSED_MAX_M): the paged verify width K+1 stays within it
+DECODE_MAX_WIDTH = 16
 
 
 def resolve_device(device) -> torch.device:
@@ -144,15 +161,25 @@ class InferenceEngine:
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
                  attn_impl: str = "auto", quant_impl: str = "auto",
                  kv_block_size: int = 0, sp: int = 1, sp_devices=None,
-                 decode_chunk: int = 1):
+                 decode_chunk: int = 1, spec_lookup: int = 0):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
         # multi-step decode: K tokens per dispatch (--decode-chunk)
         self.decode_chunk = max(1, int(decode_chunk))
+        # prompt-lookup speculative decode (--spec-lookup, greedy only): K
+        # drafted tokens verified per dispatch
+        self.spec_lookup = max(0, int(spec_lookup))
+        if self.spec_lookup and self.decode_chunk > 1:
+            raise ValueError("--spec-lookup and --decode-chunk are exclusive "
+                             "(both multiply tokens per dispatch)")
         # paged KV serving (--kv-block-size, runtime/kvblocks.py): the
         # combinations the JAX engine refuses are refused before the load
         self.kv_block_size = max(0, int(kv_block_size or 0))
-        unsupported = [("--decode-chunk > 1", self.decode_chunk > 1),
+        unsupported = [(f"--spec-lookup > {DECODE_MAX_WIDTH - 1} (verify width K+1 "
+                        f"must stay within the decode regime's "
+                        f"{DECODE_MAX_WIDTH}-wide dispatches)",
+                        self.spec_lookup + 1 > DECODE_MAX_WIDTH),
+                       ("--decode-chunk > 1", self.decode_chunk > 1),
                        ("--sp > 1", sp > 1),
                        ("attn_impl='flash' (forced)", attn_impl == "flash")]
         bad = [name for name, hit in unsupported if hit]
@@ -202,8 +229,10 @@ class InferenceEngine:
             self.model_file.close()
             raise
         self.pos = 0
-        # the captured decode steps, keyed by "sampled" (sp == 1 only)
+        # the captured decode steps, keyed by "sampled", and the captured
+        # verify step (sp == 1 only)
         self._graphs: dict[bool, DecodeGraph] = {}
+        self._verify_graph: VerifyGraph | None = None
 
     def reset(self) -> None:
         self.kv.zero_()
@@ -215,6 +244,7 @@ class InferenceEngine:
         """Release the device buffers and the model file (the graphs first:
         they hold the parameters' and the cache's addresses)."""
         self._graphs.clear()
+        self._verify_graph = None
         self.params = None  # type: ignore[assignment]
         self.kv = None  # type: ignore[assignment]
         self.model_file.close()
@@ -341,6 +371,45 @@ class InferenceEngine:
                                           k, self.plan)
         return toks[0].tolist()
 
+    @property
+    def spec_active(self) -> bool:
+        """Whether generation uses speculative verify dispatches (the one
+        eligibility rule: ``spec_lookup`` set and greedy sampling)."""
+        return bool(self.spec_lookup) and self.sampler.temperature == 0.0
+
+    def speculative_tokens(self, token: int, drafts: list[int]) -> list[int]:
+        """One speculative verify dispatch (greedy only): returns the
+        accepted run of 1..K+1 tokens, what that many single greedy steps
+        would emit. Uncommitted like :meth:`decode_chunk_tokens`: the caller
+        truncates at EOS and calls :meth:`commit_chunk` with the kept
+        count. Rejected-draft KV rows sit past the committed point:
+        causal-masked, then overwritten by the next dispatch's K+1 writes,
+        which start where they begin."""
+        assert self.sampler.temperature == 0.0
+        toks = [int(token), *map(int, drafts)]
+        assert self.pos + len(toks) <= self.cfg.seq_len
+        n_acc, preds = self._run_verify(toks, self.pos)
+        return preds[: n_acc + 1]
+
+    def verify_step_graph(self) -> VerifyGraph:
+        """The captured verify step of ``spec_lookup + 1`` tokens (sp == 1),
+        built at its first use: on the card the capture warms up at the
+        current position."""
+        if self._verify_graph is None:
+            self._verify_graph = VerifyGraph(self.params, self.cfg, self.kv, self.device,
+                                             width=self.spec_lookup + 1, pos=self.pos)
+        return self._verify_graph
+
+    def _run_verify(self, tokens: list[int], start_pos: int) -> tuple[int, list[int]]:
+        """Dispatch one verify step: a replay of the captured step at
+        sp == 1, the eager step (ring / merge attention) at sp > 1.
+        Returns ``(n_acc, preds)``."""
+        if self.plan is None:
+            return self.verify_step_graph().run(tokens, start_pos)
+        n_acc, preds, self.kv = verify_step(self.params, self.cfg, self._tokens(tokens),
+                                            start_pos, self.kv, self.plan)
+        return int(n_acc[0]), preds[0].tolist()
+
     def commit_chunk(self, n_keep: int) -> None:
         """Advance position and sampler RNG by the kept prefix of a chunk."""
         self.pos += n_keep
@@ -386,27 +455,40 @@ class InferenceEngine:
             return (stop_on_eos and self.tokenizer is not None
                     and self.tokenizer.is_eos(tok))
 
+        proposer = None
+        if self.spec_active:
+            proposer = NgramProposer(self.spec_lookup)
+            proposer.extend(ids)
+
         stop = False
         while len(out_tokens) < limit and not stop:
-            # full-size chunks only (the JAX engine's rule: there a smaller
-            # chunk is a fresh compile); tails run chunks of one
-            k = self.decode_chunk
-            if limit - len(out_tokens) < k or self.cfg.seq_len - self.pos < k:
-                k = 1
             t0 = time.perf_counter()
-            chunk = self.decode_chunk_tokens(token, k)
-            n_keep = len(chunk)
+            if proposer is not None and self.cfg.seq_len - self.pos >= self.spec_lookup + 1:
+                run = self.speculative_tokens(token, proposer.draft())
+                width = self.spec_lookup + 1
+            else:
+                # full-size chunks only (the JAX engine's rule: there a
+                # smaller chunk is a fresh compile); tails run chunks of one
+                k = self.decode_chunk
+                if limit - len(out_tokens) < k or self.cfg.seq_len - self.pos < k:
+                    k = 1
+                run = self.decode_chunk_tokens(token, k)
+                width = len(run)
+            run = run[: limit - len(out_tokens)]
+            n_keep = len(run)
             if stop_on_eos and self.tokenizer is not None:
-                for j, tok in enumerate(chunk):
+                for j, tok in enumerate(run):
                     if self.tokenizer.is_eos(tok):
                         n_keep = j + 1
                         break
             self.commit_chunk(n_keep)
             steps.append(StepMetrics("pred", (time.perf_counter() - t0) * 1000.0, n_keep,
-                                     width=len(chunk)))
-            for tok in chunk[:n_keep]:
+                                     width=width))
+            for tok in run[:n_keep]:
                 stop = emit(tok)
-            token = chunk[n_keep - 1]
+            if proposer is not None:
+                proposer.extend(run[:n_keep])
+            token = run[n_keep - 1]
         return GenerationResult(tokens=out_tokens, text="".join(pieces),
                                 prompt_tokens=len(ids), steps=steps)
 

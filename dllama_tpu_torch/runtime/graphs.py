@@ -32,7 +32,12 @@ counters count what the card ran.
 :class:`DecodeGraph` is the single-sequence step of the engine (greedy or
 sampled): the graph writes its picked token into its own input and
 advances its device position, so a chunk of ``k`` tokens is ``k`` replays
-and one readback (``--decode-chunk K``).
+and one readback (``--decode-chunk K``). :class:`VerifyGraph` is the
+engine's speculative verify step (``--spec-lookup K``, greedy): K+1 tokens
+in, ``(n_acc, preds)`` out in one readback. The paged verify step of
+continuous batching is a :class:`StepGraph` of
+``runtime/serving.py::PagedGenerator``, captured once per pool geometry
+(slots, K+1, table width), as the JAX package jits it once per geometry.
 """
 
 from __future__ import annotations
@@ -203,3 +208,41 @@ class DecodeGraph:
         """The last launch's tokens: the one readback of a chunk."""
         lo, hi = self._span
         return self.out[lo:hi].tolist()
+
+
+class VerifyGraph:
+    """The engine's single-sequence speculative verify step
+    (``models.llama.verify_step`` over the dense cache ``kv``) on static
+    buffers: the tokens ``[1, K+1]`` (the committed token and K drafts) and
+    the start position ``[1]`` int32. A replay writes ``[n_acc, preds...]``
+    (``K + 2`` int64) to ``out``, read back in one transfer. The warm-up
+    writes cache rows ``pos .. pos + K`` at the position of the capture,
+    which the first verify there writes again before they become
+    visible."""
+
+    def __init__(self, params, cfg, kv, device, *, width: int, pos: int):
+        from ..models.llama import verify_step
+
+        dev = torch.device(device)
+        # the body closes over tensors only (see DecodeGraph)
+        first = int(pos)
+        tok = self.tok = torch.zeros((1, width), dtype=torch.long, device=dev)
+        pos = self.pos = torch.full((1,), first, dtype=torch.int32, device=dev)
+        out = self.out = torch.zeros(width + 1, dtype=torch.long, device=dev)
+        self._tok_host = staging(tok)
+
+        def body() -> None:
+            n_acc, preds, _ = verify_step(params, cfg, tok, pos, kv)
+            out[:1].copy_(n_acc)
+            out[1:].copy_(preds[0])
+
+        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
+
+    def run(self, tokens, start_pos: int) -> tuple[int, list[int]]:
+        """One verify of ``tokens`` (``K + 1`` ids) at ``start_pos``:
+        ``(n_acc, preds)``."""
+        load(self.tok, self._tok_host, np.asarray(tokens, dtype=np.int64).reshape(1, -1))
+        self.pos.fill_(int(start_pos))
+        self.step.replay()
+        got = self.out.tolist()
+        return got[0], got[1:]

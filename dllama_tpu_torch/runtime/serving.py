@@ -7,7 +7,12 @@ package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
   per tick for all of them (``models.llama.paged_sampled_step``: K2 at
   ``M = n_slots``, K4 over the pool, per-row on-device sampling), replayed
   from a CUDA graph on the card (:mod:`~dllama_tpu_torch.runtime.graphs`;
-  its inputs are two copies of fixed shape into static buffers). Admission
+  its inputs are two copies of fixed shape into static buffers). Under
+  ``--spec-lookup K`` the tick's dispatch is the ragged paged verify step
+  instead (``models.llama.paged_verify_step``: K1 at ``M = n_slots *
+  (K + 1)``, K4 at ``T = K + 1``), also a replayed graph: every slot
+  drafts from its own n-gram table, greedy rows keep the run their argmax
+  agrees with and sampled rows the exact-match run. Admission
   is priced in blocks; a prompt's full blocks are shared with earlier
   prompts and the partial tail is copied on write; prefill runs the
   engine's own dense ``forward`` (K1 + K3) over the sequence's gathered
@@ -25,10 +30,11 @@ own coin stream, so a request's output does not depend on what shares the
 batch with it — the transcripts equal the single-sequence engine's
 (``tests/test_torch_serving.py``).
 
-Left out (later slices): the dense slot-pool ``BatchedGenerator``,
-telemetry and the flight recorder, tenancy and fair queueing, speculative
-and fused multi-step decode, the host KV tier and KV migration, eval
-scoring, the HBM degrade, the step watchdog and failpoints.
+Left out (later slices): the dense slot-pool ``BatchedGenerator`` (and
+its ragged verify step), telemetry and the flight recorder, tenancy and
+fair queueing, fused multi-step decode, the host KV tier and KV
+migration, eval scoring, the HBM degrade, the step watchdog and
+failpoints (the ``draft`` one included).
 """
 
 from __future__ import annotations
@@ -42,12 +48,13 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
-from ..models.llama import forward, paged_sampled_step
+from ..models.llama import forward, paged_sampled_step, paged_verify_step
 from ..tokenizer.sampler import xorshift_random_f32
 from .graphs import StepGraph, load, staging
 from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
                        block_pool_bytes, blocks_per_seq)
 from .kvcache import KVCache
+from .speculative import NgramProposer, spec_coins_consumed
 
 if TYPE_CHECKING:
     from .engine import InferenceEngine
@@ -106,6 +113,10 @@ class Request:
     # token = their difference)
     t_submit: int = 0
     t_first_token: int = 0
+    # speculative serving: drafted tokens offered to verify steps, and the
+    # drafts accepted
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     def __post_init__(self):
         self.rng_state = self.seed & _MASK64
@@ -176,6 +187,11 @@ class PagedGenerator:
         # JAX package's dllama_prefix_reuse_tokens_total)
         self.reused_tokens = 0
         self._graph: StepGraph | None = None  # the paged step, built at first use
+        # speculative serving (--spec-lookup K): K drafts per slot per verify
+        # step, each slot's drafts from its own n-gram table
+        self.spec = engine.spec_lookup
+        self._proposers: list[NgramProposer | None] = [None] * n_slots
+        self._verify: StepGraph | None = None  # the paged verify step, built at first use
 
     def step_graph(self) -> StepGraph:
         """The paged step on static buffers (``[n_slots, 2 + table_width]``
@@ -205,10 +221,48 @@ class PagedGenerator:
             self._graph = StepGraph(body, dev)
         return self._graph
 
+    def verify_graph(self) -> StepGraph:
+        """The paged verify step on static buffers, captured once for this
+        pool geometry (``n_slots``, ``K + 1``, table width) at the first
+        call, on the calling thread: ``[n_slots, K + 3 + table_width]``
+        int64 (the K+1 tokens, position, draft length, block table),
+        ``[K + 3, n_slots]`` f32 (temperature, top-p, the K draft coins,
+        the bonus coin); out ``[K + 3, n_slots]`` int64 (accepted drafts,
+        non-finite lanes, the K+1 emitted candidates). The warm-up runs
+        with every input 0: all-null tables, so its writes land in the
+        null block."""
+        if self._verify is None:
+            dev, W = self.eng.device, self.spec + 1
+            inp = self._vin = torch.zeros((self.n_slots, W + 2 + self.table_width),
+                                          dtype=torch.long, device=dev)
+            knobs = self._vknobs = torch.zeros((W + 2, self.n_slots), dtype=torch.float32,
+                                               device=dev)
+            out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
+                                           device=dev)
+            self._vin_host, self._vknobs_host = staging(inp), staging(knobs)
+            params, cfg, pkv = self.eng.params, self.cfg, self.pkv  # tensors, not self
+
+            def body() -> None:
+                n_acc, toks, nf = paged_verify_step(
+                    params, cfg, inp[:, :W], inp[:, W], pkv, inp[:, W + 2:], inp[:, W + 1],
+                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1])
+                out[0].copy_(n_acc)
+                out[1].copy_(nf)
+                out[2:].copy_(toks.t())
+
+            self._verify = StepGraph(body, dev)
+        return self._verify
+
+    def capture(self) -> StepGraph:
+        """The step this generator dispatches every tick (the verify step
+        under ``spec``), captured now."""
+        return self.verify_graph() if self.spec else self.step_graph()
+
     def close(self) -> None:
-        """Drop the captured step (it holds the pool's and the parameters'
-        addresses) before the engine releases them."""
+        """Drop the captured steps (they hold the pool's and the
+        parameters' addresses) before the engine releases them."""
         self._graph = None
+        self._verify = None
 
     # -- slot lifecycle -----------------------------------------------------
 
@@ -221,8 +275,13 @@ class PagedGenerator:
 
     def _worst_case_blocks(self, prompt_len: int, max_tokens: int) -> int:
         """Admission price in blocks: every position the request could ever
-        write (prompt prefill + decode growth, capped at seq_len)."""
-        rows = min(prompt_len - 1 + max_tokens, self.cfg.seq_len)
+        write (prompt prefill + decode growth, capped at seq_len). Under
+        speculative serving a verify step writes up to ``pos + lens``
+        (``lens <= spec``), so the frontier can run ``spec`` rows past the
+        committed need: the ``+ spec`` keeps organic mid-verify exhaustion
+        impossible (``lens`` is clamped to ``seq_len - 1 - pos``, so the cap
+        holds)."""
+        rows = min(prompt_len - 1 + max_tokens + self.spec, self.cfg.seq_len)
         return max(1, -(-rows // self.block_size))
 
     def can_admit(self, req: Request) -> bool:
@@ -318,6 +377,8 @@ class PagedGenerator:
         if req.t_first_token == 0:
             req.t_first_token = time.monotonic_ns()
         req.tokens.extend(run)
+        if self._proposers[i] is not None:
+            self._proposers[i].extend(run)
         for t in run:
             piece = req.decoder.decode(t) if req.decoder is not None else None
             if req.on_token is not None:
@@ -452,6 +513,10 @@ class PagedGenerator:
         self.pool.register_prompt(bids, rest)
         self.tables[slot, :len(bids)] = bids
         adm.pos = len(rest)
+        if self.spec:
+            # every slot drafts: sampled rows verify by exact match
+            self._proposers[slot] = NgramProposer(self.spec)
+            self._proposers[slot].extend(adm.req.prompt_ids)
         self._arm_decode(adm)
         return True
 
@@ -472,6 +537,7 @@ class PagedGenerator:
         AND the prefix index) reset — nothing can match blocks a
         half-finished dispatch may have corrupted."""
         self.slots = [None] * self.n_slots
+        self._proposers = [None] * self.n_slots
         self._seq_bids = [[] for _ in range(self.n_slots)]
         self._n_shared = [0] * self.n_slots
         self._reserve = [0] * self.n_slots
@@ -482,23 +548,27 @@ class PagedGenerator:
 
     # -- decode -------------------------------------------------------------
 
-    def _ensure_blocks(self, i: int) -> None:
-        """Lazy growth: slot ``i`` gets a physical block for its write
-        position before the dispatch."""
-        idx = int(self.pos[i]) // self.block_size
-        if self.tables[i, idx] == self.pool.NULL:
-            bid = self.pool.alloc()
-            self._seq_bids[i].append(bid)
-            self._reserve[i] = max(0, self._reserve[i] - 1)
-            self.tables[i, idx] = bid
+    def _ensure_blocks(self, i: int, last_pos: int) -> None:
+        """Lazy growth: slot ``i`` gets physical blocks for every write
+        position up to ``last_pos`` (inclusive) before the dispatch: the
+        block at ``pos`` for a decode step, those covering ``pos .. pos +
+        lens`` for a verify step."""
+        for idx in range(int(self.pos[i]) // self.block_size,
+                         last_pos // self.block_size + 1):
+            if self.tables[i, idx] == self.pool.NULL:
+                bid = self.pool.alloc()
+                self._seq_bids[i].append(bid)
+                self._reserve[i] = max(0, self._reserve[i] - 1)
+                self.tables[i, idx] = bid
 
-    def _grow_or_fail(self, active: list[int]) -> None:
-        """Lazy growth for one dispatch; a slot whose growth finds no block
+    def _grow_or_fail(self, active: list[int], grow) -> None:
+        """Lazy growth for one dispatch over each active slot's write range
+        ``pos .. pos + grow[i]``; a slot whose growth finds no block
         (admission reservations make the organic case impossible) fails
         THAT request (503-shaped) and the rest of the batch keeps going."""
         for i in list(active):
             try:
-                self._ensure_blocks(i)
+                self._ensure_blocks(i, int(self.pos[i]) + int(grow[i]))
             except BlockPoolExhausted as e:
                 req = self.slots[i]
                 req.error = str(e)
@@ -506,12 +576,14 @@ class PagedGenerator:
                 self._retire(i)
                 active.remove(i)
 
-    def _assert_writable(self, active: list[int]) -> None:
+    def _assert_writable(self, active: list[int], grow) -> None:
         if __debug__:
-            # copy-on-write safety: a write target is never a shared block
+            # copy-on-write safety: a write target is never a shared block,
+            # over the whole verify width under speculation
             for i in active:
-                bid = int(self.tables[i, int(self.pos[i]) // self.block_size])
-                assert self.pool.refcount(bid) == 1, (i, int(self.pos[i]), bid)
+                for p in range(int(self.pos[i]), int(self.pos[i]) + int(grow[i]) + 1):
+                    bid = int(self.tables[i, p // self.block_size])
+                    assert self.pool.refcount(bid) == 1, (i, p, bid)
 
     def step(self) -> int:
         """One paged ragged decode step for every active slot: one replay
@@ -519,14 +591,18 @@ class PagedGenerator:
         tables (their writes land in the null block). One host→device copy
         carries the next tokens, positions and tables, one the sampling
         knobs, and one device→host copy brings the tokens back. Returns the
-        tokens emitted."""
+        tokens emitted. Under ``spec`` the dispatch is the verify step
+        (:meth:`_spec_step`)."""
         active = self._sweep_cancelled()
         if not active:
             return 0
-        self._grow_or_fail(active)
+        if self.spec:
+            return self._spec_step(active)
+        zeros = [0] * self.n_slots
+        self._grow_or_fail(active, zeros)
         if not active:
             return 0
-        self._assert_writable(active)
+        self._assert_writable(active, zeros)
         knobs = self._sampling_rows(active)
         graph = self.step_graph()
         load(self._in, self._in_host, np.concatenate(
@@ -539,6 +615,64 @@ class PagedGenerator:
         for i in active:
             if i not in poisoned:
                 emitted += self._emit_run(i, [int(out[0, i])])
+        return emitted
+
+    def _spec_step(self, active: list[int]) -> int:
+        """One ragged paged verify step for every active slot: one replay
+        of :meth:`verify_graph`.
+
+        Each row's draft length ``lens[i]`` is its proposer's K drafts
+        clamped to the context tail (``seq_len - 1 - pos``) and to the
+        request's remaining budget, so near-cap and near-done slots keep
+        decoding at width 1 instead of retiring early. Sampled rows draw
+        their coins in POSITION order (the K draft-position coins, then the
+        bonus coin) from a copy of their RNG state and commit one coin per
+        emitted token (:func:`~dllama_tpu_torch.runtime.speculative.spec_coins_consumed`),
+        so coin ``i`` of a request's stream always belongs to its emitted
+        token ``i`` and no request's stream depends on its batch-mates.
+        Returns the tokens emitted."""
+        spec, B = self.spec, self.n_slots
+        toks = np.zeros((B, spec + 1), dtype=np.int64)
+        lens = np.zeros(B, dtype=np.int64)
+        knobs = np.zeros((spec + 3, B), dtype=np.float32)  # temp, top-p, coins
+        for i in active:
+            req = self.slots[i]
+            toks[i, 0] = self.next_token[i]
+            knobs[0, i], knobs[1, i] = req.temperature, req.topp
+            cap = min(spec, self.cfg.seq_len - 1 - int(self.pos[i]),
+                      max(0, req.max_tokens - len(req.tokens) - 1))
+            if cap > 0:
+                toks[i, 1:cap + 1] = self._proposers[i].draft()[:cap]
+            lens[i] = cap
+            if req.temperature > 0.0:
+                st = req.rng_state
+                for j in range(spec + 1):
+                    knobs[2 + j, i], st = xorshift_random_f32(st)
+        self._grow_or_fail(active, lens)
+        if not active:
+            return 0
+        self._assert_writable(active, lens)
+        graph = self.verify_graph()
+        load(self._vin, self._vin_host, np.concatenate(
+            [toks, self.pos[:, None], lens[:, None], self.tables], axis=1))
+        load(self._vknobs, self._vknobs_host, knobs)
+        graph.replay()
+        out = self._vout.cpu().numpy()
+        poisoned = self._handle_nonfinite(active, out[1])
+        emitted = 0
+        for i in active:
+            if i in poisoned:
+                continue
+            req = self.slots[i]
+            acc = int(out[0, i])
+            req.spec_drafted += int(lens[i])
+            req.spec_accepted += acc
+            if req.temperature > 0.0:
+                st = req.rng_state
+                for _ in range(spec_coins_consumed(acc)):
+                    _, st = xorshift_random_f32(st)
+                req.rng_state = st
+            emitted += self._emit_run(i, [int(t) for t in out[2:acc + 3, i]])
         return emitted
 
 
@@ -755,7 +889,7 @@ class BatchScheduler:
         try:
             # captured here, on the thread that replays it, while no other
             # thread of the process dispatches (the creator waits)
-            self.gen.step_graph()
+            self.gen.capture()
         except Exception as exc:  # noqa: BLE001 — re-raised by the creator
             failed.append(exc)
             return

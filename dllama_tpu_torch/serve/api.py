@@ -454,6 +454,9 @@ def build_api_server(args) -> tuple[ThreadingHTTPServer, BatchedApiState]:
     print(f"🕸️ paged KV: {pool.n_blocks - 1} blocks × {pool.block_size} rows, "
           f"{state.sched.gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
           f"block-level prefix sharing)")
+    if engine.spec_lookup:
+        print(f"🕸️ speculative serving: verify K={engine.spec_lookup} per slot "
+              f"(greedy and temperature > 0 rows, exact-match verify)")
     if args.request_timeout:
         print(f"🕸️ per-request deadline: {args.request_timeout:g}s "
               f"(request 'timeout' field overrides)")

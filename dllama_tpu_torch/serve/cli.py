@@ -5,7 +5,9 @@ JAX package's ``serve/cli.py`` ``make_engine``/``main``, these three modes;
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
 usable GPU fails with a clear error. On the card each decode step is one
 replay of a captured CUDA graph; ``--decode-chunk K`` decodes ``K`` tokens
-per dispatch with one readback. ``--sp N`` splits the KV cache along the
+per dispatch with one readback; ``--spec-lookup K`` verifies K drafts from
+the token history per dispatch (greedy ``inference``; every slot of
+``api``), a replayed graph too. ``--sp N`` splits the KV cache along the
 sequence over ``N`` visible CUDA devices (ring attention for prefill, a
 flash-decoding merge for decode; ``[cpu] * N`` under ``--device cpu``).
 Modes and flags of the JAX CLI that are not ported yet fail loudly instead of
@@ -56,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "back on device; output identical to K=1, EOS "
                         "overshoot discarded). Cuts per-token dispatch "
                         "overhead; streaming granularity becomes K tokens")
+    p.add_argument("--spec-lookup", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decode (greedy only): "
+                        "verify K history-drafted tokens per dispatch; "
+                        "output identical to plain greedy, accepted drafts "
+                        "multiply decode throughput (HBM cost of a verify "
+                        "is one decode step)")
     # api mode (batched paged serving)
     p.add_argument("--batch-slots", type=int, default=0,
                    help="api: concurrent sequences of continuous batching")
@@ -78,7 +86,8 @@ def make_engine(args) -> InferenceEngine:
         compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
         sync_type=Q80 if args.buffer_float_type == "q80" else F32,
         temperature=args.temperature, topp=args.topp, seed=seed,
-        kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk)
+        kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk,
+        spec_lookup=args.spec_lookup)
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
@@ -116,6 +125,10 @@ def run_inference(args) -> int:
         print(f"    nTokens: {n_pred}")
         print(f"   tokens/s: {result.pred_tok_per_s:.2f} "
               f"({result.pred_ms / max(1, n_pred):.2f} ms/tok)")
+        if engine.spec_active:
+            n_disp = sum(1 for s in result.steps if s.kind == "pred")
+            print(f"  spec rate: {n_pred / max(1, n_disp):.2f} tokens/dispatch "
+                  f"({n_disp} dispatches)")
     finally:
         engine.close()
     return 0
@@ -162,7 +175,7 @@ def main(argv=None, on_listening=None) -> int:
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
                          f"--buffer-float-type --compute-dtype --device --sp "
-                         f"--decode-chunk; api: "
+                         f"--decode-chunk --spec-lookup; api: "
                          f"--batch-slots --kv-block-size --max-queue --host --port "
                          f"--request-timeout)")
     try:

@@ -41,6 +41,7 @@ def _forbidden(name: str) -> bool:
 def test_fresh_import_of_every_module_loads_no_jax():
     mods = _modules()
     assert "dllama_tpu_torch.ops.quant_matmul" in mods and len(mods) > 20
+    assert "dllama_tpu_torch.runtime.speculative" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -87,7 +88,7 @@ def test_engine_keeps_the_jax_engine_surface():
         return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
 
     for name in ("generate", "prefill", "decode_step", "next_token", "perplexity",
-                 "score_nll", "reset", "close"):
+                 "score_nll", "reset", "close", "speculative_tokens", "commit_chunk"):
         assert params(getattr(InferenceEngine, name)) == params(getattr(JaxEngine, name)), name
     for name in ("encode", "decode", "reset_decoder", "is_eos", "decode_all"):
         assert params(getattr(Tokenizer, name)) == params(getattr(JaxTokenizer, name)), name

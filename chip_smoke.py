@@ -122,7 +122,23 @@ Phases, each failing loudly (non-zero exit, no result line):
    holds the kernels at the verify shapes: K2 at M = 5 and K1 at M = 40
    on every shape, K3 at T = 5 over depth 2047, K4 at 8 ragged rows,
    T = 5, draft lengths 0-4;
-9. the ``kernels`` JSON line, then the result line
+9. the dense slot pool, the single-sequence ``api`` and ``chat`` at full
+   width and 32 layers: ``api --batch-slots 8`` without ``--kv-block-size``
+   with the serving mix in f32 and bf16 (K1-K3 must launch, K4 never),
+   then one dense step of that geometry under ``torch.profiler``
+   (:func:`dense_step_profile`: device ms, K2's and K3's share, the replay
+   against the eager step); the dense pool's ``--decode-chunk 4`` and
+   ``--spec-lookup 4`` (n-gram and oracle drafts) in f32 on f32 buffers
+   against its K = 1 run, whose greedy transcripts are held to the paged
+   pool's (near-tie rule); ``api`` without ``--batch-slots``: a three-turn
+   conversation whose later turns hit the ``NaiveCache`` (fewer prefilled
+   tokens), each answer against a fresh engine over the same token history,
+   a ``stop`` body and an SSE body; ``python -m dllama_tpu_torch chat`` as
+   a subprocess with two lines on stdin. Phase 3 holds K3 at the dense
+   pool's shapes: 8 ragged rows at T = 1 and T = K + 1, single pass
+   (``tc`` over bf16). The long sp cell runs on an 8-layer copy of the
+   model (:data:`LONG_LAYERS`) to keep the run under 900 s;
+10. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -167,6 +183,8 @@ MAX_SEQ = 2048
 SP_LONG_SEQ = 32768   # the long sp cell's --max-seq-len: 2 shards of 16384 rows
 LONG_DEPTH = 20145    # its decode depth: the newest position after its prompt
 LONG_PREFILL_AT = 19000  # first position of one of its 256-token prefill chunks
+LONG_LAYERS = 8       # the long sp cell's depth: its 20146-token prefills at 32 layers
+                      # took 137 s of the run's 900 (width is never cut)
 SPEC_K = 4            # --spec-lookup K of the spec phases: verify steps K + 1 wide
 
 # kernel-vs-plain tolerances, relative to max|plain output|:
@@ -433,6 +451,83 @@ def attention_cases(timer: Timer, results: list) -> None:
     torch.cuda.empty_cache()
 
 
+# the dense slot pool's verify step at K = SPEC_K: 8 rows at ragged depths,
+# the deepest with room for its K + 1 rows
+DENSE_VERIFY_DEPTHS = [MAX_SEQ - 1 - SPEC_K, 1500, 1023, 700, 300, 129, 17, 0]
+
+
+def ragged_attention_cases(timer: Timer, results: list) -> None:
+    """K3 at the dense slot pool's shapes: 8 rows of a ``[8, n_kv, 2048,
+    hd]`` cache, each at its own start position (the ``pos[b]`` table), at
+    the ragged depths :data:`RAGGED` with T = 1 (the dense step) and
+    :data:`DENSE_VERIFY_DEPTHS` with T = K + 1 (the dense verify step),
+    exact and fast. 64 and 128 (b, head, query tile) blocks: both keep the
+    single pass, a bf16 cache on the tensor cores (4 and 20 folded rows of
+    its 64-row tile). Each held against the position-masked plain version at
+    the same ``[B, T]`` positions and, on the tensor cores, against its twin
+    ``flash_attention_tc_plain``; SDPA's time with the per-row mask beside
+    it."""
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops.attention import attention
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    S = MAX_SEQ
+    for mode in ("exact", "fast"):
+        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
+        k, v = (torch.randn((SLOTS, KV_HEADS, S, HEAD_DIM), generator=g,
+                            device=DEV).to(kv_dt) for _ in range(2))
+        for phase, T, depths in (("ragged decode", 1, RAGGED),
+                                 ("ragged verify", SPEC_K + 1, DENSE_VERIFY_DEPTHS)):
+            q = torch.randn((SLOTS, T, HEADS, HEAD_DIM), generator=g, device=DEV)
+            pos = torch.tensor(depths, device=DEV)
+            positions = pos[:, None] + torch.arange(T, device=DEV)[None, :]
+            got = fa.flash_attention(q, k, v, pos, HEAD_DIM)
+            n_splits = fa.flash_attention.last_splits
+            path = fa.flash_attention.last_path
+            want = attention(q, k, v, positions, HEAD_DIM)
+            twin = fa.flash_attention_tc_plain(q, k, v, pos, HEAD_DIM) if path == "tc" else None
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            err_twin = (got - twin).abs().max().item() if twin is not None else None
+            qs = q.transpose(1, 2).to(kv_dt)
+            mask = (torch.arange(S, device=DEV)[None, None, :]
+                    <= positions[:, :, None])[:, None]                 # [B, 1, T, S]
+            ms = timer(lambda: fa.flash_attention(q, k, v, pos, HEAD_DIM))
+            plain_ms = timer(lambda: attention(q, k, v, positions, HEAD_DIM))
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask, enable_gqa=True))
+            visible = sum(d + t + 1 for d in depths for t in range(T))  # keys per q head
+            keys = sum(d + T for d in depths)
+            n_bytes = (2 * SLOTS * T * HEADS * HEAD_DIM * 4
+                       + 2 * keys * KV_HEADS * HEAD_DIM * k.element_size())
+            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * visible,
+                               "bf16" if path == "tc" else "f32")
+            rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, B=SLOTS, T=T,
+                       start_pos=depths, S=S, head_dim=HEAD_DIM, n_splits=n_splits,
+                       path=path, max_abs_err=err, max_abs_ref=scale,
+                       max_abs_err_twin=err_twin, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+            what = f"K3 {mode} {phase} B={SLOTS} T={T}"
+            check_path(what, mode, n_splits, path)
+            if n_splits != 1:
+                fail(f"{what}: the launch took n_splits {n_splits}; a grid of "
+                     f"{SLOTS * KV_HEADS * -(-T * HEADS // KV_HEADS // fa.BQ)} blocks must "
+                     f"keep the single pass")
+            if path == "tc":
+                if not (err_twin <= TC_TWIN_TOL * scale and err <= TOL["fast"] * scale):
+                    fail(f"{what}: max|err| {err_twin:.3g} against the twin, {err:.3g} "
+                         f"against f32 (max|out| {scale:.3g})")
+            elif not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
+                fail(f"{what}: max|err| {err:.3g}")
+        del k, v
+    torch.cuda.empty_cache()
+
+
 def check_path(what: str, mode: str, n_splits: int, path: str) -> None:
     """A K3/K3s launch's kernel: a single pass over a bf16 cache runs on the
     tensor cores, an f32 cache or a split launch on the SIMT kernel."""
@@ -560,11 +655,12 @@ def paged_cases(timer: Timer, results: list) -> None:
 # ---------------------------------------------------------------------------
 
 
-def write_tokenizer(path: str) -> None:
+def write_tokenizer(path: str, extra_eos: tuple = ()) -> None:
     """128256 pieces (Llama 3's vocab size): the 256 bytes, printable filler
     pieces that never occur in the prompts (so every prompt byte is one
-    token), bos/eos at 128000/128001 and reserved specials after, and a
-    chat template string that the api detects as llama3."""
+    token), bos/eos at 128000/128001 (and ``extra_eos`` ids as further EOS
+    tokens) and reserved specials after, and a chat template string that
+    the api detects as llama3."""
     from dllama_tpu_torch.formats.tfile import TokenizerData, write_tfile
 
     n_regular = 128000
@@ -574,7 +670,7 @@ def write_tokenizer(path: str) -> None:
     vocab += [b"<|reserved_%d|>" % i for i in range(VOCAB - len(vocab))]
     write_tfile(path, TokenizerData(
         vocab=vocab, scores=[0.0] * len(vocab), bos_id=n_regular, add_bos=True,
-        eos_token_ids=[n_regular + 1], max_token_length=max(map(len, vocab)),
+        eos_token_ids=[n_regular + 1, *extra_eos], max_token_length=max(map(len, vocab)),
         chat_template="<|start_header_id|>"))
 
 
@@ -1222,12 +1318,13 @@ def post_chat(url: str, body: dict, first_chunk=None) -> dict:
 
 
 def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
-              case: str = "serving") -> dict:
+              case: str = "serving", paged: bool = True) -> dict:
     """One run of the port's api in process (``cli.main(["api", ...,
-    *extra])`` on a thread, port 0): the 16 concurrent clients of
-    :func:`serving_bodies`; returns the numbers of the run and the
-    scheduler's requests in submit order. Launch counts are set to 0 just
-    before the run and read just after it."""
+    *extra])`` on a thread, port 0) over the paged block pool
+    (``--kv-block-size``), or over the dense slot pool when not ``paged``:
+    the 16 concurrent clients of :func:`serving_bodies`; returns the numbers
+    of the run and the scheduler's requests in submit order. Launch counts
+    are set to 0 just before the run and read just after it."""
     import threading
 
     from dllama_tpu_torch.serve import cli
@@ -1266,14 +1363,27 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return n
 
-        sched.submit, gen.step = submit_recorded, step_timed
-        gen._exec_take = timed_sync(gen._exec_take, move_ms["take"])
-        gen._exec_put = timed_sync(gen._exec_put, move_ms["put"])
+        sched.submit = submit_recorded
+        if getattr(gen, "chunk", 1) == 1:
+            gen.step = step_timed
+        if paged:
+            gen._exec_take = timed_sync(gen._exec_take, move_ms["take"])
+            gen._exec_put = timed_sync(gen._exec_put, move_ms["put"])
+        elif gen.chunk > 1:  # --decode-chunk K: the scheduler calls step_chunk
+            step_chunk = gen.step_chunk
+
+            def chunk_timed(k):
+                t0 = time.perf_counter()
+                n = step_chunk(k)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return n
+
+            gen.step_chunk = chunk_timed
         listening.set()
 
     argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
             "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--temperature", "0",
-            "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+            "--batch-slots", str(SLOTS), *(["--kv-block-size", str(BLOCK)] if paged else []),
             "--host", "127.0.0.1", "--port", "0", *extra]
     # the wrappers installed below tie the previous run's generator (and
     # its pool) into reference cycles: free it before the peak is reset
@@ -1319,25 +1429,27 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     n_tokens = [len(r.tokens) for r in reqs]
     ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in reqs if r.t_first_token]
     lat = sorted(r["latency_ms"] for r in results if r and "latency_ms" in r)
-    pool = gen.pool
     bad = [(i, r) for i, r in enumerate(results)
            if r is None or r.get("status") != 200 or not r.get("text")]
     rec = dict(case=case, compute_dtype=dtype, layers=n_layers, slots=SLOTS,
-               block_size=BLOCK, flags=extra, requests=len(bodies), ok=len(bodies) - len(bad),
-               generated_tokens=sum(n_tokens), wall_s=wall_s,
+               pool="paged" if paged else "dense", flags=extra, requests=len(bodies),
+               ok=len(bodies) - len(bad), generated_tokens=sum(n_tokens), wall_s=wall_s,
                gen_tok_per_s=sum(n_tokens) / wall_s,
                latency_ms_p50=statistics.median(lat) if lat else None,
                latency_ms_p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))] if lat else None,
                ttft_ms_p50=statistics.median(ttft) if ttft else None,
                step_ms_median=statistics.median(step_ms) if step_ms else None,
                steps=len(step_ms), reused_tokens=gen.reused_tokens,
-               pool_blocks=pool.n_blocks, pool_gb=gen.pool_bytes / 1e9,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
-               put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
-               takes=len(move_ms["take"]),
-               column_gb=gen.pool_bytes / pool.n_blocks * gen.table_width / 1e9,
+               pool_gb=gen.pool_bytes / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                capture=box["capture"], launches={"api": launches})
+    if paged:
+        pool = gen.pool
+        rec.update(
+            block_size=BLOCK, pool_blocks=pool.n_blocks,
+            take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
+            put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
+            takes=len(move_ms["take"]),
+            column_gb=gen.pool_bytes / pool.n_blocks * gen.table_width / 1e9)
     if bad:
         print(json.dumps(rec), flush=True)
         fail(f"{case} {dtype}: {len(bad)} request(s) failed: {bad[:3]}")
@@ -1892,6 +2004,8 @@ def spec_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
         want = {}
         for r in base_reqs:
             want.setdefault((tuple(r.prompt_ids), r.temperature, r.seed), r.tokens)
+        # the dense pool's phase holds its own transcripts to these
+        summary.setdefault(dtype, {})["paged_f32_buffers_transcripts"] = want
         spec, reqs = serve_run(model, tok, n_layers, dtype, f32_buf + spec_flag,
                                case="spec_serving")
         with oracle_drafts({p: t for (p, _, _), t in want.items()}):
@@ -1999,6 +2113,426 @@ def spec_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
                  f"{paged['graph']['launches_per_step']}, eager {eager}, recorded "
                  f"{paged['capture']['launches_per_replay']}")
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the dense slot pool, the single-sequence api and chat
+# ---------------------------------------------------------------------------
+
+
+def dense_step_profile(model: str, tok: str, dtype: str) -> dict:
+    """One 8-row step of the dense slot pool at the serving geometry (8
+    slots at the ragged depths :data:`RAGGED` of their 2048-row columns,
+    random cache contents), as the serving scheduler runs it: a replay of
+    ``BatchedGenerator``'s captured step (``ragged_sampled_step``: K2 at
+    M = 8, K3's single pass over 8 rows with a start position each, and in
+    exact mode the quantized head on K2), on the full model, under
+    ``torch.profiler``: 8 replays after 2 warm-up replays. Device ms, busy
+    share, K2's and K3's device ms and kernels per step, the launches the
+    capture recorded per replay against the eager step's; then one replay
+    against the eager ``ragged_sampled_step`` called by name on a copy of
+    the pool from the same inputs: tokens and cache bytes equal."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.models.llama import ragged_sampled_step
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.graphs import load
+    from dllama_tpu_torch.runtime.kvcache import KVCache
+    from dllama_tpu_torch.runtime.serving import BatchedGenerator
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                          temperature=0.0)
+    try:
+        gen = BatchedGenerator(eng, SLOTS)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+        for t in (gen.kv.k, gen.kv.v):
+            for l in range(t.shape[0]):
+                t[l].copy_(torch.randn(t.shape[1:], generator=g, device=DEV))
+        graph = gen.step_graph()
+        B = SLOTS
+        tokens = torch.randint(0, VOCAB, (B,), generator=g, device=DEV)
+        pos = torch.tensor(RAGGED, device=DEV)
+        knobs = torch.zeros_like(gen._knobs)
+        knobs[1] = 1.0
+        gen._knobs.copy_(knobs)
+
+        def step() -> None:
+            # one tick as BatchedGenerator._dispatch runs it: the inputs
+            # staged on the host and copied in, one replay (positions
+            # past the context clamp in the step)
+            load(gen._in, gen._in_host, torch.stack(
+                [tokens.cpu(), pos.cpu() + i[0], torch.zeros(B, dtype=torch.long)], 1).numpy())
+            graph.replay()
+            i[0] += 1
+
+        i = [0]
+        for _ in range(2):
+            step()
+        n = 8
+        wall, kernels = _profiled(lambda: [step() for _ in range(n)], n)
+        # one replay against the eager step on a copy of the pool
+        gen._in.copy_(torch.stack([tokens, pos, torch.zeros_like(pos)], 1))
+        kv = KVCache(gen.kv.k.clone(), gen.kv.v.clone())
+        graph.replay()
+        got = gen._out[0, 0].clone()
+        zero_counts()
+        zeros = torch.zeros(B, device=DEV)
+        want, nf = ragged_sampled_step(eng.params, eng.cfg, tokens[:, None],
+                                       pos.clamp(max=MAX_SEQ - 1), kv, zeros,
+                                       torch.ones(B, device=DEV), zeros)
+        torch.cuda.synchronize()
+        eager = read_counts()
+        rec = _profile_rec("dense_step_profile", dtype, "step", n, wall, kernels)
+        rec.update(tokens_equal=bool(torch.equal(got, want)),
+                   pool_bytes_equal=bool(torch.equal(gen.kv.k, kv.k)
+                                         and torch.equal(gen.kv.v, kv.v)),
+                   nonfinite=int(nf.sum()), capture=graph.stats(),
+                   eager_launches_per_step={k: v for k, v in eager.items() if v})
+        del kv
+        gen.close()
+    finally:
+        eng.close()
+    for name, keys in (("K2", ("q40_gemv", "sum_splits_kernel")),
+                       ("K3", ("flash_attention_kernel", "flash_attention_tc_kernel",
+                               "combine_splits_kernel"))):
+        rec[f"{name}_device_ms_per_step"] = sum(
+            e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3 / n
+        rec[f"{name}_kernels_per_step"] = sum(
+            e.count for e in kernels if any(k in e.key for k in keys)) / n
+    rec["rows"], rec["depths"] = B, RAGGED
+    return rec
+
+
+def check_dense_profile(rec: dict, dtype: str, n_layers: int) -> None:
+    """The dense step: graph equal to eager, the eager step's launches
+    recorded per replay (K2 and K3, one K3 a layer), and on the device a
+    bf16 step's attention on the tensor cores, once a layer."""
+    eager = rec["eager_launches_per_step"]
+    recorded = rec["capture"]["launches_per_replay"]
+    if not rec["tokens_equal"] or not rec["pool_bytes_equal"] or rec["nonfinite"]:
+        fail(f"dense step {dtype}: graph against eager: tokens {rec['tokens_equal']}, "
+             f"pool bytes {rec['pool_bytes_equal']}, non-finite lanes {rec['nonfinite']}")
+    if (set(eager) != {"K2", "K3"} or eager["K3"] != n_layers
+            or recorded != {"q40_gemv": eager["K2"], "flash_attention": eager["K3"]}):
+        fail(f"dense step {dtype}: eager launches {eager}, recorded per replay {recorded}")
+    want_tc = n_layers if dtype == "bf16" else 0
+    if rec["tc_attention_per_step"] != want_tc:
+        fail(f"dense step {dtype}: {rec['tc_attention_per_step']} tensor-core attention "
+             f"kernels per step on the device, want {want_tc}")
+
+
+def dense_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``api --batch-slots 8`` without ``--kv-block-size`` (the dense slot
+    pool, :func:`serve_run`), f32 and bf16, the CLI's default Q80 sync
+    buffers, the serving phase's 16-request mix: every request 200 with
+    text, the identical greedy pair equal, prefix reuse across slots, K1,
+    K2 and K3 launched and K4 never; then the profiled dense step
+    (:func:`dense_step_profile`)."""
+    for dtype in ("f32", "bf16"):
+        rec, _ = serve_run(model, tok, n_layers, dtype, [], case="dense_serving", paged=False)
+        launches = rec["launches"]["api"]
+        print(json.dumps(rec), flush=True)
+        summary[dtype]["launches"]["api_dense"] = launches
+        summary[dtype]["dense_serving"] = rec
+        if min(launches[k] for k in ("K1", "K2", "K3")) <= 0 or launches["K4"]:
+            fail(f"dense serving {dtype}: want K1, K2, K3 launched and K4 never: {launches}")
+        if not rec["capture"]["captured"]:
+            fail(f"dense serving {dtype}: the step was not captured: {rec['capture']}")
+        torch.cuda.empty_cache()
+        prof = dense_step_profile(model, tok, dtype)
+        print(json.dumps(prof), flush=True)
+        summary[dtype]["dense_step_profile"] = prof
+        check_dense_profile(prof, dtype, n_layers)
+        torch.cuda.empty_cache()
+
+
+def dense_chunk_spec(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """The dense slot pool's ``--decode-chunk 4`` and ``--spec-lookup 4``
+    (f32, f32 sync buffers as the spec phases: the Q80 casts would turn the
+    routes' other summation orders into whole int8 steps), the serving mix
+    each: the pool at K = 1 (its greedy transcripts against the paged
+    pool's in :func:`spec_serving`), chunk-4 (4 replays, one readback a
+    tick), spec with the n-gram drafts and spec with the K = 1 run's own
+    tokens as drafts (:func:`oracle_drafts`). Every request held to the
+    near-tie rule against K = 1 (greedy and sampled); in the oracle run a
+    greedy request equal to K = 1 must have accepted every draft inside its
+    tokens. K1 and K3 launch in every run, K4 in none."""
+    f32_buf = ["--buffer-float-type", "f32"]
+    runs = {}
+    for name, flags in (("base", []), ("chunk4", ["--decode-chunk", "4"]),
+                        ("spec", ["--spec-lookup", str(SPEC_K)])):
+        runs[name] = serve_run(model, tok, n_layers, "f32", f32_buf + flags,
+                               case=f"dense_{name}", paged=False)
+    want = {}
+    for r in runs["base"][1]:
+        want.setdefault((tuple(r.prompt_ids), r.temperature, r.seed), r.tokens)
+    with oracle_drafts({p: t for (p, _, _), t in want.items()}):
+        runs["oracle"] = serve_run(model, tok, n_layers, "f32",
+                                   f32_buf + ["--spec-lookup", str(SPEC_K)],
+                                   case="dense_spec_oracle", paged=False)
+    paged = summary["f32"]["paged_f32_buffers_transcripts"]
+    diffs = {k: [] for k in ("chunk4", "spec", "oracle", "base_vs_paged")}
+    short = []
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        for k in ("chunk4", "spec", "oracle", "base"):
+            ref = paged if k == "base" else want
+            for r in runs[k][1]:
+                if k == "base" and r.temperature > 0.0:
+                    continue  # greedy only against the paged pool
+                key = (tuple(r.prompt_ids), r.temperature, r.seed)
+                d = probe(r.prompt_ids, r.tokens, ref[key], r.temperature, r.topp, r.seed)
+                if d is not None:
+                    diffs["base_vs_paged" if k == "base" else k].append(
+                        dict(d, rid=r.rid, temperature=r.temperature))
+                elif (k == "oracle" and r.temperature <= 0.0 and r.spec_accepted
+                      < len(r.tokens) - -(-len(r.tokens) // (SPEC_K + 1))):
+                    short.append(dict(rid=r.rid, tokens=len(r.tokens),
+                                      drafted=r.spec_drafted, accepted=r.spec_accepted))
+    finally:
+        probe.close()
+
+    def tally(rs):
+        sel = [r for r in rs if r.temperature <= 0.0]
+        return dict(drafted=sum(r.spec_drafted for r in sel),
+                    accepted=sum(r.spec_accepted for r in sel))
+
+    rec = dict(case="dense_chunk_spec_summary", compute_dtype="f32", k=SPEC_K,
+               **{f: {k: r[0][f] for k, r in runs.items()}
+                  for f in ("gen_tok_per_s", "step_ms_median", "steps", "generated_tokens",
+                            "latency_ms_p50", "ttft_ms_p50", "peak_gb")},
+               greedy_accept={k: tally(runs[k][1]) for k in ("spec", "oracle")},
+               requests_equal={k: len(runs["base" if k == "base_vs_paged" else k][1])
+                               - len(v) for k, v in diffs.items()},
+               parts=diffs, oracle_short_requests=short,
+               capture={k: r[0]["capture"] for k, r in runs.items()},
+               launches={k: r[0]["launches"]["api"] for k, r in runs.items()})
+    for k, r in runs.items():
+        print(json.dumps(r[0]), flush=True)
+    print(json.dumps(rec), flush=True)
+    summary["f32"]["dense_chunk_spec"] = rec
+    for k, (r, _) in runs.items():
+        summary["f32"]["launches"][f"api_dense_{k}"] = r["launches"]["api"]
+    for k, ds in diffs.items():
+        for d in ds:
+            hold_transcripts(f"dense {k} f32 request {d['rid']}", "f32", d, d["temperature"])
+    for k, (r, _) in runs.items():
+        n = r["launches"]["api"]
+        if min(n["K1"], n["K3"]) <= 0 or n["K4"] or (k in ("base", "chunk4") and n["K2"] <= 0):
+            fail(f"dense {k}: want K1, K3 (and K2 off spec) launched, K4 never: {n}")
+        if not r["capture"]["captured"]:
+            fail(f"dense {k}: the tick's step was not captured: {r['capture']}")
+    if rec["greedy_accept"]["spec"]["drafted"] <= 0:
+        fail("dense spec: no greedy draft was verified")
+    if short or rec["greedy_accept"]["oracle"]["accepted"] <= 0:
+        fail(f"dense spec oracle f32: greedy requests equal to K = 1 had drafts rejected: "
+             f"{short} ({rec['greedy_accept']['oracle']})")
+    torch.cuda.empty_cache()
+
+
+API_TURNS = ("Tell me about the river and the stone.", "And what did the cloud say?",
+             "Summarise it in seven words.")
+
+
+def single_api(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``api`` without ``--batch-slots`` (the single-sequence server, its
+    ``NaiveCache``), f32 on f32 sync buffers: a three-turn conversation,
+    each body the last one plus its answer and a new user message, so turns
+    2 and 3 resume at the cached end and prefill only their new messages
+    (fewer tokens than the whole conversation's prompt); each answer held to
+    the near-tie rule against a fresh engine that prefills the whole token
+    history the server had fed and decodes greedily; then a body with a
+    ``stop`` string (the text cut there, no assistant entry cached) and an
+    SSE body against the same JSON body. K1, K2 and K3 launch, K4 never."""
+    import threading
+
+    from dllama_tpu_torch.formats.quants import F32
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.serve import cli
+    from dllama_tpu_torch.tokenizer.chat import ChatItem
+
+    box: dict = {}
+    listening = threading.Event()
+    fed: dict[int, int] = {}
+    cur: dict = {}
+
+    def on_listening(server, state):
+        eng = state.engine
+        prefill, next_token = eng.prefill, eng.next_token
+
+        def prefill_recorded(ids):
+            for j, t in enumerate(ids):
+                fed[eng.pos + j] = t
+            cur["prefilled"] += len(ids)
+            return prefill(ids)
+
+        def next_recorded(t):
+            if cur["start"] is None:
+                cur["start"] = eng.pos
+            fed[eng.pos] = t
+            out = next_token(t)
+            cur["tokens"].append(out)
+            return out
+
+        eng.prefill, eng.next_token = prefill_recorded, next_recorded
+        box.update(server=server, state=state)
+        listening.set()
+
+    argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", "f32",
+            "--buffer-float-type", "f32", "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED),
+            "--temperature", "0", "--host", "127.0.0.1", "--port", "0"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rc", cli.main(argv, on_listening=on_listening)), daemon=True)
+    th.start()
+    while not listening.wait(timeout=1.0):
+        if not th.is_alive():
+            fail("single api: the server exited before listening")
+    url = f"http://127.0.0.1:{box['server'].server_address[1]}"
+    state = box["state"]
+    tokz = state.engine.tokenizer
+
+    def post(body: dict) -> dict:
+        cur.update(prefilled=0, start=None, tokens=[])
+        out = post_chat(url, body)
+        return dict(out, prefilled=cur["prefilled"], start=cur["start"],
+                    tokens=list(cur["tokens"]))
+
+    convo = [{"role": "system", "content": SYSTEM}]
+    turns = []
+    for text in API_TURNS:
+        convo.append({"role": "user", "content": text})
+        items = [ChatItem(m["role"], m["content"]) for m in convo]
+        cold = tokz.encode(state.template.generate(items, append_generation_prompt=True).content,
+                           is_start=True, add_special_tokens=True)
+        t = post({"messages": list(convo), "max_tokens": 24, "temperature": 0.0})
+        t.update(cold_prompt_tokens=len(cold),
+                 history=[fed[p] for p in range(t["start"] + 1)])
+        turns.append(t)
+        convo.append({"role": "assistant", "content": t["text"]})
+    stop_body = {"messages": [{"role": "user", "content": "Name seven stones."}],
+                 "max_tokens": 24, "temperature": 0.0}
+    full = post(stop_body)
+    stop = full["text"][4:10]
+    cut = post({**stop_body, "stop": stop})
+    cached_roles = [it.role for it in state.cache.items]
+    sse = post({**stop_body, "stream": True})
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    box["server"].shutdown()
+    th.join(timeout=120)
+    if th.is_alive() or box.get("rc") != 0:
+        fail("single api: the server did not stop cleanly")
+    fresh = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=F32,
+                            temperature=0.0)
+    diffs = []
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        for i, t in enumerate(turns):
+            fresh.reset()
+            want = fresh.generate(t["history"], len(t["tokens"]), stop_on_eos=False).tokens
+            d = probe(t["history"], t["tokens"], want)
+            if d is not None:
+                diffs.append(dict(d, turn=i))
+    finally:
+        probe.close()
+        fresh.close()
+    rec = dict(case="single_api", compute_dtype="f32", layers=n_layers,
+               turns=[{k: t[k] for k in ("latency_ms", "prefilled", "cold_prompt_tokens",
+                                         "start")} | {"generated": len(t["tokens"])}
+                      for t in turns],
+               stop=dict(stop=stop, text_cut=cut["text"] == full["text"][:full["text"].find(
+                   stop)] if stop in full["text"] else None, cached_roles=cached_roles),
+               sse_equal=sse["text"] == full["text"], parts=diffs, peak_gb=peak_gb,
+               launches={"api_single": launches})
+    print(json.dumps(rec), flush=True)
+    summary["f32"]["single_api"] = rec
+    summary["f32"]["launches"]["api_single"] = launches
+    for d in diffs:
+        hold_transcripts(f"single api turn {d['turn']}", "f32", d)
+    if turns[0]["prefilled"] != turns[0]["cold_prompt_tokens"] - 1:
+        fail(f"single api: turn 1 prefilled {turns[0]['prefilled']} tokens, want its whole "
+             f"prompt less the seed token ({turns[0]['cold_prompt_tokens'] - 1})")
+    for i, t in enumerate(turns[1:], 1):
+        if not 0 < t["prefilled"] < t["cold_prompt_tokens"] - 1 - len(turns[i - 1]["tokens"]):
+            fail(f"single api: turn {i + 1} prefilled {t['prefilled']} of its "
+                 f"{t['cold_prompt_tokens']}-token conversation: the NaiveCache was not hit")
+    if not (len(full["text"]) >= 10 and rec["stop"]["text_cut"]
+            and cached_roles == ["user"]):
+        fail(f"single api: the stop body: {rec['stop']} (full text {full['text']!r}, "
+             f"cut {cut['text']!r})")
+    if not rec["sse_equal"] or any(len(t["tokens"]) != 24 for t in turns):
+        fail(f"single api: SSE text equal {rec['sse_equal']}, tokens per turn "
+             f"{[len(t['tokens']) for t in turns]}")
+    if min(launches[k] for k in ("K1", "K2", "K3")) <= 0 or launches["K4"]:
+        fail(f"single api: want K1, K2, K3 launched and K4 never: {launches}")
+    torch.cuda.empty_cache()
+
+
+CHAT_LINES = ("hello there", "tell me more about it")
+
+
+def chat_phase(model: str, tok: str, tmp: str, summary: dict) -> None:
+    """``python -m dllama_tpu_torch chat`` as a user runs it: a subprocess
+    from the checkout's root at full width (f32, the CLI's default
+    buffers), two user lines on stdin, then EOF. The random weights never
+    pick the tokenizer's EOS, so the tokenizer it reads marks as further EOS
+    tokens the ones its greedy reply to the first line picks from token 8
+    on and not before (found in process on the same model first): that
+    reply ends there, and the second ends at the first of them it picks or
+    at the context. It must exit 0, print two 🤖 turns, and print as the
+    first reply the text of the reply found in process."""
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.serve.api import chat_template
+    from dllama_tpu_torch.tokenizer.chat import ChatItem, ChatTemplateType
+
+    from dllama_tpu_torch.formats.quants import Q80
+
+    # the CLI's defaults: f32, Q80 sync buffers
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          temperature=0.0)
+    try:
+        tokz = eng.tokenizer
+        template, _ = chat_template(tokz, ChatTemplateType.UNKNOWN)
+        ids = tokz.encode(template.generate([ChatItem("user", CHAT_LINES[0])],
+                                            append_generation_prompt=True).content,
+                          is_start=True, add_special_tokens=True)
+        eng.prefill(ids[:-1])
+        t, reply = ids[-1], []
+        for _ in range(64):
+            t = eng.next_token(t)
+            reply.append(t)
+        eos = sorted(set(reply[8:]) - set(reply[:8])) or [reply[0]]
+        end = next(j for j, x in enumerate(reply) if x in eos)
+        tokz.reset_decoder()
+        want = "".join(p for p in (tokz.decode(x) for x in reply[:end]) if p)
+    finally:
+        eng.close()
+    chat_tok = os.path.join(tmp, "tok_chat.t")
+    write_tokenizer(chat_tok, tuple(eos))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dllama_tpu_torch", "chat", "--model", model,
+         "--tokenizer", chat_tok, "--max-seq-len", str(MAX_SEQ), "--temperature", "0",
+         "--seed", str(SEED)],
+        input="".join(line + "\n" for line in CHAT_LINES), capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t0
+    replies = [part.split("\n💻 > ", 1)[0].rstrip("\n")
+               for part in proc.stdout.split("🤖 ")[1:]]
+    rec = dict(case="chat", rc=proc.returncode, wall_s=wall_s, turns=len(replies),
+               eos_ids=len(eos), first_reply_tokens=end,
+               first_reply_equal=bool(replies) and replies[0] == want.rstrip("\n"),
+               reply_chars=[len(r) for r in replies])
+    print(json.dumps(rec), flush=True)
+    summary["f32"]["chat"] = rec
+    if proc.returncode != 0 or len(replies) != 2 or not rec["first_reply_equal"]:
+        fail(f"chat: exit {proc.returncode}, {len(replies)} 🤖 turns, first reply equal "
+             f"{rec['first_reply_equal']}\nstdout tail: {proc.stdout[-1500:]}\n"
+             f"stderr tail: {proc.stderr[-1500:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2494,9 +3028,12 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
     return rec
 
 
-def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
-    """The 32-layer model split in two sequence shards, at sp = 2 and, for
-    comparison, sp = 1, in three cells:
+def sp_path(model: str, tok: str, n_layers: int, e2e: dict, long_model: str,
+            long_layers: int) -> None:
+    """The model split in two sequence shards, at sp = 2 and, for
+    comparison, sp = 1, in three cells (the long one on ``long_model``, of
+    ``long_layers`` layers: :data:`LONG_LAYERS`, to keep the run inside its
+    time):
 
     * short: ``--max-seq-len 4096`` (two 2048-row shards), a 2551-token
       prompt (the prefill crosses the boundary), 64 greedy steps in f32 and
@@ -2531,6 +3068,7 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
     # prompt, --spec-lookup)
     plan = [("short", d, sp, SP_SEQ, short, "f32", 64, d == "f32", 2300, 0)
             for d in ("f32", "bf16") for sp in (2, 1)]
+    layers = {"long": (long_model, long_layers)}
     plan += [("short-spec", d, sp, SP_SEQ, short, "f32", 64, False, 2300, SPEC_K)
              for d in ("f32", "bf16") for sp in (2, 1)]
     plan += [("q80", "f32", sp, SP_SEQ, short, "q80", 0, True, 2300, 0) for sp in (2, 1)]
@@ -2541,8 +3079,10 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
     runs = {}
     for cell, dtype, sp, seq_len, text, sync, steps, ppl, least, spec in plan:
         t0 = time.perf_counter()
-        rec = sp_run(model, tok, via, dtype=dtype, sp=sp, seq_len=seq_len, text=text,
+        cell_model, cell_layers = layers.get(cell, (model, n_layers))
+        rec = sp_run(cell_model, tok, via, dtype=dtype, sp=sp, seq_len=seq_len, text=text,
                      sync=sync, steps=steps, ppl=ppl, spec=spec)
+        rec["layers"] = cell_layers
         print(f"⏱️ sp {cell} {dtype} sp={sp} took {time.perf_counter() - t0:.1f} s", flush=True)
         runs[(cell, dtype, sp)] = rec
         n_prompt = rec.get("prompt_tokens", rec.get("perplexity_tokens"))
@@ -2573,9 +3113,9 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict) -> None:
         # a decode step and a verify step (merge decode at T = 1 or K + 1)
         # launch K3s once a layer and shard
         phase = "verify" if spec else "decode"
-        if sp > 1 and steps and rec[f"k3s_per_{phase}_step"] != n_layers * sp:
+        if sp > 1 and steps and rec[f"k3s_per_{phase}_step"] != cell_layers * sp:
             fail(f"sp {cell} {dtype}: {rec[f'k3s_per_{phase}_step']} K3s launches per "
-                 f"{phase} step, want {n_layers * sp}")
+                 f"{phase} step, want {cell_layers * sp}")
         if spec and rec["verify_steps"] < 1:
             fail(f"sp {cell} {dtype} sp={sp}: no verify step ran")
     # speculative decoding at sp = 2 (eager, K3s merge decode at T = K + 1)
@@ -2685,7 +3225,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                (" prefill T=128 @1024", lambda c: c["phase"] == "prefill"
                 and c["start_pos"] == 1024 and c["T"] == 128),
                (f" verify T={SPEC_K + 1} @{MAX_SEQ - 1 - SPEC_K}",
-                lambda c: c["phase"] == "verify")],
+                lambda c: c["phase"] == "verify"),
+               (f" ragged decode B={SLOTS} T=1 @2047..0 (dense step)",
+                lambda c: c["phase"] == "ragged decode"),
+               (f" ragged verify B={SLOTS} T={SPEC_K + 1} @{MAX_SEQ - 1 - SPEC_K}..0 "
+                f"(dense verify)", lambda c: c["phase"] == "ragged verify")],
         "K4": [(" decode B=1 @2047 bs=16", lambda c: c["B"] == 1 and c["T"] == 1
                 and c["block_size"] == BLOCK),
                (" decode B=8 ragged bs=16 (serving)", lambda c: c["B"] == 8
@@ -2841,6 +3385,7 @@ def main() -> int:
     timer = Timer()
     matmul_cases(timer, cases)
     attention_cases(timer, cases)
+    ragged_attention_cases(timer, cases)
     paged_cases(timer, cases)
     ring_cases(timer, cases)
     guard_cost([])
@@ -2882,7 +3427,22 @@ def main() -> int:
         spec_serving(model, tok, args.layers, e2e)
         print(f"⏱️ spec serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        sp_path(model, tok, args.layers, e2e)
+        dense_serving(model, tok, args.layers, e2e)
+        print(f"⏱️ dense serving took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        dense_chunk_spec(model, tok, args.layers, e2e)
+        print(f"⏱️ dense chunk-4 and spec-4 took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        single_api(model, tok, args.layers, e2e)
+        print(f"⏱️ single-sequence api took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        chat_phase(model, tok, tmp, e2e)
+        print(f"⏱️ chat took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        long_layers = min(LONG_LAYERS, args.layers)
+        long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
+        write_model(long_model, long_layers)
+        sp_path(model, tok, args.layers, e2e, long_model, long_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
     model_parity({})
     paged_parity({})

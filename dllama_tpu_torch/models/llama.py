@@ -16,7 +16,10 @@ here take positions as device tensors and read nothing back to the host.
 Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
 (``cfg.quant_impl``) and K3 through
 :func:`~dllama_tpu_torch.ops.flash_attention.flash_attention`
-(``cfg.attn_impl``). The paged family (:func:`paged_forward`,
+(``cfg.attn_impl``); the dense slot pool's ragged steps
+(:func:`ragged_sampled_step`, :func:`ragged_verify_step`) are :func:`forward`
+over ``n_slots`` rows with a start position each, K3 reading its per-row
+position table. The paged family (:func:`paged_forward`,
 :func:`paged_sampled_step`, :func:`paged_verify_step`) serves continuous
 batching over the block pool
 and attends through K4
@@ -267,10 +270,58 @@ def sampled_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_p
                   ) -> tuple[torch.Tensor, object]:
     """The temperature > 0 twin of :func:`greedy_steps`: ``coins
     [n_steps]`` are the host xorshift draws of the whole chunk (the host
-    rewinds its RNG to the count kept after EOS truncation)."""
+    rewinds its RNG to the count kept after EOS truncation).
+
+    Also the ragged chunked step of the dense slot pool (the JAX package's
+    ``BatchedGenerator.step_chunk``): everything broadcasts over rows —
+    ``token``/``start_pos [B]``, per-row ``temperature``/``topp [B]``
+    (rows at temperature <= 0 take the argmax) and ``coins [n_steps, B]``."""
     return scan_decode(
         lambda t, p, kv, c: sampled_step(params, cfg, t, p, kv, temperature, topp, c, plan),
         token, start_pos, kv, n_steps, coins=coins)
+
+
+def ragged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                        pos_vec: torch.Tensor, kv, temps, topps, coins
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense slot pool's ragged decode step (the JAX package's
+    ``sampled_step_guarded`` over ragged rows): one :func:`forward` of
+    ``tokens [B, 1]`` at per-row positions ``pos_vec [B]`` over the slot
+    pool's cache, then per-row on-device sampling (rows with ``temps <= 0``
+    take the argmax). Returns ``(token [B], nonfinite [B])``, the second the
+    non-finite lane count of each row's logits. The cache is updated in
+    place."""
+    from ..ops.sampling import sampled_token
+
+    logits, _ = forward(params, cfg, tokens, pos_vec, kv)
+    last = logits[:, -1, :]
+    return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
+
+
+def ragged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                       pos_vec: torch.Tensor, kv, temps, topps, coins
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense slot pool's speculative verify step (the JAX package's
+    ``ragged_verify_step``): ONE :func:`forward` over ragged rows ``tokens
+    [B, K+1]`` at per-row positions ``pos_vec [B]``. Greedy rows (``temps
+    <= 0``) accept the longest draft prefix their argmax agrees with, as
+    :func:`verify_step` does; sampled rows spend their one coin on the
+    position-0 logits and accept nothing, so their tokens and coin streams
+    equal the plain ragged step's. Returns ``(n_acc [B], preds [B, K+1],
+    nonfinite [B])`` (the non-finite lanes of each row's K+1 logits rows);
+    the caller emits ``preds[b, : n_acc[b] + 1]``. The cache is updated in
+    place; rows written for rejected drafts sit past the committed point."""
+    from ..ops.sampling import sampled_token
+
+    logits, _ = forward(params, cfg, tokens, pos_vec, kv)
+    preds = torch.argmax(logits, dim=-1)                 # [B, K+1]
+    ok = (tokens[:, 1:] == preds[:, :-1]).long()
+    n_acc = torch.cumprod(ok, dim=-1).sum(dim=-1)
+    temps = torch.as_tensor(temps, device=logits.device)
+    n_acc = torch.where(temps <= 0.0, n_acc, torch.zeros_like(n_acc))
+    first = sampled_token(logits[:, 0], temps, topps, coins)
+    preds = torch.cat([first[:, None], preds[:, 1:]], dim=1)  # greedy rows: first == argmax
+    return n_acc, preds, _nonfinite_rows(logits)
 
 
 def nll_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

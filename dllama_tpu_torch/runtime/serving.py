@@ -1,7 +1,19 @@
-"""Continuous batched serving over the paged KV pool (the port of the JAX
-package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
-``_GeneratorCore``, ``PagedGenerator`` and ``BatchScheduler``).
+"""Continuous batched serving (the port of the JAX package's
+``runtime/serving.py``: ``Request``, ``_GeneratorCore``, the dense
+``BatchedGenerator``, ``PagedGenerator`` and ``BatchScheduler``).
 
+* :class:`_GeneratorCore` — the slot lifecycle both generators share: the
+  slot table, positions and next tokens, per-slot n-gram proposers, and
+  the emit / retire / cancel / sampling / non-finite rules.
+* :class:`BatchedGenerator` — the dense slot pool (``api --batch-slots N``
+  without ``--kv-block-size``): one cache column per slot and ONE ragged
+  decode step per tick (``models.llama.ragged_sampled_step``: K2 at ``M =
+  n_slots``, K3 with a start position per row), replayed from a CUDA graph
+  on the card; ``--decode-chunk K`` runs K replays with one readback, and
+  ``--spec-lookup K`` the ragged verify step (``ragged_verify_step``, also
+  a graph). Admission prefills the slot's own column in place through K1
+  and K3, after copying the longest prefill-context prefix any slot holds
+  (cross-slot prefix reuse).
 * :class:`PagedGenerator` — ``n_slots`` sequence slots over one block pool
   (:mod:`~dllama_tpu_torch.runtime.kvblocks`) and ONE ragged decode step
   per tick for all of them (``models.llama.paged_sampled_step``: K2 at
@@ -17,24 +29,24 @@ package's ``runtime/serving.py``: ``Request``, the slot lifecycle of
   prompts and the partial tail is copied on write; prefill runs the
   engine's own dense ``forward`` (K1 + K3) over the sequence's gathered
   column, whose own blocks are scattered back at commit.
-* :class:`BatchScheduler` — thread-safe front end: a FIFO queue beyond the
-  slots (``max_queue`` shedding), deadlines, interleaved chunked prefill
-  under a per-tick token budget, cancellation, and supervision (a crash
-  fails every waiter, resets the pool and restarts, up to
-  ``max_restarts``). One loop thread owns the generator and every device
-  dispatch; it captures the paged step before the scheduler is handed
-  out, so before any server listens.
+* :class:`BatchScheduler` — thread-safe front end over either generator
+  (``engine.kv_block_size`` picks): a FIFO queue beyond the slots
+  (``max_queue`` shedding), deadlines, interleaved chunked prefill under a
+  per-tick token budget, cancellation, and supervision (a crash fails
+  every waiter, resets the pool and restarts, up to ``max_restarts``). One
+  loop thread owns the generator and every device dispatch; it captures
+  the tick's step before the scheduler is handed out, so before any server
+  listens.
 
 Determinism: each request carries its own xorshift seed and consumes its
 own coin stream, so a request's output does not depend on what shares the
 batch with it — the transcripts equal the single-sequence engine's
-(``tests/test_torch_serving.py``).
+(``tests/test_torch_serving.py``, ``tests/test_torch_dense_serving.py``).
 
-Left out (later slices): the dense slot-pool ``BatchedGenerator`` (and
-its ragged verify step), telemetry and the flight recorder, tenancy and
-fair queueing, fused multi-step decode, the host KV tier and KV
-migration, eval scoring, the HBM degrade, the step watchdog and
-failpoints (the ``draft`` one included).
+Left out (later slices): telemetry and the flight recorder, tenancy and
+fair queueing, the host KV tier and KV migration, eval scoring, the HBM
+admission guard and degrade, the multihost broadcast, the step watchdog
+and failpoints (the ``draft`` one included).
 """
 
 from __future__ import annotations
@@ -48,12 +60,13 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
-from ..models.llama import forward, paged_sampled_step, paged_verify_step
+from ..models.llama import (forward, paged_sampled_step, paged_verify_step,
+                            ragged_sampled_step, ragged_verify_step)
 from ..tokenizer.sampler import xorshift_random_f32
 from .graphs import StepGraph, load, staging
 from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
                        block_pool_bytes, blocks_per_seq)
-from .kvcache import KVCache
+from .kvcache import KVCache, padded_cache_len
 from .speculative import NgramProposer, spec_coins_consumed
 
 if TYPE_CHECKING:
@@ -131,127 +144,58 @@ class _Admission:
 
     req: Request
     slot: int
-    col: KVCache | None  # the sequence's gathered dense column, being filled
+    # the column being filled: the paged sequence's gathered copy, or a view
+    # of the dense slot's own column
+    col: KVCache | None
     pos: int = 0
 
 
-class PagedGenerator:
-    """Block-granular paged KV + the paged ragged decode step. Not
-    thread-safe by itself (the scheduler's loop thread owns it).
+class _GeneratorCore:
+    """Slot lifecycle shared by the dense slot pool (:class:`BatchedGenerator`)
+    and the paged block pool (:class:`PagedGenerator`), the JAX package's
+    ``_GeneratorCore``: the slot table, each slot's position and next token,
+    the per-slot n-gram proposers, and the emit, retire, cancel, sampling
+    and non-finite rules of every dispatch. Subclasses own the KV storage
+    and the admit and step programs. Not thread-safe by itself (the
+    scheduler's loop thread owns it)."""
 
-    KV lives in a block pool ``[L, n_blocks, n_kv, block_size, hd]`` of
-    ``n_slots * table_width + 1`` blocks (the null block included). A
-    sequence holds exactly the blocks its context needs (lazy growth at
-    decode), and admission reserves each request's worst case, so organic
-    mid-decode exhaustion cannot happen."""
-
-    def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
-        block_size = int(engine.kv_block_size or 0)
-        if block_size <= 0:
-            raise ValueError("PagedGenerator needs an engine built with "
-                             "kv_block_size (--kv-block-size N)")
+    def __init__(self, engine: "InferenceEngine", n_slots: int):
         self.eng = engine
         self.cfg = engine.cfg
         self.n_slots = n_slots
         self.pos = np.zeros(n_slots, dtype=np.int64)
         self.next_token = np.zeros(n_slots, dtype=np.int64)
         self.slots: list[Request | None] = [None] * n_slots
-        self.block_size = block_size
-        self.table_width = blocks_per_seq(self.cfg.seq_len, block_size)
-        n_blocks = n_slots * self.table_width + 1
-        self.pool_bytes = block_pool_bytes(self.cfg, n_blocks, block_size,
-                                           engine.kv_dtype.itemsize)
-        if engine.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(engine.device)
-            if self.pool_bytes > free:
-                raise RuntimeError(
-                    f"the paged KV pool needs {self.pool_bytes / 1e9:.2f} GB "
-                    f"({n_blocks} blocks of {block_size} rows for {n_slots} slots "
-                    f"at {self.cfg.seq_len} positions) but {free / 1e9:.2f} GB of "
-                    f"device memory is free; lower --batch-slots or --max-seq-len")
-        self.pool = BlockPool(n_blocks, block_size)
-        self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
-                                       dtype=engine.kv_dtype, device=engine.device)
-        # per-slot block tables (host truth; shipped with pos and the next
-        # token in one host→device copy per step)
-        self.tables = np.zeros((n_slots, self.table_width), dtype=np.int64)
-        self._seq_bids: list[list[int]] = [[] for _ in range(n_slots)]
-        # shared-prefix length (in blocks) per slot: the commit scatter skips
-        # those entries, so a shared block is never written
-        self._n_shared = [0] * n_slots
-        # per-slot RESERVATION: worst-case blocks the slot's request may
-        # still allocate at decode boundaries; can_admit subtracts the
-        # outstanding total so concurrent sequences can't double-spend
-        self._reserve = [0] * n_slots
-        # prompt tokens reused through block sharing + copy-on-write (the
-        # JAX package's dllama_prefix_reuse_tokens_total)
-        self.reused_tokens = 0
-        self._graph: StepGraph | None = None  # the paged step, built at first use
-        # speculative serving (--spec-lookup K): K drafts per slot per verify
-        # step, each slot's drafts from its own n-gram table
+        # speculative serving (--spec-lookup K): K drafts per slot per
+        # verify step, each slot's drafts from its own n-gram table
         self.spec = engine.spec_lookup
         self._proposers: list[NgramProposer | None] = [None] * n_slots
-        self._verify: StepGraph | None = None  # the paged verify step, built at first use
+        # prompt tokens whose prefill was skipped by prefix reuse (the JAX
+        # package's dllama_prefix_reuse_tokens_total)
+        self.reused_tokens = 0
 
-    def step_graph(self) -> StepGraph:
-        """The paged step on static buffers (``[n_slots, 2 + table_width]``
-        int64: next token, position, block table; ``[3, n_slots]`` f32:
-        temperature, top-p, coin; out ``[2, n_slots]``: token, non-finite
-        lanes), captured on the card at the first call, on the calling
-        thread. The warm-up runs with every input 0: all-null tables, so
-        its writes land in the null block."""
-        if self._graph is None:
-            dev = self.eng.device
-            inp = self._in = torch.zeros((self.n_slots, 2 + self.table_width),
-                                         dtype=torch.long, device=dev)
-            knobs = self._knobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
-                                              device=dev)
-            out = self._out = torch.zeros((2, self.n_slots), dtype=torch.long, device=dev)
-            self._in_host, self._knobs_host = staging(inp), staging(knobs)
-            # the body closes over tensors, never over self (no cycle that
-            # would keep the pool alive past close() until a collection)
-            params, cfg, pkv = self.eng.params, self.cfg, self.pkv
+    def free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
 
-            def body() -> None:
-                nxt, nf = paged_sampled_step(params, cfg, inp[:, :1], inp[:, 1], pkv,
-                                             inp[:, 2:], knobs[0], knobs[1], knobs[2])
-                out[0].copy_(nxt)
-                out[1].copy_(nf)
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
 
-            self._graph = StepGraph(body, dev)
-        return self._graph
+    def can_admit(self, req: Request) -> bool:
+        """Whether there is room for ``req`` beyond a free slot: the dense
+        pool always has it; the paged pool prices the request in blocks."""
+        return True
 
-    def verify_graph(self) -> StepGraph:
-        """The paged verify step on static buffers, captured once for this
-        pool geometry (``n_slots``, ``K + 1``, table width) at the first
-        call, on the calling thread: ``[n_slots, K + 3 + table_width]``
-        int64 (the K+1 tokens, position, draft length, block table),
-        ``[K + 3, n_slots]`` f32 (temperature, top-p, the K draft coins,
-        the bonus coin); out ``[K + 3, n_slots]`` int64 (accepted drafts,
-        non-finite lanes, the K+1 emitted candidates). The warm-up runs
-        with every input 0: all-null tables, so its writes land in the
-        null block."""
-        if self._verify is None:
-            dev, W = self.eng.device, self.spec + 1
-            inp = self._vin = torch.zeros((self.n_slots, W + 2 + self.table_width),
-                                          dtype=torch.long, device=dev)
-            knobs = self._vknobs = torch.zeros((W + 2, self.n_slots), dtype=torch.float32,
-                                               device=dev)
-            out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
-                                           device=dev)
-            self._vin_host, self._vknobs_host = staging(inp), staging(knobs)
-            params, cfg, pkv = self.eng.params, self.cfg, self.pkv  # tensors, not self
+    def admit(self, req: Request, slot: int) -> None:
+        """Admit in one go (tests / non-interleaved callers)."""
+        adm = self.begin_admit(req, slot)
+        while not self.continue_admit(adm):
+            pass
 
-            def body() -> None:
-                n_acc, toks, nf = paged_verify_step(
-                    params, cfg, inp[:, :W], inp[:, W], pkv, inp[:, W + 2:], inp[:, W + 1],
-                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1])
-                out[0].copy_(n_acc)
-                out[1].copy_(nf)
-                out[2:].copy_(toks.t())
-
-            self._verify = StepGraph(body, dev)
-        return self._verify
+    def abort_admit(self, adm: _Admission) -> None:
+        """Roll back an admission that will never commit (client cancel
+        mid-prefill, or a prefill that raised): nothing to undo in the dense
+        pool; the paged pool releases its blocks."""
 
     def capture(self) -> StepGraph:
         """The step this generator dispatches every tick (the verify step
@@ -264,48 +208,11 @@ class PagedGenerator:
         self._graph = None
         self._verify = None
 
-    # -- slot lifecycle -----------------------------------------------------
-
-    def free_slots(self) -> list[int]:
-        return [i for i, s in enumerate(self.slots) if s is None]
-
-    @property
-    def n_active(self) -> int:
-        return sum(s is not None for s in self.slots)
-
-    def _worst_case_blocks(self, prompt_len: int, max_tokens: int) -> int:
-        """Admission price in blocks: every position the request could ever
-        write (prompt prefill + decode growth, capped at seq_len). Under
-        speculative serving a verify step writes up to ``pos + lens``
-        (``lens <= spec``), so the frontier can run ``spec`` rows past the
-        committed need: the ``+ spec`` keeps organic mid-verify exhaustion
-        impossible (``lens`` is clamped to ``seq_len - 1 - pos``, so the cap
-        holds)."""
-        rows = min(prompt_len - 1 + max_tokens + self.spec, self.cfg.seq_len)
-        return max(1, -(-rows // self.block_size))
-
-    def can_admit(self, req: Request) -> bool:
-        """Free (+ evictable) blocks minus every live sequence's outstanding
-        worst-case growth must cover this request's own worst case."""
-        return (self.pool.free_blocks() - sum(self._reserve)
-                >= self._worst_case_blocks(len(req.prompt_ids), req.max_tokens))
-
     def _retire(self, slot: int) -> None:
         req = self.slots[slot]
         self.slots[slot] = None
-        self._release_blocks(slot)
+        self._proposers[slot] = None
         req.done.set()
-
-    def _release_blocks(self, slot: int) -> None:
-        """Drop every block reference ``slot`` holds and forget its
-        bookkeeping (the all-null table row sends ride-along writes to the
-        null block)."""
-        for b in self._seq_bids[slot]:
-            self.pool.release(b)
-        self._seq_bids[slot] = []
-        self._n_shared[slot] = 0
-        self._reserve[slot] = 0
-        self.tables[slot, :] = self.pool.NULL
 
     def _arm_decode(self, adm: _Admission) -> None:
         """Commit tail: arm the slot for decode (position, seed token, a
@@ -387,6 +294,487 @@ class PagedGenerator:
                 or self.pos[i] >= self.cfg.seq_len):
             self._retire(i)
         return len(run)
+
+
+class BatchedGenerator(_GeneratorCore):
+    """The dense slot pool (the JAX package's ``BatchedGenerator``): one KV
+    cache of ``n_slots`` columns, ``[L, n_slots, n_kv, S, hd]``, and ONE
+    ragged decode step per tick for every slot
+    (:func:`~dllama_tpu_torch.models.llama.ragged_sampled_step`: K2 at ``M =
+    n_slots``, K3 over the pool with a start position per row), replayed
+    from a CUDA graph on the card. Retired and admitting slots ride along
+    every dispatch as temperature-0 rows whose writes land at or past their
+    position; their outputs are never read.
+
+    Admission prefills a slot's own column in place (``kv.k[:, s:s+1]`` is
+    a contiguous ``[L, 1, n_kv, S, hd]`` view, so K1 and K3 take it as
+    they take the engine's cache) in the engine's bucketed chunks,
+    interleaved with the other slots' steps. A prompt whose prefix matches
+    the prefill context of any slot, live or retired, copies those rows
+    from that slot and skips their prefill (cross-slot prefix reuse, the
+    batched twin of the single-sequence API's NaiveCache). Only
+    prefill-built rows are matched: a decode-built row may differ in its
+    last ulp from the prefill a solo run would compute.
+
+    ``step_chunk(k)`` (``--decode-chunk K``) runs ``k`` replays of the step
+    with the picked tokens fed back on the device and one readback; under
+    ``spec`` the tick's dispatch is the ragged verify step
+    (:func:`~dllama_tpu_torch.models.llama.ragged_verify_step` at width
+    ``K + 1``, also a replayed graph): greedy rows draft from their n-gram
+    tables and keep the run their argmax agrees with, sampled rows emit one
+    token."""
+
+    def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
+        if engine.plan is not None:
+            raise ValueError("the dense slot pool runs at sp = 1: --sp under api "
+                             "is not ported yet")
+        super().__init__(engine, n_slots)
+        cfg = self.cfg
+        self.pool_bytes = (2 * cfg.n_layers * n_slots * cfg.n_kv_heads
+                           * padded_cache_len(cfg.seq_len) * cfg.head_dim
+                           * engine.kv_dtype.itemsize)
+        if engine.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(engine.device)
+            if self.pool_bytes > free:
+                raise RuntimeError(
+                    f"the dense KV slot pool needs {self.pool_bytes / 1e9:.2f} GB "
+                    f"({n_slots} slots at {cfg.seq_len} positions) but "
+                    f"{free / 1e9:.2f} GB of device memory is free; lower "
+                    f"--batch-slots or --max-seq-len")
+        self.kv = KVCache.create(cfg, batch_size=n_slots, dtype=engine.kv_dtype,
+                                 device=engine.device)
+        # per-slot PREFILL context: _ctx[s][p] is the prompt token whose KV
+        # row sits at position p of slot s, for the prefill-built region
+        # only. It outlives retirement: a retired slot keeps riding along
+        # every dispatch, but its writes land at or past pos[s] >=
+        # len(_ctx[s]), so its prefix rows stay reusable. An admission
+        # clears it first, since prefill then rewrites the column in place.
+        self._ctx: list[list[int] | None] = [None] * n_slots
+        # the step graph's coin rows: a chunk of --decode-chunk K replays
+        self.chunk = engine.decode_chunk
+        self._graph: StepGraph | None = None   # the ragged step, built at first use
+        self._verify: StepGraph | None = None  # the ragged verify step
+
+    def _prime(self, inp: torch.Tensor, pos_col: int):
+        """Warm-up inputs of a captured step: token 0 at the last context
+        row of every slot. Writes there are harmless: a live slot rewrites
+        that row before it becomes visible, and a prefill context never
+        reaches it."""
+        def prime() -> None:
+            inp.zero_()
+            inp[:, pos_col].fill_(self.cfg.seq_len - 1)
+        return prime
+
+    def step_graph(self) -> StepGraph:
+        """The ragged step on static buffers, captured on the card at the
+        first call, on the calling thread: ``[n_slots, 3]`` int64 (next
+        token, position, step index), ``[2 + chunk, n_slots]`` f32
+        (temperature, top-p, one coin row per step of a chunk); out ``[2,
+        chunk, n_slots]`` int64 (token and non-finite lanes of each step).
+        A replay writes its picks to row ``step`` of ``out``, feeds them
+        back as the next tokens and advances the positions and the step
+        index on the device, so a chunk of ``k`` tokens is ``k`` replays
+        and one readback. A row past the context (a retired slot) reads and
+        writes at the last context row."""
+        if self._graph is None:
+            dev, C, last = self.eng.device, self.chunk, self.cfg.seq_len - 1
+            inp = self._in = torch.zeros((self.n_slots, 3), dtype=torch.long, device=dev)
+            knobs = self._knobs = torch.zeros((2 + C, self.n_slots), dtype=torch.float32,
+                                              device=dev)
+            out = self._out = torch.zeros((2, C, self.n_slots), dtype=torch.long,
+                                          device=dev)
+            self._in_host, self._knobs_host = staging(inp), staging(knobs)
+            # the body closes over tensors, never over self (no cycle that
+            # would keep the pool alive past close() until a collection)
+            params, cfg, kv = self.eng.params, self.cfg, self.kv
+
+            def body() -> None:
+                i = inp[:1, 2]
+                nxt, nf = ragged_sampled_step(
+                    params, cfg, inp[:, :1], inp[:, 1].clamp(max=last), kv, knobs[0],
+                    knobs[1], knobs[2:].index_select(0, i)[0])
+                out[0].index_copy_(0, i, nxt[None])
+                out[1].index_copy_(0, i, nf[None].long())
+                inp[:, 0].copy_(nxt)
+                inp[:, 1:].add_(1)
+
+            self._graph = StepGraph(body, dev, prime=self._prime(inp, 1))
+        return self._graph
+
+    def verify_graph(self) -> StepGraph:
+        """The ragged verify step on static buffers, captured once for
+        this pool (``n_slots``, ``K + 1``) at the first call, on the calling
+        thread: ``[n_slots, K + 2]`` int64 (the K + 1 tokens, position),
+        ``[3, n_slots]`` f32 (temperature, top-p, coin); out ``[K + 3,
+        n_slots]`` int64 (accepted drafts, non-finite lanes, the K + 1
+        picks). A row past ``seq_len - K - 1`` (a retired slot) reads and
+        writes from there."""
+        if self._verify is None:
+            dev, W = self.eng.device, self.spec + 1
+            inp = self._vin = torch.zeros((self.n_slots, W + 1), dtype=torch.long, device=dev)
+            knobs = self._vknobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
+                                               device=dev)
+            out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
+                                           device=dev)
+            self._vin_host, self._vknobs_host = staging(inp), staging(knobs)
+            params, cfg, kv = self.eng.params, self.cfg, self.kv  # tensors, not self
+            cap = self.cfg.seq_len - W
+
+            def body() -> None:
+                n_acc, preds, nf = ragged_verify_step(
+                    params, cfg, inp[:, :W], inp[:, W].clamp(max=cap), kv, knobs[0],
+                    knobs[1], knobs[2])
+                out[0].copy_(n_acc)
+                out[1].copy_(nf)
+                out[2:].copy_(preds.t())
+
+            self._verify = StepGraph(body, dev, prime=self._prime(inp, W))
+        return self._verify
+
+    # -- admission ----------------------------------------------------------
+
+    def _column(self, slot: int) -> KVCache:
+        """Slot ``slot``'s column of the pool, ``[L, 1, n_kv, S, hd]``: a
+        view, so a forward over it writes the pool in place."""
+        return KVCache(k=self.kv.k[:, slot:slot + 1], v=self.kv.v[:, slot:slot + 1])
+
+    def _best_prefix(self, rest: list[int]) -> tuple[int, int]:
+        """(source slot, longest shared prefill-context prefix) over all slots."""
+        best, best_k = 0, 0
+        for s, ctx in enumerate(self._ctx):
+            if not ctx:
+                continue
+            k = 0
+            for a, b in zip(rest, ctx):
+                if a != b:
+                    break
+                k += 1
+            if k > best_k:
+                best, best_k = s, k
+        return best, best_k
+
+    def begin_admit(self, req: Request, slot: int) -> _Admission:
+        """Start admitting into ``slot``: reuse the longest prefill-context
+        prefix of any slot (its rows copied into this slot's column), then
+        prefill the rest in place, one chunk per :meth:`continue_admit`."""
+        ids = req.prompt_ids
+        if not ids:
+            raise ValueError("empty prompt")
+        limit = self.cfg.seq_len - self.spec  # spec: K + 1 rows past the prompt
+        if len(ids) >= limit:
+            raise ValueError(
+                f"prompt of {len(ids)} tokens exceeds the usable context "
+                f"({limit} = seq_len {self.cfg.seq_len}"
+                + (f" - spec-lookup {self.spec}" if self.spec else "") + ")")
+        rest = ids[:-1]
+        src, k = self._best_prefix(rest)
+        if k and src != slot:
+            self.kv.k[:, slot, :, :k] = self.kv.k[:, src, :, :k]
+            self.kv.v[:, slot, :, :k] = self.kv.v[:, src, :, :k]
+        # prefill rewrites the column from row k on: its old context is no
+        # longer reusable, and its ride-along writes go past the prompt
+        self._ctx[slot] = None
+        self.pos[slot] = len(rest)
+        self.reused_tokens += k
+        return _Admission(req=req, slot=slot, col=self._column(slot), pos=k)
+
+    def continue_admit(self, adm: _Admission) -> bool:
+        """One admission step: one bucketed prefill chunk into the slot's
+        column; the last step records the prefill context and arms decode.
+        Returns True once committed."""
+        rest = adm.req.prompt_ids[:-1]
+        if adm.pos < len(rest):
+            n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
+            chunk = rest[adm.pos:adm.pos + n_b]
+            pad_to = min(n_b, self.cfg.seq_len - adm.pos)
+            tokens = torch.tensor([chunk + [0] * (pad_to - len(chunk))], dtype=torch.long,
+                                  device=self.eng.device)
+            forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
+            adm.pos += len(chunk)
+            if adm.pos < len(rest):
+                return False
+        adm.col = None
+        self._ctx[adm.slot] = list(rest)
+        if self.spec:
+            self._proposers[adm.slot] = NgramProposer(self.spec)
+            self._proposers[adm.slot].extend(adm.req.prompt_ids)
+        self._arm_decode(adm)
+        return True
+
+    def reset_state(self) -> None:
+        """Crash recovery: every slot, cached prefix and proposer
+        forgotten, so no later admission can match rows a half-finished
+        dispatch may have corrupted."""
+        self.slots = [None] * self.n_slots
+        self._ctx = [None] * self.n_slots
+        self._proposers = [None] * self.n_slots
+        self.pos[:] = 0
+        self.next_token[:] = 0
+
+    # -- decode -------------------------------------------------------------
+
+    def _assert_ctx_intact(self) -> None:
+        if __debug__:
+            # cross-slot prefix reuse: every write cursor sits at or past
+            # its slot's prefill context, so ride-along writes never touch
+            # reusable rows
+            for i, ctx in enumerate(self._ctx):
+                assert ctx is None or self.pos[i] >= len(ctx), (i, int(self.pos[i]), len(ctx))
+
+    def _dispatch(self, knobs: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """``k`` replays of :meth:`step_graph` from every slot's next token
+        and position, ``knobs`` ``[2 + k, n_slots]`` (temperature, top-p,
+        one coin row per step): one host→device copy each for the inputs
+        and the knobs, one readback. Returns ``(tokens [n_slots, k],
+        non-finite lanes [n_slots])``."""
+        graph = self.step_graph()
+        load(self._in, self._in_host, np.stack(
+            [self.next_token, self.pos, np.zeros_like(self.pos)], axis=1))
+        full = np.zeros((2 + self.chunk, self.n_slots), dtype=np.float32)
+        full[:2 + k] = knobs
+        load(self._knobs, self._knobs_host, full)
+        for _ in range(k):
+            graph.replay()
+        out = self._out[:, :k].cpu().numpy()
+        return out[0].T, out[1].sum(axis=0)
+
+    def step(self) -> int:
+        """One ragged decode step for every active slot (one replay of
+        :meth:`step_graph`; under ``spec`` the verify step,
+        :meth:`_spec_step`). Returns the tokens emitted."""
+        active = self._sweep_cancelled()
+        if self.spec:
+            # the K+1-wide write would run past the context: slots that
+            # close to the cap retire before the dispatch, as in the JAX
+            # package (spec trades the last K positions for run dispatches)
+            for i in list(active):
+                if self.pos[i] + self.spec + 1 > self.cfg.seq_len:
+                    self._retire(i)
+                    active.remove(i)
+        if not active:
+            return 0
+        self._assert_ctx_intact()
+        knobs = self._sampling_rows(active)
+        if self.spec:
+            return self._spec_step(active, knobs)
+        toks, nf = self._dispatch(knobs, 1)
+        poisoned = self._handle_nonfinite(active, nf)
+        return sum(self._emit_run(i, [int(toks[i, 0])]) for i in active
+                   if i not in poisoned)
+
+    def step_chunk(self, k: int) -> int:
+        """``k`` ragged decode steps in one dispatch: ``k`` replays of
+        :meth:`step_graph` and one readback. Falls back to :meth:`step`
+        for ``k <= 1``, under ``spec``, or when an active slot lacks ``k``
+        rows of context or ``k`` tokens of budget (the tail runs single
+        steps, as the engine's chunked decode does). Each sampled row's
+        coins are drawn from a COPY of its RNG state, which then advances
+        by exactly the tokens kept, so every coin stream equals the
+        single-step one."""
+        if k <= 1 or self.spec:
+            return self.step()
+        if k > self.chunk:
+            raise ValueError(f"step_chunk({k}) exceeds the captured chunk of {self.chunk}")
+        active = self._sweep_cancelled()
+        if not active:
+            return 0
+        if any(self.pos[i] + k > self.cfg.seq_len
+               or self.slots[i].max_tokens - len(self.slots[i].tokens) < k for i in active):
+            return self.step()
+        self._assert_ctx_intact()
+        knobs = np.zeros((2 + k, self.n_slots), dtype=np.float32)
+        for i in active:
+            req = self.slots[i]
+            knobs[0, i], knobs[1, i] = req.temperature, req.topp
+            if req.temperature > 0.0:
+                st = req.rng_state  # a COPY: committed after truncation
+                for j in range(k):
+                    knobs[2 + j, i], st = xorshift_random_f32(st)
+        toks, nf = self._dispatch(knobs, k)
+        poisoned = self._handle_nonfinite(active, nf)
+        emitted = 0
+        for i in active:
+            if i in poisoned:
+                continue
+            req = self.slots[i]
+            n = self._emit_run(i, [int(t) for t in toks[i]])
+            emitted += n
+            if req.temperature > 0.0:
+                st = req.rng_state
+                for _ in range(n):
+                    _, st = xorshift_random_f32(st)
+                req.rng_state = st
+        return emitted
+
+    def _spec_step(self, active: list[int], knobs: np.ndarray) -> int:
+        """One ragged verify step for every active slot: one replay of
+        :meth:`verify_graph`. Greedy rows verify their proposer's K drafts
+        and emit the accepted run; sampled rows emit exactly one token for
+        the one coin they drew. Returns the tokens emitted."""
+        W = self.spec + 1
+        toks = np.zeros((self.n_slots, W), dtype=np.int64)
+        for i in active:
+            toks[i, 0] = self.next_token[i]
+            if self.slots[i].temperature <= 0.0:
+                toks[i, 1:] = self._proposers[i].draft()
+        graph = self.verify_graph()
+        load(self._vin, self._vin_host, np.concatenate([toks, self.pos[:, None]], axis=1))
+        load(self._vknobs, self._vknobs_host, knobs)
+        graph.replay()
+        out = self._vout.cpu().numpy()
+        poisoned = self._handle_nonfinite(active, out[1])
+        emitted = 0
+        for i in active:
+            if i in poisoned:
+                continue
+            req = self.slots[i]
+            acc = int(out[0, i])
+            if req.temperature <= 0.0:
+                req.spec_drafted += self.spec
+                req.spec_accepted += acc
+            emitted += self._emit_run(i, [int(t) for t in out[2:acc + 3, i]])
+        return emitted
+
+
+class PagedGenerator(_GeneratorCore):
+    """Block-granular paged KV + the paged ragged decode step. Not
+    thread-safe by itself (the scheduler's loop thread owns it).
+
+    KV lives in a block pool ``[L, n_blocks, n_kv, block_size, hd]`` of
+    ``n_slots * table_width + 1`` blocks (the null block included). A
+    sequence holds exactly the blocks its context needs (lazy growth at
+    decode), and admission reserves each request's worst case, so organic
+    mid-decode exhaustion cannot happen."""
+
+    def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
+        block_size = int(engine.kv_block_size or 0)
+        if block_size <= 0:
+            raise ValueError("PagedGenerator needs an engine built with "
+                             "kv_block_size (--kv-block-size N)")
+        super().__init__(engine, n_slots)
+        self.block_size = block_size
+        self.table_width = blocks_per_seq(self.cfg.seq_len, block_size)
+        n_blocks = n_slots * self.table_width + 1
+        self.pool_bytes = block_pool_bytes(self.cfg, n_blocks, block_size,
+                                           engine.kv_dtype.itemsize)
+        if engine.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(engine.device)
+            if self.pool_bytes > free:
+                raise RuntimeError(
+                    f"the paged KV pool needs {self.pool_bytes / 1e9:.2f} GB "
+                    f"({n_blocks} blocks of {block_size} rows for {n_slots} slots "
+                    f"at {self.cfg.seq_len} positions) but {free / 1e9:.2f} GB of "
+                    f"device memory is free; lower --batch-slots or --max-seq-len")
+        self.pool = BlockPool(n_blocks, block_size)
+        self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
+                                       dtype=engine.kv_dtype, device=engine.device)
+        # per-slot block tables (host truth; shipped with pos and the next
+        # token in one host→device copy per step)
+        self.tables = np.zeros((n_slots, self.table_width), dtype=np.int64)
+        self._seq_bids: list[list[int]] = [[] for _ in range(n_slots)]
+        # shared-prefix length (in blocks) per slot: the commit scatter skips
+        # those entries, so a shared block is never written
+        self._n_shared = [0] * n_slots
+        # per-slot RESERVATION: worst-case blocks the slot's request may
+        # still allocate at decode boundaries; can_admit subtracts the
+        # outstanding total so concurrent sequences can't double-spend
+        self._reserve = [0] * n_slots
+        self._graph: StepGraph | None = None  # the paged step, built at first use
+        self._verify: StepGraph | None = None  # the paged verify step, built at first use
+
+    def step_graph(self) -> StepGraph:
+        """The paged step on static buffers (``[n_slots, 2 + table_width]``
+        int64: next token, position, block table; ``[3, n_slots]`` f32:
+        temperature, top-p, coin; out ``[2, n_slots]``: token, non-finite
+        lanes), captured on the card at the first call, on the calling
+        thread. The warm-up runs with every input 0: all-null tables, so
+        its writes land in the null block."""
+        if self._graph is None:
+            dev = self.eng.device
+            inp = self._in = torch.zeros((self.n_slots, 2 + self.table_width),
+                                         dtype=torch.long, device=dev)
+            knobs = self._knobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
+                                              device=dev)
+            out = self._out = torch.zeros((2, self.n_slots), dtype=torch.long, device=dev)
+            self._in_host, self._knobs_host = staging(inp), staging(knobs)
+            # the body closes over tensors, never over self (no cycle that
+            # would keep the pool alive past close() until a collection)
+            params, cfg, pkv = self.eng.params, self.cfg, self.pkv
+
+            def body() -> None:
+                nxt, nf = paged_sampled_step(params, cfg, inp[:, :1], inp[:, 1], pkv,
+                                             inp[:, 2:], knobs[0], knobs[1], knobs[2])
+                out[0].copy_(nxt)
+                out[1].copy_(nf)
+
+            self._graph = StepGraph(body, dev)
+        return self._graph
+
+    def verify_graph(self) -> StepGraph:
+        """The paged verify step on static buffers, captured once for this
+        pool geometry (``n_slots``, ``K + 1``, table width) at the first
+        call, on the calling thread: ``[n_slots, K + 3 + table_width]``
+        int64 (the K+1 tokens, position, draft length, block table),
+        ``[K + 3, n_slots]`` f32 (temperature, top-p, the K draft coins,
+        the bonus coin); out ``[K + 3, n_slots]`` int64 (accepted drafts,
+        non-finite lanes, the K+1 emitted candidates). The warm-up runs
+        with every input 0: all-null tables, so its writes land in the
+        null block."""
+        if self._verify is None:
+            dev, W = self.eng.device, self.spec + 1
+            inp = self._vin = torch.zeros((self.n_slots, W + 2 + self.table_width),
+                                          dtype=torch.long, device=dev)
+            knobs = self._vknobs = torch.zeros((W + 2, self.n_slots), dtype=torch.float32,
+                                               device=dev)
+            out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
+                                           device=dev)
+            self._vin_host, self._vknobs_host = staging(inp), staging(knobs)
+            params, cfg, pkv = self.eng.params, self.cfg, self.pkv  # tensors, not self
+
+            def body() -> None:
+                n_acc, toks, nf = paged_verify_step(
+                    params, cfg, inp[:, :W], inp[:, W], pkv, inp[:, W + 2:], inp[:, W + 1],
+                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1])
+                out[0].copy_(n_acc)
+                out[1].copy_(nf)
+                out[2:].copy_(toks.t())
+
+            self._verify = StepGraph(body, dev)
+        return self._verify
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def _worst_case_blocks(self, prompt_len: int, max_tokens: int) -> int:
+        """Admission price in blocks: every position the request could ever
+        write (prompt prefill + decode growth, capped at seq_len). Under
+        speculative serving a verify step writes up to ``pos + lens``
+        (``lens <= spec``), so the frontier can run ``spec`` rows past the
+        committed need: the ``+ spec`` keeps organic mid-verify exhaustion
+        impossible (``lens`` is clamped to ``seq_len - 1 - pos``, so the cap
+        holds)."""
+        rows = min(prompt_len - 1 + max_tokens + self.spec, self.cfg.seq_len)
+        return max(1, -(-rows // self.block_size))
+
+    def can_admit(self, req: Request) -> bool:
+        """Free (+ evictable) blocks minus every live sequence's outstanding
+        worst-case growth must cover this request's own worst case."""
+        return (self.pool.free_blocks() - sum(self._reserve)
+                >= self._worst_case_blocks(len(req.prompt_ids), req.max_tokens))
+
+    def _retire(self, slot: int) -> None:
+        self._release_blocks(slot)
+        super()._retire(slot)
+
+    def _release_blocks(self, slot: int) -> None:
+        """Drop every block reference ``slot`` holds and forget its
+        bookkeeping (the all-null table row sends ride-along writes to the
+        null block)."""
+        for b in self._seq_bids[slot]:
+            self.pool.release(b)
+        self._seq_bids[slot] = []
+        self._n_shared[slot] = 0
+        self._reserve[slot] = 0
+        self.tables[slot, :] = self.pool.NULL
 
     # -- device block movement (plain torch indexing, not kernels) ----------
 
@@ -519,12 +907,6 @@ class PagedGenerator:
             self._proposers[slot].extend(adm.req.prompt_ids)
         self._arm_decode(adm)
         return True
-
-    def admit(self, req: Request, slot: int) -> None:
-        """Admit in one go (tests / non-interleaved callers)."""
-        adm = self.begin_admit(req, slot)
-        while not self.continue_admit(adm):
-            pass
 
     def abort_admit(self, adm: _Admission) -> None:
         """Release everything ``begin_admit`` took for an admission that will
@@ -702,7 +1084,10 @@ class BatchScheduler:
     def __init__(self, engine: "InferenceEngine", n_slots: int = 4, *,
                  max_queue: int = 0, max_restarts: int = 3,
                  _start_thread: bool = True):
-        self.gen = PagedGenerator(engine, n_slots)
+        # --kv-block-size picks the paged block pool, else the dense slot
+        # pool; the queue, deadlines and supervision are the same over both
+        self.gen: _GeneratorCore = (PagedGenerator(engine, n_slots) if engine.kv_block_size
+                                    else BatchedGenerator(engine, n_slots))
         self.n_slots = n_slots
         # interleaved chunked prefill: per tick the first admission always
         # advances one chunk, further ones only while this budget lasts, so
@@ -728,7 +1113,7 @@ class BatchScheduler:
                             dev.index if dev.index is not None else torch.cuda.current_device())
         self._thread: threading.Thread | None = None
         if _start_thread:
-            # the loop thread captures the paged step first; the scheduler
+            # the loop thread captures the tick's step first; the scheduler
             # is handed out (and a server listens) only after that capture
             started = threading.Event()
             failed: list[Exception] = []
@@ -902,9 +1287,9 @@ class BatchScheduler:
                 self._on_crash(exc)
 
     def _tick(self) -> None:
-        """One loop tick: deadlines, block-priced admissions, the cancel
-        sweep, interleaved prefill chunks under the token budget, then one
-        decode step for every active slot."""
+        """One loop tick: deadlines, admissions (block-priced in the paged
+        pool), the cancel sweep, interleaved prefill chunks under the token
+        budget, then one decode dispatch for every active slot."""
         self._check_deadlines()
         reserved = {a.slot for a in self._admissions}
         with self._lock:
@@ -963,4 +1348,9 @@ class BatchScheduler:
             self._wake.wait(timeout=0.05)
             self._wake.clear()
             return
-        self.gen.step()
+        # --decode-chunk K (dense pool only; the engine refuses it with
+        # --kv-block-size): K steps per tick, admissions interleave per K
+        if self.gen.eng.decode_chunk > 1:
+            self.gen.step_chunk(self.gen.eng.decode_chunk)
+        else:
+            self.gen.step()

@@ -1,5 +1,5 @@
-"""OpenAI-compatible HTTP API over continuous batching (the port of the JAX
-package's ``serve/api.py``, batched paged mode only).
+"""OpenAI-compatible HTTP API (the port of the JAX package's
+``serve/api.py``): the single-sequence server and continuous batching.
 
 * ``POST /v1/chat/completions`` — messages → completion, optional SSE
   streaming (``"stream": true``), ``temperature``/``top_p``/``seed``/
@@ -7,18 +7,28 @@ package's ``serve/api.py``, batched paged mode only).
 * ``GET /v1/models``, ``/health`` and ``/healthz`` (liveness), ``/readyz``
   (readiness with a machine-readable code).
 
-A ``ThreadingHTTPServer`` front end over
-:class:`~dllama_tpu_torch.runtime.serving.BatchScheduler`: handler threads
-submit and block on a per-request queue fed by the scheduler thread's
-``on_token`` callback. Status codes are the JAX server's: 400 for a
-malformed body, 404 for an unknown route, 408 for a deadline that expired
-before any output, 429 when the queue is full, 503 when the scheduler is
-draining or crashed.
+Two states behind one handler, as in the JAX package:
 
-Left out (later slices): the single-sequence ``ApiState`` with its
-NaiveCache, the fleet router headers, stream resume, the ``timing`` block
-(the field is validated and ignored), ``/metrics`` and ``/debug/*``, KV
-export and tenancy.
+* :class:`ApiState` (``api`` without ``--batch-slots``) — the reference's
+  own ``dllama-api``: one sequence on the engine, a plain ``HTTPServer``
+  that serves one request at a time, and the message-prefix KV reuse of
+  :class:`NaiveCache` (a body that extends the previous conversation
+  prefills only its new messages);
+* :class:`BatchedApiState` (``--batch-slots N``) — a
+  ``ThreadingHTTPServer`` over
+  :class:`~dllama_tpu_torch.runtime.serving.BatchScheduler` (the dense slot
+  pool, or the paged block pool with ``--kv-block-size``): handler threads
+  submit and block on a per-request queue fed by the scheduler thread's
+  ``on_token`` callback.
+
+Status codes are the JAX server's: 400 for a malformed body, 404 for an
+unknown route, 408 for a deadline that expired before any output, 429 when
+the queue is full, 503 when the scheduler is draining or crashed.
+
+Left out (later slices): the HBM admission guard and the canary (ROADMAP
+A9), the fleet router headers and tenancy, stream resume, the ``timing``
+block (the field is validated and ignored), ``/metrics`` and ``/debug/*``
+(A14), and KV export.
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ import signal
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
+from ..runtime.speculative import NgramProposer
 from ..runtime.serving import (BatchScheduler, QueueFullError, RequestTimeoutError,
                                SchedulerUnavailableError)
 from ..tokenizer.chat import (ChatItem, ChatTemplateGenerator, ChatTemplateType,
@@ -45,10 +57,6 @@ _MAX_TIMEOUT_S = 3600.0
 # clients backpressured in the same instant don't return in one wave
 RETRY_AFTER_S = {429: 1, 503: 5}
 RETRY_AFTER_JITTER_S = {429: 1, 503: 3}
-
-# seconds the server lets active slots finish after SIGTERM or shutdown
-DRAIN_TIMEOUT_S = 5.0
-
 
 def backpressure_headers(status: int) -> dict:
     return {"Retry-After": str(RETRY_AFTER_S[status]
@@ -117,6 +125,39 @@ def _validate_body(body: dict) -> None:
         raise ValueError("stream resume is not supported by this server")
 
 
+@dataclass
+class CachedMessage:
+    role: str
+    content: str
+    end_pos: int
+
+
+@dataclass
+class NaiveCache:
+    """Message-prefix KV cache (reference: NaiveCache, dllama-api.cpp:294-339)."""
+
+    items: list[CachedMessage] = field(default_factory=list)
+
+    def resolve_delta(self, messages: list[dict]) -> tuple[list[dict], int]:
+        """If ``messages`` strictly extends the cached history, return the new
+        suffix plus the cached end position; else clear and return all."""
+        n = len(self.items)
+        if n and len(messages) > n:
+            for i, item in enumerate(self.items):
+                m = messages[i]
+                if item.role != m.get("role") or item.content != m.get("content"):
+                    break
+            else:
+                return messages[n:], self.items[n - 1].end_pos
+        self.items.clear()
+        return messages, 0
+
+    def push(self, messages: list[dict], end_pos: int) -> None:
+        for m in messages:
+            self.items.append(CachedMessage(m.get("role", ""), m.get("content", ""),
+                                            end_pos))
+
+
 def _request_stops(base: list[str], body: dict) -> list[str]:
     """Tokenizer stop pieces + the request's OpenAI ``stop`` strings."""
     req = body.get("stop")
@@ -157,6 +198,124 @@ class _EosGate:
         self._out(self.detector.get_delta())
 
 
+def chat_template(tok, template_type: ChatTemplateType
+                  ) -> tuple[ChatTemplateGenerator, list[str]]:
+    """The tokenizer's chat template (or the forced family) and the stop
+    pieces of its EOS tokens."""
+    eos_piece = (tok.vocab[tok.eos_token_ids[0]].decode("utf-8", "replace")
+                 if tok.eos_token_ids else "")
+    template = ChatTemplateGenerator(tok.chat_template, eos=eos_piece, type=template_type)
+    return template, [tok.vocab[t].decode("utf-8", "replace") for t in tok.eos_token_ids]
+
+
+class ApiState:
+    """The single-sequence server's state: the engine, its chat template and
+    the message-prefix cache. The server runs one request at a time."""
+
+    def __init__(self, engine, model_name: str = "dllama-tpu",
+                 template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
+                 request_timeout: float = 0.0):
+        self.engine = engine
+        self.model_name = model_name
+        self.request_timeout = request_timeout  # server default (0 = none)
+        self.template, self.stop_pieces = chat_template(engine.tokenizer, template_type)
+        self.cache = NaiveCache()
+
+    def readiness(self) -> tuple[bool, str, str]:
+        return True, "ok", "ok"
+
+    def complete(self, body: dict, emit=None) -> dict:
+        """Run one chat completion; ``emit(text)`` streams deltas when set.
+
+        The flow of ApiServer::complete (dllama-api.cpp:363-484): resolve the
+        new messages against the cache (the engine resumes at the cached end
+        position, or starts over), template + encode them, prefill in
+        chunks, then decode on the engine with the EOS detector gating the
+        emitted text. The deadline is checked between decode dispatches."""
+        engine = self.engine
+        tok = engine.tokenizer
+        _validate_body(body)
+        messages = body["messages"]
+        timeout_s = float(body.get("timeout") or self.request_timeout or 0)
+        deadline = time.monotonic() + timeout_s if timeout_s > 0 else 0.0
+        if "temperature" in body:
+            engine.sampler.set_temp(float(body["temperature"]))
+        if "seed" in body:
+            engine.sampler.set_seed(int(body["seed"]))
+        if "top_p" in body:
+            engine.sampler.topp = float(body["top_p"])
+        max_tokens = int(body.get("max_tokens") or 0)
+
+        delta, start_pos = self.cache.resolve_delta(messages)
+        if start_pos == 0:
+            engine.reset()
+        else:
+            engine.pos = start_pos
+        items = [ChatItem(m.get("role", "user"), m.get("content", "")) for m in delta]
+        prompt = self.template.generate(items, append_generation_prompt=True)
+        ids = tok.encode(prompt.content, is_start=start_pos == 0, add_special_tokens=True)
+        prompt_end = min(start_pos + len(ids) - 1, engine.cfg.seq_len)
+        max_pred = min(engine.cfg.seq_len,
+                       prompt_end + max_tokens if max_tokens > 0 else engine.cfg.seq_len)
+        self.cache.push(delta, prompt_end)
+
+        stops = _request_stops(self.stop_pieces, body)
+        custom_stops = len(stops) > len(self.stop_pieces)
+        gate = _EosGate(tok, stops, emit)
+        if prompt.public_prompt:
+            gate._out(prompt.public_prompt)
+        if len(ids) > 1:
+            engine.prefill(ids[: prompt_end - start_pos])
+        token = ids[prompt_end - start_pos] if prompt_end - start_pos < len(ids) else ids[-1]
+        tok.reset_decoder()
+
+        proposer = None
+        if engine.spec_active:
+            proposer = NgramProposer(engine.spec_lookup)
+            proposer.extend(ids)
+        n_completion = 0
+        finish_reason = "length"
+        while engine.pos < max_pred:
+            if deadline and time.monotonic() >= deadline:
+                # the decode loop runs on the handler thread: cancelling is
+                # stopping it
+                if n_completion == 0:
+                    raise RequestTimeoutError(f"no output within timeout ({timeout_s:g}s)")
+                finish_reason = "timeout"
+                break
+            if proposer is not None and max_pred - engine.pos >= engine.spec_lookup + 1:
+                run = engine.speculative_tokens(token, proposer.draft())
+                n_keep, stopped = len(run), False
+                for j, t in enumerate(run):
+                    if gate.feed(t, tok.decode(t)):
+                        n_keep, stopped = j + 1, True
+                        break
+                engine.commit_chunk(n_keep)
+                n_completion += n_keep
+                proposer.extend(run[:n_keep])
+                token = run[n_keep - 1]
+                if stopped:
+                    finish_reason = "stop"
+                    break
+                continue
+            token = engine.next_token(token)
+            n_completion += 1
+            if gate.feed(token, tok.decode(token)):
+                finish_reason = "stop"
+                break
+        if finish_reason in ("length", "timeout"):
+            gate.flush_tail()
+        if not (custom_stops and finish_reason == "stop"):
+            # a custom-stop finish leaves the hidden stop text and an
+            # unterminated assistant turn in the cache: a continuation from
+            # engine.pos would decode against malformed context, so the next
+            # request re-prefills the assistant text from the prompt's end
+            self.cache.push([{"role": "assistant", "content": "".join(gate.parts)}],
+                            engine.pos)
+        return {"text": "".join(gate.parts), "finish_reason": finish_reason,
+                "prompt_tokens": len(ids), "completion_tokens": n_completion}
+
+
 class BatchedApiState:
     """The engine, its chat template and the batch scheduler, shared by
     the handler threads."""
@@ -167,13 +326,7 @@ class BatchedApiState:
         self.engine = engine
         self.model_name = model_name
         self.request_timeout = request_timeout  # server default (0 = none)
-        tok = engine.tokenizer
-        eos_piece = (tok.vocab[tok.eos_token_ids[0]].decode("utf-8", "replace")
-                     if tok.eos_token_ids else "")
-        self.template = ChatTemplateGenerator(tok.chat_template, eos=eos_piece,
-                                              type=template_type)
-        self.stop_pieces = [tok.vocab[t].decode("utf-8", "replace")
-                            for t in tok.eos_token_ids]
+        self.template, self.stop_pieces = chat_template(engine.tokenizer, template_type)
         self.sched = BatchScheduler(engine, n_slots, max_queue=max_queue)
 
     def readiness(self) -> tuple[bool, str, str]:
@@ -254,7 +407,7 @@ class BatchedApiState:
                 "prompt_tokens": len(ids), "completion_tokens": n_completion}
 
 
-def _completion_json(state: BatchedApiState, out: dict) -> dict:
+def _completion_json(state: ApiState | BatchedApiState, out: dict) -> dict:
     return {
         "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
         "object": "chat.completion",
@@ -273,7 +426,7 @@ def _completion_json(state: BatchedApiState, out: dict) -> dict:
     }
 
 
-def _chunk_json(state: BatchedApiState, delta: dict, finish_reason=None) -> dict:
+def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=None) -> dict:
     return {
         "id": "chatcmpl-stream",
         "object": "chat.completion.chunk",
@@ -286,7 +439,7 @@ def _chunk_json(state: BatchedApiState, delta: dict, finish_reason=None) -> dict
 _ROUTES = ("/v1/chat/completions", "/v1/models", "/health", "/healthz", "/readyz")
 
 
-def make_handler(state: BatchedApiState):
+def make_handler(state: ApiState | BatchedApiState):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
         # whole-socket timeout: a client that stalls mid-body or stops
@@ -422,41 +575,61 @@ def make_handler(state: BatchedApiState):
     return Handler
 
 
-def build_api_server(args) -> tuple[ThreadingHTTPServer, BatchedApiState]:
-    """The engine, the batched state and the bound (not yet serving) HTTP
-    server for ``args`` (the CLI's ``api`` flags)."""
+def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
+    """The engine, the API state and the bound (not yet serving) HTTP server
+    for ``args`` (the CLI's ``api`` flags): the single-sequence server
+    without ``--batch-slots``, else continuous batching on the dense slot
+    pool, or on the paged block pool with ``--kv-block-size``."""
     from .cli import make_engine
 
     n_slots = args.batch_slots or 0
-    if n_slots <= 1:
-        raise SystemExit("api mode needs --batch-slots N (N > 1) with --kv-block-size: "
-                         "the single-sequence API server is not ported to this "
-                         "package yet (use python -m dllama_tpu api)")
-    if not args.kv_block_size:
-        raise SystemExit("api mode needs --kv-block-size B: the dense slot pool "
-                         "(--batch-slots without --kv-block-size) is not ported to "
-                         "this package yet (use python -m dllama_tpu api)")
+    if args.kv_block_size and n_slots <= 1:
+        raise SystemExit("--kv-block-size is the paged BATCHED serving cache; it needs "
+                         "--batch-slots N (N > 1) to serve through the "
+                         "continuous-batching scheduler")
+    if args.sp > 1 and not args.kv_block_size:  # the paged engine refuses --sp itself
+        raise SystemExit("api --sp N is not ported to this package yet (the single-"
+                         "sequence server and the dense slot pool run at sp = 1; use "
+                         "python -m dllama_tpu api)")
+    ttype = ChatTemplateType(args.chat_template or "unknown")
     engine = make_engine(args)
     try:
-        state = BatchedApiState(engine, n_slots, max_queue=args.max_queue,
-                                request_timeout=args.request_timeout)
+        if n_slots > 1:
+            state: ApiState | BatchedApiState = BatchedApiState(
+                engine, n_slots, template_type=ttype, max_queue=args.max_queue,
+                request_timeout=args.request_timeout)
+            server_cls = ThreadingHTTPServer
+        else:
+            # one request at a time: the engine holds one sequence
+            state = ApiState(engine, template_type=ttype,
+                             request_timeout=args.request_timeout)
+            server_cls = HTTPServer
         try:
-            server = ThreadingHTTPServer((args.host, args.port), make_handler(state))
+            server = server_cls((args.host, args.port), make_handler(state))
         except BaseException:
-            state.close()
+            if isinstance(state, BatchedApiState):
+                state.close()
             raise
     except BaseException:
         engine.close()
         raise
-    pool = state.sched.gen.pool
-    print(f"🕸️ continuous batching: {n_slots} slots"
-          + (f", queue bound {args.max_queue} (429 beyond)" if args.max_queue else ""))
-    print(f"🕸️ paged KV: {pool.n_blocks - 1} blocks × {pool.block_size} rows, "
-          f"{state.sched.gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
-          f"block-level prefix sharing)")
-    if engine.spec_lookup:
-        print(f"🕸️ speculative serving: verify K={engine.spec_lookup} per slot "
-              f"(greedy and temperature > 0 rows, exact-match verify)")
+    if isinstance(state, BatchedApiState):
+        gen = state.sched.gen
+        print(f"🕸️ continuous batching: {n_slots} slots"
+              + (f", queue bound {args.max_queue} (429 beyond)" if args.max_queue else ""))
+        if engine.kv_block_size:
+            print(f"🕸️ paged KV: {gen.pool.n_blocks - 1} blocks × {gen.pool.block_size} "
+                  f"rows, {gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
+                  f"block-level prefix sharing)")
+        else:
+            print(f"🕸️ dense KV slot pool: {n_slots} × {engine.cfg.seq_len} rows, "
+                  f"{gen.pool_bytes / 1e9:.2f} GB (cross-slot prefix reuse)"
+                  + (f", {engine.decode_chunk} steps per dispatch"
+                     if engine.decode_chunk > 1 else ""))
+        if engine.spec_lookup:
+            print(f"🕸️ speculative serving: verify K={engine.spec_lookup} per slot "
+                  + ("(greedy and temperature > 0 rows, exact-match verify)"
+                     if engine.kv_block_size else "(greedy requests)"))
     if args.request_timeout:
         print(f"🕸️ per-request deadline: {args.request_timeout:g}s "
               f"(request 'timeout' field overrides)")
@@ -465,15 +638,17 @@ def build_api_server(args) -> tuple[ThreadingHTTPServer, BatchedApiState]:
 
 def run_api_server(args, on_listening=None) -> int:
     """Serve until SIGTERM (main thread only) or ``server.shutdown()``; then
-    drain the active slots for up to :data:`DRAIN_TIMEOUT_S` and fail the
-    rest. ``on_listening(server, state)``, when given, runs once the socket
-    is bound (``server.server_address`` holds the real port under
-    ``--port 0``) — for a caller that embeds the server in its process."""
+    let batched serving's active slots finish for up to ``--drain-timeout``
+    seconds and fail the rest. ``on_listening(server, state)``, when given,
+    runs once the socket is bound (``server.server_address`` holds the real
+    port under ``--port 0``) — for a caller that embeds the server in its
+    process."""
     server, state = build_api_server(args)
 
     def _on_sigterm(signum, frame):
         print("🛑 SIGTERM: draining (readyz → 503, no new admissions)", flush=True)
-        state.begin_drain()
+        if isinstance(state, BatchedApiState):
+            state.begin_drain()
         # shutdown() from the serving thread itself would deadlock the poll
         threading.Thread(target=server.shutdown, daemon=True).start()
 
@@ -491,6 +666,7 @@ def run_api_server(args, on_listening=None) -> int:
         pass
     finally:
         server.server_close()
-        state.close(drain_s=DRAIN_TIMEOUT_S)
+        if isinstance(state, BatchedApiState):
+            state.close(drain_s=args.drain_timeout)
         state.engine.close()
     return 0

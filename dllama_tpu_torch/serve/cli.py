@@ -1,17 +1,23 @@
-"""``python -m dllama_tpu_torch inference|perplexity|api`` (the port of the
-JAX package's ``serve/cli.py`` ``make_engine``/``main``, these three modes;
-``api`` only as batched paged serving: ``--batch-slots N --kv-block-size B``).
+"""``python -m dllama_tpu_torch inference|chat|perplexity|api`` (the port of
+the JAX package's ``serve/cli.py`` ``make_engine``/``main``, these four
+modes).
+
+``api`` serves one sequence with message-prefix reuse (no
+``--batch-slots``), or continuous batching over the dense slot pool
+(``--batch-slots N``) or the paged block pool (``--batch-slots N
+--kv-block-size B``). ``chat`` is the interactive REPL.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
 usable GPU fails with a clear error. On the card each decode step is one
 replay of a captured CUDA graph; ``--decode-chunk K`` decodes ``K`` tokens
-per dispatch with one readback; ``--spec-lookup K`` verifies K drafts from
-the token history per dispatch (greedy ``inference``; every slot of
-``api``), a replayed graph too. ``--sp N`` splits the KV cache along the
-sequence over ``N`` visible CUDA devices (ring attention for prefill, a
-flash-decoding merge for decode; ``[cpu] * N`` under ``--device cpu``).
-Modes and flags of the JAX CLI that are not ported yet fail loudly instead of
-being ignored.
+per dispatch with one readback (``inference`` and the dense slot pool);
+``--spec-lookup K`` verifies K drafts from the token history per dispatch
+(greedy ``inference``, ``api`` and ``chat``; every slot of the paged pool,
+the greedy slots of the dense one), a replayed graph too. ``--sp N`` splits
+the KV cache along the sequence over ``N`` visible CUDA devices (ring
+attention for prefill, a flash-decoding merge for decode; ``[cpu] * N``
+under ``--device cpu``). Modes and flags of the JAX CLI that are not ported
+yet fail loudly instead of being ignored.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import time
 
 from ..formats.quants import F32, Q80
 from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
+from ..tokenizer.chat import ChatItem, ChatTemplateType
 
-PORTED_MODES = ("inference", "perplexity", "api")
+PORTED_MODES = ("inference", "chat", "perplexity", "api")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("chat", "eval", "worker", "verify", "audit", "timeline",
+PENDING_MODES = ("eval", "worker", "verify", "audit", "timeline",
                  "fleettrace", "router")
 
 
@@ -33,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
-    p.add_argument("mode", help="inference | perplexity | api")
+    p.add_argument("mode", help="inference | chat | perplexity | api")
     p.add_argument("--model", required=True, help=".m model file")
     p.add_argument("--tokenizer", required=True, help=".t tokenizer file")
     p.add_argument("--prompt", default=None)
@@ -42,6 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq-len", type=int, default=0)
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--topp", type=float, default=0.9)
+    p.add_argument("--chat-template", default=None,
+                   choices=["llama2", "llama3", "deepSeek3", "chatml"],
+                   help="chat/api: force the chat template family instead of "
+                        "detecting it from the tokenizer")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--buffer-float-type", choices=["f32", "q80"], default="q80",
                    help="sync buffer type: q80 fake-quantizes activations at "
@@ -64,9 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "output identical to plain greedy, accepted drafts "
                         "multiply decode throughput (HBM cost of a verify "
                         "is one decode step)")
-    # api mode (batched paged serving)
+    # api mode
     p.add_argument("--batch-slots", type=int, default=0,
-                   help="api: concurrent sequences of continuous batching")
+                   help="api: concurrent sequences of continuous batching "
+                        "(0 or 1: the single-sequence server)")
     p.add_argument("--kv-block-size", type=int, default=0,
                    help="api: rows per paged KV block (a power of two)")
     p.add_argument("--max-queue", type=int, default=0,
@@ -75,6 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=9990, help="api: port (0 = any free)")
     p.add_argument("--request-timeout", type=float, default=0.0,
                    help="api: default per-request deadline in seconds (0 = none)")
+    p.add_argument("--drain-timeout", type=float, default=5.0, metavar="SEC",
+                   help="api: on SIGTERM or shutdown, stop admitting and let active "
+                        "requests finish for up to SEC seconds before failing the rest")
     return p
 
 
@@ -134,6 +149,60 @@ def run_inference(args) -> int:
     return 0
 
 
+def run_chat(args) -> int:
+    """Interactive chat REPL (reference: dllama.cpp:174-258): each user line
+    is templated, prefilled after the conversation so far and answered on
+    the engine until an EOS piece; EOF or a full context ends it."""
+    from .api import _EosGate, chat_template  # api imports make_engine from here
+
+    engine = make_engine(args)
+    tok = engine.tokenizer
+    template, stop_pieces = chat_template(
+        tok, ChatTemplateType(args.chat_template or "unknown"))
+
+    def _print_delta(d: str) -> None:
+        sys.stdout.write(d)
+        sys.stdout.flush()
+
+    first = True
+    try:
+        while True:
+            try:
+                user = input("\n💻 > ")
+            except EOFError:
+                break
+            if not user.strip():
+                continue
+            chat = template.generate([ChatItem("user", user)], append_generation_prompt=True)
+            ids = tok.encode(chat.content, is_start=first, add_special_tokens=True)
+            first = False
+            if engine.pos + len(ids) >= engine.cfg.seq_len:
+                print("🚧 context is full (seq_len reached), stopping")
+                break
+            if chat.public_prompt:
+                sys.stdout.write(chat.public_prompt)
+            sys.stdout.write("\n🤖 ")
+            sys.stdout.flush()
+            if len(ids) > 1:
+                engine.prefill(ids[:-1])
+            token = ids[-1]
+            gate = _EosGate(tok, stop_pieces, emit=_print_delta)
+            tok.reset_decoder()
+            stopped = False
+            while engine.pos < engine.cfg.seq_len and not stopped:
+                token = engine.next_token(token)
+                stopped = gate.feed(token, tok.decode(token))
+            if not stopped:
+                # the context bound ended the turn: flush what the detector
+                # still holds as a possible stop prefix
+                gate.flush_tail()
+                sys.stdout.flush()
+            print()
+    finally:
+        engine.close()
+    return 0
+
+
 def run_perplexity(args) -> int:
     if args.file:
         with open(args.file, encoding="utf-8") as f:
@@ -175,9 +244,9 @@ def main(argv=None, on_listening=None) -> int:
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
                          f"--buffer-float-type --compute-dtype --device --sp "
-                         f"--decode-chunk --spec-lookup; api: "
+                         f"--decode-chunk --spec-lookup --chat-template; api: "
                          f"--batch-slots --kv-block-size --max-queue --host --port "
-                         f"--request-timeout)")
+                         f"--request-timeout --drain-timeout)")
     try:
         # the mesh's device count first: --sp N needs N visible cards
         mesh_plan(args.device, args.sp)
@@ -186,6 +255,8 @@ def main(argv=None, on_listening=None) -> int:
         raise SystemExit(f"error: {e}") from None
     if args.mode == "inference":
         return run_inference(args)
+    if args.mode == "chat":
+        return run_chat(args)
     if args.mode == "api":
         from .api import run_api_server
 

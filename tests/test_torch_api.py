@@ -202,7 +202,7 @@ def test_concurrent_requests_are_deterministic(server):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--batch-slots", "2"], "--kv-block-size"),
+    (["--batch-slots", "2", "--sp", "2"], "--sp"),
     (["--kv-block-size", "16"], "--batch-slots"),
 ])
 def test_unported_api_shapes_fail_loudly(files, argv, err):

@@ -91,7 +91,7 @@ def test_cuda_default_without_gpu_fails_clearly(assets):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["chat"], "not ported"),
+    (["eval"], "not ported"),
     (["inference", "--tp", "2"], "not-yet-ported flag"),
 ])
 def test_unported_modes_and_flags_fail_loudly(assets, argv, msg):

@@ -136,9 +136,30 @@ Phases, each failing loudly (non-zero exit, no result line):
    a ``stop`` body and an SSE body; ``python -m dllama_tpu_torch chat`` as
    a subprocess with two lines on stdin. Phase 3 holds K3 at the dense
    pool's shapes: 8 ragged rows at T = 1 and T = K + 1, single pass
-   (``tc`` over bf16). The long sp cell runs on an 8-layer copy of the
-   model (:data:`LONG_LAYERS`) to keep the run under 900 s;
-10. the ``kernels`` JSON line, then the result line
+   (``tc`` over bf16). The long sp cell, the graphs phase,
+   ``spec_serving`` and the dense pool's chunk and spec runs run on an
+   8-layer copy of the model (:data:`LONG_LAYERS`) to keep the run under
+   900 s;
+10. the engine options of slice 10 and weight integrity, at full width and
+   32 layers. Phase 3 adds K3, K3s and K4 over a float8 e4m3 cache (the
+   ``f8-*`` modes of :data:`ATTN_MODES` in the attention cases, under
+   the rules of the f32 and bf16 caches, against the plain version on the
+   same cache, the bound at 1 byte an element, the yardstick an upcast to
+   bf16 + SDPA) and the cache write's e4m3 cast on the card against the
+   JAX package's bits (:func:`f8_cast_check`). Then ``inference`` and
+   ``perplexity`` with ``--kv-dtype f8`` in f32 and bf16 (the logits'
+   drift from the default cache within 0.15 max|logit|, every K3 launch on
+   SIMT), the paged ``api`` on an e4m3 pool in bf16 (K4 launches, half
+   the pool bytes), the sp short cell's ``perplexity`` on e4m3 shards at sp
+   = 2 against sp = 1; ``--weight-mode f32`` and ``bf16`` in one CLI
+   process of their own (:func:`weight_modes`: f32 transcript and
+   perplexity against the quantized-plane exact run, K1 and K2 never
+   launched, TF32 off); ``--nbatches 32`` and ``--host-sampling`` against
+   the runs without (near-tie rule); ``verify --write`` / ``verify``, a
+   corrupt copy refused by ``verify``, by ``inference --verify-weights``
+   and by the loader with no device memory left behind
+   (:func:`integrity_phase`);
+11. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -379,7 +400,73 @@ def matmul_cases(timer: Timer, results: list) -> None:
     torch.cuda.empty_cache()
 
 
+# the attention kernels' case modes, as (cache dtype, query dtype): exact
+# (an f32 cache), fast (a bf16 cache), and a float8 e4m3 cache (``--kv-dtype
+# f8``) under f32 queries (f32 compute) and under bf16 ones (bf16 compute)
+F8 = torch.float8_e4m3fn
+ATTN_MODES = {"exact": (torch.float32, torch.float32),
+              "fast": (torch.bfloat16, torch.float32),
+              "f8-exact": (F8, torch.float32), "f8-fast": (F8, torch.bfloat16)}
+
+
+def random_kv(shape, mode: str, g: torch.Generator) -> torch.Tensor:
+    """Random K or V in the cache dtype of ``mode``; an e4m3 one through the
+    port's cache write (``runtime/kvcache.py::to_cache``)."""
+    from dllama_tpu_torch.runtime.kvcache import to_cache
+
+    return to_cache(torch.randn(shape, generator=g, device=DEV), ATTN_MODES[mode][0])
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """The library yardstick's cache: SDPA reads no e4m3, so an e4m3 cache
+    is widened to bf16 first (a second call, timed with it)."""
+    return t.to(torch.bfloat16) if t.dtype == F8 else t
+
+
+def out_errs(got: torch.Tensor, want: torch.Tensor, twin: torch.Tensor | None) -> dict:
+    """A K3/K4 output's error fields against the plain version and, on the
+    tensor cores, the twin. Under bf16 queries the kernel and the plain
+    version both return bf16, so the two may land one bf16 ulp (at most
+    2^-7 |ref|) apart: ``err_past_ulp`` / ``twin_err_past_ulp`` are the
+    excess past it."""
+    rounded = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    rec = dict(max_abs_err=(got - want).abs().max().item(),
+               max_abs_ref=want.abs().max().item(),
+               max_abs_err_twin=None if twin is None else (got - twin.float()).abs().max().item())
+    if rounded:
+        def past_ulp(ref):
+            return ((got - ref).abs() - 2.0 ** -7 * ref.abs()).clamp(min=0).max().item()
+
+        rec.update(err_past_ulp=past_ulp(want),
+                   twin_err_past_ulp=None if twin is None else past_ulp(twin.float()))
+    return rec
+
+
+def hold_out(what: str, rec: dict, path: str) -> None:
+    """The rule of every K3/K4 output case, whatever its cache: on the SIMT
+    kernels 1e-4 of max(max|out|, 1) (f32 online softmax against the
+    one-shot oracle: reordered sums and exps), past one bf16 ulp where the
+    output is bf16; on the tensor cores :data:`TC_TWIN_TOL` of max|out|
+    against the twin (past one ulp likewise) and ``TOL["fast"]`` of max|out|
+    against the f32 plain version."""
+    err, scale = rec["max_abs_err"], rec["max_abs_ref"]
+    if path == "tc":
+        twin = rec.get("twin_err_past_ulp", rec["max_abs_err_twin"])
+        if not (twin <= TC_TWIN_TOL * scale and err <= TOL["fast"] * scale):
+            fail(f"{what}: max|err| {twin:.3g} against the twin, {err:.3g} against the "
+                 f"plain version (max|out| {scale:.3g})")
+    elif not (rec.get("err_past_ulp", err) <= 1e-4 * max(scale, 1.0)) \
+            or not math.isfinite(err):
+        fail(f"{what}: max|err| {err:.3g} (past one bf16 ulp: "
+             f"{rec.get('err_past_ulp')}; max|out| {scale:.3g})")
+
+
 def attention_cases(timer: Timer, results: list) -> None:
+    """K3 against its plain version (and on the tensor cores its twin) in
+    every mode of :data:`ATTN_MODES`; on an e4m3 cache the decode at depth
+    2047 and the long sp cell's decode and 256-token chunk, the bound at 1
+    byte a cache element."""
     import torch.nn.functional as F
 
     from dllama_tpu_torch.ops import flash_attention as fa
@@ -400,14 +487,15 @@ def attention_cases(timer: Timer, results: list) -> None:
         ("prefill", 128, 0, 64, S),
         ("decode", 1, LONG_DEPTH, HEAD_DIM, SP_LONG_SEQ),
         ("prefill", 256, LONG_PREFILL_AT, HEAD_DIM, SP_LONG_SEQ)]
-    for mode in ("exact", "fast"):
-        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        caches = {(D, rows): [torch.randn((1, KV_HEADS, rows, D), generator=g,
-                                          device=DEV).to(kv_dt) for _ in range(2)]
-                  for D, rows in ((HEAD_DIM, S), (64, S), (HEAD_DIM, SP_LONG_SEQ))}
-        for phase, T, pos, D, rows in cases:
+    f8_cases = [("decode", 1, S - 1, HEAD_DIM, S), *cases[-2:]]
+    for mode, (kv_dt, q_dt) in ATTN_MODES.items():
+        f8 = kv_dt == F8
+        caches = {(D, rows): [random_kv((1, KV_HEADS, rows, D), mode, g) for _ in range(2)]
+                  for D, rows in ((HEAD_DIM, S), (64, S), (HEAD_DIM, SP_LONG_SEQ))
+                  if not f8 or D == HEAD_DIM}
+        for phase, T, pos, D, rows in (f8_cases if f8 else cases):
             k, v = caches[(D, rows)]
-            q = torch.randn((1, T, HEADS, D), generator=g, device=DEV)
+            q = torch.randn((1, T, HEADS, D), generator=g, device=DEV).to(q_dt)
             positions = (pos + torch.arange(T, device=DEV))[None, :]
             got = fa.flash_attention(q, k, v, pos, D)
             n_splits = fa.flash_attention.last_splits  # what this launch took
@@ -415,38 +503,32 @@ def attention_cases(timer: Timer, results: list) -> None:
             want = attention(q, k, v, positions, D)
             twin = fa.flash_attention_tc_plain(q, k, v, pos, D) if path == "tc" else None
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            err_twin = (got - twin).abs().max().item() if twin is not None else None
-            qs = q.transpose(1, 2).to(kv_dt)
+            errs = out_errs(got, want, twin)
+            qs = q.transpose(1, 2).to(upcast(k).dtype)
             mask = torch.arange(rows, device=DEV)[None, :] <= positions[0][:, None]
             ms = timer(lambda: fa.flash_attention(q, k, v, pos, D))
             plain_ms = timer(lambda: attention(q, k, v, positions, D))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=mask, enable_gqa=True))
+                qs, upcast(k), upcast(v), attn_mask=mask, enable_gqa=True))
             visible = sum(pos + t + 1 for t in range(T))  # keys per q head
             elt = k.element_size()
-            n_bytes = 2 * T * HEADS * D * 4 + 2 * (pos + T) * KV_HEADS * D * elt
+            n_bytes = 2 * T * HEADS * D * q.element_size() + 2 * (pos + T) * KV_HEADS * D * elt
             b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible,
                                "bf16" if path == "tc" else "f32")
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, T=T,
                        start_pos=pos, S=rows, head_dim=D, n_splits=n_splits, path=path,
-                       max_abs_err=err, max_abs_ref=scale, max_abs_err_twin=err_twin,
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                        bound_by=b_by)
+            if f8:
+                rec["library_note"] = "upcast to bf16 + SDPA (two calls)"
             print(json.dumps(rec), flush=True)
             results.append(rec)
-            check_path(f"K3 {mode} {phase} T={T} pos={pos}", mode, n_splits, path)
-            if path == "tc":
-                if not (err_twin <= TC_TWIN_TOL * scale and err <= TOL["fast"] * scale):
-                    fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err_twin:.3g} "
-                         f"against the twin, {err:.3g} against f32 (max|out| {scale:.3g})")
-            # f32 online softmax vs the one-shot oracle: reordered sums/exps
-            elif not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
-                fail(f"K3 {mode} {phase} T={T} pos={pos}: max|err| {err:.3g}")
+            what = f"K3 {mode} {phase} T={T} pos={pos}"
+            check_path(what, mode, n_splits, path)
+            hold_out(what, rec, path)
             if (n_splits > 1) != (phase in ("decode", "verify")):
-                fail(f"K3 {mode} {phase} T={T} pos={pos}: the launch took n_splits "
-                     f"{n_splits}; decode and verify must split, prefill must not")
+                fail(f"{what}: the launch took n_splits {n_splits}; decode and verify must "
+                     f"split, prefill must not")
         del caches
     torch.cuda.empty_cache()
 
@@ -461,9 +543,10 @@ def ragged_attention_cases(timer: Timer, results: list) -> None:
     hd]`` cache, each at its own start position (the ``pos[b]`` table), at
     the ragged depths :data:`RAGGED` with T = 1 (the dense step) and
     :data:`DENSE_VERIFY_DEPTHS` with T = K + 1 (the dense verify step),
-    exact and fast. 64 and 128 (b, head, query tile) blocks: both keep the
-    single pass, a bf16 cache on the tensor cores (4 and 20 folded rows of
-    its 64-row tile). Each held against the position-masked plain version at
+    in every mode of :data:`ATTN_MODES` (on an e4m3 cache the dense step
+    only). 64 and 128 (b, head, query tile) blocks: both keep the single
+    pass, a bf16 cache and an e4m3 one under bf16 queries on the tensor
+    cores (4 and 20 folded rows of its 64-row tile). Each held against the position-masked plain version at
     the same ``[B, T]`` positions and, on the tensor cores, against its twin
     ``flash_attention_tc_plain``; SDPA's time with the per-row mask beside
     it."""
@@ -474,13 +557,12 @@ def ragged_attention_cases(timer: Timer, results: list) -> None:
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 4)
     S = MAX_SEQ
-    for mode in ("exact", "fast"):
-        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        k, v = (torch.randn((SLOTS, KV_HEADS, S, HEAD_DIM), generator=g,
-                            device=DEV).to(kv_dt) for _ in range(2))
-        for phase, T, depths in (("ragged decode", 1, RAGGED),
-                                 ("ragged verify", SPEC_K + 1, DENSE_VERIFY_DEPTHS)):
-            q = torch.randn((SLOTS, T, HEADS, HEAD_DIM), generator=g, device=DEV)
+    for mode, (kv_dt, q_dt) in ATTN_MODES.items():
+        k, v = (random_kv((SLOTS, KV_HEADS, S, HEAD_DIM), mode, g) for _ in range(2))
+        phases = [("ragged decode", 1, RAGGED),
+                  ("ragged verify", SPEC_K + 1, DENSE_VERIFY_DEPTHS)]
+        for phase, T, depths in (phases[:1] if kv_dt == F8 else phases):
+            q = torch.randn((SLOTS, T, HEADS, HEAD_DIM), generator=g, device=DEV).to(q_dt)
             pos = torch.tensor(depths, device=DEV)
             positions = pos[:, None] + torch.arange(T, device=DEV)[None, :]
             got = fa.flash_attention(q, k, v, pos, HEAD_DIM)
@@ -489,27 +571,26 @@ def ragged_attention_cases(timer: Timer, results: list) -> None:
             want = attention(q, k, v, positions, HEAD_DIM)
             twin = fa.flash_attention_tc_plain(q, k, v, pos, HEAD_DIM) if path == "tc" else None
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            err_twin = (got - twin).abs().max().item() if twin is not None else None
-            qs = q.transpose(1, 2).to(kv_dt)
+            errs = out_errs(got, want, twin)
+            qs = q.transpose(1, 2).to(upcast(k).dtype)
             mask = (torch.arange(S, device=DEV)[None, None, :]
                     <= positions[:, :, None])[:, None]                 # [B, 1, T, S]
             ms = timer(lambda: fa.flash_attention(q, k, v, pos, HEAD_DIM))
             plain_ms = timer(lambda: attention(q, k, v, positions, HEAD_DIM))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=mask, enable_gqa=True))
+                qs, upcast(k), upcast(v), attn_mask=mask, enable_gqa=True))
             visible = sum(d + t + 1 for d in depths for t in range(T))  # keys per q head
             keys = sum(d + T for d in depths)
-            n_bytes = (2 * SLOTS * T * HEADS * HEAD_DIM * 4
+            n_bytes = (2 * SLOTS * T * HEADS * HEAD_DIM * q.element_size()
                        + 2 * keys * KV_HEADS * HEAD_DIM * k.element_size())
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * visible,
                                "bf16" if path == "tc" else "f32")
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, B=SLOTS, T=T,
                        start_pos=depths, S=S, head_dim=HEAD_DIM, n_splits=n_splits,
-                       path=path, max_abs_err=err, max_abs_ref=scale,
-                       max_abs_err_twin=err_twin, ms=ms, plain_ms=plain_ms,
+                       path=path, **errs, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            if kv_dt == F8:
+                rec["library_note"] = "upcast to bf16 + SDPA (two calls)"
             print(json.dumps(rec), flush=True)
             results.append(rec)
             what = f"K3 {mode} {phase} B={SLOTS} T={T}"
@@ -518,20 +599,17 @@ def ragged_attention_cases(timer: Timer, results: list) -> None:
                 fail(f"{what}: the launch took n_splits {n_splits}; a grid of "
                      f"{SLOTS * KV_HEADS * -(-T * HEADS // KV_HEADS // fa.BQ)} blocks must "
                      f"keep the single pass")
-            if path == "tc":
-                if not (err_twin <= TC_TWIN_TOL * scale and err <= TOL["fast"] * scale):
-                    fail(f"{what}: max|err| {err_twin:.3g} against the twin, {err:.3g} "
-                         f"against f32 (max|out| {scale:.3g})")
-            elif not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
-                fail(f"{what}: max|err| {err:.3g}")
+            hold_out(what, rec, path)
         del k, v
     torch.cuda.empty_cache()
 
 
 def check_path(what: str, mode: str, n_splits: int, path: str) -> None:
-    """A K3/K3s launch's kernel: a single pass over a bf16 cache runs on the
-    tensor cores, an f32 cache or a split launch on the SIMT kernel."""
-    want = "tc" if mode == "fast" and n_splits == 1 else "simt"
+    """A K3/K3s launch's kernel: a single pass over a bf16 cache (mode
+    ``fast``) or over an e4m3 cache under bf16 queries (``f8-fast``) runs on
+    the tensor cores; an f32 cache, an e4m3 cache under f32 queries
+    (``exact``, ``f8-exact``) or a split launch on the SIMT kernel."""
+    want = "tc" if mode in ("fast", "f8-fast") and n_splits == 1 else "simt"
     if path != want:
         fail(f"{what}: the launch took the {path!r} kernel, want {want!r} "
              f"(n_splits {n_splits})")
@@ -586,38 +664,40 @@ def paged_cases(timer: Timer, results: list) -> None:
     head_dim 128, kv_mul 4, block sizes 16 and 32; decode at B = 1, 8
     ragged rows and 8 rows at full depth, and a 16-token query chunk; f32
     and bf16 pools; the paged verify step's attention (8 ragged rows, T =
-    K + 1, ragged draft lengths whose padded lanes see null entries). Every
-    case at the serving geometry must split the key walk (split-S); the
-    40-row decode must take the single pass."""
+    K + 1, ragged draft lengths whose padded lanes see null entries). On an
+    e4m3 pool under bf16 queries (``f8-fast``, the f8 serving cell's
+    compute) the B = 1 and the 8 ragged rows' decode and the verify step at
+    block size 16. Every case at the serving geometry must split the key
+    walk (split-S); the 40-row decode must take the single pass."""
     import torch.nn.functional as F
 
     from dllama_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 3)
     g_cpu = torch.Generator().manual_seed(SEED + 3)
-    for mode in ("exact", "fast"):
-        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        for B, T, bs, depths, lens in PAGED_CASES:
+    f8_cases = [c for c in PAGED_CASES if c[2] == BLOCK
+                and (c[0] == 1 or c[3] in (RAGGED, VERIFY_DEPTHS))]
+    for mode in ("exact", "fast", "f8-fast"):
+        q_dt = ATTN_MODES[mode][1]
+        for B, T, bs, depths, lens in (f8_cases if mode == "f8-fast" else PAGED_CASES):
             tables, n_blocks = scrambled_tables(depths, T, bs, g_cpu, lens)
-            kp, vp = (torch.randn((n_blocks, KV_HEADS, bs, HEAD_DIM), generator=g,
-                                  device=DEV).to(kv_dt) for _ in range(2))
-            q = torch.randn((B, T, HEADS, HEAD_DIM), generator=g, device=DEV)
+            kp, vp = (random_kv((n_blocks, KV_HEADS, bs, HEAD_DIM), mode, g) for _ in range(2))
+            q = torch.randn((B, T, HEADS, HEAD_DIM), generator=g, device=DEV).to(q_dt)
             positions = (torch.tensor(depths, device=DEV)[:, None]
                          + torch.arange(T, device=DEV)[None, :])
             got = pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM)
             n_splits = pa.paged_attention.last_splits  # what this launch took
             want = pa.paged_attention_plain(q, kp, vp, tables, positions, HEAD_DIM)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
+            errs = out_errs(got, want, None)
             S = tables.shape[1] * bs
             mask = (torch.arange(S, device=DEV)[None, None, :]
                     <= positions[:, :, None])[:, None]            # [B, 1, T, S]
-            qs = q.transpose(1, 2).to(kv_dt)
+            qs = q.transpose(1, 2).to(upcast(kp).dtype)
 
             def gather_sdpa():
                 return F.scaled_dot_product_attention(
-                    qs, pa.paged_view(kp, tables), pa.paged_view(vp, tables),
+                    qs, upcast(pa.paged_view(kp, tables)), upcast(pa.paged_view(vp, tables)),
                     attn_mask=mask, enable_gqa=True)
 
             ms = timer(lambda: pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM))
@@ -628,21 +708,20 @@ def paged_cases(timer: Timer, results: list) -> None:
             keys = sum(min(d + T, S) for d in depths)
             scored = sum(min(d + t + 1, S) for d in depths for t in range(T))
             n_bytes = (2 * keys * KV_HEADS * HEAD_DIM * kp.element_size()
-                       + 2 * B * T * HEADS * HEAD_DIM * 4)
+                       + 2 * B * T * HEADS * HEAD_DIM * q.element_size())
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * scored, "f32")
             rec = dict(case="paged_attention", kernel="K4", mode=mode, B=B, T=T,
                        block_size=bs, positions=depths, lens=lens, n_splits=n_splits,
-                       max_abs_err=err,
-                       max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
+                       **errs, ms=ms, plain_ms=plain_ms,
                        gather_sdpa_ms=yard_ms,
                        gather_sdpa_note="yardstick only: two library calls "
-                                        "(pool[tables] gather + SDPA)",
+                                        "(pool[tables] gather + SDPA)"
+                                        + (", the gather upcast to bf16" if kp.dtype == F8
+                                           else ""),
                        bound_ms=b_ms, bound_by=b_by)
             print(json.dumps(rec), flush=True)
             results.append(rec)
-            # f32 online softmax vs the one-shot oracle: reordered sums/exps
-            if not (err <= 1e-4 * max(scale, 1.0)) or not math.isfinite(err):
-                fail(f"K4 {mode} B={B} T={T} bs={bs}: max|err| {err:.3g}")
+            hold_out(f"K4 {mode} B={B} T={T} bs={bs}", rec, "simt")
             if (n_splits > 1) != (B <= 8):
                 fail(f"K4 {mode} B={B} T={T} bs={bs}: the launch took n_splits "
                      f"{n_splits}; B <= 8 must split, B = {WIDE_B} must not")
@@ -775,20 +854,20 @@ def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
                                    for e in top}}
 
 
-def engine_profile(model: str, tok: str, dtype: str) -> list[dict]:
+def engine_profile(model: str, tok: str, dtype: str, **engine_kw) -> list[dict]:
     """Where the engine's time goes, under ``torch.profiler`` on one engine:
     two 128-token prefill chunks (at depths 128 and 256, after a warm-up
     chunk at 0), then 16 greedy decode steps, each a replay of the captured
     step (after 4 warm-up steps, the first of which captures it).
     Device busy share = the kernels' summed device time over the host wall
     time; the rest is the device idling while the host enqueues the eager
-    ops."""
+    ops. ``engine_kw`` (``weight_mode=``) goes to the engine."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-                          temperature=0.0)
+                          temperature=0.0, **engine_kw)
     try:
         ids = eng.tokenizer.encode(PROMPT * 2)
         eng.prefill(ids[:128])
@@ -2698,23 +2777,25 @@ RING_CASES = [("decode whole block", 1, 2 * SHARD - 1, SHARD, SHARD),
 def ring_cases(timer: Timer, results: list) -> None:
     """K3s against its plain version (``_block_attn`` around the folded
     layout) at 8B shapes: n_kv 8, kv_mul 4, head_dim 128, a 2048-row and a
-    16384-row shard; f32 and bf16 K/V. The library yardstick is SDPA over the same
-    block with the same boolean mask; it returns the normalised output, not
-    the m and l K3s returns."""
+    16384-row shard; every mode of :data:`ATTN_MODES` (on an e4m3 cache the
+    two whole-shard decodes and the diagonal chunk). The library yardstick
+    is SDPA over the same block with the same boolean mask; it returns the
+    normalised output, not the m and l K3s returns."""
     import torch.nn.functional as F
 
     from dllama_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 5)
     kv_mul = HEADS // KV_HEADS
-    for mode in ("exact", "fast"):
-        kv_dt = torch.bfloat16 if mode == "fast" else torch.float32
-        blocks = {rows: [torch.randn((1, KV_HEADS, rows, HEAD_DIM), generator=g,
-                                     device=DEV).to(kv_dt) for _ in range(2)]
+    f8_cases = [c for c in RING_CASES if c[0] in (
+        "decode whole block", "decode whole 16384-row shard", "prefill T=64 diagonal")]
+    for mode, (kv_dt, q_dt) in ATTN_MODES.items():
+        blocks = {rows: [random_kv((1, KV_HEADS, rows, HEAD_DIM), mode, g) for _ in range(2)]
                   for rows in (SHARD, LONG_SHARD)}
-        for name, T, q0, kv0, rows in RING_CASES:
+        for name, T, q0, kv0, rows in (f8_cases if kv_dt == F8 else RING_CASES):
             k, v = blocks[rows]
-            q_g = torch.randn((1, KV_HEADS, T * kv_mul, HEAD_DIM), generator=g, device=DEV)
+            q_g = torch.randn((1, KV_HEADS, T * kv_mul, HEAD_DIM), generator=g,
+                              device=DEV).to(q_dt)
             got = fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T)
             n_splits = fa.flash_block_stats.last_splits  # what this launch took
             path = fa.flash_block_stats.last_path
@@ -2739,18 +2820,19 @@ def ring_cases(timer: Timer, results: list) -> None:
             errs_twin = stat_errs(twin, "twin") if twin is not None else None
             # the kernel's folded rows back to the q-head layout for SDPA
             qs = q_g.reshape(1, KV_HEADS, T, kv_mul, HEAD_DIM).permute(0, 1, 3, 2, 4) \
-                    .reshape(1, HEADS, T, HEAD_DIM).to(kv_dt)
+                    .reshape(1, HEADS, T, HEAD_DIM).to(upcast(k).dtype)
             mask = (kv0 + torch.arange(rows, device=DEV))[None, :] \
                 <= (q0 + torch.arange(T, device=DEV))[:, None]           # [T, rows]
             ms = timer(lambda: fa.flash_block_stats(q_g, k, v, q0, kv0, HEAD_DIM, T))
             plain_ms = timer(lambda: fa.flash_block_stats_plain(q_g, k, v, q0, kv0,
                                                                 HEAD_DIM, T))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=mask, enable_gqa=True))
-            # the work this data needs: keys up to the newest visible one
+                qs, upcast(k), upcast(v), attn_mask=mask, enable_gqa=True))
+            # the work this data needs: keys up to the newest visible one; q
+            # read, acc, m and l written in f32
             seen = [max(0, min(rows, q0 + t - kv0 + 1)) for t in range(T)]
             n_bytes = (2 * max(seen) * KV_HEADS * HEAD_DIM * k.element_size()
-                       + T * HEADS * HEAD_DIM * 4 * 2 + 2 * T * HEADS * 4)
+                       + T * HEADS * HEAD_DIM * (q_g.element_size() + 4) + 2 * T * HEADS * 4)
             b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen),
                                "bf16" if path == "tc" else "f32")
             rec = dict(case="ring_block", kernel="K3s", mode=mode, phase=name, T=T,
@@ -2762,7 +2844,8 @@ def ring_cases(timer: Timer, results: list) -> None:
                        errors_twin=errs_twin and {w: dict(max_abs_err=e, max_abs_ref=r)
                                                   for w, (e, r) in errs_twin.items()},
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       library_note="SDPA with the same mask: normalised output, no m/l",
+                       library_note=("upcast to bf16 + " if kv_dt == F8 else "")
+                       + "SDPA with the same mask: normalised output, no m/l",
                        bound_ms=b_ms, bound_by=b_by)
             print(json.dumps(rec), flush=True)
             results.append(rec)
@@ -2877,31 +2960,48 @@ def sp_parity(results: dict) -> None:
 
 
 @contextlib.contextmanager
+def recorded_paths(store: list, active=lambda: True):
+    """``(n_splits, path)`` of every K3/K3s launch inside while ``active()``,
+    as the wrappers take the path from ``_attn_path`` (a parent tree
+    without it records none)."""
+    from dllama_tpu_torch.ops import flash_attention as fa
+
+    orig = getattr(fa, "_attn_path", None)
+    if orig is None:
+        yield store
+        return
+
+    def observed(kv_dtype, n_splits, *rest):
+        path = orig(kv_dtype, n_splits, *rest)
+        if active():
+            store.append((n_splits, path))
+        return path
+
+    fa._attn_path = observed
+    try:
+        yield store
+    finally:
+        fa._attn_path = orig
+
+
+@contextlib.contextmanager
 def phase_counts(store: dict):
     """K3s launches split by phase: the engine's ``prefill`` (per chunk),
     decode (per token: ``decode_chunk_tokens``, which ``generate`` calls
     for every chunk, k = 1 included, and ``next_token``, which a parent
     tree's ``generate`` calls instead) and verify (per dispatch:
     ``speculative_tokens``), counted where each returns; and
-    ``(n_splits, path)`` of every K3/K3s launch of the prefill, as the
-    wrappers take the path from ``_attn_path`` (a parent tree without it
-    records none)."""
+    ``(n_splits, path)`` of every K3/K3s launch of the prefill
+    (:func:`recorded_paths`)."""
     from dllama_tpu_torch.ops import flash_attention as fa
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     saved = {name: getattr(InferenceEngine, name)
              for name in ("prefill", "next_token", "decode_chunk_tokens", "speculative_tokens")
              if hasattr(InferenceEngine, name)}
-    attn_path = getattr(fa, "_attn_path", None)
     store.update(prefill_chunks=0, prefill_k3s=0, decode_steps=0, decode_k3s=0,
                  verify_steps=0, verify_k3s=0, prefill_launches=[])
     in_prefill = [False]
-
-    def observed_path(kv_dtype, n_splits):
-        path = attn_path(kv_dtype, n_splits)
-        if in_prefill[0]:
-            store["prefill_launches"].append((n_splits, path))
-        return path
 
     def counted_prefill(self, ids):
         n0 = fa.flash_block_stats.launches
@@ -2930,29 +3030,27 @@ def phase_counts(store: dict):
                                                     "verify")}
     for name in saved:
         setattr(InferenceEngine, name, wrapped[name])
-    if attn_path is not None:
-        fa._attn_path = observed_path
     try:
-        yield store
+        with recorded_paths(store["prefill_launches"], lambda: in_prefill[0]):
+            yield store
     finally:
         for name, fn in saved.items():
             setattr(InferenceEngine, name, fn)
-        if attn_path is not None:
-            fa._attn_path = attn_path
 
 
 def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
-           text: str, sync: str, steps: int, ppl: bool, spec: int = 0) -> dict:
+           text: str, sync: str, steps: int, ppl: bool, spec: int = 0,
+           kv: str = "auto") -> dict:
     """One run of the sp path: ``steps`` greedy tokens after ``text`` (none
     when 0; speculative with ``spec`` = K), then ``perplexity`` over it
-    when ``ppl``; through the CLI's ``--sp`` (``via="cli"``) or
-    ``InferenceEngine(sp_devices=[cuda:0] * sp)``. Counts are set to 0 just
-    before each and read just after it."""
+    when ``ppl``, over a ``kv`` (``--kv-dtype``) cache; through the CLI's
+    ``--sp`` (``via="cli"``) or ``InferenceEngine(sp_devices=[cuda:0] *
+    sp)``. Counts are set to 0 just before each and read just after it."""
     from dllama_tpu_torch.formats.quants import F32, Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
     rec = dict(case="sp_path", via=via, compute_dtype=dtype, sp=sp, max_seq_len=seq_len,
-               buffer_float_type=sync, spec_lookup=spec)
+               buffer_float_type=sync, spec_lookup=spec, kv_dtype=kv)
     for i in range(torch.cuda.device_count()):
         torch.cuda.reset_peak_memory_stats(i)
     phases: dict = {}
@@ -2961,7 +3059,8 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
         if via == "cli":
             common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
                       "--max-seq-len", str(seq_len), "--seed", str(SEED), "--sp", str(sp),
-                      "--buffer-float-type", sync]
+                      "--buffer-float-type", sync,
+                      *(["--kv-dtype", kv] if kv != "auto" else [])]
             if steps:
                 gens: list = []
                 zero_counts()
@@ -2990,7 +3089,8 @@ def sp_run(model: str, tok: str, via: str, *, dtype: str, sp: int, seq_len: int,
                                   sync_type=Q80 if sync == "q80" else F32, temperature=0.0,
                                   compute_dtype="bfloat16" if dtype == "bf16" else "float32",
                                   sp=sp, sp_devices=[f"{DEV}:0"] * sp,
-                                  **({"spec_lookup": spec} if spec else {}))
+                                  **({"spec_lookup": spec} if spec else {}),
+                                  **({"kv_dtype": kv} if kv != "auto" else {}))
             try:
                 ids = eng.tokenizer.encode(text)
                 if steps:
@@ -3166,6 +3266,482 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict, long_model: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the engine options of slice 10 — the f8 cache, dense weight
+# modes, --nbatches, --host-sampling — and weight integrity
+# ---------------------------------------------------------------------------
+
+# e4m3 bits the JAX package's cast gives these f32 values (XLA's and
+# ml_dtypes' astype(float8_e4m3fn)): round to nearest even, NaN with the
+# sign past 464 and for inf and NaN; tests/test_torch_kv_dtype.py holds
+# this table to JAX's cast on the CPU
+F8_SPECIAL = [(0.0, 0x00), (-0.0, 0x80), (448.0, 0x7E), (-448.0, 0xFE), (449.0, 0x7E),
+              (463.99, 0x7E), (464.0, 0x7E), (-464.0, 0xFE), (464.01, 0x7F),
+              (465.0, 0x7F), (-465.0, 0xFF), (480.0, 0x7F), (1e9, 0x7F),
+              (float("inf"), 0x7F), (float("-inf"), 0xFF), (float("nan"), 0x7F),
+              (2.0 ** -9, 0x01), (-(2.0 ** -9), 0x81), (2.0 ** -10, 0x00),
+              (3 * 2.0 ** -10, 0x02), (2.0 ** -7, 0x04), (1.0625, 0x38), (240.0, 0x77),
+              (232.0, 0x76), (-232.0, 0xF6), (17.5, 0x59)]
+def f8_cast_check() -> dict:
+    """The cache write's e4m3 cast on the card (``runtime/kvcache.py::
+    to_cache``): the JAX package's bits on :data:`F8_SPECIAL`, and on 10^6
+    random values at scale 300 (a fifth of them past 464) the bits the same
+    function gives on the CPU."""
+    from dllama_tpu_torch.runtime.kvcache import F8, to_cache
+
+    x = torch.tensor([v for v, _ in F8_SPECIAL], dtype=torch.float32)
+    got = to_cache(x.to(DEV), F8).view(torch.uint8).cpu().tolist()
+    want = [b for _, b in F8_SPECIAL]
+    g = torch.Generator().manual_seed(SEED + 11)
+    r = torch.randn(1_000_000, generator=g) * 300
+    dev_bits = to_cache(r.to(DEV), F8).view(torch.uint8).cpu()
+    cpu_bits = to_cache(r, F8).view(torch.uint8)
+    rec = dict(case="f8_cast", special_equal=got == want,
+               special_mismatch=[(v, hex(a), hex(b)) for (v, b), a in zip(F8_SPECIAL, got)
+                                 if a != b],
+               random_values=r.numel(), random_nan=int(torch.isnan(dev_bits.view(F8).float())
+                                                      .sum()),
+               random_equal_cpu=bool(torch.equal(dev_bits, cpu_bits)))
+    print(json.dumps(rec), flush=True)
+    if not rec["special_equal"] or not rec["random_equal_cpu"]:
+        fail(f"f8 cast on the card: {rec}")
+    return rec
+
+
+def f8_single(model: str, tok: str, text: str, n_layers: int, summary: dict) -> None:
+    """``inference`` (64 greedy steps) and ``perplexity`` with ``--kv-dtype
+    f8`` through the CLI at full width, f32 and bf16 compute (the CLI's
+    Q80 buffers, as the main path): K1-K3 launch, every K3 launch follows
+    :func:`check_path` (bf16 prefill chunks on the tensor cores, the rest
+    SIMT); perplexity against the main path's default cache.
+    Then the drift: one engine's prefill logits over the prompt with its
+    default cache and again with an e4m3 cache, max|Δ| < 0.15 max|logit|
+    (tests/test_kv_dtype.py's bound); the caches' GB beside."""
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.kvcache import F8, KVCache
+
+    f8 = summary.setdefault("f8", {})
+    for dtype in ("f32", "bf16"):
+        common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                  "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--kv-dtype", "f8"]
+        launches, paths = {}, []
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with recorded_paths(paths):
+            out = run_cli(["inference", *common, "--prompt", PROMPT, "--steps",
+                           str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
+        launches["f8_inference"] = read_counts()
+        zero_counts()
+        with recorded_paths(paths):
+            ppl_out = run_cli(["perplexity", *common, "--file", text])
+        launches["f8_perplexity"] = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lines = out.splitlines()
+        ppl = float(next(ln for ln in ppl_out.splitlines() if "Perplexity" in ln).split()[-1])
+        eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                              compute_dtype="bfloat16" if dtype == "bf16" else "float32")
+        try:
+            ids = eng.tokenizer.encode(PROMPT)
+            base, _ = eng.prefill(ids)
+            cache_gb = {"default": 2 * eng.kv.k.numel() * eng.kv.k.element_size() / 1e9}
+            eng.kv = KVCache.create(eng.cfg, dtype=F8, device=eng.device)
+            eng.reset()
+            got, _ = eng.prefill(ids)
+            cache_gb["f8"] = 2 * eng.kv.k.numel() * eng.kv.k.element_size() / 1e9
+        finally:
+            eng.close()
+        drift, ref = float(abs(got - base).max()), float(abs(base).max())
+        rec = dict(case="f8_single", compute_dtype=dtype, layers=n_layers,
+                   generated=int(stat(lines, "Prediction", "nTokens:")),
+                   prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                   decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                   decode_tok_per_s_default_cache=summary[dtype]["decode_tok_per_s"],
+                   perplexity=ppl, perplexity_default_cache=summary[dtype]["perplexity"],
+                   perplexity_rel_diff=abs(ppl / summary[dtype]["perplexity"] - 1.0),
+                   logits_max_abs_drift=drift, logits_max_abs=ref,
+                   drift_bound=0.15 * max(ref, 1.0), cache_gb=cache_gb, peak_gb=peak_gb,
+                   k3_paths=dict(collections.Counter(p for _, p in paths)),
+                   launches=launches)
+        print(json.dumps(rec), flush=True)
+        f8[dtype] = rec
+        summary[dtype]["launches"].update(launches)
+        if rec["generated"] != 64 or not math.isfinite(ppl) or ppl <= 1.0:
+            fail(f"f8 {dtype}: {rec['generated']} tokens, perplexity {ppl}")
+        for path, kernels in (("f8_inference", ("K1", "K2", "K3")),
+                              ("f8_perplexity", ("K1", "K3"))):
+            if min(launches[path][k] for k in kernels) <= 0:
+                fail(f"f8 {dtype} {path}: a kernel of the path never launched: "
+                     f"{launches[path]}")
+        for n_splits, path in paths:
+            check_path(f"f8 {dtype} K3", "f8-fast" if dtype == "bf16" else "f8-exact",
+                       n_splits, path)
+        if dtype == "bf16" and not rec["k3_paths"].get("tc"):
+            fail(f"f8 bf16: no K3 prefill launch took the tensor cores: {rec['k3_paths']}")
+        if not (0.0 < drift < rec["drift_bound"]):
+            fail(f"f8 {dtype}: logits drift {drift:.4g} against the default cache, want "
+                 f"0 < drift < {rec['drift_bound']:.4g}")
+        if abs(cache_gb["f8"] * (4 if dtype == "f32" else 2) - cache_gb["default"]) > 1e-6:
+            fail(f"f8 {dtype}: cache {cache_gb}")
+        torch.cuda.empty_cache()
+
+
+def f8_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``api --batch-slots 8 --kv-block-size 16 --kv-dtype f8`` under bf16
+    with the serving mix (:func:`serve_run`): K4 launches on the e4m3 pool,
+    which holds half the bytes of the bf16 run's."""
+    rec, _ = serve_run(model, tok, n_layers, "bf16", ["--kv-dtype", "f8"], case="serving_f8")
+    launches = rec["launches"]["api"]
+    rec["pool_gb_bf16_cache"] = summary["bf16"]["serving"]["pool_gb"]
+    rec["gen_tok_per_s_bf16_cache"] = summary["bf16"]["serving"]["gen_tok_per_s"]
+    print(json.dumps(rec), flush=True)
+    summary["f8"]["serving"] = rec
+    summary["bf16"]["launches"]["f8_api"] = launches
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        fail(f"serving f8: a kernel of the path never launched: {launches}")
+    if abs(2 * rec["pool_gb"] - rec["pool_gb_bf16_cache"]) > 1e-6:
+        fail(f"serving f8: pool {rec['pool_gb']} GB, want half of {rec['pool_gb_bf16_cache']}")
+    torch.cuda.empty_cache()
+
+
+def f8_sp(model: str, tok: str, summary: dict) -> None:
+    """The sp path's short cell on an e4m3 cache: ``perplexity`` over the
+    2551-token prompt at sp = 2 (K3s over e4m3 shards) against sp = 1 (K3),
+    f32 buffers, in f32 (within that cell's bound, 1e-4) and bf16
+    (recorded; the prefill blocks' single passes on the tensor cores)."""
+    n_cards = torch.cuda.device_count()
+    via = "cli" if n_cards >= 2 else "engine"
+    out = {}
+    for dtype in ("f32", "bf16"):
+        paths: list = []
+        with recorded_paths(paths):
+            runs = {sp: sp_run(model, tok, via, dtype=dtype, sp=sp, seq_len=SP_SEQ,
+                               text=PROMPT * 10, sync="f32", steps=0, ppl=True, kv="f8")
+                    for sp in (2, 1)}
+        p2, p1 = runs[2]["perplexity"], runs[1]["perplexity"]
+        rec = dict(case="f8_sp", compute_dtype=dtype, perplexity_sp2=p2, perplexity_sp1=p1,
+                   rel_diff=abs(p2 / p1 - 1), tol=1e-4 if dtype == "f32" else None,
+                   launches={sp: r["launches_perplexity"] for sp, r in runs.items()},
+                   paths=dict(collections.Counter(p for _, p in paths)))
+        print(json.dumps(rec), flush=True)
+        out[dtype] = rec
+        for sp in (2, 1):
+            summary[dtype]["launches"][f"f8_sp{sp}_perplexity"] = runs[sp]["launches_perplexity"]
+        if runs[2]["launches_perplexity"]["K3s"] <= 0 or runs[1]["launches_perplexity"]["K3"] <= 0:
+            fail(f"f8 sp {dtype}: K3s at sp=2 / K3 at sp=1 never launched: {rec['launches']}")
+        if not math.isfinite(p2) or (dtype == "f32" and not rec["rel_diff"] <= 1e-4):
+            fail(f"f8 sp {dtype}: perplexity at sp=2 {p2} against sp=1 {p1}: "
+                 f"{rec['rel_diff']:.3g}")
+        for n_splits, path in paths:
+            check_path(f"f8 sp {dtype}", "f8-fast" if dtype == "bf16" else "f8-exact",
+                       n_splits, path)
+        if dtype == "bf16" and not rec["paths"].get("tc"):
+            fail(f"f8 sp bf16: no prefill block took the tensor cores: {rec['paths']}")
+    summary["f8"]["sp"] = out
+
+
+# One process of the CLI as a user starts it (``python -c`` from the
+# checkout's root, nothing of chip_smoke.py imported, so nothing of its
+# TF32 switch), one that turned TF32 on for itself: each argv of
+# ``sys.argv[1]`` through ``cli.main`` in turn, each run's counts set to 0
+# before it, then one ``RUN {...}`` line with its output, generations,
+# launches, engine load seconds, peak memory, the f32 matmul precision in
+# force at each f32 ``F.linear`` (the dense products) and the process's TF32
+# flag after the run
+CLI_DRIVER = r"""
+import collections, contextlib, io, json, sys, time
+import torch
+import torch.nn.functional as F
+torch.backends.cuda.matmul.allow_tf32 = True
+dense, linear = [], F.linear
+def watched(x, w, *a, **kw):
+    if x.dtype == torch.float32:
+        dense.append(torch.get_float32_matmul_precision())
+    return linear(x, w, *a, **kw)
+F.linear = watched
+from dllama_tpu_torch.ops import flash_attention as fa, paged_attention as pa, quant_matmul as qm
+from dllama_tpu_torch.runtime import engine as E
+from dllama_tpu_torch.serve import cli
+wr = {"K1": qm.q40_matmul, "K2": qm.q40_gemv, "K3": fa.flash_attention,
+      "K4": pa.paged_attention, "K3s": fa.flash_block_stats}
+load_s, gens = [], []
+init, generate = E.InferenceEngine.__init__, E.InferenceEngine.generate
+def timed_init(self, *a, **kw):
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    init(self, *a, **kw)
+    torch.cuda.synchronize(); load_s.append(time.perf_counter() - t0)
+def recorded(self, prompt, *a, **kw):
+    res = generate(self, prompt, *a, **kw)
+    gens.append((list(prompt), res.tokens))
+    return res
+E.InferenceEngine.__init__, E.InferenceEngine.generate = timed_init, recorded
+for argv in json.loads(sys.argv[1]):
+    for f in wr.values():
+        f.launches = 0
+    load_s.clear(); gens.clear(); dense.clear()
+    torch.cuda.empty_cache(); torch.cuda.reset_peak_memory_stats()
+    buf, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    print("RUN " + json.dumps(dict(
+        argv=argv, rc=rc, wall_s=time.perf_counter() - t0, load_s=load_s[0],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, out=buf.getvalue(), gens=gens,
+        launches={k: f.launches for k, f in wr.items()},
+        dense_f32=dict(collections.Counter(dense)),
+        tf32=torch.backends.cuda.matmul.allow_tf32)), flush=True)
+"""
+
+
+def cli_process(runs: list[list[str]], timeout: int = 600) -> list[dict]:
+    proc = subprocess.run([sys.executable, "-c", CLI_DRIVER, json.dumps(runs)],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = [json.loads(ln[4:]) for ln in proc.stdout.splitlines() if ln.startswith("RUN ")]
+    if proc.returncode != 0 or len(out) != len(runs):
+        fail(f"CLI process exited {proc.returncode} after {len(out)} of {len(runs)} runs:\n"
+             f"{proc.stderr[-3000:]}")
+    return out
+
+
+def _ppl(out: str) -> float:
+    return float(next(ln for ln in out.splitlines() if "Perplexity" in ln).split()[-1])
+
+
+def weight_modes(model: str, tok: str, n_layers: int, summary: dict) -> None:
+    """``--weight-mode f32`` and ``bf16`` at full width in one CLI process
+    (:data:`CLI_DRIVER`: the package's own TF32 setting, not this
+    script's), f32 buffers, beside the quantized-plane exact run
+    (``--weight-mode auto``): 64 greedy tokens and ``perplexity``. Dense
+    f32 must give the exact run's transcript (a departure only at a near
+    tie, :data:`NEAR_TIE`) and its perplexity within 1e-4 relative; dense
+    bf16 (bf16 compute) its perplexity within 5%. K1 and K2 never launch
+    on dense weights, K3 does. The process turned TF32 on: every dense f32
+    product must still run at the "highest" f32 matmul precision, and the
+    process's TF32 flag must be on again after it. Then the dense f32
+    decode step's device time in this process (:func:`engine_profile`)."""
+    common = ["--model", model, "--tokenizer", tok, "--max-seq-len", str(MAX_SEQ),
+              "--seed", str(SEED), "--buffer-float-type", "f32"]
+    sides = [("auto", "f32"), ("f32", "f32"), ("bf16", "bf16")]
+    runs = []
+    for mode, dtype in sides:
+        side = [*common, "--weight-mode", mode, "--compute-dtype", dtype]
+        runs += [["inference", *side, "--prompt", PROMPT, "--steps",
+                  str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"],
+                 ["perplexity", *side, "--prompt", PROMPT * 2]]
+    t0 = time.perf_counter()
+    out = cli_process(runs)
+    wall_s = time.perf_counter() - t0
+    recs = {}
+    for (mode, dtype), inf, ppl in zip(sides, out[0::2], out[1::2]):
+        lines = inf["out"].splitlines()
+        recs[mode] = dict(
+            compute_dtype=dtype, load_s=inf["load_s"], peak_gb=max(inf["peak_gb"],
+                                                                   ppl["peak_gb"]),
+            prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+            decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+            perplexity=_ppl(ppl["out"]), tf32_after=inf["tf32"] and ppl["tf32"],
+            dense_f32_precision={"inference": inf["dense_f32"],
+                                 "perplexity": ppl["dense_f32"]},
+            launches={"inference": inf["launches"], "perplexity": ppl["launches"]},
+            prompt_ids=inf["gens"][0][0], tokens=inf["gens"][0][1])
+    exact = recs["auto"]
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        diff = probe(exact["prompt_ids"], recs["f32"]["tokens"], exact["tokens"])
+    finally:
+        probe.close()
+    # the dense f32 decode step's device time, beside the main path's Q40
+    # step (engine_profile: Q80 buffers, 16 replays under torch.profiler)
+    prof = engine_profile(model, tok, "f32", weight_mode="f32")[1]
+    torch.cuda.empty_cache()
+    rec = dict(case="weight_modes", layers=n_layers, process_wall_s=wall_s,
+               f32_decode_profile={k: prof[k] for k in (
+                   "device_ms_per_step", "device_busy_share", "wall_ms_per_step",
+                   "kernels_per_step")},
+               sides={m: {k: v for k, v in r.items() if k not in ("prompt_ids", "tokens")}
+                      for m, r in recs.items()},
+               f32_tokens_equal=recs["f32"]["tokens"] == exact["tokens"], f32_part=diff,
+               f32_ppl_rel=abs(recs["f32"]["perplexity"] / exact["perplexity"] - 1),
+               bf16_ppl_rel=abs(recs["bf16"]["perplexity"] / exact["perplexity"] - 1))
+    print(json.dumps(rec), flush=True)
+    summary["weight_modes"] = rec
+    summary["f32"]["launches"]["weight_auto_inference"] = exact["launches"]["inference"]
+    summary["f32"]["weight_auto_tokens"] = (exact["prompt_ids"], exact["tokens"])
+    summary["f32"]["weight_auto_prefill_tok_per_s"] = exact["prefill_tok_per_s"]
+    hold_transcripts("--weight-mode f32 against the Q40 exact run", "f32", diff)
+    if not rec["f32_ppl_rel"] <= 1e-4 or not rec["bf16_ppl_rel"] <= 0.05:
+        fail(f"weight modes: perplexity off the exact run by {rec['f32_ppl_rel']:.3g} (f32, "
+             f"<= 1e-4) / {rec['bf16_ppl_rel']:.3g} (bf16, <= 5%)")
+    for mode in ("f32", "bf16"):
+        for path, n in recs[mode]["launches"].items():
+            if n["K1"] or n["K2"] or n["K3"] <= 0:
+                fail(f"--weight-mode {mode} {path}: want K1 = K2 = 0 and K3 > 0: {n}")
+    for path, seen in recs["f32"]["dense_f32_precision"].items():
+        if set(seen) != {"highest"}:
+            fail(f"--weight-mode f32 {path}: f32 dense products at the matmul "
+                 f"precisions {seen}, want all 'highest'")
+    if not all(r["tf32_after"] for r in recs.values()):
+        fail(f"weight modes: the CLI process's TF32 flag was not restored: "
+             f"{ {m: r['tf32_after'] for m, r in recs.items()} }")
+
+
+def nbatches_phase(model: str, tok: str, summary: dict) -> None:
+    """``inference --nbatches 32`` (the reference's fixed prefill chunk) at
+    full width, f32, f32 buffers: its greedy tokens are the bucketed run's
+    (:func:`weight_modes`' exact side; a departure only at a near tie);
+    prefill tok/s against the buckets'."""
+    gens: list = []
+    zero_counts()
+    with recorded_generations(gens):
+        out = run_cli(["inference", "--model", model, "--tokenizer", tok, "--max-seq-len",
+                       str(MAX_SEQ), "--seed", str(SEED), "--buffer-float-type", "f32",
+                       "--nbatches", "32", "--prompt", PROMPT, "--steps",
+                       str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
+    launches = read_counts()
+    prompt, want = summary["f32"]["weight_auto_tokens"]
+    lines = out.splitlines()
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        diff = probe(prompt, gens[0][1].tokens, want)
+    finally:
+        probe.close()
+    rec = dict(case="nbatches", nbatches=32, tokens_equal=gens[0][1].tokens == want,
+               part=diff, chunks=len([s for s in gens[0][1].steps if s.kind == "eval"]),
+               prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+               prefill_tok_per_s_buckets=summary["f32"]["weight_auto_prefill_tok_per_s"],
+               decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"), launches=launches)
+    print(json.dumps(rec), flush=True)
+    summary["nbatches"] = rec
+    summary["f32"]["launches"]["nbatches_inference"] = launches
+    hold_transcripts("--nbatches 32 against the bucketed run", "f32", diff)
+    if "nBatches: 32" not in out or min(launches[k] for k in ("K1", "K2", "K3")) <= 0:
+        fail(f"--nbatches 32: {launches}")
+
+
+def host_sampling_phase(model: str, tok: str, summary: dict) -> None:
+    """Sampled ``inference`` (temperature 0.8, top-p 0.9) at full width,
+    f32, f32 buffers, with and without ``--host-sampling``: the same tokens
+    (a departure only at a near tie, :data:`NEAR_TIE_CDF`); the eager
+    host-sampled decode tok/s beside the captured step's."""
+    runs = {}
+    for host in (False, True):
+        gens: list = []
+        zero_counts()
+        with recorded_generations(gens):
+            out = run_cli(["inference", "--model", model, "--tokenizer", tok,
+                           "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED),
+                           "--buffer-float-type", "f32", "--prompt", PROMPT, "--steps",
+                           str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0.8",
+                           *(["--host-sampling"] if host else [])])
+        runs[host] = dict(launches=read_counts(), prompt=gens[0][0], tokens=gens[0][1].tokens,
+                          decode_tok_per_s=stat(out.splitlines(), "Prediction", "tokens/s:"))
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        diff = probe(runs[True]["prompt"], runs[True]["tokens"], runs[False]["tokens"],
+                     temperature=0.8, topp=0.9, seed=SEED)
+    finally:
+        probe.close()
+    rec = dict(case="host_sampling", tokens_equal=runs[True]["tokens"] == runs[False]["tokens"],
+               part=diff, decode_tok_per_s_host=runs[True]["decode_tok_per_s"],
+               decode_tok_per_s_device=runs[False]["decode_tok_per_s"],
+               launches={"host": runs[True]["launches"], "device": runs[False]["launches"]})
+    print(json.dumps(rec), flush=True)
+    summary["host_sampling"] = rec
+    summary["f32"]["launches"]["host_sampling_inference"] = runs[True]["launches"]
+    hold_transcripts("--host-sampling against the device sampler", "f32", diff, 0.8)
+    if min(runs[True]["launches"][k] for k in ("K1", "K2", "K3")) <= 0:
+        fail(f"--host-sampling: {runs[True]['launches']}")
+
+
+def cli_rc(argv: list[str]) -> tuple[int, str, float]:
+    """``(rc, stdout, seconds)`` of one in-process CLI call."""
+    from dllama_tpu_torch.serve import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def integrity_phase(model: str, tok: str, tmp: str, summary: dict) -> None:
+    """Weight integrity at full width. ``verify --write`` then ``verify``
+    on a symlink to the model in a directory of its own (the other phases
+    load it without a manifest): the crc pass's seconds and GB/s, and an
+    engine's load time with and without the manifest. Then a copy with one
+    byte flipped in the last layer's ``w2``: ``verify`` exits 1 naming it;
+    ``inference --verify-weights`` as a user runs it exits non-zero before
+    staging; and the constructor that meets the tensor mid-load (after 31
+    layers are staged) leaves ``torch.cuda.memory_allocated()`` where it
+    was."""
+    import shutil
+
+    from dllama_tpu_torch.formats import mfile
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.weights import WeightIntegrityError
+
+    d = os.path.join(tmp, "integrity")
+    os.makedirs(d)
+    link, bad = os.path.join(d, "m.m"), os.path.join(d, "bad.m")
+    os.symlink(model, link)
+    gb = os.path.getsize(model) / 1e9
+    rc_write, _, write_s = cli_rc(["verify", "--model", link, "--write"])
+    rc_check, out_check, check_s = cli_rc(["verify", "--model", link])
+    load = {}
+    for name, path in (("with_manifest", link), ("without_manifest", model)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(path, tok, device=DEV, max_seq_len=MAX_SEQ)
+        torch.cuda.synchronize()
+        load[name] = time.perf_counter() - t0
+        eng.close()
+        torch.cuda.empty_cache()
+    with mfile.ModelFile.open(model) as mf:
+        key = max(mf.tensors, key=lambda k: mf.tensors[k].offset if k.startswith(
+            "block_matmul_w2.") else -1)
+        off = mf.tensors[key].offset + mf.tensors[key].n_bytes // 2
+    shutil.copyfile(model, bad)
+    shutil.copyfile(mfile.manifest_path(link), mfile.manifest_path(bad))
+    with open(bad, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0x10]))
+    rc_bad, out_bad, _ = cli_rc(["verify", "--model", bad])
+    proc = subprocess.run(
+        [sys.executable, "-m", "dllama_tpu_torch", "inference", "--model", bad, "--tokenizer",
+         tok, "--prompt", "hello", "--steps", "8", "--max-seq-len", str(MAX_SEQ),
+         "--verify-weights"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    try:
+        InferenceEngine(bad, tok, device=DEV, max_seq_len=MAX_SEQ)
+        raised = None
+    except WeightIntegrityError as e:
+        raised = str(e)
+    after = torch.cuda.memory_allocated()
+    rec = dict(case="integrity", model_gb=gb, write_rc=rc_write, write_s=write_s,
+               verify_rc=rc_check, verify_s=check_s, crc_gb_per_s=gb / check_s,
+               load_s=load, corrupt_tensor=key, corrupt_verify_rc=rc_bad,
+               corrupt_named=f"❌ {key}" in out_bad,
+               verify_weights_rc=proc.returncode,
+               verify_weights_named=key in proc.stderr and "--verify-weights" in proc.stderr,
+               loader_raised=raised, allocated_before=before, allocated_after=after)
+    print(json.dumps(rec), flush=True)
+    summary["integrity"] = rec
+    if (rc_write, rc_check, rc_bad) != (0, 0, 1) or "tensors verified" not in out_check:
+        fail(f"verify: rcs {rc_write}, {rc_check}, {rc_bad} (want 0, 0, 1)")
+    if not rec["corrupt_named"] or proc.returncode == 0 or not rec["verify_weights_named"]:
+        fail(f"corrupt copy: verify names it {rec['corrupt_named']}, inference "
+             f"--verify-weights exited {proc.returncode}:\n{proc.stderr[-1500:]}")
+    if raised is None or key not in raised or after != before:
+        fail(f"the failed constructor: raised {raised!r}, memory_allocated {before} -> "
+             f"{after}")
+    os.remove(bad)
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(cases: list, e2e: dict) -> dict:
@@ -3187,7 +3763,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     K3/K3s/K4 the split-S count, as the launches of the kernel phase took
     them, and every entry its path (``tc``: tensor cores; ``simt``: FP32). Launches are the main paths' counts, per path
     (``inference``, ``perplexity``, ``api``, and the sp path's
-    ``sp2_*``/``sp1_*`` runs)."""
+    ``sp2_*``/``sp1_*`` runs). The e4m3-cache entries (K3, K3s under f32
+    and bf16 queries, K4 under bf16) count the ``--kv-dtype f8`` paths'
+    launches (``f8_*``), the others every other path's; their library
+    yardstick upcasts the cache to bf16 first (two calls: ``library_ms``
+    null, ``upcast_sdpa_ms`` or ``gather_sdpa_ms`` beside)."""
     src = {"K1": ("dllama_tpu_torch/csrc/quant_matmul.cu",
                   "dllama_tpu/ops/quant_matmul.py:51", "q40_matmul (tile)"),
            "K2": ("dllama_tpu_torch/csrc/quant_matmul.cu",
@@ -3248,39 +3828,53 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                  lambda c: c["phase"] == "prefill T=64 diagonal")],
     }
     out = []
-    for kname in ("K1", "K2", "K3", "K4", "K3s"):
-        for mode in ("exact", "fast"):
-            e2e_dtype = "f32" if mode == "exact" else "bf16"
-            ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
-            by_path = {p: n[kname] for p, n in e2e[e2e_dtype]["launches"].items()}
-            for suffix, pick in groups[kname]:
-                sel = [c for c in ours if pick(c)]
-                b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
-                b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
-                rec = dict(
-                    name=f"{kname} {src[kname][2]}{suffix} [{mode}]", route="cuda",
-                    source=src[kname][0], replaces=src[kname][1],
-                    launches=sum(by_path.values()), launches_by_path=by_path,
-                    max_abs_err=max(c["max_abs_err"] for c in sel),
-                    ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
-                    bound_ms=b_bytes + b_ops,
-                    bound_by="bytes" if b_bytes >= b_ops else "operations",
-                    library_ms=(None if kname == "K4"
-                                else sum(c["library_ms"] for c in sel)))
-                # K splits (K1, K2: per weight) and split-S counts (K3, K3s);
-                # the path: tensor cores (K1 fast's wgmma, K3/K3s's single
-                # pass over bf16) or FP32 SIMT, as each launch took it
-                if kname in ("K1", "K2"):
-                    rec["splits"] = {c["weight"]: c["splits"] for c in sel}
-                    rec["codes"] = sel[0]["codes"]
-                else:
-                    rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
-                rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))
-                if kname == "K4":
-                    rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
-                if kname == "K3s":
-                    rec["library_note"] = "SDPA, same block and mask: no m/l returned"
-                out.append(rec)
+    # the e4m3-cache cases (modes f8-*) run a subset of each kernel's
+    # groups; their launches are the --kv-dtype f8 paths' (``f8_*``)
+    rows = [(k, m) for k in ("K1", "K2", "K3", "K4", "K3s") for m in ATTN_MODES
+            if any(c["kernel"] == k and c["mode"] == m for c in cases)]
+    for kname, mode in rows:
+        e2e_dtype = "bf16" if mode.endswith("fast") else "f32"
+        ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
+        by_path = {p: n[kname] for p, n in e2e[e2e_dtype]["launches"].items()
+                   if p.startswith("f8_") == mode.startswith("f8")}
+        for suffix, pick in groups[kname]:
+            sel = [c for c in ours if pick(c)]
+            if not sel and mode.startswith("f8"):
+                continue
+            b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
+            b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
+            rec = dict(
+                name=f"{kname} {src[kname][2]}{suffix} [{mode}]", route="cuda",
+                source=src[kname][0], replaces=src[kname][1],
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=max(c["max_abs_err"] for c in sel),
+                ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
+                bound_ms=b_bytes + b_ops,
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=(None if kname == "K4"
+                            else sum(c["library_ms"] for c in sel)))
+            if mode.startswith("f8"):
+                # no one library call reads an e4m3 cache: the yardstick
+                # upcasts it to bf16 first (two calls, as K4's gather + SDPA)
+                rec["name"] = (f"{kname} {src[kname][2]}{suffix} [e4m3 cache, "
+                               f"{'bf16' if mode == 'f8-fast' else 'f32'} queries]")
+                rec["library_ms"] = None
+                if kname != "K4":
+                    rec["upcast_sdpa_ms"] = sum(c["library_ms"] for c in sel)
+            # K splits (K1, K2: per weight) and split-S counts (K3, K3s);
+            # the path: tensor cores (K1 fast's wgmma, K3/K3s's single
+            # pass over bf16) or FP32 SIMT, as each launch took it
+            if kname in ("K1", "K2"):
+                rec["splits"] = {c["weight"]: c["splits"] for c in sel}
+                rec["codes"] = sel[0]["codes"]
+            else:
+                rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
+            rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))
+            if kname == "K4":
+                rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
+            if kname == "K3s" and not mode.startswith("f8"):
+                rec["library_note"] = "SDPA, same block and mask: no m/l returned"
+            out.append(rec)
     return {"kernels": out}
 
 
@@ -3388,17 +3982,23 @@ def main() -> int:
     ragged_attention_cases(timer, cases)
     paged_cases(timer, cases)
     ring_cases(timer, cases)
+    e2e: dict = {"f8": {"cast": f8_cast_check()}}
     guard_cost([])
     del timer
     torch.cuda.empty_cache()
-    e2e: dict = {}
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
         model, tok, text = write_assets(tmp, args.layers)
+        # the 8-layer copy that the graphs phase, the paged pool's and the
+        # dense pool's spec phases and the long sp cell run on (LONG_LAYERS:
+        # width is never cut)
+        long_layers = min(LONG_LAYERS, args.layers)
+        long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
+        write_model(long_model, long_layers)
         t0 = time.perf_counter()
         main_path(model, tok, text, args.layers, e2e)
         print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        graphs_phase(model, tok, e2e)
+        graphs_phase(long_model, tok, e2e)
         print(f"⏱️ graphs took {time.perf_counter() - t0:.1f} s", flush=True)
         # on the device: each layer of a bf16 128-token chunk ran K3's
         # tensor-core kernel once; f32 chunks and decode steps never did
@@ -3424,13 +4024,13 @@ def main() -> int:
         spec_single(model, tok, args.layers, e2e)
         print(f"⏱️ spec single took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        spec_serving(model, tok, args.layers, e2e)
+        spec_serving(long_model, tok, long_layers, e2e)
         print(f"⏱️ spec serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         dense_serving(model, tok, args.layers, e2e)
         print(f"⏱️ dense serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        dense_chunk_spec(model, tok, args.layers, e2e)
+        dense_chunk_spec(long_model, tok, long_layers, e2e)
         print(f"⏱️ dense chunk-4 and spec-4 took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         single_api(model, tok, args.layers, e2e)
@@ -3439,11 +4039,20 @@ def main() -> int:
         chat_phase(model, tok, tmp, e2e)
         print(f"⏱️ chat took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        long_layers = min(LONG_LAYERS, args.layers)
-        long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
-        write_model(long_model, long_layers)
         sp_path(model, tok, args.layers, e2e, long_model, long_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
+        for name, phase in (
+                ("f8 single sequence", lambda: f8_single(model, tok, text, args.layers, e2e)),
+                ("f8 serving", lambda: f8_serving(model, tok, args.layers, e2e)),
+                ("f8 sp", lambda: f8_sp(model, tok, e2e)),
+                ("weight modes", lambda: weight_modes(model, tok, args.layers, e2e)),
+                ("nbatches", lambda: nbatches_phase(model, tok, e2e)),
+                ("host sampling", lambda: host_sampling_phase(model, tok, e2e)),
+                ("weight integrity", lambda: integrity_phase(model, tok, tmp, e2e))):
+            t0 = time.perf_counter()
+            phase()
+            torch.cuda.empty_cache()
+            print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     model_parity({})
     paged_parity({})
     sp_parity({})

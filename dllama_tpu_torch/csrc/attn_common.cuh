@@ -1,6 +1,6 @@
 // Pieces shared by the attention kernels (K3/K3s in flash_attention.cu, K4
-// in paged_attention.cu): widening a 16-byte load of the cache, warp
-// reductions and pass 2 of split-S. Each source includes this header and
+// in paged_attention.cu): widening a 16-byte load of the cache (f32, bf16
+// or float8 e4m3, each exactly), warp reductions and pass 2 of split-S. Each source includes this header and
 // compiles on its own (one shared library per source), so everything here
 // has internal linkage.
 
@@ -8,11 +8,17 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <math.h>
 
 namespace {
 
-// the elements of one 16-byte load of the cache (4 f32 or 8 bf16), as f32
+// the C entries' cache kinds (ops/flash_attention.py::CACHE_KINDS)
+constexpr int CACHE_F32 = 0, CACHE_BF16 = 1, CACHE_E4M3 = 2;
+
+// the elements of one 16-byte load of the cache (4 f32, 8 bf16 or 16 e4m3),
+// as f32
 __device__ __forceinline__ void unpack16(const uint4& raw, const float*, float* out) {
   out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
   out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
@@ -24,6 +30,22 @@ __device__ __forceinline__ void unpack16(const uint4& raw, const __nv_bfloat16*,
     out[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 is exact
     out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
+}
+
+// 16 e4m3 values: pairs through the f16x2 conversion (cvt.rn.f16x2.e4m3x2),
+// then to f32; both steps are exact, and NaN stays NaN
+__device__ __forceinline__ void unpack16(const uint4& raw, const __nv_fp8_e4m3*, float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * hh)), __NV_E4M3);
+      const float2 f = __half22float2(__half2(h));
+      out[4 * i + 2 * hh] = f.x;
+      out[4 * i + 2 * hh + 1] = f.y;
+    }
 }
 
 __device__ __forceinline__ float warp_max(float v) {

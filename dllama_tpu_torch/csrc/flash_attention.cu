@@ -9,7 +9,8 @@
 //
 // Layout (the JAX package's): queries fold the GQA group into rows,
 // q_g [B, n_kv, TQ = T * kv_mul, D] f32; caches k/v [B, n_kv, S, D] in f32
-// (or bf16 under bf16 compute); out [B, n_kv, TQ, D] f32. Query row r sits
+// (or bf16 under bf16 compute, or float8 e4m3 under --kv-dtype f8, widened
+// exactly to f32 as a tile is staged); out [B, n_kv, TQ, D] f32. Query row r sits
 // at absolute position pos[b] + r / kv_mul and sees cache slots
 // s <= pos[b] + r / kv_mul; no mask tensor is built.
 //
@@ -58,8 +59,17 @@
 //   reach: it runs flash_attention_tc_kernel instead (below: TMA ring,
 //   mma.sync scores and P V, f32 online softmax, P rounded to bf16). f32
 //   caches (exact mode, the goldens' numerics) and split launches keep the
-//   SIMT kernel. The entries pick the path from the dtype and the split
-//   count alone (use_tc below); the wrapper records the same choice.
+//   SIMT kernel. The entries pick the path from the cache dtype, the split
+//   count and whether the queries are bf16 (use_tc below); the wrapper
+//   records the same choice.
+// * An e4m3 cache (--kv-dtype f8) under f32 queries takes the SIMT kernel,
+//   single pass and split alike: each 16-byte load carries 16 columns,
+//   half of bf16's bytes, widened exactly to f32 as the tile is staged, so
+//   f32 queries are never rounded. Under bf16 queries its single pass runs
+//   on the tensor cores: the TMA lands the e4m3 tile unswizzled at half the
+//   bytes, all four warps widen it to bf16 (exact) into the 128-byte
+//   swizzled layout the bf16 tile would have arrived in, and the same
+//   mma.sync code reads it.
 //
 // K3s is the same kernel in its stats mode (STATS = true, entry
 // dlt_flash_block_stats). It replaces the stats=True path of the same Pallas
@@ -295,7 +305,10 @@ flash_attention_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 // become the A operand of P V (the one rounding the plain single pass does
 // not make; ops/flash_attention.py::flash_attention_tc_plain makes it the
 // same way). Only tiles that cross a warp's diagonal are masked, and a warp
-// skips the tiles none of its rows sees.
+// skips the tiles none of its rows sees. Over an e4m3 cache (F8, under
+// bf16 queries) the ring holds the tiles as they land, 64 whole e4m3 rows
+// a box, and every warp widens its share into one bf16 stage in the
+// swizzled layout above before any warp reads it (widen_e4m3_tiles).
 // --------------------------------------------------------------------------
 
 constexpr int TC_BQ = 64;      // folded query rows per block
@@ -303,20 +316,53 @@ constexpr int TC_BS = 64;      // keys per tile
 constexpr int TC_WARPS = 4;    // 16 query rows each
 constexpr int TC_STAGES = 3;   // ring depth: the tiles in flight
 
-template <int D>
+// F8: the ring holds e4m3 tiles as they land (LAND bytes a stage, row-major
+// [64 keys][D]), and one bf16 stage (STAGE bytes, the swizzled K and V
+// tiles) receives the widened tile that the mma code reads
+template <int D, bool F8 = false>
 struct TcSmem {
   static constexpr int HALVES = D / 64;      // 128-byte swizzle boxes across a row
   static constexpr int BOX = TC_BS * 128;    // 64 keys x 64 columns: 8 KB
   static constexpr int TILE = HALVES * BOX;  // the K (or V) tile
   static constexpr int STAGE = 2 * TILE;     // K, then V
+  static constexpr int LAND_TILE = TC_BS * D;          // an e4m3 K (or V) tile
+  static constexpr int SLOT = F8 ? 2 * LAND_TILE : STAGE;  // one ring slot
+  static constexpr int RING = TC_STAGES * SLOT + (F8 ? STAGE : 0);
   // + the mbarriers, + slack to align the ring to 1024 bytes
-  static constexpr int TOTAL = TC_STAGES * STAGE + TC_STAGES * 8 + 1024;
+  static constexpr int TOTAL = RING + TC_STAGES * 8 + 1024;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+// One landed e4m3 K and V tile pair (row-major [64 keys][D] each) widened
+// to bf16 into the swizzled layout a bf16 tile lands in by TMA: each thread
+// turns 16 values (one 16-byte load) into two 16-byte bf16 chunks. e4m3 has
+// 3 mantissa bits and an exponent range inside bf16's, so the widening is
+// exact (NaN stays NaN)
+template <int D>
+__device__ __forceinline__ void widen_e4m3_tiles(const unsigned char* land, unsigned char* stage,
+                                                 int tid) {
+  using St = TcSmem<D, true>;
+  constexpr int PER_TILE = TC_BS * D / 16;
+  for (int c = tid; c < 2 * PER_TILE; c += TC_WARPS * 32) {
+    const int kv = c / PER_TILE, rem = c % PER_TILE;
+    const int key = rem / (D / 16), col = rem % (D / 16) * 16;
+    float f[16];
+    unpack16(*reinterpret_cast<const uint4*>(land + kv * St::LAND_TILE + key * D + col),
+             static_cast<const __nv_fp8_e4m3*>(nullptr), f);
+    const uint4 lo = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    const uint4 hi = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
+                                pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
+    unsigned char* box = stage + kv * St::TILE + (col >> 6) * St::BOX;
+    const int ch = (col & 63) >> 3;  // even: two adjacent 16-byte chunks of the row
+    *reinterpret_cast<uint4*>(box + swizzle128(key, ch)) = lo;
+    *reinterpret_cast<uint4*>(box + swizzle128(key, ch + 1)) = hi;
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -327,9 +373,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // grid (ceil(TQ / TC_BQ), n_kv, B); block TC_WARPS * 32 threads; dynamic
-// shared memory TcSmem<D>::TOTAL. Same row rule and outputs as
-// flash_attention_kernel with one split; scale_log2 = scale * log2 e.
-template <int D, bool STATS>
+// shared memory TcSmem<D, F8>::TOTAL. Same row rule and outputs as
+// flash_attention_kernel with one split; scale_log2 = scale * log2 e. F8:
+// the tensor maps are of e4m3 rows, widened in shared memory per tile.
+template <int D, bool STATS, bool F8>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -337,7 +384,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                           float* __restrict__ m_out, float* __restrict__ l_out,
                           const int* __restrict__ pos, int pos_scalar, int kv_pos0, int n_kv,
                           int TQ, int S, int kv_mul, float scale_log2) {
-  using St = TcSmem<D>;
+  using St = TcSmem<D, F8>;
   extern __shared__ unsigned char tc_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -347,7 +394,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int kv_row0 = static_cast<int>(head) * S;  // the head's first row in the 2-D view
   const uint32_t raw0 = smem_addr(tc_smem);
   const uint32_t ring0 = (raw0 + 1023) & ~1023u;
-  const uint32_t bar0 = ring0 + TC_STAGES * St::STAGE;
+  const uint32_t stage0 = ring0 + TC_STAGES * St::SLOT;  // F8: the widened bf16 tiles
+  const uint32_t bar0 = ring0 + St::RING;
+  unsigned char* const ring_p = tc_smem + (ring0 - raw0);
 
   // local slot of the newest key each row sees (rows past TQ get a finite
   // limit too; they are never written); negative: the row sees nothing
@@ -373,13 +422,18 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   auto load_tile = [&](int tile) {
     if (tid != 0 || tile >= n_tiles) return;
     const int slot = tile % TC_STAGES;
-    const uint32_t ks = ring0 + slot * St::STAGE, bar = bar0 + 8 * slot;
+    const uint32_t ks = ring0 + slot * St::SLOT, bar = bar0 + 8 * slot;
     const int row = kv_row0 + tile * TC_BS;
-    mbar_expect_tx(bar, St::STAGE);
+    mbar_expect_tx(bar, St::SLOT);
+    if constexpr (F8) {  // one box of 64 whole e4m3 rows each
+      tma_load_2d(ks, &tm_k, bar, 0, row);
+      tma_load_2d(ks + St::LAND_TILE, &tm_v, bar, 0, row);
+    } else {
 #pragma unroll
-    for (int hh = 0; hh < St::HALVES; ++hh) {
-      tma_load_2d(ks + hh * St::BOX, &tm_k, bar, 64 * hh, row);
-      tma_load_2d(ks + St::TILE + hh * St::BOX, &tm_v, bar, 64 * hh, row);
+      for (int hh = 0; hh < St::HALVES; ++hh) {
+        tma_load_2d(ks + hh * St::BOX, &tm_k, bar, 64 * hh, row);
+        tma_load_2d(ks + St::TILE + hh * St::BOX, &tm_v, bar, 64 * hh, row);
+      }
     }
   };
 #pragma unroll
@@ -412,10 +466,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
     __syncthreads();  // every warp has left tile - 1: its slot takes tile + TC_STAGES - 1
     load_tile(tile + TC_STAGES - 1);
     const int s0 = tile * TC_BS;
-    if (s0 > w_hi) continue;  // warp-uniform: none of its rows sees this tile
     const int slot = tile % TC_STAGES;
-    mbar_wait(bar0 + 8 * slot, (tile / TC_STAGES) & 1);
-    const uint32_t ks = ring0 + slot * St::STAGE, vs = ks + St::TILE;
+    uint32_t ks;
+    if constexpr (F8) {
+      // every warp widens its share of the landed tile, then reads the
+      // widened one (the barrier at the top keeps the stage until all left)
+      mbar_wait(bar0 + 8 * slot, (tile / TC_STAGES) & 1);
+      widen_e4m3_tiles<D>(ring_p + slot * St::SLOT, ring_p + (stage0 - ring0), tid);
+      __syncthreads();
+      if (s0 > w_hi) continue;  // warp-uniform: none of its rows sees this tile
+      ks = stage0;
+    } else {
+      if (s0 > w_hi) continue;  // warp-uniform: none of its rows sees this tile
+      mbar_wait(bar0 + 8 * slot, (tile / TC_STAGES) & 1);
+      ks = ring0 + slot * St::SLOT;
+    }
+    const uint32_t vs = ks + St::TILE;
 
     // S = Q K^T: per 16 keys, one ldmatrix.x4 gives two n8 tiles' B
     float s[TC_BS / 8][4];
@@ -515,36 +581,49 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-template <int D, bool STATS>
+template <int D, bool STATS, bool F8>
 int launch_tc_d(const float* q, const void* k, const void* v, float* out, float* m_out,
                 float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
                 int TQ, int S, int kv_mul, float scale, cudaStream_t stream) {
+  using St = TcSmem<D, F8>;
   CUtensorMap tm_k, tm_v;
   const uint64_t rows = (uint64_t)B * n_kv * S;
-  if (!tensor_map(&tm_k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, D, rows, D * 2, 64, TC_BS,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, D, rows, D * 2, 64, TC_BS,
-                  CU_TENSOR_MAP_SWIZZLE_128B))
+  // bf16: boxes of 64 keys x 64 columns in the 128-byte swizzle; e4m3: one
+  // box of 64 whole rows (D bytes), unswizzled (widen_e4m3_tiles swizzles)
+  const CUtensorMapDataType type =
+      F8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t row_bytes = F8 ? D : D * 2;
+  const uint32_t box = F8 ? D : 64;
+  const CUtensorMapSwizzle swz = F8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&tm_k, type, k, D, rows, row_bytes, box, TC_BS, swz) ||
+      !tensor_map(&tm_v, type, v, D, rows, row_bytes, box, TC_BS, swz))
     return static_cast<int>(cudaErrorNotSupported);
-  auto kernel = flash_attention_tc_kernel<D, STATS>;
+  auto kernel = flash_attention_tc_kernel<D, STATS, F8>;
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<D>::TOTAL);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, St::TOTAL);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((TQ + TC_BQ - 1) / TC_BQ, n_kv, B);
-  kernel<<<grid, TC_WARPS * 32, TcSmem<D>::TOTAL, stream>>>(
+  kernel<<<grid, TC_WARPS * 32, St::TOTAL, stream>>>(
       tm_k, tm_v, q, out, m_out, l_out, pos, pos_scalar, kv_pos0, n_kv, TQ, S, kv_mul,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool STATS>
-int launch_tc(const float* q, const void* k, const void* v, float* out, float* m_out,
-              float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B, int n_kv,
-              int TQ, int S, int D, int kv_mul, float scale, cudaStream_t stream) {
-  return D == 64 ? launch_tc_d<64, STATS>(q, k, v, out, m_out, l_out, pos, pos_scalar, kv_pos0,
-                                          B, n_kv, TQ, S, kv_mul, scale, stream)
-                 : launch_tc_d<128, STATS>(q, k, v, out, m_out, l_out, pos, pos_scalar,
-                                           kv_pos0, B, n_kv, TQ, S, kv_mul, scale, stream);
+int launch_tc(int kv_kind, const float* q, const void* k, const void* v, float* out,
+              float* m_out, float* l_out, const int* pos, int pos_scalar, int kv_pos0, int B,
+              int n_kv, int TQ, int S, int D, int kv_mul, float scale, cudaStream_t stream) {
+  if (kv_kind == CACHE_E4M3)
+    return D == 64 ? launch_tc_d<64, STATS, true>(q, k, v, out, m_out, l_out, pos, pos_scalar,
+                                                  kv_pos0, B, n_kv, TQ, S, kv_mul, scale, stream)
+                   : launch_tc_d<128, STATS, true>(q, k, v, out, m_out, l_out, pos,
+                                                   pos_scalar, kv_pos0, B, n_kv, TQ, S, kv_mul,
+                                                   scale, stream);
+  return D == 64 ? launch_tc_d<64, STATS, false>(q, k, v, out, m_out, l_out, pos, pos_scalar,
+                                                 kv_pos0, B, n_kv, TQ, S, kv_mul, scale, stream)
+                 : launch_tc_d<128, STATS, false>(q, k, v, out, m_out, l_out, pos, pos_scalar,
+                                                  kv_pos0, B, n_kv, TQ, S, kv_mul, scale,
+                                                  stream);
 }
 
 // One launch of K3 (STATS = false) or K3s (true). n_splits > 1 runs pass 1
@@ -559,7 +638,7 @@ void launch(const float* q, const void* k, const void* v, float* out, float* m_o
   const KV* vp = static_cast<const KV*>(v);
   dim3 grid((TQ + BQ - 1) / BQ * n_splits, n_kv, B);
   const int rows = B * n_kv * TQ;
-  if constexpr (std::is_same<KV, float>::value) {
+  if constexpr (!std::is_same<KV, __nv_bfloat16>::value) {
     // the grid fills the card: one pass (over a bf16 cache: launch_tc)
     if (n_splits == 1) {
       if (D == 64)
@@ -591,23 +670,48 @@ void launch(const float* q, const void* k, const void* v, float* out, float* m_o
 }
 
 // The path of a launch: the tensor cores for a single pass over a bf16
-// cache (the SIMT kernel has no bf16 single pass), the SIMT kernel for f32
-// caches and split launches. ops/flash_attention.py::_attn_path records it.
-bool use_tc(int kv_bf16, int n_splits) { return kv_bf16 && n_splits == 1; }
+// cache (the SIMT kernel has no bf16 single pass), or over an e4m3 cache
+// under bf16 queries (q_bf16: the f32 q rows hold bf16 values, so rounding
+// them to bf16 changes nothing); the SIMT kernel for f32 caches, e4m3
+// caches under f32 queries, and split launches.
+// ops/flash_attention.py::_attn_path records it.
+bool use_tc(int kv_kind, int q_bf16, int n_splits) {
+  return n_splits == 1 && (kv_kind == CACHE_BF16 || (kv_kind == CACHE_E4M3 && q_bf16));
+}
+
+// K3 (STATS = false) or K3s through the SIMT kernel, by cache kind
+template <bool STATS>
+int launch_kind(int kv_kind, const float* q, const void* k, const void* v, float* out,
+                float* m_out, float* l_out, float* part, int n_splits, const int* pos,
+                int pos_scalar, int kv_pos0, int B, int n_kv, int TQ, int S, int D, int kv_mul,
+                float scale, cudaStream_t stream) {
+  if (kv_kind == CACHE_F32)
+    launch<float, STATS>(q, k, v, out, m_out, l_out, part, n_splits, pos, pos_scalar, kv_pos0,
+                         B, n_kv, TQ, S, D, kv_mul, scale, stream);
+  else if (kv_kind == CACHE_BF16)
+    launch<__nv_bfloat16, STATS>(q, k, v, out, m_out, l_out, part, n_splits, pos, pos_scalar,
+                                 kv_pos0, B, n_kv, TQ, S, D, kv_mul, scale, stream);
+  else if (kv_kind == CACHE_E4M3)
+    launch<__nv_fp8_e4m3, STATS>(q, k, v, out, m_out, l_out, part, n_splits, pos, pos_scalar,
+                                 kv_pos0, B, n_kv, TQ, S, D, kv_mul, scale, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
-// q_g f32 [B, n_kv, TQ, D]; k/v [B, n_kv, S, D] f32 (kv_bf16 = 0) or bf16;
-// out f32 [B, n_kv, TQ, D]; pos int32 [B] on the device, or null to use
-// pos_scalar for every row. D in {64, 128}. n_splits >= 1 (split-S when
-// > 1, with part the f32 scratch of launch() above; unused otherwise).
-// A bf16 cache with n_splits = 1 takes the tensor-core single pass, every
-// other launch the SIMT kernel (use_tc).
+// q_g f32 [B, n_kv, TQ, D] (q_bf16: its values are bf16's); k/v [B, n_kv,
+// S, D] of kv_kind 0 (f32), 1 (bf16) or 2 (float8 e4m3); out f32 [B, n_kv,
+// TQ, D]; pos int32 [B] on the device, or null to use pos_scalar for every
+// row. D in {64, 128}. n_splits >= 1 (split-S when > 1, with part the f32
+// scratch of launch() above; unused otherwise). use_tc picks the
+// tensor-core single pass or the SIMT kernel.
 int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
                         const void* pos, int pos_scalar, int B, int n_kv, int TQ,
-                        int S, int D, int kv_mul, float scale, int kv_bf16,
+                        int S, int D, int kv_mul, float scale, int kv_kind, int q_bf16,
                         void* part, int n_splits, void* stream) {
   if ((D != 64 && D != 128) || n_splits < 1 || (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -616,16 +720,11 @@ int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
   const int* pp = static_cast<const int*>(pos);
   float* op = static_cast<float*>(out);
   float* sp = static_cast<float*>(part);
-  if (use_tc(kv_bf16, n_splits))
-    return launch_tc<false>(qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B, n_kv, TQ, S,
-                            D, kv_mul, scale, s);
-  if (kv_bf16)
-    launch<__nv_bfloat16, false>(qp, k, v, op, nullptr, nullptr, sp, n_splits, pp,
-                                 pos_scalar, 0, B, n_kv, TQ, S, D, kv_mul, scale, s);
-  else
-    launch<float, false>(qp, k, v, op, nullptr, nullptr, sp, n_splits, pp, pos_scalar, 0,
-                         B, n_kv, TQ, S, D, kv_mul, scale, s);
-  return static_cast<int>(cudaGetLastError());
+  if (use_tc(kv_kind, q_bf16, n_splits))
+    return launch_tc<false>(kv_kind, qp, k, v, op, nullptr, nullptr, pp, pos_scalar, 0, B, n_kv,
+                            TQ, S, D, kv_mul, scale, s);
+  return launch_kind<false>(kv_kind, qp, k, v, op, nullptr, nullptr, sp, n_splits, pp,
+                            pos_scalar, 0, B, n_kv, TQ, S, D, kv_mul, scale, s);
 }
 
 // K3s: the same arguments for one KV block k/v [B, n_kv, S, D] holding
@@ -634,8 +733,8 @@ int dlt_flash_attention(const void* q, const void* k, const void* v, void* out,
 int dlt_flash_block_stats(const void* q, const void* k, const void* v, void* acc,
                           void* m, void* l, const void* pos, int pos_scalar,
                           int kv_pos0, int B, int n_kv, int TQ, int S, int D,
-                          int kv_mul, float scale, int kv_bf16, void* part, int n_splits,
-                          void* stream) {
+                          int kv_mul, float scale, int kv_kind, int q_bf16, void* part,
+                          int n_splits, void* stream) {
   if ((D != 64 && D != 128) || n_splits < 1 || (n_splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -645,16 +744,11 @@ int dlt_flash_block_stats(const void* q, const void* k, const void* v, void* acc
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   float* sp = static_cast<float*>(part);
-  if (use_tc(kv_bf16, n_splits))
-    return launch_tc<true>(qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv, TQ, S, D,
-                           kv_mul, scale, s);
-  if (kv_bf16)
-    launch<__nv_bfloat16, true>(qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar, kv_pos0,
-                                B, n_kv, TQ, S, D, kv_mul, scale, s);
-  else
-    launch<float, true>(qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar, kv_pos0, B, n_kv,
-                        TQ, S, D, kv_mul, scale, s);
-  return static_cast<int>(cudaGetLastError());
+  if (use_tc(kv_kind, q_bf16, n_splits))
+    return launch_tc<true>(kv_kind, qp, k, v, ap, mp, lp, pp, pos_scalar, kv_pos0, B, n_kv, TQ,
+                           S, D, kv_mul, scale, s);
+  return launch_kind<true>(kv_kind, qp, k, v, ap, mp, lp, sp, n_splits, pp, pos_scalar,
+                           kv_pos0, B, n_kv, TQ, S, D, kv_mul, scale, s);
 }
 
 const char* dlt_error_string(int code) {

@@ -10,7 +10,7 @@
 //
 // Layout (the JAX package's): queries fold the GQA group into rows,
 // q_g [B, n_kv, TQ = T * kv_mul, D] f32; this layer's pools
-// k/v [n_blocks, n_kv, bs, D] in f32 or bf16; tables [B, M] int32 of
+// k/v [n_blocks, n_kv, bs, D] in f32, bf16 or float8 e4m3; tables [B, M] int32 of
 // physical block ids (0 = the null block); pos [B] int32, the position of
 // each row's first query token; out [B, n_kv, TQ, D] f32. Query row r sees
 // logical columns s <= pos[b] + r / kv_mul; null entries and partial tail
@@ -73,6 +73,7 @@ constexpr int PA_STAGES = 3;  // ring depth: two tiles in flight behind the scor
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 // Dynamic shared memory: the query tile, then the ring of K/V tiles.
 template <typename KV, int DM>
@@ -289,16 +290,18 @@ int launch(const float* q, const void* k, const void* v, float* out, float* part
 
 extern "C" {
 
-// q_g f32 [B, n_kv, TQ, D]; k/v [n_blocks, n_kv, bs, D] f32 (kv_bf16 = 0) or
-// bf16; out f32 [B, n_kv, TQ, D]; tables int32 [B, M]; pos int32 [B], all
-// on the device. D % 8 == 0, D <= 128. n_splits >= 1 (split-S when > 1,
-// with part the f32 scratch of launch() above; unused otherwise).
+// q_g f32 [B, n_kv, TQ, D]; k/v [n_blocks, n_kv, bs, D] of kv_kind 0 (f32),
+// 1 (bf16) or 2 (float8 e4m3); out f32 [B, n_kv, TQ, D]; tables int32
+// [B, M]; pos int32 [B], all on the device. D <= 128, a multiple of 8 (of
+// 16 for e4m3). n_splits >= 1 (split-S when > 1, with part the f32 scratch
+// of launch() above; unused otherwise).
 int dlt_paged_attention(const void* q, const void* k, const void* v, void* out,
                         const void* tables, const void* pos, int B, int n_kv, int TQ,
                         int D, int n_blocks, int bs, int M, int kv_mul, float scale,
-                        int kv_bf16, void* part, int n_splits, void* stream) {
-  if (D <= 0 || D > 128 || D % 8 != 0 || bs <= 0 || M <= 0 || n_blocks <= 0 || TQ <= 0 ||
-      n_splits < 1 || (n_splits > 1 && part == nullptr))
+                        int kv_kind, void* part, int n_splits, void* stream) {
+  if (D <= 0 || D > 128 || D % (kv_kind == CACHE_E4M3 ? 16 : 8) != 0 || bs <= 0 || M <= 0 ||
+      n_blocks <= 0 || TQ <= 0 || n_splits < 1 || (n_splits > 1 && part == nullptr) ||
+      kv_kind < CACHE_F32 || kv_kind > CACHE_E4M3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
@@ -306,7 +309,12 @@ int dlt_paged_attention(const void* q, const void* k, const void* v, void* out,
   const int* pp = static_cast<const int*>(pos);
   float* op = static_cast<float*>(out);
   float* sp = static_cast<float*>(part);
-  if (kv_bf16)
+  if (kv_kind == CACHE_E4M3)
+    return D <= 64 ? launch<__nv_fp8_e4m3, 64>(qp, k, v, op, sp, n_splits, tp, pp, B, n_kv, TQ,
+                                               D, bs, M, kv_mul, scale, s)
+                   : launch<__nv_fp8_e4m3, 128>(qp, k, v, op, sp, n_splits, tp, pp, B, n_kv,
+                                                TQ, D, bs, M, kv_mul, scale, s);
+  if (kv_kind == CACHE_BF16)
     return D <= 64 ? launch<__nv_bfloat16, 64>(qp, k, v, op, sp, n_splits, tp, pp, B, n_kv, TQ,
                                                D, bs, M, kv_mul, scale, s)
                    : launch<__nv_bfloat16, 128>(qp, k, v, op, sp, n_splits, tp, pp, B, n_kv,

@@ -1,8 +1,8 @@
 """.m model file format — header parse, tensor walker and writer.
 
 The port's own copy of the JAX package's ``formats/mfile.py`` (dense
-models; the checksum sidecar and the sharded sub-block readers are not
-ported). Wire-compatible with the reference format (reference:
+models, with the ``<model>.m.sums`` checksum sidecar; the sharded sub-block
+readers are not ported). Wire-compatible with the reference format (reference:
 src/llm.cpp:34-145 for the header parse, src/llm.cpp:499-539 for the tensor
 order, converter/writer.py:109-147 for the writer):
 
@@ -20,8 +20,11 @@ the logits matmul (weight float type).
 from __future__ import annotations
 
 import enum
+import json
 import mmap
+import os
 import struct
+import zlib
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -30,6 +33,15 @@ import numpy as np
 from .quants import F16, F32, Q40, Q80, dequantize_q40, dequantize_q80, tensor_bytes
 
 MODEL_MAGIC = 0xA00ABCD
+
+# checksum manifest sidecar (``<model>.m.sums``): per-tensor crc32 of the
+# on-disk bytes, verified by the loader. A sidecar (not a trailer) keeps the
+# .m byte stream wire-compatible with the reference reader, whose walk
+# requires walk-end == file size. The JSON document is the JAX package's, so
+# a manifest written by either package loads in the other.
+MANIFEST_SUFFIX = ".sums"
+MANIFEST_VERSION = 1
+MANIFEST_ALGO = "crc32"
 
 
 class HeaderKey(enum.IntEnum):
@@ -204,12 +216,18 @@ class ModelFile:
     path: str
     header: ModelHeader
     tensors: dict[str, TensorRecord] = field(default_factory=dict)
+    # per-tensor crc32 from the .m.sums sidecar; None when the model has no
+    # manifest (such files stay loadable, unverified)
+    checksums: dict[str, int] | None = None
     _mm: mmap.mmap | None = None
     _file: object | None = None
 
     @classmethod
-    def open(cls, path: str | Path, max_seq_len: int = 0,
-             sync_type: int = F32) -> "ModelFile":
+    def open(cls, path: str | Path, max_seq_len: int = 0, sync_type: int = F32,
+             load_checksums: bool = True) -> "ModelFile":
+        """``load_checksums=False`` skips the .m.sums sidecar: the manifest
+        writer needs it, since validating the stale sidecar it is about to
+        replace would make regeneration circular."""
         path = str(path)
         f = open(path, "rb")
         try:
@@ -224,6 +242,8 @@ class ModelFile:
                 raise ValueError("MoE models are not ported yet (dense FFN only)")
             mf = cls(path=path, header=header, _mm=mm, _file=f)
             mf._walk()
+            if load_checksums:
+                mf.checksums = load_manifest(path, file_size=header.file_size)
         except Exception:
             mm.close()
             f.close()
@@ -284,6 +304,10 @@ class ModelFile:
         assert self._mm is not None, "file closed"
         return memoryview(self._mm)[rec.offset:rec.offset + rec.n_bytes]
 
+    def tensor_crc32(self, key: str) -> int:
+        """crc32 of a tensor's raw on-disk bytes (the manifest unit)."""
+        return zlib.crc32(self.raw(key)) & 0xFFFFFFFF
+
     def tensor_f32(self, key: str) -> np.ndarray:
         """A tensor fully dequantized to an owning float32 array of its
         logical shape."""
@@ -312,3 +336,69 @@ def write_header(f, params: dict) -> None:
     f.write(struct.pack("<i", MODEL_MAGIC))
     f.write(struct.pack("<i", 8 + len(data)))
     f.write(data)
+
+
+# ---------------------------------------------------------------------------
+# Checksum manifest (sidecar <model>.m.sums)
+# ---------------------------------------------------------------------------
+
+
+def manifest_path(path: str | Path) -> str:
+    return str(path) + MANIFEST_SUFFIX
+
+
+def compute_checksums(mf: ModelFile) -> dict[str, int]:
+    """crc32 of every tensor's on-disk bytes, keyed by walker key
+    (``name[.layer]``): one sequential pass over the mmap."""
+    return {key: mf.tensor_crc32(key) for key in mf.tensors}
+
+
+def write_manifest(path: str | Path, checksums: dict[str, int] | None = None) -> str:
+    """Write the checksum sidecar of an existing .m file (``checksums``
+    skips the recompute). Atomic: a temp file, then a rename, so a crashed
+    writer never leaves a half-manifest that would make a good model look
+    corrupt."""
+    path = str(path)
+    if checksums is None:
+        with ModelFile.open(path, load_checksums=False) as mf:
+            checksums = compute_checksums(mf)
+    out = manifest_path(path)
+    doc = {"version": MANIFEST_VERSION, "algo": MANIFEST_ALGO,
+           "file_size": os.path.getsize(path), "tensors": checksums}
+    tmp = out + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=0, sort_keys=True)
+    os.replace(tmp, out)
+    return out
+
+
+def load_manifest(path: str | Path, file_size: int | None = None) -> dict[str, int] | None:
+    """The checksum sidecar of a .m file; None when there is none. A
+    malformed manifest, one of another algorithm, or a stale one (its
+    recorded file size differs from the file's) raises: skipping
+    verification because the sidecar rotted would defeat its purpose."""
+    mpath = manifest_path(path)
+    if not os.path.exists(mpath):
+        return None
+    try:
+        with open(mpath, encoding="utf-8") as f:
+            doc = json.load(f)
+        algo, tensors = doc["algo"], doc["tensors"]
+        recorded = int(doc["file_size"])
+        sums = {str(k): int(v) for k, v in tensors.items()}
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        raise ValueError(f"malformed checksum manifest {mpath}: {e} — "
+                         f"regenerate it (python -m dllama_tpu_torch verify "
+                         f"--model {path} --write) or delete it to load "
+                         f"unverified") from e
+    if algo != MANIFEST_ALGO:
+        raise ValueError(f"checksum manifest {mpath} uses unsupported "
+                         f"algo {algo!r} (want {MANIFEST_ALGO!r})")
+    actual = os.path.getsize(path) if file_size is None else file_size
+    if recorded != actual:
+        raise ValueError(
+            f"checksum manifest {mpath} is stale or the model is "
+            f"truncated: manifest records {recorded} bytes, file has "
+            f"{actual} — reconvert, regenerate the manifest, or delete "
+            f"it to load unverified")
+    return sums

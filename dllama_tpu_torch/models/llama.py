@@ -46,7 +46,7 @@ from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, fake_qu
 from ..ops.norms import rms_norm, rms_norm_per_head
 from ..ops.paged_attention import paged_attention, paged_attention_plain
 from ..parallel.ring import sp_attention
-from ..runtime.kvcache import update_layer
+from ..runtime.kvcache import cache_bits, to_cache, update_layer
 from .config import ModelConfig
 from .rope import apply_rope, build_rope_cache
 
@@ -377,8 +377,8 @@ def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
         lane = torch.arange(positions.shape[1], device=blk.device)[None, :]
         blk = torch.where(lane <= write_lens[:, None], blk, torch.zeros_like(blk))
     off = positions % bs
-    k_pool[blk, :, off] = k.to(k_pool.dtype)       # index_put_, [B, T, n_kv, hd]
-    v_pool[blk, :, off] = v.to(v_pool.dtype)
+    cache_bits(k_pool)[blk, :, off] = cache_bits(to_cache(k, k_pool.dtype))  # index_put_
+    cache_bits(v_pool)[blk, :, off] = cache_bits(to_cache(v, v_pool.dtype))
     if _use_flash(cfg, q):
         att = paged_attention(q, k_pool, v_pool, tables, positions, cfg.head_dim)
     else:

@@ -33,12 +33,16 @@ stats mode, with the same split rule; its plain version is
 ``flash_block_stats.launches`` counts its launches, and
 ``flash_block_stats.last_splits`` holds the last launch's ``n_splits``.
 
-Two paths on the card, chosen by :func:`_attn_path` from the cache dtype
-and the split count alone, and recorded as ``last_path`` on each wrapper:
-a single pass over a bf16 cache (prefill chunks, K3s's ring blocks) runs on
-the tensor cores (``"tc"``: bf16 ``mma.sync`` scores and ``P V`` from a TMA
-ring, f32 online softmax, ``P`` rounded to bf16 before ``P V``); f32 caches
-and split launches run the FP32 SIMT kernel (``"simt"``). The tensor-core
+Two paths on the card, chosen by :func:`_attn_path` from the cache dtype,
+the split count and the queries' dtype, and recorded as ``last_path`` on
+each wrapper: a single pass over a bf16 cache (prefill chunks, K3s's ring
+blocks), or over a float8 e4m3 cache (``--kv-dtype f8``) under bf16
+queries, runs on the tensor cores (``"tc"``: bf16 ``mma.sync`` scores and
+``P V`` from a TMA ring, an e4m3 tile widened to bf16 in shared memory
+first, f32 online softmax, ``P`` rounded to bf16 before ``P V``); f32
+caches, e4m3 caches under f32 queries (widened exactly to f32 as the tiles
+are staged, so the queries are never rounded) and split launches run the
+FP32 SIMT kernel (``"simt"``). The tensor-core
 path's rounding is written plainly in :func:`flash_block_stats_tc_plain`
 and :func:`flash_attention_tc_plain`, which the CPU tests and
 ``chip_smoke.py`` hold it against; the CPU dispatch stays on the f32
@@ -107,13 +111,22 @@ def _attn_splits(B: int, n_kv: int, TQ: int, S: int, max_blocks: int = _SPLIT_MA
     return max(1, min(-(-target_blocks // blocks), -(-S // BS) // _SPLIT_MIN_TILES))
 
 
-def _attn_path(kv_dtype: torch.dtype, n_splits: int) -> str:
+# the C entries' cache kinds (csrc/flash_attention.cu, csrc/paged_attention.cu)
+CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
+def _attn_path(kv_dtype: torch.dtype, n_splits: int,
+               q_dtype: torch.dtype = torch.float32) -> str:
     """The kernel a K3/K3s launch takes: ``"tc"`` (tensor cores) for a
-    single pass over a bf16 cache, ``"simt"`` (FP32) for an f32 cache or a
-    split launch. Depends on the dtype and the shapes only: the C entries
+    single pass over a bf16 cache, or over an e4m3 cache under bf16 queries
+    (rounding them to bf16 changes nothing); ``"simt"`` (FP32) for an f32
+    cache, an e4m3 cache under f32 queries, or a split launch. Depends on
+    the dtypes and the shapes only: the C entries
     (``csrc/flash_attention.cu::use_tc``) choose the same way, as their
     kernels allow no other, and the wrappers record it as ``last_path``."""
-    return "tc" if kv_dtype == torch.bfloat16 and n_splits == 1 else "simt"
+    tc_cache = kv_dtype == torch.bfloat16 or (kv_dtype == torch.float8_e4m3fn
+                                              and q_dtype == torch.bfloat16)
+    return "tc" if tc_cache and n_splits == 1 else "simt"
 
 
 def _split_ranges(newest: int, n_splits: int) -> list[tuple[int, int]]:
@@ -141,10 +154,10 @@ def _lib():
         lib = load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dlt_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                            ctypes.c_float, i, p, i, p]
+                                            ctypes.c_float, i, i, p, i, p]
         lib.dlt_flash_attention.restype = i
         lib.dlt_flash_block_stats.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                              i, ctypes.c_float, i, p, i, p]
+                                              i, ctypes.c_float, i, i, p, i, p]
         lib.dlt_flash_block_stats.restype = i
         _lib.cached = lib
     return lib
@@ -174,15 +187,16 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     pos_ptr, pos_scalar, _pos = _positions(start_pos, q.device)
     TQ = T * kv_mul
     n_splits = _attn_splits(B, n_kv, TQ, S)
-    path = _attn_path(k_cache.dtype, n_splits)
+    path = _attn_path(k_cache.dtype, n_splits, q.dtype)
     part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q.device)
     lib = _lib()
     with on_card(q.device):
         rc = lib.dlt_flash_attention(
             q_g.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
             pos_ptr, pos_scalar, B, n_kv, TQ, S, D, kv_mul,
-            1.0 / math.sqrt(head_dim), int(k_cache.dtype == torch.bfloat16),
-            part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
+            1.0 / math.sqrt(head_dim), CACHE_KINDS[k_cache.dtype],
+            int(q.dtype == torch.bfloat16), part_ptr, n_splits,
+            torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     flash_attention.last_splits = n_splits
     flash_attention.last_path = path
@@ -196,7 +210,7 @@ flash_attention.last_path = ""
 
 
 def _check_cache(what: str, device: torch.device, k: torch.Tensor, v: torch.Tensor) -> None:
-    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+    if k.dtype not in CACHE_KINDS or v.dtype != k.dtype:
         raise ValueError(f"{what}: cache dtype {k.dtype} not supported")
     for name, t in (("k", k), ("v", v)):
         if not t.is_contiguous() or t.device != device or t.data_ptr() % 16:
@@ -218,12 +232,12 @@ def _block_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Unnormalized block attention; the plain version of K3s (the JAX
     package's ``parallel/ring.py::_block_attn``).
 
-    ``qg: [B, T, n_kv, kv_mul, hd]`` grouped f32 queries, ``k/v: [B, n_kv,
+    ``qg: [B, T, n_kv, kv_mul, hd]`` grouped queries (read as f32), ``k/v: [B, n_kv,
     S, hd]`` (head-major cache block), ``mask: [B, T, S]`` True where
     visible. Returns ``(acc [B,T,n_kv,kv_mul,hd], m [B,T,n_kv,kv_mul],
     l [same])``; a fully masked row gives ``acc = 0``, ``l = 0``,
     ``m = -inf`` with no NaN (the ``m_safe`` clamp)."""
-    scores = torch.einsum("btkmh,bksh->btkms", qg, k.float())
+    scores = torch.einsum("btkmh,bksh->btkms", qg.float(), k.float())
     scores = scores / math.sqrt(head_dim)
     mask_b = mask[:, :, None, None, :]
     scores = torch.where(mask_b, scores, float("-inf"))
@@ -261,10 +275,11 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
                       q_pos0: int | torch.Tensor, kv_pos0: int, head_dim: int, t: int):
     """Unnormalised attention of GQA-folded queries over one KV block (K3s).
 
-    ``q_g [B, n_kv, TQ = t * kv_mul, D]`` f32, row ``r`` at absolute
+    ``q_g [B, n_kv, TQ = t * kv_mul, D]`` (f32, or bf16 under bf16
+    compute: read as f32, its dtype picks the path), row ``r`` at absolute
     position ``q_pos0 + r // kv_mul`` (``q_pos0`` an int or a ``[B]``
-    tensor); ``k/v_block [B, n_kv, S_l, D]`` f32 or bf16 holding positions
-    ``[kv_pos0, kv_pos0 + S_l)``. Returns ``(acc [B, n_kv, TQ, D],
+    tensor); ``k/v_block [B, n_kv, S_l, D]`` f32, bf16 or e4m3 holding positions
+    ``[kv_pos0, kv_pos0 + S_l)`` (f8 e4m3 too). Returns ``(acc [B, n_kv, TQ, D],
     m [B, n_kv, TQ], l [B, n_kv, TQ])``, all f32; a row that sees nothing of
     the block gets exactly ``acc = 0``, ``l = 0``, ``m = -inf``."""
     B, n_kv, TQ, D = q_g.shape
@@ -278,13 +293,14 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
                          f"block={tuple(k_block.shape)} not supported "
                          f"(head_dim in {HEAD_DIMS}, TQ <= {MAX_TQ})")
     _check_cache("flash_block_stats", q_g.device, k_block, v_block)
+    q_dtype = q_g.dtype
     q_g = q_g.float().contiguous()
     acc = torch.empty_like(q_g)
     m = torch.empty((B, n_kv, TQ), dtype=torch.float32, device=q_g.device)
     l = torch.empty_like(m)
     pos_ptr, pos_scalar, _pos = _positions(q_pos0, q_g.device)
     n_splits = _attn_splits(B, n_kv, TQ, S)
-    path = _attn_path(k_block.dtype, n_splits)
+    path = _attn_path(k_block.dtype, n_splits, q_dtype)
     part_ptr, _part = _split_scratch(n_splits, B * n_kv * TQ, D, q_g.device)
     lib = _lib()
     with on_card(q_g.device):
@@ -292,7 +308,7 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
             q_g.data_ptr(), k_block.data_ptr(), v_block.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), pos_ptr, pos_scalar, int(kv_pos0), B, n_kv, TQ,
             S, D, TQ // t, 1.0 / math.sqrt(head_dim),
-            int(k_block.dtype == torch.bfloat16), part_ptr, n_splits,
+            CACHE_KINDS[k_block.dtype], int(q_dtype == torch.bfloat16), part_ptr, n_splits,
             torch.cuda.current_stream(q_g.device).cuda_stream)
     flash_block_stats.launches += 1
     flash_block_stats.last_splits = n_splits

@@ -96,8 +96,18 @@ def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto") -> torch.Tensor:
         if impl != "auto":
             raise ValueError(f"quant_impl must be auto|xla, got {impl!r}")
         return quant_matmul(x, w, fast=fast)
-    # dense weight: a plain matrix product (cuBLAS on the card, no TF32)
-    return F.linear(x, w.to(x.dtype))
+    # dense weight: a plain matrix product (cuBLAS on the card)
+    w = w.to(x.dtype)
+    precision = torch.get_float32_matmul_precision()
+    if x.dtype != torch.float32 or not x.is_cuda or precision == "highest":
+        return F.linear(x, w)
+    # exact mode is f32 products: never TF32, whatever the process set
+    # (scoped to this call, so a CUDA graph captures the f32 kernel)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return F.linear(x, w)
+    finally:
+        torch.set_float32_matmul_precision(precision)
 
 
 def _q80_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

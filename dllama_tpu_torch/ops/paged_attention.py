@@ -25,7 +25,8 @@ split order.
 
 :func:`paged_attention` runs :func:`paged_attention_plain` (the gather +
 oracle, its plain version) on a CPU tensor, and on a CUDA tensor launches
-the kernel or raises. ``paged_attention.launches`` counts kernel launches
+the kernel or raises. The pool is f32, bf16 or float8 e4m3 (``--kv-dtype
+f8``), widened exactly to f32 as it is read. ``paged_attention.launches`` counts kernel launches
 (one per call, split or not) and ``paged_attention.last_splits`` holds the
 ``n_splits`` of the last launch (1: single pass).
 """
@@ -39,7 +40,8 @@ import torch
 
 from .attention import attention
 from .cuda_build import SMS, check, load, on_card
-from .flash_attention import _attn_splits, _split_scratch, fold_queries, unfold_output
+from .flash_attention import (CACHE_KINDS, _attn_splits, _split_scratch, fold_queries,
+                              unfold_output)
 
 MAX_TQ = 512    # folded query rows (T * kv_mul) per (batch row, KV head)
 MAX_HEAD_DIM = 128
@@ -126,8 +128,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             f"paged_attention: q={tuple(q.shape)}, n_kv={n_kv}, block size {bs} "
             f"not supported (head_dim % 8 == 0 and <= {MAX_HEAD_DIM}, block size "
             f"% 8 == 0, T*kv_mul <= {MAX_TQ})")
-    if k_pool.dtype not in (torch.float32, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
+    if k_pool.dtype not in CACHE_KINDS or v_pool.dtype != k_pool.dtype:
         raise ValueError(f"paged_attention: pool dtype {k_pool.dtype} not supported")
+    if D % (16 // k_pool.element_size()):
+        raise ValueError(f"paged_attention: head dim {D} is not a whole number of "
+                         f"16-byte chunks of a {k_pool.dtype} row")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous() or t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} must be contiguous and "
@@ -145,7 +150,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         rc = lib.dlt_paged_attention(
             q_g.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
             tbl.data_ptr(), pos0.data_ptr(), B, n_kv, TQ, D, n_blocks, bs, M,
-            kv_mul, 1.0 / math.sqrt(head_dim), int(k_pool.dtype == torch.bfloat16),
+            kv_mul, 1.0 / math.sqrt(head_dim), CACHE_KINDS[k_pool.dtype],
             part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
     paged_attention.last_splits = n_splits

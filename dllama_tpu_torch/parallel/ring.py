@@ -34,6 +34,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from ..ops.flash_attention import _block_attn, flash_block_stats
+from ..runtime.kvcache import cache_bits, to_cache
 
 if TYPE_CHECKING:
     from .api import MeshPlan
@@ -85,9 +86,10 @@ def _append_kv(k_shards, v_shards, new_k: torch.Tensor, new_v: torch.Tensor,
     s_local = k_shards[0].shape[2]
     rows = ([(b, p) for b, p in enumerate(start_pos.tolist())]
             if torch.is_tensor(start_pos) else [(slice(None), int(start_pos))])
-    k_rows = new_k.transpose(1, 2).to(k_shards[0].dtype)      # [B, n_kv, T, hd]
-    v_rows = new_v.transpose(1, 2).to(v_shards[0].dtype)
+    k_rows = cache_bits(to_cache(new_k.transpose(1, 2), k_shards[0].dtype))  # [B, n_kv, T, hd]
+    v_rows = cache_bits(to_cache(new_v.transpose(1, 2), v_shards[0].dtype))
     for j, (ks, vs) in enumerate(zip(k_shards, v_shards)):
+        ks, vs = cache_bits(ks), cache_bits(vs)
         base = j * s_local
         for b, p in rows:
             lo, hi = max(p, base), min(p + T, base + s_local)
@@ -244,7 +246,9 @@ def sp_attention(plan: "MeshPlan", q: torch.Tensor, k_shards, v_shards,
     use_kernel = _kernel_eligible(attn_impl, q)
     _append_kv(k_shards, v_shards, new_k, new_v, start_pos)
     n_kv = kv_shape[1]
-    qg = q.reshape(B, T, n_kv, H // n_kv, hd).float()
+    # the grouped queries keep the compute dtype: K3s reads them as f32, and
+    # bf16 ones let a single pass over an e4m3 shard take the tensor cores
+    qg = q.reshape(B, T, n_kv, H // n_kv, hd)
     if T % n_sp == 0 and T > 1:
         outs = _ring_attention(plan, qg, k_shards, v_shards, positions, start_pos,
                                head_dim, use_kernel)

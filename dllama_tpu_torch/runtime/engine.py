@@ -35,6 +35,20 @@ drafts stay where they are: past the committed position they are
 invisible to the causal mask and the next dispatch rewrites them. At
 temperature > 0 the flag is ignored, as in the JAX engine.
 
+``kv_dtype`` (``--kv-dtype``) stores the cache as f32, bf16 or float8 e4m3
+(``"f8"``: half of bf16's bytes, rounded at the write to the JAX package's
+bits, :func:`~dllama_tpu_torch.runtime.kvcache.to_cache`); ``weight_mode``
+(``--weight-mode f32|bf16``) loads every matmul weight dequantized to a
+dense matrix, so the products run as plain matrix products and the
+quantized-matmul kernels are not launched; an f32 product never runs in
+TF32 (:func:`~dllama_tpu_torch.ops.linear.linear`). ``host_sampling``
+(``--host-sampling``) is the parity oracle of sampled decode: one eager
+forward a token, its logits to the host and
+:meth:`~dllama_tpu_torch.tokenizer.sampler.Sampler.sample`. With
+``verify_weights`` every tensor is crc-checked against the ``.m.sums``
+manifest before anything is staged on the device; a constructor that
+raises leaves no device memory behind.
+
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
 mask (``s <= pos``), and every slot is rewritten by its real token before it
@@ -44,6 +58,7 @@ ever becomes visible.
 from __future__ import annotations
 
 import time
+import traceback
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -59,9 +74,9 @@ from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
 from .graphs import DecodeGraph, VerifyGraph
 from .kvblocks import validate_block_size
-from .kvcache import KVCache, ShardedKVCache, padded_cache_len
+from .kvcache import F8, KVCache, ShardedKVCache, padded_cache_len
 from .speculative import NgramProposer
-from .weights import load_params
+from .weights import WeightIntegrityError, load_params, verify_weights as _verify_all
 
 DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
 
@@ -161,14 +176,28 @@ class InferenceEngine:
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
                  attn_impl: str = "auto", quant_impl: str = "auto",
                  kv_block_size: int = 0, sp: int = 1, sp_devices=None,
-                 decode_chunk: int = 1, spec_lookup: int = 0):
+                 decode_chunk: int = 1, spec_lookup: int = 0, kv_dtype: str = "auto",
+                 weight_mode: str = "auto", host_sampling: bool = False,
+                 verify_weights: bool = False):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
+        # KV cache dtype: "auto" rides the compute dtype; "f8" stores e4m3
+        kv_dtypes = {"auto": getattr(torch, compute_dtype), "f32": torch.float32,
+                     "bf16": torch.bfloat16, "f8": F8}
+        if kv_dtype not in kv_dtypes:
+            raise ValueError(f"kv_dtype must be one of {sorted(kv_dtypes)}, got {kv_dtype!r}")
+        self.weight_mode = weight_mode  # checked by the loader, before any staging
+        # sampling on the host from downloaded logits (the parity oracle):
+        # one token a dispatch
+        self.host_sampling = bool(host_sampling)
         # multi-step decode: K tokens per dispatch (--decode-chunk)
-        self.decode_chunk = max(1, int(decode_chunk))
+        self.decode_chunk = 1 if self.host_sampling else max(1, int(decode_chunk))
         # prompt-lookup speculative decode (--spec-lookup, greedy only): K
         # drafted tokens verified per dispatch
         self.spec_lookup = max(0, int(spec_lookup))
+        if self.spec_lookup and self.host_sampling:
+            raise ValueError("--spec-lookup requires the fused device path "
+                             "(drop --host-sampling)")
         if self.spec_lookup and self.decode_chunk > 1:
             raise ValueError("--spec-lookup and --decode-chunk are exclusive "
                              "(both multiply tokens per dispatch)")
@@ -199,9 +228,9 @@ class InferenceEngine:
                                                    compute_dtype=compute_dtype),
                            attn_impl=attn_impl, quant_impl=quant_impl)
         # the block geometry is checked before the load; the pool (built by
-        # serving.PagedGenerator) holds K/V at the compute dtype, as the
-        # dense cache does
-        self.kv_dtype = getattr(torch, compute_dtype)
+        # serving.PagedGenerator) holds K/V at kv_dtype, as the dense cache
+        # does
+        self.kv_dtype = kv_dtypes[kv_dtype]
         try:
             if self.kv_block_size:
                 validate_block_size(self.cfg.seq_len, self.kv_block_size)
@@ -220,13 +249,26 @@ class InferenceEngine:
             self.prefill_buckets = (self.n_batches,)
         self.tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
         self.sampler = Sampler(self.cfg.vocab_size, temperature, topp, seed)
+        self.params: Params | None = None
+        self.kv = None
         try:
-            self.params: Params = load_params(self.model_file, self.cfg, self.device)
+            if verify_weights:
+                # the full sweep before anything is staged on the device
+                res = _verify_all(self.model_file)
+                if res["corrupt"]:
+                    raise WeightIntegrityError(
+                        f"--verify-weights: {len(res['corrupt'])} of {res['tensors']} "
+                        f"tensors corrupt in {model_path}: " + ", ".join(res["corrupt"]))
+            self.params = load_params(self.model_file, self.cfg, self.device, weight_mode)
             self.kv = (ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
                        if self.plan else
                        KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device))
-        except BaseException:
+        except BaseException as e:
+            # atomic failure: no half-built engine, and no device buffer
+            # kept alive by the frames of the traceback the caller holds
+            self.params = self.kv = None
             self.model_file.close()
+            traceback.clear_frames(e.__traceback__)
             raise
         self.pos = 0
         # the captured decode steps, keyed by "sampled", and the captured
@@ -356,7 +398,17 @@ class InferenceEngine:
     def _run_chunk(self, token: int, start_pos: int, k: int, greedy: bool,
                    temp: float, topp: float, coins) -> list[int]:
         """Dispatch ``k`` decode steps from ``token`` at ``start_pos``: ``k``
-        replays of the captured step at sp == 1, the eager loop at sp > 1."""
+        replays of the captured step at sp == 1, the eager loop at sp > 1;
+        a sampled token under ``host_sampling`` (``k == 1``) is one eager
+        forward whose logits the host samples. The RNG is left for
+        :meth:`commit_chunk` to advance in every case."""
+        if self.host_sampling and not greedy:
+            logits, self.kv = forward(self.params, self.cfg, self._tokens([token]), start_pos,
+                                      self.kv, self.plan)
+            st = self.sampler.rng_state
+            tok = self.sampler.sample(logits[0, 0].cpu().numpy())
+            self.sampler.rng_state = st
+            return [tok]
         if self.plan is None:
             g = self.decode_step_graph(sampled=not greedy)
             g.launch(token, start_pos, k, temp, topp, coins)

@@ -22,6 +22,33 @@ import torch
 if TYPE_CHECKING:
     from ..models.config import ModelConfig
 
+F8 = torch.float8_e4m3fn
+# e4m3fn's largest finite value is 448 and the next step up would be 480:
+# a value past their midpoint rounds out of range, which the JAX package's
+# cast (XLA's and ml_dtypes') turns into NaN, as it does inf and NaN
+F8_NAN_ABOVE = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to a cache dtype. For e4m3 these are the JAX package's
+    bits: round to nearest even in range, NaN (with ``x``'s sign) where
+    ``|x| > 464`` or ``x`` is inf or NaN. PyTorch's own cast saturates
+    those to ±448, so only its in-range results are kept. Elementwise on
+    the device: a CUDA graph can hold it."""
+    if dtype != F8:
+        return x.to(dtype)
+    xf = x.float()
+    bits = xf.to(F8).view(torch.uint8)
+    nan = torch.signbit(xf).to(torch.uint8) * 0x80 | 0x7F
+    return torch.where(xf.abs() <= F8_NAN_ABOVE, bits, nan).view(F8)
+
+
+def cache_bits(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 cache tensor viewed as its ``uint8`` bytes (others as they
+    are): the view every cache write and row copy moves, bit-exact."""
+    return t.view(torch.uint8) if t.dtype == F8 else t
+
+
 # physical cache rows round up to this (the flash kernel's KV tiling in the
 # JAX package) — rows past the logical seq_len are never written or attended
 CACHE_ALIGN = 128
@@ -112,17 +139,18 @@ def update_layer(k_layer: torch.Tensor, v_layer: torch.Tensor, new_k: torch.Tens
     scatters along ``S`` on the device, never reading the positions back to
     the host, so a CUDA graph can hold it; it writes the same values."""
     T = new_k.shape[1]
-    nk = new_k.transpose(1, 2).to(k_layer.dtype)  # [B, n_kv, T, hd]
-    nv = new_v.transpose(1, 2).to(v_layer.dtype)
+    nk = cache_bits(to_cache(new_k.transpose(1, 2), k_layer.dtype))  # [B, n_kv, T, hd]
+    nv = cache_bits(to_cache(new_v.transpose(1, 2), v_layer.dtype))
+    kb, vb = cache_bits(k_layer), cache_bits(v_layer)
     if not torch.is_tensor(start_pos):
         p = int(start_pos)
-        k_layer[:, :, p:p + T] = nk
-        v_layer[:, :, p:p + T] = nv
+        kb[:, :, p:p + T] = nk
+        vb[:, :, p:p + T] = nv
         return k_layer, v_layer
     B, n_kv, _, hd = nk.shape
     rows = (start_pos.to(device=k_layer.device, dtype=torch.long)[:, None]
             + torch.arange(T, device=k_layer.device)[None, :])       # [B, T]
     idx = rows[:, None, :, None].expand(B, n_kv, T, hd)
-    k_layer.scatter_(2, idx, nk)
-    v_layer.scatter_(2, idx, nv)
+    kb.scatter_(2, idx, nk)
+    vb.scatter_(2, idx, nv)
     return k_layer, v_layer

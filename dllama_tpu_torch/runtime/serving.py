@@ -66,7 +66,7 @@ from ..tokenizer.sampler import xorshift_random_f32
 from .graphs import StepGraph, load, staging
 from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
                        block_pool_bytes, blocks_per_seq)
-from .kvcache import KVCache, padded_cache_len
+from .kvcache import KVCache, cache_bits, padded_cache_len
 from .speculative import NgramProposer, spec_coins_consumed
 
 if TYPE_CHECKING:
@@ -469,8 +469,8 @@ class BatchedGenerator(_GeneratorCore):
         rest = ids[:-1]
         src, k = self._best_prefix(rest)
         if k and src != slot:
-            self.kv.k[:, slot, :, :k] = self.kv.k[:, src, :, :k]
-            self.kv.v[:, slot, :, :k] = self.kv.v[:, src, :, :k]
+            for c in (cache_bits(self.kv.k), cache_bits(self.kv.v)):
+                c[:, slot, :, :k] = c[:, src, :, :k]
         # prefill rewrites the column from row k on: its old context is no
         # longer reusable, and its ride-along writes go past the prompt
         self._ctx[slot] = None
@@ -786,10 +786,11 @@ class PagedGenerator(_GeneratorCore):
         idx = torch.tensor(bids, dtype=torch.long, device=self.eng.device)
 
         def view(pool: torch.Tensor) -> torch.Tensor:
-            col = torch.zeros((L, n_kv, self.table_width, bs, hd), dtype=pool.dtype,
+            bits = cache_bits(pool)
+            col = torch.zeros((L, n_kv, self.table_width, bs, hd), dtype=bits.dtype,
                               device=pool.device)
-            col[:, :, :len(bids)] = pool[:, idx].transpose(1, 2)
-            return col.reshape(L, 1, n_kv, self.table_width * bs, hd)
+            col[:, :, :len(bids)] = bits[:, idx].transpose(1, 2)
+            return col.view(pool.dtype).reshape(L, 1, n_kv, self.table_width * bs, hd)
 
         return KVCache(k=view(self.pkv.k), v=view(self.pkv.v))
 
@@ -804,11 +805,11 @@ class PagedGenerator(_GeneratorCore):
         idx = torch.tensor(own, dtype=torch.long, device=self.eng.device)
         for pool, c in ((self.pkv.k, col.k), (self.pkv.v, col.v)):
             blocks = c.reshape(L, n_kv, self.table_width, bs, hd)[:, :, n_shared:len(bids)]
-            pool[:, idx] = blocks.transpose(1, 2)
+            cache_bits(pool)[:, idx] = cache_bits(blocks).transpose(1, 2)
 
     def _copy_block(self, src: int, dst: int) -> None:
-        self.pkv.k[:, dst] = self.pkv.k[:, src]
-        self.pkv.v[:, dst] = self.pkv.v[:, src]
+        for pool in (cache_bits(self.pkv.k), cache_bits(self.pkv.v)):
+            pool[:, dst] = pool[:, src]
 
     # -- admission ----------------------------------------------------------
 

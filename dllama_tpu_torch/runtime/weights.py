@@ -16,9 +16,26 @@ numerics follow the JAX loader:
 * dense (F32/F16) weights load as f32 ``[out, in]``;
 * the embedding is stored at the compute dtype (it is only ever read as
   ``embedding[tokens].to(compute_dtype)``), norms as f32.
+
+``weight_mode`` (``--weight-mode``) is ``"auto"`` (the above) or
+``"f32"``/``"bf16"``: every matmul weight dequantized to a dense ``[out,
+in]`` matrix, the JAX loader's values bit for bit (f32 is ``code * scale``
+in f32, bf16 that product rounded to nearest even), the head bf16 under
+fast numerics. Each tensor is dequantized on the device right after its
+planes are unpacked and the planes are dropped before the next one, so the
+peak is the dense model plus one tensor's planes. ``"offload"`` (host-DRAM
+weight streaming) is not ported and is refused.
+
+Integrity: every tensor is read through :class:`ResilientReader`, which
+crc-checks it against the ``.m.sums`` manifest once, before its first read,
+and retries a read that raises ``OSError``; :func:`verify_weights` is the
+offline sweep of ``verify`` and ``--verify-weights``.
 """
 
 from __future__ import annotations
+
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -32,17 +49,103 @@ from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, dequantize_weig
                           fast_numerics_resolved)
 
 
+WEIGHT_MODES = ("auto", "f32", "bf16")
+
+
+class WeightIntegrityError(RuntimeError):
+    """A weight tensor's bytes do not match the checksum manifest. The
+    message names the tensor. Not retried: the bytes are wrong, not the
+    read."""
+
+
+class WeightLoadError(RuntimeError):
+    """A weight read kept failing past the bounded retry budget."""
+
+
+class ResilientReader:
+    """Integrity and transient-retry layer over :class:`ModelFile` reads (the
+    JAX package's ``ResilientReader``): every tensor the loader reads goes
+    through it.
+
+    * With a ``.m.sums`` manifest, each tensor's on-disk bytes are
+      crc32-verified once, before its first read; a mismatch raises
+      :class:`WeightIntegrityError` naming the tensor.
+    * An ``OSError`` out of a read is retried up to ``max_retries`` times
+      with doubling backoff; exhaustion raises :class:`WeightLoadError`
+      carrying the original error. Other failures propagate at once."""
+
+    def __init__(self, mf: ModelFile, *, max_retries: int = 3, backoff_s: float = 0.05):
+        self.mf = mf
+        self.max_retries = max_retries
+        self.backoff_s = backoff_s
+        self._verified: set[str] = set()
+
+    def _verify(self, key: str) -> None:
+        sums = self.mf.checksums
+        if sums is None or key in self._verified:
+            return
+        want = sums.get(key)
+        if want is None:
+            raise WeightIntegrityError(
+                f"weight tensor {key!r} has no entry in the checksum manifest "
+                f"({self.mf.path}.sums) — the manifest does not belong to this "
+                f"file; regenerate it or delete it to load unverified")
+        got = self.mf.tensor_crc32(key)
+        if got != want:
+            raise WeightIntegrityError(
+                f"weight tensor {key!r} is corrupt: crc32 {got:#010x} != "
+                f"manifest {want:#010x} ({self.mf.path}) — the file is "
+                f"damaged; re-download or reconvert it")
+        self._verified.add(key)
+
+    def _read(self, key: str, fn: Callable, *args):
+        delay, attempt = self.backoff_s, 0
+        while True:
+            try:
+                self._verify(key)
+                return fn(key, *args)
+            except OSError as e:
+                if attempt >= self.max_retries:
+                    raise WeightLoadError(
+                        f"reading weight tensor {key!r} failed after {attempt} "
+                        f"retries: {type(e).__name__}: {e}") from e
+                attempt += 1
+                time.sleep(delay)
+                delay *= 2
+
+    def raw(self, key: str) -> np.ndarray:
+        """A tensor's on-disk bytes as an owning ``uint8`` array."""
+        return self._read(key, lambda k: np.frombuffer(self.mf.raw(k), dtype=np.uint8).copy())
+
+
+def verify_weights(mf: ModelFile, emit=None) -> dict:
+    """Offline full-file verification (``verify``, ``--verify-weights``):
+    crc-check every tensor against the manifest. Returns ``{"tensors": n,
+    "corrupt": [keys...]}``; raises :class:`WeightIntegrityError` when the
+    model has no manifest."""
+    if mf.checksums is None:
+        raise WeightIntegrityError(
+            f"{mf.path} has no checksum manifest ({mf.path}.sums) — generate "
+            f"one with: python -m dllama_tpu_torch verify --model {mf.path} --write")
+    corrupt: list[str] = []
+    for key in mf.tensors:
+        want = mf.checksums.get(key)
+        got = mf.tensor_crc32(key)
+        ok = want is not None and got == want
+        if not ok:
+            corrupt.append(key)
+        if emit is not None:
+            emit(f"{'✅' if ok else '❌'} {key}: crc32 {got:#010x}"
+                 + ("" if ok else f" != manifest "
+                    f"{'-' if want is None else format(want, '#010x')}"))
+    return {"tensors": len(mf.tensors), "corrupt": corrupt}
+
+
 def dense_logits_wanted(fast_numerics: bool) -> bool:
     """Whether the logits head loads as a resident dense bf16 matrix: fast
     configs trade ``vocab*dim`` extra bytes for a dense head; exact configs
     keep the quantized head (their goldens are tied to the f32 dequant)."""
     return fast_numerics
-
-
-def _raw(mf: ModelFile, key: str, device) -> torch.Tensor:
-    """A tensor's on-disk bytes as a uint8 tensor on ``device``."""
-    buf = np.frombuffer(mf.raw(key), dtype=np.uint8)
-    return torch.from_numpy(buf.copy()).to(device)
 
 
 def unpack_planes(raw: torch.Tensor, float_type: int, out_dim: int, in_dim: int,
@@ -68,46 +171,62 @@ def unpack_planes(raw: torch.Tensor, float_type: int, out_dim: int, in_dim: int,
 
 
 class _Loader:
-    def __init__(self, mf: ModelFile, cfg: ModelConfig, device):
+    def __init__(self, mf: ModelFile, cfg: ModelConfig, device, weight_mode: str = "auto"):
+        if weight_mode not in WEIGHT_MODES:
+            raise ValueError(f"weight_mode must be one of {'|'.join(WEIGHT_MODES)}, got "
+                             f"{weight_mode!r} (offload is not ported)")
         self.mf, self.cfg, self.device = mf, cfg, device
+        self.rd = ResilientReader(mf)
         self.fast = fast_numerics_resolved(cfg.compute_dtype)
         self.scale_dtype = torch.bfloat16 if self.fast else torch.float32
+        # dense modes: every quantized matmul weight dequantized to this dtype
+        self.dense = {"auto": None, "f32": torch.float32, "bf16": torch.bfloat16}[weight_mode]
+
+    def _raw(self, key: str) -> torch.Tensor:
+        """A tensor's verified on-disk bytes as a uint8 tensor on the device."""
+        return torch.from_numpy(self.rd.raw(key)).to(self.device)
 
     def f32(self, key: str, dtype=torch.float32) -> torch.Tensor:
         rec = self.mf.tensors[key]
         if rec.float_type != F32:
             raise ValueError(f"{key}: expected F32, file has type {rec.float_type}")
-        return _raw(self.mf, key, self.device).view(torch.float32).reshape(
-            rec.shape).to(dtype)
+        return self._raw(key).view(torch.float32).reshape(rec.shape).to(dtype)
 
     def matmul(self, key: str, *, force_dense=None):
-        """One matmul weight: Q40/Q80 → planes (or dense ``force_dense``
-        dtype ``[out, in]``), F32/F16 → dense f32 ``[out, in]``."""
+        """One matmul weight: Q40/Q80 → planes, or under a dense weight mode
+        (or ``force_dense``, a dtype) a dense ``[out, in]`` matrix of that
+        dtype; F32/F16 → dense ``[out, in]`` (f32, or the dense mode's
+        dtype)."""
         rec = self.mf.tensors[key]
         out_dim, in_dim = rec.shape
+        dense = force_dense or self.dense
         if rec.float_type in (Q40, Q80):
-            qw = unpack_planes(_raw(self.mf, key, self.device), rec.float_type,
-                               out_dim, in_dim,
-                               self.scale_dtype if force_dense is None else torch.float32)
-            if force_dense is None:
+            qw = unpack_planes(self._raw(key), rec.float_type, out_dim, in_dim,
+                               self.scale_dtype if dense is None else torch.float32)
+            if dense is None:
                 return qw
-            # f32 dequant of the f16 scales, then the target dtype: the JAX
-            # loader's dense head (tensor_f32_rows(...).astype(dtype))
-            return dequantize_weight(qw, torch.float32).to(force_dense).t().contiguous()
-        raw = _raw(self.mf, key, self.device)
+            # f32 dequant of the f16 scales (code * scale in f32), then the
+            # target dtype: the JAX loader's dense weights
+            # (tensor_f32_rows(...).astype(dtype))
+            return dequantize_weight(qw, torch.float32).to(dense).t().contiguous()
+        raw = self._raw(key)
         if rec.float_type == F32:
             w = raw.view(torch.float32)
         elif rec.float_type == F16:
             w = raw.view(torch.float16).float()
         else:
             raise ValueError(f"{key}: unsupported weight type {rec.float_type}")
-        return w.reshape(out_dim, in_dim).to(force_dense or torch.float32)
+        return w.reshape(out_dim, in_dim).to(dense or torch.float32)
 
 
-def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu") -> Params:
-    """Build device parameters from an open ``.m`` file."""
+def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
+                weight_mode: str = "auto") -> Params:
+    """Build device parameters from an open ``.m`` file. ``weight_mode``:
+    ``"auto"`` keeps Q40/Q80 weights as planes, ``"f32"``/``"bf16"``
+    dequantize them to dense matrices (the JAX loader's rule for the head:
+    dense bf16 under fast numerics, else the mode's dtype)."""
     h = mf.header
-    ld = _Loader(mf, cfg, device)
+    ld = _Loader(mf, cfg, device, weight_mode)
     head_dense = torch.bfloat16 if dense_logits_wanted(ld.fast) else None
     qwen3 = h.arch_type == ArchType.QWEN3
     layers = [

@@ -1,6 +1,10 @@
-"""``python -m dllama_tpu_torch inference|chat|perplexity|api`` (the port of
-the JAX package's ``serve/cli.py`` ``make_engine``/``main``, these four
-modes).
+"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify`` (the
+port of the JAX package's ``serve/cli.py`` ``make_engine``/``main``, these
+five modes).
+
+``verify --model m.m [--write]`` checks every tensor of a model against its
+``.m.sums`` checksum manifest (or writes the manifest with ``--write``) on
+the host alone: rc 0 clean, 1 corrupt or unreadable, 2 no manifest.
 
 ``api`` serves one sequence with message-prefix reuse (no
 ``--batch-slots``), or continuous batching over the dense slot pool
@@ -16,8 +20,12 @@ per dispatch with one readback (``inference`` and the dense slot pool);
 the greedy slots of the dense one), a replayed graph too. ``--sp N`` splits
 the KV cache along the sequence over ``N`` visible CUDA devices (ring
 attention for prefill, a flash-decoding merge for decode; ``[cpu] * N``
-under ``--device cpu``). Modes and flags of the JAX CLI that are not ported
-yet fail loudly instead of being ignored.
+under ``--device cpu``). ``--kv-dtype f8`` stores the KV cache as float8
+e4m3, ``--weight-mode f32|bf16`` loads dense dequantized weights,
+``--nbatches N`` pins the prefill chunk, ``--host-sampling`` samples on the
+host from downloaded logits, ``--verify-weights`` crc-checks the whole file
+before anything is staged. Modes and flags of the JAX CLI that are not
+ported yet fail loudly instead of being ignored.
 """
 
 from __future__ import annotations
@@ -30,19 +38,30 @@ from ..formats.quants import F32, Q80
 from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
 from ..tokenizer.chat import ChatItem, ChatTemplateType
 
-PORTED_MODES = ("inference", "chat", "perplexity", "api")
+PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("eval", "worker", "verify", "audit", "timeline",
-                 "fleettrace", "router")
+PENDING_MODES = ("eval", "worker", "audit", "timeline", "fleettrace", "router")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
-    p.add_argument("mode", help="inference | chat | perplexity | api")
+    p.add_argument("mode", help="inference | chat | perplexity | api | verify")
     p.add_argument("--model", required=True, help=".m model file")
-    p.add_argument("--tokenizer", required=True, help=".t tokenizer file")
+    p.add_argument("--tokenizer", default=None,
+                   help=".t tokenizer file (every mode but verify)")
+    p.add_argument("--verify-weights", action="store_true",
+                   help="crc-verify every weight tensor against the .m.sums "
+                        "checksum manifest before any device staging (the "
+                        "loader always verifies tensors it reads when a "
+                        "manifest exists; this forces the full offline "
+                        "sweep first). See also the 'verify' mode")
+    p.add_argument("--write", action="store_true",
+                   help="verify mode: (re)generate the .m.sums checksum "
+                        "manifest for --model instead of checking it — the "
+                        "migration path for models converted before "
+                        "manifests existed")
     p.add_argument("--prompt", default=None)
     p.add_argument("--file", default=None, help="text file (perplexity mode)")
     p.add_argument("--steps", type=int, default=0, help="max total positions")
@@ -57,8 +76,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--buffer-float-type", choices=["f32", "q80"], default="q80",
                    help="sync buffer type: q80 fake-quantizes activations at "
                         "the reference's sync points")
+    p.add_argument("--weight-mode",
+                   choices=["auto", "f32", "bf16", "offload"], default="auto",
+                   help="auto: Q40 planes resident on device; f32/bf16: "
+                        "dequantized dense; offload: Q40 planes in host DRAM, "
+                        "streamed per layer during forward (not ported)")
     p.add_argument("--compute-dtype", choices=["f32", "bf16"], default="f32",
                    help="f32 = exact Q40 numerics (golden parity); bf16 = fast")
+    p.add_argument("--kv-dtype", choices=["auto", "f32", "bf16", "f8"], default="auto",
+                   help="KV cache dtype (auto = compute dtype). f8 "
+                        "(float8_e4m3) halves bf16's cache footprint and "
+                        "read bandwidth — long-context decode is "
+                        "KV-bandwidth-bound")
+    p.add_argument("--nbatches", type=int, default=None,
+                   help="pin a fixed prefill chunk size (reference default "
+                        "32, app.cpp:28); unset = adaptive buckets "
+                        "(engine.PREFILL_BUCKETS)")
+    p.add_argument("--host-sampling", action="store_true",
+                   help="sample on host from downloaded logits (parity oracle) "
+                        "instead of the fused on-device sampler")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
     p.add_argument("--sp", type=int, default=1,
@@ -102,12 +138,15 @@ def make_engine(args) -> InferenceEngine:
         sync_type=Q80 if args.buffer_float_type == "q80" else F32,
         temperature=args.temperature, topp=args.topp, seed=seed,
         kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk,
-        spec_lookup=args.spec_lookup)
+        spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
+        weight_mode=args.weight_mode, host_sampling=args.host_sampling,
+        verify_weights=args.verify_weights)
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
     print(f"🕸️ TP devices: 1  SP devices: {engine.sp}  PP stages: 1")
-    print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}")
+    print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}  "
+          f"KV: {str(engine.kv_dtype).removeprefix('torch.')}  Weights: {engine.weight_mode}")
     return engine
 
 
@@ -228,6 +267,40 @@ def run_perplexity(args) -> int:
     return 0
 
 
+def run_verify(args) -> int:
+    """``verify --model m.m [--write]``: offline weight-integrity check (or
+    manifest generation with ``--write``) against the .m.sums sidecar, on
+    the host alone (no device is touched). rc 0 clean, 1 corrupt or
+    unreadable, 2 no manifest (the JAX CLI's codes)."""
+    from ..formats import mfile
+    from ..runtime.weights import WeightIntegrityError, verify_weights
+
+    try:
+        if args.write:
+            out = mfile.write_manifest(args.model)
+            with mfile.ModelFile.open(args.model) as mf:
+                n = len(mf.tensors)
+            print(f"🔏 checksum manifest written: {out} ({n} tensors)")
+            return 0
+        with mfile.ModelFile.open(args.model) as mf:
+            try:
+                res = verify_weights(mf, emit=print)
+            except WeightIntegrityError as e:
+                print(f"❌ {e}")
+                return 2
+    except (OSError, ValueError) as e:
+        # a structurally broken file (bad magic, truncation, stale
+        # manifest): a clean diagnostic, not a traceback
+        print(f"❌ {args.model}: {e}")
+        return 1
+    if res["corrupt"]:
+        print(f"❌ {len(res['corrupt'])} of {res['tensors']} tensors corrupt: "
+              f"{', '.join(res['corrupt'])}")
+        return 1
+    print(f"✅ {res['tensors']} tensors verified against {mfile.manifest_path(args.model)}")
+    return 0
+
+
 def main(argv=None, on_listening=None) -> int:
     """The CLI. ``on_listening(server, state)`` is handed to the ``api``
     server (:func:`~dllama_tpu_torch.serve.api.run_api_server`) for a
@@ -243,10 +316,19 @@ def main(argv=None, on_listening=None) -> int:
         raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
-                         f"--buffer-float-type --compute-dtype --device --sp "
-                         f"--decode-chunk --spec-lookup --chat-template; api: "
-                         f"--batch-slots --kv-block-size --max-queue --host --port "
-                         f"--request-timeout --drain-timeout)")
+                         f"--buffer-float-type --compute-dtype --weight-mode "
+                         f"--kv-dtype --nbatches --host-sampling --verify-weights "
+                         f"--device --sp --decode-chunk --spec-lookup --chat-template; "
+                         f"api: --batch-slots --kv-block-size --max-queue --host --port "
+                         f"--request-timeout --drain-timeout; verify: --write)")
+    if args.mode == "verify":
+        return run_verify(args)  # host only: no device is touched
+    if args.tokenizer is None:
+        raise SystemExit(f"--tokenizer is required for {args.mode} mode")
+    if args.weight_mode == "offload":
+        raise SystemExit("--weight-mode offload (host-DRAM weight streaming) is not "
+                         "ported to the PyTorch/CUDA package yet (ported: auto, f32, "
+                         "bf16); use python -m dllama_tpu")
     try:
         # the mesh's device count first: --sp N needs N visible cards
         mesh_plan(args.device, args.sp)

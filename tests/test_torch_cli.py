@@ -2,7 +2,7 @@
 CPU (``--device cpu``), in a subprocess as a user runs it: exit 0, the JAX
 engine's greedy text at temperature 0 and its perplexity. Without
 ``--device cpu`` a machine with no GPU gets a clear error and no fallback;
-modes and flags that are not ported fail loudly."""
+modes, flags and flag values that are not ported fail loudly."""
 
 from __future__ import annotations
 
@@ -93,6 +93,8 @@ def test_cuda_default_without_gpu_fails_clearly(assets):
 @pytest.mark.parametrize("argv,msg", [
     (["eval"], "not ported"),
     (["inference", "--tp", "2"], "not-yet-ported flag"),
+    (["inference", "--weight-mode", "offload"], "offload"),
+    (["inference", "--kv-dtype", "int8"], "invalid choice"),
 ])
 def test_unported_modes_and_flags_fail_loudly(assets, argv, msg):
     m, t = assets

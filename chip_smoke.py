@@ -159,7 +159,25 @@ Phases, each failing loudly (non-zero exit, no result line):
    corrupt copy refused by ``verify``, by ``inference --verify-weights``
    and by the loader with no device memory left behind
    (:func:`integrity_phase`);
-11. the ``kernels`` JSON line, then the result line
+11. C7 and the observability of slice 11. Phase 3 adds K3 prefill chunks
+   of 1024 tokens at depths 0 and 1024 and of 2048 tokens at depth 0 in
+   the 2048-row cache (4096 and 8192 folded query rows a KV head, past the
+   old 2048-row cap), and K3s 1024- and 2048-token chunks on a shard's
+   diagonal, exact and fast; ``--nbatches 2048`` runs beside
+   ``--nbatches 32`` (one 2048-row prefill chunk, tokens against the
+   bucketed run's). The f32 serving run writes ``--trace-out`` spans and,
+   after its 16 requests, holds ``/metrics`` against what the phase
+   counts itself (:func:`observe_serving`: tokens, admissions, retires,
+   reused prompt tokens, the idle block gauge, one step sample per replay
+   of the captured step), converts its ``/debug/flight`` body with the
+   ``timeline`` mode (valid, one flow per request) and checks three
+   ``"timing": true`` bodies. On the 8-layer model (:func:`watchdog_phase`)
+   ``step:raise`` crashes and restarts the scheduler and ``step_hang``
+   trips the step watchdog with the JAX package's failure semantics;
+   :func:`paged_step_syncs` counts one synchronisation per paged step with
+   every instrument on; :func:`obs_cost` times the per-step
+   instrumentation calls alone;
+12. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
@@ -179,6 +197,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -488,6 +507,9 @@ def attention_cases(timer: Timer, results: list) -> None:
         ("decode", 1, LONG_DEPTH, HEAD_DIM, SP_LONG_SEQ),
         ("prefill", 256, LONG_PREFILL_AT, HEAD_DIM, SP_LONG_SEQ)]
     f8_cases = [("decode", 1, S - 1, HEAD_DIM, S), *cases[-2:]]
+    # C7: the widest chunks --nbatches can pin at --max-seq-len 2048,
+    # T * kv_mul = 4096 and 8192 folded rows (the wrappers refused > 2048)
+    cases += [("prefill", T, pos, HEAD_DIM, S) for T, pos in C7_CHUNKS]
     for mode, (kv_dt, q_dt) in ATTN_MODES.items():
         f8 = kv_dt == F8
         caches = {(D, rows): [random_kv((1, KV_HEADS, rows, D), mode, g) for _ in range(2)]
@@ -532,6 +554,10 @@ def attention_cases(timer: Timer, results: list) -> None:
         del caches
     torch.cuda.empty_cache()
 
+
+# C7's K3 chunks (T, start position) in the 2048-row cache: T * kv_mul =
+# 4096 (from depth 0 and from depth 1024) and 8192 folded query rows
+C7_CHUNKS = [(1024, 0), (1024, 1024), (2048, 0)]
 
 # the dense slot pool's verify step at K = SPEC_K: 8 rows at ragged depths,
 # the deepest with room for its K + 1 rows
@@ -1397,13 +1423,16 @@ def post_chat(url: str, body: dict, first_chunk=None) -> dict:
 
 
 def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
-              case: str = "serving", paged: bool = True) -> dict:
+              case: str = "serving", paged: bool = True, observe=None) -> dict:
     """One run of the port's api in process (``cli.main(["api", ...,
     *extra])`` on a thread, port 0) over the paged block pool
     (``--kv-block-size``), or over the dense slot pool when not ``paged``:
     the 16 concurrent clients of :func:`serving_bodies`; returns the numbers
     of the run and the scheduler's requests in submit order. Launch counts
-    are set to 0 just before the run and read just after it."""
+    are set to 0 just before the run and read just after it. ``observe(url,
+    gen, reqs, replays)``, when given, runs after the clients and before
+    the server stops (``replays``: the captured step's replays in the run);
+    its result lands in the record as ``observed``."""
     import threading
 
     from dllama_tpu_torch.serve import cli
@@ -1443,6 +1472,16 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
             return n
 
         sched.submit = submit_recorded
+        # the captured step's replays: one per dispatch of a paged tick
+        graph = gen._verify if gen.spec else gen._graph
+        replay = graph.replay
+        box["replays"] = 0
+
+        def replay_counted():
+            box["replays"] += 1
+            replay()
+
+        graph.replay = replay_counted
         if getattr(gen, "chunk", 1) == 1:
             gen.step = step_timed
         if paged:
@@ -1500,6 +1539,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
         c.join(timeout=900)
     wall_s = time.perf_counter() - t0
     gen = box["gen"]
+    observed = observe(url, gen, reqs, box["replays"]) if observe is not None else None
     box["server"].shutdown()
     th.join(timeout=120)
     launches = read_counts()
@@ -1521,6 +1561,8 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
                steps=len(step_ms), reused_tokens=gen.reused_tokens,
                pool_gb=gen.pool_bytes / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                capture=box["capture"], launches={"api": launches})
+    if observed is not None:
+        rec["observed"] = observed
     if paged:
         pool = gen.pool
         rec.update(
@@ -1544,9 +1586,31 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
 def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
     """The port's api under f32 and bf16 (:func:`serve_run`, the CLI's
     default Q80 sync buffers): 16 concurrent clients, then the checks and
-    the numbers of the run."""
+    the numbers of the run. The f32 run also holds the observability of
+    slice 11 (:func:`observe_serving`) and writes its spans with
+    ``--trace-out``."""
+    from dllama_tpu_torch.runtime import flightrec, telemetry
+
     for dtype in ("f32", "bf16"):
-        rec, _ = serve_run(model, tok, n_layers, dtype, [])
+        trace_out = observe = None
+        if dtype == "f32":
+            # this run's telemetry alone: the earlier phases' counts go
+            telemetry.registry().reset()
+            telemetry.tracer()._ring.clear()
+            flightrec.recorder().reset()
+            fd, trace_out = tempfile.mkstemp(prefix="dllama_spans_", suffix=".jsonl")
+            os.close(fd)
+            observe = observe_serving
+        try:
+            rec, reqs = serve_run(model, tok, n_layers, dtype,
+                                  ["--trace-out", trace_out] if trace_out else [],
+                                  observe=observe)
+            if trace_out:
+                rec["observed"]["trace_out"] = check_trace_out(trace_out, reqs)
+                rec["observed"]["serving_before"] = SERVING_BEFORE
+        finally:
+            if trace_out:
+                os.unlink(trace_out)
         launches = rec["launches"]["api"]
         print(json.dumps(rec), flush=True)
         summary.setdefault(dtype, {}).setdefault("launches", {})["api"] = launches
@@ -1554,6 +1618,127 @@ def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
         if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
             fail(f"serving {dtype}: a kernel of the path never launched: {launches}")
         torch.cuda.empty_cache()
+
+
+# The earlier f32 paged serving run (D2, PERF.md section 5), the newest serving
+# numbers PERF.md holds: printed beside this run's, a record, not a gate
+SERVING_BEFORE = {"run": "D2", "gen_tok_per_s": 108.29, "step_ms_median": 14.86}
+
+
+def _metric(text: str, series: str) -> float:
+    """One series' value out of a ``/metrics`` body (0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def _get_json(url: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def observe_serving(url: str, gen, reqs: list, replays: int) -> dict:
+    """The observability of slice 11 on the f32 serving run, after its 16
+    requests and on the same server: ``/metrics`` against what the phase
+    measures itself (tokens the scheduler emitted, admissions and retires
+    of the 16, the generator's reused prompt tokens, the idle block gauge,
+    one step histogram sample per replay of the captured step), the
+    ``/debug`` routes, the saved flight body through the ``timeline`` mode
+    (valid, one complete flow per request), then three ``"timing": true``
+    bodies whose phases must sum to their TTFT within the block's rounding
+    (7 fields at 0.0005 ms)."""
+    import urllib.request
+
+    from dllama_tpu_torch.runtime import flightrec
+
+    with urllib.request.urlopen(url + "/metrics", timeout=120) as r:
+        text = r.read().decode()
+    n_req = len(reqs)
+    emitted = sum(len(r.tokens) for r in reqs)
+    got = {k: _metric(text, f"dllama_{k}") for k in (
+        "batch_tokens_total", "completion_tokens_total", "admissions_total",
+        "retires_total", "prefix_reuse_tokens_total", "kv_blocks_used", "kv_blocks_total",
+        "batch_step_ms_count", "flight_ticks_total", "ttft_ms_count",
+        "watchdog_stalls_total", "scheduler_crashes_total")}
+    want = {"batch_tokens_total": emitted, "completion_tokens_total": emitted,
+            "admissions_total": n_req, "retires_total": n_req,
+            "prefix_reuse_tokens_total": gen.reused_tokens,
+            "kv_blocks_used": gen.pool.used_blocks(), "batch_step_ms_count": replays,
+            "ttft_ms_count": n_req, "watchdog_stalls_total": 0,
+            "scheduler_crashes_total": 0}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad or gen.pool.used_blocks() != 0:
+        fail(f"serving /metrics: (got, want) {bad}, idle blocks used {gen.pool.used_blocks()}")
+    rec = dict(metrics=got, replays=replays)
+    status, index = _get_json(url + "/debug")
+    _, requests = _get_json(url + "/debug/requests")
+    _, flight = _get_json(url + "/debug/flight")
+    _, live_trace = _get_json(url + "/debug/timeline")
+    rids = {r.rid for r in reqs}
+    if status != 200 or {q["request_id"] for q in requests["requests"]} != rids:
+        fail(f"/debug: {status}, /debug/requests rids "
+             f"{sorted(q['request_id'] for q in requests['requests'])} against {sorted(rids)}")
+    if flightrec.validate_chrome_trace(live_trace, expect_rids=rids):
+        fail("/debug/timeline: " + "; ".join(
+            flightrec.validate_chrome_trace(live_trace, expect_rids=rids)[:5]))
+    with tempfile.TemporaryDirectory(prefix="dllama_flight_") as d:
+        dump, out = os.path.join(d, "flight.json"), os.path.join(d, "trace.json")
+        with open(dump, "w", encoding="utf-8") as f:
+            json.dump(flight, f)
+        rc, _, secs = cli_rc(["timeline", "--dump", dump, "--out", out])
+        with open(out, encoding="utf-8") as f:
+            trace = json.load(f)
+    problems = flightrec.validate_chrome_trace(trace, expect_rids=rids)
+    flows = collections.Counter((e["id"], e["ph"]) for e in trace["traceEvents"]
+                                if e["ph"] in ("s", "f"))
+    one_flow = all(flows[(rid, "s")] == flows[(rid, "f")] == 1 for rid in rids)
+    # the loop idles inside an open tick record, which end_tick then drops
+    closed = sum(1 for tk in flight["ticks"] if not tk.get("open"))
+    rec["timeline"] = dict(rc=rc, seconds=secs, events=len(trace["traceEvents"]),
+                           ticks=closed, spans=len(flight["spans"]),
+                           problems=problems, one_flow_per_request=one_flow)
+    if rc != 0 or problems or not one_flow or closed != got["flight_ticks_total"]:
+        fail(f"timeline of the serving run: {rec['timeline']}, "
+             f"flight ticks counted {got['flight_ticks_total']}")
+    timing = []
+    for i in range(3):
+        body = {"messages": [{"role": "system", "content": SYSTEM},
+                             {"role": "user", "content": f"timing check {i}"}],
+                "max_tokens": 8, "temperature": 0.0, "timing": True}
+        req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            t = json.loads(r.read())["timing"]
+        parts = sum(t[k] for k in ("queue_ms", "kvmigrate_ms", "pagein_ms", "admission_ms",
+                                   "prefill_ms", "first_decode_ms"))
+        timing.append(dict(t, phase_sum_ms=parts))
+        if not abs(parts - t["ttft_ms"]) <= 7 * 0.0005 + 1e-9:
+            fail(f"timing block {i}: phases sum to {parts} ms, TTFT {t['ttft_ms']} ms")
+    rec["timing"] = timing
+    return rec
+
+
+def check_trace_out(path: str, reqs: list) -> dict:
+    """The ``--trace-out`` JSONL of the observed serving run: one
+    ``queue``, ``prefill`` and ``decode`` span per request (the 16 and the
+    three timing bodies)."""
+    with open(path, encoding="utf-8") as f:
+        spans = [json.loads(line) for line in f]
+    phases = collections.defaultdict(collections.Counter)
+    for sp in spans:
+        phases[sp["request_id"]][sp["phase"]] += 1
+    bad = {rid: dict(c) for rid, c in phases.items()
+           if any(c[ph] != 1 for ph in ("queue", "prefill", "decode"))}
+    if bad or not {r.rid for r in reqs} <= set(phases):
+        fail(f"--trace-out: spans per request {bad or dict(phases)}")
+    return dict(spans=len(spans), requests=len(phases))
 
 
 # ---------------------------------------------------------------------------
@@ -2771,7 +2956,10 @@ RING_CASES = [("decode whole block", 1, 2 * SHARD - 1, SHARD, SHARD),
               ("decode fully masked", 1, 1000, SHARD, SHARD),
               ("prefill T=64 past the block", 64, SHARD, 0, SHARD),
               ("prefill T=64 diagonal", 64, SHARD, SHARD, SHARD),
-              ("decode whole 16384-row shard", 1, LONG_DEPTH, 0, LONG_SHARD)]
+              ("decode whole 16384-row shard", 1, LONG_DEPTH, 0, LONG_SHARD),
+              # C7: a shard-wide chunk on the diagonal, TQ = 4096 and 8192
+              ("prefill T=1024 diagonal", 1024, SHARD, SHARD, SHARD),
+              ("prefill T=2048 diagonal", 2048, SHARD, SHARD, SHARD)]
 
 
 def ring_cases(timer: Timer, results: list) -> None:
@@ -3585,36 +3773,285 @@ def weight_modes(model: str, tok: str, n_layers: int, summary: dict) -> None:
 
 
 def nbatches_phase(model: str, tok: str, summary: dict) -> None:
-    """``inference --nbatches 32`` (the reference's fixed prefill chunk) at
-    full width, f32, f32 buffers: its greedy tokens are the bucketed run's
-    (:func:`weight_modes`' exact side; a departure only at a near tie);
-    prefill tok/s against the buckets'."""
-    gens: list = []
-    zero_counts()
-    with recorded_generations(gens):
-        out = run_cli(["inference", "--model", model, "--tokenizer", tok, "--max-seq-len",
-                       str(MAX_SEQ), "--seed", str(SEED), "--buffer-float-type", "f32",
-                       "--nbatches", "32", "--prompt", PROMPT, "--steps",
-                       str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
-    launches = read_counts()
+    """``inference --nbatches N`` at full width, f32, f32 buffers, for N =
+    32 (the reference's fixed prefill chunk) and N = 2048 (C7: the widest
+    chunk the engine can pick at ``--max-seq-len 2048``, one chunk of 2048
+    rows, 8192 folded query rows a KV head in K3): greedy tokens equal the
+    bucketed run's (:func:`weight_modes`' exact side; a departure only at a
+    near tie); prefill tok/s against the buckets'; K1 and K3 launch, and at
+    2048 the prompt is one chunk."""
     prompt, want = summary["f32"]["weight_auto_tokens"]
-    lines = out.splitlines()
     probe = TieProbe(model, tok, "f32", MAX_SEQ)
     try:
-        diff = probe(prompt, gens[0][1].tokens, want)
+        for nb in (32, MAX_SEQ):
+            gens: list = []
+            zero_counts()
+            with recorded_generations(gens):
+                out = run_cli(["inference", "--model", model, "--tokenizer", tok,
+                               "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED),
+                               "--buffer-float-type", "f32", "--nbatches", str(nb),
+                               "--prompt", PROMPT, "--steps",
+                               str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
+            launches = read_counts()
+            lines = out.splitlines()
+            diff = probe(prompt, gens[0][1].tokens, want)
+            chunks = [s for s in gens[0][1].steps if s.kind == "eval"]
+            rec = dict(case="nbatches", nbatches=nb, tokens_equal=gens[0][1].tokens == want,
+                       part=diff, chunks=len(chunks), chunk_ms=[c.ms for c in chunks],
+                       prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                       prefill_tok_per_s_buckets=summary["f32"]["weight_auto_prefill_tok_per_s"],
+                       decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                       launches=launches)
+            print(json.dumps(rec), flush=True)
+            summary[f"nbatches_{nb}"] = rec
+            summary["f32"]["launches"][f"nbatches_{nb}_inference"] = launches
+            hold_transcripts(f"--nbatches {nb} against the bucketed run", "f32", diff)
+            if f"nBatches: {nb}" not in out or min(launches[k] for k in ("K1", "K2", "K3")) <= 0:
+                fail(f"--nbatches {nb}: {launches}")
+            if nb == MAX_SEQ and len(chunks) != 1:
+                fail(f"--nbatches {nb}: {len(chunks)} prefill chunks, want one")
     finally:
         probe.close()
-    rec = dict(case="nbatches", nbatches=32, tokens_equal=gens[0][1].tokens == want,
-               part=diff, chunks=len([s for s in gens[0][1].steps if s.kind == "eval"]),
-               prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
-               prefill_tok_per_s_buckets=summary["f32"]["weight_auto_prefill_tok_per_s"],
-               decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"), launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 10b (slice 11): the step watchdog and failpoints on the card, the
+# instrumentation's host cost, synchronisations per paged step
+# ---------------------------------------------------------------------------
+
+WATCHDOG_FLOOR_S = 2.0   # DLLAMA_WATCHDOG_FLOOR_S of the watchdog phase
+HANG_S = 10.0            # the step_hang sleep: five budgets past the floor
+
+
+def _post(url: str, body: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def watchdog_phase(model: str, tok: str, summary: dict) -> None:
+    """The paged ``api`` on the 8-layer model with
+    ``DLLAMA_WATCHDOG_FLOOR_S`` = :data:`WATCHDOG_FLOOR_S` set before the
+    engine is built, on the card's captured steps. After two warm-up
+    requests (the guards' budget trained): ``step:raise`` once — the
+    in-flight request fails 503 with the crash, the crash and restart
+    counters read 1, and a request afterwards completes; then
+    ``step_hang`` (a :data:`HANG_S` sleep inside the guard) once — the
+    JAX package's stall semantics: ``dllama_watchdog_stalls_total`` 1, the
+    in-flight requests fail 503 naming the stalled dispatch, ``/readyz``
+    answers 503 ``crashed``, a flight postmortem is written and converts.
+    A stall is permanent (the scheduler stays unready), so the crash runs
+    first. Every failpoint is cleared before the phase ends."""
+    import threading
+    import urllib.request
+
+    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry
+    from dllama_tpu_torch.serve import cli
+
+    saved = {k: os.environ.get(k) for k in ("DLLAMA_WATCHDOG_FLOOR_S", "DLLAMA_FLIGHT_DIR")}
+    flight_dir = tempfile.mkdtemp(prefix="dllama_flightdir_")
+    os.environ["DLLAMA_WATCHDOG_FLOOR_S"] = str(WATCHDOG_FLOOR_S)
+    os.environ["DLLAMA_FLIGHT_DIR"] = flight_dir
+    reg = telemetry.registry()
+    reg.reset()
+    flightrec.recorder().reset()
+    box: dict = {}
+    listening = threading.Event()
+
+    def on_listening(server, state):
+        box.update(server=server, state=state)
+        listening.set()
+
+    argv = ["api", "--model", model, "--tokenizer", tok, "--max-seq-len", str(MAX_SEQ),
+            "--seed", str(SEED), "--temperature", "0", "--batch-slots", str(SLOTS),
+            "--kv-block-size", str(BLOCK), "--host", "127.0.0.1", "--port", "0"]
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rc", cli.main(argv, on_listening=on_listening)), daemon=True)
+    rec: dict = dict(case="watchdog", layers=None, floor_s=WATCHDOG_FLOOR_S, hang_s=HANG_S)
+    try:
+        th.start()
+        while not listening.wait(timeout=1.0):
+            if not th.is_alive():
+                fail("watchdog phase: the api server exited before listening")
+        url = f"http://127.0.0.1:{box['server'].server_address[1]}"
+        eng = box["state"].engine
+        rec["layers"] = eng.cfg.n_layers
+        body = lambda i: {"messages": [{"role": "user", "content": f"watch {i}"}],  # noqa: E731
+                          "max_tokens": 16}
+        for i in range(2):
+            status, _ = _post(url, body(i))
+            if status != 200:
+                fail(f"watchdog phase: warm-up request {i} answered {status}")
+        wd = eng.watchdog
+        rec["trained"] = dict(samples=wd.n_samples, ewma_ms=wd.ewma_ms, budget_s=wd.budget_s())
+        if wd.budget_s() is None or not wd.budget_s() < HANG_S / 2:
+            fail(f"watchdog phase: the budget after warm-up is {wd.budget_s()} s, want "
+                 f"one under half the {HANG_S} s hang ({rec['trained']})")
+        # step:raise once: the crash fails the in-flight request, then a restart
+        failpoints.arm("step", "raise", times=1)
+        crashed = _post(url, body(2))
+        after = _post(url, body(3))
+        rec["crash"] = dict(status=crashed[0], body=crashed[1], after_status=after[0],
+                            crashes=reg.counter(telemetry.SCHEDULER_CRASHES).total(),
+                            restarts=reg.counter(telemetry.SCHEDULER_RESTARTS).total())
+        if not (crashed[0] == 503 and "scheduler crashed: FailpointError" in crashed[1]["error"]
+                and after[0] == 200 and rec["crash"]["crashes"] == 1
+                and rec["crash"]["restarts"] == 1):
+            fail(f"watchdog phase, step:raise: {rec['crash']}")
+        # step_hang once, past the budget: the stall fails what is in flight
+        failpoints.arm("step_hang", "sleep", times=1, delay_s=HANG_S)
+        t0 = time.perf_counter()
+        results: list = [None, None]
+        clients = [threading.Thread(target=lambda i=i: results.__setitem__(i, _post(url, body(4 + i))))
+                   for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        stall_s = time.perf_counter() - t0
+        ready = _get_json(url + "/readyz")
+        for _ in range(600):  # the monitor writes the postmortem after failing the requests
+            if reg.counter(telemetry.FLIGHT_DUMPS).total(reason="watchdog_stall"):
+                break
+            time.sleep(0.05)
+        dumps = sorted(f for f in os.listdir(flight_dir) if f.endswith("-watchdog_stall.json"))
+        rec["stall"] = dict(statuses=[r and r[0] for r in results],
+                            errors=[r and r[1].get("error") for r in results],
+                            seconds_to_fail=stall_s, readyz=ready,
+                            stalls=reg.counter(telemetry.WATCHDOG_STALLS).total(), dumps=dumps)
+        if not (all(r and r[0] == 503 and "step watchdog" in r[1]["error"] for r in results)
+                and ready[0] == 503 and ready[1].get("code") == "crashed"
+                and rec["stall"]["stalls"] == 1 and len(dumps) == 1):
+            fail(f"watchdog phase, step_hang: {rec['stall']}")
+        rc, _, _ = cli_rc(["timeline", "--dump", os.path.join(flight_dir, dumps[0]),
+                           "--out", os.path.join(flight_dir, "stall_trace.json")])
+        with open(os.path.join(flight_dir, dumps[0]), encoding="utf-8") as f:
+            doc = json.load(f)
+        rec["stall"].update(dump_victims=doc["victims"], dump_label=doc["info"]["label"],
+                            timeline_rc=rc)
+        if rc != 0 or len(doc["victims"]) < 2:
+            fail(f"watchdog phase: the stall postmortem {rec['stall']}")
+    finally:
+        failpoints.registry().clear()
+        if "server" in box:
+            box["server"].shutdown()
+        th.join(timeout=120)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if th.is_alive() or box.get("rc") != 0:
+        fail(f"watchdog phase: the api server did not stop cleanly ({box.get('rc')})")
     print(json.dumps(rec), flush=True)
-    summary["nbatches"] = rec
-    summary["f32"]["launches"]["nbatches_inference"] = launches
-    hold_transcripts("--nbatches 32 against the bucketed run", "f32", diff)
-    if "nBatches: 32" not in out or min(launches[k] for k in ("K1", "K2", "K3")) <= 0:
-        fail(f"--nbatches 32: {launches}")
+    summary["watchdog"] = rec
+
+
+def obs_cost(summary: dict) -> None:
+    """The instrumentation's host cost per paged step, the calls alone:
+    an armed watchdog guard (enter, exit, the monitor's wake-up), the
+    ``step_hang`` and ``step`` failpoint checks, one flight-recorder tick
+    (begin, a dispatch, end), the step histogram, the token counter, the
+    occupancy, KV and block gauges, and the per-slot attribution of 8
+    slots; 10000 steps, host clock. There is no switch to turn it off (the
+    JAX package has none either)."""
+    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry
+    from dllama_tpu_torch.runtime.watchdog import StepWatchdog
+
+    reg = telemetry.Registry()
+    rec_ = flightrec.FlightRecorder()
+    wd = StepWatchdog("cost", min_budget_s=120.0, enabled=True)
+    for _ in range(wd.min_samples):
+        wd.observe(15.0)
+    m_step, m_occ, m_tok = (reg.histogram(telemetry.BATCH_STEP_MS),
+                            reg.gauge(telemetry.BATCH_OCCUPANCY),
+                            reg.counter(telemetry.BATCH_TOKENS))
+    m_kv, m_used, m_shared = (reg.gauge(telemetry.KV_OCCUPANCY),
+                              reg.gauge(telemetry.KV_BLOCKS_USED),
+                              reg.gauge(telemetry.KV_BLOCKS_SHARED))
+    slots = [[0.0] for _ in range(SLOTS)]
+    n = 10000
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            rec_.begin_tick(queue_depth=0, n_admissions=0)
+            failpoints.fire("step")
+            with wd.guard("batch_step"):
+                failpoints.fire("step_hang")
+            for s in slots:
+                s[0] += 15.0
+            m_occ.set(SLOTS)
+            m_step.record(15.0)
+            m_tok.inc(SLOTS)
+            m_kv.set(0.5)
+            rec_.note_dispatch(15.0, SLOTS, SLOTS)
+            m_used.set(100)
+            m_shared.set(10)
+            rec_.end_tick(blocks={"total": 1024, "used": 100, "shared": 10},
+                          slots=list(range(SLOTS)), prefill_budget=256)
+        us = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        wd.close()
+    rec = dict(case="instrumentation_cost", steps=n, us_per_step=us,
+               paged_step_wall_ms=summary.get("f32", {}).get("serving", {}).get("step_ms_median"),
+               note="host clock; the calls alone, no device work")
+    print(json.dumps(rec), flush=True)
+    summary["instrumentation_cost"] = rec
+
+
+def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
+    """Synchronisations a paged decode step makes, counted with
+    ``torch.cuda.set_sync_debug_mode("warn")`` over 8 ``PagedGenerator.step``
+    calls (8 slots at 8 layers, the captured step) with every instrument
+    on: the step's one readback, and nothing the instrumentation added."""
+    import warnings
+
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.serving import PagedGenerator, Request
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                          temperature=0.0, kv_block_size=BLOCK)
+    try:
+        gen = PagedGenerator(eng, SLOTS)
+        gen.capture()
+        ids = eng.tokenizer.encode(PROMPT)
+        for i in range(SLOTS):
+            gen.admit(Request(rid=i, prompt_ids=ids[: 40 + 20 * i], max_tokens=64,
+                              stop_on_eos=False), i)
+        gen.step()
+        torch.cuda.synchronize()
+        n = 8
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n):
+                    gen.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # one warning per synchronising call (the mode's own "prototype"
+        # notice, printed once a process, is not one)
+        syncs = [str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        gen.close()
+    finally:
+        eng.close()
+    rec = dict(case="paged_step_syncs", steps=n, syncs=len(syncs),
+               syncs_per_step=len(syncs) / n, first=syncs[:2])
+    print(json.dumps(rec), flush=True)
+    summary["paged_step_syncs"] = rec
+    if len(syncs) != n:
+        fail(f"paged step: {len(syncs)} synchronisations in {n} steps, want one each "
+             f"(the token readback)")
 
 
 def host_sampling_phase(model: str, tok: str, summary: dict) -> None:
@@ -3804,6 +4241,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 and c["head_dim"] == 64),
                (" prefill T=128 @1024", lambda c: c["phase"] == "prefill"
                 and c["start_pos"] == 1024 and c["T"] == 128),
+               *[(f" prefill T={T} @{pos} (C7: {T * (HEADS // KV_HEADS)} folded rows)",
+                  lambda c, T=T, pos=pos: c["phase"] == "prefill" and c["T"] == T
+                  and c["start_pos"] == pos and c["S"] == MAX_SEQ)
+                 for T, pos in C7_CHUNKS],
                (f" verify T={SPEC_K + 1} @{MAX_SEQ - 1 - SPEC_K}",
                 lambda c: c["phase"] == "verify"),
                (f" ragged decode B={SLOTS} T=1 @2047..0 (dense step)",
@@ -3825,7 +4266,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 (f" decode T=1 over a whole {LONG_SHARD}-row shard",
                  lambda c: c["phase"] == "decode whole 16384-row shard"),
                 (" prefill T=64 on the shard's diagonal",
-                 lambda c: c["phase"] == "prefill T=64 diagonal")],
+                 lambda c: c["phase"] == "prefill T=64 diagonal"),
+                *[(f" prefill T={T} on the shard's diagonal (C7: TQ {T * (HEADS // KV_HEADS)})",
+                   lambda c, T=T: c["phase"] == f"prefill T={T} diagonal")
+                  for T in (1024, 2048)]],
     }
     out = []
     # the e4m3-cache cases (modes f8-*) run a subset of each kernel's
@@ -4048,7 +4492,10 @@ def main() -> int:
                 ("weight modes", lambda: weight_modes(model, tok, args.layers, e2e)),
                 ("nbatches", lambda: nbatches_phase(model, tok, e2e)),
                 ("host sampling", lambda: host_sampling_phase(model, tok, e2e)),
-                ("weight integrity", lambda: integrity_phase(model, tok, tmp, e2e))):
+                ("weight integrity", lambda: integrity_phase(model, tok, tmp, e2e)),
+                ("watchdog and failpoints", lambda: watchdog_phase(long_model, tok, e2e)),
+                ("paged step syncs", lambda: paged_step_syncs(long_model, tok, e2e)),
+                ("instrumentation cost", lambda: obs_cost(e2e))):
             t0 = time.perf_counter()
             phase()
             torch.cuda.empty_cache()

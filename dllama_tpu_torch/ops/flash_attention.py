@@ -59,7 +59,11 @@ import torch
 from .attention import attention
 from .cuda_build import SMS, check, load, on_card
 
-MAX_TQ = 2048                # folded query rows per (batch, kv head)
+# the kernels index folded query rows (B * n_kv * TQ) and cache rows (B *
+# n_kv * S) in 32-bit ints; nothing else depends on TQ (shared memory is
+# per tile, the grid tiles the rows), so any prefill chunk the engine can
+# pick fits (T * kv_mul = 8192 at --nbatches 2048 on an 8B model)
+MAX_ROWS = 2**31 - 1
 HEAD_DIMS = (64, 128)        # head dims the kernel is instantiated for
 BQ, BS = 16, 32              # query rows per block, keys per tile (csrc)
 # split-S rule: split only a grid of at most a quarter of the SMs' worth of
@@ -72,11 +76,27 @@ _SPLIT_MIN_TILES = 2
 TC_BQ, TC_BS = 64, 64        # the tensor-core path's query rows per block, keys per tile
 
 
+def _rows_fit(B: int, n_kv: int, TQ: int, S: int) -> bool:
+    """Whether the folded query rows and the cache rows of a launch have
+    32-bit indices."""
+    return B * n_kv * TQ <= MAX_ROWS and B * n_kv * S <= MAX_ROWS
+
+
 def supports(q_shape: tuple[int, ...], n_kv: int, s: int) -> bool:
     """Whether the kernel covers these shapes."""
     B, T, n_heads, D = q_shape
-    return (D in HEAD_DIMS and n_heads % n_kv == 0
-            and T * (n_heads // n_kv) <= MAX_TQ and s > 0)
+    return (D in HEAD_DIMS and n_heads % n_kv == 0 and s > 0
+            and _rows_fit(B, n_kv, T * (n_heads // n_kv), s))
+
+
+def supports_block_stats(q_g_shape: tuple[int, ...], t: int,
+                         block_shape: tuple[int, ...]) -> bool:
+    """Whether K3s covers folded queries ``q_g_shape = (B, n_kv, TQ, D)`` of
+    ``t`` positions over a KV block of ``block_shape = (B, n_kv, S, D)``."""
+    B, n_kv, TQ, D = q_g_shape
+    S = block_shape[2]
+    return (D in HEAD_DIMS and t > 0 and TQ % t == 0 and S > 0
+            and block_shape[1] == n_kv and _rows_fit(B, n_kv, TQ, S))
 
 
 def fold_queries(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -179,7 +199,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not supports(tuple(q.shape), n_kv, S):
         raise ValueError(f"flash_attention: q={tuple(q.shape)}, S={S} not supported "
-                         f"(head_dim in {HEAD_DIMS}, T*kv_mul <= {MAX_TQ})")
+                         f"(head_dim in {HEAD_DIMS}, B*n_kv*T*kv_mul and B*n_kv*S "
+                         f"<= {MAX_ROWS})")
     _check_cache("flash_attention", q.device, k_cache, v_cache)
     kv_mul = n_heads // n_kv
     q_g = fold_queries(q, n_kv)
@@ -288,10 +309,11 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
         return flash_block_stats_plain(q_g, k_block, v_block, q_pos0, kv_pos0, head_dim, t)
     if q_g.device.type != "cuda":
         raise ValueError(f"flash_block_stats: unsupported device {q_g.device}")
-    if D not in HEAD_DIMS or TQ % t or TQ > MAX_TQ or S <= 0 or k_block.shape[1] != n_kv:
+    if not supports_block_stats(tuple(q_g.shape), t, tuple(k_block.shape)):
         raise ValueError(f"flash_block_stats: q_g={tuple(q_g.shape)}, t={t}, "
                          f"block={tuple(k_block.shape)} not supported "
-                         f"(head_dim in {HEAD_DIMS}, TQ <= {MAX_TQ})")
+                         f"(head_dim in {HEAD_DIMS}, B*n_kv*TQ and B*n_kv*S "
+                         f"<= {MAX_ROWS})")
     _check_cache("flash_block_stats", q_g.device, k_block, v_block)
     q_dtype = q_g.dtype
     q_g = q_g.float().contiguous()

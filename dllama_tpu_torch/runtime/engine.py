@@ -49,6 +49,18 @@ forward a token, its logits to the host and
 manifest before anything is staged on the device; a constructor that
 raises leaves no device memory behind.
 
+Observability (:mod:`~dllama_tpu_torch.runtime.telemetry`,
+:mod:`~dllama_tpu_torch.runtime.flightrec`,
+:mod:`~dllama_tpu_torch.runtime.watchdog`, at the JAX engine's sites): every
+dispatch runs under the engine's :class:`~dllama_tpu_torch.runtime.watchdog.StepWatchdog`
+guard with the ``step_hang`` failpoint inside it. On the card the guard
+spans a graph replay AND its readback (the replay returns at once; a wedged
+kernel blocks the readback), and a step's first capture runs before the
+guard is entered. Prefill chunks, decode steps and verify steps feed the
+``dllama_prefill_*`` / ``dllama_decode_*`` histograms and counters, and the
+spans and flight events the serving layer reads; all of it is host code
+around the replays, and adds no device synchronisation.
+
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
 mask (``s <= pos``), and every slot is rewritten by its real token before it
@@ -57,8 +69,10 @@ ever becomes visible.
 
 from __future__ import annotations
 
+import itertools
 import time
 import traceback
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -72,13 +86,18 @@ from ..models.llama import (Params, forward, greedy_steps, prefill_nll, sampled_
 from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
+from . import failpoints, flightrec, telemetry
 from .graphs import DecodeGraph, VerifyGraph
 from .kvblocks import validate_block_size
 from .kvcache import F8, KVCache, ShardedKVCache, padded_cache_len
 from .speculative import NgramProposer
+from .watchdog import StepWatchdog
 from .weights import WeightIntegrityError, load_params, verify_weights as _verify_all
 
 DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
+
+# engine names for the watchdog (the JAX engine's introspection scopes)
+_ENGINE_SEQ = itertools.count(1)
 
 # prefill chunk sizes, largest first: the prompt is evaluated in the largest
 # bucket it fills, and the tail pads into the smallest (the JAX engine's
@@ -249,6 +268,21 @@ class InferenceEngine:
             self.prefill_buckets = (self.n_batches,)
         self.tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
         self.sampler = Sampler(self.cfg.vocab_size, temperature, topp, seed)
+        # step watchdog: every dispatch below runs under its guard; the batch
+        # scheduler registers its fail-all in watchdog.on_stall. Budget shape
+        # from the DLLAMA_WATCHDOG* knobs (README, "Failure semantics")
+        self.watchdog = StepWatchdog(name=f"engine-{next(_ENGINE_SEQ)}")
+        # telemetry: cached metric handles (no registry lookups per step)
+        self._tm = telemetry.registry()
+        self._m_prefill_ms = self._tm.histogram(telemetry.PREFILL_CHUNK_MS)
+        self._m_prefill_tok = self._tm.counter(telemetry.PREFILL_TOKENS)
+        self._m_step_ms = self._tm.histogram(telemetry.DECODE_STEP_MS)
+        self._m_decode_tok = self._tm.counter(telemetry.DECODE_TOKENS)
+        self._m_kv = self._tm.gauge(telemetry.KV_OCCUPANCY)
+        # request id stamped onto trace spans by the serving layer (-1 =
+        # unattributed); the flight recorder takes the prefill chunk events
+        self.trace_rid = -1
+        self._flight = flightrec.recorder()
         self.params: Params | None = None
         self.kv = None
         try:
@@ -267,6 +301,7 @@ class InferenceEngine:
             # atomic failure: no half-built engine, and no device buffer
             # kept alive by the frames of the traceback the caller holds
             self.params = self.kv = None
+            self.watchdog.close()
             self.model_file.close()
             traceback.clear_frames(e.__traceback__)
             raise
@@ -289,9 +324,19 @@ class InferenceEngine:
         self._verify_graph = None
         self.params = None  # type: ignore[assignment]
         self.kv = None  # type: ignore[assignment]
+        self.watchdog.close()
         self.model_file.close()
 
     # -- low-level steps ----------------------------------------------------
+
+    @contextmanager
+    def guarded(self, label: str):
+        """One dispatch under the step watchdog, with the ``step_hang``
+        failpoint inside the guard (the JAX engine's ``_dispatch``). The
+        caller puts the readback inside it too."""
+        with self.watchdog.guard(label):
+            failpoints.fire("step_hang")
+            yield
 
     def _tokens(self, ids: list[int]) -> torch.Tensor:
         return torch.tensor([ids], dtype=torch.long, device=self.device)
@@ -329,22 +374,35 @@ class InferenceEngine:
                              f"{self.pos} exceeds seq_len {self.cfg.seq_len}")
         metrics: list[StepMetrics] = []
         last = None
+        # the span feeds the always-on /debug/requests ring too
+        trace_t0 = telemetry.now_ns()
         for i, valid, pad_to in self._chunks(len(token_ids)):
             chunk = token_ids[i:i + valid]
             t0 = time.perf_counter()
-            logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
-            last = logits[0, valid - 1].cpu().numpy()  # syncs the device
-            metrics.append(StepMetrics("eval", (time.perf_counter() - t0) * 1000.0, valid))
+            with self.guarded("dispatch"):
+                logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+                last = logits[0, valid - 1].cpu().numpy()  # syncs the device
+            ms = (time.perf_counter() - t0) * 1000.0
+            metrics.append(StepMetrics("eval", ms, valid))
+            self._m_prefill_ms.record(ms)
+            self._flight.note("prefill_chunk", self.trace_rid,
+                              ms=round(ms, 3), n_tokens=valid, pos=self.pos)
             self.pos += valid
+        self._m_prefill_tok.inc(len(token_ids))
+        self._m_kv.set(self.pos / self.cfg.seq_len)
+        telemetry.tracer().emit(self.trace_rid, "prefill", trace_t0,
+                                telemetry.now_ns(), n_tokens=len(token_ids))
         return last, metrics
 
     def decode_step(self, token: int) -> np.ndarray:
         """One-token decode at the current position; returns logits [vocab]."""
         if self.pos >= self.cfg.seq_len:
             raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
-        logits = self._forward([token], self.pos)
+        with self.guarded("dispatch"):
+            logits = self._forward([token], self.pos)
+            row = logits[0, 0].cpu().numpy()
         self.pos += 1
-        return logits[0, 0].cpu().numpy()
+        return row
 
     def next_token(self, token: int) -> int:
         """Forward + argmax (temperature 0) or forward + temperature/top-p
@@ -354,8 +412,11 @@ class InferenceEngine:
         if self.pos >= self.cfg.seq_len:
             raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
         greedy = self.sampler.temperature == 0.0
+        t0 = time.perf_counter()
         tok = self._run_chunk(token, self.pos, 1, greedy, self.sampler.temperature,
-                              self.sampler.topp, None if greedy else self._coins(1))
+                              self.sampler.topp, None if greedy else self._coins(1),
+                              label="dispatch")
+        self._m_step_ms.record((time.perf_counter() - t0) * 1000.0)
         self.commit_chunk(1)
         return tok[0]
 
@@ -392,36 +453,46 @@ class InferenceEngine:
         if k < 1:
             raise ValueError(f"position {self.pos} reached seq_len {self.cfg.seq_len}")
         greedy = self.sampler.temperature == 0.0
-        return self._run_chunk(token, self.pos, k, greedy, self.sampler.temperature,
+        t0 = time.perf_counter()
+        toks = self._run_chunk(token, self.pos, k, greedy, self.sampler.temperature,
                                self.sampler.topp, None if greedy else self._coins(k))
+        self._m_step_ms.record((time.perf_counter() - t0) * 1000.0)
+        return toks
 
     def _run_chunk(self, token: int, start_pos: int, k: int, greedy: bool,
-                   temp: float, topp: float, coins) -> list[int]:
+                   temp: float, topp: float, coins, label: str = "chunk") -> list[int]:
         """Dispatch ``k`` decode steps from ``token`` at ``start_pos``: ``k``
         replays of the captured step at sp == 1, the eager loop at sp > 1;
         a sampled token under ``host_sampling`` (``k == 1``) is one eager
         forward whose logits the host samples. The RNG is left for
-        :meth:`commit_chunk` to advance in every case."""
+        :meth:`commit_chunk` to advance in every case. The dispatch and its
+        readback run under the watchdog's ``label`` guard; a graph's capture
+        (the first decode of its kind) runs before it."""
         if self.host_sampling and not greedy:
-            logits, self.kv = forward(self.params, self.cfg, self._tokens([token]), start_pos,
-                                      self.kv, self.plan)
+            with self.guarded("dispatch"):
+                logits, self.kv = forward(self.params, self.cfg, self._tokens([token]),
+                                          start_pos, self.kv, self.plan)
+                row = logits[0, 0].cpu().numpy()
             st = self.sampler.rng_state
-            tok = self.sampler.sample(logits[0, 0].cpu().numpy())
+            tok = self.sampler.sample(row)
             self.sampler.rng_state = st
             return [tok]
         if self.plan is None:
             g = self.decode_step_graph(sampled=not greedy)
-            g.launch(token, start_pos, k, temp, topp, coins)
-            return g.tokens()
+            with self.guarded(label):
+                g.launch(token, start_pos, k, temp, topp, coins)
+                return g.tokens()
         tok0 = torch.tensor([token], dtype=torch.long, device=self.device)
-        if greedy:
-            toks, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos, self.kv,
-                                         k, self.plan)
-        else:
-            toks, self.kv = sampled_steps(self.params, self.cfg, tok0, start_pos, self.kv,
-                                          temp, topp, torch.from_numpy(coins).to(self.device),
-                                          k, self.plan)
-        return toks[0].tolist()
+        with self.guarded(label):
+            if greedy:
+                toks, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos, self.kv,
+                                             k, self.plan)
+            else:
+                toks, self.kv = sampled_steps(self.params, self.cfg, tok0, start_pos, self.kv,
+                                              temp, topp,
+                                              torch.from_numpy(coins).to(self.device),
+                                              k, self.plan)
+            return toks[0].tolist()
 
     @property
     def spec_active(self) -> bool:
@@ -440,7 +511,14 @@ class InferenceEngine:
         assert self.sampler.temperature == 0.0
         toks = [int(token), *map(int, drafts)]
         assert self.pos + len(toks) <= self.cfg.seq_len
+        t0 = time.perf_counter()
+        trace_t0 = telemetry.now_ns()
         n_acc, preds = self._run_verify(toks, self.pos)
+        telemetry.tracer().emit(self.trace_rid, "verify", trace_t0,
+                                telemetry.now_ns(), n_tokens=n_acc + 1)
+        self._m_step_ms.record((time.perf_counter() - t0) * 1000.0)
+        self._tm.counter(telemetry.SPEC_DRAFT_TOKENS).inc(len(drafts), generator="engine")
+        self._tm.counter(telemetry.SPEC_ACCEPTED_TOKENS).inc(n_acc, generator="engine")
         return preds[: n_acc + 1]
 
     def verify_step_graph(self) -> VerifyGraph:
@@ -455,12 +533,16 @@ class InferenceEngine:
     def _run_verify(self, tokens: list[int], start_pos: int) -> tuple[int, list[int]]:
         """Dispatch one verify step: a replay of the captured step at
         sp == 1, the eager step (ring / merge attention) at sp > 1.
-        Returns ``(n_acc, preds)``."""
+        Returns ``(n_acc, preds)``. The dispatch and its readback run under
+        the watchdog's ``verify`` guard; the graph's capture before it."""
         if self.plan is None:
-            return self.verify_step_graph().run(tokens, start_pos)
-        n_acc, preds, self.kv = verify_step(self.params, self.cfg, self._tokens(tokens),
-                                            start_pos, self.kv, self.plan)
-        return int(n_acc[0]), preds[0].tolist()
+            g = self.verify_step_graph()
+            with self.guarded("verify"):
+                return g.run(tokens, start_pos)
+        with self.guarded("verify"):
+            n_acc, preds, self.kv = verify_step(self.params, self.cfg, self._tokens(tokens),
+                                                start_pos, self.kv, self.plan)
+            return int(n_acc[0]), preds[0].tolist()
 
     def commit_chunk(self, n_keep: int) -> None:
         """Advance position and sampler RNG by the kept prefix of a chunk."""
@@ -470,6 +552,8 @@ class InferenceEngine:
             for _ in range(n_keep):
                 _, st = xorshift_random_f32(st)
             self.sampler.rng_state = st
+        self._m_decode_tok.inc(n_keep)
+        self._m_kv.set(self.pos / self.cfg.seq_len)
 
     # -- generation ---------------------------------------------------------
 
@@ -557,11 +641,12 @@ class InferenceEngine:
         nll, count = 0.0, 0
         for i, valid, pad_to in self._chunks(len(token_ids) - 1):
             chunk = token_ids[i:i + valid]
-            logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
-            rows = logits[0, :valid].double()
-            targets = torch.tensor(token_ids[i + 1:i + 1 + valid], device=rows.device)
-            logp = rows.gather(-1, targets[:, None])[:, 0] - torch.logsumexp(rows, dim=-1)
-            nll -= float(logp.sum())
+            with self.guarded("dispatch"):
+                logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+                rows = logits[0, :valid].double()
+                targets = torch.tensor(token_ids[i + 1:i + 1 + valid], device=rows.device)
+                logp = rows.gather(-1, targets[:, None])[:, 0] - torch.logsumexp(rows, dim=-1)
+                nll -= float(logp.sum())
             count += valid
             self.pos += valid
         return float(np.exp(nll / count))
@@ -580,10 +665,11 @@ class InferenceEngine:
         for i, valid, pad_to in self._chunks(len(rest)):
             pad = [0] * (pad_to - valid)
             targets = token_ids[i + 1:i + 1 + valid]
-            nll, self.kv = prefill_nll(self.params, self.cfg,
-                                       self._tokens(rest[i:i + valid] + pad),
-                                       self._tokens(targets + pad), self.pos, self.kv,
-                                       self.plan)
-            out.append(nll[0, :valid].float().cpu().numpy())
+            with self.guarded("dispatch"):
+                nll, self.kv = prefill_nll(self.params, self.cfg,
+                                           self._tokens(rest[i:i + valid] + pad),
+                                           self._tokens(targets + pad), self.pos, self.kv,
+                                           self.plan)
+                out.append(nll[0, :valid].float().cpu().numpy())
             self.pos += valid
         return np.concatenate(out)

@@ -24,8 +24,9 @@ JAX package's ``runtime/kvblocks.py``, without the host tier).
 
 The allocator is pure host bookkeeping and behaves call for call like the
 JAX package's ``BlockPool`` with no host tier (``tests/test_torch_kvblocks.py``
-replays one op sequence on both). Left out: the host tier (spill to pinned
-host memory, page-in) and the ``kv_alloc`` failpoint.
+replays one op sequence on both); :meth:`BlockPool.alloc` fires the
+``kv_alloc`` failpoint, whose ``raise`` is an injected exhaustion. Left out:
+the host tier (spill to pinned host memory, page-in).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import failpoints
 from .kvcache import padded_cache_len
 
 # the root chain id of every prefix trie (the empty prefix)
@@ -141,7 +143,12 @@ class BlockPool:
     def alloc(self) -> int:
         """One fresh block (refcount 1). When the free list is dry the LRU
         cached block is evicted (unregistered) and reused; raises
-        :class:`BlockPoolExhausted` when nothing is allocatable."""
+        :class:`BlockPoolExhausted` when nothing is allocatable, including
+        through the ``kv_alloc`` failpoint (injected exhaustion)."""
+        try:
+            failpoints.fire("kv_alloc")
+        except failpoints.FailpointError as e:
+            raise BlockPoolExhausted(f"injected block-pool exhaustion: {e}") from e
         if self._free:
             bid = self._free.pop()
         elif self._cached:

@@ -43,10 +43,23 @@ own coin stream, so a request's output does not depend on what shares the
 batch with it — the transcripts equal the single-sequence engine's
 (``tests/test_torch_serving.py``, ``tests/test_torch_dense_serving.py``).
 
-Left out (later slices): telemetry and the flight recorder, tenancy and
-fair queueing, the host KV tier and KV migration, eval scoring, the HBM
-admission guard and degrade, the multihost broadcast, the step watchdog
-and failpoints (the ``draft`` one included).
+Observability, at the JAX package's sites: the batch, admission, retire,
+prefix-reuse, queue, shed, timeout and crash/restart counters and the
+block-pool gauges (:mod:`~dllama_tpu_torch.runtime.telemetry`); the
+``queue``/``admit``/``prefill``/``prefill_chunk``/``decode``/``requeue``
+spans; one flight-recorder tick per work-carrying scheduler tick with its
+decisions, and the TTFT/ITL attribution (:mod:`~dllama_tpu_torch.runtime.flightrec`);
+the engine's step watchdog around every dispatch, whose stall fails every
+request (``_on_stall``, on the monitor thread, touching no device state);
+and the ``step``, ``admit``, ``draft`` and ``step_hang`` failpoints. Each
+guard spans a graph replay and its readback; every call is host code
+around the replays (nothing sits inside a captured step), and none reads a
+device tensor.
+
+Left out (later slices): tenancy and fair queueing, the host KV tier and
+KV migration, eval scoring, the HBM admission guard and degrade, the
+multihost broadcast, and the numerics tripwire's counters and ``logits``
+poison (A9).
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ import torch
 from ..models.llama import (forward, paged_sampled_step, paged_verify_step,
                             ragged_sampled_step, ragged_verify_step)
 from ..tokenizer.sampler import xorshift_random_f32
+from . import failpoints, flightrec, telemetry
 from .graphs import StepGraph, load, staging
 from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
                        block_pool_bytes, blocks_per_seq)
@@ -122,10 +136,18 @@ class Request:
     # request if still queued, or cancels its slot at the next step boundary
     deadline_ns: int = 0
     timed_out: bool = False
-    # monotonic ns stamps: submit and first emitted token (time to first
-    # token = their difference)
+    # monotonic ns stamps (0 = not reached): submit, admission start,
+    # decode armed, first emitted token
     t_submit: int = 0
+    t_admit: int = 0
+    t_decode: int = 0
     t_first_token: int = 0
+    # latency attribution (runtime/flightrec): per-phase wall (ms) the
+    # generator accumulates
+    ms_prefill: float = 0.0       # own prefill chunk dispatch wall
+    ms_decode_steps: float = 0.0  # decode dispatch wall while the slot was active
+    ms_preempt: float = 0.0       # others' prefill chunks while decode-armed
+    ms_verify: float = 0.0        # speculative verify dispatch wall
     # speculative serving: drafted tokens offered to verify steps, and the
     # drafts accepted
     spec_drafted: int = 0
@@ -133,6 +155,16 @@ class Request:
 
     def __post_init__(self):
         self.rng_state = self.seed & _MASK64
+
+    def ttft_breakdown(self) -> dict | None:
+        """This request's TTFT decomposition (ms) by the one phase formula
+        (:func:`~dllama_tpu_torch.runtime.flightrec.ttft_phases`), or None
+        before the first token (or for direct generator use, no submit
+        stamp)."""
+        if not (self.t_first_token and self.t_submit and self.t_admit and self.t_decode):
+            return None
+        return flightrec.ttft_phases(self.t_submit, self.t_admit, self.t_decode,
+                                     self.t_first_token, self.ms_prefill)
 
 
 @dataclass
@@ -148,6 +180,7 @@ class _Admission:
     # of the dense slot's own column
     col: KVCache | None
     pos: int = 0
+    reused: int = 0  # prompt positions prefix reuse skipped
 
 
 class _GeneratorCore:
@@ -170,9 +203,22 @@ class _GeneratorCore:
         # verify step, each slot's drafts from its own n-gram table
         self.spec = engine.spec_lookup
         self._proposers: list[NgramProposer | None] = [None] * n_slots
-        # prompt tokens whose prefill was skipped by prefix reuse (the JAX
-        # package's dllama_prefix_reuse_tokens_total)
+        # prompt tokens whose prefill was skipped by prefix reuse (also
+        # counted into dllama_prefix_reuse_tokens_total)
         self.reused_tokens = 0
+        # telemetry: cached handles (no registry lookups per step)
+        self._tm = telemetry.registry()
+        self._tm.gauge(telemetry.BATCH_SLOTS).set(n_slots)
+        self._m_step_ms = self._tm.histogram(telemetry.BATCH_STEP_MS)
+        self._m_occupancy = self._tm.gauge(telemetry.BATCH_OCCUPANCY)
+        self._m_tokens = self._tm.counter(telemetry.BATCH_TOKENS)
+        self._m_kv = self._tm.gauge(telemetry.KV_OCCUPANCY)
+        # flight recorder: the scheduler opens and closes ticks; the
+        # generator records its decisions and dispatch/prefill wall into the
+        # open tick
+        self.flight = flightrec.recorder()
+        self._m_ttft_attrib = self._tm.histogram(telemetry.TTFT_ATTRIB_MS)
+        self._m_itl_attrib = self._tm.histogram(telemetry.ITL_ATTRIB_MS)
 
     def free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -208,15 +254,29 @@ class _GeneratorCore:
         self._graph = None
         self._verify = None
 
-    def _retire(self, slot: int) -> None:
+    def _retire(self, slot: int, reason: str = "done") -> None:
         req = self.slots[slot]
         self.slots[slot] = None
         self._proposers[slot] = None
+        self._tm.counter(telemetry.RETIRES).inc()
+        if req.t_decode:
+            telemetry.tracer().emit(req.rid, "decode", req.t_decode, telemetry.now_ns(),
+                                    slot=slot, n_tokens=len(req.tokens))
+        self.flight.note("retire", req.rid, reason=reason, slot=slot,
+                         n_tokens=len(req.tokens))
+        # ITL attribution, once per request: its decode dispatch wall
+        # against the prefill chunks of other admissions that ran while it
+        # waited (the tick budget's preemption share)
+        if req.t_first_token and len(req.tokens) > 1:
+            self._m_itl_attrib.record(req.ms_decode_steps, cause="step")
+            self._m_itl_attrib.record(req.ms_preempt, cause="preempt")
+            if req.ms_verify:
+                self._m_itl_attrib.record(req.ms_verify, cause="verify")
         req.done.set()
 
     def _arm_decode(self, adm: _Admission) -> None:
         """Commit tail: arm the slot for decode (position, seed token, a
-        per-request streaming decoder)."""
+        per-request streaming decoder, the ``prefill`` span)."""
         req = adm.req
         self.pos[adm.slot] = adm.pos
         self.next_token[adm.slot] = req.prompt_ids[-1]
@@ -225,7 +285,97 @@ class _GeneratorCore:
             # carry-over, so interleaved slots can't corrupt each other
             req.decoder = copy.copy(self.eng.tokenizer)
             req.decoder._pending = bytearray()
+        req.t_decode = telemetry.now_ns()
+        if req.t_admit:
+            # n_tokens = positions actually prefilled (after prefix reuse)
+            telemetry.tracer().emit(req.rid, "prefill", req.t_admit, req.t_decode,
+                                    slot=adm.slot, n_tokens=adm.pos - adm.reused)
+        self.flight.note("decode_armed", req.rid, slot=adm.slot, pos=adm.pos,
+                         reused=adm.reused)
         self.slots[adm.slot] = req
+
+    def _note_admitted(self, req: Request, slot: int, reused: int) -> None:
+        """Admission telemetry, after the last call of ``begin_admit`` that
+        can fail, so a rejected request never counts as admitted."""
+        req.t_admit = telemetry.now_ns()
+        self._tm.counter(telemetry.ADMISSIONS).inc()
+        self.flight.note("admit", req.rid, slot=slot, reused=reused,
+                         n_prompt=len(req.prompt_ids))
+        if reused:
+            self._tm.counter(telemetry.PREFIX_REUSE_TOKENS).inc(reused)
+        if req.t_submit:
+            self._tm.histogram(telemetry.QUEUE_WAIT_MS).record(
+                (req.t_admit - req.t_submit) / 1e6)
+            telemetry.tracer().emit(req.rid, "queue", req.t_submit, req.t_admit, slot=slot)
+
+    def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
+        """One prefill chunk of ``padded`` tokens at ``adm.pos`` into the
+        admission's column (the subclass's storage)."""
+        raise NotImplementedError
+
+    def _prefill_chunk(self, adm: _Admission, padded: list[int], n_valid: int) -> None:
+        """One timed prefill chunk under the watchdog, with attribution: the
+        admission's own ``prefill`` wall, every decode-armed slot's preempt
+        stall, the tick's prefill tokens, and a ``prefill_chunk`` span. The
+        time is the host window of the chunk's launches (no readback)."""
+        t0 = telemetry.now_ns()
+        with self.eng.guarded("batch_prefill"):
+            self._exec_prefill(adm, padded)
+        t1 = telemetry.now_ns()
+        ms = (t1 - t0) / 1e6
+        adm.req.ms_prefill += ms
+        for s in self.slots:
+            if s is not None:
+                s.ms_preempt += ms
+        self.flight.note_prefill(adm.req.rid, ms, n_valid)
+        telemetry.tracer().emit(adm.req.rid, "prefill_chunk", t0, t1, slot=adm.slot,
+                                n_tokens=n_valid)
+
+    def _record_step(self, n_active: int, ms: float, emitted: int) -> None:
+        """Per-dispatch telemetry: occupancy, step latency, emitted tokens,
+        KV occupancy, the tick's dispatch record."""
+        self._m_occupancy.set(n_active)
+        self._m_step_ms.record(ms)
+        if emitted:
+            self._m_tokens.inc(emitted)
+        self._m_kv.set(self._kv_fraction())
+        self.flight.note_dispatch(ms, n_active, emitted)
+
+    def _attrib_decode(self, active: list[int], ms: float) -> None:
+        """Charge one decode dispatch's wall to every active request (before
+        the tripwire and emit retires clear slots)."""
+        for i in active:
+            if self.slots[i] is not None:
+                self.slots[i].ms_decode_steps += ms
+
+    def _attrib_verify(self, active: list[int], ms: float) -> None:
+        """Charge one verify dispatch's wall to every active request (the
+        ``verify`` ITL cause)."""
+        for i in active:
+            if self.slots[i] is not None:
+                self.slots[i].ms_verify += ms
+
+    def _safe_draft(self, i: int) -> list[int] | None:
+        """Slot ``i``'s proposer draft through the ``draft`` failpoint: a
+        proposer that raises DEGRADES the slot to plain decode for this step
+        (None; ``dllama_spec_degraded_total``) instead of failing the
+        request."""
+        try:
+            failpoints.fire("draft")
+            return self._proposers[i].draft()
+        except Exception as e:  # noqa: BLE001 — degrade, never fail the request
+            self._tm.counter(telemetry.SPEC_DEGRADED).inc()
+            self.flight.note("spec_degraded", self.slots[i].rid, reason=type(e).__name__,
+                             slot=i)
+            return None
+
+    def _kv_fraction(self) -> float:
+        """Live-context share of the KV storage (the occupancy gauge)."""
+        raise NotImplementedError
+
+    def flight_blocks(self) -> dict | None:
+        """Block-pool occupancy for the tick record (paged pool only)."""
+        return None
 
     def _handle_nonfinite(self, active: list[int], nf: np.ndarray) -> set[int]:
         """Non-finite tripwire: a row whose decode logits hold NaN/Inf fails
@@ -239,7 +389,7 @@ class _GeneratorCore:
                 req.error = (f"non-finite decode logits ({n} lanes) for request "
                              f"{req.rid}")
                 req.server_error = True
-                self._retire(i)
+                self._retire(i, "nonfinite")
                 failed.add(i)
         return failed
 
@@ -247,7 +397,7 @@ class _GeneratorCore:
         """Retire client-cancelled slots; return the active row list."""
         for i, s in enumerate(self.slots):
             if s is not None and s.cancel.is_set():
-                self._retire(i)
+                self._retire(i, "cancel")
         return [i for i, s in enumerate(self.slots) if s is not None]
 
     def _sampling_rows(self, active: list[int]) -> np.ndarray:
@@ -271,18 +421,24 @@ class _GeneratorCore:
         tok = self.eng.tokenizer
         n_keep = min(len(run), req.max_tokens - len(req.tokens))
         if n_keep <= 0:
-            self._retire(i)
+            self._retire(i, "max_tokens")
             return 0
         retire = n_keep < len(run)
+        hit_eos = False
         for j in range(n_keep):
             if req.stop_on_eos and tok is not None and tok.is_eos(run[j]):
-                n_keep, retire = j + 1, True
+                n_keep, retire, hit_eos = j + 1, True, True
                 break
         run = run[:n_keep]
         self.pos[i] += len(run)
         self.next_token[i] = run[-1]
         if req.t_first_token == 0:
-            req.t_first_token = time.monotonic_ns()
+            # first emitted token: stamp it and publish the TTFT breakdown
+            req.t_first_token = telemetry.now_ns()
+            self.flight.note("first_token", req.rid, slot=i)
+            bd = req.ttft_breakdown()
+            if bd is not None:
+                flightrec.record_ttft(self._m_ttft_attrib, bd)
         req.tokens.extend(run)
         if self._proposers[i] is not None:
             self._proposers[i].extend(run)
@@ -292,7 +448,9 @@ class _GeneratorCore:
                 req.on_token(t, piece)
         if (retire or len(req.tokens) >= req.max_tokens
                 or self.pos[i] >= self.cfg.seq_len):
-            self._retire(i)
+            self._retire(i, "eos" if hit_eos
+                         else "max_tokens" if len(req.tokens) >= req.max_tokens
+                         else "ctx_full")
         return len(run)
 
 
@@ -476,7 +634,12 @@ class BatchedGenerator(_GeneratorCore):
         self._ctx[slot] = None
         self.pos[slot] = len(rest)
         self.reused_tokens += k
-        return _Admission(req=req, slot=slot, col=self._column(slot), pos=k)
+        self._note_admitted(req, slot, k)
+        return _Admission(req=req, slot=slot, col=self._column(slot), pos=k, reused=k)
+
+    def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
+        tokens = torch.tensor([padded], dtype=torch.long, device=self.eng.device)
+        forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
 
     def continue_admit(self, adm: _Admission) -> bool:
         """One admission step: one bucketed prefill chunk into the slot's
@@ -487,9 +650,7 @@ class BatchedGenerator(_GeneratorCore):
             n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
             chunk = rest[adm.pos:adm.pos + n_b]
             pad_to = min(n_b, self.cfg.seq_len - adm.pos)
-            tokens = torch.tensor([chunk + [0] * (pad_to - len(chunk))], dtype=torch.long,
-                                  device=self.eng.device)
-            forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
+            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)), len(chunk))
             adm.pos += len(chunk)
             if adm.pos < len(rest):
                 return False
@@ -510,6 +671,15 @@ class BatchedGenerator(_GeneratorCore):
         self._proposers = [None] * self.n_slots
         self.pos[:] = 0
         self.next_token[:] = 0
+        self._m_occupancy.set(0)
+        self._m_kv.set(0.0)
+
+    def _kv_fraction(self) -> float:
+        """Rows holding LIVE requests' context over the pool's rows (retired
+        slots keep their stale positions for prefix reuse, but their rows
+        are reclaimable)."""
+        live = sum(int(self.pos[i]) for i, s in enumerate(self.slots) if s is not None)
+        return live / (self.n_slots * self.cfg.seq_len)
 
     # -- decode -------------------------------------------------------------
 
@@ -525,17 +695,18 @@ class BatchedGenerator(_GeneratorCore):
         """``k`` replays of :meth:`step_graph` from every slot's next token
         and position, ``knobs`` ``[2 + k, n_slots]`` (temperature, top-p,
         one coin row per step): one host→device copy each for the inputs
-        and the knobs, one readback. Returns ``(tokens [n_slots, k],
-        non-finite lanes [n_slots])``."""
+        and the knobs, one readback, all under the watchdog's guard.
+        Returns ``(tokens [n_slots, k], non-finite lanes [n_slots])``."""
         graph = self.step_graph()
-        load(self._in, self._in_host, np.stack(
-            [self.next_token, self.pos, np.zeros_like(self.pos)], axis=1))
-        full = np.zeros((2 + self.chunk, self.n_slots), dtype=np.float32)
-        full[:2 + k] = knobs
-        load(self._knobs, self._knobs_host, full)
-        for _ in range(k):
-            graph.replay()
-        out = self._out[:, :k].cpu().numpy()
+        with self.eng.guarded("batch_step" if k == 1 else "batch_chunk"):
+            load(self._in, self._in_host, np.stack(
+                [self.next_token, self.pos, np.zeros_like(self.pos)], axis=1))
+            full = np.zeros((2 + self.chunk, self.n_slots), dtype=np.float32)
+            full[:2 + k] = knobs
+            load(self._knobs, self._knobs_host, full)
+            for _ in range(k):
+                graph.replay()
+            out = self._out[:, :k].cpu().numpy()
         return out[0].T, out[1].sum(axis=0)
 
     def step(self) -> int:
@@ -549,7 +720,7 @@ class BatchedGenerator(_GeneratorCore):
             # package (spec trades the last K positions for run dispatches)
             for i in list(active):
                 if self.pos[i] + self.spec + 1 > self.cfg.seq_len:
-                    self._retire(i)
+                    self._retire(i, "ctx_full")
                     active.remove(i)
         if not active:
             return 0
@@ -557,10 +728,15 @@ class BatchedGenerator(_GeneratorCore):
         knobs = self._sampling_rows(active)
         if self.spec:
             return self._spec_step(active, knobs)
+        t0 = time.perf_counter()
         toks, nf = self._dispatch(knobs, 1)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._attrib_decode(active, ms)
         poisoned = self._handle_nonfinite(active, nf)
-        return sum(self._emit_run(i, [int(toks[i, 0])]) for i in active
-                   if i not in poisoned)
+        emitted = sum(self._emit_run(i, [int(toks[i, 0])]) for i in active
+                      if i not in poisoned)
+        self._record_step(len(active), ms, emitted)
+        return emitted
 
     def step_chunk(self, k: int) -> int:
         """``k`` ragged decode steps in one dispatch: ``k`` replays of
@@ -590,7 +766,10 @@ class BatchedGenerator(_GeneratorCore):
                 st = req.rng_state  # a COPY: committed after truncation
                 for j in range(k):
                     knobs[2 + j, i], st = xorshift_random_f32(st)
+        t0 = time.perf_counter()
         toks, nf = self._dispatch(knobs, k)
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._attrib_decode(active, ms)
         poisoned = self._handle_nonfinite(active, nf)
         emitted = 0
         for i in active:
@@ -604,35 +783,59 @@ class BatchedGenerator(_GeneratorCore):
                 for _ in range(n):
                     _, st = xorshift_random_f32(st)
                 req.rng_state = st
+        self._record_step(len(active), ms, emitted)
         return emitted
 
     def _spec_step(self, active: list[int], knobs: np.ndarray) -> int:
         """One ragged verify step for every active slot: one replay of
         :meth:`verify_graph`. Greedy rows verify their proposer's K drafts
         and emit the accepted run; sampled rows emit exactly one token for
-        the one coin they drew. Returns the tokens emitted."""
+        the one coin they drew. A greedy row whose proposer raised (the
+        ``draft`` failpoint) carries its committed token as filler, emits
+        only its verified token and counts no drafts. Returns the tokens
+        emitted."""
         W = self.spec + 1
         toks = np.zeros((self.n_slots, W), dtype=np.int64)
+        degraded: set[int] = set()
         for i in active:
             toks[i, 0] = self.next_token[i]
             if self.slots[i].temperature <= 0.0:
-                toks[i, 1:] = self._proposers[i].draft()
+                d = self._safe_draft(i)
+                if d is None:
+                    degraded.add(i)
+                    toks[i, 1:] = toks[i, 0]
+                else:
+                    toks[i, 1:] = d
         graph = self.verify_graph()
-        load(self._vin, self._vin_host, np.concatenate([toks, self.pos[:, None]], axis=1))
-        load(self._vknobs, self._vknobs_host, knobs)
-        graph.replay()
-        out = self._vout.cpu().numpy()
+        t0 = time.perf_counter()
+        with self.eng.guarded("batch_verify"):
+            load(self._vin, self._vin_host, np.concatenate([toks, self.pos[:, None]], axis=1))
+            load(self._vknobs, self._vknobs_host, knobs)
+            graph.replay()
+            out = self._vout.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._attrib_verify(active, ms)
+        drafted = sum(self.spec for i in active
+                      if self.slots[i].temperature <= 0.0 and i not in degraded)
+        if drafted:
+            self._tm.counter(telemetry.SPEC_DRAFT_TOKENS).inc(drafted, generator="dense")
         poisoned = self._handle_nonfinite(active, out[1])
-        emitted = 0
+        emitted = accepted = 0
         for i in active:
             if i in poisoned:
                 continue
             req = self.slots[i]
-            acc = int(out[0, i])
-            if req.temperature <= 0.0:
+            acc = 0 if i in degraded else int(out[0, i])
+            if req.temperature <= 0.0 and i not in degraded:
                 req.spec_drafted += self.spec
                 req.spec_accepted += acc
+                accepted += acc
+                if acc:
+                    self._tm.counter(telemetry.SPEC_ACCEPTED_TOKENS).inc(
+                        acc, generator="dense")
             emitted += self._emit_run(i, [int(t) for t in out[2:acc + 3, i]])
+        self.flight.note_spec(drafted, accepted)
+        self._record_step(len(active), ms, emitted)
         return emitted
 
 
@@ -681,6 +884,22 @@ class PagedGenerator(_GeneratorCore):
         self._reserve = [0] * n_slots
         self._graph: StepGraph | None = None  # the paged step, built at first use
         self._verify: StepGraph | None = None  # the paged verify step, built at first use
+        # block-pool gauges: read from the allocator's host counts
+        self._m_blocks_used = self._tm.gauge(telemetry.KV_BLOCKS_USED)
+        self._m_blocks_shared = self._tm.gauge(telemetry.KV_BLOCKS_SHARED)
+        self._tm.gauge(telemetry.KV_BLOCKS_TOTAL).set(n_blocks - 1)
+        self._update_block_gauges()
+
+    def _update_block_gauges(self) -> None:
+        self._m_blocks_used.set(self.pool.used_blocks())
+        self._m_blocks_shared.set(self.pool.shared_blocks())
+
+    def _kv_fraction(self) -> float:
+        return self.pool.used_blocks() / max(1, self.pool.n_blocks - 1)
+
+    def flight_blocks(self) -> dict | None:
+        return {"total": self.pool.n_blocks - 1, "used": self.pool.used_blocks(),
+                "shared": self.pool.shared_blocks()}
 
     def step_graph(self) -> StepGraph:
         """The paged step on static buffers (``[n_slots, 2 + table_width]``
@@ -761,9 +980,9 @@ class PagedGenerator(_GeneratorCore):
         return (self.pool.free_blocks() - sum(self._reserve)
                 >= self._worst_case_blocks(len(req.prompt_ids), req.max_tokens))
 
-    def _retire(self, slot: int) -> None:
+    def _retire(self, slot: int, reason: str = "done") -> None:
         self._release_blocks(slot)
-        super()._retire(slot)
+        super()._retire(slot, reason)
 
     def _release_blocks(self, slot: int) -> None:
         """Drop every block reference ``slot`` holds and forget its
@@ -827,6 +1046,7 @@ class PagedGenerator(_GeneratorCore):
             raise ValueError(
                 f"prompt of {len(ids)} tokens exceeds the usable context "
                 f"(seq_len {self.cfg.seq_len})")
+        t_begin = telemetry.now_ns()  # the "admit" span: block bookkeeping
         rest = ids[:-1]
         shared, n_tok, cow_src, cow_r = self.pool.match_prefix(rest)
         cow_wanted = cow_src is not None and cow_r > 0
@@ -857,12 +1077,14 @@ class PagedGenerator(_GeneratorCore):
                 bids.append(self.pool.alloc())
             # a fully reused prompt has no rows to build: no column at all
             col = self._exec_take(bids) if reused < len(rest) else None
-        except Exception:
+        except Exception as e:
             for b in bids:
                 if b not in pinned:
                     self.pool.release(b)
             for b in pinned:
                 self.pool.release(b)
+            if isinstance(e, BlockPoolExhausted):
+                self._tm.counter(telemetry.KV_BLOCK_EXHAUSTION).inc()
             raise
         self._seq_bids[slot] = bids
         self._n_shared[slot] = len(shared)
@@ -874,9 +1096,13 @@ class PagedGenerator(_GeneratorCore):
         # landing in the null block, never in a shared block
         self.tables[slot, :] = self.pool.NULL
         self.reused_tokens += reused
-        return _Admission(req=req, slot=slot, col=col, pos=reused)
+        telemetry.tracer().emit(req.rid, "admit", t_begin, telemetry.now_ns(), slot=slot,
+                                n_tokens=reused)
+        self._note_admitted(req, slot, reused)
+        self._update_block_gauges()
+        return _Admission(req=req, slot=slot, col=col, pos=reused, reused=reused)
 
-    def _prefill_chunk(self, adm: _Admission, padded: list[int]) -> None:
+    def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
         tokens = torch.tensor([padded], dtype=torch.long, device=self.eng.device)
         _, adm.col = forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
 
@@ -890,7 +1116,7 @@ class PagedGenerator(_GeneratorCore):
             n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
             chunk = rest[adm.pos:adm.pos + n_b]
             pad_to = min(n_b, self.cfg.seq_len - adm.pos)
-            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)))
+            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)), len(chunk))
             adm.pos += len(chunk)
             if adm.pos < len(rest):
                 return False
@@ -928,6 +1154,9 @@ class PagedGenerator(_GeneratorCore):
         self.tables[:, :] = self.pool.NULL
         self.pos[:] = 0
         self.next_token[:] = 0
+        self._m_occupancy.set(0)
+        self._m_kv.set(0.0)
+        self._update_block_gauges()
 
     # -- decode -------------------------------------------------------------
 
@@ -947,17 +1176,22 @@ class PagedGenerator(_GeneratorCore):
     def _grow_or_fail(self, active: list[int], grow) -> None:
         """Lazy growth for one dispatch over each active slot's write range
         ``pos .. pos + grow[i]``; a slot whose growth finds no block
-        (admission reservations make the organic case impossible) fails
-        THAT request (503-shaped) and the rest of the batch keeps going."""
+        (admission reservations make the organic case impossible; the
+        ``kv_alloc`` failpoint injects it) fails THAT request (503-shaped),
+        leaves a flight-recorder postmortem naming it, and the rest of the
+        batch keeps going."""
         for i in list(active):
             try:
                 self._ensure_blocks(i, int(self.pos[i]) + int(grow[i]))
             except BlockPoolExhausted as e:
+                self._tm.counter(telemetry.KV_BLOCK_EXHAUSTION).inc()
                 req = self.slots[i]
                 req.error = str(e)
                 req.server_error = True
-                self._retire(i)
+                self._retire(i, "kv_block_exhaustion")
                 active.remove(i)
+                self.flight.dump("kv_block_exhaustion", victims=[req.rid],
+                                 info={"error": str(e), "slot": i})
 
     def _assert_writable(self, active: list[int], grow) -> None:
         if __debug__:
@@ -988,16 +1222,22 @@ class PagedGenerator(_GeneratorCore):
         self._assert_writable(active, zeros)
         knobs = self._sampling_rows(active)
         graph = self.step_graph()
-        load(self._in, self._in_host, np.concatenate(
-            [self.next_token[:, None], self.pos[:, None], self.tables], axis=1))
-        load(self._knobs, self._knobs_host, knobs)
-        graph.replay()
-        out = self._out.cpu().numpy()
+        t0 = time.perf_counter()
+        with self.eng.guarded("batch_step"):
+            load(self._in, self._in_host, np.concatenate(
+                [self.next_token[:, None], self.pos[:, None], self.tables], axis=1))
+            load(self._knobs, self._knobs_host, knobs)
+            graph.replay()
+            out = self._out.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._attrib_decode(active, ms)
         poisoned = self._handle_nonfinite(active, out[1])
         emitted = 0
         for i in active:
             if i not in poisoned:
                 emitted += self._emit_run(i, [int(out[0, i])])
+        self._record_step(len(active), ms, emitted)
+        self._update_block_gauges()
         return emitted
 
     def _spec_step(self, active: list[int]) -> int:
@@ -1012,8 +1252,9 @@ class PagedGenerator(_GeneratorCore):
         bonus coin) from a copy of their RNG state and commit one coin per
         emitted token (:func:`~dllama_tpu_torch.runtime.speculative.spec_coins_consumed`),
         so coin ``i`` of a request's stream always belongs to its emitted
-        token ``i`` and no request's stream depends on its batch-mates.
-        Returns the tokens emitted."""
+        token ``i`` and no request's stream depends on its batch-mates. A row
+        whose proposer raised (the ``draft`` failpoint) drafts nothing this
+        step (``lens`` 0). Returns the tokens emitted."""
         spec, B = self.spec, self.n_slots
         toks = np.zeros((B, spec + 1), dtype=np.int64)
         lens = np.zeros(B, dtype=np.int64)
@@ -1025,7 +1266,11 @@ class PagedGenerator(_GeneratorCore):
             cap = min(spec, self.cfg.seq_len - 1 - int(self.pos[i]),
                       max(0, req.max_tokens - len(req.tokens) - 1))
             if cap > 0:
-                toks[i, 1:cap + 1] = self._proposers[i].draft()[:cap]
+                d = self._safe_draft(i)
+                if d is None:
+                    cap = 0  # degraded: plain decode for this step
+                else:
+                    toks[i, 1:cap + 1] = d[:cap]
             lens[i] = cap
             if req.temperature > 0.0:
                 st = req.rng_state
@@ -1035,19 +1280,27 @@ class PagedGenerator(_GeneratorCore):
         if not active:
             return 0
         self._assert_writable(active, lens)
+        drafted = int(lens.sum())
         graph = self.verify_graph()
-        load(self._vin, self._vin_host, np.concatenate(
-            [toks, self.pos[:, None], lens[:, None], self.tables], axis=1))
-        load(self._vknobs, self._vknobs_host, knobs)
-        graph.replay()
-        out = self._vout.cpu().numpy()
+        t0 = time.perf_counter()
+        with self.eng.guarded("batch_verify"):
+            load(self._vin, self._vin_host, np.concatenate(
+                [toks, self.pos[:, None], lens[:, None], self.tables], axis=1))
+            load(self._vknobs, self._vknobs_host, knobs)
+            graph.replay()
+            out = self._vout.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._attrib_verify(active, ms)
+        if drafted:
+            self._tm.counter(telemetry.SPEC_DRAFT_TOKENS).inc(drafted, generator="paged")
         poisoned = self._handle_nonfinite(active, out[1])
-        emitted = 0
+        emitted = accepted = 0
         for i in active:
             if i in poisoned:
                 continue
             req = self.slots[i]
             acc = int(out[0, i])
+            accepted += acc
             req.spec_drafted += int(lens[i])
             req.spec_accepted += acc
             if req.temperature > 0.0:
@@ -1056,6 +1309,11 @@ class PagedGenerator(_GeneratorCore):
                     _, st = xorshift_random_f32(st)
                 req.rng_state = st
             emitted += self._emit_run(i, [int(t) for t in out[2:acc + 3, i]])
+        if accepted:
+            self._tm.counter(telemetry.SPEC_ACCEPTED_TOKENS).inc(accepted, generator="paged")
+        self.flight.note_spec(drafted, accepted)
+        self._record_step(len(active), ms, emitted)
+        self._update_block_gauges()
         return emitted
 
 
@@ -1077,6 +1335,10 @@ class BatchScheduler:
       in-flight request, resets the generator's pool and restarts; past
       ``max_restarts`` the scheduler goes permanently unready and submits
       raise :class:`SchedulerUnavailableError`;
+    * **step watchdog** — a dispatch past the engine watchdog's budget
+      fails every request from the monitor thread (:meth:`_on_stall`) and
+      marks the scheduler permanently unready: the loop thread is the one
+      that is stuck;
     * **graceful drain** — :meth:`close` (optionally after
       :meth:`begin_drain`) stops admitting, lets active slots finish up to
       ``drain_s``, then fails the remainder explicitly.
@@ -1094,10 +1356,13 @@ class BatchScheduler:
         # advances one chunk, further ones only while this budget lasts, so
         # decode latency of active slots stays bounded
         self.prefill_budget = max(engine.prefill_buckets)
+        # flight recorder: the scheduler owns the tick framing
+        self.flight = self.gen.flight
         self.max_queue = max_queue
         self.max_restarts = max_restarts
         # shared state: written by handler threads (submit), the loop
-        # thread and the closer — every write outside __init__ holds _lock
+        # thread, the closer and the watchdog monitor — every write outside
+        # __init__ holds _lock
         self._lock = threading.Lock()
         self._queue: list[Request] = []
         self._admissions: list[_Admission] = []
@@ -1105,8 +1370,13 @@ class BatchScheduler:
         self._next_rid = 0
         self._stop = False
         self._draining = False
+        self._drain_ended = False
         self._healthy = True
         self._crashes = 0
+        # step watchdog: a wedged dispatch blocks the loop thread inside a
+        # step, so its monitor thread supervises instead
+        self._watchdog = engine.watchdog
+        self._watchdog.on_stall.append(self._on_stall)
         # the loop thread dispatches on the engine's device: resolved here,
         # on the creating thread, when the engine names no index ("cuda")
         dev = engine.device
@@ -1124,6 +1394,7 @@ class BatchScheduler:
             started.wait()
             if failed:
                 self._thread.join()
+                self._watchdog.on_stall.remove(self._on_stall)
                 raise failed[0]
 
     # -- admission-side API (handler threads) -------------------------------
@@ -1139,6 +1410,8 @@ class BatchScheduler:
                     "scheduler is draining" if self._draining
                     else "scheduler is not running")
             if self.max_queue and len(self._queue) >= self.max_queue:
+                telemetry.registry().counter(telemetry.REQUESTS_SHED).inc()
+                self.flight.note("shed", reason="queue_full")
                 raise QueueFullError(
                     f"queue full ({len(self._queue)} waiting, "
                     f"--max-queue {self.max_queue}); retry later")
@@ -1148,10 +1421,12 @@ class BatchScheduler:
                           max_tokens=max_tokens, temperature=temperature,
                           topp=topp, seed=seed, stop_on_eos=stop_on_eos,
                           on_token=on_token)
-            req.t_submit = time.monotonic_ns()
+            req.t_submit = telemetry.now_ns()
             if timeout_s is not None and timeout_s > 0:
                 req.deadline_ns = req.t_submit + int(timeout_s * 1e9)
             self._queue.append(req)
+            telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
+            self.flight.note("submit", rid, n_prompt=len(prompt_ids), max_tokens=max_tokens)
         self._wake.set()
         return req
 
@@ -1167,6 +1442,8 @@ class BatchScheduler:
 
     def readiness(self) -> tuple[bool, str, str]:
         """(ready, human reason, machine code) for ``GET /readyz``."""
+        if self._watchdog.stalled:
+            return False, "step watchdog tripped (wedged device dispatch)", "crashed"
         if not self._healthy:
             return False, "scheduler crashed (restart budget exhausted)", "crashed"
         if self._thread is not None and not self._thread.is_alive():
@@ -1183,7 +1460,12 @@ class BatchScheduler:
         """Stop admitting (submits raise 503-shaped errors, ``/readyz``
         flips) while in-flight work keeps stepping."""
         with self._lock:
+            already = self._draining
             self._draining = True
+            n_queued = len(self._queue)
+        telemetry.registry().gauge(telemetry.SERVER_DRAINING).set(1)
+        if not already:
+            self.flight.note("drain_begin", n_queued=n_queued, n_active=self.gen.n_active)
         self._wake.set()
 
     def _pending(self) -> int:
@@ -1204,7 +1486,18 @@ class BatchScheduler:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        # the drain bracket closes before the remainder fails, so the
+        # lifecycle ring reads drain_begin ... drain_end (once)
+        with self._lock:
+            ended, self._drain_ended = self._drain_ended, True
+        if not ended:
+            remainder = self._pending() + self.gen.n_active
+            self.flight.note("drain_end", n_failed=remainder,
+                             reason=("clean" if remainder == 0
+                                     else "drain_timeout" if drain_s > 0 else "aborted"))
         self._fail_all("server shutting down")
+        if self._on_stall in self._watchdog.on_stall:
+            self._watchdog.on_stall.remove(self._on_stall)
         self.gen.close()
 
     # -- failure plumbing ----------------------------------------------------
@@ -1217,15 +1510,23 @@ class BatchScheduler:
                 req.server_error = True
             req.done.set()
 
+    @staticmethod
+    def _timeout_request(req: Request) -> None:
+        req.timed_out = True
+        telemetry.registry().counter(telemetry.REQUEST_TIMEOUTS).inc()
+
     def _fail_all(self, msg: str) -> None:
         """Fail every queued, admitting and in-flight request with ``msg``
         (idempotent; timed-out requests keep their flag). Admissions are not
-        rolled back here: every caller resets the pool right after (crash
-        restart) or stops serving for good (drain)."""
+        rolled back here: this runs on foreign threads too (close, the
+        watchdog monitor) that must not touch the loop thread's pool, and
+        every caller resets the pool right after (crash restart) or stops
+        serving for good (stall, drain)."""
         with self._lock:
             victims = list(self._queue) + [a.req for a in self._admissions]
             self._queue.clear()
             self._admissions.clear()
+            telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(0)
         victims += [s for s in list(self.gen.slots) if s is not None]
         for req in victims:
             self._fail_request(req, msg)
@@ -1233,37 +1534,79 @@ class BatchScheduler:
     def _check_deadlines(self) -> None:
         """Queued requests past their deadline fail now; in-flight ones are
         cancelled (their slot retires at the next step boundary)."""
-        now = time.monotonic_ns()
+        now = telemetry.now_ns()
         with self._lock:
             expired = [r for r in self._queue if r.deadline_ns and now >= r.deadline_ns]
             for r in expired:
                 self._queue.remove(r)
+            if expired:
+                telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
             holders = [a.req for a in self._admissions]
         for req in expired:
-            req.timed_out = True
+            self._timeout_request(req)
+            self.flight.note("timeout", req.rid, reason="queued")
             req.done.set()
-        for req in holders + [s for s in self.gen.slots if s is not None]:
-            if req.deadline_ns and now >= req.deadline_ns and not req.timed_out:
-                req.timed_out = True
-                req.cancel.set()
+        for reason, reqs in (("admitting", holders),
+                             ("in_flight", [s for s in self.gen.slots if s is not None])):
+            for req in reqs:
+                if req.deadline_ns and now >= req.deadline_ns and not req.timed_out:
+                    self._timeout_request(req)
+                    self.flight.note("timeout", req.rid, reason=reason)
+                    req.cancel.set()
+
+    def _on_stall(self, info: dict) -> None:
+        """Watchdog trip, on the MONITOR thread (the loop thread is the one
+        stuck inside a dispatch, and this touches no device state): flip
+        unready first, under the lock, so no submit slips in after the fail
+        sweep; fail every queued, admitting and in-flight request (503s,
+        never a hang); leave a flight-recorder postmortem. The stall is
+        permanent: a dispatch that wedged once is not trusted again."""
+        with self._lock:
+            self._healthy = False
+            self._stop = True
+            victims = [r.rid for r in self._queue] + [a.req.rid for a in self._admissions]
+        victims += [s.rid for s in self.gen.slots if s is not None]
+        self._fail_all(f"step watchdog: device dispatch {info.get('label')!r} stalled "
+                       f"past its {info.get('budget_s') or 0:.1f}s budget")
+        self.flight.dump("watchdog_stall", victims=victims,
+                         info={"label": info.get("label"), "budget_s": info.get("budget_s"),
+                               "waited_s": info.get("waited_s")})
+        self._wake.set()
 
     def _on_crash(self, exc: BaseException) -> None:
         """Supervision: fail every pending request with the crash, then
         restart with a fresh pool — or go permanently unready once the
         restart budget is spent."""
         self._crashes += 1
+        telemetry.registry().counter(telemetry.SCHEDULER_CRASHES).inc()
         msg = f"scheduler crashed: {type(exc).__name__}: {exc}"
         print(f"🛑 {msg} (crash {self._crashes}/{self.max_restarts})", flush=True)
+        with self._lock:
+            victims = [r.rid for r in self._queue] + [a.req.rid for a in self._admissions]
+        victims += [s.rid for s in self.gen.slots if s is not None]
+        self.flight.dump("scheduler_crash", victims=victims,
+                         info={"error": msg, "crash_n": self._crashes})
         dead = self._crashes > self.max_restarts
-        if dead:
+
+        def go_unready() -> None:
             with self._lock:  # before the fail sweep: no submit slips in after it
                 self._healthy = False
                 self._stop = True
+
+        if dead:
+            go_unready()
         self._fail_all(msg)
         if dead:
             print("🛑 scheduler restart budget exhausted — marking unready", flush=True)
             return
-        self.gen.reset_state()
+        try:
+            self.gen.reset_state()
+        except Exception as e:  # noqa: BLE001 — a failed reset goes unready
+            go_unready()
+            self._fail_all(msg)
+            print(f"🛑 scheduler state reset failed ({e}) — marking unready", flush=True)
+            return
+        telemetry.registry().counter(telemetry.SCHEDULER_RESTARTS).inc()
 
     # -- the loop ------------------------------------------------------------
 
@@ -1288,9 +1631,26 @@ class BatchScheduler:
                 self._on_crash(exc)
 
     def _tick(self) -> None:
-        """One loop tick: deadlines, admissions (block-priced in the paged
-        pool), the cancel sweep, interleaved prefill chunks under the token
-        budget, then one decode dispatch for every active slot."""
+        """One loop tick inside a flight-recorder tick record (idle ticks
+        are dropped by ``end_tick``; the ``finally`` closes the tick on a
+        crash too, so the postmortem holds the dying tick)."""
+        self.flight.begin_tick(queue_depth=len(self._queue),
+                               n_admissions=len(self._admissions))
+        try:
+            self._tick_body()
+        except BaseException as e:
+            self.flight.note("crash", reason=type(e).__name__)
+            raise
+        finally:
+            self.flight.end_tick(blocks=self.gen.flight_blocks(),
+                                 slots=[s.rid if s is not None else None
+                                        for s in self.gen.slots],
+                                 prefill_budget=self.prefill_budget)
+
+    def _tick_body(self) -> None:
+        """Deadlines, admissions (block-priced in the paged pool), the
+        cancel sweep, interleaved prefill chunks under the token budget,
+        then one decode dispatch for every active slot."""
         self._check_deadlines()
         reserved = {a.slot for a in self._admissions}
         with self._lock:
@@ -1303,21 +1663,30 @@ class BatchScheduler:
                     break
                 head = self._queue[0]
                 if not self.gen.can_admit(head):
+                    # blocks unaffordable: the head stays queued, and the
+                    # tick record says why nothing admitted
+                    self.flight.note("defer", head.rid, reason="blocks_unaffordable")
                     break
                 self._queue.pop(0)
                 try:
+                    failpoints.fire("admit")
                     adm = self.gen.begin_admit(head, free[0])
                 except BlockPoolExhausted:
                     # back-pressure: the request goes back to the head and
                     # waits for retirements to free blocks
                     self._queue.insert(0, head)
+                    now = telemetry.now_ns()
+                    telemetry.tracer().emit(head.rid, "requeue", now, now)
+                    self.flight.note("requeue", head.rid, reason="kv_block_exhaustion")
                     break
                 except Exception as e:  # noqa: BLE001 — reject, don't wedge
                     head.error = f"{type(e).__name__}: {e}"
+                    self.flight.note("reject", head.rid, reason=type(e).__name__)
                     head.done.set()
                     continue
                 self._admissions.append(adm)
                 reserved.add(adm.slot)
+            telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
         # cancel sweep over EVERY admission before the budgeted prefill loop:
         # a cancelled client behind the budget cutoff must not keep its blocks
         for adm in list(self._admissions):
@@ -1327,11 +1696,17 @@ class BatchScheduler:
                         continue  # a concurrent _fail_all already took it
                     self._admissions.remove(adm)
                 self.gen.abort_admit(adm)
+                # counted as admitted: balance admissions - retires
+                telemetry.registry().counter(telemetry.RETIRES).inc()
+                self.flight.note("cancel", adm.req.rid, reason="admitting")
                 adm.req.done.set()
         spent = 0
         for adm in list(self._admissions):
             if spent >= self.prefill_budget:
-                continue  # prefills on later ticks
+                # prefills on later ticks: the preemption ITL attribution
+                # is built from these decisions
+                self.flight.note("preempt", adm.req.rid, reason="prefill_budget")
+                continue
             remaining = len(adm.req.prompt_ids) - 1 - adm.pos
             spent += self.gen.eng._prefill_chunk_size(max(1, remaining))
             try:
@@ -1339,7 +1714,9 @@ class BatchScheduler:
             except Exception as e:  # noqa: BLE001 — reject, don't wedge
                 committed = True
                 self.gen.abort_admit(adm)
+                telemetry.registry().counter(telemetry.RETIRES).inc()
                 adm.req.error = f"{type(e).__name__}: {e}"
+                self.flight.note("reject", adm.req.rid, reason=type(e).__name__)
                 adm.req.done.set()
             if committed:
                 with self._lock:
@@ -1349,6 +1726,7 @@ class BatchScheduler:
             self._wake.wait(timeout=0.05)
             self._wake.clear()
             return
+        failpoints.fire("step")
         # --decode-chunk K (dense pool only; the engine refuses it with
         # --kv-block-size): K steps per tick, admissions interleave per K
         if self.gen.eng.decode_chunk > 1:

@@ -28,8 +28,11 @@ weight streaming) is not ported and is refused.
 
 Integrity: every tensor is read through :class:`ResilientReader`, which
 crc-checks it against the ``.m.sums`` manifest once, before its first read,
-and retries a read that raises ``OSError``; :func:`verify_weights` is the
-offline sweep of ``verify`` and ``--verify-weights``.
+and retries a read that raises ``OSError`` (the ``load_read`` failpoint
+injects one; ``dllama_weight_io_retries_total`` counts the retries, and
+``dllama_load_corruption_total`` every tensor that fails its checksum);
+:func:`verify_weights` is the offline sweep of ``verify`` and
+``--verify-weights``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..models.config import ModelConfig
 from ..models.llama import LayerParams, Params, rope_tables
 from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, dequantize_weight,
                           fast_numerics_resolved)
+from . import failpoints, telemetry
 
 
 WEIGHT_MODES = ("auto", "f32", "bf16")
@@ -92,6 +96,7 @@ class ResilientReader:
                 f"file; regenerate it or delete it to load unverified")
         got = self.mf.tensor_crc32(key)
         if got != want:
+            telemetry.registry().counter(telemetry.LOAD_CORRUPTION).inc()
             raise WeightIntegrityError(
                 f"weight tensor {key!r} is corrupt: crc32 {got:#010x} != "
                 f"manifest {want:#010x} ({self.mf.path}) — the file is "
@@ -102,6 +107,7 @@ class ResilientReader:
         delay, attempt = self.backoff_s, 0
         while True:
             try:
+                failpoints.fire("load_read")
                 self._verify(key)
                 return fn(key, *args)
             except OSError as e:
@@ -110,6 +116,7 @@ class ResilientReader:
                         f"reading weight tensor {key!r} failed after {attempt} "
                         f"retries: {type(e).__name__}: {e}") from e
                 attempt += 1
+                telemetry.registry().counter(telemetry.WEIGHT_IO_RETRIES).inc()
                 time.sleep(delay)
                 delay *= 2
 
@@ -134,6 +141,7 @@ def verify_weights(mf: ModelFile, emit=None) -> dict:
         ok = want is not None and got == want
         if not ok:
             corrupt.append(key)
+            telemetry.registry().counter(telemetry.LOAD_CORRUPTION).inc()
         if emit is not None:
             emit(f"{'✅' if ok else '❌'} {key}: crc32 {got:#010x}"
                  + ("" if ok else f" != manifest "

@@ -5,7 +5,13 @@
   streaming (``"stream": true``), ``temperature``/``top_p``/``seed``/
   ``max_tokens``/``stop``/``timeout`` per request;
 * ``GET /v1/models``, ``/health`` and ``/healthz`` (liveness), ``/readyz``
-  (readiness with a machine-readable code).
+  (readiness with a machine-readable code; unready once the step watchdog
+  tripped);
+* ``GET /metrics`` (the telemetry registry in the Prometheus text format),
+  ``/debug`` (an index of the diagnostic routes), ``/debug/requests``
+  (recent per-request phase timelines from the span ring),
+  ``/debug/flight`` (the flight recorder's rings and the spans) and
+  ``/debug/timeline`` (the same as a Perfetto-loadable Chrome trace).
 
 Two states behind one handler, as in the JAX package:
 
@@ -23,17 +29,23 @@ Two states behind one handler, as in the JAX package:
 
 Status codes are the JAX server's: 400 for a malformed body, 404 for an
 unknown route, 408 for a deadline that expired before any output, 429 when
-the queue is full, 503 when the scheduler is draining or crashed.
+the queue is full, 503 when the scheduler is draining, crashed or stalled.
+Every answer counts into ``dllama_http_requests_total{route, status}``; a
+body with ``"timing": true`` gets the TTFT attribution block (non-streaming
+responses). The ``emit`` failpoint fires before every SSE write.
 
 Left out (later slices): the HBM admission guard and the canary (ROADMAP
-A9), the fleet router headers and tenancy, stream resume, the ``timing``
-block (the field is validated and ignored), ``/metrics`` and ``/debug/*``
-(A14), and KV export.
+A9), the fleet router headers and tenancy, stream resume, KV export, and
+the diagnostic routes of layers not ported yet (``/debug/compiles``,
+``/debug/profile``, ``/debug/numerics``, ``/debug/roofline``,
+``/debug/eval``, ``/debug/tenants``), which answer 404 like any unknown
+route.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import random
 import signal
@@ -43,6 +55,7 @@ import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
+from ..runtime import failpoints, flightrec, telemetry
 from ..runtime.speculative import NgramProposer
 from ..runtime.serving import (BatchScheduler, QueueFullError, RequestTimeoutError,
                                SchedulerUnavailableError)
@@ -220,8 +233,13 @@ class ApiState:
         self.request_timeout = request_timeout  # server default (0 = none)
         self.template, self.stop_pieces = chat_template(engine.tokenizer, template_type)
         self.cache = NaiveCache()
+        self._rid = 0  # request counter for trace spans (one request at a time)
 
     def readiness(self) -> tuple[bool, str, str]:
+        """No queue or supervisor here, but a wedged dispatch still flips
+        ``/readyz`` (the batch scheduler's contract)."""
+        if self.engine.watchdog.stalled:
+            return False, "step watchdog tripped (wedged device dispatch)", "crashed"
         return True, "ok", "ok"
 
     def complete(self, body: dict, emit=None) -> dict:
@@ -238,6 +256,11 @@ class ApiState:
         messages = body["messages"]
         timeout_s = float(body.get("timeout") or self.request_timeout or 0)
         deadline = time.monotonic() + timeout_s if timeout_s > 0 else 0.0
+        self._rid += 1
+        engine.trace_rid = self._rid  # stamps the engine's prefill span
+        # TTFT attribution origin (queue = 0: no scheduler queue here)
+        t_req0 = telemetry.now_ns()
+        rt = telemetry.RequestTimer()
         if "temperature" in body:
             engine.sampler.set_temp(float(body["temperature"]))
         if "seed" in body:
@@ -264,29 +287,37 @@ class ApiState:
         gate = _EosGate(tok, stops, emit)
         if prompt.public_prompt:
             gate._out(prompt.public_prompt)
+        prefill_ms = 0.0
         if len(ids) > 1:
-            engine.prefill(ids[: prompt_end - start_pos])
+            _, pf_metrics = engine.prefill(ids[: prompt_end - start_pos])
+            prefill_ms = sum(m.ms for m in pf_metrics)
         token = ids[prompt_end - start_pos] if prompt_end - start_pos < len(ids) else ids[-1]
         tok.reset_decoder()
 
         proposer = None
+        n_drafted = n_spec_acc = 0
         if engine.spec_active:
             proposer = NgramProposer(engine.spec_lookup)
             proposer.extend(ids)
         n_completion = 0
         finish_reason = "length"
+        t_decode = telemetry.now_ns()
         while engine.pos < max_pred:
             if deadline and time.monotonic() >= deadline:
                 # the decode loop runs on the handler thread: cancelling is
                 # stopping it
+                telemetry.registry().counter(telemetry.REQUEST_TIMEOUTS).inc()
                 if n_completion == 0:
                     raise RequestTimeoutError(f"no output within timeout ({timeout_s:g}s)")
                 finish_reason = "timeout"
                 break
             if proposer is not None and max_pred - engine.pos >= engine.spec_lookup + 1:
                 run = engine.speculative_tokens(token, proposer.draft())
+                n_drafted += engine.spec_lookup
+                n_spec_acc += len(run) - 1
                 n_keep, stopped = len(run), False
                 for j, t in enumerate(run):
+                    rt.token()
                     if gate.feed(t, tok.decode(t)):
                         n_keep, stopped = j + 1, True
                         break
@@ -300,11 +331,27 @@ class ApiState:
                 continue
             token = engine.next_token(token)
             n_completion += 1
+            rt.token()
             if gate.feed(token, tok.decode(token)):
                 finish_reason = "stop"
                 break
         if finish_reason in ("length", "timeout"):
             gate.flush_tail()
+        rt.done(len(ids), n_completion)
+        telemetry.tracer().emit(self._rid, "decode", t_decode, telemetry.now_ns(),
+                                n_tokens=n_completion)
+        # TTFT attribution of one sequence: admission = templating, encoding
+        # and cache work, prefill = the chunks' measured wall (the phase
+        # formula is flightrec.ttft_phases, shared with the batched path)
+        timing = None
+        if rt.first_ns is not None:
+            bd = flightrec.ttft_phases(t_req0, t_req0, t_decode, rt.first_ns, prefill_ms)
+            flightrec.record_ttft(telemetry.registry().histogram(telemetry.TTFT_ATTRIB_MS), bd)
+            timing = {k: round(v, 3) for k, v in bd.items()}
+            if n_drafted:
+                timing["spec_drafted"] = n_drafted
+                timing["spec_accepted"] = n_spec_acc
+                timing["spec_accept_rate"] = round(n_spec_acc / n_drafted, 4)
         if not (custom_stops and finish_reason == "stop"):
             # a custom-stop finish leaves the hidden stop text and an
             # unterminated assistant turn in the cache: a continuation from
@@ -312,8 +359,11 @@ class ApiState:
             # request re-prefills the assistant text from the prompt's end
             self.cache.push([{"role": "assistant", "content": "".join(gate.parts)}],
                             engine.pos)
-        return {"text": "".join(gate.parts), "finish_reason": finish_reason,
-                "prompt_tokens": len(ids), "completion_tokens": n_completion}
+        out = {"text": "".join(gate.parts), "finish_reason": finish_reason,
+               "prompt_tokens": len(ids), "completion_tokens": n_completion}
+        if body.get("timing") and timing is not None:
+            out["timing"] = timing  # opt-in latency attribution block
+        return out
 
 
 class BatchedApiState:
@@ -361,6 +411,7 @@ class BatchedApiState:
             timeout_s=timeout_s if timeout_s > 0 else None,
             on_token=lambda t, p: q.put((t, p)))
         gate = _EosGate(tok, _request_stops(self.stop_pieces, body), emit)
+        rt = telemetry.RequestTimer()
         n_completion = 0
         finish_reason = "length"
         try:
@@ -377,6 +428,7 @@ class BatchedApiState:
                         break
                     continue
                 n_completion += 1
+                rt.token()
                 if gate.feed(t, piece):
                     # a stop STRING matched (ordinary tokens the scheduler's
                     # raw EOS check can't see): cancel the slot
@@ -403,12 +455,28 @@ class BatchedApiState:
             raise ValueError(req.error)
         if finish_reason in ("length", "timeout"):
             gate.flush_tail()
-        return {"text": "".join(gate.parts), "finish_reason": finish_reason,
-                "prompt_tokens": len(ids), "completion_tokens": n_completion}
+        rt.done(len(ids), n_completion)
+        out = {"text": "".join(gate.parts), "finish_reason": finish_reason,
+               "prompt_tokens": len(ids), "completion_tokens": n_completion}
+        bd = req.ttft_breakdown() if body.get("timing") else None
+        if bd is not None:
+            # opt-in latency attribution from the scheduler's stamps (the
+            # histogram twins land in dllama_ttft_attrib_ms and
+            # dllama_itl_attrib_ms at first token and at retire)
+            timing = out["timing"] = {k: round(v, 3) for k, v in bd.items()}
+            timing["decode_step_ms"] = round(req.ms_decode_steps, 3)
+            timing["preempt_ms"] = round(req.ms_preempt, 3)
+            if req.ms_verify:
+                timing["verify_ms"] = round(req.ms_verify, 3)
+            if req.spec_drafted:
+                timing["spec_drafted"] = req.spec_drafted
+                timing["spec_accepted"] = req.spec_accepted
+                timing["spec_accept_rate"] = round(req.spec_accepted / req.spec_drafted, 4)
+        return out
 
 
 def _completion_json(state: ApiState | BatchedApiState, out: dict) -> dict:
-    return {
+    resp = {
         "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
         "object": "chat.completion",
         "created": int(time.time()),
@@ -424,6 +492,11 @@ def _completion_json(state: ApiState | BatchedApiState, out: dict) -> dict:
             "total_tokens": out["prompt_tokens"] + out["completion_tokens"],
         },
     }
+    if "timing" in out:
+        # the opt-in attribution block, non-streaming responses only (SSE
+        # chunks stay OpenAI-shaped)
+        resp["timing"] = out["timing"]
+    return resp
 
 
 def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=None) -> dict:
@@ -436,7 +509,18 @@ def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=No
     }
 
 
-_ROUTES = ("/v1/chat/completions", "/v1/models", "/health", "/healthz", "/readyz")
+_ROUTES = ("/v1/chat/completions", "/v1/models", "/metrics", "/health", "/healthz",
+           "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline")
+
+# the GET /debug index: one line per diagnostic route this server has
+_DEBUG_INDEX = {
+    "/debug/requests": "GET: recent per-request phase timelines from the span ring "
+                       "(queue/admit/prefill/prefill_chunk/decode/verify)",
+    "/debug/flight": "GET: flight-recorder rings (per-tick scheduler decisions, "
+                     "request lifecycle events) plus the span ring",
+    "/debug/timeline": "GET: Perfetto-loadable Chrome trace of the flight rings "
+                       "(save the body, open it in ui.perfetto.dev)",
+}
 
 
 def make_handler(state: ApiState | BatchedApiState):
@@ -449,7 +533,20 @@ def make_handler(state: ApiState | BatchedApiState):
         def log_message(self, fmt, *args):
             print(f"🕸️ {self.address_string()} {fmt % args}")
 
+        _counted = False  # whether THIS request hit the telemetry counter
+
+        def _route(self) -> str:
+            return self.path.split("?", 1)[0]
+
+        def _count(self, status: int | str) -> None:
+            # status: an HTTP code, or "client_disconnect" for a vanished peer
+            path = self._route()
+            telemetry.registry().counter(telemetry.HTTP_REQUESTS).inc(
+                route=path if path in _ROUTES else "other", status=str(status))
+            self._counted = True
+
         def _json(self, code: int, payload: dict, headers: dict | None = None) -> None:
+            self._count(code)
             body = json.dumps(payload).encode("utf-8")
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
@@ -464,7 +561,7 @@ def make_handler(state: ApiState | BatchedApiState):
                              "routes": list(_ROUTES)})
 
         def do_GET(self):
-            path = self.path.split("?", 1)[0]
+            path = self._route()
             if path == "/v1/models":
                 self._json(200, {"object": "list", "data": [{
                     "id": state.model_name, "object": "model",
@@ -478,6 +575,23 @@ def make_handler(state: ApiState | BatchedApiState):
                            {"status": "ok" if ready else "unready",
                             "reason": reason, "code": code},
                            headers=None if ready else backpressure_headers(503))
+            elif path == "/metrics":
+                self._count(200)
+                body = telemetry.registry().render().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif path == "/debug":
+                self._json(200, {"endpoints": dict(_DEBUG_INDEX)})
+            elif path == "/debug/requests":
+                self._json(200, {"requests": telemetry.tracer().recent_requests()})
+            elif path in ("/debug/flight", "/debug/timeline"):
+                data = flightrec.recorder().snapshot()
+                data["spans"] = telemetry.tracer().raw_spans()
+                self._json(200, data if path == "/debug/flight"
+                           else flightrec.to_chrome_trace(data))
             else:
                 self._not_found()
 
@@ -498,7 +612,7 @@ def make_handler(state: ApiState | BatchedApiState):
                 self.close_connection = True
 
         def do_POST(self):
-            if self.path.split("?", 1)[0] != "/v1/chat/completions":
+            if self._route() != "/v1/chat/completions":
                 self._drain_small_body()
                 self._not_found()
                 return
@@ -512,6 +626,12 @@ def make_handler(state: ApiState | BatchedApiState):
                 self._json(400, {"error": "body must be a JSON object"})
                 return
             stream = bool(body.get("stream", False))
+            inflight = telemetry.registry().gauge(telemetry.REQUESTS_IN_FLIGHT)
+            inflight.add(1)
+            # the finally counts what happened: a streamed answer does not go
+            # through _json, and an unexpected failure must show too
+            self._counted = False
+            status: int | str = 500
             # SSE headers go out lazily at the FIRST delta, so failures before
             # any output still return a real status code on stream requests
             headers_sent = False
@@ -532,11 +652,14 @@ def make_handler(state: ApiState | BatchedApiState):
                 self.wfile.write(b"data: " + data + b"\n\n")
 
             def emit(text: str) -> None:
+                failpoints.fire("emit")
                 start_stream()
                 write_event(_chunk_json(state, {"content": text}))
                 self.wfile.flush()
 
             def fail(code: int, payload: dict, reason: str, headers=None) -> None:
+                nonlocal status
+                status = code
                 if not headers_sent:
                     self._json(code, payload, headers=headers)
                     return
@@ -555,6 +678,7 @@ def make_handler(state: ApiState | BatchedApiState):
                     start_stream()  # zero-delta completion: headers now
                     write_event(_chunk_json(state, {}, out["finish_reason"]))
                     write_event(b"[DONE]")
+                    status = 200
                 else:
                     out = state.complete(body)
                     self._json(200, _completion_json(state, out))
@@ -568,9 +692,15 @@ def make_handler(state: ApiState | BatchedApiState):
             except RequestTimeoutError as e:
                 fail(408, {"error": str(e)}, "timeout")
             except (ClientDisconnect, BrokenPipeError, ConnectionResetError):
+                status = "client_disconnect"
                 self.close_connection = True  # the peer hung up
             except ValueError as e:
-                fail(400, {"error": str(e)}, "error")
+                # mid-stream the wire status can no longer change: a 500
+                fail(400 if not headers_sent else 500, {"error": str(e)}, "error")
+            finally:
+                inflight.add(-1)
+                if not self._counted:
+                    self._count(status)
 
     return Handler
 
@@ -643,7 +773,20 @@ def run_api_server(args, on_listening=None) -> int:
     runs once the socket is bound (``server.server_address`` holds the real
     port under ``--port 0``) — for a caller that embeds the server in its
     process."""
-    server, state = build_api_server(args)
+    from .cli import start_stats_reporter
+
+    if args.trace_out:
+        telemetry.tracer().configure(args.trace_out)
+        print(f"🔬 request trace (JSONL spans) → {args.trace_out}")
+    if failpoints.configure_from_env():
+        print(f"💣 fault injection armed from DLLAMA_FAILPOINTS="
+              f"{os.environ['DLLAMA_FAILPOINTS']}")
+    try:
+        server, state = build_api_server(args)
+    except BaseException:
+        telemetry.tracer().configure(None)
+        raise
+    stats = start_stats_reporter(args.stats) if args.stats else None
 
     def _on_sigterm(signum, frame):
         print("🛑 SIGTERM: draining (readyz → 503, no new admissions)", flush=True)
@@ -669,4 +812,7 @@ def run_api_server(args, on_listening=None) -> int:
         if isinstance(state, BatchedApiState):
             state.close(drain_s=args.drain_timeout)
         state.engine.close()
+        if stats is not None:
+            stats.stop.set()
+        telemetry.tracer().configure(None)
     return 0

@@ -1,15 +1,22 @@
-"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify`` (the
-port of the JAX package's ``serve/cli.py`` ``make_engine``/``main``, these
-five modes).
+"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify|timeline``
+(the port of the JAX package's ``serve/cli.py`` ``make_engine``/``main``,
+these six modes).
 
 ``verify --model m.m [--write]`` checks every tensor of a model against its
 ``.m.sums`` checksum manifest (or writes the manifest with ``--write``) on
 the host alone: rc 0 clean, 1 corrupt or unreadable, 2 no manifest.
 
+``timeline --dump f.json [--out t.json]`` converts a flight-recorder dump
+(a postmortem file or a saved ``GET /debug/flight`` body) into a
+Perfetto-loadable Chrome trace, validated, on the host alone: rc 0 valid,
+1 missing, malformed or invalid.
+
 ``api`` serves one sequence with message-prefix reuse (no
 ``--batch-slots``), or continuous batching over the dense slot pool
 (``--batch-slots N``) or the paged block pool (``--batch-slots N
---kv-block-size B``). ``chat`` is the interactive REPL.
+--kv-block-size B``); ``--stats SEC`` prints a telemetry line every SEC
+seconds. ``--trace-out FILE`` appends every request's phase spans as JSONL
+(every mode). ``chat`` is the interactive REPL.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for CUDA without a
 usable GPU fails with a clear error. On the card each decode step is one
@@ -31,24 +38,27 @@ ported yet fail loudly instead of being ignored.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+import threading
 import time
 
 from ..formats.quants import F32, Q80
 from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
 from ..tokenizer.chat import ChatItem, ChatTemplateType
 
-PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify")
+PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify", "timeline")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("eval", "worker", "audit", "timeline", "fleettrace", "router")
+PENDING_MODES = ("eval", "worker", "audit", "fleettrace", "router")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
-    p.add_argument("mode", help="inference | chat | perplexity | api | verify")
-    p.add_argument("--model", required=True, help=".m model file")
+    p.add_argument("mode", help="inference | chat | perplexity | api | verify | timeline")
+    p.add_argument("--model", default=None,
+                   help=".m model file (every mode but timeline)")
     p.add_argument("--tokenizer", default=None,
                    help=".t tokenizer file (every mode but verify)")
     p.add_argument("--verify-weights", action="store_true",
@@ -126,7 +136,92 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout", type=float, default=5.0, metavar="SEC",
                    help="api: on SIGTERM or shutdown, stop admitting and let active "
                         "requests finish for up to SEC seconds before failing the rest")
+    p.add_argument("--stats", type=float, default=0.0, metavar="SEC",
+                   help="api: print a one-line telemetry summary every SEC seconds "
+                        "(requests, in-flight, queue depth, batch/KV occupancy, tok/s, "
+                        "ttft/itl p50)")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="append per-request phase spans (queue/admit/prefill/decode/"
+                        "verify) as JSONL to FILE (runtime.telemetry.SpanTracer)")
+    # timeline mode
+    p.add_argument("--dump", default=None, metavar="FILE",
+                   help="timeline: the flight-recorder JSON to convert (a "
+                        "dllama-flight-*.json postmortem or a saved GET /debug/flight "
+                        "body)")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="timeline: write the Chrome trace-event JSON here (default: "
+                        "stdout); load it in ui.perfetto.dev or chrome://tracing")
     return p
+
+
+def start_stats_reporter(interval: float) -> threading.Thread:
+    """Daemon thread printing one telemetry summary line every ``interval``
+    seconds (``--stats``) until its ``stop`` event is set. Tok/s is the
+    per-step emission counters' delta over the window (batched and
+    single-sequence decode)."""
+    from ..runtime import telemetry
+
+    reg = telemetry.registry()
+    stop = threading.Event()
+
+    def emitted() -> float:
+        return (reg.counter(telemetry.BATCH_TOKENS).total()
+                + reg.counter(telemetry.DECODE_TOKENS).total())
+
+    def loop() -> None:
+        prev = emitted()
+        while not stop.wait(interval):
+            cur = emitted()
+            print(telemetry.stats_line(reg, window_tokens=cur - prev, window_s=interval),
+                  flush=True)
+            prev = cur
+
+    t = threading.Thread(target=loop, daemon=True, name="dllama-stats")
+    t.stop = stop
+    t.start()
+    return t
+
+
+def run_timeline(args) -> int:
+    """``timeline --dump flight.json [--out t.json]``: a flight-recorder
+    dump (a postmortem or a saved ``GET /debug/flight`` body) to
+    Perfetto-loadable Chrome trace-event JSON, with the structural
+    validation (per-track monotonic timestamps, complete request flows).
+    Host only. rc 0 valid, 1 unreadable, malformed or invalid."""
+    from ..runtime import flightrec
+
+    if not args.dump:
+        raise SystemExit("--dump FILE (a flight-recorder dump, or a saved GET "
+                         "/debug/flight body) is required for timeline mode")
+    try:
+        with open(args.dump, encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"❌ {args.dump}: {e}")
+        return 1
+    if not isinstance(data, dict):
+        print(f"❌ {args.dump}: not a flight-recorder dump (expected a JSON object, "
+              f"got {type(data).__name__})")
+        return 1
+    try:
+        trace = flightrec.to_chrome_trace(data)
+        problems = flightrec.validate_chrome_trace(trace)
+    except (KeyError, TypeError, AttributeError) as e:
+        # a truncated or hand-edited dump fails with a name, not a traceback
+        print(f"❌ {args.dump}: malformed flight dump ({type(e).__name__}: {e})")
+        return 1
+    payload = json.dumps(trace)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(payload)
+        print(f"🧾 {len(trace['traceEvents'])} trace events "
+              f"({len(data.get('ticks') or [])} ticks, {len(data.get('spans') or [])} "
+              f"spans) → {args.out} — load in ui.perfetto.dev or chrome://tracing")
+    else:
+        print(payload)
+    for prob in problems:
+        print(f"⚠️ {prob}", file=sys.stderr)
+    return 1 if problems else 0
 
 
 def make_engine(args) -> InferenceEngine:
@@ -318,9 +413,14 @@ def main(argv=None, on_listening=None) -> int:
                          f"--steps --temperature --topp --seed --max-seq-len "
                          f"--buffer-float-type --compute-dtype --weight-mode "
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
-                         f"--device --sp --decode-chunk --spec-lookup --chat-template; "
-                         f"api: --batch-slots --kv-block-size --max-queue --host --port "
-                         f"--request-timeout --drain-timeout; verify: --write)")
+                         f"--device --sp --decode-chunk --spec-lookup --chat-template "
+                         f"--trace-out; api: --batch-slots --kv-block-size --max-queue "
+                         f"--host --port --request-timeout --drain-timeout --stats; "
+                         f"verify: --write; timeline: --dump --out)")
+    if args.mode == "timeline":
+        return run_timeline(args)  # host only: no model, no device
+    if args.model is None:
+        raise SystemExit(f"--model is required for {args.mode} mode")
     if args.mode == "verify":
         return run_verify(args)  # host only: no device is touched
     if args.tokenizer is None:
@@ -335,12 +435,22 @@ def main(argv=None, on_listening=None) -> int:
         resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: {e}") from None
-    if args.mode == "inference":
-        return run_inference(args)
-    if args.mode == "chat":
-        return run_chat(args)
     if args.mode == "api":
         from .api import run_api_server
 
+        # the api server opens and closes the span sink itself
         return run_api_server(args, on_listening=on_listening)
-    return run_perplexity(args)
+    from ..runtime import telemetry
+
+    if args.trace_out:
+        telemetry.tracer().configure(args.trace_out)
+        print(f"🔬 request trace (JSONL spans) → {args.trace_out}")
+    try:
+        if args.mode == "inference":
+            return run_inference(args)
+        if args.mode == "chat":
+            return run_chat(args)
+        return run_perplexity(args)
+    finally:
+        if args.trace_out:
+            telemetry.tracer().configure(None)

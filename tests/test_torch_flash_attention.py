@@ -104,7 +104,9 @@ def test_supports_gate():
     assert fa.supports((1, 1, 32, 128), 8, 2048)
     assert fa.supports((1, 128, 32, 128), 8, 2048)
     assert not fa.supports((1, 1, 8, 32), 2, 256)      # head_dim 32 not built
-    assert not fa.supports((1, 600, 32, 128), 8, 2048)  # T*kv_mul > MAX_TQ
+    assert fa.supports((1, 600, 32, 128), 8, 2048)      # a 600-token chunk (C7)
+    assert not fa.supports((1, 2**28, 32, 128), 8, 2048)  # folded rows past int32
+    assert not fa.supports((1, 1, 32, 128), 8, 2**29)     # cache rows past int32
 
 
 def test_wrapper_refuses_other_devices():
@@ -261,3 +263,65 @@ def test_path_rule_split_launches_stay_simt(S, dtype):
     n = fa._attn_splits(1, 8, 4, S)
     assert n > 1
     assert fa._attn_path(dtype, n) == "simt"
+
+
+# --- C7: every prefill chunk the engine can pick fits K3 and K3s ------------
+
+
+def _engine_widths(seq_len: int, n_batches: int | None) -> set[int]:
+    """Every chunk width (``pad_to``) the port's engine dispatches for a
+    prompt of any length from any position: its own ``_chunks`` over a
+    stand-in holding only the bucket state the constructor derives."""
+    import types
+
+    from dllama_tpu_torch.runtime.engine import PREFILL_BUCKETS, InferenceEngine
+
+    nb = min(n_batches or 32, seq_len)
+    buckets = ((tuple(b for b in PREFILL_BUCKETS if b <= seq_len) or (nb,))
+               if n_batches is None else (nb,))
+    eng = types.SimpleNamespace(prefill_buckets=buckets,
+                                cfg=types.SimpleNamespace(seq_len=seq_len), pos=0)
+    eng._prefill_chunk_size = types.MethodType(InferenceEngine._prefill_chunk_size, eng)
+    widths: set[int] = set()
+    top = max(buckets)
+    # a prompt's chunks are all `top` wide but the last; its tail width
+    # depends on the prompt length and, at the context end, on the room left
+    for pos in sorted({0, 1, seq_len - top, seq_len - top // 2 - 1, seq_len - 2}):
+        if pos < 0:
+            continue
+        eng.pos = pos
+        for n in range(1, min(seq_len - pos, 2 * top + 1) + 1):
+            widths.update(pad for _, _, pad in InferenceEngine._chunks(eng, n))
+    return widths
+
+
+# (n_heads, n_kv, head_dim, seq_len, sp): the serving tests' geometry at the
+# kernel's head dims, and Llama 3.1 8B at --max-seq-len 2048 and in the long
+# sp cell (32768 rows over 2 shards)
+C7_MODELS = [(4, 2, 64, 96, 1), (8, 2, 128, 256, 2), (32, 8, 128, 2048, 1),
+             (32, 8, 128, 2048, 2), (32, 8, 128, 32768, 2)]
+
+
+@pytest.mark.parametrize("n_heads,n_kv,D,seq_len,sp", C7_MODELS)
+@pytest.mark.parametrize("n_batches", [None, 1, 32, 513, 2048])
+def test_every_engine_chunk_width_is_supported(n_heads, n_kv, D, seq_len, sp, n_batches):
+    """C7: ``--nbatches N`` pins the chunk at ``min(N, seq_len)``, so at kv_mul
+    4 any N above 512 gave ``T * kv_mul`` past the old 2048-row cap and the
+    first prefill chunk raised on the card. Every width the engine can pick
+    now passes K3's ``supports`` over the whole cache and K3s's over one sp
+    shard; widths past the int32 row limit still do not."""
+    from dllama_tpu_torch.runtime.kvcache import padded_cache_len
+
+    S = padded_cache_len(seq_len)
+    kv_mul = n_heads // n_kv
+    widths = _engine_widths(seq_len, n_batches)
+    assert max(widths) == (min(n_batches, seq_len) if n_batches
+                           else max(b for b in (256, 128, 64, 32) if b <= seq_len))
+    for T in sorted(widths):
+        assert fa.supports((1, T, n_heads, D), n_kv, S), T
+        assert fa.supports_block_stats((1, n_kv, T * kv_mul, D), T,
+                                       (1, n_kv, S // sp, D)), T
+    too_wide = fa.MAX_ROWS // n_heads + 1
+    assert not fa.supports((1, too_wide, n_heads, D), n_kv, S)
+    assert not fa.supports_block_stats((1, n_kv, too_wide * kv_mul, D), too_wide,
+                                       (1, n_kv, S // sp, D))

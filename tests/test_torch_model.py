@@ -210,9 +210,9 @@ def test_attn_impl_choice():
     # a CUDA-typed q of a head dim the kernel has no instance for (96) and a
     # too-wide query: ``auto`` still picks the wrapper, and the wrapper raises
     # before touching the card instead of running the oracle
-    from dllama_tpu_torch.ops.flash_attention import MAX_TQ, flash_attention
+    from dllama_tpu_torch.ops.flash_attention import MAX_ROWS, flash_attention
 
-    for T, D in ((1, 96), (MAX_TQ + 1, 128)):
+    for T, D in ((1, 96), (MAX_ROWS // cfg.n_heads + 1, 128)):
         q_cuda = types.SimpleNamespace(device=torch.device("cuda"),
                                        shape=(1, T, cfg.n_heads, D))
         assert llama._use_flash(cfg, q_cuda)

@@ -84,7 +84,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    the shipped ``on_card`` guard and ``torch.cuda.device`` on every launch;
    ``sp_parity``: 2 layers at 8B width with a 256-row cache, sp = 2 (K3s)
    against sp = 1 (K3) and against sp = 2 on the plain block version, over
-   a 160-token prefill and 8 decode steps; ``sp_path``: the 32-layer model
+   a 160-token prefill and 8 decode steps; ``sp_path``: the 8-layer copy
    at sp = 2 and sp = 1 in three cells: ``--max-seq-len 4096``, a
    2551-token prompt (prefill crosses the shard boundary at 2048) and 64
    greedy steps in f32 and bf16, then ``perplexity`` over the prompt in f32;
@@ -177,10 +177,27 @@ Phases, each failing loudly (non-zero exit, no result line):
    :func:`paged_step_syncs` counts one synchronisation per paged step with
    every instrument on; :func:`obs_cost` times the per-step
    instrumentation calls alone;
-12. the ``kernels`` JSON line, then the result line
+12. slice 12 at full width and 32 layers: ``eval_phase`` (``eval --json``
+   in the four configs ``single``, ``dense``, ``paged`` and ``paged_spec``,
+   f32 and bf16, in one CLI process: equal NLL hexes per dtype, ``--compare
+   single`` without drift, K1 and K3 launched; the f32 NLLs against the
+   plain versions; bf16 perplexity within 5% of f32), ``numerics_phase``
+   (the canary under traffic and a weight patched in place, one poisoned
+   request at a time on the paged and dense ``api``, ``inference`` with
+   and without ``--numerics-failfast``, the single-sequence canary, the
+   tripwire's cost), ``hbm_phase`` (an f32-weight engine refused before
+   staging under 16 GB; a 256-slot f32 dense pool shrunk to what the card
+   fits, serving, then refusing a prompt 503), and beside them ``audit
+   --audit-json`` of the 32-layer file (host only, at nice 19: it starts
+   after the phases whose host rates PERF.md compares). To make room in
+   the 900 s, ``spec_single``, the sp path's short and q80 cells, the
+   weight modes and the integrity phase run on the 8-layer copy;
+13. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
+``--only eval,numerics,hbm,audit`` is a development run of slice 12's phases
+alone (no kernel cases, exit 3, no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
 and bf16) and the paged decode step's profile on the package of the
@@ -952,7 +969,8 @@ def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
         tokens = torch.randint(0, VOCAB, (B, 1), generator=g, device=DEV)
         gen._in.copy_(torch.cat([tokens, torch.tensor(RAGGED, device=DEV)[:, None], tables], 1))
         gen._knobs.copy_(torch.stack([torch.zeros(B, device=DEV), torch.ones(B, device=DEV),
-                                      torch.zeros(B, device=DEV)]))
+                                      torch.zeros(B, device=DEV),
+                                      torch.zeros(B, device=DEV)]))  # poison 0: clean
         for _ in range(2):
             graph.replay()
         n = 8
@@ -1034,9 +1052,10 @@ def graph_single(eng, ids: list[int], sampled: bool) -> dict:
                 p = pos + len(out)
                 if sampled:
                     coin, st = xorshift_random_f32(st)
-                    nxt, _ = sampled_step(eng.params, eng.cfg, x, p, eng.kv, temp, topp, coin)
+                    nxt, _, _ = sampled_step(eng.params, eng.cfg, x, p, eng.kv, temp, topp,
+                                             coin)
                 else:
-                    nxt, _ = greedy_step(eng.params, eng.cfg, x, p, eng.kv)
+                    nxt, _, _ = greedy_step(eng.params, eng.cfg, x, p, eng.kv)
                 tok = int(nxt[0])
                 out.append(tok)
             elif kind == "graph":
@@ -1094,7 +1113,8 @@ def graph_paged(eng) -> dict:
     depths = torch.tensor(PAGED_GRAPH_DEPTHS)
     tok0 = torch.randint(0, VOCAB, (B,), generator=g_cpu)
     knobs = [torch.stack([torch.tensor([0.0, 0.8] * (B // 2)), torch.full((B,), 0.9),
-                          torch.rand(B, generator=g_cpu)]) for _ in range(n)]
+                          torch.rand(B, generator=g_cpu), torch.zeros(B)])  # poison 0
+             for _ in range(n)]
     snap = PagedKVCache(gen.pkv.k.clone(), gen.pkv.v.clone())
     tables_host = tables.cpu()
 
@@ -2183,7 +2203,7 @@ def graph_paged_verify(eng, dtype: str) -> dict:
                 lanes["parts"].append(dict(step=i, row=b, lane=j, got=int(out[b, j]),
                                            want=int(ppick[b, j]), temperature=float(temps[b]),
                                            margin=m))
-        knobs = torch.cat([temps[None], topps[None], coins])
+        knobs = torch.cat([temps[None], topps[None], coins, torch.zeros_like(temps)[None]])
         steps.append((torch.cat([toks, pos[:, None], lens[:, None], tables], 1), knobs))
         del vlog, plog
     snap.k.copy_(gen.pkv.k)
@@ -3344,7 +3364,7 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict, long_model: str,
     The short and long cells keep the activations f32 between layers
     (``--buffer-float-type f32``): under the Q80 sync casts the last-bit
     differences of the two attention orders flip Q80 roundings and compound
-    over 32 layers, so sp = 2 and sp = 1 would differ by far more than the
+    over the layers, so sp = 2 and sp = 1 would differ by far more than the
     split itself makes them, which the q80 cell records."""
     n_cards = torch.cuda.device_count()
     via = "cli" if n_cards >= 2 else "engine"
@@ -4179,6 +4199,497 @@ def integrity_phase(model: str, tok: str, tmp: str, summary: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# slice 12: teacher-forced eval, the numerics observatory, the memory guard
+# ---------------------------------------------------------------------------
+
+# the eval dataset: 8 sequences of 138 .. 702 tokens (the serving mix's
+# prompt lengths), uniform over the vocabulary from a seed
+EVAL_LENS = [138 + (702 - 138) * i // 7 for i in range(8)]
+EVAL_CONFIGS = {"single": [], "dense": ["--batch-slots", str(SLOTS)],
+                "paged": ["--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK)],
+                "paged_spec": ["--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+                               "--spec-lookup", str(SPEC_K), "--compare", "single"]}
+
+
+def write_eval_data(path: str) -> list[list[int]]:
+    g = torch.Generator().manual_seed(SEED + 12)
+    seqs = [torch.randint(0, VOCAB, (n,), generator=g).tolist() for n in EVAL_LENS]
+    with open(path, "w", encoding="utf-8") as f:
+        for i, ids in enumerate(seqs):
+            f.write(json.dumps({"id": f"s{i}", "tokens": ids}) + "\n")
+    return seqs
+
+
+def _last_json_line(out: str) -> dict:
+    return json.loads(next(ln for ln in reversed(out.splitlines()) if ln.startswith("{")))
+
+
+def eval_phase(model: str, tok: str, tmp: str, summary: dict) -> None:
+    """``eval --json`` in one CLI process (:data:`CLI_DRIVER`, counts set to
+    0 before each run) in the four configs (:data:`EVAL_CONFIGS`; the
+    ``paged_spec`` run also ``--compare single``), f32 exact and bf16 fast,
+    f32 sync buffers, at full width: per dtype the four total NLL hexes and
+    the per-sequence hexes must be equal, ``--compare`` report no drift,
+    and K1 and K3 must launch in every run. bf16 perplexity within 5% of
+    f32. Then, in this process, the f32 ``single`` NLLs of the kernel path
+    against the same engine on the plain versions called by name
+    (``attn_impl``/``quant_impl="xla"``, which launch no kernel): max |Δ|
+    within :data:`PARITY_TOL` ``exact`` of max |NLL|."""
+    from dataclasses import replace
+
+    from dllama_tpu_torch.formats.quants import F32
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    data = os.path.join(tmp, "eval_8b.jsonl")
+    seqs = write_eval_data(data)
+    n_scored = sum(len(s) - 1 for s in seqs)
+    runs, keys = [], []
+    for dtype in ("f32", "bf16"):
+        for config, flags in EVAL_CONFIGS.items():
+            runs.append(["eval", "--model", model, "--tokenizer", tok, "--data", data, "--json",
+                         "--max-seq-len", str(MAX_SEQ), "--compute-dtype", dtype,
+                         "--buffer-float-type", "f32", *flags])
+            keys.append((dtype, config))
+    out = cli_process(runs, timeout=900)
+    rec: dict = {"case": "eval", "seqs": len(seqs), "lens": EVAL_LENS, "n_scored": n_scored,
+                 "runs": {}}
+    hexes: dict = {}
+    for (dtype, config), r in zip(keys, out):
+        if r["rc"] != 0:
+            fail(f"eval {dtype} {config}: rc {r['rc']}\n{r['out'][-2000:]}")
+        res = _last_json_line(r["out"])
+        if (res["config"] != config or res["n_tokens"] != n_scored or res["partial"]
+                or not math.isfinite(res["perplexity"])):
+            fail(f"eval {dtype} {config}: {dict((k, res.get(k)) for k in ('config', 'n_tokens', 'partial', 'perplexity'))}")
+        if r["launches"]["K1"] == 0 or r["launches"]["K3"] == 0:
+            fail(f"eval {dtype} {config}: K1/K3 did not launch: {r['launches']}")
+        summary[dtype]["launches"][f"eval_{config}"] = r["launches"]
+        hexes.setdefault(dtype, {})[config] = (res["total_nll_hex"],
+                                               tuple(e["nll_hex"] for e in res["seqs"]))
+        rec["runs"][f"{dtype} {config}"] = dict(
+            total_nll_hex=res["total_nll_hex"], perplexity=res["perplexity"],
+            eval_tok_per_s=res["eval_tok_per_s"], wall_s=res["wall_s"], launches=r["launches"],
+            compare=(dict(config=res["compare"]["config"],
+                          total_nll_hex=res["compare"]["total_nll_hex"],
+                          parity_drift=res["parity_drift"]) if "compare" in res else None))
+        if "compare" in res and (res["parity_drift"] or res["compare"]["total_nll_hex"]
+                                 != res["total_nll_hex"]):
+            fail(f"eval {dtype} {config} --compare single: parity drift "
+                 f"{res['total_nll_hex']} against {res['compare']['total_nll_hex']}")
+        print(f"   eval {dtype} {config}: {res['eval_tok_per_s']} tok/s, perplexity "
+              f"{res['perplexity']:.6f} ({res['total_nll_hex']}), K1 {r['launches']['K1']} "
+              f"K3 {r['launches']['K3']}", flush=True)
+    for dtype, by_cfg in hexes.items():
+        if len(set(by_cfg.values())) != 1:
+            fail(f"eval {dtype}: the four configs' NLL hexes differ: "
+                 f"{ {c: h[0] for c, h in by_cfg.items()} }")
+    ppl = {d: rec["runs"][f"{d} single"]["perplexity"] for d in ("f32", "bf16")}
+    rec["bf16_ppl_rel"] = abs(ppl["bf16"] - ppl["f32"]) / ppl["f32"]
+    if rec["bf16_ppl_rel"] > 0.05:
+        fail(f"eval: bf16 perplexity {ppl['bf16']} is not within 5% of f32's {ppl['f32']}")
+    # the kernel path against the plain versions, on one engine
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=F32)
+    try:
+        zero_counts()
+        kern = [eng.score_nll(s) for s in seqs]
+        counts = read_counts()
+        eng.cfg = replace(eng.cfg, attn_impl="xla", quant_impl="xla")
+        zero_counts()
+        plain = [eng.score_nll(s) for s in seqs]
+        plain_counts = read_counts()
+    finally:
+        eng.close()
+    total = 0.0
+    for k in kern:
+        total += float(k.astype("float64").sum())
+    err = max(float(abs(k - p).max()) for k, p in zip(kern, plain))
+    scale = max(float(abs(p).max()) for p in plain)
+    rec["plain"] = dict(max_abs_err=err, max_abs_nll=scale, rel=err / scale,
+                        tol=PARITY_TOL["exact"], kernel_launches=counts,
+                        plain_launches=plain_counts,
+                        in_process_hex_equal=total.hex() == rec["runs"]["f32 single"][
+                            "total_nll_hex"])
+    print(json.dumps(rec), flush=True)
+    summary["eval"] = rec
+    if any(plain_counts.values()) or not counts["K1"] or not counts["K3"]:
+        fail(f"eval plain check: kernel launches {counts}, plain launches {plain_counts}")
+    if err > PARITY_TOL["exact"] * scale:
+        fail(f"eval: f32 NLLs of the kernel path are {err:.3g} from the plain versions' "
+             f"(max |NLL| {scale:.3g}, tolerance {PARITY_TOL['exact']} of it)")
+
+
+@contextlib.contextmanager
+def api_server(argv: list[str], what: str):
+    """The port's ``api`` in process on a thread (port 0): yields ``(url,
+    state)``; every failpoint is cleared and the server stopped after."""
+    import threading
+
+    from dllama_tpu_torch.runtime import failpoints
+    from dllama_tpu_torch.serve import cli
+
+    box: dict = {}
+    listening = threading.Event()
+
+    def on_listening(server, state):
+        box.update(server=server, state=state)
+        listening.set()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rc", cli.main([*argv, "--host", "127.0.0.1", "--port", "0"],
+                       on_listening=on_listening)), daemon=True)
+    th.start()
+    while not listening.wait(timeout=1.0):
+        if not th.is_alive():
+            fail(f"{what}: the api server exited before listening")
+    try:
+        yield f"http://127.0.0.1:{box['server'].server_address[1]}", box["state"]
+    finally:
+        failpoints.registry().clear()
+        box["server"].shutdown()
+        th.join(timeout=120)
+    if th.is_alive() or box.get("rc") != 0:
+        fail(f"{what}: the api server did not stop cleanly ({box.get('rc')})")
+
+
+CANARY_S = 0.25       # --canary-interval of the numerics phase
+PATCH_LAYER = 5       # the layer whose norm the canary check patches in place
+
+
+def _body(text: str, max_tokens: int) -> dict:
+    return {"messages": [{"role": "user", "content": text}], "max_tokens": max_tokens,
+            "temperature": 0}
+
+
+def _concurrent(url: str, bodies: list[dict]) -> list:
+    import threading
+
+    out: list = [None] * len(bodies)
+    th = [threading.Thread(target=lambda i=i: out.__setitem__(i, _post(url, bodies[i])))
+          for i in range(len(bodies))]
+    for t in th:
+        t.start()
+    for t in th:
+        t.join(timeout=600)
+    return out
+
+
+HOLD_S = 2.0  # the scheduler's pause after the victim's first chunk
+
+
+def poison_round(url: str, state, mode: str, failfast: bool = True) -> dict:
+    """``logits:nonfinite`` (``mode``) armed once, then a victim whose
+    prompt takes two prefill chunks or more, alone in the scheduler: after
+    its first chunk the ``step`` failpoint holds the scheduler for
+    :data:`HOLD_S` while three long-prompt neighbours are submitted, so the
+    next tick admits them before the victim's last chunk and its first
+    decode step, the poisoned dispatch, which the victim has to itself.
+    The flight recorder's events must show it: every neighbour admitted
+    and none decode-armed before the poison. With fail-fast the victim
+    fails 503 naming ``site=batch``; without it the victim completes. The
+    neighbours answer 200 and ``dllama_nonfinite_total{site="batch"}``
+    moves by one."""
+    import threading
+
+    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry
+
+    reg = telemetry.registry()
+    nf0 = reg.counter(telemetry.NONFINITE).total(site="batch")
+    adm0 = reg.counter(telemetry.ADMISSIONS).total()
+    t0_ns = telemetry.now_ns()
+    failpoints.arm("logits", "nonfinite", times=1, mode=mode)
+    failpoints.arm("step", "sleep", times=1, delay_s=HOLD_S)
+    box: dict = {}
+    tag = f"{mode} {'failfast' if failfast else 'count'}"
+    victim = threading.Thread(target=lambda: box.update(
+        v=_post(url, _body(f"poison {tag}: {PROMPT}", 8))))
+    victim.start()
+    for _ in range(2000):
+        if reg.counter(telemetry.ADMISSIONS).total() > adm0:
+            break
+        time.sleep(0.005)
+    # prompts of their own (no prefix an earlier round left to reuse): each
+    # neighbour prefills its whole prompt, four chunks or more
+    long = (PROMPT + " ") * 4
+    neighbours = _concurrent(url, [_body(f"{tag} round, neighbour {i}: {long}", 8)
+                                   for i in range(3)])
+    victim.join(timeout=600)
+    failpoints.registry().clear()
+    status, body = box["v"]
+    events = [e for e in flightrec.recorder().snapshot()["events"] if e["t_ns"] >= t0_ns]
+    submits = [e["rid"] for e in events if e["event"] == "submit"]
+    v_rid, n_rids = submits[0], submits[1:]
+
+    def first(event: str, rid: int, **match) -> int | None:
+        return next((e["t_ns"] for e in events if e["event"] == event and e["rid"] == rid
+                     and all(e.get(k) == v for k, v in match.items())), None)
+
+    t_poison = (first("retire", v_rid, reason="nonfinite") if failfast
+                else first("first_token", v_rid))
+    admitted = [first("admit", r) for r in n_rids]
+    armed = [first("decode_armed", r) for r in n_rids]
+    in_flight = (t_poison is not None and len(n_rids) == 3
+                 and all(t is not None and t < t_poison for t in admitted)
+                 and all(t is None or t > t_poison for t in armed))
+    rec = dict(mode=mode, failfast=failfast, victim_status=status,
+               victim_error=body.get("error"), neighbours=[n[0] for n in neighbours],
+               nonfinite_batch=reg.counter(telemetry.NONFINITE).total(site="batch") - nf0,
+               neighbours_in_flight_at_poison=in_flight)
+    victim_ok = (status == 503 and "site=batch" in (body.get("error") or "") if failfast
+                 else status == 200)
+    if not (victim_ok and in_flight and all(n[0] == 200 for n in neighbours)
+            and rec["nonfinite_batch"] == 1):
+        fail(f"numerics, logits:{mode}: {rec}")
+    return rec
+
+
+def numerics_phase(model: str, tok: str, summary: dict) -> None:
+    """The numerics observatory at full width, 32 layers:
+
+    * the paged ``api`` with ``--numerics-failfast --numerics-taps
+      --canary-interval`` :data:`CANARY_S`: 8 concurrent requests while the
+      canary replays (>= 5 replays under traffic, 0 drift: the kernels are
+      deterministic); then a weight patched in place (layer
+      :data:`PATCH_LAYER`'s ffn norm ×3) must drift, naming ``layer N
+      (mlp_out)``, and its restore replay clean again; then the ``logits``
+      failpoint in ``nan`` and ``inf`` modes (:func:`poison_round`), and
+      once without fail-fast;
+    * the dense ``api`` (``--batch-slots 8``) with ``--numerics-failfast``:
+      the same poison rounds;
+    * ``inference`` with the failpoint armed: without fail-fast it counts
+      ``site=decode`` and finishes, with ``--numerics-failfast`` it raises
+      ``NumericsError`` naming ``site=decode``;
+    * the single-sequence ``api`` with a canary after every completion;
+    * the tripwire's cost per paged step: the host calls (the poison
+      selector's failpoint check and the per-row tail over 8 rows) and the
+      device time of the poison ``where`` over 8 vocabulary-wide rows."""
+    from dllama_tpu_torch.models.llama import _poison_logits
+    from dllama_tpu_torch.runtime import failpoints, numerics, telemetry
+    from dllama_tpu_torch.runtime.serving import _GeneratorCore
+
+    reg = telemetry.registry()
+    reg.reset()
+    rec: dict = {"case": "numerics"}
+    common = ["--model", model, "--tokenizer", tok, "--max-seq-len", str(MAX_SEQ),
+              "--seed", str(SEED), "--temperature", "0", "--numerics-failfast"]
+    argv = ["api", *common, "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+            "--numerics-taps", "--canary-interval", str(CANARY_S)]
+    with api_server(argv, "numerics paged api") as (url, state):
+        eng = state.engine
+        canary = eng.canary
+        runs0 = canary.status()["runs"]
+        t0 = time.perf_counter()
+        traffic = _concurrent(url, [_body(f"{i} {PROMPT}", 24) for i in range(SLOTS)])
+        under = dict(seconds=time.perf_counter() - t0,
+                     replays=canary.status()["runs"] - runs0,
+                     drifts=canary.status()["drifts"],
+                     statuses=[t[0] for t in traffic])
+        rec["canary_under_traffic"] = under
+        if any(s != 200 for s in under["statuses"]) or under["replays"] < 5 \
+                or under["drifts"]:
+            fail(f"numerics: the canary under traffic: {under}")
+        norm = eng.params.layers[PATCH_LAYER].norm_ffn
+        orig = norm.clone()
+        norm.mul_(3.0)
+        for _ in range(400):
+            if canary.status()["drifts"]:
+                break
+            time.sleep(0.05)
+        patched = canary.status()["last"]
+        norm.copy_(orig)
+        runs1 = canary.status()["runs"]
+        for _ in range(400):
+            if canary.status()["runs"] >= runs1 + 2:
+                break
+            time.sleep(0.05)
+        restored = canary.status()
+        rec["canary_patch"] = dict(
+            patched=patched, drift_total=reg.counter(telemetry.CANARY_DRIFT).total(),
+            restored_last=restored["last"], drifts=restored["drifts"],
+            nonfinite_taps=numerics.debug_snapshot(eng)["taps"]["logits"]["nonfinite"])
+        want = f"layer {PATCH_LAYER} (mlp_out)"
+        if not (patched and patched.get("drift") and patched.get("divergent_layer") == want
+                and rec["canary_patch"]["drift_total"] == 1 and restored["drifts"] == 1
+                and restored["last"].get("drift") is False):
+            fail(f"numerics: the patched-weight canary: {rec['canary_patch']}")
+        rec["paged_poison"] = [poison_round(url, state, m) for m in ("nan", "inf")]
+        # the default (no --numerics-failfast; the flag sets only this
+        # attribute): the poisoned row is counted and its request completes
+        eng.nf_failfast = False
+        try:
+            rec["paged_poison"].append(poison_round(url, state, "nan", failfast=False))
+        finally:
+            eng.nf_failfast = True
+        _, snap = _get_json(url + "/debug/numerics")
+        rec["debug_numerics"] = dict(nonfinite_by_site=snap["nonfinite_by_site"],
+                                     failfast=snap["failfast"],
+                                     canary_runs=snap["canary"]["runs"])
+        if not snap["failfast"] or snap["nonfinite_by_site"].get("batch") != 3:
+            fail(f"numerics: /debug/numerics {rec['debug_numerics']}")
+    argv = ["api", *common, "--batch-slots", str(SLOTS)]
+    with api_server(argv, "numerics dense api") as (url, state):
+        rec["dense_poison"] = [poison_round(url, state, m) for m in ("nan", "inf")]
+    # inference: count without fail-fast, raise with it
+    inf = ["inference", "--model", model, "--tokenizer", tok, "--max-seq-len", str(MAX_SEQ),
+           "--seed", str(SEED), "--temperature", "0", "--prompt", PROMPT, "--steps",
+           str(len(PROMPT.encode()) + 1 + 8)]
+    d0 = reg.counter(telemetry.NONFINITE).total(site="decode")
+    failpoints.arm("logits", "nonfinite", times=1)
+    rc, _, _ = cli_rc(inf)
+    counted = reg.counter(telemetry.NONFINITE).total(site="decode") - d0
+    failpoints.arm("logits", "nonfinite", times=1, mode="inf")
+    try:
+        cli_rc([*inf, "--numerics-failfast"])
+        raised = None
+    except numerics.NumericsError as e:
+        raised = str(e)
+    finally:
+        failpoints.registry().clear()
+    rec["inference"] = dict(rc=rc, counted=counted, failfast_error=raised)
+    if rc != 0 or counted != 1 or not raised or "site=decode" not in raised:
+        fail(f"numerics, inference: {rec['inference']}")
+    # the single-sequence api: the canary replays after each completion
+    argv = ["api", *common, "--canary-interval", "0.001"]
+    with api_server(argv, "numerics single api") as (url, state):
+        statuses = [_post(url, _body(f"single {i}", 8))[0] for i in range(3)]
+        st = state.engine.canary.status()
+        rec["single_api_canary"] = dict(statuses=statuses, runs=st["runs"],
+                                        drifts=st["drifts"])
+        if statuses != [200] * 3 or st["runs"] < 4 or st["drifts"]:
+            fail(f"numerics, single api canary: {rec['single_api_canary']}")
+    # the tripwire's cost per paged step
+    core = _GeneratorCore.__new__(_GeneratorCore)
+    core.eng = type("E", (), {"nf_failfast": True})()
+    nf = [0] * SLOTS
+    n = 10000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        numerics.poison_code()
+        core._handle_nonfinite(list(range(SLOTS)), nf)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    logits = torch.randn((SLOTS, VOCAB), device=DEV)
+    code = torch.zeros(1, device=DEV)
+    dev_ms = Timer()(lambda: _poison_logits(logits, code))
+    rec["tripwire_cost"] = dict(host_us_per_step=host_us, device_ms_per_step=dev_ms,
+                                rows=SLOTS, note="host clock for the calls alone; "
+                                "CUDA events for the poison where over [8, vocab] f32")
+    print(json.dumps(rec), flush=True)
+    summary["numerics"] = rec
+
+
+def start_audit(model: str, layers: int) -> dict:
+    """``audit --audit-json`` of ``model`` as a background CLI process (host
+    only: numpy over every tensor on the host's cores, no card) at the
+    lowest CPU priority, so the phases beside it keep their cores; collected
+    by :func:`finish_audit`."""
+    import atexit
+
+    proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-m", "dllama_tpu_torch",
+                             "audit", "--model", model, "--audit-json"],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    # a failed phase exits the script: the audit must not outlive it
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "t0": time.perf_counter(), "model": os.path.basename(model),
+            "layers": layers}
+
+
+def finish_audit(audit: dict, summary: dict) -> None:
+    """Wait for :func:`start_audit`'s process: every tensor of the file
+    audited, none non-finite."""
+    out, err = audit["proc"].communicate(timeout=600)
+    res = _last_json_line(out) if audit["proc"].returncode == 0 else {}
+    rec = dict(case="audit", rc=audit["proc"].returncode,
+               seconds=time.perf_counter() - audit["t0"], model=audit["model"],
+               tensors=res.get("tensors"), nonfinite_tensors=res.get("nonfinite_tensors"),
+               min_snr_db=res.get("min_snr_db"))
+    print(json.dumps(rec), flush=True)
+    summary["audit"] = rec
+    if audit["proc"].returncode != 0 or res.get("tensors") != 1 + 9 * audit["layers"] + 2 \
+            or res.get("nonfinite_tensors"):
+        fail(f"audit: {rec}\n{err[-2000:]}")
+
+
+HBM_SLOTS = 256           # the dense pool the memory guard must shrink
+HBM_WEIGHT_LIMIT = 16000000000  # DLLAMA_HBM_BYTES under which f32 weights must refuse
+
+
+def hbm_phase(model: str, tok: str, summary: dict) -> None:
+    """The device-memory guard at full width, 32 layers:
+
+    * ``--weight-mode f32`` under ``DLLAMA_HBM_BYTES`` =
+      :data:`HBM_WEIGHT_LIMIT`: the engine refuses before staging (no
+      device memory allocated, no out-of-memory error) and the CLI exits
+      non-zero with the guard's message;
+    * ``api --batch-slots`` :data:`HBM_SLOTS` ``--max-seq-len 2048`` with an
+      f32 cache (~0.54 GB a slot): the pool shrinks to what the card's
+      memory (``torch.cuda.mem_get_info``'s total) fits, the shrunk pool
+      serves a request, and with ``DLLAMA_HBM_BYTES`` set below the pool's
+      need a prompt answers 503 ``queue_full`` and moves
+      ``dllama_hbm_admission_rejects_total`` by one."""
+    from dllama_tpu_torch.runtime import hbm, telemetry
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    rec: dict = {"case": "hbm"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    os.environ["DLLAMA_HBM_BYTES"] = str(HBM_WEIGHT_LIMIT)
+    try:
+        try:
+            InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, weight_mode="f32")
+            refused = None
+        except hbm.HbmBudgetError as e:
+            refused = str(e)
+        leaked = torch.cuda.memory_allocated() - before
+        try:
+            rc, out, _ = cli_rc(["inference", "--model", model, "--tokenizer", tok,
+                                 "--max-seq-len", str(MAX_SEQ), "--weight-mode", "f32",
+                                 "--prompt", "hi", "--steps", "8"])
+            cli_msg = out
+        except SystemExit as e:
+            rc, cli_msg = (e.code if isinstance(e.code, int) else 1), str(e.code)
+    finally:
+        os.environ.pop("DLLAMA_HBM_BYTES", None)
+    rec["weight_refusal"] = dict(limit=HBM_WEIGHT_LIMIT, engine_error=refused,
+                                 leaked_bytes=leaked, cli_rc=rc, cli_message=cli_msg[:400])
+    if not refused or "refusing to stage" not in refused or leaked != 0 or rc == 0 \
+            or "refusing to stage" not in cli_msg:
+        fail(f"hbm: --weight-mode f32 under {HBM_WEIGHT_LIMIT} B: {rec['weight_refusal']}")
+    reg = telemetry.registry()
+    argv = ["api", "--model", model, "--tokenizer", tok, "--max-seq-len", str(MAX_SEQ),
+            "--seed", str(SEED), "--temperature", "0", "--batch-slots", str(HBM_SLOTS),
+            "--kv-dtype", "f32"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with api_server(argv, "hbm dense api") as (url, state):
+        gen = state.sched.gen
+        up_s = time.perf_counter() - t0
+        status, body = _post(url, _body("fits", 8))
+        r0 = reg.counter(telemetry.HBM_ADMISSION_REJECTS).total()
+        os.environ["DLLAMA_HBM_BYTES"] = str(gen.hbm_need - 1)
+        try:
+            refused = _post(url, _body("refused", 8))
+        finally:
+            os.environ.pop("DLLAMA_HBM_BYTES", None)
+        rec["dense_fit"] = dict(
+            asked=HBM_SLOTS, slots=gen.n_slots, pool_gb=gen.pool_bytes / 1e9,
+            need_gb=gen.hbm_need / 1e9, limit_gb=hbm.device_memory_bytes(DEV) / 1e9,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, startup_s=up_s,
+            status=status, completion_tokens=body.get("usage", {}).get("completion_tokens"),
+            refused_status=refused[0], refused_code=refused[1].get("code"),
+            rejects=reg.counter(telemetry.HBM_ADMISSION_REJECTS).total() - r0)
+    d = rec["dense_fit"]
+    print(json.dumps(rec), flush=True)
+    summary["hbm"] = rec
+    if not (0 < d["slots"] < HBM_SLOTS and status == 200 and d["refused_status"] == 503
+            and d["refused_code"] == "queue_full" and d["rejects"] == 1):
+        fail(f"hbm: the {HBM_SLOTS}-slot dense pool: {d}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(cases: list, e2e: dict) -> dict:
@@ -4378,6 +4889,33 @@ def ab_side(tag: str, assets: str, n_layers: int) -> int:
     return 0
 
 
+def slice12_phases(names, model: str, tok: str, tmp: str, n_layers: int, e2e: dict) -> None:
+    """The phases of slice 12, each timed; the audit of ``model`` (host
+    only, at the lowest CPU priority) runs beside the others."""
+    audit = start_audit(model, n_layers) if "audit" in names else None
+    for name, phase in (("eval", lambda: eval_phase(model, tok, tmp, e2e)),
+                        ("numerics", lambda: numerics_phase(model, tok, e2e)),
+                        ("hbm", lambda: hbm_phase(model, tok, e2e))):
+        if name in names:
+            t0 = time.perf_counter()
+            phase()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    if audit is not None:
+        finish_audit(audit, e2e)
+
+
+def only_phases(names: list[str], n_layers: int) -> int:
+    """``--only``: the named slice-12 phases on fresh assets, then exit 3
+    (a development run is never a result)."""
+    e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
+    with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
+        model, tok, _ = write_assets(tmp, n_layers)
+        slice12_phases(names, model, tok, tmp, n_layers, e2e)
+    return 3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4387,6 +4925,10 @@ def main() -> int:
                          "package of the current directory; prints an 'AB' line")
     ap.add_argument("--assets", metavar="DIR",
                     help="with --ab: where the synthetic model is written once and reused")
+    ap.add_argument("--only", metavar="PHASES",
+                    help="a development run: only these end-to-end phases (comma-separated "
+                         "from eval, numerics, hbm, audit), no kernel cases; prints no "
+                         "result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -4419,6 +4961,8 @@ def main() -> int:
             elif "registers" in ln or "spill" in ln:
                 print(f"   ptxas [{name}]   {ln.split(':', 1)[-1].strip()}")
 
+    if args.only:
+        return only_phases(args.only.split(","), args.layers)
     cases: list = []
     timer = Timer()
     matmul_cases(timer, cases)
@@ -4465,7 +5009,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         print(f"⏱️ paged step profiles took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        spec_single(model, tok, args.layers, e2e)
+        spec_single(long_model, tok, long_layers, e2e)
         print(f"⏱️ spec single took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         spec_serving(long_model, tok, long_layers, e2e)
@@ -4483,16 +5027,16 @@ def main() -> int:
         chat_phase(model, tok, tmp, e2e)
         print(f"⏱️ chat took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        sp_path(model, tok, args.layers, e2e, long_model, long_layers)
+        sp_path(long_model, tok, long_layers, e2e, long_model, long_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
         for name, phase in (
                 ("f8 single sequence", lambda: f8_single(model, tok, text, args.layers, e2e)),
                 ("f8 serving", lambda: f8_serving(model, tok, args.layers, e2e)),
                 ("f8 sp", lambda: f8_sp(model, tok, e2e)),
-                ("weight modes", lambda: weight_modes(model, tok, args.layers, e2e)),
+                ("weight modes", lambda: weight_modes(long_model, tok, long_layers, e2e)),
                 ("nbatches", lambda: nbatches_phase(model, tok, e2e)),
                 ("host sampling", lambda: host_sampling_phase(model, tok, e2e)),
-                ("weight integrity", lambda: integrity_phase(model, tok, tmp, e2e)),
+                ("weight integrity", lambda: integrity_phase(long_model, tok, tmp, e2e)),
                 ("watchdog and failpoints", lambda: watchdog_phase(long_model, tok, e2e)),
                 ("paged step syncs", lambda: paged_step_syncs(long_model, tok, e2e)),
                 ("instrumentation cost", lambda: obs_cost(e2e))):
@@ -4500,6 +5044,8 @@ def main() -> int:
             phase()
             torch.cuda.empty_cache()
             print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+        slice12_phases(("eval", "numerics", "hbm", "audit"), model, tok, tmp, args.layers,
+                       e2e)
     model_parity({})
     paged_parity({})
     sp_parity({})

@@ -7,9 +7,13 @@ causal GQA attention, wo matmul + residual] + [rms_norm, w1/w3, silu·up, w2
 matmul + residual], with the Q80 fake-quant casts at the reference's sync
 points when ``cfg.sync_q80`` is on. The JAX package scans a stacked layer
 axis inside one jitted program; here a Python loop walks a list of layers
-and each op launches eagerly. Sharding, activation taps, weight offload and
-MoE are not ported. On the card the engine and the paged generator replay
-a decode step captured as a CUDA graph (:mod:`dllama_tpu_torch.runtime.graphs`),
+and each op launches eagerly. Sharding, weight offload and MoE are not
+ported. The numerics observatory's activation taps
+(:func:`forward_with_taps`, ``runtime/numerics.py``) ride the dense forward;
+every single-sequence and batched step takes the tripwire's poison selector
+(:func:`_poison_logits`) and returns each row's non-finite logits count.
+On the card the engine and the paged generator replay a decode step
+captured as a CUDA graph (:mod:`dllama_tpu_torch.runtime.graphs`),
 the counterpart of the JAX package's one jitted program per step: the steps
 here take positions as device tensors and read nothing back to the host.
 
@@ -46,6 +50,7 @@ from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, fake_qu
 from ..ops.norms import rms_norm, rms_norm_per_head
 from ..ops.paged_attention import paged_attention, paged_attention_plain
 from ..parallel.ring import sp_attention
+from ..runtime import numerics as _numerics
 from ..runtime.kvcache import cache_bits, to_cache, update_layer
 from .config import ModelConfig
 from .rope import apply_rope, build_rope_cache
@@ -118,16 +123,45 @@ def _attn_qkv(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
     return q, k, v
 
 
+def _tap_stat(x: torch.Tensor) -> torch.Tensor:
+    """Activation stats of one numerics-observatory tap site as a float64
+    ``[4]`` tensor in ``numerics.TAP_STATS`` order: rms and abs-max over the
+    FINITE lanes (a NaN must show in the non-finite count, not poison the
+    statistics), the non-finite lane count, and the relative Q80 roundtrip
+    error the sync casts would apply at this boundary (0 when the trailing
+    axis is not block-divisible; the JAX package's
+    ``parallel.qcollectives.q80_roundtrip_error``)."""
+    xf = x.float()
+    finite = torch.isfinite(xf)
+    nf = (~finite).sum()
+    xz = torch.where(finite, xf, torch.zeros_like(xf))
+    rms = torch.sqrt(torch.mean(torch.square(xz)))
+    absmax = torch.amax(torch.abs(xz))
+    if x.shape[-1] % 32 == 0:
+        err = fake_quant_q80(xz) - xz
+        q80e = torch.sqrt(torch.mean(torch.square(err))) / (rms + 1e-12)
+    else:
+        q80e = torch.zeros((), device=x.device)
+    return torch.stack([rms.double(), absmax.double(), nf.double(), q80e.double()])
+
+
 def _attn_out_and_ffn(cfg: ModelConfig, x: torch.Tensor, att: torch.Tensor,
-                      lp: LayerParams, fq) -> torch.Tensor:
-    """Layer epilogue: output projection + residual, then the ffn half."""
+                      lp: LayerParams, fq, taps: list | None = None) -> torch.Tensor:
+    """Layer epilogue: output projection + residual, then the ffn half.
+    With ``taps`` (a list) the ``attn_out`` stats (after the attention
+    residual) and ``mlp_out`` stats (after the ffn residual) are appended."""
     B, T, _ = x.shape
     impl = cfg.quant_impl
     x = x + fq(linear(fq(att.reshape(B, T, cfg.q_dim)), lp.wo, impl=impl))
+    if taps is not None:
+        taps.append(_tap_stat(x))
     h = fq(rms_norm(x, lp.norm_ffn, cfg.norm_epsilon))
     gate = _hidden_act(cfg, linear(h, lp.w1, impl=impl))
     up = linear(h, lp.w3, impl=impl)
-    return x + fq(linear(fq(gate * up), lp.w2, impl=impl))
+    x = x + fq(linear(fq(gate * up), lp.w2, impl=impl))
+    if taps is not None:
+        taps.append(_tap_stat(x))
+    return x
 
 
 def _sp(plan) -> bool:
@@ -136,24 +170,25 @@ def _sp(plan) -> bool:
 
 def _layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
                 k_cache, v_cache, cos: torch.Tensor, sin: torch.Tensor,
-                start_pos, positions, plan=None):
+                start_pos, positions, plan=None, taps: list | None = None):
     """One transformer block. ``x: [B, T, dim]``; this layer's caches are
     head-major ``[B, n_kv, S, hd]`` and are written in place. Under a plan
     with ``sp > 1`` they are the per-shard lists ``[B, n_kv, S_l, hd]`` and
-    the sequence-parallel attention both appends and attends."""
+    the sequence-parallel attention both appends and attends. ``taps``: see
+    :func:`_attn_out_and_ffn`."""
     fq = _fq(cfg)
     q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
     if _sp(plan):
         att = sp_attention(plan, q, k_cache, v_cache, k, v, _position_tensor(positions, q),
                            start_pos, cfg.head_dim, attn_impl=cfg.attn_impl)
-        return _attn_out_and_ffn(cfg, x, att, lp, fq)
+        return _attn_out_and_ffn(cfg, x, att, lp, fq, taps)
     update_layer(k_cache, v_cache, k, v, start_pos)
     if _use_flash(cfg, q):
         att = flash_attention(q, k_cache, v_cache, start_pos, cfg.head_dim)
     else:
         att = attention(q, k_cache, v_cache, _position_tensor(positions, q),
                         cfg.head_dim)
-    return _attn_out_and_ffn(cfg, x, att, lp, fq)
+    return _attn_out_and_ffn(cfg, x, att, lp, fq, taps)
 
 
 def _position_tensor(positions, q: torch.Tensor) -> torch.Tensor:
@@ -181,7 +216,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     :class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache` and
     everything but attention runs on the plan's lead device, where
     ``params`` and ``tokens`` live.
+
+    Under :func:`~dllama_tpu_torch.runtime.numerics.collecting_taps` (see
+    :func:`forward_with_taps`) the return gains the taps dict as a third
+    element; otherwise no tap code runs.
     """
+    collect = _numerics.taps_active()
     B, T = tokens.shape
     x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
     cos, sin = params.rope
@@ -190,25 +230,70 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             T, device=x.device)[None, :]
     else:
         positions = slice(int(start_pos), int(start_pos) + T)
+    layer_taps: list | None = [] if collect else None
     for l, lp in enumerate(params.layers):
         k_l, v_l = kv.layer(l)
-        x = _layer_step(cfg, x, lp, k_l, v_l, cos, sin, start_pos, positions, plan)
+        x = _layer_step(cfg, x, lp, k_l, v_l, cos, sin, start_pos, positions, plan,
+                        layer_taps)
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
+    final_stat = _tap_stat(x) if collect else None
     if cfg.sync_q80:  # final cast before the logits matmul (llm.cpp:445-486)
         x = fake_quant_q80(x)
     logits = linear(x, params.logits, impl=cfg.quant_impl).float()
+    if collect:
+        taps = {"attn_out": torch.stack(layer_taps[0::2]),
+                "mlp_out": torch.stack(layer_taps[1::2]),
+                "final_norm": final_stat, "logits": _tap_stat(logits)}
+        return logits, kv, taps
     return logits, kv
 
 
+def forward_with_taps(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      start_pos, kv, plan=None):
+    """:func:`forward` with the numerics observatory's activation taps
+    collected: returns ``((logits, taps), kv)``, ``taps`` the per-site stats
+    (``attn_out``/``mlp_out`` ``[L, 4]``, ``final_norm``/``logits`` ``[4]``,
+    each row in ``numerics.TAP_STATS`` order; see :func:`_tap_stat` and
+    ``numerics.taps_to_host``). The taps only read the activations: the
+    logits are the untapped forward's, bit for bit."""
+    with _numerics.collecting_taps():
+        logits, kv, taps = forward(params, cfg, tokens, start_pos, kv, plan)
+    return (logits, taps), kv
+
+
+def _poison_logits(logits: torch.Tensor, poison) -> torch.Tensor:
+    """Inject the tripwire's poison into the logits on the device: 0 = clean
+    passthrough, 1 = NaN, 2 = +Inf (``numerics.POISON_CODES``); codes >= 3
+    belong to the JAX package's ``wire`` failpoint and pass through clean.
+    ``poison`` is a Python float (a clean 0.0 launches nothing) or a device
+    scalar, which a captured step reads at every replay."""
+    if not torch.is_tensor(poison):
+        if poison == 0.0:
+            return logits
+        poison = torch.full((), float(poison), device=logits.device)
+    p = poison.reshape(())
+    # built on the device from the selector (no host tensor: a captured
+    # step may copy nothing from the host)
+    val = torch.full_like(p, float("nan")).masked_fill(p >= 2.0, float("inf"))
+    hit = (p > 0.0) & (p < 3.0)
+    return torch.where(hit, val.to(logits.dtype), logits)
+
+
 def greedy_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                start_pos, kv, plan=None) -> tuple[torch.Tensor, object]:
-    """Forward + argmax of the last position: next token ids ``[B]``."""
+                start_pos, kv, plan=None, poison=0.0
+                ) -> tuple[torch.Tensor, torch.Tensor, object]:
+    """Forward + argmax of the last position (the JAX package's
+    ``greedy_step_guarded``): next token ids ``[B]``, the non-finite lane
+    count of each row's decode-step logits ``[B]`` (after ``poison``,
+    :func:`_poison_logits`), and the cache."""
     logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
-    return torch.argmax(logits[:, -1, :], dim=-1), kv
+    last = _poison_logits(logits[:, -1, :], poison)
+    return torch.argmax(last, dim=-1), _nonfinite_rows(last), kv
 
 
 def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                start_pos, kv, plan=None) -> tuple[torch.Tensor, torch.Tensor, object]:
+                start_pos, kv, plan=None, poison=0.0
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, object]:
     """Speculative greedy verify: ONE forward over ``tokens [B, K+1]`` (the
     real next input followed by K drafted tokens) at positions
     ``start_pos..start_pos+K``. ``preds[:, t]`` is the greedy argmax after
@@ -219,55 +304,67 @@ def verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Rows written for rejected drafts sit at positions past the committed
     point, invisible to the causal mask, and the next dispatch's writes
-    start where they start. Returns ``(n_acc, preds, kv)`` (int64)."""
+    start where they start. Returns ``(n_acc, preds, nonfinite, kv)``
+    (int64; ``nonfinite [B]`` counts the non-finite lanes of all K+1 logits
+    rows after ``poison``, every one of which can become an emitted token:
+    the JAX package's ``verify_step_guarded``)."""
     logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
+    logits = _poison_logits(logits, poison)
     preds = torch.argmax(logits, dim=-1)                 # [B, K+1]
     ok = (tokens[:, 1:] == preds[:, :-1]).long()
-    return torch.cumprod(ok, dim=-1).sum(dim=-1), preds, kv
+    return torch.cumprod(ok, dim=-1).sum(dim=-1), preds, _nonfinite_rows(logits), kv
 
 
 def sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 start_pos, kv, temperature, topp, coin, plan=None
-                 ) -> tuple[torch.Tensor, object]:
+                 start_pos, kv, temperature, topp, coin, plan=None, poison=0.0
+                 ) -> tuple[torch.Tensor, torch.Tensor, object]:
     """Forward + temperature/top-p sample of the last position; the host
-    steps its xorshift* RNG and passes the coin in."""
+    steps its xorshift* RNG and passes the coin in. Returns ``(token [B],
+    nonfinite [B], kv)`` as :func:`greedy_step` does."""
     from ..ops.sampling import sampled_token
 
     logits, kv = forward(params, cfg, tokens, start_pos, kv, plan)
-    return sampled_token(logits[:, -1, :], temperature, topp, coin), kv
+    last = _poison_logits(logits[:, -1, :], poison)
+    return sampled_token(last, temperature, topp, coin), _nonfinite_rows(last), kv
 
 
 def scan_decode(step1, token: torch.Tensor, start_pos, kv, n_steps: int, coins=None):
     """The multi-step decode loop shared by the chunked variants (the JAX
-    package's ``scan_decode``, a ``lax.scan``; here a Python loop): feeds
-    each picked token into the next forward on the device, with nothing
-    read back. ``step1(tokens_2d, pos, kv[, coin])`` is the single-step
-    function; ``start_pos`` an int or a ``[B]`` tensor; ``coins`` indexed
-    along axis 0 (``[n_steps]`` or ``[n_steps, B]``). Returns ``(tokens
-    [B, n_steps], kv)``."""
+    package's ``_scan_decode_guarded``, a ``lax.scan``; here a Python loop):
+    feeds each picked token into the next forward on the device, with
+    nothing read back. ``step1(tokens_2d, pos, kv[, coin])`` is the
+    single-step function returning ``(token, nonfinite, kv)``; ``start_pos``
+    an int or a ``[B]`` tensor; ``coins`` indexed along axis 0
+    (``[n_steps]`` or ``[n_steps, B]``). Returns ``(tokens [B, n_steps],
+    nonfinite [B], kv)``, the per-row non-finite counts summed over the
+    chunk."""
     toks = []
+    nf = torch.zeros(token.shape, dtype=torch.int32, device=token.device)
     for i in range(n_steps):
         if coins is None:
-            token, kv = step1(token[:, None], start_pos + i, kv)
+            token, nf_i, kv = step1(token[:, None], start_pos + i, kv)
         else:
-            token, kv = step1(token[:, None], start_pos + i, kv, coins[i])
+            token, nf_i, kv = step1(token[:, None], start_pos + i, kv, coins[i])
+        nf = nf + nf_i
         toks.append(token)
-    return torch.stack(toks, dim=1), kv
+    return torch.stack(toks, dim=1), nf, kv
 
 
 def greedy_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_pos,
-                 kv, n_steps: int, plan=None) -> tuple[torch.Tensor, object]:
+                 kv, n_steps: int, plan=None, poison=0.0
+                 ) -> tuple[torch.Tensor, torch.Tensor, object]:
     """``n_steps`` greedy decode steps with the tokens fed back on the
     device and one readback per chunk (by the caller); bit-identical to
     ``n_steps`` :func:`greedy_step` calls. ``token: [B]`` seeds the chunk;
-    the caller truncates at EOS."""
-    return scan_decode(lambda t, p, kv: greedy_step(params, cfg, t, p, kv, plan),
+    the caller truncates at EOS. Returns ``(tokens, nonfinite, kv)``
+    (:func:`scan_decode`); ``poison`` applies to every step."""
+    return scan_decode(lambda t, p, kv: greedy_step(params, cfg, t, p, kv, plan, poison),
                        token, start_pos, kv, n_steps)
 
 
 def sampled_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_pos,
-                  kv, temperature, topp, coins, n_steps: int, plan=None
-                  ) -> tuple[torch.Tensor, object]:
+                  kv, temperature, topp, coins, n_steps: int, plan=None, poison=0.0
+                  ) -> tuple[torch.Tensor, torch.Tensor, object]:
     """The temperature > 0 twin of :func:`greedy_steps`: ``coins
     [n_steps]`` are the host xorshift draws of the whole chunk (the host
     rewinds its RNG to the count kept after EOS truncation).
@@ -275,31 +372,33 @@ def sampled_steps(params: Params, cfg: ModelConfig, token: torch.Tensor, start_p
     Also the ragged chunked step of the dense slot pool (the JAX package's
     ``BatchedGenerator.step_chunk``): everything broadcasts over rows —
     ``token``/``start_pos [B]``, per-row ``temperature``/``topp [B]``
-    (rows at temperature <= 0 take the argmax) and ``coins [n_steps, B]``."""
+    (rows at temperature <= 0 take the argmax) and ``coins [n_steps, B]``.
+    Returns ``(tokens, nonfinite, kv)``."""
     return scan_decode(
-        lambda t, p, kv, c: sampled_step(params, cfg, t, p, kv, temperature, topp, c, plan),
+        lambda t, p, kv, c: sampled_step(params, cfg, t, p, kv, temperature, topp, c, plan,
+                                         poison),
         token, start_pos, kv, n_steps, coins=coins)
 
 
 def ragged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                        pos_vec: torch.Tensor, kv, temps, topps, coins
+                        pos_vec: torch.Tensor, kv, temps, topps, coins, poison=0.0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dense slot pool's ragged decode step (the JAX package's
     ``sampled_step_guarded`` over ragged rows): one :func:`forward` of
     ``tokens [B, 1]`` at per-row positions ``pos_vec [B]`` over the slot
     pool's cache, then per-row on-device sampling (rows with ``temps <= 0``
     take the argmax). Returns ``(token [B], nonfinite [B])``, the second the
-    non-finite lane count of each row's logits. The cache is updated in
-    place."""
+    non-finite lane count of each row's logits after ``poison``
+    (:func:`_poison_logits`). The cache is updated in place."""
     from ..ops.sampling import sampled_token
 
     logits, _ = forward(params, cfg, tokens, pos_vec, kv)
-    last = logits[:, -1, :]
+    last = _poison_logits(logits[:, -1, :], poison)
     return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
 
 
 def ragged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                       pos_vec: torch.Tensor, kv, temps, topps, coins
+                       pos_vec: torch.Tensor, kv, temps, topps, coins, poison=0.0
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dense slot pool's speculative verify step (the JAX package's
     ``ragged_verify_step``): ONE :func:`forward` over ragged rows ``tokens
@@ -314,6 +413,7 @@ def ragged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     from ..ops.sampling import sampled_token
 
     logits, _ = forward(params, cfg, tokens, pos_vec, kv)
+    logits = _poison_logits(logits, poison)
     preds = torch.argmax(logits, dim=-1)                 # [B, K+1]
     ok = (tokens[:, 1:] == preds[:, :-1]).long()
     n_acc = torch.cumprod(ok, dim=-1).sum(dim=-1)
@@ -400,6 +500,9 @@ def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     are never read, and :func:`_paged_layer_step` clamps the gathers they
     make as the JAX package's XLA gathers do. ``write_lens [B]``: see
     :func:`_paged_layer_step`."""
+    if _numerics.taps_active():
+        raise ValueError("numerics taps are unsupported on the paged KV path (taps run "
+                         "on the engine's prefill and the canary)")
     B, T = tokens.shape
     x = params.embedding[tokens].to(getattr(torch, cfg.compute_dtype))
     cos, sin = params.rope
@@ -426,23 +529,24 @@ def _nonfinite_rows(logits: torch.Tensor) -> torch.Tensor:
 
 def paged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                        pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
-                       temps, topps, coins) -> tuple[torch.Tensor, torch.Tensor]:
+                       temps, topps, coins, poison=0.0) -> tuple[torch.Tensor, torch.Tensor]:
     """The paged ragged decode step of continuous batching: one
     :func:`paged_forward` for every slot, then per-row on-device sampling
     (rows with ``temps <= 0`` take the argmax). Returns ``(token [B],
     nonfinite [B])``: the non-finite lane count of each row's logits, so a
-    poisoned request can be failed without touching the rest of the batch.
-    The pool is updated in place."""
+    poisoned request can be failed without touching the rest of the batch
+    (after ``poison``, :func:`_poison_logits`). The pool is updated in
+    place."""
     from ..ops.sampling import sampled_token
 
     logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables)
-    last = logits[:, -1, :]
+    last = _poison_logits(logits[:, -1, :], poison)
     return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
 
 
 def paged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
-                      lens: torch.Tensor, temps, topps, acoins, fcoins
+                      lens: torch.Tensor, temps, topps, acoins, fcoins, poison=0.0
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The paged speculative verify step of continuous batching: one
     :func:`paged_forward` over ``tokens [B, K+1]`` (each row: its committed
@@ -463,6 +567,7 @@ def paged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     from ..runtime.speculative import spec_decide
 
     logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables, write_lens=lens)
+    logits = _poison_logits(logits, poison)
     n_acc, out = spec_decide(logits, tokens.to(logits.device).long(), lens, temps, topps,
                              acoins, fcoins)
     return n_acc, out, _nonfinite_rows(logits)

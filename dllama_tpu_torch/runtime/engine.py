@@ -61,6 +61,23 @@ guard is entered. Prefill chunks, decode steps and verify steps feed the
 spans and flight events the serving layer reads; all of it is host code
 around the replays, and adds no device synchronisation.
 
+Numerics (:mod:`~dllama_tpu_torch.runtime.numerics`, at the JAX engine's
+sites): every decode, chunk and verify step returns its non-finite logits
+count with its tokens (no extra readback) and takes the ``logits``
+failpoint's poison selector, a device scalar filled before the replay; the
+count feeds ``dllama_nonfinite_total{site}`` and, with
+``numerics_failfast``, raises :class:`~dllama_tpu_torch.runtime.numerics.NumericsError`.
+Prefill checks the one logits row it reads back; ``numerics_taps`` runs
+prefill through :func:`~dllama_tpu_torch.models.llama.forward_with_taps`.
+``canary`` holds the serving layer's
+:class:`~dllama_tpu_torch.runtime.numerics.CanarySentinel`, if any.
+
+Device memory (:mod:`~dllama_tpu_torch.runtime.hbm`): before anything is
+staged the engine estimates its bytes (``hbm_estimate``) and refuses a
+model that does not fit the card; ``seen_buckets`` and ``measured_bytes``
+(the allocator's peak after each prefill width's first dispatch and each
+graph's capture) feed the serving layer's admission guard.
+
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
 mask (``s <= pos``), and every slot is rewritten by its real token before it
@@ -79,15 +96,16 @@ import numpy as np
 import torch
 
 from ..formats.mfile import ModelFile
-from ..formats.quants import F32
+from ..formats.quants import F32, Q40, Q80
 from ..models.config import ModelConfig
-from ..models.llama import (Params, forward, greedy_steps, prefill_nll, sampled_steps,
-                            verify_step)
+from ..models.llama import (Params, forward, forward_with_taps, greedy_steps, prefill_nll,
+                            sampled_steps, verify_step)
 from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
-from . import failpoints, flightrec, telemetry
+from . import failpoints, flightrec, numerics, telemetry
 from .graphs import DecodeGraph, VerifyGraph
+from .hbm import check_budget, estimate_device_bytes
 from .kvblocks import validate_block_size
 from .kvcache import F8, KVCache, ShardedKVCache, padded_cache_len
 from .speculative import NgramProposer
@@ -197,7 +215,8 @@ class InferenceEngine:
                  kv_block_size: int = 0, sp: int = 1, sp_devices=None,
                  decode_chunk: int = 1, spec_lookup: int = 0, kv_dtype: str = "auto",
                  weight_mode: str = "auto", host_sampling: bool = False,
-                 verify_weights: bool = False):
+                 verify_weights: bool = False, numerics_taps: bool = False,
+                 numerics_failfast: bool = False):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
         # KV cache dtype: "auto" rides the compute dtype; "f8" stores e4m3
@@ -268,6 +287,23 @@ class InferenceEngine:
             self.prefill_buckets = (self.n_batches,)
         self.tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
         self.sampler = Sampler(self.cfg.vocab_size, temperature, topp, seed)
+        # the device representation of the weights, for the memory estimate
+        wt = self.model_file.header.weight_type
+        self.hbm_weight_repr = (weight_mode if weight_mode in ("f32", "bf16")
+                                else "q40" if wt == Q40 else "q80" if wt == Q80
+                                else "bf16" if self.cfg.compute_dtype == "bfloat16"
+                                else "f32")
+        # numerics observatory: taps are opt-in (prefill and canary
+        # forwards); the tripwire is always on, fail-fast decides whether a
+        # poisoned dispatch raises. The JAX engine's refusals of the taps
+        # (multihost, pp > 1) have no counterpart here: neither is ported
+        self.numerics_taps = bool(numerics_taps)
+        self.nf_failfast = bool(numerics_failfast)
+        self.canary = None  # numerics.CanarySentinel, wired by the serving layer
+        # prefill widths dispatched so far, and each program's measured bytes
+        # (runtime/hbm.py): the admission guard charges a width not run yet
+        self.seen_buckets: set[int] = set()
+        self.measured_bytes: dict[str, int] = {}
         # step watchdog: every dispatch below runs under its guard; the batch
         # scheduler registers its fail-all in watchdog.on_stall. Budget shape
         # from the DLLAMA_WATCHDOG* knobs (README, "Failure semantics")
@@ -286,6 +322,16 @@ class InferenceEngine:
         self.params: Params | None = None
         self.kv = None
         try:
+            # the device-memory budget before anything is staged: a model
+            # that cannot fit is refused with a clean message, not an
+            # out-of-memory error halfway through the load
+            est = estimate_device_bytes(self.cfg, weight_repr=self.hbm_weight_repr,
+                                        kv_dtype_bytes=self.kv_dtype.itemsize)
+            self.hbm_estimate = est
+            limit = check_budget(est["need_per_device"],
+                                 f"model {model_path} ({weight_mode})", self.device)
+            self._tm.gauge(telemetry.HBM_NEED_BYTES).set(est["need_per_device"])
+            self._tm.gauge(telemetry.HBM_LIMIT_BYTES).set(limit or 0)
             if verify_weights:
                 # the full sweep before anything is staged on the device
                 res = _verify_all(self.model_file)
@@ -294,9 +340,7 @@ class InferenceEngine:
                         f"--verify-weights: {len(res['corrupt'])} of {res['tensors']} "
                         f"tensors corrupt in {model_path}: " + ", ".join(res["corrupt"]))
             self.params = load_params(self.model_file, self.cfg, self.device, weight_mode)
-            self.kv = (ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
-                       if self.plan else
-                       KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device))
+            self.kv = self._fresh_kv()
         except BaseException as e:
             # atomic failure: no half-built engine, and no device buffer
             # kept alive by the frames of the traceback the caller holds
@@ -310,6 +354,26 @@ class InferenceEngine:
         # verify step (sp == 1 only)
         self._graphs: dict[bool, DecodeGraph] = {}
         self._verify_graph: VerifyGraph | None = None
+
+    def _fresh_kv(self):
+        """A zeroed cache of the engine's geometry (the canary's scratch)."""
+        return (ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
+                if self.plan else
+                KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device))
+
+    def note_program_bytes(self, key: str) -> None:
+        """Record a program's measured device bytes for the admission guard
+        (runtime/hbm.py): the allocator's peak right after its first dispatch
+        or capture, which bounds what the program needed."""
+        if self.device.type == "cuda" and key not in self.measured_bytes:
+            self.measured_bytes[key] = torch.cuda.max_memory_allocated(self.device)
+
+    def _note_bucket(self, width: int) -> None:
+        """A prefill chunk of ``width`` rows was dispatched (the padded,
+        dispatched width, as the JAX engine records it)."""
+        if width not in self.seen_buckets:
+            self.seen_buckets.add(width)
+            self.note_program_bytes(f"prefill:{width}")
 
     def reset(self) -> None:
         self.kv.zero_()
@@ -379,9 +443,25 @@ class InferenceEngine:
         for i, valid, pad_to in self._chunks(len(token_ids)):
             chunk = token_ids[i:i + valid]
             t0 = time.perf_counter()
+            taps = None
             with self.guarded("dispatch"):
-                logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+                padded = self._tokens(chunk + [0] * (pad_to - valid))
+                if self.numerics_taps:
+                    (logits, taps), self.kv = forward_with_taps(
+                        self.params, self.cfg, padded, self.pos, self.kv, self.plan)
+                    taps = numerics.taps_to_host(taps)
+                else:
+                    logits, self.kv = forward(self.params, self.cfg, padded, self.pos,
+                                              self.kv, self.plan)
                 last = logits[0, valid - 1].cpu().numpy()  # syncs the device
+            if taps is not None:
+                numerics.record_taps(taps)
+            # the host-side tripwire on the one row the next token derives
+            # from (already on the host)
+            bad = int(last.size - np.count_nonzero(np.isfinite(last)))
+            if bad:
+                numerics.check_nonfinite(bad, "prefill", failfast=self.nf_failfast)
+            self._note_bucket(pad_to)
             ms = (time.perf_counter() - t0) * 1000.0
             metrics.append(StepMetrics("eval", ms, valid))
             self._m_prefill_ms.record(ms)
@@ -402,6 +482,9 @@ class InferenceEngine:
             logits = self._forward([token], self.pos)
             row = logits[0, 0].cpu().numpy()
         self.pos += 1
+        bad = int(row.size - np.count_nonzero(np.isfinite(row)))
+        if bad:
+            numerics.check_nonfinite(bad, "decode", failfast=self.nf_failfast)
         return row
 
     def next_token(self, token: int) -> int:
@@ -437,6 +520,7 @@ class InferenceEngine:
             g = DecodeGraph(self.params, self.cfg, self.kv, self.device,
                             sampled=sampled, pos=self.pos)
             self._graphs[sampled] = g
+            self.note_program_bytes(f"graph:{'sampled' if sampled else 'greedy'}_step")
         return g
 
     def decode_chunk_tokens(self, token: int, k: int) -> list[int]:
@@ -467,32 +551,41 @@ class InferenceEngine:
         forward whose logits the host samples. The RNG is left for
         :meth:`commit_chunk` to advance in every case. The dispatch and its
         readback run under the watchdog's ``label`` guard; a graph's capture
-        (the first decode of its kind) runs before it."""
+        (the first decode of its kind) runs before it. The step's non-finite
+        count comes back with the tokens (the ``decode`` tripwire site)."""
         if self.host_sampling and not greedy:
             with self.guarded("dispatch"):
                 logits, self.kv = forward(self.params, self.cfg, self._tokens([token]),
                                           start_pos, self.kv, self.plan)
                 row = logits[0, 0].cpu().numpy()
+            bad = int(row.size - np.count_nonzero(np.isfinite(row)))
+            if bad:
+                numerics.check_nonfinite(bad, "decode", failfast=self.nf_failfast)
             st = self.sampler.rng_state
             tok = self.sampler.sample(row)
             self.sampler.rng_state = st
             return [tok]
+        poison = numerics.poison_code()
         if self.plan is None:
             g = self.decode_step_graph(sampled=not greedy)
             with self.guarded(label):
-                g.launch(token, start_pos, k, temp, topp, coins)
-                return g.tokens()
+                g.launch(token, start_pos, k, temp, topp, coins, poison)
+                toks = g.tokens()
+            numerics.check_nonfinite(g.nonfinite, "decode", failfast=self.nf_failfast)
+            return toks
         tok0 = torch.tensor([token], dtype=torch.long, device=self.device)
         with self.guarded(label):
             if greedy:
-                toks, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos, self.kv,
-                                             k, self.plan)
+                toks, nf, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos,
+                                                 self.kv, k, self.plan, poison)
             else:
-                toks, self.kv = sampled_steps(self.params, self.cfg, tok0, start_pos, self.kv,
-                                              temp, topp,
-                                              torch.from_numpy(coins).to(self.device),
-                                              k, self.plan)
-            return toks[0].tolist()
+                toks, nf, self.kv = sampled_steps(self.params, self.cfg, tok0, start_pos,
+                                                  self.kv, temp, topp,
+                                                  torch.from_numpy(coins).to(self.device),
+                                                  k, self.plan, poison)
+            got = torch.cat([toks[0], nf.long()]).tolist()
+        numerics.check_nonfinite(got[-1], "decode", failfast=self.nf_failfast)
+        return got[:-1]
 
     @property
     def spec_active(self) -> bool:
@@ -528,21 +621,30 @@ class InferenceEngine:
         if self._verify_graph is None:
             self._verify_graph = VerifyGraph(self.params, self.cfg, self.kv, self.device,
                                              width=self.spec_lookup + 1, pos=self.pos)
+            self.note_program_bytes("graph:verify_step")
         return self._verify_graph
 
     def _run_verify(self, tokens: list[int], start_pos: int) -> tuple[int, list[int]]:
         """Dispatch one verify step: a replay of the captured step at
         sp == 1, the eager step (ring / merge attention) at sp > 1.
         Returns ``(n_acc, preds)``. The dispatch and its readback run under
-        the watchdog's ``verify`` guard; the graph's capture before it."""
+        the watchdog's ``verify`` guard; the graph's capture before it. The
+        non-finite count of the K+1 logits rows comes back with them (the
+        ``verify`` tripwire site)."""
+        poison = numerics.poison_code()
         if self.plan is None:
             g = self.verify_step_graph()
             with self.guarded("verify"):
-                return g.run(tokens, start_pos)
-        with self.guarded("verify"):
-            n_acc, preds, self.kv = verify_step(self.params, self.cfg, self._tokens(tokens),
-                                                start_pos, self.kv, self.plan)
-            return int(n_acc[0]), preds[0].tolist()
+                n_acc, preds, nf = g.run(tokens, start_pos, poison)
+        else:
+            with self.guarded("verify"):
+                n_acc, preds, nf, self.kv = verify_step(self.params, self.cfg,
+                                                        self._tokens(tokens), start_pos,
+                                                        self.kv, self.plan, poison)
+                got = torch.cat([n_acc, preds[0], nf.long()]).tolist()
+            n_acc, preds, nf = got[0], got[1:-1], got[-1]
+        numerics.check_nonfinite(nf, "verify", failfast=self.nf_failfast)
+        return int(n_acc), preds
 
     def commit_chunk(self, n_keep: int) -> None:
         """Advance position and sampler RNG by the kept prefix of a chunk."""
@@ -652,9 +754,16 @@ class InferenceEngine:
         return float(np.exp(nll / count))
 
     def score_nll(self, token_ids: list[int]) -> np.ndarray:
-        """Teacher-forced per-token NLL of ``token_ids`` (float32, the
-        ``len(token_ids) - 1`` values in position order) through
-        :func:`~dllama_tpu_torch.models.llama.prefill_nll`. Resets the cache."""
+        """Teacher-forced per-token NLL of ``token_ids`` — the quality
+        observatory's single-sequence oracle (``runtime/evalharness.py``).
+
+        Chunks ``token_ids[:-1]`` through
+        :func:`~dllama_tpu_torch.models.llama.prefill_nll` with the bucket
+        boundaries and zero padding the batched serving prefill uses, which
+        is what makes the batched path's per-token values bit-identical to
+        this oracle's. Returns the ``len(token_ids) - 1`` float32 values in
+        position order; non-finite values count at the ``eval`` tripwire
+        site. Resets the cache and advances ``self.pos``."""
         if len(token_ids) < 2:
             raise ValueError("scoring needs at least 2 tokens")
         if len(token_ids) > self.cfg.seq_len:
@@ -670,6 +779,11 @@ class InferenceEngine:
                                            self._tokens(rest[i:i + valid] + pad),
                                            self._tokens(targets + pad), self.pos, self.kv,
                                            self.plan)
-                out.append(nll[0, :valid].float().cpu().numpy())
+                vals = nll[0, :valid].float().cpu().numpy()
+            bad = int(vals.size - np.count_nonzero(np.isfinite(vals)))
+            if bad:
+                numerics.check_nonfinite(bad, "eval", failfast=self.nf_failfast)
+            out.append(vals)
+            self._note_bucket(pad_to)
             self.pos += valid
         return np.concatenate(out)

@@ -34,7 +34,10 @@ sampled): the graph writes its picked token into its own input and
 advances its device position, so a chunk of ``k`` tokens is ``k`` replays
 and one readback (``--decode-chunk K``). :class:`VerifyGraph` is the
 engine's speculative verify step (``--spec-lookup K``, greedy): K+1 tokens
-in, ``(n_acc, preds)`` out in one readback. The paged verify step of
+in, ``(n_acc, preds)`` out in one readback. Both carry the numerics
+tripwire (``runtime/numerics.py``): the poison selector is a device scalar
+filled before the replays (a fill, no synchronisation), and the non-finite
+lane count comes back in the same readback as the tokens. The paged verify step of
 continuous batching is a :class:`StepGraph` of
 ``runtime/serving.py::PagedGenerator``, captured once per pool geometry
 (slots, K+1, table width), as the JAX package jits it once per geometry.
@@ -151,11 +154,12 @@ class StepGraph:
 class DecodeGraph:
     """The engine's single-sequence decode step (``models.llama.greedy_step``
     or ``sampled_step`` over the dense cache ``kv``) on static buffers:
-    the token ``[1, 1]``, the position ``[1]`` int32, and for a sampled step
-    temperature, top-p and one coin per position. A replay writes its pick
-    to ``out[pos]``, feeds it into ``tok`` and advances ``pos``, all on the
-    device. The warm-up writes only cache row ``pos`` (the first row a
-    decode writes, rewritten before it becomes visible)."""
+    the token ``[1, 1]``, the position ``[1]`` int32, the poison selector
+    ``[1]`` f32, and for a sampled step temperature, top-p and one coin per
+    position. A replay writes its pick to ``out[pos]``, adds its non-finite
+    lane count to ``nf``, feeds the pick into ``tok`` and advances ``pos``,
+    all on the device. The warm-up writes only cache row ``pos`` (the first
+    row a decode writes, rewritten before it becomes visible)."""
 
     def __init__(self, params, cfg, kv, device, *, sampled: bool, pos: int):
         from ..models.llama import greedy_step, sampled_step
@@ -169,7 +173,10 @@ class DecodeGraph:
         tok = self.tok = torch.zeros((1, 1), dtype=torch.long, device=dev)
         pos = self.pos = torch.full((1,), first, dtype=torch.int32, device=dev)
         out = self.out = torch.zeros(cfg.seq_len, dtype=torch.long, device=dev)
+        poison = self.poison = torch.zeros(1, dtype=torch.float32, device=dev)
+        nf = self.nf = torch.zeros(1, dtype=torch.long, device=dev)
         self._span = (0, 0)
+        self.nonfinite = 0  # the last readback's non-finite lanes
         if sampled:
             temp = self.temp = torch.zeros(1, dtype=torch.float32, device=dev)
             topp = self.topp = torch.zeros(1, dtype=torch.float32, device=dev)
@@ -179,10 +186,11 @@ class DecodeGraph:
         def body() -> None:
             p = pos.long()
             if sampled:
-                nxt, _ = sampled_step(params, cfg, tok, pos, kv, temp, topp,
-                                      coins.index_select(0, p))
+                nxt, bad, _ = sampled_step(params, cfg, tok, pos, kv, temp, topp,
+                                           coins.index_select(0, p), poison=poison)
             else:
-                nxt, _ = greedy_step(params, cfg, tok, pos, kv)
+                nxt, bad, _ = greedy_step(params, cfg, tok, pos, kv, poison=poison)
+            nf.add_(bad)
             out.index_copy_(0, p, nxt)
             tok.copy_(nxt.view(1, 1))
             pos.add_(1)
@@ -190,11 +198,15 @@ class DecodeGraph:
         self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
 
     def launch(self, token: int, start_pos: int, k: int, temperature: float = 0.0,
-               topp: float = 0.0, coins: np.ndarray | None = None) -> None:
+               topp: float = 0.0, coins: np.ndarray | None = None,
+               poison: float = 0.0) -> None:
         """Enqueue ``k`` steps from ``token`` at ``start_pos``: static inputs
-        filled on the device, ``k`` replays, no synchronisation."""
+        filled on the device, ``k`` replays, no synchronisation. ``poison``
+        is the tripwire's selector for every step of the launch."""
         self.tok.fill_(int(token))
         self.pos.fill_(int(start_pos))
+        self.poison.fill_(float(poison))
+        self.nf.zero_()
         if self.sampled:
             self.temp.fill_(float(temperature))
             self.topp.fill_(float(topp))
@@ -205,17 +217,21 @@ class DecodeGraph:
         self._span = (start_pos, start_pos + k)
 
     def tokens(self) -> list[int]:
-        """The last launch's tokens: the one readback of a chunk."""
+        """The last launch's tokens: the one readback of a chunk, which also
+        brings back the launch's non-finite lane count (``nonfinite``)."""
         lo, hi = self._span
-        return self.out[lo:hi].tolist()
+        got = torch.cat([self.out[lo:hi], self.nf]).tolist()
+        self.nonfinite = got[-1]
+        return got[:-1]
 
 
 class VerifyGraph:
     """The engine's single-sequence speculative verify step
     (``models.llama.verify_step`` over the dense cache ``kv``) on static
     buffers: the tokens ``[1, K+1]`` (the committed token and K drafts) and
-    the start position ``[1]`` int32. A replay writes ``[n_acc, preds...]``
-    (``K + 2`` int64) to ``out``, read back in one transfer. The warm-up
+    the start position ``[1]`` int32 and the poison selector ``[1]`` f32. A
+    replay writes ``[n_acc, preds..., nonfinite]`` (``K + 3`` int64) to
+    ``out``, read back in one transfer. The warm-up
     writes cache rows ``pos .. pos + K`` at the position of the capture,
     which the first verify there writes again before they become
     visible."""
@@ -228,21 +244,25 @@ class VerifyGraph:
         first = int(pos)
         tok = self.tok = torch.zeros((1, width), dtype=torch.long, device=dev)
         pos = self.pos = torch.full((1,), first, dtype=torch.int32, device=dev)
-        out = self.out = torch.zeros(width + 1, dtype=torch.long, device=dev)
+        out = self.out = torch.zeros(width + 2, dtype=torch.long, device=dev)
+        poison = self.poison = torch.zeros(1, dtype=torch.float32, device=dev)
         self._tok_host = staging(tok)
 
         def body() -> None:
-            n_acc, preds, _ = verify_step(params, cfg, tok, pos, kv)
+            n_acc, preds, nf, _ = verify_step(params, cfg, tok, pos, kv, poison=poison)
             out[:1].copy_(n_acc)
-            out[1:].copy_(preds[0])
+            out[1:width + 1].copy_(preds[0])
+            out[width + 1:].copy_(nf)
 
         self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
 
-    def run(self, tokens, start_pos: int) -> tuple[int, list[int]]:
+    def run(self, tokens, start_pos: int, poison: float = 0.0
+            ) -> tuple[int, list[int], int]:
         """One verify of ``tokens`` (``K + 1`` ids) at ``start_pos``:
-        ``(n_acc, preds)``."""
+        ``(n_acc, preds, nonfinite)``."""
         load(self.tok, self._tok_host, np.asarray(tokens, dtype=np.int64).reshape(1, -1))
         self.pos.fill_(int(start_pos))
+        self.poison.fill_(float(poison))
         self.step.replay()
         got = self.out.tolist()
-        return got[0], got[1:]
+        return got[0], got[1:-1], got[-1]

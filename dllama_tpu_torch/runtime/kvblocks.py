@@ -68,13 +68,6 @@ def blocks_per_seq(seq_len: int, block_size: int) -> int:
     return padded_cache_len(seq_len) // block_size
 
 
-def block_pool_bytes(cfg, n_blocks: int, block_size: int,
-                     kv_dtype_bytes: int) -> int:
-    """Device bytes of a block pool ``[L, n_blocks, n_kv, block_size, hd]``
-    ×2 (K and V) — the JAX package's ``hbm.estimate_block_pool_bytes``."""
-    return 2 * cfg.n_layers * n_blocks * cfg.kv_dim * block_size * kv_dtype_bytes
-
-
 class PagedKVCache(NamedTuple):
     """Device-side block pool: ``[L, n_blocks, n_kv, block_size, hd]``."""
 

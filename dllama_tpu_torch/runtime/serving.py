@@ -56,10 +56,25 @@ guard spans a graph replay and its readback; every call is host code
 around the replays (nothing sits inside a captured step), and none reads a
 device tensor.
 
+Quality and numerics: a request submitted with ``score=True`` is
+a teacher-forced eval sequence (``runtime/evalharness.py``): admitted like
+any request but never prefix-matched, every prefill chunk runs
+``models.llama.prefill_nll`` on the same padded chunk the plain prefill
+would, its NLL values collect in ``Request.nll_parts``, and it retires after
+its last chunk without emitting a token. Every step carries the non-finite
+tripwire (``runtime/numerics.py``): the ``logits`` failpoint's poison code
+rides in the step's knobs buffer (a row written before each replay with
+the other knobs, no extra copy or synchronisation), each row's non-finite
+lane count comes back with its tokens and counts at the ``batch`` site,
+and under ``--numerics-failfast`` fails that row's request (503-shaped).
+The scheduler's tick replays the engine's canary, if one is set. Device
+memory (``runtime/hbm.py``): a dense pool or a block pool larger than the
+card shrinks to what fits (``fit_batch_slots``, ``fit_block_pool``), and
+``submit`` refuses a prompt that would push the card past its limit
+(:func:`check_hbm_admission`, :class:`HbmAdmissionError`).
+
 Left out (later slices): tenancy and fair queueing, the host KV tier and
-KV migration, eval scoring, the HBM admission guard and degrade, the
-multihost broadcast, and the numerics tripwire's counters and ``logits``
-poison (A9).
+KV migration, and the multihost broadcast.
 """
 
 from __future__ import annotations
@@ -73,13 +88,14 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
-from ..models.llama import (forward, paged_sampled_step, paged_verify_step,
+from ..models.llama import (forward, paged_sampled_step, paged_verify_step, prefill_nll,
                             ragged_sampled_step, ragged_verify_step)
 from ..tokenizer.sampler import xorshift_random_f32
-from . import failpoints, flightrec, telemetry
+from . import failpoints, flightrec, numerics, telemetry
 from .graphs import StepGraph, load, staging
-from .kvblocks import (BlockPool, BlockPoolExhausted, PagedKVCache,
-                       block_pool_bytes, blocks_per_seq)
+from .hbm import (admission_check, check_budget, estimate_block_pool_bytes,
+                  estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool)
+from .kvblocks import BlockPool, BlockPoolExhausted, PagedKVCache, blocks_per_seq
 from .kvcache import KVCache, cache_bits, padded_cache_len
 from .speculative import NgramProposer, spec_coins_consumed
 
@@ -107,6 +123,33 @@ class RequestTimeoutError(SchedulerError):
     """A request's deadline expired before it produced any output
     (HTTP 408). Expiry mid-generation instead finishes the request with
     ``finish_reason="timeout"`` and partial output."""
+
+
+class HbmAdmissionError(SchedulerError):
+    """The device-memory admission guard refused the request: the estimate,
+    raised by the measured per-program bytes, would exceed the card's limit
+    (HTTP 503 with the reason; ``dllama_hbm_admission_rejects_total``)."""
+
+
+def check_hbm_admission(engine, n_prompt: int, need_bytes: int) -> None:
+    """The admission guard shared by the batch scheduler's ``submit`` and the
+    single-sequence API path: before admitting a prompt, cross-check the
+    staging-time estimate against the engine's measured per-program bytes,
+    plus a temporaries estimate for a prefill width the engine has not run
+    yet (a first run of a width allocates its temporaries for the first
+    time). Raises :class:`HbmAdmissionError`; a no-op when the limit is
+    unknown or ``DLLAMA_SKIP_HBM_CHECK`` is set."""
+    bucket = engine._prefill_chunk_size(max(1, n_prompt - 1))
+    extra = (0 if bucket in engine.seen_buckets
+             else estimate_prefill_temp_bytes(engine.cfg, bucket))
+    ok, reason = admission_check(need_bytes=need_bytes,
+                                 measured_bytes=dict(engine.measured_bytes),
+                                 extra_bytes=extra,
+                                 what=f"admitting a {n_prompt}-token request",
+                                 device=engine.device)
+    if not ok:
+        telemetry.registry().counter(telemetry.HBM_ADMISSION_REJECTS).inc()
+        raise HbmAdmissionError(reason)
 
 
 @dataclass
@@ -152,6 +195,13 @@ class Request:
     # drafts accepted
     spec_drafted: int = 0
     spec_accepted: int = 0
+    # quality observatory (runtime/evalharness): a teacher-forced eval
+    # sequence — admitted and chunk-prefilled like any request, but every
+    # chunk runs prefill_nll, the chunk's NLL values (float32, position
+    # order) collect here, and it retires at the end of prefill: no decode,
+    # no prefix registration
+    score: bool = False
+    nll_parts: list = field(default_factory=list)
 
     def __post_init__(self):
         self.rng_state = self.seed & _MASK64
@@ -245,8 +295,12 @@ class _GeneratorCore:
 
     def capture(self) -> StepGraph:
         """The step this generator dispatches every tick (the verify step
-        under ``spec``), captured now."""
-        return self.verify_graph() if self.spec else self.step_graph()
+        under ``spec``), captured now; its bytes measured for the admission
+        guard."""
+        graph = self.verify_graph() if self.spec else self.step_graph()
+        self.eng.note_program_bytes(
+            f"graph:{type(self).__name__}.{'verify' if self.spec else 'step'}")
+        return graph
 
     def close(self) -> None:
         """Drop the captured steps (they hold the pool's and the
@@ -313,6 +367,74 @@ class _GeneratorCore:
         admission's column (the subclass's storage)."""
         raise NotImplementedError
 
+    def _poison(self) -> float:
+        """The tripwire's poison selector for one dispatch, driven by the
+        ``logits`` failpoint (runtime/numerics); written into the step's
+        knobs row with the other per-step knobs."""
+        return numerics.poison_code()
+
+    def _prefill_nll_chunk(self, adm: _Admission, padded: list[int], n_valid: int) -> None:
+        """The scoring twin of :meth:`_prefill_chunk`: ``prefill_nll`` into
+        the admission's column on the SAME padded chunk the plain prefill
+        would dispatch (so eval chunking stays bit-comparable to the engine
+        oracle's), with the same timing, attribution and ``prefill_chunk``
+        span, plus the chunk's NLL values read back and appended to the
+        request — sliced to the valid positions, so the padding rows never
+        reach a sum."""
+        tgt = adm.req.prompt_ids[adm.pos + 1:adm.pos + 1 + n_valid]
+        dev = self.eng.device
+        t0 = telemetry.now_ns()
+        with self.eng.guarded("batch_prefill"):
+            nll, adm.col = prefill_nll(
+                self.eng.params, self.cfg,
+                torch.tensor([padded], dtype=torch.long, device=dev),
+                torch.tensor([tgt + [0] * (len(padded) - n_valid)], dtype=torch.long,
+                             device=dev),
+                adm.pos, adm.col)
+            vals = nll[0, :n_valid].float().cpu().numpy()
+        t1 = telemetry.now_ns()
+        ms = (t1 - t0) / 1e6
+        adm.req.ms_prefill += ms
+        for s in self.slots:
+            if s is not None:
+                s.ms_preempt += ms
+        bad = int(vals.size - np.count_nonzero(np.isfinite(vals)))
+        if bad:
+            numerics.record_nonfinite(bad, "eval")
+        adm.req.nll_parts.append(vals)
+        self.flight.note_prefill(adm.req.rid, ms, n_valid)
+        telemetry.tracer().emit(adm.req.rid, "prefill_chunk", t0, t1, slot=adm.slot,
+                                n_tokens=n_valid)
+
+    def _finish_score(self, adm: _Admission) -> None:
+        """Retire a teacher-forced eval admission at the end of its prefill:
+        eval sequences never decode. ``RETIRES`` balances the admission, and
+        the ``eval`` span covers admission start → last NLL chunk."""
+        req = adm.req
+        self._tm.counter(telemetry.RETIRES).inc()
+        n = max(0, len(req.prompt_ids) - 1)
+        telemetry.tracer().emit(req.rid, "eval", req.t_admit or telemetry.now_ns(),
+                                telemetry.now_ns(), slot=adm.slot, n_tokens=n)
+        self.flight.note("eval_done", req.rid, slot=adm.slot, n_tokens=n)
+        req.done.set()
+
+    def _prefill_step(self, adm: _Admission) -> bool:
+        """Run the admission's next bucketed prefill chunk (a scoring chunk
+        for an eval request); True once its whole prompt is prefilled."""
+        rest = adm.req.prompt_ids[:-1]
+        if adm.pos < len(rest):
+            n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
+            chunk = rest[adm.pos:adm.pos + n_b]
+            pad_to = min(n_b, self.cfg.seq_len - adm.pos)
+            padded = chunk + [0] * (pad_to - len(chunk))
+            if adm.req.score:
+                self._prefill_nll_chunk(adm, padded, len(chunk))
+            else:
+                self._prefill_chunk(adm, padded, len(chunk))
+            self.eng._note_bucket(pad_to)  # the dispatched width
+            adm.pos += len(chunk)
+        return adm.pos >= len(rest)
+
     def _prefill_chunk(self, adm: _Admission, padded: list[int], n_valid: int) -> None:
         """One timed prefill chunk under the watchdog, with attribution: the
         admission's own ``prefill`` wall, every decode-armed slot's preempt
@@ -378,16 +500,20 @@ class _GeneratorCore:
         return None
 
     def _handle_nonfinite(self, active: list[int], nf: np.ndarray) -> set[int]:
-        """Non-finite tripwire: a row whose decode logits hold NaN/Inf fails
-        THAT request (503-shaped) and retires its slot; the rest of the
-        batch is untouched. Returns the retired rows."""
+        """Non-finite tripwire tail of one dispatch: count each poisoned
+        row's event (``dllama_nonfinite_total{site="batch"}``); with
+        fail-fast armed, fail THAT request explicitly (503-shaped, naming the
+        site) instead of emitting garbage tokens and retire its slot, leaving
+        the rest of the batch untouched. Returns the retired rows."""
         failed: set[int] = set()
         for i in active:
             n = int(nf[i])
-            if n > 0:
+            if n <= 0:
+                continue
+            numerics.record_nonfinite(n, "batch")
+            if self.eng.nf_failfast:
                 req = self.slots[i]
-                req.error = (f"non-finite decode logits ({n} lanes) for request "
-                             f"{req.rid}")
+                req.error = str(numerics.nonfinite_error("batch", n))
                 req.server_error = True
                 self._retire(i, "nonfinite")
                 failed.add(i)
@@ -486,19 +612,27 @@ class BatchedGenerator(_GeneratorCore):
         if engine.plan is not None:
             raise ValueError("the dense slot pool runs at sp = 1: --sp under api "
                              "is not ported yet")
+        # the device-memory guard (runtime/hbm.py): a pool that would not fit
+        # the card shrinks to the largest that does, with a warning; only a
+        # pool where one slot does not fit is refused. The estimate charges
+        # the engine's own batch-1 cache, which stays allocated beside it
+        n_fit, est = fit_batch_slots(engine.cfg, n_slots, weight_repr=engine.hbm_weight_repr,
+                                     kv_dtype_bytes=engine.kv_dtype.itemsize,
+                                     device=engine.device)
+        if n_fit == 0:
+            check_budget(est["need_per_device"], f"batched serving ({n_slots} slots)",
+                         engine.device)
+        if n_fit < n_slots:
+            print(f"⚠️ HBM admission guard: --batch-slots {n_slots} does not fit the "
+                  f"device budget — degrading to {n_fit} slots instead of risking an "
+                  f"OOM (runtime/hbm.py)", flush=True)
+            n_slots = n_fit
         super().__init__(engine, n_slots)
         cfg = self.cfg
+        self.hbm_need = est["need_per_device"]  # the submit-time guard's base
         self.pool_bytes = (2 * cfg.n_layers * n_slots * cfg.n_kv_heads
                            * padded_cache_len(cfg.seq_len) * cfg.head_dim
                            * engine.kv_dtype.itemsize)
-        if engine.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(engine.device)
-            if self.pool_bytes > free:
-                raise RuntimeError(
-                    f"the dense KV slot pool needs {self.pool_bytes / 1e9:.2f} GB "
-                    f"({n_slots} slots at {cfg.seq_len} positions) but "
-                    f"{free / 1e9:.2f} GB of device memory is free; lower "
-                    f"--batch-slots or --max-seq-len")
         self.kv = KVCache.create(cfg, batch_size=n_slots, dtype=engine.kv_dtype,
                                  device=engine.device)
         # per-slot PREFILL context: _ctx[s][p] is the prompt token whose KV
@@ -526,9 +660,10 @@ class BatchedGenerator(_GeneratorCore):
     def step_graph(self) -> StepGraph:
         """The ragged step on static buffers, captured on the card at the
         first call, on the calling thread: ``[n_slots, 3]`` int64 (next
-        token, position, step index), ``[2 + chunk, n_slots]`` f32
-        (temperature, top-p, one coin row per step of a chunk); out ``[2,
-        chunk, n_slots]`` int64 (token and non-finite lanes of each step).
+        token, position, step index), ``[3 + chunk, n_slots]`` f32
+        (temperature, top-p, one coin row per step of a chunk, the poison
+        selector in the last row's first lane); out ``[2, chunk, n_slots]``
+        int64 (token and non-finite lanes of each step).
         A replay writes its picks to row ``step`` of ``out``, feeds them
         back as the next tokens and advances the positions and the step
         index on the device, so a chunk of ``k`` tokens is ``k`` replays
@@ -537,7 +672,7 @@ class BatchedGenerator(_GeneratorCore):
         if self._graph is None:
             dev, C, last = self.eng.device, self.chunk, self.cfg.seq_len - 1
             inp = self._in = torch.zeros((self.n_slots, 3), dtype=torch.long, device=dev)
-            knobs = self._knobs = torch.zeros((2 + C, self.n_slots), dtype=torch.float32,
+            knobs = self._knobs = torch.zeros((3 + C, self.n_slots), dtype=torch.float32,
                                               device=dev)
             out = self._out = torch.zeros((2, C, self.n_slots), dtype=torch.long,
                                           device=dev)
@@ -550,7 +685,7 @@ class BatchedGenerator(_GeneratorCore):
                 i = inp[:1, 2]
                 nxt, nf = ragged_sampled_step(
                     params, cfg, inp[:, :1], inp[:, 1].clamp(max=last), kv, knobs[0],
-                    knobs[1], knobs[2:].index_select(0, i)[0])
+                    knobs[1], knobs[2:2 + C].index_select(0, i)[0], knobs[2 + C, :1])
                 out[0].index_copy_(0, i, nxt[None])
                 out[1].index_copy_(0, i, nf[None].long())
                 inp[:, 0].copy_(nxt)
@@ -563,14 +698,15 @@ class BatchedGenerator(_GeneratorCore):
         """The ragged verify step on static buffers, captured once for
         this pool (``n_slots``, ``K + 1``) at the first call, on the calling
         thread: ``[n_slots, K + 2]`` int64 (the K + 1 tokens, position),
-        ``[3, n_slots]`` f32 (temperature, top-p, coin); out ``[K + 3,
+        ``[4, n_slots]`` f32 (temperature, top-p, coin, the poison selector in
+        the first lane of the last row); out ``[K + 3,
         n_slots]`` int64 (accepted drafts, non-finite lanes, the K + 1
         picks). A row past ``seq_len - K - 1`` (a retired slot) reads and
         writes from there."""
         if self._verify is None:
             dev, W = self.eng.device, self.spec + 1
             inp = self._vin = torch.zeros((self.n_slots, W + 1), dtype=torch.long, device=dev)
-            knobs = self._vknobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
+            knobs = self._vknobs = torch.zeros((4, self.n_slots), dtype=torch.float32,
                                                device=dev)
             out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
                                            device=dev)
@@ -581,7 +717,7 @@ class BatchedGenerator(_GeneratorCore):
             def body() -> None:
                 n_acc, preds, nf = ragged_verify_step(
                     params, cfg, inp[:, :W], inp[:, W].clamp(max=cap), kv, knobs[0],
-                    knobs[1], knobs[2])
+                    knobs[1], knobs[2], knobs[3, :1])
                 out[0].copy_(n_acc)
                 out[1].copy_(nf)
                 out[2:].copy_(preds.t())
@@ -625,7 +761,9 @@ class BatchedGenerator(_GeneratorCore):
                 f"({limit} = seq_len {self.cfg.seq_len}"
                 + (f" - spec-lookup {self.spec}" if self.spec else "") + ")")
         rest = ids[:-1]
-        src, k = self._best_prefix(rest)
+        # teacher-forced eval: every position must be scored, so cross-slot
+        # prefix reuse is off — a matched prefix would skip its NLL terms
+        src, k = (0, 0) if req.score else self._best_prefix(rest)
         if k and src != slot:
             for c in (cache_bits(self.kv.k), cache_bits(self.kv.v)):
                 c[:, slot, :, :k] = c[:, src, :, :k]
@@ -644,17 +782,16 @@ class BatchedGenerator(_GeneratorCore):
     def continue_admit(self, adm: _Admission) -> bool:
         """One admission step: one bucketed prefill chunk into the slot's
         column; the last step records the prefill context and arms decode.
-        Returns True once committed."""
-        rest = adm.req.prompt_ids[:-1]
-        if adm.pos < len(rest):
-            n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
-            chunk = rest[adm.pos:adm.pos + n_b]
-            pad_to = min(n_b, self.cfg.seq_len - adm.pos)
-            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)), len(chunk))
-            adm.pos += len(chunk)
-            if adm.pos < len(rest):
-                return False
+        An eval sequence retires instead: no prefix context (its rows hold
+        eval KV no admission may match), no proposer, no decode. Returns
+        True once committed."""
+        if not self._prefill_step(adm):
+            return False
         adm.col = None
+        if adm.req.score:
+            self._finish_score(adm)
+            return True
+        rest = adm.req.prompt_ids[:-1]
         self._ctx[adm.slot] = list(rest)
         if self.spec:
             self._proposers[adm.slot] = NgramProposer(self.spec)
@@ -694,15 +831,18 @@ class BatchedGenerator(_GeneratorCore):
     def _dispatch(self, knobs: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         """``k`` replays of :meth:`step_graph` from every slot's next token
         and position, ``knobs`` ``[2 + k, n_slots]`` (temperature, top-p,
-        one coin row per step): one host→device copy each for the inputs
-        and the knobs, one readback, all under the watchdog's guard.
-        Returns ``(tokens [n_slots, k], non-finite lanes [n_slots])``."""
+        one coin row per step) and the poison selector: one host→device copy
+        each for the inputs and the knobs, one readback, all under the
+        watchdog's guard. Returns ``(tokens [n_slots, k], non-finite lanes
+        [n_slots])``."""
         graph = self.step_graph()
+        poison = self._poison()
         with self.eng.guarded("batch_step" if k == 1 else "batch_chunk"):
             load(self._in, self._in_host, np.stack(
                 [self.next_token, self.pos, np.zeros_like(self.pos)], axis=1))
-            full = np.zeros((2 + self.chunk, self.n_slots), dtype=np.float32)
+            full = np.zeros((3 + self.chunk, self.n_slots), dtype=np.float32)
             full[:2 + k] = knobs
+            full[2 + self.chunk, 0] = poison
             load(self._knobs, self._knobs_host, full)
             for _ in range(k):
                 graph.replay()
@@ -807,10 +947,12 @@ class BatchedGenerator(_GeneratorCore):
                 else:
                     toks[i, 1:] = d
         graph = self.verify_graph()
+        poison = np.zeros((1, self.n_slots), dtype=np.float32)
+        poison[0, 0] = self._poison()
         t0 = time.perf_counter()
         with self.eng.guarded("batch_verify"):
             load(self._vin, self._vin_host, np.concatenate([toks, self.pos[:, None]], axis=1))
-            load(self._vknobs, self._vknobs_host, knobs)
+            load(self._vknobs, self._vknobs_host, np.concatenate([knobs, poison]))
             graph.replay()
             out = self._vout.cpu().numpy()
         ms = (time.perf_counter() - t0) * 1000.0
@@ -857,17 +999,26 @@ class PagedGenerator(_GeneratorCore):
         super().__init__(engine, n_slots)
         self.block_size = block_size
         self.table_width = blocks_per_seq(self.cfg.seq_len, block_size)
-        n_blocks = n_slots * self.table_width + 1
-        self.pool_bytes = block_pool_bytes(self.cfg, n_blocks, block_size,
-                                           engine.kv_dtype.itemsize)
-        if engine.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(engine.device)
-            if self.pool_bytes > free:
-                raise RuntimeError(
-                    f"the paged KV pool needs {self.pool_bytes / 1e9:.2f} GB "
-                    f"({n_blocks} blocks of {block_size} rows for {n_slots} slots "
-                    f"at {self.cfg.seq_len} positions) but {free / 1e9:.2f} GB of "
-                    f"device memory is free; lower --batch-slots or --max-seq-len")
+        # pool sizing through the device-memory guard (runtime/hbm.py): want
+        # every slot at full context + the null block; degrade to the largest
+        # pool that fits (at least one full sequence), block by block
+        want = n_slots * self.table_width + 1
+        n_blocks, est = fit_block_pool(self.cfg, want, block_size=block_size,
+                                       min_blocks=self.table_width + 1,
+                                       weight_repr=engine.hbm_weight_repr,
+                                       kv_dtype_bytes=engine.kv_dtype.itemsize,
+                                       device=engine.device)
+        if n_blocks == 0:
+            check_budget(est["need_per_device"],
+                         f"paged serving ({want} blocks of {block_size})", engine.device)
+        if n_blocks < want:
+            print(f"⚠️ HBM admission guard: {want} KV blocks do not fit the device "
+                  f"budget — degrading to {n_blocks} blocks "
+                  f"({(n_blocks - 1) * block_size} cache rows) instead of risking an "
+                  f"OOM (runtime/hbm.py)", flush=True)
+        self.hbm_need = est["need_per_device"]  # the submit-time guard's base
+        self.pool_bytes = estimate_block_pool_bytes(self.cfg, n_blocks, block_size,
+                                                    engine.kv_dtype.itemsize)
         self.pool = BlockPool(n_blocks, block_size)
         self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
                                        dtype=engine.kv_dtype, device=engine.device)
@@ -903,16 +1054,17 @@ class PagedGenerator(_GeneratorCore):
 
     def step_graph(self) -> StepGraph:
         """The paged step on static buffers (``[n_slots, 2 + table_width]``
-        int64: next token, position, block table; ``[3, n_slots]`` f32:
-        temperature, top-p, coin; out ``[2, n_slots]``: token, non-finite
-        lanes), captured on the card at the first call, on the calling
+        int64: next token, position, block table; ``[4, n_slots]`` f32:
+        temperature, top-p, coin, and the poison selector in the first lane
+        of the last row; out ``[2, n_slots]``: token, non-finite lanes),
+        captured on the card at the first call, on the calling
         thread. The warm-up runs with every input 0: all-null tables, so
         its writes land in the null block."""
         if self._graph is None:
             dev = self.eng.device
             inp = self._in = torch.zeros((self.n_slots, 2 + self.table_width),
                                          dtype=torch.long, device=dev)
-            knobs = self._knobs = torch.zeros((3, self.n_slots), dtype=torch.float32,
+            knobs = self._knobs = torch.zeros((4, self.n_slots), dtype=torch.float32,
                                               device=dev)
             out = self._out = torch.zeros((2, self.n_slots), dtype=torch.long, device=dev)
             self._in_host, self._knobs_host = staging(inp), staging(knobs)
@@ -922,7 +1074,8 @@ class PagedGenerator(_GeneratorCore):
 
             def body() -> None:
                 nxt, nf = paged_sampled_step(params, cfg, inp[:, :1], inp[:, 1], pkv,
-                                             inp[:, 2:], knobs[0], knobs[1], knobs[2])
+                                             inp[:, 2:], knobs[0], knobs[1], knobs[2],
+                                             knobs[3, :1])
                 out[0].copy_(nxt)
                 out[1].copy_(nf)
 
@@ -934,8 +1087,9 @@ class PagedGenerator(_GeneratorCore):
         pool geometry (``n_slots``, ``K + 1``, table width) at the first
         call, on the calling thread: ``[n_slots, K + 3 + table_width]``
         int64 (the K+1 tokens, position, draft length, block table),
-        ``[K + 3, n_slots]`` f32 (temperature, top-p, the K draft coins,
-        the bonus coin); out ``[K + 3, n_slots]`` int64 (accepted drafts,
+        ``[K + 4, n_slots]`` f32 (temperature, top-p, the K draft coins,
+        the bonus coin, the poison selector in the first lane of the last
+        row); out ``[K + 3, n_slots]`` int64 (accepted drafts,
         non-finite lanes, the K+1 emitted candidates). The warm-up runs
         with every input 0: all-null tables, so its writes land in the
         null block."""
@@ -943,7 +1097,7 @@ class PagedGenerator(_GeneratorCore):
             dev, W = self.eng.device, self.spec + 1
             inp = self._vin = torch.zeros((self.n_slots, W + 2 + self.table_width),
                                           dtype=torch.long, device=dev)
-            knobs = self._vknobs = torch.zeros((W + 2, self.n_slots), dtype=torch.float32,
+            knobs = self._vknobs = torch.zeros((W + 3, self.n_slots), dtype=torch.float32,
                                                device=dev)
             out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
                                            device=dev)
@@ -953,7 +1107,7 @@ class PagedGenerator(_GeneratorCore):
             def body() -> None:
                 n_acc, toks, nf = paged_verify_step(
                     params, cfg, inp[:, :W], inp[:, W], pkv, inp[:, W + 2:], inp[:, W + 1],
-                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1])
+                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1], knobs[W + 2, :1])
                 out[0].copy_(n_acc)
                 out[1].copy_(nf)
                 out[2:].copy_(toks.t())
@@ -1048,7 +1202,10 @@ class PagedGenerator(_GeneratorCore):
                 f"(seq_len {self.cfg.seq_len})")
         t_begin = telemetry.now_ns()  # the "admit" span: block bookkeeping
         rest = ids[:-1]
-        shared, n_tok, cow_src, cow_r = self.pool.match_prefix(rest)
+        # teacher-forced eval: every position must be scored, so block-level
+        # prefix reuse is off — a matched prefix would skip its NLL terms
+        shared, n_tok, cow_src, cow_r = (([], 0, None, 0) if req.score
+                                         else self.pool.match_prefix(rest))
         cow_wanted = cow_src is not None and cow_r > 0
         bids: list[int] = []
         pinned: list[int] = []  # shares taken on matched blocks
@@ -1110,17 +1267,18 @@ class PagedGenerator(_GeneratorCore):
         """One admission step: one bucketed prefill chunk over the gathered
         column; the last step commits — scatters the slot's own blocks back,
         registers the prompt's blocks for sharing, publishes the table and
-        arms decode. Returns True once committed."""
-        rest = adm.req.prompt_ids[:-1]
-        if adm.pos < len(rest):
-            n_b = self.eng._prefill_chunk_size(len(rest) - adm.pos)
-            chunk = rest[adm.pos:adm.pos + n_b]
-            pad_to = min(n_b, self.cfg.seq_len - adm.pos)
-            self._prefill_chunk(adm, chunk + [0] * (pad_to - len(chunk)), len(chunk))
-            adm.pos += len(chunk)
-            if adm.pos < len(rest):
-                return False
+        arms decode. An eval sequence retires instead: its blocks are
+        released unregistered (eval KV never seeds the prefix index) and the
+        scored column is dropped. Returns True once committed."""
+        if not self._prefill_step(adm):
+            return False
         slot = adm.slot
+        rest = adm.req.prompt_ids[:-1]
+        if adm.req.score:
+            adm.col = None
+            self._release_blocks(slot)
+            self._finish_score(adm)
+            return True
         bids = self._seq_bids[slot]
         if adm.col is not None:
             self._exec_put(adm.col, bids, self._n_shared[slot])
@@ -1220,7 +1378,9 @@ class PagedGenerator(_GeneratorCore):
         if not active:
             return 0
         self._assert_writable(active, zeros)
-        knobs = self._sampling_rows(active)
+        knobs = np.zeros((4, self.n_slots), dtype=np.float32)
+        knobs[:3] = self._sampling_rows(active)
+        knobs[3, 0] = self._poison()
         graph = self.step_graph()
         t0 = time.perf_counter()
         with self.eng.guarded("batch_step"):
@@ -1258,7 +1418,7 @@ class PagedGenerator(_GeneratorCore):
         spec, B = self.spec, self.n_slots
         toks = np.zeros((B, spec + 1), dtype=np.int64)
         lens = np.zeros(B, dtype=np.int64)
-        knobs = np.zeros((spec + 3, B), dtype=np.float32)  # temp, top-p, coins
+        knobs = np.zeros((spec + 4, B), dtype=np.float32)  # temp, top-p, coins, poison
         for i in active:
             req = self.slots[i]
             toks[i, 0] = self.next_token[i]
@@ -1281,6 +1441,7 @@ class PagedGenerator(_GeneratorCore):
             return 0
         self._assert_writable(active, lens)
         drafted = int(lens.sum())
+        knobs[spec + 3, 0] = self._poison()
         graph = self.verify_graph()
         t0 = time.perf_counter()
         with self.eng.guarded("batch_verify"):
@@ -1351,7 +1512,7 @@ class BatchScheduler:
         # pool; the queue, deadlines and supervision are the same over both
         self.gen: _GeneratorCore = (PagedGenerator(engine, n_slots) if engine.kv_block_size
                                     else BatchedGenerator(engine, n_slots))
-        self.n_slots = n_slots
+        self.n_slots = self.gen.n_slots  # the device-memory guard may shrink the pool
         # interleaved chunked prefill: per tick the first admission always
         # advances one chunk, further ones only while this budget lasts, so
         # decode latency of active slots stays bounded
@@ -1402,7 +1563,14 @@ class BatchScheduler:
     def submit(self, prompt_ids: list[int], max_tokens: int, *,
                temperature: float = 0.0, topp: float = 0.9,
                seed: int = 0xB1A5, stop_on_eos: bool = True,
-               timeout_s: float | None = None, on_token=None) -> Request:
+               timeout_s: float | None = None, on_token=None,
+               score: bool = False) -> Request:
+        """Queue a request. ``score=True`` makes it a teacher-forced eval
+        sequence (``runtime/evalharness.py``): prefilled through
+        ``prefill_nll``, retired after its last chunk with its NLL values in
+        ``nll_parts``, no token emitted. (The JAX scheduler refuses scoring
+        on a multihost engine, which has no replicated ``prefill_nll``; the
+        port has no multihost engine yet.)"""
         with self._lock:
             if self._stop or self._draining or not self._healthy or (
                     self._thread is not None and not self._thread.is_alive()):
@@ -1415,12 +1583,15 @@ class BatchScheduler:
                 raise QueueFullError(
                     f"queue full ({len(self._queue)} waiting, "
                     f"--max-queue {self.max_queue}); retry later")
+            # the device-memory admission guard: refuse a request that would
+            # push the card past its limit instead of failing mid-step
+            check_hbm_admission(self.gen.eng, len(prompt_ids), self.gen.hbm_need)
             rid = self._next_rid
             self._next_rid += 1
             req = Request(rid=rid, prompt_ids=list(prompt_ids),
                           max_tokens=max_tokens, temperature=temperature,
                           topp=topp, seed=seed, stop_on_eos=stop_on_eos,
-                          on_token=on_token)
+                          on_token=on_token, score=score)
             req.t_submit = telemetry.now_ns()
             if timeout_s is not None and timeout_s > 0:
                 req.deadline_ns = req.t_submit + int(timeout_s * 1e9)
@@ -1439,6 +1610,15 @@ class BatchScheduler:
         """Loop thread running and not crash-exhausted."""
         return (self._healthy and not self._stop
                 and (self._thread is None or self._thread.is_alive()))
+
+    def eval_resident(self) -> int:
+        """Teacher-forced eval sequences queued or mid-prefill right now
+        (``runtime/evalharness.py``), surfaced on ``/readyz``: eval work
+        counts in the queue depth without producing tokens, and this says
+        why the depth is up."""
+        with self._lock:
+            return (sum(1 for r in self._queue if r.score)
+                    + sum(1 for a in self._admissions if a.req.score))
 
     def readiness(self) -> tuple[bool, str, str]:
         """(ready, human reason, machine code) for ``GET /readyz``."""
@@ -1722,6 +1902,12 @@ class BatchScheduler:
                 with self._lock:
                     if adm in self._admissions:
                         self._admissions.remove(adm)
+        # the canary sentinel (runtime/numerics): a time-gated fixed-seed
+        # replay on this thread, the one that owns every dispatch, so it
+        # never races a step
+        canary = self.gen.eng.canary
+        if canary is not None:
+            canary.maybe_run()
         if self.gen.n_active == 0 and not self._admissions:
             self._wake.wait(timeout=0.05)
             self._wake.clear()

@@ -10,8 +10,11 @@
 * ``GET /metrics`` (the telemetry registry in the Prometheus text format),
   ``/debug`` (an index of the diagnostic routes), ``/debug/requests``
   (recent per-request phase timelines from the span ring),
-  ``/debug/flight`` (the flight recorder's rings and the spans) and
-  ``/debug/timeline`` (the same as a Perfetto-loadable Chrome trace).
+  ``/debug/flight`` (the flight recorder's rings and the spans),
+  ``/debug/timeline`` (the same as a Perfetto-loadable Chrome trace),
+  ``/debug/numerics`` (the numerics observatory: tripwire totals per site,
+  the last tapped forward's per-layer stats, the canary's status) and
+  ``/debug/eval`` (the last teacher-forced eval run of this process).
 
 Two states behind one handler, as in the JAX package:
 
@@ -29,17 +32,23 @@ Two states behind one handler, as in the JAX package:
 
 Status codes are the JAX server's: 400 for a malformed body, 404 for an
 unknown route, 408 for a deadline that expired before any output, 429 when
-the queue is full, 503 when the scheduler is draining, crashed or stalled.
-Every answer counts into ``dllama_http_requests_total{route, status}``; a
-body with ``"timing": true`` gets the TTFT attribution block (non-streaming
-responses). The ``emit`` failpoint fires before every SSE write.
+the queue is full, 503 when the scheduler is draining, crashed or stalled
+or when the device-memory admission guard refuses the prompt (code
+``queue_full``: load, not damage), 500 naming the site when a fail-fast
+numerics tripwire fires on the single-sequence server (the batched one
+fails the poisoned request 503-shaped). Every answer counts into
+``dllama_http_requests_total{route, status}``; a body with ``"timing":
+true`` gets the TTFT attribution block (non-streaming responses). The
+``emit`` failpoint fires before every SSE write. ``/readyz`` carries
+``eval_resident`` while teacher-forced eval sequences are queued or
+prefilling. With ``--canary-interval`` the engine's canary golden is
+recorded at startup and replayed after single-sequence completions, or on
+the batch scheduler's tick.
 
-Left out (later slices): the HBM admission guard and the canary (ROADMAP
-A9), the fleet router headers and tenancy, stream resume, KV export, and
-the diagnostic routes of layers not ported yet (``/debug/compiles``,
-``/debug/profile``, ``/debug/numerics``, ``/debug/roofline``,
-``/debug/eval``, ``/debug/tenants``), which answer 404 like any unknown
-route.
+Left out (later slices): the fleet router headers and tenancy, stream
+resume, KV export, and the diagnostic routes of layers not ported yet
+(``/debug/compiles``, ``/debug/profile``, ``/debug/roofline``,
+``/debug/tenants``), which answer 404 like any unknown route.
 """
 
 from __future__ import annotations
@@ -55,10 +64,11 @@ import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
-from ..runtime import failpoints, flightrec, telemetry
+from ..runtime import evalharness, failpoints, flightrec, numerics, telemetry
 from ..runtime.speculative import NgramProposer
-from ..runtime.serving import (BatchScheduler, QueueFullError, RequestTimeoutError,
-                               SchedulerUnavailableError)
+from ..runtime.serving import (BatchScheduler, HbmAdmissionError, QueueFullError,
+                               RequestTimeoutError, SchedulerUnavailableError,
+                               check_hbm_admission)
 from ..tokenizer.chat import (ChatItem, ChatTemplateGenerator, ChatTemplateType,
                               EosDetector, EosResult)
 
@@ -277,6 +287,9 @@ class ApiState:
         items = [ChatItem(m.get("role", "user"), m.get("content", "")) for m in delta]
         prompt = self.template.generate(items, append_generation_prompt=True)
         ids = tok.encode(prompt.content, is_start=start_pos == 0, add_special_tokens=True)
+        # the device-memory admission guard (the scheduler's submit-time
+        # check): refuse before prefill, not through an out-of-memory error
+        check_hbm_admission(engine, len(ids), engine.hbm_estimate["need_per_device"])
         prompt_end = min(start_pos + len(ids) - 1, engine.cfg.seq_len)
         max_pred = min(engine.cfg.seq_len,
                        prompt_end + max_tokens if max_tokens > 0 else engine.cfg.seq_len)
@@ -359,6 +372,11 @@ class ApiState:
             # request re-prefills the assistant text from the prompt's end
             self.cache.push([{"role": "assistant", "content": "".join(gate.parts)}],
                             engine.pos)
+        # the canary piggybacks here (this server has no scheduler loop):
+        # the handler thread owns every dispatch, so a replay between
+        # completions never races a request's decode
+        if engine.canary is not None:
+            engine.canary.maybe_run()
         out = {"text": "".join(gate.parts), "finish_reason": finish_reason,
                "prompt_tokens": len(ids), "completion_tokens": n_completion}
         if body.get("timing") and timing is not None:
@@ -381,6 +399,10 @@ class BatchedApiState:
 
     def readiness(self) -> tuple[bool, str, str]:
         return self.sched.readiness()
+
+    def eval_resident(self) -> int:
+        """Teacher-forced eval sequences queued or admitted right now."""
+        return self.sched.eval_resident()
 
     def begin_drain(self) -> None:
         self.sched.begin_drain()
@@ -510,7 +532,8 @@ def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=No
 
 
 _ROUTES = ("/v1/chat/completions", "/v1/models", "/metrics", "/health", "/healthz",
-           "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline")
+           "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline",
+           "/debug/numerics", "/debug/eval")
 
 # the GET /debug index: one line per diagnostic route this server has
 _DEBUG_INDEX = {
@@ -520,6 +543,12 @@ _DEBUG_INDEX = {
                      "request lifecycle events) plus the span ring",
     "/debug/timeline": "GET: Perfetto-loadable Chrome trace of the flight rings "
                        "(save the body, open it in ui.perfetto.dev)",
+    "/debug/numerics": "GET: numerics observatory — non-finite tripwire totals per "
+                       "site, the last tapped forward's per-layer activation stats, "
+                       "the canary's status",
+    "/debug/eval": "GET: quality observatory — the most recent teacher-forced eval "
+                   "run's summary (per-sequence NLL, total NLL hex, perplexity) or "
+                   "its partial results",
 }
 
 
@@ -571,9 +600,14 @@ def make_handler(state: ApiState | BatchedApiState):
                 self._json(200, {"status": "ok"})  # liveness: always 200
             elif path == "/readyz":
                 ready, reason, code = state.readiness()
-                self._json(200 if ready else 503,
-                           {"status": "ok" if ready else "unready",
-                            "reason": reason, "code": code},
+                rz = {"status": "ok" if ready else "unready", "reason": reason, "code": code}
+                # eval sequences inflate the queue without producing tokens:
+                # say why the depth is up
+                ev = getattr(state, "eval_resident", None)
+                n_eval = ev() if ev is not None else 0
+                if n_eval:
+                    rz["eval_resident"] = n_eval
+                self._json(200 if ready else 503, rz,
                            headers=None if ready else backpressure_headers(503))
             elif path == "/metrics":
                 self._count(200)
@@ -592,6 +626,13 @@ def make_handler(state: ApiState | BatchedApiState):
                 data["spans"] = telemetry.tracer().raw_spans()
                 self._json(200, data if path == "/debug/flight"
                            else flightrec.to_chrome_trace(data))
+            elif path == "/debug/numerics":
+                self._json(200, numerics.debug_snapshot(state.engine))
+            elif path == "/debug/eval":
+                last = evalharness.last_run()
+                self._json(200, last if last is not None else {
+                    "run": None,
+                    "note": "no eval run in this process (python -m dllama_tpu_torch eval)"})
             else:
                 self._not_found()
 
@@ -685,10 +726,17 @@ def make_handler(state: ApiState | BatchedApiState):
             except QueueFullError as e:
                 fail(429, {"error": str(e), "code": "queue_full"}, "error",
                      backpressure_headers(429))
-            except SchedulerUnavailableError as e:
+            except (SchedulerUnavailableError, HbmAdmissionError) as e:
+                # an admission-guard refusal is load, not damage: the code
+                # says so (a router reclassifies instead of ejecting)
                 fail(503, {"error": str(e),
-                           "code": "draining" if "draining" in str(e) else "crashed"},
+                           "code": ("queue_full" if isinstance(e, HbmAdmissionError)
+                                    else "draining" if "draining" in str(e) else "crashed")},
                      "error", backpressure_headers(503))
+            except numerics.NumericsError as e:
+                # fail-fast tripwire: non-finite decode-step logits — a 5xx
+                # naming the site, never garbage tokens
+                fail(500, {"error": str(e)}, "error")
             except RequestTimeoutError as e:
                 fail(408, {"error": str(e)}, "timeout")
             except (ClientDisconnect, BrokenPipeError, ConnectionResetError):
@@ -724,6 +772,14 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
     ttype = ChatTemplateType(args.chat_template or "unknown")
     engine = make_engine(args)
     try:
+        if args.canary_interval > 0:
+            # the golden is recorded now, before any traffic; replays run on
+            # the scheduler's tick or after single-sequence completions
+            engine.canary = numerics.CanarySentinel(engine, interval_s=args.canary_interval)
+            engine.canary.ensure_golden()
+            print(f"🐤 canary sentinel: fixed-seed replay every {args.canary_interval:g}s "
+                  f"(drift → dllama_canary_drift_total, the warning names the divergent "
+                  f"layer" + (")" if engine.numerics_taps else " with --numerics-taps)"))
         if n_slots > 1:
             state: ApiState | BatchedApiState = BatchedApiState(
                 engine, n_slots, template_type=ttype, max_queue=args.max_queue,
@@ -745,14 +801,14 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
         raise
     if isinstance(state, BatchedApiState):
         gen = state.sched.gen
-        print(f"🕸️ continuous batching: {n_slots} slots"
+        print(f"🕸️ continuous batching: {gen.n_slots} slots"
               + (f", queue bound {args.max_queue} (429 beyond)" if args.max_queue else ""))
         if engine.kv_block_size:
             print(f"🕸️ paged KV: {gen.pool.n_blocks - 1} blocks × {gen.pool.block_size} "
                   f"rows, {gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
                   f"block-level prefix sharing)")
         else:
-            print(f"🕸️ dense KV slot pool: {n_slots} × {engine.cfg.seq_len} rows, "
+            print(f"🕸️ dense KV slot pool: {gen.n_slots} × {engine.cfg.seq_len} rows, "
                   f"{gen.pool_bytes / 1e9:.2f} GB (cross-slot prefix reuse)"
                   + (f", {engine.decode_chunk} steps per dispatch"
                      if engine.decode_chunk > 1 else ""))

@@ -1,6 +1,18 @@
-"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify|timeline``
+"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify|timeline|eval|audit``
 (the port of the JAX package's ``serve/cli.py`` ``make_engine``/``main``,
-these six modes).
+these eight modes).
+
+``eval --data d.jsonl [--json] [--compare CONFIG]`` scores a dataset
+teacher-forced through the serving stack (``runtime/evalharness.py``) in
+the config the serving flags imply — ``single`` (the engine), ``dense``
+(``--batch-slots N``), ``paged`` (``--batch-slots N --kv-block-size B``) or
+``paged_spec`` (with ``--spec-lookup K``) — and with ``--compare`` once more
+under a second config, whose total NLL must equal the first bit for bit
+(rc 1 on parity drift; a mid-run abort prints the partial JSON, rc 1).
+
+``audit --model m.m [--audit-json]`` is the offline per-tensor quant-error
+audit (``runtime/numerics.py``), on the host alone: rc 1 when a tensor holds
+non-finite values.
 
 ``verify --model m.m [--write]`` checks every tensor of a model against its
 ``.m.sums`` checksum manifest (or writes the manifest with ``--write``) on
@@ -31,7 +43,11 @@ under ``--device cpu``). ``--kv-dtype f8`` stores the KV cache as float8
 e4m3, ``--weight-mode f32|bf16`` loads dense dequantized weights,
 ``--nbatches N`` pins the prefill chunk, ``--host-sampling`` samples on the
 host from downloaded logits, ``--verify-weights`` crc-checks the whole file
-before anything is staged. Modes and flags of the JAX CLI that are not
+before anything is staged. ``--numerics-taps`` collects per-layer
+activation stats on prefill and canary forwards, ``--numerics-failfast``
+fails a request whose decode logits turn non-finite (the tripwire always
+counts them), and ``api --canary-interval SEC`` replays a fixed-seed canary
+prompt against its golden. Modes and flags of the JAX CLI that are not
 ported yet fail loudly instead of being ignored.
 """
 
@@ -47,20 +63,23 @@ from ..formats.quants import F32, Q80
 from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
 from ..tokenizer.chat import ChatItem, ChatTemplateType
 
-PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify", "timeline")
+PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify", "timeline", "eval",
+                "audit")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("eval", "worker", "audit", "fleettrace", "router")
+PENDING_MODES = ("worker", "fleettrace", "router")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
-    p.add_argument("mode", help="inference | chat | perplexity | api | verify | timeline")
+    p.add_argument("mode", help="inference | chat | perplexity | api | verify | timeline | "
+                                "eval | audit")
     p.add_argument("--model", default=None,
                    help=".m model file (every mode but timeline)")
     p.add_argument("--tokenizer", default=None,
-                   help=".t tokenizer file (every mode but verify)")
+                   help=".t tokenizer file (every mode but verify, timeline and audit; "
+                        "optional for eval over token-id datasets)")
     p.add_argument("--verify-weights", action="store_true",
                    help="crc-verify every weight tensor against the .m.sums "
                         "checksum manifest before any device staging (the "
@@ -143,6 +162,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-out", default=None, metavar="FILE",
                    help="append per-request phase spans (queue/admit/prefill/decode/"
                         "verify) as JSONL to FILE (runtime.telemetry.SpanTracer)")
+    # numerics observatory (runtime/numerics.py)
+    p.add_argument("--numerics-taps", action="store_true",
+                   help="collect per-layer activation stats (rms/abs-max/non-finite "
+                        "count/Q80 roundtrip error per block site) on prefill and "
+                        "canary forwards (surfaced via /debug/numerics and "
+                        "dllama_activation_* gauges); off by default")
+    p.add_argument("--numerics-failfast", action="store_true",
+                   help="turn the always-on non-finite logits tripwire into "
+                        "fail-fast: a poisoned request dies with an explicit numerics "
+                        "error naming the site instead of emitting garbage tokens; "
+                        "default counts dllama_nonfinite_total only")
+    p.add_argument("--canary-interval", type=float, default=0.0, metavar="SEC",
+                   help="api: replay a fixed-seed canary prompt every SEC seconds and "
+                        "compare token ids + a logit fingerprint against the golden "
+                        "recorded at startup (drift → dllama_canary_drift_total, the "
+                        "warning names the first divergent layer with "
+                        "--numerics-taps); 0 = off")
+    # audit mode
+    p.add_argument("--audit-json", action="store_true",
+                   help="audit: print the per-tensor table as one JSON object")
+    # eval mode (runtime/evalharness.py)
+    p.add_argument("--data", default=None, metavar="FILE.jsonl",
+                   help="eval: the teacher-forced dataset — one JSON object per line "
+                        "with 'tokens' (token-id list) or 'text' (tokenized with "
+                        "--tokenizer), plus an optional 'id'")
+    p.add_argument("--compare", default=None, metavar="CONFIG",
+                   choices=["single", "dense", "paged", "paged_spec"],
+                   help="eval: also score the dataset under CONFIG and require its "
+                        "total NLL to equal the primary run's bit for bit (exit 1 on "
+                        "parity drift)")
+    p.add_argument("--json", action="store_true",
+                   help="eval: print the run summary as one JSON line")
     # timeline mode
     p.add_argument("--dump", default=None, metavar="FILE",
                    help="timeline: the flight-recorder JSON to convert (a "
@@ -225,17 +276,25 @@ def run_timeline(args) -> int:
 
 
 def make_engine(args) -> InferenceEngine:
+    """The engine of ``args``; a model the card cannot hold exits with the
+    device-memory guard's message before anything is staged."""
+    from ..runtime.hbm import HbmBudgetError
+
     seed = args.seed if args.seed is not None else int(time.time())
-    engine = InferenceEngine(
-        args.model, args.tokenizer, device=args.device,
-        max_seq_len=args.max_seq_len,
-        compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
-        sync_type=Q80 if args.buffer_float_type == "q80" else F32,
-        temperature=args.temperature, topp=args.topp, seed=seed,
-        kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk,
-        spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
-        weight_mode=args.weight_mode, host_sampling=args.host_sampling,
-        verify_weights=args.verify_weights)
+    try:
+        engine = InferenceEngine(
+            args.model, args.tokenizer, device=args.device,
+            max_seq_len=args.max_seq_len,
+            compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
+            sync_type=Q80 if args.buffer_float_type == "q80" else F32,
+            temperature=args.temperature, topp=args.topp, seed=seed,
+            kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk,
+            spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
+            weight_mode=args.weight_mode, host_sampling=args.host_sampling,
+            verify_weights=args.verify_weights, numerics_taps=args.numerics_taps,
+            numerics_failfast=args.numerics_failfast)
+    except HbmBudgetError as e:
+        raise SystemExit(f"❌ {e}") from None
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
@@ -396,6 +455,127 @@ def run_verify(args) -> int:
     return 0
 
 
+def run_audit(args) -> int:
+    """``audit --model m.m [--audit-json]``: the offline per-tensor
+    quant-error audit (``runtime/numerics.audit_model``) on the host alone.
+    rc 1 when any tensor holds non-finite values or the file is unreadable."""
+    from ..runtime.numerics import audit_model
+
+    try:
+        res = audit_model(args.model, emit=None if args.audit_json else print)
+    except (OSError, ValueError) as e:
+        print(f"❌ {args.model}: {e}")
+        return 1
+    if args.audit_json:
+        print(json.dumps(res))
+    return 1 if res["nonfinite_tensors"] else 0
+
+
+def _eval_primary_config(args) -> str:
+    """The eval config the serving flags imply (one of
+    ``telemetry.EVAL_CONFIGS``)."""
+    if args.batch_slots and args.batch_slots > 1:
+        if args.kv_block_size:
+            return "paged_spec" if args.spec_lookup else "paged"
+        return "dense"
+    return "single"
+
+
+def _eval_args_for(args, config: str):
+    """A copy of ``args`` shaped for one eval config: the config decides the
+    generator family; unset sizing flags get eval-sized defaults, so
+    ``--compare paged`` works without more flags."""
+    import copy
+
+    a = copy.copy(args)
+    if config == "single":
+        a.batch_slots, a.kv_block_size, a.spec_lookup = 0, 0, 0
+    elif config == "dense":
+        a.kv_block_size, a.spec_lookup = 0, 0
+    elif config == "paged":
+        a.kv_block_size = args.kv_block_size or 16
+        a.spec_lookup = 0
+    else:  # paged_spec
+        a.kv_block_size = args.kv_block_size or 16
+        a.spec_lookup = args.spec_lookup or 4
+    return a
+
+
+def _run_eval_config(args, seqs, dataset: str, config: str) -> dict:
+    """Build the serving stack for ``config``, score ``seqs``, tear it down.
+    Each config gets its own engine, so a comparison covers the real
+    construction path."""
+    from ..runtime import evalharness
+    from ..runtime.serving import BatchScheduler
+
+    eng = make_engine(_eval_args_for(args, config))
+    sched = None
+    try:
+        if config == "single":
+            return evalharness.run_eval(seqs, dataset=dataset, config=config, engine=eng)
+        n_slots = args.batch_slots if args.batch_slots > 1 else 4
+        sched = BatchScheduler(eng, n_slots=n_slots)
+        return evalharness.run_eval(seqs, dataset=dataset, config=config, sched=sched)
+    finally:
+        if sched is not None:
+            sched.close()
+        eng.close()
+
+
+def run_eval_mode(args) -> int:
+    """``eval``: teacher-forced NLL over ``--data`` through the serving
+    stack. ``--json`` prints the one-line summary; ``--compare`` re-scores
+    under a second config and requires a bit-identical total NLL (rc 1 on
+    parity drift). A mid-run failure exits 1 with the partial-results JSON
+    naming completed and in-flight sequences."""
+    import os
+
+    from ..runtime import evalharness, failpoints
+
+    if not args.data:
+        raise SystemExit("--data FILE.jsonl is required for eval mode")
+    if failpoints.configure_from_env():
+        print(f"💣 fault injection armed from DLLAMA_FAILPOINTS="
+              f"{os.environ.get('DLLAMA_FAILPOINTS')}", file=sys.stderr)
+    dataset = os.path.splitext(os.path.basename(args.data))[0]
+    tok = None
+    if args.tokenizer:
+        from ..tokenizer.bpe import Tokenizer
+
+        tok = Tokenizer.load(args.tokenizer)
+    seqs = evalharness.load_dataset(args.data, tok, seq_len=args.max_seq_len or 0)
+    primary = _eval_primary_config(args)
+    try:
+        result = _run_eval_config(args, seqs, dataset, primary)
+        if args.compare and args.compare != primary:
+            cmp_res = _run_eval_config(args, seqs, dataset, args.compare)
+            result = dict(result)
+            result["compare"] = cmp_res
+            result["parity_drift"] = cmp_res["total_nll_hex"] != result["total_nll_hex"]
+    except evalharness.EvalAborted as e:
+        print(json.dumps(e.partial), flush=True)
+        print(f"💥 {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(result), flush=True)
+    else:
+        print(f"📊 eval {dataset} [{result['config']}]: {result['n_seqs']} seqs, "
+              f"{result['n_tokens']} tokens")
+        print(f"📊 Perplexity: {result['perplexity']:.4f}  total NLL: "
+              f"{result['total_nll']:.6f} ({result['total_nll_hex']})")
+        print(f"📊 Time: {result['wall_s']:.2f}s ({result['eval_tok_per_s']:.1f} tok/s)")
+        if "compare" in result:
+            c = result["compare"]
+            print(f"📊 compare [{c['config']}]: perplexity {c['perplexity']:.4f} "
+                  f"({c['total_nll_hex']})")
+    if result.get("parity_drift"):
+        print(f"💥 parity drift: total NLL differs bit-from-bit between "
+              f"{result['config']} and {result['compare']['config']} — these configs "
+              f"are exact-parity by contract", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None, on_listening=None) -> int:
     """The CLI. ``on_listening(server, state)`` is handed to the ``api``
     server (:func:`~dllama_tpu_torch.serve.api.run_api_server`) for a
@@ -414,16 +594,20 @@ def main(argv=None, on_listening=None) -> int:
                          f"--buffer-float-type --compute-dtype --weight-mode "
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
                          f"--device --sp --decode-chunk --spec-lookup --chat-template "
-                         f"--trace-out; api: --batch-slots --kv-block-size --max-queue "
-                         f"--host --port --request-timeout --drain-timeout --stats; "
-                         f"verify: --write; timeline: --dump --out)")
+                         f"--trace-out --numerics-taps --numerics-failfast; api: "
+                         f"--batch-slots --kv-block-size --max-queue --host --port "
+                         f"--request-timeout --drain-timeout --stats --canary-interval; "
+                         f"verify: --write; timeline: --dump --out; audit: --audit-json; "
+                         f"eval: --data --compare --json --batch-slots --kv-block-size)")
     if args.mode == "timeline":
         return run_timeline(args)  # host only: no model, no device
     if args.model is None:
         raise SystemExit(f"--model is required for {args.mode} mode")
     if args.mode == "verify":
         return run_verify(args)  # host only: no device is touched
-    if args.tokenizer is None:
+    if args.mode == "audit":
+        return run_audit(args)  # host only: no device is touched
+    if args.mode != "eval" and args.tokenizer is None:
         raise SystemExit(f"--tokenizer is required for {args.mode} mode")
     if args.weight_mode == "offload":
         raise SystemExit("--weight-mode offload (host-DRAM weight streaming) is not "
@@ -435,6 +619,8 @@ def main(argv=None, on_listening=None) -> int:
         resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: {e}") from None
+    if args.mode == "eval":
+        return run_eval_mode(args)
     if args.mode == "api":
         from .api import run_api_server
 

@@ -333,9 +333,9 @@ def test_ragged_sampled_steps_match_jax():
     topps = np.array([0.9, 0.9, 0.95], np.float32)
     coins = rng.random((k, B)).astype(np.float32)
     kv, jkv = _filled_caches(cfg, jcfg, B, np.random.default_rng(11))
-    got, _ = llama.sampled_steps(params, cfg, torch.from_numpy(token),
-                                 torch.from_numpy(pos), kv, torch.from_numpy(temps),
-                                 torch.from_numpy(topps), torch.from_numpy(coins), k)
+    got, _, _ = llama.sampled_steps(params, cfg, torch.from_numpy(token),
+                                    torch.from_numpy(pos), kv, torch.from_numpy(temps),
+                                    torch.from_numpy(topps), torch.from_numpy(coins), k)
     want, _ = jax_llama.sampled_steps(jparams, jcfg, jnp.asarray(token, jnp.int32),
                                       jnp.asarray(pos, jnp.int32), jkv,
                                       jnp.asarray(temps), jnp.asarray(topps),

@@ -133,10 +133,11 @@ def test_decode_graph_matches_eager_and_jax(sampled):
     eager, t = [], token
     for i in range(N_STEPS):
         if sampled:
-            nxt, _ = llama.sampled_step(params, cfg, torch.tensor([[t]]), start + i, eager_kv,
-                                        0.8, 0.9, float(coins[i]))
+            nxt, _, _ = llama.sampled_step(params, cfg, torch.tensor([[t]]), start + i,
+                                           eager_kv, 0.8, 0.9, float(coins[i]))
         else:
-            nxt, _ = llama.greedy_step(params, cfg, torch.tensor([[t]]), start + i, eager_kv)
+            nxt, _, _ = llama.greedy_step(params, cfg, torch.tensor([[t]]), start + i,
+                                          eager_kv)
         t = int(nxt[0])
         eager.append(t)
 

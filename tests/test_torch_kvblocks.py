@@ -137,7 +137,9 @@ def test_pool_geometry_and_bytes():
     assert pkv.k.shape == (3, 9, 2, 16, 16) and pkv.k.dtype == torch.bfloat16
     assert pkv.n_blocks == 9 and pkv.block_size == 16
     assert not pkv.v.any()
+    from dllama_tpu_torch.runtime.hbm import estimate_block_pool_bytes
+
     nbytes = pkv.k.numel() * 2 * pkv.k.element_size()
-    assert tkb.block_pool_bytes(cfg, 9, 16, 2) == nbytes
-    assert tkb.block_pool_bytes(cfg, 9, 16, 2) == jax_hbm.estimate_block_pool_bytes(
+    assert estimate_block_pool_bytes(cfg, 9, 16, 2) == nbytes
+    assert estimate_block_pool_bytes(cfg, 9, 16, 2) == jax_hbm.estimate_block_pool_bytes(
         jcfg, 9, 16, 2)

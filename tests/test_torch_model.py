@@ -159,15 +159,16 @@ def test_greedy_and_sampled_steps_match_jax():
     jkv, kv = JaxKVCache.create(jcfg), KVCache.create(cfg)
     jtok, jkv = jax_llama.greedy_step(jparams, jcfg, jnp.asarray([PROMPT], jnp.int32),
                                       jnp.int32(0), jkv)
-    tok, kv = llama.greedy_step(params, cfg, torch.tensor([PROMPT]), 0, kv)
+    tok, nf, kv = llama.greedy_step(params, cfg, torch.tensor([PROMPT]), 0, kv)
+    assert nf.tolist() == [0]
     assert int(tok[0]) == int(jtok[0])
     pos, t = len(PROMPT), int(tok[0])
     for coin in (0.05, 0.5, 0.93):
         jt, jkv = jax_llama.sampled_step(
             jparams, jcfg, jnp.asarray([[t]], jnp.int32), jnp.int32(pos), jkv,
             jnp.float32(0.9), jnp.float32(0.9), jnp.float32(coin))
-        tt, kv = llama.sampled_step(params, cfg, torch.tensor([[t]]), pos, kv,
-                                    0.9, 0.9, coin)
+        tt, _, kv = llama.sampled_step(params, cfg, torch.tensor([[t]]), pos, kv,
+                                       0.9, 0.9, coin)
         assert int(tt[0]) == int(jt[0])
         pos, t = pos + 1, int(tt[0])
 

@@ -176,7 +176,7 @@ def test_verify_step_matches_jax_and_sequential_greedy(trial):
     _, kv = llama.forward(params, cfg, torch.tensor([prompt]), 0, kv)
     seq, t = [], token
     for i in range(5):
-        nxt, kv = llama.greedy_step(params, cfg, torch.tensor([[t]]), len(prompt) + i, kv)
+        nxt, _, kv = llama.greedy_step(params, cfg, torch.tensor([[t]]), len(prompt) + i, kv)
         seq.append(int(nxt[0]))
         t = seq[-1]
     # drafts: the first two right, then a wrong one
@@ -184,8 +184,10 @@ def test_verify_step_matches_jax_and_sequential_greedy(trial):
     toks = [token, *drafts]
     kv2 = KVCache.create(cfg)
     _, kv2 = llama.forward(params, cfg, torch.tensor([prompt]), 0, kv2)
-    n_acc, preds, kv2 = llama.verify_step(params, cfg, torch.tensor([toks]),
-                                          torch.tensor([len(prompt)], dtype=torch.int32), kv2)
+    n_acc, preds, nf, kv2 = llama.verify_step(params, cfg, torch.tensor([toks]),
+                                              torch.tensor([len(prompt)], dtype=torch.int32),
+                                              kv2)
+    assert nf.tolist() == [0]
     jkv = JaxKVCache.create(jcfg)
     _, jkv = jax_llama.forward(jparams, jcfg, jnp.asarray([prompt], jnp.int32),
                                jnp.int32(0), jkv)

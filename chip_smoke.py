@@ -123,7 +123,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    on every shape, K3 at T = 5 over depth 2047, K4 at 8 ragged rows,
    T = 5, draft lengths 0-4;
 9. the dense slot pool, the single-sequence ``api`` and ``chat`` at full
-   width and 32 layers: ``api --batch-slots 8`` without ``--kv-block-size``
+   width (the dense pool's runs and ``chat`` on the 8-layer copy, the single
+   ``api`` at 32 layers): ``api --batch-slots 8`` without ``--kv-block-size``
    with the serving mix in f32 and bf16 (K1-K3 must launch, K4 never),
    then one dense step of that geometry under ``torch.profiler``
    (:func:`dense_step_profile`: device ms, K2's and K3's share, the replay
@@ -137,11 +138,13 @@ Phases, each failing loudly (non-zero exit, no result line):
    a subprocess with two lines on stdin. Phase 3 holds K3 at the dense
    pool's shapes: 8 ragged rows at T = 1 and T = K + 1, single pass
    (``tc`` over bf16). The long sp cell, the graphs phase,
-   ``spec_serving`` and the dense pool's chunk and spec runs run on an
-   8-layer copy of the model (:data:`LONG_LAYERS`) to keep the run under
-   900 s;
+   ``spec_serving`` and the dense pool's runs run on an 8-layer copy of the
+   model (:data:`LONG_LAYERS`) to keep the run under 900 s;
 10. the engine options of slice 10 and weight integrity, at full width and
-   32 layers. Phase 3 adds K3, K3s and K4 over a float8 e4m3 cache (the
+   32 layers (``--kv-dtype f8``'s single-sequence runs and sp cell,
+   ``--nbatches``, ``--host-sampling``, the weight modes and integrity on the
+   8-layer copy).
+   Phase 3 adds K3, K3s and K4 over a float8 e4m3 cache (the
    ``f8-*`` modes of :data:`ATTN_MODES` in the attention cases, under
    the rules of the f32 and bf16 caches, against the plain version on the
    same cache, the bound at 1 byte an element, the yardstick an upcast to
@@ -177,7 +180,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    :func:`paged_step_syncs` counts one synchronisation per paged step with
    every instrument on; :func:`obs_cost` times the per-step
    instrumentation calls alone;
-12. slice 12 at full width and 32 layers: ``eval_phase`` (``eval --json``
+12. slice 12 at full width: ``eval_phase`` (on the 8-layer copy; ``eval --json``
    in the four configs ``single``, ``dense``, ``paged`` and ``paged_spec``,
    f32 and bf16, in one CLI process: equal NLL hexes per dtype, ``--compare
    single`` without drift, K1 and K3 launched; the f32 NLLs against the
@@ -187,17 +190,32 @@ Phases, each failing loudly (non-zero exit, no result line):
    and without ``--numerics-failfast``, the single-sequence canary, the
    tripwire's cost), ``hbm_phase`` (an f32-weight engine refused before
    staging under 16 GB; a 256-slot f32 dense pool shrunk to what the card
-   fits, serving, then refusing a prompt 503), and beside them ``audit
-   --audit-json`` of the 32-layer file (host only, at nice 19: it starts
-   after the phases whose host rates PERF.md compares). To make room in
-   the 900 s, ``spec_single``, the sp path's short and q80 cells, the
-   weight modes and the integrity phase run on the 8-layer copy;
-13. the ``kernels`` JSON line, then the result line
+   fits, serving, then refusing a prompt 503), and beside them and the
+   fleet ``audit --audit-json`` of the 32-layer file (host only, at nice
+   19: it starts after the phases whose host rates PERF.md compares). To
+   make room in the 900 s, ``spec_single``, the sp path's short and q80
+   cells, the weight modes, the integrity phase, eval and numerics run on
+   the 8-layer copy;
+13. the fleet tier at full width and 32 layers (:func:`fleet_phase`): two
+   paged replicas (A in this process, B a process of its own) behind
+   ``python -m dllama_tpu_torch router`` (a third process, which must hold
+   no CUDA context), both under ``--tenant-limits`` with a usage ledger:
+   the serving mix routed in two tenants (all 200, both replicas
+   dispatched, greedy transcripts against a direct run on A, the router's
+   tenant view the sum of the replicas'), two streams resumed after B's
+   SIGKILL and one after a ``step:raise`` on A (gapless, no duplicate,
+   ``[DONE]``, held to the unbroken run on A by the near-tie rule; no new
+   graph on A), B restarted and readmitted, tenancy (``flood`` at most 2
+   slots a replica, ``light``'s queue wait below ``flood``'s, ``metered``
+   shed with 429), ``/debug/slo``, ``fleettrace`` over the saved dumps, and
+   A's K1-K4 launched; :func:`paged_step_syncs` counts its one
+   synchronisation a scheduler tick with tenant limits set;
+14. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
-``--only eval,numerics,hbm,audit`` is a development run of slice 12's phases
-alone (no kernel cases, exit 3, no result line).
+``--only eval,numerics,hbm,fleet,audit`` is a development run of the phases
+of slices 12 and 13 alone (no kernel cases, exit 3, no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
 and bf16) and the paged decode step's profile on the package of the
@@ -3559,13 +3577,16 @@ def f8_single(model: str, tok: str, text: str, n_layers: int, summary: dict) -> 
         finally:
             eng.close()
         drift, ref = float(abs(got - base).max()), float(abs(base).max())
+        # the main path's default-cache numbers, where it ran at this depth
+        main = summary[dtype] if summary[dtype].get("layers") == n_layers else {}
         rec = dict(case="f8_single", compute_dtype=dtype, layers=n_layers,
                    generated=int(stat(lines, "Prediction", "nTokens:")),
                    prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
                    decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
-                   decode_tok_per_s_default_cache=summary[dtype]["decode_tok_per_s"],
-                   perplexity=ppl, perplexity_default_cache=summary[dtype]["perplexity"],
-                   perplexity_rel_diff=abs(ppl / summary[dtype]["perplexity"] - 1.0),
+                   decode_tok_per_s_default_cache=main.get("decode_tok_per_s"),
+                   perplexity=ppl, perplexity_default_cache=main.get("perplexity"),
+                   perplexity_rel_diff=(abs(ppl / main["perplexity"] - 1.0) if main
+                                        else None),
                    logits_max_abs_drift=drift, logits_max_abs=ref,
                    drift_bound=0.15 * max(ref, 1.0), cache_gb=cache_gb, peak_gb=peak_gb,
                    k3_paths=dict(collections.Counter(p for _, p in paths)),
@@ -3843,12 +3864,12 @@ WATCHDOG_FLOOR_S = 2.0   # DLLAMA_WATCHDOG_FLOOR_S of the watchdog phase
 HANG_S = 10.0            # the step_hang sleep: five budgets past the floor
 
 
-def _post(url: str, body: dict) -> tuple[int, dict]:
+def _post(url: str, body: dict, headers: dict | None = None) -> tuple[int, dict]:
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
             return r.status, json.loads(r.read())
@@ -4029,25 +4050,32 @@ def obs_cost(summary: dict) -> None:
 
 def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
     """Synchronisations a paged decode step makes, counted with
-    ``torch.cuda.set_sync_debug_mode("warn")`` over 8 ``PagedGenerator.step``
-    calls (8 slots at 8 layers, the captured step) with every instrument
-    on: the step's one readback, and nothing the instrumentation added."""
+    ``torch.cuda.set_sync_debug_mode("warn")`` over 8 scheduler ticks
+    (``BatchScheduler._tick`` on this thread: 8 slots at 8 layers decoding,
+    the captured step) with every instrument on and tenant limits set (the
+    slots' requests in four tenants, the tick's tenant accounting and
+    fair-queue admission included): the step's one readback, and nothing
+    the instrumentation or the tenancy added."""
     import warnings
 
     from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime import tenancy
     from dllama_tpu_torch.runtime.engine import InferenceEngine
-    from dllama_tpu_torch.runtime.serving import PagedGenerator, Request
+    from dllama_tpu_torch.runtime.serving import BatchScheduler
 
     eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
                           temperature=0.0, kv_block_size=BLOCK)
     try:
-        gen = PagedGenerator(eng, SLOTS)
-        gen.capture()
+        sched = BatchScheduler(eng, SLOTS, _start_thread=False,
+                               tenant_limits=tenancy.parse_limits(FLEET_LIMITS))
+        sched.gen.capture()
         ids = eng.tokenizer.encode(PROMPT)
+        tenants = ["light", "flood", "team-a", "team-b"]
         for i in range(SLOTS):
-            gen.admit(Request(rid=i, prompt_ids=ids[: 40 + 20 * i], max_tokens=64,
-                              stop_on_eos=False), i)
-        gen.step()
+            sched.submit(ids[: 40 + 20 * i], 64, stop_on_eos=False, tenant=tenants[i % 4])
+        while sched.gen.n_active < SLOTS:  # flood's two: under its cap
+            sched._tick()
+        sched._tick()
         torch.cuda.synchronize()
         n = 8
         with warnings.catch_warnings(record=True) as caught:
@@ -4055,17 +4083,18 @@ def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 for _ in range(n):
-                    gen.step()
+                    sched._tick()
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         # one warning per synchronising call (the mode's own "prototype"
         # notice, printed once a process, is not one)
         syncs = [str(w.message) for w in caught
                  if "called a synchronizing CUDA operation" in str(w.message)]
-        gen.close()
+        sched.close()
     finally:
+        tenancy.reset()
         eng.close()
-    rec = dict(case="paged_step_syncs", steps=n, syncs=len(syncs),
+    rec = dict(case="paged_step_syncs", steps=n, syncs=len(syncs), tenant_limits=True,
                syncs_per_step=len(syncs) / n, first=syncs[:2])
     print(json.dumps(rec), flush=True)
     summary["paged_step_syncs"] = rec
@@ -4692,6 +4721,648 @@ def hbm_phase(model: str, tok: str, summary: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the fleet tier (router, tenancy, mid-stream resume)
+# ---------------------------------------------------------------------------
+
+# --tenant-limits of both replicas: a slot-capped flooder and a weight-4
+# light tenant; the metered tenant's token rate is set from its request's
+# cost (prompt + max_tokens, charged up front) so that the bucket (2 s of
+# rate) holds 1.5 requests: of four sent at once to one replica, the first
+# passes and the others run it dry
+FLEET_LIMITS = {"flood": {"max_slots": 2}, "light": {"weight": 4.0}}
+METERED_BODY = {"messages": [{"role": "user", "content": "metered"}], "max_tokens": 32,
+                "temperature": 0}
+FLEET_SLO = "ttft_p95_ms=4000,itl_p50_ms=250,shed_rate=0.05"
+FLEET_STREAM = 256    # tokens of each stream a replica death interrupts
+FLEET_KILL_AFTER = 32  # tokens the client holds before the death
+FLEET_ERR_STREAM = 160
+
+
+def dev_flags() -> list[str]:
+    """The CLI's device flag for a child process (the card is its default)."""
+    return [] if DEV == "cuda" else ["--device", DEV]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Child:
+    """``python -m dllama_tpu_torch ARGV`` as a process of its own from the
+    checkout, its output in ``log``; killed at exit if still running."""
+
+    def __init__(self, argv: list[str], log: str, env: dict | None = None):
+        import atexit
+
+        self.log = log
+        with open(log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dllama_tpu_torch", *argv], stdout=f,
+                stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, **(env or {})})
+        atexit.register(lambda: self.proc.poll() is None and self.proc.kill())
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def tail(self, n: int = 3000) -> str:
+        with open(self.log, errors="replace") as f:
+            return f.read()[-n:]
+
+    def wait_ready(self, url: str, what: str, timeout: float = 600) -> float:
+        """Poll ``GET url/readyz`` until 200; seconds it took."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                fail(f"{what} exited {self.proc.returncode} before it was ready:\n{self.tail()}")
+            try:
+                if _get_json(url + "/readyz")[0] == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.2)
+        fail(f"{what} not ready in {timeout:g} s:\n{self.tail()}")
+
+    def stop(self, what: str) -> int:
+        """SIGTERM (the api drains, the router stops) and wait."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                fail(f"{what} did not stop on SIGTERM:\n{self.tail()}")
+        return self.proc.returncode
+
+
+def stream_chat(url: str, body: dict, headers: dict | None = None, progress=None) -> dict:
+    """One SSE completion, read event by event: the token ids of the
+    ``dllama`` stamps with the ledger held (every stamped index advances by
+    exactly the ids its chunk carries from the body's ``resume_from`` on: no
+    gap, no duplicate), the text, the finish reason, ``[DONE]``, any
+    terminal error event, the response's fleet id. ``progress(n_tokens)``
+    runs after each stamped chunk."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions",
+                                 data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    out = dict(status=None, tokens=[], text="", finish=None, done=False, gap=None,
+               error=None, fleet_id=None, tenant=None)
+    t0 = time.perf_counter()
+    try:
+        r = urllib.request.urlopen(req, timeout=900)
+    except urllib.error.HTTPError as e:
+        out.update(status=e.code, error=e.read().decode(errors="replace")[:500])
+        return out
+    with r:
+        out.update(status=r.status, fleet_id=r.headers.get("X-Dllama-Request-Id"),
+                   tenant=r.headers.get("X-Dllama-Tenant"))
+        n = body.get("resume_from", 0)
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                out["done"] = True
+                continue
+            obj = json.loads(line[6:])
+            if "error" in obj:
+                out["error"] = obj["error"]
+                continue
+            ch = obj["choices"][0]
+            out["finish"] = ch.get("finish_reason") or out["finish"]
+            out["text"] += (ch.get("delta") or {}).get("content") or ""
+            meta = obj.get("dllama")
+            if meta is None or meta["index"] == 0:
+                continue  # the final chunk, or the prompt echo
+            if meta["index"] != n + len(meta["tokens"]) and out["gap"] is None:
+                out["gap"] = (n, meta["index"], len(meta["tokens"]))
+            n = meta["index"]
+            out["tokens"] += meta["tokens"]
+            if progress is not None:
+                progress(len(out["tokens"]))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def get_text(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.read().decode()
+
+
+def in_threads(fns: list) -> list:
+    """Run the callables concurrently; their results in order."""
+    import threading
+
+    out: list = [None] * len(fns)
+
+    def run(i: int) -> None:
+        try:
+            out[i] = fns[i]()
+        except Exception as e:  # noqa: BLE001 — reported by the caller's checks
+            out[i] = dict(status=None, error=repr(e), tokens=[])
+
+    ths = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=900)
+    return out
+
+
+def check_stream(what: str, r: dict, n: int) -> None:
+    """A client stream that survived: 200, gapless, no duplicate, [DONE],
+    finish ``length`` after all ``n`` tokens, no terminal error event."""
+    if (r.get("status") != 200 or r.get("gap") is not None or not r.get("done")
+            or r.get("error") is not None or r.get("finish") != "length"
+            or len(r.get("tokens", [])) != n):
+        fail(f"fleet {what}: the stream is not whole: "
+             f"{ {k: r.get(k) for k in ('status', 'gap', 'done', 'error', 'finish')} }, "
+             f"{len(r.get('tokens', []))} of {n} tokens")
+
+
+def served_by(router: str, fleet_id: str) -> str | None:
+    """The replica of a request's last ``rt_dispatch`` span (``/debug/fleet``)."""
+    spans = _get_json(router + "/debug/fleet")[1]["spans"]
+    hits = [s for s in spans if s["request_id"] == fleet_id and s["phase"] == "rt_dispatch"]
+    return hits[-1]["replica"] if hits else None
+
+
+def pin_session(router: str, want: str, tag: str, busy_url: str | None = None) -> str:
+    """A session id whose first dispatch lands on replica ``want``: a
+    one-token request per candidate id, read back from ``/debug/fleet``
+    (idle replicas tie and the first wins; with ``busy_url`` a long request
+    sent straight to that replica loads it, as the router's probe reads)."""
+    import threading
+
+    busy = None
+    if busy_url is not None:
+        busy = threading.Thread(target=_post, args=(
+            busy_url, {"messages": [{"role": "user", "content": "keep busy " * 8}], "max_tokens": 96,
+             "temperature": 0, "session_id": f"{tag}-busy"}))
+        busy.start()
+        time.sleep(1.0)
+    try:
+        for k in range(12):
+            sid = f"{tag}-{k}"
+            st, _ = _post(router, {"messages": [{"role": "user", "content": f"pin {sid}"}],
+                                   "max_tokens": 1, "temperature": 0, "session_id": sid},
+                          {"X-Dllama-Request-Id": f"pin-{sid}"})
+            if st == 200 and served_by(router, f"pin-{sid}") == want:
+                return sid
+        fail(f"fleet: no session of {tag!r} landed on {want}")
+    finally:
+        if busy is not None:
+            busy.join(timeout=600)
+
+
+def prompt_ids(tokenizer, template, body: dict) -> list[int]:
+    """The token ids the api admits for ``body``'s messages."""
+    from dllama_tpu_torch.tokenizer.chat import ChatItem
+
+    items = [ChatItem(m.get("role", "user"), m.get("content", "")) for m in body["messages"]]
+    prompt = template.generate(items, append_generation_prompt=True)
+    return tokenizer.encode(prompt.content, is_start=True, add_special_tokens=True)
+
+
+def ledger_monotonic(path: str) -> int:
+    """Lines of a usage ledger, each tenant's totals never decreasing."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    last: dict = {}
+    for rec in lines:
+        for t, v in rec["tenants"].items():
+            for k in ("prefill_tokens", "decode_tokens", "admissions", "sheds", "timeouts"):
+                if v[k] < last.get((t, k), 0):
+                    fail(f"fleet: usage ledger {os.path.basename(path)}: {t} {k} fell from "
+                         f"{last[(t, k)]} to {v[k]}")
+                last[(t, k)] = v[k]
+    if [r["seq"] for r in lines] != list(range(1, len(lines) + 1)):
+        fail(f"fleet: usage ledger {os.path.basename(path)}: seq {[r['seq'] for r in lines]}")
+    return len(lines)
+
+
+def flood_slots(flight: dict) -> list[int]:
+    """Per tick of a flight dump, the slots the ``flood`` tenant held."""
+    tenant = {e["rid"]: e.get("tenant") for e in flight["events"] if e["event"] == "submit"}
+    return [sum(1 for rid in t.get("slots") or [] if rid is not None
+                and tenant.get(rid) == "flood") for t in flight["ticks"]]
+
+
+def span_ms(spans: list, phase: str) -> list[float]:
+    return [(s["end_ns"] - s["start_ns"]) / 1e6 for s in spans if s["phase"] == phase]
+
+
+def router_libcuda(pid: int) -> bool | None:
+    """Whether the CUDA driver library is mapped into process ``pid`` (None
+    when unreadable)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return None
+
+
+def compute_apps() -> list[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def fleet_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict) -> None:
+    """The fleet tier at full width and depth (f32, f32 buffers, paged
+    pools): replica A in process (:func:`api_server`), replica B and the
+    router (``--probe-interval 0.2 --max-stream-resumes 1 --slo``) as
+    processes of their own, both replicas under :data:`FLEET_LIMITS` with a
+    usage ledger. The serving mix routed in two tenants (every request 200,
+    both replicas dispatched, greedy transcripts against a direct run on
+    A, the router's tenant view the sum of the replicas'); two streams
+    interrupted by B's SIGKILL (EOF) and one by a ``step:raise`` on A (the
+    terminal error chunk), each resumed gapless on the other replica and
+    held to the unbroken run on A; B restarted and readmitted; tenancy
+    (``flood`` never above 2 slots, ``light`` waiting less, ``metered``
+    shed 429); ``/debug/slo``; ``fleettrace`` over the saved dumps; no CUDA
+    context in the router; A's K1-K4 launched. Transcripts that part are
+    held to the near-tie rule afterwards (:class:`TieProbe`)."""
+    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry, tenancy
+    from dllama_tpu_torch.serve.api import chat_template
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+    from dllama_tpu_torch.tokenizer.chat import ChatTemplateType
+
+    tokenizer = Tokenizer.load(tok)
+    template, _ = chat_template(tokenizer, ChatTemplateType.UNKNOWN)
+    cost = len(prompt_ids(tokenizer, template, METERED_BODY)) + METERED_BODY["max_tokens"]
+    limits = os.path.join(tmp, "fleet_limits.json")
+    with open(limits, "w") as f:
+        json.dump({**FLEET_LIMITS,
+                   "metered": {"tokens_per_s": 1.5 * cost / tenancy.BURST_S}}, f)
+    ledgers = {k: os.path.join(tmp, f"usage_{k}.jsonl") for k in ("A", "B1", "B2")}
+    common = ["--model", model, "--tokenizer", tok, "--compute-dtype", "f32",
+              "--buffer-float-type", "f32", "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED),
+              "--temperature", "0", "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK),
+              "--tenant-limits", limits]
+    port_b = free_port()
+    url_b = f"http://127.0.0.1:{port_b}"
+    # B believes it owns the card: give it half of it (the memory guard's
+    # own override), A takes what the process already holds
+    half = str(int(torch.cuda.get_device_properties(0).total_memory // 2)) if DEV == "cuda" else None
+    env_b = {"DLLAMA_HBM_BYTES": half} if half else {}
+
+    def start_b(ledger: str) -> Child:
+        return Child(["api", *common, *dev_flags(), "--usage-ledger", ledger, "--host",
+                      "127.0.0.1", "--port", str(port_b)], os.path.join(tmp, "replica_b.log"),
+                     env=env_b)
+
+    rec: dict = {"case": "fleet", "layers": n_layers, "slots": SLOTS, "block_size": BLOCK}
+    parts: list = []  # transcript pairs the near-tie rule judges at the end
+    # this phase's telemetry, tenants and flight rings alone
+    telemetry.registry().reset()
+    telemetry.tracer()._ring.clear()
+    flightrec.recorder().reset()
+    tenancy.reset()
+    b = start_b(ledgers["B1"])
+    router = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    with api_server(["api", *common, "--usage-ledger", ledgers["A"]], "fleet replica A") as (
+            url_a, state_a):
+        try:
+            name_a, name_b = url_a.removeprefix("http://"), url_b.removeprefix("http://")
+            rec["b_ready_s"] = b.wait_ready(url_b, "fleet replica B")
+            port_r = free_port()
+            url_r = f"http://127.0.0.1:{port_r}"
+            router = Child(["router", "--replica", url_a, "--replica", url_b,
+                            "--probe-interval", "0.2", "--max-stream-resumes", "1",
+                            "--slo", FLEET_SLO, "--host", "127.0.0.1", "--port", str(port_r)],
+                           os.path.join(tmp, "router.log"))
+            router.wait_ready(url_r, "fleet router", timeout=120)
+            t_up = time.perf_counter()
+            while any(r["state"] != "up" for r in _get_json(url_r + "/debug/fleet")[1]["replicas"]):
+                if time.perf_counter() - t_up > 60:
+                    fail(f"fleet: the router never saw both replicas up: "
+                         f"{_get_json(url_r + '/debug/fleet')[1]['replicas']}")
+                time.sleep(0.2)
+            zero_counts()  # A's counts of this phase: from here to the last request
+
+            def rmetric(series: str) -> float:
+                return _metric(get_text(url_r + "/metrics"), series)
+
+            # -- the serving mix, routed, in two tenants -------------------
+            bodies = serving_bodies()
+            tenants = ["team-a" if i % 2 == 0 else "team-b" for i in range(len(bodies))]
+            t0 = time.perf_counter()
+            routed = in_threads([lambda b_=b_, t=t: stream_chat(url_r, b_, {"X-Dllama-Tenant": t})
+                                 for b_, t in zip(bodies, tenants)])
+            wall = time.perf_counter() - t0
+            bad = [(i, r.get("status"), r.get("error")) for i, r in enumerate(routed)
+                   if r.get("status") != 200 or not r.get("tokens") or r.get("gap")
+                   or not r.get("done")]
+            if bad:
+                fail(f"fleet routed mix: {len(bad)} request(s) failed: {bad[:3]}")
+            disp = {n: rmetric(f'dllama_router_dispatch_total{{replica="{n}"}}')
+                    for n in (name_a, name_b)}
+            if min(disp.values()) <= 0:
+                fail(f"fleet routed mix: a replica was never dispatched: {disp}")
+            spans = _get_json(url_r + "/debug/fleet")[1]["spans"]
+            ttft, conn = span_ms(spans, "rt_first_byte"), span_ms(spans, "rt_connect")
+            n_tok = sum(len(r["tokens"]) for r in routed)
+            rec["routed"] = dict(
+                requests=len(bodies), generated_tokens=n_tok, wall_s=wall,
+                gen_tok_per_s=n_tok / wall, dispatches=disp,
+                router_ttft_ms_p50=statistics.median(ttft) if ttft else None,
+                router_connect_ms_p50=statistics.median(conn) if conn else None,
+                one_replica_gen_tok_per_s=summary.get("f32", {}).get("serving", {}).get(
+                    "gen_tok_per_s"))
+            print(f"   fleet routed: {n_tok / wall:.2f} gen tok/s over 2 replicas (one replica, "
+                  f"serving phase: {rec['routed']['one_replica_gen_tok_per_s']}), router TTFT "
+                  f"p50 {rec['routed']['router_ttft_ms_p50']} ms, connect p50 "
+                  f"{rec['routed']['router_connect_ms_p50']} ms", flush=True)
+            # the router's tenant view is the sum of the replicas'
+            fleet_t = _get_json(url_r + "/debug/fleet/tenants")[1]
+            reps_t = [_get_json(u + "/debug/tenants")[1]["tenants"] for u in (url_a, url_b)]
+            for t in ("team-a", "team-b"):
+                for k in ("decode_tokens", "prefill_tokens", "admissions"):
+                    want = sum(rt.get(t, {}).get(k, 0) for rt in reps_t)
+                    if fleet_t["tenants"].get(t, {}).get(k) != want or not want:
+                        fail(f"fleet /debug/fleet/tenants {t} {k}: "
+                             f"{fleet_t['tenants'].get(t, {}).get(k)}, the replicas sum {want}")
+            if fleet_t["replicas_joined"] != 2:
+                fail(f"fleet /debug/fleet/tenants joined {fleet_t['replicas_joined']} replicas")
+            # the same mix directly on A: greedy transcripts equal up to a near tie
+            direct = in_threads([lambda b_=b_: stream_chat(url_a, b_) for b_ in bodies])
+            same = 0
+            for i, (b_, r, d) in enumerate(zip(bodies, routed, direct)):
+                if d.get("status") != 200 or d.get("gap"):
+                    fail(f"fleet direct mix request {i}: {d.get('status')} {d.get('error')}")
+                same += r["tokens"] == d["tokens"]
+                if b_.get("temperature", 0.0) <= 0.0 and r["tokens"] != d["tokens"]:
+                    parts.append((f"routed mix request {i}", prompt_ids(tokenizer, template, b_),
+                                  r["tokens"], d["tokens"], 0.0, 0.9, 0))
+            rec["routed"]["equal_to_direct"] = same
+
+            # -- EOF death: SIGKILL B under two streams ---------------------
+            gen_a = state_a.sched.gen
+            graph0 = (gen_a._graph, gen_a._graph.capture_s, gen_a._verify)
+            resumed0 = rmetric('dllama_router_stream_resumes_total{outcome="resumed"}')
+            sids = [pin_session(url_r, name_b, f"eof{k}", busy_url=url_a) for k in range(2)]
+            eof_bodies = [
+                {"messages": [{"role": "user", "content": f"Tell the long story {k}."}],
+                 "max_tokens": FLEET_STREAM, "session_id": sid,
+                 **({"temperature": 0.0} if k == 0 else
+                    {"temperature": 0.9, "top_p": 0.9, "seed": 4242})}
+                for k, sid in enumerate(sids)]
+            got = [0, 0]
+            import threading
+
+            both = threading.Event()
+
+            def progress(k):
+                def f(n):
+                    got[k] = n
+                    if min(got) >= FLEET_KILL_AFTER:
+                        both.set()
+                return f
+
+            killer_t: dict = {}
+
+            def killer():
+                if not both.wait(timeout=600):
+                    return
+                killer_t["at_tokens"] = list(got)
+                b.proc.kill()  # SIGKILL: the sockets close, no [DONE]
+                b.proc.wait(timeout=60)
+                killer_t["t"] = time.perf_counter()
+                # the restart loads while the streams resume on A (the
+                # router's half-open backoff readmits it once it answers)
+                killer_t["b2"] = start_b(ledgers["B2"])
+
+            kt = threading.Thread(target=killer)
+            kt.start()
+            eof = in_threads([lambda b_=b_, k=k: stream_chat(url_r, b_, progress=progress(k))
+                              for k, b_ in enumerate(eof_bodies)])
+            kt.join(timeout=600)
+            if "t" not in killer_t:
+                fail(f"fleet EOF death: the streams never reached {FLEET_KILL_AFTER} tokens "
+                     f"each ({got})")
+            b = killer_t["b2"]
+            for k, r in enumerate(eof):
+                check_stream(f"EOF death stream {k}", r, FLEET_STREAM)
+            resumed = rmetric('dllama_router_stream_resumes_total{outcome="resumed"}')
+            spans = _get_json(url_r + "/debug/fleet")[1]["spans"]
+            rt_resume = [s for s in spans if s["phase"] == "rt_resume"]
+            if resumed - resumed0 != 2 or len(rt_resume) < 2:
+                fail(f"fleet EOF death: resumes {resumed - resumed0}, rt_resume spans "
+                     f"{len(rt_resume)}; want 2")
+            if (gen_a._graph, gen_a._graph.capture_s, gen_a._verify) != graph0:
+                fail("fleet EOF death: replica A captured a new graph for the resumes")
+            unbroken = in_threads([lambda b_=b_: stream_chat(url_a, b_) for b_ in eof_bodies])
+            for k, (b_, r, u) in enumerate(zip(eof_bodies, eof, unbroken)):
+                check_stream(f"unbroken run {k} on A", u, FLEET_STREAM)
+                if r["tokens"] != u["tokens"]:
+                    parts.append((f"EOF death stream {k}", prompt_ids(tokenizer, template, b_),
+                                  r["tokens"], u["tokens"], b_["temperature"], 0.9,
+                                  b_.get("seed", 0)))
+            rec["eof"] = dict(killed_at_tokens=killer_t["at_tokens"],
+                              resume_ms=[round((s["end_ns"] - s["start_ns"]) / 1e6, 3)
+                                         for s in rt_resume],
+                              resume_from=[s["resume_from"] for s in rt_resume],
+                              equal_to_unbroken=[r["tokens"] == u["tokens"]
+                                                 for r, u in zip(eof, unbroken)])
+
+            # -- B restarted (at the kill) and readmitted ---------------------
+            b.wait_ready(url_b, "fleet replica B (restarted)")
+            t_re = time.perf_counter()
+            while rmetric(f'dllama_router_readmits_total{{replica="{name_b}"}}') < 1:
+                if time.perf_counter() - t_re > 60:
+                    fail("fleet: the router never readmitted the restarted replica B")
+                time.sleep(0.2)
+            rec["b_restart_to_readmit_s"] = time.perf_counter() - killer_t["t"]
+            disp_b0 = rmetric(f'dllama_router_dispatch_total{{replica="{name_b}"}}')
+
+            # -- error-chunk death: step:raise on A mid-stream -------------
+            sid = pin_session(url_r, name_a, "err")
+            err_body = {"messages": [{"role": "user", "content": "Count the stones slowly."}],
+                        "max_tokens": FLEET_ERR_STREAM, "temperature": 0.0, "session_id": sid}
+            armed = threading.Event()
+
+            def arm(n):
+                if n >= FLEET_KILL_AFTER and not armed.is_set():
+                    armed.set()
+                    failpoints.registry().arm("step", "raise", times=1)
+
+            crashes0 = telemetry.registry().counter(telemetry.SCHEDULER_CRASHES).total()
+            err = stream_chat(url_r, err_body, progress=arm)
+            failpoints.registry().clear()
+            check_stream("error-chunk death", err, FLEET_ERR_STREAM)
+            if telemetry.registry().counter(telemetry.SCHEDULER_CRASHES).total() != crashes0 + 1:
+                fail("fleet error-chunk death: A's scheduler did not crash once")
+            spans = _get_json(url_r + "/debug/fleet")[1]["spans"]
+            rs = [s for s in spans if s["phase"] == "rt_resume"
+                  and s["request_id"] == err["fleet_id"]]
+            if len(rs) != 1 or rs[0]["replica"] != name_b:
+                fail(f"fleet error-chunk death: want one resume on B, got {rs}")
+            n_from = rs[0]["resume_from"]
+            # the same resume body straight to A: the continuation B computed
+            replay = stream_chat(url_a, dict(err_body, resume_from=n_from,
+                                             resume_tokens=err["tokens"][:n_from]),
+                                 {"X-Dllama-Resume-From": str(n_from)})
+            if (replay.get("status") != 200 or replay.get("gap") or not replay.get("done")
+                    or len(replay["tokens"]) != FLEET_ERR_STREAM - n_from):
+                fail(f"fleet resume replay on A: {replay.get('status')} {replay.get('gap')} "
+                     f"{len(replay.get('tokens', []))} tokens")
+            if replay["tokens"] != err["tokens"][n_from:]:
+                parts.append(("error-chunk continuation, B against A",
+                              prompt_ids(tokenizer, template, err_body) + err["tokens"][:n_from],
+                              err["tokens"][n_from:], replay["tokens"], 0.0, 0.9, 0))
+            unbroken = stream_chat(url_a, err_body)
+            check_stream("error-chunk unbroken run on A", unbroken, FLEET_ERR_STREAM)
+            if err["tokens"] != unbroken["tokens"]:
+                parts.append(("error-chunk death", prompt_ids(tokenizer, template, err_body),
+                              err["tokens"], unbroken["tokens"], 0.0, 0.9, 0))
+            rec["error_chunk"] = dict(resume_from=n_from,
+                                      resume_ms=(rs[0]["end_ns"] - rs[0]["start_ns"]) / 1e6,
+                                      equal_to_unbroken=err["tokens"] == unbroken["tokens"],
+                                      replay_equal=replay["tokens"] == err["tokens"][n_from:])
+
+            # -- fleettrace over the saved dumps ----------------------------
+            dumps = {k: os.path.join(tmp, f"fleet_{k}.json") for k in ("router", "A", "B")}
+            for k, u in (("router", url_r + "/debug/fleet"), ("A", url_a + "/debug/flight"),
+                         ("B", url_b + "/debug/flight")):
+                with open(dumps[k], "w") as f:
+                    f.write(get_text(u))
+            trace_out = os.path.join(tmp, "fleet_trace.json")
+            ft = subprocess.run([sys.executable, "-m", "dllama_tpu_torch", "fleettrace",
+                                 "--router-dump", dumps["router"], "--replica-dump",
+                                 f"A={dumps['A']}", "--replica-dump", f"B={dumps['B']}",
+                                 "--out", trace_out], capture_output=True, text=True,
+                                timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+            if ft.returncode != 0 or "⚠️" in ft.stderr:
+                fail(f"fleettrace: rc {ft.returncode}\n{ft.stdout[-1500:]}\n{ft.stderr[-1500:]}")
+            with open(trace_out) as f:
+                trace = json.load(f)
+            pids = {e["pid"] for e in trace["traceEvents"] if e.get("ph") == "X"
+                    and e.get("cat") == "replica"
+                    and e["args"].get("request_id") == err["fleet_id"]}
+            if len(pids) != 2:
+                fail(f"fleettrace: the error-chunk request's flow crosses {len(pids)} replica "
+                     f"track(s), want 2")
+            rec["fleettrace"] = dict(events=len(trace["traceEvents"]), **trace["fleetJoin"])
+
+            # -- tenancy -------------------------------------------------------
+            flood = [{"messages": [{"role": "user", "content": f"flood request {i} " * 3}],
+                      "max_tokens": 24, "temperature": 0} for i in range(24)]
+            light = [{"messages": [{"role": "user", "content": f"light request {i}"}],
+                      "max_tokens": 24, "temperature": 0} for i in range(4)]
+            res = in_threads(
+                [lambda b_=b_: _post(url_r, b_, {"X-Dllama-Tenant": "flood"}) for b_ in flood]
+                + [lambda b_=b_: _post(url_r, b_, {"X-Dllama-Tenant": "light"})
+                   for b_ in light])
+            if any(not isinstance(r, tuple) or r[0] != 200 for r in res):
+                fail(f"fleet tenancy: not every request 200: "
+                     f"{[r[0] if isinstance(r, tuple) else r for r in res]}")
+            sid = pin_session(url_r, name_a, "metered")  # anonymous: no budget spent
+            metered = [r[0] if isinstance(r, tuple) else r for r in in_threads(
+                [lambda: _post(url_r, dict(METERED_BODY, session_id=sid),
+                               {"X-Dllama-Tenant": "metered"})] * 4)]
+            if sorted(metered) != [200, 429, 429, 429]:
+                fail(f"fleet tenancy: metered answers {metered}, want one 200 and three 429")
+            views = {"A": _get_json(url_a + "/debug/tenants")[1],
+                     "B": _get_json(url_b + "/debug/tenants")[1]}
+            sheds = sum(v["tenants"].get("metered", {}).get("sheds", {}).get(
+                "tenant_rate_budget", 0) for v in views.values())
+            if sheds != metered.count(429):
+                fail(f"fleet tenancy: {metered.count(429)} metered 429s, {sheds} "
+                     f"tenant_rate_budget sheds on the replicas")
+            slots = {"A": flood_slots(flightrec.recorder().snapshot()),
+                     "B": flood_slots(_get_json(url_b + "/debug/flight")[1])}
+            if max(max(s, default=0) for s in slots.values()) > 2:
+                fail(f"fleet tenancy: flood held more than 2 slots: "
+                     f"{ {k: max(s, default=0) for k, s in slots.items()} }")
+            if max(max(s, default=0) for s in slots.values()) < 2:
+                fail("fleet tenancy: flood never reached its 2-slot cap")
+            waits, compared = {}, 0
+            for k, v in views.items():
+                w = {t: v["tenants"].get(t, {}).get("queue_wait_ms", {}) for t in ("flood", "light")}
+                waits[k] = {t: w[t].get("p95") for t in w}
+                if not (w["light"].get("n") and w["flood"].get("n")):
+                    continue
+                compared += 1
+                if not w["light"]["p95"] < w["flood"]["p95"]:
+                    fail(f"fleet tenancy on {k}: light's queue-wait p95 {w['light']['p95']} ms "
+                         f"is not below flood's {w['flood']['p95']} ms")
+            if not compared:
+                fail(f"fleet tenancy: light and flood never shared a replica: {waits}")
+            fleet_t = _get_json(url_r + "/debug/fleet/tenants")[1]
+            rec["tenancy"] = dict(
+                metered=metered, queue_wait_p95_ms=waits,
+                flood_max_slots={k: max(s, default=0) for k, s in slots.items()},
+                fleet_jain_index=fleet_t.get("fleet_jain_index"),
+                replica_jain_index={k: v["fairness"]["jain_index"] for k, v in views.items()})
+            print(f"   fleet tenancy: queue-wait p95 {waits}, fleet Jain index "
+                  f"{fleet_t.get('fleet_jain_index')}", flush=True)
+            if rmetric(f'dllama_router_dispatch_total{{replica="{name_b}"}}') <= disp_b0:
+                fail("fleet: no traffic reached the restarted replica B")
+
+            # -- SLO, the router's process, A's kernels ---------------------
+            slo = _get_json(url_r + "/debug/slo")[1]
+            objs = slo.get("objectives", {})
+            if set(objs) != {"ttft_p95_ms", "itl_p50_ms", "shed_rate"} or any(
+                    "compliant" not in o or set(o.get("burn", {})) != {"5m", "1h"}
+                    for o in objs.values()):
+                fail(f"fleet /debug/slo: {slo}")
+            rec["slo"] = {k: dict(estimate=o["estimate"], compliant=o["compliant"],
+                                  burn=o["burn"], n=o["n"]) for k, o in objs.items()}
+            # the card's compute processes: this one (A) and B. In a container
+            # nvidia-smi may list them under other pids, so the count is held
+            # too, and the router must not even map the CUDA driver library
+            apps = compute_apps() if DEV == "cuda" else []
+            libcuda = router_libcuda(router.pid)
+            rec["compute_apps"] = dict(pids=apps, router_pid=router.pid,
+                                       router_maps_libcuda=libcuda)
+            if router.pid in apps or len(apps) > 2 or libcuda:
+                fail(f"fleet: the card lists {apps} as compute processes, the router (pid "
+                     f"{router.pid}) maps libcuda: {libcuda}; it must touch no CUDA")
+            launches = read_counts()
+        finally:
+            failpoints.registry().clear()
+            if router is not None:
+                router.stop("fleet router")
+            rec["b_rc"] = b.stop("fleet replica B")
+    rec["ledger_lines"] = {k: ledger_monotonic(p) for k, p in ledgers.items()}
+    if not rec["ledger_lines"]["A"] or not rec["ledger_lines"]["B2"]:
+        fail(f"fleet: usage ledgers {rec['ledger_lines']}")
+    tenancy.reset()  # the process-wide limits and ledger A configured
+    rec["launches"] = launches
+    summary["f32"]["launches"]["fleet_A"] = launches
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        fail(f"fleet: a kernel of replica A's path never launched: {launches}")
+    # transcripts that part: the near-tie rule on the spec side's token
+    probe = TieProbe(model, tok, "f32", MAX_SEQ)
+    try:
+        rec["parted"] = []
+        for what, prompt, got_t, want_t, temp, topp, seed in parts:
+            diff = probe(prompt, got_t, want_t, temperature=temp, topp=topp, seed=seed)
+            rec["parted"].append(dict(what=what, **(diff or {})))
+            hold_transcripts(f"fleet {what}", "f32", diff, temp)
+    finally:
+        probe.close()
+    print(json.dumps(rec), flush=True)
+    summary["fleet"] = rec
+
+
 def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
@@ -4710,8 +5381,8 @@ def kernels_line(cases: list, e2e: dict) -> dict:
     m/l). K1/K2 entries carry the K split per weight and the code kind,
     K3/K3s/K4 the split-S count, as the launches of the kernel phase took
     them, and every entry its path (``tc``: tensor cores; ``simt``: FP32). Launches are the main paths' counts, per path
-    (``inference``, ``perplexity``, ``api``, and the sp path's
-    ``sp2_*``/``sp1_*`` runs). The e4m3-cache entries (K3, K3s under f32
+    (``inference``, ``perplexity``, ``api``, the sp path's
+    ``sp2_*``/``sp1_*`` runs, the fleet's replica A ``fleet_A``). The e4m3-cache entries (K3, K3s under f32
     and bf16 queries, K4 under bf16) count the ``--kv-dtype f8`` paths'
     launches (``f8_*``), the others every other path's; their library
     yardstick upcasts the cache to bf16 first (two calls: ``library_ms``
@@ -4889,13 +5560,16 @@ def ab_side(tag: str, assets: str, n_layers: int) -> int:
     return 0
 
 
-def slice12_phases(names, model: str, tok: str, tmp: str, n_layers: int, e2e: dict) -> None:
-    """The phases of slice 12, each timed; the audit of ``model`` (host
-    only, at the lowest CPU priority) runs beside the others."""
+def late_phases(names, model: str, long_model: str, tok: str, tmp: str, n_layers: int,
+                e2e: dict) -> None:
+    """The phases of slices 12 and 13, each timed (eval on the 8-layer copy
+    ``long_model``, numerics and the fleet at full depth); the audit of ``model``
+    (host only, at the lowest CPU priority) runs beside the others."""
     audit = start_audit(model, n_layers) if "audit" in names else None
-    for name, phase in (("eval", lambda: eval_phase(model, tok, tmp, e2e)),
+    for name, phase in (("eval", lambda: eval_phase(long_model, tok, tmp, e2e)),
                         ("numerics", lambda: numerics_phase(model, tok, e2e)),
-                        ("hbm", lambda: hbm_phase(model, tok, e2e))):
+                        ("hbm", lambda: hbm_phase(model, tok, e2e)),
+                        ("fleet", lambda: fleet_phase(model, tok, tmp, n_layers, e2e))):
         if name in names:
             t0 = time.perf_counter()
             phase()
@@ -4907,12 +5581,14 @@ def slice12_phases(names, model: str, tok: str, tmp: str, n_layers: int, e2e: di
 
 
 def only_phases(names: list[str], n_layers: int) -> int:
-    """``--only``: the named slice-12 phases on fresh assets, then exit 3
-    (a development run is never a result)."""
+    """``--only``: the named phases of slices 12 and 13 on fresh assets,
+    then exit 3 (a development run is never a result)."""
     e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
         model, tok, _ = write_assets(tmp, n_layers)
-        slice12_phases(names, model, tok, tmp, n_layers, e2e)
+        long_model = os.path.join(tmp, f"llama31_8b_{min(LONG_LAYERS, n_layers)}l.m")
+        write_model(long_model, min(LONG_LAYERS, n_layers))
+        late_phases(names, model, long_model, tok, tmp, n_layers, e2e)
     return 3
 
 
@@ -4927,8 +5603,8 @@ def main() -> int:
                     help="with --ab: where the synthetic model is written once and reused")
     ap.add_argument("--only", metavar="PHASES",
                     help="a development run: only these end-to-end phases (comma-separated "
-                         "from eval, numerics, hbm, audit), no kernel cases; prints no "
-                         "result line")
+                         "from eval, numerics, hbm, fleet, audit), no kernel cases; prints "
+                         "no result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -5015,7 +5691,7 @@ def main() -> int:
         spec_serving(long_model, tok, long_layers, e2e)
         print(f"⏱️ spec serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        dense_serving(model, tok, args.layers, e2e)
+        dense_serving(long_model, tok, long_layers, e2e)
         print(f"⏱️ dense serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         dense_chunk_spec(long_model, tok, long_layers, e2e)
@@ -5024,18 +5700,19 @@ def main() -> int:
         single_api(model, tok, args.layers, e2e)
         print(f"⏱️ single-sequence api took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        chat_phase(model, tok, tmp, e2e)
+        chat_phase(long_model, tok, tmp, e2e)
         print(f"⏱️ chat took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         sp_path(long_model, tok, long_layers, e2e, long_model, long_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
         for name, phase in (
-                ("f8 single sequence", lambda: f8_single(model, tok, text, args.layers, e2e)),
+                ("f8 single sequence",
+                 lambda: f8_single(long_model, tok, text, long_layers, e2e)),
                 ("f8 serving", lambda: f8_serving(model, tok, args.layers, e2e)),
-                ("f8 sp", lambda: f8_sp(model, tok, e2e)),
+                ("f8 sp", lambda: f8_sp(long_model, tok, e2e)),
                 ("weight modes", lambda: weight_modes(long_model, tok, long_layers, e2e)),
-                ("nbatches", lambda: nbatches_phase(model, tok, e2e)),
-                ("host sampling", lambda: host_sampling_phase(model, tok, e2e)),
+                ("nbatches", lambda: nbatches_phase(long_model, tok, e2e)),
+                ("host sampling", lambda: host_sampling_phase(long_model, tok, e2e)),
                 ("weight integrity", lambda: integrity_phase(long_model, tok, tmp, e2e)),
                 ("watchdog and failpoints", lambda: watchdog_phase(long_model, tok, e2e)),
                 ("paged step syncs", lambda: paged_step_syncs(long_model, tok, e2e)),
@@ -5044,8 +5721,8 @@ def main() -> int:
             phase()
             torch.cuda.empty_cache()
             print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
-        slice12_phases(("eval", "numerics", "hbm", "audit"), model, tok, tmp, args.layers,
-                       e2e)
+        late_phases(("eval", "numerics", "hbm", "fleet", "audit"), model, long_model, tok,
+                    tmp, args.layers, e2e)
     model_parity({})
     paged_parity({})
     sp_parity({})

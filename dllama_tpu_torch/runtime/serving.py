@@ -30,8 +30,9 @@
   engine's own dense ``forward`` (K1 + K3) over the sequence's gathered
   column, whose own blocks are scattered back at commit.
 * :class:`BatchScheduler` — thread-safe front end over either generator
-  (``engine.kv_block_size`` picks): a FIFO queue beyond the slots
-  (``max_queue`` shedding), deadlines, interleaved chunked prefill under a
+  (``engine.kv_block_size`` picks): a queue beyond the slots of per-tenant
+  FIFOs drained by weighted round-robin (``max_queue`` shedding), deadlines,
+  interleaved chunked prefill under a
   per-tick token budget, cancellation, and supervision (a crash fails
   every waiter, resets the pool and restarts, up to ``max_restarts``). One
   loop thread owns the generator and every device dispatch; it captures
@@ -73,8 +74,27 @@ card shrinks to what fits (``fit_batch_slots``, ``fit_block_pool``), and
 ``submit`` refuses a prompt that would push the card past its limit
 (:func:`check_hbm_admission`, :class:`HbmAdmissionError`).
 
-Left out (later slices): tenancy and fair queueing, the host KV tier and
-KV migration, and the multihost broadcast.
+Tenancy (:mod:`~dllama_tpu_torch.runtime.tenancy`), at the JAX package's
+sites: every request carries its caller's canonical tenant label, the wait
+queue is a :class:`~dllama_tpu_torch.runtime.tenancy.FairQueue`, a tenant
+at its ``max_slots`` cap is skipped for the tick while the others keep
+admitting, a tenant over its ``tokens_per_s`` budget is shed at submit
+(:class:`TenantOverBudgetError`, a 429), and every accounting site notes
+the same value into the tenant registry that it publishes globally (prefill
+and decode tokens, admissions with their queue wait, TTFT and ITL, sheds,
+timeouts, speculation, KV block-seconds per tick), with the usage ledger
+appended from the loop thread. All of it is host bookkeeping on the loop or
+handler threads: no device read, no synchronisation.
+
+Mid-stream resume: a request submitted with ``resume_from = n`` carries a
+dead replica's ``n`` emitted tokens at the tail of its prompt. It admits
+through the one ordinary path (prefix match, chunked prefill), its coin
+stream is fast-forwarded by ``n`` draws (coin ``i`` belongs to emitted token
+``i``), and its streaming decoder replays the history with the output
+dropped, so the continuation is the one the dead replica would have made.
+
+Left out (later slices): the host KV tier and KV migration, and the
+multihost broadcast.
 """
 
 from __future__ import annotations
@@ -91,7 +111,7 @@ import torch
 from ..models.llama import (forward, paged_sampled_step, paged_verify_step, prefill_nll,
                             ragged_sampled_step, ragged_verify_step)
 from ..tokenizer.sampler import xorshift_random_f32
-from . import failpoints, flightrec, numerics, telemetry
+from . import failpoints, flightrec, numerics, telemetry, tenancy
 from .graphs import StepGraph, load, staging
 from .hbm import (admission_check, check_budget, estimate_block_pool_bytes,
                   estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool)
@@ -112,6 +132,12 @@ class SchedulerError(RuntimeError):
 
 class QueueFullError(SchedulerError):
     """Bounded admission: the wait queue is at --max-queue (HTTP 429)."""
+
+
+class TenantOverBudgetError(QueueFullError):
+    """Per-tenant admission: THIS tenant's ``--tenant-limits`` token-rate
+    bucket ran dry (HTTP 429 with the queue-full backpressure headers — the
+    subclassing is the contract). Other tenants are unaffected."""
 
 
 class SchedulerUnavailableError(SchedulerError):
@@ -162,6 +188,15 @@ class Request:
     seed: int = 0xB1A5
     stop_on_eos: bool = True
     on_token: Callable[[int, str | None], None] | None = None
+    # the canonical tenant label (resolved through TenantRegistry.resolve at
+    # submit, so the cardinality bound holds) that this request's tokens,
+    # latency and KV residency are attributed to
+    tenant: str = tenancy.ANON
+    # mid-stream resume: the TAIL of prompt_ids carries this many tokens a
+    # dead replica already emitted; the coin stream is fast-forwarded by the
+    # same count, so the continuation draws the coins the dead replica would
+    # have (coin i == emitted token i, the spec_coins_consumed invariant)
+    resume_from: int = 0
     # filled by the generator:
     tokens: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
@@ -185,6 +220,8 @@ class Request:
     t_admit: int = 0
     t_decode: int = 0
     t_first_token: int = 0
+    # last emitted-run stamp: the tenant ITL records each run's mean gap
+    t_last_emit: int = 0
     # latency attribution (runtime/flightrec): per-phase wall (ms) the
     # generator accumulates
     ms_prefill: float = 0.0       # own prefill chunk dispatch wall
@@ -205,6 +242,8 @@ class Request:
 
     def __post_init__(self):
         self.rng_state = self.seed & _MASK64
+        for _ in range(self.resume_from):
+            _, self.rng_state = xorshift_random_f32(self.rng_state)
 
     def ttft_breakdown(self) -> dict | None:
         """This request's TTFT decomposition (ms) by the one phase formula
@@ -269,6 +308,10 @@ class _GeneratorCore:
         self.flight = flightrec.recorder()
         self._m_ttft_attrib = self._tm.histogram(telemetry.TTFT_ATTRIB_MS)
         self._m_itl_attrib = self._tm.histogram(telemetry.ITL_ATTRIB_MS)
+        # the tenant observatory: every accounting site below notes the SAME
+        # value it publishes globally, so per-tenant sums reconcile with the
+        # global counters exactly
+        self._tenancy = tenancy.registry()
 
     def free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -317,7 +360,10 @@ class _GeneratorCore:
             telemetry.tracer().emit(req.rid, "decode", req.t_decode, telemetry.now_ns(),
                                     slot=slot, n_tokens=len(req.tokens))
         self.flight.note("retire", req.rid, reason=reason, slot=slot,
-                         n_tokens=len(req.tokens))
+                         n_tokens=len(req.tokens), tenant=req.tenant)
+        # speculation is charged once, at retire, where the request's
+        # accept rate becomes final
+        self._tenancy.note_spec(req.tenant, req.spec_drafted, req.spec_accepted)
         # ITL attribution, once per request: its decode dispatch wall
         # against the prefill chunks of other admissions that ran while it
         # waited (the tick budget's preemption share)
@@ -339,6 +385,12 @@ class _GeneratorCore:
             # carry-over, so interleaved slots can't corrupt each other
             req.decoder = copy.copy(self.eng.tokenizer)
             req.decoder._pending = bytearray()
+            # resumed stream: replay the emitted history through the fresh
+            # decoder (output dropped) so its UTF-8 carry-over matches the
+            # dead replica's at the splice — a kill inside a multi-byte
+            # character still decodes exactly
+            for t in req.prompt_ids[len(req.prompt_ids) - req.resume_from:]:
+                req.decoder.decode(t)
         req.t_decode = telemetry.now_ns()
         if req.t_admit:
             # n_tokens = positions actually prefilled (after prefix reuse)
@@ -354,13 +406,17 @@ class _GeneratorCore:
         req.t_admit = telemetry.now_ns()
         self._tm.counter(telemetry.ADMISSIONS).inc()
         self.flight.note("admit", req.rid, slot=slot, reused=reused,
-                         n_prompt=len(req.prompt_ids))
+                         n_prompt=len(req.prompt_ids), tenant=req.tenant)
         if reused:
             self._tm.counter(telemetry.PREFIX_REUSE_TOKENS).inc(reused)
         if req.t_submit:
-            self._tm.histogram(telemetry.QUEUE_WAIT_MS).record(
-                (req.t_admit - req.t_submit) / 1e6)
+            wait_ms = (req.t_admit - req.t_submit) / 1e6
+            self._tm.histogram(telemetry.QUEUE_WAIT_MS).record(wait_ms)
+            # the same wait feeds the tenant's queue-wait histogram
+            self._tenancy.note_admission(req.tenant, wait_ms)
             telemetry.tracer().emit(req.rid, "queue", req.t_submit, req.t_admit, slot=slot)
+        else:
+            self._tenancy.note_admission(req.tenant)
 
     def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
         """One prefill chunk of ``padded`` tokens at ``adm.pos`` into the
@@ -402,6 +458,7 @@ class _GeneratorCore:
         if bad:
             numerics.record_nonfinite(bad, "eval")
         adm.req.nll_parts.append(vals)
+        self._tenancy.note_prefill_tokens(adm.req.tenant, n_valid)
         self.flight.note_prefill(adm.req.rid, ms, n_valid)
         telemetry.tracer().emit(adm.req.rid, "prefill_chunk", t0, t1, slot=adm.slot,
                                 n_tokens=n_valid)
@@ -449,6 +506,7 @@ class _GeneratorCore:
         for s in self.slots:
             if s is not None:
                 s.ms_preempt += ms
+        self._tenancy.note_prefill_tokens(adm.req.tenant, n_valid)
         self.flight.note_prefill(adm.req.rid, ms, n_valid)
         telemetry.tracer().emit(adm.req.rid, "prefill_chunk", t0, t1, slot=adm.slot,
                                 n_tokens=n_valid)
@@ -498,6 +556,13 @@ class _GeneratorCore:
     def flight_blocks(self) -> dict | None:
         """Block-pool occupancy for the tick record (paged pool only)."""
         return None
+
+    def kv_blocks_by_slot(self, slot: int) -> float:
+        """KV blocks slot ``slot`` holds now, for the tenant observatory's
+        block-second charge: one synthetic block per column in the dense
+        pool (the whole column is reserved); the paged pool counts its
+        real blocks."""
+        return 1.0
 
     def _handle_nonfinite(self, active: list[int], nf: np.ndarray) -> set[int]:
         """Non-finite tripwire tail of one dispatch: count each poisoned
@@ -558,13 +623,23 @@ class _GeneratorCore:
         run = run[:n_keep]
         self.pos[i] += len(run)
         self.next_token[i] = run[-1]
+        t_emit = telemetry.now_ns()
         if req.t_first_token == 0:
             # first emitted token: stamp it and publish the TTFT breakdown
-            req.t_first_token = telemetry.now_ns()
+            req.t_first_token = t_emit
             self.flight.note("first_token", req.rid, slot=i)
             bd = req.ttft_breakdown()
             if bd is not None:
                 flightrec.record_ttft(self._m_ttft_attrib, bd)
+            if req.t_submit:
+                self._tenancy.note_ttft(req.tenant, (t_emit - req.t_submit) / 1e6)
+        elif req.t_last_emit:
+            # later runs: the run's mean inter-token gap, weighted by its
+            # token count (a spec-accepted burst records its per-token gap)
+            self._tenancy.note_itl(req.tenant, (t_emit - req.t_last_emit) / 1e6 / len(run),
+                                   n=len(run))
+        req.t_last_emit = t_emit
+        self._tenancy.note_decode_tokens(req.tenant, len(run))
         req.tokens.extend(run)
         if self._proposers[i] is not None:
             self._proposers[i].extend(run)
@@ -1052,6 +1127,9 @@ class PagedGenerator(_GeneratorCore):
         return {"total": self.pool.n_blocks - 1, "used": self.pool.used_blocks(),
                 "shared": self.pool.shared_blocks()}
 
+    def kv_blocks_by_slot(self, slot: int) -> float:
+        return float(len(self._seq_bids[slot]))
+
     def step_graph(self) -> StepGraph:
         """The paged step on static buffers (``[n_slots, 2 + table_width]``
         int64: next token, position, block table; ``[4, n_slots]`` f32:
@@ -1492,6 +1570,10 @@ class BatchScheduler:
       step boundary, both marked ``timed_out``;
     * **bounded admission** — ``max_queue > 0`` sheds submits beyond the
       bound with :class:`QueueFullError`;
+    * **fair share** — the queue is per-tenant FIFOs drained by weighted
+      round-robin; ``tenant_limits`` (``--tenant-limits``, applied to the
+      process-wide tenant registry) caps a tenant's concurrent slots and
+      sheds a tenant over its token rate with :class:`TenantOverBudgetError`;
     * **supervision** — an exception in the loop fails every queued and
       in-flight request, resets the generator's pool and restarts; past
       ``max_restarts`` the scheduler goes permanently unready and submits
@@ -1507,6 +1589,7 @@ class BatchScheduler:
 
     def __init__(self, engine: "InferenceEngine", n_slots: int = 4, *,
                  max_queue: int = 0, max_restarts: int = 3,
+                 tenant_limits: dict | None = None,
                  _start_thread: bool = True):
         # --kv-block-size picks the paged block pool, else the dense slot
         # pool; the queue, deadlines and supervision are the same over both
@@ -1521,11 +1604,19 @@ class BatchScheduler:
         self.flight = self.gen.flight
         self.max_queue = max_queue
         self.max_restarts = max_restarts
+        # the tenant observatory: the process-wide accounting registry, with
+        # this scheduler's --tenant-limits applied (tests build a limited
+        # scheduler without the CLI)
+        self._tenancy = tenancy.registry()
+        if tenant_limits is not None:
+            self._tenancy.set_limits(tenant_limits)
         # shared state: written by handler threads (submit), the loop
         # thread, the closer and the watchdog monitor — every write outside
-        # __init__ holds _lock
+        # __init__ holds _lock. The wait queue is per-tenant FIFOs drained by
+        # weighted round-robin (FIFO within a tenant)
         self._lock = threading.Lock()
-        self._queue: list[Request] = []
+        self._queue = tenancy.FairQueue(
+            weight_of=lambda t: self._tenancy.limit_for(t).weight)
         self._admissions: list[_Admission] = []
         self._wake = threading.Event()
         self._next_rid = 0
@@ -1538,6 +1629,10 @@ class BatchScheduler:
         # step, so its monitor thread supervises instead
         self._watchdog = engine.watchdog
         self._watchdog.on_stall.append(self._on_stall)
+        # tick-usage clock: KV block-seconds and the fairness window are
+        # charged per tick as (now - last tick); the idle path resets it so
+        # a quiet stretch is billed to nobody
+        self._t_last_tick = time.monotonic()
         # the loop thread dispatches on the engine's device: resolved here,
         # on the creating thread, when the engine names no index ("cuda")
         dev = engine.device
@@ -1564,13 +1659,19 @@ class BatchScheduler:
                temperature: float = 0.0, topp: float = 0.9,
                seed: int = 0xB1A5, stop_on_eos: bool = True,
                timeout_s: float | None = None, on_token=None,
-               score: bool = False) -> Request:
+               score: bool = False, resume_from: int = 0,
+               tenant: str = tenancy.ANON) -> Request:
         """Queue a request. ``score=True`` makes it a teacher-forced eval
         sequence (``runtime/evalharness.py``): prefilled through
         ``prefill_nll``, retired after its last chunk with its NLL values in
         ``nll_parts``, no token emitted. (The JAX scheduler refuses scoring
         on a multihost engine, which has no replicated ``prefill_nll``; the
-        port has no multihost engine yet.)"""
+        port has no multihost engine yet.) ``resume_from = n`` marks the
+        last ``n`` prompt tokens as a dead replica's emitted history (a
+        stream resume); ``tenant`` is the caller's label."""
+        # resolved before the lock: the cardinality bound and its overflow
+        # counter live in the tenant registry, not in scheduler state
+        tenant = self._tenancy.resolve(tenant)
         with self._lock:
             if self._stop or self._draining or not self._healthy or (
                     self._thread is not None and not self._thread.is_alive()):
@@ -1579,25 +1680,50 @@ class BatchScheduler:
                     else "scheduler is not running")
             if self.max_queue and len(self._queue) >= self.max_queue:
                 telemetry.registry().counter(telemetry.REQUESTS_SHED).inc()
-                self.flight.note("shed", reason="queue_full")
+                self._tenancy.note_shed(tenant, "queue_full")
+                self.flight.note("shed", reason="queue_full", tenant=tenant)
                 raise QueueFullError(
                     f"queue full ({len(self._queue)} waiting, "
                     f"--max-queue {self.max_queue}); retry later")
+            # the tenant's token-rate budget: the request's worst case
+            # (prompt + decode limit) is charged up front, and a 429 here
+            # sheds only THIS tenant's request; the global queue bound
+            # above comes first, so a full queue never reads as a budget
+            # problem
+            if not self._tenancy.try_charge_tokens(tenant, len(prompt_ids) + max_tokens):
+                telemetry.registry().counter(telemetry.REQUESTS_SHED).inc()
+                self._tenancy.note_shed(tenant, "tenant_rate_budget")
+                self.flight.note("shed", reason="tenant_rate_budget", tenant=tenant)
+                raise TenantOverBudgetError(
+                    f"tenant {tenant!r} is over its token-rate budget "
+                    f"({self._tenancy.limit_for(tenant).tokens_per_s:g} tok/s); "
+                    f"retry later")
             # the device-memory admission guard: refuse a request that would
             # push the card past its limit instead of failing mid-step
             check_hbm_admission(self.gen.eng, len(prompt_ids), self.gen.hbm_need)
             rid = self._next_rid
             self._next_rid += 1
+            if not 0 <= resume_from < len(prompt_ids):
+                raise ValueError(f"resume_from {resume_from} out of range for a "
+                                 f"{len(prompt_ids)}-token prompt+history")
             req = Request(rid=rid, prompt_ids=list(prompt_ids),
                           max_tokens=max_tokens, temperature=temperature,
                           topp=topp, seed=seed, stop_on_eos=stop_on_eos,
-                          on_token=on_token, score=score)
+                          on_token=on_token, score=score, resume_from=resume_from,
+                          tenant=tenant)
             req.t_submit = telemetry.now_ns()
             if timeout_s is not None and timeout_s > 0:
                 req.deadline_ns = req.t_submit + int(timeout_s * 1e9)
-            self._queue.append(req)
+            # rid → tenant is bound before the loop thread can find the
+            # request, so every span it emits carries the attribution
+            telemetry.tracer().bind_tenant(rid, tenant)
+            self._queue.push(req)
             telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
-            self.flight.note("submit", rid, n_prompt=len(prompt_ids), max_tokens=max_tokens)
+            self.flight.note("submit", rid, n_prompt=len(prompt_ids), max_tokens=max_tokens,
+                             tenant=tenant)
+            if resume_from:
+                self.flight.note("resume", rid, n_history=resume_from, peer="",
+                                 tenant=tenant)
         self._wake.set()
         return req
 
@@ -1675,6 +1801,9 @@ class BatchScheduler:
             self.flight.note("drain_end", n_failed=remainder,
                              reason=("clean" if remainder == 0
                                      else "drain_timeout" if drain_s > 0 else "aborted"))
+            # the final ledger line at drain: the cumulative totals a
+            # consumer reconciles against are never lost to the interval
+            tenancy.ledger().maybe_write(self._tenancy, force=True)
         self._fail_all("server shutting down")
         if self._on_stall in self._watchdog.on_stall:
             self._watchdog.on_stall.remove(self._on_stall)
@@ -1690,10 +1819,11 @@ class BatchScheduler:
                 req.server_error = True
             req.done.set()
 
-    @staticmethod
-    def _timeout_request(req: Request) -> None:
+    def _timeout_request(self, req: Request) -> None:
         req.timed_out = True
         telemetry.registry().counter(telemetry.REQUEST_TIMEOUTS).inc()
+        # same site, same count: per-tenant timeouts reconcile exactly
+        self._tenancy.note_timeout(req.tenant)
 
     def _fail_all(self, msg: str) -> None:
         """Fail every queued, admitting and in-flight request with ``msg``
@@ -1724,14 +1854,14 @@ class BatchScheduler:
             holders = [a.req for a in self._admissions]
         for req in expired:
             self._timeout_request(req)
-            self.flight.note("timeout", req.rid, reason="queued")
+            self.flight.note("timeout", req.rid, reason="queued", tenant=req.tenant)
             req.done.set()
         for reason, reqs in (("admitting", holders),
                              ("in_flight", [s for s in self.gen.slots if s is not None])):
             for req in reqs:
                 if req.deadline_ns and now >= req.deadline_ns and not req.timed_out:
                     self._timeout_request(req)
-                    self.flight.note("timeout", req.rid, reason=reason)
+                    self.flight.note("timeout", req.rid, reason=reason, tenant=req.tenant)
                     req.cancel.set()
 
     def _on_stall(self, info: dict) -> None:
@@ -1834,34 +1964,50 @@ class BatchScheduler:
         self._check_deadlines()
         reserved = {a.slot for a in self._admissions}
         with self._lock:
-            # admit into free, unreserved slots in FIFO order; each request
-            # is priced in BLOCKS first (worst-case need vs free + evictable
-            # blocks) — an unaffordable head stays queued
-            while self._queue:
+            # admit into free, unreserved slots in weighted-round-robin order
+            # across tenants (FairQueue: FIFO within a tenant); on the paged
+            # pool each request is priced in BLOCKS first (worst-case need vs
+            # free + evictable blocks) — an unaffordable head stays queued at
+            # its tenant's head. A tenant at its --tenant-limits slot cap is
+            # skipped for this tick, not a barrier: the others keep admitting
+            blocked: set[str] = set()
+            while True:
+                head = self._queue.peek(blocked)
+                if head is None:
+                    break
                 free = [s for s in self.gen.free_slots() if s not in reserved]
                 if not free:
                     break
-                head = self._queue[0]
+                lim = self._tenancy.limit_for(head.tenant)
+                if lim.max_slots and self._tenant_active(head.tenant) >= lim.max_slots:
+                    self.flight.note("defer", head.rid, reason="tenant_slot_cap",
+                                     tenant=head.tenant)
+                    blocked.add(head.tenant)
+                    continue
                 if not self.gen.can_admit(head):
                     # blocks unaffordable: the head stays queued, and the
                     # tick record says why nothing admitted
-                    self.flight.note("defer", head.rid, reason="blocks_unaffordable")
+                    self.flight.note("defer", head.rid, reason="blocks_unaffordable",
+                                     tenant=head.tenant)
                     break
-                self._queue.pop(0)
+                self._queue.pop(head)
                 try:
                     failpoints.fire("admit")
                     adm = self.gen.begin_admit(head, free[0])
                 except BlockPoolExhausted:
-                    # back-pressure: the request goes back to the head and
-                    # waits for retirements to free blocks
-                    self._queue.insert(0, head)
+                    # back-pressure: the request goes back to its tenant's
+                    # head (the pop's pass refunded) and waits for
+                    # retirements to free blocks
+                    self._queue.push_front(head)
                     now = telemetry.now_ns()
                     telemetry.tracer().emit(head.rid, "requeue", now, now)
-                    self.flight.note("requeue", head.rid, reason="kv_block_exhaustion")
+                    self.flight.note("requeue", head.rid, reason="kv_block_exhaustion",
+                                     tenant=head.tenant)
                     break
                 except Exception as e:  # noqa: BLE001 — reject, don't wedge
                     head.error = f"{type(e).__name__}: {e}"
-                    self.flight.note("reject", head.rid, reason=type(e).__name__)
+                    self.flight.note("reject", head.rid, reason=type(e).__name__,
+                                     tenant=head.tenant)
                     head.done.set()
                     continue
                 self._admissions.append(adm)
@@ -1878,14 +2024,16 @@ class BatchScheduler:
                 self.gen.abort_admit(adm)
                 # counted as admitted: balance admissions - retires
                 telemetry.registry().counter(telemetry.RETIRES).inc()
-                self.flight.note("cancel", adm.req.rid, reason="admitting")
+                self.flight.note("cancel", adm.req.rid, reason="admitting",
+                                 tenant=adm.req.tenant)
                 adm.req.done.set()
         spent = 0
         for adm in list(self._admissions):
             if spent >= self.prefill_budget:
                 # prefills on later ticks: the preemption ITL attribution
                 # is built from these decisions
-                self.flight.note("preempt", adm.req.rid, reason="prefill_budget")
+                self.flight.note("preempt", adm.req.rid, reason="prefill_budget",
+                                 tenant=adm.req.tenant)
                 continue
             remaining = len(adm.req.prompt_ids) - 1 - adm.pos
             spent += self.gen.eng._prefill_chunk_size(max(1, remaining))
@@ -1909,6 +2057,10 @@ class BatchScheduler:
         if canary is not None:
             canary.maybe_run()
         if self.gen.n_active == 0 and not self._admissions:
+            # idle: nobody holds KV, so the usage clock restarts (a quiet
+            # stretch is billed to nobody); the ledger keeps its cadence
+            self._t_last_tick = time.monotonic()
+            tenancy.ledger().maybe_write(self._tenancy)
             self._wake.wait(timeout=0.05)
             self._wake.clear()
             return
@@ -1919,3 +2071,27 @@ class BatchScheduler:
             self.gen.step_chunk(self.gen.eng.decode_chunk)
         else:
             self.gen.step()
+        self._note_tick_usage()
+
+    def _tenant_active(self, tenant: str) -> int:
+        """Slots ``tenant`` occupies or is admitting into — the count its
+        ``max_slots`` cap gates on (the caller holds ``_lock``)."""
+        return (sum(1 for s in self.gen.slots if s is not None and s.tenant == tenant)
+                + sum(1 for a in self._admissions if a.req.tenant == tenant))
+
+    def _note_tick_usage(self) -> None:
+        """Charge this tick's wall to each tenant's KV residency (the blocks
+        its live slots hold; one per column in the dense pool), feed the
+        fairness window, and give the usage ledger its chance to append.
+        Host bookkeeping only: dict updates and at most one small file
+        append."""
+        now = time.monotonic()
+        dt = now - self._t_last_tick
+        self._t_last_tick = now
+        device: dict[str, float] = {}
+        for i, s in enumerate(self.gen.slots):
+            if s is not None:
+                device[s.tenant] = device.get(s.tenant, 0.0) + self.gen.kv_blocks_by_slot(i)
+        if device:
+            self._tenancy.note_tick(dt, device)
+        tenancy.ledger().maybe_write(self._tenancy)

@@ -22,13 +22,52 @@ position is therefore the plain-decode sample for that position, spec-on
 output equals spec-off output, and the host commits one coin per emitted
 token (:func:`spec_coins_consumed`).
 
-``target_sampling_probs`` of the JAX module is not ported: nothing on the
-verify path calls it (the JAX package uses it in a statistical test only).
+:func:`target_sampling_probs` is the probability vector of that sampled
+step's distribution, per row: what a draft's accept rate must match (the
+statistical check of exact-match verify). Nothing on the verify path calls
+it.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def target_sampling_probs(logits: torch.Tensor, temps, topps) -> torch.Tensor:
+    """The probability vector of :func:`~dllama_tpu_torch.ops.sampling.sampled_token`'s
+    distribution, per row: ``logits [N, V]`` → ``[N, V]`` f32 probs.
+
+    The reference quirks, as the sampler applies them: temperature softmax,
+    the ``(1-topp)/(V-1)`` cutoff pre-filter, descending stable-sort nucleus
+    truncation at the first ``csum > topp``, renormalization by the
+    truncated cumulative mass; ``topp`` outside (0, 1) keeps the plain
+    softmax (multinomial). ``temp <= 0`` rows return a one-hot argmax. The
+    full sort serves every vocabulary (the JAX function's 256-wide top-k
+    window gives the same vector whenever the nucleus fits it)."""
+    logits = logits.float()
+    N, V = logits.shape
+    temp = torch.as_tensor(temps, dtype=torch.float32, device=logits.device).reshape(-1)
+    topp = torch.as_tensor(topps, dtype=torch.float32, device=logits.device).reshape(-1)
+    temp, topp = temp.expand(N), topp.expand(N)
+    safe_t = torch.where(temp > 0.0, temp, torch.ones_like(temp))
+    probs = torch.softmax(logits / safe_t[:, None], dim=-1)
+    topp_row = (topp > 0.0) & (topp < 1.0) & (temp > 0.0)
+    cutoff = ((1.0 - topp) / (V - 1))[:, None]
+    masked = torch.where(probs >= cutoff, probs, torch.zeros_like(probs))
+    _, order = torch.sort(-masked, dim=-1, stable=True)
+    ps = torch.gather(masked, -1, order)
+    n_kept = torch.count_nonzero(ps, dim=-1)
+    csum = torch.cumsum(ps, dim=-1)
+    over = csum > topp[:, None]
+    last = torch.where(over.any(dim=-1), torch.argmax(over.to(torch.int8), dim=-1),
+                       torch.clamp(n_kept - 1, min=0, max=V - 1))
+    kept = torch.where(torch.arange(V, device=logits.device)[None, :] <= last[:, None],
+                       ps, torch.zeros_like(ps))
+    trunc = kept / torch.clamp(torch.gather(csum, -1, last[:, None]), min=1e-30)
+    nucleus = torch.zeros_like(probs).scatter(-1, order, trunc)
+    out = torch.where(topp_row[:, None], nucleus, probs)
+    greedy = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1), V).float()
+    return torch.where((temp > 0.0)[:, None], out, greedy)
 
 
 def spec_decide(logits: torch.Tensor, tokens: torch.Tensor, lens: torch.Tensor,

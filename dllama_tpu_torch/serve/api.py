@@ -13,8 +13,10 @@
   ``/debug/flight`` (the flight recorder's rings and the spans),
   ``/debug/timeline`` (the same as a Perfetto-loadable Chrome trace),
   ``/debug/numerics`` (the numerics observatory: tripwire totals per site,
-  the last tapped forward's per-layer stats, the canary's status) and
-  ``/debug/eval`` (the last teacher-forced eval run of this process).
+  the last tapped forward's per-layer stats, the canary's status),
+  ``/debug/eval`` (the last teacher-forced eval run of this process) and
+  ``/debug/tenants`` (the tenant observatory: per-tenant usage, limits and
+  the fairness view).
 
 Two states behind one handler, as in the JAX package:
 
@@ -45,18 +47,34 @@ prefilling. With ``--canary-interval`` the engine's canary golden is
 recorded at startup and replayed after single-sequence completions, or on
 the batch scheduler's tick.
 
-Left out (later slices): the fleet router headers and tenancy, stream
-resume, KV export, and the diagnostic routes of layers not ported yet
-(``/debug/compiles``, ``/debug/profile``, ``/debug/roofline``,
-``/debug/tenants``), which answer 404 like any unknown route.
+Fleet tier, at the JAX package's sites: the ``X-Dllama-Request-Id`` /
+``X-Dllama-Hop`` identity a fleet router sends is bound to the local
+request id (the span tracer's ``bind_fleet`` and a ``fleet_rid`` flight
+event) and echoed on every response with the sanitized ``X-Dllama-Tenant``
+label; the tenant owns the request's accounting
+(:mod:`~dllama_tpu_torch.runtime.tenancy`). The batched state stamps every
+SSE chunk with a ``dllama`` block (the cumulative generated-token index and
+the ids the chunk covers), and admits a router's mid-stream resume
+(``resume_from``/``resume_tokens``): the history becomes prompt, the coin
+stream is fast-forwarded by its length, and nothing at or below
+``resume_from`` is emitted again. The single-sequence server refuses a
+resume, as the JAX one does.
+
+Left out (later slices): KV export and the ``X-Dllama-KV-Peer`` hint (a
+replica ignores the header, as a JAX replica without a paged wire does),
+the ``role``/``kv_prefixes`` advertisement, and the diagnostic routes of
+layers not ported yet (``/debug/compiles``, ``/debug/profile``,
+``/debug/roofline``), which answer 404 like any unknown route.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import queue
 import random
+import re
 import signal
 import threading
 import time
@@ -64,7 +82,7 @@ import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
-from ..runtime import evalharness, failpoints, flightrec, numerics, telemetry
+from ..runtime import evalharness, failpoints, flightrec, numerics, telemetry, tenancy
 from ..runtime.speculative import NgramProposer
 from ..runtime.serving import (BatchScheduler, HbmAdmissionError, QueueFullError,
                                RequestTimeoutError, SchedulerUnavailableError,
@@ -81,9 +99,52 @@ _MAX_TIMEOUT_S = 3600.0
 RETRY_AFTER_S = {429: 1, 503: 5}
 RETRY_AFTER_JITTER_S = {429: 1, 503: 3}
 
+# the closed machine-readable readiness vocabulary of every /readyz and
+# 5xx-backpressure body (the fleet router sanitizes probe codes against it;
+# serve/router.py spells the same tuple)
+READY_CODES = ("ok", "draining", "crashed", "queue_full", "loading")
+
+
 def backpressure_headers(status: int) -> dict:
     return {"Retry-After": str(RETRY_AFTER_S[status]
                                + random.randint(0, RETRY_AFTER_JITTER_S[status]))}
+
+
+# fleet trace identity (serve/router.py is the usual sender): one request id
+# names a request at every tier — the router mints it (or sanitizes a
+# client-supplied one) and stamps the dispatch attempt index, both as
+# headers on every hop. The replica binds them to its local integer rid
+# (telemetry.tracer().bind_fleet + a "fleet_rid" flight event), echoes the
+# id on its response, and threads it into the opt-in timing block
+FLEET_RID_HEADER = "X-Dllama-Request-Id"
+FLEET_HOP_HEADER = "X-Dllama-Hop"
+FLEET_RID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
+# tenant identity (runtime/tenancy): who this request's tokens, latency,
+# KV residency and shed decisions are attributed to; absent or malformed
+# is "anon". Echoed (sanitized) on every completion response
+TENANT_HEADER = "X-Dllama-Tenant"
+# a router's spliced continuation names the count of tokens the client
+# already holds (the body carries the history itself)
+RESUME_FROM_HEADER = "X-Dllama-Resume-From"
+
+
+def tenant_identity(headers) -> str:
+    """The sanitized tenant label off a request's headers."""
+    return tenancy.sanitize_tenant(headers.get(TENANT_HEADER))
+
+
+def fleet_identity(headers) -> tuple[str, int] | None:
+    """``(fleet_id, hop)`` off a request's fleet trace headers, or None
+    when absent or unsanitary (an out-of-vocabulary id is dropped, never
+    stored: header values go into dumps and logs)."""
+    rid = headers.get(FLEET_RID_HEADER)
+    if not rid or not FLEET_RID_RE.match(rid):
+        return None
+    try:
+        hop = int(headers.get(FLEET_HOP_HEADER) or 0)
+    except ValueError:
+        hop = 0
+    return rid, max(0, hop)
 
 
 class ClientDisconnect(Exception):
@@ -144,8 +205,18 @@ def _validate_body(body: dict) -> None:
         raise ValueError("stop must be a string or a list of strings")
     if isinstance(stop, list) and not all(isinstance(s, str) for s in stop):
         raise ValueError("stop must be a string or a list of strings")
-    if "resume_from" in body or "resume_tokens" in body:
-        raise ValueError("stream resume is not supported by this server")
+    # mid-stream resume (a fleet router sends these on a failover
+    # re-dispatch): the already-emitted token history rides in the body
+    rf = body.get("resume_from")
+    rtoks = body.get("resume_tokens")
+    if rf is not None or rtoks is not None:
+        if isinstance(rf, bool) or not isinstance(rf, int) or rf < 1:
+            raise ValueError("resume_from must be a positive integer")
+        if (not isinstance(rtoks, list) or len(rtoks) != rf
+                or not all(isinstance(t, int) and not isinstance(t, bool) and t >= 0
+                           for t in rtoks)):
+            raise ValueError("resume_tokens must be a list of exactly "
+                             "resume_from non-negative token ids")
 
 
 @dataclass
@@ -252,8 +323,14 @@ class ApiState:
             return False, "step watchdog tripped (wedged device dispatch)", "crashed"
         return True, "ok", "ok"
 
-    def complete(self, body: dict, emit=None) -> dict:
+    def complete(self, body: dict, emit=None, fleet=None,
+                 tenant: str = tenancy.ANON) -> dict:
         """Run one chat completion; ``emit(text)`` streams deltas when set.
+        ``fleet`` is the optional ``(fleet_request_id, hop)`` of
+        :func:`fleet_identity`, bound to this request's local rid so its
+        spans and lifecycle events join fleet-wide; ``tenant``
+        (:func:`tenant_identity`) binds the same rid to its caller (the
+        accounting registry is batched-scheduler work).
 
         The flow of ApiServer::complete (dllama-api.cpp:363-484): resolve the
         new messages against the cache (the engine resumes at the cached end
@@ -263,11 +340,23 @@ class ApiState:
         engine = self.engine
         tok = engine.tokenizer
         _validate_body(body)
+        if body.get("resume_from"):
+            # mid-stream resume admission is scheduler work; this server
+            # never stamps resumable chunks, so a resume landing here is a
+            # router or client bug — 400-shaped
+            raise ValueError("stream resume requires batched serving (--batch-slots N)")
         messages = body["messages"]
         timeout_s = float(body.get("timeout") or self.request_timeout or 0)
         deadline = time.monotonic() + timeout_s if timeout_s > 0 else 0.0
         self._rid += 1
         engine.trace_rid = self._rid  # stamps the engine's prefill span
+        if fleet is not None:
+            # one id from router to kernel: every span and lifecycle event
+            # of this local rid now carries the fleet identity
+            telemetry.tracer().bind_fleet(self._rid, fleet[0], fleet[1])
+            flightrec.recorder().note("fleet_rid", rid=self._rid, reason=fleet[0],
+                                      hop=fleet[1])
+        telemetry.tracer().bind_tenant(self._rid, tenancy.registry().resolve(tenant))
         # TTFT attribution origin (queue = 0: no scheduler queue here)
         t_req0 = telemetry.now_ns()
         rt = telemetry.RequestTimer()
@@ -361,6 +450,10 @@ class ApiState:
             bd = flightrec.ttft_phases(t_req0, t_req0, t_decode, rt.first_ns, prefill_ms)
             flightrec.record_ttft(telemetry.registry().histogram(telemetry.TTFT_ATTRIB_MS), bd)
             timing = {k: round(v, 3) for k, v in bd.items()}
+            if fleet is not None:
+                # the fleet-wide id and the hop that served this attempt
+                timing["request_id"] = fleet[0]
+                timing["hop"] = fleet[1]
             if n_drafted:
                 timing["spec_drafted"] = n_drafted
                 timing["spec_accepted"] = n_spec_acc
@@ -410,18 +503,56 @@ class BatchedApiState:
     def close(self, drain_s: float = 0.0) -> None:
         self.sched.close(drain_s)
 
-    def complete(self, body: dict, emit=None) -> dict:
-        """Run one chat completion; ``emit(text)`` streams deltas when set."""
+    def complete(self, body: dict, emit=None, fleet=None,
+                 tenant: str = tenancy.ANON) -> dict:
+        """Run one chat completion; ``emit(text, meta)`` streams deltas when
+        set, ``meta`` being the chunk's resume stamp ``{"index": n,
+        "tokens": [...]}``. ``fleet`` and ``tenant`` are the request's
+        fleet identity and tenant label (see :meth:`ApiState.complete`).
+
+        A body with ``resume_from`` is a router's mid-stream continuation:
+        the dead replica's emitted tokens are prompt now (one ordinary
+        admission: prefix match, chunked prefill), decode continues from
+        there with the coin stream fast-forwarded by the same count
+        (scheduler-side), ``max_tokens`` shrinks by what was delivered, and
+        the stamps start at ``resume_from`` so nothing at or below it is
+        emitted again."""
         tok = self.engine.tokenizer
         _validate_body(body)
         items = [ChatItem(m.get("role", "user"), m.get("content", ""))
                  for m in body["messages"]]
         prompt = self.template.generate(items, append_generation_prompt=True)
         ids = tok.encode(prompt.content, is_start=True, add_special_tokens=True)
+        resume_from = int(body.get("resume_from") or 0)
+        if resume_from:
+            history = [int(t) for t in body["resume_tokens"]]
+            # ids index the embedding on the device: one past the vocabulary
+            # would fault the card, not just this request
+            if max(history) >= self.engine.cfg.vocab_size:
+                raise ValueError(f"resume_tokens must be token ids below the vocabulary "
+                                 f"size {self.engine.cfg.vocab_size}")
+            ids = ids + history
         max_tokens = int(body.get("max_tokens") or 0)
         if max_tokens <= 0:
             max_tokens = max(1, self.engine.cfg.seq_len - len(ids))
+        else:
+            # the client's bound covers the whole generation; resume_from of
+            # it was already delivered by the dead replica
+            max_tokens = max(1, max_tokens - resume_from)
         timeout_s = float(body.get("timeout") or self.request_timeout or 0)
+
+        # SSE token stamping: each streamed chunk carries the cumulative
+        # generated-token index and the ids emitted since the previous
+        # chunk, so a fleet router can keep a resume record and splice a
+        # failover continuation with exactly-once delivery
+        n_fed = resume_from
+        since: list[int] = []
+        memit = None
+        if emit is not None:
+            def memit(d):
+                emit(d, {"index": n_fed, "tokens": since.copy()})
+                since.clear()
+
         sampler = self.engine.sampler  # CLI flags are the per-request defaults
         q: queue.Queue = queue.Queue()
         req = self.sched.submit(
@@ -431,16 +562,35 @@ class BatchedApiState:
             seed=int(body.get("seed", 0xB1A5)),
             stop_on_eos=True,
             timeout_s=timeout_s if timeout_s > 0 else None,
-            on_token=lambda t, p: q.put((t, p)))
-        gate = _EosGate(tok, _request_stops(self.stop_pieces, body), emit)
+            on_token=lambda t, p: q.put((t, p)),
+            resume_from=resume_from, tenant=tenant)
+        if fleet is not None:
+            # bound after submit (the scheduler assigns the rid there): the
+            # submit span predates the binding, every later span joins
+            telemetry.tracer().bind_fleet(req.rid, fleet[0], fleet[1])
+            flightrec.recorder().note("fleet_rid", rid=req.rid, reason=fleet[0],
+                                      hop=fleet[1])
+        gate = _EosGate(tok, _request_stops(self.stop_pieces, body), memit)
+        if resume_from:
+            # prime the gate with the history, emission suppressed (the
+            # client holds those tokens), so the stop-string detector's
+            # buffer and the UTF-8 carry-over match the dead replica's state
+            # at the splice point
+            gate.emit = None
+            dec = copy.copy(tok)
+            dec._pending = bytearray()
+            for t in ids[len(ids) - resume_from:]:
+                gate.feed(t, dec.decode(t))
+            gate.emit = memit
         rt = telemetry.RequestTimer()
         n_completion = 0
         finish_reason = "length"
         try:
             # inside the try: the public-prompt echo is the first socket
             # write, so a peer that disconnected right after POSTing cancels
-            # the slot here too
-            if prompt.public_prompt:
+            # the slot here too (a resume never re-echoes: the client got
+            # the echo from the first replica)
+            if prompt.public_prompt and not resume_from:
                 gate._out(prompt.public_prompt)
             while True:
                 try:
@@ -450,6 +600,8 @@ class BatchedApiState:
                         break
                     continue
                 n_completion += 1
+                n_fed += 1
+                since.append(t)
                 rt.token()
                 if gate.feed(t, piece):
                     # a stop STRING matched (ordinary tokens the scheduler's
@@ -486,6 +638,9 @@ class BatchedApiState:
             # histogram twins land in dllama_ttft_attrib_ms and
             # dllama_itl_attrib_ms at first token and at retire)
             timing = out["timing"] = {k: round(v, 3) for k, v in bd.items()}
+            if fleet is not None:
+                timing["request_id"] = fleet[0]
+                timing["hop"] = fleet[1]
             timing["decode_step_ms"] = round(req.ms_decode_steps, 3)
             timing["preempt_ms"] = round(req.ms_preempt, 3)
             if req.ms_verify:
@@ -533,7 +688,7 @@ def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=No
 
 _ROUTES = ("/v1/chat/completions", "/v1/models", "/metrics", "/health", "/healthz",
            "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline",
-           "/debug/numerics", "/debug/eval")
+           "/debug/numerics", "/debug/eval", "/debug/tenants")
 
 # the GET /debug index: one line per diagnostic route this server has
 _DEBUG_INDEX = {
@@ -549,6 +704,9 @@ _DEBUG_INDEX = {
     "/debug/eval": "GET: quality observatory — the most recent teacher-forced eval "
                    "run's summary (per-sequence NLL, total NLL hex, perplexity) or "
                    "its partial results",
+    "/debug/tenants": "GET: tenant observatory — per-tenant cumulative usage (tokens, "
+                      "sheds, latency quantiles, KV block-seconds), configured limits, "
+                      "and the windowed fairness view (Jain index, shares)",
 }
 
 
@@ -563,6 +721,17 @@ def make_handler(state: ApiState | BatchedApiState):
             print(f"🕸️ {self.address_string()} {fmt % args}")
 
         _counted = False  # whether THIS request hit the telemetry counter
+        # the current POST's fleet trace id and sanitized tenant label,
+        # echoed on every response (reset per request: keep-alive reuses
+        # the handler instance)
+        _fleet_rid: str | None = None
+        _tenant: str | None = None
+
+        def _echo_identity(self) -> None:
+            if self._fleet_rid:
+                self.send_header(FLEET_RID_HEADER, self._fleet_rid)
+            if self._tenant is not None:
+                self.send_header(TENANT_HEADER, self._tenant)
 
         def _route(self) -> str:
             return self.path.split("?", 1)[0]
@@ -580,6 +749,7 @@ def make_handler(state: ApiState | BatchedApiState):
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            self._echo_identity()
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
@@ -590,6 +760,8 @@ def make_handler(state: ApiState | BatchedApiState):
                              "routes": list(_ROUTES)})
 
         def do_GET(self):
+            self._fleet_rid = None  # keep-alive: no stale POST echo
+            self._tenant = None
             path = self._route()
             if path == "/v1/models":
                 self._json(200, {"object": "list", "data": [{
@@ -633,6 +805,9 @@ def make_handler(state: ApiState | BatchedApiState):
                 self._json(200, last if last is not None else {
                     "run": None,
                     "note": "no eval run in this process (python -m dllama_tpu_torch eval)"})
+            elif path == "/debug/tenants":
+                # cumulative per-tenant usage, limits, the fairness view
+                self._json(200, tenancy.registry().snapshot())
             else:
                 self._not_found()
 
@@ -666,6 +841,10 @@ def make_handler(state: ApiState | BatchedApiState):
             if not isinstance(body, dict):
                 self._json(400, {"error": "body must be a JSON object"})
                 return
+            fleet = fleet_identity(self.headers)
+            self._fleet_rid = fleet[0] if fleet else None
+            tenant = tenant_identity(self.headers)
+            self._tenant = tenant
             stream = bool(body.get("stream", False))
             inflight = telemetry.registry().gauge(telemetry.REQUESTS_IN_FLIGHT)
             inflight.add(1)
@@ -685,6 +864,7 @@ def make_handler(state: ApiState | BatchedApiState):
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
                 self.send_header("Connection", "close")
+                self._echo_identity()
                 self.end_headers()
                 headers_sent = True
 
@@ -692,10 +872,16 @@ def make_handler(state: ApiState | BatchedApiState):
                 data = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
                 self.wfile.write(b"data: " + data + b"\n\n")
 
-            def emit(text: str) -> None:
+            def emit(text: str, meta: dict | None = None) -> None:
                 failpoints.fire("emit")
                 start_stream()
-                write_event(_chunk_json(state, {"content": text}))
+                chunk = _chunk_json(state, {"content": text})
+                if meta is not None:
+                    # resume stamping (batched serving): the cumulative
+                    # token index and the ids this chunk covers — a fleet
+                    # router's per-request resume record reads these
+                    chunk["dllama"] = meta
+                write_event(chunk)
                 self.wfile.flush()
 
             def fail(code: int, payload: dict, reason: str, headers=None) -> None:
@@ -715,13 +901,13 @@ def make_handler(state: ApiState | BatchedApiState):
 
             try:
                 if stream:
-                    out = state.complete(body, emit=emit)
+                    out = state.complete(body, emit=emit, fleet=fleet, tenant=tenant)
                     start_stream()  # zero-delta completion: headers now
                     write_event(_chunk_json(state, {}, out["finish_reason"]))
                     write_event(b"[DONE]")
                     status = 200
                 else:
-                    out = state.complete(body)
+                    out = state.complete(body, fleet=fleet, tenant=tenant)
                     self._json(200, _completion_json(state, out))
             except QueueFullError as e:
                 fail(429, {"error": str(e), "code": "queue_full"}, "error",
@@ -834,6 +1020,21 @@ def run_api_server(args, on_listening=None) -> int:
     if args.trace_out:
         telemetry.tracer().configure(args.trace_out)
         print(f"🔬 request trace (JSONL spans) → {args.trace_out}")
+    # the tenant observatory: fair-share limits and the usage ledger
+    # configure the process-wide registry before the scheduler builds, so
+    # its FairQueue weights apply from the first request
+    if args.tenant_limits:
+        try:
+            limits = tenancy.load_limits(args.tenant_limits)
+        except ValueError as e:
+            telemetry.tracer().configure(None)
+            raise SystemExit(f"--tenant-limits: {e}") from None
+        tenancy.registry().set_limits(limits)
+        print(f"🕸️ tenant limits: {len(limits)} entr{'y' if len(limits) == 1 else 'ies'} "
+              f"(weighted round-robin admission; over-budget → 429)")
+    if args.usage_ledger:
+        tenancy.ledger().configure(args.usage_ledger)
+        print(f"📒 usage ledger (per-tenant cumulative JSONL) → {args.usage_ledger}")
     if failpoints.configure_from_env():
         print(f"💣 fault injection armed from DLLAMA_FAILPOINTS="
               f"{os.environ['DLLAMA_FAILPOINTS']}")

@@ -1,6 +1,15 @@
-"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify|timeline|eval|audit``
-(the port of the JAX package's ``serve/cli.py`` ``make_engine``/``main``,
-these eight modes).
+"""``python -m dllama_tpu_torch inference|chat|perplexity|api|verify|timeline|eval|audit|
+router|fleettrace`` (the port of the JAX package's ``serve/cli.py``
+``make_engine``/``main``, these ten modes).
+
+``router --replica URL [--replica URL ...]`` is the fleet tier
+(``serve/router.py``): health-probed least-loaded dispatch with session
+affinity over ``api`` replicas, a circuit breaker, retries, shedding,
+mid-stream resume (``--max-stream-resumes``) and the SLO observatory
+(``--slo``). Host only: no model, no device, no CUDA context.
+``fleettrace --router-dump F --replica-dump NAME=F ...`` joins a saved
+router ``/debug/fleet`` body and the replicas' ``/debug/flight`` bodies
+into one Chrome trace, validated (rc 1 on malformed or unjoinable input).
 
 ``eval --data d.jsonl [--json] [--compare CONFIG]`` scores a dataset
 teacher-forced through the serving stack (``runtime/evalharness.py``) in
@@ -58,15 +67,20 @@ import json
 import sys
 import threading
 import time
+from typing import TYPE_CHECKING
 
 from ..formats.quants import F32, Q80
-from ..runtime.engine import InferenceEngine, mesh_plan, resolve_device
 from ..tokenizer.chat import ChatItem, ChatTemplateType
 
+if TYPE_CHECKING:
+    # imported where an engine is built: the host-only modes (router,
+    # fleettrace, timeline, verify, audit) never load torch
+    from ..runtime.engine import InferenceEngine
+
 PORTED_MODES = ("inference", "chat", "perplexity", "api", "verify", "timeline", "eval",
-                "audit")
+                "audit", "router", "fleettrace")
 # modes of the JAX CLI that later slices of the port bring over
-PENDING_MODES = ("worker", "fleettrace", "router")
+PENDING_MODES = ("worker",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dllama-tpu-torch",
         description="Q40 Llama/Qwen3 inference on one NVIDIA GPU (PyTorch + CUDA)")
     p.add_argument("mode", help="inference | chat | perplexity | api | verify | timeline | "
-                                "eval | audit")
+                                "eval | audit | router | fleettrace")
     p.add_argument("--model", default=None,
                    help=".m model file (every mode but timeline)")
     p.add_argument("--tokenizer", default=None,
@@ -147,11 +161,52 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-block-size", type=int, default=0,
                    help="api: rows per paged KV block (a power of two)")
     p.add_argument("--max-queue", type=int, default=0,
-                   help="api: waiting requests beyond the slots (429 beyond; 0 = unbounded)")
-    p.add_argument("--host", default="127.0.0.1", help="api: bind address")
-    p.add_argument("--port", type=int, default=9990, help="api: port (0 = any free)")
+                   help="api: waiting requests beyond the slots (429 beyond; 0 = unbounded); "
+                        "router: requests in flight (429 beyond)")
+    p.add_argument("--host", default="127.0.0.1", help="api/router: bind address")
+    p.add_argument("--port", type=int, default=9990, help="api/router: port (0 = any free)")
     p.add_argument("--request-timeout", type=float, default=0.0,
-                   help="api: default per-request deadline in seconds (0 = none)")
+                   help="api: default per-request deadline in seconds (0 = none); "
+                        "router: the deadline a stream resume must fit inside")
+    p.add_argument("--role", choices=("prefill", "decode"), default=None,
+                   help="api, batched paged serving: disaggregation tag for KV "
+                        "migration between replicas (not ported)")
+    p.add_argument("--tenant-limits", default=None, metavar="SPEC",
+                   help="api, batched serving: per-tenant fair-share limits — a JSON "
+                        "object (inline or a file path) mapping tenant ids (or '*' for "
+                        "the default) to {weight, max_slots, tokens_per_s}. Admission "
+                        "drains per-tenant FIFOs by weighted round-robin; a tenant at "
+                        "max_slots is skipped (others keep admitting), one over its "
+                        "token rate is shed with its own HTTP 429 (runtime/tenancy.py; "
+                        "identity from the X-Dllama-Tenant header, absent → anon)")
+    p.add_argument("--usage-ledger", default=None, metavar="FILE",
+                   help="api: append periodic per-tenant usage snapshots (monotonic "
+                        "cumulative totals — tokens, sheds, KV block-seconds) to FILE "
+                        "as JSONL; diff any two lines for an interval's usage (GET "
+                        "/debug/tenants serves the live view)")
+    # router mode (serve/router.py)
+    p.add_argument("--replica", action="append", default=None, metavar="URL",
+                   help="router: one api-server replica base URL (http://host:port; "
+                        "repeat the flag per replica). The router probes each "
+                        "replica's /readyz + /metrics and dispatches least-loaded "
+                        "with session affinity")
+    p.add_argument("--probe-interval", type=float, default=2.0, metavar="SEC",
+                   help="router: health-probe interval per replica (jittered ±20%%)")
+    p.add_argument("--max-stream-resumes", type=int, default=1, metavar="N",
+                   help="router: how many mid-stream replica deaths one streaming "
+                        "request may survive — each death re-dispatches the stream to "
+                        "a healthy replica as a token-exact spliced continuation (0 = "
+                        "the first death is the terminal SSE 502). Batched replicas "
+                        "(--batch-slots) stamp their chunks with token indices to "
+                        "make the splice exactly-once; unstamped streams keep the "
+                        "terminal-502 contract")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="router: declarative serving objectives — "
+                        "'ttft_p95_ms=500,itl_p50_ms=40,shed_rate=0.01' or the path of "
+                        "a JSON file mapping objective names to thresholds. Compliance "
+                        "+ error-budget burn rates at GET /debug/slo, the "
+                        "dllama_slo_compliance / dllama_slo_burn_rate gauges, and an "
+                        "slo fragment in --stats (runtime/slo.py)")
     p.add_argument("--drain-timeout", type=float, default=5.0, metavar="SEC",
                    help="api: on SIGTERM or shutdown, stop admitting and let active "
                         "requests finish for up to SEC seconds before failing the rest")
@@ -200,8 +255,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "dllama-flight-*.json postmortem or a saved GET /debug/flight "
                         "body)")
     p.add_argument("--out", default=None, metavar="FILE",
-                   help="timeline: write the Chrome trace-event JSON here (default: "
-                        "stdout); load it in ui.perfetto.dev or chrome://tracing")
+                   help="timeline/fleettrace: write the Chrome trace-event JSON here "
+                        "(default: stdout); load it in ui.perfetto.dev or "
+                        "chrome://tracing")
+    # fleettrace mode
+    p.add_argument("--router-dump", default=None, metavar="FILE",
+                   help="fleettrace: a saved GET /debug/fleet body (the router's probe "
+                        "+ span snapshot)")
+    p.add_argument("--replica-dump", action="append", default=None, metavar="NAME=FILE",
+                   help="fleettrace: one replica's saved GET /debug/flight body, "
+                        "labeled with the replica name (repeat the flag per replica); "
+                        "bare FILE uses the filename stem as the track name")
     return p
 
 
@@ -275,9 +339,76 @@ def run_timeline(args) -> int:
     return 1 if problems else 0
 
 
+def run_fleettrace(args) -> int:
+    """``fleettrace --router-dump F --replica-dump name=F ...``: the offline
+    joiner from a saved router ``GET /debug/fleet`` body plus per-replica
+    ``GET /debug/flight`` bodies to one fleet-wide Chrome trace — a router
+    track and one track per replica, requests joined across tiers by the
+    ``X-Dllama-Request-Id`` fleet id (one flow per request; a resumed
+    request's flow crosses two replica tracks). Host only. rc 1 on
+    malformed input or when nothing joins."""
+    import os
+
+    from ..runtime import flightrec
+
+    if not args.router_dump:
+        raise SystemExit("--router-dump FILE (a saved GET /debug/fleet body) is required "
+                         "for fleettrace mode")
+
+    def _load(path: str):
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+        if not isinstance(data, dict):
+            raise ValueError(f"expected a JSON object, got {type(data).__name__}")
+        return data
+
+    try:
+        router_dump = _load(args.router_dump)
+    except (OSError, ValueError) as e:
+        print(f"❌ {args.router_dump}: {e}")
+        return 1
+    replica_dumps: dict = {}
+    for spec in args.replica_dump or []:
+        name, sep, path = spec.partition("=")
+        if not sep:
+            # bare FILE: the filename stem names the replica track
+            name, path = os.path.splitext(os.path.basename(spec))[0], spec
+        try:
+            replica_dumps[name] = _load(path)
+        except (OSError, ValueError) as e:
+            print(f"❌ {path}: {e}")
+            return 1
+    try:
+        trace = flightrec.fleet_chrome_trace(router_dump, replica_dumps)
+        problems = flightrec.validate_chrome_trace(trace)
+    except (KeyError, TypeError, AttributeError) as e:
+        # a truncated or hand-edited dump fails with a name, not a traceback
+        print(f"❌ malformed dump ({type(e).__name__}: {e})")
+        return 1
+    join = trace.get("fleetJoin", {})
+    payload = json.dumps(trace)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(payload)
+        print(f"🧾 {len(trace['traceEvents'])} trace events "
+              f"({join.get('router_requests', 0)} router requests, "
+              f"{join.get('joined', 0)} joined across {join.get('replicas', 0)} replica "
+              f"dump(s)) → {args.out} — load in ui.perfetto.dev or chrome://tracing")
+    else:
+        print(payload)
+    for prob in problems:
+        print(f"⚠️ {prob}", file=sys.stderr)
+    if replica_dumps and join.get("router_requests", 0) > 0 and join.get("joined", 0) == 0:
+        print("⚠️ no request joined across tiers (trace-id propagation broken, or dumps "
+              "from different runs)", file=sys.stderr)
+        return 1
+    return 1 if problems else 0
+
+
 def make_engine(args) -> InferenceEngine:
     """The engine of ``args``; a model the card cannot hold exits with the
     device-memory guard's message before anything is staged."""
+    from ..runtime.engine import InferenceEngine
     from ..runtime.hbm import HbmBudgetError
 
     seed = args.seed if args.seed is not None else int(time.time())
@@ -596,11 +727,28 @@ def main(argv=None, on_listening=None) -> int:
                          f"--device --sp --decode-chunk --spec-lookup --chat-template "
                          f"--trace-out --numerics-taps --numerics-failfast; api: "
                          f"--batch-slots --kv-block-size --max-queue --host --port "
-                         f"--request-timeout --drain-timeout --stats --canary-interval; "
-                         f"verify: --write; timeline: --dump --out; audit: --audit-json; "
-                         f"eval: --data --compare --json --batch-slots --kv-block-size)")
+                         f"--request-timeout --drain-timeout --stats --canary-interval "
+                         f"--tenant-limits --usage-ledger; router: --replica "
+                         f"--probe-interval --max-stream-resumes --slo --max-queue "
+                         f"--request-timeout --host --port --stats; verify: --write; "
+                         f"timeline: --dump --out; fleettrace: --router-dump "
+                         f"--replica-dump --out; audit: --audit-json; eval: --data "
+                         f"--compare --json --batch-slots --kv-block-size)")
+    if args.role is not None:
+        raise SystemExit("--role (prefill/decode disaggregation: KV migration between "
+                         "replicas over the kv wire, the kv_prefixes advertisement and "
+                         "POST /v1/kv/export) is not ported to the PyTorch/CUDA package "
+                         "yet; use python -m dllama_tpu api --role")
     if args.mode == "timeline":
         return run_timeline(args)  # host only: no model, no device
+    if args.mode == "fleettrace":
+        return run_fleettrace(args)  # host only: no model, no device
+    if args.mode == "router":
+        # the fleet tier: no model, no device, never a CUDA context — it
+        # fronts api replicas over plain HTTP (serve/router.py)
+        from .router import run_router
+
+        return run_router(args)
     if args.model is None:
         raise SystemExit(f"--model is required for {args.mode} mode")
     if args.mode == "verify":
@@ -615,6 +763,8 @@ def main(argv=None, on_listening=None) -> int:
                          "bf16); use python -m dllama_tpu")
     try:
         # the mesh's device count first: --sp N needs N visible cards
+        from ..runtime.engine import mesh_plan, resolve_device
+
         mesh_plan(args.device, args.sp)
         resolve_device(args.device)
     except (RuntimeError, ValueError) as e:

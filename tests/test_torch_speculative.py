@@ -403,3 +403,23 @@ def test_cli_spec_rate_line_matches_the_jax_cli(tmp_path, sp):
     assert got[0].strip() and got == want
     assert any(ln.startswith("  spec rate: ") and ln.endswith(" dispatches)")
                for ln in got[1]), got[1]
+
+
+@pytest.mark.parametrize("V,seed", [(40, 0), (300, 1), (1000, 2), (4096, 3)])
+def test_target_sampling_probs_equals_jax(V, seed):
+    """``target_sampling_probs`` (the distribution a sampled draft's accept
+    rate must match) against the JAX function on seeded logits: greedy
+    one-hots, plain softmax (top-p outside (0, 1)) and nucleus rows at
+    several temperatures; above 256 entries the JAX function takes its
+    windowed top-k, which gives the same vector when the nucleus fits it."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((8, V)) * 4).astype(np.float32)
+    temps = np.array([0.0, 0.5, 0.9, 1.3, 0.7, 1.0, 0.2, 2.0], np.float32)
+    topps = np.array([0.9, 0.9, 0.5, 1.0, 0.0, 0.95, 0.8, 0.3], np.float32)
+    want = np.asarray(jax_spec.target_sampling_probs(jnp.asarray(logits), jnp.asarray(temps),
+                                                     jnp.asarray(topps)))
+    got = spec.target_sampling_probs(torch.tensor(logits), torch.tensor(temps),
+                                     torch.tensor(topps)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+    assert (got[0] == np.eye(V)[np.argmax(logits[0])]).all()

@@ -338,7 +338,7 @@ def test_metrics_and_debug_routes_on_both_api_states(api_files, extra):
         status, _, body = _get(url, "/debug")
         assert status == 200 and set(json.loads(body)["endpoints"]) == {
             "/debug/requests", "/debug/flight", "/debug/timeline", "/debug/numerics",
-            "/debug/eval"}
+            "/debug/eval", "/debug/tenants"}
         reqs = json.loads(_get(url, "/debug/requests")[2])["requests"]
         assert len(reqs) == 2 and all(r["phases"] for r in reqs)
         flight = json.loads(_get(url, "/debug/flight")[2])

@@ -123,8 +123,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    on every shape, K3 at T = 5 over depth 2047, K4 at 8 ragged rows,
    T = 5, draft lengths 0-4;
 9. the dense slot pool, the single-sequence ``api`` and ``chat`` at full
-   width (the dense pool's runs and ``chat`` on the 8-layer copy, the single
-   ``api`` at 32 layers): ``api --batch-slots 8`` without ``--kv-block-size``
+   width (on the 8-layer copy; the single ``api`` at 32 layers until slice
+   14): ``api --batch-slots 8`` without ``--kv-block-size``
    with the serving mix in f32 and bf16 (K1-K3 must launch, K4 never),
    then one dense step of that geometry under ``torch.profiler``
    (:func:`dense_step_profile`: device ms, K2's and K3's share, the replay
@@ -196,7 +196,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    make room in the 900 s, ``spec_single``, the sp path's short and q80
    cells, the weight modes, the integrity phase, eval and numerics run on
    the 8-layer copy;
-13. the fleet tier at full width and 32 layers (:func:`fleet_phase`): two
+13. the fleet tier at full width (:func:`fleet_phase`, on the 8-layer copy
+   since slice 14): two
    paged replicas (A in this process, B a process of its own) behind
    ``python -m dllama_tpu_torch router`` (a third process, which must hold
    no CUDA context), both under ``--tenant-limits`` with a usage ledger:
@@ -210,12 +211,27 @@ Phases, each failing loudly (non-zero exit, no result line):
    shed with 429), ``/debug/slo``, ``fleettrace`` over the saved dumps, and
    A's K1-K4 launched; :func:`paged_step_syncs` counts its one
    synchronisation a scheduler tick with tenant limits set;
-14. the ``kernels`` JSON line, then the result line
+14. tiered KV memory and KV migration: :func:`kvtier_phase` (8 layers,
+   ``api --batch-slots 2 --kv-block-size 16 --kv-host-blocks 512``: idle
+   sessions 2.6x the device pool spill to pinned host chunks and resume bit
+   for bit against a never-spilled run, transcripts and every step's
+   logits; the spilled block's bytes against its host lane and its paged-in
+   block, on f32 and e4m3 pools; ``pagein:raise:1`` and ``spill:raise``;
+   resumed TTFT with the tier against the same resumes prefilled again;
+   spill / page-in GB/s beside the host link; a spilling tick's
+   synchronisations against a plain tick's) and :func:`kvmigrate_phase`
+   (8 layers: a ``--role prefill`` replica, a ``--role decode`` one and
+   the router; four routed migrations, the drift of D's first-token logits
+   from a replica that computed every prefix itself, three wire faults
+   that recompute bit for bit, the ingested bytes against the decoded
+   export). ``f8_serving`` and ``single_api`` run on the 8-layer copy with
+   the fleet and the tier;
+15. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
-``--only eval,numerics,hbm,fleet,audit`` is a development run of the phases
-of slices 12 and 13 alone (no kernel cases, exit 3, no result line).
+``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit`` is a development run
+of the phases of slices 12-14 alone (no kernel cases, exit 3, no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
 and bf16) and the paged decode step's profile on the package of the
@@ -1605,6 +1621,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
         pool = gen.pool
         rec.update(
             block_size=BLOCK, pool_blocks=pool.n_blocks,
+            pool_tensor_bytes=gen.pkv.k.nbytes + gen.pkv.v.nbytes,
             take_ms_median=statistics.median(move_ms["take"]) if move_ms["take"] else None,
             put_ms_median=statistics.median(move_ms["put"]) if move_ms["put"] else None,
             takes=len(move_ms["take"]),
@@ -3617,18 +3634,23 @@ def f8_single(model: str, tok: str, text: str, n_layers: int, summary: dict) -> 
 def f8_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
     """``api --batch-slots 8 --kv-block-size 16 --kv-dtype f8`` under bf16
     with the serving mix (:func:`serve_run`): K4 launches on the e4m3 pool,
-    which holds half the bytes of the bf16 run's."""
+    whose allocated tensors hold half the bytes of the bf16 run's per layer
+    and block (on the 8-layer copy since slice 14, the bf16 run at full
+    depth: both measured on their pools' tensors)."""
     rec, _ = serve_run(model, tok, n_layers, "bf16", ["--kv-dtype", "f8"], case="serving_f8")
     launches = rec["launches"]["api"]
-    rec["pool_gb_bf16_cache"] = summary["bf16"]["serving"]["pool_gb"]
-    rec["gen_tok_per_s_bf16_cache"] = summary["bf16"]["serving"]["gen_tok_per_s"]
+    bf16 = summary["bf16"]["serving"]
+    per_unit = lambda r: r["pool_tensor_bytes"] / (r["layers"] * r["pool_blocks"])  # noqa: E731
+    rec["pool_bytes_per_layer_block"] = per_unit(rec)
+    rec["pool_bytes_per_layer_block_bf16_cache"] = per_unit(bf16)
     print(json.dumps(rec), flush=True)
     summary["f8"]["serving"] = rec
     summary["bf16"]["launches"]["f8_api"] = launches
     if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
         fail(f"serving f8: a kernel of the path never launched: {launches}")
-    if abs(2 * rec["pool_gb"] - rec["pool_gb_bf16_cache"]) > 1e-6:
-        fail(f"serving f8: pool {rec['pool_gb']} GB, want half of {rec['pool_gb_bf16_cache']}")
+    if 2 * rec["pool_bytes_per_layer_block"] != rec["pool_bytes_per_layer_block_bf16_cache"]:
+        fail(f"serving f8: {rec['pool_bytes_per_layer_block']} pool bytes a layer and block, "
+             f"want half of the bf16 cache's {rec['pool_bytes_per_layer_block_bf16_cache']}")
     torch.cuda.empty_cache()
 
 
@@ -4384,6 +4406,7 @@ def api_server(argv: list[str], what: str):
 
 CANARY_S = 0.25       # --canary-interval of the numerics phase
 PATCH_LAYER = 5       # the layer whose norm the canary check patches in place
+CANARY_TOKENS = 192   # tokens a request of the canary's traffic: >= 5 replays at 8 layers
 
 
 def _body(text: str, max_tokens: int) -> dict:
@@ -4474,7 +4497,9 @@ def poison_round(url: str, state, mode: str, failfast: bool = True) -> dict:
 
 
 def numerics_phase(model: str, tok: str, summary: dict) -> None:
-    """The numerics observatory at full width, 32 layers:
+    """The numerics observatory at full width, on the 8-layer copy since
+    slice 14 (its traffic :data:`CANARY_TOKENS` a request, so that the
+    canary replays under it at that depth):
 
     * the paged ``api`` with ``--numerics-failfast --numerics-taps
       --canary-interval`` :data:`CANARY_S`: 8 concurrent requests while the
@@ -4509,7 +4534,8 @@ def numerics_phase(model: str, tok: str, summary: dict) -> None:
         canary = eng.canary
         runs0 = canary.status()["runs"]
         t0 = time.perf_counter()
-        traffic = _concurrent(url, [_body(f"{i} {PROMPT}", 24) for i in range(SLOTS)])
+        traffic = _concurrent(url, [_body(f"{i} {PROMPT}", CANARY_TOKENS)
+                                    for i in range(SLOTS)])
         under = dict(seconds=time.perf_counter() - t0,
                      replays=canary.status()["runs"] - runs0,
                      drifts=canary.status()["drifts"],
@@ -4983,8 +5009,8 @@ def compute_apps() -> list[int]:
 
 
 def fleet_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict) -> None:
-    """The fleet tier at full width and depth (f32, f32 buffers, paged
-    pools): replica A in process (:func:`api_server`), replica B and the
+    """The fleet tier at full width (f32, f32 buffers, paged pools; the
+    8-layer copy since slice 14): replica A in process (:func:`api_server`), replica B and the
     router (``--probe-interval 0.2 --max-stream-resumes 1 --slo``) as
     processes of their own, both replicas under :data:`FLEET_LIMITS` with a
     usage ledger. The serving mix routed in two tenants (every request 200,
@@ -5363,6 +5389,725 @@ def fleet_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict) ->
     summary["fleet"] = rec
 
 
+# -- slice 14: tiered KV memory and KV migration -----------------------------
+
+TIER_SLOTS = 2          # kvtier: the served sessions run one at a time
+TIER_SEQ = 1024         # kvtier --max-seq-len: 64-block tables, a 128-block pool
+TIER_HOST = 512         # kvtier --kv-host-blocks: a 512 MiB pinned slab (8 layers, f32)
+TIER_SESSIONS = 8       # idle sessions of 500-700 prompt tokens: 2.3x the pool
+TIER_TOKENS = 8         # greedy tokens a turn
+MIG_TOKENS = 16         # greedy tokens of a migration body
+SYNC_HOST = 256         # the 8-layer sync/GB/s check's host blocks (256 MiB pinned)
+RATE_RUNS = 5           # timed spill / page-in copy runs of every host chunk
+
+
+@contextlib.contextmanager
+def recorded_step_logits(store: dict):
+    """Every paged decode step's logits, by request. The port's own
+    ``paged_sampled_step`` runs unchanged; only inside it, the poison hook
+    it calls on the last logits (``llama._poison_logits``) also copies its
+    output into a static buffer, and ``PagedGenerator.step`` reads the rows
+    of the requests it served back after each step, into
+    ``store[tuple(prompt ids)] = {"tokens": [...], "logits": [...]}``. The
+    step computes what it computed before (same ops, same order), so the
+    tokens are the unrecorded run's; the readback (one ``[slots, vocab]``
+    copy after a step that already synchronised) is this check's only
+    addition. Active before the server starts, so its scheduler captures
+    the recording step."""
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.runtime import serving
+
+    bufs: dict = {}
+    inside = [False]
+    orig_fn, orig_poison, orig_step = (serving.paged_sampled_step, llama._poison_logits,
+                                       serving.PagedGenerator.step)
+
+    def poison_fn(logits, poison):
+        last = orig_poison(logits, poison)
+        if inside[0]:
+            key = (last.device, tuple(last.shape))
+            if key not in bufs:  # allocated at the capture's first warm-up run
+                bufs[key] = torch.empty(last.shape, dtype=last.dtype, device=last.device)
+            bufs[key].copy_(last)
+            step_fn.last = bufs[key]
+        return last
+
+    def step_fn(*args, **kwargs):
+        inside[0] = True
+        try:
+            return orig_fn(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def step(self):
+        served = [(i, s, len(s.tokens)) for i, s in enumerate(self.slots) if s is not None]
+        n = orig_step(self)
+        rows = None
+        for i, req, before in served:
+            if len(req.tokens) > before:
+                if rows is None:
+                    rows = step_fn.last.cpu().numpy()
+                rec = store.setdefault(tuple(req.prompt_ids), {"tokens": [], "logits": []})
+                rec["tokens"].append(req.tokens[before])
+                rec["logits"].append(rows[i].copy())
+        return n
+
+    serving.paged_sampled_step, llama._poison_logits = step_fn, poison_fn
+    serving.PagedGenerator.step = step
+    try:
+        yield store
+    finally:
+        serving.paged_sampled_step, llama._poison_logits = orig_fn, orig_poison
+        serving.PagedGenerator.step = orig_step
+
+
+def chat_body(text: str, n: int, system: bool = False, **extra) -> dict:
+    msgs = [{"role": "system", "content": SYSTEM}] if system else []
+    return {"messages": msgs + [{"role": "user", "content": text}], "max_tokens": n,
+            "temperature": 0.0, **extra}
+
+
+def words_text(seed: int, n_bytes: int, lead: str) -> str:
+    """``lead`` then the serving mix's words, ``n_bytes`` long."""
+    import random
+
+    rnd = random.Random(seed)
+    words = [lead]
+    while sum(len(w) + 1 for w in words) < n_bytes:
+        words.append(rnd.choice(["alpha", "beta", "gamma", "delta", "river", "stone",
+                                 "cloud", "seven", "orbit", "lemon"]))
+    return " ".join(words)[:n_bytes]
+
+
+def tier_sessions() -> list[str]:
+    """:data:`TIER_SESSIONS` distinct first turns of 480-680 bytes (one
+    token each): sessions apart from their first word on."""
+    return [words_text(SEED + 100 + k, 480 + (200 * k) // (TIER_SESSIONS - 1),
+                       f"session{k:02d}") for k in range(TIER_SESSIONS)]
+
+
+def resume_body(text: str, reply: str, k: int) -> dict:
+    return {"messages": [{"role": "user", "content": text},
+                         {"role": "assistant", "content": reply},
+                         {"role": "user", "content": f"And then, in session {k}?"}],
+            "max_tokens": TIER_TOKENS, "temperature": 0.0}
+
+
+def pcie_link() -> str:
+    """The host link as ``nvidia-smi -q`` reports it: the PCIe generation
+    and the link width, each ``Max`` and ``Current``."""
+    out = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True, timeout=60)
+    found: dict = {}
+    section = None
+    for line in out.stdout.splitlines():
+        key = line.strip()
+        if key in ("PCIe Generation", "Link Width"):
+            section = key
+        elif section and ":" in key:
+            name, _, value = (x.strip() for x in key.partition(":"))
+            if name in ("Max", "Current"):
+                found[f"{section} {name}"] = value
+            elif not name.startswith(("Device", "Host")):
+                section = None
+        else:
+            section = None
+    return ", ".join(f"{k} {v}" for k, v in found.items()) or "not reported"
+
+
+def tier_run(model: str, tok: str, extra: list[str], what: str, plan, store: dict) -> dict:
+    """One in-process ``api`` (f32, f32 buffers, :data:`TIER_SLOTS` slots,
+    block 16, ``--max-seq-len`` :data:`TIER_SEQ`, ``extra``) with every
+    paged step's logits recorded into ``store``; ``plan(url, state, tokenizer,
+    template)`` drives it and returns its record; K1-K4 launches of the
+    plan's requests are added."""
+    from dllama_tpu_torch.serve.api import chat_template
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+    from dllama_tpu_torch.tokenizer.chat import ChatTemplateType
+
+    tokenizer = Tokenizer.load(tok)
+    template, _ = chat_template(tokenizer, ChatTemplateType.UNKNOWN)
+    argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", "f32",
+            "--buffer-float-type", "f32", "--max-seq-len", str(TIER_SEQ), "--seed", str(SEED),
+            "--temperature", "0", "--batch-slots", str(TIER_SLOTS), "--kv-block-size",
+            str(BLOCK), *extra]
+    with recorded_step_logits(store), api_server(argv, what) as (url, state):
+        zero_counts()
+        rec = plan(url, state, tokenizer, template)
+        rec["launches"] = read_counts()
+    return rec
+
+
+def _complete(url: str, body: dict, what: str, headers: dict | None = None) -> dict:
+    st, out = _post(url, dict(body, timing=True), headers)
+    if st != 200:
+        fail(f"{what}: HTTP {st}: {out}")
+    return out
+
+
+def kvtier_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict) -> None:
+    """Tiered KV memory on the 8-layer copy (width is never cut; f32, f32
+    buffers; ``api --batch-slots
+    2 --kv-block-size 16 --max-seq-len 1024 --kv-host-blocks 512`` in process,
+    a 128-block device pool): :data:`TIER_SESSIONS` sessions of 500-700
+    prompt tokens, one at a time, idle (their cached KV 2.3x the pool), then
+    each resumed with a new turn (the reply and a new user message). Three
+    runs of the same sessions: *ref*, the tier off and each session resumed
+    right after its first turn (never spilled, the same prefix reuse and so
+    the same prefill chunks); *tier*, the idle wave then the resumes, whose
+    transcripts and every step's logits must equal *ref*'s bit for bit; and
+    *off*, the tier with every spill failing (``spill:raise``: the pool
+    drop-evicts, the untiered contract), whose resumes prefill their prefix
+    again (held to *ref* by the near-tie rule) — the TTFT it costs against
+    *tier*'s page-in. In *tier*: one spilled block's bytes equal its host lane
+    and, after page-in, its new device block (``torch.equal``); spill, host
+    and page-in counters above 0, no exhaustion, ``pagein_ms`` in the timing
+    block; ``pagein:raise:1`` fails only that resume (503) while a bystander
+    stream decodes on, and its retry pages in and equals *ref*; the pool's
+    address and the captured graph unchanged; K1-K4 launched. Then the same
+    byte check on an e4m3 pool, the synchronisations of ticks that spill
+    against ticks that do not, and spill / page-in GB/s beside the host
+    link."""
+    import numpy as np
+
+    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry
+    from dllama_tpu_torch.runtime.kvcache import cache_bits
+
+    texts = tier_sessions()
+    firsts = [chat_body(t, TIER_TOKENS) for t in texts]
+    rec: dict = {"case": "kvtier", "layers": n_layers, "slots": TIER_SLOTS,
+                 "block_size": BLOCK, "max_seq_len": TIER_SEQ, "host_blocks": TIER_HOST,
+                 "sessions": TIER_SESSIONS, "host_link": pcie_link(), "card": card_line()}
+    stores = {k: {} for k in ("ref", "tier", "off")}
+    replies: dict = {}
+
+    def ref_plan(url, state, tokenizer, template):
+        gen = state.sched.gen
+        rec["pool_blocks"] = gen.pool.n_blocks - 1
+        ids = [prompt_ids(tokenizer, template, b) for b in firsts]
+        rec["prompt_tokens"] = [len(i) for i in ids]
+        rec["idle_kv_over_pool"] = round(
+            sum(len(i) - 1 for i in ids) / (rec["pool_blocks"] * BLOCK), 3)
+        ttft = []
+        for k, (t, b) in enumerate(zip(texts, firsts)):
+            replies[k] = _complete(url, b, "kvtier ref")["choices"][0]["message"]["content"]
+            ttft.append(_complete(url, resume_body(t, replies[k], k), "kvtier ref")
+                        ["timing"]["ttft_ms"])
+        return {"resume_ttft_ms": ttft}
+
+    rec["ref"] = tier_run(model, tok, [], "kvtier ref", ref_plan, stores["ref"])
+    if rec["idle_kv_over_pool"] < 2.0:
+        fail(f"kvtier: the idle sessions' KV is {rec['idle_kv_over_pool']}x the pool, want >= 2")
+    resumes = [resume_body(t, replies[k], k) for k, t in enumerate(texts)]
+
+    def tier_plan(url, state, tokenizer, template):
+        import threading
+
+        gen = state.sched.gen
+        reg = telemetry.registry()
+        c0 = {m: reg.counter(m).total() for m in (
+            telemetry.KV_SPILL_BLOCKS, telemetry.KV_PAGEIN_BLOCKS,
+            telemetry.KV_BLOCK_EXHAUSTION)}
+        graph = (gen._graph, gen._graph.capture_s)
+        ptr = (gen.pkv.k.data_ptr(), gen.pkv.v.data_ptr())
+        ids0 = prompt_ids(tokenizer, template, firsts[0])
+        out: dict = {"mirror_kind": gen.mirror.kind}
+        for k, b in enumerate(firsts):
+            _complete(url, b, "kvtier idle wave")
+            if k == 0:  # the watched block: session 0's last full one, its own
+                bid = gen.pool.match_prefix(ids0[:-1])[0][-1]
+                before = [cache_bits(p)[:, bid].clone() for p in gen.pkv]
+        shared = gen.pool.match_prefix(ids0[:-1])[0]
+        host = shared[-1]
+        if not gen.pool.is_host(host):
+            fail(f"kvtier: session 0's block {bid} was not spilled by the idle wave "
+                 f"({gen.pool.host_used_blocks()} host blocks used)")
+        lane = gen.mirror.lane(host)
+        out["spilled_equal_lane"] = all(torch.equal(a.to(b.device), b)
+                                        for a, b in zip(lane, before))
+        out["host_used_after_wave"] = reg.gauge(telemetry.KV_BLOCKS_HOST_USED).value()
+        out["spilled_blocks_after_wave"] = reg.counter(telemetry.KV_SPILL_BLOCKS).total() - c0[
+            telemetry.KV_SPILL_BLOCKS]
+        # pagein:raise:1 on session 0's resume, a bystander stream decoding
+        got: list = []
+        started = threading.Event()
+        bys = chat_body(words_text(SEED + 99, 300, "bystander"), 96)
+        th = threading.Thread(target=lambda: got.append(stream_chat(
+            url, bys, progress=lambda n: n >= 8 and started.set())))
+        th.start()
+        if not started.wait(300):
+            fail("kvtier: the bystander stream never decoded 8 tokens")
+        failpoints.registry().arm("pagein", "raise", times=1)
+        st, body = _post(url, dict(resumes[0], timing=True))
+        failpoints.registry().clear()
+        th.join(600)
+        out["pagein_fault"] = dict(status=st, error=str(body.get("error"))[:160],
+                                   bystander_status=got[0]["status"] if got else None,
+                                   bystander_tokens=len(got[0]["tokens"]) if got else 0)
+        if st != 503 or "PageInError" not in str(body.get("error")):
+            fail(f"kvtier pagein:raise: the resume answered {st} {body}, want a 503 "
+                 f"PageInError")
+        check_stream("kvtier bystander", got[0] if got else {}, 96)
+        ttft, pagein = [], []
+        for k, b in enumerate(resumes):
+            t = _complete(url, b, "kvtier resume")["timing"]
+            ttft.append(t["ttft_ms"])
+            pagein.append(t.get("pagein_ms"))
+            if k == 0:  # session 0's watched block, paged back in
+                dev = gen.pool.match_prefix(ids0[:-1])[0][-1]
+                out["pagein_equal"] = (not gen.pool.is_host(dev)
+                                       and all(torch.equal(cache_bits(p)[:, dev], b)
+                                               for p, b in zip(gen.pkv, before)))
+        out.update(resume_ttft_ms=ttft, resume_pagein_ms=pagein)
+        out["counters"] = {m: reg.counter(m).total() - v for m, v in c0.items()}
+        out["graph_unchanged"] = (gen._graph, gen._graph.capture_s) == graph
+        out["pool_ptr_unchanged"] = (gen.pkv.k.data_ptr(), gen.pkv.v.data_ptr()) == ptr
+        events = flightrec.recorder().snapshot()["events"]
+        out["requeues"] = sum(e["event"] == "requeue" for e in events)
+        return out
+
+    flightrec.recorder().reset()
+    rec["tier"] = tier_run(model, tok, ["--kv-host-blocks", str(TIER_HOST)], "kvtier tier",
+                           tier_plan, stores["tier"])
+    t = rec["tier"]
+    c = t["counters"]
+    if not (t["spilled_equal_lane"] and t["pagein_equal"]):
+        fail(f"kvtier: a spilled block's bytes are not its host lane's / its paged-in "
+             f"block's ({t['spilled_equal_lane']}, {t['pagein_equal']})")
+    if (c["dllama_kv_spill_blocks_total"] <= 0 or c["dllama_kv_pagein_blocks_total"] <= 0
+            or t["host_used_after_wave"] <= 0 or c["dllama_kv_block_exhaustion_total"]
+            or t["requeues"]):
+        fail(f"kvtier counters: {c}, host used {t['host_used_after_wave']}, requeues "
+             f"{t['requeues']}")
+    if not all(p and p > 0 for p in t["resume_pagein_ms"]):
+        fail(f"kvtier: a resume without pagein_ms in its timing block: {t['resume_pagein_ms']}")
+    if not (t["graph_unchanged"] and t["pool_ptr_unchanged"]):
+        fail("kvtier: the pool moved or a graph was captured after warm-up")
+    # answers: every resume's transcript and every step's logits as ref's
+    keys = [k for k in stores["ref"]]
+    diff = [k for k in keys if k not in stores["tier"]
+            or stores["tier"][k]["tokens"] != stores["ref"][k]["tokens"]
+            or any(not np.array_equal(a, b) for a, b in zip(stores["tier"][k]["logits"],
+                                                            stores["ref"][k]["logits"]))]
+    rec["tier"]["bitwise_equal"] = f"{len(keys) - len(diff)}/{len(keys)}"
+    if diff:
+        fail(f"kvtier: {len(diff)} of {len(keys)} requests' transcripts or logits differ "
+             f"from the never-spilled run")
+    launches = rec["tier"]["launches"]
+    summary["f32"]["launches"]["kvtier"] = launches
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        fail(f"kvtier: a kernel of the tiered path never launched: {launches}")
+
+    def off_plan(url, state, tokenizer, template):
+        reg = telemetry.registry()
+        s0 = reg.counter(telemetry.KV_SPILL_BLOCKS).total()
+        failpoints.registry().arm("spill", "raise")
+        try:
+            for b in firsts:
+                _complete(url, b, "kvtier spill:raise idle wave")
+            ttft = [_complete(url, b, "kvtier spill:raise resume")["timing"]["ttft_ms"]
+                    for b in resumes]
+        finally:
+            failpoints.registry().clear()
+        gen = state.sched.gen
+        return dict(resume_ttft_ms=ttft, host_used=gen.pool.host_used_blocks(),
+                    spilled=reg.counter(telemetry.KV_SPILL_BLOCKS).total() - s0,
+                    spill_failed=sum(e["event"] == "spill_failed"
+                                     for e in flightrec.recorder().snapshot()["events"]))
+
+    flightrec.recorder().reset()
+    rec["off"] = tier_run(model, tok, ["--kv-host-blocks", str(TIER_HOST)],
+                          "kvtier spill:raise", off_plan, stores["off"])
+    if rec["off"]["host_used"] or rec["off"]["spilled"] or not rec["off"]["spill_failed"]:
+        fail(f"kvtier spill:raise: host used {rec['off']['host_used']}, spilled "
+             f"{rec['off']['spilled']}, failed spills {rec['off']['spill_failed']}")
+    probe = TieProbe(model, tok, "f32", TIER_SEQ)
+    try:
+        parted = []
+        for key in keys:
+            got_t = stores["off"].get(key, {}).get("tokens", [])
+            d = probe(list(key), got_t, stores["ref"][key]["tokens"])
+            if d is not None:
+                parted.append(d)
+                hold_transcripts("kvtier spill:raise resume against ref", "f32", d)
+        rec["off"]["parted"] = parted
+    finally:
+        probe.close()
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    rec["resume_ttft_p50_ms"] = {k: med(rec[k]["resume_ttft_ms"]) for k in ("tier", "off", "ref")}
+    # e4m3 bytes, syncs of spilling ticks, GB/s
+    rec["f8_bytes_equal"] = f8_tier_bytes(model, tok)
+    rec.update(tier_syncs_and_rates(model, tok))
+    print(f"   kvtier: resumed TTFT p50 {rec['resume_ttft_p50_ms']['tier']:.1f} ms with the "
+          f"tier, {rec['resume_ttft_p50_ms']['off']:.1f} ms prefilled again; spill "
+          f"{rec['spill_gb_per_s']:.2f} GB/s, page-in {rec['pagein_gb_per_s']:.2f} GB/s "
+          f"(medians of {len(rec['rate_runs']['spill'])} copy runs) "
+          f"({rec['host_link']}; {rec['card']})", flush=True)
+    print(json.dumps(rec), flush=True)
+    summary["kvtier"] = rec
+    if not rec["f8_bytes_equal"]:
+        fail("kvtier: an e4m3 pool's spilled block is not its host lane's / paged-in bytes")
+
+
+def f8_tier_bytes(model: str, tok: str) -> bool:
+    """The round trip on an e4m3 pool (8 layers, ``--kv-dtype f8``): a
+    session's block bytes before pressure, its host lane after the spill,
+    its new device block after the page-in, by ``torch.equal``."""
+    from dllama_tpu_torch.formats.quants import F32
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.kvcache import cache_bits
+    from dllama_tpu_torch.runtime.serving import PagedGenerator, Request
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=512, sync_type=F32,
+                          temperature=0.0, kv_block_size=BLOCK, kv_dtype="f8",
+                          kv_host_blocks=16)
+    try:
+        gen = PagedGenerator(eng, 2)
+        ids = eng.tokenizer.encode(PROMPT)[:200]
+        gen.admit(Request(rid=0, prompt_ids=ids, max_tokens=2, stop_on_eos=False), 0)
+        while gen.n_active:
+            gen.step()
+        bid = gen.pool.match_prefix(ids[:-1])[0][3]
+        before = [cache_bits(p)[:, bid].clone() for p in gen.pkv]
+        if gen.pkv.k.dtype != torch.float8_e4m3fn or not before[0].any():
+            return False
+        taken = []
+        while gen.pool._cached:
+            taken.append(gen.pool.alloc())
+        host = gen.pool.match_prefix(ids[:-1])[0][3]
+        lane_ok = gen.pool.is_host(host) and all(
+            torch.equal(a.to(b.device), b) for a, b in zip(gen.mirror.lane(host), before))
+        for b in taken[:4]:
+            gen.pool.release(b)
+        pairs = gen.pool.begin_pagein([host])
+        gen.mirror.load(gen.pkv, pairs)
+        gen.pool.commit_pagein(pairs)
+        dev = pairs[0][1]
+        return lane_ok and all(torch.equal(cache_bits(p)[:, dev], b)
+                               for p, b in zip(gen.pkv, before))
+    finally:
+        eng.close()
+
+
+def tier_syncs_and_rates(model: str, tok: str) -> dict:
+    """On the 8-layer copy (Q80 buffers, 2 slots, block 16, ``--max-seq-len
+    512``, :data:`SYNC_HOST` host blocks), a scheduler driven tick by tick
+    on this thread: the pool filled with idle sessions' cached blocks, two
+    requests decoding; synchronisations per tick under
+    ``torch.cuda.set_sync_debug_mode("warn")``, split by whether the tick
+    spilled (decode growth over a dry free list). Then the mirror's own
+    copies timed (synchronised, every host chunk, real pool blocks): spill
+    and page-in GB/s (the median of :data:`RATE_RUNS`, each run's beside
+    it). The mirror's host slab must be page-locked and exactly the bytes
+    of its host blocks."""
+    import warnings
+
+    from dllama_tpu_torch.formats.quants import Q80
+    from dllama_tpu_torch.runtime import telemetry
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+    from dllama_tpu_torch.runtime.kvblocks import SPILL_BATCH
+    from dllama_tpu_torch.runtime.serving import BatchScheduler
+
+    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=512, sync_type=Q80,
+                          temperature=0.0, kv_block_size=BLOCK, kv_host_blocks=SYNC_HOST)
+    out: dict = {}
+    try:
+        sched = BatchScheduler(eng, 2, _start_thread=False)
+        sched.gen.capture()
+        gen = sched.gen
+        text = eng.tokenizer.encode(PROMPT * 3)
+        for k in range(10):  # idle sessions: 2x the pool's blocks
+            r = sched.submit(text[7 * k: 7 * k + 180], 2, stop_on_eos=False)
+            while not r.done.is_set():
+                sched._tick()
+        if not gen.pool.host_used_blocks():
+            fail("kvtier syncs: the idle sessions spilled nothing")
+        for j in range(2):
+            sched.submit(text[300 + j: 340 + j], 200, stop_on_eos=False)
+        while gen.n_active < 2:
+            sched._tick()
+        torch.cuda.synchronize()
+        spill = telemetry.registry().counter(telemetry.KV_SPILL_BLOCKS)
+        per_tick = []
+        for _ in range(96):
+            s0 = spill.total()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    sched._tick()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            n = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+            per_tick.append((spill.total() > s0, n))
+        spilling = [n for s, n in per_tick if s]
+        other = [n for s, n in per_tick if not s]
+        out["sync_ticks"] = dict(spilling=len(spilling), other=len(other),
+                                 syncs_spilling=sorted(set(spilling)),
+                                 syncs_other=sorted(set(other)))
+        if not spilling or not other or max(spilling) > min(other):
+            fail(f"kvtier syncs: ticks that spill {spilling}, ticks that do not {other}; a "
+                 f"spill must add no synchronisation")
+        # the copies alone: every host chunk, real device blocks
+        sched.close()
+        mirror, pool = gen.mirror, gen.pool
+        pool.spill_fn = None  # the allocs below drop-evict: no buffer leaves the count
+        mirror.drop_all()
+        out["mirror"] = dict(kind=mirror.kind, host_bytes=mirror.host_bytes,
+                             pinned=mirror._idle[0].k.is_pinned(),
+                             budget_bytes=pool.n_host_blocks * gen._block_bytes)
+        if (out["mirror"]["kind"], out["mirror"]["pinned"]) != ("pinned", True) or \
+                mirror.host_bytes != out["mirror"]["budget_bytes"]:
+            fail(f"kvtier: the host slab is not page-locked or not its blocks' bytes: "
+                 f"{out['mirror']}")
+        n_chunks = len(mirror._idle)
+        devs = [pool.alloc() for _ in range(SPILL_BATCH)]
+        hosts = [[10 ** 6 + SPILL_BATCH * c + j for j in range(SPILL_BATCH)]
+                 for c in range(n_chunks)]
+        nbytes = n_chunks * SPILL_BATCH * gen._block_bytes
+        rates = {}
+        for rep in range(RATE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for hs in hosts:
+                mirror.store(gen.pkv, devs, hs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for hs in hosts:
+                mirror.load(gen.pkv, list(zip(hs, devs)))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rates.setdefault("spill", []).append(nbytes / (t1 - t0) / 1e9)
+            rates.setdefault("pagein", []).append(nbytes / (t2 - t1) / 1e9)
+        out.update(spill_gb_per_s=statistics.median(rates["spill"]),
+                   pagein_gb_per_s=statistics.median(rates["pagein"]),
+                   rate_bytes=nbytes, rate_runs=rates)
+    finally:
+        eng.close()
+    return out
+
+
+def mig_bodies() -> tuple[list[dict], list[dict]]:
+    """Seven greedy bodies of 400-700 prompt tokens in the serving mix's
+    words: three kept for the fallback rounds (a user message alone) and
+    four for the routed migration (behind the mix's system message)."""
+    kept = [chat_body(words_text(SEED + 200 + i, 420 + 110 * i, f"kept{i}"), MIG_TOKENS)
+            for i in range(3)]
+    moved = [chat_body(words_text(SEED + 300 + i, 260 + 90 * i, f"moved{i}"), MIG_TOKENS,
+                       system=True, session_id=f"kvmig-{i}") for i in range(4)]
+    return kept, moved
+
+
+def kvmigrate_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict) -> None:
+    """KV migration on the 8-layer copy (width is never cut; f32, f32
+    buffers, paged pools of 8 slots, block 16). The oracle first: replica D0
+    in process serves the seven bodies of :func:`mig_bodies` (each prefix
+    computed locally), every step's logits recorded, then stops. Then the
+    fleet: P (``--role prefill``) as a process, D (``--role decode``) in
+    process with logits recorded, the router (a process, no CUDA). The
+    fallback rounds first, straight to D, each with a kept body D never
+    saw: a hint naming a port nobody listens on (``peer_death``),
+    ``kvwire:raise`` armed on D after the stream's header (``peer_death``),
+    the ``kvwire`` short read (``crc``) — each transcript equal to D0's bit
+    for bit (D recomputes from nothing, as D0 did, in the same order). Then
+    the four routed bodies: P warmed (``rt_prefill``), D named its donor
+    (``rt_kv_donor``) and migrating, 4 ``migrated`` and no fallback on D,
+    ``kvmigrate_ms`` in the timing block, P never dispatched; D's first-token
+    logits within 0.15 max|logit| of D0's, a transcript departure only where
+    D0's top-2 margin is below that drift. The bytes: P's ``/v1/kv/export``
+    of one body, decoded by the port's ``kvwire.read_stream``, equals D's
+    blocks at the ids its ``match_prefix`` returns. K1-K4 launched on D0 and
+    on D."""
+    import urllib.request
+
+    import numpy as np
+
+    from dllama_tpu_torch.runtime import failpoints, kvwire, telemetry
+    from dllama_tpu_torch.runtime.kvcache import cache_bits
+    from dllama_tpu_torch.serve.api import chat_template
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+    from dllama_tpu_torch.tokenizer.chat import ChatTemplateType
+
+    tokenizer = Tokenizer.load(tok)
+    template, _ = chat_template(tokenizer, ChatTemplateType.UNKNOWN)
+    kept, moved = mig_bodies()
+    ids = {id(b): prompt_ids(tokenizer, template, b) for b in kept + moved}
+    common = ["--model", model, "--tokenizer", tok, "--compute-dtype", "f32",
+              "--buffer-float-type", "f32", "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED),
+              "--temperature", "0", "--batch-slots", str(SLOTS), "--kv-block-size", str(BLOCK)]
+    rec: dict = {"case": "kvmigrate", "layers": n_layers, "slots": SLOTS, "block_size": BLOCK,
+                 "prompt_tokens": [len(ids[id(b)]) for b in kept + moved], "card": card_line()}
+    d0: dict = {}
+    with recorded_step_logits(d0), api_server(["api", *common], "kvmigrate D0") as (url, _):
+        zero_counts()
+        for b in kept + moved:
+            _complete(url, b, "kvmigrate D0")
+        rec["d0_launches"] = read_counts()
+    dd: dict = {}
+    port_p = free_port()
+    url_p = f"http://127.0.0.1:{port_p}"
+    p = Child(["api", *common, *dev_flags(), "--role", "prefill", "--host", "127.0.0.1",
+               "--port", str(port_p)], os.path.join(tmp, "replica_p.log"))
+    router = None
+    reg = telemetry.registry()
+
+    def mig_totals() -> dict:
+        return {"migrated": reg.counter(telemetry.KVWIRE_MIGRATIONS).total(outcome="migrated"),
+                "fallback": reg.counter(telemetry.KVWIRE_MIGRATIONS).total(outcome="fallback"),
+                **{r: reg.counter(telemetry.KVWIRE_FALLBACK).total(reason=r)
+                   for r in kvwire.FALLBACK_REASONS}}
+
+    try:
+        with recorded_step_logits(dd), api_server(["api", *common, "--role", "decode"],
+                                                  "kvmigrate D") as (url_d, state_d):
+            rec["p_ready_s"] = p.wait_ready(url_p, "kvmigrate replica P")
+            port_r = free_port()
+            url_r = f"http://127.0.0.1:{port_r}"
+            router = Child(["router", "--replica", url_p, "--replica", url_d,
+                            "--probe-interval", "0.2", "--host", "127.0.0.1", "--port",
+                            str(port_r)], os.path.join(tmp, "router_kv.log"))
+            router.wait_ready(url_r, "kvmigrate router", timeout=120)
+            name_p = url_p.removeprefix("http://")
+            t_up = time.perf_counter()
+            while True:
+                reps = _get_json(url_r + "/debug/fleet")[1]["replicas"]
+                if all(r["state"] == "up" for r in reps) and any(
+                        r["replica"] == name_p and r.get("role") == "prefill" for r in reps):
+                    break
+                if time.perf_counter() - t_up > 60:
+                    fail(f"kvmigrate: the router never saw P as an up prefill replica: {reps}")
+                time.sleep(0.2)
+            zero_counts()
+            # -- the fallback rounds, straight to D ------------------------
+            dead = free_port()
+            orig_check = kvwire.check_geometry
+
+            def arm_after_header(header, expect):
+                orig_check(header, expect)
+                failpoints.registry().arm("kvwire", "raise", times=1)
+
+            rounds = []
+            for i, (why, want) in enumerate((("dead port", "peer_death"),
+                                             ("kvwire:raise mid-stream", "peer_death"),
+                                             ("kvwire short read", "crc"))):
+                body = kept[i]
+                peer = f"127.0.0.1:{dead}"
+                if i:
+                    _complete(url_p, body, "kvmigrate P warm")  # P holds the prefix
+                    peer = name_p
+                if i == 1:
+                    kvwire.check_geometry = arm_after_header
+                elif i == 2:
+                    failpoints.registry().arm("kvwire", "short_read", times=1)
+                t0 = mig_totals()
+                try:
+                    out = _complete(url_d, body, f"kvmigrate fallback {why}",
+                                    {"X-Dllama-KV-Peer": peer})
+                finally:
+                    kvwire.check_geometry = orig_check
+                    failpoints.registry().clear()
+                d = {k: v - t0[k] for k, v in mig_totals().items()}
+                key = tuple(ids[id(body)])
+                equal = dd.get(key, {}).get("tokens") == d0[key]["tokens"]
+                rounds.append(dict(round=why, reason=want, counts=d, equal_to_d0=equal,
+                                   kvmigrate_ms=out["timing"]["kvmigrate_ms"]))
+                if d["fallback"] != 1 or d[want] != 1 or d["migrated"] or not equal:
+                    fail(f"kvmigrate fallback {why}: {d}, transcript equal to D0: {equal}")
+            rec["fallbacks"] = rounds
+            # -- the routed migration --------------------------------------
+            # blocks of the byte-checked body D holds already (its own, from
+            # the fallback rounds: the template's opening): not ingested
+            gen = state_d.sched.gen
+            toks = ids[id(moved[-1])][:-1]
+            local = len(gen.pool.match_prefix(toks)[0])
+            t0 = mig_totals()
+            routed = []
+            for b in moved:
+                out = _complete(url_r, b, "kvmigrate routed")
+                routed.append(out["timing"].get("kvmigrate_ms", 0.0))
+            d = {k: v - t0[k] for k, v in mig_totals().items()}
+            rec["routed"] = dict(counts=d, kvmigrate_ms=routed)
+            if d["migrated"] != len(moved) or d["fallback"] or min(routed) <= 0:
+                fail(f"kvmigrate routed: {d}, kvmigrate_ms {routed}")
+            rec["d_launches"] = read_counts()
+            fleet = _get_json(url_r + "/debug/fleet")[1]
+            phases = {s["phase"] for s in fleet["spans"]}
+            roles = {r["replica"]: r.get("role") for r in fleet["replicas"]}
+            rz = _get_json(url_p + "/readyz")[1]
+            disp_p = _metric(get_text(url_r + "/metrics"),
+                             f'dllama_router_dispatch_total{{replica="{name_p}"}}')
+            rec.update(roles=roles, p_kv_prefixes=len(rz.get("kv_prefixes", [])),
+                       router_dispatch_p=disp_p,
+                       spans={k: sum(s["phase"] == k for s in fleet["spans"])
+                              for k in ("rt_prefill", "rt_kv_donor")})
+            if (roles.get(name_p) != "prefill" or not rz.get("kv_prefixes") or disp_p
+                    or not {"rt_prefill", "rt_kv_donor"} <= phases):
+                fail(f"kvmigrate fleet view: roles {roles}, P's kv_prefixes "
+                     f"{rz.get('kv_prefixes')}, P dispatched {disp_p}, spans {phases}")
+            # -- the bytes: P's export of the last body against D's blocks --
+            req = urllib.request.Request(url_p + "/v1/kv/export",
+                                         data=json.dumps({"tokens": toks}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                hdr, blocks = kvwire.read_stream(r, gen.wire_geometry())
+            shared = gen.pool.match_prefix(toks)[0]
+            dtype = gen.pkv.k.dtype
+            same = [all(torch.equal(cache_bits(plane)[:, bid].cpu(),
+                                    cache_bits(torch.from_numpy(x).to(dtype)))
+                        for plane, x in zip(gen.pkv, (k, v)))
+                    for (_, k, v), bid in list(zip(blocks, shared))[local:]]
+            rec["bytes"] = dict(exported_blocks=hdr["n_blocks"], matched=len(shared),
+                                held_before=local, ingested_equal=sum(same))
+            # the gather + readback each export cost P's loop thread (its
+            # flight ring's kv_export events): the stall bystanders see
+            rec["export_ms"] = [e["ms"] for e in _get_json(url_p + "/debug/flight")[1]["events"]
+                                if e["event"] == "kv_export"]
+            if (len(shared) < hdr["n_blocks"] or len(same) != hdr["n_blocks"] - local
+                    or not same or not all(same)):
+                fail(f"kvmigrate bytes: {sum(same)} of {hdr['n_blocks'] - local} ingested "
+                     f"blocks equal P's export ({len(shared)} matched, {local} held before)")
+    finally:
+        failpoints.registry().clear()
+        if router is not None:
+            router.stop("kvmigrate router")
+        rec["p_rc"] = p.stop("kvmigrate replica P")
+    # -- the answers: drift of the migrated prefixes -------------------------
+    answers = []
+    for b in moved:
+        key = tuple(ids[id(b)])
+        got, want = dd.get(key), d0[key]
+        if got is None:
+            fail("kvmigrate: D recorded no step of a migrated body")
+        scale = float(np.abs(want["logits"][0]).max())
+        drift = float(np.abs(got["logits"][0] - want["logits"][0]).max())
+        i = next((j for j, (a, c) in enumerate(zip(got["tokens"], want["tokens"])) if a != c),
+                 None)
+        margin = None
+        if i is not None:
+            top2 = np.sort(np.asarray(want["logits"][i], np.float64))[-2:]
+            margin = float(top2[1] - top2[0])
+        answers.append(dict(drift=drift, bound=0.15 * scale, equal=i is None, depart_at=i,
+                            d0_top2_margin=margin))
+        if drift >= 0.15 * scale:
+            fail(f"kvmigrate: first-token drift {drift:.4g} >= 0.15 max|logit| "
+                 f"({0.15 * scale:.4g})")
+        if i is not None and not margin < drift:
+            fail(f"kvmigrate: a migrated transcript departs at token {i}, where D0's top-2 "
+                 f"margin {margin:.4g} is not below the first-token drift {drift:.4g}")
+    rec["answers"] = answers
+    summary["f32"]["launches"]["kvmigrate_D0"] = rec["d0_launches"]
+    summary["f32"]["launches"]["kvmigrate_D"] = rec["d_launches"]
+    for who in ("d0_launches", "d_launches"):
+        if min(rec[who][k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+            fail(f"kvmigrate: a kernel of {who[:-9]}'s path never launched: {rec[who]}")
+    print(f"   kvmigrate: {len(moved)} migrated, kvmigrate ms {routed}, export ms on P's loop "
+          f"thread {rec.get('export_ms')}, first-token drift "
+          f"max {max(a['drift'] for a in answers):.4g} (bound "
+          f"{min(a['bound'] for a in answers):.4g}), {sum(a['equal'] for a in answers)} of "
+          f"{len(moved)} transcripts equal to D0's", flush=True)
+    print(json.dumps(rec), flush=True)
+    summary["kvmigrate"] = rec
+
+
 def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
@@ -5562,14 +6307,20 @@ def ab_side(tag: str, assets: str, n_layers: int) -> int:
 
 def late_phases(names, model: str, long_model: str, tok: str, tmp: str, n_layers: int,
                 e2e: dict) -> None:
-    """The phases of slices 12 and 13, each timed (eval on the 8-layer copy
-    ``long_model``, numerics and the fleet at full depth); the audit of ``model``
-    (host only, at the lowest CPU priority) runs beside the others."""
+    """The phases of slices 12-14, each timed (eval, numerics, the fleet,
+    the KV tier and KV migration on the 8-layer copy ``long_model``, hbm at
+    full depth); the audit of ``model`` (host only, at the lowest CPU
+    priority) runs beside the others."""
+    long_layers = min(LONG_LAYERS, n_layers)
     audit = start_audit(model, n_layers) if "audit" in names else None
     for name, phase in (("eval", lambda: eval_phase(long_model, tok, tmp, e2e)),
-                        ("numerics", lambda: numerics_phase(model, tok, e2e)),
+                        ("numerics", lambda: numerics_phase(long_model, tok, e2e)),
                         ("hbm", lambda: hbm_phase(model, tok, e2e)),
-                        ("fleet", lambda: fleet_phase(model, tok, tmp, n_layers, e2e))):
+                        ("fleet", lambda: fleet_phase(long_model, tok, tmp, long_layers, e2e)),
+                        ("kvtier", lambda: kvtier_phase(long_model, tok, tmp, long_layers,
+                                                        e2e)),
+                        ("kvmigrate", lambda: kvmigrate_phase(long_model, tok, tmp,
+                                                              long_layers, e2e))):
         if name in names:
             t0 = time.perf_counter()
             phase()
@@ -5581,7 +6332,7 @@ def late_phases(names, model: str, long_model: str, tok: str, tmp: str, n_layers
 
 
 def only_phases(names: list[str], n_layers: int) -> int:
-    """``--only``: the named phases of slices 12 and 13 on fresh assets,
+    """``--only``: the named phases of slices 12-14 on fresh assets,
     then exit 3 (a development run is never a result)."""
     e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
@@ -5603,8 +6354,8 @@ def main() -> int:
                     help="with --ab: where the synthetic model is written once and reused")
     ap.add_argument("--only", metavar="PHASES",
                     help="a development run: only these end-to-end phases (comma-separated "
-                         "from eval, numerics, hbm, fleet, audit), no kernel cases; prints "
-                         "no result line")
+                         "from eval, numerics, hbm, fleet, kvtier, kvmigrate, audit), no "
+                         "kernel cases; prints no result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -5697,7 +6448,7 @@ def main() -> int:
         dense_chunk_spec(long_model, tok, long_layers, e2e)
         print(f"⏱️ dense chunk-4 and spec-4 took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        single_api(model, tok, args.layers, e2e)
+        single_api(long_model, tok, long_layers, e2e)
         print(f"⏱️ single-sequence api took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         chat_phase(long_model, tok, tmp, e2e)
@@ -5708,7 +6459,7 @@ def main() -> int:
         for name, phase in (
                 ("f8 single sequence",
                  lambda: f8_single(long_model, tok, text, long_layers, e2e)),
-                ("f8 serving", lambda: f8_serving(model, tok, args.layers, e2e)),
+                ("f8 serving", lambda: f8_serving(long_model, tok, long_layers, e2e)),
                 ("f8 sp", lambda: f8_sp(long_model, tok, e2e)),
                 ("weight modes", lambda: weight_modes(long_model, tok, long_layers, e2e)),
                 ("nbatches", lambda: nbatches_phase(long_model, tok, e2e)),
@@ -5721,8 +6472,8 @@ def main() -> int:
             phase()
             torch.cuda.empty_cache()
             print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
-        late_phases(("eval", "numerics", "hbm", "fleet", "audit"), model, long_model, tok,
-                    tmp, args.layers, e2e)
+        late_phases(("eval", "numerics", "hbm", "fleet", "kvtier", "kvmigrate", "audit"),
+                    model, long_model, tok, tmp, args.layers, e2e)
     model_parity({})
     paged_parity({})
     sp_parity({})

@@ -31,7 +31,10 @@ and attends through K4
 ``cfg.attn_impl`` gate). Under a mesh plan with ``sp > 1`` the dense path
 attends through :func:`~dllama_tpu_torch.parallel.ring.sp_attention` over a
 :class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache` (kernel K3s on
-the card) instead of K3.
+the card) instead of K3. :func:`gather_kv_blocks` and
+:func:`scatter_kv_blocks` move whole pool blocks (the host KV tier's spill
+and page-in, the KV wire's export and ingest): plain tensor copies, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -519,6 +522,42 @@ def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = fake_quant_q80(x)
     logits = linear(x, params.logits, impl=cfg.quant_impl).float()
     return logits, pkv
+
+
+def block_ids(ids, device) -> torch.Tensor:
+    """Host block ids as an int64 index tensor on ``device``. On a card the
+    ids go through page-locked memory with a non-blocking copy (the caching
+    host allocator holds the staging block until the copy has run), so
+    naming blocks never synchronises the host with the card."""
+    t = torch.tensor(list(ids), dtype=torch.long)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def gather_kv_blocks(pkv, ids) -> tuple[torch.Tensor, torch.Tensor]:
+    """Physical blocks ``ids`` (host ints) out of the pool as one contiguous
+    chunk per plane, ``(k, v)`` each ``[L, len(ids), n_kv, bs, hd]``: one
+    ``index_select`` a plane. The device side of a KV-tier spill and of a
+    KV-wire export. The chunk is the pool's :func:`cache_bits` (an e4m3
+    pool moves as its bytes), a new tensor, so the pool may reuse the
+    source blocks right after."""
+    idx = block_ids(ids, pkv.k.device)
+    return (cache_bits(pkv.k).index_select(1, idx),
+            cache_bits(pkv.v).index_select(1, idx))
+
+
+def scatter_kv_blocks(pkv, chunk_k: torch.Tensor, chunk_v: torch.Tensor, ids) -> None:
+    """Write a chunk ``[L, len(ids), n_kv, bs, hd]`` (the pool's
+    :func:`cache_bits` dtype) into the pool at physical blocks ``ids``
+    (host ints), IN PLACE: the captured decode graphs replay against the
+    pool's storage, so the pool is never rebound. Lanes a caller does not
+    want name the null block (id 0), whose contents are value-invisible.
+    The device side of a KV-tier page-in and of a KV-wire ingest."""
+    idx = block_ids(ids, pkv.k.device)
+    cache_bits(pkv.k).index_copy_(1, idx, chunk_k.to(pkv.k.device, non_blocking=True))
+    cache_bits(pkv.v).index_copy_(1, idx, chunk_v.to(pkv.v.device, non_blocking=True))
 
 
 def _nonfinite_rows(logits: torch.Tensor) -> torch.Tensor:

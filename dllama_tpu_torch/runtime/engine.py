@@ -216,7 +216,7 @@ class InferenceEngine:
                  decode_chunk: int = 1, spec_lookup: int = 0, kv_dtype: str = "auto",
                  weight_mode: str = "auto", host_sampling: bool = False,
                  verify_weights: bool = False, numerics_taps: bool = False,
-                 numerics_failfast: bool = False):
+                 numerics_failfast: bool = False, kv_host_blocks: int = 0):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
         # KV cache dtype: "auto" rides the compute dtype; "f8" stores e4m3
@@ -255,6 +255,15 @@ class InferenceEngine:
                 f"--kv-block-size (paged KV serving) does not support "
                 f"{', '.join(bad)} yet — drop those flags or drop "
                 f"--kv-block-size to use the dense slot pool")
+        # tiered KV memory (--kv-host-blocks, runtime/kvblocks.py): a host
+        # mirror pool under the paged block pool, validated here and built
+        # (and fitted to the host budget) by serving.PagedGenerator
+        self.kv_host_blocks = max(0, int(kv_host_blocks or 0))
+        if self.kv_host_blocks and not self.kv_block_size:
+            raise ValueError(
+                "--kv-host-blocks is the paged pool's host spill tier — "
+                "it needs --kv-block-size (block-granular KV) to have "
+                "blocks to spill")
         # sequence parallelism (--sp, parallel/ring.py): the lead device
         # holds the weights, the cache is split over the plan's devices
         self.sp = int(sp)

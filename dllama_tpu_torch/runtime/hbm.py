@@ -5,7 +5,9 @@ The reference prints its required-memory estimate before loading
 (nn-core.cpp:162-176). Here the engine estimates device bytes before it
 stages anything and refuses a model that does not fit with an actionable
 error; the batched pools shrink to what fits instead of refusing
-(:func:`fit_batch_slots`, :func:`fit_block_pool`); and the submit paths of
+(:func:`fit_batch_slots`, :func:`fit_block_pool`), and so does the paged
+pool's host spill tier against host DRAM (:func:`fit_host_pool`); and the
+submit paths of
 both API states refuse a prompt that would push the card past its limit
 (:func:`admission_check`, ``runtime/serving.py::check_hbm_admission``).
 
@@ -167,6 +169,51 @@ def fit_block_pool(cfg, n_blocks: int, *, block_size: int, min_blocks: int,
         else:
             hi = mid
     return lo, est_for(lo)
+
+
+def host_memory_bytes() -> int | None:
+    """Total host DRAM, or None when the platform won't say.
+    ``DLLAMA_HOST_KV_BYTES`` overrides with an explicit KV-tier budget (the
+    JAX module's own override, kept for containers whose cgroup limit the
+    sysconf number can't see)."""
+    env = os.environ.get("DLLAMA_HOST_KV_BYTES")
+    if env:
+        return int(env)
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (ValueError, OSError, AttributeError):
+        return None
+
+
+# the host KV mirror may take at most this share of host DRAM when the
+# budget comes from the sysconf total (weights, the OS and the runtime need
+# the rest); an explicit DLLAMA_HOST_KV_BYTES is taken as-is
+_HOST_KV_FRACTION = 0.5
+
+
+def fit_host_pool(cfg, n_blocks: int, *, block_size: int, kv_dtype_bytes: int) -> int:
+    """Largest host-tier mirror pool ``<= n_blocks`` that fits the host DRAM
+    budget — the host twin of :func:`fit_block_pool`, sized block by block
+    with the same :func:`estimate_block_pool_bytes`. Returns the fitted
+    count (0 = tier off); an unknown host capacity grants the request as
+    is. The mirror stores spilled blocks in ``kvblocks.SPILL_BATCH``-wide
+    chunks, so a grant of at least one batch rounds DOWN to a batch
+    multiple (a sub-batch lane could never carry a full spill); a sub-batch
+    grant is kept (its mirror holds at most one chunk)."""
+    from .kvblocks import SPILL_BATCH
+
+    n = max(0, n_blocks)
+    if n == 0:
+        return 0
+    limit = host_memory_bytes()
+    if limit is not None:
+        if not os.environ.get("DLLAMA_HOST_KV_BYTES"):
+            limit = int(limit * _HOST_KV_FRACTION)
+        per_block = max(1, estimate_block_pool_bytes(cfg, 1, block_size, kv_dtype_bytes))
+        n = min(n, limit // per_block)
+    if n >= SPILL_BATCH:
+        n = (n // SPILL_BATCH) * SPILL_BATCH
+    return n
 
 
 def estimate_prefill_temp_bytes(cfg, tokens: int) -> int:

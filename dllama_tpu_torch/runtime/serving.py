@@ -93,8 +93,22 @@ stream is fast-forwarded by ``n`` draws (coin ``i`` belongs to emitted token
 ``i``), and its streaming decoder replays the history with the output
 dropped, so the continuation is the one the dead replica would have made.
 
-Left out (later slices): the host KV tier and KV migration, and the
-multihost broadcast.
+Tiered KV memory and KV migration (``--kv-host-blocks``, ``runtime/kvwire.py``),
+at the JAX package's sites: under allocation pressure the paged pool spills
+its coldest cached blocks to a host mirror (:class:`~dllama_tpu_torch.runtime.kvblocks.HostKVMirror`)
+instead of dropping them, and an admission whose prefix match lands on host
+blocks pages them back in, one ``SPILL_BATCH`` a tick, before its CoW copy and
+prefill (the ``pagein`` TTFT phase and span; a failed page-in fails only that
+request, 503-shaped). :meth:`PagedGenerator.export_prefix` and
+:meth:`PagedGenerator.ingest_prefix` move a resident prefix over the
+checksummed Q80 wire: the scheduler serves peers' export gathers between
+ticks (:meth:`BatchScheduler.request_kv_export`) and parks a request whose
+``kv_peer`` names a donor while a fetch thread pulls its prefix, then admits
+it through the ordinary path; every wire failure recomputes, counted by
+reason. The pool is always written in place (the captured graphs hold its
+address), and tier copies never synchronise the host.
+
+Left out (later slices): the multihost broadcast.
 """
 
 from __future__ import annotations
@@ -108,15 +122,17 @@ from typing import TYPE_CHECKING, Callable
 import numpy as np
 import torch
 
-from ..models.llama import (forward, paged_sampled_step, paged_verify_step, prefill_nll,
-                            ragged_sampled_step, ragged_verify_step)
+from ..models.llama import (forward, gather_kv_blocks, paged_sampled_step, paged_verify_step,
+                            prefill_nll, ragged_sampled_step, ragged_verify_step,
+                            scatter_kv_blocks)
 from ..tokenizer.sampler import xorshift_random_f32
-from . import failpoints, flightrec, numerics, telemetry, tenancy
+from . import failpoints, flightrec, kvwire, numerics, telemetry, tenancy
 from .graphs import StepGraph, load, staging
 from .hbm import (admission_check, check_budget, estimate_block_pool_bytes,
-                  estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool)
-from .kvblocks import BlockPool, BlockPoolExhausted, PagedKVCache, blocks_per_seq
-from .kvcache import KVCache, cache_bits, padded_cache_len
+                  estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool, fit_host_pool)
+from .kvblocks import (SPILL_BATCH, BlockPool, BlockPoolExhausted, HostKVMirror, PageInError,
+                       PagedKVCache, blocks_per_seq)
+from .kvcache import KVCache, cache_bits, padded_cache_len, to_cache
 from .speculative import NgramProposer, spec_coins_consumed
 
 if TYPE_CHECKING:
@@ -228,6 +244,16 @@ class Request:
     ms_decode_steps: float = 0.0  # decode dispatch wall while the slot was active
     ms_preempt: float = 0.0       # others' prefill chunks while decode-armed
     ms_verify: float = 0.0        # speculative verify dispatch wall
+    ms_pagein: float = 0.0        # KV-tier page-in wall during admission (the
+    #                               `pagein` TTFT phase of a resumed session)
+    ms_kvmigrate: float = 0.0     # peer-KV migration wall while parked before
+    #                               admission (the `kvmigrate` TTFT phase)
+    # KV migration (runtime/kvwire): a peer replica whose paged pool holds
+    # this prompt's prefix. The scheduler pulls the blocks over the
+    # checksummed Q80 wire before admission; ANY failure clears the field
+    # and the request admits normally (recompute fallback) — a migration is
+    # an optimisation, never a correctness dependency
+    kv_peer: str | None = None
     # speculative serving: drafted tokens offered to verify steps, and the
     # drafts accepted
     spec_drafted: int = 0
@@ -253,7 +279,8 @@ class Request:
         if not (self.t_first_token and self.t_submit and self.t_admit and self.t_decode):
             return None
         return flightrec.ttft_phases(self.t_submit, self.t_admit, self.t_decode,
-                                     self.t_first_token, self.ms_prefill)
+                                     self.t_first_token, self.ms_prefill, self.ms_pagein,
+                                     self.ms_kvmigrate)
 
 
 @dataclass
@@ -270,6 +297,45 @@ class _Admission:
     col: KVCache | None
     pos: int = 0
     reused: int = 0  # prompt positions prefix reuse skipped
+    # KV tier (paged pool with --kv-host-blocks): outstanding page-in pairs
+    # (host_bid, dev_bid), drained one SPILL_BATCH a continue_admit call so
+    # a long resume interleaves with the other slots' decode ticks
+    pagein: list = field(default_factory=list)
+    # device work deferred until the paged-in content is resident: the
+    # copy-on-write block copy (src_dev, dst_dev), the page-in reference on
+    # a host-sourced CoW source to release after it, and the column gather
+    cow: tuple | None = None
+    cow_release: int = 0
+    need_take: bool = False
+
+
+@dataclass
+class _KVMigration:
+    """One in-flight peer-KV pull (runtime/kvwire): the request parks here
+    (popped from the queue, not yet admitted) while a daemon thread streams
+    frames from the peer. The fetch thread writes ONLY this holder and never
+    touches scheduler or pool state; the loop thread commits or falls back
+    in ``_service_migrations`` once ``finished`` flips."""
+
+    req: Request
+    peer: str
+    t0_ns: int
+    blocks: list = field(default_factory=list)
+    error: BaseException | None = None
+    finished: bool = False
+
+
+@dataclass
+class _KVExportJob:
+    """One pending ``/v1/kv/export`` gather: the HTTP handler thread parks on
+    ``done`` while the loop thread (the pool's owner) runs
+    :meth:`PagedGenerator.export_prefix` between ticks."""
+
+    tokens: list[int]
+    done: threading.Event = field(default_factory=threading.Event)
+    n_tokens: int = 0
+    blocks: list = field(default_factory=list)
+    error: BaseException | None = None
 
 
 class _GeneratorCore:
@@ -1094,9 +1160,36 @@ class PagedGenerator(_GeneratorCore):
         self.hbm_need = est["need_per_device"]  # the submit-time guard's base
         self.pool_bytes = estimate_block_pool_bytes(self.cfg, n_blocks, block_size,
                                                     engine.kv_dtype.itemsize)
-        self.pool = BlockPool(n_blocks, block_size)
+        # tiered KV memory (--kv-host-blocks): a host mirror pool sized
+        # through the host DRAM budget — cold cached blocks spill there under
+        # pressure instead of dropping, resumed sessions page them back in
+        want_host = engine.kv_host_blocks
+        n_host = fit_host_pool(self.cfg, want_host, block_size=block_size,
+                               kv_dtype_bytes=engine.kv_dtype.itemsize)
+        if n_host < want_host:
+            print(f"⚠️ host KV tier: {want_host} host blocks exceed the host DRAM "
+                  f"budget — degrading to {n_host} (runtime/hbm.py fit_host_pool)",
+                  flush=True)
+        self.pool = BlockPool(n_blocks, block_size, n_host_blocks=n_host)
         self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
                                        dtype=engine.kv_dtype, device=engine.device)
+        # the one per-block size formula: the spill/page-in byte counters
+        # price blocks as the host budget does
+        self._block_bytes = estimate_block_pool_bytes(self.cfg, 1, block_size,
+                                                      engine.kv_dtype.itemsize)
+        self.mirror: HostKVMirror | None = None
+        if n_host:
+            # chunk-accounted RAM cap: fragmentation costs capacity, never an
+            # overshoot of the budget fit_host_pool granted. The warmup
+            # allocates every host buffer and runs both copies once; unlike
+            # the JAX generator, which serves untiered after a failed warmup,
+            # a failure here fails the start-up: a tier that was asked for is
+            # never quietly absent
+            self.mirror = HostKVMirror(max_chunks=max(1, n_host // SPILL_BATCH))
+            self.mirror.warmup(self.pkv)
+            self.pool.spill_fn = self._exec_spill
+            self.pool.host_drop_fn = self.mirror.drop
+            self.pool.host_room_fn = self.mirror.has_room
         # per-slot block tables (host truth; shipped with pos and the next
         # token in one host→device copy per step)
         self.tables = np.zeros((n_slots, self.table_width), dtype=np.int64)
@@ -1113,19 +1206,33 @@ class PagedGenerator(_GeneratorCore):
         # block-pool gauges: read from the allocator's host counts
         self._m_blocks_used = self._tm.gauge(telemetry.KV_BLOCKS_USED)
         self._m_blocks_shared = self._tm.gauge(telemetry.KV_BLOCKS_SHARED)
+        self._m_host_used = self._tm.gauge(telemetry.KV_BLOCKS_HOST_USED)
+        self._m_spill_blocks = self._tm.counter(telemetry.KV_SPILL_BLOCKS)
+        self._m_spill_bytes = self._tm.counter(telemetry.KV_SPILL_BYTES)
+        self._m_spill_ms = self._tm.counter(telemetry.KV_SPILL_MS)
+        self._m_pagein_blocks = self._tm.counter(telemetry.KV_PAGEIN_BLOCKS)
+        self._m_pagein_bytes = self._tm.counter(telemetry.KV_PAGEIN_BYTES)
+        self._m_pagein_ms = self._tm.counter(telemetry.KV_PAGEIN_MS)
         self._tm.gauge(telemetry.KV_BLOCKS_TOTAL).set(n_blocks - 1)
+        self._tm.gauge(telemetry.KV_BLOCKS_HOST_TOTAL).set(self.pool.n_host_blocks)
         self._update_block_gauges()
 
     def _update_block_gauges(self) -> None:
         self._m_blocks_used.set(self.pool.used_blocks())
         self._m_blocks_shared.set(self.pool.shared_blocks())
+        if self.pool.n_host_blocks:
+            self._m_host_used.set(self.pool.host_used_blocks())
 
     def _kv_fraction(self) -> float:
         return self.pool.used_blocks() / max(1, self.pool.n_blocks - 1)
 
     def flight_blocks(self) -> dict | None:
-        return {"total": self.pool.n_blocks - 1, "used": self.pool.used_blocks(),
-                "shared": self.pool.shared_blocks()}
+        d = {"total": self.pool.n_blocks - 1, "used": self.pool.used_blocks(),
+             "shared": self.pool.shared_blocks()}
+        if self.pool.n_host_blocks:
+            d["host_total"] = self.pool.n_host_blocks
+            d["host_used"] = self.pool.host_used_blocks()
+        return d
 
     def kv_blocks_by_slot(self, slot: int) -> float:
         return float(len(self._seq_bids[slot]))
@@ -1262,6 +1369,175 @@ class PagedGenerator(_GeneratorCore):
         for pool in (cache_bits(self.pkv.k), cache_bits(self.pkv.v)):
             pool[:, dst] = pool[:, src]
 
+    # -- KV tier: spill (device->host) and page-in (host->device) -----------
+
+    def _exec_spill(self, devs: list[int], hosts: list[int]) -> bool:
+        """The pool's ``spill_fn``: one batched device->host copy moving the
+        LRU cached blocks ``devs`` into the mirror's ``hosts`` lanes. Any
+        failure (the ``spill`` failpoint or a real copy error) returns
+        False and the pool falls back to drop-evict: a broken host tier
+        costs resume work, never availability. The copy is enqueued, not
+        waited for (``ms`` is its host window)."""
+        if not self.mirror.has_room():
+            # the chunk budget is full on fragmented chunks: capacity loss,
+            # never an overshoot — the pool drop-evicts as if the tier were off
+            self.flight.note("spill_failed", reason="host_budget_full", n_blocks=len(devs))
+            return False
+        t0 = telemetry.now_ns()
+        try:
+            failpoints.fire("spill")
+            self.mirror.store(self.pkv, devs, hosts)
+        except Exception as e:  # noqa: BLE001 — degrade to drop-evict
+            self.flight.note("spill_failed", reason=type(e).__name__, n_blocks=len(devs))
+            return False
+        ms = (telemetry.now_ns() - t0) / 1e6
+        self._m_spill_blocks.inc(len(devs))
+        self._m_spill_bytes.inc(len(devs) * self._block_bytes)
+        self._m_spill_ms.inc(ms)
+        self.flight.note("spill", n_blocks=len(devs), ms=round(ms, 3))
+        return True
+
+    def _rollback_pagein(self, adm: _Admission) -> None:
+        """Undo every UNcopied page-in pair of ``adm`` — the one rollback of
+        both failure paths (a failed restore in :meth:`_exec_pagein`, an
+        admission aborted in :meth:`abort_admit`): the staged device blocks
+        leave the slot's blocks, a CoW whose source never materialised is
+        cancelled, and ``abort_pagein`` frees the device blocks and restores
+        the host pins — content intact and registered for the next try."""
+        uncopied = list(adm.pagein)
+        adm.pagein = []
+        if not uncopied:
+            return
+        pair_devs = {dev for _, dev in uncopied}
+        self._seq_bids[adm.slot] = [b for b in self._seq_bids[adm.slot]
+                                    if b not in pair_devs]
+        if adm.cow_release in pair_devs:
+            adm.cow_release = 0
+            adm.cow = None  # its source never materialised
+        self.pool.abort_pagein(uncopied)
+
+    def _exec_pagein(self, adm: _Admission) -> None:
+        """Drain one SPILL_BATCH of ``adm``'s pending page-in pairs: restore
+        the host copies into the freshly allocated device blocks and commit
+        the rebind. A failure (the ``pagein`` failpoint or a real copy
+        error) rolls back every uncopied pair (host content stays intact and
+        registered for a retry) and raises :class:`PageInError`, which fails
+        only this request, 503-shaped; committed earlier batches stay owned
+        by the slot and are released with it."""
+        batch = adm.pagein[:SPILL_BATCH]
+        req = adm.req
+        t0 = telemetry.now_ns()
+        try:
+            failpoints.fire("pagein")
+            self.mirror.load(self.pkv, batch)
+        except Exception as e:
+            self._rollback_pagein(adm)
+            self._update_block_gauges()
+            raise PageInError(f"KV page-in failed for request {req.rid}: "
+                              f"{type(e).__name__}: {e}") from e
+        self.pool.commit_pagein(batch)
+        adm.pagein = adm.pagein[len(batch):]
+        t1 = telemetry.now_ns()
+        ms = (t1 - t0) / 1e6
+        req.ms_pagein += ms
+        self._m_pagein_blocks.inc(len(batch))
+        self._m_pagein_bytes.inc(len(batch) * self._block_bytes)
+        self._m_pagein_ms.inc(ms)
+        self.flight.note("pagein", req.rid, slot=adm.slot, n_blocks=len(batch),
+                         ms=round(ms, 3))
+        telemetry.tracer().emit(req.rid, "pagein", t0, t1, slot=adm.slot,
+                                n_tokens=len(batch) * self.block_size)
+        self._update_block_gauges()
+
+    # -- KV migration wire: export (peer pull) / ingest (local commit) -------
+
+    def wire_geometry(self) -> dict:
+        """The layout facts a KV-wire transfer must agree on bit for bit
+        (``runtime/kvwire.GEOMETRY_KEYS``), ``dtype`` spelled as the JAX
+        package spells it (numpy's names), so a JAX replica and a port
+        replica can migrate to each other. Config reads only: any thread."""
+        return {"n_layers": self.cfg.n_layers, "n_kv_heads": self.cfg.n_kv_heads,
+                "block_size": self.block_size, "head_dim": self.cfg.head_dim,
+                "dtype": str(self.eng.kv_dtype).removeprefix("torch.")}
+
+    def export_prefix(self, tokens: list[int]) -> tuple[int, list]:
+        """Gather the device-resident shared-prefix blocks matching
+        ``tokens`` for a peer's ``/v1/kv/export`` pull: ``(n_tokens,
+        [(k, v), ...])``, each plane ``[L, n_kv, bs, hd]`` float32 numpy.
+        The match stops at the first HOST-resident block (the exporter
+        spends no page-in on a peer's behalf). One ``index_select`` of the
+        matched blocks and ONE device->host copy per export; the blocks are
+        pinned (shared) across it, so no admission's pressure can spill or
+        evict them midway, and released after."""
+        shared, _n, _cow, _r = self.pool.match_prefix(list(tokens))
+        dev: list[int] = []
+        for b in shared:
+            if self.pool.is_host(b):
+                break
+            dev.append(b)
+        if not dev:
+            return 0, []
+        t0 = telemetry.now_ns()
+        for b in dev:
+            self.pool.share(b)
+        try:
+            ck, cv = gather_kv_blocks(self.pkv, dev)
+            both = torch.stack((ck, cv)).cpu()  # the one readback
+        finally:
+            for b in dev:
+                self.pool.release(b)
+        planes = both.view(self.eng.kv_dtype).float().numpy()  # [2, L, n, n_kv, bs, hd]
+        self.flight.note("kv_export", n_blocks=len(dev),
+                         ms=round((telemetry.now_ns() - t0) / 1e6, 3))
+        return len(dev) * self.block_size, [(planes[0][:, j], planes[1][:, j])
+                                            for j in range(len(dev))]
+
+    def ingest_prefix(self, tokens: list[int], blocks: list) -> int:
+        """Commit peer-migrated KV into the pool: one fresh device block per
+        received ``(k, v)`` pair (float32 planes, cast to the pool's dtype
+        as the JAX package casts them), scattered in place and registered
+        under the prompt's prefix, so the next ``begin_admit`` reuses them
+        like locally computed blocks. Atomic: exhaustion midway releases
+        every staged block and re-raises (the caller's ``exhaustion``
+        fallback); nothing registers until every block is resident. Returns
+        the prefix tokens now resident (0 when already matched locally: a
+        duplicate migration burns no blocks)."""
+        n_tokens = len(blocks) * self.block_size
+        usable = list(tokens[:n_tokens])
+        if len(usable) < n_tokens:
+            # the peer sent more blocks than this prompt has prefill
+            # positions (a mismatched transfer): refuse the surplus
+            n_full = len(usable) // self.block_size
+            blocks = blocks[:n_full]
+            n_tokens = n_full * self.block_size
+            usable = usable[:n_tokens]
+        if not blocks:
+            return 0
+        _, already, _c, _r = self.pool.match_prefix(usable)
+        if already >= n_tokens:
+            return 0
+        bids: list[int] = []
+        try:
+            for _ in blocks:
+                bids.append(self.pool.alloc())
+        except BlockPoolExhausted:
+            for b in bids:
+                self.pool.release(b)
+            raise
+        dev, dtype = self.pkv.k.device, self.eng.kv_dtype
+        chunk = [cache_bits(to_cache(torch.from_numpy(np.stack(
+            [np.asarray(blk[i], np.float32) for blk in blocks], axis=1)).to(dev), dtype))
+            for i in (0, 1)]
+        scatter_kv_blocks(self.pkv, chunk[0], chunk[1], bids)
+        self.pool.register_prompt(bids, usable)
+        for b in bids:
+            # refcount 0 parks each registered block in the cached LRU:
+            # matchable by the admission that asked for the migration,
+            # evictable or spillable like any cached prefix
+            self.pool.release(b)
+        self._update_block_gauges()
+        return n_tokens
+
     # -- admission ----------------------------------------------------------
 
     def begin_admit(self, req: Request, slot: int) -> _Admission:
@@ -1284,40 +1560,76 @@ class PagedGenerator(_GeneratorCore):
         # prefix reuse is off — a matched prefix would skip its NLL terms
         shared, n_tok, cow_src, cow_r = (([], 0, None, 0) if req.score
                                          else self.pool.match_prefix(rest))
+        # KV tier: matched blocks may be HOST-resident (a resumed session
+        # whose cold blocks spilled). Their page-in is staged now (device
+        # blocks allocated atomically, the same exhaustion → requeue
+        # contract), the copies — and what depends on the restored content:
+        # the CoW copy, the column gather — wait for continue_admit, which
+        # drains one batch a tick so bystander decode interleaves
         cow_wanted = cow_src is not None and cow_r > 0
+        host_need = [b for b in shared if self.pool.is_host(b)]
+        cow_host = cow_wanted and self.pool.is_host(cow_src)
+        if cow_host:
+            host_need.append(cow_src)
+        pairs: list[tuple[int, int]] = []
         bids: list[int] = []
-        pinned: list[int] = []  # shares taken on matched blocks
+        pinned: list[int] = []  # device shares taken on matched blocks
+        cow_exec: tuple | None = None
+        cow_release = 0
         try:
+            # pin every DEVICE-resident match FIRST: the page-in (and CoW,
+            # growth) allocations below resolve pressure against the cached
+            # LRU, and an unpinned match there could be spilled or evicted
+            # right out from under this admission
             for b in shared:
-                self.pool.share(b)
-                pinned.append(b)
-            if cow_wanted:
-                self.pool.share(cow_src)  # pin across the alloc below
+                if not self.pool.is_host(b):
+                    self.pool.share(b)
+                    pinned.append(b)
+            if cow_wanted and not cow_host:
+                self.pool.share(cow_src)  # pin across every alloc below
                 pinned.append(cow_src)
-            bids.extend(shared)
+            if host_need:
+                pairs = self.pool.begin_pagein(host_need)
+            devmap = dict(pairs)
+            # paged-in blocks carry refcount 1 from begin_pagein, device
+            # ones the pin taken above
+            bids.extend(devmap.get(b, b) for b in shared)
             reused = n_tok
             if cow_wanted:
                 # copy-on-write: the partially matching block cannot be
                 # shared (this sequence overwrites rows >= cow_r), so copy
                 # it and reuse its first cow_r rows
-                try:
+                if cow_host:
+                    src = devmap[cow_src]  # refcount 1 held; released after the copy
                     dst = self.pool.alloc()
-                finally:
-                    self.pool.release(cow_src)
-                    pinned.remove(cow_src)
-                bids.append(dst)
-                self._copy_block(cow_src, dst)
+                    bids.append(dst)
+                    cow_exec, cow_release = (src, dst), src
+                else:
+                    try:
+                        dst = self.pool.alloc()
+                    finally:
+                        self.pool.release(cow_src)
+                        pinned.remove(cow_src)
+                    bids.append(dst)
+                    self._copy_block(cow_src, dst)
                 reused += cow_r
             while len(bids) < -(-len(rest) // self.block_size):
                 bids.append(self.pool.alloc())
             # a fully reused prompt has no rows to build: no column at all
-            col = self._exec_take(bids) if reused < len(rest) else None
+            need_take = reused < len(rest)
+            col = self._exec_take(bids) if need_take and not pairs else None
         except Exception as e:
+            # every reference taken is released exactly once: the pins, the
+            # paged-in devices (through abort_pagein, which also restores the
+            # host pins) and the fresh blocks left in bids
+            pair_devs = {dev for _, dev in pairs}
             for b in bids:
-                if b not in pinned:
+                if b not in pair_devs and b not in pinned:
                     self.pool.release(b)
             for b in pinned:
                 self.pool.release(b)
+            if pairs:
+                self.pool.abort_pagein(pairs)
             if isinstance(e, BlockPoolExhausted):
                 self._tm.counter(telemetry.KV_BLOCK_EXHAUSTION).inc()
             raise
@@ -1335,19 +1647,43 @@ class PagedGenerator(_GeneratorCore):
                                 n_tokens=reused)
         self._note_admitted(req, slot, reused)
         self._update_block_gauges()
-        return _Admission(req=req, slot=slot, col=col, pos=reused, reused=reused)
+        return _Admission(req=req, slot=slot, col=col, pos=reused, reused=reused,
+                          pagein=pairs, cow=cow_exec, cow_release=cow_release,
+                          need_take=col is None and need_take)
 
     def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
         tokens = torch.tensor([padded], dtype=torch.long, device=self.eng.device)
         _, adm.col = forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
 
     def continue_admit(self, adm: _Admission) -> bool:
-        """One admission step: one bucketed prefill chunk over the gathered
-        column; the last step commits — scatters the slot's own blocks back,
-        registers the prompt's blocks for sharing, publishes the table and
-        arms decode. An eval sequence retires instead: its blocks are
-        released unregistered (eval KV never seeds the prefix index) and the
-        scored column is dropped. Returns True once committed."""
+        """One admission step: drain a page-in batch (a resumed session's
+        spilled blocks, one SPILL_BATCH a tick so bystander decode
+        interleaves), then the deferred CoW copy and column gather once the
+        content is resident, then one bucketed prefill chunk over the
+        gathered column; the last step commits — scatters the slot's own
+        blocks back, registers the prompt's blocks for sharing, publishes
+        the table and arms decode. An eval sequence retires instead: its
+        blocks are released unregistered (eval KV never seeds the prefix
+        index) and the scored column is dropped. Returns True once
+        committed; raises :class:`PageInError` when a page-in fails."""
+        if adm.pagein:
+            self._exec_pagein(adm)
+            if adm.pagein:
+                return False  # more batches: keep interleaving
+        if adm.cow is not None:
+            # the deferred copy-on-write: its source is a paged-in block,
+            # resident only now
+            src, dst = adm.cow
+            self._copy_block(src, dst)
+            adm.cow = None
+            if adm.cow_release:
+                # drop the page-in reference: the source parks in the device
+                # cached LRU, registered and shareable again
+                self.pool.release(adm.cow_release)
+                adm.cow_release = 0
+        if adm.need_take:
+            adm.col = self._exec_take(self._seq_bids[adm.slot])
+            adm.need_take = False
         if not self._prefill_step(adm):
             return False
         slot = adm.slot
@@ -1373,8 +1709,16 @@ class PagedGenerator(_GeneratorCore):
 
     def abort_admit(self, adm: _Admission) -> None:
         """Release everything ``begin_admit`` took for an admission that will
-        never commit (client cancel mid-prefill, or a prefill that raised)."""
+        never commit (client cancel mid-prefill, or a prefill that raised).
+        Page-in pairs whose copies never ran roll back through
+        :meth:`_rollback_pagein` (host content stays registered for the next
+        resume); a paged-in CoW source still held releases into the cached
+        LRU."""
         adm.col = None
+        self._rollback_pagein(adm)
+        if adm.cow_release:
+            self.pool.release(adm.cow_release)
+            adm.cow_release = 0
         self._release_blocks(adm.slot)
 
     def reset_state(self) -> None:
@@ -1387,6 +1731,8 @@ class PagedGenerator(_GeneratorCore):
         self._n_shared = [0] * self.n_slots
         self._reserve = [0] * self.n_slots
         self.pool.reset()
+        if self.mirror is not None:
+            self.mirror.drop_all()  # the host buffers follow the pool's reset
         self.tables[:, :] = self.pool.NULL
         self.pos[:] = 0
         self.next_token[:] = 0
@@ -1618,6 +1964,11 @@ class BatchScheduler:
         self._queue = tenancy.FairQueue(
             weight_of=lambda t: self._tenancy.limit_for(t).weight)
         self._admissions: list[_Admission] = []
+        # KV migration (runtime/kvwire): requests parked mid-transfer and peer
+        # export gathers awaiting the loop thread, under the lock so
+        # _fail_all (any thread) can drain the parked requests
+        self._migrating: list[_KVMigration] = []
+        self._export_jobs: list[_KVExportJob] = []
         self._wake = threading.Event()
         self._next_rid = 0
         self._stop = False
@@ -1659,7 +2010,7 @@ class BatchScheduler:
                temperature: float = 0.0, topp: float = 0.9,
                seed: int = 0xB1A5, stop_on_eos: bool = True,
                timeout_s: float | None = None, on_token=None,
-               score: bool = False, resume_from: int = 0,
+               kv_peer: str | None = None, score: bool = False, resume_from: int = 0,
                tenant: str = tenancy.ANON) -> Request:
         """Queue a request. ``score=True`` makes it a teacher-forced eval
         sequence (``runtime/evalharness.py``): prefilled through
@@ -1668,7 +2019,11 @@ class BatchScheduler:
         on a multihost engine, which has no replicated ``prefill_nll``; the
         port has no multihost engine yet.) ``resume_from = n`` marks the
         last ``n`` prompt tokens as a dead replica's emitted history (a
-        stream resume); ``tenant`` is the caller's label."""
+        stream resume); ``tenant`` is the caller's label. ``kv_peer``
+        (``host:port``) names a replica whose paged pool holds the prompt's
+        prefix: the scheduler pulls it over the KV wire before admission,
+        recomputing on any failure (paged pool only; the dense pool ignores
+        it)."""
         # resolved before the lock: the cardinality bound and its overflow
         # counter live in the tenant registry, not in scheduler state
         tenant = self._tenancy.resolve(tenant)
@@ -1711,6 +2066,8 @@ class BatchScheduler:
                           topp=topp, seed=seed, stop_on_eos=stop_on_eos,
                           on_token=on_token, score=score, resume_from=resume_from,
                           tenant=tenant)
+            if kv_peer and isinstance(self.gen, PagedGenerator):
+                req.kv_peer = kv_peer
             req.t_submit = telemetry.now_ns()
             if timeout_s is not None and timeout_s > 0:
                 req.deadline_ns = req.t_submit + int(timeout_s * 1e9)
@@ -1722,7 +2079,7 @@ class BatchScheduler:
             self.flight.note("submit", rid, n_prompt=len(prompt_ids), max_tokens=max_tokens,
                              tenant=tenant)
             if resume_from:
-                self.flight.note("resume", rid, n_history=resume_from, peer="",
+                self.flight.note("resume", rid, n_history=resume_from, peer=kv_peer or "",
                                  tenant=tenant)
         self._wake.set()
         return req
@@ -1833,9 +2190,14 @@ class BatchScheduler:
         every caller resets the pool right after (crash restart) or stops
         serving for good (stall, drain)."""
         with self._lock:
-            victims = list(self._queue) + [a.req for a in self._admissions]
+            # parked migrations hold no pool state (the fetch thread writes
+            # only its holder): failing them leaks nothing, and an orphaned
+            # fetch's result is simply dropped
+            victims = (list(self._queue) + [a.req for a in self._admissions]
+                       + [m.req for m in self._migrating])
             self._queue.clear()
             self._admissions.clear()
+            self._migrating.clear()
             telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(0)
         victims += [s for s in list(self.gen.slots) if s is not None]
         for req in victims:
@@ -1863,6 +2225,116 @@ class BatchScheduler:
                     self._timeout_request(req)
                     self.flight.note("timeout", req.rid, reason=reason, tenant=req.tenant)
                     req.cancel.set()
+
+    # -- KV migration (runtime/kvwire): peer pull before admission -----------
+
+    def _spawn_migration(self, mig: _KVMigration) -> None:
+        """Start the fetch thread of a freshly parked migration. The transfer
+        deadline, ``kvwire.DEFAULT_DEADLINE_S`` (read at call time), is
+        bounded by the request's own remaining deadline."""
+        deadline_s = kvwire.DEFAULT_DEADLINE_S
+        if mig.req.deadline_ns:
+            remaining = (mig.req.deadline_ns - telemetry.now_ns()) / 1e9
+            deadline_s = max(0.05, min(deadline_s, remaining))
+        self.flight.note("kvmigrate_begin", mig.req.rid, peer=mig.peer)
+        threading.Thread(target=self._migrate_worker, args=(mig, deadline_s), daemon=True,
+                         name=f"dllama-kvwire-{mig.req.rid}").start()
+
+    def _migrate_worker(self, mig: _KVMigration, deadline_s: float) -> None:
+        """The fetch thread: stream and verify the peer's frames. Writes ONLY
+        the migration holder, so a fetch that outlives a fail-all sweep is
+        harmless."""
+        try:
+            _, blocks = kvwire.fetch_kv(mig.peer, mig.req.prompt_ids[:-1],
+                                        self.gen.wire_geometry(), deadline_s=deadline_s)
+            mig.blocks = [(k, v) for _i, k, v in sorted(blocks, key=lambda t: t[0])]
+        except BaseException as e:  # noqa: BLE001 — every failure falls back to recompute
+            mig.error = e
+        mig.finished = True
+        self._wake.set()
+
+    def _service_migrations(self) -> None:
+        """Commit or fall back every finished migration: success ingests the
+        blocks (the request's own admission then reuses them like any shared
+        prefix); ANY failure — a wire error, injected chaos, an exhausted
+        destination — counts its reason in ``dllama_kvwire_fallback_total``
+        and requeues the request at its tenant's head for ordinary chunked
+        prefill. Either way the parked wall lands in the request's
+        ``kvmigrate`` TTFT phase and span: the user never sees an error."""
+        with self._lock:
+            finished = [m for m in self._migrating if m.finished]
+            for m in finished:
+                self._migrating.remove(m)
+        for mig in finished:
+            req = mig.req
+            if req.done.is_set():
+                continue  # failed (shutdown, deadline) while parked
+            n_tokens, reason = 0, None
+            if mig.error is None:
+                try:
+                    n_tokens = self.gen.ingest_prefix(req.prompt_ids[:-1], mig.blocks)
+                except BlockPoolExhausted:
+                    reason = "exhaustion"
+                except Exception as e:  # noqa: BLE001 — a bad ingest degrades to recompute
+                    reason = kvwire.classify_failure(e)
+            else:
+                reason = kvwire.classify_failure(mig.error)
+            now = telemetry.now_ns()
+            req.ms_kvmigrate += (now - mig.t0_ns) / 1e6
+            telemetry.tracer().emit(req.rid, "kvmigrate", mig.t0_ns, now, n_tokens=n_tokens)
+            reg = telemetry.registry()
+            if reason is None:
+                reg.counter(telemetry.KVWIRE_MIGRATIONS).inc(outcome="migrated")
+                self.flight.note("kvmigrate", req.rid, n_tokens=n_tokens, peer=mig.peer)
+            else:
+                reg.counter(telemetry.KVWIRE_MIGRATIONS).inc(outcome="fallback")
+                reg.counter(telemetry.KVWIRE_FALLBACK).inc(reason=reason)
+                self.flight.note("kvmigrate_fallback", req.rid, reason=reason, peer=mig.peer)
+            with self._lock:
+                # the head of its tenant's queue, where it was when it parked
+                # (push_front refunds the pass the park's pop charged)
+                self._queue.push_front(req)
+                telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
+            self._wake.set()
+
+    # -- KV export (the peer-pull source side) -------------------------------
+
+    def request_kv_export(self, tokens: list[int],
+                          timeout_s: float = 5.0) -> tuple[int, list]:
+        """Gather the device-resident prefix blocks matching ``tokens`` for a
+        peer's ``/v1/kv/export`` pull: the calling handler thread parks while
+        the loop thread (the pool's owner) runs
+        :meth:`PagedGenerator.export_prefix` between ticks. Returns
+        ``(n_tokens, [(k, v), ...])``; raises
+        :class:`SchedulerUnavailableError` when the loop cannot serve it."""
+        if not isinstance(self.gen, PagedGenerator):
+            raise SchedulerUnavailableError(
+                "KV export needs the paged block pool (--kv-block-size)")
+        job = _KVExportJob(tokens=list(tokens))
+        with self._lock:
+            if self._stop or not self._healthy or (
+                    self._thread is not None and not self._thread.is_alive()):
+                raise SchedulerUnavailableError("scheduler is not running")
+            self._export_jobs.append(job)
+        self._wake.set()
+        if not job.done.wait(timeout_s):
+            raise SchedulerUnavailableError(f"KV export gather timed out after {timeout_s:g}s")
+        if job.error is not None:
+            raise job.error
+        return job.n_tokens, job.blocks
+
+    def _service_exports(self) -> None:
+        """Drain pending export gathers (the loop thread, the only one that
+        touches the pool). A failed gather answers THAT export with its
+        error; serving is untouched."""
+        with self._lock:
+            jobs, self._export_jobs = list(self._export_jobs), []
+        for job in jobs:
+            try:
+                job.n_tokens, job.blocks = self.gen.export_prefix(job.tokens)
+            except Exception as e:  # noqa: BLE001 — the export answers with the error
+                job.error = e
+            job.done.set()
 
     def _on_stall(self, info: dict) -> None:
         """Watchdog trip, on the MONITOR thread (the loop thread is the one
@@ -1958,11 +2430,22 @@ class BatchScheduler:
                                  prefill_budget=self.prefill_budget)
 
     def _tick_body(self) -> None:
-        """Deadlines, admissions (block-priced in the paged pool), the
-        cancel sweep, interleaved prefill chunks under the token budget,
-        then one decode dispatch for every active slot."""
+        """Deadlines, the KV wire's service points, admissions (block-priced
+        in the paged pool; a head with a ``kv_peer`` hint parks while its
+        prefix is fetched), the cancel sweep, interleaved prefill chunks
+        under the token budget, then one decode dispatch for every active
+        slot."""
         self._check_deadlines()
+        # peer export gathers run here (the loop thread owns the pool), and
+        # finished peer pulls commit or fall back before this tick's
+        # admissions, so a just-migrated prefix is matchable by its own
+        # request's begin_admit below
+        if self._export_jobs:
+            self._service_exports()
+        if self._migrating:
+            self._service_migrations()
         reserved = {a.slot for a in self._admissions}
+        started: list[_KVMigration] = []
         with self._lock:
             # admit into free, unreserved slots in weighted-round-robin order
             # across tenants (FairQueue: FIFO within a tenant); on the paged
@@ -1975,6 +2458,16 @@ class BatchScheduler:
                 head = self._queue.peek(blocked)
                 if head is None:
                     break
+                if head.kv_peer:
+                    # peer-KV pull: the request parks while a fetch thread
+                    # streams frames across ticks; bystanders keep admitting
+                    # and decoding
+                    self._queue.pop(head)
+                    mig = _KVMigration(req=head, peer=head.kv_peer, t0_ns=telemetry.now_ns())
+                    head.kv_peer = None  # one attempt, ever
+                    self._migrating.append(mig)
+                    started.append(mig)
+                    continue
                 free = [s for s in self.gen.free_slots() if s not in reserved]
                 if not free:
                     break
@@ -2006,6 +2499,8 @@ class BatchScheduler:
                     break
                 except Exception as e:  # noqa: BLE001 — reject, don't wedge
                     head.error = f"{type(e).__name__}: {e}"
+                    # a failed page-in is the server's failure: 503-shaped
+                    head.server_error = isinstance(e, PageInError)
                     self.flight.note("reject", head.rid, reason=type(e).__name__,
                                      tenant=head.tenant)
                     head.done.set()
@@ -2013,6 +2508,10 @@ class BatchScheduler:
                 self._admissions.append(adm)
                 reserved.add(adm.slot)
             telemetry.registry().gauge(telemetry.QUEUE_DEPTH).set(len(self._queue))
+        # fetch threads start outside the lock (a worker's first wake must
+        # not re-enter it)
+        for mig in started:
+            self._spawn_migration(mig)
         # cancel sweep over EVERY admission before the budgeted prefill loop:
         # a cancelled client behind the budget cutoff must not keep its blocks
         for adm in list(self._admissions):
@@ -2044,6 +2543,9 @@ class BatchScheduler:
                 self.gen.abort_admit(adm)
                 telemetry.registry().counter(telemetry.RETIRES).inc()
                 adm.req.error = f"{type(e).__name__}: {e}"
+                # a failed KV page-in fails ONLY this request, 503-shaped:
+                # bystander slots keep decoding
+                adm.req.server_error = isinstance(e, PageInError)
                 self.flight.note("reject", adm.req.rid, reason=type(e).__name__)
                 adm.req.done.set()
             if committed:
@@ -2080,11 +2582,12 @@ class BatchScheduler:
                 + sum(1 for a in self._admissions if a.req.tenant == tenant))
 
     def _note_tick_usage(self) -> None:
-        """Charge this tick's wall to each tenant's KV residency (the blocks
-        its live slots hold; one per column in the dense pool), feed the
-        fairness window, and give the usage ledger its chance to append.
-        Host bookkeeping only: dict updates and at most one small file
-        append."""
+        """Charge this tick's wall to each tenant's KV residency (device
+        tier: the blocks its live slots hold, one per column in the dense
+        pool; host tier: the spilled blocks its admissions' outstanding
+        page-ins still reference), feed the fairness window, and give the
+        usage ledger its chance to append. Host bookkeeping only: dict
+        updates and at most one small file append."""
         now = time.monotonic()
         dt = now - self._t_last_tick
         self._t_last_tick = now
@@ -2092,6 +2595,11 @@ class BatchScheduler:
         for i, s in enumerate(self.gen.slots):
             if s is not None:
                 device[s.tenant] = device.get(s.tenant, 0.0) + self.gen.kv_blocks_by_slot(i)
-        if device:
-            self._tenancy.note_tick(dt, device)
+        host: dict[str, float] = {}
+        with self._lock:
+            for a in self._admissions:
+                if a.pagein:
+                    host[a.req.tenant] = host.get(a.req.tenant, 0.0) + len(a.pagein)
+        if device or host:
+            self._tenancy.note_tick(dt, device, host)
         tenancy.ledger().maybe_write(self._tenancy)

@@ -60,11 +60,19 @@ stream is fast-forwarded by its length, and nothing at or below
 ``resume_from`` is emitted again. The single-sequence server refuses a
 resume, as the JAX one does.
 
-Left out (later slices): KV export and the ``X-Dllama-KV-Peer`` hint (a
-replica ignores the header, as a JAX replica without a paged wire does),
-the ``role``/``kv_prefixes`` advertisement, and the diagnostic routes of
-layers not ported yet (``/debug/compiles``, ``/debug/profile``,
-``/debug/roofline``), which answer 404 like any unknown route.
+KV migration, at the JAX package's sites: on paged batched serving ``POST
+/v1/kv/export {"tokens": [...]}`` answers the longest device-resident prefix
+of ``tokens`` as a checksummed Q80 frame stream (``runtime/kvwire.py``; 404
+when nothing is resident, 400 for a malformed body, 503 when the scheduler
+cannot serve it); an ``X-Dllama-KV-Peer: host:port`` hint makes the replica
+pull the prompt's prefix from that peer before admission (any wire failure
+recomputes it, counted by reason); ``/readyz`` advertises the ``--role``
+tag and ``kv_prefixes``, the affinity keys of prompts whose KV the pool
+recently held, which the fleet router's donor map and prefill warm-up read.
+
+Left out (later slices): the diagnostic routes of layers not ported yet
+(``/debug/compiles``, ``/debug/profile``, ``/debug/roofline``), which answer
+404 like any unknown route.
 """
 
 from __future__ import annotations
@@ -79,16 +87,18 @@ import signal
 import threading
 import time
 import uuid
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
-from ..runtime import evalharness, failpoints, flightrec, numerics, telemetry, tenancy
+from ..runtime import evalharness, failpoints, flightrec, kvwire, numerics, telemetry, tenancy
 from ..runtime.speculative import NgramProposer
 from ..runtime.serving import (BatchScheduler, HbmAdmissionError, QueueFullError,
                                RequestTimeoutError, SchedulerUnavailableError,
                                check_hbm_admission)
 from ..tokenizer.chat import (ChatItem, ChatTemplateGenerator, ChatTemplateType,
                               EosDetector, EosResult)
+from .router import affinity_key
 
 # absurd-deadline guard: a request may not park a slot for more than an hour
 _MAX_TIMEOUT_S = 3600.0
@@ -126,6 +136,23 @@ TENANT_HEADER = "X-Dllama-Tenant"
 # a router's spliced continuation names the count of tokens the client
 # already holds (the body carries the history itself)
 RESUME_FROM_HEADER = "X-Dllama-Resume-From"
+# KV migration hint (a fleet router sends it): "host:port" of a peer replica
+# whose paged pool holds this prompt's prefix. The replica pulls the prefix
+# over the kvwire stream (POST /v1/kv/export on the peer) before admission
+# instead of recomputing it; ANY wire failure degrades to ordinary chunked
+# prefill. Advisory: an unsanitary or stale value is dropped, never an error
+KV_PEER_HEADER = "X-Dllama-KV-Peer"
+KV_PEER_RE = re.compile(r"^[A-Za-z0-9._\-\[\]:]{1,255}:\d{1,5}$")
+
+
+def kv_peer(headers) -> str | None:
+    """The sanitized KV migration hint off a request's headers (its value
+    feeds ``http.client`` connections and flight notes, so an
+    out-of-vocabulary string is dropped, never stored)."""
+    peer = headers.get(KV_PEER_HEADER)
+    if not peer or not KV_PEER_RE.match(peer):
+        return None
+    return peer
 
 
 def tenant_identity(headers) -> str:
@@ -479,16 +506,35 @@ class ApiState:
 
 class BatchedApiState:
     """The engine, its chat template and the batch scheduler, shared by
-    the handler threads."""
+    the handler threads; on the paged pool also the ``--role`` tag and the
+    prefix-residency advertisement the fleet router reads off ``/readyz``."""
+
+    # how many prefix keys the residency advertisement remembers (a fleet's
+    # worth of sticky sessions; /readyz bodies stay probe-sized)
+    KV_PREFIX_MAX = 64
+    # advertisement TTL (seconds): the pool evicts cached blocks on its own,
+    # so an older advertisement is more likely stale than resident
+    KV_PREFIX_TTL_S = 120.0
 
     def __init__(self, engine, n_slots: int, model_name: str = "dllama-tpu",
                  template_type: ChatTemplateType = ChatTemplateType.UNKNOWN,
-                 max_queue: int = 0, request_timeout: float = 0.0):
+                 max_queue: int = 0, request_timeout: float = 0.0,
+                 role: str | None = None):
         self.engine = engine
         self.model_name = model_name
         self.request_timeout = request_timeout  # server default (0 = none)
+        # disaggregation tag (--role prefill|decode, None = untagged):
+        # advertised on /readyz, so the fleet router keeps prefill replicas
+        # out of the decode dispatch pool
+        self.role = role
         self.template, self.stop_pieces = chat_template(engine.tokenizer, template_type)
         self.sched = BatchScheduler(engine, n_slots, max_queue=max_queue)
+        # affinity keys (serve/router.py affinity_key, the router's join) of
+        # prompts whose KV the paged pool RECENTLY held: a bounded LRU with a
+        # TTL (key -> monotonic stamp), written by handler threads, read by
+        # the probe; advisory (a stale entry costs one 404 export probe)
+        self._kv_prefixes: OrderedDict[str, float] = OrderedDict()
+        self._kv_lock = threading.Lock()
 
     def readiness(self) -> tuple[bool, str, str]:
         return self.sched.readiness()
@@ -497,18 +543,52 @@ class BatchedApiState:
         """Teacher-forced eval sequences queued or admitted right now."""
         return self.sched.eval_resident()
 
+    def note_kv_prefix(self, key: str | None) -> None:
+        """Record (most recent first, TTL-stamped) a prefix the pool holds
+        now; a re-note refreshes the stamp."""
+        if not key:
+            return
+        with self._kv_lock:
+            self._kv_prefixes.pop(key, None)
+            self._kv_prefixes[key] = time.monotonic()
+            self._prune_kv_prefixes()
+
+    def drop_kv_prefix(self, key: str | None) -> None:
+        """Forget one advertisement early."""
+        if not key:
+            return
+        with self._kv_lock:
+            self._kv_prefixes.pop(key, None)
+
+    def _prune_kv_prefixes(self) -> None:
+        # the caller holds _kv_lock
+        cutoff = time.monotonic() - self.KV_PREFIX_TTL_S
+        for k in [k for k, ts in self._kv_prefixes.items() if ts < cutoff]:
+            del self._kv_prefixes[k]
+        while len(self._kv_prefixes) > self.KV_PREFIX_MAX:
+            self._kv_prefixes.popitem(last=False)
+
+    def kv_prefix_list(self) -> list[str]:
+        """Most-recent-first snapshot for ``/readyz`` (expired entries
+        pruned on read)."""
+        with self._kv_lock:
+            self._prune_kv_prefixes()
+            return list(reversed(self._kv_prefixes))
+
     def begin_drain(self) -> None:
         self.sched.begin_drain()
 
     def close(self, drain_s: float = 0.0) -> None:
         self.sched.close(drain_s)
 
-    def complete(self, body: dict, emit=None, fleet=None,
+    def complete(self, body: dict, emit=None, fleet=None, kv_peer: str | None = None,
                  tenant: str = tenancy.ANON) -> dict:
         """Run one chat completion; ``emit(text, meta)`` streams deltas when
         set, ``meta`` being the chunk's resume stamp ``{"index": n,
         "tokens": [...]}``. ``fleet`` and ``tenant`` are the request's
-        fleet identity and tenant label (see :meth:`ApiState.complete`).
+        fleet identity and tenant label (see :meth:`ApiState.complete`);
+        ``kv_peer`` (:func:`kv_peer`) the replica to pull the prompt's
+        prefix KV from before admission.
 
         A body with ``resume_from`` is a router's mid-stream continuation:
         the dead replica's emitted tokens are prompt now (one ordinary
@@ -563,7 +643,7 @@ class BatchedApiState:
             stop_on_eos=True,
             timeout_s=timeout_s if timeout_s > 0 else None,
             on_token=lambda t, p: q.put((t, p)),
-            resume_from=resume_from, tenant=tenant)
+            kv_peer=kv_peer, resume_from=resume_from, tenant=tenant)
         if fleet is not None:
             # bound after submit (the scheduler assigns the rid there): the
             # submit span predates the binding, every later span joins
@@ -630,6 +710,11 @@ class BatchedApiState:
         if finish_reason in ("length", "timeout"):
             gate.flush_tail()
         rt.done(len(ids), n_completion)
+        if self.engine.kv_block_size:
+            # paged pool: the retired request's prefix blocks are parked in
+            # the cached LRU, matchable — advertise the residency so a fleet
+            # router can migrate the KV instead of recomputing it
+            self.note_kv_prefix(affinity_key(body))
         out = {"text": "".join(gate.parts), "finish_reason": finish_reason,
                "prompt_tokens": len(ids), "completion_tokens": n_completion}
         bd = req.ttft_breakdown() if body.get("timing") else None
@@ -686,7 +771,8 @@ def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=No
     }
 
 
-_ROUTES = ("/v1/chat/completions", "/v1/models", "/metrics", "/health", "/healthz",
+_ROUTES = ("/v1/chat/completions", "/v1/kv/export", "/v1/models", "/metrics", "/health",
+           "/healthz",
            "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline",
            "/debug/numerics", "/debug/eval", "/debug/tenants")
 
@@ -773,6 +859,14 @@ def make_handler(state: ApiState | BatchedApiState):
             elif path == "/readyz":
                 ready, reason, code = state.readiness()
                 rz = {"status": "ok" if ready else "unready", "reason": reason, "code": code}
+                # disaggregation and migration advertisement (batched paged
+                # replicas): the router's probe reads them off this body —
+                # role keeps prefill replicas out of the decode pool,
+                # kv_prefixes feeds the migration donor map
+                if getattr(state, "role", None):
+                    rz["role"] = state.role
+                if isinstance(state, BatchedApiState) and state.engine.kv_block_size:
+                    rz["kv_prefixes"] = state.kv_prefix_list()
                 # eval sequences inflate the queue without producing tokens:
                 # say why the depth is up
                 ev = getattr(state, "eval_resident", None)
@@ -827,7 +921,64 @@ def make_handler(state: ApiState | BatchedApiState):
             elif length:
                 self.close_connection = True
 
+        def _kv_export(self) -> None:
+            # POST /v1/kv/export {"tokens": [...]} → the kvwire frame stream of
+            # the paged-KV blocks covering the longest resident prefix of
+            # tokens. 404 when nothing is resident (the importer treats any
+            # failure as "recompute locally"); the stream has no
+            # Content-Length, so the connection closes to delimit it
+            if not (isinstance(state, BatchedApiState) and state.engine.kv_block_size):
+                self._drain_small_body()
+                self._json(404, {"error": "KV export needs batched paged serving "
+                                          "(--batch-slots N with --kv-block-size)"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                self._json(400, {"error": "invalid JSON body"})
+                return
+            tokens = body.get("tokens") if isinstance(body, dict) else None
+            if (not isinstance(tokens, list) or not tokens
+                    or not all(isinstance(t, int) and not isinstance(t, bool)
+                               for t in tokens)):
+                self._json(400, {"error": "body must carry a non-empty integer token "
+                                          "list in 'tokens'"})
+                return
+            sched = state.sched
+            try:
+                n_tokens, blocks = sched.request_kv_export(tokens)
+            except SchedulerUnavailableError as e:
+                self._json(503, {"error": str(e),
+                                 "code": "draining" if "draining" in str(e) else "crashed"},
+                           headers=backpressure_headers(503))
+                return
+            except Exception as e:  # noqa: BLE001 — export fails as JSON; the importer recomputes
+                self._json(503, {"error": f"{type(e).__name__}: {e}", "code": "crashed"},
+                           headers=backpressure_headers(503))
+                return
+            if not n_tokens:
+                self._json(404, {"error": "prefix not resident"})
+                return
+            geometry = dict(sched.gen.wire_geometry(), n_blocks=len(blocks),
+                            n_tokens=n_tokens)
+            self._count(200)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            try:
+                kvwire.write_stream(self.wfile, geometry, blocks)
+            except OSError:
+                pass  # the importer vanished mid-stream: it recomputes
+            self.close_connection = True
+
         def do_POST(self):
+            if self._route() == "/v1/kv/export":
+                self._fleet_rid = None  # keep-alive: no stale POST echo
+                self._tenant = None
+                self._kv_export()
+                return
             if self._route() != "/v1/chat/completions":
                 self._drain_small_body()
                 self._not_found()
@@ -845,6 +996,10 @@ def make_handler(state: ApiState | BatchedApiState):
             self._fleet_rid = fleet[0] if fleet else None
             tenant = tenant_identity(self.headers)
             self._tenant = tenant
+            # the migration hint is batched-paged work; the single-sequence
+            # server has no scheduler to park a request in
+            extra = ({"kv_peer": kv_peer(self.headers)}
+                     if isinstance(state, BatchedApiState) else {})
             stream = bool(body.get("stream", False))
             inflight = telemetry.registry().gauge(telemetry.REQUESTS_IN_FLIGHT)
             inflight.add(1)
@@ -901,13 +1056,13 @@ def make_handler(state: ApiState | BatchedApiState):
 
             try:
                 if stream:
-                    out = state.complete(body, emit=emit, fleet=fleet, tenant=tenant)
+                    out = state.complete(body, emit=emit, fleet=fleet, tenant=tenant, **extra)
                     start_stream()  # zero-delta completion: headers now
                     write_event(_chunk_json(state, {}, out["finish_reason"]))
                     write_event(b"[DONE]")
                     status = 200
                 else:
-                    out = state.complete(body, fleet=fleet, tenant=tenant)
+                    out = state.complete(body, fleet=fleet, tenant=tenant, **extra)
                     self._json(200, _completion_json(state, out))
             except QueueFullError as e:
                 fail(429, {"error": str(e), "code": "queue_full"}, "error",
@@ -937,6 +1092,16 @@ def make_handler(state: ApiState | BatchedApiState):
                     self._count(status)
 
     return Handler
+
+
+def check_role(args) -> None:
+    """``--role`` tags a disaggregated replica: refused outside batched
+    paged serving, whose KV wire has blocks to export and import (the CLI
+    checks it before any device is resolved)."""
+    if args.role and ((args.batch_slots or 0) <= 1 or not args.kv_block_size):
+        raise SystemExit("--role tags a disaggregated replica; it needs batched paged "
+                         "serving (--batch-slots N with --kv-block-size) so the KV wire "
+                         "has blocks to export and import")
 
 
 def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
@@ -969,7 +1134,7 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
         if n_slots > 1:
             state: ApiState | BatchedApiState = BatchedApiState(
                 engine, n_slots, template_type=ttype, max_queue=args.max_queue,
-                request_timeout=args.request_timeout)
+                request_timeout=args.request_timeout, role=args.role)
             server_cls = ThreadingHTTPServer
         else:
             # one request at a time: the engine holds one sequence
@@ -993,6 +1158,14 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
             print(f"🕸️ paged KV: {gen.pool.n_blocks - 1} blocks × {gen.pool.block_size} "
                   f"rows, {gen.pool_bytes / 1e9:.2f} GB (block-priced admission, "
                   f"block-level prefix sharing)")
+            if gen.mirror is not None:
+                print(f"🕸️ tiered KV memory: {gen.pool.n_host_blocks} host blocks "
+                      f"({gen.mirror.kind}, {gen.mirror.host_bytes / 1e9:.2f}"
+                      f" GB) — cold blocks spill under pressure, resumed sessions page "
+                      f"back in (dllama_kv_spill/pagein_* metrics)")
+            print("🕸️ KV migration: POST /v1/kv/export serves resident prefixes over the "
+                  "checksummed Q80 wire"
+                  + (f"; role={args.role} advertised on /readyz" if args.role else ""))
         else:
             print(f"🕸️ dense KV slot pool: {gen.n_slots} × {engine.cfg.seq_len} rows, "
                   f"{gen.pool_bytes / 1e9:.2f} GB (cross-slot prefix reuse)"

@@ -160,6 +160,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 or 1: the single-sequence server)")
     p.add_argument("--kv-block-size", type=int, default=0,
                    help="api: rows per paged KV block (a power of two)")
+    p.add_argument("--kv-host-blocks", type=int, default=0, metavar="N",
+                   help="api with --kv-block-size: tiered KV memory — a host-DRAM mirror "
+                        "pool of up to N blocks (page-locked on the card). Under "
+                        "allocation pressure cold cached blocks (idle sessions' KV) spill "
+                        "device->host in batched block copies instead of dropping; a "
+                        "resumed, prefix-matched session pages them back in at admission, "
+                        "bit-exact. Sized against the host DRAM budget "
+                        "(runtime/hbm.py fit_host_pool; DLLAMA_HOST_KV_BYTES overrides). "
+                        "0 (the default) = tiering off")
     p.add_argument("--max-queue", type=int, default=0,
                    help="api: waiting requests beyond the slots (429 beyond; 0 = unbounded); "
                         "router: requests in flight (429 beyond)")
@@ -169,8 +178,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="api: default per-request deadline in seconds (0 = none); "
                         "router: the deadline a stream resume must fit inside")
     p.add_argument("--role", choices=("prefill", "decode"), default=None,
-                   help="api, batched paged serving: disaggregation tag for KV "
-                        "migration between replicas (not ported)")
+                   help="api, batched paged serving: disaggregation tag advertised on "
+                        "/readyz. The fleet router keeps 'prefill' replicas out of the "
+                        "decode dispatch pool and uses them to compute prompt KV that "
+                        "decode replicas pull over the checksummed Q80 wire (POST "
+                        "/v1/kv/export) instead of recomputing")
     p.add_argument("--tenant-limits", default=None, metavar="SPEC",
                    help="api, batched serving: per-tenant fair-share limits — a JSON "
                         "object (inline or a file path) mapping tenant ids (or '*' for "
@@ -423,7 +435,7 @@ def make_engine(args) -> InferenceEngine:
             spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
             weight_mode=args.weight_mode, host_sampling=args.host_sampling,
             verify_weights=args.verify_weights, numerics_taps=args.numerics_taps,
-            numerics_failfast=args.numerics_failfast)
+            numerics_failfast=args.numerics_failfast, kv_host_blocks=args.kv_host_blocks)
     except HbmBudgetError as e:
         raise SystemExit(f"❌ {e}") from None
     h = engine.model_file.header
@@ -621,8 +633,9 @@ def _eval_args_for(args, config: str):
     a = copy.copy(args)
     if config == "single":
         a.batch_slots, a.kv_block_size, a.spec_lookup = 0, 0, 0
+        a.kv_host_blocks = 0
     elif config == "dense":
-        a.kv_block_size, a.spec_lookup = 0, 0
+        a.kv_block_size, a.spec_lookup, a.kv_host_blocks = 0, 0, 0
     elif config == "paged":
         a.kv_block_size = args.kv_block_size or 16
         a.spec_lookup = 0
@@ -726,7 +739,8 @@ def main(argv=None, on_listening=None) -> int:
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
                          f"--device --sp --decode-chunk --spec-lookup --chat-template "
                          f"--trace-out --numerics-taps --numerics-failfast; api: "
-                         f"--batch-slots --kv-block-size --max-queue --host --port "
+                         f"--batch-slots --kv-block-size --kv-host-blocks --role --max-queue "
+                         f"--host --port "
                          f"--request-timeout --drain-timeout --stats --canary-interval "
                          f"--tenant-limits --usage-ledger; router: --replica "
                          f"--probe-interval --max-stream-resumes --slo --max-queue "
@@ -734,11 +748,10 @@ def main(argv=None, on_listening=None) -> int:
                          f"timeline: --dump --out; fleettrace: --router-dump "
                          f"--replica-dump --out; audit: --audit-json; eval: --data "
                          f"--compare --json --batch-slots --kv-block-size)")
-    if args.role is not None:
-        raise SystemExit("--role (prefill/decode disaggregation: KV migration between "
-                         "replicas over the kv wire, the kv_prefixes advertisement and "
-                         "POST /v1/kv/export) is not ported to the PyTorch/CUDA package "
-                         "yet; use python -m dllama_tpu api --role")
+    if args.mode == "api":
+        from .api import check_role
+
+        check_role(args)  # before any device is resolved: the flags alone decide it
     if args.mode == "timeline":
         return run_timeline(args)  # host only: no model, no device
     if args.mode == "fleettrace":

@@ -45,10 +45,12 @@ runs those behaviours on this module):
   ``--request-timeout`` budget; past either bound, and for unstamped
   streams always, the stream ends with an explicit terminal SSE error
   event naming the 502 plus ``[DONE]`` — never a silent hang.
-* **KV migration hints** — the code that names a KV donor (a replica
-  whose ``/readyz`` advertises ``kv_prefixes``) and warms ``prefill``-role
-  replicas is the JAX router's, kept as it is; no replica of this package
-  advertises a prefix or carries a role, so it never fires here.
+* **KV migration hints** — a replica whose ``/readyz`` advertises the
+  request's affinity key in ``kv_prefixes`` is named as the KV donor in an
+  ``X-Dllama-KV-Peer`` header (``rt_kv_donor`` span), and ``prefill``-role
+  replicas are kept out of the dispatch pool and warmed first, the
+  decode replica then pulling the prefix over the KV wire (``rt_prefill``
+  span); a warm-up is not a dispatch.
 * **Drain awareness** — a replica whose ``/readyz`` goes 503 (draining)
   stops receiving new dispatches while its in-flight streams finish; the
   router's own SIGTERM does the same one level up.

@@ -171,7 +171,10 @@ def test_fleettrace_rejects_malformed_and_unjoinable(tmp_path):
 def test_fleet_modes_ported_and_role_refused():
     assert "router" in cli.PORTED_MODES and "fleettrace" in cli.PORTED_MODES
     assert "router" not in cli.PENDING_MODES and "fleettrace" not in cli.PENDING_MODES
-    with pytest.raises(SystemExit, match="--role .*not ported.*KV migration|KV migration"):
+    # --role is ported with KV migration: refused only without batched paged
+    # serving, with the JAX CLI's message
+    with pytest.raises(SystemExit, match="--role tags a disaggregated replica; it needs "
+                                         "batched paged serving"):
         cli.main(["api", "--role", "prefill", "--model", "m.m", "--tokenizer", "t.t"])
     with pytest.raises(SystemExit, match="at least one --replica"):
         cli.main(["router"])

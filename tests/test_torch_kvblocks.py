@@ -143,3 +143,171 @@ def test_pool_geometry_and_bytes():
     assert estimate_block_pool_bytes(cfg, 9, 16, 2) == nbytes
     assert estimate_block_pool_bytes(cfg, 9, 16, 2) == jax_hbm.estimate_block_pool_bytes(
         jcfg, 9, 16, 2)
+
+
+# -- the host tier: the same scripts with n_host_blocks > 0 -------------------
+
+N_HOST = 8
+
+
+class _ChunkStub:
+    """The mirror's bookkeeping without tensors, one per pool: spills land in
+    chunks of ``SPILL_BATCH`` lanes, a chunk dies with its last live lane,
+    and ``has_room`` caps the resident chunks (``max_chunks``). ``fail``
+    makes the next spill refuse (a failed copy)."""
+
+    def __init__(self, max_chunks: int):
+        self.max_chunks = max_chunks
+        self.chunks: dict[int, set] = {}
+        self.where: dict[int, int] = {}
+        self.next = 0
+        self.fail = False
+        self.log: list = []
+
+    def spill(self, devs, hosts) -> bool:
+        self.log.append(("spill", list(devs), list(hosts)))
+        if self.fail:
+            self.fail = False
+            return False
+        self.chunks[self.next] = set(hosts)
+        for h in hosts:
+            self.where[h] = self.next
+        self.next += 1
+        return True
+
+    def _forget(self, h) -> None:
+        cid = self.where.pop(h, None)
+        if cid is not None:
+            self.chunks[cid].discard(h)
+            if not self.chunks[cid]:
+                del self.chunks[cid]
+
+    def drop(self, hosts) -> None:
+        self.log.append(("drop", list(hosts)))
+        for h in hosts:
+            self._forget(h)
+
+    def load(self, pairs) -> None:
+        for h, _ in pairs:
+            self._forget(h)
+
+    def has_room(self) -> bool:
+        return len(self.chunks) < self.max_chunks
+
+
+def _tiered(mod, max_chunks: int):
+    pool = mod.BlockPool(N_BLOCKS, BS, n_host_blocks=N_HOST)
+    stub = _ChunkStub(max_chunks)
+    pool.spill_fn, pool.host_drop_fn, pool.host_room_fn = stub.spill, stub.drop, stub.has_room
+    return pool, stub
+
+
+def _tier_state(pool, stub) -> tuple:
+    return (_state(pool), tuple(pool.refcount(b) for b in range(pool.n_blocks + N_HOST)),
+            pool.host_used_blocks(), tuple(pool._host_cached), tuple(pool._cached),
+            sorted(map(sorted, stub.chunks.values())), tuple(map(str, stub.log)))
+
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+
+@settings(max_examples=25, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), max_chunks=st.sampled_from([1, 2, 3]))
+def test_tiered_op_script_matches_jax_pool(seed, max_chunks):
+    """A seeded alloc/free/share/CoW/spill/page-in script on both pools
+    with a host tier and stub hooks: the same return values and
+    exceptions, ids, refcounts, device and host residency, ``match_prefix``
+    answers, spill and drop calls, and resident chunks under the cap."""
+    rng = np.random.default_rng(seed)
+    (jp, js), (tp, ts) = _tiered(jkb, max_chunks), _tiered(tkb, max_chunks)
+    held: list[int] = []
+    pending: list = []  # staged page-ins: (pairs, commit?)
+    stems = [list(rng.integers(0, 4, 14)) for _ in range(3)]
+    for step in range(300):
+        op = rng.choice(["alloc", "share", "release", "register", "match", "pagein",
+                         "spillfail", "reset"],
+                        p=[0.36, 0.06, 0.2, 0.14, 0.08, 0.12, 0.03, 0.01])
+        if op == "alloc":
+            calls = [("alloc",)]
+        elif op == "share":
+            calls = [("share", int(rng.integers(0, N_BLOCKS + N_HOST)))]
+        elif op == "release":
+            b = (held.pop(int(rng.integers(len(held)))) if held and rng.random() < 0.9
+                 else int(rng.integers(0, N_BLOCKS + N_HOST)))
+            calls = [("release", b)]
+        elif op == "register":
+            stem = stems[int(rng.integers(3))]
+            toks = [int(t) for t in stem[:int(rng.integers(1, 15))]]
+            live = list(dict.fromkeys(held))
+            if len(live) < -(-len(toks) // BS):
+                continue
+            calls = [("register_prompt", live[:-(-len(toks) // BS)], toks)]
+        elif op == "match":
+            stem = stems[int(rng.integers(3))]
+            calls = [("match_prefix", [int(t) for t in stem[:int(rng.integers(0, 15))]])]
+        elif op == "pagein":
+            stem = stems[int(rng.integers(3))]
+            shared = jp.match_prefix([int(t) for t in stem])[0]
+            hosts = [b for b in shared if jp.is_host(b)]
+            if not hosts:
+                continue
+            calls = [("begin_pagein", hosts)]
+        elif op == "spillfail":
+            js.fail = ts.fail = True
+            continue
+        else:
+            calls = [("reset",)]
+            held.clear()
+            for s in (js, ts):
+                s.chunks.clear()
+                s.where.clear()
+        for name, *args in calls:
+            want = _outcome(getattr(jp, name), *args)
+            got = _outcome(getattr(tp, name), *args)
+            assert got == want, (step, name, args)
+            if want[0] == "ok" and name in ("alloc", "share"):
+                held.append(args[0] if args else want[1])
+            if want[0] == "ok" and name == "begin_pagein":
+                pairs = want[1]
+                if rng.random() < 0.7:  # the copies landed
+                    for pool, stub in ((jp, js), (tp, ts)):
+                        stub.load(pairs)
+                        pool.commit_pagein(pairs)
+                    held.extend(dev for _, dev in pairs)
+                else:
+                    for pool in (jp, tp):
+                        pool.abort_pagein(pairs)
+            assert _tier_state(tp, ts) == _tier_state(jp, js), (step, name, args)
+            assert len(ts.chunks) <= max_chunks
+    # the script really spilled, dropped at the chunk cap and paged back in
+    assert any(e[0] == "spill" for e in js.log)
+
+
+def test_host_tier_spill_rebinds_and_pages_back_like_jax():
+    """One hand-made scenario on both pools: a registered prompt spills
+    under pressure (its trie node rebinds to host ids), a match returns
+    the host ids, a page-in restores device ids in the same order, and a
+    failed spill drops the LRU block instead."""
+    for fail in (False, True):
+        out = []
+        for mod in (jkb, tkb):
+            pool, stub = _tiered(mod, 4)
+            a, b = pool.alloc(), pool.alloc()
+            pool.register_prompt([a, b], [1, 2, 3, 4, 5, 6, 7, 8])
+            pool.release(a)
+            pool.release(b)
+            stub.fail = fail
+            taken = [pool.alloc() for _ in range(N_BLOCKS - 1)]
+            m = pool.match_prefix([1, 2, 3, 4, 5, 6, 7, 8, 9])
+            rec = [taken, m, pool.host_used_blocks()]
+            if m[0] and all(pool.is_host(x) for x in m[0]):
+                pool.release(taken[0])
+                pool.release(taken[1])
+                pairs = pool.begin_pagein(m[0])
+                pool.commit_pagein(pairs)
+                rec += [pairs, pool.match_prefix([1, 2, 3, 4, 5, 6, 7, 8, 9]),
+                        pool.host_used_blocks()]
+            out.append(rec)
+        assert out[0] == out[1]
+        assert (out[0][2] == 2) is (not fail)

@@ -226,12 +226,33 @@ Phases, each failing loudly (non-zero exit, no result line):
    that recompute bit for bit, the ingested bytes against the decoded
    export). ``f8_serving`` and ``single_api`` run on the 8-layer copy with
    the fleet and the tier;
-15. the ``kernels`` JSON line, then the result line
+15. mixture of experts and turbo planes, kernel K5 (the grouped expert
+   matmul, ``csrc/moe_matmul.cu``). Phase 3 adds :func:`moe_cases`: K5
+   against its plain version at the Qwen3-30B-A3B expert shapes (128
+   experts; w1/w3 K 2048, N 768; w2 K 768, N 2048) at 8, 64 and 1024 rows
+   on Q40 planes, exact and fast, on turbo expert planes in both regimes
+   (a8 and a16 at 8 rows, pre-scaled at 64 and 1024), on dense expert
+   planes, and as the dense turbo linear on the 8B wq and w1 at M = 1, 8
+   and 128 (a8 bit for bit; the drift from the exact product within the
+   JAX package's 8e-2 / 5e-2 of its RMS; ``torch._int_mm`` as a8's
+   yardstick). Then a synthetic Qwen3-30B-A3B file (full width, 8 of 48
+   layers) through :func:`moe_phase` (``inference``, ``perplexity``, one
+   engine's decode / prefill / paged-step profiles with K5's device share
+   and the per-call K5 hold on recorded inputs (:func:`k5_hold`), the paged
+   ``api`` with the serving mix cut to 8 requests, f32 and bf16; one
+   synchronisation a paged tick; no graph captured while serving) and
+   :func:`turbo_phase` (``inference --quant-mode turbo | turbo16`` on the
+   8-layer 8B copy and the MoE file: K5 only, the card's derived planes
+   against the host's bit for bit, the logits within 0.15 of their RMS of
+   the fast run's; ``--quant-mode turbo --weight-mode f32`` refused before
+   the load);
+16. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
-``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit`` is a development run
-of the phases of slices 12-14 alone (no kernel cases, exit 3, no result line).
+``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit,moe,turbo`` is a
+development run of the phases of slices 12-15 alone (no kernel cases, exit 3,
+no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
 and bf16) and the paged decode step's profile on the package of the
@@ -255,11 +276,13 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_OPS = {"f32": 67e12,     # FP32 outside the tensor cores
-            "bf16": 989e12}   # dense bf16 tensor cores
+            "bf16": 989e12,   # dense bf16 tensor cores
+            "int8": 1979e12}  # dense int8 tensor cores
 SEED = 1234
 DEV = "cuda"
 
@@ -811,19 +834,22 @@ def paged_cases(timer: Timer, results: list) -> None:
 # ---------------------------------------------------------------------------
 
 
-def write_tokenizer(path: str, extra_eos: tuple = ()) -> None:
-    """128256 pieces (Llama 3's vocab size): the 256 bytes, printable filler
-    pieces that never occur in the prompts (so every prompt byte is one
-    token), bos/eos at 128000/128001 (and ``extra_eos`` ids as further EOS
-    tokens) and reserved specials after, and a chat template string that
-    the api detects as llama3."""
+def write_tokenizer(path: str, extra_eos: tuple = (), vocab_size: int = 0,
+                    n_regular: int = 128000) -> None:
+    """128256 pieces (Llama 3's vocab size; ``vocab_size`` pieces when
+    given): the 256 bytes, printable filler pieces that never occur in the
+    prompts (so every prompt byte is one token), bos/eos at ``n_regular``
+    and the next id (128000/128001, Llama 3's; and ``extra_eos`` ids as
+    further EOS tokens) and reserved specials after, and a chat template
+    string that the api detects as llama3. The encoder tries every special
+    piece at every prompt byte, so the specials stay a few hundred, as in
+    the real tokenizers."""
     from dllama_tpu_torch.formats.tfile import TokenizerData, write_tfile
 
-    n_regular = 128000
     vocab = [bytes([b]) for b in range(256)]
     vocab += [b" tok%06d" % i for i in range(n_regular - 256)]
     vocab += [b"<|begin_of_text|>", b"<|end_of_text|>"]
-    vocab += [b"<|reserved_%d|>" % i for i in range(VOCAB - len(vocab))]
+    vocab += [b"<|reserved_%d|>" % i for i in range((vocab_size or VOCAB) - len(vocab))]
     write_tfile(path, TokenizerData(
         vocab=vocab, scores=[0.0] * len(vocab), bos_id=n_regular, add_bos=True,
         eos_token_ids=[n_regular + 1, *extra_eos], max_token_length=max(map(len, vocab)),
@@ -915,6 +941,10 @@ def _profiled(fn, n: int) -> tuple[float, list]:
                      if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+# K5's kernels: the grouped matmul and the reduce of its K splits
+K5_KEYS = ("moe_matmul_kernel", "moe_reduce_kernel")
+
+
 def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
                  kernels: list) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -927,18 +957,21 @@ def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
             # K3's tensor-core single pass as the device ran it
             f"tc_attention_per_{unit}": sum(e.count for e in kernels
                                             if "flash_attention_tc_kernel" in e.key) / n,
+            # K5's device time (the MoE expert dots, turbo planes' matmuls),
+            # its K-split reduce included
+            f"K5_device_ms_per_{unit}": sum(
+                e.self_device_time_total for e in kernels
+                if any(k in e.key for k in K5_KEYS)) / 1e3 / n,
             f"top_ms_per_{unit}": {e.key[:60]: e.self_device_time_total / 1e3 / n
                                    for e in top}}
 
 
 def engine_profile(model: str, tok: str, dtype: str, **engine_kw) -> list[dict]:
-    """Where the engine's time goes, under ``torch.profiler`` on one engine:
-    two 128-token prefill chunks (at depths 128 and 256, after a warm-up
-    chunk at 0), then 16 greedy decode steps, each a replay of the captured
-    step (after 4 warm-up steps, the first of which captures it).
-    Device busy share = the kernels' summed device time over the host wall
-    time; the rest is the device idling while the host enqueues the eager
-    ops. ``engine_kw`` (``weight_mode=``) goes to the engine."""
+    """Where the engine's time goes, under ``torch.profiler`` on one engine
+    (:func:`engine_profiles`). Device busy share = the kernels' summed
+    device time over the host wall time; the rest is the device idling while
+    the host enqueues the eager ops. ``engine_kw`` (``weight_mode=``) goes to
+    the engine."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
@@ -946,25 +979,38 @@ def engine_profile(model: str, tok: str, dtype: str, **engine_kw) -> list[dict]:
                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
                           temperature=0.0, **engine_kw)
     try:
-        ids = eng.tokenizer.encode(PROMPT * 2)
-        eng.prefill(ids[:128])
-        wall, kernels = _profiled(lambda: [eng.prefill(ids[a:a + 128]) for a in (128, 256)], 2)
-        recs = [_profile_rec("prefill_profile", dtype, "chunk", 2, wall, kernels)]
-        token = ids[384]
-        for _ in range(4):
-            token = eng.next_token(token)
-        n = 16
-
-        def steps():
-            t = token
-            for _ in range(n):
-                t = eng.next_token(t)
-
-        wall, kernels = _profiled(steps, n)
-        recs.append(_profile_rec("decode_profile", dtype, "step", n, wall, kernels))
+        recs = engine_profiles(eng, dtype)
     finally:
         eng.close()
-    return recs
+    return [recs["prefill_profile"], recs["decode_profile"]]
+
+
+def engine_profiles(eng, dtype: str, prefix: str = "") -> dict:
+    """The single-sequence profile on ``eng`` (reset first): two 128-token
+    prefill chunks (at depths 128 and 256, after a warm-up chunk at 0), then
+    16 greedy decode steps, each a replay of the captured step (after 4
+    warm-up steps, the first of which captures it). The records' cases are
+    ``prefix`` + ``prefill_profile`` / ``decode_profile``."""
+    eng.reset()
+    ids = eng.tokenizer.encode(PROMPT * 2)
+    eng.prefill(ids[:128])
+    wall, kernels = _profiled(lambda: [eng.prefill(ids[a:a + 128]) for a in (128, 256)], 2)
+    out = {"prefill_profile": _profile_rec(f"{prefix}prefill_profile", dtype, "chunk", 2,
+                                           wall, kernels)}
+    token = ids[384]
+    for _ in range(4):
+        token = eng.next_token(token)
+    n = 16
+
+    def steps():
+        t = token
+        for _ in range(n):
+            t = eng.next_token(t)
+
+    wall, kernels = _profiled(steps, n)
+    out["decode_profile"] = _profile_rec(f"{prefix}decode_profile", dtype, "step", n, wall,
+                                         kernels)
+    return out
 
 
 def paged_rows(gen, depths: list[int], T: int, g_cpu: torch.Generator) -> torch.Tensor:
@@ -977,7 +1023,7 @@ def paged_rows(gen, depths: list[int], T: int, g_cpu: torch.Generator) -> torch.
     return tables
 
 
-def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
+def paged_step_profile(model: str, tok: str, dtype: str, gen=None) -> dict:
     """One 8-row paged decode step of the serving geometry (8 slots at the
     ragged depths :data:`RAGGED`, block 16, scrambled tables), as the
     serving scheduler runs it: a replay of ``PagedGenerator``'s captured
@@ -986,16 +1032,22 @@ def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
     replays after 2 warm-up replays. Device ms per step, K2's and K4's
     device ms per step (their kernels and their split sums / combines,
     which no other kernel of the step launches), kernels per step, busy
-    share."""
+    share. ``gen``: profile the captured step of this generator (a serving
+    run's, its requests done: the replays overwrite its pool) instead of
+    building an engine on ``model``."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
     from dllama_tpu_torch.runtime.serving import PagedGenerator
 
-    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
-                          compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-                          temperature=0.0, kv_block_size=BLOCK)
+    eng = None
+    if gen is None:
+        eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                              compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                              temperature=0.0, kv_block_size=BLOCK)
     try:
-        gen = PagedGenerator(eng, SLOTS)
+        own = gen is None
+        if own:
+            gen = PagedGenerator(eng, SLOTS)
         graph = gen.step_graph()
         tables = paged_rows(gen, RAGGED, 1, torch.Generator().manual_seed(SEED))
         g = torch.Generator(device=DEV).manual_seed(SEED + 8)
@@ -1009,12 +1061,15 @@ def paged_step_profile(model: str, tok: str, dtype: str) -> dict:
             graph.replay()
         n = 8
         wall, kernels = _profiled(lambda: [graph.replay() for _ in range(n)], n)
-        gen.close()
+        if own:
+            gen.close()
     finally:
-        eng.close()
+        if eng is not None:
+            eng.close()
     rec = _profile_rec("paged_step_profile", dtype, "step", n, wall, kernels)
     for name, keys in (("K2", ("q40_gemv", "sum_splits_kernel")),
-                       ("K4", ("paged_attention_kernel", "combine_splits_kernel"))):
+                       ("K4", ("paged_attention_kernel", "combine_splits_kernel")),
+                       ("K5", K5_KEYS)):
         rec[f"{name}_device_ms_per_step"] = sum(
             e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3 / n
         rec[f"{name}_kernels_per_step"] = sum(
@@ -1318,11 +1373,12 @@ def check_graphs(rec: dict) -> None:
 
 def _wrappers() -> dict:
     from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops import moe_matmul as mm
     from dllama_tpu_torch.ops import paged_attention as pa
     from dllama_tpu_torch.ops import quant_matmul as qm
 
     return {"K1": qm.q40_matmul, "K2": qm.q40_gemv, "K3": fa.flash_attention,
-            "K4": pa.paged_attention, "K3s": fa.flash_block_stats}
+            "K4": pa.paged_attention, "K3s": fa.flash_block_stats, "K5": mm.moe_matmul}
 
 
 def zero_counts() -> None:
@@ -1477,7 +1533,8 @@ def post_chat(url: str, body: dict, first_chunk=None) -> dict:
 
 
 def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
-              case: str = "serving", paged: bool = True, observe=None) -> dict:
+              case: str = "serving", paged: bool = True, observe=None,
+              picks: tuple | None = None, hold_twin: bool = True, on_gen=None) -> dict:
     """One run of the port's api in process (``cli.main(["api", ...,
     *extra])`` on a thread, port 0) over the paged block pool
     (``--kv-block-size``), or over the dense slot pool when not ``paged``:
@@ -1486,9 +1543,16 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     are set to 0 just before the run and read just after it. ``observe(url,
     gen, reqs, replays)``, when given, runs after the clients and before
     the server stops (``replays``: the captured step's replays in the run);
-    its result lands in the record as ``observed``."""
+    its result lands in the record as ``observed``. ``picks``: indices of
+    the bodies to send (the identical greedy pair 14, 15 last), all 16 by
+    default. The record has the captured step's replays, the graphs
+    captured while the server listened (none: each step is captured once,
+    before) and whether the identical greedy pair's texts are equal, which
+    the run holds unless ``hold_twin`` is False. ``on_gen(gen)``, when
+    given, runs once the server listens, after the run's own wrappers."""
     import threading
 
+    from dllama_tpu_torch.runtime.graphs import StepGraph
     from dllama_tpu_torch.serve import cli
 
     box: dict = {}
@@ -1536,6 +1600,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
             replay()
 
         graph.replay = replay_counted
+        box["captures"] = StepGraph.captures
         if getattr(gen, "chunk", 1) == 1:
             gen.step = step_timed
         if paged:
@@ -1551,6 +1616,8 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
                 return n
 
             gen.step_chunk = chunk_timed
+        if on_gen is not None:
+            on_gen(gen)
         listening.set()
 
     argv = ["api", "--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
@@ -1571,6 +1638,9 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
             fail(f"{case} {dtype}: the api server exited before listening")
     url = f"http://127.0.0.1:{box['server'].server_address[1]}"
     bodies = serving_bodies()
+    if picks is not None:
+        bodies = [bodies[i] for i in picks]
+    twin = len(bodies) - 2  # body 14, whose identical twin is the last
     results: list = [None] * len(bodies)
     a_started = threading.Event()
 
@@ -1578,11 +1648,11 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
         try:
             if i == len(bodies) - 1:  # the twin admits while 14 decodes
                 a_started.wait(timeout=600)
-            results[i] = post_chat(url, bodies[i], a_started if i == 14 else None)
+            results[i] = post_chat(url, bodies[i], a_started if i == twin else None)
         except Exception as e:  # noqa: BLE001 — reported as a failed request below
             results[i] = dict(status=getattr(e, "code", None), error=repr(e))
         finally:
-            if i == 14:
+            if i == twin:
                 a_started.set()  # a failed 14 must not hold its twin back
 
     t0 = time.perf_counter()
@@ -1593,6 +1663,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
         c.join(timeout=900)
     wall_s = time.perf_counter() - t0
     gen = box["gen"]
+    captured = StepGraph.captures - box["captures"]  # while the clients were served
     observed = observe(url, gen, reqs, box["replays"]) if observe is not None else None
     box["server"].shutdown()
     th.join(timeout=120)
@@ -1614,7 +1685,8 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
                step_ms_median=statistics.median(step_ms) if step_ms else None,
                steps=len(step_ms), reused_tokens=gen.reused_tokens,
                pool_gb=gen.pool_bytes / 1e9, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               capture=box["capture"], launches={"api": launches})
+               capture=box["capture"], launches={"api": launches}, replays=box["replays"],
+               captures_while_listening=captured)
     if observed is not None:
         rec["observed"] = observed
     if paged:
@@ -1629,9 +1701,10 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     if bad:
         print(json.dumps(rec), flush=True)
         fail(f"{case} {dtype}: {len(bad)} request(s) failed: {bad[:3]}")
-    if results[14]["text"] != results[15]["text"]:
+    rec["twin_equal"] = results[twin]["text"] == results[twin + 1]["text"]
+    if hold_twin and not rec["twin_equal"]:
         fail(f"{case} {dtype}: the identical greedy pair differs:\n"
-             f"{results[14]['text']!r}\n{results[15]['text']!r}")
+             f"{results[twin]['text']!r}\n{results[twin + 1]['text']!r}")
     if gen.reused_tokens <= 0:
         fail(f"{case} {dtype}: no prefix reuse happened")
     box.clear()
@@ -4070,14 +4143,17 @@ def obs_cost(summary: dict) -> None:
     summary["instrumentation_cost"] = rec
 
 
-def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
+def paged_step_syncs(model: str, tok: str, summary: dict,
+                     case: str = "paged_step_syncs", eng=None) -> None:
     """Synchronisations a paged decode step makes, counted with
     ``torch.cuda.set_sync_debug_mode("warn")`` over 8 scheduler ticks
     (``BatchScheduler._tick`` on this thread: 8 slots at 8 layers decoding,
     the captured step) with every instrument on and tenant limits set (the
     slots' requests in four tenants, the tick's tenant accounting and
     fair-queue admission included): the step's one readback, and nothing
-    the instrumentation or the tenancy added."""
+    the instrumentation or the tenancy added. ``eng``: count on this engine
+    (one with ``kv_block_size=BLOCK``, left open) instead of building one
+    on ``model``."""
     import warnings
 
     from dllama_tpu_torch.formats.quants import Q80
@@ -4085,8 +4161,10 @@ def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
     from dllama_tpu_torch.runtime.engine import InferenceEngine
     from dllama_tpu_torch.runtime.serving import BatchScheduler
 
-    eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
-                          temperature=0.0, kv_block_size=BLOCK)
+    own = eng is None
+    if own:
+        eng = InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ, sync_type=Q80,
+                              temperature=0.0, kv_block_size=BLOCK)
     try:
         sched = BatchScheduler(eng, SLOTS, _start_thread=False,
                                tenant_limits=tenancy.parse_limits(FLEET_LIMITS))
@@ -4115,13 +4193,14 @@ def paged_step_syncs(model: str, tok: str, summary: dict) -> None:
         sched.close()
     finally:
         tenancy.reset()
-        eng.close()
-    rec = dict(case="paged_step_syncs", steps=n, syncs=len(syncs), tenant_limits=True,
+        if own:
+            eng.close()
+    rec = dict(case=case, steps=n, syncs=len(syncs), tenant_limits=True,
                syncs_per_step=len(syncs) / n, first=syncs[:2])
     print(json.dumps(rec), flush=True)
-    summary["paged_step_syncs"] = rec
+    summary[case] = rec
     if len(syncs) != n:
-        fail(f"paged step: {len(syncs)} synchronisations in {n} steps, want one each "
+        fail(f"{case}: {len(syncs)} synchronisations in {n} steps, want one each "
              f"(the token readback)")
 
 
@@ -6108,6 +6187,910 @@ def kvmigrate_phase(model: str, tok: str, tmp: str, n_layers: int, summary: dict
     summary["kvmigrate"] = rec
 
 
+# ---------------------------------------------------------------------------
+# slice 15: mixture of experts (Qwen3-30B-A3B) and turbo planes, kernel K5
+# ---------------------------------------------------------------------------
+
+# Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json): hidden_size 2048,
+# moe_intermediate_size 768, 128 experts, 8 a token, norm_topk_prob true,
+# 32 / 4 heads of 128, vocab 151936, rope theta 1e6, rms eps 1e-6,
+# max_position_embeddings 40960. Width is never cut; depth 48 -> 8.
+MOE_DIM, MOE_HIDDEN, MOE_EXPERTS, MOE_ACTIVE = 2048, 768, 128, 8
+MOE_HEADS, MOE_KV_HEADS, MOE_VOCAB = 32, 4, 151936
+MOE_ASSETS = ("qwen3_30b_a3b.m", "tok_151936.t")
+MOE_SHAPES = [("we1", MOE_DIM, MOE_HIDDEN), ("we3", MOE_DIM, MOE_HIDDEN),
+              ("we2", MOE_HIDDEN, MOE_DIM)]  # (name, K, N): one layer's expert dots
+# tokens of a K5 case: one decode token, the paged step's 8 slots, a
+# 128-token prefill chunk (8 rows a token)
+MOE_TOKENS = [("decode", 1), ("paged step", SLOTS), ("128-token chunk", 128)]
+# the serving mix cut to 8 requests (the identical greedy pair last)
+MOE_PICKS = (0, 1, 2, 3, 4, 5, 14, 15)
+# the routing near-tie rule (RouteRecorder.hold): two transcripts of one
+# prompt may part only after their routers chose other experts at some
+# (position, layer), and in f32 the first such choice must lie at a k-th /
+# (k+1)-th router probability gap within this many f32 ulps on one side
+ROUTER_TIE_ULPS = 4
+# turbo: the 8B wq and w1 at these rows; JAX's drift bounds (tests/test_turbo.py:
+# a matmul within 8e-2 (a8) / 5e-2 (a16) of the exact product's RMS;
+# tests/test_moe.py: the model's logits within 0.15 of their RMS)
+TURBO_SHAPES = [("wq", DIM, HEADS * HEAD_DIM), ("w1", DIM, HIDDEN)]
+TURBO_M = (1, 8, 128)
+TURBO_MATMUL_DRIFT = {"a8": 8e-2, "a16": 5e-2}
+TURBO_MODEL_DRIFT = 0.15
+TURBO_STEPS = 32
+
+
+def write_moe_model(path: str, n_layers: int) -> None:
+    """Synthetic Qwen3-30B-A3B-shaped Q40 MoE file, with the header the JAX
+    converter writes for ``qwen3_moe`` (``dllama_tpu/convert/hf.py``): arch
+    QWEN3 (neox rope), ``moe_intermediate_size`` as ``hidden_dim``,
+    ``moe_norm_topk`` from ``norm_topk_prob``. Random Q40 blocks (codes -7..7,
+    f16 scales ~0.004) and f32 norms, embedding and router (std 0.02), drawn
+    on the card from a seeded generator, the Q40 blocks' bytes assembled
+    there; a layer's 384 expert tensors, which have one size each, are one
+    draw."""
+    from dllama_tpu_torch.formats.mfile import ArchType, HiddenAct, write_header
+    from dllama_tpu_torch.formats.quants import Q40
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+
+    def f32(n_rows: int, n_cols: int, base: float, scale: float, f) -> None:
+        for lo in range(0, n_rows, 8192):
+            rows = min(8192, n_rows - lo)
+            x = torch.randn((rows, n_cols), generator=g, device=DEV) * scale + base
+            f.write(x.cpu().numpy().data)
+
+    def q40(n_weights: int, f) -> None:
+        nb = n_weights // 32
+        for lo in range(0, nb, 1 << 22):
+            n = min(1 << 22, nb - lo)
+            # a block: its f16 scale's 2 bytes, then 16 bytes of nibbles 1..15
+            scales = (torch.rand(n, generator=g, device=DEV) * 0.004 + 0.002).half()
+            lo4, hi4 = (torch.randint(1, 16, (n, 16), generator=g, device=DEV,
+                                      dtype=torch.uint8) for _ in range(2))
+            blocks = torch.cat([scales.view(torch.uint8).reshape(n, 2), lo4 | (hi4 << 4)], 1)
+            f.write(blocks.cpu().numpy().data)
+
+    header = dict(version=0, arch_type=int(ArchType.QWEN3), hidden_act=int(HiddenAct.SILU),
+                  dim=MOE_DIM, hidden_dim=MOE_HIDDEN, n_layers=n_layers, n_heads=MOE_HEADS,
+                  n_kv_heads=MOE_KV_HEADS, weight_float_type=Q40, seq_len=40960,
+                  vocab_size=MOE_VOCAB, n_experts=MOE_EXPERTS, n_active_experts=MOE_ACTIVE,
+                  moe_norm_topk=1, rope_theta=1000000, head_dim=HEAD_DIM, norm_epsilon=6)
+    q_dim, kv_dim = MOE_HEADS * HEAD_DIM, MOE_KV_HEADS * HEAD_DIM
+    with open(path, "wb") as f:
+        write_header(f, header)
+        f32(MOE_VOCAB, MOE_DIM, 0.0, 1.0, f)  # embedding
+        for _ in range(n_layers):
+            for out_dim, in_dim in ((q_dim, MOE_DIM), (kv_dim, MOE_DIM), (kv_dim, MOE_DIM),
+                                    (MOE_DIM, q_dim)):
+                q40(out_dim * in_dim, f)
+            f32(MOE_EXPERTS, MOE_DIM, 0.0, 0.02, f)  # block_moe_gate
+            q40(3 * MOE_EXPERTS * MOE_DIM * MOE_HIDDEN, f)  # w3, w1, w2 of each expert
+            f32(1, HEAD_DIM, 1.0, 0.02, f)  # block_norm_q
+            f32(1, HEAD_DIM, 1.0, 0.02, f)  # block_norm_k
+            f32(1, MOE_DIM, 1.0, 0.02, f)   # block_norm_0
+            f32(1, MOE_DIM, 1.0, 0.02, f)   # block_norm_1
+        f32(1, MOE_DIM, 1.0, 0.02, f)       # final_norm
+        q40(MOE_VOCAB * MOE_DIM, f)         # final_matmul_logits
+
+
+def write_moe_assets(tmp: str, n_layers: int) -> tuple[str, str]:
+    model, tok = (os.path.join(tmp, n) for n in MOE_ASSETS)
+    t0 = time.perf_counter()
+    # Qwen3's layout: 151643 regular pieces, <|endoftext|> and the specials after
+    write_tokenizer(tok, vocab_size=MOE_VOCAB, n_regular=151643)
+    write_moe_model(model, n_layers)
+    print(f"📝 synthetic Qwen3-30B-A3B model: {os.path.getsize(model) / 1e9:.2f} GB, "
+          f"{n_layers} layers, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return model, tok
+
+
+def routed_offsets(n_tokens: int, g: torch.Generator) -> tuple[torch.Tensor, int]:
+    """A top-8-of-128 routing of ``n_tokens`` tokens (distinct experts a
+    token, random): the group offsets of its rows sorted by expert, and the
+    number of experts it uses."""
+    scores = torch.rand((n_tokens, MOE_EXPERTS), generator=g, device=DEV)
+    flat = scores.argsort(dim=1)[:, :MOE_ACTIVE].reshape(-1)
+    counts = torch.bincount(flat, minlength=MOE_EXPERTS)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return offsets, int((counts > 0).sum())
+
+
+def random_expert_planes(K: int, N: int, fast: bool, g: torch.Generator):
+    """An expert stack of Q40 planes ``[128, K, N]`` (codes -8..7)."""
+    from dllama_tpu_torch.ops.linear import QuantizedWeight
+
+    codes = torch.randint(-8, 8, (MOE_EXPERTS, K, N), generator=g, device=DEV,
+                          dtype=torch.int8)
+    scales = torch.rand((MOE_EXPERTS, K // 32, N), generator=g, device=DEV) * 0.01 + 0.002
+    return QuantizedWeight(scales=scales.to(torch.bfloat16 if fast else torch.float32),
+                           codes=codes)
+
+
+def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, fast: bool,
+            x, we, offsets, n_bytes: float, n_ops: float, ops_kind: str, library=None,
+            bit_exact: bool = False, **fields) -> dict:
+    """One K5 case: the kernel against its plain version on the same
+    inputs (``TOL[mode]`` of max|plain|, or bit for bit), timed with the
+    plain version and ``library`` (one PyTorch call, or None)."""
+    from dllama_tpu_torch.ops import moe_matmul as mm
+
+    got = mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast)
+    splits = mm.moe_matmul.last_splits  # the K split this launch took
+    want = mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    equal = bool(torch.equal(got, want))
+    ms = timer(lambda: mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast))
+    n = timer.n
+    timer.n = 5  # the plain version loops over groups on the host
+    plain_ms = timer(lambda: mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast))
+    timer.n = n
+    lib_ms = timer(library) if library is not None else None
+    b_ms, b_by = bound(n_bytes, n_ops, ops_kind)
+    _, K, N = mm._planes(we, decoder)
+    rec = dict(case="moe_matmul", kernel="K5", mode=mode, decoder=decoder, what=what,
+               rows=x.shape[0], K=K, N=N, max_abs_err=err, max_abs_ref=scale,
+               bit_equal=equal, splits=splits, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, **fields)
+    print(json.dumps(rec), flush=True)
+    results.append(rec)
+    if bit_exact and not equal:
+        fail(f"K5 {what}: {decoder} differs from its plain version (max|err| {err:.3g}); "
+             f"the integer dot must equal it bit for bit")
+    if not (err <= TOL[mode] * scale) or not math.isfinite(err):
+        fail(f"K5 {what}: max|err| {err:.3g} > {TOL[mode]} x max|y| {scale:.3g}")
+    return rec
+
+
+def int_mm_library(xq: torch.Tensor, w8: torch.Tensor):
+    """``torch._int_mm`` over the same int8 operands (rows padded to what it
+    takes: more than 16, a multiple of 8): a8's library yardstick."""
+    M = xq.shape[0]
+    pad = max(32, -(-M // 8) * 8)
+    xp = torch.zeros((pad, xq.shape[1]), dtype=torch.int8, device=DEV)
+    xp[:M] = xq
+    return lambda: torch._int_mm(xp, w8)
+
+
+def moe_cases(timer: Timer, results: list) -> None:
+    """K5 against its plain version in every decoder and regime: the
+    Qwen3-30B-A3B expert dots (w1/w3: K 2048, N 768; w2: K 768, N 2048; 128
+    experts) at 8 (one decode token), 64 (the paged step) and 1024 rows (a
+    128-token chunk) on Q40 planes, exact and fast; turbo expert planes in
+    the gather regime (a8, a16 at 8 rows) and the ragged regime (pre-scaled
+    at 64 and 1024 rows); dense expert planes (``--weight-mode f32|bf16``)
+    at 64 rows; then the dense turbo linear (one group) on the 8B wq and
+    w1 at M = 1, 8 and 128, a8 bit for bit against its plain version, its
+    drift from the exact product held to the JAX package's bounds, and the
+    derived planes against the same derivation on the host, bit for bit."""
+    from dllama_tpu_torch.ops import turbo
+    from dllama_tpu_torch.ops.linear import dequantize_weight
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    E = MOE_EXPERTS
+    for mode in ("exact", "fast"):
+        fast = mode == "fast"
+        for name, K, N in MOE_SHAPES:
+            we = random_expert_planes(K, N, fast, g)
+            for label, n_tok in MOE_TOKENS:
+                offsets, used = routed_offsets(n_tok, g)
+                R = n_tok * MOE_ACTIVE
+                x = torch.randn((R, K), generator=g, device=DEV).to(
+                    torch.bfloat16 if fast else torch.float32)
+                elt = 2 if fast else 4
+                k5_case(timer, results, what=f"{name} {label} {mode}", mode=mode, decoder="q",
+                        fast=fast, x=x, we=we, offsets=offsets,
+                        n_bytes=used * (K * N + K // 32 * N * elt) + R * K * elt + R * N * 4,
+                        n_ops=2.0 * R * K * N, ops_kind="bf16" if fast else "f32",
+                        weight=name, tokens=n_tok, experts_used=used)
+            if name == "we1":
+                tw = {a8: turbo.derive_turbo(we, a8=a8) for a8 in (True, False)}
+                for decoder, n_tok in (("a8", 1), ("a16", 1), ("prescaled", SLOTS),
+                                       ("prescaled", 128)):
+                    if fast != (decoder != "a8"):
+                        continue  # a8 once (under "exact": its sums are integers)
+                    offsets, used = routed_offsets(n_tok, g)
+                    R = n_tok * MOE_ACTIVE
+                    x = torch.randn((R, K), generator=g, device=DEV)
+                    w = tw[decoder == "a8"]
+                    k5_case(timer, results, what=f"turbo {decoder} {name} rows={R}",
+                            mode=mode, decoder=decoder, fast=False, x=x, we=w,
+                            offsets=offsets,
+                            n_bytes=used * (K * N + 4 * N) + R * K * (1 if decoder == "a8"
+                                                                        else 2) + R * N * 4,
+                            n_ops=2.0 * R * K * N,
+                            ops_kind="int8" if decoder == "a8" else "bf16",
+                            bit_exact=decoder == "a8", weight=name, tokens=n_tok,
+                            experts_used=used)
+                del tw
+                # dense expert stacks (--weight-mode f32 | bf16) at the paged step
+                dt = torch.bfloat16 if fast else torch.float32
+                dense = dequantize_weight(we, torch.float32).to(dt)
+                offsets, used = routed_offsets(SLOTS, g)
+                R = SLOTS * MOE_ACTIVE
+                x = torch.randn((R, K), generator=g, device=DEV).to(dt)
+                lib = None
+                if fast and hasattr(torch, "_grouped_mm"):
+                    lib = lambda: torch._grouped_mm(x, dense, offs=offsets[1:])  # noqa: E731
+                k5_case(timer, results, what=f"dense {name} rows={R} {mode}", mode=mode,
+                        decoder="dense", fast=False, x=x, we=dense, offsets=offsets,
+                        n_bytes=used * K * N * dense.element_size() + R * K * x.element_size()
+                        + R * N * 4, n_ops=2.0 * R * K * N,
+                        ops_kind="bf16" if fast else "f32", library=lib, weight=name,
+                        tokens=SLOTS, experts_used=used)
+                del dense
+            del we
+            torch.cuda.empty_cache()
+    # the dense turbo linear: one group
+    for name, K, N in TURBO_SHAPES:
+        qw = random_planes(K, N, True, g)
+        exact_w = dequantize_weight(qw, torch.float32)
+        for a8 in (True, False):
+            tw = turbo.derive_turbo(qw, a8=a8)
+            tw1 = turbo.TurboWeight(tw.w8[None], tw.scale[None], a8)
+            if name == "wq":  # the card's derivation against the host's, bit for bit
+                host = turbo.derive_turbo(qw._replace(scales=qw.scales.cpu(),
+                                                      codes=qw.codes.cpu()), a8=a8)
+                if not (torch.equal(host.w8, tw.w8.cpu())
+                        and torch.equal(host.scale, tw.scale.cpu())):
+                    fail(f"turbo derivation of {name}: the card's planes differ from the "
+                         f"host's")
+            dec = "a8" if a8 else "a16"
+            for M in TURBO_M:
+                x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
+                y = turbo.turbo_matmul(x, tw).float()
+                ref = x.float() @ exact_w
+                drift = ((y - ref).abs().max() / ref.pow(2).mean().sqrt()).item()
+                lib = None
+                if a8:
+                    xq, _ = turbo.quantize_activations_a8(x)
+                    lib = int_mm_library(xq, tw.w8)
+                rec = k5_case(timer, results, what=f"turbo {dec} {name} M={M}",
+                              mode="exact" if a8 else "fast", decoder=dec, fast=False, x=x,
+                              we=tw1, offsets=None,
+                              n_bytes=K * N + 4 * N + M * K * (1 if a8 else 2) + M * N * 4,
+                              n_ops=2.0 * M * K * N, ops_kind="int8" if a8 else "bf16",
+                              library=lib, bit_exact=a8, weight=name, M=M,
+                              drift_vs_exact=drift, drift_bound=TURBO_MATMUL_DRIFT[dec])
+                if not drift < TURBO_MATMUL_DRIFT[dec]:
+                    fail(f"turbo {dec} {name} M={M}: drift {drift:.3g} from the exact "
+                         f"product >= {TURBO_MATMUL_DRIFT[dec]} of its RMS")
+                del rec
+            del tw, tw1
+        del qw, exact_w
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def engine_spy(on_close=None):
+    """Watch every ``InferenceEngine`` a CLI run builds: its load seconds
+    (``load_s``: the load and any turbo derivation), the last logits of each
+    prefill (the logits the first decode token derives from), and
+    ``on_close(engine)`` run before each close, while the weights are there."""
+    from dllama_tpu_torch.runtime.engine import InferenceEngine as IE
+
+    box: dict = {"load_s": [], "logits": []}
+    init, prefill, close = IE.__init__, IE.prefill, IE.close
+
+    def init_spied(self, *a, **kw):
+        init(self, *a, **kw)
+        box["load_s"].append(self.load_s)
+
+    def prefill_spied(self, ids):
+        last, metrics = prefill(self, ids)
+        box["logits"].append(np.asarray(last, dtype=np.float32).copy())
+        return last, metrics
+
+    def close_spied(self):
+        if on_close is not None and self.params is not None:
+            on_close(self)
+        close(self)
+
+    IE.__init__, IE.prefill, IE.close = init_spied, prefill_spied, close_spied
+    try:
+        yield box
+    finally:
+        IE.__init__, IE.prefill, IE.close = init, prefill, close
+
+
+def k5_hold(eng, what: str) -> dict:
+    """K5 against its plain version per call, on the real inputs of eager
+    forwards of ``eng``'s model: a 128-token chunk (1024 rows: the ragged
+    regime), one decode token (8 rows: the gather regime) and one token of
+    8 sequences (64 rows, the paged step's width: ragged). Every call's
+    output is held to ``TOL`` of its plain version's max (a8: bit for bit).
+    These launches are checks, so every counter is put back."""
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.ops import moe_matmul as mm
+    from dllama_tpu_torch.runtime.kvcache import KVCache
+
+    real, calls = llama.moe_matmul, []
+    counts = {fn: fn.launches for fn in _wrappers().values()}
+
+    def recorded(x, we, offsets, *, decoder, fast=False):
+        y = real(x, we, offsets, decoder=decoder, fast=fast)
+        calls.append((x, we, offsets, decoder, fast, y))
+        return y
+
+    cfg = eng.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    llama.moe_matmul = recorded
+    try:
+        kv = KVCache.create(cfg, dtype=eng.kv_dtype, device=eng.device)
+        toks = torch.randint(0, cfg.vocab_size, (1, 129), generator=g, device=DEV)
+        llama.forward(eng.params, cfg, toks[:, :128], 0, kv)
+        llama.forward(eng.params, cfg, toks[:, 128:], 128, kv)
+        del kv
+        kv8 = KVCache.create(cfg, batch_size=SLOTS, dtype=eng.kv_dtype, device=eng.device)
+        pos = torch.randint(0, MAX_SEQ - 1, (SLOTS,), generator=g, device=DEV)
+        llama.forward(eng.params, cfg, toks[:, :SLOTS].reshape(SLOTS, 1), pos, kv8)
+        del kv8
+    finally:
+        llama.moe_matmul = real
+    for fn, n in counts.items():
+        fn.launches = n
+    worst, by_decoder = 0.0, collections.Counter()
+    for x, we, offsets, decoder, fast, y in calls:
+        want = mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
+        mode = "fast" if (fast or decoder in ("a16", "prescaled")
+                          or x.dtype == torch.bfloat16) else "exact"
+        err, scale = (y - want).abs().max().item(), want.abs().max().item()
+        by_decoder[f"{decoder}:{x.shape[0]}"] += 1
+        worst = max(worst, err / max(scale, 1e-30))
+        if decoder == "a8" and not torch.equal(y, want):
+            fail(f"K5 hold {what}: an a8 call differs from its plain version")
+        if not err <= TOL[mode] * scale:
+            fail(f"K5 hold {what}: a {decoder} call of {x.shape[0]} rows: max|err| "
+                 f"{err:.3g} > {TOL[mode]} x max|y| {scale:.3g}")
+    rec = dict(case="k5_hold", what=what, calls=len(calls), by_decoder_rows=dict(by_decoder),
+               worst_rel_err=worst)
+    print(json.dumps(rec), flush=True)
+    if not calls:
+        fail(f"K5 hold {what}: the forwards made no K5 call")
+    return rec
+
+
+class RouteRecorder:
+    """The router's choice at every position the requests of one api run
+    pass through, in the server's own arithmetic: each MoE layer's top k + 1
+    sorted probabilities and top-k experts, from the eager prefill chunks
+    (``_exec_prefill``) and from the captured paged step (the sort outputs
+    its capture allocated, read after each replay while :attr:`on`: the
+    graph gains no kernel). It also tracks which request's prefill wrote
+    each row of every block (commits and copy-on-write copies) and each
+    request's block table, so a request's history is the routing of the
+    prefills whose KV it reads. Enter :meth:`installed` before the server
+    starts, so the step is captured through it, and pass :meth:`attach` as
+    ``serve_run(on_gen=...)``."""
+
+    def __init__(self, n_layers: int, k: int):
+        self.L, self.k, self.on = n_layers, k, True
+        self.ctx = None        # (rid, first position, valid rows) of an eager prefill chunk
+        self.layer = 0
+        self.bs = 0
+        self.captured: list = []   # (probs, idx) of every captured router call
+        self.static: list = []     # the server's step graph's, one a layer
+        self.prefill: list = []    # (rid, layer, first position, probs, idx)
+        self.steps: list = []      # ([(slot, rid, position)], probs [L, S, k+1], idx [L, S, k])
+        self.producer: dict = {}   # block -> the rid whose prefill wrote each of its rows
+        self.tables: dict = {}     # rid -> its block table at its first decode step
+
+    @contextlib.contextmanager
+    def installed(self):
+        from dllama_tpu_torch.models import llama
+
+        real = llama._router_sorted
+
+        def recorded(h, gate):
+            top, idx = real(h, gate)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.append((top, idx))
+            elif self.ctx is not None:
+                rid, pos0, n = self.ctx
+                self.prefill.append((rid, self.layer, pos0, top[0, :n, :self.k + 1].clone(),
+                                     idx[0, :n, :self.k].clone()))
+                self.layer += 1
+            return top, idx
+
+        llama._router_sorted = recorded
+        try:
+            yield self
+        finally:
+            llama._router_sorted = real
+
+    def attach(self, gen) -> None:
+        self.static = [(t, x) for t, x in self.captured
+                       if tuple(t.shape[:2]) == (gen.n_slots, 1)][-self.L:]
+        if len(self.static) != self.L:
+            fail(f"route record: {len(self.static)} captured router calls of the paged step "
+                 f"(want {self.L})")
+        self.bs = gen.block_size
+        exec_prefill, commit, copy_block = gen._exec_prefill, gen.continue_admit, gen._copy_block
+        graph = gen.step_graph()
+        replay = graph.replay
+
+        def prefill_recorded(adm, padded):
+            n = min(len(padded), len(adm.req.prompt_ids) - 1 - adm.pos)
+            self.ctx, self.layer = ((adm.req.rid, adm.pos, n) if self.on else None), 0
+            try:
+                exec_prefill(adm, padded)
+            finally:
+                self.ctx = None
+
+        def commit_recorded(adm):
+            done = commit(adm)
+            if done and not adm.req.score:
+                bids = gen._seq_bids[adm.slot]
+                for p in range(adm.reused, len(adm.req.prompt_ids) - 1):
+                    self.producer.setdefault(bids[p // self.bs],
+                                             [None] * self.bs)[p % self.bs] = adm.req.rid
+            return done
+
+        def copy_recorded(src, dst):
+            copy_block(src, dst)
+            self.producer[dst] = list(self.producer.get(src, [None] * self.bs))
+
+        def replay_recorded():
+            live = [(i, s.rid, int(gen.pos[i])) for i, s in enumerate(gen.slots)
+                    if s is not None]
+            replay()
+            if self.on:
+                for i, rid, _ in live:
+                    if rid not in self.tables:
+                        self.tables[rid] = gen.tables[i].copy()
+                self.steps.append((live, torch.stack([t[:, 0, :self.k + 1]
+                                                      for t, _ in self.static]),
+                                   torch.stack([x[:, 0, :self.k] for _, x in self.static])))
+
+        gen._exec_prefill, gen.continue_admit = prefill_recorded, commit_recorded
+        gen._copy_block, graph.replay = copy_recorded, replay_recorded
+
+    def _producers(self, req) -> list:
+        """The rid whose prefill wrote the KV row ``req`` reads at each
+        prompt position (None: unknown)."""
+        table = self.tables.get(req.rid)
+        n = len(req.prompt_ids) - 1
+        if table is None:
+            return [None] * n
+        return [self.producer.get(int(table[p // self.bs]), [None] * self.bs)[p % self.bs]
+                for p in range(n)]
+
+    def _rows(self, rids) -> dict:
+        """``{rid: {position: {layer: (probs [k+1], experts [k])}}}``."""
+        rows: dict = {rid: {} for rid in rids}
+        for rid, layer, pos0, top, idx in self.prefill:
+            if rid in rows:
+                for j, (v, x) in enumerate(zip(top.cpu().numpy(), idx.cpu().numpy())):
+                    rows[rid].setdefault(pos0 + j, {})[layer] = (v, x)
+        for live, top, idx in self.steps:
+            if any(rid in rows for _, rid, _ in live):
+                top, idx = top.cpu().numpy(), idx.cpu().numpy()
+                for i, rid, pos in live:
+                    if rid in rows:
+                        for layer in range(self.L):
+                            rows[rid].setdefault(pos, {})[layer] = (top[layer, i],
+                                                                    idx[layer, i])
+        return rows
+
+    def _history(self, req, producers: list, rows: dict) -> dict:
+        """``{position: {layer: (probs, experts)}}`` behind ``req``'s
+        tokens: the prompt positions from the prefills that wrote the KV it
+        reads, the rest from its own decode steps."""
+        hist = {p: rows[r][p] for p, r in enumerate(producers)
+                if r is not None and p in rows[r]}
+        hist.update({p: v for p, v in rows[req.rid].items() if p >= len(producers)})
+        return hist
+
+    def gap_ulps(self, v) -> float:
+        """The k-th / (k+1)-th probability gap in f32 ulps of the k-th."""
+        return float((v[self.k - 1] - v[self.k]) / np.spacing(np.float32(v[self.k - 1])))
+
+    def hold(self, a, b, dtype: str, what: str, tie_rule: bool) -> dict:
+        """Requests ``a`` and ``b`` of one prompt, held on their histories
+        (:meth:`_history`): where both read KV of the same prefills and
+        decode, they must route alike with equal probabilities (the step is
+        batch-invariant); their tokens may part only after the first
+        (position, layer) where their histories chose other experts, and,
+        with ``tie_rule`` in f32, only where that choice lay within
+        :data:`ROUTER_TIE_ULPS` of a tie on one side. Every position up to
+        the one that gave the parting token is compared. (Without f32 sync
+        buffers the rule cannot hold: two prefills of one prefix in other
+        chunk widths differ in last ulps, which flip whole Q80 codes at the
+        sync points, far from any tie.)"""
+        pa, pb = self._producers(a), self._producers(b)
+        rows = self._rows({a.rid, b.rid} | {r for r in pa + pb if r is not None})
+        ha, hb = self._history(a, pa, rows), self._history(b, pb, rows)
+        ta, tb = list(a.tokens), list(b.tokens)
+        part = next((j for j, (u, w) in enumerate(zip(ta, tb)) if u != w), None)
+        n_prompt = len(a.prompt_ids)
+        last = n_prompt - 1 + (part if part is not None else min(len(ta), len(tb)) - 1)
+        first, first_value, n_diff, compared, gaps = None, None, 0, 0, []
+        for p in sorted(set(ha) & set(hb)):
+            if p > last:
+                break
+            for layer in range(self.L):
+                ra, rb = ha[p].get(layer), hb[p].get(layer)
+                if ra is None or rb is None:
+                    continue
+                compared += 1
+                gaps.append(self.gap_ulps(ra[0]))
+                if first_value is None and not np.array_equal(ra[0], rb[0]):
+                    d = np.abs(ra[0].astype(np.float64) - rb[0])
+                    first_value = dict(
+                        pos=p, layer=layer,
+                        region="prompt" if p < n_prompt - 1 else "decode",
+                        producers=[pa[p], pb[p]] if p < n_prompt - 1 else None,
+                        max_diff_ulps=float(np.max(d / np.spacing(np.maximum(ra[0], rb[0])))))
+                if set(ra[1].tolist()) != set(rb[1].tolist()):
+                    n_diff += 1
+                    if first is None:
+                        first = dict(pos=p, layer=layer,
+                                     gap_ulps=[self.gap_ulps(ra[0]), self.gap_ulps(rb[0])],
+                                     experts_only_a=sorted(set(ra[1].tolist())
+                                                           - set(rb[1].tolist())),
+                                     experts_only_b=sorted(set(rb[1].tolist())
+                                                           - set(ra[1].tolist())))
+        rec = dict(case="route_hold", what=what, compute_dtype=dtype, prompt_tokens=n_prompt,
+                   tokens=[len(ta), len(tb)], parted_at=part, last_position=last,
+                   positions=[len(ha), len(hb)],
+                   prompt_rows_of_other_prefills=sum(x != y for x, y in zip(pa, pb)),
+                   unknown_producers=[pa.count(None), pb.count(None)],
+                   layer_rows_compared=compared, route_differences=n_diff,
+                   first_value_difference=first_value, first_difference=first,
+                   gap_ulps_min=min(gaps) if gaps else None,
+                   gap_ulps_median=statistics.median(gaps) if gaps else None,
+                   sites_within_rule=sum(g <= ROUTER_TIE_ULPS for g in gaps),
+                   rule_ulps=ROUTER_TIE_ULPS if tie_rule and dtype == "f32" else None)
+        print(json.dumps(rec), flush=True)
+        if not compared or pa.count(None) or pb.count(None):
+            fail(f"{what}: the route record does not cover both requests' histories")
+        if first_value is not None and first_value["region"] == "decode":
+            # every prompt position routed alike with equal probabilities
+            fail(f"{what}: the pair read KV of the same prefills, yet the step computed other "
+                 f"router probabilities for them at position {first_value['pos']}, layer "
+                 f"{first_value['layer']}")
+        if part is None:
+            return rec
+        if first is None:
+            fail(f"{what}: the pair parts at token {part} with the same experts chosen at "
+                 f"every position before it")
+        elif tie_rule and dtype == "f32" and not min(first["gap_ulps"]) <= ROUTER_TIE_ULPS:
+            fail(f"{what}: the pair parts at token {part} after its histories first chose "
+                 f"other experts at position {first['pos']}, layer {first['layer']}, gaps "
+                 f"{first['gap_ulps']} ulps (not a near tie: > {ROUTER_TIE_ULPS})")
+        return rec
+
+
+def moe_parity(dtype: str) -> dict:
+    """2 MoE layers + the head at Qwen3-30B-A3B widths (random Q40 planes),
+    the kernel path against the plain path (K1-K3 ``xla``, K5's wrapper
+    swapped for its plain version) over a 128-token prefill and 8
+    teacher-forced decode steps. Each token's logits lie within
+    ``PARITY_TOL`` of max|logit|, or the two paths' routers chose other
+    experts at that token or an earlier one; in f32 the first such choice
+    must lie within :data:`ROUTER_TIE_ULPS` of a tie on one side (the
+    routing near-tie rule)."""
+    from dataclasses import replace
+
+    from dllama_tpu_torch.formats.mfile import ArchType, RopeType
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.ops import moe_matmul as mm
+    from dllama_tpu_torch.runtime.kvcache import KVCache
+
+    mode = "exact" if dtype == "float32" else "fast"
+    cfg = ModelConfig(arch=ArchType.QWEN3, dim=MOE_DIM, hidden_dim=MOE_HIDDEN, n_layers=2,
+                      n_heads=MOE_HEADS, n_kv_heads=MOE_KV_HEADS, head_dim=HEAD_DIM,
+                      vocab_size=MOE_VOCAB, seq_len=MAX_SEQ, norm_epsilon=1e-6,
+                      rope_theta=1e6, rope_type=RopeType.FALCON, n_experts=MOE_EXPERTS,
+                      n_active_experts=MOE_ACTIVE, moe_norm_topk=True, compute_dtype=dtype)
+    params = llama.init_random_params(cfg, seed=SEED, quantized=True, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    tokens = torch.randint(0, MOE_VOCAB, (1, 136), generator=g, device=DEV)
+    real_router, real_k5 = llama._router_sorted, llama.moe_matmul
+    counts = {fn: fn.launches for fn in _wrappers().values()}
+    outs, routes = {}, {}
+    for path, impl in (("kernel", "auto"), ("plain", "xla")):
+        c = replace(cfg, attn_impl=impl, quant_impl=impl)
+        route: list = []   # per forward call, per layer: (probs [T, k+1], experts [T, k])
+
+        def recorded(h, gate):
+            top, idx = real_router(h, gate)
+            route.append((top[0, :, :MOE_ACTIVE + 1].float().cpu().numpy(),
+                          idx[0, :, :MOE_ACTIVE].cpu().numpy()))
+            return top, idx
+
+        llama._router_sorted = recorded
+        if path == "plain":
+            llama.moe_matmul = mm.moe_matmul_plain
+        try:
+            kv = KVCache.create(c, dtype=getattr(torch, dtype), device=DEV)
+            logits = [llama.forward(params, c, tokens[:, :128], 0, kv)[0][0]]
+            for t in range(128, 136):  # teacher-forced decode steps
+                logits.append(llama.forward(params, c, tokens[:, t:t + 1], t, kv)[0][0])
+        finally:
+            llama._router_sorted, llama.moe_matmul = real_router, real_k5
+        outs[path] = torch.cat(logits).float()
+        # token-major: [token][layer] = (probs, experts)
+        per_token = []
+        for call in range(len(route) // cfg.n_layers):
+            layers = route[call * cfg.n_layers:(call + 1) * cfg.n_layers]
+            for j in range(layers[0][0].shape[0]):
+                per_token.append([(v[j], x[j]) for v, x in layers])
+        routes[path] = per_token
+        del kv
+    for fn, n in counts.items():  # the check's launches are not the main path's
+        fn.launches = n
+    rr = RouteRecorder(cfg.n_layers, MOE_ACTIVE)
+    err = (outs["kernel"] - outs["plain"]).abs().amax(dim=1).cpu().numpy()
+    scale = outs["plain"].abs().max().item()
+    first = None
+    for t, (ka, pa) in enumerate(zip(routes["kernel"], routes["plain"])):
+        for layer, ((va, xa), (vb, xb)) in enumerate(zip(ka, pa)):
+            if set(xa.tolist()) != set(xb.tolist()):
+                first = dict(token=t, layer=layer, gap_ulps=[rr.gap_ulps(va), rr.gap_ulps(vb)])
+                break
+        if first is not None:
+            break
+    beyond = [t for t in range(len(err)) if not err[t] <= PARITY_TOL[mode] * scale]
+    excused = [t for t in beyond if first is not None and t >= first["token"]]
+    rec = dict(case="moe_parity", mode=mode, layers=2, tokens=len(err),
+               max_abs_err=float(err.max()), max_abs_logit=scale, tol=PARITY_TOL[mode],
+               tokens_beyond_tol=len(beyond), first_route_difference=first,
+               excused_tokens=len(excused))
+    print(json.dumps(rec), flush=True)
+    if not math.isfinite(scale) or len(excused) < len(beyond):
+        fail(f"moe parity {mode}: tokens {[t for t in beyond if t not in excused][:8]} "
+             f"past {PARITY_TOL[mode]} x max|logit| {scale:.3g} with the same routing")
+    if first is not None and dtype == "float32" and not min(first["gap_ulps"]) <= ROUTER_TIE_ULPS:
+        fail(f"moe parity {mode}: the paths first chose other experts at token "
+             f"{first['token']}, layer {first['layer']}, gaps {first['gap_ulps']} ulps (not a "
+             f"near tie: > {ROUTER_TIE_ULPS})")
+    del params, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _pair(reqs: list) -> tuple:
+    """The identical greedy pair of a :func:`serve_run`: the twin (submitted
+    last) and the earlier request of the same prompt."""
+    twin = reqs[-1]
+    return next(r for r in reqs[:-1] if r.prompt_ids == twin.prompt_ids), twin
+
+
+def moe_phase(model: str, tok: str, text: str, n_layers: int, summary: dict) -> None:
+    """The Qwen3-30B-A3B file through the port's entry points, f32 exact and
+    bf16 fast, three engines a numerics: ``inference`` (a 256-token prompt,
+    64 greedy steps) through the CLI, whose engine then gives the profiles
+    (:func:`engine_profiles`) and the per-call K5 hold (:func:`k5_hold`)
+    before it closes; ``perplexity`` (511 tokens) through the CLI; the paged
+    ``api --batch-slots 8 --kv-block-size 16`` with the serving mix cut to 8
+    requests, whose generator then gives the paged step's profile and (f32)
+    the paged tick's synchronisations (:func:`paged_step_syncs`: one). K5
+    must launch on every path (counts set to 0 just before each, read just
+    after; the checks' own launches are not counted), the api's step must
+    replay a graph and capture none while it listens. First the 2-layer
+    kernel-against-plain parity (:func:`moe_parity`). The identical greedy
+    pair of each api run is held on the server's own router record
+    (:class:`RouteRecorder`); in f32 a second api run with f32 sync
+    buffers holds it to the routing near-tie rule."""
+    out: dict = {"parity": [moe_parity(d) for d in ("float32", "bfloat16")]}
+    for dtype in ("f32", "bf16"):
+        common = ["--model", model, "--tokenizer", tok, "--compute-dtype", dtype,
+                  "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED)]
+        launches: dict = {}
+        checks: dict = {}
+
+        def after_inference(eng):
+            # the checks' launches are not the path's: the counts are put back
+            counts = {fn: fn.launches for fn in _wrappers().values()}
+            checks.update(engine_profiles(eng, dtype, "moe_"))
+            for fn, n in counts.items():
+                fn.launches = n
+            checks["k5_hold"] = k5_hold(eng, f"moe {dtype}")
+
+        torch.cuda.reset_peak_memory_stats()
+        secs, t0 = {}, time.perf_counter()
+        with engine_spy(on_close=after_inference) as spy:
+            zero_counts()
+            run = run_cli(["inference", *common, "--prompt", PROMPT, "--steps",
+                           str(len(PROMPT.encode()) + 1 + 64), "--temperature", "0"])
+            launches["moe_inference"] = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        secs["inference_and_checks"], t0 = time.perf_counter() - t0, time.perf_counter()
+        with engine_spy() as ppl_spy:
+            zero_counts()
+            ppl_out = run_cli(["perplexity", *common, "--file", text])
+            launches["moe_perplexity"] = read_counts()
+        secs["perplexity"], t0 = time.perf_counter() - t0, time.perf_counter()
+        lines = run.splitlines()
+        ppl = _ppl(ppl_out)
+        rec = dict(case="moe", compute_dtype=dtype, layers=n_layers,
+                   prompt_tokens=int(stat(lines, "Evaluation", "nTokens:")) + 1,
+                   generated=int(stat(lines, "Prediction", "nTokens:")),
+                   prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                   decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                   perplexity=ppl, load_s=spy["load_s"] + ppl_spy["load_s"],
+                   peak_gb_inference=peak_gb, **checks)
+        out[f"{dtype}_logits"] = spy["logits"][0]
+
+        route = RouteRecorder(n_layers, MOE_ACTIVE)
+
+        def after_serving(url, gen, reqs, replays):
+            route.on = False  # the checks' replays and chunks are not the run's
+            n_launched = read_counts()  # the api's own launches, before the checks'
+            res = {"paged_step_profile": paged_step_profile(model, tok, dtype, gen=gen),
+                   "launches": n_launched}
+            if dtype == "f32":
+                paged_step_syncs(model, tok, res, case="moe_paged_step_syncs", eng=gen.eng)
+            return res
+
+        torch.cuda.empty_cache()
+        # the twin reuses the pair's prompt blocks, but the prefix index may
+        # map a leading block to another request's (the same tokens,
+        # prefilled in another chunk width): the pair is held on the
+        # routing of the prefills whose KV each reads (RouteRecorder)
+        with route.installed():
+            srv, reqs = serve_run(model, tok, n_layers, dtype, [], case="moe_serving",
+                                  picks=MOE_PICKS, observe=after_serving, hold_twin=False,
+                                  on_gen=route.attach)
+        rec["route_hold"] = route.hold(*_pair(reqs), dtype, f"moe_serving {dtype}",
+                                       tie_rule=False)
+        del route
+        if dtype == "f32":
+            # with f32 sync buffers the histories differ in last ulps only:
+            # the routing near-tie rule holds the pair
+            route = RouteRecorder(n_layers, MOE_ACTIVE)
+            with route.installed():
+                _, reqs = serve_run(model, tok, n_layers, dtype, ["--buffer-float-type", "f32"],
+                                    case="moe_serving_f32_buffers", picks=MOE_PICKS,
+                                    hold_twin=False, on_gen=route.attach)
+            rec["route_hold_f32_buffers"] = route.hold(
+                *_pair(reqs), dtype, f"moe_serving {dtype} f32 buffers", tie_rule=True)
+            del route
+        secs["api_and_checks"] = time.perf_counter() - t0
+        rec["seconds"] = secs
+        obs = srv.pop("observed")
+        launches["moe_api"] = obs["launches"]
+        rec["paged_step_profile"] = obs["paged_step_profile"]
+        if "moe_paged_step_syncs" in obs:
+            out["moe_paged_step_syncs"] = obs["moe_paged_step_syncs"]
+        rec["serving"] = {k: srv[k] for k in (
+            "gen_tok_per_s", "latency_ms_p50", "latency_ms_p95", "ttft_ms_p50",
+            "step_ms_median", "steps", "replays", "captures_while_listening", "peak_gb",
+            "generated_tokens", "requests", "twin_equal")}
+        rec["launches"] = launches
+        for prof in ("prefill_profile", "decode_profile", "paged_step_profile"):
+            print(json.dumps(rec[prof]), flush=True)
+        print(json.dumps({k: v for k, v in rec.items() if not k.endswith("profile")}),
+              flush=True)
+        summary.setdefault(dtype, {}).setdefault("launches", {}).update(launches)
+        out[dtype] = rec
+        if rec["generated"] != 64 or rec["prompt_tokens"] < 200:
+            fail(f"moe {dtype}: {rec['prompt_tokens']} prompt tokens, {rec['generated']} "
+                 f"generated (want >= 200 and 64)")
+        if not math.isfinite(ppl) or ppl <= 1.0:
+            fail(f"moe {dtype}: perplexity {ppl} is not a finite value above 1")
+        for path, kernels in (("moe_inference", ("K1", "K2", "K3", "K5")),
+                              ("moe_perplexity", ("K1", "K3", "K5")),
+                              ("moe_api", ("K1", "K2", "K3", "K4", "K5"))):
+            if min(launches[path][k] for k in kernels) <= 0:
+                fail(f"moe {dtype} {path}: a kernel of the path never launched: "
+                     f"{launches[path]}")
+        if srv["replays"] <= 0 or srv["captures_while_listening"] != 0:
+            fail(f"moe {dtype} api: {srv['replays']} graph replays, "
+                 f"{srv['captures_while_listening']} captures while listening")
+        torch.cuda.empty_cache()
+    rel = abs(out["bf16"]["perplexity"] / out["f32"]["perplexity"] - 1.0)
+    out["bf16_vs_f32_perplexity"] = rel
+    if not rel <= 0.05:
+        fail(f"moe: bf16 perplexity differs from f32 by {rel:.3g} (> 5%)")
+    if "moe_paged_step_syncs" not in out:
+        fail("moe: the paged tick's synchronisations were not counted")
+    summary["moe"] = out
+
+
+def turbo_phase(long_model: str, tok: str, moe_model: str, moe_tok: str,
+                summary: dict) -> None:
+    """``inference --quant-mode turbo`` and ``turbo16`` (bf16 compute, the
+    prompt of the main path, 32 greedy steps) on the 8-layer Llama 3.1 8B
+    copy and on the MoE file: every matmul weight requantized on the card
+    (its first plane held bit for bit against the same derivation on the
+    host), K5 launched and K1/K2 never, the prefill's last logits within
+    0.15 of their RMS of the fast run's (the MoE fast run is ``moe_phase``'s
+    bf16 run), decode tok/s, and the K5 hold on the turbo model (a8 calls
+    bit for bit). ``--quant-mode turbo --weight-mode f32`` is refused
+    before anything is loaded."""
+    from dllama_tpu_torch.ops import turbo
+    from dllama_tpu_torch.runtime.weights import unpack_planes
+
+    out: dict = {}
+    derived: list = []
+
+    def check_planes(eng):
+        """The engine's first turbo plane against the host's derivation of
+        the same file bytes (turbo loads like fast: bf16 scales)."""
+        rec = eng.model_file.tensors["block_matmul_q.0"]
+        raw = torch.from_numpy(np.frombuffer(eng.model_file.raw("block_matmul_q.0"),
+                                             dtype=np.uint8).copy())
+        host = turbo.derive_turbo(unpack_planes(raw, rec.float_type, *rec.shape,
+                                                torch.bfloat16),
+                                  a8=eng.params.layers[0].wq.a8)
+        w = eng.params.layers[0].wq
+        derived.append(bool(torch.equal(host.w8, w.w8.cpu())
+                            and torch.equal(host.scale, w.scale.cpu())))
+        out.setdefault("k5_hold", []).append(k5_hold(eng, f"turbo {eng.quant_mode}")
+                                             if eng.cfg.is_moe else None)
+
+    for name, model, tk in (("llama31_8b", long_model, tok), ("qwen3_30b_a3b", moe_model,
+                                                               moe_tok)):
+        common = ["--model", model, "--tokenizer", tk, "--compute-dtype", "bf16",
+                  "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--prompt", PROMPT,
+                  "--steps", str(len(PROMPT.encode()) + 1 + TURBO_STEPS),
+                  "--temperature", "0"]
+        moe = summary.get("moe", {})
+        base = moe.get("bf16_logits") if name != "llama31_8b" else None
+        if base is None:  # the fast run the drift is held against
+            with engine_spy() as spy:
+                fast = run_cli(["inference", *common, "--quant-mode", "fast"])
+            base = spy["logits"][0]
+            out[f"{name}_fast_decode_tok_per_s"] = stat(fast.splitlines(), "Prediction",
+                                                        "tokens/s:")
+        else:
+            out[f"{name}_fast_decode_tok_per_s"] = moe["bf16"]["decode_tok_per_s"]
+        for mode in ("turbo", "turbo16"):
+            with engine_spy(on_close=check_planes) as spy:
+                zero_counts()
+                run = run_cli(["inference", *common, "--quant-mode", mode])
+                launches = read_counts()
+            lines = run.splitlines()
+            got = spy["logits"][0]
+            drift = float(np.sqrt(np.mean((got - base) ** 2)) / np.sqrt(np.mean(base ** 2)))
+            rec = dict(case="turbo", model=name, quant_mode=mode,
+                       decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
+                       prefill_tok_per_s=stat(lines, "Evaluation", "tokens/s:"),
+                       load_s=spy["load_s"], logits_drift_vs_fast=drift,
+                       drift_bound=TURBO_MODEL_DRIFT, planes_equal_host=derived[-1],
+                       launches=launches)
+            print(json.dumps(rec), flush=True)
+            summary.setdefault("bf16", {}).setdefault("launches", {})[
+                f"turbo_{name}_{mode}"] = launches
+            out[f"{name}_{mode}"] = rec
+            if f"Quant: {mode}" not in run:
+                fail(f"turbo {name} {mode}: the banner does not name the mode")
+            if not derived[-1]:
+                fail(f"turbo {name} {mode}: the derived planes differ from the host's")
+            if launches["K5"] <= 0 or launches["K1"] or launches["K2"]:
+                fail(f"turbo {name} {mode}: launches {launches} (K5 only for the matmuls)")
+            if not drift < TURBO_MODEL_DRIFT:
+                fail(f"turbo {name} {mode}: logits drift {drift:.3g} from fast >= "
+                     f"{TURBO_MODEL_DRIFT} of their RMS")
+            torch.cuda.empty_cache()
+    # refused before the load: nothing is opened, no device memory is taken
+    from dllama_tpu_torch.serve import cli
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["inference", "--model", long_model, "--tokenizer", tok, "--prompt", "x",
+                      "--steps", "8", "--quant-mode", "turbo", "--weight-mode", "f32"])
+        fail("--quant-mode turbo --weight-mode f32 was not refused")
+    except ValueError as e:
+        refusal = dict(case="turbo_refusal", message=str(e)[:120],
+                       seconds=time.perf_counter() - t0,
+                       device_bytes_taken=torch.cuda.memory_allocated() - before)
+    print(json.dumps(refusal), flush=True)
+    if "weight-mode auto" not in refusal["message"] or refusal["device_bytes_taken"]:
+        fail(f"turbo refusal: {refusal}")
+    out["refusal"] = refusal
+    print(json.dumps({k: v for k, v in out.items() if k.endswith("fast_decode_tok_per_s")}),
+          flush=True)
+    summary["turbo"] = out
+
+
 def kernels_line(cases: list, e2e: dict) -> dict:
     """One entry per kernel, case group and numerics mode: times summed
     over one layer's seven matmuls and the head (K1 at M=128, K2 at M=1 and
@@ -6141,7 +7124,11 @@ def kernels_line(cases: list, e2e: dict) -> dict:
            "K4": ("dllama_tpu_torch/csrc/paged_attention.cu",
                   "dllama_tpu/ops/paged_attention.py:49", "paged_attention"),
            "K3s": ("dllama_tpu_torch/csrc/flash_attention.cu",
-                   "dllama_tpu/ops/flash_attention.py:206", "flash_block_stats")}
+                   "dllama_tpu/ops/flash_attention.py:206", "flash_block_stats"),
+           "K5": ("dllama_tpu_torch/csrc/moe_matmul.cu",
+                  "none (no Pallas kernel: XLA einsum / ragged_dot at "
+                  "dllama_tpu/models/llama.py:215-317, dot_general at "
+                  "dllama_tpu/ops/turbo.py:152-174)", "moe_matmul (grouped expert matmul)")}
     q40 = lambda c: c["codes"] == "q40"  # noqa: E731
     q80 = lambda c: c["codes"] == "q80"  # noqa: E731
     groups = {
@@ -6197,20 +7184,31 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 *[(f" prefill T={T} on the shard's diagonal (C7: TQ {T * (HEADS // KV_HEADS)})",
                    lambda c, T=T: c["phase"] == f"prefill T={T} diagonal")
                   for T in (1024, 2048)]],
+        "K5": [(f" Q40 experts, {lbl} ({n * MOE_ACTIVE} rows)",
+                lambda c, n=n: c["decoder"] == "q" and c["tokens"] == n)
+               for lbl, n in MOE_TOKENS] + [
+               (f" turbo experts {d} ({MOE_ACTIVE} rows, gather regime)",
+                lambda c, d=d: c["decoder"] == d and "M" not in c) for d in ("a8", "a16")] + [
+               (" turbo experts pre-scaled (64 and 1024 rows, ragged regime)",
+                lambda c: c["decoder"] == "prescaled"),
+               (f" dense experts ({SLOTS * MOE_ACTIVE} rows)",
+                lambda c: c["decoder"] == "dense")] + [
+               (f" turbo {d} linear, 8B wq + w1 at M = 1, 8, 128",
+                lambda c, d=d: c["decoder"] == d and "M" in c) for d in ("a8", "a16")],
     }
     out = []
     # the e4m3-cache cases (modes f8-*) run a subset of each kernel's
     # groups; their launches are the --kv-dtype f8 paths' (``f8_*``)
-    rows = [(k, m) for k in ("K1", "K2", "K3", "K4", "K3s") for m in ATTN_MODES
+    rows = [(k, m) for k in ("K1", "K2", "K3", "K4", "K3s", "K5") for m in ATTN_MODES
             if any(c["kernel"] == k and c["mode"] == m for c in cases)]
     for kname, mode in rows:
         e2e_dtype = "bf16" if mode.endswith("fast") else "f32"
         ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
-        by_path = {p: n[kname] for p, n in e2e[e2e_dtype]["launches"].items()
+        by_path = {p: n.get(kname, 0) for p, n in e2e[e2e_dtype]["launches"].items()
                    if p.startswith("f8_") == mode.startswith("f8")}
         for suffix, pick in groups[kname]:
             sel = [c for c in ours if pick(c)]
-            if not sel and mode.startswith("f8"):
+            if not sel and (mode.startswith("f8") or kname == "K5"):
                 continue
             b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
             b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
@@ -6223,6 +7221,7 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 bound_ms=b_bytes + b_ops,
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 library_ms=(None if kname == "K4"
+                            or any(c["library_ms"] is None for c in sel)
                             else sum(c["library_ms"] for c in sel)))
             if mode.startswith("f8"):
                 # no one library call reads an e4m3 cache: the yardstick
@@ -6238,6 +7237,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
             if kname in ("K1", "K2"):
                 rec["splits"] = {c["weight"]: c["splits"] for c in sel}
                 rec["codes"] = sel[0]["codes"]
+            elif kname == "K5":
+                rec["decoder"] = sel[0]["decoder"]
+                rec["bit_equal"] = all(c["bit_equal"] for c in sel)
+                rec["splits"] = sorted({c["splits"] for c in sel})
             else:
                 rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
             rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))
@@ -6331,15 +7334,46 @@ def late_phases(names, model: str, long_model: str, tok: str, tmp: str, n_layers
         finish_audit(audit, e2e)
 
 
+def moe_and_turbo(names, long_model: str, tok: str, text: str, tmp: str, n_layers: int,
+                  e2e: dict) -> None:
+    """Slice 15's phases, each timed: the Qwen3-30B-A3B file written
+    (``n_layers`` deep), then ``moe_phase`` and ``turbo_phase``."""
+    t0 = time.perf_counter()
+    moe_model, moe_tok = write_moe_assets(tmp, n_layers)
+    print(f"⏱️ moe model write took {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, phase in (("moe", lambda: moe_phase(moe_model, moe_tok, text, n_layers, e2e)),
+                        ("turbo", lambda: turbo_phase(long_model, tok, moe_model, moe_tok,
+                                                      e2e))):
+        if name in names:
+            t0 = time.perf_counter()
+            phase()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    os.unlink(moe_model)
+
+
 def only_phases(names: list[str], n_layers: int) -> int:
-    """``--only``: the named phases of slices 12-14 on fresh assets,
-    then exit 3 (a development run is never a result)."""
+    """``--only``: the named phases of slices 12-15 on fresh assets,
+    then exit 3 (a development run is never a result). ``moe`` and
+    ``turbo`` alone need no 32-layer model."""
     e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
+    late = [n for n in names if n not in ("moe", "turbo")]
+    long_layers = min(LONG_LAYERS, n_layers)
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
-        model, tok, _ = write_assets(tmp, n_layers)
-        long_model = os.path.join(tmp, f"llama31_8b_{min(LONG_LAYERS, n_layers)}l.m")
-        write_model(long_model, min(LONG_LAYERS, n_layers))
-        late_phases(names, model, long_model, tok, tmp, n_layers, e2e)
+        if late:
+            model, tok, text = write_assets(tmp, n_layers)
+        else:
+            model, tok, text = (os.path.join(tmp, n) for n in ASSETS)
+            write_tokenizer(tok)
+            with open(text, "w", encoding="utf-8") as f:
+                f.write(PROMPT * 2)
+        long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
+        write_model(long_model, long_layers)
+        if late:
+            late_phases(late, model, long_model, tok, tmp, n_layers, e2e)
+        if len(late) < len(names):
+            moe_and_turbo(names, long_model, tok, text, tmp, long_layers, e2e)
     return 3
 
 
@@ -6354,8 +7388,8 @@ def main() -> int:
                     help="with --ab: where the synthetic model is written once and reused")
     ap.add_argument("--only", metavar="PHASES",
                     help="a development run: only these end-to-end phases (comma-separated "
-                         "from eval, numerics, hbm, fleet, kvtier, kvmigrate, audit), no "
-                         "kernel cases; prints no result line")
+                         "from eval, numerics, hbm, fleet, kvtier, kvmigrate, audit, moe, "
+                         "turbo), no kernel cases; prints no result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -6397,6 +7431,7 @@ def main() -> int:
     ragged_attention_cases(timer, cases)
     paged_cases(timer, cases)
     ring_cases(timer, cases)
+    moe_cases(timer, cases)
     e2e: dict = {"f8": {"cast": f8_cast_check()}}
     guard_cost([])
     del timer
@@ -6472,6 +7507,7 @@ def main() -> int:
             phase()
             torch.cuda.empty_cache()
             print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+        moe_and_turbo(("moe", "turbo"), long_model, tok, text, tmp, long_layers, e2e)
         late_phases(("eval", "numerics", "hbm", "fleet", "kvtier", "kvmigrate", "audit"),
                     model, long_model, tok, tmp, args.layers, e2e)
     model_parity({})

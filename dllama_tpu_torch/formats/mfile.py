@@ -1,8 +1,8 @@
 """.m model file format — header parse, tensor walker and writer.
 
-The port's own copy of the JAX package's ``formats/mfile.py`` (dense
-models, with the ``<model>.m.sums`` checksum sidecar; the sharded sub-block
-readers are not ported). Wire-compatible with the reference format (reference:
+The port's own copy of the JAX package's ``formats/mfile.py`` (dense and
+mixture-of-experts models, with the ``<model>.m.sums`` checksum sidecar;
+the sharded sub-block readers are not ported). Wire-compatible with the reference format (reference:
 src/llm.cpp:34-145 for the header parse, src/llm.cpp:499-539 for the tensor
 order, converter/writer.py:109-147 for the writer):
 
@@ -219,6 +219,9 @@ class ModelFile:
     # per-tensor crc32 from the .m.sums sidecar; None when the model has no
     # manifest (such files stay loadable, unverified)
     checksums: dict[str, int] | None = None
+    # False for an MoE file without router tensors (the reference
+    # converter's layout): it parses, but cannot run
+    has_moe_router: bool = True
     _mm: mmap.mmap | None = None
     _file: object | None = None
 
@@ -238,10 +241,20 @@ class ModelFile:
         try:
             header = parse_header(mm[:4096] if len(mm) >= 4096 else mm[:], len(mm),
                                   max_seq_len=max_seq_len, sync_type=sync_type)
-            if header.n_experts > 0:
-                raise ValueError("MoE models are not ported yet (dense FFN only)")
             mf = cls(path=path, header=header, _mm=mm, _file=f)
-            mf._walk()
+            try:
+                mf._walk()
+            except ValueError as with_router_err:
+                if header.n_experts <= 0:
+                    raise
+                try:
+                    # the reference converter's MoE layout: no router tensors
+                    mf._walk(moe_router=False)
+                except ValueError:
+                    # neither layout fits (a corrupt or truncated file):
+                    # surface the router-ful expectation
+                    raise with_router_err from None
+                mf.has_moe_router = False
             if load_checksums:
                 mf.checksums = load_manifest(path, file_size=header.file_size)
         except Exception:
@@ -265,27 +278,44 @@ class ModelFile:
         self.close()
 
     def _add(self, name: str, layer: int, shape: tuple[int, ...],
-             float_type: int, offset: int) -> int:
+             float_type: int, offset: int, expert: int | None = None) -> int:
         nb = tensor_bytes(float_type, int(np.prod(shape)))
         key = f"{name}.{layer}" if layer >= 0 else name
+        if expert is not None:
+            key = f"{key}.{expert}"
         self.tensors[key] = TensorRecord(name=name, layer=layer, shape=shape,
                                          float_type=float_type, offset=offset,
                                          n_bytes=nb)
         return nb
 
-    def _walk(self) -> None:
+    def _walk(self, moe_router: bool = True) -> None:
         h = self.header
         wt = h.weight_type
         off = h.header_size
+        self.tensors.clear()
         off += self._add("embedding", -1, (h.vocab_size, h.dim), F32, off)
         for l in range(h.n_layers):
             off += self._add("block_matmul_q", l, (h.q_dim, h.dim), wt, off)
             off += self._add("block_matmul_k", l, (h.kv_dim, h.dim), wt, off)
             off += self._add("block_matmul_v", l, (h.kv_dim, h.dim), wt, off)
             off += self._add("block_matmul_wo", l, (h.dim, h.q_dim), wt, off)
-            off += self._add("block_matmul_w1", l, (h.hidden_dim, h.dim), wt, off)
-            off += self._add("block_matmul_w2", l, (h.dim, h.hidden_dim), wt, off)
-            off += self._add("block_matmul_w3", l, (h.hidden_dim, h.dim), wt, off)
+            if h.n_experts > 0:
+                # the router (block_moe_gate, f32 [E, dim]) is the JAX
+                # package's format extension, then each expert's w3, w1, w2
+                # in the reference converter's order (convert-hf.py:73-80)
+                if moe_router:
+                    off += self._add("block_moe_gate", l, (h.n_experts, h.dim), F32, off)
+                for e in range(h.n_experts):
+                    off += self._add("block_expert_w3", l, (h.hidden_dim, h.dim), wt, off,
+                                     expert=e)
+                    off += self._add("block_expert_w1", l, (h.hidden_dim, h.dim), wt, off,
+                                     expert=e)
+                    off += self._add("block_expert_w2", l, (h.dim, h.hidden_dim), wt, off,
+                                     expert=e)
+            else:
+                off += self._add("block_matmul_w1", l, (h.hidden_dim, h.dim), wt, off)
+                off += self._add("block_matmul_w2", l, (h.dim, h.hidden_dim), wt, off)
+                off += self._add("block_matmul_w3", l, (h.hidden_dim, h.dim), wt, off)
             if h.arch_type == ArchType.QWEN3:
                 off += self._add("block_norm_q", l, (h.head_dim,), F32, off)
                 off += self._add("block_norm_k", l, (h.head_dim,), F32, off)

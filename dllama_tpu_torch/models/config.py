@@ -1,10 +1,11 @@
 """Model configuration — the runtime view of a .m header.
 
-The port's own copy of the JAX package's ``models/config.py``, cut to the
-dense single-device path: it carries everything the forward needs
-(reference: LlmHeader, src/llm.hpp:42-71) plus the execution choices that
-have no reference equivalent (compute dtype, attention and quant-matmul
-implementation, Q80 sync parity).
+The port's own copy of the JAX package's ``models/config.py`` on one
+device: it carries everything the forward needs (reference: LlmHeader,
+src/llm.hpp:42-71), the mixture-of-experts header fields, plus the
+execution choices that have no reference equivalent (compute dtype,
+attention and quant-matmul implementation, the quant mode, the MoE compute,
+Q80 sync parity).
 """
 
 from __future__ import annotations
@@ -33,6 +34,12 @@ class ModelConfig:
     rope_scaling_high_freq_factor: float = 0.0
     rope_scaling_orig_max_seq_len: int = 0
     hidden_act: HiddenAct = HiddenAct.SILU
+    n_experts: int = 0
+    n_active_experts: int = 0
+    # renormalize the selected top-k router weights to sum to 1 (HF
+    # norm_topk_prob; Mixtral, and Qwen3-MoE with norm_topk_prob true); False
+    # keeps the raw softmax probabilities
+    moe_norm_topk: bool = True
 
     # execution choices (no reference equivalent):
     compute_dtype: str = "float32"  # "float32" for parity, "bfloat16" for speed
@@ -49,6 +56,12 @@ class ModelConfig:
     # Q80 activation-sync parity: reproduce the reference's Q80 cast points
     # (llm.cpp:258-265 casts) via fake-quantization
     sync_q80: bool = False
+    # quantized-matmul numerics (--quant-mode), the config twin of the JAX
+    # package's DLLAMA_TPU_QUANT_MODE, which the port does not read: "exact"
+    # = f32 dequant and sums; "fast" = bf16 dequant and operands, f32 sums;
+    # "turbo" / "turbo16" = per-column int8 planes (ops/turbo.py, a8 / a16);
+    # "auto" = fast iff the compute dtype is bfloat16
+    quant_mode: str = "auto"
 
     @property
     def q_dim(self) -> int:
@@ -67,6 +80,10 @@ class ModelConfig:
     def uses_qk_norm(self) -> bool:
         """Qwen3 applies per-head RMS norm to q/k before rope (llm.cpp:285-309)."""
         return self.arch == ArchType.QWEN3
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     @classmethod
     def from_header(cls, h: ModelHeader, compute_dtype: str = "float32") -> "ModelConfig":
@@ -91,5 +108,8 @@ class ModelConfig:
             rope_scaling_high_freq_factor=h.rope_scaling_high_freq_factor,
             rope_scaling_orig_max_seq_len=h.rope_scaling_orig_max_seq_len,
             hidden_act=h.hidden_act,
+            n_experts=h.n_experts,
+            n_active_experts=h.n_active_experts,
+            moe_norm_topk=bool(h.moe_norm_topk),
             compute_dtype=compute_dtype,
         )

@@ -1,5 +1,5 @@
-"""Dense Llama 2/3/3.1 and Qwen3 forward (the port of the JAX package's
-``models/llama.py``, dense single-device path).
+"""Llama 2/3/3.1 and Qwen3 forward, dense and mixture-of-experts (the port
+of the JAX package's ``models/llama.py``, single-device path).
 
 The per-layer graph is the reference's (buildLlmNet, src/llm.cpp:226-443):
 [rms_norm, q/k/v matmuls, (qwen3 per-head q/k norms), rope, KV append,
@@ -7,9 +7,10 @@ causal GQA attention, wo matmul + residual] + [rms_norm, w1/w3, silu·up, w2
 matmul + residual], with the Q80 fake-quant casts at the reference's sync
 points when ``cfg.sync_q80`` is on. The JAX package scans a stacked layer
 axis inside one jitted program; here a Python loop walks a list of layers
-and each op launches eagerly. Sharding, weight offload and MoE are not
-ported. The numerics observatory's activation taps
-(:func:`forward_with_taps`, ``runtime/numerics.py``) ride the dense forward;
+and each op launches eagerly. Sharding (the expert-parallel ``shard_map`` of
+``_moe_ffn_sparse`` included) and weight offload are not ported. The
+numerics observatory's activation taps (:func:`forward_with_taps`,
+``runtime/numerics.py``) ride the dense forward;
 every single-sequence and batched step takes the tripwire's poison selector
 (:func:`_poison_logits`) and returns each row's non-finite logits count.
 On the card the engine and the paged generator replay a decode step
@@ -18,7 +19,7 @@ the counterpart of the JAX package's one jitted program per step: the steps
 here take positions as device tensors and read nothing back to the host.
 
 Kernels on this path: K1/K2 through :func:`~dllama_tpu_torch.ops.linear.linear`
-(``cfg.quant_impl``) and K3 through
+(``cfg.quant_impl``, ``cfg.quant_mode``; K5 for turbo planes) and K3 through
 :func:`~dllama_tpu_torch.ops.flash_attention.flash_attention`
 (``cfg.attn_impl``); the dense slot pool's ragged steps
 (:func:`ragged_sampled_step`, :func:`ragged_verify_step`) are :func:`forward`
@@ -35,6 +36,17 @@ the card) instead of K3. :func:`gather_kv_blocks` and
 :func:`scatter_kv_blocks` move whole pool blocks (the host KV tier's spill
 and page-in, the KV wire's export and ingest): plain tensor copies, as in the
 JAX package.
+
+Mixture of experts (Mixtral, Qwen3-MoE): a layer's FFN is the top-k router
+(:func:`_moe_router`) and the sparse expert FFN (:func:`_moe_sparse_local`)
+at the one FFN site, :func:`_attn_out_and_ffn`, so every path above runs
+MoE with no code of its own. The expert dots keep the JAX package's two
+regimes and their threshold (:data:`_MOE_GATHER_MAX_ROWS`), whose numerics
+differ: on the CPU their plain versions literally (the per-row gather and
+``einsum``; the sort and per-group loop), on the card both through K5
+(:func:`~dllama_tpu_torch.ops.moe_matmul.moe_matmul`) over rows sorted by
+expert with device-side group offsets, each regime's plane decoder, nothing
+read back.
 """
 
 from __future__ import annotations
@@ -48,8 +60,9 @@ import torch.nn.functional as F
 from ..formats.mfile import ArchType, HiddenAct
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
-from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, fake_quant_q80,
-                          linear)
+from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, dequantize_weight,
+                          fake_quant_q80, linear)
+from ..ops.moe_matmul import moe_matmul
 from ..ops.norms import rms_norm, rms_norm_per_head
 from ..ops.paged_attention import paged_attention, paged_attention_plain
 from ..parallel.ring import sp_attention
@@ -61,19 +74,27 @@ from .rope import apply_rope, build_rope_cache
 
 @dataclass
 class LayerParams:
-    """One transformer block's weights (dense ``[out, in]`` or Q40 planes)."""
+    """One transformer block's weights (dense ``[out, in]``, Q40/Q80 planes
+    or turbo planes, K-major ``[in, out]``)."""
 
     wq: Weight  # [q_dim, dim]
     wk: Weight  # [kv_dim, dim]
     wv: Weight  # [kv_dim, dim]
     wo: Weight  # [dim, q_dim]
-    w1: Weight  # [hidden_dim, dim] (gate)
-    w2: Weight  # [dim, hidden_dim] (down)
-    w3: Weight  # [hidden_dim, dim] (up)
+    w1: Weight | None  # [hidden_dim, dim] (gate; None for MoE layers)
+    w2: Weight | None  # [dim, hidden_dim] (down)
+    w3: Weight | None  # [hidden_dim, dim] (up)
     norm_att: torch.Tensor  # [dim]
     norm_ffn: torch.Tensor  # [dim]
     norm_q: torch.Tensor | None = None  # [head_dim] (qwen3)
     norm_k: torch.Tensor | None = None
+    # MoE (None for dense models): the router and the expert stacks, IN-major
+    # like the JAX package's (a stacked QuantizedWeight / TurboWeight with
+    # planes [E, in, out], or a dense tensor [E, in, out])
+    moe_gate: torch.Tensor | None = None  # [E, dim] f32
+    we1: Weight | None = None  # [E, dim, hidden_dim] (gate)
+    we2: Weight | None = None  # [E, hidden_dim, dim] (down)
+    we3: Weight | None = None  # [E, dim, hidden_dim] (up)
 
 
 @dataclass
@@ -104,6 +125,11 @@ def _hidden_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # reference gelu_F32, nn-cpu-ops.cpp:1133
 
 
+def _lin(cfg: ModelConfig, x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """:func:`linear` under the config's implementation and quant mode."""
+    return linear(x, w, impl=cfg.quant_impl, quant_mode=cfg.quant_mode)
+
+
 def _fq(cfg: ModelConfig):
     return fake_quant_q80 if cfg.sync_q80 else (lambda a: a)
 
@@ -113,11 +139,10 @@ def _attn_qkv(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
     """Attention prologue: pre-norm, QKV projections, optional qk-norm,
     rope. Returns post-rope ``q [B, T, n_heads, hd]``, ``k/v [B, T, n_kv, hd]``."""
     B, T, _ = x.shape
-    impl = cfg.quant_impl
     h = fq(rms_norm(x, lp.norm_att, cfg.norm_epsilon))
-    q = linear(h, lp.wq, impl=impl).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = linear(h, lp.wk, impl=impl).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(h, lp.wv, impl=impl).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = _lin(cfg, h, lp.wq).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = _lin(cfg, h, lp.wk).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = _lin(cfg, h, lp.wv).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     if cfg.uses_qk_norm:
         q = rms_norm_per_head(q, lp.norm_q, cfg.norm_epsilon)
         k = rms_norm_per_head(k, lp.norm_k, cfg.norm_epsilon)
@@ -154,17 +179,202 @@ def _attn_out_and_ffn(cfg: ModelConfig, x: torch.Tensor, att: torch.Tensor,
     With ``taps`` (a list) the ``attn_out`` stats (after the attention
     residual) and ``mlp_out`` stats (after the ffn residual) are appended."""
     B, T, _ = x.shape
-    impl = cfg.quant_impl
-    x = x + fq(linear(fq(att.reshape(B, T, cfg.q_dim)), lp.wo, impl=impl))
+    x = x + fq(_lin(cfg, fq(att.reshape(B, T, cfg.q_dim)), lp.wo))
     if taps is not None:
         taps.append(_tap_stat(x))
+    # the ffn half (reference ff segment, llm.cpp:369-439; MoE is new)
     h = fq(rms_norm(x, lp.norm_ffn, cfg.norm_epsilon))
-    gate = _hidden_act(cfg, linear(h, lp.w1, impl=impl))
-    up = linear(h, lp.w3, impl=impl)
-    x = x + fq(linear(fq(gate * up), lp.w2, impl=impl))
+    if cfg.is_moe:
+        x = x + fq(_moe_ffn(cfg, h, lp))
+    else:
+        gate = _hidden_act(cfg, _lin(cfg, h, lp.w1))
+        up = _lin(cfg, h, lp.w3)
+        x = x + fq(_lin(cfg, fq(gate * up), lp.w2))
     if taps is not None:
         taps.append(_tap_stat(x))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (the JAX package's models/llama.py:175-426)
+# ---------------------------------------------------------------------------
+
+# Up to this many (token, expert) rows the JAX package gathers each row's
+# expert planes (the decode regime); above it it sorts rows into ragged
+# groups. The regimes' numerics differ (turbo planes compute another
+# function in each), so the port keeps both and the threshold.
+_MOE_GATHER_MAX_ROWS = 32
+
+
+def _router_sorted(h: torch.Tensor, gate: torch.Tensor):
+    """Every expert's router probability, sorted: softmax over the f32
+    expert logits (a true f32 product: :func:`linear` runs an f32 dense
+    weight at the "highest" precision, never TF32), in ``lax.top_k``'s order
+    (descending, ties to the lower expert index: a stable descending sort).
+    Returns ``(probs [..., E] f32, idx [..., E] int64)``."""
+    logits = linear(h.float(), gate.float())
+    probs = torch.softmax(logits, dim=-1)
+    return torch.sort(probs, dim=-1, descending=True, stable=True)
+
+
+def _moe_router(cfg: ModelConfig, h: torch.Tensor, gate: torch.Tensor):
+    """Top-k routing: the k largest router probabilities
+    (:func:`_router_sorted`), then renormalized to sum to 1
+    (``cfg.moe_norm_topk``) or kept raw. Returns ``(weights [..., k] f32,
+    idx [..., k] int64)``."""
+    top, idx = _router_sorted(h, gate)
+    top, idx = top[..., :cfg.n_active_experts], idx[..., :cfg.n_active_experts]
+    if cfg.moe_norm_topk:
+        top = top / torch.sum(top, dim=-1, keepdim=True)
+    return top, idx
+
+
+def _experts_dense(we, x: torch.Tensor, rows: torch.Tensor | None = None,
+                   quant_mode: str = "auto") -> torch.Tensor:
+    """Dense ``[..., in, out]`` planes of an expert stack, optionally gathered
+    at ``rows`` along the expert axis first (the quantized planes are
+    gathered, then expanded). Q40/Q80 planes dequantize at bf16 when fast
+    (the mode, or bf16 scales), else at ``x``'s dtype; turbo planes as the
+    bf16 product ``bf16(w8) * bf16(scale)``; dense planes as they are."""
+    from ..ops.linear import _fast_mode
+    from ..ops.turbo import TurboWeight
+
+    if isinstance(we, QuantizedWeight):
+        if rows is not None:
+            we = QuantizedWeight(scales=we.scales[rows], codes=we.codes[rows], kind=we.kind)
+        fast = _fast_mode(x, quant_mode) or we.scales.dtype == torch.bfloat16
+        return dequantize_weight(we, torch.bfloat16 if fast else x.dtype)
+    if isinstance(we, TurboWeight):
+        w8 = we.w8 if rows is None else we.w8[rows]
+        scale = we.scale if rows is None else we.scale[rows]
+        return w8.to(torch.bfloat16) * scale[..., None, :].to(torch.bfloat16)
+    return we if rows is None else we[rows]
+
+
+def _expert_gather_dot(x: torch.Tensor, we, rows: torch.Tensor,
+                       quant_mode: str = "auto") -> torch.Tensor:
+    """``y[n] = x[n] @ plane(rows[n])``, the decode regime's per-row expert
+    dot, literally (the plain version: the card runs this regime through
+    K5). ``x [N, D]``; f32 ``[N, out]``. Turbo planes run their integer dot
+    (a8, exact sums) or bf16 times int8 (a16), the scale in the epilogue."""
+    from ..ops.turbo import TurboWeight, quantize_activations_a8
+
+    if isinstance(we, TurboWeight):
+        w8, scale = we.w8[rows], we.scale[rows]        # [N, D, out], [N, out]
+        if we.a8:
+            xq, sx = quantize_activations_a8(x)
+            acc = torch.einsum("nd,ndh->nh", xq.double(), w8.double())  # exact
+            return acc.float() * sx * scale
+        acc = torch.einsum("nd,ndh->nh", x.to(torch.bfloat16).float(), w8.float())
+        return acc * scale
+    w = _experts_dense(we, x, rows, quant_mode)
+    return torch.einsum("nd,ndh->nh", x.to(w.dtype).float(), w.float())
+
+
+def _moe_ffn_dense(cfg: ModelConfig, h: torch.Tensor, lp: LayerParams) -> torch.Tensor:
+    """All-experts FFN, gate-weighted: O(E) work, exact and simple — the
+    oracle the tests hold the sparse path against (the JAX package's
+    ``moe_impl="dense"``; the port has no switch to it)."""
+    weights, idx = _moe_router(cfg, h, lp.moe_gate)
+    one_hot = F.one_hot(idx, cfg.n_experts).float()                 # [B, T, k, E]
+    gates = torch.einsum("btke,btk->bte", one_hot, weights)
+    ht = h.to(getattr(torch, cfg.compute_dtype))
+
+    def mm(eq, a, b, *rest):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return torch.einsum(eq, a.to(dt), b.to(dt), *(r.to(dt) for r in rest))
+
+    we1 = _experts_dense(lp.we1, ht, quant_mode=cfg.quant_mode)
+    we2 = _experts_dense(lp.we2, ht, quant_mode=cfg.quant_mode)
+    we3 = _experts_dense(lp.we3, ht, quant_mode=cfg.quant_mode)
+    h1 = mm("btd,edh->bteh", ht, we1)
+    h3 = mm("btd,edh->bteh", ht, we3)
+    a = _hidden_act(cfg, h1) * h3
+    y = mm("bteh,ehd,bte->btd", a, we2, gates.to(ht.dtype))
+    return y.to(h.dtype)
+
+
+def _expert_decoder(we, x_dtype: torch.dtype, quant_mode: str, gather: bool):
+    """K5's plane decoder for one projection in one regime, and its ``fast``
+    flag and the dtype the regime casts the next projection's activations
+    to: the JAX package's ``_experts_dense`` / ``_expert_gather_dot`` rules
+    (Q40/Q80: bf16 dequant when fast or the activations are bf16; turbo:
+    the integer or bf16 x int8 dot in the gather regime, the pre-scaled bf16
+    planes in the ragged regime)."""
+    from ..ops.linear import fast_numerics_resolved
+    from ..ops.turbo import TurboWeight
+
+    if isinstance(we, QuantizedWeight):
+        fast = (fast_numerics_resolved("bfloat16" if x_dtype == torch.bfloat16
+                                       else "float32", quant_mode)
+                or we.scales.dtype == torch.bfloat16)
+        wdt = torch.bfloat16 if fast else x_dtype
+        return "q", wdt == torch.bfloat16, wdt
+    if isinstance(we, TurboWeight):
+        if gather:
+            return ("a8" if we.a8 else "a16"), False, torch.bfloat16
+        return "prescaled", False, torch.bfloat16
+    return "dense", False, we.dtype
+
+
+def _moe_sparse_local(cfg: ModelConfig, x: torch.Tensor, idx: torch.Tensor,
+                      weights: torch.Tensor, we1, we2, we3) -> torch.Tensor:
+    """Sparse MoE over every expert: ``x [N, D]``, ``idx/weights [N, k]``;
+    one row per (token, k), O(k) experts of work a token.
+
+    The JAX package's two regimes: at ``N * k <= 32`` rows each row gathers
+    its expert's planes (:func:`_expert_gather_dot`), above that rows are
+    sorted by expert into ragged groups. On a CPU tensor each regime runs
+    its plain version literally (the ragged one through K5's wrapper, whose
+    plain version is the per-group loop). On the card both regimes sort the
+    rows (a stable ``torch.sort``), count each expert's rows with
+    ``scatter_add_`` (``bincount`` would synchronise), take the offsets by
+    ``cumsum`` and run K5 with the regime's decoder; rows are unsorted,
+    scaled by their router weight and summed over k. Nothing is read back,
+    so the step replays as a CUDA graph."""
+    N, k = idx.shape
+    qm = cfg.quant_mode
+    flat_e = idx.reshape(N * k)
+    flat_w = weights.reshape(N * k)
+    x_rep = x[torch.arange(N * k, device=x.device) // k]  # a row per (token, k)
+    gather = N * k <= _MOE_GATHER_MAX_ROWS
+
+    if gather and x.device.type == "cpu":
+        h1 = _expert_gather_dot(x_rep, we1, flat_e, qm)
+        h3 = _expert_gather_dot(x_rep, we3, flat_e, qm)
+        a = (_hidden_act(cfg, h1) * h3).to(x.dtype)
+        y = _expert_gather_dot(a, we2, flat_e, qm)
+    else:
+        order = torch.sort(flat_e, stable=True).indices   # group rows by expert
+        counts = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x.device)
+        counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+        xs = x_rep[order]
+
+        def dot(inp, we):
+            dec, fast, _ = _expert_decoder(we, inp.dtype, qm, gather)
+            return moe_matmul(inp, we, offsets, decoder=dec, fast=fast)
+
+        h1, h3 = dot(xs, we1), dot(xs, we3)
+        # the gather regime casts the activations to x's dtype, the ragged
+        # one to the dtype of we2's dense planes
+        cast = x.dtype if gather else _expert_decoder(we2, xs.dtype, qm, gather)[2]
+        ys = dot((_hidden_act(cfg, h1) * h3).to(cast), we2)
+        y = torch.empty_like(ys).index_copy_(0, order, ys)   # unsort to [N * k]
+    y = y * flat_w[:, None]
+    return torch.sum(y.reshape(N, k, -1), dim=1).to(x.dtype)
+
+
+def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lp: LayerParams) -> torch.Tensor:
+    """Mixture-of-experts SwiGLU FFN, the sparse path (the JAX package's
+    ``moe_impl="sparse"``): O(k) experts a token. ``h [B, T, D]``."""
+    B, T, D = h.shape
+    weights, idx = _moe_router(cfg, h, lp.moe_gate)
+    dt = getattr(torch, cfg.compute_dtype)
+    x = h.to(dt).reshape(B * T, D)
+    y = _moe_sparse_local(cfg, x, idx.reshape(B * T, -1), weights.to(dt).reshape(B * T, -1),
+                          lp.we1, lp.we2, lp.we3)
+    return y.reshape(B, T, D).to(h.dtype)
 
 
 def _sp(plan) -> bool:
@@ -242,7 +452,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     final_stat = _tap_stat(x) if collect else None
     if cfg.sync_q80:  # final cast before the logits matmul (llm.cpp:445-486)
         x = fake_quant_q80(x)
-    logits = linear(x, params.logits, impl=cfg.quant_impl).float()
+    logits = _lin(cfg, x, params.logits).float()
     if collect:
         taps = {"attn_out": torch.stack(layer_taps[0::2]),
                 "mlp_out": torch.stack(layer_taps[1::2]),
@@ -520,7 +730,7 @@ def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if cfg.sync_q80:
         x = fake_quant_q80(x)
-    logits = linear(x, params.logits, impl=cfg.quant_impl).float()
+    logits = _lin(cfg, x, params.logits).float()
     return logits, pkv
 
 
@@ -638,15 +848,24 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
     dtype; the embedding is stored at the compute dtype. The JAX planes do
     not record their code range, so each weight's kind is read from its
     codes: Q80 when any code lies outside Q40's [-8, 7], else Q40 (a nibble
-    decode is exact for codes in that range). Duck-typed: nothing of the
-    JAX package is imported."""
+    decode is exact for codes in that range). MoE layers carry the router
+    and the expert stacks (``[L, E, in, out]`` leaves split per layer); a
+    leaf carrying ``w8``/``scale`` planes becomes a
+    :class:`~dllama_tpu_torch.ops.turbo.TurboWeight` with its ``a8``.
+    Duck-typed: nothing of the JAX package is imported."""
     from ..ops.linear import fast_numerics_resolved
+    from ..ops.turbo import TurboWeight
 
-    scale_dtype = (torch.bfloat16 if fast_numerics_resolved(cfg.compute_dtype)
+    scale_dtype = (torch.bfloat16 if fast_numerics_resolved(cfg.compute_dtype, cfg.quant_mode)
                    else torch.float32)
 
-    def weight(w, l=None) -> Weight:
+    def weight(w, l=None) -> Weight | None:
         pick = (lambda a: np.asarray(a)) if l is None else (lambda a: np.asarray(a)[l])
+        if w is None:
+            return None
+        if hasattr(w, "w8"):
+            return TurboWeight(_dense(pick(w.w8), device), _dense(pick(w.scale), device).float(),
+                               bool(w.a8))
         if hasattr(w, "codes"):
             codes = pick(w.codes)
             q80 = codes.size and (codes.min() < -8 or codes.max() > 7)
@@ -668,7 +887,9 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Params:
             w3=weight(lay.w3, l),
             norm_att=vec(lay.norm_att, l), norm_ffn=vec(lay.norm_ffn, l),
             norm_q=vec(lay.norm_q, l) if qwen3 else None,
-            norm_k=vec(lay.norm_k, l) if qwen3 else None)
+            norm_k=vec(lay.norm_k, l) if qwen3 else None,
+            moe_gate=vec(lay.moe_gate, l) if cfg.is_moe else None,
+            we1=weight(lay.we1, l), we2=weight(lay.we2, l), we3=weight(lay.we3, l))
         for l in range(cfg.n_layers)
     ]
     return Params(
@@ -688,40 +909,52 @@ def init_random_params(cfg: ModelConfig, seed: int = 0, scale: float = 0.02,
     and scales on ``device`` from a seeded generator (no host quantization,
     so full-width models build in seconds): Q40 codes in [-7, 7], or with
     ``codes_kind="q80"`` Q80 codes in [-127, 127]; dense weights are normal
-    draws."""
+    draws. MoE configs get a router and expert stacks ``[E, in, out]``
+    (dense ones at the compute dtype, as the loader keeps them)."""
+    from ..ops.linear import fast_numerics_resolved
+
     g = torch.Generator(device=device).manual_seed(seed)
-    fast = cfg.compute_dtype == "bfloat16"
+    fast = fast_numerics_resolved(cfg.compute_dtype, cfg.quant_mode)
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device=device) * scale
 
-    def mk(out, in_) -> Weight:
+    def mk(out, in_, n_experts=0) -> Weight:
+        lead = (n_experts,) if n_experts else ()
         if not quantized:
+            if n_experts:  # IN-major expert planes at the compute dtype
+                return rand(*lead, in_, out).to(getattr(torch, cfg.compute_dtype))
             return rand(out, in_)
         # codes in [-c, c], mean 0 like quantized zero-mean weights (a
         # uniform draw over [-8, 7] has mean -0.5, a common-mode bias that
         # each matmul multiplies by ~0.5 * scale * K and the layers compound)
         c = 127 if codes_kind == "q80" else 7
-        codes = torch.randint(-c, c + 1, (in_, out), generator=g, device=device,
+        codes = torch.randint(-c, c + 1, (*lead, in_, out), generator=g, device=device,
                               dtype=torch.int8)
         # code std is sqrt(c (c + 1) / 3), ~4.32 (Q40) or ~73.6 (Q80): scale
         # the blocks so weights keep std ~scale
-        scales = (torch.rand((in_ // 32, out), generator=g, device=device)
+        scales = (torch.rand((*lead, in_ // 32, out), generator=g, device=device)
                   * 0.5 + 0.75) * (scale / (73.6 if c == 127 else 4.32))
         return QuantizedWeight(
             scales=scales.to(torch.bfloat16 if fast else torch.float32), codes=codes,
             kind=codes_kind)
 
     qwen3 = cfg.arch == ArchType.QWEN3
+    moe, E = cfg.is_moe, cfg.n_experts
     layers = [
         LayerParams(
             wq=mk(cfg.q_dim, cfg.dim), wk=mk(cfg.kv_dim, cfg.dim),
             wv=mk(cfg.kv_dim, cfg.dim), wo=mk(cfg.dim, cfg.q_dim),
-            w1=mk(cfg.hidden_dim, cfg.dim), w2=mk(cfg.dim, cfg.hidden_dim),
-            w3=mk(cfg.hidden_dim, cfg.dim),
+            w1=None if moe else mk(cfg.hidden_dim, cfg.dim),
+            w2=None if moe else mk(cfg.dim, cfg.hidden_dim),
+            w3=None if moe else mk(cfg.hidden_dim, cfg.dim),
             norm_att=1.0 + rand(cfg.dim), norm_ffn=1.0 + rand(cfg.dim),
             norm_q=1.0 + rand(cfg.head_dim) if qwen3 else None,
-            norm_k=1.0 + rand(cfg.head_dim) if qwen3 else None)
+            norm_k=1.0 + rand(cfg.head_dim) if qwen3 else None,
+            moe_gate=rand(E, cfg.dim) if moe else None,
+            we1=mk(cfg.hidden_dim, cfg.dim, E) if moe else None,
+            we2=mk(cfg.dim, cfg.hidden_dim, E) if moe else None,
+            we3=mk(cfg.hidden_dim, cfg.dim, E) if moe else None)
         for _ in range(cfg.n_layers)
     ]
     logits = mk(cfg.vocab_size, cfg.dim)

@@ -28,7 +28,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
+SOURCES = ("quant_matmul", "flash_attention", "paged_attention", "moe_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMS = 132  # streaming multiprocessors of the H100 SXM the launch plans size grids for

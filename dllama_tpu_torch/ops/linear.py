@@ -7,12 +7,20 @@ dequantizes on the fly: on a CUDA tensor through the hand-written kernels of
 :mod:`dllama_tpu_torch.ops.quant_matmul` (K1 for prefill widths, K2 for
 decode widths), on a CPU tensor through their plain PyTorch version.
 
-Numerics follow the JAX package's exact/fast split: a float32 activation
-graph runs *exact* (f32 dequant, f32 products and sums — parity with the
-reference goldens); a bfloat16 graph (``--compute-dtype bf16``) runs *fast*
-(bf16 dequant and operands, f32 accumulation). Scales stored in bf16 were
-written by a fast-mode load and force fast numerics whatever the activation
-dtype (an "exact" f32 dequant over bf16 scales would be fake exactness).
+Numerics follow the JAX package's exact/fast split, chosen by the config's
+``quant_mode`` (``--quant-mode``; :func:`fast_numerics_resolved`): *exact*
+is f32 dequant, f32 products and sums (parity with the reference goldens;
+bf16 activations are upcast to f32, as the JAX package's tiled kernel does);
+*fast* is bf16 dequant and operands, f32 accumulation; ``auto`` is fast iff
+the activations are bfloat16 (``--compute-dtype bf16``). Scales stored in
+bf16 were written by a fast-mode load and force fast numerics whatever the
+mode (an "exact" f32 dequant over bf16 scales would be fake exactness).
+``turbo``/``turbo16`` load like fast, then every quantized plane is
+requantized to per-column int8 (:mod:`dllama_tpu_torch.ops.turbo`), and
+:func:`linear` dispatches a :class:`~dllama_tpu_torch.ops.turbo.TurboWeight`
+first. The JAX package reads the mode from ``DLLAMA_TPU_QUANT_MODE`` at each
+call; the port reads no environment variable for it: the mode is an explicit
+argument, fixed in the config when the engine is built.
 """
 
 from __future__ import annotations
@@ -56,6 +64,9 @@ class QuantizedWeight(NamedTuple):
         return self.codes.shape[-2]
 
 
+# a weight of any repr: dense, Q40/Q80 planes, or a turbo plane
+# (:class:`~dllama_tpu_torch.ops.turbo.TurboWeight`, not named here: turbo
+# imports this module)
 Weight = Union[torch.Tensor, QuantizedWeight]
 
 
@@ -66,36 +77,74 @@ def dequantize_weight(w: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
     return w.codes.to(dtype) * scales
 
 
-def fast_numerics_resolved(compute_dtype: str) -> bool:
-    """Load-time exact/fast resolution keyed on the config's compute dtype:
-    decides the stored scale dtype and the dense-vs-quantized logits head."""
+# --quant-mode values (the JAX package's DLLAMA_TPU_QUANT_MODE values)
+QUANT_MODES = ("auto", "exact", "fast", "turbo", "turbo16")
+
+
+def fast_numerics_resolved(compute_dtype: str, quant_mode: str = "auto") -> bool:
+    """The exact/fast resolution of a config (the JAX package's rule, keyed
+    on ``quant_mode`` instead of its environment variable): ``exact`` never,
+    ``fast`` and the turbo modes always (turbo loads like fast: bf16 scales
+    feed the derivation, dense head), ``auto`` iff ``compute_dtype`` is
+    bfloat16. Decides the stored scale dtype, the dense-vs-quantized logits
+    head and each matmul's numerics."""
+    if quant_mode == "exact":
+        return False
+    if quant_mode in ("fast", "turbo", "turbo16"):
+        return True
     return str(compute_dtype) == "bfloat16"
 
 
-def _fast_mode(x: torch.Tensor) -> bool:
+def turbo_mode(quant_mode: str) -> str | None:
+    """``"a8"`` / ``"a16"`` when ``quant_mode`` selects turbo numerics, else
+    None. Opt-in only: never resolved from ``auto``."""
+    return {"turbo": "a8", "turbo16": "a16"}.get(quant_mode)
+
+
+def quant_mode_label(quant_mode: str, activations_bf16: bool) -> str:
+    """The resolved mode for diagnostics (the banner): the mode itself, or
+    ``auto(fast)`` / ``auto(exact)``, by the rule :func:`linear` dispatches
+    with."""
+    if quant_mode != "auto":
+        return quant_mode
+    return f"auto({'fast' if activations_bf16 else 'exact'})"
+
+
+def _fast_mode(x: torch.Tensor, quant_mode: str = "auto") -> bool:
     """Per-call resolution from the live activation (the same rule)."""
-    return x.dtype == torch.bfloat16
+    return fast_numerics_resolved(
+        "bfloat16" if x.dtype == torch.bfloat16 else "float32", quant_mode)
 
 
-def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto") -> torch.Tensor:
-    """``y[..., out] = x[..., in] @ w.T`` with a dense or Q40 weight.
+def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto",
+           quant_mode: str = "auto") -> torch.Tensor:
+    """``y[..., out] = x[..., in] @ w.T`` with a dense, Q40/Q80 or turbo weight.
 
     Dense weights use the reference's on-disk ``[out, in]`` orientation; Q40
     planes are K-major ``[in, out]``. ``impl`` is the model config's
     ``quant_impl``: ``"auto"`` routes Q40 weights to the kernel wrapper
     (:func:`~dllama_tpu_torch.ops.quant_matmul.quant_matmul`, which runs the
     kernel on a CUDA tensor and the plain version on a CPU tensor), ``"xla"``
-    calls the plain version by name on any device.
+    calls the plain version by name on any device. ``quant_mode`` is the
+    config's (:func:`fast_numerics_resolved`); a
+    :class:`~dllama_tpu_torch.ops.turbo.TurboWeight` carries its own a8/a16
+    choice, fixed when it was derived.
     """
+    from .turbo import TurboWeight, turbo_matmul  # lazy: turbo imports this module
+
+    if isinstance(w, TurboWeight):
+        return turbo_matmul(x, w).to(x.dtype)
     if isinstance(w, QuantizedWeight):
         from .quant_matmul import quant_matmul, quant_matmul_plain
 
-        fast = _fast_mode(x) or w.scales.dtype == torch.bfloat16
+        fast = _fast_mode(x, quant_mode) or w.scales.dtype == torch.bfloat16
+        # exact numerics take f32 activations (the JAX tiled kernel's upcast)
+        xin = x if fast else x.float()
         if impl == "xla":
-            return quant_matmul_plain(x, w, fast=fast)
+            return quant_matmul_plain(xin, w, fast=fast).to(x.dtype)
         if impl != "auto":
             raise ValueError(f"quant_impl must be auto|xla, got {impl!r}")
-        return quant_matmul(x, w, fast=fast)
+        return quant_matmul(xin, w, fast=fast).to(x.dtype)
     # dense weight: a plain matrix product (cuBLAS on the card)
     w = w.to(x.dtype)
     precision = torch.get_float32_matmul_precision()

@@ -49,6 +49,18 @@ forward a token, its logits to the host and
 manifest before anything is staged on the device; a constructor that
 raises leaves no device memory behind.
 
+``quant_mode`` (``--quant-mode auto|exact|fast|turbo|turbo16``) fixes the
+quantized matmuls' numerics in the config (``ops/linear.py``). Under
+``turbo``/``turbo16`` the weights load like fast, then every Q40/Q80 plane
+is requantized to per-column int8 (``ops/turbo.py::turbo_params``, one leaf
+at a time), with the JAX engine's refusals: a dense ``weight_mode`` before
+the load, a file that loaded dense after it. The JAX engine re-reads its
+``DLLAMA_TPU_QUANT_MODE`` at every dispatch and refuses a change after the
+load; the port reads no environment variable for the mode, so the mode
+cannot change under a loaded engine and that guard has no counterpart.
+Mixture-of-experts files (Mixtral, Qwen3-MoE) run on every path: the expert
+FFN sits in the model's one FFN site.
+
 Observability (:mod:`~dllama_tpu_torch.runtime.telemetry`,
 :mod:`~dllama_tpu_torch.runtime.flightrec`,
 :mod:`~dllama_tpu_torch.runtime.watchdog`, at the JAX engine's sites): every
@@ -216,9 +228,22 @@ class InferenceEngine:
                  decode_chunk: int = 1, spec_lookup: int = 0, kv_dtype: str = "auto",
                  weight_mode: str = "auto", host_sampling: bool = False,
                  verify_weights: bool = False, numerics_taps: bool = False,
-                 numerics_failfast: bool = False, kv_host_blocks: int = 0):
+                 numerics_failfast: bool = False, kv_host_blocks: int = 0,
+                 quant_mode: str = "auto"):
+        from ..ops.linear import QUANT_MODES, turbo_mode
+
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {'|'.join(QUANT_MODES)}, "
+                             f"got {quant_mode!r}")
+        if turbo_mode(quant_mode) is not None and weight_mode != "auto":
+            # before the load: turbo requantizes the resident quantized
+            # planes, and a dense weight mode has none
+            raise ValueError(
+                f"--quant-mode turbo/turbo16 requires --weight-mode auto "
+                f"with a quantized model (got --weight-mode {weight_mode})")
+        self.quant_mode = quant_mode
         # KV cache dtype: "auto" rides the compute dtype; "f8" stores e4m3
         kv_dtypes = {"auto": getattr(torch, compute_dtype), "f32": torch.float32,
                      "bf16": torch.bfloat16, "f8": F8}
@@ -273,7 +298,8 @@ class InferenceEngine:
                                          sync_type=sync_type)
         self.cfg = replace(ModelConfig.from_header(self.model_file.header,
                                                    compute_dtype=compute_dtype),
-                           attn_impl=attn_impl, quant_impl=quant_impl)
+                           attn_impl=attn_impl, quant_impl=quant_impl,
+                           quant_mode=quant_mode)
         # the block geometry is checked before the load; the pool (built by
         # serving.PagedGenerator) holds K/V at kv_dtype, as the dense cache
         # does
@@ -348,7 +374,21 @@ class InferenceEngine:
                     raise WeightIntegrityError(
                         f"--verify-weights: {len(res['corrupt'])} of {res['tensors']} "
                         f"tensors corrupt in {model_path}: " + ", ".join(res["corrupt"]))
+            t_load = time.perf_counter()
             self.params = load_params(self.model_file, self.cfg, self.device, weight_mode)
+            if turbo_mode(quant_mode) is not None:
+                from ..ops.turbo import TurboWeight, turbo_params
+
+                self.params = turbo_params(self.params, a8=turbo_mode(quant_mode) == "a8")
+                if not isinstance(self.params.layers[0].wq, TurboWeight):
+                    raise ValueError(
+                        "--quant-mode turbo/turbo16 requires a quantized (Q40/Q80) "
+                        "model file — this one loaded dense weights, so there is "
+                        "nothing to requantize and reports would mislabel plain "
+                        "dense numerics as turbo")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.load_s = time.perf_counter() - t_load  # load (+ turbo derivation)
             self.kv = self._fresh_kv()
         except BaseException as e:
             # atomic failure: no half-built engine, and no device buffer

@@ -57,11 +57,12 @@ WARMUP_RUNS = 2
 def _wrappers() -> tuple:
     """Every kernel wrapper with a ``launches`` counter."""
     from ..ops import flash_attention as fa
+    from ..ops import moe_matmul as mm
     from ..ops import paged_attention as pa
     from ..ops import quant_matmul as qm
 
     return (qm.q40_matmul, qm.q40_gemv, fa.flash_attention, fa.flash_block_stats,
-            pa.paged_attention)
+            pa.paged_attention, mm.moe_matmul)
 
 
 def staging(t: torch.Tensor) -> torch.Tensor:
@@ -88,7 +89,11 @@ class StepGraph:
     refuses unsafe CUDA calls from every thread while it lasts, so a step
     is captured before the threads that could make them start.
     ``capture_s`` is the host time of the warm-up and the capture;
-    ``pool_bytes`` the device memory the private pool reserved."""
+    ``pool_bytes`` the device memory the private pool reserved.
+    ``StepGraph.captures`` counts the captures of the process (a serving
+    run captures its steps before it listens, and none after)."""
+
+    captures = 0
 
     def __init__(self, body: Callable[[], None], device, *,
                  prime: Callable[[], None] | None = None):
@@ -133,6 +138,7 @@ class StepGraph:
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        StepGraph.captures += 1
 
     def replay(self) -> None:
         """One step, on the current stream; no synchronisation."""

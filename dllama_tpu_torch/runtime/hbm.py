@@ -76,9 +76,13 @@ def _limit(device) -> int | None:
 
 
 def matmul_weight_count(cfg) -> int:
-    """Total matmul-plane weights (the quantized payload)."""
-    per_layer = (cfg.dim * cfg.q_dim + 2 * cfg.dim * cfg.kv_dim + cfg.q_dim * cfg.dim
-                 + 3 * cfg.dim * cfg.hidden_dim)
+    """Total matmul-plane weights (the quantized payload); an MoE layer
+    counts every expert's three projections and the router."""
+    per_layer = cfg.dim * cfg.q_dim + 2 * cfg.dim * cfg.kv_dim + cfg.q_dim * cfg.dim
+    if cfg.is_moe:
+        per_layer += 3 * cfg.dim * cfg.hidden_dim * cfg.n_experts + cfg.dim * cfg.n_experts
+    else:
+        per_layer += 3 * cfg.dim * cfg.hidden_dim
     return cfg.n_layers * per_layer + cfg.dim * cfg.vocab_size  # + lm head
 
 
@@ -89,18 +93,30 @@ def estimate_device_bytes(cfg, *, weight_repr: str, kv_dtype_bytes: int,
     ``offload`` come with the tp mesh and host offload (not ported)."""
     import torch
 
-    from ..ops.linear import fast_numerics_resolved
+    from ..ops.linear import fast_numerics_resolved, turbo_mode
     from .weights import dense_logits_wanted
 
     wbytes = _WEIGHT_BYTES[weight_repr]
     compute = getattr(cfg, "compute_dtype", "float32") or "float32"
+    mode = getattr(cfg, "quant_mode", "auto")
+    dense_head = dense_logits_wanted(fast_numerics_resolved(compute, mode))
     # the embedding is stored at the compute dtype (runtime.weights)
     emb_bytes = cfg.vocab_size * cfg.dim * getattr(torch, compute).itemsize
-    if wbytes < 2.0 and dense_logits_wanted(fast_numerics_resolved(compute)):
+    if wbytes < 2.0 and dense_head:
         # fast configs load the logits head as a dense bf16 matrix: charge
         # the difference
         emb_bytes += int(cfg.vocab_size * cfg.dim * (2.0 - wbytes))
     weights = emb_bytes + int(matmul_weight_count(cfg) * wbytes)
+    if turbo_mode(mode) is not None and wbytes < 2.0:
+        # the turbo derivation (ops/turbo.py) holds one extra derived int8
+        # leaf while its source lives, plus the dense f32 intermediate of
+        # the plane being derived: the JAX module's charge (its leaves
+        # stack the layers, so its largest leaf bounds the port's per-layer
+        # ones from above), which keeps the two estimates equal
+        dense_cols = cfg.hidden_dim if dense_head else max(cfg.hidden_dim, cfg.vocab_size)
+        largest_leaf = cfg.n_layers * cfg.dim * cfg.hidden_dim * (
+            cfg.n_experts if cfg.is_moe else 1)
+        weights += largest_leaf + 4 * cfg.dim * dense_cols
     kv = (2 * cfg.n_layers * padded_cache_len(cfg.seq_len) * cfg.kv_dim * batch
           * kv_dtype_bytes)
     need = int((weights + kv) * _MARGIN) + _FIXED_OVERHEAD

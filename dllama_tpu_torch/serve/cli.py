@@ -50,7 +50,10 @@ the KV cache along the sequence over ``N`` visible CUDA devices (ring
 attention for prefill, a flash-decoding merge for decode; ``[cpu] * N``
 under ``--device cpu``). ``--kv-dtype f8`` stores the KV cache as float8
 e4m3, ``--weight-mode f32|bf16`` loads dense dequantized weights,
-``--nbatches N`` pins the prefill chunk, ``--host-sampling`` samples on the
+``--nbatches N`` pins the prefill chunk, ``--quant-mode
+auto|exact|fast|turbo|turbo16`` picks the quantized matmuls' numerics (to
+every engine the CLI builds, ``eval``'s and ``api``'s included; the banner
+prints the resolved mode), ``--host-sampling`` samples on the
 host from downloaded logits, ``--verify-weights`` crc-checks the whole file
 before anything is staged. ``--numerics-taps`` collects per-layer
 activation stats on prefill and canary forwards, ``--numerics-failfast``
@@ -126,6 +129,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "streamed per layer during forward (not ported)")
     p.add_argument("--compute-dtype", choices=["f32", "bf16"], default="f32",
                    help="f32 = exact Q40 numerics (golden parity); bf16 = fast")
+    p.add_argument("--quant-mode",
+                   choices=["auto", "exact", "fast", "turbo", "turbo16"], default="auto",
+                   help="quantized-matmul numerics (ops/linear.py): exact = f32 dequant "
+                        "and f32 sums (golden parity); fast = bf16 dequant, bf16 "
+                        "operands, f32 sums; turbo/turbo16 = per-column int8 planes "
+                        "with the scales in the epilogue (ops/turbo.py; turbo also "
+                        "row-quantizes activations to int8 for an integer dot); auto = "
+                        "fast iff --compute-dtype bf16")
     p.add_argument("--kv-dtype", choices=["auto", "f32", "bf16", "f8"], default="auto",
                    help="KV cache dtype (auto = compute dtype). f8 "
                         "(float8_e4m3) halves bf16's cache footprint and "
@@ -420,6 +431,7 @@ def run_fleettrace(args) -> int:
 def make_engine(args) -> InferenceEngine:
     """The engine of ``args``; a model the card cannot hold exits with the
     device-memory guard's message before anything is staged."""
+    from ..ops.linear import quant_mode_label
     from ..runtime.engine import InferenceEngine
     from ..runtime.hbm import HbmBudgetError
 
@@ -435,15 +447,18 @@ def make_engine(args) -> InferenceEngine:
             spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
             weight_mode=args.weight_mode, host_sampling=args.host_sampling,
             verify_weights=args.verify_weights, numerics_taps=args.numerics_taps,
-            numerics_failfast=args.numerics_failfast, kv_host_blocks=args.kv_host_blocks)
+            numerics_failfast=args.numerics_failfast, kv_host_blocks=args.kv_host_blocks,
+            quant_mode=args.quant_mode)
     except HbmBudgetError as e:
         raise SystemExit(f"❌ {e}") from None
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
     print(f"🕸️ TP devices: 1  SP devices: {engine.sp}  PP stages: 1")
+    label = quant_mode_label(engine.quant_mode, engine.cfg.compute_dtype == "bfloat16")
     print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}  "
-          f"KV: {str(engine.kv_dtype).removeprefix('torch.')}  Weights: {engine.weight_mode}")
+          f"KV: {str(engine.kv_dtype).removeprefix('torch.')}  Weights: {engine.weight_mode}  "
+          f"Quant: {label}")
     return engine
 
 
@@ -735,7 +750,7 @@ def main(argv=None, on_listening=None) -> int:
         raise SystemExit(f"unknown or not-yet-ported flag(s): {' '.join(unknown)} "
                          f"(this package takes: --model --tokenizer --prompt --file "
                          f"--steps --temperature --topp --seed --max-seq-len "
-                         f"--buffer-float-type --compute-dtype --weight-mode "
+                         f"--buffer-float-type --compute-dtype --quant-mode --weight-mode "
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
                          f"--device --sp --decode-chunk --spec-lookup --chat-template "
                          f"--trace-out --numerics-taps --numerics-failfast; api: "

@@ -55,8 +55,9 @@ Phases, each failing loudly (non-zero exit, no result line):
    the eager launches per step (K2 + K3, K2 + K4); eager / graph / chunk-8
    tok/s, eager / graph device ms and busy share, eager / graph paged
    step wall ms, capture seconds and pool bytes per graph are printed;
-5. serving at the same width: the port's ``api --batch-slots 8
-   --kv-block-size 16`` in process on a free local port, under f32 and
+5. serving at the same width (on the 8-layer copy since slice 17): the
+   port's ``api --batch-slots 8 --kv-block-size 16`` in process on a free
+   local port, under f32 and
    bf16; 16 concurrent clients (9 share a system message, 2 SSE streams, an
    identical greedy pair whose second request admits while the first
    decodes, half sampled); every request must return 200 with tokens, the
@@ -246,12 +247,28 @@ Phases, each failing loudly (non-zero exit, no result line):
    against the host's bit for bit, the logits within 0.15 of their RMS of
    the fast run's; ``--quant-mode turbo --weight-mode f32`` refused before
    the load);
-16. the ``kernels`` JSON line, then the result line
+16. tensor parallelism (``--tp``), the shards on one card
+   (``InferenceEngine(tp=2, tp_devices=[cuda:0, cuda:0])``: the CLI's
+   ``--tp 2`` needs two visible cards). Phase 3 adds :func:`tp_cases`: K1
+   at M = 128 and K2 at M = 1 on the 8B's tp = 2 local weight shapes (wq,
+   wk, w1 and the head cut along N, wo and w2 along K), K3 (decode at depth
+   2047, a 128-token chunk) and K4 (8 ragged decode rows) over one shard's
+   16 q heads and 4 kv heads, against their plain versions. Then
+   :func:`tp_phase` on the 8-layer copy, tp = 2 against tp = 1, f32 and
+   bf16: the logits of a 128-token chunk and 8 teacher-forced decode steps
+   (f32 buffers; within 1e-4 / 5e-2 of max|logit|), the greedy 64-token
+   transcripts (the near-tie rule), ``perplexity`` over 511 tokens (f32
+   buffers within 1e-4 relative, Q80 buffers within 1e-2, f32 only), the
+   paged ``BatchScheduler`` (8 slots, block 16) over 8 requests that share
+   a system prompt (the near-tie rule); K1-K4 launches of each tp path
+   (counts set to 0 before each run), decode and prefill tok/s and device
+   ms per decode step at tp = 2 and at tp = 1 (eager), beside the card;
+17. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
-``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit,moe,turbo`` is a
-development run of the phases of slices 12-15 alone (no kernel cases, exit 3,
+``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit,moe,turbo,tp`` is a
+development run of the phases of slices 12-17 alone (no kernel cases, exit 3,
 no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
@@ -3597,6 +3614,313 @@ F8_SPECIAL = [(0.0, 0x00), (-0.0, 0x80), (448.0, 0x7E), (-448.0, 0xFE), (449.0, 
               (2.0 ** -9, 0x01), (-(2.0 ** -9), 0x81), (2.0 ** -10, 0x00),
               (3 * 2.0 ** -10, 0x02), (2.0 ** -7, 0x04), (1.0625, 0x38), (240.0, 0x77),
               (232.0, 0x76), (-232.0, 0xF6), (17.5, 0x59)]
+# ---------------------------------------------------------------------------
+# tensor parallelism: two shards on one card
+# ---------------------------------------------------------------------------
+
+TP = 2
+# the 8B's tp = 2 local weight shapes (name, K, N): row splits cut N, col
+# splits K (parallel/sharding.py)
+TP_MATMULS = [("wq", DIM, HEADS * HEAD_DIM // TP), ("wk", DIM, KV_HEADS * HEAD_DIM // TP),
+              ("wo", HEADS * HEAD_DIM // TP, DIM), ("w1", DIM, HIDDEN // TP),
+              ("w2", HIDDEN // TP, DIM), ("head", DIM, VOCAB // TP)]
+TP_LOGIT_TOL = {"f32": 1e-4, "bf16": 5e-2}   # of max|logit|, tp = 2 against tp = 1
+TP_PPL_TOL = {"f32": 1e-4, "q80": 1e-2}      # relative: the sp path's bounds
+TP_STEPS = 64          # greedy tokens of the transcripts
+TP_DECODE_STEPS = 8    # teacher-forced decode steps of the logits hold
+TP_API_REQUESTS = 8
+TP_API_TOKENS = 24
+
+
+def tp_cases(timer: Timer, results: list) -> None:
+    """K1-K4 at the local shapes a tp = 2 shard of the 8B gives them, against
+    their plain versions, exact and fast: K1 at M = 128 and K2 at M = 1 on
+    each :data:`TP_MATMULS` shape (Q40 planes), K3 decode at depth 2047 and a
+    128-token chunk at depth 0, K4 over 8 ragged decode rows at block size
+    16, both over one shard's ``HEADS / 2`` q heads and ``KV_HEADS / 2`` kv
+    heads. The records carry ``tp`` and join the kernels line in rows of
+    their own."""
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops import flash_attention as fa
+    from dllama_tpu_torch.ops import paged_attention as pa
+    from dllama_tpu_torch.ops import quant_matmul as qm
+    from dllama_tpu_torch.ops.attention import attention
+    from dllama_tpu_torch.ops.linear import dequantize_weight
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    g_cpu = torch.Generator().manual_seed(SEED + 17)
+    heads, kv_heads = HEADS // TP, KV_HEADS // TP
+    for mode in ("exact", "fast"):
+        fast = mode == "fast"
+        act = torch.bfloat16 if fast else torch.float32
+        for name, K, N in TP_MATMULS:
+            w = random_planes(K, N, fast, g)
+            wd = dequantize_weight(w, act)
+            for kname, M in (("K2", 1), ("K1", 128)):
+                fn = qm.q40_gemv if kname == "K2" else qm.q40_matmul
+                x = torch.randn((M, K), generator=g, device=DEV).to(act)
+                got = fn(x, w, fast=fast).float()
+                splits = fn.last_splits
+                path = fn.last_path if kname == "K2" else "tc" if fast else "simt"
+                want = qm.quant_matmul_plain(x, w, fast=fast).float()
+                torch.cuda.synchronize()
+                err, scale = (got - want).abs().max().item(), want.abs().max().item()
+                elt = 2 if fast else 4
+                n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
+                b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16" if fast else "f32")
+                rec = dict(case="matmul", tp=TP, kernel=kname, mode=mode, codes="q40",
+                           weight=name, M=M, K=K, N=N, splits=splits, path=path,
+                           max_abs_err=err, max_abs_ref=scale,
+                           ms=timer(lambda: fn(x, w, fast=fast)),
+                           plain_ms=timer(lambda: qm.quant_matmul_plain(x, w, fast=fast)),
+                           library_ms=timer(lambda: torch.matmul(x, wd)),
+                           bound_ms=b_ms, bound_by=b_by)
+                print(json.dumps(rec), flush=True)
+                results.append(rec)
+                if not (err <= TOL[mode] * scale) or not math.isfinite(err):
+                    fail(f"tp {kname} {mode} {name} M={M}: max|err| {err:.3g} > "
+                         f"{TOL[mode]} x max|y| {scale:.3g}")
+            del w, wd
+        kv_dt, q_dt = ATTN_MODES[mode]
+        k, v = (random_kv((1, kv_heads, MAX_SEQ, HEAD_DIM), mode, g) for _ in range(2))
+        for phase, T, pos in (("decode", 1, MAX_SEQ - 1), ("prefill", 128, 0)):
+            q = torch.randn((1, T, heads, HEAD_DIM), generator=g, device=DEV).to(q_dt)
+            positions = (pos + torch.arange(T, device=DEV))[None, :]
+            got = fa.flash_attention(q, k, v, pos, HEAD_DIM)
+            n_splits, path = fa.flash_attention.last_splits, fa.flash_attention.last_path
+            want = attention(q, k, v, positions, HEAD_DIM)
+            twin = (fa.flash_attention_tc_plain(q, k, v, pos, HEAD_DIM) if path == "tc"
+                    else None)
+            torch.cuda.synchronize()
+            qs = q.transpose(1, 2).to(k.dtype)
+            mask = torch.arange(MAX_SEQ, device=DEV)[None, :] <= positions[0][:, None]
+            visible = sum(pos + t + 1 for t in range(T))
+            n_bytes = (2 * T * heads * HEAD_DIM * q.element_size()
+                       + 2 * (pos + T) * kv_heads * HEAD_DIM * k.element_size())
+            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * heads * visible,
+                               "bf16" if path == "tc" else "f32")
+            rec = dict(case="attention", tp=TP, kernel="K3", mode=mode, phase=phase, T=T,
+                       start_pos=pos, S=MAX_SEQ, head_dim=HEAD_DIM, heads=heads,
+                       kv_heads=kv_heads, n_splits=n_splits, path=path,
+                       **out_errs(got, want, twin),
+                       ms=timer(lambda: fa.flash_attention(q, k, v, pos, HEAD_DIM)),
+                       plain_ms=timer(lambda: attention(q, k, v, positions, HEAD_DIM)),
+                       library_ms=timer(lambda: F.scaled_dot_product_attention(
+                           qs, k, v, attn_mask=mask, enable_gqa=True)),
+                       bound_ms=b_ms, bound_by=b_by)
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
+            what = f"tp K3 {mode} {phase} T={T} pos={pos}"
+            check_path(what, mode, n_splits, path)
+            hold_out(what, rec, path)
+        del k, v
+        tables, n_blocks = scrambled_tables(RAGGED, 1, BLOCK, g_cpu)
+        kp, vp = (random_kv((n_blocks, kv_heads, BLOCK, HEAD_DIM), mode, g) for _ in range(2))
+        q = torch.randn((SLOTS, 1, heads, HEAD_DIM), generator=g, device=DEV).to(q_dt)
+        positions = torch.tensor(RAGGED, device=DEV)[:, None]
+        got = pa.paged_attention(q, kp, vp, tables, positions, HEAD_DIM)
+        n_splits = pa.paged_attention.last_splits
+        want = pa.paged_attention_plain(q, kp, vp, tables, positions, HEAD_DIM)
+        torch.cuda.synchronize()
+        keys = sum(d + 1 for d in RAGGED)
+        n_bytes = (2 * keys * kv_heads * HEAD_DIM * kp.element_size()
+                   + 2 * SLOTS * heads * HEAD_DIM * q.element_size())
+        b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * heads * keys, "f32")
+        rec = dict(case="paged_attention", tp=TP, kernel="K4", mode=mode, B=SLOTS, T=1,
+                   block_size=BLOCK, positions=RAGGED, heads=heads, kv_heads=kv_heads,
+                   n_splits=n_splits, **out_errs(got, want, None),
+                   ms=timer(lambda: pa.paged_attention(q, kp, vp, tables, positions,
+                                                       HEAD_DIM)),
+                   plain_ms=timer(lambda: pa.paged_attention_plain(q, kp, vp, tables,
+                                                                   positions, HEAD_DIM)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        results.append(rec)
+        hold_out(f"tp K4 {mode} B={SLOTS}", rec, "simt")
+        del kp, vp
+    torch.cuda.empty_cache()
+
+
+def tp_engine(model: str, tok: str, dtype: str, tp: int, sync: str = "f32", **kw):
+    """An engine of the 8-layer copy at ``tp`` shards, all on ``cuda:0``."""
+    from dllama_tpu_torch.formats.quants import F32, Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    return InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ,
+                           sync_type=Q80 if sync == "q80" else F32, temperature=0.0,
+                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                           tp=tp, tp_devices=[f"{DEV}:0"] * tp if tp > 1 else None, **kw)
+
+
+def tp_logits_drift(engs: dict, ids: list[int]) -> float:
+    """Largest |tp = 2 logit - tp = 1 logit| over a 128-token chunk and
+    :data:`TP_DECODE_STEPS` decode steps fed tp = 1's greedy tokens, over
+    max|logit| (eager forwards on both sides)."""
+    for e in engs.values():
+        e.reset()
+    worst, pos, chunk = 0.0, 0, ids[:128]
+    for _ in range(1 + TP_DECODE_STEPS):
+        out = {t: e._forward(chunk, pos)[0, -len(chunk):].float() for t, e in engs.items()}
+        scale = out[1].abs().max().item()
+        worst = max(worst, (out[TP] - out[1]).abs().max().item() / scale)
+        pos += len(chunk)
+        chunk = [int(out[1][-1].argmax())]
+    return worst
+
+
+def eager_decode_ms(eng, token: int, n: int = 8) -> dict:
+    """``n`` eager greedy steps (``models.llama.greedy_steps``, the tp = 2
+    decode loop; at tp = 1 the same eager step the graph captures), after
+    one warm-up step, under ``torch.profiler``: wall and device ms per
+    step."""
+    from dllama_tpu_torch.models.llama import greedy_steps
+
+    tok = torch.tensor([token], device=DEV)
+    greedy_steps(eng.params, eng.cfg, tok, eng.pos, eng.kv, 1, eng.plan)
+    wall, kernels = _profiled(lambda: greedy_steps(eng.params, eng.cfg, tok, eng.pos + 1,
+                                                   eng.kv, n, eng.plan), n)
+    rec = _profile_rec("tp_decode", "", "step", n, wall, kernels)
+    return {k: rec[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                "device_busy_share", "kernels_per_step")}
+
+
+def tp_api(engs: dict, probe, tokenizer, dtype: str, launches: dict) -> dict:
+    """The paged ``BatchScheduler`` (8 slots, block 16) at tp = 2 and tp = 1
+    over :data:`TP_API_REQUESTS` greedy requests that share the serving
+    mix's system prompt, the first alone (its prompt blocks register) and
+    the rest together (they share them): tp = 2's transcripts against tp =
+    1's under the near-tie rule (``probe``: the margin from tp = 1's
+    single-sequence logits)."""
+    from dllama_tpu_torch.runtime.serving import BatchScheduler
+
+    prompts = [tokenizer.encode(SYSTEM + f" Question {i}: " + "river stone " * (3 * i),
+                                is_start=True) for i in range(TP_API_REQUESTS)]
+    runs, rec = {}, {}
+    for tp, eng in engs.items():
+        sched = BatchScheduler(eng, n_slots=SLOTS)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            reqs = []
+            for batch in (prompts[:1], prompts[1:]):
+                reqs += [sched.submit(p, TP_API_TOKENS, stop_on_eos=False) for p in batch]
+                for r in reqs:
+                    if not r.done.wait(timeout=600) or r.error is not None:
+                        fail(f"tp {dtype} api tp={tp}: request {r.rid} failed: {r.error}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if tp == TP:
+                launches["tp2_api"] = read_counts()
+            runs[tp] = [r.tokens for r in reqs]
+            rec[f"tp{tp}_gen_tok_per_s"] = sum(len(t) for t in runs[tp]) / wall
+            rec[f"tp{tp}_reused_tokens"] = sched.gen.reused_tokens
+        finally:
+            sched.close()
+    for p, got, want in zip(prompts, runs[TP], runs[1]):
+        hold_transcripts(f"tp api {dtype}", dtype, probe(p, got, want))
+    rec["transcripts_equal"] = sum(a == b for a, b in zip(runs[TP], runs[1]))
+    if not rec[f"tp{TP}_reused_tokens"]:
+        fail(f"tp {dtype} api: the shared system prompt was never reused")
+    return rec
+
+
+def tp_phase(model: str, tok: str, e2e: dict) -> None:
+    """Tensor parallelism on one card: the 8-layer copy at tp = 2 (shards
+    ``[cuda:0] * 2``, eager) against tp = 1, f32 and bf16 (see the module
+    docstring's phase 16). Each tp = 2 path's K1-K4 launches are counted
+    (set to 0 just before the run) into ``e2e[dtype]["launches"]`` as
+    ``tp2_inference``, ``tp2_perplexity``, ``tp2_api``."""
+    import gc
+
+    card = card_line()
+    print(f"🕸️ tp path: InferenceEngine(tp={TP}, tp_devices=[cuda:0] * {TP}) on one card "
+          f"({card})", flush=True)
+    for dtype in ("f32", "bf16"):
+        launches = e2e[dtype].setdefault("launches", {})
+        rec = dict(case="tp_path", compute_dtype=dtype, tp=TP, card=card)
+        engs = {t: tp_engine(model, tok, dtype, t, kv_block_size=BLOCK) for t in (1, TP)}
+        try:
+            tokenizer = engs[1].tokenizer
+            ids = tokenizer.encode(PROMPT * 2)
+            rec["logit_drift"] = tp_logits_drift(engs, ids)
+            if not rec["logit_drift"] <= TP_LOGIT_TOL[dtype]:
+                fail(f"tp {dtype}: logits {rec['logit_drift']:.3g} of max|logit| from "
+                     f"tp = 1's (> {TP_LOGIT_TOL[dtype]})")
+            prompt = ids[:256]
+            runs = {}
+            for t, e in engs.items():
+                e.reset()
+                zero_counts()
+                res = e.generate(prompt, TP_STEPS, stop_on_eos=False)
+                if t == TP:
+                    launches["tp2_inference"] = read_counts()
+                runs[t] = res.tokens
+                rec[f"tp{t}_prefill_tok_per_s"] = res.eval_tok_per_s
+                rec[f"tp{t}_decode_tok_per_s"] = res.pred_tok_per_s
+                rec[f"tp{t}_eager_decode"] = eager_decode_ms(e, res.tokens[-1])
+
+            def probe(p, got, want):
+                i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+                if i is None:
+                    return None
+                engs[1].reset()
+                logits, _ = engs[1].prefill(p + want[:i])
+                return dict(pos=i, got=got[i], want=want[i],
+                            margin=pick_margin(logits, got[i]))
+
+            hold_transcripts(f"tp inference {dtype}", dtype, probe(prompt, runs[TP], runs[1]))
+            rec["transcript_equal"] = runs[TP] == runs[1]
+            ppl_ids = ids[:511]
+            ppl = {}
+            for t, e in engs.items():
+                e.reset()
+                zero_counts()
+                t0 = time.perf_counter()
+                ppl[t] = e.perplexity(ppl_ids)
+                torch.cuda.synchronize()
+                if t == TP:
+                    launches["tp2_perplexity"] = read_counts()
+                rec[f"tp{t}_perplexity_tok_per_s"] = (len(ppl_ids) - 1) / (
+                    time.perf_counter() - t0)
+            rec["perplexity"] = ppl
+            rec["perplexity_rel"] = abs(ppl[TP] / ppl[1] - 1.0)
+            if dtype == "f32" and not rec["perplexity_rel"] <= TP_PPL_TOL["f32"]:
+                fail(f"tp f32 perplexity {ppl[TP]} against tp = 1's {ppl[1]}: "
+                     f"{rec['perplexity_rel']:.3g} > {TP_PPL_TOL['f32']}")
+            rec["api"] = tp_api(engs, probe, tokenizer, dtype, launches)
+        finally:
+            for e in engs.values():
+                e.close()
+            engs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        if dtype == "f32":
+            q80 = {}
+            for t in (1, TP):
+                e = tp_engine(model, tok, dtype, t, sync="q80")
+                try:
+                    q80[t] = e.perplexity(ppl_ids)
+                finally:
+                    e.close()
+            rec["q80_perplexity"] = q80
+            rec["q80_perplexity_rel"] = abs(q80[TP] / q80[1] - 1.0)
+            if not rec["q80_perplexity_rel"] <= TP_PPL_TOL["q80"]:
+                fail(f"tp Q80 perplexity {q80[TP]} against tp = 1's {q80[1]}: "
+                     f"{rec['q80_perplexity_rel']:.3g} > {TP_PPL_TOL['q80']}")
+        for path, kernels in (("tp2_inference", ("K1", "K2", "K3")),
+                              ("tp2_perplexity", ("K1", "K3")),
+                              ("tp2_api", ("K1", "K2", "K3", "K4"))):
+            if min(launches[path][k] for k in kernels) <= 0:
+                fail(f"tp {dtype} {path}: a kernel of the path never launched: "
+                     f"{launches[path]}")
+        rec["launches"] = {p: launches[p] for p in ("tp2_inference", "tp2_perplexity",
+                                                    "tp2_api")}
+        print(json.dumps(rec), flush=True)
+        e2e[dtype]["tp_path"] = rec
+        torch.cuda.empty_cache()
+
+
 def f8_cast_check() -> dict:
     """The cache write's e4m3 cast on the card (``runtime/kvcache.py::
     to_cache``): the JAX package's bits on :data:`F8_SPECIAL`, and on 10^6
@@ -3708,8 +4032,8 @@ def f8_serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
     """``api --batch-slots 8 --kv-block-size 16 --kv-dtype f8`` under bf16
     with the serving mix (:func:`serve_run`): K4 launches on the e4m3 pool,
     whose allocated tensors hold half the bytes of the bf16 run's per layer
-    and block (on the 8-layer copy since slice 14, the bf16 run at full
-    depth: both measured on their pools' tensors)."""
+    and block (both on the 8-layer copy, this run since slice 14, the bf16
+    serving run since slice 17; measured on their pools' tensors)."""
     rec, _ = serve_run(model, tok, n_layers, "bf16", ["--kv-dtype", "f8"], case="serving_f8")
     launches = rec["launches"]["api"]
     bf16 = summary["bf16"]["serving"]
@@ -7197,32 +7521,37 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 lambda c, d=d: c["decoder"] == d and "M" in c) for d in ("a8", "a16")],
     }
     out = []
+
+    def entry(kname: str, label: str, sel: list, by_path: dict) -> dict:
+        b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
+        b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
+        return dict(
+            name=f"{kname} {src[kname][2]}{label}", route="cuda",
+            source=src[kname][0], replaces=src[kname][1],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(c["max_abs_err"] for c in sel),
+            ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
+            bound_ms=b_bytes + b_ops,
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            library_ms=(None if kname == "K4"
+                        or any(c["library_ms"] is None for c in sel)
+                        else sum(c["library_ms"] for c in sel)))
+
     # the e4m3-cache cases (modes f8-*) run a subset of each kernel's
     # groups; their launches are the --kv-dtype f8 paths' (``f8_*``)
     rows = [(k, m) for k in ("K1", "K2", "K3", "K4", "K3s", "K5") for m in ATTN_MODES
-            if any(c["kernel"] == k and c["mode"] == m for c in cases)]
+            if any(c["kernel"] == k and c["mode"] == m and "tp" not in c for c in cases)]
     for kname, mode in rows:
         e2e_dtype = "bf16" if mode.endswith("fast") else "f32"
-        ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode]
+        ours = [c for c in cases if c["kernel"] == kname and c["mode"] == mode
+                and "tp" not in c]
         by_path = {p: n.get(kname, 0) for p, n in e2e[e2e_dtype]["launches"].items()
                    if p.startswith("f8_") == mode.startswith("f8")}
         for suffix, pick in groups[kname]:
             sel = [c for c in ours if pick(c)]
             if not sel and (mode.startswith("f8") or kname == "K5"):
                 continue
-            b_bytes = sum(c["bound_ms"] for c in sel if c["bound_by"] == "bytes")
-            b_ops = sum(c["bound_ms"] for c in sel if c["bound_by"] == "operations")
-            rec = dict(
-                name=f"{kname} {src[kname][2]}{suffix} [{mode}]", route="cuda",
-                source=src[kname][0], replaces=src[kname][1],
-                launches=sum(by_path.values()), launches_by_path=by_path,
-                max_abs_err=max(c["max_abs_err"] for c in sel),
-                ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
-                bound_ms=b_bytes + b_ops,
-                bound_by="bytes" if b_bytes >= b_ops else "operations",
-                library_ms=(None if kname == "K4"
-                            or any(c["library_ms"] is None for c in sel)
-                            else sum(c["library_ms"] for c in sel)))
+            rec = entry(kname, f"{suffix} [{mode}]", sel, by_path)
             if mode.startswith("f8"):
                 # no one library call reads an e4m3 cache: the yardstick
                 # upcasts it to bf16 first (two calls, as K4's gather + SDPA)
@@ -7248,6 +7577,29 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 rec["gather_sdpa_ms"] = sum(c["gather_sdpa_ms"] for c in sel)
             if kname == "K3s" and not mode.startswith("f8"):
                 rec["library_note"] = "SDPA, same block and mask: no m/l returned"
+            out.append(rec)
+    # the tp = 2 shards' local shapes (:func:`tp_cases`), launches of the tp
+    # paths alone
+    tp_labels = {"K1": " M=128, summed over the local wq wk wo w1 w2 head",
+                 "K2": " M=1, summed over the local wq wk wo w1 w2 head",
+                 "K3": f" decode T=1 @2047 + prefill T=128 @0, {HEADS // TP} q / "
+                       f"{KV_HEADS // TP} kv heads",
+                 "K4": f" decode B=8 ragged bs=16, {HEADS // TP} q / {KV_HEADS // TP} kv heads"}
+    for kname, label in tp_labels.items():
+        for mode in ("exact", "fast"):
+            sel = [c for c in cases if c.get("tp") and c["kernel"] == kname
+                   and c["mode"] == mode]
+            if not sel:
+                continue
+            launches = e2e["bf16" if mode == "fast" else "f32"]["launches"]
+            by_path = {p: n.get(kname, 0) for p, n in launches.items() if p.startswith("tp")}
+            rec = entry(kname, f" tp={TP} shard{label} [{mode}]", sel, by_path)
+            rec["tp"] = TP
+            rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))
+            if kname in ("K1", "K2"):
+                rec["splits"] = {c["weight"]: c["splits"] for c in sel}
+            else:
+                rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
             out.append(rec)
     return {"kernels": out}
 
@@ -7354,11 +7706,11 @@ def moe_and_turbo(names, long_model: str, tok: str, text: str, tmp: str, n_layer
 
 
 def only_phases(names: list[str], n_layers: int) -> int:
-    """``--only``: the named phases of slices 12-15 on fresh assets,
-    then exit 3 (a development run is never a result). ``moe`` and
-    ``turbo`` alone need no 32-layer model."""
+    """``--only``: the named phases of slices 12-17 on fresh assets,
+    then exit 3 (a development run is never a result). ``moe``, ``turbo``
+    and ``tp`` alone need no 32-layer model."""
     e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
-    late = [n for n in names if n not in ("moe", "turbo")]
+    late = [n for n in names if n not in ("moe", "turbo", "tp")]
     long_layers = min(LONG_LAYERS, n_layers)
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
         if late:
@@ -7372,7 +7724,11 @@ def only_phases(names: list[str], n_layers: int) -> int:
         write_model(long_model, long_layers)
         if late:
             late_phases(late, model, long_model, tok, tmp, n_layers, e2e)
-        if len(late) < len(names):
+        if "tp" in names:
+            t0 = time.perf_counter()
+            tp_phase(long_model, tok, e2e)
+            print(f"⏱️ tp path took {time.perf_counter() - t0:.1f} s", flush=True)
+        if {"moe", "turbo"} & set(names):
             moe_and_turbo(names, long_model, tok, text, tmp, long_layers, e2e)
     return 3
 
@@ -7389,7 +7745,7 @@ def main() -> int:
     ap.add_argument("--only", metavar="PHASES",
                     help="a development run: only these end-to-end phases (comma-separated "
                          "from eval, numerics, hbm, fleet, kvtier, kvmigrate, audit, moe, "
-                         "turbo), no kernel cases; prints no result line")
+                         "turbo, tp), no kernel cases; prints no result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -7432,14 +7788,16 @@ def main() -> int:
     paged_cases(timer, cases)
     ring_cases(timer, cases)
     moe_cases(timer, cases)
+    tp_cases(timer, cases)
     e2e: dict = {"f8": {"cast": f8_cast_check()}}
     guard_cost([])
     del timer
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
         model, tok, text = write_assets(tmp, args.layers)
-        # the 8-layer copy that the graphs phase, the paged pool's and the
-        # dense pool's spec phases and the long sp cell run on (LONG_LAYERS:
+        # the 8-layer copy that the graphs phase, the serving phase and its
+        # paged step profiles, the paged pool's and the dense pool's spec
+        # phases, the long sp cell and the later phases run on (LONG_LAYERS:
         # width is never cut)
         long_layers = min(LONG_LAYERS, args.layers)
         long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
@@ -7461,11 +7819,11 @@ def main() -> int:
                     fail(f"{dtype} {prof}: {got} tensor-core attention kernels per "
                          f"{key.rsplit('_', 1)[-1]} on the device, want {want}")
         t0 = time.perf_counter()
-        serving(model, tok, args.layers, e2e)
+        serving(long_model, tok, long_layers, e2e)
         print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         for dtype in ("f32", "bf16"):
-            prof = paged_step_profile(model, tok, dtype)
+            prof = paged_step_profile(long_model, tok, dtype)
             print(json.dumps(prof), flush=True)
             e2e[dtype]["paged_step_profile"] = prof
             torch.cuda.empty_cache()
@@ -7491,6 +7849,9 @@ def main() -> int:
         t0 = time.perf_counter()
         sp_path(long_model, tok, long_layers, e2e, long_model, long_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        tp_phase(long_model, tok, e2e)
+        print(f"⏱️ tp path took {time.perf_counter() - t0:.1f} s", flush=True)
         for name, phase in (
                 ("f8 single sequence",
                  lambda: f8_single(long_model, tok, text, long_layers, e2e)),

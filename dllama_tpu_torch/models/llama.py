@@ -7,8 +7,13 @@ causal GQA attention, wo matmul + residual] + [rms_norm, w1/w3, silu·up, w2
 matmul + residual], with the Q80 fake-quant casts at the reference's sync
 points when ``cfg.sync_q80`` is on. The JAX package scans a stacked layer
 axis inside one jitted program; here a Python loop walks a list of layers
-and each op launches eagerly. Sharding (the expert-parallel ``shard_map`` of
-``_moe_ffn_sparse`` included) and weight offload are not ported. The
+and each op launches eagerly. Tensor parallelism runs with the parameters
+of ``parallel.sharding.tp_params`` and a cache split over kv heads under a
+``tp`` plan: the matmuls through their shards
+(:class:`~dllama_tpu_torch.ops.linear.ShardedWeight`) and attention per
+shard (:func:`_tp_rows` and the sharded K3/K4 wrappers), every other op on
+the lead; the expert-parallel ``shard_map`` of ``_moe_ffn_sparse`` and weight
+offload are not ported. The
 numerics observatory's activation taps (:func:`forward_with_taps`,
 ``runtime/numerics.py``) ride the dense forward;
 every single-sequence and batched step takes the tripwire's poison selector
@@ -59,13 +64,15 @@ import torch.nn.functional as F
 
 from ..formats.mfile import ArchType, HiddenAct
 from ..ops.attention import attention
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_sharded
 from ..ops.linear import (Q40_CODES, Q80_CODES, QuantizedWeight, Weight, dequantize_weight,
                           fake_quant_q80, linear)
 from ..ops.moe_matmul import moe_matmul
 from ..ops.norms import rms_norm, rms_norm_per_head
-from ..ops.paged_attention import paged_attention, paged_attention_plain
+from ..ops.paged_attention import (paged_attention, paged_attention_plain,
+                                   paged_attention_sharded)
 from ..parallel.ring import sp_attention
+from ..parallel.sharding import kv_heads
 from ..runtime import numerics as _numerics
 from ..runtime.kvcache import cache_bits, to_cache, update_layer
 from .config import ModelConfig
@@ -381,19 +388,56 @@ def _sp(plan) -> bool:
     return plan is not None and plan.axis_size("sp") > 1
 
 
+def _tp(plan) -> bool:
+    return plan is not None and plan.axis_size("tp") > 1
+
+
+def _tp_rows(cfg: ModelConfig, k_caches: list, v_caches: list, k: torch.Tensor,
+             v: torch.Tensor):
+    """Each tp shard's ``(k cache, v cache, k rows, v rows)``: its kv heads
+    (``parallel.sharding.kv_heads``) of the new rows ``k/v [B, T, n_kv, hd]``
+    on the lead, moved to the shard's device, for the caller to append."""
+    tp = len(k_caches)
+    for j, (kc, vc) in enumerate(zip(k_caches, v_caches)):
+        hs = kv_heads(cfg, tp, j)
+        yield kc, vc, k[:, :, hs].to(kc.device), v[:, :, hs].to(kc.device)
+
+
+def _scatter_rows(k_pool: torch.Tensor, v_pool: torch.Tensor, blk: torch.Tensor,
+                  off: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write ``k/v [B, T, n_kv, hd]`` into this layer's pool cells ``(blk,
+    off)`` (``index_put_``), on the pool's device."""
+    blk, off = blk.to(k_pool.device), off.to(k_pool.device)
+    cache_bits(k_pool)[blk, :, off] = cache_bits(to_cache(k, k_pool.dtype))
+    cache_bits(v_pool)[blk, :, off] = cache_bits(to_cache(v, v_pool.dtype))
+
+
 def _layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
                 k_cache, v_cache, cos: torch.Tensor, sin: torch.Tensor,
                 start_pos, positions, plan=None, taps: list | None = None):
     """One transformer block. ``x: [B, T, dim]``; this layer's caches are
     head-major ``[B, n_kv, S, hd]`` and are written in place. Under a plan
     with ``sp > 1`` they are the per-shard lists ``[B, n_kv, S_l, hd]`` and
-    the sequence-parallel attention both appends and attends. ``taps``: see
+    the sequence-parallel attention both appends and attends. Under a plan
+    with ``tp > 1`` they are the per-shard lists ``[B, n_kv_l, S, hd]`` of a
+    cache split over kv heads: each shard appends its heads and attends its
+    q heads (K3 per shard), and the matmuls run per shard through
+    ``lp``'s :class:`~dllama_tpu_torch.ops.linear.ShardedWeight`s; every
+    other op runs on the lead, over whole activations, so the Q80 casts
+    quantize the same blocks as at tp = 1. ``taps``: see
     :func:`_attn_out_and_ffn`."""
     fq = _fq(cfg)
     q, k, v = _attn_qkv(cfg, x, lp, cos, sin, positions, fq)
     if _sp(plan):
         att = sp_attention(plan, q, k_cache, v_cache, k, v, _position_tensor(positions, q),
                            start_pos, cfg.head_dim, attn_impl=cfg.attn_impl)
+        return _attn_out_and_ffn(cfg, x, att, lp, fq, taps)
+    if _tp(plan):
+        for kc, vc, kj, vj in _tp_rows(cfg, k_cache, v_cache, k, v):
+            update_layer(kc, vc, kj, vj, start_pos)
+        att = flash_attention_sharded(
+            q, k_cache, v_cache, start_pos, cfg.head_dim,
+            None if _use_flash(cfg, q) else _position_tensor(positions, q))
         return _attn_out_and_ffn(cfg, x, att, lp, fq, taps)
     update_layer(k_cache, v_cache, k, v, start_pos)
     if _use_flash(cfg, q):
@@ -428,7 +472,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     package's ``use_plan``), ``kv`` is a
     :class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache` and
     everything but attention runs on the plan's lead device, where
-    ``params`` and ``tokens`` live.
+    ``params`` and ``tokens`` live. With a plan of ``tp > 1``, ``params``
+    comes from ``parallel.sharding.tp_params`` (or the loader under the
+    plan) and ``kv`` is a
+    :class:`~dllama_tpu_torch.runtime.kvcache.HeadShardedKVCache`: the
+    matmuls and attention run per shard, the rest on the lead.
 
     Under :func:`~dllama_tpu_torch.runtime.numerics.collecting_taps` (see
     :func:`forward_with_taps`) the return gains the taps dict as a third
@@ -661,10 +709,9 @@ def prefill_nll(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
-                      k_pool: torch.Tensor, v_pool: torch.Tensor,
-                      cos: torch.Tensor, sin: torch.Tensor,
+                      k_pool, v_pool, cos: torch.Tensor, sin: torch.Tensor,
                       positions: torch.Tensor, tables: torch.Tensor,
-                      write_lens: torch.Tensor | None = None) -> torch.Tensor:
+                      write_lens: torch.Tensor | None = None, plan=None) -> torch.Tensor:
     """One transformer block over the paged cache. ``k_pool/v_pool
     [n_blocks, n_kv, bs, hd]`` is this layer's slice of the pool, written in
     place; ``tables [B, M]`` (int64) maps each row's logical block to a
@@ -680,18 +727,26 @@ def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
     write_lens``. ``positions`` may pass the context (see
     :func:`paged_forward`): the rope rows and the block-table entry are
     read at the clamped position (XLA clamps out-of-range gathers, torch
-    raises), the attention mask takes the position itself."""
+    raises), the attention mask takes the position itself. Under a plan
+    with ``tp > 1`` the pools are the per-shard lists ``[n_blocks, n_kv_l,
+    bs, hd]`` of a pool split over kv heads: every shard scatters its heads
+    into the same cells and runs K4 on its q heads, through the one table."""
     fq = _fq(cfg)
     inside = positions.clamp(max=cos.shape[0] - 1)
     q, k, v = _attn_qkv(cfg, x, lp, cos, sin, inside, fq)
-    bs = k_pool.shape[2]
+    bs = (k_pool[0] if _tp(plan) else k_pool).shape[2]
     blk = torch.gather(tables, 1, (positions // bs).clamp_(max=tables.shape[1] - 1))  # [B, T]
     if write_lens is not None:
         lane = torch.arange(positions.shape[1], device=blk.device)[None, :]
         blk = torch.where(lane <= write_lens[:, None], blk, torch.zeros_like(blk))
     off = positions % bs
-    cache_bits(k_pool)[blk, :, off] = cache_bits(to_cache(k, k_pool.dtype))  # index_put_
-    cache_bits(v_pool)[blk, :, off] = cache_bits(to_cache(v, v_pool.dtype))
+    if _tp(plan):
+        for kp, vp, kj, vj in _tp_rows(cfg, k_pool, v_pool, k, v):
+            _scatter_rows(kp, vp, blk, off, kj, vj)
+        att = paged_attention_sharded(q, k_pool, v_pool, tables, positions, cfg.head_dim,
+                                      kernel=_use_flash(cfg, q))
+        return _attn_out_and_ffn(cfg, x, att, lp, fq)
+    _scatter_rows(k_pool, v_pool, blk, off, k, v)
     if _use_flash(cfg, q):
         att = paged_attention(q, k_pool, v_pool, tables, positions, cfg.head_dim)
     else:
@@ -701,7 +756,7 @@ def _paged_layer_step(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
 
 def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
-                  write_lens: torch.Tensor | None = None
+                  write_lens: torch.Tensor | None = None, plan=None
                   ) -> tuple[torch.Tensor, object]:
     """Full forward over the paged pool: ``tokens [B, T]`` at per-row
     ``pos_vec [B]`` through block ``tables [B, max_blocks]``. Returns
@@ -712,7 +767,8 @@ def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     past the context: their writes land in the null block and their outputs
     are never read, and :func:`_paged_layer_step` clamps the gathers they
     make as the JAX package's XLA gathers do. ``write_lens [B]``: see
-    :func:`_paged_layer_step`."""
+    :func:`_paged_layer_step`. With a ``plan`` of ``tp > 1``, ``pkv`` is a
+    :class:`~dllama_tpu_torch.runtime.kvblocks.ShardedPagedKVCache`."""
     if _numerics.taps_active():
         raise ValueError("numerics taps are unsupported on the paged KV path (taps run "
                          "on the engine's prefill and the canary)")
@@ -725,8 +781,9 @@ def paged_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if write_lens is not None:
         write_lens = write_lens.to(x.device).long()
     for l, lp in enumerate(params.layers):
-        x = _paged_layer_step(cfg, x, lp, pkv.k[l], pkv.v[l], cos, sin, positions, tables,
-                              write_lens)
+        k_l, v_l = pkv.layer(l)
+        x = _paged_layer_step(cfg, x, lp, k_l, v_l, cos, sin, positions, tables,
+                              write_lens, plan)
     x = rms_norm(x, params.final_norm, cfg.norm_epsilon)
     if cfg.sync_q80:
         x = fake_quant_q80(x)
@@ -778,7 +835,8 @@ def _nonfinite_rows(logits: torch.Tensor) -> torch.Tensor:
 
 def paged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                        pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
-                       temps, topps, coins, poison=0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                       temps, topps, coins, poison=0.0, plan=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The paged ragged decode step of continuous batching: one
     :func:`paged_forward` for every slot, then per-row on-device sampling
     (rows with ``temps <= 0`` take the argmax). Returns ``(token [B],
@@ -788,15 +846,15 @@ def paged_sampled_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     place."""
     from ..ops.sampling import sampled_token
 
-    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables)
+    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables, plan=plan)
     last = _poison_logits(logits[:, -1, :], poison)
     return sampled_token(last, temps, topps, coins), _nonfinite_rows(last)
 
 
 def paged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       pos_vec: torch.Tensor, pkv, tables: torch.Tensor,
-                      lens: torch.Tensor, temps, topps, acoins, fcoins, poison=0.0
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      lens: torch.Tensor, temps, topps, acoins, fcoins, poison=0.0,
+                      plan=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The paged speculative verify step of continuous batching: one
     :func:`paged_forward` over ``tokens [B, K+1]`` (each row: its committed
     next token and its proposer's drafts, padded past the row's ``lens
@@ -815,7 +873,8 @@ def paged_verify_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     back, and the next dispatch's writes start where they start."""
     from ..runtime.speculative import spec_decide
 
-    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables, write_lens=lens)
+    logits, _ = paged_forward(params, cfg, tokens, pos_vec, pkv, tables, write_lens=lens,
+                              plan=plan)
     logits = _poison_logits(logits, poison)
     n_acc, out = spec_decide(logits, tokens.to(logits.device).long(), lens, temps, topps,
                              acoins, fcoins)

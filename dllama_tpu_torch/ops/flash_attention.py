@@ -230,6 +230,40 @@ flash_attention.last_splits = 0
 flash_attention.last_path = ""
 
 
+def _on(t, device: torch.device):
+    """``t`` on ``device`` when it is a tensor (a start position may be an
+    int)."""
+    return t.to(device) if torch.is_tensor(t) else t
+
+
+def flash_attention_sharded(q: torch.Tensor, k_caches: list[torch.Tensor],
+                            v_caches: list[torch.Tensor], start_pos: int | torch.Tensor,
+                            head_dim: int, positions: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Tensor-parallel attention over a cache split by kv heads (the JAX
+    package's ``flash_attention_sharded``, its ``shard_map`` of the kernel):
+    shard ``j`` of ``tp = len(k_caches)`` attends q heads ``[j * H / tp, (j +
+    1) * H / tp)`` of ``q [B, T, H, D]`` (on the lead device) over its own
+    ``[B, n_kv_l, S, D]`` caches, which hold the kv heads those q heads read
+    (``parallel.sharding.kv_heads``): one :func:`flash_attention` (K3) a
+    shard at the shard's local shapes, on the shard's device. Attention is
+    independent across heads, so nothing is summed: the outputs are
+    concatenated on ``q``'s device. With ``positions [B, T]`` each shard
+    runs the plain oracle instead (the ``attn_impl`` choice of
+    ``models/llama.py::_use_flash``)."""
+    tp = len(k_caches)
+    hl = q.shape[2] // tp
+    outs = []
+    for j, (kc, vc) in enumerate(zip(k_caches, v_caches)):
+        qj = q[:, :, j * hl:(j + 1) * hl].to(kc.device)
+        if positions is None:
+            att = flash_attention(qj, kc, vc, _on(start_pos, kc.device), head_dim)
+        else:
+            att = attention(qj, kc, vc, positions.to(kc.device), head_dim)
+        outs.append(att.to(q.device))
+    return torch.cat(outs, dim=2)
+
+
 def _check_cache(what: str, device: torch.device, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.dtype not in CACHE_KINDS or v.dtype != k.dtype:
         raise ValueError(f"{what}: cache dtype {k.dtype} not supported")

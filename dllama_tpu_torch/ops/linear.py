@@ -64,10 +64,25 @@ class QuantizedWeight(NamedTuple):
         return self.codes.shape[-2]
 
 
-# a weight of any repr: dense, Q40/Q80 planes, or a turbo plane
+class ShardedWeight(NamedTuple):
+    """A matmul weight over ``tp`` shards (``parallel/sharding.py``): shard
+    ``j``'s dense matrix or planes on its device, in rank order. ``split``
+    names the axis that was cut: ``"out"`` (a row split, the reference's
+    sliceRowMatmul: wq, wk, wv, w1, w3 and the logits head; each shard
+    computes its output features, concatenated), ``"in"`` (a col split,
+    sliceColMatmul: wo and w2; each shard multiplies its input features into
+    an f32 partial, summed in rank order) or ``""`` (replicated: a dim that
+    does not divide; every shard holds the whole weight, one copy per
+    distinct device)."""
+
+    shards: tuple
+    split: str
+
+
+# a weight of any repr: dense, Q40/Q80 planes, a turbo plane
 # (:class:`~dllama_tpu_torch.ops.turbo.TurboWeight`, not named here: turbo
-# imports this module)
-Weight = Union[torch.Tensor, QuantizedWeight]
+# imports this module) or any of them over tp shards
+Weight = Union[torch.Tensor, QuantizedWeight, ShardedWeight]
 
 
 def dequantize_weight(w: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
@@ -132,6 +147,8 @@ def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto",
     """
     from .turbo import TurboWeight, turbo_matmul  # lazy: turbo imports this module
 
+    if isinstance(w, ShardedWeight):
+        return linear_sharded(x, w, impl=impl, quant_mode=quant_mode)
     if isinstance(w, TurboWeight):
         return turbo_matmul(x, w).to(x.dtype)
     if isinstance(w, QuantizedWeight):
@@ -157,6 +174,62 @@ def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto",
         return F.linear(x, w)
     finally:
         torch.set_float32_matmul_precision(precision)
+
+
+def _weight_device(w) -> torch.device:
+    return w.codes.device if isinstance(w, QuantizedWeight) else w.device
+
+
+def merge_shards(x: torch.Tensor, w: ShardedWeight, full, partial) -> torch.Tensor:
+    """The tensor-parallel product of ``x [..., K]`` (on the lead device)
+    and ``w``, merged on ``x``'s device, as the JAX package's ``shard_map``
+    merges it: ``full(xs, shard)`` is one shard's product, ``partial(xs,
+    shard)`` one shard's f32 partial of a col split. A row split runs
+    ``full`` on every shard and concatenates the outputs; a col split cuts
+    ``x``'s features to each shard's rows and sums the partials in rank
+    order (the reference's merge-add), leaving the cast to the caller; a
+    replicated weight runs ``full`` once, on the lead's copy. Each shard's
+    input goes to its device and its output comes back to ``x``'s with
+    ``.to``, which does nothing for shards on ``x``'s own device."""
+    if w.split == "":
+        return full(x, w.shards[0])
+    if w.split == "out":
+        return torch.cat([full(x.to(_weight_device(s)), s).to(x.device) for s in w.shards],
+                         dim=-1)
+    if w.split != "in":
+        raise ValueError(f"ShardedWeight.split must be out|in|'', got {w.split!r}")
+    k = x.shape[-1] // len(w.shards)
+    y = None
+    for j, s in enumerate(w.shards):
+        part = partial(x[..., j * k:(j + 1) * k].to(_weight_device(s)), s).to(x.device)
+        y = part if y is None else y + part
+    return y
+
+
+def linear_sharded(x: torch.Tensor, w: ShardedWeight, *, impl: str = "auto",
+                   quant_mode: str = "auto") -> torch.Tensor:
+    """:func:`linear` over a tensor-parallel weight (:func:`merge_shards`):
+    quantized shards through
+    :func:`~dllama_tpu_torch.ops.quant_matmul.quant_matmul_sharded` (K1 or
+    K2 once per shard at its local shapes), dense ones through the plain
+    matrix product, a col split's partials in f32 (exact products of the
+    shard's operands) and cast to ``x.dtype`` after the sum."""
+    from .turbo import TurboWeight
+
+    s0 = w.shards[0]
+    if isinstance(s0, TurboWeight):
+        raise ValueError("turbo planes are not sharded over tp yet (--quant-mode turbo "
+                         "with --tp)")
+    if isinstance(s0, QuantizedWeight):
+        from .quant_matmul import quant_matmul_sharded
+
+        if impl not in ("auto", "xla"):
+            raise ValueError(f"quant_impl must be auto|xla, got {impl!r}")
+        fast = _fast_mode(x, quant_mode) or s0.scales.dtype == torch.bfloat16
+        xin = x if fast else x.float()
+        return quant_matmul_sharded(xin, w, fast=fast, plain=impl == "xla").to(x.dtype)
+    return merge_shards(x, w, lambda xs, s: linear(xs, s),
+                        lambda xs, s: linear(xs.float(), s.float())).to(x.dtype)
 
 
 def _q80_blocks(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

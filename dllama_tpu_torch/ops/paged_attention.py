@@ -160,3 +160,28 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 paged_attention.launches = 0
 paged_attention.last_splits = 0
+
+
+def paged_attention_sharded(q: torch.Tensor, k_pools: list[torch.Tensor],
+                            v_pools: list[torch.Tensor], tables: torch.Tensor,
+                            positions: torch.Tensor, head_dim: int, *,
+                            kernel: bool = True) -> torch.Tensor:
+    """Tensor-parallel paged attention: shard ``j`` of ``tp = len(k_pools)``
+    attends q heads ``[j * H / tp, (j + 1) * H / tp)`` of ``q [B, T, H, hd]``
+    over its own pool ``[n_blocks, n_kv_l, bs, hd]`` (the kv heads those q
+    heads read), through the one set of block ``tables``: one
+    :func:`paged_attention` (K4) a shard on the shard's device, or with
+    ``kernel=False`` its plain version by name. The JAX package has no
+    sharded paged kernel (under a plan it takes the gather and the oracle,
+    ``dllama_tpu/ops/paged_attention.py:112-130``); the outputs are the same
+    function of the same heads, concatenated on ``q``'s device."""
+    fn = paged_attention if kernel else paged_attention_plain
+    tp = len(k_pools)
+    hl = q.shape[2] // tp
+    outs = []
+    for j, (kp, vp) in enumerate(zip(k_pools, v_pools)):
+        d = kp.device
+        att = fn(q[:, :, j * hl:(j + 1) * hl].to(d), kp, vp, tables.to(d), positions.to(d),
+                 head_dim)
+        outs.append(att.to(q.device))
+    return torch.cat(outs, dim=2)

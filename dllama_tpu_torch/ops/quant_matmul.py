@@ -52,7 +52,8 @@ import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
 from .cuda_build import SMS, check, load, on_card
-from .linear import Q40_CODES, Q80_CODES, QuantizedWeight, dequantize_weight
+from .linear import (Q40_CODES, Q80_CODES, QuantizedWeight, ShardedWeight, dequantize_weight,
+                     merge_shards)
 
 # widest dispatch that counts as the decode regime (the JAX package's
 # FUSED_MAX_M): single steps and short verifies take K2, wider ones K1
@@ -313,3 +314,20 @@ def quant_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Te
     if M <= FUSED_MAX_M:
         return q40_gemv(x, w, fast=fast)
     return q40_matmul(x, w, fast=fast)
+
+
+def quant_matmul_sharded(x: torch.Tensor, w: ShardedWeight, *, fast: bool,
+                         plain: bool = False) -> torch.Tensor:
+    """Tensor-parallel Q40/Q80 matmul, the counterpart of the JAX package's
+    ``quant_matmul_sharded`` (its ``shard_map`` of the Pallas kernel): K2 or
+    K1 (:func:`quant_matmul`) once per shard at the shard's local shapes, on
+    the shard's device, each launch counted on its wrapper. A row split
+    (``w.split == "out"``) concatenates the shards' outputs; a col split
+    (``"in"``) gives each shard its K rows of ``x`` and sums the shards'
+    f32 partials in rank order (fast mode multiplies bf16 operands and
+    accumulates in f32 either way); a replicated weight runs once, on the
+    lead's copy. Returns ``x.dtype`` for a row split, f32 for a col split.
+    ``plain`` runs :func:`quant_matmul_plain` by name (``quant_impl="xla"``)."""
+    mm = quant_matmul_plain if plain else quant_matmul
+    return merge_shards(x, w, lambda xs, s: mm(xs, s, fast=fast),
+                        lambda xs, s: mm(xs.float(), s, fast=fast))

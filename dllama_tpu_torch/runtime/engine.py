@@ -12,15 +12,19 @@ builds the block pool and reuses ``prefill_buckets`` and
 ``_prefill_chunk_size``). With ``sp > 1`` the KV cache is split along the
 sequence over ``sp`` devices (:class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache`)
 and attention runs sequence-parallel (:mod:`dllama_tpu_torch.parallel.ring`);
-the weights and everything else stay on the lead device.
+the weights and everything else stay on the lead device. With ``tp > 1``
+(``--tp``) every matmul weight is cut over ``tp`` shards and the cache over
+kv heads (:mod:`dllama_tpu_torch.parallel.sharding`); the shards' kernels
+launch one shard after another from this process, and the rest stays on
+the lead device.
 
 Decode at ``sp == 1`` replays the step captured as a CUDA graph on the card
 (:class:`~dllama_tpu_torch.runtime.graphs.DecodeGraph`, captured at the
 engine's first decode of each kind, greedy or sampled; on the CPU the same
 step runs on the same buffers). ``decode_chunk=K`` (``--decode-chunk``)
 decodes ``K`` tokens per dispatch with the tokens fed back on the device and
-one readback per chunk: ``K`` replays of the graph, or at ``sp > 1``, whose
-merge decode crosses shards and stays eager,
+one readback per chunk: ``K`` replays of the graph, or at ``sp > 1`` or
+``tp > 1``, whose steps cross shards and stay eager,
 :func:`~dllama_tpu_torch.models.llama.greedy_steps` /
 :func:`~dllama_tpu_torch.models.llama.sampled_steps`.
 
@@ -113,13 +117,14 @@ from ..models.config import ModelConfig
 from ..models.llama import (Params, forward, forward_with_taps, greedy_steps, prefill_nll,
                             sampled_steps, verify_step)
 from ..parallel.api import MeshPlan, default_devices, make_mesh
+from ..parallel.sharding import default_tp, validate_tp
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
 from . import failpoints, flightrec, numerics, telemetry
 from .graphs import DecodeGraph, VerifyGraph
 from .hbm import check_budget, estimate_device_bytes
 from .kvblocks import validate_block_size
-from .kvcache import F8, KVCache, ShardedKVCache, padded_cache_len
+from .kvcache import F8, HeadShardedKVCache, KVCache, ShardedKVCache, padded_cache_len
 from .speculative import NgramProposer
 from .watchdog import StepWatchdog
 from .weights import WeightIntegrityError, load_params, verify_weights as _verify_all
@@ -193,31 +198,41 @@ class GenerationResult:
         return self._rate("eval")
 
 
-def mesh_plan(device, sp: int, sp_devices=None) -> MeshPlan | None:
-    """The ``sp`` mesh of an engine (None for ``sp == 1``): ``sp_devices``,
-    or :func:`~dllama_tpu_torch.parallel.api.default_devices` —
-    ``cuda:0 .. cuda:sp-1`` on the card (fewer visible cards fail with the
-    JAX engine's "mesh … needs N devices, found M"), ``[cpu] * sp`` on the
+def mesh_plan(device, sp: int = 1, sp_devices=None, tp: int = 1,
+              tp_devices=None) -> MeshPlan | None:
+    """The ``sp`` or ``tp`` mesh of an engine (None when both are 1): the
+    named devices, or :func:`~dllama_tpu_torch.parallel.api.default_devices`
+    — ``cuda:0 .. cuda:n-1`` on the card (fewer visible cards fail with the
+    JAX engine's "mesh … needs N devices, found M"), ``[cpu] * n`` on the
     CPU. An explicit list may repeat a device (several shards on one card)
-    and must be of ``device``'s type."""
-    if sp < 1:
-        raise ValueError(f"sp must be >= 1, got {sp}")
-    if sp == 1:
+    and must be of ``device``'s type. ``sp`` and ``tp`` both above 1 raise
+    (not ported)."""
+    for name, n in (("sp", sp), ("tp", tp)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    if sp == 1 and tp == 1:
         return None
+    if sp > 1 and tp > 1:
+        raise ValueError(f"--sp {sp} together with --tp {tp} is not ported to the "
+                         f"PyTorch/CUDA package yet (one of them at a time)")
+    name, n, named = ("sp", sp, sp_devices) if sp > 1 else ("tp", tp, tp_devices)
     kind = torch.device(device).type
-    devices = (default_devices(device, sp) if sp_devices is None
-               else [torch.device(d) for d in sp_devices])
-    if len(devices) != sp or any(d.type != kind for d in devices):
-        raise ValueError(f"sp={sp} needs {sp} {kind} devices, got "
+    devices = (default_devices(device, sp, tp) if named is None
+               else [torch.device(d) for d in named])
+    if len(devices) != n or any(d.type != kind for d in devices):
+        raise ValueError(f"{name}={n} needs {n} {kind} devices, got "
                          f"{[str(d) for d in devices]}")
     for d in devices:
         resolve_device(d)
-    return make_mesh({"sp": sp}, devices)
+    return make_mesh({name: n}, devices)
+
 
 
 class InferenceEngine:
     """Owns config, parameters and KV cache: on one device, or with ``sp > 1``
-    the weights on the lead device and the cache split over ``sp``."""
+    the weights on the lead device and the cache split over ``sp``, or with
+    ``tp > 1`` the matmul weights and the cache split over ``tp`` shards
+    (``parallel/sharding.py``) and the rest on the lead."""
 
     def __init__(self, model_path: str, tokenizer_path: str | None = None, *,
                  device="cuda", max_seq_len: int = 0, sync_type: int = F32,
@@ -225,6 +240,7 @@ class InferenceEngine:
                  temperature: float = 0.0, topp: float = 0.9, seed: int = 0xB1A5,
                  attn_impl: str = "auto", quant_impl: str = "auto",
                  kv_block_size: int = 0, sp: int = 1, sp_devices=None,
+                 tp: int | None = None, tp_devices=None,
                  decode_chunk: int = 1, spec_lookup: int = 0, kv_dtype: str = "auto",
                  weight_mode: str = "auto", host_sampling: bool = False,
                  verify_weights: bool = False, numerics_taps: bool = False,
@@ -289,11 +305,6 @@ class InferenceEngine:
                 "--kv-host-blocks is the paged pool's host spill tier — "
                 "it needs --kv-block-size (block-granular KV) to have "
                 "blocks to spill")
-        # sequence parallelism (--sp, parallel/ring.py): the lead device
-        # holds the weights, the cache is split over the plan's devices
-        self.sp = int(sp)
-        self.plan = mesh_plan(device, self.sp, sp_devices)
-        self.device = self.plan.lead if self.plan else resolve_device(device)
         self.model_file = ModelFile.open(model_path, max_seq_len=max_seq_len,
                                          sync_type=sync_type)
         self.cfg = replace(ModelConfig.from_header(self.model_file.header,
@@ -305,13 +316,35 @@ class InferenceEngine:
         # does
         self.kv_dtype = kv_dtypes[kv_dtype]
         try:
+            # sequence parallelism (--sp, parallel/ring.py): the lead device
+            # holds the weights, the cache is split over the plan's devices.
+            # Tensor parallelism (--tp, parallel/sharding.py): the matmul
+            # weights and the cache split over the plan's devices; without
+            # --tp the JAX engine's rule picks the largest power of two that
+            # the visible cards and the shapes take (1 on the CPU), and 1
+            # where tp > 1 is not ported
+            self.sp = int(sp)
+            gaps = self._tp_gaps(kv_host_blocks)
+            if tp is None:
+                cards = (torch.cuda.device_count() if torch.device(device).type == "cuda"
+                         else 1)
+                tp = (len(tp_devices) if tp_devices is not None
+                      else 1 if gaps else default_tp(self.cfg, cards, self.sp))
+            self.tp = int(tp)
+            if self.tp > 1:
+                validate_tp(self.cfg, self.tp)
+                if gaps:
+                    raise ValueError(f"--tp {self.tp} does not support {', '.join(gaps)} "
+                                     f"yet (not ported to the PyTorch/CUDA package)")
+            self.plan = mesh_plan(device, self.sp, sp_devices, self.tp, tp_devices)
+            self.device = self.plan.lead if self.plan else resolve_device(device)
             if self.kv_block_size:
                 validate_block_size(self.cfg.seq_len, self.kv_block_size)
             if padded_cache_len(self.cfg.seq_len) % self.sp != 0:
                 raise ValueError(
                     f"cache rows {padded_cache_len(self.cfg.seq_len)} not "
                     f"divisible by sp={self.sp} (adjust --max-seq-len)")
-        except ValueError:
+        except (ValueError, RuntimeError):
             self.model_file.close()
             raise
         self.n_batches = min(n_batches or DEFAULT_N_BATCHES, self.cfg.seq_len)
@@ -361,7 +394,8 @@ class InferenceEngine:
             # that cannot fit is refused with a clean message, not an
             # out-of-memory error halfway through the load
             est = estimate_device_bytes(self.cfg, weight_repr=self.hbm_weight_repr,
-                                        kv_dtype_bytes=self.kv_dtype.itemsize)
+                                        kv_dtype_bytes=self.kv_dtype.itemsize,
+                                        n_shards=self.n_shards)
             self.hbm_estimate = est
             limit = check_budget(est["need_per_device"],
                                  f"model {model_path} ({weight_mode})", self.device)
@@ -375,7 +409,8 @@ class InferenceEngine:
                         f"--verify-weights: {len(res['corrupt'])} of {res['tensors']} "
                         f"tensors corrupt in {model_path}: " + ", ".join(res["corrupt"]))
             t_load = time.perf_counter()
-            self.params = load_params(self.model_file, self.cfg, self.device, weight_mode)
+            self.params = load_params(self.model_file, self.cfg, self.device, weight_mode,
+                                      self.plan if self.tp > 1 else None)
             if turbo_mode(quant_mode) is not None:
                 from ..ops.turbo import TurboWeight, turbo_params
 
@@ -404,11 +439,32 @@ class InferenceEngine:
         self._graphs: dict[bool, DecodeGraph] = {}
         self._verify_graph: VerifyGraph | None = None
 
+    def _tp_gaps(self, kv_host_blocks) -> list[str]:
+        """What runs with this engine that ``tp > 1`` does not take yet:
+        each is refused at ``--tp N`` and keeps the default tp at 1."""
+        from ..ops.linear import turbo_mode
+
+        gaps = [("--sp > 1", self.sp > 1),
+                ("MoE models (experts over tp come with ep)", self.cfg.is_moe),
+                (f"--quant-mode {self.quant_mode}", turbo_mode(self.quant_mode) is not None),
+                ("--kv-host-blocks", bool(kv_host_blocks))]
+        return [name for name, hit in gaps if hit]
+
+    @property
+    def n_shards(self) -> int:
+        """The memory guard's divisor of the weight and KV bytes: a device's
+        share of the ``tp`` shards (``[cuda:0] * tp`` holds them all: 1)."""
+        if self.tp == 1:
+            return 1
+        return self.tp // self.plan.shards_per_device
+
     def _fresh_kv(self):
         """A zeroed cache of the engine's geometry (the canary's scratch)."""
-        return (ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
-                if self.plan else
-                KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device))
+        if self.sp > 1:
+            return ShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
+        if self.tp > 1:
+            return HeadShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
+        return KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device)
 
     def note_program_bytes(self, key: str) -> None:
         """Record a program's measured device bytes for the admission guard
@@ -595,7 +651,8 @@ class InferenceEngine:
     def _run_chunk(self, token: int, start_pos: int, k: int, greedy: bool,
                    temp: float, topp: float, coins, label: str = "chunk") -> list[int]:
         """Dispatch ``k`` decode steps from ``token`` at ``start_pos``: ``k``
-        replays of the captured step at sp == 1, the eager loop at sp > 1;
+        replays of the captured step without a mesh, the eager loop at sp > 1
+        or tp > 1 (whose shards' steps are not captured yet);
         a sampled token under ``host_sampling`` (``k == 1``) is one eager
         forward whose logits the host samples. The RNG is left for
         :meth:`commit_chunk` to advance in every case. The dispatch and its
@@ -674,8 +731,8 @@ class InferenceEngine:
         return self._verify_graph
 
     def _run_verify(self, tokens: list[int], start_pos: int) -> tuple[int, list[int]]:
-        """Dispatch one verify step: a replay of the captured step at
-        sp == 1, the eager step (ring / merge attention) at sp > 1.
+        """Dispatch one verify step: a replay of the captured step without
+        a mesh, the eager step at sp > 1 (ring / merge attention) or tp > 1.
         Returns ``(n_acc, preds)``. The dispatch and its readback run under
         the watchdog's ``verify`` guard; the graph's capture before it. The
         non-finite count of the K+1 logits rows comes back with them (the

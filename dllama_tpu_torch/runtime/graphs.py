@@ -91,19 +91,22 @@ class StepGraph:
     ``capture_s`` is the host time of the warm-up and the capture;
     ``pool_bytes`` the device memory the private pool reserved.
     ``StepGraph.captures`` counts the captures of the process (a serving
-    run captures its steps before it listens, and none after)."""
+    run captures its steps before it listens, and none after). With
+    ``eager`` nothing is captured and every replay runs the body on the
+    card too: the paged steps at ``tp > 1``, whose shards' steps are not
+    captured yet."""
 
     captures = 0
 
     def __init__(self, body: Callable[[], None], device, *,
-                 prime: Callable[[], None] | None = None):
+                 prime: Callable[[], None] | None = None, eager: bool = False):
         self.body = body
         self.device = torch.device(device)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches_per_replay: dict = {}
         self.capture_s = 0.0
         self.pool_bytes = 0
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not eager:
             self._capture(prime)
 
     def _capture(self, prime) -> None:

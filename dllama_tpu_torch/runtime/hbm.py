@@ -87,10 +87,14 @@ def matmul_weight_count(cfg) -> int:
 
 
 def estimate_device_bytes(cfg, *, weight_repr: str, kv_dtype_bytes: int,
-                          batch: int = 1) -> dict:
-    """Device byte estimate. ``weight_repr`` names the on-device weight
-    representation (q40/q80/bf16/f32). The JAX module's ``n_shards`` and
-    ``offload`` come with the tp mesh and host offload (not ported)."""
+                          batch: int = 1, n_shards: int = 1) -> dict:
+    """Per-device byte estimate. ``weight_repr`` names the on-device weight
+    representation (q40/q80/bf16/f32); ``n_shards`` divides the weight and
+    KV payload (the JAX module's mesh sharding: under ``tp`` the engine
+    passes ``tp`` over the most shards one device holds, so a device is
+    charged the sum over its shards, and ``tp`` shards on one card charge
+    it the whole model). The JAX module's ``offload`` comes with host
+    offload (not ported)."""
     import torch
 
     from ..ops.linear import fast_numerics_resolved, turbo_mode
@@ -119,12 +123,12 @@ def estimate_device_bytes(cfg, *, weight_repr: str, kv_dtype_bytes: int,
         weights += largest_leaf + 4 * cfg.dim * dense_cols
     kv = (2 * cfg.n_layers * padded_cache_len(cfg.seq_len) * cfg.kv_dim * batch
           * kv_dtype_bytes)
-    need = int((weights + kv) * _MARGIN) + _FIXED_OVERHEAD
+    need = int(((weights + kv) / max(1, n_shards)) * _MARGIN) + _FIXED_OVERHEAD
     return {"weights_bytes": weights, "kv_bytes": kv, "need_per_device": need}
 
 
 def fit_batch_slots(cfg, n_slots: int, *, weight_repr: str, kv_dtype_bytes: int,
-                    device=None) -> tuple[int, dict]:
+                    device=None, n_shards: int = 1) -> tuple[int, dict]:
     """Largest slot-pool size ``<= n_slots`` whose estimate fits the
     device limit: a dense pool that would not fit shrinks instead of
     failing. Returns ``(n_fit, estimate)``; ``n_fit == 0`` when even one
@@ -134,7 +138,8 @@ def fit_batch_slots(cfg, n_slots: int, *, weight_repr: str, kv_dtype_bytes: int,
     while n >= 1:
         # +1: the engine's batch-1 cache stays allocated beside the pool
         est = estimate_device_bytes(cfg, weight_repr=weight_repr,
-                                    kv_dtype_bytes=kv_dtype_bytes, batch=n + 1)
+                                    kv_dtype_bytes=kv_dtype_bytes, batch=n + 1,
+                                    n_shards=n_shards)
         if limit is None or est["need_per_device"] <= limit:
             return n, est
         n -= 1
@@ -150,7 +155,7 @@ def estimate_block_pool_bytes(cfg, n_blocks: int, block_size: int,
 
 def fit_block_pool(cfg, n_blocks: int, *, block_size: int, min_blocks: int,
                    weight_repr: str, kv_dtype_bytes: int,
-                   device=None) -> tuple[int, dict]:
+                   device=None, n_shards: int = 1) -> tuple[int, dict]:
     """Largest paged block-pool size ``<= n_blocks`` whose estimate fits the
     device limit — the paged twin of :func:`fit_batch_slots`: blocks are the
     admission currency, so the pool shrinks block by block. The base charge
@@ -159,13 +164,14 @@ def fit_block_pool(cfg, n_blocks: int, *, block_size: int, min_blocks: int,
     block) does not fit."""
     limit = _limit(device)
     base = estimate_device_bytes(cfg, weight_repr=weight_repr, kv_dtype_bytes=kv_dtype_bytes,
-                                 batch=1)
+                                 batch=1, n_shards=n_shards)
 
     def est_for(k: int) -> dict:
         pool = estimate_block_pool_bytes(cfg, k, block_size, kv_dtype_bytes)
         est = dict(base)
         est["kv_pool_bytes"] = pool
-        est["need_per_device"] = base["need_per_device"] + int(pool * _MARGIN)
+        est["need_per_device"] = (base["need_per_device"]
+                                  + int(pool / max(1, n_shards) * _MARGIN))
         return est
 
     n = max(min_blocks, n_blocks)

@@ -114,6 +114,45 @@ class PagedKVCache(NamedTuple):
     def block_size(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def pools(self) -> list["PagedKVCache"]:
+        """The pools of the shards: this one."""
+        return [self]
+
+    def layer(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``l``'s ``[n_blocks, n_kv, block_size, hd]`` pools."""
+        return self.k[l], self.v[l]
+
+
+class ShardedPagedKVCache(NamedTuple):
+    """The block pool split over kv heads in ``tp`` shards (the JAX
+    package's ``paged_kv_sharding``): ``shards[j]`` is a
+    :class:`PagedKVCache` ``[L, n_blocks, n_kv_l, block_size, hd]`` on
+    ``devices[j]`` with the heads ``parallel.sharding.kv_heads(cfg, tp, j)``.
+    Every shard has the same blocks: one :class:`BlockPool` and one set of
+    block tables address them all, and a block copy touches each shard."""
+
+    shards: list[PagedKVCache]
+
+    @classmethod
+    def create(cls, cfg, devices, n_blocks: int, block_size: int,
+               dtype=torch.float32) -> "ShardedPagedKVCache":
+        from ..parallel.sharding import local_kv_heads
+
+        shape = (cfg.n_layers, n_blocks, local_kv_heads(cfg, len(devices)), block_size,
+                 cfg.head_dim)
+        return cls([PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=d),
+                                 v=torch.zeros(shape, dtype=dtype, device=d))
+                    for d in devices])
+
+    @property
+    def pools(self) -> list[PagedKVCache]:
+        return list(self.shards)
+
+    def layer(self, l: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """Layer ``l``'s per-shard pools."""
+        return [s.k[l] for s in self.shards], [s.v[l] for s in self.shards]
+
 
 class _ChunkBuf:
     """One host chunk buffer: the K and V planes of :data:`SPILL_BATCH`

@@ -11,6 +11,8 @@ place, which saves the copy.
 devices of a mesh (the JAX package's ``kv_cache_sharding`` with the ``seq``
 axis, ``parallel/sharding.py:126``): one such pair per shard, each holding
 ``S / sp`` rows on its own device; ``parallel/ring.py`` writes and reads it.
+:class:`HeadShardedKVCache` splits it over kv heads instead, one
+:class:`KVCache` per ``tp`` shard (the same function's ``kv_heads`` axis).
 """
 
 from __future__ import annotations
@@ -125,6 +127,33 @@ class ShardedKVCache(NamedTuple):
     def zero_(self) -> None:
         for t in (*self.k, *self.v):
             t.zero_()
+
+
+class HeadShardedKVCache(NamedTuple):
+    """The cache split over kv heads in ``tp`` shards: ``shards[j]`` is a
+    :class:`KVCache` ``[L, B, n_kv_l, S, head_dim]`` on ``devices[j]`` holding
+    the heads ``parallel.sharding.kv_heads(cfg, tp, j)`` (``n_kv_l`` is
+    ``n_kv_heads / tp``, or 1 under KV replication)."""
+
+    shards: list[KVCache]
+
+    @classmethod
+    def create(cls, cfg: "ModelConfig", devices, batch_size: int = 1,
+               dtype=torch.float32) -> "HeadShardedKVCache":
+        from ..parallel.sharding import local_kv_heads
+
+        n_kv = local_kv_heads(cfg, len(devices))
+        shape = (cfg.n_layers, batch_size, n_kv, padded_cache_len(cfg.seq_len), cfg.head_dim)
+        return cls([KVCache(k=torch.zeros(shape, dtype=dtype, device=d),
+                            v=torch.zeros(shape, dtype=dtype, device=d)) for d in devices])
+
+    def layer(self, l: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """Layer ``l``'s per-shard ``[B, n_kv_l, S, hd]`` caches."""
+        return [s.k[l] for s in self.shards], [s.v[l] for s in self.shards]
+
+    def zero_(self) -> None:
+        for s in self.shards:
+            s.zero_()
 
 
 def update_layer(k_layer: torch.Tensor, v_layer: torch.Tensor, new_k: torch.Tensor,

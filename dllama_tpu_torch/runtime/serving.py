@@ -132,7 +132,8 @@ from .hbm import (admission_check, check_budget, estimate_block_pool_bytes,
                   estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool, fit_host_pool)
 from .kvblocks import (SPILL_BATCH, BlockPool, BlockPoolExhausted, HostKVMirror, PageInError,
                        PagedKVCache, blocks_per_seq)
-from .kvcache import KVCache, cache_bits, padded_cache_len, to_cache
+from ..parallel.sharding import paged_kv_sharding
+from .kvcache import HeadShardedKVCache, KVCache, cache_bits, padded_cache_len, to_cache
 from .speculative import NgramProposer, spec_coins_consumed
 
 if TYPE_CHECKING:
@@ -347,6 +348,9 @@ class _GeneratorCore:
     and the admit and step programs. Not thread-safe by itself (the
     scheduler's loop thread owns it)."""
 
+    # the tp plan the generator's forwards take (the paged pool's at tp > 1)
+    plan = None
+
     def __init__(self, engine: "InferenceEngine", n_slots: int):
         self.eng = engine
         self.cfg = engine.cfg
@@ -512,7 +516,7 @@ class _GeneratorCore:
                 torch.tensor([padded], dtype=torch.long, device=dev),
                 torch.tensor([tgt + [0] * (len(padded) - n_valid)], dtype=torch.long,
                              device=dev),
-                adm.pos, adm.col)
+                adm.pos, adm.col, self.plan)
             vals = nll[0, :n_valid].float().cpu().numpy()
         t1 = telemetry.now_ns()
         ms = (t1 - t0) / 1e6
@@ -750,9 +754,12 @@ class BatchedGenerator(_GeneratorCore):
     token."""
 
     def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
-        if engine.plan is not None:
+        if engine.sp > 1:
             raise ValueError("the dense slot pool runs at sp = 1: --sp under api "
                              "is not ported yet")
+        if engine.tp > 1:
+            raise ValueError("the dense slot pool runs at tp = 1: --tp needs "
+                             "--kv-block-size (the paged pool) in this package")
         # the device-memory guard (runtime/hbm.py): a pool that would not fit
         # the card shrinks to the largest that does, with a warning; only a
         # pool where one slot does not fit is refused. The estimate charges
@@ -1148,7 +1155,7 @@ class PagedGenerator(_GeneratorCore):
                                        min_blocks=self.table_width + 1,
                                        weight_repr=engine.hbm_weight_repr,
                                        kv_dtype_bytes=engine.kv_dtype.itemsize,
-                                       device=engine.device)
+                                       device=engine.device, n_shards=engine.n_shards)
         if n_blocks == 0:
             check_budget(est["need_per_device"],
                          f"paged serving ({want} blocks of {block_size})", engine.device)
@@ -1171,8 +1178,14 @@ class PagedGenerator(_GeneratorCore):
                   f"budget — degrading to {n_host} (runtime/hbm.py fit_host_pool)",
                   flush=True)
         self.pool = BlockPool(n_blocks, block_size, n_host_blocks=n_host)
-        self.pkv = PagedKVCache.create(self.cfg, n_blocks, block_size,
-                                       dtype=engine.kv_dtype, device=engine.device)
+        # at tp > 1 one pool per shard, split over kv heads, under this one
+        # allocator and these tables (parallel/sharding.py); the steps run
+        # eagerly there, one shard's kernels after another's
+        self.plan = engine.plan if engine.tp > 1 else None
+        self.pkv = (paged_kv_sharding(self.plan, self.cfg, n_blocks, block_size,
+                                      dtype=engine.kv_dtype) if self.plan else
+                    PagedKVCache.create(self.cfg, n_blocks, block_size,
+                                        dtype=engine.kv_dtype, device=engine.device))
         # the one per-block size formula: the spill/page-in byte counters
         # price blocks as the host budget does
         self._block_bytes = estimate_block_pool_bytes(self.cfg, 1, block_size,
@@ -1255,16 +1268,16 @@ class PagedGenerator(_GeneratorCore):
             self._in_host, self._knobs_host = staging(inp), staging(knobs)
             # the body closes over tensors, never over self (no cycle that
             # would keep the pool alive past close() until a collection)
-            params, cfg, pkv = self.eng.params, self.cfg, self.pkv
+            params, cfg, pkv, plan = self.eng.params, self.cfg, self.pkv, self.plan
 
             def body() -> None:
                 nxt, nf = paged_sampled_step(params, cfg, inp[:, :1], inp[:, 1], pkv,
                                              inp[:, 2:], knobs[0], knobs[1], knobs[2],
-                                             knobs[3, :1])
+                                             knobs[3, :1], plan=plan)
                 out[0].copy_(nxt)
                 out[1].copy_(nf)
 
-            self._graph = StepGraph(body, dev)
+            self._graph = StepGraph(body, dev, eager=plan is not None)
         return self._graph
 
     def verify_graph(self) -> StepGraph:
@@ -1287,17 +1300,19 @@ class PagedGenerator(_GeneratorCore):
             out = self._vout = torch.zeros((W + 2, self.n_slots), dtype=torch.long,
                                            device=dev)
             self._vin_host, self._vknobs_host = staging(inp), staging(knobs)
-            params, cfg, pkv = self.eng.params, self.cfg, self.pkv  # tensors, not self
+            # tensors, not self
+            params, cfg, pkv, plan = self.eng.params, self.cfg, self.pkv, self.plan
 
             def body() -> None:
                 n_acc, toks, nf = paged_verify_step(
                     params, cfg, inp[:, :W], inp[:, W], pkv, inp[:, W + 2:], inp[:, W + 1],
-                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1], knobs[W + 2, :1])
+                    knobs[0], knobs[1], knobs[2:W + 1].t(), knobs[W + 1], knobs[W + 2, :1],
+                    plan=plan)
                 out[0].copy_(n_acc)
                 out[1].copy_(nf)
                 out[2:].copy_(toks.t())
 
-            self._verify = StepGraph(body, dev)
+            self._verify = StepGraph(body, dev, eager=plan is not None)
         return self._verify
 
     # -- slot lifecycle -----------------------------------------------------
@@ -1336,38 +1351,47 @@ class PagedGenerator(_GeneratorCore):
 
     # -- device block movement (plain torch indexing, not kernels) ----------
 
-    def _exec_take(self, bids: list[int]) -> KVCache:
+    def _exec_take(self, bids: list[int]):
         """The sequence's dense column ``[L, 1, n_kv, M * bs, hd]``: its
         blocks gathered in table order, zeros behind them (finite, and
-        position-masked)."""
-        L, _, n_kv, bs, hd = self.pkv.k.shape
-        idx = torch.tensor(bids, dtype=torch.long, device=self.eng.device)
+        position-masked); at tp > 1 one column a shard, the
+        :class:`~dllama_tpu_torch.runtime.kvcache.HeadShardedKVCache` the
+        prefill forward takes."""
+        cols = []
+        for pkv in self.pkv.pools:
+            L, _, n_kv, bs, hd = pkv.k.shape
+            idx = torch.tensor(bids, dtype=torch.long, device=pkv.k.device)
 
-        def view(pool: torch.Tensor) -> torch.Tensor:
-            bits = cache_bits(pool)
-            col = torch.zeros((L, n_kv, self.table_width, bs, hd), dtype=bits.dtype,
-                              device=pool.device)
-            col[:, :, :len(bids)] = bits[:, idx].transpose(1, 2)
-            return col.view(pool.dtype).reshape(L, 1, n_kv, self.table_width * bs, hd)
+            def view(pool: torch.Tensor) -> torch.Tensor:
+                bits = cache_bits(pool)
+                col = torch.zeros((L, n_kv, self.table_width, bs, hd), dtype=bits.dtype,
+                                  device=pool.device)
+                col[:, :, :len(bids)] = bits[:, idx].transpose(1, 2)
+                return col.view(pool.dtype).reshape(L, 1, n_kv, self.table_width * bs, hd)
 
-        return KVCache(k=view(self.pkv.k), v=view(self.pkv.v))
+            cols.append(KVCache(k=view(pkv.k), v=view(pkv.v)))
+        return HeadShardedKVCache(cols) if self.plan else cols[0]
 
-    def _exec_put(self, col: KVCache, bids: list[int], n_shared: int) -> None:
-        """Scatter the slot's OWN blocks of ``col`` back into the pool; the
-        shared prefix blocks are skipped, so a shared block is never a write
-        target."""
+    def _exec_put(self, col, bids: list[int], n_shared: int) -> None:
+        """Scatter the slot's OWN blocks of ``col`` back into the pool (every
+        shard's); the shared prefix blocks are skipped, so a shared block is
+        never a write target."""
         own = bids[n_shared:]
         if not own:
             return
-        L, _, n_kv, bs, hd = self.pkv.k.shape
-        idx = torch.tensor(own, dtype=torch.long, device=self.eng.device)
-        for pool, c in ((self.pkv.k, col.k), (self.pkv.v, col.v)):
-            blocks = c.reshape(L, n_kv, self.table_width, bs, hd)[:, :, n_shared:len(bids)]
-            cache_bits(pool)[:, idx] = cache_bits(blocks).transpose(1, 2)
+        cols = col.shards if self.plan else [col]
+        for pkv, c_kv in zip(self.pkv.pools, cols):
+            L, _, n_kv, bs, hd = pkv.k.shape
+            idx = torch.tensor(own, dtype=torch.long, device=pkv.k.device)
+            for pool, c in ((pkv.k, c_kv.k), (pkv.v, c_kv.v)):
+                blocks = c.reshape(L, n_kv, self.table_width, bs, hd)[:, :, n_shared:len(bids)]
+                cache_bits(pool)[:, idx] = cache_bits(blocks).transpose(1, 2)
 
     def _copy_block(self, src: int, dst: int) -> None:
-        for pool in (cache_bits(self.pkv.k), cache_bits(self.pkv.v)):
-            pool[:, dst] = pool[:, src]
+        """Copy-on-write: block ``src`` into ``dst``, in every shard's pool."""
+        for pkv in self.pkv.pools:
+            for pool in (cache_bits(pkv.k), cache_bits(pkv.v)):
+                pool[:, dst] = pool[:, src]
 
     # -- KV tier: spill (device->host) and page-in (host->device) -----------
 
@@ -1653,7 +1677,7 @@ class PagedGenerator(_GeneratorCore):
 
     def _exec_prefill(self, adm: _Admission, padded: list[int]) -> None:
         tokens = torch.tensor([padded], dtype=torch.long, device=self.eng.device)
-        _, adm.col = forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col)
+        _, adm.col = forward(self.eng.params, self.cfg, tokens, adm.pos, adm.col, self.plan)
 
     def continue_admit(self, adm: _Admission) -> bool:
         """One admission step: drain a page-in batch (a resumed session's
@@ -2066,7 +2090,9 @@ class BatchScheduler:
                           topp=topp, seed=seed, stop_on_eos=stop_on_eos,
                           on_token=on_token, score=score, resume_from=resume_from,
                           tenant=tenant)
-            if kv_peer and isinstance(self.gen, PagedGenerator):
+            # at tp > 1 the prefix is recomputed, the fallback of every
+            # failed migration: the KV wire is not sharded over tp yet
+            if kv_peer and isinstance(self.gen, PagedGenerator) and self.gen.plan is None:
                 req.kv_peer = kv_peer
             req.t_submit = telemetry.now_ns()
             if timeout_s is not None and timeout_s > 0:

@@ -324,11 +324,14 @@ class _Loader:
 
 
 def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
-                weight_mode: str = "auto") -> Params:
+                weight_mode: str = "auto", plan=None) -> Params:
     """Build device parameters from an open ``.m`` file. ``weight_mode``:
     ``"auto"`` keeps Q40/Q80 weights as planes, ``"f32"``/``"bf16"``
     dequantize them to dense matrices (the JAX loader's rule for the head:
-    dense bf16 under fast numerics, else the mode's dtype)."""
+    dense bf16 under fast numerics, else the mode's dtype). Under a ``plan``
+    of ``tp > 1`` (``device`` is its lead) each layer is cut into its
+    shards as soon as it is loaded (``parallel/sharding.py``), and the head
+    after it, so that no more than one whole layer is resident twice."""
     h = mf.header
     moe = h.n_experts > 0
     if moe and not mf.has_moe_router:
@@ -339,8 +342,12 @@ def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
     ld = _Loader(mf, cfg, device, weight_mode)
     head_dense = torch.bfloat16 if dense_logits_wanted(ld.fast) else None
     qwen3 = h.arch_type == ArchType.QWEN3
-    layers = [
-        LayerParams(
+    tp = plan is not None and plan.axis_size("tp") > 1
+    if tp:
+        from ..parallel.sharding import shard_layer, shard_weight
+    layers = []
+    for l in range(h.n_layers):
+        lp = LayerParams(
             wq=ld.matmul(f"block_matmul_q.{l}"), wk=ld.matmul(f"block_matmul_k.{l}"),
             wv=ld.matmul(f"block_matmul_v.{l}"), wo=ld.matmul(f"block_matmul_wo.{l}"),
             w1=None if moe else ld.matmul(f"block_matmul_w1.{l}"),
@@ -353,12 +360,12 @@ def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
             we1=ld.experts("block_expert_w1", l) if moe else None,
             we2=ld.experts("block_expert_w2", l) if moe else None,
             we3=ld.experts("block_expert_w3", l) if moe else None)
-        for l in range(h.n_layers)
-    ]
+        layers.append(shard_layer(plan, lp) if tp else lp)
+    logits = ld.matmul("final_matmul_logits", force_dense=head_dense)
     return Params(
         embedding=ld.f32("embedding", dtype=getattr(torch, cfg.compute_dtype)),
         layers=layers,
         final_norm=ld.f32("final_norm"),
-        logits=ld.matmul("final_matmul_logits", force_dense=head_dense),
+        logits=shard_weight(plan, logits, "out") if tp else logits,
         rope=rope_tables(cfg, device),
     )

@@ -932,6 +932,12 @@ def make_handler(state: ApiState | BatchedApiState):
                 self._json(404, {"error": "KV export needs batched paged serving "
                                           "(--batch-slots N with --kv-block-size)"})
                 return
+            if state.engine.tp > 1:
+                self._drain_small_body()
+                self._json(501, {"error": f"KV export at --tp {state.engine.tp} is not "
+                                          f"ported to this package yet (the KV wire "
+                                          f"carries unsharded blocks)"})
+                return
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
@@ -1102,6 +1108,9 @@ def check_role(args) -> None:
         raise SystemExit("--role tags a disaggregated replica; it needs batched paged "
                          "serving (--batch-slots N with --kv-block-size) so the KV wire "
                          "has blocks to export and import")
+    if args.role and (args.tp or 1) > 1:
+        raise SystemExit(f"--role with --tp {args.tp} is not ported to this package yet "
+                         f"(the KV wire carries unsharded blocks)")
 
 
 def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
@@ -1120,6 +1129,13 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
         raise SystemExit("api --sp N is not ported to this package yet (the single-"
                          "sequence server and the dense slot pool run at sp = 1; use "
                          "python -m dllama_tpu api)")
+    if not args.kv_block_size or args.role:
+        if (args.tp or 1) > 1:
+            raise SystemExit(f"api --tp {args.tp} needs --batch-slots N with "
+                             f"--kv-block-size B in this package (the single-sequence "
+                             f"server and the dense slot pool run at tp = 1; use python "
+                             f"-m dllama_tpu api)")
+        args.tp = 1  # the default tp stays 1 where tp > 1 is not ported
     ttype = ChatTemplateType(args.chat_template or "unknown")
     engine = make_engine(args)
     try:
@@ -1163,9 +1179,10 @@ def build_api_server(args) -> tuple[HTTPServer, ApiState | BatchedApiState]:
                       f"({gen.mirror.kind}, {gen.mirror.host_bytes / 1e9:.2f}"
                       f" GB) — cold blocks spill under pressure, resumed sessions page "
                       f"back in (dllama_kv_spill/pagein_* metrics)")
-            print("🕸️ KV migration: POST /v1/kv/export serves resident prefixes over the "
-                  "checksummed Q80 wire"
-                  + (f"; role={args.role} advertised on /readyz" if args.role else ""))
+            if engine.tp == 1:
+                print("🕸️ KV migration: POST /v1/kv/export serves resident prefixes over "
+                      "the checksummed Q80 wire"
+                      + (f"; role={args.role} advertised on /readyz" if args.role else ""))
         else:
             print(f"🕸️ dense KV slot pool: {gen.n_slots} × {engine.cfg.seq_len} rows, "
                   f"{gen.pool_bytes / 1e9:.2f} GB (cross-slot prefix reuse)"

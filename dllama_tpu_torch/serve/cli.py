@@ -48,7 +48,11 @@ per dispatch with one readback (``inference`` and the dense slot pool);
 the greedy slots of the dense one), a replayed graph too. ``--sp N`` splits
 the KV cache along the sequence over ``N`` visible CUDA devices (ring
 attention for prefill, a flash-decoding merge for decode; ``[cpu] * N``
-under ``--device cpu``). ``--kv-dtype f8`` stores the KV cache as float8
+under ``--device cpu``); ``--tp N`` splits every matmul weight and the KV
+cache's heads over ``N`` (the reference's nodes; without it the JAX rule
+picks the largest power of two of the visible cards the model takes, 1 on
+the CPU), for ``inference``, ``perplexity``, ``chat``, ``eval``'s single
+config and the paged ``api``. ``--kv-dtype f8`` stores the KV cache as float8
 e4m3, ``--weight-mode f32|bf16`` loads dense dequantized weights,
 ``--nbatches N`` pins the prefill chunk, ``--quant-mode
 auto|exact|fast|turbo|turbo16`` picks the quantized matmuls' numerics (to
@@ -60,7 +64,9 @@ activation stats on prefill and canary forwards, ``--numerics-failfast``
 fails a request whose decode logits turn non-finite (the tripwire always
 counts them), and ``api --canary-interval SEC`` replays a fixed-seed canary
 prompt against its golden. Modes and flags of the JAX CLI that are not
-ported yet fail loudly instead of being ignored.
+ported yet fail loudly instead of being ignored; the reference's executor
+and network flags ``--nthreads``, ``--workers`` and ``--net-turbo`` are
+accepted and ignored, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -151,6 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the fused on-device sampler")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel device count (reference: number of nodes)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel device count (ring attention; "
                         "long-context — no reference equivalent)")
@@ -289,6 +297,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fleettrace: one replica's saved GET /debug/flight body, "
                         "labeled with the replica name (repeat the flag per replica); "
                         "bare FILE uses the filename stem as the track name")
+    # accepted for reference-flag compatibility and ignored, as the JAX CLI
+    # does: the reference's executor threads and worker network
+    p.add_argument("--nthreads", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--workers", nargs="*", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--net-turbo", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -443,7 +456,8 @@ def make_engine(args) -> InferenceEngine:
             compute_dtype="bfloat16" if args.compute_dtype == "bf16" else "float32",
             sync_type=Q80 if args.buffer_float_type == "q80" else F32,
             temperature=args.temperature, topp=args.topp, seed=seed,
-            kv_block_size=args.kv_block_size, sp=args.sp, decode_chunk=args.decode_chunk,
+            kv_block_size=args.kv_block_size, sp=args.sp, tp=args.tp,
+            decode_chunk=args.decode_chunk,
             spec_lookup=args.spec_lookup, n_batches=args.nbatches, kv_dtype=args.kv_dtype,
             weight_mode=args.weight_mode, host_sampling=args.host_sampling,
             verify_weights=args.verify_weights, numerics_taps=args.numerics_taps,
@@ -454,7 +468,7 @@ def make_engine(args) -> InferenceEngine:
     h = engine.model_file.header
     print(f"💡 Arch: {h.arch_type.name}  Dim: {h.dim}  Layers: {h.n_layers}  "
           f"Heads: {h.n_heads}/{h.n_kv_heads}  SeqLen: {h.seq_len}")
-    print(f"🕸️ TP devices: 1  SP devices: {engine.sp}  PP stages: 1")
+    print(f"🕸️ TP devices: {engine.tp}  SP devices: {engine.sp}  PP stages: 1")
     label = quant_mode_label(engine.quant_mode, engine.cfg.compute_dtype == "bfloat16")
     print(f"🖥️ Device: {engine.device}  Compute: {engine.cfg.compute_dtype}  "
           f"KV: {str(engine.kv_dtype).removeprefix('torch.')}  Weights: {engine.weight_mode}  "
@@ -651,6 +665,11 @@ def _eval_args_for(args, config: str):
         a.kv_host_blocks = 0
     elif config == "dense":
         a.kv_block_size, a.spec_lookup, a.kv_host_blocks = 0, 0, 0
+        if (a.tp or 1) > 1:
+            raise SystemExit(f"eval's dense config runs at tp = 1 in this package (the "
+                             f"dense slot pool is not sharded); with --tp {a.tp} score "
+                             f"the single or paged config")
+        a.tp = 1
     elif config == "paged":
         a.kv_block_size = args.kv_block_size or 16
         a.spec_lookup = 0
@@ -752,7 +771,7 @@ def main(argv=None, on_listening=None) -> int:
                          f"--steps --temperature --topp --seed --max-seq-len "
                          f"--buffer-float-type --compute-dtype --quant-mode --weight-mode "
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
-                         f"--device --sp --decode-chunk --spec-lookup --chat-template "
+                         f"--device --sp --tp --decode-chunk --spec-lookup --chat-template "
                          f"--trace-out --numerics-taps --numerics-failfast; api: "
                          f"--batch-slots --kv-block-size --kv-host-blocks --role --max-queue "
                          f"--host --port "
@@ -790,10 +809,10 @@ def main(argv=None, on_listening=None) -> int:
                          "ported to the PyTorch/CUDA package yet (ported: auto, f32, "
                          "bf16); use python -m dllama_tpu")
     try:
-        # the mesh's device count first: --sp N needs N visible cards
+        # the mesh's device count first: --sp N (--tp N) needs N visible cards
         from ..runtime.engine import mesh_plan, resolve_device
 
-        mesh_plan(args.device, args.sp)
+        mesh_plan(args.device, args.sp, tp=args.tp or 1)
         resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"error: {e}") from None

@@ -92,7 +92,7 @@ def test_cuda_default_without_gpu_fails_clearly(assets):
 
 @pytest.mark.parametrize("argv,msg", [
     (["worker"], "not ported"),
-    (["inference", "--tp", "2"], "not-yet-ported flag"),
+    (["inference", "--tp", "2", "--dp", "2"], "not-yet-ported flag"),
     (["inference", "--weight-mode", "offload"], "offload"),
     (["inference", "--kv-dtype", "int8"], "invalid choice"),
 ])

@@ -8,7 +8,10 @@ Transcripts must be token-identical. Perplexity is held to 1e-3 relative,
 the JAX twin's bound: the reference sums its per-token log-probabilities in
 another order and precision. Every transcript is also replayed with the KV
 cache split over two sequence shards (``sp=2``, ring prefill and merge
-decode over ``[cpu] * 2``), which must not change a token."""
+decode over ``[cpu] * 2``), which must not change a token; the four
+variants the JAX package replays at ``tp=2`` are replayed with every matmul
+weight and the cache's kv heads split over two tensor shards (``tp=2``),
+token for token too."""
 
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import golden_assets
 BUFFER_TYPES = {"f32": F32, "q80": Q80}
 
 
-def _engine_for(variant: str, tmp_path, sp: int = 1) -> tuple[InferenceEngine, dict]:
+def _engine_for(variant: str, tmp_path, sp: int = 1,
+                tp: int = 1) -> tuple[InferenceEngine, dict]:
     golden = golden_assets.load_golden(variant)
     if golden is None:
         pytest.skip(f"no golden for {variant} (run tools/golden_reference.py)")
@@ -35,7 +39,7 @@ def _engine_for(variant: str, tmp_path, sp: int = 1) -> tuple[InferenceEngine, d
         sync_type=BUFFER_TYPES[golden["buffer_float_type"]],
         compute_dtype="float32",
         temperature=golden["temperature"], topp=golden.get("topp", 0.9),
-        seed=golden["sampler_seed"], sp=sp)
+        seed=golden["sampler_seed"], sp=sp, tp=tp)
     return eng, golden
 
 
@@ -51,12 +55,18 @@ TRANSCRIPTS = [
 ]
 
 
-# sp = 1 keeps the plain variant ids; sp = 2 adds "<variant>-sp2"
-@pytest.mark.parametrize("variant,sp", [
-    pytest.param(v, sp, id=v if sp == 1 else f"{v}-sp2", marks=marks)
-    for sp in (1, 2) for v, marks in TRANSCRIPTS])
-def test_transcript_matches_reference(variant, sp, tmp_path):
-    eng, golden = _engine_for(variant, tmp_path, sp)
+# the variants tests/test_golden_reference.py replays at tp = 2
+TP2_VARIANTS = ("llama_q40", "llama31_q40", "qwen3_q40", "llama_sampled_f32")
+
+
+# sp = tp = 1 keeps the plain variant ids; sp = 2 adds "<variant>-sp2",
+# tp = 2 "<variant>-tp2"
+@pytest.mark.parametrize("variant,sp,tp", [
+    *[pytest.param(v, sp, 1, id=v if sp == 1 else f"{v}-sp2", marks=marks)
+      for sp in (1, 2) for v, marks in TRANSCRIPTS],
+    *[pytest.param(v, 1, 2, id=f"{v}-tp2") for v in TP2_VARIANTS]])
+def test_transcript_matches_reference(variant, sp, tp, tmp_path):
+    eng, golden = _engine_for(variant, tmp_path, sp, tp)
     try:
         ids = eng.tokenizer.encode(golden["prompt"], is_start=True)
         data = golden_assets.word_vocab_tokenizer()

@@ -234,7 +234,10 @@ def test_mesh_plan_sp_only():
     assert plan.axis_size("sp") == 3 and plan.axis_size("tp") == 1
     assert plan.lead == torch.device("cpu") and len(plan.devices) == 3
     assert api.make_mesh({"sp": 2, "tp": 1}, ["cpu"] * 2).axis_size("sp") == 2
-    for axis in ("tp", "dp", "pp"):
+    assert api.make_mesh({"tp": 2}, ["cpu"] * 2).axis_size("tp") == 2
+    with pytest.raises(NotImplementedError, match="sp=2 x tp=2 is not ported"):
+        api.make_mesh({"sp": 2, "tp": 2}, ["cpu"] * 4)
+    for axis in ("dp", "pp"):
         with pytest.raises(NotImplementedError, match="not ported"):
             api.make_mesh({"sp": 2, axis: 2}, ["cpu"] * 4)
     with pytest.raises(ValueError, match="needs 4 devices, found 2"):

@@ -15,9 +15,10 @@ CPU: ``forward`` with a mesh plan of ``sp`` shards over ``[cpu] * sp``, the
   ``test_ring_attention.py::test_engine_sp_with_non_divisible_seq_len``'s
   seq_len 100 case.
 - The CLI: ``--sp 2 --device cpu`` prints the JAX engine's greedy text and
-  perplexity; ``--sp 2 --kv-block-size 16`` gets the JAX refusal; ``--tp 2``
-  fails as not ported; ``--sp 2`` on ``cuda`` without two cards exits
-  non-zero with the device-count message."""
+  perplexity; ``--sp 2 --kv-block-size 16`` gets the JAX refusal; ``--sp 2``
+  with ``--tp 2``, ``--dp 2`` and ``--pp 2`` fail as not ported; ``--sp 2``
+  on ``cuda`` without two cards exits non-zero with the device-count
+  message."""
 
 from __future__ import annotations
 
@@ -239,7 +240,9 @@ def test_cli_refusals(files):
     with pytest.raises(ValueError, match="does not support --sp > 1"):
         cli.main(["api", *base, "--device", "cpu", "--sp", "2", "--batch-slots", "2",
                   "--kv-block-size", "16"])
-    for axis in ("--tp", "--dp", "--pp"):
+    with pytest.raises(SystemExit, match="--sp 2 together with --tp 2 is not ported"):
+        cli.main(["inference", *base, "--device", "cpu", "--tp", "2", "--sp", "2"])
+    for axis in ("--dp", "--pp"):
         with pytest.raises(SystemExit, match=f"not-yet-ported flag.*{axis}"):
             cli.main(["inference", *base, "--device", "cpu", axis, "2"])
 

@@ -230,15 +230,22 @@ Phases, each failing loudly (non-zero exit, no result line):
 15. mixture of experts and turbo planes, kernel K5 (the grouped expert
    matmul, ``csrc/moe_matmul.cu``). Phase 3 adds :func:`moe_cases`: K5
    against its plain version at the Qwen3-30B-A3B expert shapes (128
-   experts; w1/w3 K 2048, N 768; w2 K 768, N 2048) at 8, 64 and 1024 rows
-   on Q40 planes, exact and fast, on turbo expert planes in both regimes
-   (a8 and a16 at 8 rows, pre-scaled at 64 and 1024), on dense expert
-   planes, and as the dense turbo linear on the 8B wq and w1 at M = 1, 8
-   and 128 (a8 bit for bit; the drift from the exact product within the
-   JAX package's 8e-2 / 5e-2 of its RMS; ``torch._int_mm`` as a8's
-   yardstick). Then a synthetic Qwen3-30B-A3B file (full width, 8 of 48
-   layers) through :func:`moe_phase` (``inference``, ``perplexity``, one
-   engine's decode / prefill / paged-step profiles with K5's device share
+   experts; w1/w3 K 2048, N 768; w2 K 768, N 2048) at 8, 64, 1024 and 2048
+   rows on Q40 planes, exact and fast, and on a skewed routing (one expert
+   holding 512 of 1024 rows, 100 experts empty), on turbo expert planes in
+   both regimes (a8 and a16 at 8 rows, pre-scaled at 64 and 1024), on dense
+   expert planes, and as the dense turbo linear on the 8B wq and w1 at M =
+   1, 8, 128 and 256 (a8 bit for bit; the drift from the exact product
+   within the JAX package's 8e-2 / 5e-2 of its RMS). Every case on the
+   tensor-core kernel is also held against its twin
+   ``moe_matmul_tc_plain`` (``TC_TWIN_TOL``; a8 bit for bit) and names the
+   kernel it took; yardsticks: ``torch._grouped_mm`` over planes
+   dequantized to bf16 beforehand (Q40, pre-scaled, dense bf16),
+   ``torch.matmul`` over the upcast codes (the a16 linear),
+   ``torch._int_mm`` (the a8 linear). Then a synthetic Qwen3-30B-A3B file
+   (full width, 8 of 48 layers) through :func:`moe_phase` (``inference``,
+   ``perplexity``, one engine's decode / prefill / paged-step profiles with
+   K5's device share
    and the per-call K5 hold on recorded inputs (:func:`k5_hold`), the paged
    ``api`` with the serving mix cut to 8 requests, f32 and bf16; one
    synchronisation a paged tick; no graph captured while serving) and
@@ -958,8 +965,9 @@ def _profiled(fn, n: int) -> tuple[float, list]:
                      if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-# K5's kernels: the grouped matmul and the reduce of its K splits
-K5_KEYS = ("moe_matmul_kernel", "moe_reduce_kernel")
+# K5's kernels: the tensor-core and the SIMT grouped matmul and the reduce
+# of their K splits
+K5_KEYS = ("moe_tc_kernel", "moe_matmul_kernel", "moe_reduce_kernel")
 
 
 def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
@@ -6526,7 +6534,11 @@ MOE_SHAPES = [("we1", MOE_DIM, MOE_HIDDEN), ("we3", MOE_DIM, MOE_HIDDEN),
               ("we2", MOE_HIDDEN, MOE_DIM)]  # (name, K, N): one layer's expert dots
 # tokens of a K5 case: one decode token, the paged step's 8 slots, a
 # 128-token prefill chunk (8 rows a token)
-MOE_TOKENS = [("decode", 1), ("paged step", SLOTS), ("128-token chunk", 128)]
+MOE_TOKENS = [("decode", 1), ("paged step", SLOTS), ("128-token chunk", 128),
+              ("256-token prompt", 256)]
+# a skewed routing of a 128-token chunk: one expert holds MOE_SKEW_TOP of its
+# 1024 rows, MOE_SKEW_USED - 1 others share the rest, the other 100 are empty
+MOE_SKEW_TOP, MOE_SKEW_USED = 512, 28
 # the serving mix cut to 8 requests (the identical greedy pair last)
 MOE_PICKS = (0, 1, 2, 3, 4, 5, 14, 15)
 # the routing near-tie rule (RouteRecorder.hold): two transcripts of one
@@ -6538,7 +6550,7 @@ ROUTER_TIE_ULPS = 4
 # a matmul within 8e-2 (a8) / 5e-2 (a16) of the exact product's RMS;
 # tests/test_moe.py: the model's logits within 0.15 of their RMS)
 TURBO_SHAPES = [("wq", DIM, HEADS * HEAD_DIM), ("w1", DIM, HIDDEN)]
-TURBO_M = (1, 8, 128)
+TURBO_M = (1, 8, 128, 256)
 TURBO_MATMUL_DRIFT = {"a8": 8e-2, "a16": 5e-2}
 TURBO_MODEL_DRIFT = 0.15
 TURBO_STEPS = 32
@@ -6633,19 +6645,30 @@ def random_expert_planes(K: int, N: int, fast: bool, g: torch.Generator):
 
 def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, fast: bool,
             x, we, offsets, n_bytes: float, n_ops: float, ops_kind: str, library=None,
-            bit_exact: bool = False, **fields) -> dict:
+            library_note: str | None = None, bit_exact: bool = False, **fields) -> dict:
     """One K5 case: the kernel against its plain version on the same
-    inputs (``TOL[mode]`` of max|plain|, or bit for bit), timed with the
-    plain version and ``library`` (one PyTorch call, or None)."""
+    inputs (``TOL[mode]`` of max|plain|, or bit for bit) and, on the
+    tensor-core kernel, against its twin ``moe_matmul_tc_plain``
+    (:data:`TC_TWIN_TOL` of max|twin|, a8 bit for bit), timed with the plain
+    version and ``library`` (one PyTorch call, or None)."""
     from dllama_tpu_torch.ops import moe_matmul as mm
 
     got = mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast)
-    splits = mm.moe_matmul.last_splits  # the K split this launch took
+    # the K split and the kernel this launch took
+    splits, path = mm.moe_matmul.last_splits, mm.moe_matmul.last_kernel
     want = mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
+    twin = (mm.moe_matmul_tc_plain(x, we, offsets, decoder=decoder, fast=fast)
+            if path == "tc" else None)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     equal = bool(torch.equal(got, want))
+    twin_err = twin_scale = None
+    if twin is not None:
+        twin_err = (got - twin).abs().max().item()
+        twin_scale = twin.abs().max().item()
+        twin_equal = bool(torch.equal(got, twin))
+        del twin
     ms = timer(lambda: mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast))
     n = timer.n
     timer.n = 5  # the plain version loops over groups on the host
@@ -6656,7 +6679,9 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
     _, K, N = mm._planes(we, decoder)
     rec = dict(case="moe_matmul", kernel="K5", mode=mode, decoder=decoder, what=what,
                rows=x.shape[0], K=K, N=N, max_abs_err=err, max_abs_ref=scale,
-               bit_equal=equal, splits=splits, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bit_equal=equal, twin_err=twin_err, twin_ref=twin_scale, path=path,
+               splits=splits, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_note=library_note if library is not None else None,
                bound_ms=b_ms, bound_by=b_by, **fields)
     print(json.dumps(rec), flush=True)
     results.append(rec)
@@ -6665,6 +6690,13 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
              f"the integer dot must equal it bit for bit")
     if not (err <= TOL[mode] * scale) or not math.isfinite(err):
         fail(f"K5 {what}: max|err| {err:.3g} > {TOL[mode]} x max|y| {scale:.3g}")
+    if twin_err is not None:
+        if bit_exact and not twin_equal:
+            fail(f"K5 {what}: {decoder} differs from its tensor-core twin (max|err| "
+                 f"{twin_err:.3g})")
+        if not (twin_err <= TC_TWIN_TOL * twin_scale) or not math.isfinite(twin_err):
+            fail(f"K5 {what}: max|err| {twin_err:.3g} against the tensor-core twin > "
+                 f"{TC_TWIN_TOL} x max|y| {twin_scale:.3g}")
     return rec
 
 
@@ -6678,39 +6710,84 @@ def int_mm_library(xq: torch.Tensor, w8: torch.Tensor):
     return lambda: torch._int_mm(xp, w8)
 
 
+# the grouped yardstick reads 2 bytes a weight and rounds otherwise: not the
+# same function as the case it stands beside
+GROUPED_MM_NOTE = "torch._grouped_mm over bf16 planes made beforehand (a yardstick)"
+
+
+def grouped_mm_library(x: torch.Tensor, planes_bf16: torch.Tensor, offsets: torch.Tensor):
+    """``torch._grouped_mm`` of the bf16 activations over bf16 expert planes
+    made beforehand (None where this PyTorch has none)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    xb = x.to(torch.bfloat16)
+    return lambda: torch._grouped_mm(xb, planes_bf16, offs=offsets[1:])
+
+
+def skewed_offsets(g: torch.Generator) -> torch.Tensor:
+    """A skewed routing of a 128-token chunk (1024 rows): one random expert
+    holds :data:`MOE_SKEW_TOP` rows, :data:`MOE_SKEW_USED` - 1 others share
+    the rest as evenly as whole rows allow, the other experts are empty."""
+    rows = 128 * MOE_ACTIVE
+    perm = torch.randperm(MOE_EXPERTS, generator=g, device=DEV)
+    n_rest = MOE_SKEW_USED - 1
+    rest = torch.full((n_rest,), (rows - MOE_SKEW_TOP) // n_rest, dtype=torch.int64,
+                      device=DEV)
+    rest[:(rows - MOE_SKEW_TOP) % n_rest] += 1
+    counts = torch.zeros(MOE_EXPERTS, dtype=torch.int64, device=DEV)
+    counts[perm[0]] = MOE_SKEW_TOP
+    counts[perm[1:MOE_SKEW_USED]] = rest
+    return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+
 def moe_cases(timer: Timer, results: list) -> None:
-    """K5 against its plain version in every decoder and regime: the
-    Qwen3-30B-A3B expert dots (w1/w3: K 2048, N 768; w2: K 768, N 2048; 128
-    experts) at 8 (one decode token), 64 (the paged step) and 1024 rows (a
-    128-token chunk) on Q40 planes, exact and fast; turbo expert planes in
-    the gather regime (a8, a16 at 8 rows) and the ragged regime (pre-scaled
-    at 64 and 1024 rows); dense expert planes (``--weight-mode f32|bf16``)
-    at 64 rows; then the dense turbo linear (one group) on the 8B wq and
-    w1 at M = 1, 8 and 128, a8 bit for bit against its plain version, its
-    drift from the exact product held to the JAX package's bounds, and the
-    derived planes against the same derivation on the host, bit for bit."""
+    """K5 against its plain version (and, on the tensor cores, its twin) in
+    every decoder and regime: the Qwen3-30B-A3B expert dots (w1/w3: K 2048,
+    N 768; w2: K 768, N 2048; 128 experts) at 8 (one decode token), 64 (the
+    paged step), 1024 (a 128-token chunk) and 2048 rows (a 256-token
+    prompt) on Q40 planes, exact and fast, and w1 and w2 under a skewed
+    routing (one expert holding 512 of 1024 rows, 100 experts empty); turbo
+    expert planes in the gather regime (a8, a16 at 8 rows) and the ragged
+    regime (pre-scaled at 64 and 1024 rows); dense expert planes
+    (``--weight-mode f32|bf16``) at 64 rows; then the dense turbo linear (one
+    group) on the 8B wq and w1 at M = 1, 8, 128 and 256, a8 bit for bit
+    against its plain version, its drift from the exact product held to the
+    JAX package's bounds, and the derived planes against the same derivation
+    on the host, bit for bit."""
     from dllama_tpu_torch.ops import turbo
     from dllama_tpu_torch.ops.linear import dequantize_weight
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 15)
-    E = MOE_EXPERTS
     for mode in ("exact", "fast"):
         fast = mode == "fast"
         for name, K, N in MOE_SHAPES:
             we = random_expert_planes(K, N, fast, g)
-            for label, n_tok in MOE_TOKENS:
-                offsets, used = routed_offsets(n_tok, g)
+            dq = dequantize_weight(we, torch.bfloat16)  # the grouped yardstick's planes
+            elt = 2 if fast else 4
+            routings = [(f"{name} {label} {mode}", routed_offsets(n_tok, g), n_tok, {})
+                        for label, n_tok in MOE_TOKENS]
+            if name in ("we1", "we2"):
+                routings.append((f"{name} skewed {mode}",
+                                 (skewed_offsets(g), MOE_SKEW_USED), 128,
+                                 {"routing": "skewed"}))
+            for what, (offsets, used), n_tok, extra in routings:
                 R = n_tok * MOE_ACTIVE
                 x = torch.randn((R, K), generator=g, device=DEV).to(
                     torch.bfloat16 if fast else torch.float32)
-                elt = 2 if fast else 4
-                k5_case(timer, results, what=f"{name} {label} {mode}", mode=mode, decoder="q",
-                        fast=fast, x=x, we=we, offsets=offsets,
+                # exact on the tensor cores is three bf16 products (x in
+                # three parts), as K2's tensor-core path counts it
+                k5_case(timer, results, what=what, mode=mode, decoder="q", fast=fast, x=x,
+                        we=we, offsets=offsets,
                         n_bytes=used * (K * N + K // 32 * N * elt) + R * K * elt + R * N * 4,
-                        n_ops=2.0 * R * K * N, ops_kind="bf16" if fast else "f32",
-                        weight=name, tokens=n_tok, experts_used=used)
+                        n_ops=(1 if fast else 3) * 2.0 * R * K * N, ops_kind="bf16",
+                        library=grouped_mm_library(x, dq, offsets),
+                        library_note=GROUPED_MM_NOTE, weight=name, tokens=n_tok,
+                        experts_used=used, **extra)
+            del dq
             if name == "we1":
                 tw = {a8: turbo.derive_turbo(we, a8=a8) for a8 in (True, False)}
+                pre = (tw[False].w8.to(torch.bfloat16)
+                       * tw[False].scale.to(torch.bfloat16)[:, None, :])
                 for decoder, n_tok in (("a8", 1), ("a16", 1), ("prescaled", SLOTS),
                                        ("prescaled", 128)):
                     if fast != (decoder != "a8"):
@@ -6726,24 +6803,25 @@ def moe_cases(timer: Timer, results: list) -> None:
                                                                         else 2) + R * N * 4,
                             n_ops=2.0 * R * K * N,
                             ops_kind="int8" if decoder == "a8" else "bf16",
-                            bit_exact=decoder == "a8", weight=name, tokens=n_tok,
-                            experts_used=used)
-                del tw
+                            library=(grouped_mm_library(x, pre, offsets)
+                                     if decoder == "prescaled" else None),
+                            library_note=GROUPED_MM_NOTE, bit_exact=decoder == "a8",
+                            weight=name, tokens=n_tok, experts_used=used)
+                del tw, pre
                 # dense expert stacks (--weight-mode f32 | bf16) at the paged step
                 dt = torch.bfloat16 if fast else torch.float32
                 dense = dequantize_weight(we, torch.float32).to(dt)
                 offsets, used = routed_offsets(SLOTS, g)
                 R = SLOTS * MOE_ACTIVE
                 x = torch.randn((R, K), generator=g, device=DEV).to(dt)
-                lib = None
-                if fast and hasattr(torch, "_grouped_mm"):
-                    lib = lambda: torch._grouped_mm(x, dense, offs=offsets[1:])  # noqa: E731
                 k5_case(timer, results, what=f"dense {name} rows={R} {mode}", mode=mode,
                         decoder="dense", fast=False, x=x, we=dense, offsets=offsets,
                         n_bytes=used * K * N * dense.element_size() + R * K * x.element_size()
                         + R * N * 4, n_ops=2.0 * R * K * N,
-                        ops_kind="bf16" if fast else "f32", library=lib, weight=name,
-                        tokens=SLOTS, experts_used=used)
+                        ops_kind="bf16" if fast else "f32",
+                        library=grouped_mm_library(x, dense, offsets) if fast else None,
+                        library_note="torch._grouped_mm over the same bf16 planes",
+                        weight=name, tokens=SLOTS, experts_used=used)
                 del dense
             del we
             torch.cuda.empty_cache()
@@ -6762,27 +6840,30 @@ def moe_cases(timer: Timer, results: list) -> None:
                     fail(f"turbo derivation of {name}: the card's planes differ from the "
                          f"host's")
             dec = "a8" if a8 else "a16"
+            w16 = None if a8 else tw.w8.to(torch.bfloat16)  # the a16 yardstick's upcast
             for M in TURBO_M:
                 x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
                 y = turbo.turbo_matmul(x, tw).float()
                 ref = x.float() @ exact_w
                 drift = ((y - ref).abs().max() / ref.pow(2).mean().sqrt()).item()
-                lib = None
+                del y, ref
                 if a8:
                     xq, _ = turbo.quantize_activations_a8(x)
-                    lib = int_mm_library(xq, tw.w8)
-                rec = k5_case(timer, results, what=f"turbo {dec} {name} M={M}",
-                              mode="exact" if a8 else "fast", decoder=dec, fast=False, x=x,
-                              we=tw1, offsets=None,
-                              n_bytes=K * N + 4 * N + M * K * (1 if a8 else 2) + M * N * 4,
-                              n_ops=2.0 * M * K * N, ops_kind="int8" if a8 else "bf16",
-                              library=lib, bit_exact=a8, weight=name, M=M,
-                              drift_vs_exact=drift, drift_bound=TURBO_MATMUL_DRIFT[dec])
+                    lib, note = int_mm_library(xq, tw.w8), "torch._int_mm, M padded to 32"
+                else:
+                    lib = lambda x=x: torch.matmul(x, w16)  # noqa: E731
+                    note = "torch.matmul over the codes upcast to bf16 beforehand"
+                k5_case(timer, results, what=f"turbo {dec} {name} M={M}",
+                        mode="exact" if a8 else "fast", decoder=dec, fast=False, x=x,
+                        we=tw1, offsets=None,
+                        n_bytes=K * N + 4 * N + M * K * (1 if a8 else 2) + M * N * 4,
+                        n_ops=2.0 * M * K * N, ops_kind="int8" if a8 else "bf16",
+                        library=lib, library_note=note, bit_exact=a8, weight=name, M=M,
+                        drift_vs_exact=drift, drift_bound=TURBO_MATMUL_DRIFT[dec])
                 if not drift < TURBO_MATMUL_DRIFT[dec]:
                     fail(f"turbo {dec} {name} M={M}: drift {drift:.3g} from the exact "
                          f"product >= {TURBO_MATMUL_DRIFT[dec]} of its RMS")
-                del rec
-            del tw, tw1
+            del tw, tw1, w16
         del qw, exact_w
     torch.cuda.empty_cache()
 
@@ -7509,15 +7590,18 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                    lambda c, T=T: c["phase"] == f"prefill T={T} diagonal")
                   for T in (1024, 2048)]],
         "K5": [(f" Q40 experts, {lbl} ({n * MOE_ACTIVE} rows)",
-                lambda c, n=n: c["decoder"] == "q" and c["tokens"] == n)
-               for lbl, n in MOE_TOKENS] + [
+                lambda c, n=n: c["decoder"] == "q" and c["tokens"] == n
+                and "routing" not in c) for lbl, n in MOE_TOKENS] + [
+               (f" Q40 experts w1 + w2, skewed routing (1024 rows: one expert "
+                f"{MOE_SKEW_TOP}, {MOE_EXPERTS - MOE_SKEW_USED} empty)",
+                lambda c: c.get("routing") == "skewed")] + [
                (f" turbo experts {d} ({MOE_ACTIVE} rows, gather regime)",
                 lambda c, d=d: c["decoder"] == d and "M" not in c) for d in ("a8", "a16")] + [
                (" turbo experts pre-scaled (64 and 1024 rows, ragged regime)",
                 lambda c: c["decoder"] == "prescaled"),
                (f" dense experts ({SLOTS * MOE_ACTIVE} rows)",
                 lambda c: c["decoder"] == "dense")] + [
-               (f" turbo {d} linear, 8B wq + w1 at M = 1, 8, 128",
+               (f" turbo {d} linear, 8B wq + w1 at M = {', '.join(map(str, TURBO_M))}",
                 lambda c, d=d: c["decoder"] == d and "M" in c) for d in ("a8", "a16")],
     }
     out = []
@@ -7570,6 +7654,10 @@ def kernels_line(cases: list, e2e: dict) -> dict:
                 rec["decoder"] = sel[0]["decoder"]
                 rec["bit_equal"] = all(c["bit_equal"] for c in sel)
                 rec["splits"] = sorted({c["splits"] for c in sel})
+                twins = [c["twin_err"] for c in sel if c["twin_err"] is not None]
+                rec["twin_err"] = max(twins) if twins else None
+                if rec["library_ms"] is not None:
+                    rec["library_note"] = sel[0]["library_note"]
             else:
                 rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
             rec["path"] = "+".join(sorted({c.get("path", "simt") for c in sel}))

@@ -225,6 +225,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// m16n8k32 on int8 operands with int32 sums (exact). Fragments, lane = 4 g
+// + t: A a[0] = row g, k 4t..4t+3; a[1] = row g + 8, same k; a[2] / a[3] =
+// the same rows at k 16 + 4t..; B b[0] = k 4t..4t+3 of column g, b[1] = k 16
+// + 4t..; C as m16n8k16's. The lowest byte of a register holds the lowest k.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 and receives, of each matrix i, r[i] = its row l / 4, columns
 // 2 (l % 4) and 2 (l % 4) + 1

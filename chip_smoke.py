@@ -42,7 +42,13 @@ Phases, each failing loudly (non-zero exit, no result line):
    perplexity and each path's launch counts (set to 0 before each run): K1,
    K2 and K3 for ``inference``, K1 and K3 for ``perplexity``; then, under
    ``torch.profiler``, device time per 128-token prefill chunk and per
-   decode step (a replay of the captured step); then the ``graphs`` phase
+   decode step (a replay of the captured step), each session's trace also
+   through the port's ``op_attribution`` (class rollup and top ops; its
+   summed kernel ms within 2% of the session's ``key_averages()``, every
+   kernel of the port classified); one short f32 ``inference --profile
+   DIR`` on the 8-layer copy (:func:`profiled_inference`: the trace read by
+   ``op_attribution``, the ``roofline:`` line's fraction in (0, 1]); then
+   the ``graphs`` phase
    (:func:`graphs_phase`): first the sampler's one-row scan
    (``ops/sampling.py::_cumsum_rows``) must give one bitwise result in 50
    runs on a vocabulary-wide row; then, f32 and bf16: 64 greedy and 64 sampled tokens
@@ -63,11 +69,19 @@ Phases, each failing loudly (non-zero exit, no result line):
    decodes, half sampled); every request must return 200 with tokens, the
    pair identical text, prefix reuse must happen and K1-K4 must each launch
    (counts set to 0 before each run); tok/s, latencies, step time, the
-   column take/put cost and the pool are printed; then one 8-row paged
+   column take/put cost and the pool are printed; the f32 run first sends
+   one body whose prefill runs every chunk width, takes a live ``POST
+   /debug/profile?ms=500&ops=1`` while the clients run, and after them
+   holds ``/debug/compiles`` (every capture of the run listed, the scope
+   steady, no unexpected retrace), ``/debug/roofline`` (the decode
+   summary's fraction in (0, 1], no raw fraction above 1.05) and the
+   ``--stats`` line's ``compiles=`` and ``roofline=``
+   (:func:`observe_device`); then one 8-row paged
    decode step of that geometry (a replay of ``PagedGenerator``'s captured
    step) under ``torch.profiler`` in f32 and bf16
    (:func:`paged_step_profile`: device ms, K2's and K4's device ms,
-   kernels per step, busy share);
+   kernels per step, busy share, and the port's op attribution of the
+   session);
 6. model parity on the card: 2 layers at 8B widths, the kernel path
    (``attn_impl=auto``, ``quant_impl=auto``) against the plain path (``xla``)
    on the same weights and tokens, on Q40 and on Q80 planes: a 128-token
@@ -389,9 +403,17 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
-def bound(n_bytes: float, n_ops: float, kind: str) -> tuple[float, str]:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[kind] * 1e3
+def bound(kernel: str, **shape) -> tuple[float, str]:
+    """The least time the card could take for one launch of ``kernel`` at
+    ``shape``: the bytes it must move over the memory rate against its
+    operations over the peak of their type, both from the port's count
+    (``ops/cost.py::launch_cost``, the one the kernel wrappers add to their
+    counters and the roofline divides), fed this run's data."""
+    from dllama_tpu_torch.ops.cost import launch_cost
+
+    c = launch_cost(kernel, **shape)
+    t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = c.ops / PEAK_OPS[c.rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -468,16 +490,9 @@ def matmul_cases(timer: Timer, results: list) -> None:
                 ms = timer(lambda: fn(x, w, fast=fast))
                 plain_ms = timer(lambda: qm.quant_matmul_plain(x, w, fast=fast))
                 lib_ms = timer(lambda: torch.matmul(x, wd))
-                elt = 2 if fast else 4
-                n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
                 # exact on the tensor cores is three bf16 products (x in
                 # three parts); K1 exact and K2 at M = 1 are FP32 SIMT
-                if fast:
-                    b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16")
-                elif path == "tc":
-                    b_ms, b_by = bound(n_bytes, 3 * 2.0 * M * K * N, "bf16")
-                else:
-                    b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "f32")
+                b_ms, b_by = bound(kname, M=M, K=K, N=N, fast=fast, path=path)
                 rec = dict(case="matmul", kernel=kname, mode=mode, codes=codes, weight=name,
                            M=M, K=K, N=N, splits=splits, path=path, max_abs_err=err,
                            max_abs_ref=scale, max_abs_err_twin=err_twin, ms=ms,
@@ -630,11 +645,9 @@ def attention_cases(timer: Timer, results: list) -> None:
             plain_ms = timer(lambda: attention(q, k, v, positions, D))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qs, upcast(k), upcast(v), attn_mask=mask, enable_gqa=True))
-            visible = sum(pos + t + 1 for t in range(T))  # keys per q head
-            elt = k.element_size()
-            n_bytes = 2 * T * HEADS * D * q.element_size() + 2 * (pos + T) * KV_HEADS * D * elt
-            b_ms, b_by = bound(n_bytes, 4.0 * D * HEADS * visible,
-                               "bf16" if path == "tc" else "f32")
+            b_ms, b_by = bound("K3", T=T, heads=HEADS, kv_heads=KV_HEADS, head_dim=D,
+                               q_elt=q.element_size(), kv_elt=k.element_size(), depths=[pos],
+                               path=path)
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, T=T,
                        start_pos=pos, S=rows, head_dim=D, n_splits=n_splits, path=path,
                        **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
@@ -703,12 +716,9 @@ def ragged_attention_cases(timer: Timer, results: list) -> None:
             plain_ms = timer(lambda: attention(q, k, v, positions, HEAD_DIM))
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qs, upcast(k), upcast(v), attn_mask=mask, enable_gqa=True))
-            visible = sum(d + t + 1 for d in depths for t in range(T))  # keys per q head
-            keys = sum(d + T for d in depths)
-            n_bytes = (2 * SLOTS * T * HEADS * HEAD_DIM * q.element_size()
-                       + 2 * keys * KV_HEADS * HEAD_DIM * k.element_size())
-            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * visible,
-                               "bf16" if path == "tc" else "f32")
+            b_ms, b_by = bound("K3", T=T, heads=HEADS, kv_heads=KV_HEADS, head_dim=HEAD_DIM,
+                               q_elt=q.element_size(), kv_elt=k.element_size(),
+                               depths=depths, path=path)
             rec = dict(case="attention", kernel="K3", mode=mode, phase=phase, B=SLOTS, T=T,
                        start_pos=depths, S=S, head_dim=HEAD_DIM, n_splits=n_splits,
                        path=path, **errs, ms=ms, plain_ms=plain_ms,
@@ -829,11 +839,9 @@ def paged_cases(timer: Timer, results: list) -> None:
                                                               positions, HEAD_DIM))
             yard_ms = timer(gather_sdpa)
             # K/V rows the rows can see (capped at the table's reach)
-            keys = sum(min(d + T, S) for d in depths)
-            scored = sum(min(d + t + 1, S) for d in depths for t in range(T))
-            n_bytes = (2 * keys * KV_HEADS * HEAD_DIM * kp.element_size()
-                       + 2 * B * T * HEADS * HEAD_DIM * q.element_size())
-            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * scored, "f32")
+            b_ms, b_by = bound("K4", T=T, heads=HEADS, kv_heads=KV_HEADS, head_dim=HEAD_DIM,
+                               q_elt=q.element_size(), kv_elt=kp.element_size(),
+                               depths=depths, rows=S)
             rec = dict(case="paged_attention", kernel="K4", mode=mode, B=B, T=T,
                        block_size=bs, positions=depths, lens=lens, n_splits=n_splits,
                        **errs, ms=ms, plain_ms=plain_ms,
@@ -951,9 +959,9 @@ def stat(lines: list[str], section: str, key: str) -> float:
     return float(next(ln.split()[1] for ln in lines[i + 1:] if ln.strip().startswith(key)))
 
 
-def _profiled(fn, n: int) -> tuple[float, list]:
+def _profile(fn) -> tuple[float, list, object]:
     """Run ``fn`` under ``torch.profiler``: ``(host wall ms, device kernel
-    events)``."""
+    events, the profiler)``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -962,7 +970,58 @@ def _profiled(fn, n: int) -> tuple[float, list]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return wall_ms, [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+                     if e.device_type == torch.autograd.DeviceType.CUDA], prof
+
+
+def _profiled(fn, n: int) -> tuple[float, list]:
+    """Run ``fn`` under ``torch.profiler``: ``(host wall ms, device kernel
+    events)``."""
+    wall_ms, kernels, _ = _profile(fn)
+    return wall_ms, kernels
+
+
+# every kernel of csrc/: each must land in an op class of the attribution,
+# never in "other"
+PORT_KERNELS = ("q40_gemv_kernel", "q40_gemv_tc_kernel", "q40_matmul_f32_kernel",
+                "q40_matmul_bf16_kernel", "sum_splits_kernel", "flash_attention_kernel",
+                "flash_attention_tc_kernel", "paged_attention_kernel", "combine_splits_kernel",
+                "moe_matmul_kernel", "moe_tc_kernel", "moe_reduce_kernel")
+OP_SUM_TOL = 0.02  # op_attribution's summed kernel ms against key_averages()'s
+
+
+def op_account(prof, kernels: list, n: int, what: str) -> dict:
+    """The port's ``op_attribution`` (``runtime/profiling.py``) on the Chrome
+    trace of the same profiler session as ``kernels``: its op-class rollup
+    and top ops per step, held to that session's ``key_averages()``: the
+    kernel ms per step summed over every lane within :data:`OP_SUM_TOL`, and
+    every kernel of the port classified (never ``other``)."""
+    from dllama_tpu_torch.runtime import profiling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dllama_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            trace = json.load(f)
+    att = profiling.op_attribution(trace=trace, n_steps=n, top=1_000_000)
+    summed = sum(lane["sum_ms"] for lane in att["lanes"]) / n
+    key_avg = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    ours = [o for o in att["top_ops"] if any(k in o["name"] for k in PORT_KERNELS)]
+    rec = dict(classes=att["classes"], n_lanes=att["n_lanes"],
+               summed_kernel_ms=summed, key_averages_ms=key_avg,
+               sum_over_union=att["sum_over_union"],
+               device_busy_ms=att["device_busy_ms_per_step"],
+               top_ops=[dict(name=o["name"][:60], cls=o["class"], ms=o["ms_per_step"],
+                             count=o["count"]) for o in att["top_ops"][:8]],
+               seconds=time.perf_counter() - t0)
+    print(f"⏱️ op attribution of {what} took {rec['seconds']:.1f} s", flush=True)
+    if not key_avg or not abs(summed - key_avg) <= OP_SUM_TOL * key_avg:
+        fail(f"{what}: op_attribution sums {summed:.4f} kernel ms a step, key_averages() "
+             f"{key_avg:.4f} (more than {OP_SUM_TOL:.0%} apart)")
+    if not ours or any(o["class"] == "other" for o in ours):
+        fail(f"{what}: the port's kernels in the attribution: "
+             f"{[(o['name'][:40], o['class']) for o in ours] or 'none'}")
+    return rec
 
 
 # K5's kernels: the tensor-core and the SIMT grouped matmul and the reduce
@@ -991,12 +1050,14 @@ def _profile_rec(case: str, dtype: str, unit: str, n: int, wall_ms: float,
                                    for e in top}}
 
 
-def engine_profile(model: str, tok: str, dtype: str, **engine_kw) -> list[dict]:
+def engine_profile(model: str, tok: str, dtype: str, ops: bool = False,
+                   **engine_kw) -> list[dict]:
     """Where the engine's time goes, under ``torch.profiler`` on one engine
     (:func:`engine_profiles`). Device busy share = the kernels' summed
     device time over the host wall time; the rest is the device idling while
-    the host enqueues the eager ops. ``engine_kw`` (``weight_mode=``) goes to
-    the engine."""
+    the host enqueues the eager ops. ``ops``: each record also holds the
+    port's op attribution of its session. ``engine_kw`` (``weight_mode=``)
+    goes to the engine."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
 
@@ -1004,24 +1065,28 @@ def engine_profile(model: str, tok: str, dtype: str, **engine_kw) -> list[dict]:
                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
                           temperature=0.0, **engine_kw)
     try:
-        recs = engine_profiles(eng, dtype)
+        recs = engine_profiles(eng, dtype, ops=ops)
     finally:
         eng.close()
     return [recs["prefill_profile"], recs["decode_profile"]]
 
 
-def engine_profiles(eng, dtype: str, prefix: str = "") -> dict:
+def engine_profiles(eng, dtype: str, prefix: str = "", ops: bool = False) -> dict:
     """The single-sequence profile on ``eng`` (reset first): two 128-token
     prefill chunks (at depths 128 and 256, after a warm-up chunk at 0), then
     16 greedy decode steps, each a replay of the captured step (after 4
     warm-up steps, the first of which captures it). The records' cases are
-    ``prefix`` + ``prefill_profile`` / ``decode_profile``."""
+    ``prefix`` + ``prefill_profile`` / ``decode_profile``; with ``ops`` each
+    also holds the port's op attribution of its session (:func:`op_account`)."""
     eng.reset()
     ids = eng.tokenizer.encode(PROMPT * 2)
     eng.prefill(ids[:128])
-    wall, kernels = _profiled(lambda: [eng.prefill(ids[a:a + 128]) for a in (128, 256)], 2)
+    wall, kernels, prof = _profile(lambda: [eng.prefill(ids[a:a + 128]) for a in (128, 256)])
     out = {"prefill_profile": _profile_rec(f"{prefix}prefill_profile", dtype, "chunk", 2,
                                            wall, kernels)}
+    if ops:
+        out["prefill_profile"]["ops"] = op_account(prof, kernels, 2,
+                                                   f"{dtype} 128-token chunk")
     token = ids[384]
     for _ in range(4):
         token = eng.next_token(token)
@@ -1032,9 +1097,11 @@ def engine_profiles(eng, dtype: str, prefix: str = "") -> dict:
         for _ in range(n):
             t = eng.next_token(t)
 
-    wall, kernels = _profiled(steps, n)
+    wall, kernels, prof = _profile(steps)
     out["decode_profile"] = _profile_rec(f"{prefix}decode_profile", dtype, "step", n, wall,
                                          kernels)
+    if ops:
+        out["decode_profile"]["ops"] = op_account(prof, kernels, n, f"{dtype} decode step")
     return out
 
 
@@ -1048,7 +1115,7 @@ def paged_rows(gen, depths: list[int], T: int, g_cpu: torch.Generator) -> torch.
     return tables
 
 
-def paged_step_profile(model: str, tok: str, dtype: str, gen=None) -> dict:
+def paged_step_profile(model: str, tok: str, dtype: str, gen=None, ops: bool = False) -> dict:
     """One 8-row paged decode step of the serving geometry (8 slots at the
     ragged depths :data:`RAGGED`, block 16, scrambled tables), as the
     serving scheduler runs it: a replay of ``PagedGenerator``'s captured
@@ -1059,7 +1126,8 @@ def paged_step_profile(model: str, tok: str, dtype: str, gen=None) -> dict:
     which no other kernel of the step launches), kernels per step, busy
     share. ``gen``: profile the captured step of this generator (a serving
     run's, its requests done: the replays overwrite its pool) instead of
-    building an engine on ``model``."""
+    building an engine on ``model``. ``ops``: the record also holds the
+    port's op attribution of the same session (:func:`op_account`)."""
     from dllama_tpu_torch.formats.quants import Q80
     from dllama_tpu_torch.runtime.engine import InferenceEngine
     from dllama_tpu_torch.runtime.serving import PagedGenerator
@@ -1085,13 +1153,15 @@ def paged_step_profile(model: str, tok: str, dtype: str, gen=None) -> dict:
         for _ in range(2):
             graph.replay()
         n = 8
-        wall, kernels = _profiled(lambda: [graph.replay() for _ in range(n)], n)
+        wall, kernels, prof = _profile(lambda: [graph.replay() for _ in range(n)])
         if own:
             gen.close()
     finally:
         if eng is not None:
             eng.close()
     rec = _profile_rec("paged_step_profile", dtype, "step", n, wall, kernels)
+    if ops:
+        rec["ops"] = op_account(prof, kernels, n, f"{dtype} 8-row paged step")
     for name, keys in (("K2", ("q40_gemv", "sum_splits_kernel")),
                        ("K4", ("paged_attention_kernel", "combine_splits_kernel")),
                        ("K5", K5_KEYS)):
@@ -1478,7 +1548,7 @@ def main_path(model: str, tok: str, text: str, n_layers: int, summary: dict) -> 
                 fail(f"{dtype} {path}: a kernel of the path never launched: "
                      f"{launches[path]}")
         torch.cuda.empty_cache()
-        for prof in engine_profile(model, tok, dtype):
+        for prof in engine_profile(model, tok, dtype, ops=True):
             print(json.dumps(prof), flush=True)
             rec[prof["case"]] = prof
         torch.cuda.empty_cache()
@@ -1487,6 +1557,50 @@ def main_path(model: str, tok: str, text: str, n_layers: int, summary: dict) -> 
     rel = abs(summary["bf16"]["perplexity"] / summary["f32"]["perplexity"] - 1.0)
     if not rel <= 0.05:
         fail(f"bf16 perplexity differs from f32 by {rel:.3g} (> 5%)")
+
+
+PROFILED_STEPS = 8  # decode tokens of the profiled inference run
+
+
+def profiled_inference(model: str, tok: str) -> dict:
+    """One short f32 ``inference`` of the main path under ``--profile DIR``
+    on ``model`` (the 8-layer copy; its own run, so the timed runs of
+    :func:`main_path` stay unprofiled): the CLI writes a
+    trace that the port's ``op_attribution`` reads, every kernel of the port
+    in it classified, and prints a ``roofline:`` line whose fraction lies in
+    (0, 1]."""
+    from dllama_tpu_torch.runtime import profiling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dllama_profile_") as d:
+        zero_counts()
+        out = run_cli(["inference", "--model", model, "--tokenizer", tok, "--compute-dtype",
+                       "f32", "--max-seq-len", str(MAX_SEQ), "--seed", str(SEED), "--prompt",
+                       PROMPT, "--steps", str(len(PROMPT.encode()) + 1 + PROFILED_STEPS),
+                       "--temperature", "0", "--profile", d])
+        launches = read_counts()
+        att = profiling.op_attribution(d, n_steps=1, top=1_000_000)
+    lines = out.splitlines()
+    roof = next((ln.strip() for ln in lines if ln.strip().startswith("roofline:")), "")
+    frac = float(roof.split()[1].rstrip("%")) / 100 if roof.endswith("]") else None
+    ours = [o for o in att["top_ops"] if any(k in o["name"] for k in PORT_KERNELS)]
+    rec = dict(case="profiled_inference", compute_dtype="f32", roofline_line=roof,
+               roofline_fraction=frac, launches=launches,
+               trace_line=any(ln.startswith("🔬 profiler trace written to") for ln in lines),
+               classes=att["classes"], n_lanes=att["n_lanes"],
+               decode_tok_per_s_under_profiler=stat(lines, "Prediction", "tokens/s:"),
+               seconds=time.perf_counter() - t0)
+    print(json.dumps(rec), flush=True)
+    print(f"⏱️ profiled inference took {rec['seconds']:.1f} s", flush=True)
+    if frac is None or not 0.0 < frac <= 1.0:
+        fail(f"inference --profile: roofline line {roof!r}: the fraction must lie in (0, 1]")
+    if not rec["trace_line"] or not att["n_lanes"] or not ours:
+        fail(f"inference --profile: trace line {rec['trace_line']}, {att['n_lanes']} lanes, "
+             f"{len(ours)} of the port's kernels in the trace")
+    if any(o["class"] == "other" for o in ours):
+        fail(f"inference --profile: a kernel of the port classified 'other': "
+             f"{[o['name'][:40] for o in ours if o['class'] == 'other']}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1559,7 +1673,8 @@ def post_chat(url: str, body: dict, first_chunk=None) -> dict:
 
 def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
               case: str = "serving", paged: bool = True, observe=None,
-              picks: tuple | None = None, hold_twin: bool = True, on_gen=None) -> dict:
+              picks: tuple | None = None, hold_twin: bool = True, on_gen=None,
+              first: dict | None = None) -> dict:
     """One run of the port's api in process (``cli.main(["api", ...,
     *extra])`` on a thread, port 0) over the paged block pool
     (``--kv-block-size``), or over the dense slot pool when not ``paged``:
@@ -1574,7 +1689,10 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     captured while the server listened (none: each step is captured once,
     before) and whether the identical greedy pair's texts are equal, which
     the run holds unless ``hold_twin`` is False. ``on_gen(gen)``, when
-    given, runs once the server listens, after the run's own wrappers."""
+    given, runs once the server listens, after the run's own wrappers.
+    ``first``, when given, is a body sent alone before the clients. The
+    rates and TTFTs count the 16 clients' requests alone, not ``first``'s
+    nor those ``observe`` sends."""
     import threading
 
     from dllama_tpu_torch.runtime.graphs import StepGraph
@@ -1662,6 +1780,8 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
         if not th.is_alive():
             fail(f"{case} {dtype}: the api server exited before listening")
     url = f"http://127.0.0.1:{box['server'].server_address[1]}"
+    if first is not None and post_chat(url, first).get("status") != 200:
+        fail(f"{case} {dtype}: the first body failed")
     bodies = serving_bodies()
     if picks is not None:
         bodies = [bodies[i] for i in picks]
@@ -1680,6 +1800,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
             if i == twin:
                 a_started.set()  # a failed 14 must not hold its twin back
 
+    n_before = len(reqs)
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
     for c in clients:
@@ -1687,6 +1808,7 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     for c in clients:
         c.join(timeout=900)
     wall_s = time.perf_counter() - t0
+    timed = reqs[n_before:]  # the clients' requests: the first body and observe's are not
     gen = box["gen"]
     captured = StepGraph.captures - box["captures"]  # while the clients were served
     observed = observe(url, gen, reqs, box["replays"]) if observe is not None else None
@@ -1695,8 +1817,8 @@ def serve_run(model: str, tok: str, n_layers: int, dtype: str, extra: list[str],
     launches = read_counts()
     if th.is_alive() or box.get("rc") != 0:
         fail(f"{case} {dtype}: the api server did not stop cleanly")
-    n_tokens = [len(r.tokens) for r in reqs]
-    ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in reqs if r.t_first_token]
+    n_tokens = [len(r.tokens) for r in timed]
+    ttft = [(r.t_first_token - r.t_submit) / 1e6 for r in timed if r.t_first_token]
     lat = sorted(r["latency_ms"] for r in results if r and "latency_ms" in r)
     bad = [(i, r) for i, r in enumerate(results)
            if r is None or r.get("status") != 200 or not r.get("text")]
@@ -1741,23 +1863,32 @@ def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
     default Q80 sync buffers): 16 concurrent clients, then the checks and
     the numbers of the run. The f32 run also holds the observability of
     slice 11 (:func:`observe_serving`) and writes its spans with
-    ``--trace-out``."""
-    from dllama_tpu_torch.runtime import flightrec, telemetry
+    ``--trace-out``, and the device observability (the compile ledger, the
+    live profile, the roofline) after the timed clients
+    (:func:`observe_device`)."""
+    from dllama_tpu_torch.runtime import flightrec, introspection, telemetry
+    from dllama_tpu_torch.runtime.graphs import StepGraph
 
     for dtype in ("f32", "bf16"):
-        trace_out = observe = None
+        trace_out = observe = first = None
+        extra = []
         if dtype == "f32":
-            # this run's telemetry alone: the earlier phases' counts go
+            # this run's telemetry and compile ledger alone: the earlier
+            # phases' counts and programs go
             telemetry.registry().reset()
             telemetry.tracer()._ring.clear()
             flightrec.recorder().reset()
+            introspection.ledger().reset()
             fd, trace_out = tempfile.mkstemp(prefix="dllama_spans_", suffix=".jsonl")
             os.close(fd)
-            observe = observe_serving
+            extra = ["--trace-out", trace_out, "--stats", str(STATS_S)]
+            captures0 = StepGraph.captures
+            first = WIDTHS_BODY
+            observe = lambda *a: dict(observe_serving(*a), device=observe_device(  # noqa: E731
+                a[0], a[2], StepGraph.captures - captures0))
         try:
-            rec, reqs = serve_run(model, tok, n_layers, dtype,
-                                  ["--trace-out", trace_out] if trace_out else [],
-                                  observe=observe)
+            rec, reqs = serve_run(model, tok, n_layers, dtype, extra, observe=observe,
+                                  first=first)
             if trace_out:
                 rec["observed"]["trace_out"] = check_trace_out(trace_out, reqs)
                 rec["observed"]["serving_before"] = SERVING_BEFORE
@@ -1771,6 +1902,123 @@ def serving(model: str, tok: str, n_layers: int, summary: dict) -> None:
         if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
             fail(f"serving {dtype}: a kernel of the path never launched: {launches}")
         torch.cuda.empty_cache()
+
+
+STATS_S = 5            # --stats of the observed serving run
+# the observed run's first request: its prefill of 490 tokens (the template
+# adds 90 to the 400 bytes) runs one chunk of each width (256, 128, 64, 32)
+# in a row (any of 480 to 511 tokens would), so every prefill program
+# of the scope has run before the retrace sentinel can mark it steady, and
+# the 16 clients' chunks, all of these widths, must then file nothing new
+WIDTHS_BODY = {"messages": [{"role": "user", "content": "w" * 400}], "max_tokens": 2,
+               "temperature": 0.0}
+PROFILE_AFTER_S = 0.5  # the live profile's start after its request's: decode under way
+# the request the live profile watches (after the timed clients, so their
+# rates stay unprofiled): its prefill widths are the clients', and its 256
+# tokens decode for a few seconds at 8 layers
+PROFILE_BODY = {"messages": [{"role": "user", "content": "profile window"}],
+                "max_tokens": 256, "temperature": 0.0}
+RAW_FRACTION_MAX = 1.05  # above it a program's byte or operation count is wrong
+
+
+def _post_path(url: str, path: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=b"{}",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def profile_live(url: str) -> dict:
+    """``POST /debug/profile?ms=500&ops=1`` while :data:`PROFILE_BODY`
+    decodes."""
+    import threading
+
+    done: dict = {}
+    th = threading.Thread(target=lambda: done.update(post_chat(url, PROFILE_BODY)))
+    th.start()
+    time.sleep(PROFILE_AFTER_S)
+    t0 = time.perf_counter()
+    status, body = _post_path(url, "/debug/profile?ms=500&ops=1")
+    seconds = time.perf_counter() - t0
+    th.join(timeout=600)
+    if done.get("status") != 200:
+        fail(f"the request under the live profile: {done}")
+    return dict(status=status, body=body, seconds=seconds)
+
+
+def observe_device(url: str, reqs: list, captures: int) -> dict:
+    """The device observability of the observed serving run, after its
+    timed requests: a live profile while one more request decodes
+    (:func:`profile_live`) saw steps and classified every kernel of the
+    port; ``/debug/compiles`` lists as many
+    captures as ``StepGraph.captures`` counted in the run and no unexpected
+    retrace after the scope went steady; ``/debug/roofline``'s decode
+    summary lies in (0, 1] and no program's raw fraction tops
+    :data:`RAW_FRACTION_MAX`; the ``--stats`` line carries ``compiles=``
+    and ``roofline=``. ``reqs[0]`` is :data:`WIDTHS_BODY`'s request."""
+    from dllama_tpu_torch.runtime import telemetry
+
+    live = profile_live(url)
+    t0 = time.perf_counter()
+    n_first = len(reqs[0].prompt_ids) - 1
+    if not 480 <= n_first <= 511:
+        fail(f"the widths body prefills {n_first} tokens: want 480 to 511 (one chunk of "
+             f"each width)")
+    prof = live.get("body") or {}
+    att = prof.get("op_attribution") or {}
+    ours = [o for o in att.get("top_ops", ()) if any(k in o["name"] for k in PORT_KERNELS)]
+    if (live.get("status") != 200 or not prof.get("n_steps") or not att.get("n_lanes")
+            or not ours or any(o["class"] == "other" for o in ours)):
+        fail(f"POST /debug/profile while serving: {live.get('status')}, "
+             f"{prof.get('n_steps')} steps, {att.get('n_lanes')} lanes, the port's "
+             f"kernels {[(o['name'][:40], o['class']) for o in ours]}")
+    _, compiles = _get_json(url + "/debug/compiles")
+    listed = sum(1 for e in compiles["events"] if e.get("kind") == "capture")
+    unexpected = sum(p["unexpected"] for p in compiles["programs"])
+    steady = compiles["steady"]
+    if listed != captures or unexpected or not steady or not all(steady.values()):
+        fail(f"/debug/compiles: {listed} captures listed, StepGraph counted {captures}; "
+             f"{unexpected} unexpected; steady {steady}")
+    _, roof = _get_json(url + "/debug/roofline")
+    summary = roof.get("summary") or {}
+    raw = max((p.get("raw_fraction", 0.0) for p in roof["programs"]), default=0.0)
+    if not 0.0 < summary.get("roofline_fraction", 0.0) <= 1.0 or raw > RAW_FRACTION_MAX:
+        fail(f"/debug/roofline: summary {summary}, largest raw fraction {raw}")
+    line = telemetry.stats_line()
+    frags = {k: next((p for p in line.split() if p.startswith(k + "=")), None)
+             for k in ("compiles", "roofline", "retrace")}
+    if not frags["compiles"] or not frags["roofline"] or frags["retrace"]:
+        fail(f"--stats line {line!r}: want compiles= and roofline=, no retrace=")
+    rec = dict(profile=dict(status=live["status"], seconds=live["seconds"],
+                            n_steps=prof["n_steps"], sync_frac=prof["sync_frac"],
+                            classes=att["classes"], n_lanes=att["n_lanes"],
+                            top_ops=[dict(name=o["name"][:60], cls=o["class"],
+                                          ms=o["ms_per_step"]) for o in att["top_ops"][:8]],
+                            collective_traffic=prof.get("collective_traffic")),
+               compiles=dict(captures=listed, programs=len(compiles["programs"]),
+                             events=len(compiles["events"]), steady=steady,
+                             unexpected=unexpected,
+                             analysis={p["program"]: dict(
+                                 bytes=p["analysis"]["hbm_total_bytes"],
+                                 ops=p["analysis"]["flops"],
+                                 pool=p["analysis"]["hbm_bytes"]["temp"])
+                                 for p in compiles["programs"] if p["analysis"]}),
+               roofline=dict(ceilings=roof["ceilings"], summary=summary, raw_max=raw,
+                             programs=[{k: p.get(k) for k in (
+                                 "program", "family", "roofline_fraction", "bound",
+                                 "achieved_hbm_gbps", "wall_ms", "no_evidence")}
+                                 for p in roof["programs"]]),
+               stats={k: v for k, v in frags.items() if v},
+               seconds=time.perf_counter() - t0)
+    print(f"⏱️ live profile took {live['seconds']:.1f} s, the compiles / roofline / stats "
+          f"checks {rec['seconds']:.1f} s", flush=True)
+    return rec
 
 
 # The earlier f32 paged serving run (D2, PERF.md section 5), the newest serving
@@ -3172,10 +3420,9 @@ def ring_cases(timer: Timer, results: list) -> None:
             # the work this data needs: keys up to the newest visible one; q
             # read, acc, m and l written in f32
             seen = [max(0, min(rows, q0 + t - kv0 + 1)) for t in range(T)]
-            n_bytes = (2 * max(seen) * KV_HEADS * HEAD_DIM * k.element_size()
-                       + T * HEADS * HEAD_DIM * (q_g.element_size() + 4) + 2 * T * HEADS * 4)
-            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * HEADS * sum(seen),
-                               "bf16" if path == "tc" else "f32")
+            b_ms, b_by = bound("K3s", T=T, heads=HEADS, kv_heads=KV_HEADS, head_dim=HEAD_DIM,
+                               q_elt=q_g.element_size(), kv_elt=k.element_size(), seen=seen,
+                               path=path)
             rec = dict(case="ring_block", kernel="K3s", mode=mode, phase=name, T=T,
                        q_pos0=q0, kv_pos0=kv0, shard_rows=rows,
                        n_splits=n_splits, path=path,
@@ -3674,9 +3921,7 @@ def tp_cases(timer: Timer, results: list) -> None:
                 want = qm.quant_matmul_plain(x, w, fast=fast).float()
                 torch.cuda.synchronize()
                 err, scale = (got - want).abs().max().item(), want.abs().max().item()
-                elt = 2 if fast else 4
-                n_bytes = K * N + (K // 32) * N * elt + M * K * elt + M * N * 4
-                b_ms, b_by = bound(n_bytes, 2.0 * M * K * N, "bf16" if fast else "f32")
+                b_ms, b_by = bound(kname, M=M, K=K, N=N, fast=fast, path=path)
                 rec = dict(case="matmul", tp=TP, kernel=kname, mode=mode, codes="q40",
                            weight=name, M=M, K=K, N=N, splits=splits, path=path,
                            max_abs_err=err, max_abs_ref=scale,
@@ -3703,11 +3948,9 @@ def tp_cases(timer: Timer, results: list) -> None:
             torch.cuda.synchronize()
             qs = q.transpose(1, 2).to(k.dtype)
             mask = torch.arange(MAX_SEQ, device=DEV)[None, :] <= positions[0][:, None]
-            visible = sum(pos + t + 1 for t in range(T))
-            n_bytes = (2 * T * heads * HEAD_DIM * q.element_size()
-                       + 2 * (pos + T) * kv_heads * HEAD_DIM * k.element_size())
-            b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * heads * visible,
-                               "bf16" if path == "tc" else "f32")
+            b_ms, b_by = bound("K3", T=T, heads=heads, kv_heads=kv_heads, head_dim=HEAD_DIM,
+                               q_elt=q.element_size(), kv_elt=k.element_size(), depths=[pos],
+                               path=path)
             rec = dict(case="attention", tp=TP, kernel="K3", mode=mode, phase=phase, T=T,
                        start_pos=pos, S=MAX_SEQ, head_dim=HEAD_DIM, heads=heads,
                        kv_heads=kv_heads, n_splits=n_splits, path=path,
@@ -3731,10 +3974,9 @@ def tp_cases(timer: Timer, results: list) -> None:
         n_splits = pa.paged_attention.last_splits
         want = pa.paged_attention_plain(q, kp, vp, tables, positions, HEAD_DIM)
         torch.cuda.synchronize()
-        keys = sum(d + 1 for d in RAGGED)
-        n_bytes = (2 * keys * kv_heads * HEAD_DIM * kp.element_size()
-                   + 2 * SLOTS * heads * HEAD_DIM * q.element_size())
-        b_ms, b_by = bound(n_bytes, 4.0 * HEAD_DIM * heads * keys, "f32")
+        b_ms, b_by = bound("K4", T=1, heads=heads, kv_heads=kv_heads, head_dim=HEAD_DIM,
+                           q_elt=q.element_size(), kv_elt=kp.element_size(), depths=RAGGED,
+                           rows=tables.shape[1] * BLOCK)
         rec = dict(case="paged_attention", tp=TP, kernel="K4", mode=mode, B=SLOTS, T=1,
                    block_size=BLOCK, positions=RAGGED, heads=heads, kv_heads=kv_heads,
                    n_splits=n_splits, **out_errs(got, want, None),
@@ -4428,10 +4670,14 @@ def obs_cost(summary: dict) -> None:
     an armed watchdog guard (enter, exit, the monitor's wake-up), the
     ``step_hang`` and ``step`` failpoint checks, one flight-recorder tick
     (begin, a dispatch, end), the step histogram, the token counter, the
-    occupancy, KV and block gauges, and the per-slot attribution of 8
-    slots; 10000 steps, host clock. There is no switch to turn it off (the
-    JAX package has none either)."""
-    from dllama_tpu_torch.runtime import failpoints, flightrec, telemetry
+    occupancy, KV and block gauges, the per-slot attribution of 8 slots,
+    and the compile ledger's share (the tick's two reads of the scope's
+    count and the steady check, the replay's hit and its per-replay launch,
+    byte and operation counts of K2 and K4); 10000 steps, host clock. There
+    is no switch to turn it off (the JAX package has none either)."""
+    import types
+
+    from dllama_tpu_torch.runtime import failpoints, flightrec, introspection, telemetry
     from dllama_tpu_torch.runtime.watchdog import StepWatchdog
 
     reg = telemetry.Registry()
@@ -4446,10 +4692,23 @@ def obs_cost(summary: dict) -> None:
                               reg.gauge(telemetry.KV_BLOCKS_USED),
                               reg.gauge(telemetry.KV_BLOCKS_SHARED))
     slots = [[0.0] for _ in range(SLOTS)]
+    led = introspection.CompileLedger()
+    entry = led.register("cost", "paged_step")
+    # what a replay adds to K2 (8 layers' matmuls and the head) and K4
+    per_replay = [(types.SimpleNamespace(launches=0, moved_bytes=0.0, ops=0.0), (n, 1.0, 1.0))
+                  for n in (7 * 8 + 1, 8)]
     n = 10000
     try:
         t0 = time.perf_counter()
         for i in range(n):
+            before = led.compile_count("cost")
+            for fn, (k, b, o) in per_replay:
+                fn.launches += k
+                fn.moved_bytes += b
+                fn.ops += o
+            entry["hits"] += 1
+            if not led.steady("cost") and led.compile_count("cost") == before:
+                led.mark_steady("cost")
             rec_.begin_tick(queue_depth=0, n_admissions=0)
             failpoints.fire("step")
             with wd.guard("batch_step"):
@@ -6644,13 +6903,14 @@ def random_expert_planes(K: int, N: int, fast: bool, g: torch.Generator):
 
 
 def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, fast: bool,
-            x, we, offsets, n_bytes: float, n_ops: float, ops_kind: str, library=None,
-            library_note: str | None = None, bit_exact: bool = False, **fields) -> dict:
+            x, we, offsets, used: int, library=None, library_note: str | None = None,
+            bit_exact: bool = False, **fields) -> dict:
     """One K5 case: the kernel against its plain version on the same
     inputs (``TOL[mode]`` of max|plain|, or bit for bit) and, on the
     tensor-core kernel, against its twin ``moe_matmul_tc_plain``
     (:data:`TC_TWIN_TOL` of max|twin|, a8 bit for bit), timed with the plain
-    version and ``library`` (one PyTorch call, or None)."""
+    version and ``library`` (one PyTorch call, or None); its bound counts the
+    planes of the ``used`` groups that hold rows."""
     from dllama_tpu_torch.ops import moe_matmul as mm
 
     got = mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast)
@@ -6675,8 +6935,9 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
     plain_ms = timer(lambda: mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast))
     timer.n = n
     lib_ms = timer(library) if library is not None else None
-    b_ms, b_by = bound(n_bytes, n_ops, ops_kind)
     _, K, N = mm._planes(we, decoder)
+    b_ms, b_by = bound("K5", R=x.shape[0], K=K, N=N, used=used, decoder=decoder, fast=fast,
+                       plane_elt=we.element_size() if decoder == "dense" else 4)
     rec = dict(case="moe_matmul", kernel="K5", mode=mode, decoder=decoder, what=what,
                rows=x.shape[0], K=K, N=N, max_abs_err=err, max_abs_ref=scale,
                bit_equal=equal, twin_err=twin_err, twin_ref=twin_scale, path=path,
@@ -6763,7 +7024,6 @@ def moe_cases(timer: Timer, results: list) -> None:
         for name, K, N in MOE_SHAPES:
             we = random_expert_planes(K, N, fast, g)
             dq = dequantize_weight(we, torch.bfloat16)  # the grouped yardstick's planes
-            elt = 2 if fast else 4
             routings = [(f"{name} {label} {mode}", routed_offsets(n_tok, g), n_tok, {})
                         for label, n_tok in MOE_TOKENS]
             if name in ("we1", "we2"):
@@ -6777,9 +7037,7 @@ def moe_cases(timer: Timer, results: list) -> None:
                 # exact on the tensor cores is three bf16 products (x in
                 # three parts), as K2's tensor-core path counts it
                 k5_case(timer, results, what=what, mode=mode, decoder="q", fast=fast, x=x,
-                        we=we, offsets=offsets,
-                        n_bytes=used * (K * N + K // 32 * N * elt) + R * K * elt + R * N * 4,
-                        n_ops=(1 if fast else 3) * 2.0 * R * K * N, ops_kind="bf16",
+                        we=we, offsets=offsets, used=used,
                         library=grouped_mm_library(x, dq, offsets),
                         library_note=GROUPED_MM_NOTE, weight=name, tokens=n_tok,
                         experts_used=used, **extra)
@@ -6798,11 +7056,7 @@ def moe_cases(timer: Timer, results: list) -> None:
                     w = tw[decoder == "a8"]
                     k5_case(timer, results, what=f"turbo {decoder} {name} rows={R}",
                             mode=mode, decoder=decoder, fast=False, x=x, we=w,
-                            offsets=offsets,
-                            n_bytes=used * (K * N + 4 * N) + R * K * (1 if decoder == "a8"
-                                                                        else 2) + R * N * 4,
-                            n_ops=2.0 * R * K * N,
-                            ops_kind="int8" if decoder == "a8" else "bf16",
+                            offsets=offsets, used=used,
                             library=(grouped_mm_library(x, pre, offsets)
                                      if decoder == "prescaled" else None),
                             library_note=GROUPED_MM_NOTE, bit_exact=decoder == "a8",
@@ -6815,10 +7069,7 @@ def moe_cases(timer: Timer, results: list) -> None:
                 R = SLOTS * MOE_ACTIVE
                 x = torch.randn((R, K), generator=g, device=DEV).to(dt)
                 k5_case(timer, results, what=f"dense {name} rows={R} {mode}", mode=mode,
-                        decoder="dense", fast=False, x=x, we=dense, offsets=offsets,
-                        n_bytes=used * K * N * dense.element_size() + R * K * x.element_size()
-                        + R * N * 4, n_ops=2.0 * R * K * N,
-                        ops_kind="bf16" if fast else "f32",
+                        decoder="dense", fast=False, x=x, we=dense, offsets=offsets, used=used,
                         library=grouped_mm_library(x, dense, offsets) if fast else None,
                         library_note="torch._grouped_mm over the same bf16 planes",
                         weight=name, tokens=SLOTS, experts_used=used)
@@ -6855,10 +7106,8 @@ def moe_cases(timer: Timer, results: list) -> None:
                     note = "torch.matmul over the codes upcast to bf16 beforehand"
                 k5_case(timer, results, what=f"turbo {dec} {name} M={M}",
                         mode="exact" if a8 else "fast", decoder=dec, fast=False, x=x,
-                        we=tw1, offsets=None,
-                        n_bytes=K * N + 4 * N + M * K * (1 if a8 else 2) + M * N * 4,
-                        n_ops=2.0 * M * K * N, ops_kind="int8" if a8 else "bf16",
-                        library=lib, library_note=note, bit_exact=a8, weight=name, M=M,
+                        we=tw1, offsets=None, used=1, library=lib, library_note=note,
+                        bit_exact=a8, weight=name, M=M,
                         drift_vs_exact=drift, drift_bound=TURBO_MATMUL_DRIFT[dec])
                 if not drift < TURBO_MATMUL_DRIFT[dec]:
                     fail(f"turbo {dec} {name} M={M}: drift {drift:.3g} from the exact "
@@ -7893,6 +8142,7 @@ def main() -> int:
         t0 = time.perf_counter()
         main_path(model, tok, text, args.layers, e2e)
         print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
+        e2e["f32"]["profiled_inference"] = profiled_inference(long_model, tok)
         t0 = time.perf_counter()
         graphs_phase(long_model, tok, e2e)
         print(f"⏱️ graphs took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7911,7 +8161,7 @@ def main() -> int:
         print(f"⏱️ serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         for dtype in ("f32", "bf16"):
-            prof = paged_step_profile(long_model, tok, dtype)
+            prof = paged_step_profile(long_model, tok, dtype, ops=True)
             print(json.dumps(prof), flush=True)
             e2e[dtype]["paged_step_profile"] = prof
             torch.cuda.empty_cache()

@@ -63,10 +63,16 @@ def build(names=SOURCES) -> dict[str, float]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` process per source, all running at once. Returns seconds per
     source built (0.0 for a reused library); raises with the compiler's
-    output when a build fails."""
+    output when a build fails. Each source is filed in the compile ledger
+    (``runtime/introspection.py``): its seconds, or that it was reused."""
+    from ..runtime.introspection import ledger
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: lib_path(n) for n in names if not lib_path(n).exists()}
     secs = {n: 0.0 for n in names}
+    for n in names:
+        if n not in todo:
+            ledger().record_build(n, 0.0, reused=True)
     if not todo:
         return secs
     nvcc = nvcc_path()
@@ -88,6 +94,8 @@ def build(names=SOURCES) -> dict[str, float]:
         os.replace(tmp, todo[n])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for n in todo:
+        ledger().record_build(n, secs[n], reused=False)
     return secs
 
 

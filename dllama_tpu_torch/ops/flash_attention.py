@@ -19,7 +19,9 @@ kernel merges the partial ``(acc, m, l)`` in split order.
 (:func:`dllama_tpu_torch.ops.attention.attention`, its plain version) on a
 CPU tensor, and on a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts kernel launches (one per call, split or
-not) and ``flash_attention.last_splits`` holds the ``n_splits`` of the last
+not), ``moved_bytes`` and ``ops`` every call's bytes and operations
+(``ops/cost.py``; a launch whose positions are on the device counts the
+whole cache), and ``flash_attention.last_splits`` holds the ``n_splits`` of the last
 launch (1: single pass).
 
 K3s (:func:`flash_block_stats`) replaces the JAX package's
@@ -57,6 +59,7 @@ import math
 import torch
 
 from .attention import attention
+from .cost import count, launch_cost
 from .cuda_build import SMS, check, load, on_card
 
 # the kernels index folded query rows (B * n_kv * TQ) and cache rows (B *
@@ -190,7 +193,15 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
     ``start_pos`` an int or an int tensor ``[B]`` (ragged rows)."""
     B, T, n_heads, D = q.shape
     n_kv, S = k_cache.shape[1], k_cache.shape[2]
+    # device positions are not read back: their call counts the whole cache
+    cost = lambda: launch_cost(  # noqa: E731
+        "K3", T=T, heads=n_heads, kv_heads=n_kv, head_dim=D, q_elt=q.element_size(),
+        kv_elt=k_cache.element_size(), rows=S,
+        depths=[S - T] * B if torch.is_tensor(start_pos) else [int(start_pos)] * B,
+        path=_attn_path(k_cache.dtype, _attn_splits(B, n_kv, T * (n_heads // n_kv), S),
+                        q.dtype))
     if q.device.type == "cpu":
+        count(flash_attention, cost())
         base = (start_pos[:, None] if torch.is_tensor(start_pos)
                 else torch.full((B, 1), int(start_pos)))
         positions = (base + torch.arange(T)[None, :]).expand(B, T)
@@ -219,6 +230,7 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
             int(q.dtype == torch.bfloat16), part_ptr, n_splits,
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    count(flash_attention, cost())
     flash_attention.last_splits = n_splits
     flash_attention.last_path = path
     check(lib, rc, "flash_attention")
@@ -226,6 +238,8 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tenso
 
 
 flash_attention.launches = 0
+flash_attention.moved_bytes = 0.0
+flash_attention.ops = 0.0
 flash_attention.last_splits = 0
 flash_attention.last_path = ""
 
@@ -339,7 +353,15 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
     the block gets exactly ``acc = 0``, ``l = 0``, ``m = -inf``."""
     B, n_kv, TQ, D = q_g.shape
     S = k_block.shape[2]
+    cost = lambda: launch_cost(  # noqa: E731
+        "K3s", T=t, heads=n_kv * (TQ // t), kv_heads=n_kv, head_dim=D, B=B,
+        q_elt=q_g.element_size(), kv_elt=k_block.element_size(),
+        # device positions: the whole block
+        seen=([S] * t if torch.is_tensor(q_pos0)
+              else [max(0, min(S, int(q_pos0) + i - kv_pos0 + 1)) for i in range(t)]),
+        path=_attn_path(k_block.dtype, _attn_splits(B, n_kv, TQ, S), q_g.dtype))
     if q_g.device.type == "cpu":
+        count(flash_block_stats, cost())
         return flash_block_stats_plain(q_g, k_block, v_block, q_pos0, kv_pos0, head_dim, t)
     if q_g.device.type != "cuda":
         raise ValueError(f"flash_block_stats: unsupported device {q_g.device}")
@@ -350,6 +372,7 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
                          f"<= {MAX_ROWS})")
     _check_cache("flash_block_stats", q_g.device, k_block, v_block)
     q_dtype = q_g.dtype
+    c = cost()  # of the queries as given
     q_g = q_g.float().contiguous()
     acc = torch.empty_like(q_g)
     m = torch.empty((B, n_kv, TQ), dtype=torch.float32, device=q_g.device)
@@ -367,6 +390,7 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
             CACHE_KINDS[k_block.dtype], int(q_dtype == torch.bfloat16), part_ptr, n_splits,
             torch.cuda.current_stream(q_g.device).cuda_stream)
     flash_block_stats.launches += 1
+    count(flash_block_stats, c)
     flash_block_stats.last_splits = n_splits
     flash_block_stats.last_path = path
     check(lib, rc, "flash_block_stats")
@@ -374,6 +398,8 @@ def flash_block_stats(q_g: torch.Tensor, k_block: torch.Tensor, v_block: torch.T
 
 
 flash_block_stats.launches = 0
+flash_block_stats.moved_bytes = 0.0
+flash_block_stats.ops = 0.0
 flash_block_stats.last_splits = 0
 flash_block_stats.last_path = ""
 

@@ -25,6 +25,7 @@ argument, fixed in the config when the engine is built.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple, Union
 
 import torch
@@ -180,6 +181,37 @@ def _weight_device(w) -> torch.device:
     return w.codes.device if isinstance(w, QuantizedWeight) else w.device
 
 
+# the tp merges' instruments (runtime/profiling.py): every merge adds what it
+# moves between rank 0 (x's device) and the other ranks to MERGES, whether
+# or not the ranks share a card; under a profiler capture its copies and
+# sums run inside a ``tp_merge`` range, which the Eval/Sync split reads as
+# sync time
+MERGE_SPAN = "tp_merge"
+MERGES = {"n": 0, "sent_bytes": 0, "recv_bytes": 0, "by_kind": {}}
+_annotate = [False]
+
+
+def annotate_merges(on: bool) -> None:
+    """Wrap every merge's copies and sums in a ``tp_merge`` profiler range
+    (on during a capture only: a range costs a dispatcher call)."""
+    _annotate[0] = bool(on)
+
+
+def _merge_span():
+    return torch.profiler.record_function(MERGE_SPAN) if _annotate[0] else nullcontext()
+
+
+def _note_merge(kind: str, sent: list[torch.Tensor], recv: list[torch.Tensor]) -> None:
+    """Count one merge: ``sent`` went from rank 0 to the other ranks,
+    ``recv`` came back (host arithmetic on shapes)."""
+    sb = sum(t.numel() * t.element_size() for t in sent)
+    rb = sum(t.numel() * t.element_size() for t in recv)
+    MERGES["n"] += 1
+    MERGES["sent_bytes"] += sb
+    MERGES["recv_bytes"] += rb
+    MERGES["by_kind"][kind] = MERGES["by_kind"].get(kind, 0) + rb
+
+
 def merge_shards(x: torch.Tensor, w: ShardedWeight, full, partial) -> torch.Tensor:
     """The tensor-parallel product of ``x [..., K]`` (on the lead device)
     and ``w``, merged on ``x``'s device, as the JAX package's ``shard_map``
@@ -190,19 +222,26 @@ def merge_shards(x: torch.Tensor, w: ShardedWeight, full, partial) -> torch.Tens
     order (the reference's merge-add), leaving the cast to the caller; a
     replicated weight runs ``full`` once, on the lead's copy. Each shard's
     input goes to its device and its output comes back to ``x``'s with
-    ``.to``, which does nothing for shards on ``x``'s own device."""
+    ``.to``, which does nothing for shards on ``x``'s own device. The
+    copies and the concatenation or sum are the merge (:data:`MERGES`,
+    :data:`MERGE_SPAN`); the shards' products are not."""
     if w.split == "":
         return full(x, w.shards[0])
-    if w.split == "out":
-        return torch.cat([full(x.to(_weight_device(s)), s).to(x.device) for s in w.shards],
-                         dim=-1)
-    if w.split != "in":
+    if w.split not in ("out", "in"):
         raise ValueError(f"ShardedWeight.split must be out|in|'', got {w.split!r}")
     k = x.shape[-1] // len(w.shards)
-    y = None
-    for j, s in enumerate(w.shards):
-        part = partial(x[..., j * k:(j + 1) * k].to(_weight_device(s)), s).to(x.device)
-        y = part if y is None else y + part
+    with _merge_span():
+        xs = [(x if w.split == "out" else x[..., j * k:(j + 1) * k]).to(_weight_device(s))
+              for j, s in enumerate(w.shards)]
+    outs = [(full if w.split == "out" else partial)(xj, s) for xj, s in zip(xs, w.shards)]
+    with _merge_span():
+        if w.split == "out":
+            y = torch.cat([o.to(x.device) for o in outs], dim=-1)
+        else:
+            y = outs[0].to(x.device)
+            for o in outs[1:]:
+                y = y + o.to(x.device)
+    _note_merge("concat" if w.split == "out" else "sum", xs[1:], outs[1:])
     return y
 
 

@@ -45,7 +45,9 @@ applies each Q40 block's scale once to the block's f32 sum;
 the kernel is held against on the card; nothing on the main path calls
 it). The wrapper runs the plain version on a CPU tensor and on a CUDA
 tensor launches K5 or raises. ``moe_matmul.launches`` counts launches (one
-a call, whichever kernel ran); ``last_splits`` holds the K split of the
+a call, whichever kernel ran), ``moved_bytes`` and ``ops`` every call's
+bytes and operations (``ops/cost.py``, every group counted: the offsets
+stay on the device); ``last_splits`` holds the K split of the
 last one (:func:`_moe_splits`; 1: none), ``last_kernel`` its kernel
 (``"tc"`` or ``"simt"``).
 """
@@ -57,6 +59,7 @@ import ctypes
 import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
+from .cost import count, launch_cost
 from .cuda_build import SMS, check, load, on_card
 from .linear import QuantizedWeight, dequantize_weight
 from .quant_matmul import _codes_arg, q40_gemv_tc_exact_plain
@@ -304,12 +307,17 @@ def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: st
     """K5: ``x [R, K]`` (rows sorted by group) against the stack ``we`` with
     int32 ``offsets [G + 1]`` on ``x``'s device (or ``None`` for one group);
     returns f32 ``[R, N]``. The plain version on a CPU tensor."""
+    G, K, N = _planes(we, decoder)
+    R = x.shape[0]
+    # the offsets stay on the device: every group that can hold a row counts
+    cost = lambda: launch_cost(  # noqa: E731
+        "K5", R=R, K=K, N=N, used=min(G, R) if offsets is not None else 1, decoder=decoder,
+        fast=fast, plane_elt=we.element_size() if decoder == "dense" else 4)
     if x.device.type == "cpu":
+        count(moe_matmul, cost())
         return moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
     if x.device.type != "cuda":
         raise ValueError(f"moe_matmul: unsupported device {x.device}")
-    G, K, N = _planes(we, decoder)
-    R = x.shape[0]
     if x.dim() != 2 or x.shape[1] != K:
         raise ValueError(f"moe_matmul: x {tuple(x.shape)} against planes [{G}, {K}, {N}]")
     if K % Q40_BLOCK_SIZE or N % 4:
@@ -342,6 +350,7 @@ def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: st
                                 y.data_ptr(), ptr(part), R, K, N, G, splits, k_split, dec,
                                 sbf16, q80, torch.cuda.current_stream(x.device).cuda_stream)
     moe_matmul.launches += 1
+    count(moe_matmul, cost())
     moe_matmul.last_splits = splits
     moe_matmul.last_kernel = kernel
     check(lib, rc, "moe_matmul")
@@ -349,5 +358,7 @@ def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: st
 
 
 moe_matmul.launches = 0
+moe_matmul.moved_bytes = 0.0
+moe_matmul.ops = 0.0
 moe_matmul.last_splits = 0
 moe_matmul.last_kernel = ""

@@ -27,7 +27,9 @@ split order.
 oracle, its plain version) on a CPU tensor, and on a CUDA tensor launches
 the kernel or raises. The pool is f32, bf16 or float8 e4m3 (``--kv-dtype
 f8``), widened exactly to f32 as it is read. ``paged_attention.launches`` counts kernel launches
-(one per call, split or not) and ``paged_attention.last_splits`` holds the
+(one per call, split or not), ``moved_bytes`` and ``ops`` every call's bytes
+and operations (``ops/cost.py``, keys counted to the block table's reach:
+the positions stay on the device), and ``paged_attention.last_splits`` holds the
 ``n_splits`` of the last launch (1: single pass).
 """
 
@@ -39,6 +41,7 @@ import math
 import torch
 
 from .attention import attention
+from .cost import count, launch_cost
 from .cuda_build import SMS, check, load, on_card
 from .flash_attention import (CACHE_KINDS, _attn_splits, _split_scratch, fold_queries,
                               unfold_output)
@@ -119,7 +122,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     B, T, n_heads, D = q.shape
     n_blocks, n_kv, bs, _ = k_pool.shape
     M = tables.shape[1]
+    # the positions stay on the device: a call counts the table's reach
+    cost = lambda: launch_cost(  # noqa: E731
+        "K4", T=T, heads=n_heads, kv_heads=n_kv, head_dim=D, q_elt=q.element_size(),
+        kv_elt=k_pool.element_size(), depths=[M * bs - T] * B, rows=M * bs)
     if q.device.type == "cpu":
+        count(paged_attention, cost())
         return paged_attention_plain(q, k_pool, v_pool, tables, positions, head_dim)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
@@ -153,12 +161,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             kv_mul, 1.0 / math.sqrt(head_dim), CACHE_KINDS[k_pool.dtype],
             part_ptr, n_splits, torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
+    count(paged_attention, cost())
     paged_attention.last_splits = n_splits
     check(lib, rc, "paged_attention")
     return unfold_output(out, T, n_heads).to(q.dtype)
 
 
 paged_attention.launches = 0
+paged_attention.moved_bytes = 0.0
+paged_attention.ops = 0.0
 paged_attention.last_splits = 0
 
 

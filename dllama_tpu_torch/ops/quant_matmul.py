@@ -35,6 +35,9 @@ Both live in ``csrc/quant_matmul.cu`` (see its header for the full note).
 Each wrapper runs :func:`quant_matmul_plain` — the plain PyTorch version of
 the same function — on a CPU tensor, and on a CUDA tensor launches its
 kernel or raises. ``launches`` on each wrapper counts kernel launches,
+``moved_bytes`` and ``ops`` the bytes and operations of every call, on the
+card or in the plain version (``ops/cost.py``, the count the roofline
+reads),
 ``last_splits`` holds the K split of its last launch (1: none),
 ``last_codes`` the code kind it read (``"q40"`` or ``"q80"``, from the
 weight's ``kind``: :func:`_codes_arg`), and K2's ``last_path`` the kernel
@@ -51,6 +54,7 @@ import ctypes
 import torch
 
 from ..formats.quants import Q40_BLOCK_SIZE
+from .cost import count, launch_cost
 from .cuda_build import SMS, check, load, on_card
 from .linear import (Q40_CODES, Q80_CODES, QuantizedWeight, ShardedWeight, dequantize_weight,
                      merge_shards)
@@ -166,6 +170,14 @@ def _gemv_path(M: int) -> str:
     return "simt" if M == 1 else "tc"
 
 
+def _cost(kernel: str, x: torch.Tensor, w: QuantizedWeight, fast: bool):
+    """One call's bytes and operations (``ops/cost.py``): K2's kernel by
+    :func:`_gemv_path`, K1 exact on FP32, fast on the tensor cores."""
+    M = x.numel() // x.shape[-1]
+    path = _gemv_path(M) if kernel == "K2" else "tc" if fast else "simt"
+    return launch_cost(kernel, M=M, K=w.in_features, N=w.out_features, fast=fast, path=path)
+
+
 def _lib():
     lib = getattr(_lib, "cached", None)
     if lib is None:
@@ -242,6 +254,7 @@ def _matmul_splits(M: int, K: int, N: int, *, fast: bool = True) -> int:
 def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor:
     """K2: decode-width (M <= 16) Q40/Q80 matmul; returns ``x.dtype``."""
     if x.device.type == "cpu":
+        count(q40_gemv, _cost("K2", x, w, fast))
         return quant_matmul_plain(x, w, fast=fast)
     if x.device.type != "cuda":
         raise ValueError(f"q40_gemv: unsupported device {x.device}")
@@ -261,6 +274,7 @@ def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor
                               int(fast), _codes_arg(w),
                               torch.cuda.current_stream(x.device).cuda_stream)
     q40_gemv.launches += 1
+    count(q40_gemv, _cost("K2", x, w, fast))
     q40_gemv.last_splits = splits
     q40_gemv.last_codes = w.kind
     q40_gemv.last_path = _gemv_path(M)
@@ -269,6 +283,8 @@ def q40_gemv(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tensor
 
 
 q40_gemv.launches = 0
+q40_gemv.moved_bytes = 0.0
+q40_gemv.ops = 0.0
 q40_gemv.last_splits = 0
 q40_gemv.last_codes = ""
 q40_gemv.last_path = ""
@@ -279,6 +295,7 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
     Raises for shapes that :func:`supports` refuses (in fast mode
     ``N % 16 != 0`` too)."""
     if x.device.type == "cpu":
+        count(q40_matmul, _cost("K1", x, w, fast))
         return quant_matmul_plain(x, w, fast=fast)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: unsupported device {x.device}")
@@ -296,6 +313,7 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
                                 y.data_ptr(), part.data_ptr(), M, K, N, splits, int(fast),
                                 _codes_arg(w), torch.cuda.current_stream(x.device).cuda_stream)
     q40_matmul.launches += 1
+    count(q40_matmul, _cost("K1", x, w, fast))
     q40_matmul.last_splits = splits
     q40_matmul.last_codes = w.kind
     check(lib, rc, "q40_matmul")
@@ -303,6 +321,8 @@ def q40_matmul(x: torch.Tensor, w: QuantizedWeight, *, fast: bool) -> torch.Tens
 
 
 q40_matmul.launches = 0
+q40_matmul.moved_bytes = 0.0
+q40_matmul.ops = 0.0
 q40_matmul.last_splits = 0
 q40_matmul.last_codes = ""
 

@@ -90,9 +90,19 @@ prefill through :func:`~dllama_tpu_torch.models.llama.forward_with_taps`.
 
 Device memory (:mod:`~dllama_tpu_torch.runtime.hbm`): before anything is
 staged the engine estimates its bytes (``hbm_estimate``) and refuses a
-model that does not fit the card; ``seen_buckets`` and ``measured_bytes``
-(the allocator's peak after each prefill width's first dispatch and each
-graph's capture) feed the serving layer's admission guard.
+model that does not fit the card; ``seen_buckets`` and the compile ledger's
+measured bytes (the allocator's peak after each prefill width's first
+dispatch and each graph's capture) feed the serving layer's admission
+guard.
+
+Compile ledger and profiling (:mod:`~dllama_tpu_torch.runtime.introspection`,
+:mod:`~dllama_tpu_torch.runtime.profiling`): the engine's programs
+(``programs``: prefill, decode, verify, ...) are registered in the ledger
+under its scope, the watchdog's name; each graph capture and each first
+run at a new signature (a prefill width, a tp > 1 step) is filed there with
+what K1-K5 move in it. ``profile_split`` (``--profile-split``) measures the
+Eval/Sync split of the tp merges once (:meth:`measure_split`) and fills each
+step's ``sync_ms``.
 
 Padded prefill tails are safe without masking: pad-position garbage lands in
 KV slots strictly beyond the current position, is invisible to the causal
@@ -120,18 +130,20 @@ from ..parallel.api import MeshPlan, default_devices, make_mesh
 from ..parallel.sharding import default_tp, validate_tp
 from ..tokenizer.bpe import Tokenizer
 from ..tokenizer.sampler import Sampler, xorshift_random_f32
-from . import failpoints, flightrec, numerics, telemetry
+from . import failpoints, flightrec, introspection, numerics, telemetry
 from .graphs import DecodeGraph, VerifyGraph
 from .hbm import check_budget, estimate_device_bytes
 from .kvblocks import validate_block_size
 from .kvcache import F8, HeadShardedKVCache, KVCache, ShardedKVCache, padded_cache_len
+from .profiling import capture_active
 from .speculative import NgramProposer
 from .watchdog import StepWatchdog
 from .weights import WeightIntegrityError, load_params, verify_weights as _verify_all
 
 DEFAULT_N_BATCHES = 32  # reference default nBatches (app.cpp:28)
 
-# engine names for the watchdog (the JAX engine's introspection scopes)
+# engine names: the watchdog's and the compile ledger's scope (the JAX
+# engine's introspection scopes)
 _ENGINE_SEQ = itertools.count(1)
 
 # prefill chunk sizes, largest first: the prompt is evaluated in the largest
@@ -167,6 +179,13 @@ class StepMetrics:
     # token WIDTH of the dispatch (a decode chunk always runs its full k,
     # even when EOS truncation keeps fewer: n_tokens is the kept count)
     width: int = 1
+    # the tp merges' share of ``ms`` (``profile_split``: the measured
+    # program's sync fraction applied to the step's wall)
+    sync_ms: float | None = None
+
+    @property
+    def eval_only_ms(self) -> float | None:
+        return None if self.sync_ms is None else self.ms - self.sync_ms
 
 
 @dataclass
@@ -245,7 +264,7 @@ class InferenceEngine:
                  weight_mode: str = "auto", host_sampling: bool = False,
                  verify_weights: bool = False, numerics_taps: bool = False,
                  numerics_failfast: bool = False, kv_host_blocks: int = 0,
-                 quant_mode: str = "auto"):
+                 quant_mode: str = "auto", profile_split: bool = False):
         from ..ops.linear import QUANT_MODES, turbo_mode
 
         if compute_dtype not in ("float32", "bfloat16"):
@@ -368,14 +387,26 @@ class InferenceEngine:
         self.numerics_taps = bool(numerics_taps)
         self.nf_failfast = bool(numerics_failfast)
         self.canary = None  # numerics.CanarySentinel, wired by the serving layer
-        # prefill widths dispatched so far, and each program's measured bytes
-        # (runtime/hbm.py): the admission guard charges a width not run yet
+        # prefill widths dispatched so far (runtime/hbm.py): the admission
+        # guard charges a width not run yet
         self.seen_buckets: set[int] = set()
-        self.measured_bytes: dict[str, int] = {}
         # step watchdog: every dispatch below runs under its guard; the batch
         # scheduler registers its fail-all in watchdog.on_stall. Budget shape
         # from the DLLAMA_WATCHDOG* knobs (README, "Failure semantics")
         self.watchdog = StepWatchdog(name=f"engine-{next(_ENGINE_SEQ)}")
+        # the compile ledger's scope: every program this engine can run is
+        # registered now, as the JAX engine's jitted wrappers are
+        self.introspection_scope = self.watchdog.name
+        names = ["prefill", "prefill_nll", "decode", "sampled_decode"]
+        names += ["prefill_taps"] * self.numerics_taps + ["verify"] * bool(self.spec_lookup)
+        self.programs = {n: introspection.Program(self.introspection_scope, n)
+                         for n in names}
+        # the Eval/Sync split (--profile-split): measured once, at the end
+        # of the first generation (measure_split)
+        self.profile_split = bool(profile_split)
+        self.split = None          # the decode program's EvalSyncSplit
+        self.split_prefill = None  # the prefill program's
+        self.traffic = None        # one decode step's tp merges (TrafficStats)
         # telemetry: cached metric handles (no registry lookups per step)
         self._tm = telemetry.registry()
         self._m_prefill_ms = self._tm.histogram(telemetry.PREFILL_CHUNK_MS)
@@ -466,19 +497,21 @@ class InferenceEngine:
             return HeadShardedKVCache.create(self.cfg, self.plan.devices, dtype=self.kv_dtype)
         return KVCache.create(self.cfg, dtype=self.kv_dtype, device=self.device)
 
-    def note_program_bytes(self, key: str) -> None:
-        """Record a program's measured device bytes for the admission guard
-        (runtime/hbm.py): the allocator's peak right after its first dispatch
-        or capture, which bounds what the program needed."""
-        if self.device.type == "cuda" and key not in self.measured_bytes:
-            self.measured_bytes[key] = torch.cuda.max_memory_allocated(self.device)
-
     def _note_bucket(self, width: int) -> None:
         """A prefill chunk of ``width`` rows was dispatched (the padded,
         dispatched width, as the JAX engine records it)."""
-        if width not in self.seen_buckets:
-            self.seen_buckets.add(width)
-            self.note_program_bytes(f"prefill:{width}")
+        self.seen_buckets.add(width)
+
+    def run_program(self, name: str, tokens: torch.Tensor, fn, **static):
+        """``fn()`` as one dispatch of the engine's program ``name`` at the
+        width of ``tokens``, filed in the compile ledger the first time it
+        runs at that signature (its wall, what K1-K5 move in it and the
+        allocator's peak after it, which the admission guard reads)."""
+        prog = self.programs[name]
+        key = (tuple(tokens.shape), *static.values())
+        return prog.run(key, fn, device=self.device, sig=lambda: introspection.signature(
+            tokens=tokens, kv=self.kv, **static,
+            mesh=introspection.plan_desc(self.plan)))
 
     def reset(self) -> None:
         self.kv.zero_()
@@ -552,13 +585,19 @@ class InferenceEngine:
             with self.guarded("dispatch"):
                 padded = self._tokens(chunk + [0] * (pad_to - valid))
                 if self.numerics_taps:
-                    (logits, taps), self.kv = forward_with_taps(
-                        self.params, self.cfg, padded, self.pos, self.kv, self.plan)
-                    taps = numerics.taps_to_host(taps)
+                    def run():
+                        (logits, taps), self.kv = forward_with_taps(
+                            self.params, self.cfg, padded, self.pos, self.kv, self.plan)
+                        return logits[0, valid - 1].cpu().numpy(), numerics.taps_to_host(taps)
+
+                    last, taps = self.run_program("prefill_taps", padded, run)
                 else:
-                    logits, self.kv = forward(self.params, self.cfg, padded, self.pos,
-                                              self.kv, self.plan)
-                last = logits[0, valid - 1].cpu().numpy()  # syncs the device
+                    def run():
+                        logits, self.kv = forward(self.params, self.cfg, padded, self.pos,
+                                                  self.kv, self.plan)
+                        return logits[0, valid - 1].cpu().numpy()  # syncs the device
+
+                    last = self.run_program("prefill", padded, run)
             if taps is not None:
                 numerics.record_taps(taps)
             # the host-side tripwire on the one row the next token derives
@@ -623,9 +662,9 @@ class InferenceEngine:
         g = self._graphs.get(sampled)
         if g is None:
             g = DecodeGraph(self.params, self.cfg, self.kv, self.device,
-                            sampled=sampled, pos=self.pos)
+                            sampled=sampled, pos=self.pos,
+                            program=self.programs["sampled_decode" if sampled else "decode"])
             self._graphs[sampled] = g
-            self.note_program_bytes(f"graph:{'sampled' if sampled else 'greedy'}_step")
         return g
 
     def decode_chunk_tokens(self, token: int, k: int) -> list[int]:
@@ -680,7 +719,8 @@ class InferenceEngine:
             numerics.check_nonfinite(g.nonfinite, "decode", failfast=self.nf_failfast)
             return toks
         tok0 = torch.tensor([token], dtype=torch.long, device=self.device)
-        with self.guarded(label):
+
+        def run() -> list[int]:
             if greedy:
                 toks, nf, self.kv = greedy_steps(self.params, self.cfg, tok0, start_pos,
                                                  self.kv, k, self.plan, poison)
@@ -689,7 +729,11 @@ class InferenceEngine:
                                                   self.kv, temp, topp,
                                                   torch.from_numpy(coins).to(self.device),
                                                   k, self.plan, poison)
-            got = torch.cat([toks[0], nf.long()]).tolist()
+            return torch.cat([toks[0], nf.long()]).tolist()
+
+        with self.guarded(label):
+            got = self.run_program("decode" if greedy else "sampled_decode", tok0, run,
+                                   steps=k)
         numerics.check_nonfinite(got[-1], "decode", failfast=self.nf_failfast)
         return got[:-1]
 
@@ -726,8 +770,8 @@ class InferenceEngine:
         current position."""
         if self._verify_graph is None:
             self._verify_graph = VerifyGraph(self.params, self.cfg, self.kv, self.device,
-                                             width=self.spec_lookup + 1, pos=self.pos)
-            self.note_program_bytes("graph:verify_step")
+                                             width=self.spec_lookup + 1, pos=self.pos,
+                                             program=self.programs["verify"])
         return self._verify_graph
 
     def _run_verify(self, tokens: list[int], start_pos: int) -> tuple[int, list[int]]:
@@ -743,11 +787,15 @@ class InferenceEngine:
             with self.guarded("verify"):
                 n_acc, preds, nf = g.run(tokens, start_pos, poison)
         else:
+            toks = self._tokens(tokens)
+
+            def run() -> list[int]:
+                n_acc, preds, nf, self.kv = verify_step(self.params, self.cfg, toks,
+                                                        start_pos, self.kv, self.plan, poison)
+                return torch.cat([n_acc, preds[0], nf.long()]).tolist()
+
             with self.guarded("verify"):
-                n_acc, preds, nf, self.kv = verify_step(self.params, self.cfg,
-                                                        self._tokens(tokens), start_pos,
-                                                        self.kv, self.plan, poison)
-                got = torch.cat([n_acc, preds[0], nf.long()]).tolist()
+                got = self.run_program("verify", toks, run)
             n_acc, preds, nf = got[0], got[1:-1], got[-1]
         numerics.check_nonfinite(nf, "verify", failfast=self.nf_failfast)
         return int(n_acc), preds
@@ -762,6 +810,90 @@ class InferenceEngine:
             self.sampler.rng_state = st
         self._m_decode_tok.inc(n_keep)
         self._m_kv.set(self.pos / self.cfg.seq_len)
+
+    # -- the Eval/Sync split (runtime/profiling.py) --------------------------
+
+    def _scratch_step(self, pos: int) -> None:
+        """One greedy decode step at ``pos`` that advances nothing, ended by
+        a synchronisation: it writes cache row ``pos``, which the next real
+        step at ``pos`` rewrites before anything attends it (the argument of
+        the JAX engine's scratch dispatches)."""
+        tok0 = torch.zeros(1, dtype=torch.long, device=self.device)
+        _, nf, self.kv = greedy_steps(self.params, self.cfg, tok0, pos, self.kv, 1,
+                                      self.plan, 0.0)
+        nf.cpu()
+
+    def collect_traffic(self):
+        """The tp merges' traffic of one decode step (``TrafficStats``),
+        counted once by ``merge_shards`` over a scratch step at the current
+        position; nothing at ``tp == 1``."""
+        if self.traffic is None:
+            from .profiling import TrafficStats, merge_counts
+
+            if self.tp == 1:
+                self.traffic = TrafficStats(0.0, 0.0, 0, {})
+            else:
+                before = merge_counts()
+                self._scratch_step(min(self.pos, self.cfg.seq_len - 1))
+                self.traffic = TrafficStats.between(before, merge_counts())
+        return self.traffic
+
+    def measure_split(self, n_steps: int = 3):
+        """The Eval/Sync split of the decode step and of the widest prefill
+        chunk that fits the tail (``--profile-split``), each from a short
+        profiler capture of scratch dispatches at the current position that
+        advance nothing (:meth:`_scratch_step`; the chunk's rows past
+        ``pos`` are rewritten before they become visible). At ``tp == 1``
+        no merge runs: the split is 0 and no trace runs, as in the JAX
+        engine. Cached on the engine (``split``, ``split_prefill``,
+        ``traffic``) and published as the sync and collective gauges."""
+        from .profiling import EvalSyncSplit, measure_eval_sync
+
+        self.collect_traffic()
+        if not self.traffic:
+            self.split = self.split_prefill = EvalSyncSplit(0.0, 0.0, 0, 0)
+            self._publish_split_metrics()
+            return self.split
+        pos = min(self.pos, self.cfg.seq_len - 1)
+        self.split = measure_eval_sync(lambda: self._scratch_step(pos), n_steps)
+        chunk = next((b for b in self.prefill_buckets if b <= self.cfg.seq_len - pos), None)
+        if chunk is not None:
+            tokens = torch.zeros((1, chunk), dtype=torch.long, device=self.device)
+
+            def scratch_chunk() -> None:
+                logits, self.kv = forward(self.params, self.cfg, tokens, pos, self.kv,
+                                          self.plan)
+                logits[0, -1, :1].cpu()
+
+            self.split_prefill = measure_eval_sync(scratch_chunk, n_steps)
+        self._publish_split_metrics()
+        return self.split
+
+    def fill_split(self, steps: list[StepMetrics]) -> None:
+        """Each step's ``sync_ms``: its program's sync fraction (decode for
+        pred steps, prefill for eval steps) of its wall, the split measured
+        once per engine."""
+        if self.split is None:
+            self.measure_split()
+        pfrac = self.split_prefill.sync_frac if self.split_prefill is not None else None
+        for s in steps:
+            if s.kind == "pred":
+                s.sync_ms = s.ms * self.split.sync_frac
+            elif pfrac is not None:
+                s.sync_ms = s.ms * pfrac
+
+    def _publish_split_metrics(self) -> None:
+        """The split and the traffic into the registry: a ``/metrics``
+        scrape then carries the reference's per-token picture."""
+        if self.traffic is not None:
+            self._tm.gauge(telemetry.COLLECTIVE_SENT_KB).set(self.traffic.sent_kb)
+            self._tm.gauge(telemetry.COLLECTIVE_RECV_KB).set(self.traffic.recv_kb)
+            self._tm.gauge(telemetry.COLLECTIVE_OPS).set(self.traffic.n_collectives)
+        if self.split is not None:
+            self._tm.gauge(telemetry.SYNC_FRACTION).set(self.split.sync_frac)
+            self._tm.gauge(telemetry.COMM_EXPOSED_MS).set(self.split.exposed_ms)
+        if self.split_prefill is not None:
+            self._tm.gauge(telemetry.SYNC_FRACTION_PREFILL).set(self.split_prefill.sync_frac)
 
     # -- generation ---------------------------------------------------------
 
@@ -833,6 +965,10 @@ class InferenceEngine:
             if proposer is not None:
                 proposer.extend(run[:n_keep])
             token = run[n_keep - 1]
+        if self.profile_split and out_tokens and not capture_active():
+            # inside a caller's capture (--profile) the caller fills them
+            # after it: one profiler session at a time
+            self.fill_split(steps)
         return GenerationResult(tokens=out_tokens, text="".join(pieces),
                                 prompt_tokens=len(ids), steps=steps)
 
@@ -848,13 +984,18 @@ class InferenceEngine:
         self.reset()
         nll, count = 0.0, 0
         for i, valid, pad_to in self._chunks(len(token_ids) - 1):
-            chunk = token_ids[i:i + valid]
-            with self.guarded("dispatch"):
-                logits = self._forward(chunk + [0] * (pad_to - valid), self.pos)
+            padded = self._tokens(token_ids[i:i + valid] + [0] * (pad_to - valid))
+            targets = torch.tensor(token_ids[i + 1:i + 1 + valid], device=self.device)
+
+            def run() -> float:
+                logits, self.kv = forward(self.params, self.cfg, padded, self.pos, self.kv,
+                                          self.plan)
                 rows = logits[0, :valid].double()
-                targets = torch.tensor(token_ids[i + 1:i + 1 + valid], device=rows.device)
                 logp = rows.gather(-1, targets[:, None])[:, 0] - torch.logsumexp(rows, dim=-1)
-                nll -= float(logp.sum())
+                return float(logp.sum())
+
+            with self.guarded("dispatch"):
+                nll -= self.run_program("prefill", padded, run)
             count += valid
             self.pos += valid
         return float(np.exp(nll / count))
@@ -880,12 +1021,16 @@ class InferenceEngine:
         for i, valid, pad_to in self._chunks(len(rest)):
             pad = [0] * (pad_to - valid)
             targets = token_ids[i + 1:i + 1 + valid]
-            with self.guarded("dispatch"):
-                nll, self.kv = prefill_nll(self.params, self.cfg,
-                                           self._tokens(rest[i:i + valid] + pad),
+            padded = self._tokens(rest[i:i + valid] + pad)
+
+            def run() -> np.ndarray:
+                nll, self.kv = prefill_nll(self.params, self.cfg, padded,
                                            self._tokens(targets + pad), self.pos, self.kv,
                                            self.plan)
-                vals = nll[0, :valid].float().cpu().numpy()
+                return nll[0, :valid].float().cpu().numpy()
+
+            with self.guarded("dispatch"):
+                vals = self.run_program("prefill_nll", padded, run)
             bad = int(vals.size - np.count_nonzero(np.isfinite(vals)))
             if bad:
                 numerics.check_nonfinite(bad, "eval", failfast=self.nf_failfast)

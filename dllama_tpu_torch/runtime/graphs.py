@@ -23,11 +23,17 @@ place), positions ride as device tensors, split counts come from shapes
 alone, scratch comes from the graph's pool, and nothing in the step reads
 a tensor back to the host.
 
-Launch counts: each kernel wrapper counts its launches in a Python
-attribute, which a replay does not run. The capture records each
-wrapper's launches in the captured step (and takes them off the counters:
-they were recorded, not run), and every replay adds them again, so the
-counters count what the card ran.
+Launch counts: each kernel wrapper counts its launches, and the bytes and
+operations of each (``ops/cost.py``), in Python attributes, which a replay
+does not run. The capture records each wrapper's counts in the captured
+step (and takes them off the counters: they were recorded, not run), and
+every replay adds them again, so the counters count what the card ran.
+
+Compile ledger (``runtime/introspection.py``): a step built with a
+``program`` files its capture there (signature, capture seconds, pool
+bytes, and what one replay moves and computes through K1-K5); a step that
+is not captured (the CPU, ``eager``) files its first run instead, and
+every further replay is a hit.
 
 :class:`DecodeGraph` is the single-sequence step of the engine (greedy or
 sampled): the graph writes its picked token into its own input and
@@ -51,18 +57,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import introspection
+
 WARMUP_RUNS = 2
-
-
-def _wrappers() -> tuple:
-    """Every kernel wrapper with a ``launches`` counter."""
-    from ..ops import flash_attention as fa
-    from ..ops import moe_matmul as mm
-    from ..ops import paged_attention as pa
-    from ..ops import quant_matmul as qm
-
-    return (qm.q40_matmul, qm.q40_gemv, fa.flash_attention, fa.flash_block_stats,
-            pa.paged_attention, mm.moe_matmul)
 
 
 def staging(t: torch.Tensor) -> torch.Tensor:
@@ -94,18 +91,22 @@ class StepGraph:
     run captures its steps before it listens, and none after). With
     ``eager`` nothing is captured and every replay runs the body on the
     card too: the paged steps at ``tp > 1``, whose shards' steps are not
-    captured yet."""
+    captured yet. ``program`` (an :class:`~dllama_tpu_torch.runtime.introspection.Program`)
+    and ``sig`` (its signature) file the capture, or the first run of a
+    step that is not captured, in the compile ledger."""
 
     captures = 0
 
     def __init__(self, body: Callable[[], None], device, *,
-                 prime: Callable[[], None] | None = None, eager: bool = False):
+                 prime: Callable[[], None] | None = None, eager: bool = False,
+                 program: introspection.Program | None = None, sig: dict | None = None):
         self.body = body
         self.device = torch.device(device)
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.launches_per_replay: dict = {}
+        self.per_replay: dict = {}  # wrapper -> (launches, bytes, ops) one replay adds
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.program, self.sig = program, dict(sig or {})
         if self.device.type == "cuda" and not eager:
             self._capture(prime)
 
@@ -126,38 +127,47 @@ class StepGraph:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-            before = {fn: fn.launches for fn in _wrappers()}
+            before = introspection.counts()
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph):
                     self.body()
             finally:
                 # the capture recorded these launches; replays run them
-                for fn, n in before.items():
-                    if fn.launches != n:
-                        self.launches_per_replay[fn] = fn.launches - n
-                    fn.launches = n
+                self.per_replay = introspection.delta(before)
+                for fn, (n, b, o) in before.items():
+                    fn.launches, fn.moved_bytes, fn.ops = n, b, o
             torch.cuda.synchronize()
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
         StepGraph.captures += 1
+        if self.program is not None:
+            self.program.captured(self.sig, self.capture_s, self.per_replay,
+                                  self.pool_bytes, self.device)
 
     def replay(self) -> None:
         """One step, on the current stream; no synchronisation."""
         if self.graph is None:
-            self.body()
+            if self.program is None:
+                self.body()
+            else:
+                self.program.run(0, self.body, sig=lambda: self.sig, device=self.device)
             return
         self.graph.replay()
-        for fn, n in self.launches_per_replay.items():
+        for fn, (n, b, o) in self.per_replay.items():
             fn.launches += n
+            fn.moved_bytes += b
+            fn.ops += o
+        if self.program is not None:
+            self.program.hit()
 
     def stats(self) -> dict:
         """Capture seconds, pool bytes and wrapper launches per replay."""
         return {"captured": self.graph is not None, "capture_s": self.capture_s,
                 "pool_bytes": self.pool_bytes,
                 "launches_per_replay": {fn.__name__: n
-                                        for fn, n in self.launches_per_replay.items()}}
+                                        for fn, (n, _, _) in self.per_replay.items() if n}}
 
 
 class DecodeGraph:
@@ -170,7 +180,8 @@ class DecodeGraph:
     all on the device. The warm-up writes only cache row ``pos`` (the first
     row a decode writes, rewritten before it becomes visible)."""
 
-    def __init__(self, params, cfg, kv, device, *, sampled: bool, pos: int):
+    def __init__(self, params, cfg, kv, device, *, sampled: bool, pos: int,
+                 program: introspection.Program | None = None):
         from ..models.llama import greedy_step, sampled_step
 
         dev = torch.device(device)
@@ -204,7 +215,9 @@ class DecodeGraph:
             tok.copy_(nxt.view(1, 1))
             pos.add_(1)
 
-        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
+        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first), program=program,
+                              sig=introspection.signature(tok=tok, pos=pos, kv=kv,
+                                                          sampled=sampled, mesh="none"))
 
     def launch(self, token: int, start_pos: int, k: int, temperature: float = 0.0,
                topp: float = 0.0, coins: np.ndarray | None = None,
@@ -245,7 +258,8 @@ class VerifyGraph:
     which the first verify there writes again before they become
     visible."""
 
-    def __init__(self, params, cfg, kv, device, *, width: int, pos: int):
+    def __init__(self, params, cfg, kv, device, *, width: int, pos: int,
+                 program: introspection.Program | None = None):
         from ..models.llama import verify_step
 
         dev = torch.device(device)
@@ -263,7 +277,9 @@ class VerifyGraph:
             out[1:width + 1].copy_(preds[0])
             out[width + 1:].copy_(nf)
 
-        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first))
+        self.step = StepGraph(body, dev, prime=lambda: pos.fill_(first), program=program,
+                              sig=introspection.signature(tok=tok, pos=pos, kv=kv,
+                                                          mesh="none"))
 
     def run(self, tokens, start_pos: int, poison: float = 0.0
             ) -> tuple[int, list[int], int]:

@@ -20,13 +20,14 @@ check stands down under ``DLLAMA_SKIP_HBM_CHECK``. On the CPU the limit is
 unknown and every check passes.
 
 Measured bytes: the JAX module cross-checks its estimate against the
-compile ledger's per-program ``memory_analysis()`` bytes, which the port
-does not have (A14c). The port measures instead: the engine records the
+compile ledger's per-program ``memory_analysis()`` bytes. The port's
+compile ledger (``runtime/introspection.py``) records instead the
 allocator's peak (``torch.cuda.max_memory_allocated``) right after each
-prefill bucket's first dispatch and after each captured graph's capture
-(the peak then covers the graph's private pool), keyed by program
-(``InferenceEngine.measured_bytes``). As in the JAX module, measurements
-can only raise the estimate.
+program's first run at a signature (each prefill width) and after each
+graph's capture (the peak then covers the graph's private pool); the
+admission guard reads them through ``measured_hbm_bytes``, where the JAX
+package's does. As in the JAX module, measurements can only raise the
+estimate.
 """
 
 from __future__ import annotations

@@ -126,7 +126,7 @@ from ..models.llama import (forward, gather_kv_blocks, paged_sampled_step, paged
                             prefill_nll, ragged_sampled_step, ragged_verify_step,
                             scatter_kv_blocks)
 from ..tokenizer.sampler import xorshift_random_f32
-from . import failpoints, flightrec, kvwire, numerics, telemetry, tenancy
+from . import failpoints, flightrec, introspection, kvwire, numerics, telemetry, tenancy
 from .graphs import StepGraph, load, staging
 from .hbm import (admission_check, check_budget, estimate_block_pool_bytes,
                   estimate_prefill_temp_bytes, fit_batch_slots, fit_block_pool, fit_host_pool)
@@ -177,7 +177,8 @@ class HbmAdmissionError(SchedulerError):
 def check_hbm_admission(engine, n_prompt: int, need_bytes: int) -> None:
     """The admission guard shared by the batch scheduler's ``submit`` and the
     single-sequence API path: before admitting a prompt, cross-check the
-    staging-time estimate against the engine's measured per-program bytes,
+    staging-time estimate against the measured per-program bytes (the
+    compile ledger's allocator peaks after each capture and first run),
     plus a temporaries estimate for a prefill width the engine has not run
     yet (a first run of a width allocates its temporaries for the first
     time). Raises :class:`HbmAdmissionError`; a no-op when the limit is
@@ -185,8 +186,8 @@ def check_hbm_admission(engine, n_prompt: int, need_bytes: int) -> None:
     bucket = engine._prefill_chunk_size(max(1, n_prompt - 1))
     extra = (0 if bucket in engine.seen_buckets
              else estimate_prefill_temp_bytes(engine.cfg, bucket))
-    ok, reason = admission_check(need_bytes=need_bytes,
-                                 measured_bytes=dict(engine.measured_bytes),
+    measured = introspection.ledger().measured_hbm_bytes(engine.introspection_scope)
+    ok, reason = admission_check(need_bytes=need_bytes, measured_bytes=measured,
                                  extra_bytes=extra,
                                  what=f"admitting a {n_prompt}-token request",
                                  device=engine.device)
@@ -339,6 +340,17 @@ class _KVExportJob:
     error: BaseException | None = None
 
 
+@dataclass
+class _LoopJob:
+    """One call the loop thread runs between ticks for another thread
+    (:meth:`BatchScheduler.run_on_loop`)."""
+
+    fn: Callable[[], object]
+    done: threading.Event = field(default_factory=threading.Event)
+    result: object = None
+    error: BaseException | None = None
+
+
 class _GeneratorCore:
     """Slot lifecycle shared by the dense slot pool (:class:`BatchedGenerator`)
     and the paged block pool (:class:`PagedGenerator`), the JAX package's
@@ -350,11 +362,19 @@ class _GeneratorCore:
 
     # the tp plan the generator's forwards take (the paged pool's at tp > 1)
     plan = None
+    # the first word of its programs' names in the compile ledger
+    PROGRAM_PREFIX = ""
 
     def __init__(self, engine: "InferenceEngine", n_slots: int):
         self.eng = engine
         self.cfg = engine.cfg
         self.n_slots = n_slots
+        # its programs in the engine's ledger scope, registered before the
+        # scheduler can mark the scope steady
+        names = ["step", "prefill", "prefill_nll"] + ["verify"] * bool(engine.spec_lookup)
+        self.programs = {n: introspection.Program(engine.introspection_scope,
+                                                  f"{self.PROGRAM_PREFIX}_{n}")
+                         for n in names}
         self.pos = np.zeros(n_slots, dtype=np.int64)
         self.next_token = np.zeros(n_slots, dtype=np.int64)
         self.slots: list[Request | None] = [None] * n_slots
@@ -408,12 +428,23 @@ class _GeneratorCore:
 
     def capture(self) -> StepGraph:
         """The step this generator dispatches every tick (the verify step
-        under ``spec``), captured now; its bytes measured for the admission
-        guard."""
-        graph = self.verify_graph() if self.spec else self.step_graph()
-        self.eng.note_program_bytes(
-            f"graph:{type(self).__name__}.{'verify' if self.spec else 'step'}")
-        return graph
+        under ``spec``), captured now (the compile ledger keeps its bytes
+        for the admission guard)."""
+        return self.verify_graph() if self.spec else self.step_graph()
+
+    def _graph_sig(self, inp: torch.Tensor, knobs: torch.Tensor, out: torch.Tensor) -> dict:
+        """A step graph's signature: its static buffers, the KV storage and
+        the mesh."""
+        return introspection.signature(inp=inp, knobs=knobs, out=out, kv=self._kv_store(),
+                                       mesh=introspection.plan_desc(self.plan))
+
+    def _run_prefill(self, name: str, width: int, fn):
+        """``fn()``, one prefill chunk ``width`` tokens wide, as a dispatch of
+        this generator's program ``name`` (filed at its first run at a
+        width)."""
+        return self.programs[name].run(width, fn, device=self.eng.device, sig=lambda: {
+            "tokens": f"int64[1,{width}]", **introspection.signature(
+                kv=self._kv_store(), mesh=introspection.plan_desc(self.plan))})
 
     def close(self) -> None:
         """Drop the captured steps (they hold the pool's and the
@@ -509,15 +540,19 @@ class _GeneratorCore:
         reach a sum."""
         tgt = adm.req.prompt_ids[adm.pos + 1:adm.pos + 1 + n_valid]
         dev = self.eng.device
-        t0 = telemetry.now_ns()
-        with self.eng.guarded("batch_prefill"):
+
+        def run() -> np.ndarray:
             nll, adm.col = prefill_nll(
                 self.eng.params, self.cfg,
                 torch.tensor([padded], dtype=torch.long, device=dev),
                 torch.tensor([tgt + [0] * (len(padded) - n_valid)], dtype=torch.long,
                              device=dev),
                 adm.pos, adm.col, self.plan)
-            vals = nll[0, :n_valid].float().cpu().numpy()
+            return nll[0, :n_valid].float().cpu().numpy()
+
+        t0 = telemetry.now_ns()
+        with self.eng.guarded("batch_prefill"):
+            vals = self._run_prefill("prefill_nll", len(padded), run)
         t1 = telemetry.now_ns()
         ms = (t1 - t0) / 1e6
         adm.req.ms_prefill += ms
@@ -569,7 +604,7 @@ class _GeneratorCore:
         time is the host window of the chunk's launches (no readback)."""
         t0 = telemetry.now_ns()
         with self.eng.guarded("batch_prefill"):
-            self._exec_prefill(adm, padded)
+            self._run_prefill("prefill", len(padded), lambda: self._exec_prefill(adm, padded))
         t1 = telemetry.now_ns()
         ms = (t1 - t0) / 1e6
         adm.req.ms_prefill += ms
@@ -621,6 +656,10 @@ class _GeneratorCore:
 
     def _kv_fraction(self) -> float:
         """Live-context share of the KV storage (the occupancy gauge)."""
+        raise NotImplementedError
+
+    def _kv_store(self):
+        """The KV storage the steps read (the dense pool or the block pool)."""
         raise NotImplementedError
 
     def flight_blocks(self) -> dict | None:
@@ -753,6 +792,8 @@ class BatchedGenerator(_GeneratorCore):
     tables and keep the run their argmax agrees with, sampled rows emit one
     token."""
 
+    PROGRAM_PREFIX = "slot"
+
     def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
         if engine.sp > 1:
             raise ValueError("the dense slot pool runs at sp = 1: --sp under api "
@@ -839,7 +880,9 @@ class BatchedGenerator(_GeneratorCore):
                 inp[:, 0].copy_(nxt)
                 inp[:, 1:].add_(1)
 
-            self._graph = StepGraph(body, dev, prime=self._prime(inp, 1))
+            self._graph = StepGraph(body, dev, prime=self._prime(inp, 1),
+                                    program=self.programs["step"],
+                                    sig=self._graph_sig(inp, knobs, out))
         return self._graph
 
     def verify_graph(self) -> StepGraph:
@@ -870,7 +913,9 @@ class BatchedGenerator(_GeneratorCore):
                 out[1].copy_(nf)
                 out[2:].copy_(preds.t())
 
-            self._verify = StepGraph(body, dev, prime=self._prime(inp, W))
+            self._verify = StepGraph(body, dev, prime=self._prime(inp, W),
+                                     program=self.programs["verify"],
+                                     sig=self._graph_sig(inp, knobs, out))
         return self._verify
 
     # -- admission ----------------------------------------------------------
@@ -958,6 +1003,9 @@ class BatchedGenerator(_GeneratorCore):
         self.next_token[:] = 0
         self._m_occupancy.set(0)
         self._m_kv.set(0.0)
+
+    def _kv_store(self):
+        return self.kv
 
     def _kv_fraction(self) -> float:
         """Rows holding LIVE requests' context over the pool's rows (retired
@@ -1139,6 +1187,8 @@ class PagedGenerator(_GeneratorCore):
     decode), and admission reserves each request's worst case, so organic
     mid-decode exhaustion cannot happen."""
 
+    PROGRAM_PREFIX = "paged"
+
     def __init__(self, engine: "InferenceEngine", n_slots: int = 4):
         block_size = int(engine.kv_block_size or 0)
         if block_size <= 0:
@@ -1239,6 +1289,9 @@ class PagedGenerator(_GeneratorCore):
     def _kv_fraction(self) -> float:
         return self.pool.used_blocks() / max(1, self.pool.n_blocks - 1)
 
+    def _kv_store(self):
+        return self.pkv
+
     def flight_blocks(self) -> dict | None:
         d = {"total": self.pool.n_blocks - 1, "used": self.pool.used_blocks(),
              "shared": self.pool.shared_blocks()}
@@ -1277,7 +1330,9 @@ class PagedGenerator(_GeneratorCore):
                 out[0].copy_(nxt)
                 out[1].copy_(nf)
 
-            self._graph = StepGraph(body, dev, eager=plan is not None)
+            self._graph = StepGraph(body, dev, eager=plan is not None,
+                                    program=self.programs["step"],
+                                    sig=self._graph_sig(inp, knobs, out))
         return self._graph
 
     def verify_graph(self) -> StepGraph:
@@ -1312,7 +1367,9 @@ class PagedGenerator(_GeneratorCore):
                 out[1].copy_(nf)
                 out[2:].copy_(toks.t())
 
-            self._verify = StepGraph(body, dev, eager=plan is not None)
+            self._verify = StepGraph(body, dev, eager=plan is not None,
+                                     program=self.programs["verify"],
+                                     sig=self._graph_sig(inp, knobs, out))
         return self._verify
 
     # -- slot lifecycle -----------------------------------------------------
@@ -1966,6 +2023,11 @@ class BatchScheduler:
         self.gen: _GeneratorCore = (PagedGenerator(engine, n_slots) if engine.kv_block_size
                                     else BatchedGenerator(engine, n_slots))
         self.n_slots = self.gen.n_slots  # the device-memory guard may shrink the pool
+        # the retrace sentinel (runtime/introspection): the engine's scope is
+        # marked steady after STEADY_TICKS work ticks with no capture and no
+        # new signature
+        self._introspect_scope = engine.introspection_scope
+        self._quiet_ticks = 0
         # interleaved chunked prefill: per tick the first admission always
         # advances one chunk, further ones only while this budget lasts, so
         # decode latency of active slots stays bounded
@@ -1993,6 +2055,7 @@ class BatchScheduler:
         # _fail_all (any thread) can drain the parked requests
         self._migrating: list[_KVMigration] = []
         self._export_jobs: list[_KVExportJob] = []
+        self._loop_jobs: list[_LoopJob] = []
         self._wake = threading.Event()
         self._next_rid = 0
         self._stop = False
@@ -2349,6 +2412,43 @@ class BatchScheduler:
             raise job.error
         return job.n_tokens, job.blocks
 
+    def run_on_loop(self, fn: Callable[[], object], timeout_s: float = 30.0):
+        """``fn()`` on the loop thread, the one that dispatches every step,
+        between two ticks; returns its result or raises its error. A
+        profiler session starts and stops there (``POST /debug/profile``),
+        never beside a step in flight. Without a loop thread (a test driving
+        ``_tick``) ``fn`` runs on the caller's."""
+        if self._thread is None:
+            return fn()
+        job = _LoopJob(fn=fn)
+        with self._lock:
+            if self._stop or not self._healthy or not self._thread.is_alive():
+                raise SchedulerUnavailableError("scheduler is not running")
+            self._loop_jobs.append(job)
+        self._wake.set()
+        if not job.done.wait(timeout_s):
+            with self._lock:
+                pending = job in self._loop_jobs
+                if pending:
+                    self._loop_jobs.remove(job)
+            if pending:
+                raise SchedulerUnavailableError(
+                    f"the loop thread took no call within {timeout_s:g}s")
+            job.done.wait()  # started: a loop call is short, let it finish
+        if job.error is not None:
+            raise job.error
+        return job.result
+
+    def _service_loop_jobs(self) -> None:
+        with self._lock:
+            jobs, self._loop_jobs = list(self._loop_jobs), []
+        for job in jobs:
+            try:
+                job.result = job.fn()
+            except Exception as e:  # noqa: BLE001 — the caller gets the error
+                job.error = e
+            job.done.set()
+
     def _service_exports(self) -> None:
         """Drain pending export gathers (the loop thread, the only one that
         touches the pool). A failed gather answers THAT export with its
@@ -2455,17 +2555,34 @@ class BatchScheduler:
                                         for s in self.gen.slots],
                                  prefill_budget=self.prefill_budget)
 
+    STEADY_TICKS = 2  # quiet work ticks before the scope is declared steady
+
+    def _mark_steady_if_quiet(self, compiles_before: int) -> None:
+        led = introspection.ledger()
+        scope = self._introspect_scope
+        if led.steady(scope):
+            return
+        if led.compile_count(scope) == compiles_before:
+            self._quiet_ticks += 1
+            if self._quiet_ticks >= self.STEADY_TICKS:
+                led.mark_steady(scope)
+        else:
+            self._quiet_ticks = 0
+
     def _tick_body(self) -> None:
         """Deadlines, the KV wire's service points, admissions (block-priced
         in the paged pool; a head with a ``kv_peer`` hint parks while its
         prefix is fetched), the cancel sweep, interleaved prefill chunks
         under the token budget, then one decode dispatch for every active
         slot."""
+        compiles_before = introspection.ledger().compile_count(self._introspect_scope)
         self._check_deadlines()
         # peer export gathers run here (the loop thread owns the pool), and
         # finished peer pulls commit or fall back before this tick's
         # admissions, so a just-migrated prefix is matchable by its own
         # request's begin_admit below
+        if self._loop_jobs:
+            self._service_loop_jobs()
         if self._export_jobs:
             self._service_exports()
         if self._migrating:
@@ -2599,6 +2716,9 @@ class BatchScheduler:
             self.gen.step_chunk(self.gen.eng.decode_chunk)
         else:
             self.gen.step()
+        # only work ticks advance the steady countdown: an idle server must
+        # not declare itself steady before it ran anything
+        self._mark_steady_if_quiet(compiles_before)
         self._note_tick_usage()
 
     def _tenant_active(self, tenant: str) -> int:

@@ -6,10 +6,8 @@ port of the JAX package's ``runtime/telemetry.py``, host-only, stdlib only).
   + three float ops). Every metric name is declared once in :data:`SPECS`,
   letter for letter the JAX package's vocabulary, and rendered as
   Prometheus text by :meth:`Registry.render` for the API server's ``GET
-  /metrics``. Names of layers the port has not brought over yet (the host
-  KV tier, KV migration, the fleet router, tenancy, numerics, roofline,
-  compile introspection) render at zero, as a JAX server that never ran
-  those layers shows them.
+  /metrics``. A name whose layer did not run in this process renders at
+  zero, as a JAX server that never ran that layer shows it.
 * **Span tracer** — per-request phase spans (``queue|prefill|decode|
   verify``) emitted as JSONL to an operator-chosen file (``--trace-out``)
   and kept in an always-on bounded ring (``GET /debug/requests``).
@@ -1116,6 +1114,16 @@ def stats_line(reg: Registry | None = None, *,
             f"{attrib.quantile(0.5, phase=ph):.0f}"
             for ph in ("queue", "admission", "prefill", "first_decode"))
             + "ms")
+    # roofline observatory (runtime/roofline): the dominant decode program's
+    # achieved-against-ceiling fraction, refreshing its gauges. Global
+    # registry only: the observatory joins the process-wide ledger and
+    # histograms, which say nothing about a caller's private registry
+    if reg is registry():
+        from . import roofline
+
+        frac = roofline.stats_fraction()
+        if frac is not None:
+            parts.append(f"roofline={100 * frac:.1f}%")
     sync = reg.gauge(SYNC_FRACTION).value()
     sent = reg.gauge(COLLECTIVE_SENT_KB).value()
     if sync or sent:

@@ -15,15 +15,13 @@ the gap:
 * no deadline is armed until ``min_samples`` steps have been observed —
   the first steps (and a graph capture, which the port keeps outside the
   guard) train the EWMA instead of tripping it;
-* on expiry the monitor dumps diagnostics (the last flight-recorder ticks
-  and all thread stacks), increments ``dllama_watchdog_stalls_total``,
+* on expiry the monitor dumps diagnostics (the compile ledger's programs,
+  the last flight-recorder ticks and all thread stacks: enough to tell a
+  capture or a kernel build in progress from a wedged dispatch), increments ``dllama_watchdog_stalls_total``,
   marks the watchdog stalled, and calls the registered ``on_stall``
   callbacks from the MONITOR thread — the dispatch thread is the one that
   is stuck, so supervision (fail in-flight → 503, flip ``/readyz``) must
   run elsewhere, and must not touch the device.
-
-The JAX package's dump also lists its compile ledger; the port has no
-compile ledger yet (ROADMAP A14c), so that block is left out.
 
 Env knobs: ``DLLAMA_WATCHDOG=0`` disables arming entirely,
 ``DLLAMA_WATCHDOG_MARGIN`` / ``DLLAMA_WATCHDOG_FLOOR_S`` override the
@@ -203,8 +201,23 @@ class StepWatchdog:
                       f"{type(e).__name__}: {e}", flush=True)
 
     def _dump_diagnostics(self) -> None:  # dlint: owner=monitor-thread
-        """The last flight-recorder ticks + all-thread stacks: the
-        decisions that led in, and where the loop thread is stuck."""
+        """The compile ledger's programs, the last flight-recorder ticks and
+        all-thread stacks: what was captured or built, the decisions that
+        led in, and where the loop thread is stuck."""
+        try:
+            from . import introspection
+
+            snap = introspection.ledger().snapshot()
+            lines = [f"    {p['scope']}/{p['program']}: "
+                     f"{p['compiles']} compiles, {p['hits']} hits, "
+                     f"last {p['last_compile_s']:.2f}s"
+                     for p in snap["programs"]]
+            print("🛑 watchdog: compile-ledger state\n"
+                  + ("\n".join(lines) or "    (no programs recorded)"),
+                  flush=True)
+        except Exception as e:  # noqa: BLE001 — diagnostics are advisory; the stall itself is already reported
+            print(f"🛑 watchdog: compile ledger unavailable "
+                  f"({type(e).__name__}: {e})", flush=True)
         try:
             from . import flightrec
 

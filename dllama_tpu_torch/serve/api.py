@@ -14,9 +14,16 @@
   ``/debug/timeline`` (the same as a Perfetto-loadable Chrome trace),
   ``/debug/numerics`` (the numerics observatory: tripwire totals per site,
   the last tapped forward's per-layer stats, the canary's status),
-  ``/debug/eval`` (the last teacher-forced eval run of this process) and
+  ``/debug/eval`` (the last teacher-forced eval run of this process),
   ``/debug/tenants`` (the tenant observatory: per-tenant usage, limits and
-  the fairness view).
+  the fairness view), ``/debug/compiles`` (the compile ledger: kernel
+  builds, graph captures, first runs, the retrace sentinel's steady flags;
+  ``runtime/introspection.py``), ``/debug/roofline`` (per-program achieved
+  bytes and operations against the card's ceilings; ``runtime/roofline.py``)
+  and ``POST /debug/profile?ms=N[&ops=1]`` (a live ``torch.profiler``
+  window over the serving loop: the Eval/Sync split, the tp merges'
+  traffic and, with ``ops=1``, the per-op attribution;
+  ``runtime/profiling.py``; 409 while another capture runs).
 
 Two states behind one handler, as in the JAX package:
 
@@ -70,9 +77,11 @@ recomputes it, counted by reason); ``/readyz`` advertises the ``--role``
 tag and ``kv_prefixes``, the affinity keys of prompts whose KV the pool
 recently held, which the fleet router's donor map and prefill warm-up read.
 
-Left out (later slices): the diagnostic routes of layers not ported yet
-(``/debug/compiles``, ``/debug/profile``, ``/debug/roofline``), which answer
-404 like any unknown route.
+At startup the server prints the device-memory table of the compile
+ledger (``introspection.hbm_startup_report``: weights and KV against the
+captured graphs' pool bytes). The retrace sentinel marks the engine's
+scope steady after two quiet scheduler ticks (batched) or one quiet
+completion (single sequence).
 """
 
 from __future__ import annotations
@@ -91,7 +100,8 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
-from ..runtime import evalharness, failpoints, flightrec, kvwire, numerics, telemetry, tenancy
+from ..runtime import (evalharness, failpoints, flightrec, introspection, kvwire, numerics,
+                       profiling, roofline, telemetry, tenancy)
 from ..runtime.speculative import NgramProposer
 from ..runtime.serving import (BatchScheduler, HbmAdmissionError, QueueFullError,
                                RequestTimeoutError, SchedulerUnavailableError,
@@ -108,6 +118,11 @@ _MAX_TIMEOUT_S = 3600.0
 # clients backpressured in the same instant don't return in one wave
 RETRY_AFTER_S = {429: 1, 503: 5}
 RETRY_AFTER_JITTER_S = {429: 1, 503: 3}
+
+# POST /debug/profile capture-window bounds (ms): long enough to catch a few
+# decode steps, short enough that a handler thread never parks for minutes
+_PROFILE_MS_DEFAULT = 500
+_PROFILE_MS_MAX = 10_000
 
 # the closed machine-readable readiness vocabulary of every /readyz and
 # 5xx-backpressure body (the fleet router sanitizes probe codes against it;
@@ -372,6 +387,10 @@ class ApiState:
             # never stamps resumable chunks, so a resume landing here is a
             # router or client bug — 400-shaped
             raise ValueError("stream resume requires batched serving (--batch-slots N)")
+        # the retrace sentinel: a completion that ran end to end without a
+        # capture or a new signature is this server's steady state
+        led, scope = introspection.ledger(), engine.introspection_scope
+        compiles_before = led.compile_count(scope)
         messages = body["messages"]
         timeout_s = float(body.get("timeout") or self.request_timeout or 0)
         deadline = time.monotonic() + timeout_s if timeout_s > 0 else 0.0
@@ -492,6 +511,8 @@ class ApiState:
             # request re-prefills the assistant text from the prompt's end
             self.cache.push([{"role": "assistant", "content": "".join(gate.parts)}],
                             engine.pos)
+        if led.compile_count(scope) == compiles_before:
+            led.mark_steady(scope)
         # the canary piggybacks here (this server has no scheduler loop):
         # the handler thread owns every dispatch, so a replay between
         # completions never races a request's decode
@@ -772,12 +793,21 @@ def _chunk_json(state: ApiState | BatchedApiState, delta: dict, finish_reason=No
 
 
 _ROUTES = ("/v1/chat/completions", "/v1/kv/export", "/v1/models", "/metrics", "/health",
-           "/healthz",
-           "/readyz", "/debug", "/debug/requests", "/debug/flight", "/debug/timeline",
-           "/debug/numerics", "/debug/eval", "/debug/tenants")
+           "/healthz", "/readyz", "/debug", "/debug/compiles", "/debug/requests",
+           "/debug/profile", "/debug/numerics", "/debug/flight", "/debug/timeline",
+           "/debug/roofline", "/debug/eval", "/debug/tenants")
 
 # the GET /debug index: one line per diagnostic route this server has
 _DEBUG_INDEX = {
+    "/debug/compiles": "GET: compile ledger — every kernel build, graph capture and "
+                       "first run with program/scope/signature, seconds, the bytes and "
+                       "operations K1-K5 move a dispatch, retrace-sentinel state",
+    "/debug/profile": "POST ?ms=N[&ops=1]: live torch.profiler window over the "
+                      "serving loop — Eval/Sync split, tp merge traffic, and (ops=1) "
+                      "the per-op class attribution",
+    "/debug/roofline": "GET: roofline observatory — per-program achieved bytes/"
+                       "operations vs the card's ceilings, memory- vs compute-bound "
+                       "classification",
     "/debug/requests": "GET: recent per-request phase timelines from the span ring "
                        "(queue/admit/prefill/prefill_chunk/decode/verify)",
     "/debug/flight": "GET: flight-recorder rings (per-tick scheduler decisions, "
@@ -902,8 +932,42 @@ def make_handler(state: ApiState | BatchedApiState):
             elif path == "/debug/tenants":
                 # cumulative per-tenant usage, limits, the fairness view
                 self._json(200, tenancy.registry().snapshot())
+            elif path == "/debug/roofline":
+                # per-program achieved bandwidth/compute against the card's
+                # ceilings: host reads of the ledger and the histograms
+                self._json(200, roofline.snapshot())
+            elif path == "/debug/compiles":
+                self._json(200, introspection.ledger().snapshot())
             else:
                 self._not_found()
+
+        def _debug_profile(self) -> None:
+            # POST /debug/profile?ms=N — hold a live profiler window over the
+            # serving loop's steps and answer the Eval/Sync split, the tp
+            # merges' traffic and, with ops=1, the per-op attribution
+            from urllib.parse import parse_qs, urlsplit
+
+            self._drain_small_body()
+            try:
+                qs = parse_qs(urlsplit(self.path).query)
+                ms = int(qs.get("ms", [_PROFILE_MS_DEFAULT])[0])
+                ops = int(qs.get("ops", ["0"])[0])
+            except ValueError:
+                self._json(400, {"error": "ms and ops must be integers"})
+                return
+            if not (10 <= ms <= _PROFILE_MS_MAX):
+                self._json(400, {"error": f"ms must be in [10, {_PROFILE_MS_MAX}]"})
+                return
+            # batched serving: the session starts and stops on the
+            # scheduler's loop thread, between ticks
+            on_loop = state.sched.run_on_loop if isinstance(state, BatchedApiState) else None
+            try:
+                self._json(200, profiling.live_split_summary(
+                    state.engine, ms / 1000.0, include_ops=bool(ops), on_loop=on_loop))
+            except profiling.CaptureBusyError as e:
+                self._json(409, {"error": str(e)})
+            except SchedulerUnavailableError as e:
+                self._json(503, {"error": str(e)}, headers=backpressure_headers(503))
 
         def _drain_small_body(self) -> None:
             # read a small body before answering (closing with unread bytes
@@ -980,6 +1044,11 @@ def make_handler(state: ApiState | BatchedApiState):
             self.close_connection = True
 
         def do_POST(self):
+            if self._route() == "/debug/profile":
+                self._fleet_rid = None  # keep-alive: no stale POST echo
+                self._tenant = None
+                self._debug_profile()
+                return
             if self._route() == "/v1/kv/export":
                 self._fleet_rid = None  # keep-alive: no stale POST echo
                 self._tenant = None
@@ -1246,9 +1315,12 @@ def run_api_server(args, on_listening=None) -> int:
         signal.signal(signal.SIGTERM, _on_sigterm)
     except ValueError:
         pass  # not the main thread (embedded use): no signal hook
-    host, port = server.server_address[:2]
-    print(f"🕸️ listening on http://{host}:{port}", flush=True)
     try:
+        # the device-memory table: weights and KV against the graphs captured
+        # so far (batched serving captures its step before it listens)
+        introspection.hbm_startup_report(state.engine)
+        host, port = server.server_address[:2]
+        print(f"🕸️ listening on http://{host}:{port}", flush=True)
         if on_listening is not None:
             on_listening(server, state)
         server.serve_forever()

@@ -63,8 +63,13 @@ before anything is staged. ``--numerics-taps`` collects per-layer
 activation stats on prefill and canary forwards, ``--numerics-failfast``
 fails a request whose decode logits turn non-finite (the tripwire always
 counts them), and ``api --canary-interval SEC`` replays a fixed-seed canary
-prompt against its golden. Modes and flags of the JAX CLI that are not
-ported yet fail loudly instead of being ignored; the reference's executor
+prompt against its golden. ``--profile DIR`` writes a ``torch.profiler``
+trace of an ``inference``, ``perplexity`` or ``chat`` run, and
+``--profile-split`` prints the per-token Eval/Sync split of the tp merges
+and their traffic (``runtime/profiling.py``); ``inference`` prints the
+decode rate's ``roofline:`` share of the card's HBM ceiling. Modes and
+flags of the JAX CLI that are not ported yet fail loudly instead of being
+ignored; the reference's executor
 and network flags ``--nthreads``, ``--workers`` and ``--net-turbo`` are
 accepted and ignored, as the JAX CLI does.
 """
@@ -249,6 +254,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append per-request phase spans (queue/admit/prefill/decode/"
                         "verify) as JSONL to FILE (runtime.telemetry.SpanTracer)")
     # numerics observatory (runtime/numerics.py)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="inference/perplexity/chat: write a torch.profiler trace (Chrome "
+                        "JSON, CPU and CUDA activities) of the run to DIR (load it in "
+                        "ui.perfetto.dev; runtime/profiling.py op_attribution reads it)")
+    p.add_argument("--profile-split", action="store_true",
+                   help="measure and print the per-token Eval/Sync split and the tp "
+                        "merges' Sent/Recv traffic (the reference's per-token metrics, "
+                        "dllama.cpp:59-67): one short profiler capture of scratch steps "
+                        "classifies the merges' device time as sync; 0 at --tp 1")
     p.add_argument("--numerics-taps", action="store_true",
                    help="collect per-layer activation stats (rms/abs-max/non-finite "
                         "count/Q80 roundtrip error per block site) on prefill and "
@@ -462,7 +476,7 @@ def make_engine(args) -> InferenceEngine:
             weight_mode=args.weight_mode, host_sampling=args.host_sampling,
             verify_weights=args.verify_weights, numerics_taps=args.numerics_taps,
             numerics_failfast=args.numerics_failfast, kv_host_blocks=args.kv_host_blocks,
-            quant_mode=args.quant_mode)
+            quant_mode=args.quant_mode, profile_split=getattr(args, "profile_split", False))
     except HbmBudgetError as e:
         raise SystemExit(f"❌ {e}") from None
     h = engine.model_file.header
@@ -474,6 +488,32 @@ def make_engine(args) -> InferenceEngine:
           f"KV: {str(engine.kv_dtype).removeprefix('torch.')}  Weights: {engine.weight_mode}  "
           f"Quant: {label}")
     return engine
+
+
+def profiled(args):
+    """The ``--profile DIR`` capture around a mode's work (one
+    ``torch.profiler`` session, ``runtime/profiling.py::capture``), or
+    nothing."""
+    from contextlib import nullcontext
+
+    from ..runtime import profiling
+
+    return profiling.capture(args.profile) if args.profile else nullcontext()
+
+
+def print_split(engine) -> None:
+    """The ``--profile-split`` summary: the decode step's and the prefill
+    chunk's Eval/Sync device time, and the tp merges' traffic."""
+    sp, pf, tr = engine.split, engine.split_prefill, engine.traffic
+    print(f"  eval/sync: {sp.eval_ms:.2f}/{sp.sync_ms:.2f} ms device time "
+          f"per decode step (sync {100 * sp.sync_frac:.1f}%)")
+    if pf is not None and pf.n_steps > 0:
+        print(f"             {pf.eval_ms:.2f}/{pf.sync_ms:.2f} ms per "
+              f"prefill chunk (sync {100 * pf.sync_frac:.1f}%)")
+    if tr:
+        print(f"    traffic: {tr.sent_kb:.1f} kB/token/device over "
+              f"{tr.n_collectives} collectives "
+              + " ".join(f"{k}={v:.1f}kB" for k, v in tr.by_kind.items()))
 
 
 def run_inference(args) -> int:
@@ -491,7 +531,12 @@ def run_inference(args) -> int:
             sys.stdout.write(piece if piece is not None else "")
             sys.stdout.flush()
 
-        result = engine.generate(ids, max_new, on_token=on_token, stop_on_eos=False)
+        with profiled(args):
+            result = engine.generate(ids, max_new, on_token=on_token, stop_on_eos=False)
+        if args.profile:
+            print(f"\n🔬 profiler trace written to {args.profile}")
+            if args.profile_split:
+                engine.fill_split(result.steps)  # the capture's session is closed now
         print()
         n_eval = sum(s.n_tokens for s in result.steps if s.kind == "eval")
         n_pred = sum(s.n_tokens for s in result.steps if s.kind == "pred")
@@ -501,10 +546,40 @@ def run_inference(args) -> int:
         print(f"    nTokens: {n_eval}")
         print(f"   tokens/s: {result.eval_tok_per_s:.2f} "
               f"({result.eval_ms / max(1, n_eval):.2f} ms/tok)")
+        if args.profile_split and engine.split is not None:
+            # the reference's per-token 🔶 lines (dllama.cpp:59-67), after
+            # the stream so they don't garble the generated text; traffic
+            # scales with the dispatch's width (a verify runs K+1 columns)
+            tr = engine.traffic
+            for s in result.steps:
+                if s.kind != "pred" or s.sync_ms is None:
+                    continue
+                skb = f"{tr.sent_kb * s.width:7.1f}" if tr else "    0.0"
+                rkb = f"{tr.recv_kb * s.width:7.1f}" if tr else "    0.0"
+                print(f"🔶 P {s.ms:8.2f} ms  E {s.eval_only_ms:8.2f} ms  "
+                      f"S {s.sync_ms:6.2f} ms  Sent {skb} kB  Recv {rkb} kB"
+                      + (f"  ({s.n_tokens} tok)" if s.n_tokens > 1 else ""))
         print("Prediction")
         print(f"    nTokens: {n_pred}")
         print(f"   tokens/s: {result.pred_tok_per_s:.2f} "
               f"({result.pred_ms / max(1, n_pred):.2f} ms/tok)")
+        if n_pred and result.pred_tok_per_s:
+            # the measured decode rate against the card's HBM ceiling: every
+            # decode step streams the weight planes, so ceiling_GBps /
+            # weight_GB is the speed limit (runtime/roofline.py); the
+            # ceiling's source is printed with it
+            from ..runtime import roofline
+
+            ceil = roofline.load_ceilings()
+            rf = roofline.rate_roofline(result.pred_tok_per_s,
+                                        engine.hbm_estimate["weights_bytes"] / 1e9, ceil)
+            if "no_evidence" in rf:
+                print(f"   roofline: no evidence ({rf['no_evidence']})")
+            else:
+                print(f"   roofline: {100 * rf['roofline_fraction']:.1f}% of "
+                      f"{rf['roofline_tok_per_s']:.0f} tok/s [{rf['ceiling_source']}]")
+        if args.profile_split and engine.split is not None:
+            print_split(engine)
         if engine.spec_active:
             n_disp = sum(1 for s in result.steps if s.kind == "pred")
             print(f"  spec rate: {n_pred / max(1, n_disp):.2f} tokens/dispatch "
@@ -529,8 +604,8 @@ def run_chat(args) -> int:
         sys.stdout.write(d)
         sys.stdout.flush()
 
-    first = True
-    try:
+    def repl() -> None:
+        first = True
         while True:
             try:
                 user = input("\n💻 > ")
@@ -563,9 +638,24 @@ def run_chat(args) -> int:
                 gate.flush_tail()
                 sys.stdout.flush()
             print()
+
+    try:
+        with profiled(args):
+            repl()
+        _after_profile(args, engine)
     finally:
         engine.close()
     return 0
+
+
+def _after_profile(args, engine) -> None:
+    """What ``--profile`` and ``--profile-split`` print after a mode's work:
+    the trace's place, and the split measured now."""
+    if args.profile:
+        print(f"🔬 profiler trace written to {args.profile}")
+    if args.profile_split:
+        engine.measure_split()
+        print_split(engine)
 
 
 def run_perplexity(args) -> int:
@@ -583,11 +673,13 @@ def run_perplexity(args) -> int:
             ids = ids[: args.max_seq_len]
         ids = ids[: engine.cfg.seq_len]
         t0 = time.perf_counter()
-        ppl = engine.perplexity(ids)
+        with profiled(args):
+            ppl = engine.perplexity(ids)
         dt = time.perf_counter() - t0
         print(f"📊 nTokens: {len(ids)}")
         print(f"📊 Perplexity: {ppl:.4f}")
         print(f"📊 Time: {dt:.2f}s ({len(ids) / dt:.1f} tok/s)")
+        _after_profile(args, engine)
     finally:
         engine.close()
     return 0
@@ -772,7 +864,8 @@ def main(argv=None, on_listening=None) -> int:
                          f"--buffer-float-type --compute-dtype --quant-mode --weight-mode "
                          f"--kv-dtype --nbatches --host-sampling --verify-weights "
                          f"--device --sp --tp --decode-chunk --spec-lookup --chat-template "
-                         f"--trace-out --numerics-taps --numerics-failfast; api: "
+                         f"--trace-out --numerics-taps --numerics-failfast; inference, "
+                         f"perplexity, chat: --profile --profile-split; api: "
                          f"--batch-slots --kv-block-size --kv-host-blocks --role --max-queue "
                          f"--host --port "
                          f"--request-timeout --drain-timeout --stats --canary-interval "
@@ -782,6 +875,10 @@ def main(argv=None, on_listening=None) -> int:
                          f"timeline: --dump --out; fleettrace: --router-dump "
                          f"--replica-dump --out; audit: --audit-json; eval: --data "
                          f"--compare --json --batch-slots --kv-block-size)")
+    if (args.profile or args.profile_split) and args.mode not in ("inference", "perplexity",
+                                                                   "chat"):
+        raise SystemExit(f"--profile/--profile-split take inference, perplexity or chat "
+                         f"(an api server profiles a live window: POST /debug/profile)")
     if args.mode == "api":
         from .api import check_role
 

@@ -42,7 +42,8 @@ def test_fresh_import_of_every_module_loads_no_jax():
     mods = _modules()
     assert "dllama_tpu_torch.ops.quant_matmul" in mods and len(mods) > 20
     assert "dllama_tpu_torch.runtime.speculative" in mods
-    for m in ("telemetry", "failpoints", "watchdog", "flightrec"):
+    for m in ("telemetry", "failpoints", "watchdog", "flightrec", "introspection",
+              "profiling", "roofline"):
         assert f"dllama_tpu_torch.runtime.{m}" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

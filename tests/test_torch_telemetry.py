@@ -338,7 +338,8 @@ def test_metrics_and_debug_routes_on_both_api_states(api_files, extra):
         status, _, body = _get(url, "/debug")
         assert status == 200 and set(json.loads(body)["endpoints"]) == {
             "/debug/requests", "/debug/flight", "/debug/timeline", "/debug/numerics",
-            "/debug/eval", "/debug/tenants"}
+            "/debug/eval", "/debug/tenants", "/debug/compiles", "/debug/profile",
+            "/debug/roofline"}
         reqs = json.loads(_get(url, "/debug/requests")[2])["requests"]
         assert len(reqs) == 2 and all(r["phases"] for r in reqs)
         flight = json.loads(_get(url, "/debug/flight")[2])
@@ -346,10 +347,12 @@ def test_metrics_and_debug_routes_on_both_api_states(api_files, extra):
         trace = json.loads(_get(url, "/debug/timeline")[2])
         assert flightrec.validate_chrome_trace(
             trace, expect_rids={r["request_id"] for r in reqs}) == []
-        for unported in ("/debug/compiles", "/debug/roofline"):
-            with pytest.raises(urllib.error.HTTPError) as e:
-                _get(url, unported)
-            assert e.value.code == 404
+        # the device-observability routes answer (their keys against the JAX
+        # package's: tests/test_torch_introspection.py)
+        for route, keys in (("/debug/compiles", {"steady", "programs", "events"}),
+                            ("/debug/roofline", {"ceilings", "programs"})):
+            status, _, body = _get(url, route)
+            assert status == 200 and keys <= set(json.loads(body))
         # the scrape itself counts
         assert _metric(_get(url, "/metrics")[2],
                        'dllama_http_requests_total{route="/metrics",status="200"}') == 2

@@ -152,13 +152,14 @@ Phases, each failing loudly (non-zero exit, no result line):
    a ``stop`` body and an SSE body; ``python -m dllama_tpu_torch chat`` as
    a subprocess with two lines on stdin. Phase 3 holds K3 at the dense
    pool's shapes: 8 ragged rows at T = 1 and T = K + 1, single pass
-   (``tc`` over bf16). The long sp cell, the graphs phase,
-   ``spec_serving`` and the dense pool's runs run on an 8-layer copy of the
-   model (:data:`LONG_LAYERS`) to keep the run under 900 s;
+   (``tc`` over bf16). The graphs phase and the dense pool's runs run on
+   an 8-layer copy of the model (:data:`LONG_LAYERS`), the long sp cell and
+   ``spec_serving`` on a 4-layer copy since slice 20
+   (:data:`SHORT_LAYERS`), to keep the run under 900 s;
 10. the engine options of slice 10 and weight integrity, at full width and
    32 layers (``--kv-dtype f8``'s single-sequence runs and sp cell,
-   ``--nbatches``, ``--host-sampling``, the weight modes and integrity on the
-   8-layer copy).
+   ``--nbatches``, ``--host-sampling`` and the weight modes on the 8-layer
+   copy, integrity on the 4-layer one).
    Phase 3 adds K3, K3s and K4 over a float8 e4m3 cache (the
    ``f8-*`` modes of :data:`ATTN_MODES` in the attention cases, under
    the rules of the f32 and bf16 caches, against the plain version on the
@@ -275,7 +276,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    wk, w1 and the head cut along N, wo and w2 along K), K3 (decode at depth
    2047, a 128-token chunk) and K4 (8 ragged decode rows) over one shard's
    16 q heads and 4 kv heads, against their plain versions. Then
-   :func:`tp_phase` on the 8-layer copy, tp = 2 against tp = 1, f32 and
+   :func:`tp_phase` on the 4-layer copy (:data:`SHORT_LAYERS`), tp = 2
+   against tp = 1, f32 and
    bf16: the logits of a 128-token chunk and 8 teacher-forced decode steps
    (f32 buffers; within 1e-4 / 5e-2 of max|logit|), the greedy 64-token
    transcripts (the near-tie rule), ``perplexity`` over 511 tokens (f32
@@ -284,13 +286,31 @@ Phases, each failing loudly (non-zero exit, no result line):
    a system prompt (the near-tie rule); K1-K4 launches of each tp path
    (counts set to 0 before each run), decode and prefill tok/s and device
    ms per decode step at tp = 2 and at tp = 1 (eager), beside the card;
-17. the ``kernels`` JSON line, then the result line
+17. MoE models and turbo planes under ``--tp``, and expert parallelism,
+   the shards on one card. Phase 3 adds :func:`moe_tp_cases`: K5 at one
+   shard's Qwen3-30B-A3B expert shapes, a tp = 2 shard's (128 experts,
+   hidden 384) and an ep = 2 x tp = 2 shard's (64 experts, the rows routed
+   to the other 64 past its last group), w1 and w2 at 8, 64 and 1024 rows,
+   exact and fast, against the plain version and the twin on the rows it
+   writes. Then :func:`moe_tp_phase` (after ``turbo_phase``, on the
+   Qwen3-30B-A3B file): the engine at tp = 2 against tp = 1 on f32 sync
+   buffers, f32 and bf16 (the prompt's logits within
+   :data:`MOE_TP_LOGIT_TOL`, 64 greedy tokens held by the routing and
+   logit near-tie rules, eager decode device ms and K5's share), in f32
+   ``perplexity`` (within 1e-3 relative), the paged scheduler over 8
+   requests, one forward and 8 decode steps under ``{"ep": 2, "tp": 2}`` on
+   ``[cuda:0] * 4``; under the CLI's Q80 buffers the prompt's logits
+   against ``moe_phase``'s within :data:`MOE_TP_Q80_LOGIT_TOL`, and in
+   bf16 ``--quant-mode turbo`` on the MoE file and ``turbo16`` on the
+   8-layer 8B at tp = 2 against ``turbo_phase``'s logits. K5 launches once
+   per shard and layer and projection on every path, no more, no fewer;
+18. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``--layers N`` cuts the end-to-end depth (default 32, the full model).
-``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit,moe,turbo,tp`` is a
-development run of the phases of slices 12-17 alone (no kernel cases, exit 3,
-no result line).
+``--only eval,numerics,hbm,fleet,kvtier,kvmigrate,audit,moe,turbo,moe_tp,tp``
+is a development run of the phases of slices 12-20 alone (no kernel cases,
+exit 3, no result line).
 ``--ab TAG --assets DIR`` runs one side of a same-call A/B of two checkouts
 instead (see :func:`ab_side`): phase 4, the long sp cell at sp = 1 (f32
 and bf16) and the paged decode step's profile on the package of the
@@ -337,6 +357,10 @@ LONG_DEPTH = 20145    # its decode depth: the newest position after its prompt
 LONG_PREFILL_AT = 19000  # first position of one of its 256-token prefill chunks
 LONG_LAYERS = 8       # the long sp cell's depth: its 20146-token prefills at 32 layers
                       # took 137 s of the run's 900 (width is never cut)
+# the depth of the phases moved to a 4-layer copy to pay for the MoE tp
+# phase (slice 20: 54.6 s): the long sp cell, spec_serving, tp_phase and the
+# integrity phase (44.4, 43.2, 38.6 and 24.5 s at 8 layers; width is never cut)
+SHORT_LAYERS = 4
 SPEC_K = 4            # --spec-lookup K of the spec phases: verify steps K + 1 wide
 
 # kernel-vs-plain tolerances, relative to max|plain output|:
@@ -3720,8 +3744,8 @@ def sp_path(model: str, tok: str, n_layers: int, e2e: dict, long_model: str,
             long_layers: int) -> None:
     """The model split in two sequence shards, at sp = 2 and, for
     comparison, sp = 1, in three cells (the long one on ``long_model``, of
-    ``long_layers`` layers: :data:`LONG_LAYERS`, to keep the run inside its
-    time):
+    ``long_layers`` layers: :data:`SHORT_LAYERS` since slice 20, to keep the
+    run inside its time):
 
     * short: ``--max-seq-len 4096`` (two 2048-row shards), a 2551-token
       prompt (the prefill crosses the boundary), 64 greedy steps in f32 and
@@ -4032,7 +4056,8 @@ def eager_decode_ms(eng, token: int, n: int = 8) -> dict:
                                                    eng.kv, n, eng.plan), n)
     rec = _profile_rec("tp_decode", "", "step", n, wall, kernels)
     return {k: rec[k] for k in ("wall_ms_per_step", "device_ms_per_step",
-                                "device_busy_share", "kernels_per_step")}
+                                "device_busy_share", "kernels_per_step",
+                                "K5_device_ms_per_step")}
 
 
 def tp_api(engs: dict, probe, tokenizer, dtype: str, launches: dict) -> dict:
@@ -4076,7 +4101,7 @@ def tp_api(engs: dict, probe, tokenizer, dtype: str, launches: dict) -> dict:
 
 
 def tp_phase(model: str, tok: str, e2e: dict) -> None:
-    """Tensor parallelism on one card: the 8-layer copy at tp = 2 (shards
+    """Tensor parallelism on one card: the 4-layer copy at tp = 2 (shards
     ``[cuda:0] * 2``, eager) against tp = 1, f32 and bf16 (see the module
     docstring's phase 16). Each tp = 2 path's K1-K4 launches are counted
     (set to 0 just before the run) into ``e2e[dtype]["launches"]`` as
@@ -6910,7 +6935,9 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
     tensor-core kernel, against its twin ``moe_matmul_tc_plain``
     (:data:`TC_TWIN_TOL` of max|twin|, a8 bit for bit), timed with the plain
     version and ``library`` (one PyTorch call, or None); its bound counts the
-    planes of the ``used`` groups that hold rows."""
+    planes of the ``used`` groups that hold rows. Rows past the last group
+    (an ep shard's rows routed to another shard's experts) are not written
+    by K5 and are neither compared nor counted in the bound."""
     from dllama_tpu_torch.ops import moe_matmul as mm
 
     got = mm.moe_matmul(x, we, offsets, decoder=decoder, fast=fast)
@@ -6919,6 +6946,9 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
     want = mm.moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
     twin = (mm.moe_matmul_tc_plain(x, we, offsets, decoder=decoder, fast=fast)
             if path == "tc" else None)
+    written = x.shape[0] if offsets is None else int(offsets[-1])
+    got, want = got[:written], want[:written]
+    twin = None if twin is None else twin[:written]
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
@@ -6936,10 +6966,11 @@ def k5_case(timer: Timer, results: list, *, what: str, mode: str, decoder: str, 
     timer.n = n
     lib_ms = timer(library) if library is not None else None
     _, K, N = mm._planes(we, decoder)
-    b_ms, b_by = bound("K5", R=x.shape[0], K=K, N=N, used=used, decoder=decoder, fast=fast,
+    b_ms, b_by = bound("K5", R=written, K=K, N=N, used=used, decoder=decoder, fast=fast,
                        plane_elt=we.element_size() if decoder == "dense" else 4)
     rec = dict(case="moe_matmul", kernel="K5", mode=mode, decoder=decoder, what=what,
-               rows=x.shape[0], K=K, N=N, max_abs_err=err, max_abs_ref=scale,
+               rows=x.shape[0], rows_written=written, K=K, N=N, max_abs_err=err,
+               max_abs_ref=scale,
                bit_equal=equal, twin_err=twin_err, twin_ref=twin_scale, path=path,
                splits=splits, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_note=library_note if library is not None else None,
@@ -7701,6 +7732,7 @@ def turbo_phase(long_model: str, tok: str, moe_model: str, moe_tok: str,
                 launches = read_counts()
             lines = run.splitlines()
             got = spy["logits"][0]
+            summary.setdefault("turbo_logits", {})[f"{name}_{mode}"] = got  # moe_tp's base
             drift = float(np.sqrt(np.mean((got - base) ** 2)) / np.sqrt(np.mean(base ** 2)))
             rec = dict(case="turbo", model=name, quant_mode=mode,
                        decode_tok_per_s=stat(lines, "Prediction", "tokens/s:"),
@@ -7743,6 +7775,437 @@ def turbo_phase(long_model: str, tok: str, moe_model: str, moe_tok: str,
     print(json.dumps({k: v for k, v in out.items() if k.endswith("fast_decode_tok_per_s")}),
           flush=True)
     summary["turbo"] = out
+
+
+# ---------------------------------------------------------------------------
+# MoE and turbo planes under tensor and expert parallelism: shards on one card
+# ---------------------------------------------------------------------------
+
+MOE_TP = 2
+# the shard grids of the K5 cases: (label, ep, tp). Shard (0, 0) of each: a
+# tp = 2 shard holds all 128 experts, each's hidden axis halved (w1/w3 K
+# 2048, N 384; w2 K 384, N 2048); an ep = 2 x tp = 2 shard 64 of them, the
+# rows routed to the other 64 sorted past its last group
+MOE_TP_GRIDS = (("tp=2", 1, 2), ("ep=2 x tp=2", 2, 2))
+MOE_TP_TOKENS = (("decode", 1), ("paged step", SLOTS), ("128-token chunk", 128))
+# the tp = 2 (and ep = 2 x tp = 2) logits against tp = 1's, over max|logit|:
+# under f32 sync buffers f32 sums in another order (the dense tp path's
+# bounds, TP_LOGIT_TOL); under the CLI's Q80 buffers the shards' last-ulp
+# differences flip whole Q80 codes at the sync points (one step of a block's
+# absmax / 127), and the flipped codes whole experts: on the synthetic 8-layer
+# file 1.2-3.0% of max|logit| over a 256-token forward, 144 routing
+# differences, 1.9e-6 under f32 buffers (PERF.md, PR 20)
+MOE_TP_LOGIT_TOL = TP_LOGIT_TOL
+MOE_TP_Q80_LOGIT_TOL = 0.1
+MOE_TP_PPL_TOL = 1e-3      # relative, f32
+MOE_TP_STEPS = 64          # greedy tokens of the transcripts
+MOE_TP_TURBO_STEPS = 16
+MOE_TP_DECODE_STEPS = 8    # teacher-forced decode steps of the ep x tp forward
+MOE_TP_API_TOKENS = 24
+
+
+def moe_tp_cases(timer: Timer, results: list) -> None:
+    """K5 at the local shapes one shard of :data:`MOE_TP_GRIDS` gives it on
+    the Qwen3-30B-A3B expert dots (w1 and w2; w3 is w1's shape), at 8, 64
+    and 1024 rows, exact and fast, against its plain version (and its twin)
+    on the written rows; yardstick ``torch._grouped_mm``. The records carry
+    ``tp`` and ``ep`` and join the kernels line in rows of their own."""
+    from dllama_tpu_torch.ops.linear import QuantizedWeight, dequantize_weight
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    H = MOE_HIDDEN // MOE_TP
+    for mode in ("exact", "fast"):
+        fast = mode == "fast"
+        for name, K, N in (("we1", MOE_DIM, H), ("we2", H, MOE_DIM)):
+            we = random_expert_planes(K, N, fast, g)
+            dq = dequantize_weight(we, torch.bfloat16)
+            for label, ep, tp in MOE_TP_GRIDS:
+                G = MOE_EXPERTS // ep
+                w = QuantizedWeight(scales=we.scales[:G], codes=we.codes[:G], kind=we.kind)
+                for tag, n_tok in MOE_TP_TOKENS:
+                    offsets, _ = routed_offsets(n_tok, g)
+                    offsets = offsets[:G + 1].contiguous()  # shard (0, 0)'s experts
+                    used = int((offsets[1:] > offsets[:-1]).sum())
+                    x = torch.randn((n_tok * MOE_ACTIVE, K), generator=g, device=DEV).to(
+                        torch.bfloat16 if fast else torch.float32)
+                    k5_case(timer, results, what=f"{name} {label} shard {tag} {mode}",
+                            mode=mode, decoder="q", fast=fast, x=x, we=w, offsets=offsets,
+                            used=used, library=grouped_mm_library(x, dq[:G], offsets),
+                            library_note=GROUPED_MM_NOTE, weight=name, tokens=n_tok,
+                            experts_used=used, tp=tp, ep=ep)
+            del we, dq
+            torch.cuda.empty_cache()
+
+
+def moe_tp_engine(model: str, tok: str, dtype: str, tp: int, sync: str = "f32", **kw):
+    """An engine of ``model`` as the CLI builds it (greedy; ``sync="q80"``:
+    the CLI's default buffers) at ``tp`` shards, all on ``cuda:0``."""
+    from dllama_tpu_torch.formats.quants import F32, Q80
+    from dllama_tpu_torch.runtime.engine import InferenceEngine
+
+    return InferenceEngine(model, tok, device=DEV, max_seq_len=MAX_SEQ,
+                           sync_type=Q80 if sync == "q80" else F32, temperature=0.0, seed=SEED,
+                           compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+                           tp=tp, tp_devices=[f"{DEV}:0"] * tp if tp > 1 else None, **kw)
+
+
+@contextlib.contextmanager
+def counted_layers(store: dict):
+    """``store["layers"]``: the transformer blocks run inside (one
+    ``_attn_out_and_ffn`` a layer a forward, every path); with
+    ``store["routes"]`` a list, each MoE layer's router output (the top k +
+    1 sorted probabilities and the top k experts of every row)."""
+    from dllama_tpu_torch.models import llama
+
+    real_layer, real_router = llama._attn_out_and_ffn, llama._router_sorted
+    store.setdefault("layers", 0)
+
+    def layer(*a, **kw):
+        store["layers"] += 1
+        return real_layer(*a, **kw)
+
+    def router(h, gate):
+        top, idx = real_router(h, gate)
+        if store.get("routes") is not None:
+            store["routes"].append((top.reshape(-1, top.shape[-1])[:, :MOE_ACTIVE + 1],
+                                    idx.reshape(-1, idx.shape[-1])[:, :MOE_ACTIVE]))
+        return top, idx
+
+    llama._attn_out_and_ffn, llama._router_sorted = layer, router
+    try:
+        yield store
+    finally:
+        llama._attn_out_and_ffn, llama._router_sorted = real_layer, real_router
+
+
+def hold_k5_per_shard(what: str, launches: dict, layers: int, per_layer: int) -> None:
+    """K5 launched once per shard and layer and projection: ``per_layer``
+    launches a block, no more, no fewer."""
+    if launches["K5"] != layers * per_layer or not layers:
+        fail(f"{what}: {launches['K5']} K5 launches over {layers} layer calls (want "
+             f"{per_layer} a layer: once per shard and projection)")
+
+
+def route_rows(routes: list, spans: list, n_layers: int) -> dict:
+    """``{position: {layer: (probs [k + 1], experts)}}`` from the router
+    outputs of consecutive forwards whose rows cover ``spans`` (``(first
+    position, valid rows)`` a forward; padded rows are dropped)."""
+    rows: dict = {}
+    for f, (pos0, valid) in enumerate(spans):
+        for layer in range(n_layers):
+            top, idx = routes[f * n_layers + layer]
+            top, idx = top[:valid].float().cpu().numpy(), idx[:valid].cpu().numpy()
+            for j in range(valid):
+                rows.setdefault(pos0 + j, {})[layer] = (top[j], set(idx[j].tolist()))
+    return rows
+
+
+def eager_greedy(eng, ids: list[int], n: int) -> tuple[list[int], list]:
+    """``eng.generate(ids, n)``'s greedy steps at tp = 1 run eagerly (the
+    captured step computes the same kernels), recording each step's routing
+    and logits: the reference the tp = 2 transcripts are held to."""
+    from dllama_tpu_torch.models import llama
+
+    eng.reset()
+    eng.prefill(ids[:-1])
+    tok, pos, toks, rows = ids[-1], len(ids) - 1, [], []
+    for _ in range(n):
+        logits, eng.kv = llama.forward(eng.params, eng.cfg,
+                                       torch.tensor([[tok]], device=DEV), pos, eng.kv)
+        row = logits[0, -1].float()
+        tok = int(row.argmax())
+        toks.append(tok)
+        rows.append(row)
+        pos += 1
+    return toks, rows
+
+
+def hold_departure(what: str, dtype: str, n_prompt: int, toks: dict, rows: dict,
+                   logits1: list) -> dict:
+    """tp = 2's greedy tokens against tp = 1's (f32 buffers): in f32 they may
+    part only after the two runs' routers chose other experts at some
+    (position, layer) at or before the position that gave the parting
+    token, the first such choice within :data:`ROUTER_TIE_ULPS` of a tie on
+    one side (the routing near-tie rule), or where tp = 2's token came
+    within :data:`NEAR_TIE` of tp = 1's top logit; bf16 is recorded."""
+    part = next((i for i, (a, b) in enumerate(zip(toks[1], toks[MOE_TP])) if a != b), None)
+    last = n_prompt - 1 + (part if part is not None else len(toks[1]) - 1)
+    first, n_diff = None, 0
+    for p in sorted(set(rows[1]) & set(rows[MOE_TP])):
+        if p > last:
+            break
+        for layer, (va, ea) in rows[1][p].items():
+            vb, eb = rows[MOE_TP][p][layer]
+            if ea != eb:
+                n_diff += 1
+                if first is None:
+                    rr = RouteRecorder(1, MOE_ACTIVE)
+                    first = dict(pos=p, layer=layer,
+                                 gap_ulps=[rr.gap_ulps(va), rr.gap_ulps(vb)])
+    margin = (pick_margin(logits1[part].cpu().numpy(), toks[MOE_TP][part])
+              if part is not None else None)
+    rec = dict(case="moe_tp_transcripts", what=what, compute_dtype=dtype, parted_at=part,
+               route_differences=n_diff, first_route_difference=first, margin=margin)
+    print(json.dumps(rec), flush=True)
+    tie = first is not None and min(first["gap_ulps"]) <= ROUTER_TIE_ULPS
+    if dtype == "f32" and part is not None and not tie and not near_tie(margin, 0.0):
+        fail(f"{what}: tp = {MOE_TP} parts from tp = 1 at token {part}, where its token stood "
+             f"{margin:.3g} from tp = 1's pick (not a near tie), after the routing difference "
+             f"{first}")
+    return rec
+
+
+def _drift(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def moe_tp_api(engs: dict, tokenizer, launches: dict, layers: dict) -> dict:
+    """The paged ``BatchScheduler`` (8 slots, block 16) at tp = 2 and tp = 1
+    over 8 greedy requests that share the serving mix's system prompt, the
+    first alone (its prompt blocks register) and the rest together:
+    transcripts counted equal, K5 per shard at tp = 2."""
+    from dllama_tpu_torch.runtime.serving import BatchScheduler
+
+    prompts = [tokenizer.encode(SYSTEM + f" Question {i}: " + "river stone " * (3 * i),
+                                is_start=True) for i in range(TP_API_REQUESTS)]
+    runs, rec = {}, {}
+    for tp, eng in engs.items():
+        sched = BatchScheduler(eng, n_slots=SLOTS)
+        try:
+            store: dict = {}
+            with counted_layers(store):
+                zero_counts()
+                t0 = time.perf_counter()
+                reqs = []
+                for batch in (prompts[:1], prompts[1:]):
+                    reqs += [sched.submit(p, MOE_TP_API_TOKENS, stop_on_eos=False)
+                             for p in batch]
+                    for r in reqs:
+                        if not r.done.wait(timeout=600) or r.error is not None:
+                            fail(f"moe tp api tp={tp}: request {r.rid} failed: {r.error}")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if tp == MOE_TP:
+                    launches["moe_tp2_api"] = read_counts()
+                    layers["moe_tp2_api"] = store["layers"]
+            runs[tp] = [r.tokens for r in reqs]
+            rec[f"tp{tp}_gen_tok_per_s"] = sum(len(t) for t in runs[tp]) / wall
+            rec[f"tp{tp}_reused_tokens"] = sched.gen.reused_tokens
+        finally:
+            sched.close()
+    rec["transcripts_equal"] = sum(a == b for a, b in zip(runs[MOE_TP], runs[1]))
+    rec["first_departures"] = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                               for a, b in zip(runs[MOE_TP], runs[1])]
+    if not rec[f"tp{MOE_TP}_reused_tokens"]:
+        fail("moe tp api: the shared system prompt was never reused")
+    return rec
+
+
+def moe_tp_phase(moe_model: str, moe_tok: str, long_model: str, tok: str, text: str,
+                 n_layers: int, summary: dict) -> None:
+    """MoE models and turbo planes under tensor and expert parallelism, the
+    shards on one card, against tp = 1: ``InferenceEngine(tp=2,
+    tp_devices=[cuda:0] * 2)`` on the Qwen3-30B-A3B file, f32 and bf16 (the
+    expert hidden axis over tp: 768 -> 384). Under f32 sync buffers: the
+    prompt's logits against tp = 1's within :data:`MOE_TP_LOGIT_TOL`, 64
+    greedy tokens held to tp = 1's (:func:`hold_departure`), eager decode
+    device ms and K5's share at tp = 2 and tp = 1; f32: ``perplexity``
+    within :data:`MOE_TP_PPL_TOL` relative, the paged scheduler over 8
+    requests, and one forward (a 128-token chunk) and 8 teacher-forced
+    decode steps under ``{"ep": 2, "tp": 2}`` on ``[cuda:0] * 4`` against
+    tp = 1's logits. Under the CLI's Q80 buffers the tp = 2 prompt logits
+    against ``moe_phase``'s tp = 1 logits within
+    :data:`MOE_TP_Q80_LOGIT_TOL`; bf16: ``--quant-mode turbo`` on the MoE
+    file and ``turbo16`` on the 8-layer 8B at tp = 2 against
+    ``turbo_phase``'s tp = 1 logits, the same bound. On every path K5
+    launches once per shard and layer and projection
+    (:func:`hold_k5_per_shard`; counts set to 0 just before each run)."""
+    import gc
+
+    card = card_line()
+    print(f"🕸️ moe tp path: InferenceEngine(tp={MOE_TP}, tp_devices=[cuda:0] * {MOE_TP}) and "
+          f"{{ep: 2, tp: 2}} on [cuda:0] * 4 ({card})", flush=True)
+    out: dict = {"card": card}
+    moe = summary.get("moe", {})
+    for dtype in ("f32", "bf16"):
+        launches = summary.setdefault(dtype, {}).setdefault("launches", {})
+        layers: dict = {}
+        rec = dict(case="moe_tp_path", compute_dtype=dtype, tp=MOE_TP, layers=n_layers)
+        kw = {"kv_block_size": BLOCK} if dtype == "f32" else {}
+        with engine_spy() as spy:
+            engs = {t: moe_tp_engine(moe_model, moe_tok, dtype, t, **kw) for t in (1, MOE_TP)}
+        try:
+            rec["load_s"] = spy["load_s"]
+            tokenizer = engs[1].tokenizer
+            ids = tokenizer.encode(PROMPT)
+            n_prompt = len(ids)
+            engs[1].reset()
+            spans = [(i, valid) for i, valid, _ in engs[1]._chunks(n_prompt - 1)]
+            spans += [(n_prompt - 1 + j, 1) for j in range(MOE_TP_STEPS)]
+            toks, rows = {}, {}
+            store: dict = {"routes": []}
+            with engine_spy() as spy, counted_layers(store):
+                toks[1], logits1 = eager_greedy(engs[1], ids, MOE_TP_STEPS)
+                rows[1] = route_rows(store["routes"], spans, n_layers)
+                store.update(routes=[], layers=0)
+                zero_counts()
+                res = engs[MOE_TP].generate(ids, MOE_TP_STEPS, stop_on_eos=False)
+                launches["moe_tp2_inference"] = read_counts()
+                layers["moe_tp2_inference"] = store["layers"]
+                toks[MOE_TP] = res.tokens
+                rows[MOE_TP] = route_rows(store["routes"], spans, n_layers)
+            logits = spy["logits"]  # tp = 1's prefill, then tp = 2's
+            rec["logit_drift"] = _drift(logits[1], logits[0])
+            if not rec["logit_drift"] <= MOE_TP_LOGIT_TOL[dtype]:
+                fail(f"moe tp {dtype}: the prompt's logits {rec['logit_drift']:.3g} of "
+                     f"max|logit| from tp = 1's (> {MOE_TP_LOGIT_TOL[dtype]})")
+            rec["transcripts"] = hold_departure(f"moe tp inference {dtype}", dtype, n_prompt,
+                                                toks, rows, logits1)
+            rec["transcript_equal"] = toks[1] == toks[MOE_TP]
+            rec["tp2_prefill_tok_per_s"] = res.eval_tok_per_s
+            rec["tp2_decode_tok_per_s"] = res.pred_tok_per_s
+            for t, e in engs.items():
+                rec[f"tp{t}_eager_decode"] = eager_decode_ms(e, toks[t][-1])
+            del logits1
+            if dtype == "f32":
+                with open(text, encoding="utf-8") as f:
+                    ppl_ids = tokenizer.encode(f.read())[:MAX_SEQ]
+                ppl = {}
+                for t, e in engs.items():
+                    e.reset()
+                    store = {}
+                    with counted_layers(store):
+                        zero_counts()
+                        t0 = time.perf_counter()
+                        ppl[t] = e.perplexity(ppl_ids)
+                        torch.cuda.synchronize()
+                        if t == MOE_TP:
+                            launches["moe_tp2_perplexity"] = read_counts()
+                            layers["moe_tp2_perplexity"] = store["layers"]
+                    rec[f"tp{t}_perplexity_tok_per_s"] = (len(ppl_ids) - 1) / (
+                        time.perf_counter() - t0)
+                rec["perplexity"] = ppl
+                rec["perplexity_rel"] = abs(ppl[MOE_TP] / ppl[1] - 1.0)
+                if not rec["perplexity_rel"] <= MOE_TP_PPL_TOL:
+                    fail(f"moe tp f32 perplexity {ppl[MOE_TP]} against tp = 1's {ppl[1]}: "
+                         f"{rec['perplexity_rel']:.3g} > {MOE_TP_PPL_TOL}")
+                rec["api"] = moe_tp_api(engs, tokenizer, launches, layers)
+                rec["ep_tp"] = moe_ep_tp_forward(engs[1], ids, launches, layers)
+        finally:
+            for e in engs.values():
+                e.close()
+            engs.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        if f"{dtype}_logits" in moe:  # the CLI's Q80 buffers against moe_phase's tp = 1
+            with engine_spy() as spy:
+                e = moe_tp_engine(moe_model, moe_tok, dtype, MOE_TP, sync="q80")
+                try:
+                    e.prefill(ids[:-1])
+                finally:
+                    e.close()
+            rec["q80_logit_drift_vs_moe_phase"] = _drift(spy["logits"][0],
+                                                         moe[f"{dtype}_logits"])
+            if not rec["q80_logit_drift_vs_moe_phase"] <= MOE_TP_Q80_LOGIT_TOL:
+                fail(f"moe tp {dtype} Q80 buffers: the prompt's logits "
+                     f"{rec['q80_logit_drift_vs_moe_phase']:.3g} of max|logit| from "
+                     f"moe_phase's tp = 1 (> {MOE_TP_Q80_LOGIT_TOL})")
+        # MoE at tp = 2: the three expert dots on each of the two shards
+        for path, n in layers.items():
+            hold_k5_per_shard(f"moe tp {dtype} {path}", launches[path], n,
+                              3 * 4 if path == "moe_ep2_tp2_forward" else 3 * MOE_TP)
+        rec["launches"] = {p: launches[p] for p in layers}
+        rec["layer_calls"] = layers
+        print(json.dumps(rec), flush=True)
+        out[dtype] = rec
+    out["turbo"] = moe_tp_turbo(moe_model, moe_tok, long_model, tok, summary)
+    summary["moe_tp"] = out
+
+
+def moe_ep_tp_forward(eng, ids: list[int], launches: dict, layers: dict) -> dict:
+    """One forward over a 128-token chunk and :data:`MOE_TP_DECODE_STEPS`
+    teacher-forced decode steps (tp = 1's greedy tokens) under
+    ``make_mesh({"ep": 2, "tp": 2}, [cuda:0] * 4)`` with ``eng``'s
+    parameters cut over the grid, against ``eng``'s tp = 1 forwards (eager
+    on both sides): the largest drift over max|logit|, and the ep x tp
+    forwards' launches alone."""
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.parallel import sharding
+    from dllama_tpu_torch.parallel.api import make_mesh
+
+    plan = make_mesh({"ep": 2, "tp": 2}, [f"{DEV}:0"] * 4)
+    params = sharding.tp_params(plan, eng.params)
+    kv = sharding.kv_cache_sharding(plan, eng.cfg, dtype=eng.kv_dtype)
+    eng.reset()
+    worst, pos, chunk = 0.0, 0, (ids * 4)[:128]
+    total = collections.Counter()
+    for _ in range(1 + MOE_TP_DECODE_STEPS):
+        want = eng._forward(chunk, pos)[0].float()
+        zero_counts()
+        got, kv = llama.forward(params, eng.cfg, torch.tensor([chunk], device=DEV), pos, kv,
+                                plan)
+        total.update(read_counts())
+        got = got[0].float()
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+        pos += len(chunk)
+        chunk = [int(want[-1].argmax())]
+    launches["moe_ep2_tp2_forward"] = dict(total)
+    layers["moe_ep2_tp2_forward"] = (1 + MOE_TP_DECODE_STEPS) * eng.cfg.n_layers
+    del params, kv
+    rec = dict(grid={"ep": 2, "tp": 2}, shards=4, forwards=1 + MOE_TP_DECODE_STEPS,
+               logit_drift=worst)
+    if not worst <= MOE_TP_LOGIT_TOL["f32"]:
+        fail(f"moe ep x tp f32: logits {worst:.3g} of max|logit| from tp = 1's "
+             f"(> {MOE_TP_LOGIT_TOL['f32']})")
+    return rec
+
+
+def moe_tp_turbo(moe_model: str, moe_tok: str, long_model: str, tok: str,
+                 summary: dict) -> dict:
+    """``--quant-mode turbo`` on the MoE file and ``turbo16`` on the 8-layer
+    8B at tp = 2, bf16 (``turbo_phase``'s settings): turbo planes derived
+    from the whole Q40 planes and cut like them, K5 for every matmul but
+    the dense head (the expert dots and the attention projections, and the
+    8B's FFN, on each shard), K1 and K2 never; the prompt's logits against
+    ``turbo_phase``'s tp = 1 run (both under the CLI's Q80 buffers) within
+    :data:`MOE_TP_Q80_LOGIT_TOL`."""
+    import gc
+
+    out: dict = {}
+    base = summary.get("turbo_logits", {})
+    for name, model, tk, mode, per_layer in (
+            ("qwen3_30b_a3b", moe_model, moe_tok, "turbo", (3 + 4) * MOE_TP),
+            ("llama31_8b", long_model, tok, "turbo16", 7 * MOE_TP)):
+        with engine_spy() as spy:
+            eng = moe_tp_engine(model, tk, "bf16", MOE_TP, sync="q80", quant_mode=mode)
+            try:
+                ids = eng.tokenizer.encode(PROMPT)
+                store: dict = {}
+                with counted_layers(store):
+                    zero_counts()
+                    res = eng.generate(ids, MOE_TP_TURBO_STEPS, stop_on_eos=False)
+                    launches = read_counts()
+            finally:
+                eng.close()
+                gc.collect()
+                torch.cuda.empty_cache()
+        rec = dict(case="moe_tp_turbo", model=name, quant_mode=mode, tp=MOE_TP,
+                   decode_tok_per_s=res.pred_tok_per_s, prefill_tok_per_s=res.eval_tok_per_s,
+                   load_s=spy["load_s"], launches=launches, layer_calls=store["layers"])
+        key = f"{name}_{mode}"
+        if key in base:
+            rec["logit_drift"] = _drift(spy["logits"][0], base[key])
+            if not rec["logit_drift"] <= MOE_TP_Q80_LOGIT_TOL:
+                fail(f"moe tp turbo {name} {mode}: logits {rec['logit_drift']:.3g} of "
+                     f"max|logit| from tp = 1's (> {MOE_TP_Q80_LOGIT_TOL})")
+        print(json.dumps(rec), flush=True)
+        summary["bf16"]["launches"][f"moe_tp2_turbo_{name}_{mode}"] = launches
+        hold_k5_per_shard(f"moe tp turbo {name} {mode}", launches, store["layers"], per_layer)
+        if launches["K1"] or launches["K2"]:
+            fail(f"moe tp turbo {name} {mode}: launches {launches} (K5 only for the matmuls)")
+        out[key] = rec
+    return out
 
 
 def kernels_line(cases: list, e2e: dict) -> dict:
@@ -7938,6 +8401,27 @@ def kernels_line(cases: list, e2e: dict) -> dict:
             else:
                 rec["n_splits"] = max(c.get("n_splits", 1) for c in sel)
             out.append(rec)
+    # K5 at one shard's shapes of the MoE tp paths (:func:`moe_tp_cases`),
+    # launches of those paths alone
+    for label, ep, tp in MOE_TP_GRIDS:
+        for tag, n_tok in MOE_TP_TOKENS:
+            for mode in ("exact", "fast"):
+                sel = [c for c in cases if c["kernel"] == "K5" and c.get("tp") == tp
+                       and c.get("ep") == ep and c["tokens"] == n_tok and c["mode"] == mode]
+                if not sel:
+                    continue
+                launches = e2e["bf16" if mode == "fast" else "f32"]["launches"]
+                by_path = {p: n.get("K5", 0) for p, n in launches.items()
+                           if p.startswith(("moe_tp", "moe_ep"))}
+                rec = entry("K5", f" Q40 experts w1 + w2, one {label} shard, {tag} "
+                                  f"({n_tok * MOE_ACTIVE} rows) [{mode}]", sel, by_path)
+                twins = [c["twin_err"] for c in sel if c["twin_err"] is not None]
+                rec.update(tp=tp, ep=ep, decoder="q", splits=sorted({c["splits"] for c in sel}),
+                           twin_err=max(twins) if twins else None,
+                           path="+".join(sorted({c["path"] for c in sel})))
+                if rec["library_ms"] is not None:
+                    rec["library_note"] = sel[0]["library_note"]
+                out.append(rec)
     return {"kernels": out}
 
 
@@ -8025,14 +8509,17 @@ def late_phases(names, model: str, long_model: str, tok: str, tmp: str, n_layers
 
 def moe_and_turbo(names, long_model: str, tok: str, text: str, tmp: str, n_layers: int,
                   e2e: dict) -> None:
-    """Slice 15's phases, each timed: the Qwen3-30B-A3B file written
-    (``n_layers`` deep), then ``moe_phase`` and ``turbo_phase``."""
+    """Slices 15 and 20's phases, each timed: the Qwen3-30B-A3B file written
+    (``n_layers`` deep), then ``moe_phase``, ``turbo_phase`` and
+    ``moe_tp_phase``."""
     t0 = time.perf_counter()
     moe_model, moe_tok = write_moe_assets(tmp, n_layers)
     print(f"⏱️ moe model write took {time.perf_counter() - t0:.1f} s", flush=True)
     for name, phase in (("moe", lambda: moe_phase(moe_model, moe_tok, text, n_layers, e2e)),
                         ("turbo", lambda: turbo_phase(long_model, tok, moe_model, moe_tok,
-                                                      e2e))):
+                                                      e2e)),
+                        ("moe_tp", lambda: moe_tp_phase(moe_model, moe_tok, long_model, tok,
+                                                        text, n_layers, e2e))):
         if name in names:
             t0 = time.perf_counter()
             phase()
@@ -8043,11 +8530,11 @@ def moe_and_turbo(names, long_model: str, tok: str, text: str, tmp: str, n_layer
 
 
 def only_phases(names: list[str], n_layers: int) -> int:
-    """``--only``: the named phases of slices 12-17 on fresh assets,
-    then exit 3 (a development run is never a result). ``moe``, ``turbo``
-    and ``tp`` alone need no 32-layer model."""
+    """``--only``: the named phases of slices 12-20 on fresh assets,
+    then exit 3 (a development run is never a result). ``moe``, ``turbo``,
+    ``moe_tp`` and ``tp`` alone need no 32-layer model."""
     e2e: dict = {"f32": {"launches": {}}, "bf16": {"launches": {}}}
-    late = [n for n in names if n not in ("moe", "turbo", "tp")]
+    late = [n for n in names if n not in ("moe", "turbo", "moe_tp", "tp")]
     long_layers = min(LONG_LAYERS, n_layers)
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_") as tmp:
         if late:
@@ -8062,10 +8549,12 @@ def only_phases(names: list[str], n_layers: int) -> int:
         if late:
             late_phases(late, model, long_model, tok, tmp, n_layers, e2e)
         if "tp" in names:
+            short_model = os.path.join(tmp, f"llama31_8b_{SHORT_LAYERS}l.m")
+            write_model(short_model, min(SHORT_LAYERS, n_layers))
             t0 = time.perf_counter()
-            tp_phase(long_model, tok, e2e)
+            tp_phase(short_model, tok, e2e)
             print(f"⏱️ tp path took {time.perf_counter() - t0:.1f} s", flush=True)
-        if {"moe", "turbo"} & set(names):
+        if {"moe", "turbo", "moe_tp"} & set(names):
             moe_and_turbo(names, long_model, tok, text, tmp, long_layers, e2e)
     return 3
 
@@ -8082,7 +8571,7 @@ def main() -> int:
     ap.add_argument("--only", metavar="PHASES",
                     help="a development run: only these end-to-end phases (comma-separated "
                          "from eval, numerics, hbm, fleet, kvtier, kvmigrate, audit, moe, "
-                         "turbo, tp), no kernel cases; prints no result line")
+                         "turbo, moe_tp, tp), no kernel cases; prints no result line")
     args = ap.parse_args()
     if args.ab and not args.assets:
         ap.error("--ab needs --assets DIR")
@@ -8126,6 +8615,9 @@ def main() -> int:
     ring_cases(timer, cases)
     moe_cases(timer, cases)
     tp_cases(timer, cases)
+    t0 = time.perf_counter()
+    moe_tp_cases(timer, cases)
+    print(f"⏱️ moe tp cases took {time.perf_counter() - t0:.1f} s", flush=True)
     e2e: dict = {"f8": {"cast": f8_cast_check()}}
     guard_cost([])
     del timer
@@ -8139,6 +8631,9 @@ def main() -> int:
         long_layers = min(LONG_LAYERS, args.layers)
         long_model = os.path.join(tmp, f"llama31_8b_{long_layers}l.m")
         write_model(long_model, long_layers)
+        short_layers = min(SHORT_LAYERS, args.layers)
+        short_model = os.path.join(tmp, f"llama31_8b_{short_layers}l.m")
+        write_model(short_model, short_layers)
         t0 = time.perf_counter()
         main_path(model, tok, text, args.layers, e2e)
         print(f"⏱️ inference + perplexity took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -8170,7 +8665,7 @@ def main() -> int:
         spec_single(long_model, tok, long_layers, e2e)
         print(f"⏱️ spec single took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        spec_serving(long_model, tok, long_layers, e2e)
+        spec_serving(short_model, tok, short_layers, e2e)
         print(f"⏱️ spec serving took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         dense_serving(long_model, tok, long_layers, e2e)
@@ -8185,10 +8680,10 @@ def main() -> int:
         chat_phase(long_model, tok, tmp, e2e)
         print(f"⏱️ chat took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        sp_path(long_model, tok, long_layers, e2e, long_model, long_layers)
+        sp_path(long_model, tok, long_layers, e2e, short_model, short_layers)
         print(f"⏱️ sp path took {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        tp_phase(long_model, tok, e2e)
+        tp_phase(short_model, tok, e2e)
         print(f"⏱️ tp path took {time.perf_counter() - t0:.1f} s", flush=True)
         for name, phase in (
                 ("f8 single sequence",
@@ -8198,7 +8693,7 @@ def main() -> int:
                 ("weight modes", lambda: weight_modes(long_model, tok, long_layers, e2e)),
                 ("nbatches", lambda: nbatches_phase(long_model, tok, e2e)),
                 ("host sampling", lambda: host_sampling_phase(long_model, tok, e2e)),
-                ("weight integrity", lambda: integrity_phase(long_model, tok, tmp, e2e)),
+                ("weight integrity", lambda: integrity_phase(short_model, tok, tmp, e2e)),
                 ("watchdog and failpoints", lambda: watchdog_phase(long_model, tok, e2e)),
                 ("paged step syncs", lambda: paged_step_syncs(long_model, tok, e2e)),
                 ("instrumentation cost", lambda: obs_cost(e2e))):
@@ -8206,7 +8701,7 @@ def main() -> int:
             phase()
             torch.cuda.empty_cache()
             print(f"⏱️ {name} took {time.perf_counter() - t0:.1f} s", flush=True)
-        moe_and_turbo(("moe", "turbo"), long_model, tok, text, tmp, long_layers, e2e)
+        moe_and_turbo(("moe", "turbo", "moe_tp"), long_model, tok, text, tmp, long_layers, e2e)
         late_phases(("eval", "numerics", "hbm", "fleet", "kvtier", "kvmigrate", "audit"),
                     model, long_model, tok, tmp, args.layers, e2e)
     model_parity({})

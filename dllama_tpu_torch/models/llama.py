@@ -11,9 +11,10 @@ and each op launches eagerly. Tensor parallelism runs with the parameters
 of ``parallel.sharding.tp_params`` and a cache split over kv heads under a
 ``tp`` plan: the matmuls through their shards
 (:class:`~dllama_tpu_torch.ops.linear.ShardedWeight`) and attention per
-shard (:func:`_tp_rows` and the sharded K3/K4 wrappers), every other op on
-the lead; the expert-parallel ``shard_map`` of ``_moe_ffn_sparse`` and weight
-offload are not ported. The
+shard (:func:`_tp_rows` and the sharded K3/K4 wrappers), MoE expert
+stacks over an ``(ep, tp)`` grid (:func:`_moe_ffn`, the JAX package's
+``shard_map`` of ``_moe_ffn_sparse``), every other op on the lead; weight
+offload is not ported. The
 numerics observatory's activation taps (:func:`forward_with_taps`,
 ``runtime/numerics.py``) ride the dense forward;
 every single-sequence and batched step takes the tripwire's poison selector
@@ -56,7 +57,7 @@ read back.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -325,9 +326,14 @@ def _expert_decoder(we, x_dtype: torch.dtype, quant_mode: str, gather: bool):
 
 
 def _moe_sparse_local(cfg: ModelConfig, x: torch.Tensor, idx: torch.Tensor,
-                      weights: torch.Tensor, we1, we2, we3) -> torch.Tensor:
-    """Sparse MoE over every expert: ``x [N, D]``, ``idx/weights [N, k]``;
-    one row per (token, k), O(k) experts of work a token.
+                      weights: torch.Tensor, we1, we2, we3, e_lo: int = 0,
+                      e_local: int | None = None) -> torch.Tensor:
+    """Sparse MoE over the experts ``[e_lo, e_lo + e_local)`` (all of them by
+    default) of the stacks ``we1/we2/we3`` (this shard's: ``e_local``
+    experts, any slice of the hidden axis): ``x [N, D]``, ``idx/weights [N,
+    k]``; one row per (token, k), O(k) experts of work a token. Returns the
+    sum over k ``[N, D]`` at ``x``'s dtype, a partial when the stacks are a
+    shard's (the JAX package casts its shards' partials so too).
 
     The JAX package's two regimes: at ``N * k <= 32`` rows each row gathers
     its expert's planes (:func:`_expert_gather_dot`), above that rows are
@@ -338,24 +344,39 @@ def _moe_sparse_local(cfg: ModelConfig, x: torch.Tensor, idx: torch.Tensor,
     ``scatter_add_`` (``bincount`` would synchronise), take the offsets by
     ``cumsum`` and run K5 with the regime's decoder; rows are unsorted,
     scaled by their router weight and summed over k. Nothing is read back,
-    so the step replays as a CUDA graph."""
+    so the step replays as a CUDA graph.
+
+    Rows routed to another shard's experts contribute 0, as in the JAX
+    package (which clamps them to local expert 0 with weight 0): here they
+    sort past the last group, which K5 does not write, and a ``torch.where``
+    zeroes them (an unwritten row times a weight of 0 could be NaN); the
+    CPU gather regime computes them at local expert 0 and zeroes them the
+    same way."""
     N, k = idx.shape
     qm = cfg.quant_mode
+    e_local = cfg.n_experts if e_local is None else e_local
     flat_e = idx.reshape(N * k)
     flat_w = weights.reshape(N * k)
+    valid = None
+    if e_lo != 0 or e_local != cfg.n_experts:
+        flat_e = flat_e - e_lo
+        valid = (flat_e >= 0) & (flat_e < e_local)
+        flat_e = torch.where(valid, flat_e, e_local)  # past the last group
     x_rep = x[torch.arange(N * k, device=x.device) // k]  # a row per (token, k)
     gather = N * k <= _MOE_GATHER_MAX_ROWS
 
     if gather and x.device.type == "cpu":
-        h1 = _expert_gather_dot(x_rep, we1, flat_e, qm)
-        h3 = _expert_gather_dot(x_rep, we3, flat_e, qm)
+        rows = flat_e if valid is None else torch.where(valid, flat_e, 0)
+        h1 = _expert_gather_dot(x_rep, we1, rows, qm)
+        h3 = _expert_gather_dot(x_rep, we3, rows, qm)
         a = (_hidden_act(cfg, h1) * h3).to(x.dtype)
-        y = _expert_gather_dot(a, we2, flat_e, qm)
+        y = _expert_gather_dot(a, we2, rows, qm)
     else:
         order = torch.sort(flat_e, stable=True).indices   # group rows by expert
-        counts = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x.device)
+        counts = torch.zeros(e_local + 1, dtype=torch.int32, device=x.device)
         counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
-        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0, dtype=torch.int32)])
+        offsets = torch.cat([counts.new_zeros(1),
+                             torch.cumsum(counts[:e_local], 0, dtype=torch.int32)])
         xs = x_rep[order]
 
         def dot(inp, we):
@@ -369,19 +390,60 @@ def _moe_sparse_local(cfg: ModelConfig, x: torch.Tensor, idx: torch.Tensor,
         ys = dot((_hidden_act(cfg, h1) * h3).to(cast), we2)
         y = torch.empty_like(ys).index_copy_(0, order, ys)   # unsort to [N * k]
     y = y * flat_w[:, None]
+    if valid is not None:
+        y = torch.where(valid[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
     return torch.sum(y.reshape(N, k, -1), dim=1).to(x.dtype)
 
 
 def _moe_ffn(cfg: ModelConfig, h: torch.Tensor, lp: LayerParams) -> torch.Tensor:
     """Mixture-of-experts SwiGLU FFN, the sparse path (the JAX package's
-    ``moe_impl="sparse"``): O(k) experts a token. ``h [B, T, D]``."""
+    ``moe_impl="sparse"``): O(k) experts a token. ``h [B, T, D]``.
+
+    With the expert stacks over an ``(ep, tp)`` grid
+    (:class:`~dllama_tpu_torch.ops.linear.ExpertShards`, the JAX package's
+    ``shard_map`` of ``_moe_ffn_sparse``): the router runs on the lead over
+    the whole activations, as at tp = 1; each shard ``(i, j)`` runs the local
+    dispatch of :func:`_moe_sparse_local` over its experts and its slice of
+    the hidden axis (the activation is elementwise over it, so each shard's
+    ``act(h1) * h3`` is exact), on its device, K5 once a projection; the
+    shards' partials come back to the lead and are summed in f32 in rank
+    order (the port's f32 wire), and the sum is cast after it, as
+    :func:`~dllama_tpu_torch.ops.linear.merge_shards` does. A hidden axis
+    that does not divide by tp runs the dense oracle instead, as the JAX
+    package's ``_moe_ffn`` does."""
+    from ..ops.linear import ExpertShards, _merge_span, _note_merge
+
     B, T, D = h.shape
+    sharded = isinstance(lp.we1, ExpertShards)
+    if sharded and lp.we1.oracle:
+        return _moe_ffn_dense(cfg, h, replace(lp, we1=lp.we1.shards[0], we2=lp.we2.shards[0],
+                                              we3=lp.we3.shards[0]))
     weights, idx = _moe_router(cfg, h, lp.moe_gate)
     dt = getattr(torch, cfg.compute_dtype)
     x = h.to(dt).reshape(B * T, D)
-    y = _moe_sparse_local(cfg, x, idx.reshape(B * T, -1), weights.to(dt).reshape(B * T, -1),
-                          lp.we1, lp.we2, lp.we3)
-    return y.reshape(B, T, D).to(h.dtype)
+    idx2, w2 = idx.reshape(B * T, -1), weights.to(dt).reshape(B * T, -1)
+    if not sharded:
+        y = _moe_sparse_local(cfg, x, idx2, w2, lp.we1, lp.we2, lp.we3)
+        return y.reshape(B, T, D).to(h.dtype)
+    ep, shards = lp.we1.ep, len(lp.we1.shards)
+    e_local = cfg.n_experts // ep
+    with _merge_span():
+        ins = [tuple(t.to(_expert_device(we)) for t in (x, idx2, w2)) for we in lp.we1.shards]
+    parts = [_moe_sparse_local(cfg, *a, w1, w2_, w3, (s * ep // shards) * e_local, e_local)
+             for s, (a, w1, w2_, w3) in enumerate(zip(ins, lp.we1.shards, lp.we2.shards,
+                                                       lp.we3.shards))]
+    with _merge_span():
+        y = parts[0].to(x.device, torch.float32)
+        for p in parts[1:]:
+            y = y + p.to(x.device, torch.float32)
+    _note_merge("sum", [t for a in ins[1:] for t in a], parts[1:])
+    return y.to(dt).reshape(B, T, D).to(h.dtype)
+
+
+def _expert_device(we) -> torch.device:
+    from ..parallel.sharding import _expert_plane
+
+    return _expert_plane(we).device
 
 
 def _sp(plan) -> bool:

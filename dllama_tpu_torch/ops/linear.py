@@ -80,10 +80,27 @@ class ShardedWeight(NamedTuple):
     split: str
 
 
+class ExpertShards(NamedTuple):
+    """An MoE layer's expert stack ``[E, in, out]`` over an ``(ep, tp)``
+    grid (``parallel/sharding.py::shard_experts``): ``shards`` in rank
+    order, ep-major, each on its device; ``ep`` rows, row ``i`` holding
+    experts ``[i * E / ep, (i + 1) * E / ep)``, and ``len(shards) / ep``
+    shards a row, each its slice of the expert hidden axis (one shard a row
+    when the hidden axis is not cut). Every shard's partial of the FFN is
+    summed in rank order (``models/llama.py::_moe_ffn``). ``oracle``: the
+    hidden axis does not divide by tp, so the layer runs the dense
+    all-experts oracle over the one whole stack on the lead, as the JAX
+    package's ``_moe_ffn`` does."""
+
+    shards: tuple
+    ep: int
+    oracle: bool = False
+
+
 # a weight of any repr: dense, Q40/Q80 planes, a turbo plane
 # (:class:`~dllama_tpu_torch.ops.turbo.TurboWeight`, not named here: turbo
-# imports this module) or any of them over tp shards
-Weight = Union[torch.Tensor, QuantizedWeight, ShardedWeight]
+# imports this module) or any of them over tp shards or an (ep, tp) grid
+Weight = Union[torch.Tensor, QuantizedWeight, ShardedWeight, ExpertShards]
 
 
 def dequantize_weight(w: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
@@ -178,7 +195,11 @@ def linear(x: torch.Tensor, w: Weight, *, impl: str = "auto",
 
 
 def _weight_device(w) -> torch.device:
-    return w.codes.device if isinstance(w, QuantizedWeight) else w.device
+    from .turbo import TurboWeight
+
+    if isinstance(w, QuantizedWeight):
+        return w.codes.device
+    return w.w8.device if isinstance(w, TurboWeight) else w.device
 
 
 # the tp merges' instruments (runtime/profiling.py): every merge adds what it
@@ -250,15 +271,28 @@ def linear_sharded(x: torch.Tensor, w: ShardedWeight, *, impl: str = "auto",
     """:func:`linear` over a tensor-parallel weight (:func:`merge_shards`):
     quantized shards through
     :func:`~dllama_tpu_torch.ops.quant_matmul.quant_matmul_sharded` (K1 or
-    K2 once per shard at its local shapes), dense ones through the plain
-    matrix product, a col split's partials in f32 (exact products of the
-    shard's operands) and cast to ``x.dtype`` after the sum."""
-    from .turbo import TurboWeight
+    K2 once per shard at its local shapes), turbo ones through
+    :func:`~dllama_tpu_torch.ops.turbo.turbo_matmul` (K5 once per shard), dense
+    ones through the plain matrix product, a col split's partials in f32
+    (exact products of the shard's operands) and cast to ``x.dtype`` after
+    the sum. Turbo a8 quantizes the activations once, on the lead, over the
+    whole row, as the JAX package's GSPMD dot does: every shard takes its
+    columns of the codes and the row's one scale."""
+    from .turbo import TurboWeight, quantize_activations_a8, turbo_matmul, turbo_matmul_q8
 
     s0 = w.shards[0]
     if isinstance(s0, TurboWeight):
-        raise ValueError("turbo planes are not sharded over tp yet (--quant-mode turbo "
-                         "with --tp)")
+        if s0.a8:
+            xq, sx = quantize_activations_a8(x)
+
+            def q8(q, s):
+                return turbo_matmul_q8(q, sx.to(q.device), s)
+
+            y = merge_shards(xq, w, q8, q8)
+        else:
+            y = merge_shards(x, w, lambda xs, s: turbo_matmul(xs, s),
+                             lambda xs, s: turbo_matmul(xs.float(), s))
+        return y.to(x.dtype)
     if isinstance(s0, QuantizedWeight):
         from .quant_matmul import quant_matmul_sharded
 

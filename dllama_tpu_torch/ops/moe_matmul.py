@@ -97,19 +97,33 @@ def _group_bounds(offsets: torch.Tensor | None, G: int, R: int) -> list[int]:
     return b
 
 
+def _a8_rows(x: torch.Tensor, sx: torch.Tensor | None):
+    """The a8 decoder's ``(codes, row scales)``: ``x`` quantized per row
+    (:func:`~dllama_tpu_torch.ops.turbo.quantize_activations_a8`), or, with
+    ``sx``, ``x`` itself as the int8 codes of a row quantized already (a
+    tensor-parallel shard's columns of the whole row's codes)."""
+    if sx is None:
+        from .turbo import quantize_activations_a8
+
+        return quantize_activations_a8(x)
+    if x.dtype != torch.int8 or sx.dtype != torch.float32 or sx.numel() != x.shape[0]:
+        raise ValueError(f"moe_matmul: a8 codes must be int8 with one f32 scale a row, got "
+                         f"{x.dtype} {tuple(x.shape)} and {sx.dtype} {tuple(sx.shape)}")
+    return x, sx.reshape(-1, 1)
+
+
 def moe_matmul_plain(x: torch.Tensor, we, offsets: torch.Tensor | None, *,
-                     decoder: str, fast: bool = False) -> torch.Tensor:
+                     decoder: str, fast: bool = False,
+                     sx: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of K5: the JAX package's ragged regime literally,
     one dense product per group over its rows (the group sizes read back to
-    the host). Returns f32 ``[R, N]``."""
+    the host). Rows past the last group's stay 0. Returns f32 ``[R, N]``."""
     G, K, N = _planes(we, decoder)
     R = x.shape[0]
     b = _group_bounds(offsets, G, R)
     y = torch.zeros((R, N), dtype=torch.float32, device=x.device)
     if decoder == "a8":
-        from .turbo import quantize_activations_a8
-
-        xq, sx = quantize_activations_a8(x)
+        xq, sx = _a8_rows(x, sx)
     for g in range(G):
         lo, hi = b[g], b[g + 1]
         if hi <= lo:
@@ -235,7 +249,7 @@ def _lib():
     return lib
 
 
-def _operands(x: torch.Tensor, we, decoder: str, fast: bool):
+def _operands(x: torch.Tensor, we, decoder: str, fast: bool, sx: torch.Tensor | None = None):
     """``(x, sx, planes, scales, dec, scale_bf16, q80)`` as the C entry
     takes them: activations cast (or quantized) for the decoder; ``q80``:
     the codes are any int8 (Q80 and turbo planes; Q40 codes are decoded as
@@ -258,9 +272,7 @@ def _operands(x: torch.Tensor, we, decoder: str, fast: bool):
     if we.w8.dtype != torch.int8 or we.scale.dtype != torch.float32:
         raise ValueError("moe_matmul: turbo planes must be int8 with f32 scales")
     if decoder == "a8":
-        from .turbo import quantize_activations_a8
-
-        xq, sx = quantize_activations_a8(x)
+        xq, sx = _a8_rows(x, sx)
         return xq, sx.reshape(-1).contiguous(), we.w8, we.scale, _DEC_A8, 0, 1
     return (x.to(torch.bfloat16), None, we.w8, we.scale,
             _DEC_A16 if decoder == "a16" else _DEC_PRE, 0, 1)
@@ -303,10 +315,14 @@ def _moe_splits(R: int, K: int, N: int, G: int, kernel: str = "tc") -> tuple[int
 
 
 def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: str,
-               fast: bool = False) -> torch.Tensor:
+               fast: bool = False, sx: torch.Tensor | None = None) -> torch.Tensor:
     """K5: ``x [R, K]`` (rows sorted by group) against the stack ``we`` with
     int32 ``offsets [G + 1]`` on ``x``'s device (or ``None`` for one group);
-    returns f32 ``[R, N]``. The plain version on a CPU tensor."""
+    returns f32 ``[R, N]``. Rows past ``offsets[G]`` belong to no group and
+    are not written. ``sx`` (a8 only): ``x`` is int8 codes quantized
+    already, with these row scales. The plain version on a CPU tensor."""
+    if sx is not None and decoder != "a8":
+        raise ValueError(f"moe_matmul: row scales come with the a8 decoder, not {decoder!r}")
     G, K, N = _planes(we, decoder)
     R = x.shape[0]
     # the offsets stay on the device: every group that can hold a row counts
@@ -315,7 +331,7 @@ def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: st
         fast=fast, plane_elt=we.element_size() if decoder == "dense" else 4)
     if x.device.type == "cpu":
         count(moe_matmul, cost())
-        return moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast)
+        return moe_matmul_plain(x, we, offsets, decoder=decoder, fast=fast, sx=sx)
     if x.device.type != "cuda":
         raise ValueError(f"moe_matmul: unsupported device {x.device}")
     if x.dim() != 2 or x.shape[1] != K:
@@ -327,7 +343,7 @@ def moe_matmul(x: torch.Tensor, we, offsets: torch.Tensor | None, *, decoder: st
     if offsets is not None and (offsets.dtype != torch.int32 or offsets.numel() != G + 1):
         raise ValueError(f"moe_matmul: offsets must be int32 [{G + 1}], got "
                          f"{offsets.dtype} {tuple(offsets.shape)}")
-    xin, sx, planes, scales, dec, sbf16, q80 = _operands(x, we, decoder, fast)
+    xin, sx, planes, scales, dec, sbf16, q80 = _operands(x, we, decoder, fast, sx)
     xin = xin.contiguous()
     for name, t in (("x", xin), ("sx", sx), ("planes", planes), ("scales", scales),
                     ("offsets", offsets)):

@@ -89,17 +89,26 @@ def derive_turbo(qw: QuantizedWeight, a8: bool = True) -> TurboWeight:
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "we1", "we2", "we3")
 
 
+def turbo_layer(lp, a8: bool = True):
+    """Convert every QuantizedWeight leaf of one layer's ``LayerParams`` to a
+    TurboWeight, in place, one leaf at a time: each field is rebound to its
+    derived weight as soon as it lands, which drops the source planes, so
+    the conversion holds at most one extra leaf at once (what
+    ``runtime/hbm.py`` charges). The loader derives each layer so before it
+    cuts it over tp shards (``runtime/weights.py``): a plane's column scales
+    come from its whole columns. Returns ``lp``."""
+    for name in _LAYER_WEIGHTS:
+        w = getattr(lp, name)  # rebinding drops the previous leaf's source
+        if isinstance(w, QuantizedWeight):
+            setattr(lp, name, derive_turbo(w, a8=a8))
+    return lp
+
+
 def turbo_params(params, a8: bool = True):
-    """Convert every QuantizedWeight leaf of ``params`` to a TurboWeight, in
-    place, one leaf at a time: each field is rebound to its derived weight
-    as soon as it lands, which drops the source planes, so the conversion
-    holds at most one extra leaf at once (what ``runtime/hbm.py`` charges).
+    """:func:`turbo_layer` over every layer of ``params``, then the head.
     Returns ``params``; the caller treats the quantized tree as consumed."""
     for lp in params.layers:
-        for name in _LAYER_WEIGHTS:
-            w = getattr(lp, name)  # rebinding drops the previous leaf's source
-            if isinstance(w, QuantizedWeight):
-                setattr(lp, name, derive_turbo(w, a8=a8))
+        turbo_layer(lp, a8)
     if isinstance(params.logits, QuantizedWeight):
         params.logits = derive_turbo(params.logits, a8=a8)
     return params
@@ -134,6 +143,25 @@ def turbo_matmul_plain(x: torch.Tensor, w: TurboWeight) -> torch.Tensor:
         acc = torch.matmul(x2.to(torch.bfloat16).float(), w.w8.float())
         out = acc * w.scale
     return out.reshape(*lead, w.out_features).to(x.dtype)
+
+
+def turbo_matmul_q8(xq: torch.Tensor, sx: torch.Tensor, w: TurboWeight) -> torch.Tensor:
+    """The a8 product of activations quantized already (``xq`` int8 ``[...,
+    K]``, ``sx`` f32 ``[..., 1]`` from :func:`quantize_activations_a8`):
+    ``acc * sx * scale``, f32. A tensor-parallel col split quantizes the whole
+    row once and gives each shard its columns of ``xq`` with the row's
+    ``sx`` (``ops/linear.py::linear_sharded``). K5 with one group on a CUDA
+    tensor, exact integer sums in float64 on a CPU tensor."""
+    *lead, K = xq.shape
+    q2, s2 = xq.reshape(-1, K), sx.reshape(-1, 1)
+    if xq.device.type == "cpu":
+        out = torch.matmul(q2.double(), w.w8.double()).float() * s2 * w.scale
+    else:
+        from .moe_matmul import moe_matmul
+
+        stack = TurboWeight(w.w8[None], w.scale[None], w.a8)
+        out = moe_matmul(q2, stack, None, decoder="a8", sx=s2)
+    return out.reshape(*lead, w.out_features)
 
 
 def turbo_matmul(x: torch.Tensor, w: TurboWeight) -> torch.Tensor:

@@ -13,8 +13,10 @@ builds the block pool and reuses ``prefill_buckets`` and
 sequence over ``sp`` devices (:class:`~dllama_tpu_torch.runtime.kvcache.ShardedKVCache`)
 and attention runs sequence-parallel (:mod:`dllama_tpu_torch.parallel.ring`);
 the weights and everything else stay on the lead device. With ``tp > 1``
-(``--tp``) every matmul weight is cut over ``tp`` shards and the cache over
-kv heads (:mod:`dllama_tpu_torch.parallel.sharding`); the shards' kernels
+(``--tp``) every matmul weight is cut over ``tp`` shards (an MoE layer's
+expert stacks over their hidden axis, turbo planes like the Q40 planes they
+come from) and the cache over kv heads
+(:mod:`dllama_tpu_torch.parallel.sharding`); the shards' kernels
 launch one shard after another from this process, and the rest stays on
 the lead device.
 
@@ -56,9 +58,10 @@ raises leaves no device memory behind.
 ``quant_mode`` (``--quant-mode auto|exact|fast|turbo|turbo16``) fixes the
 quantized matmuls' numerics in the config (``ops/linear.py``). Under
 ``turbo``/``turbo16`` the weights load like fast, then every Q40/Q80 plane
-is requantized to per-column int8 (``ops/turbo.py::turbo_params``, one leaf
-at a time), with the JAX engine's refusals: a dense ``weight_mode`` before
-the load, a file that loaded dense after it. The JAX engine re-reads its
+is requantized to per-column int8 (``ops/turbo.py::turbo_layer``, one leaf
+at a time, each layer as it loads and before a tp cut), with the JAX
+engine's refusals: a dense ``weight_mode`` before the load, a file that
+loaded dense after it. The JAX engine re-reads its
 ``DLLAMA_TPU_QUANT_MODE`` at every dispatch and refuses a change after the
 load; the port reads no environment variable for the mode, so the mode
 cannot change under a loaded engine and that guard has no counterpart.
@@ -441,12 +444,13 @@ class InferenceEngine:
                         f"tensors corrupt in {model_path}: " + ", ".join(res["corrupt"]))
             t_load = time.perf_counter()
             self.params = load_params(self.model_file, self.cfg, self.device, weight_mode,
-                                      self.plan if self.tp > 1 else None)
+                                      self.plan if self.tp > 1 else None,
+                                      turbo=turbo_mode(quant_mode))
             if turbo_mode(quant_mode) is not None:
-                from ..ops.turbo import TurboWeight, turbo_params
+                from ..ops.turbo import TurboWeight
 
-                self.params = turbo_params(self.params, a8=turbo_mode(quant_mode) == "a8")
-                if not isinstance(self.params.layers[0].wq, TurboWeight):
+                wq = self.params.layers[0].wq
+                if not isinstance(wq.shards[0] if self.tp > 1 else wq, TurboWeight):
                     raise ValueError(
                         "--quant-mode turbo/turbo16 requires a quantized (Q40/Q80) "
                         "model file — this one loaded dense weights, so there is "
@@ -473,12 +477,7 @@ class InferenceEngine:
     def _tp_gaps(self, kv_host_blocks) -> list[str]:
         """What runs with this engine that ``tp > 1`` does not take yet:
         each is refused at ``--tp N`` and keeps the default tp at 1."""
-        from ..ops.linear import turbo_mode
-
-        gaps = [("--sp > 1", self.sp > 1),
-                ("MoE models (experts over tp come with ep)", self.cfg.is_moe),
-                (f"--quant-mode {self.quant_mode}", turbo_mode(self.quant_mode) is not None),
-                ("--kv-host-blocks", bool(kv_host_blocks))]
+        gaps = [("--sp > 1", self.sp > 1), ("--kv-host-blocks", bool(kv_host_blocks))]
         return [name for name, hit in gaps if hit]
 
     @property

@@ -324,14 +324,19 @@ class _Loader:
 
 
 def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
-                weight_mode: str = "auto", plan=None) -> Params:
+                weight_mode: str = "auto", plan=None, turbo: str | None = None) -> Params:
     """Build device parameters from an open ``.m`` file. ``weight_mode``:
     ``"auto"`` keeps Q40/Q80 weights as planes, ``"f32"``/``"bf16"``
     dequantize them to dense matrices (the JAX loader's rule for the head:
-    dense bf16 under fast numerics, else the mode's dtype). Under a ``plan``
-    of ``tp > 1`` (``device`` is its lead) each layer is cut into its
-    shards as soon as it is loaded (``parallel/sharding.py``), and the head
-    after it, so that no more than one whole layer is resident twice."""
+    dense bf16 under fast numerics, else the mode's dtype). ``turbo``
+    (``"a8"``/``"a16"``, ``--quant-mode turbo|turbo16``): each layer's
+    quantized planes are requantized to turbo planes as soon as the layer is
+    loaded (``ops/turbo.py::turbo_layer``), and so is a quantized head. Under
+    a ``plan`` (``device`` is its lead) each layer is cut into its shards
+    after that (``parallel/sharding.py``: the dense matmuls over ``tp``, an
+    MoE layer's expert stacks over the ``(ep, tp)`` grid), and the head
+    after the layers, so that no more than one whole layer is resident
+    twice."""
     h = mf.header
     moe = h.n_experts > 0
     if moe and not mf.has_moe_router:
@@ -342,9 +347,10 @@ def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
     ld = _Loader(mf, cfg, device, weight_mode)
     head_dense = torch.bfloat16 if dense_logits_wanted(ld.fast) else None
     qwen3 = h.arch_type == ArchType.QWEN3
-    tp = plan is not None and plan.axis_size("tp") > 1
-    if tp:
+    if plan is not None:
         from ..parallel.sharding import shard_layer, shard_weight
+    if turbo is not None:
+        from ..ops.turbo import derive_turbo, turbo_layer
     layers = []
     for l in range(h.n_layers):
         lp = LayerParams(
@@ -360,12 +366,18 @@ def load_params(mf: ModelFile, cfg: ModelConfig, device="cpu",
             we1=ld.experts("block_expert_w1", l) if moe else None,
             we2=ld.experts("block_expert_w2", l) if moe else None,
             we3=ld.experts("block_expert_w3", l) if moe else None)
-        layers.append(shard_layer(plan, lp) if tp else lp)
+        if turbo is not None:
+            turbo_layer(lp, a8=turbo == "a8")
+        layers.append(shard_layer(plan, lp) if plan is not None else lp)
     logits = ld.matmul("final_matmul_logits", force_dense=head_dense)
+    if turbo is not None and isinstance(logits, QuantizedWeight):
+        logits = derive_turbo(logits, a8=turbo == "a8")
+    if plan is not None and plan.axis_size("tp") > 1:
+        logits = shard_weight(plan, logits, "out")
     return Params(
         embedding=ld.f32("embedding", dtype=getattr(torch, cfg.compute_dtype)),
         layers=layers,
         final_norm=ld.f32("final_norm"),
-        logits=shard_weight(plan, logits, "out") if tp else logits,
+        logits=logits,
         rope=rope_tables(cfg, device),
     )

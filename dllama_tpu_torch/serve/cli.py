@@ -52,7 +52,8 @@ under ``--device cpu``); ``--tp N`` splits every matmul weight and the KV
 cache's heads over ``N`` (the reference's nodes; without it the JAX rule
 picks the largest power of two of the visible cards the model takes, 1 on
 the CPU), for ``inference``, ``perplexity``, ``chat``, ``eval``'s single
-config and the paged ``api``. ``--kv-dtype f8`` stores the KV cache as float8
+config and the paged ``api``, MoE files (their expert stacks cut over the
+expert hidden axis) and turbo planes included. ``--kv-dtype f8`` stores the KV cache as float8
 e4m3, ``--weight-mode f32|bf16`` loads dense dequantized weights,
 ``--nbatches N`` pins the prefill chunk, ``--quant-mode
 auto|exact|fast|turbo|turbo16`` picks the quantized matmuls' numerics (to

@@ -375,8 +375,11 @@ def test_engine_tp_refusals_and_default(files, tmp_path):
         InferenceEngine(m, t, device="cpu", tp=3)
     with pytest.raises(ValueError, match="--tp 2 does not support --sp > 1"):
         InferenceEngine(m, t, device="cpu", tp=2, sp=2)
-    with pytest.raises(ValueError, match="--tp 2 does not support --quant-mode turbo"):
-        InferenceEngine(m, t, device="cpu", tp=2, quant_mode="turbo")
+    eng = InferenceEngine(m, t, device="cpu", tp=2, quant_mode="turbo")
+    try:  # turbo planes shard like the Q40 planes they come from
+        assert eng.tp == 2 and type(eng.params.layers[0].wq.shards[0]).__name__ == "TurboWeight"
+    finally:
+        eng.close()
     with pytest.raises(ValueError, match="--tp 2 does not support --kv-host-blocks"):
         InferenceEngine(m, t, device="cpu", tp=2, kv_block_size=16, kv_host_blocks=8)
     with pytest.raises(ValueError, match="needs 2 cpu devices"):
@@ -384,11 +387,23 @@ def test_engine_tp_refusals_and_default(files, tmp_path):
     moe = tmp_path / "moe.m"
     write_tiny_model(moe, tiny_header_params(vocab_size=268, seq_len=96, n_experts=4,
                                              n_active_experts=2), np.random.default_rng(43))
-    with pytest.raises(ValueError, match="--tp 2 does not support MoE models"):
-        InferenceEngine(str(moe), t, device="cpu", tp=2)
+    eng = InferenceEngine(str(moe), t, device="cpu", tp=2)
+    try:
+        assert eng.tp == 2 and type(eng.params.layers[0].we1).__name__ == "ExpertShards"
+    finally:
+        eng.close()
     eng = InferenceEngine(str(moe), t, device="cpu", tp=None)
     try:
-        assert eng.tp == 1  # MoE keeps the default at 1
+        # MoE takes the JAX engine's default rule, as dense models do: one
+        # device on the CPU
+        assert eng.tp == sharding.default_tp(eng.cfg, 1) == 1
+        with jax_mfile.ModelFile.open(str(moe)) as jmf:
+            jcfg = JaxConfig.from_header(jmf.header)
+        for n in (2, 4, 8):
+            rule = 1  # the JAX engine's loop (runtime/engine.py:285-297)
+            while rule * 2 <= n and jax_tp_ok(jcfg, rule * 2):
+                rule *= 2
+            assert sharding.default_tp(eng.cfg, n) == rule
     finally:
         eng.close()
 
